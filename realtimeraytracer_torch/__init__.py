@@ -1,0 +1,41 @@
+"""realtimeraytracer_torch — the ray tracer on PyTorch and CUDA.
+
+A port of ``realtimeraytracer_tpu`` (JAX on a TPU), which stays in the
+repository as its reference.  This package imports torch and NumPy, never
+jax.  It renders the reference's ratio-estimator frame on untextured,
+non-instanced scenes: jittered primaries, closest hit, surface, LTC
+analytic light, stochastic area-light shadows, sun, HDRI miss, tonemap,
+A-Trous denoising of both stochastic images and the ratio combine.  Two
+hand-written CUDA kernels for Hopper carry it on a GPU (csrc/): the v7
+block traversal and the fused two-image A-Trous iteration.
+
+Public API:
+    Scene, Camera, Material, Sphere, TriangleMesh, AreaLight, DirectionalLight
+    render(scene, cfg, device=...)    — forward render to an (H, W, 3) image
+    render_pipeline(...)              — the same, by its pipeline name
+    RenderConfig                      — all knobs (resolution, spp, ...)
+"""
+
+from realtimeraytracer_torch.config import RenderConfig
+from realtimeraytracer_torch.scene.camera import Camera
+from realtimeraytracer_torch.scene.materials import Material
+from realtimeraytracer_torch.scene.geometry import Sphere, TriangleMesh
+from realtimeraytracer_torch.scene.lights import AreaLight, DirectionalLight
+from realtimeraytracer_torch.scene.scene import Scene
+from realtimeraytracer_torch.render.megakernel import render
+from realtimeraytracer_torch.render.pipeline import render_pipeline
+
+__all__ = [
+    "RenderConfig",
+    "Camera",
+    "Material",
+    "Sphere",
+    "TriangleMesh",
+    "AreaLight",
+    "DirectionalLight",
+    "Scene",
+    "render",
+    "render_pipeline",
+]
+
+__version__ = "0.1.0"

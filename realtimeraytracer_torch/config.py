@@ -1,0 +1,161 @@
+"""Render configuration.
+
+Counterpart of realtimeraytracer_tpu/config.py: the same fields, defaults
+and backend strings, so one set of knobs drives both packages.  The port
+renders the ratio-estimator frame with the "pallas" route (v7 traversal,
+here a CUDA kernel) or "brute"; the other traversal backends, and every
+field that only unported code reads, raise when set (``check_supported``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+# Backends of the JAX package that this port does not have, and where
+# ROADMAP.md queues or drops them.
+UNPORTED_BACKENDS = {
+    "wide": "the wide XLA backend (ROADMAP queue A, 'Not to port')",
+    "hier": "the v8 hierarchy kernel (ROADMAP queue B, B3)",
+    "quarter": "the v9 quarter kernel (ROADMAP queue B, B2)",
+    "hybrid": "hybrid routing over v7/v8/v9 (ROADMAP queue B, after B3)",
+}
+
+# Fields of the JAX RenderConfig that no code of this port reads, and why
+# (ROADMAP.md queue A).  check_supported raises when one is set away from
+# its default, so that no setting is dropped silently.
+_WAVEFRONT = "it waits for the wavefront path tracer (ROADMAP A5)"
+_ALPHA = "it waits for alpha-tested any-hit (ROADMAP A3)"
+_MIPS = "it waits for the texture atlas and mips (ROADMAP A1)"
+_WIDE = "it belongs to the wide XLA backend (ROADMAP A, 'Not to port')"
+_ATTIC = "it belongs to the JAX package's retired render/attic/ backends"
+_NOT_PORTED = "the JAX package's option is not ported (ROADMAP A, 'Not to port')"
+UNPORTED_FIELDS = {
+    "max_bounces": _WAVEFRONT,
+    "sort_bounces": _WAVEFRONT,
+    "tile_rays": _WAVEFRONT,
+    "alpha_rounds": _ALPHA,
+    "alpha_threshold": _ALPHA,
+    "serialize_shadow_samples": _ALPHA,
+    "alpha_split": _NOT_PORTED,
+    "batch_occlusion": _NOT_PORTED,
+    "batch_occlusion_min_rays": _NOT_PORTED,
+    "mip_textures": _MIPS,
+    "aniso_taps": _MIPS,
+    "cluster_size": _WIDE,
+    "wide_tile": _WIDE,
+    "max_cluster_visits": _WIDE,
+    "packet_size": _ATTIC,
+    "traversal_unroll": _ATTIC,
+    "max_traversal_steps": _ATTIC,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """All render-time knobs (see the JAX package's RenderConfig for the
+    reference-source notes on each)."""
+
+    width: int = 1920
+    height: int = 1080
+
+    primary_rays: int = 4
+    jitter: bool = True
+    shadow_rays: int = 3
+    max_bounces: int = 1
+
+    t_min: float = 1e-3
+    t_max: float = 1e4
+    shadow_ray_margin: float = 0.5
+    shadow_origin_offset: float = 0.01
+
+    denoise_iterations: int = 4
+    denoise_c_phi: float = 1.0
+    denoise_n_phi: float = 0.001
+    denoise_p_phi: float = 0.001
+
+    serialize_shadow_samples: bool | None = None
+
+    tonemap: str = "aces"
+    gamma: float = 2.2
+
+    fast_lut: bool = False
+
+    light_pdf_scale: float = 0.7
+    analytic_gain: float = 5.0
+    sampled_gain: float = 10.0
+    sun_gain: float = 20.0
+
+    use_bvh: bool = True
+    bvh_leaf_size: int = 4
+    max_traversal_steps: int = 16384
+    alpha_test: bool | None = None
+    alpha_rounds: int = 4
+    alpha_threshold: float = 0.9
+    alpha_split: bool = False
+
+    # "auto" resolves to "pallas" (the v7 kernel) when the scene has a BVH
+    # and use_bvh is set, else "brute".
+    backend: str = "auto"
+    packet_size: int = 64
+    traversal_unroll: int = 8
+    cluster_size: int = 256
+    wide_tile: int = 128
+    max_cluster_visits: int = 64
+    ray_order: str = "block"
+    debug_traversal: bool = False
+
+    tile_rays: int = 8192
+    sort_bounces: bool = True
+
+    sort_shadows: bool = True
+    sort_shadows_min_rays: int = 65536
+
+    batch_occlusion: bool = False
+    batch_occlusion_min_rays: int = 65536
+
+    # The port always denoises with the pair denoiser (the CUDA kernel on
+    # CUDA tensors, its plain twin on CPU tensors): None and True select
+    # it; False, the JAX package's per-image stencil, raises.
+    use_pallas_denoise: bool | None = None
+
+    mip_textures: bool = False
+    aniso_taps: int = 1
+
+    dtype: str = "float32"
+
+    def replace(self, **kw) -> "RenderConfig":
+        return dataclasses.replace(self, **kw)
+
+    @property
+    def num_pixels(self) -> int:
+        return self.width * self.height
+
+
+def check_supported(cfg: RenderConfig) -> None:
+    """Raise for settings whose code paths are not ported yet, so that a
+    frame never renders silently without them."""
+    if cfg.backend in UNPORTED_BACKENDS:
+        raise NotImplementedError(
+            f"backend {cfg.backend!r} is not ported yet: "
+            f"{UNPORTED_BACKENDS[cfg.backend]}")
+    if cfg.alpha_test:
+        raise NotImplementedError(
+            "alpha-tested any-hit (render/alpha.py) is not ported yet "
+            "(ROADMAP queue A)")
+    if cfg.debug_traversal:
+        raise NotImplementedError(
+            "traversal diagnostics (render/diagnostics.py) are not ported yet "
+            "(ROADMAP queue A)")
+    if cfg.use_pallas_denoise is False:
+        raise ValueError(
+            "use_pallas_denoise=False has no counterpart in the port: the "
+            "frame is always denoised by the pair denoiser")
+    defaults = {f.name: f.default for f in dataclasses.fields(RenderConfig)}
+    for name, home in UNPORTED_FIELDS.items():
+        value = getattr(cfg, name)
+        if value != defaults[name]:
+            raise NotImplementedError(
+                f"RenderConfig.{name}={value!r} has no code path in the "
+                f"port: {home}")
+    if cfg.dtype != "float32":
+        raise ValueError(f"only float32 rendering exists, got {cfg.dtype!r}")

@@ -1,0 +1,104 @@
+"""Where one frame's time goes on a GPU.
+
+    python -m realtimeraytracer_torch.frame_profile [--width 1920] [--height 1080]
+        [--spp 4] [--shadow-rays 3] [--tris 100000] [--no-sort-shadows]
+
+No JAX counterpart (the JAX package profiled with scripts/ probes on the
+TPU).  Renders procedural_mesh(tris) once to warm up, times three frames
+with CUDA events (median), then renders one frame under torch.profiler with
+CPU and CUDA activities and prints: the device's busy time (the sum of
+kernel durations; one stream, so kernels do not overlap) and idle share
+over that frame, the device-timeline span of each labelled range of the
+frame (shade.closest, shade.lights, shade.sun, v7.cull, v7.closest,
+v7.occluded, frame.denoise) and the kernels with the most device time.
+It needs a CUDA device and fails without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import subprocess
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from realtimeraytracer_torch import RenderConfig, scenes
+from realtimeraytracer_torch.render.pipeline import render_pipeline_gpu
+
+RANGES = ("shade.closest", "shade.lights", "shade.sun", "v7.cull",
+          "v7.closest", "v7.occluded", "frame.denoise")
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--width", type=int, default=1920)
+    ap.add_argument("--height", type=int, default=1080)
+    ap.add_argument("--spp", type=int, default=4)
+    ap.add_argument("--shadow-rays", type=int, default=3)
+    ap.add_argument("--tris", type=int, default=100_000)
+    ap.add_argument("--no-sort-shadows", action="store_true",
+                    help="trace area shadows in pixel-block order (cfg.sort_shadows=False)")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("frame_profile needs a CUDA device")
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    cfg = RenderConfig(width=args.width, height=args.height, primary_rays=args.spp,
+                       shadow_rays=args.shadow_rays, backend="pallas",
+                       sort_shadows=not args.no_sort_shadows)
+    scene = scenes.procedural_mesh(args.tris, sun=True)
+    gpu = scene.compile().to("cuda")
+    frame = scene.camera.viewport_frame(cfg.width, cfg.height, device="cuda")
+    render_pipeline_gpu(gpu, frame, cfg)                        # warm-up
+    torch.cuda.synchronize()
+
+    def timed_frame() -> float:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        render_pipeline_gpu(gpu, frame, cfg)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    times = [timed_frame() for _ in range(3)]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiled_ms = timed_frame()
+
+    # Device-side events: kernels and memcpys, plus the GPU-timeline spans
+    # of the record_function ranges (which carry the ranges' names).
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in device if e.name not in RANGES]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    print(f"card: {card}")
+    print(f"frame {cfg.width}x{cfg.height}, {args.spp} spp x {args.shadow_rays} shadow rays, "
+          f"sort_shadows={cfg.sort_shadows}, procedural_mesh({args.tris}): "
+          f"{sorted(times)[1]:.2f} ms median of {[round(t, 2) for t in times]} (CUDA events); "
+          f"{profiled_ms:.2f} ms under the profiler")
+    print(f"device busy {busy_ms:.2f} ms in {len(kernels)} kernels; idle share "
+          f"{max(0.0, 1.0 - busy_ms / profiled_ms):.4f} of the profiled frame")
+
+    span = collections.defaultdict(float)
+    calls = collections.Counter()
+    for e in device:
+        if e.name in RANGES:
+            span[e.name] += e.time_range.elapsed_us() / 1e3
+            calls[e.name] += 1
+    for name in RANGES:
+        print(f"range {name:14s} {span[name]:10.2f} ms device span over {calls[name]} calls")
+
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in kernels:
+        by_name[e.name][0] += e.time_range.elapsed_us() / 1e3
+        by_name[e.name][1] += 1
+    print("kernels by device time:")
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]:
+        print(f"  {ms:10.3f} ms {n:6d}x  {name[:110]}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,292 @@
+"""The single-pass frame renderer: primaries, surface, lights, sun.
+
+Counterpart of realtimeraytracer_tpu/render/megakernel.py
+(``_shadow_sort_key``, ``shade_sample``, ``render_components``,
+``render``), the re-design of the reference's ray-generation shader
+(raygen.rgen:71-364).  Per pixel it traces jittered primary rays and
+produces three radiance estimates — analytic direct light via LTC,
+stochastic unshadowed and stochastic shadowed — plus a normal/position
+G-buffer, which render/pipeline.py denoises and ratio-combines.
+
+The whole image is one ray batch; per-ray control flow is masks.  The
+hinted, multi-segment and batched-occlusion branches of the JAX version
+are inert for the backends ported so far (v7 and brute have no hints and
+no fused queries, and batch_occlusion needs a per-ray-culling backend), so
+they are not carried.  The per-light shadow-ray sort is carried, since v7
+culls per tile.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch.profiler import record_function
+
+from realtimeraytracer_torch.config import RenderConfig
+from realtimeraytracer_torch.ops import rng
+from realtimeraytracer_torch.ops.camera_rays import (
+    ViewportFrame, block_permutation, generate_rays)
+from realtimeraytracer_torch.ops.intersect import BIG_T
+from realtimeraytracer_torch.ops.ltc import fetch_ltc_params, ltc_evaluate
+from realtimeraytracer_torch.ops.shading import (
+    base_color_split, cook_torrance_specular, lambert_diffuse)
+from realtimeraytracer_torch.ops.texture import sample_equirect
+from realtimeraytracer_torch.ops.tonemap import srgb_to_linear, tonemap
+from realtimeraytracer_torch.ops.vecmath import cross, dot, normalize
+from realtimeraytracer_torch.render.backends import TraceBackend, make_backend
+from realtimeraytracer_torch.render.surface import resolve_surface
+from realtimeraytracer_torch.scene.gpu_scene import TorchScene
+
+
+def _spread(v: torch.Tensor) -> torch.Tensor:
+    v = (v | (v << 8)) & 0x0100FF
+    v = (v | (v << 4)) & 0x010C30C3
+    v = (v | (v << 2)) & 0x09249249
+    return v
+
+
+def _shadow_sort_key(origin, to_light, active):
+    """Shadow-ray coherence key (uint32 in int64): direction-to-light octant
+    in the high 3 bits, then a 3D Morton code of the shadow origin; inactive
+    lanes get 0xFFFFFFFF and sort last.  Sorted tiles have thin shadow
+    shafts, which is what a per-tile cull pays for."""
+    lo = torch.where(active[:, None], origin, 1e9).amin(dim=0)
+    hi = torch.where(active[:, None], origin, -1e9).amax(dim=0)
+    ext = torch.clamp_min(hi - lo, 1e-6)
+    q = torch.clamp((origin - lo) / ext * 31.0, 0, 31).to(torch.int64)
+    m = (_spread(q[:, 0]) << 2) | (_spread(q[:, 1]) << 1) | _spread(q[:, 2])
+    oct_ = ((to_light[:, 0] > 0).to(torch.int64)
+            + 2 * (to_light[:, 1] > 0).to(torch.int64)
+            + 4 * (to_light[:, 2] > 0).to(torch.int64))
+    key = (oct_ << 28) | (m & 0x0FFFFFFF)
+    return torch.where(active, key, 0xFFFFFFFF)
+
+
+class SampleRadiance(NamedTuple):
+    """Per-ray output of one primary-sample shade."""
+
+    analytic: torch.Tensor    # (R, 3)
+    shadowed: torch.Tensor    # (R, 3)
+    unshadowed: torch.Tensor  # (R, 3)
+    normal: torch.Tensor      # (R, 3), zero on miss/light hits
+    position: torch.Tensor    # (R, 3)
+
+
+def shade_sample(gpu: TorchScene, cfg: RenderConfig, origins, dirs,
+                 pixel_seed, backend: TraceBackend,
+                 sample_index: int = 0) -> SampleRadiance:
+    """Shade one primary sample of every pixel.  pixel_seed: (R,) uint32
+    values in int64 (px*733 + py*1933 + frame)."""
+    R = origins.shape[0]
+    # Primaries share the pinhole origin: common="origin".
+    with record_function("shade.closest"):
+        hit = backend.closest(origins, dirs, cfg.t_min, cfg.t_max, common="origin")
+    surf = resolve_surface(gpu, hit, origins, dirs)
+
+    # Miss: equirect HDRI environment (miss.rmiss:21-26).
+    env = srgb_to_linear(sample_equirect(gpu.hdri, dirs)) * gpu.env_color
+    base = (torch.where(surf.missed[:, None], env, 0.0)
+            + torch.where(surf.hit_light[:, None], surf.light_color, 0.0))
+
+    # Surface shading set-up (raygen.rgen:124-157).
+    p = surf.position
+    n = surf.normal
+    view = normalize(origins - p)
+    m_diffuse, m_specular = base_color_split(surf.albedo, surf.metallic)
+    ndotv = torch.clamp(dot(n, view), 0.0, 1.0)
+    minv, t2 = fetch_ltc_params(gpu.ltc1, gpu.ltc2, surf.roughness, ndotv,
+                                fast=cfg.fast_lut)
+    fresnel = m_specular * t2[..., 0:1] + (1.0 - m_specular) * t2[..., 1:2]
+    shadow_origin = p + n * cfg.shadow_origin_offset
+    lam = lambert_diffuse(surf.albedo, surf.metallic)
+
+    num_s = cfg.shadow_rays
+    use_sort = (cfg.sort_shadows and R >= cfg.sort_shadows_min_rays
+                and not backend.perray_cull)
+    analytic = torch.zeros_like(origins)
+    shadowed = torch.zeros_like(origins)
+    unshadowed = torch.zeros_like(origins)
+
+    # Per light triangle (raygen.rgen:164-285).
+    with record_function("shade.lights"):
+        for i in range(gpu.num_light_tris):
+            p0, p1, p2 = gpu.lt_v0[i], gpu.lt_v1[i], gpu.lt_v2[i]
+            lcolor, lintensity = gpu.lt_color[i], gpu.lt_intensity[i]
+            ltwo, lvalid = gpu.lt_two_sided[i], gpu.lt_valid[i]
+
+            nl = cross(p2 - p1, p0 - p1)
+            area = torch.sqrt(torch.clamp_min(dot(nl, nl), 0.0)) * 0.5
+            inv_pdf = area * cfg.light_pdf_scale             # 1/pdf
+            nlu = normalize(nl)
+            front = dot(nlu[None, :], p - p0[None, :]) >= 0.0
+            active = (lvalid & (ltwo | front)) & surf.valid
+            active_f = active.to(torch.float32)[:, None]
+
+            # Shadow-ray reordering (_shadow_sort_key): one stable argsort per
+            # light triangle; all samples trace and shade in sorted order and
+            # the per-ray seed travels with the ray, so results equal the
+            # unsorted path.
+            if use_sort:
+                centroid = (p0 + p1 + p2) * (1.0 / 3.0)
+                key = _shadow_sort_key(shadow_origin, centroid[None, :] - p, active)
+                order = torch.argsort(key, stable=True)
+                inv_order = torch.argsort(order, stable=True)
+                packed = torch.cat([p, n, view, lam, m_specular,
+                                    surf.roughness[:, None]], dim=1)[order]
+                ps, ns, views = packed[:, 0:3], packed[:, 3:6], packed[:, 6:9]
+                lams, m_specs = packed[:, 9:12], packed[:, 12:15]
+                roughs = packed[:, 15]
+                seeds, actives = pixel_seed[order], active[order]
+                sos = ps + ns * cfg.shadow_origin_offset
+            else:
+                ps, ns, views, lams = p, n, view, lam
+                m_specs, roughs = m_specular, surf.roughness
+                seeds, actives, sos = pixel_seed, active, shadow_origin
+
+            shadowed_sum = torch.zeros_like(ps)
+            unshadowed_sum = torch.zeros_like(ps)
+            for s in range(num_s):
+                # Barycentric light sample (raygen.rgen:213-219); seeds are
+                # decorrelated per sample, light triangle and primary sample.
+                seed = (seeds + s + i * 7919 + sample_index * 15485863) & rng.MASK32
+                r1 = rng.uniform(seed)
+                r2 = rng.uniform(seed + 100)
+                over = r1 + r2 > 1.0
+                r1 = torch.where(over, 1.0 - r1, r1)
+                r2 = torch.where(over, 1.0 - r2, r2)
+                lpos = (p0[None, :] + r1[:, None] * (p1 - p0)[None, :]
+                        + r2[:, None] * (p2 - p0)[None, :])
+                delta = lpos - ps
+                dist = torch.sqrt(torch.clamp_min((delta * delta).sum(-1), 1e-20))
+                sdir = delta / dist[..., None]
+
+                # Forward shadow segments with the margin at the light end;
+                # inactive lanes get the empty interval [BIG, -BIG).
+                t_lo = torch.where(actives, cfg.t_min, BIG_T)
+                t_hi = torch.where(actives, dist - cfg.shadow_ray_margin, -BIG_T)
+                occ = backend.occluded(sos, sdir, t_lo, t_hi)
+                lit = torch.where(occ, 0.0, 1.0)[:, None]
+
+                ndotl = torch.clamp_min((ns * sdir).sum(-1), 0.1)
+                spec = cook_torrance_specular(views, sdir, ns, roughs, m_specs)
+                brdf = spec + lams
+                atten = 1.0 / torch.clamp_min(dist * dist, 1e-20)
+                radiance = (lcolor[None, :] * lintensity
+                            * (ndotl * atten)[:, None] * cfg.sampled_gain)
+                contrib = brdf * radiance * inv_pdf
+                shadowed_sum = shadowed_sum + lit * contrib
+                unshadowed_sum = unshadowed_sum + contrib
+            if use_sort:
+                both = torch.cat([shadowed_sum, unshadowed_sum], dim=1)[inv_order]
+                shadowed_sum, unshadowed_sum = both[:, 0:3], both[:, 3:6]
+            shadowed_s = shadowed_sum * (1.0 / max(num_s, 1))
+            unshadowed_s = unshadowed_sum * (1.0 / max(num_s, 1))
+
+            # Analytic LTC (raygen.rgen:277-283); None = identity Minv.
+            two_b = ltwo.expand(R)
+            diffuse = ltc_evaluate(n, view, p, None, p0, p1, p2, nlu, two_b,
+                                   gpu.ltc2, fast=cfg.fast_lut)
+            specular = ltc_evaluate(n, view, p, minv, p0, p1, p2, nlu, two_b,
+                                    gpu.ltc2, fast=cfg.fast_lut)
+            analytic_c = (lcolor[None, :] * lintensity
+                          * (specular[:, None] * fresnel + m_diffuse * diffuse[:, None])
+                          * cfg.analytic_gain)
+            analytic = analytic + analytic_c * active_f
+            shadowed = shadowed + shadowed_s * active_f
+            unshadowed = unshadowed + unshadowed_s * active_f
+
+    # Directional sun (raygen.rgen:288-338); lanes facing away get empty
+    # segments.
+    with record_function("shade.sun"):
+        sun_dir = gpu.sun_direction.expand(R, 3)
+        sun_ndotl_raw = dot(n, gpu.sun_direction[None, :])
+        sun_active = surf.valid & (sun_ndotl_raw > 0.0) & (gpu.sun_intensity > 0.0)
+        sun_occ = backend.occluded(
+            shadow_origin, sun_dir,
+            torch.where(sun_active, cfg.t_min, BIG_T),
+            torch.where(sun_active, cfg.t_max, -BIG_T), common="dir")
+        sun_lit = torch.where(sun_occ, 0.0, 1.0)[:, None]
+        sun_ndotl = torch.clamp_min(sun_ndotl_raw, 1e-4)
+        # Parity quirk: NdotV clamped from below at 5.0 (raygen.rgen:322).
+        sun_spec = cook_torrance_specular(view, sun_dir, n, surf.roughness,
+                                          m_specular, min_ndotv=5.0, min_ndotl=1e-4)
+        sun_brdf = sun_spec + lam
+        sun_l = (gpu.sun_color[None, :] * gpu.sun_intensity * sun_ndotl[:, None]
+                 * cfg.sun_gain)
+        sun_af = sun_active.to(torch.float32)[:, None]
+        analytic = analytic + sun_brdf * sun_l * sun_af
+        shadowed = shadowed + sun_lit * sun_brdf * sun_l * sun_af
+        unshadowed = unshadowed + sun_brdf * sun_l * sun_af
+
+    g_mask = surf.valid.to(torch.float32)[:, None]
+    return SampleRadiance(
+        analytic=analytic + base,
+        shadowed=shadowed + base,
+        unshadowed=unshadowed + base,
+        normal=n * g_mask,
+        position=p * g_mask,
+    )
+
+
+class RenderComponents(NamedTuple):
+    """Tonemapped per-pixel component images (H, W, 3) + G-buffer."""
+
+    analytic: torch.Tensor
+    shadowed: torch.Tensor
+    unshadowed: torch.Tensor
+    normal: torch.Tensor
+    position: torch.Tensor
+
+
+def render_components(gpu: TorchScene, frame: ViewportFrame, cfg: RenderConfig,
+                      frame_index: int = 0,
+                      backend: TraceBackend | None = None) -> RenderComponents:
+    """primary_rays jittered samples per pixel, averaged (raygen.rgen main,
+    without the denoise/combine passes)."""
+    if backend is None:
+        backend = make_backend(gpu, cfg)
+    h, w = cfg.height, cfg.width
+    dev = gpu.device
+    py = torch.arange(h, dtype=torch.int64, device=dev)[:, None]
+    px = torch.arange(w, dtype=torch.int64, device=dev)[None, :]
+    pixel_seed = ((px * 733 + py * 1933 + int(frame_index)) & rng.MASK32).reshape(-1)
+
+    # Coherent 2-D pixel blocks for the tile cull; undone before reshaping.
+    if cfg.ray_order == "block":
+        perm, inv_perm = block_permutation(w, h, device=dev)
+        pixel_seed = pixel_seed[perm]
+    else:
+        perm = inv_perm = None
+
+    acc = None
+    for s in range(cfg.primary_rays):
+        o, d = generate_rays(frame, w, h, sample_index=s, jitter=cfg.jitter)
+        if perm is not None:
+            o, d = o[perm], d[perm]
+        out = shade_sample(gpu, cfg, o, d, pixel_seed, backend, sample_index=s)
+        acc = out if acc is None else SampleRadiance(*(a + b for a, b in zip(acc, out)))
+    if inv_perm is not None:
+        acc = SampleRadiance(*(x[inv_perm] for x in acc))
+
+    inv = 1.0 / cfg.primary_rays
+
+    def tm(x):
+        return tonemap(x * inv, cfg.tonemap, cfg.gamma).reshape(h, w, 3)
+
+    return RenderComponents(
+        analytic=tm(acc.analytic),
+        shadowed=tm(acc.shadowed),
+        unshadowed=tm(acc.unshadowed),
+        normal=normalize(acc.normal * inv).reshape(h, w, 3),
+        position=(acc.position * inv).reshape(h, w, 3),
+    )
+
+
+def render(scene, cfg: RenderConfig | None = None, frame_index: int = 0,
+           device: str | torch.device = "cpu") -> torch.Tensor:
+    """One-call render of a Scene on `device`: compile, trace, denoise,
+    ratio-combine.  Returns the (H, W, 3) float32 image in [0, 1]."""
+    from realtimeraytracer_torch.render.pipeline import render_pipeline
+
+    return render_pipeline(scene, cfg, frame_index=frame_index, device=device)

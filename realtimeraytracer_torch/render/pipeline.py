@@ -1,0 +1,66 @@
+"""Full frame pipeline: trace -> A-Trous denoise x N -> ratio combine.
+
+Counterpart of realtimeraytracer_tpu/render/pipeline.py
+(``denoise_and_combine``, ``render_pipeline_gpu``, ``render_pipeline``;
+reference app/application.cppm:352-480).  PyTorch runs eagerly, so there is
+no jit: the frame is a sequence of kernel launches on the scene's device.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.profiler import record_function
+
+from realtimeraytracer_torch.config import RenderConfig, check_supported
+from realtimeraytracer_torch.ops.camera_rays import ViewportFrame
+from realtimeraytracer_torch.ops.denoise import ratio_combine
+from realtimeraytracer_torch.ops.denoise_kernel import atrous_denoise_pair
+from realtimeraytracer_torch.render.backends import TraceBackend
+from realtimeraytracer_torch.render.megakernel import (
+    RenderComponents, render_components)
+from realtimeraytracer_torch.scene.gpu_scene import TorchScene
+
+
+def denoise_and_combine(comp: RenderComponents, cfg: RenderConfig) -> torch.Tensor:
+    """Denoise the stochastic pair, then ratio-combine with the analytic.
+
+    Always the fused pair denoiser (ops/denoise_kernel.py): the CUDA kernel
+    on CUDA tensors, at any iteration count, and its plain twin on CPU
+    tensors."""
+    it = cfg.denoise_iterations
+    if it <= 0:
+        return ratio_combine(comp.analytic, comp.shadowed, comp.unshadowed)
+    with record_function("frame.denoise"):
+        shadowed, unshadowed = atrous_denoise_pair(
+            comp.shadowed, comp.unshadowed, comp.normal, comp.position, it,
+            cfg.denoise_c_phi, cfg.denoise_n_phi, cfg.denoise_p_phi)
+    return ratio_combine(comp.analytic, shadowed, unshadowed)
+
+
+def render_pipeline_gpu(gpu: TorchScene, frame: ViewportFrame, cfg: RenderConfig,
+                        frame_index: int = 0,
+                        backend: TraceBackend | None = None) -> torch.Tensor:
+    """Render a compiled scene: (H, W, 3) float32 image on the scene's
+    device."""
+    check_supported(cfg)
+    with torch.inference_mode():
+        comp = render_components(gpu, frame, cfg, frame_index, backend)
+        return denoise_and_combine(comp, cfg)
+
+
+def render_pipeline(scene, cfg: RenderConfig | None = None,
+                    frame_index: int = 0,
+                    device: str | torch.device = "cpu") -> torch.Tensor:
+    """Host entry: compile the Scene, move it to `device`, build the camera
+    frame and render.  Returns an (H, W, 3) float32 image in [0, 1]."""
+    from realtimeraytracer_torch.scene.scene import Scene
+
+    cfg = cfg or RenderConfig()
+    if not isinstance(scene, Scene):
+        raise TypeError(
+            "render_pipeline(scene) expects a Scene; for compiled scenes use "
+            "render_pipeline_gpu(gpu, frame, cfg)")
+    check_supported(cfg)
+    gpu = scene.compile(bvh_leaf_size=cfg.bvh_leaf_size).to(device)
+    frame = scene.camera.viewport_frame(cfg.width, cfg.height, device=device)
+    return render_pipeline_gpu(gpu, frame, cfg, frame_index)

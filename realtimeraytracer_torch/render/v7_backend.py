@@ -1,0 +1,351 @@
+"""v7 traversal: cull 128-ray tiles against 32-triangle boxes, then visit
+128-triangle blocks in entry order with an exact stop rule.
+
+Counterpart of realtimeraytracer_tpu/render/pallas_backend.py: ``_pack_rays``,
+``_sub_entries``, ``_pack_id_keys``, ``cull_keys`` (plain tensor ops here,
+as they are XLA there), ``trace_blocks`` (the Pallas kernel, here the CUDA
+kernel csrc/trace_v7.cu), ``pallas_closest`` / ``pallas_occluded`` (here
+``v7_closest`` / ``v7_occluded``) and ``make_pallas_backend`` (here
+``make_v7_backend``; the config string stays "pallas").
+
+``trace_blocks`` launches the CUDA kernel for CUDA tensors and runs its plain
+PyTorch twin (``trace_keys_plain``) for CPU tensors; there is no fallback
+between the two.  The twin intersects every culled candidate block of a
+tile instead of running the ordered loop: the stop rule is exact, so it
+finds the same hits.  It keeps the kernel's packed (t | lane) key and its
+visit-order tie rule, so t and ids agree bit for bit (ids may differ only
+where two blocks hold the same quantized t; see ROADMAP queue C).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.profiler import record_function
+
+from realtimeraytracer_torch import kernels
+from realtimeraytracer_torch.config import RenderConfig
+from realtimeraytracer_torch.ops import intersect
+from realtimeraytracer_torch.ops.intersect import BIG_T, HitRecord
+from realtimeraytracer_torch.render.backends import (
+    TraceBackend, _merge_sphere_hits, sphere_occluded)
+from realtimeraytracer_torch.scene.gpu_scene import TorchScene
+from realtimeraytracer_torch.scene.panels import CB, CROWS, SUBK, TILE
+
+CPB = 1024              # block keys per key page
+BIG = 3.0e38
+EPS = 1e-12
+INVALID = 0x7F800000    # +inf bits: no candidate
+BIG_BITS = 0x7F61B1E6   # bits of float32(3e38), the miss value of best_t
+_INT64_MAX = torch.iinfo(torch.int64).max
+_MODES = {"closest": 0, "occluded": 1}
+_COMMON = {None: 0, "origin": 1, "dir": 2}
+_SMEM_LIMIT = 232448    # bytes of shared memory a Hopper CTA may opt into
+
+
+def _id_bits(total_blocks: int) -> int:
+    return max(13, int(total_blocks - 1).bit_length())
+
+
+def _pack_rays(origins, dirs, t_min, t_max):
+    """(R,3)x2 + (R,)x2 -> (Ts, 8, 128) ray tiles [o | d | t_min | t_max];
+    pad lanes repeat ray 0 with the empty interval [BIG_T, -BIG_T)."""
+    r = origins.shape[0]
+    ts = -(-r // TILE)
+    pad = ts * TILE - r
+    if pad:
+        origins = torch.cat([origins, origins[:1].expand(pad, 3)])
+        dirs = torch.cat([dirs, dirs[:1].expand(pad, 3)])
+        t_min = torch.cat([t_min, t_min.new_full((pad,), BIG_T)])
+        t_max = torch.cat([t_max, t_max.new_full((pad,), -BIG_T)])
+    rows = torch.cat([origins.T, dirs.T, t_min[None], t_max[None]], dim=0)
+    return rows.reshape(8, ts, TILE).permute(1, 0, 2).contiguous(), r, ts
+
+
+def _sub_entries(rays, cl_min, cl_max):
+    """(Ts, C32) conservative entry distance of every SUBK-triangle box for
+    each tile's ray bundle (origin box x direction interval, interval
+    arithmetic): max(entry, 0) where the box may be hit, +inf elsewhere.
+    A lower bound, which keeps the ordered-visit stop rule exact."""
+    tmin_lb = rays[:, 6].amin(dim=1, keepdim=True)
+    tmax_ub = rays[:, 7].amax(dim=1, keepdim=True)
+
+    def safe(x):
+        return torch.where(x.abs() > EPS, x, EPS)
+
+    def times(a_lo, a_hi, b_lo, b_hi):
+        p1, p2 = a_lo * b_lo, a_lo * b_hi
+        p3, p4 = a_hi * b_lo, a_hi * b_hi
+        return (torch.minimum(torch.minimum(p1, p2), torch.minimum(p3, p4)),
+                torch.maximum(torch.maximum(p1, p2), torch.maximum(p3, p4)))
+
+    tn = tf = None
+    for a in range(3):
+        o_lo = rays[:, a].amin(dim=1, keepdim=True)
+        o_hi = rays[:, a].amax(dim=1, keepdim=True)
+        d_lo = rays[:, 3 + a].amin(dim=1, keepdim=True)
+        d_hi = rays[:, 3 + a].amax(dim=1, keepdim=True)
+        span = (d_lo > EPS) | (d_hi < -EPS)                # sign-definite
+        inv_lo = torch.where(span, 1.0 / safe(d_hi), -BIG)
+        inv_hi = torch.where(span, 1.0 / safe(d_lo), BIG)
+        bmin = cl_min[None, :, a]
+        bmax = cl_max[None, :, a]
+        t0l, t0h = times(bmin - o_hi, bmin - o_lo, inv_lo, inv_hi)
+        t1l, t1h = times(bmax - o_hi, bmax - o_lo, inv_lo, inv_hi)
+        lo_a = torch.minimum(t0l, t1l)
+        hi_a = torch.maximum(t0h, t1h)
+        tn = lo_a if tn is None else torch.maximum(tn, lo_a)
+        tf = hi_a if tf is None else torch.minimum(tf, hi_a)
+    possible = (tn <= tf) & (tf >= tmin_lb) & (tn <= tmax_ub)
+    return torch.where(possible, torch.clamp_min(tn, 0.0), float("inf"))
+
+
+def _pack_id_keys(ent, ids, id_mask: int, pages: int):
+    """Entry bounds + block ids -> ordered int32 keys (Ts, pages, 8, 128).
+    Clearing the id bits rounds the entry down (still a lower bound);
+    +inf entries become INVALID."""
+    ts, n = ent.shape
+    finite = torch.isfinite(ent)
+    key = (torch.where(finite, ent, 0.0).view(torch.int32) & ~id_mask) | ids
+    key = torch.where(finite, key, INVALID)
+    pad = pages * CPB - n
+    if pad:
+        key = torch.cat([key, key.new_full((ts, pad), INVALID)], dim=1)
+    return key.reshape(ts, pages, 8, 128)
+
+
+def cull_keys(rays, cl_min, cl_max, chunk_tiles: int = 2048):
+    """Per-tile packed block-candidate keys (Ts, CBn, 8, 128) int32 and the
+    id mask: box entries reduce to 128-triangle block keys (entry = min over
+    the block's boxes).  Chunked over tiles to bound the (Ts, C32)
+    temporaries."""
+    ts = rays.shape[0]
+    c32 = cl_min.shape[0]
+    cb = c32 // (CB // SUBK)
+    cbn = -(-cb // CPB)
+    id_mask = (1 << _id_bits(cbn * CPB)) - 1
+    ids = torch.arange(cb, dtype=torch.int32, device=rays.device)[None, :]
+    keys = torch.empty((ts, cbn, 8, 128), dtype=torch.int32, device=rays.device)
+    for s in range(0, ts, chunk_tiles):
+        e = min(ts, s + chunk_tiles)
+        ent = _sub_entries(rays[s:e], cl_min, cl_max)
+        ent = ent.reshape(e - s, cb, CB // SUBK).amin(dim=2)
+        keys[s:e] = _pack_id_keys(ent, ids, id_mask, cbn)
+    return keys, id_mask
+
+
+def _intersect_pairs(r, c, common):
+    """Baldwin-Weber t and hit mask of each (pair, ray, triangle): r (P, 8,
+    128) ray tiles, c (P, 12, 128) coefficient blocks.  Same expressions and
+    association as the kernel."""
+    if common == "origin":
+        o = [r[:, a, 0:1, None] for a in range(3)]
+    else:
+        o = [r[:, a, :, None] for a in range(3)]
+    if common == "dir":
+        d = [r[:, 3 + a, 0:1, None] for a in range(3)]
+    else:
+        d = [r[:, 3 + a, :, None] for a in range(3)]
+
+    def row(k):
+        return c[:, k, None, :]
+
+    def dot_o(base):
+        return ((o[0] * row(base) + o[1] * row(base + 1))
+                + o[2] * row(base + 2)) + row(base + 3)
+
+    def dot_d(base):
+        return (d[0] * row(base) + d[1] * row(base + 1)) + d[2] * row(base + 2)
+
+    s0, s1 = dot_o(0), dot_d(0)
+    den_ok = s1.abs() > EPS
+    t = torch.where(den_ok, -s0 / torch.where(den_ok, s1, 1.0), BIG)
+    u = dot_o(4) + t * dot_d(4)
+    v = dot_o(8) + t * dot_d(8)
+    ok = (den_ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+          & (t >= r[:, 6, :, None]) & (t <= r[:, 7, :, None]))
+    return t, ok
+
+
+def trace_keys_plain(rays, keys, coeff, id_mask: int, mode: str,
+                     common: str | None = None, chunk: int | None = None):
+    """Plain PyTorch twin of the v7 kernel on culled keys, for any device.
+
+    Intersects every candidate (tile, block) pair in chunks of `chunk`
+    pairs.  Closest hits combine per ray by an int64 key (quantized t bits,
+    visit rank, lane): the least quantized t wins, a tie goes to the block
+    visited first and then the lowest lane — the ordered loop's rule.
+    Row 1 of outi holds the tile's candidate count (the kernel's visit
+    count is at most that)."""
+    ts = rays.shape[0]
+    dev = rays.device
+    cb = coeff.shape[0]
+    chunk = chunk or (1024 if dev.type == "cuda" else 64)
+    sk = torch.sort(keys.reshape(ts, -1), dim=1).values
+    cand = sk != INVALID
+    tile_of, rank = cand.nonzero(as_tuple=True)
+    cid = torch.clamp(sk[tile_of, rank] & id_mask, max=cb - 1).long()
+    lane = torch.arange(TILE, device=dev, dtype=torch.int32)
+    closest = mode == "closest"
+    best = torch.full((ts * TILE,), _INT64_MAX, dtype=torch.int64, device=dev)
+    hits = torch.zeros(ts * TILE, dtype=torch.int32, device=dev)
+    for s in range(0, tile_of.shape[0], chunk):
+        tt = tile_of[s:s + chunk]
+        t, ok = _intersect_pairs(rays[tt], coeff[cid[s:s + chunk]], common)
+        ray_idx = (tt[:, None] * TILE + lane).reshape(-1)
+        if closest:
+            tm = torch.where(ok, t, float("inf"))
+            kbest = ((tm.view(torch.int32) & ~127) | lane).amin(dim=2)
+            key64 = ((kbest & ~127).long() * (1 << 32)
+                     + (rank[s:s + chunk, None] << 7) + (kbest & 127).long())
+            key64 = torch.where(kbest < BIG_BITS, key64, _INT64_MAX)
+            best.scatter_reduce_(0, ray_idx, key64.reshape(-1), "amin")
+        else:
+            hits.index_add_(0, ray_idx, ok.any(dim=2).to(torch.int32).reshape(-1))
+
+    outf = torch.zeros((ts, 8, TILE), dtype=torch.float32, device=dev)
+    outi = torch.zeros((ts, 8, TILE), dtype=torch.int32, device=dev)
+    if closest:
+        found = best != _INT64_MAX
+        t = (best >> 32).to(torch.int32).view(torch.float32)
+        tile = torch.arange(ts * TILE, device=dev) // TILE
+        rk = torch.where(found, (best >> 7) & ((1 << 25) - 1), 0)
+        blk = torch.clamp(sk[tile, rk] & id_mask, max=cb - 1)
+        ids = blk * TILE + (best & 127).to(torch.int32)
+        outf[:, 0] = torch.where(found, t, BIG).reshape(ts, TILE)
+        outi[:, 0] = torch.where(found, ids, -1).reshape(ts, TILE)
+    else:
+        outf[:, 0] = (hits > 0).to(torch.float32).reshape(ts, TILE)
+        outi[:, 0] = -1
+    outi[:, 1] = cand.sum(dim=1, dtype=torch.int32)[:, None]
+    return outf, outi
+
+
+def _check(x: torch.Tensor, name: str, dtype, shape) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
+    if x.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {x.dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if x.requires_grad:
+        raise ValueError(f"{name} requires grad; the v7 kernel has no backward")
+
+
+def trace_keys_kernel(rays, keys, coeff, id_mask: int, mode: str,
+                      common: str | None = None):
+    """Launch csrc/trace_v7.cu on culled keys (CUDA tensors only); adds one
+    to ``trace_blocks.launches``."""
+    ts = rays.shape[0]
+    cb = coeff.shape[0]
+    nkeys = keys.shape[1] * CPB
+    _check(rays, "rays", torch.float32, (ts, 8, TILE))
+    _check(keys, "keys", torch.int32, (ts, keys.shape[1], 8, 128))
+    _check(coeff, "coeff", torch.float32, (cb, CROWS, TILE))
+    if keys.device != rays.device or coeff.device != rays.device:
+        raise ValueError("rays, keys and coeff must be on one device")
+    if mode not in _MODES or common not in _COMMON:
+        raise ValueError(f"bad mode/common {mode!r}/{common!r}")
+    cap = 1 << max(0, nkeys - 1).bit_length()
+    if cap * 4 + (CROWS + 3) * TILE * 4 > _SMEM_LIMIT:
+        raise ValueError(f"{cb} coefficient blocks need more shared memory "
+                         "for the key sort than a CTA has")
+    outf = torch.zeros((ts, 8, TILE), dtype=torch.float32, device=rays.device)
+    outi = torch.zeros((ts, 8, TILE), dtype=torch.int32, device=rays.device)
+    with torch.cuda.device(rays.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        kernels.launch("trace_v7", rays.data_ptr(), keys.data_ptr(),
+                       coeff.data_ptr(), outf.data_ptr(), outi.data_ptr(),
+                       ts, nkeys, cb, id_mask, _MODES[mode], _COMMON[common],
+                       stream)
+    trace_blocks.launches += 1
+    return outf, outi
+
+
+def _panels(gpu: TorchScene):
+    if gpu.pallas_panels is None:
+        raise ValueError("scene has no v7 panels (compile it with a BVH)")
+    return gpu.pallas_panels, gpu.pallas_cl_min, gpu.pallas_cl_max
+
+
+def trace_blocks(gpu: TorchScene, ray_blocks, mode: str,
+                 common: str | None = None):
+    """Trace packed (Ts, 8, 128) ray tiles; the kernel's wrapper.
+
+    common: "origin" iff every ray of every tile shares one origin
+    (pinhole primaries), "dir" iff one direction (sun shadows), else None.
+    Returns (outf, outi), each (Ts, 8, 128): outf row 0 = t (3e38 on a
+    miss) or the occluded flag; outi row 0 = sorted-triangle id or -1,
+    row 1 = blocks visited.  CUDA tensors launch the kernel; CPU tensors
+    run the plain twin."""
+    coeff, cl_min, cl_max = _panels(gpu)
+    with record_function("v7.cull"):
+        keys, id_mask = cull_keys(ray_blocks, cl_min, cl_max)
+    with record_function(f"v7.{mode}"):
+        if ray_blocks.device.type == "cuda":
+            return trace_keys_kernel(ray_blocks, keys, coeff, id_mask, mode, common)
+        if ray_blocks.device.type == "cpu":
+            return trace_keys_plain(ray_blocks, keys, coeff, id_mask, mode, common)
+    raise ValueError(f"no v7 trace for device {ray_blocks.device}")
+
+
+trace_blocks.launches = 0
+
+
+def trace_blocks_plain(gpu: TorchScene, ray_blocks, mode: str,
+                       common: str | None = None):
+    """trace_blocks through the plain twin on any device (the reference
+    the kernel is checked against on the card)."""
+    coeff, cl_min, cl_max = _panels(gpu)
+    keys, id_mask = cull_keys(ray_blocks, cl_min, cl_max)
+    return trace_keys_plain(ray_blocks, keys, coeff, id_mask, mode, common)
+
+
+def _run(gpu, origins, dirs, t_min, t_max, mode, common, trace):
+    r = origins.shape[0]
+    t_min = intersect.as_per_ray(t_min, r, origins.device)
+    t_max = intersect.as_per_ray(t_max, r, origins.device)
+    rays, r_orig, _ = _pack_rays(origins, dirs, t_min, t_max)
+    outf, outi = trace(gpu, rays, mode, common=common)
+    return outf[:, 0, :].reshape(-1)[:r_orig], outi[:, 0, :].reshape(-1)[:r_orig]
+
+
+def v7_closest(gpu, origins, dirs, t_min, t_max, common=None,
+               trace=trace_blocks) -> HitRecord:
+    """Closest triangle hits (pallas_closest).  Faces are in BVH order, so
+    the sorted id is the face id; (u, v) are zeros — the surface resolver
+    recomputes them from the winning triangle."""
+    tb, kb = _run(gpu, origins, dirs, t_min, t_max, "closest", common, trace)
+    zeros = torch.zeros_like(tb)
+    return HitRecord(t=tb, prim_id=torch.where(kb >= 0, kb, -1), u=zeros, v=zeros)
+
+
+def v7_occluded(gpu, origins, dirs, t_min, t_max, common=None,
+                trace=trace_blocks):
+    """Any triangle hit in [t_min, t_max] (pallas_occluded)."""
+    tb, _ = _run(gpu, origins, dirs, t_min, t_max, "occluded", common, trace)
+    return tb > 0.5
+
+
+def make_v7_backend(gpu: TorchScene, cfg: RenderConfig,
+                    trace=trace_blocks) -> TraceBackend:
+    """The "pallas" backend.  trace: trace_blocks (kernel on CUDA, twin on
+    CPU) or trace_blocks_plain (twin everywhere, for comparisons)."""
+    num_tris = gpu.num_tris
+    num_spheres = gpu.num_spheres
+
+    def closest(origins, dirs, t_min, t_max, common=None):
+        hit = v7_closest(gpu, origins, dirs, t_min, t_max, common, trace)
+        if num_spheres:
+            sph = intersect.intersect_spheres(
+                origins, dirs, gpu.sph_center, gpu.sph_radius, t_min, t_max)
+            hit = _merge_sphere_hits(hit, sph, num_tris)
+        return hit
+
+    def occluded(origins, dirs, t_min, t_max, common=None):
+        occ = v7_occluded(gpu, origins, dirs, t_min, t_max, common, trace)
+        return sphere_occluded(gpu, occ, origins, dirs, t_min, t_max)
+
+    return TraceBackend(closest=closest, occluded=occluded,
+                        num_tris=num_tris, num_spheres=num_spheres)

@@ -1,0 +1,121 @@
+"""TorchScene: the compiled, device-resident scene.
+
+Counterpart of realtimeraytracer_tpu/scene/gpu_scene.py (``GPUScene``), for
+the non-instanced, untextured scenes this port renders: the same leaves,
+names, shapes and dtypes, as tensors.  Textures, mips, alpha masks, the v9
+repacked panels, the opaque/alpha panel split, refit ranges and the
+instancing tables are not carried; a scene that needs them raises where it
+is built.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class TorchScene:
+    # triangle soup (world space; light triangles first)
+    vertices: torch.Tensor      # (V, 3) f32
+    normals: torch.Tensor       # (V, 3) f32
+    uvs: torch.Tensor           # (V, 2) f32
+    faces: torch.Tensor         # (F, 3) i32, in BVH order when a BVH exists
+    face_obj: torch.Tensor      # (F,) i32
+    # object table (lights first, then meshes, then spheres)
+    obj_color: torch.Tensor     # (O, 3) f32, linear
+    obj_specular: torch.Tensor  # (O,) f32; roughness = 1 - specular
+    obj_metallic: torch.Tensor  # (O,) f32
+    obj_is_light: torch.Tensor  # (O,) i32
+    obj_tex: torch.Tensor       # (O, 4) i32, all -1 here
+    # analytic spheres
+    sph_center: torch.Tensor    # (S, 3) f32
+    sph_radius: torch.Tensor    # (S,) f32
+    sph_obj: torch.Tensor       # (S,) i32
+    # light triangles
+    lt_v0: torch.Tensor         # (LT, 3) f32
+    lt_v1: torch.Tensor
+    lt_v2: torch.Tensor
+    lt_color: torch.Tensor      # (LT, 3) f32
+    lt_intensity: torch.Tensor  # (LT,) f32
+    lt_two_sided: torch.Tensor  # (LT,) bool
+    lt_valid: torch.Tensor      # (LT,) bool
+    # sun and environment
+    sun_direction: torch.Tensor  # (3,) f32, toward the light
+    sun_color: torch.Tensor      # (3,) f32
+    sun_intensity: torch.Tensor  # () f32
+    hdri: torch.Tensor           # (He, We, 3) f32, sRGB-encoded
+    env_color: torch.Tensor      # (3,) f32
+    # LTC lookup tables
+    ltc1: torch.Tensor           # (64, 64, 4) f32
+    ltc2: torch.Tensor
+    # LBVH (single-node dummies when not built)
+    bvh_node_min: torch.Tensor   # (N, 3) f32
+    bvh_node_max: torch.Tensor
+    bvh_node_skip: torch.Tensor  # (N,) i32
+    bvh_node_first: torch.Tensor
+    bvh_node_count: torch.Tensor
+    bvh_tri_v0: torch.Tensor     # (T, 3) f32, BVH-sorted
+    bvh_tri_v1: torch.Tensor
+    bvh_tri_v2: torch.Tensor
+    bvh_tri_id: torch.Tensor     # (T,) i32
+    # v7 traversal panels (scene/panels.py)
+    pallas_panels: torch.Tensor | None = None   # (CB, 12, 128) f32
+    pallas_cl_min: torch.Tensor | None = None   # (CB*4, 3) f32
+    pallas_cl_max: torch.Tensor | None = None
+    vert_obj: torch.Tensor | None = None        # (V,) i32
+    lt_obj: torch.Tensor | None = None          # (LT,) i32
+
+    @property
+    def has_bvh(self) -> bool:
+        return self.bvh_node_min.shape[0] > 1
+
+    @property
+    def num_tris(self) -> int:
+        return self.faces.shape[0]
+
+    @property
+    def num_light_tris(self) -> int:
+        return self.lt_v0.shape[0]
+
+    @property
+    def num_spheres(self) -> int:
+        return self.sph_center.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.vertices.device
+
+    def to(self, device: str | torch.device) -> "TorchScene":
+        """A copy with every leaf on `device`."""
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)
+            if getattr(self, f.name) is not None})
+
+
+LEAF_NAMES = tuple(f.name for f in dataclasses.fields(TorchScene))
+
+
+def from_numpy_leaves(leaves: dict[str, np.ndarray],
+                      device: str | torch.device = "cpu") -> TorchScene:
+    """Build a TorchScene from a compiled scene's leaves as NumPy arrays —
+    e.g. the JAX package's ``GPUScene._asdict()`` passed through
+    ``np.asarray`` — so both packages can render one compiled scene.
+
+    Leaves this port does not use are ignored; an instanced or textured
+    scene raises NotImplementedError rather than rendering wrongly."""
+    if leaves.get("inst_inv") is not None:
+        raise NotImplementedError(
+            "instanced scenes need the v8 kernel's instance level, which is "
+            "not ported yet (ROADMAP queue B, B3)")
+    atlas = leaves.get("tex_atlas")
+    if atlas is not None and np.shape(atlas)[0] > 0:
+        raise NotImplementedError(
+            "textured scenes need the texture atlas samplers, which are not "
+            "ported yet (ROADMAP queue A)")
+    kw = {name: torch.from_numpy(np.array(leaves[name], copy=True))
+          for name in LEAF_NAMES if leaves.get(name) is not None}
+    return TorchScene(**kw).to(device)
