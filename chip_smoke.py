@@ -7,21 +7,33 @@ Run from the repository root, with no arguments:
 
 Phases, each of which ends the run with a non-zero exit on failure:
   1. environment: card name and power limit, torch and CUDA versions;
-  2. build: compile every CUDA kernel from csrc/ with nvcc;
+  2. build: compile every CUDA kernel from csrc/ with nvcc, one nvcc per
+     source, all started together;
   3. the v7 traversal kernel against its plain PyTorch twin on the
      100k-triangle scene: closest primaries (common origin), shadow segments
      and sun segments (common direction);
   4. the A-Trous pair kernel against its plain twin at 1920x1080, 4 steps,
      and single iterations at steps 5, 6 and 8;
   5. the reference-default frame (1920x1080, 4 primary x 3 shadow rays,
-     4 denoise iterations) through realtimeraytracer_torch.render, with the
-     kernels' launch counts, the frame time and each kernel's time beside
-     its plain twin's at the frame's shapes;
-  6. a 320x180 frame rendered through the kernels and through the plain
-     twins, compared.
-The line before the last is a JSON object describing each kernel; the last
-line is {"ok": true, "device": {...}}.  Without a CUDA device, or without
-the package beside it, the script fails before printing either.
+     4 denoise iterations) through the "pallas" route (v7), with the
+     kernels' launch counts, the frame time and v7's time beside its plain
+     twin's at the frame's shapes;
+  6. a 320x180 "pallas" frame rendered through the kernels and through the
+     plain twins, compared;
+  7. the v9 kernel against its twin on 320x180 and 1080p primaries;
+  8. the v8 kernel against its twin at 1080p: occluded shadow and sun
+     segments, closest on incoherent (bounce) rays, and hinted traces fed
+     no hints, their own hints and garbage hints;
+  9. the reference-default frame through rt.render(scene, cfg) with no
+     device argument and the default backend ("auto", the hybrid route: v9
+     primaries, v8 occlusion with hints), its launch counts, frame time
+     and peak memory;
+ 10. a 320x180 hybrid frame through the kernels and through the twins.
+Each main-path frame (5 and 9) is driven with every kernel's launch count
+set to 0 just before and read just after.  The line before the last is a
+JSON object describing each kernel (times, launches, error, bound); the
+last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
+without the package beside it, the script fails before printing either.
 """
 
 from __future__ import annotations
@@ -98,6 +110,47 @@ def compare_occluded(k, p, what: str) -> float:
     return float((fk - fp).abs().max().item())
 
 
+# Bounds: the least time the card could take for a call, the larger of its
+# operations over the f32 peak and its bytes over the memory rate (H100 SXM
+# data sheet: 67 TFLOP/s f32 outside the tensor cores, 3.35 TB/s HBM3).
+PEAK_OPS = 67e12
+PEAK_BYTES = 3.35e12
+# f32 operations per ray-triangle pair in the traversal kernels' inner loop,
+# counted from the source: three origin dots (3 mul + 3 add each), three
+# direction dots (3 mul + 2 add each), |s1| > eps (2), t = -s0/s1 (2),
+# u and v (2 mul + 2 add), u + v (1), five compares; a common origin hoists
+# the origin dots out of the pair loop, a common direction the direction dots.
+OPS_PER_PAIR = {None: 47, "origin": 29, "dir": 32}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(ops: float, moved: float) -> tuple[float, str]:
+    """(bound_ms, bound_by) for a call's operations and bytes."""
+    t_ops, t_bytes = ops / PEAK_OPS * 1e3, moved / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def trace_bound(visits: int, common, moved: int) -> tuple[float, str]:
+    """A traversal call: visits x 128 rays x 128 triangles x the pair ops."""
+    return bound(visits * 128 * 128 * OPS_PER_PAIR[common], moved)
+
+
+def atrous_bound(h: int, w: int, iterations: int) -> tuple[float, str]:
+    """4 images read (48 B/px) and 2 written (24 B/px) per iteration; per
+    in-bounds tap 67 f32 operations (four squared distances 32, four
+    weights 17 with exp and division counted as one each, weight products
+    4, accumulation 14), per pixel 8 in the normalization."""
+    ops = 0
+    for step in range(1, iterations + 1):
+        rows = sum(max(0, h - abs(k - 2) * step) for k in range(5))
+        cols = sum(max(0, w - abs(k - 2) * step) for k in range(5))
+        ops += rows * cols * 67 + h * w * 8
+    return bound(ops, iterations * h * w * 72)
+
+
 def main() -> int:
     import torch
 
@@ -112,9 +165,22 @@ def main() -> int:
     from realtimeraytracer_torch.ops.denoise_kernel import (
         atrous_denoise_pair, atrous_pair_iteration_kernel, atrous_pair_iteration_plain)
     from realtimeraytracer_torch.ops.denoise import ratio_combine
+    from realtimeraytracer_torch.render import hier_backend as v8
+    from realtimeraytracer_torch.render import quarter_backend as v9
     from realtimeraytracer_torch.render import v7_backend as v7
+    from realtimeraytracer_torch.render.backends import make_hybrid_backend
     from realtimeraytracer_torch.render.megakernel import render_components
     from realtimeraytracer_torch.render.pipeline import render_pipeline_gpu
+
+    counters = {"trace_v7": v7.trace_blocks, "trace_v9": v9.trace_blocks_quarter,
+                "trace_v8": v8.trace_blocks_hier, "atrous_pair": atrous_denoise_pair}
+
+    def zero_counts() -> None:
+        for c in counters.values():
+            c.launches = 0
+
+    def read_counts() -> dict:
+        return {name: c.launches for name, c in counters.items()}
 
     # ---- 1. environment -------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -230,31 +296,35 @@ def main() -> int:
     say(f"[4] A-Trous pair kernel vs plain at steps 5, 6, 8 agree; max |err| so far {dn_err}")
     dn_ms, _ = cuda_ms(lambda: denoise_with(atrous_pair_iteration_kernel), 5)
     dn_plain_ms, _ = cuda_ms(lambda: denoise_with(atrous_pair_iteration_plain), 3)
-    say(f"[4] denoise 4 iterations, both images: kernel {dn_ms:.3f} ms, plain {dn_plain_ms:.3f} ms "
-        f"({card})")
+    dn_bound = atrous_bound(H, W, 4)
+    say(f"[4] denoise 4 iterations, both images: kernel {dn_ms:.3f} ms, plain {dn_plain_ms:.3f} ms, "
+        f"bound {dn_bound[0]:.4f} ms by {dn_bound[1]} ({card})")
 
     # ---- 5. the frame ---------------------------------------------------
     cfg = rt.RenderConfig(width=W, height=H, primary_rays=4, shadow_rays=3,
                           denoise_iterations=4, backend="pallas")
-    v7.trace_blocks.launches = 0
-    atrous_denoise_pair.launches = 0
     torch.cuda.reset_peak_memory_stats()
+    held5 = torch.cuda.memory_allocated()
+    zero_counts()
     t0 = time.perf_counter()
     img_t = rt.render(scene, cfg, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    n_trace, n_dn = v7.trace_blocks.launches, atrous_denoise_pair.launches
+    counts5 = read_counts()
+    n_trace = counts5["trace_v7"]
     img = img_t.cpu().numpy()
-    say(f"[5] render(scene, cfg, device='cuda'): {wall:.2f} s wall with compile; "
-        f"v7 launches {n_trace}, A-Trous launches {n_dn}")
+    say(f"[5] render(scene, cfg, device='cuda'), backend='pallas': {wall:.2f} s wall with compile; "
+        f"launches {counts5}")
     expect = cfg.primary_rays * (1 + gpu.num_light_tris * cfg.shadow_rays + 1)
-    require(n_trace == expect, f"expected {expect} v7 launches, counted {n_trace}")
-    require(n_dn == cfg.denoise_iterations, f"expected 4 A-Trous launches, counted {n_dn}")
+    require(counts5 == {"trace_v7": expect, "trace_v9": 0, "trace_v8": 0,
+                        "atrous_pair": cfg.denoise_iterations},
+            f"pallas frame: expected {expect} v7, 0 v9, 0 v8 and 4 A-Trous launches, counted {counts5}")
     require(img.shape == (H, W, 3), f"image shape {img.shape}")
     require(bool(np.isfinite(img).all()), "frame has non-finite values")
     require(float(img.std()) > 1e-3, "frame is constant")
     say(f"[5] image mean {img.mean():.6f} std {img.std():.6f} min {img.min():.6f} max {img.max():.6f}; "
-        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, of which "
+        f"{held5 / 2**30:.3f} GiB were held before the frame")
 
     frame = scene.camera.viewport_frame(W, H, device=dev)
     render_pipeline_gpu(gpu, frame, cfg)                       # warm-up, discarded
@@ -279,8 +349,12 @@ def main() -> int:
         lambda: v7.trace_keys_kernel(prim, keys, coeff, id_mask, "closest", "origin"), 10)
     v7_plain_ms, prim_p = cuda_ms(
         lambda: v7.trace_keys_plain(prim, keys, coeff, id_mask, "closest", "origin"), 1)
+    v7_visits = int(prim_k[1][:, 1, 0].sum().item())
+    v7_bound = trace_bound(v7_visits, "origin",
+                           nbytes(prim, keys, coeff) + 3 * prim.shape[0] * 128 * 4)
     say(f"[5] v7 closest, 1080p primaries ({prim.shape[0]} tiles): cull {cull_ms:.3f} ms, "
-        f"kernel {v7_ms:.3f} ms, plain {v7_plain_ms:.3f} ms ({card})")
+        f"kernel {v7_ms:.3f} ms, plain {v7_plain_ms:.3f} ms; {v7_visits} visits, "
+        f"bound {v7_bound[0]:.4f} ms by {v7_bound[1]} ({card})")
     v7_err = max(v7_err, compare_closest(prim_k, prim_p, "[5] closest common=origin 1080p"))
     seg, sun = shadow_tiles(prim, prim_k, 8)
     for rays, common, what in ((seg, None, "shadow segments"), (sun, "dir", "sun common=dir")):
@@ -306,13 +380,182 @@ def main() -> int:
     say(f"[6] 320x180 frame kernels vs plain: {share:.6%} of values differ by > 2e-3, "
         f"max |err| {np.abs(img_k - img_p).max()}")
 
+    # ---- 7. v9 kernel vs plain ------------------------------------------
+    q_coeff, q_off = gpu.q_panels, gpu.q_group_off
+    require(q_coeff is not None, "the 100k scene carries no v9 repacked panels")
+    say(f"[7] v9 repacked panels: {q_coeff.shape[0]} blocks")
+
+    def v9_both(rays, common):
+        qkeys, qmask = v7.cull_quarter_keys(rays, gpu.q_cl_min, gpu.q_cl_max)
+        k = v9.trace_quarter_kernel(rays, qkeys, q_coeff, q_off, qmask, common)
+        p = v9.trace_quarter_plain(rays, qkeys, q_coeff, q_off, qmask, common)
+        torch.cuda.synchronize()
+        return k, p
+
+    v9_err = compare_closest(*v9_both(primary_tiles(320, 180), "origin"),
+                             "[7] v9 closest common=origin 320x180")
+    qkeys, qmask = v7.cull_quarter_keys(prim, gpu.q_cl_min, gpu.q_cl_max)
+    qcull_ms, _ = cuda_ms(lambda: v7.cull_quarter_keys(prim, gpu.q_cl_min, gpu.q_cl_max), 3)
+    v9_ms, v9_k = cuda_ms(
+        lambda: v9.trace_quarter_kernel(prim, qkeys, q_coeff, q_off, qmask, "origin"), 10)
+    v9_plain_ms, v9_p = cuda_ms(
+        lambda: v9.trace_quarter_plain(prim, qkeys, q_coeff, q_off, qmask, "origin"), 1)
+    v9_err = max(v9_err, compare_closest(v9_k, v9_p, "[7] v9 closest common=origin 1080p"))
+    v9_visits = int(v9_k[1][:, 1, 0].sum().item()) // 4
+    per_stream = (qkeys.reshape(prim.shape[0], 4, -1) != v7.INVALID).sum(dim=2).float()
+    say(f"[7] candidates per tile: v7 {float((keys != v7.INVALID).sum()) / prim.shape[0]:.2f} blocks; "
+        f"v9 {float(per_stream.mean()):.2f} subclusters per stream, longest stream "
+        f"{float(per_stream.amax(dim=1).mean()):.2f}; visits per tile: v7 {v7_visits / prim.shape[0]:.2f}, "
+        f"v9 {v9_visits / prim.shape[0]:.2f}")
+    v9_bound = trace_bound(v9_visits, "origin",
+                           nbytes(prim, qkeys, q_coeff, q_off) + 3 * prim.shape[0] * 128 * 4)
+    say(f"[7] v9 closest, 1080p primaries: quarter cull {qcull_ms:.3f} ms, kernel {v9_ms:.3f} ms, "
+        f"plain {v9_plain_ms:.3f} ms; {v9_visits} composite visits (v7: {v7_visits}), "
+        f"bound {v9_bound[0]:.4f} ms by {v9_bound[1]} ({card})")
+
+    # ---- 8. v8 kernel vs plain ------------------------------------------
+    hcoeff, sup, blk, nsup = v8._hier_inputs(gpu)
+    say(f"[8] v8 hierarchy: {nsup} superclusters over {hcoeff.shape[0]} blocks")
+    h_in = nbytes(sup, blk, hcoeff)
+
+    def v8_kernel(rays, mode, common, hints=None):
+        return v8.trace_hier_kernel(rays, sup, blk, hcoeff, nsup, mode, common, hints)
+
+    def v8_plain(rays, mode, common):
+        return v8.trace_hier_plain(rays, sup, blk, hcoeff, nsup, mode, common)
+
+    def bounce_tiles(prim, out, rng_seed):
+        """Incoherent closest rays: from the primary hits, random directions
+        on the side the primary came from; misses get [BIG, -BIG)."""
+        o = prim[:, 0:3].permute(0, 2, 1).reshape(-1, 3)
+        d = prim[:, 3:6].permute(0, 2, 1).reshape(-1, 3)
+        t = out[0][:, 0].reshape(-1)
+        hit = out[1][:, 0].reshape(-1) >= 0
+        p = o + d * torch.where(hit, t, 0.0)[:, None] - d * 1e-3
+        g = np.random.default_rng(rng_seed)
+        b = torch.from_numpy(g.normal(size=(o.shape[0], 3)).astype(np.float32)).to(dev)
+        b = b / b.norm(dim=1, keepdim=True)
+        b = torch.where(((b * d).sum(1) > 0)[:, None], -b, b)
+        big = torch.full_like(t, 3.0e38)
+        return v7._pack_rays(p, b, torch.where(hit, 1e-3, big), torch.where(hit, 1e4, -big))[0]
+
+    seg, sun = shadow_tiles(prim, prim_k, 9)
+    bounce = bounce_tiles(prim, prim_k, 10)
+    v8_err, v8_rows = 0.0, {}
+    for rays, mode, common, what, reps in ((seg, "occluded", None, "occluded shadow segments", 5),
+                                           (sun, "occluded", "dir", "occluded sun common=dir", 5),
+                                           (bounce, "closest", None, "closest bounce rays", 3)):
+        km, k = cuda_ms(lambda: v8_kernel(rays, mode, common), reps)
+        pm, p = cuda_ms(lambda: v8_plain(rays, mode, common), 1)
+        cmp = compare_occluded if mode == "occluded" else compare_closest
+        v8_err = max(v8_err, cmp(k, p, f"[8] v8 {what} 1080p"))
+        visits = int(k[1][:, 1, 0].sum().item())
+        rows_out = 7 if mode == "occluded" else 5      # outf 0-1, outi 0-2 (+ hints 3-4)
+        b = trace_bound(visits, common, nbytes(rays) + h_in + rows_out * rays.shape[0] * 128 * 4)
+        v8_rows[what] = (km, pm, visits, b)
+        say(f"[8] v8 {what}, 1080p: kernel {km:.3f} ms, plain {pm:.3f} ms; {visits} visits, "
+            f"bound {b[0]:.4f} ms by {b[1]} ({card})")
+
+    # Hints: cold, fed its own hints, fed garbage; masks equal the twin's.
+    want = v8_plain(seg, "occluded", None)
+    cold = v8_kernel(seg, "occluded", None)
+    hints = cold[1][:, 3:5, 0].contiguous()
+    fed_ms, fed = cuda_ms(lambda: v8_kernel(seg, "occluded", None, hints), 5)
+    ts = seg.shape[0]
+    garbage = torch.stack([torch.full((ts,), 10_000, dtype=torch.int32, device=dev),
+                           torch.full((ts,), -1, dtype=torch.int32, device=dev)], dim=1)
+    bad = v8_kernel(seg, "occluded", None, garbage)
+    for got, what in ((cold, "cold"), (fed, "fed its own hints"), (bad, "garbage hints")):
+        v8_err = max(v8_err, compare_occluded(got, want, f"[8] v8 hinted ({what})"))
+    occ = want[0][:, 0] > 0.5
+    cb = hcoeff.shape[0]
+    has = occ.any(dim=1)
+    require(bool((hints[~has] == -1).all()), "[8] a tile without occluded rays got a hint")
+    require(bool(((hints[has] >= 0) & (hints[has] < cb)).all()), "[8] a hint is not a block")
+    for j in range(2):
+        tiles = has.nonzero()[:, 0]
+        for s0 in range(0, tiles.numel(), 1024):
+            tt = tiles[s0:s0 + 1024]
+            _, ok = v7._intersect_pairs(seg[tt], hcoeff[hints[tt, j].long()], None)
+            require(bool((ok.any(dim=2) & occ[tt]).any(dim=1).all()),
+                    f"[8] hint {j} of some tile occludes none of its rays")
+    fed_visits = int(fed[1][:, 1, 0].sum().item())
+    say(f"[8] v8 hints hold on {int(has.sum())} tiles with occluded rays; hinted trace "
+        f"{fed_ms:.3f} ms, {fed_visits} visits (cold {v8_rows['occluded shadow segments'][2]}) ({card})")
+
+    # ---- 9. the frame through the default route --------------------------
+    cfg9 = rt.RenderConfig(width=W, height=H, primary_rays=4, shadow_rays=3, denoise_iterations=4)
+    require(cfg9.backend == "auto", "the default backend is not 'auto'")
+    torch.cuda.reset_peak_memory_stats()
+    held9 = torch.cuda.memory_allocated()
+    zero_counts()
+    t0 = time.perf_counter()
+    img_t = rt.render(scene, cfg9)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts9 = read_counts()
+    require(img_t.device.type == "cuda", f"render with no device ran on {img_t.device}")
+    n_v8 = cfg9.primary_rays * (gpu.num_light_tris * cfg9.shadow_rays + 1)
+    want9 = {"trace_v7": 0, "trace_v9": cfg9.primary_rays, "trace_v8": n_v8,
+             "atrous_pair": cfg9.denoise_iterations}
+    say(f"[9] render(scene, cfg) with no device, backend 'auto': {wall:.2f} s wall with compile; "
+        f"launches {counts9}")
+    require(counts9 == want9, f"hybrid frame: expected launches {want9}, counted {counts9}")
+    img9 = img_t.cpu().numpy()
+    require(img9.shape == (H, W, 3), f"image shape {img9.shape}")
+    require(bool(np.isfinite(img9).all()), "hybrid frame has non-finite values")
+    require(float(img9.std()) > 1e-3, "hybrid frame is constant")
+    peak9 = torch.cuda.max_memory_allocated() / 2**30
+    share9 = float((np.abs(img9 - img) > 2e-3).mean())
+    say(f"[9] image mean {img9.mean():.6f} std {img9.std():.6f}; {share9:.4%} of values differ from "
+        f"the pallas frame by > 2e-3; peak memory {peak9:.3f} GiB, of which {held9 / 2**30:.3f} GiB "
+        f"were held before the frame")
+    render_pipeline_gpu(gpu, frame, cfg9)                      # warm-up, discarded
+    times9 = []
+    for _ in range(3):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        render_pipeline_gpu(gpu, frame, cfg9)
+        b.record()
+        b.synchronize()
+        times9.append(a.elapsed_time(b))
+    say(f"[9] hybrid frame time (render_pipeline_gpu, CUDA events, median of 3 after a warm-up): "
+        f"{statistics.median(times9):.2f} ms; all: {[round(x, 2) for x in times9]}; pallas frame "
+        f"{frame_ms:.2f} ms ({card})")
+
+    # ---- 10. small hybrid frame, kernels vs plain twins ------------------
+    cfg10 = cfg9.replace(width=320, height=180, primary_rays=2)
+    img_k = render_pipeline_gpu(gpu, frame6, cfg10).cpu().numpy()
+    with torch.inference_mode():
+        comp = render_components(gpu, frame6, cfg10, 0,
+                                 backend=make_hybrid_backend(gpu, cfg10, plain=True))
+        s, u = comp.shadowed, comp.unshadowed
+        for i in range(cfg10.denoise_iterations):
+            s, u = atrous_pair_iteration_plain(s, u, comp.normal, comp.position, i + 1, *phis6)
+        img_p = ratio_combine(comp.analytic, s, u).cpu().numpy()
+    share = image_rule(img_k, img_p, "[10] 320x180 hybrid frame, kernels vs plain")
+    say(f"[10] 320x180 hybrid frame kernels vs plain: {share:.6%} of values differ by > 2e-3, "
+        f"max |err| {np.abs(img_k - img_p).max()}")
+
+    shadow_row = v8_rows["occluded shadow segments"]
     say(json.dumps({"kernels": [
         {"name": "trace_v7", "route": "cuda", "source": "realtimeraytracer_torch/csrc/trace_v7.cu",
          "replaces": "realtimeraytracer_tpu/render/pallas_backend.py:640",
-         "launches": n_trace, "max_abs_err": v7_err, "ms": v7_ms, "plain_ms": v7_plain_ms},
+         "launches": n_trace, "max_abs_err": v7_err, "ms": v7_ms, "plain_ms": v7_plain_ms,
+         "bound_ms": v7_bound[0], "bound_by": v7_bound[1], "library_ms": None},
+        {"name": "trace_v9", "route": "cuda", "source": "realtimeraytracer_torch/csrc/trace_v9.cu",
+         "replaces": "realtimeraytracer_tpu/render/quarter_backend.py:316",
+         "launches": counts9["trace_v9"], "max_abs_err": v9_err, "ms": v9_ms, "plain_ms": v9_plain_ms,
+         "bound_ms": v9_bound[0], "bound_by": v9_bound[1], "library_ms": None},
+        {"name": "trace_v8", "route": "cuda", "source": "realtimeraytracer_torch/csrc/trace_v8.cu",
+         "replaces": "realtimeraytracer_tpu/render/hier_backend.py:587",
+         "launches": counts9["trace_v8"], "max_abs_err": v8_err, "ms": shadow_row[0],
+         "plain_ms": shadow_row[1], "bound_ms": shadow_row[3][0], "bound_by": shadow_row[3][1],
+         "library_ms": None},
         {"name": "atrous_pair", "route": "cuda", "source": "realtimeraytracer_torch/csrc/atrous_pair.cu",
          "replaces": "realtimeraytracer_tpu/ops/denoise_pallas.py:152",
-         "launches": n_dn, "max_abs_err": dn_err, "ms": dn_ms, "plain_ms": dn_plain_ms},
+         "launches": counts9["atrous_pair"], "max_abs_err": dn_err, "ms": dn_ms, "plain_ms": dn_plain_ms,
+         "bound_ms": dn_bound[0], "bound_by": dn_bound[1], "library_ms": None},
     ]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

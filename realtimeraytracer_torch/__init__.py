@@ -5,13 +5,16 @@ repository as its reference.  This package imports torch and NumPy, never
 jax.  It renders the reference's ratio-estimator frame on untextured,
 non-instanced scenes: jittered primaries, closest hit, surface, LTC
 analytic light, stochastic area-light shadows, sun, HDRI miss, tonemap,
-A-Trous denoising of both stochastic images and the ratio combine.  Two
-hand-written CUDA kernels for Hopper carry it on a GPU (csrc/): the v7
-block traversal and the fused two-image A-Trous iteration.
+A-Trous denoising of both stochastic images and the ratio combine.  Four
+hand-written CUDA kernels for Hopper carry it on a GPU (csrc/): the v9
+quarter-composited traversal and the v8 per-ray hierarchy of the default
+hybrid route, the v7 block traversal of the "pallas" route, and the fused
+two-image A-Trous iteration.  ``render`` runs on the GPU unless the
+caller passes ``device="cpu"``.
 
 Public API:
     Scene, Camera, Material, Sphere, TriangleMesh, AreaLight, DirectionalLight
-    render(scene, cfg, device=...)    — forward render to an (H, W, 3) image
+    render(scene, cfg, device="cuda") — forward render to an (H, W, 3) image
     render_pipeline(...)              — the same, by its pipeline name
     RenderConfig                      — all knobs (resolution, spp, ...)
 """

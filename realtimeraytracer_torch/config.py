@@ -2,9 +2,10 @@
 
 Counterpart of realtimeraytracer_tpu/config.py: the same fields, defaults
 and backend strings, so one set of knobs drives both packages.  The port
-renders the ratio-estimator frame with the "pallas" route (v7 traversal,
-here a CUDA kernel) or "brute"; the other traversal backends, and every
-field that only unported code reads, raise when set (``check_supported``).
+renders the ratio-estimator frame with the "hybrid" route (v9 and v8
+traversal, CUDA kernels), "pallas" (v7), "quarter" (v9 closest, v7
+occlusion), "hier" (v8) or "brute"; the wide XLA backend, and every field
+that only unported code reads, raise when set (``check_supported``).
 """
 
 from __future__ import annotations
@@ -15,9 +16,6 @@ import dataclasses
 # ROADMAP.md queues or drops them.
 UNPORTED_BACKENDS = {
     "wide": "the wide XLA backend (ROADMAP queue A, 'Not to port')",
-    "hier": "the v8 hierarchy kernel (ROADMAP queue B, B3)",
-    "quarter": "the v9 quarter kernel (ROADMAP queue B, B2)",
-    "hybrid": "hybrid routing over v7/v8/v9 (ROADMAP queue B, after B3)",
 }
 
 # Fields of the JAX RenderConfig that no code of this port reads, and why
@@ -93,8 +91,9 @@ class RenderConfig:
     alpha_threshold: float = 0.9
     alpha_split: bool = False
 
-    # "auto" resolves to "pallas" (the v7 kernel) when the scene has a BVH
-    # and use_bvh is set, else "brute".
+    # "auto" resolves to "hybrid" (v9 coherent closest, v8 occlusion and
+    # incoherent closest) when the scene has a BVH and use_bvh is set, else
+    # "brute".
     backend: str = "auto"
     packet_size: int = 64
     traversal_unroll: int = 8

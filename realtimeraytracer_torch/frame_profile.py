@@ -1,17 +1,21 @@
 """Where one frame's time goes on a GPU.
 
     python -m realtimeraytracer_torch.frame_profile [--width 1920] [--height 1080]
-        [--spp 4] [--shadow-rays 3] [--tris 100000] [--no-sort-shadows]
+        [--spp 4] [--shadow-rays 3] [--tris 100000] [--backend auto]
+        [--no-sort-shadows]
 
 No JAX counterpart (the JAX package profiled with scripts/ probes on the
-TPU).  Renders procedural_mesh(tris) once to warm up, times three frames
-with CUDA events (median), then renders one frame under torch.profiler with
-CPU and CUDA activities and prints: the device's busy time (the sum of
-kernel durations; one stream, so kernels do not overlap) and idle share
-over that frame, the device-timeline span of each labelled range of the
-frame (shade.closest, shade.lights, shade.sun, v7.cull, v7.closest,
-v7.occluded, frame.denoise) and the kernels with the most device time.
-It needs a CUDA device and fails without one.
+TPU).  Renders procedural_mesh(tris) through the chosen route ("auto" is
+the hybrid route; "pallas" the v7 route) once to warm up, times three
+frames with CUDA events (median), then renders one frame under
+torch.profiler with CPU and CUDA activities and prints: the device's busy
+time (the sum of kernel durations; one stream, so kernels do not overlap)
+and idle share over that frame, the same idle share against the unprofiled median
+(the profiler slows the host, which opens launch gaps), the peak device
+memory of the run, the device-timeline span of each labelled range of the
+frame (shade.*, v7.*, v8.*, v9.*, frame.denoise) beside the kernel time
+that starts inside it, and the kernels with the most device time.  It
+needs a CUDA device and fails without one.
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ from realtimeraytracer_torch import RenderConfig, scenes
 from realtimeraytracer_torch.render.pipeline import render_pipeline_gpu
 
 RANGES = ("shade.closest", "shade.lights", "shade.sun", "v7.cull",
-          "v7.closest", "v7.occluded", "frame.denoise")
+          "v7.closest", "v7.occluded", "v9.cull", "v9.closest", "v8.closest",
+          "v8.occluded", "frame.denoise")
 
 
 def main(argv=None) -> None:
@@ -38,6 +43,8 @@ def main(argv=None) -> None:
     ap.add_argument("--spp", type=int, default=4)
     ap.add_argument("--shadow-rays", type=int, default=3)
     ap.add_argument("--tris", type=int, default=100_000)
+    ap.add_argument("--backend", default="auto",
+                    help="RenderConfig.backend: auto (hybrid), pallas, quarter, hier")
     ap.add_argument("--no-sort-shadows", action="store_true",
                     help="trace area shadows in pixel-block order (cfg.sort_shadows=False)")
     args = ap.parse_args(argv)
@@ -48,13 +55,15 @@ def main(argv=None) -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     cfg = RenderConfig(width=args.width, height=args.height, primary_rays=args.spp,
-                       shadow_rays=args.shadow_rays, backend="pallas",
+                       shadow_rays=args.shadow_rays, backend=args.backend,
                        sort_shadows=not args.no_sort_shadows)
     scene = scenes.procedural_mesh(args.tris, sun=True)
     gpu = scene.compile().to("cuda")
     frame = scene.camera.viewport_frame(cfg.width, cfg.height, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
     render_pipeline_gpu(gpu, frame, cfg)                        # warm-up
     torch.cuda.synchronize()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     def timed_frame() -> float:
         start = torch.cuda.Event(enable_timing=True)
@@ -76,20 +85,29 @@ def main(argv=None) -> None:
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     print(f"card: {card}")
     print(f"frame {cfg.width}x{cfg.height}, {args.spp} spp x {args.shadow_rays} shadow rays, "
-          f"sort_shadows={cfg.sort_shadows}, procedural_mesh({args.tris}): "
+          f"backend={cfg.backend}, sort_shadows={cfg.sort_shadows}, "
+          f"procedural_mesh({args.tris}): "
           f"{sorted(times)[1]:.2f} ms median of {[round(t, 2) for t in times]} (CUDA events); "
           f"{profiled_ms:.2f} ms under the profiler")
+    median_ms = sorted(times)[1]
     print(f"device busy {busy_ms:.2f} ms in {len(kernels)} kernels; idle share "
-          f"{max(0.0, 1.0 - busy_ms / profiled_ms):.4f} of the profiled frame")
+          f"{max(0.0, 1.0 - busy_ms / profiled_ms):.4f} of the profiled frame, "
+          f"{max(0.0, 1.0 - busy_ms / median_ms):.4f} of the unprofiled median")
+    print(f"peak device memory {peak_gib:.3f} GiB (max_memory_allocated over one frame)")
 
     span = collections.defaultdict(float)
+    inside = collections.defaultdict(float)
     calls = collections.Counter()
     for e in device:
         if e.name in RANGES:
             span[e.name] += e.time_range.elapsed_us() / 1e3
             calls[e.name] += 1
+            inside[e.name] += sum(k.time_range.elapsed_us() for k in kernels
+                                  if e.time_range.start <= k.time_range.start
+                                  < e.time_range.end) / 1e3
     for name in RANGES:
-        print(f"range {name:14s} {span[name]:10.2f} ms device span over {calls[name]} calls")
+        print(f"range {name:14s} {span[name]:10.2f} ms device span, {inside[name]:10.2f} ms "
+              f"kernel time, over {calls[name]} calls")
 
     by_name = collections.defaultdict(lambda: [0.0, 0])
     for e in kernels:

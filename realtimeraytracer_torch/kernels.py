@@ -23,6 +23,7 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -42,6 +43,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # and has a companion `<symbol>_error(int) -> const char*`.
 SIGNATURES = {
     "trace_v7": ("rt_trace_v7", [_P] * 5 + [_I] * 6 + [_P]),
+    "trace_v8": ("rt_trace_v8", [_P] * 7 + [_I] * 7 + [_P]),
+    "trace_v9": ("rt_trace_v9", [_P] * 6 + [_I] * 5 + [_P]),
     "atrous_pair": ("rt_atrous_pair", [_P] * 6 + [_I] * 3 + [_F] * 4 + [_P]),
 }
 
@@ -109,5 +112,8 @@ def launch(name: str, *args) -> None:
 
 
 def build_all() -> dict[str, Path]:
-    """Build (or find) every kernel library; returns name -> path."""
-    return {name: build(name) for name in SIGNATURES}
+    """Build (or find) every kernel library, one nvcc per source, all
+    started together; returns name -> path."""
+    with ThreadPoolExecutor(max_workers=len(SIGNATURES)) as pool:
+        futures = {name: pool.submit(build, name) for name in SIGNATURES}
+        return {name: f.result() for name, f in futures.items()}

@@ -8,8 +8,10 @@ backend is a pair of functions over ray batches:
     occluded(origins, dirs, t_min, t_max, common=None) -> bool mask
 
 with unified prim ids: [0, F) triangles, [F, F+S) analytic spheres.  The
-port has "brute" (chunked all-pairs, exact) and "pallas" (the v7 CUDA
-kernel, render/v7_backend.py).
+port has "brute" (chunked all-pairs, exact), "pallas" (the v7 CUDA kernel,
+render/v7_backend.py), "quarter" (v9, render/quarter_backend.py), "hier"
+(v8, render/hier_backend.py) and "hybrid", which routes each trace class to
+one of them as the JAX package does on its accelerator.
 """
 
 from __future__ import annotations
@@ -28,9 +30,13 @@ class TraceBackend(NamedTuple):
     occluded: Callable
     num_tris: int
     num_spheres: int
-    # True when the backend culls per ray (the v8 kernel, not ported yet);
-    # callers then skip their shadow-ray sort.
+    # True when the backend culls per ray (the v8 kernel); callers then
+    # skip their shadow-ray sort.
     perray_cull: bool = False
+    # Hint-chained occlusion (v8): occluded_hinted(o, d, lo, hi, hints=...,
+    # common=...) -> (mask, hints_out); callers thread hints_out into the
+    # next correlated occlusion query.  The mask never depends on hints.
+    occluded_hinted: Callable | None = None
 
 
 def _merge_sphere_hits(tri_hit: intersect.HitRecord,
@@ -82,22 +88,74 @@ def make_bruteforce_backend(gpu: TorchScene, cfg: RenderConfig) -> TraceBackend:
                         num_tris=num_tris, num_spheres=num_spheres)
 
 
+def make_hybrid_backend(gpu: TorchScene, cfg: RenderConfig,
+                        plain: bool = False) -> TraceBackend:
+    """Route each trace class to a kernel, as the JAX package's
+    make_hybrid_backend does: coherent closest traces (common origin or
+    direction) go to v9 when the scene has at most RESIDENT_CB blocks and
+    to v7 otherwise; incoherent closest traces and every occlusion go to
+    v8, whose per-ray cull also makes the shadow-ray sort unnecessary.
+    plain=True routes to the kernels' plain twins on any device (the
+    reference the kernels are checked against on the card)."""
+    from realtimeraytracer_torch.render import hier_backend as v8m
+    from realtimeraytracer_torch.render import quarter_backend as v9m
+    from realtimeraytracer_torch.render import v7_backend as v7m
+    from realtimeraytracer_torch.scene.panels import RESIDENT_CB
+
+    v7_trace = v7m.trace_blocks_plain if plain else v7m.trace_blocks
+    v8 = v8m.make_hier_backend(
+        gpu, cfg, trace=v8m.trace_blocks_hier_plain if plain else v8m.trace_blocks_hier)
+    resident = (gpu.pallas_panels is not None
+                and gpu.pallas_panels.shape[0] <= RESIDENT_CB)
+    if resident:
+        coherent = v9m.make_quarter_backend(
+            gpu, cfg, v7_trace=v7_trace,
+            trace=v9m.trace_blocks_quarter_plain if plain else v9m.trace_blocks_quarter)
+    else:
+        coherent = v7m.make_v7_backend(gpu, cfg, trace=v7_trace)
+
+    def closest(origins, dirs, t_min, t_max, common=None):
+        be = coherent if common in ("origin", "dir") else v8
+        return be.closest(origins, dirs, t_min, t_max, common=common)
+
+    return TraceBackend(closest=closest, occluded=v8.occluded,
+                        num_tris=v8.num_tris, num_spheres=v8.num_spheres,
+                        perray_cull=True, occluded_hinted=v8.occluded_hinted)
+
+
+_BVH_KINDS = ("pallas", "quarter", "hier", "hybrid")
+
+
 def resolve_backend_kind(gpu: TorchScene, cfg: RenderConfig) -> str:
-    """The backend string a config selects for this scene."""
+    """The backend string a config selects for this scene: "auto" is
+    "hybrid" when the scene has a BVH and use_bvh is set (the JAX
+    package's choice on its accelerator), else "brute"; a BVH backend on a
+    scene without a BVH is "brute"."""
     check_supported(cfg)
     kind = cfg.backend
     if kind == "auto":
-        kind = "pallas" if cfg.use_bvh and gpu.has_bvh else "brute"
-    if kind == "pallas" and not gpu.has_bvh:
+        kind = "hybrid" if cfg.use_bvh and gpu.has_bvh else "brute"
+    if kind in _BVH_KINDS and not gpu.has_bvh:
         kind = "brute"
-    if kind not in ("pallas", "brute"):
+    if kind not in _BVH_KINDS + ("brute",):
         raise ValueError(f"unknown backend {cfg.backend!r}")
     return kind
 
 
 def make_backend(gpu: TorchScene, cfg: RenderConfig) -> TraceBackend:
-    if resolve_backend_kind(gpu, cfg) == "pallas":
+    kind = resolve_backend_kind(gpu, cfg)
+    if kind == "pallas":
         from realtimeraytracer_torch.render.v7_backend import make_v7_backend
 
         return make_v7_backend(gpu, cfg)
+    if kind == "quarter":
+        from realtimeraytracer_torch.render.quarter_backend import make_quarter_backend
+
+        return make_quarter_backend(gpu, cfg)
+    if kind == "hier":
+        from realtimeraytracer_torch.render.hier_backend import make_hier_backend
+
+        return make_hier_backend(gpu, cfg)
+    if kind == "hybrid":
+        return make_hybrid_backend(gpu, cfg)
     return make_bruteforce_backend(gpu, cfg)

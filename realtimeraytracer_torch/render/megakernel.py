@@ -9,11 +9,14 @@ stochastic unshadowed and stochastic shadowed — plus a normal/position
 G-buffer, which render/pipeline.py denoises and ratio-combines.
 
 The whole image is one ray batch; per-ray control flow is masks.  The
-hinted, multi-segment and batched-occlusion branches of the JAX version
-are inert for the backends ported so far (v7 and brute have no hints and
-no fused queries, and batch_occlusion needs a per-ray-culling backend), so
-they are not carried.  The per-light shadow-ray sort is carried, since v7
-culls per tile.
+shadow-hint chain of the JAX version is carried: with a backend that has
+``occluded_hinted`` (v8 on the "hier" and "hybrid" routes), each light's
+occlusion traces and the sun's warm-start from the previous trace's hints,
+across samples and primary samples.  The per-light shadow-ray sort is
+carried for per-tile culls (v7) and skipped for per-ray culls (v8).  The
+multi-segment and batched-occlusion branches are not: no ported backend
+has a fused multi-segment query (the JAX package leaves v8's unwired), and
+batch_occlusion is a JAX option that is not ported.
 """
 
 from __future__ import annotations
@@ -75,9 +78,12 @@ class SampleRadiance(NamedTuple):
 
 def shade_sample(gpu: TorchScene, cfg: RenderConfig, origins, dirs,
                  pixel_seed, backend: TraceBackend,
-                 sample_index: int = 0) -> SampleRadiance:
+                 sample_index: int = 0,
+                 hint_state: dict | None = None) -> SampleRadiance:
     """Shade one primary sample of every pixel.  pixel_seed: (R,) uint32
-    values in int64 (px*733 + py*1933 + frame)."""
+    values in int64 (px*733 + py*1933 + frame).  hint_state: the shadow-hint
+    chain (key ("lt", i) per light triangle, "sun"), updated in place; None
+    when the backend has no hinted occlusion."""
     R = origins.shape[0]
     # Primaries share the pinhole origin: common="origin".
     with record_function("shade.closest"):
@@ -165,7 +171,15 @@ def shade_sample(gpu: TorchScene, cfg: RenderConfig, origins, dirs,
                 # inactive lanes get the empty interval [BIG, -BIG).
                 t_lo = torch.where(actives, cfg.t_min, BIG_T)
                 t_hi = torch.where(actives, dist - cfg.shadow_ray_margin, -BIG_T)
-                occ = backend.occluded(sos, sdir, t_lo, t_hi)
+                # Shadow-hint chain: a light's samples share their tiles'
+                # dominant occluders, so each trace visits the previous
+                # one's first (per-ray-culling backends, which skip the
+                # sort, so the ray layout is the same across traces).
+                if hint_state is not None and not use_sort:
+                    occ, hint_state[("lt", i)] = backend.occluded_hinted(
+                        sos, sdir, t_lo, t_hi, hints=hint_state.get(("lt", i)))
+                else:
+                    occ = backend.occluded(sos, sdir, t_lo, t_hi)
                 lit = torch.where(occ, 0.0, 1.0)[:, None]
 
                 ndotl = torch.clamp_min((ns * sdir).sum(-1), 0.1)
@@ -202,10 +216,14 @@ def shade_sample(gpu: TorchScene, cfg: RenderConfig, origins, dirs,
         sun_dir = gpu.sun_direction.expand(R, 3)
         sun_ndotl_raw = dot(n, gpu.sun_direction[None, :])
         sun_active = surf.valid & (sun_ndotl_raw > 0.0) & (gpu.sun_intensity > 0.0)
-        sun_occ = backend.occluded(
-            shadow_origin, sun_dir,
-            torch.where(sun_active, cfg.t_min, BIG_T),
-            torch.where(sun_active, cfg.t_max, -BIG_T), common="dir")
+        sun_args = (shadow_origin, sun_dir,
+                    torch.where(sun_active, cfg.t_min, BIG_T),
+                    torch.where(sun_active, cfg.t_max, -BIG_T))
+        if hint_state is not None:
+            sun_occ, hint_state["sun"] = backend.occluded_hinted(
+                *sun_args, hints=hint_state.get("sun"), common="dir")
+        else:
+            sun_occ = backend.occluded(*sun_args, common="dir")
         sun_lit = torch.where(sun_occ, 0.0, 1.0)[:, None]
         sun_ndotl = torch.clamp_min(sun_ndotl_raw, 1e-4)
         # Parity quirk: NdotV clamped from below at 5.0 (raygen.rgen:322).
@@ -260,11 +278,14 @@ def render_components(gpu: TorchScene, frame: ViewportFrame, cfg: RenderConfig,
         perm = inv_perm = None
 
     acc = None
+    # Shadow-hint chain (see shade_sample), threaded through the samples.
+    hint_state = {} if backend.occluded_hinted is not None else None
     for s in range(cfg.primary_rays):
         o, d = generate_rays(frame, w, h, sample_index=s, jitter=cfg.jitter)
         if perm is not None:
             o, d = o[perm], d[perm]
-        out = shade_sample(gpu, cfg, o, d, pixel_seed, backend, sample_index=s)
+        out = shade_sample(gpu, cfg, o, d, pixel_seed, backend, sample_index=s,
+                           hint_state=hint_state)
         acc = out if acc is None else SampleRadiance(*(a + b for a, b in zip(acc, out)))
     if inv_perm is not None:
         acc = SampleRadiance(*(x[inv_perm] for x in acc))
@@ -284,9 +305,10 @@ def render_components(gpu: TorchScene, frame: ViewportFrame, cfg: RenderConfig,
 
 
 def render(scene, cfg: RenderConfig | None = None, frame_index: int = 0,
-           device: str | torch.device = "cpu") -> torch.Tensor:
-    """One-call render of a Scene on `device`: compile, trace, denoise,
-    ratio-combine.  Returns the (H, W, 3) float32 image in [0, 1]."""
+           device: str | torch.device = "cuda") -> torch.Tensor:
+    """One-call render of a Scene on `device` (the GPU unless the caller
+    passes device="cpu"): compile, trace, denoise, ratio-combine.  Returns
+    the (H, W, 3) float32 image in [0, 1]."""
     from realtimeraytracer_torch.render.pipeline import render_pipeline
 
     return render_pipeline(scene, cfg, frame_index=frame_index, device=device)

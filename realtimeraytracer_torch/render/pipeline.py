@@ -50,11 +50,19 @@ def render_pipeline_gpu(gpu: TorchScene, frame: ViewportFrame, cfg: RenderConfig
 
 def render_pipeline(scene, cfg: RenderConfig | None = None,
                     frame_index: int = 0,
-                    device: str | torch.device = "cpu") -> torch.Tensor:
+                    device: str | torch.device = "cuda") -> torch.Tensor:
     """Host entry: compile the Scene, move it to `device`, build the camera
-    frame and render.  Returns an (H, W, 3) float32 image in [0, 1]."""
+    frame and render.  Returns an (H, W, 3) float32 image in [0, 1].
+
+    Runs on the GPU unless the caller passes device="cpu"; without a CUDA
+    device the default raises, it never renders on the CPU instead."""
     from realtimeraytracer_torch.scene.scene import Scene
 
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"render on {device} needs a CUDA device and none is available; "
+            "pass device='cpu' to render with the plain PyTorch twins")
     cfg = cfg or RenderConfig()
     if not isinstance(scene, Scene):
         raise TypeError(

@@ -133,6 +133,27 @@ def cull_keys(rays, cl_min, cl_max, chunk_tiles: int = 2048):
     return keys, id_mask
 
 
+def cull_quarter_keys(rays, cl_min, cl_max, chunk_tiles: int = 2048):
+    """Per-tile subcluster keys split by lane quarter, for the v9 kernel
+    (cull_quarter_keys).  Subcluster s = 4B + q sits at lanes [32q, 32q+32)
+    of coefficient block B, so quarter q's key carries the block id B and
+    that subcluster's own entry bound.  Returns ((Ts, 4, CBn, 8, 128) int32,
+    id_mask)."""
+    ts = rays.shape[0]
+    nq = CB // SUBK
+    cb = cl_min.shape[0] // nq
+    cbn = -(-cb // CPB)
+    id_mask = (1 << _id_bits(cbn * CPB)) - 1
+    ids = torch.arange(cb, dtype=torch.int32, device=rays.device)[None, :]
+    keys = torch.empty((ts, nq, cbn, 8, 128), dtype=torch.int32, device=rays.device)
+    for s in range(0, ts, chunk_tiles):
+        e = min(ts, s + chunk_tiles)
+        ent = _sub_entries(rays[s:e], cl_min, cl_max).reshape(e - s, cb, nq)
+        for q in range(nq):
+            keys[s:e, q] = _pack_id_keys(ent[:, :, q], ids, id_mask, cbn)
+    return keys, id_mask
+
+
 def _intersect_pairs(r, c, common):
     """Baldwin-Weber t and hit mask of each (pair, ray, triangle): r (P, 8,
     128) ray tiles, c (P, 12, 128) coefficient blocks.  Same expressions and
@@ -230,7 +251,7 @@ def _check(x: torch.Tensor, name: str, dtype, shape) -> None:
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if x.requires_grad:
-        raise ValueError(f"{name} requires grad; the v7 kernel has no backward")
+        raise ValueError(f"{name} requires grad; the traversal kernels have no backward")
 
 
 def trace_keys_kernel(rays, keys, coeff, id_mask: int, mode: str,

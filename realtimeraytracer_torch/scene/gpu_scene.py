@@ -2,10 +2,10 @@
 
 Counterpart of realtimeraytracer_tpu/scene/gpu_scene.py (``GPUScene``), for
 the non-instanced, untextured scenes this port renders: the same leaves,
-names, shapes and dtypes, as tensors.  Textures, mips, alpha masks, the v9
-repacked panels, the opaque/alpha panel split, refit ranges and the
-instancing tables are not carried; a scene that needs them raises where it
-is built.
+names, shapes and dtypes, as tensors, the v9 repacked panels included.
+Textures, mips, alpha masks, the opaque/alpha panel split, refit ranges
+and the instancing tables are not carried; a scene that needs them raises
+where it is built.
 """
 
 from __future__ import annotations
@@ -65,6 +65,12 @@ class TorchScene:
     pallas_panels: torch.Tensor | None = None   # (CB, 12, 128) f32
     pallas_cl_min: torch.Tensor | None = None   # (CB*4, 3) f32
     pallas_cl_max: torch.Tensor | None = None
+    # v9 SAH-repacked panels (ops/repack.py), for scenes of at most
+    # RESIDENT_CB blocks: sorted id = slot id - q_group_off[slot // 32]
+    q_panels: torch.Tensor | None = None        # (Cq, 12, 128) f32
+    q_cl_min: torch.Tensor | None = None        # (Cq*4, 3) f32
+    q_cl_max: torch.Tensor | None = None
+    q_group_off: torch.Tensor | None = None     # (Cq*4,) i32
     vert_obj: torch.Tensor | None = None        # (V,) i32
     lt_obj: torch.Tensor | None = None          # (LT,) i32
 
@@ -110,7 +116,7 @@ def from_numpy_leaves(leaves: dict[str, np.ndarray],
     if leaves.get("inst_inv") is not None:
         raise NotImplementedError(
             "instanced scenes need the v8 kernel's instance level, which is "
-            "not ported yet (ROADMAP queue B, B3)")
+            "not ported yet (ROADMAP queue A, A4)")
     atlas = leaves.get("tex_atlas")
     if atlas is not None and np.shape(atlas)[0] > 0:
         raise NotImplementedError(

@@ -1,9 +1,9 @@
-"""Baldwin-Weber coefficient panels for the v7 traversal kernel.
+"""Baldwin-Weber coefficient panels for the traversal kernels.
 
 Counterpart of realtimeraytracer_tpu/render/pallas_backend.py::
 pack_clusters_np (host NumPy, run once at scene compile) and its layout
-constants.  The port keeps it in the scene package because the JAX module
-that holds it imports Pallas.
+constants, RESIDENT_CB included.  The port keeps it in the scene package
+because the JAX module that holds it imports Pallas.
 """
 
 from __future__ import annotations
@@ -16,6 +16,12 @@ TILE = 128          # rays per tile
 CB = 128            # triangles per visit block
 SUBK = 32           # triangles per cull subcluster (4 boxes per block)
 CROWS = 12          # coefficient rows per block
+# Coefficient blocks up to which the scene carries the v9 repacked panels,
+# the hybrid route sends coherent closest traces to v9 and v8 takes shadow
+# hints: the JAX package's VMEM-residency limit, kept because it decides
+# the backend contract (the CUDA kernels read the table from global memory
+# at every size).
+RESIDENT_CB = 1024
 
 
 def pack_clusters_np(tv0, tv1, tv2):

@@ -3,13 +3,14 @@
 Counterpart of realtimeraytracer_tpu/scene/scene.py (``Scene``,
 ``Scene.compile`` on its non-instanced path, ``load_ltc_tables``): collect
 lights then objects into one world-space vertex/index pool (lights first,
-tlas.cppm:77-82), build the object and light tables, the LBVH and the v7
-coefficient panels, and attach the LTC LUTs.  The leaves equal the JAX
+tlas.cppm:77-82), build the object and light tables, the LBVH, the v7 coefficient panels
+and, for scenes of at most RESIDENT_CB blocks, the v9 repacked panels
+(ops/repack.py), and attach the LTC LUTs.  The leaves equal the JAX
 compile's when both use the NumPy BVH builder.
 
 Not ported yet (ROADMAP queue A): textures and mips, alpha masks,
-instancing (the JAX shared-geometry compile), the native C++ BVH builder
-and the v9 repacked panels.  Scenes that need them raise.
+instancing (the JAX shared-geometry compile) and the native C++ BVH
+builder.  Scenes that need them raise.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from realtimeraytracer_torch.scene.geometry import MeshInstance, Sphere, Triangl
 from realtimeraytracer_torch.scene.gpu_scene import TorchScene, from_numpy_leaves
 from realtimeraytracer_torch.scene.lights import AreaLight, DirectionalLight
 from realtimeraytracer_torch.scene.materials import Material
+from realtimeraytracer_torch.scene.panels import RESIDENT_CB
 
 ASSET_DIR = Path(__file__).resolve().parents[2] / "assets"
 
@@ -215,6 +217,16 @@ class Scene:
                 bvh_tri_v2=bvh.tri_v2,
                 bvh_tri_id=np.arange(len(perm), dtype=np.int32),
                 pallas_panels=panels, pallas_cl_min=p_lo, pallas_cl_max=p_hi)
+            # SAH-repacked v9 panels: only where the hybrid route can send
+            # traces to v9, and only if the repacked table fits as well.
+            if panels.shape[0] <= RESIDENT_CB:
+                from realtimeraytracer_torch.ops.repack import build_q_panels_np
+
+                qp, q_lo, q_hi, q_off, _ = build_q_panels_np(
+                    bvh.tri_v0, bvh.tri_v1, bvh.tri_v2)
+                if qp.shape[0] <= RESIDENT_CB:
+                    bvh_fields.update(q_panels=qp, q_cl_min=q_lo,
+                                      q_cl_max=q_hi, q_group_off=q_off)
         else:
             z3 = np.zeros((1, 3), np.float32)
             z1 = np.zeros(1, np.int32)

@@ -6,9 +6,9 @@ jax (whose tests/conftest.py cannot load):
     python -m pytest --noconftest tests/test_torch_kernels.py -q
 
 Tests marked ``cuda`` need an NVIDIA GPU and nvcc and skip without a GPU.
-Tolerances: v7 hit masks and occluded flags equal, t to rtol 1e-6 and ids
-equal or t equal (kernel and twin round alike: no multiply-add contraction
-on either side); the A-Trous pair rtol 1e-5, atol 1e-6 (expf and the
+Tolerances: v7, v8 and v9 hit masks and occluded flags equal, t to rtol
+1e-6 and ids equal or t equal (kernel and twin round alike: no multiply-add
+contraction on either side); v8 hints as in tests/test_torch_hier.py; the A-Trous pair rtol 1e-5, atol 1e-6 (expf and the
 kernel's bounds test against the twin's masked taps); frames under 0.5% of
 values off by more than 2e-3.  Without a GPU, the wrappers' input checks
 are tested: a kernel never takes CPU tensors (no fallback inside it).
@@ -22,7 +22,10 @@ from realtimeraytracer_torch import RenderConfig, scenes
 from realtimeraytracer_torch.ops.denoise_kernel import (
     atrous_denoise_pair, atrous_pair_iteration_kernel, atrous_pair_iteration_plain)
 from realtimeraytracer_torch.ops.denoise import ratio_combine
+from realtimeraytracer_torch.render import hier_backend as hb
+from realtimeraytracer_torch.render import quarter_backend as qb
 from realtimeraytracer_torch.render import v7_backend as v7
+from realtimeraytracer_torch.render.backends import make_hybrid_backend
 from realtimeraytracer_torch.render.megakernel import render_components
 from realtimeraytracer_torch.render.pipeline import render_pipeline_gpu
 from realtimeraytracer_torch.scene.geometry import TriangleMesh
@@ -51,20 +54,35 @@ def _soup_scene(n=1000, seed=0):
     return s.compile(bvh_threshold=0)
 
 
-def _ray_tiles(common, seed, device):
+def _ray_tiles(common, seed, device, n=N_RAYS, span=6.0):
     r = np.random.default_rng(seed)
-    o = r.uniform(-6, 6, (N_RAYS, 3)).astype(np.float32)
-    d = r.normal(size=(N_RAYS, 3)).astype(np.float32)
+    o = r.uniform(-span, span, (n, 3)).astype(np.float32)
+    d = r.normal(size=(n, 3)).astype(np.float32)
     if common == "origin":
         o[:] = 0.0
     elif common == "dir":
         d[:] = d[0]
     d /= np.linalg.norm(d, axis=1, keepdims=True)
-    tmin = np.full(N_RAYS, 1e-3, np.float32)
-    tmax = r.uniform(2.0, 12.0, N_RAYS).astype(np.float32)
-    empty = np.arange(N_RAYS) % 7 == 3
+    tmin = np.full(n, 1e-3, np.float32)
+    tmax = r.uniform(2.0, 2.0 * span, n).astype(np.float32)
+    empty = np.arange(n) % 7 == 3
     tmin[empty], tmax[empty] = BIG_T, -BIG_T
     return v7._pack_rays(*(torch.from_numpy(x).to(device) for x in (o, d, tmin, tmax)))[0]
+
+
+def _same_closest(k, p):
+    kf, ki, pf, pi = (x[:, 0].cpu().numpy().ravel() for x in (*k, *p))
+    hit = pi >= 0
+    assert hit.sum() > 20
+    np.testing.assert_array_equal(ki >= 0, hit)
+    np.testing.assert_allclose(kf[hit], pf[hit], rtol=1e-6)
+    assert ((ki == pi) | (kf == pf)).all()
+
+
+def _same_occluded(k, p):
+    kf, pf = k[0][:, 0].cpu().numpy(), p[0][:, 0].cpu().numpy()
+    assert 10 < pf.sum() < pf.size - 10
+    np.testing.assert_array_equal(kf, pf)
 
 
 def _denoise_data(h, w, seed):
@@ -148,6 +166,66 @@ def test_atrous_kernel_beyond_four_iterations(cuda, iterations):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("common", [None, "origin"])
+def test_v9_kernel_matches_twin(cuda, common):
+    gpu = _soup_scene().to(cuda)
+    rays = _ray_tiles(common, 5, cuda)
+    keys, id_mask = v7.cull_quarter_keys(rays, gpu.q_cl_min, gpu.q_cl_max)
+    before = qb.trace_blocks_quarter.launches
+    k = qb.trace_quarter_kernel(rays, keys, gpu.q_panels, gpu.q_group_off, id_mask, common)
+    assert qb.trace_blocks_quarter.launches == before + 1
+    _same_closest(k, qb.trace_quarter_plain(rays, keys, gpu.q_panels, gpu.q_group_off,
+                                            id_mask, common))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_tris,mode,common", [
+    (1000, "closest", None), (1000, "closest", "origin"),
+    (1000, "occluded", None), (1000, "occluded", "dir"),
+    (17000, "closest", None), (17000, "occluded", None)])
+def test_v8_kernel_matches_twin(cuda, n_tris, mode, common):
+    """17000 triangles: 133 blocks in two supers, so L1 pops more than one."""
+    gpu = _soup_scene(n_tris).to(cuda)
+    rays = _ray_tiles(common, 6, cuda, n=1000)
+    coeff, sup, blk, nsup = hb._hier_inputs(gpu)
+    assert nsup == -(-coeff.shape[0] // hb.SUP)
+    before = hb.trace_blocks_hier.launches
+    k = hb.trace_hier_kernel(rays, sup, blk, coeff, nsup, mode, common)
+    assert hb.trace_blocks_hier.launches == before + 1
+    p = hb.trace_hier_plain(rays, sup, blk, coeff, nsup, mode, common)
+    (_same_closest if mode == "closest" else _same_occluded)(k, p)
+
+
+@pytest.mark.cuda
+def test_v8_kernel_hints(cuda):
+    """Cold, self-fed and garbage hints give the twin's mask; each hint of
+    a tile with an occluded ray is a block in [0, cb) occluding one of its
+    rays, and -1 elsewhere."""
+    gpu = _soup_scene().to(cuda)
+    rays = _ray_tiles(None, 7, cuda, n=1000)
+    coeff, sup, blk, nsup = hb._hier_inputs(gpu)
+    want = hb.trace_hier_plain(rays, sup, blk, coeff, nsup, "occluded")
+    cold = hb.trace_hier_kernel(rays, sup, blk, coeff, nsup, "occluded")
+    hints = cold[1][:, 3:5, 0].contiguous()
+    fed = hb.trace_hier_kernel(rays, sup, blk, coeff, nsup, "occluded", hints=hints)
+    garbage = torch.stack([torch.full((rays.shape[0],), 10_000), torch.full((rays.shape[0],), -1)],
+                          dim=1).to(torch.int32).to(cuda)
+    bad = hb.trace_hier_kernel(rays, sup, blk, coeff, nsup, "occluded", hints=garbage)
+    for got in (cold, fed, bad):
+        _same_occluded(got, want)
+    occ = want[0][:, 0] > 0.5
+    cb = coeff.shape[0]
+    for tile in range(rays.shape[0]):
+        for h in hints[tile].tolist():
+            if not occ[tile].any():
+                assert h == -1
+                continue
+            assert 0 <= h < cb
+            _, ok = v7._intersect_pairs(rays[tile][None], coeff[h][None], None)
+            assert bool((ok[0].any(dim=1) & occ[tile]).any())
+
+
+@pytest.mark.cuda
 def test_frame_kernels_match_twins(cuda):
     scene = scenes.procedural_mesh(3000, sun=True)
     gpu = scene.compile().to(cuda)
@@ -159,6 +237,31 @@ def test_frame_kernels_match_twins(cuda):
     assert v7.trace_blocks.launches - traces == 1 + 2 * 2 + 1
     assert atrous_denoise_pair.launches - dn == 4
     plain = v7.make_v7_backend(gpu, cfg, trace=v7.trace_blocks_plain)
+    with torch.inference_mode():
+        comp = render_components(gpu, frame, cfg, 0, backend=plain)
+        s, u = comp.shadowed, comp.unshadowed
+        for i in range(4):
+            s, u = atrous_pair_iteration_plain(s, u, comp.normal, comp.position, i + 1, *PHIS)
+        img_p = ratio_combine(comp.analytic, s, u).cpu().numpy()
+    assert np.isfinite(img_k).all() and img_k.std() > 0
+    assert (np.abs(img_k - img_p) > 2e-3).mean() < 5e-3
+
+
+@pytest.mark.cuda
+def test_hybrid_frame_kernels_match_twins(cuda):
+    """The default route: v9 primaries, v8 hinted occlusion, A-Trous."""
+    scene = scenes.procedural_mesh(3000, sun=True)
+    gpu = scene.compile().to(cuda)
+    cfg = RenderConfig(width=64, height=36, primary_rays=2, shadow_rays=2,
+                       denoise_iterations=4)
+    frame = scene.camera.viewport_frame(64, 36, device=cuda)
+    counters = (v7.trace_blocks, qb.trace_blocks_quarter, hb.trace_blocks_hier,
+                atrous_denoise_pair)
+    before = [c.launches for c in counters]
+    img_k = render_pipeline_gpu(gpu, frame, cfg).cpu().numpy()
+    counts = [c.launches - b for c, b in zip(counters, before)]
+    assert counts == [0, 2, 2 * (2 * 2 + 1), 4]
+    plain = make_hybrid_backend(gpu, cfg, plain=True)
     with torch.inference_mode():
         comp = render_components(gpu, frame, cfg, 0, backend=plain)
         s, u = comp.shadowed, comp.unshadowed

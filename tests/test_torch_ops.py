@@ -237,9 +237,12 @@ def test_spheres():
 # ---- the package stays jax-free -----------------------------------------
 
 def test_import_without_jax():
-    code = ("import sys, realtimeraytracer_torch, realtimeraytracer_torch.scenes, "
-            "realtimeraytracer_torch.render.v7_backend, realtimeraytracer_torch.ops.denoise_kernel, "
-            "realtimeraytracer_torch.kernels; "
+    """Every module of the package (found by walking it, not listed by
+    hand) imports without loading jax or the JAX package."""
+    code = ("import importlib, pkgutil, sys, realtimeraytracer_torch as p; "
+            "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]; "
+            "[importlib.import_module(m) for m in mods]; "
+            "assert len(mods) > 30, mods; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', "
             "'realtimeraytracer_tpu'))); print(bad); sys.exit(1 if bad else 0)")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

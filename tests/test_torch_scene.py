@@ -84,9 +84,17 @@ def test_unported_scene_features_raise(monkeypatch):
 
 @pytest.mark.parametrize("backend", ["wide", "hier", "quarter", "hybrid"])
 def test_unported_backends_raise(backend):
+    """Only the wide XLA backend has no port; the v8, v9 and hybrid
+    backends build, and raise for the alpha-tested any-hit none of them
+    has yet."""
     gpu = scenes.procedural_mesh(200).compile()
-    with pytest.raises(NotImplementedError):
-        make_backend(gpu, RenderConfig(backend=backend))
+    if backend == "wide":
+        with pytest.raises(NotImplementedError):
+            make_backend(gpu, RenderConfig(backend=backend))
+        return
+    assert make_backend(gpu, RenderConfig(backend=backend)).num_tris == gpu.num_tris
+    with pytest.raises(NotImplementedError, match="alpha"):
+        make_backend(gpu, RenderConfig(backend=backend, alpha_test=True))
 
 
 @pytest.mark.parametrize("field", sorted(UNPORTED_FIELDS))
@@ -108,7 +116,8 @@ def test_per_image_denoise_is_refused():
 def test_backend_resolution():
     bvh = scenes.procedural_mesh(200).compile()
     small = scenes.sphere_plane().compile()
-    assert resolve_backend_kind(bvh, RenderConfig()) == "pallas"
+    assert resolve_backend_kind(bvh, RenderConfig()) == "hybrid"
+    assert resolve_backend_kind(bvh, RenderConfig(backend="pallas")) == "pallas"
     assert resolve_backend_kind(bvh, RenderConfig(use_bvh=False)) == "brute"
     assert resolve_backend_kind(small, RenderConfig()) == "brute"
     assert resolve_backend_kind(small, RenderConfig(backend="pallas")) == "brute"

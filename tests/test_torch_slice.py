@@ -63,7 +63,7 @@ def frames(request):
         tcomp = render_components(tscene, tframe, tcfg, 0)
         got = {k: getattr(tcomp, k).numpy() for k in COMPONENTS}
         got["final"] = denoise_and_combine(tcomp, tcfg).numpy()
-        port_render = rt.render(getattr(scenes, name)(*args), tcfg).numpy()
+        port_render = rt.render(getattr(scenes, name)(*args), tcfg, device="cpu").numpy()
     return request.param, want, got, port_render
 
 
