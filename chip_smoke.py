@@ -121,6 +121,10 @@ PEAK_BYTES = 3.35e12
 # u and v (2 mul + 2 add), u + v (1), five compares; a common origin hoists
 # the origin dots out of the pair loop, a common direction the direction dots.
 OPS_PER_PAIR = {None: 47, "origin": 29, "dir": 32}
+# f32 operations per slab test of a ray against a box in the v8 kernel: per
+# axis two subtractions, two multiplications, a min and a max (18), the
+# near/far combine (4), four compares and max(near, 0).
+SLAB_OPS = 27
 
 
 def nbytes(*tensors) -> int:
@@ -133,9 +137,18 @@ def bound(ops: float, moved: float) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def trace_bound(visits: int, common, moved: int) -> tuple[float, str]:
-    """A traversal call: visits x 128 rays x 128 triangles x the pair ops."""
-    return bound(visits * 128 * 128 * OPS_PER_PAIR[common], moved)
+def trace_bound(outi, common, moved: int) -> tuple[tuple[float, str], int]:
+    """A traversal call's (bound, pairs).  Operations: the ray-triangle
+    pairs its rays tested (outi row 5: live rays only, up to the first hit
+    in occluded mode) x the pair ops, plus v8's slab tests (outi row 6,
+    zero in v7 and v9) x SLAB_OPS.  The tile-shared dot products of a
+    common origin or direction (under 1% more) are left out."""
+    visits = int(outi[:, 1, 0].sum().item())
+    pairs = int(outi[:, 5].sum().item())
+    slabs = int(outi[:, 6].sum().item())
+    require(0 < pairs <= visits * 128 * 128,
+            f"pair count {pairs} outside (0, {visits} visits x 128 x 128]")
+    return bound(pairs * OPS_PER_PAIR[common] + slabs * SLAB_OPS, moved), pairs
 
 
 def atrous_bound(h: int, w: int, iterations: int) -> tuple[float, str]:
@@ -207,12 +220,16 @@ def main() -> int:
                 say(f"  {name}: {line.strip()}")
 
     # ---- 3. v7 kernel vs plain ------------------------------------------
-    t0 = time.perf_counter()
     scene = scenes.procedural_mesh(100_000, sun=True)
+    t0 = time.perf_counter()
+    scene.compile(quarter_panels=False)
+    t_plain = time.perf_counter() - t0
+    t0 = time.perf_counter()
     gpu = scene.compile().to(dev)
     say(f"[3] procedural_mesh(100_000): {gpu.num_tris} tris, "
-        f"{gpu.pallas_panels.shape[0]} coefficient blocks, {gpu.num_light_tris} light tris, "
-        f"compiled in {time.perf_counter() - t0:.2f} s")
+        f"{gpu.pallas_panels.shape[0]} coefficient blocks, {gpu.num_light_tris} light tris; "
+        f"host compile {time.perf_counter() - t0:.2f} s with the v9 repacked panels, "
+        f"{t_plain:.2f} s without (routes that run no v9 trace)")
     coeff, cl_min, cl_max = gpu.pallas_panels, gpu.pallas_cl_min, gpu.pallas_cl_max
 
     def primary_tiles(w, h):
@@ -350,10 +367,11 @@ def main() -> int:
     v7_plain_ms, prim_p = cuda_ms(
         lambda: v7.trace_keys_plain(prim, keys, coeff, id_mask, "closest", "origin"), 1)
     v7_visits = int(prim_k[1][:, 1, 0].sum().item())
-    v7_bound = trace_bound(v7_visits, "origin",
-                           nbytes(prim, keys, coeff) + 3 * prim.shape[0] * 128 * 4)
+    v7_bound, v7_pairs = trace_bound(prim_k[1], "origin",
+                                     nbytes(prim, keys, coeff) + 4 * prim.shape[0] * 128 * 4)
     say(f"[5] v7 closest, 1080p primaries ({prim.shape[0]} tiles): cull {cull_ms:.3f} ms, "
-        f"kernel {v7_ms:.3f} ms, plain {v7_plain_ms:.3f} ms; {v7_visits} visits, "
+        f"kernel {v7_ms:.3f} ms, plain {v7_plain_ms:.3f} ms; {v7_visits} visits, {v7_pairs} pairs "
+        f"tested ({v7_pairs / (v7_visits * 16384):.4f} of visits x 128 x 128), "
         f"bound {v7_bound[0]:.4f} ms by {v7_bound[1]} ({card})")
     v7_err = max(v7_err, compare_closest(prim_k, prim_p, "[5] closest common=origin 1080p"))
     seg, sun = shadow_tiles(prim, prim_k, 8)
@@ -402,24 +420,25 @@ def main() -> int:
         lambda: v9.trace_quarter_plain(prim, qkeys, q_coeff, q_off, qmask, "origin"), 1)
     v9_err = max(v9_err, compare_closest(v9_k, v9_p, "[7] v9 closest common=origin 1080p"))
     v9_visits = int(v9_k[1][:, 1, 0].sum().item()) // 4
+    v9_bound, v9_pairs = trace_bound(v9_k[1], "origin", nbytes(prim, qkeys, q_coeff, q_off)
+                                     + 4 * prim.shape[0] * 128 * 4)
     per_stream = (qkeys.reshape(prim.shape[0], 4, -1) != v7.INVALID).sum(dim=2).float()
     say(f"[7] candidates per tile: v7 {float((keys != v7.INVALID).sum()) / prim.shape[0]:.2f} blocks; "
         f"v9 {float(per_stream.mean()):.2f} subclusters per stream, longest stream "
         f"{float(per_stream.amax(dim=1).mean()):.2f}; visits per tile: v7 {v7_visits / prim.shape[0]:.2f}, "
         f"v9 {v9_visits / prim.shape[0]:.2f}")
-    v9_bound = trace_bound(v9_visits, "origin",
-                           nbytes(prim, qkeys, q_coeff, q_off) + 3 * prim.shape[0] * 128 * 4)
     say(f"[7] v9 closest, 1080p primaries: quarter cull {qcull_ms:.3f} ms, kernel {v9_ms:.3f} ms, "
-        f"plain {v9_plain_ms:.3f} ms; {v9_visits} composite visits (v7: {v7_visits}), "
-        f"bound {v9_bound[0]:.4f} ms by {v9_bound[1]} ({card})")
+        f"plain {v9_plain_ms:.3f} ms; {v9_visits} composite visits (v7: {v7_visits}), {v9_pairs} "
+        f"pairs tested ({v9_pairs / (v9_visits * 16384):.4f} of visits x 128 x 128; v7: "
+        f"{v7_pairs}), bound {v9_bound[0]:.4f} ms by {v9_bound[1]} ({card})")
 
     # ---- 8. v8 kernel vs plain ------------------------------------------
     hcoeff, sup, blk, nsup = v8._hier_inputs(gpu)
     say(f"[8] v8 hierarchy: {nsup} superclusters over {hcoeff.shape[0]} blocks")
     h_in = nbytes(sup, blk, hcoeff)
 
-    def v8_kernel(rays, mode, common, hints=None):
-        return v8.trace_hier_kernel(rays, sup, blk, hcoeff, nsup, mode, common, hints)
+    def v8_kernel(rays, mode, common, hints=None, count=False):
+        return v8.trace_hier_kernel(rays, sup, blk, hcoeff, nsup, mode, common, hints, count)
 
     def v8_plain(rays, mode, common):
         return v8.trace_hier_plain(rays, sup, blk, hcoeff, nsup, mode, common)
@@ -449,11 +468,17 @@ def main() -> int:
         pm, p = cuda_ms(lambda: v8_plain(rays, mode, common), 1)
         cmp = compare_occluded if mode == "occluded" else compare_closest
         v8_err = max(v8_err, cmp(k, p, f"[8] v8 {what} 1080p"))
+        # The counting variant: the same results, plus the work counts.
+        cm, kc = cuda_ms(lambda: v8_kernel(rays, mode, common, count=True), reps)
+        require(torch.equal(kc[0][:, 0], k[0][:, 0]) and torch.equal(kc[1][:, 0:2], k[1][:, 0:2]),
+                f"[8] v8 {what}: the counting variant's results differ")
         visits = int(k[1][:, 1, 0].sum().item())
         rows_out = 7 if mode == "occluded" else 5      # outf 0-1, outi 0-2 (+ hints 3-4)
-        b = trace_bound(visits, common, nbytes(rays) + h_in + rows_out * rays.shape[0] * 128 * 4)
+        b, pairs = trace_bound(kc[1], common, nbytes(rays) + h_in + rows_out * rays.shape[0] * 128 * 4)
         v8_rows[what] = (km, pm, visits, b)
-        say(f"[8] v8 {what}, 1080p: kernel {km:.3f} ms, plain {pm:.3f} ms; {visits} visits, "
+        say(f"[8] v8 {what}, 1080p: kernel {km:.3f} ms (counting variant {cm:.3f} ms), plain "
+            f"{pm:.3f} ms; {visits} visits, {pairs} pairs tested ({pairs / (visits * 16384):.4f} of "
+            f"visits x 128 x 128), {int(kc[1][:, 6].sum().item())} slab tests, "
             f"bound {b[0]:.4f} ms by {b[1]} ({card})")
 
     # Hints: cold, fed its own hints, fed garbage; masks equal the twin's.

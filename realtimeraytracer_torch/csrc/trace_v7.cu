@@ -8,8 +8,10 @@
 // coefficient blocks (CB, 12, 128) f32 rows [n | -n.A | r1 | -r1.A | r2 |
 // -r2.A].  Outputs: outf row 0 = t (closest; 3e38 on a miss) or the
 // occluded flag; outi row 0 = sorted-triangle id (-1 on a miss), row 1 =
-// blocks visited.  Rows the kernel does not write are left as the caller
-// allocated them.
+// blocks visited, row 5 = ray-triangle pairs this ray tested (live rays
+// only, up to the first hit in occluded mode: the bound's operation
+// count).  Rows the kernel does not write are left as the caller allocated
+// them.
 //
 // Design.  One thread per ray, 128 threads per tile.  The tile's valid keys
 // are compacted into shared memory and bitonic-sorted once, which gives the
@@ -24,9 +26,10 @@
 // 100k-triangle scene's table is 4.8 MB and stays in the 50 MB L2, so the
 // TPU's resident-VMEM vs HBM-DMA split has no counterpart here.
 //
-// What bounds it: f32 FMAs per visit (about 21 multiply-adds and one
-// division per ray-triangle pair, 128x128 pairs per visit), and the number
-// of visits the cull lets through.  common="origin" (pinhole primaries) and
+// What bounds it: f32 FMAs per ray-triangle pair tested (about 21
+// multiply-adds and one division; each live ray tests a visited block's 128
+// triangles, an occluded ray stops at its first hit), and the number of
+// visits the cull lets through.  common="origin" (pinhole primaries) and
 // common="dir" (sun shadows) precompute the shared dot family once per
 // triangle per visit, removing 9 of the 21 multiply-adds per pair.
 //
@@ -122,7 +125,7 @@ __global__ void __launch_bounds__(TILE) trace_v7_kernel(
 
   float best_t = BIG;
   int best_k = -1;
-  int visits = 0;
+  int visits = 0, pairs = 0;
   for (int i = 0; i < n; ++i) {
     const int key = skeys[i];
     const int entry = key & ~id_mask;
@@ -150,6 +153,7 @@ __global__ void __launch_bounds__(TILE) trace_v7_kernel(
     if (!live || !(tmin <= limit)) continue;   // this ray cannot hit here
     int kbest = KEY_PAD;
     bool hit = false;
+    int tested = TILE;
     for (int j = 0; j < TILE; ++j) {
       float s0, ou, ov, s1, du, dv;
       if (COMMON == COMMON_ORIGIN) {
@@ -183,9 +187,11 @@ __global__ void __launch_bounds__(TILE) trace_v7_kernel(
         kbest = min(kbest, (__float_as_int(tm) & ~127) | j);
       } else if (ok) {
         hit = true;
+        tested = j + 1;
         break;
       }
     }
+    pairs += tested;
     if (MODE == CLOSEST) {
       if (kbest < __float_as_int(best_t)) {
         best_t = __int_as_float(kbest & ~127);
@@ -201,6 +207,7 @@ __global__ void __launch_bounds__(TILE) trace_v7_kernel(
   of[lane] = MODE == CLOSEST ? best_t : (best_t < 0.0f ? 1.0f : 0.0f);
   oi[lane] = best_k;
   oi[TILE + lane] = visits;
+  oi[5 * TILE + lane] = pairs;
 }
 
 typedef void (*TraceFn)(const float*, const int*, const float*, float*, int*,

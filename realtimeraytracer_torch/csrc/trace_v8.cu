@@ -15,7 +15,13 @@
 // = blocks visited (hint visits included), row 2 = -1 (the instance id of
 // the instanced kernel, which is not ported), rows 3 and 4 (occluded) =
 // the tile's least and greatest first-occluder block, -1 if none: the
-// hints of the next correlated trace.
+// hints of the next correlated trace.  Work counts, only when launched with
+// count = 1 (they cost the sun trace about 14% on the H100, so the render
+// path launches without them): outi row 5 = ray-triangle pairs this ray
+// tested (up to its first hit in occluded mode), row 6 = slab tests this
+// thread made against live windows (its share of the tile's L1 and L2 box
+// culls plus its own ray's per-visit tests); retired rays and empty windows
+// are not counted.  They are the bound's operation count.
 //
 // Design.  One thread per ray.
 //   Hints in: the tile's hint blocks (clamped to cb-1, -1 = skip) are
@@ -49,9 +55,11 @@
 // with the super count and the wrapper refuses more supers than the
 // shared-memory sort holds.
 //
-// What bounds it: f32 operations per visit (47 per ray-triangle pair, 32
-// with a common direction, up to 128x128 pairs per visit; rays whose slab
-// test fails skip the visit) plus 128x128 slab tests per popped super.
+// What bounds it: f32 operations, 47 per ray-triangle pair tested (32 with
+// a common direction; rays whose slab test fails skip the visit, occluded
+// rays stop at their first hit) and 27 per slab test (the tile's 128 rays
+// against each super box, then against the 128 block boxes of each popped
+// super, and each live ray once per visit).
 //
 // Numerics: -fmad=false, the same expressions and order as the plain twin
 // (render/hier_backend.py::trace_hier_plain).
@@ -129,6 +137,15 @@ __device__ void bitonic_sort(int* s, int p) {
   }
 }
 
+// A barrier; with COUNT, also the number of the CTA's threads whose
+// predicate holds.
+template <bool COUNT>
+__device__ __forceinline__ int live_count(bool pred) {
+  if (COUNT) return __syncthreads_count(pred);
+  __syncthreads();
+  return 0;
+}
+
 struct Tile {
   float o[3][TILE];      // origins
   float inv[3][TILE];    // guarded inverse directions
@@ -138,9 +155,13 @@ struct Tile {
 };
 
 // Least entry over the tile's rays of box `b` of a (8, 128) box page, or
-// +inf bits when no ray's window overlaps it.
+// +inf bits when no ray's window overlaps it.  A valid box adds `live`, the
+// tile's rays with a live window, to this thread's slab count (counted once
+// per cull by the caller's barrier, which keeps the count out of the ray
+// loop).
+template <bool COUNT>
 __device__ __forceinline__ float box_min_entry(const Tile& T, const float* page,
-                                              int b) {
+                                              int b, int live, int* work) {
   float lo[3], hi[3];
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
@@ -149,6 +170,7 @@ __device__ __forceinline__ float box_min_entry(const Tile& T, const float* page,
   }
   float emin = __int_as_float(INVALID);
   if (!(lo[0] <= hi[0])) return emin;
+  if (COUNT) work[TILE + threadIdx.x] += live;
   for (int r = 0; r < TILE; ++r) {
     const float o[3] = {T.o[0][r], T.o[1][r], T.o[2][r]};
     const float inv[3] = {T.inv[0][r], T.inv[1][r], T.inv[2][r]};
@@ -160,12 +182,12 @@ __device__ __forceinline__ float box_min_entry(const Tile& T, const float* page,
 // One block visit: stage the block's coefficients, then each live ray whose
 // window still overlaps the block box tests its 128 triangles.  Every thread
 // of the CTA calls it (it holds barriers); lane = threadIdx.x.
-template <int MODE, int COMMON>
+template <int MODE, int COMMON, bool COUNT>
 __device__ __forceinline__ void visit(
     int cid, const float* __restrict__ coeff, const float* __restrict__ blk,
     float* coef, float* fam, const float* o, const float* d, const float* inv,
     int fl, float tmin, float tmax, float cx, float cy, float cz,
-    float& best_t, int& best_k, int& visits) {
+    float& best_t, int& best_k, int& visits, int* work) {
   const int lane = threadIdx.x;
   const float* cg = coeff + (size_t)cid * CROWS * TILE;
 #pragma unroll
@@ -192,10 +214,12 @@ __device__ __forceinline__ void visit(
     lo[a] = page[a * TILE + b];
     hi[a] = page[(3 + a) * TILE + b];
   }
+  if (COUNT) ++work[TILE + lane];
   if (!(slab_entry(lo, hi, o, inv, fl, tmin, limit) < __int_as_float(INVALID)))
     return;
   int kbest = KEY_PAD;
   bool hit = false;
+  int tested = TILE;
   for (int j = 0; j < TILE; ++j) {
     float s0, ou, ov, s1, du, dv;
     if (COMMON == COMMON_ORIGIN) {
@@ -227,9 +251,11 @@ __device__ __forceinline__ void visit(
       kbest = min(kbest, (__float_as_int(tm) & ~127) | j);
     } else if (ok) {
       hit = true;
+      if (COUNT) tested = j + 1;
       break;
     }
   }
+  if (COUNT) work[lane] += tested;
   if (MODE == CLOSEST) {
     if (kbest < __float_as_int(best_t)) {
       best_t = __int_as_float(kbest & ~127);
@@ -241,7 +267,7 @@ __device__ __forceinline__ void visit(
   }
 }
 
-template <int MODE, int COMMON>
+template <int MODE, int COMMON, bool COUNT>
 __global__ void __launch_bounds__(TILE) trace_v8_kernel(
     const float* __restrict__ rays, const float* __restrict__ sup,
     const float* __restrict__ blk, const float* __restrict__ coeff,
@@ -254,6 +280,9 @@ __global__ void __launch_bounds__(TILE) trace_v8_kernel(
   __shared__ int l2keys[SUP];
   __shared__ int count;
   __shared__ int hint_lo, hint_hi;
+  // Work counts (COUNT only), kept in shared memory rather than registers:
+  // [0, TILE) pairs tested, [TILE, 2 TILE) slab tests.
+  __shared__ int work[COUNT ? 2 * TILE : 1];
   const int tile = blockIdx.x;
   const int lane = threadIdx.x;
 
@@ -280,23 +309,29 @@ __global__ void __launch_bounds__(TILE) trace_v8_kernel(
   float best_t = BIG;
   int best_k = -1;
   int visits = 0, l1pops = 0;
+  if (COUNT) {
+    work[lane] = 0;
+    work[TILE + lane] = 0;
+  }
 
   // Hints in: visit the previous correlated trace's occluder blocks.
   for (int j = 0; j < hn; ++j) {
     const int h = hints[(size_t)tile * hn + j];
     if (h >= 0) {
       __syncthreads();            // retire the previous visit's reads
-      visit<MODE, COMMON>(min(h, cb - 1), coeff, blk, coef, fam, o, d, inv, fl,
-                          tmin, tmax, cx, cy, cz, best_t, best_k, visits);
+      visit<MODE, COMMON, COUNT>(min(h, cb - 1), coeff, blk, coef, fam, o, d, inv, fl,
+                          tmin, tmax, cx, cy, cz, best_t, best_k, visits,
+                          work);
     }
   }
 
   // L1: least entry per super over the live windows, sorted once.
   if (lane == 0) count = 0;
   T.limit[lane] = fminf(best_t, tmax);
-  __syncthreads();
+  const int live1 = live_count<COUNT>(tmin <= fminf(best_t, tmax));
   for (int s = lane; s < nsup; s += TILE) {
-    const float e = box_min_entry(T, sup + (size_t)(s / TILE) * 8 * TILE, s % TILE);
+    const float e = box_min_entry<COUNT>(T, sup + (size_t)(s / TILE) * 8 * TILE, s % TILE,
+                                  live1, work);
     if (__float_as_int(e) != INVALID)
       l1keys[atomicAdd(&count, 1)] = (__float_as_int(e) & ~l1_mask) | s;
   }
@@ -316,8 +351,8 @@ __global__ void __launch_bounds__(TILE) trace_v8_kernel(
     const int s = key & l1_mask;
     // L2: block keys of this super against the live windows.
     T.limit[lane] = fminf(best_t, tmax);
-    __syncthreads();
-    const float e = box_min_entry(T, blk + (size_t)s * 8 * TILE, lane);
+    const int live2 = live_count<COUNT>(tmin <= fminf(best_t, tmax));
+    const float e = box_min_entry<COUNT>(T, blk + (size_t)s * 8 * TILE, lane, live2, work);
     l2keys[lane] = __float_as_int(e) == INVALID
                        ? INVALID
                        : (__float_as_int(e) & ~((1 << BLK_BITS) - 1)) | lane;
@@ -330,8 +365,8 @@ __global__ void __launch_bounds__(TILE) trace_v8_kernel(
                             (k2 & ~((1 << BLK_BITS) - 1))))
         break;
       const int cid = min(s * SUP + (k2 & ((1 << BLK_BITS) - 1)), cb - 1);
-      visit<MODE, COMMON>(cid, coeff, blk, coef, fam, o, d, inv, fl, tmin, tmax,
-                          cx, cy, cz, best_t, best_k, visits);
+      visit<MODE, COMMON, COUNT>(cid, coeff, blk, coef, fam, o, d, inv, fl, tmin, tmax,
+                          cx, cy, cz, best_t, best_k, visits, work);
     }
   }
 
@@ -342,6 +377,10 @@ __global__ void __launch_bounds__(TILE) trace_v8_kernel(
   oi[lane] = best_k;
   oi[TILE + lane] = visits;
   oi[2 * TILE + lane] = -1;
+  if (COUNT) {
+    oi[5 * TILE + lane] = work[lane];
+    oi[6 * TILE + lane] = work[TILE + lane];
+  }
   if (MODE == OCCLUDED) {
     // Hints out: the tile's least and greatest first-occluder block.
     if (lane == 0) {
@@ -362,34 +401,36 @@ __global__ void __launch_bounds__(TILE) trace_v8_kernel(
 typedef void (*TraceFn)(const float*, const float*, const float*, const float*,
                         const int*, float*, int*, int, int, int, int, int);
 
+template <bool COUNT>
 TraceFn pick(int mode, int common) {
   if (mode == CLOSEST) {
-    if (common == COMMON_ORIGIN) return trace_v8_kernel<CLOSEST, COMMON_ORIGIN>;
-    if (common == COMMON_DIR) return trace_v8_kernel<CLOSEST, COMMON_DIR>;
-    return trace_v8_kernel<CLOSEST, COMMON_NONE>;
+    if (common == COMMON_ORIGIN) return trace_v8_kernel<CLOSEST, COMMON_ORIGIN, COUNT>;
+    if (common == COMMON_DIR) return trace_v8_kernel<CLOSEST, COMMON_DIR, COUNT>;
+    return trace_v8_kernel<CLOSEST, COMMON_NONE, COUNT>;
   }
-  if (common == COMMON_ORIGIN) return trace_v8_kernel<OCCLUDED, COMMON_ORIGIN>;
-  if (common == COMMON_DIR) return trace_v8_kernel<OCCLUDED, COMMON_DIR>;
-  return trace_v8_kernel<OCCLUDED, COMMON_NONE>;
+  if (common == COMMON_ORIGIN) return trace_v8_kernel<OCCLUDED, COMMON_ORIGIN, COUNT>;
+  if (common == COMMON_DIR) return trace_v8_kernel<OCCLUDED, COMMON_DIR, COUNT>;
+  return trace_v8_kernel<OCCLUDED, COMMON_NONE, COUNT>;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches one CTA per tile on `stream`.  hints may be null (hn = 0).
-// Returns cudaGetLastError() after the launch (0 = launched), or the error
-// of the shared-memory opt-in.
+// Launches one CTA per tile on `stream`.  hints may be null (hn = 0);
+// count = 1 also writes the work counts (outi rows 5 and 6).  Returns
+// cudaGetLastError() after the launch (0 = launched), or the error of the
+// shared-memory opt-in.
 int rt_trace_v8(const void* rays, const void* sup, const void* blk,
                 const void* coeff, const void* hints, void* outf, void* outi,
                 int ts, int nsup, int cb, int hn, int l1_mask, int mode,
-                int common, void* stream) {
+                int common, int count, void* stream) {
   if (ts <= 0) return 0;
   int cap1 = 1;
   while (cap1 < nsup) cap1 <<= 1;
   const size_t smem = (size_t)cap1 * sizeof(int);
-  TraceFn fn = pick(mode, common);
-  if (smem + sizeof(Tile) + (CROWS + 3) * TILE * sizeof(float) > 48 * 1024) {
+  TraceFn fn = count ? pick<true>(mode, common) : pick<false>(mode, common);
+  if (smem + sizeof(Tile) + (CROWS + 6) * TILE * sizeof(float) > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;

@@ -11,7 +11,9 @@
 // (CB, 12, 128) f32; an optional pads-before-group table group_off
 // (CB*4,) i32 of the SAH-repacked panels.  Outputs: outf row 0 = t (3e38
 // on a miss); outi row 0 = sorted-triangle id (-1 on a miss), row 1 =
-// subclusters visited (4 per composite visit).
+// subclusters visited (4 per composite visit), row 5 = ray-triangle pairs
+// this ray tested on real subclusters (live rays only; a drained stream's
+// zero lanes are not counted): the bound's operation count.
 //
 // Design.  One thread per ray.  Each quarter stream's valid keys are
 // compacted into shared memory and the four streams are bitonic-sorted
@@ -135,7 +137,7 @@ __global__ void __launch_bounds__(TILE) trace_v9_kernel(
 
   float best_t = BIG;
   int best_k = -1;
-  int visits = 0;
+  int visits = 0, pairs = 0;
   const int my_q = lane / SUBK;
   for (int v = 0; v < nmax; ++v) {
     int kmin = KEY_PAD;
@@ -170,6 +172,8 @@ __global__ void __launch_bounds__(TILE) trace_v9_kernel(
 
     const float limit = fminf(best_t, tmax);
     if (!(tmin <= limit)) continue;            // this ray cannot hit here
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) pairs += v < n[q] ? SUBK : 0;
     int kbest = KEY_PAD;
     for (int j = 0; j < TILE; ++j) {
       float s0, ou, ov, s1, du, dv;
@@ -215,6 +219,7 @@ __global__ void __launch_bounds__(TILE) trace_v9_kernel(
   of[lane] = best_t;
   oi[lane] = best_k;
   oi[TILE + lane] = NQ * visits;
+  oi[5 * TILE + lane] = pairs;
 }
 
 typedef void (*TraceFn)(const float*, const int*, const float*, const int*,

@@ -43,7 +43,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # and has a companion `<symbol>_error(int) -> const char*`.
 SIGNATURES = {
     "trace_v7": ("rt_trace_v7", [_P] * 5 + [_I] * 6 + [_P]),
-    "trace_v8": ("rt_trace_v8", [_P] * 7 + [_I] * 7 + [_P]),
+    "trace_v8": ("rt_trace_v8", [_P] * 7 + [_I] * 8 + [_P]),
     "trace_v9": ("rt_trace_v9", [_P] * 6 + [_I] * 5 + [_P]),
     "atrous_pair": ("rt_atrous_pair", [_P] * 6 + [_I] * 3 + [_F] * 4 + [_P]),
 }

@@ -48,6 +48,10 @@ SUP = 128            # blocks per supercluster
 # shared memory and takes as many.
 SPAGES = 24
 _NO_HIT = 1 << 30
+# Rays per slab-test chunk and (ray, block) pairs per intersection chunk of
+# the plain twin, on CUDA and elsewhere.
+_RAY_CHUNK_CUDA, _RAY_CHUNK_CPU = 32768, 1024
+_PAIR_CHUNK_CUDA, _PAIR_CHUNK_CPU = 32768, 512
 
 
 def pack_hierarchy(cl_min: torch.Tensor, cl_max: torch.Tensor):
@@ -109,8 +113,7 @@ def _slab_pass(o, inv, fl, tmin, limit, lo, hi):
 
 
 def trace_hier_plain(rays, sup_panel, blk_panels, coeff, nsup: int, mode: str,
-                     common: str | None = None, hints=None,
-                     ray_chunk: int | None = None, chunk: int | None = None):
+                     common: str | None = None, hints=None):
     """Plain PyTorch twin of the v8 kernel, for any device.
 
     Per-ray block cull under each ray's window [t_min, t_max], then every
@@ -119,14 +122,16 @@ def trace_hier_plain(rays, sup_panel, blk_panels, coeff, nsup: int, mode: str,
     ray's lowest occluding block, rows 3 and 4 = the tile's least and
     greatest of those (-1 if none).  Results do not depend on `hints` or
     on the super level, which only prune.  Row 1 of outi holds the tile's
-    candidate block count."""
+    candidate block count; rows 5 and 6 the pairs and the slab tests the
+    twin made for each live ray."""
     del sup_panel, nsup, hints
     ts = rays.shape[0]
     dev = rays.device
     cb = coeff.shape[0]
     r_all = ts * TILE
-    ray_chunk = ray_chunk or (32768 if dev.type == "cuda" else 1024)
-    chunk = chunk or (32768 if dev.type == "cuda" else 512)
+    cuda = dev.type == "cuda"
+    ray_chunk = _RAY_CHUNK_CUDA if cuda else _RAY_CHUNK_CPU
+    chunk = _PAIR_CHUNK_CUDA if cuda else _PAIR_CHUNK_CPU
     rays = rays.clone()
     if common == "origin":
         rays[:, 0:3] = rays[:, 0:3, 0:1]
@@ -187,13 +192,19 @@ def trace_hier_plain(rays, sup_panel, blk_panels, coeff, nsup: int, mode: str,
     cand[pair_ray // TILE, pair_blk] = True
     outi[:, 1] = cand.sum(dim=1, dtype=torch.int32)[:, None]
     outi[:, 2] = -1
+    pairs = torch.bincount(pair_ray, minlength=r_all) * TILE
+    outi[:, 5] = pairs.to(torch.int32).reshape(ts, TILE)
+    outi[:, 6] = torch.where(rays[:, 6] <= rays[:, 7], cb, 0)
     return outf, outi
 
 
 def trace_hier_kernel(rays, sup_panel, blk_panels, coeff, nsup: int, mode: str,
-                      common: str | None = None, hints=None):
+                      common: str | None = None, hints=None, count: bool = False):
     """Launch csrc/trace_v8.cu (CUDA tensors only); adds one to
-    ``trace_blocks_hier.launches``.  hints: (Ts, hn) int32 or None."""
+    ``trace_blocks_hier.launches``.  hints: (Ts, hn) int32 or None.
+    count=True launches the variant that also writes its work counts
+    (outi rows 5 and 6, the bound's operation count); the render path
+    does not, as counting slows the kernel."""
     ts = rays.shape[0]
     cb = coeff.shape[0]
     _check(rays, "rays", torch.float32, (ts, 8, TILE))
@@ -220,7 +231,7 @@ def trace_hier_kernel(rays, sup_panel, blk_panels, coeff, nsup: int, mode: str,
                        None if hints is None else hints.data_ptr(),
                        outf.data_ptr(), outi.data_ptr(), ts, nsup, cb,
                        0 if hints is None else hints.shape[1], l1_mask,
-                       _MODES[mode], _COMMON[common], stream)
+                       _MODES[mode], _COMMON[common], int(count), stream)
     trace_blocks_hier.launches += 1
     return outf, outi
 
@@ -239,7 +250,8 @@ def trace_blocks_hier(gpu: TorchScene, ray_blocks, mode: str,
     kernel's wrapper.  Returns (outf, outi), each (Ts, 8, 128): outf row 0 =
     t (3e38 on a miss) or the occluded flag; outi row 0 = sorted-triangle id
     or -1 (closest), row 1 = blocks visited, rows 3 and 4 (occluded) = the
-    tile's hints for the next correlated trace.  hints ((Ts, hn) int32)
+    tile's hints for the next correlated trace, rows 5 and 6 = the
+    ray-triangle pairs and slab tests each thread made.  hints ((Ts, hn) int32)
     are visited first, in occluded mode on scenes of at most RESIDENT_CB
     blocks; they never change the result.  CUDA tensors launch the kernel;
     CPU tensors run the plain twin."""

@@ -69,6 +69,9 @@ def render_pipeline(scene, cfg: RenderConfig | None = None,
             "render_pipeline(scene) expects a Scene; for compiled scenes use "
             "render_pipeline_gpu(gpu, frame, cfg)")
     check_supported(cfg)
-    gpu = scene.compile(bvh_leaf_size=cfg.bvh_leaf_size).to(device)
+    # Only the v9 kernel reads the SAH-repacked panels; other routes skip
+    # their host build.
+    v9 = cfg.backend in ("quarter", "hybrid") or (cfg.backend == "auto" and cfg.use_bvh)
+    gpu = scene.compile(bvh_leaf_size=cfg.bvh_leaf_size, quarter_panels=v9).to(device)
     frame = scene.camera.viewport_frame(cfg.width, cfg.height, device=device)
     return render_pipeline_gpu(gpu, frame, cfg, frame_index)

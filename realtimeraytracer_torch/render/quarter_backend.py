@@ -37,10 +37,12 @@ from realtimeraytracer_torch.scene.gpu_scene import TorchScene
 from realtimeraytracer_torch.scene.panels import CB, CROWS, RESIDENT_CB, SUBK, TILE
 
 NQ = CB // SUBK      # lane quarters per block (4)
+# (tile, subcluster) pairs per chunk of the plain twin, on CUDA and elsewhere.
+_PAIR_CHUNK_CUDA, _PAIR_CHUNK_CPU = 4096, 256
 
 
 def trace_quarter_plain(rays, keys, coeff, group_off, id_mask: int,
-                        common: str | None = None, chunk: int | None = None):
+                        common: str | None = None):
     """Plain PyTorch twin of the v9 kernel on culled quarter keys (Ts, 4,
     CBn, 8, 128), for any device.
 
@@ -49,11 +51,12 @@ def trace_quarter_plain(rays, keys, coeff, group_off, id_mask: int,
     is (quantized t bits, rank in its stream, composite lane): the least
     wins, which is the kernel's rule (nearest quantized t, then the
     earliest visit, then the lowest lane).  Row 1 of outi holds 4 x the
-    longest stream (the kernel's visit count without the stop rule)."""
+    longest stream (the kernel's visit count without the stop rule), row 5
+    the pairs the twin tested for each live ray."""
     ts = rays.shape[0]
     dev = rays.device
     cb = coeff.shape[0]
-    chunk = chunk or (4096 if dev.type == "cuda" else 256)
+    chunk = _PAIR_CHUNK_CUDA if dev.type == "cuda" else _PAIR_CHUNK_CPU
     sk = torch.sort(keys.reshape(ts, NQ, -1), dim=2).values
     cand = sk != INVALID
     tile_of, q_of, rank = cand.nonzero(as_tuple=True)
@@ -90,6 +93,8 @@ def trace_quarter_plain(rays, keys, coeff, group_off, id_mask: int,
     outf[:, 0] = torch.where(found, t, BIG).reshape(ts, TILE)
     outi[:, 0] = torch.where(found, ids, -1).reshape(ts, TILE)
     outi[:, 1] = NQ * cand.sum(dim=2, dtype=torch.int32).amax(dim=1)[:, None]
+    n_sub = cand.sum(dim=(1, 2), dtype=torch.int32)[:, None]
+    outi[:, 5] = torch.where(rays[:, 6] <= rays[:, 7], n_sub * SUBK, 0)
     return outf, outi
 
 
@@ -140,8 +145,8 @@ def trace_blocks_quarter(gpu: TorchScene, ray_blocks, common: str | None = None)
     """Closest-hit trace of packed (Ts, 8, 128) ray tiles, v9 scheme; the
     kernel's wrapper.  Same output contract as v7's closest mode: outf row
     0 = t (3e38 on a miss); outi row 0 = sorted-triangle id or -1, row 1 =
-    subclusters visited.  CUDA tensors launch the kernel; CPU tensors run
-    the plain twin."""
+    subclusters visited, row 5 = ray-triangle pairs each ray tested.  CUDA
+    tensors launch the kernel; CPU tensors run the plain twin."""
     coeff, cl_min, cl_max, group_off = _quarter_panels(gpu)
     if coeff.shape[0] > RESIDENT_CB:
         raise ValueError(f"the v9 kernel takes at most {RESIDENT_CB} blocks "

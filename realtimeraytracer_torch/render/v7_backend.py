@@ -40,6 +40,8 @@ _INT64_MAX = torch.iinfo(torch.int64).max
 _MODES = {"closest": 0, "occluded": 1}
 _COMMON = {None: 0, "origin": 1, "dir": 2}
 _SMEM_LIMIT = 232448    # bytes of shared memory a Hopper CTA may opt into
+# (tile, block) pairs per chunk of the plain twin, on CUDA and elsewhere.
+_PAIR_CHUNK_CUDA, _PAIR_CHUNK_CPU = 1024, 64
 
 
 def _id_bits(total_blocks: int) -> int:
@@ -188,19 +190,19 @@ def _intersect_pairs(r, c, common):
 
 
 def trace_keys_plain(rays, keys, coeff, id_mask: int, mode: str,
-                     common: str | None = None, chunk: int | None = None):
+                     common: str | None = None):
     """Plain PyTorch twin of the v7 kernel on culled keys, for any device.
 
-    Intersects every candidate (tile, block) pair in chunks of `chunk`
-    pairs.  Closest hits combine per ray by an int64 key (quantized t bits,
-    visit rank, lane): the least quantized t wins, a tie goes to the block
-    visited first and then the lowest lane — the ordered loop's rule.
-    Row 1 of outi holds the tile's candidate count (the kernel's visit
-    count is at most that)."""
+    Intersects every candidate (tile, block) pair, in chunks.  Closest hits
+    combine per ray by an int64 key (quantized t bits, visit rank, lane):
+    the least quantized t wins, a tie goes to the block visited first and
+    then the lowest lane — the ordered loop's rule.  Row 1 of outi holds
+    the tile's candidate count (the kernel's visit count is at most that),
+    row 5 the pairs the twin tested for each live ray."""
     ts = rays.shape[0]
     dev = rays.device
     cb = coeff.shape[0]
-    chunk = chunk or (1024 if dev.type == "cuda" else 64)
+    chunk = _PAIR_CHUNK_CUDA if dev.type == "cuda" else _PAIR_CHUNK_CPU
     sk = torch.sort(keys.reshape(ts, -1), dim=1).values
     cand = sk != INVALID
     tile_of, rank = cand.nonzero(as_tuple=True)
@@ -238,6 +240,7 @@ def trace_keys_plain(rays, keys, coeff, id_mask: int, mode: str,
         outf[:, 0] = (hits > 0).to(torch.float32).reshape(ts, TILE)
         outi[:, 0] = -1
     outi[:, 1] = cand.sum(dim=1, dtype=torch.int32)[:, None]
+    outi[:, 5] = torch.where(rays[:, 6] <= rays[:, 7], outi[:, 1] * TILE, 0)
     return outf, outi
 
 
@@ -298,8 +301,8 @@ def trace_blocks(gpu: TorchScene, ray_blocks, mode: str,
     (pinhole primaries), "dir" iff one direction (sun shadows), else None.
     Returns (outf, outi), each (Ts, 8, 128): outf row 0 = t (3e38 on a
     miss) or the occluded flag; outi row 0 = sorted-triangle id or -1,
-    row 1 = blocks visited.  CUDA tensors launch the kernel; CPU tensors
-    run the plain twin."""
+    row 1 = blocks visited, row 5 = ray-triangle pairs each ray tested.
+    CUDA tensors launch the kernel; CPU tensors run the plain twin."""
     coeff, cl_min, cl_max = _panels(gpu)
     with record_function("v7.cull"):
         keys, id_mask = cull_keys(ray_blocks, cl_min, cl_max)

@@ -87,17 +87,19 @@ class Scene:
                 raise TypeError(f"cannot add {type(it)} to Scene")
         return self
 
-    def compile(self, bvh_leaf_size: int = 4,
-                bvh_threshold: int = 64) -> TorchScene:
+    def compile(self, bvh_leaf_size: int = 4, bvh_threshold: int = 64,
+                quarter_panels: bool = True) -> TorchScene:
         """Compile to a TorchScene on the CPU (``.to(device)`` moves it)."""
-        return from_numpy_leaves(self.compile_leaves(bvh_leaf_size,
-                                                     bvh_threshold))
+        return from_numpy_leaves(self.compile_leaves(
+            bvh_leaf_size, bvh_threshold, quarter_panels))
 
-    def compile_leaves(self, bvh_leaf_size: int = 4,
-                       bvh_threshold: int = 64) -> dict[str, np.ndarray]:
+    def compile_leaves(self, bvh_leaf_size: int = 4, bvh_threshold: int = 64,
+                       quarter_panels: bool = True) -> dict[str, np.ndarray]:
         """The compiled leaves as NumPy arrays (TorchScene field names).
         Builds the LBVH and v7 panels when the soup exceeds bvh_threshold
-        triangles."""
+        triangles, and the v9 repacked panels too unless quarter_panels is
+        False (the JAX compile always builds them; a route that runs no v9
+        trace skips the repack's host time)."""
         if self.instances:
             raise NotImplementedError(
                 "instanced scenes are not ported yet (ROADMAP queue A)")
@@ -219,7 +221,7 @@ class Scene:
                 pallas_panels=panels, pallas_cl_min=p_lo, pallas_cl_max=p_hi)
             # SAH-repacked v9 panels: only where the hybrid route can send
             # traces to v9, and only if the repacked table fits as well.
-            if panels.shape[0] <= RESIDENT_CB:
+            if quarter_panels and panels.shape[0] <= RESIDENT_CB:
                 from realtimeraytracer_torch.ops.repack import build_q_panels_np
 
                 qp, q_lo, q_hi, q_off, _ = build_q_panels_np(

@@ -112,6 +112,24 @@ def test_cpu_frame_launches_no_kernel(frames):
     assert [c.launches for c in counters] == before
 
 
+@pytest.mark.parametrize("backend,v9", [("auto", True), ("pallas", False), ("hier", False)])
+def test_render_repacks_only_for_v9(monkeypatch, backend, v9):
+    """render builds the SAH-repacked v9 panels only for a route that runs
+    v9 (their host build costs time to first frame)."""
+    from realtimeraytracer_torch.scene.scene import Scene
+
+    seen, compile_leaves = [], Scene.compile_leaves
+
+    def spy(self, *args):
+        seen.append(args[2])
+        return compile_leaves(self, *args)
+
+    monkeypatch.setattr(Scene, "compile_leaves", spy)
+    cfg = rt.RenderConfig(width=8, height=8, primary_rays=1, shadow_rays=1, backend=backend)
+    assert rt.render(scenes.procedural_mesh(300, 0, True), cfg, device="cpu").shape == (8, 8, 3)
+    assert seen == [v9]
+
+
 def test_render_defaults_to_the_gpu(monkeypatch):
     """With no CUDA device, render and render_pipeline without a device
     argument raise; they never render on the CPU instead."""

@@ -85,6 +85,15 @@ def _same_occluded(k, p):
     np.testing.assert_array_equal(kf, pf)
 
 
+def _fewer_pairs(k, p, rays):
+    """outi row 5, the pairs each ray tested: the kernel's ordered,
+    early-exit loop tests no pair the twin does not, and nothing for an
+    empty window."""
+    kp, pp = k[1][:, 5].cpu(), p[1][:, 5].cpu()
+    assert kp.sum() > 0 and (kp <= pp).all()
+    assert (kp[(rays[:, 6] > rays[:, 7]).cpu()] == 0).all()
+
+
 def _denoise_data(h, w, seed):
     r = np.random.default_rng(seed)
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
@@ -117,6 +126,7 @@ def test_v7_kernel_matches_twin(cuda, mode, common):
     kf, ki = v7.trace_keys_kernel(rays, keys, gpu.pallas_panels, id_mask, mode, common)
     assert v7.trace_blocks.launches == before + 1
     pf, pi = v7.trace_keys_plain(rays, keys, gpu.pallas_panels, id_mask, mode, common)
+    _fewer_pairs((kf, ki), (pf, pi), rays)
     kf, ki, pf, pi = (x[:, 0].cpu().numpy().ravel() for x in (kf, ki, pf, pi))
     if mode == "occluded":
         assert 10 < pf.sum() < pf.size - 10
@@ -174,8 +184,9 @@ def test_v9_kernel_matches_twin(cuda, common):
     before = qb.trace_blocks_quarter.launches
     k = qb.trace_quarter_kernel(rays, keys, gpu.q_panels, gpu.q_group_off, id_mask, common)
     assert qb.trace_blocks_quarter.launches == before + 1
-    _same_closest(k, qb.trace_quarter_plain(rays, keys, gpu.q_panels, gpu.q_group_off,
-                                            id_mask, common))
+    p = qb.trace_quarter_plain(rays, keys, gpu.q_panels, gpu.q_group_off, id_mask, common)
+    _same_closest(k, p)
+    _fewer_pairs(k, p, rays)
 
 
 @pytest.mark.cuda
@@ -194,6 +205,10 @@ def test_v8_kernel_matches_twin(cuda, n_tris, mode, common):
     assert hb.trace_blocks_hier.launches == before + 1
     p = hb.trace_hier_plain(rays, sup, blk, coeff, nsup, mode, common)
     (_same_closest if mode == "closest" else _same_occluded)(k, p)
+    counted = hb.trace_hier_kernel(rays, sup, blk, coeff, nsup, mode, common, count=True)
+    assert torch.equal(counted[0][:, 0], k[0][:, 0]) and torch.equal(counted[1][:, 0], k[1][:, 0])
+    _fewer_pairs(counted, p, rays)
+    assert counted[1][:, 6].sum() > 0
 
 
 @pytest.mark.cuda

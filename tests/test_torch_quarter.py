@@ -94,6 +94,9 @@ def test_scene_carries_q_panels(scenes_pair):
     assert own.q_panels.shape == (cq, 12, 128)
     assert own.q_cl_min.shape == own.q_cl_max.shape == (cq * 4, 3)
     assert own.q_group_off.shape == (cq * 4,) and own.q_group_off.dtype == torch.int32
+    lean = scenes.procedural_mesh(2000).compile(quarter_panels=False)
+    assert lean.q_panels is None and lean.q_group_off is None
+    np.testing.assert_array_equal(lean.pallas_panels.numpy(), own.pallas_panels.numpy())
 
 
 @pytest.mark.parametrize("common", [None, "origin"])
