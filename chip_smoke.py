@@ -28,9 +28,28 @@ Phases, each of which ends the run with a non-zero exit on failure:
      device argument and the default backend ("auto", the hybrid route: v9
      primaries, v8 occlusion with hints), its launch counts, frame time
      and peak memory;
- 10. a 320x180 hybrid frame through the kernels and through the twins.
-Each main-path frame (5 and 9) is driven with every kernel's launch count
-set to 0 just before and read just after.  The line before the last is a
+ 10. a 320x180 hybrid frame through the kernels and through the twins;
+ 11. the textured, alpha-tested scenes: scenes.foliage_field() compiled
+     with bake_instances=True (about 120k triangles) and
+     scenes.textured_obj() (through the OBJ, MTL, PNG and HDR loaders);
+ 12. each masked kernel (in-kernel alpha masks) against its masked twin on
+     the baked foliage at 1080p: v9 and v7 on the primaries, v8 closest on
+     area-light shadow segments;
+ 13. the alpha closest ladder on the foliage's 1080p primaries with and
+     without in-kernel masks: rounds, rays per round, time; hits agree but
+     for rays that exhaust the unmasked ladder (the masked hit lies at
+     least as far) and rays whose unmasked ladder stepped past an opaque
+     hit just behind a transparent one (the masked hit is that nearer
+     opaque hit);
+ 14. the reference-default alpha-tested frames: textured_obj through
+     rt.render(scene, cfg) with no device and the default backend, the
+     baked foliage through render_pipeline_gpu with alpha_test=True, each
+     also through the "pallas" route: launches per kernel, host syncs,
+     frame time, peak memory, the two routes' images compared;
+ 15. a 160x90 alpha-tested foliage frame through the kernels and through
+     the twins.
+Each main-path frame (5, 9 and 14) is driven with every kernel's launch
+count set to 0 just before and read just after.  The line before the last is a
 JSON object describing each kernel (times, launches, error, bound); the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 without the package beside it, the script fails before printing either.
@@ -181,19 +200,31 @@ def main() -> int:
     from realtimeraytracer_torch.render import hier_backend as v8
     from realtimeraytracer_torch.render import quarter_backend as v9
     from realtimeraytracer_torch.render import v7_backend as v7
+    from realtimeraytracer_torch.render.alpha import hit_alpha, wrap_backend_with_alpha
     from realtimeraytracer_torch.render.backends import make_hybrid_backend
     from realtimeraytracer_torch.render.megakernel import render_components
     from realtimeraytracer_torch.render.pipeline import render_pipeline_gpu
 
-    counters = {"trace_v7": v7.trace_blocks, "trace_v9": v9.trace_blocks_quarter,
-                "trace_v8": v8.trace_blocks_hier, "atrous_pair": atrous_denoise_pair}
+    # Launch counters: (wrapper, attribute); a masked variant counts on its
+    # wrapper's masked_launches.
+    counters = {"trace_v7": (v7.trace_blocks, "launches"),
+                "trace_v9": (v9.trace_blocks_quarter, "launches"),
+                "trace_v8": (v8.trace_blocks_hier, "launches"),
+                "atrous_pair": (atrous_denoise_pair, "launches"),
+                "trace_v7_masked": (v7.trace_blocks, "masked_launches"),
+                "trace_v9_masked": (v9.trace_blocks_quarter, "masked_launches"),
+                "trace_v8_masked": (v8.trace_blocks_hier, "masked_launches")}
 
     def zero_counts() -> None:
-        for c in counters.values():
-            c.launches = 0
+        for c, attr in counters.values():
+            setattr(c, attr, 0)
 
     def read_counts() -> dict:
-        return {name: c.launches for name, c in counters.items()}
+        return {name: getattr(c, attr) for name, (c, attr) in counters.items()}
+
+    def unmasked(**kw) -> dict:
+        """Expected counts of an opaque frame: the masked variants unused."""
+        return {**kw, "trace_v7_masked": 0, "trace_v9_masked": 0, "trace_v8_masked": 0}
 
     # ---- 1. environment -------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -333,8 +364,8 @@ def main() -> int:
     say(f"[5] render(scene, cfg, device='cuda'), backend='pallas': {wall:.2f} s wall with compile; "
         f"launches {counts5}")
     expect = cfg.primary_rays * (1 + gpu.num_light_tris * cfg.shadow_rays + 1)
-    require(counts5 == {"trace_v7": expect, "trace_v9": 0, "trace_v8": 0,
-                        "atrous_pair": cfg.denoise_iterations},
+    require(counts5 == unmasked(trace_v7=expect, trace_v9=0, trace_v8=0,
+                                atrous_pair=cfg.denoise_iterations),
             f"pallas frame: expected {expect} v7, 0 v9, 0 v8 and 4 A-Trous launches, counted {counts5}")
     require(img.shape == (H, W, 3), f"image shape {img.shape}")
     require(bool(np.isfinite(img).all()), "frame has non-finite values")
@@ -521,8 +552,8 @@ def main() -> int:
     counts9 = read_counts()
     require(img_t.device.type == "cuda", f"render with no device ran on {img_t.device}")
     n_v8 = cfg9.primary_rays * (gpu.num_light_tris * cfg9.shadow_rays + 1)
-    want9 = {"trace_v7": 0, "trace_v9": cfg9.primary_rays, "trace_v8": n_v8,
-             "atrous_pair": cfg9.denoise_iterations}
+    want9 = unmasked(trace_v7=0, trace_v9=cfg9.primary_rays, trace_v8=n_v8,
+                     atrous_pair=cfg9.denoise_iterations)
     say(f"[9] render(scene, cfg) with no device, backend 'auto': {wall:.2f} s wall with compile; "
         f"launches {counts9}")
     require(counts9 == want9, f"hybrid frame: expected launches {want9}, counted {counts9}")
@@ -562,6 +593,212 @@ def main() -> int:
     say(f"[10] 320x180 hybrid frame kernels vs plain: {share:.6%} of values differ by > 2e-3, "
         f"max |err| {np.abs(img_k - img_p).max()}")
 
+    # ---- 11. the textured, alpha-tested scenes ----------------------------
+    t0 = time.perf_counter()
+    fol_scene = scenes.foliage_field()
+    fol = fol_scene.compile(bake_instances=True).to(dev)
+    t_fol = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tobj_scene = scenes.textured_obj()
+    tobj = tobj_scene.compile().to(dev)
+    t_tobj = time.perf_counter() - t0
+    require(fol.pallas_amask is not None and fol.q_amask is not None, "foliage: no alpha masks")
+    require(fol.q_panels is not None, "foliage: no v9 repacked panels (above RESIDENT_CB?)")
+    transparent = float((fol.pallas_amask != -1).float().mean())
+    say(f"[11] foliage_field baked: {fol.num_tris} tris, {fol.pallas_panels.shape[0]} coefficient "
+        f"blocks, {fol.q_panels.shape[0]} repacked v9 blocks, {fol.tex_atlas.shape[0]} textures "
+        f"{tuple(fol.tex_atlas.shape[1:3])}, pallas_amask {tuple(fol.pallas_amask.shape)} "
+        f"({transparent:.4f} of mask words hold a 0 bit), {fol.num_light_tris} light tris; "
+        f"host compile {t_fol:.2f} s")
+    say(f"[11] textured_obj: {tobj.num_tris} tris, {tobj.pallas_panels.shape[0]} blocks, "
+        f"{tobj.tex_atlas.shape[0]} textures, {tobj.num_light_tris} light tris; "
+        f"loaders + compile {t_tobj:.2f} s")
+
+    # ---- 12. masked kernels vs their twins at 1080p -----------------------
+    def scene_primaries(sc, w, h):
+        frame = sc.camera.viewport_frame(w, h, device=dev)
+        o, d = generate_rays(frame, w, h, sample_index=0, jitter=True)
+        perm, _ = block_permutation(w, h, device=dev)
+        r = o.shape[0]
+        return o[perm], d[perm], torch.full((r,), 1e-3, device=dev), torch.full((r,), 1e4, device=dev)
+
+    fo, fd, ftmin, ftmax = scene_primaries(fol_scene, W, H)
+    fprim = v7._pack_rays(fo, fd, ftmin, ftmax)[0]
+    out_bytes = 4 * fprim.shape[0] * 128 * 4
+
+    qkeys, qid = v7.cull_quarter_keys(fprim, fol.q_cl_min, fol.q_cl_max)
+    v9m_args = (fprim, qkeys, fol.q_panels, fol.q_group_off, qid, "origin")
+    v9m_ms, v9m_k = cuda_ms(lambda: v9.trace_quarter_kernel(*v9m_args, amask=fol.q_amask), 10)
+    v9m_plain_ms, v9m_p = cuda_ms(lambda: v9.trace_quarter_plain(*v9m_args, amask=fol.q_amask), 1)
+    v9m_err = compare_closest(v9m_k, v9m_p, "[12] v9 masked closest common=origin 1080p")
+    v9_open_ms, v9_open = cuda_ms(lambda: v9.trace_quarter_kernel(*v9m_args), 10)
+    v9m_bound, v9m_pairs = trace_bound(v9m_k[1], "origin", nbytes(fprim, qkeys, fol.q_panels,
+                                       fol.q_group_off, fol.q_amask) + out_bytes)
+    say(f"[12] v9 masked, 1080p foliage primaries: kernel {v9m_ms:.3f} ms, plain {v9m_plain_ms:.3f} ms, "
+        f"unmasked kernel on the same rays {v9_open_ms:.3f} ms, "
+        f"{int((v9m_k[1][:, 0] != v9_open[1][:, 0]).sum())} hits differ from its; "
+        f"{v9m_pairs} pairs, bound {v9m_bound[0]:.4f} ms by {v9m_bound[1]} ({card})")
+
+    fkeys, fid = v7.cull_keys(fprim, fol.pallas_cl_min, fol.pallas_cl_max)
+    v7m_args = (fprim, fkeys, fol.pallas_panels, fid, "closest", "origin")
+    v7m_ms, v7m_k = cuda_ms(lambda: v7.trace_keys_kernel(*v7m_args, amask=fol.pallas_amask), 10)
+    v7m_plain_ms, v7m_p = cuda_ms(lambda: v7.trace_keys_plain(*v7m_args, amask=fol.pallas_amask), 1)
+    v7m_err = compare_closest(v7m_k, v7m_p, "[12] v7 masked closest common=origin 1080p")
+    v7m_bound, v7m_pairs = trace_bound(v7m_k[1], "origin", nbytes(fprim, fkeys, fol.pallas_panels,
+                                       fol.pallas_amask) + out_bytes)
+    v7_open_ms, _ = cuda_ms(lambda: v7.trace_keys_kernel(*v7m_args), 10)
+    say(f"[12] v7 masked, 1080p foliage primaries: kernel {v7m_ms:.3f} ms (unmasked on the same rays "
+        f"{v7_open_ms:.3f} ms), plain {v7m_plain_ms:.3f} ms; "
+        f"{v7m_pairs} pairs, bound {v7m_bound[0]:.4f} ms by {v7m_bound[1]} ({card})")
+    require(bool(((v7m_k[1][:, 0] == v9m_k[1][:, 0]) | (v7m_k[0][:, 0] == v9m_k[0][:, 0])).all()),
+            "[12] masked v7 and v9 disagree on the foliage primaries")
+
+    # Area-light shadow segments from the masked primary hits toward light
+    # triangle 0; misses get [BIG, -BIG).
+    hit = v9m_k[1][:, 0].reshape(-1) >= 0
+    p = fo + fd * torch.where(hit, v9m_k[0][:, 0].reshape(-1), 0.0)[:, None] - fd * 1e-3
+    g = np.random.default_rng(13)
+    ab = torch.from_numpy(g.uniform(0, 0.5, (p.shape[0], 2)).astype(np.float32)).to(dev)
+    l0, l1, l2 = fol.lt_v0[0], fol.lt_v1[0], fol.lt_v2[0]
+    delta = l0 + ab[:, :1] * (l1 - l0) + ab[:, 1:] * (l2 - l0) - p
+    dist = delta.norm(dim=1)
+    big = torch.full_like(dist, 3.0e38)
+    fseg = v7._pack_rays(p, delta / dist[:, None], torch.where(hit, 1e-3, big),
+                         torch.where(hit, dist - 0.5, -big))[0]
+    fcoeff, fsup, fblk, fnsup = v8._hier_inputs(fol)
+    v8m_args = (fseg, fsup, fblk, fcoeff, fnsup, "closest", None, None)
+    v8m_ms, v8m_k = cuda_ms(lambda: v8.trace_hier_kernel(*v8m_args, amask=fol.pallas_amask), 5)
+    v8m_plain_ms, v8m_p = cuda_ms(lambda: v8.trace_hier_plain(*v8m_args, amask=fol.pallas_amask), 1)
+    v8m_err = compare_closest(v8m_k, v8m_p, "[12] v8 masked closest, 1080p shadow segments")
+    v8m_c = v8.trace_hier_kernel(*v8m_args, count=True, amask=fol.pallas_amask)
+    require(torch.equal(v8m_c[0][:, 0], v8m_k[0][:, 0]) and torch.equal(v8m_c[1][:, 0], v8m_k[1][:, 0]),
+            "[12] v8 masked: the counting variant's results differ")
+    v8m_bound, v8m_pairs = trace_bound(v8m_c[1], None, nbytes(fseg, fsup, fblk, fcoeff, fol.pallas_amask)
+                                       + 5 * fseg.shape[0] * 128 * 4)
+    v8_open_ms, _ = cuda_ms(lambda: v8.trace_hier_kernel(*v8m_args), 5)
+    say(f"[12] v8 masked closest, 1080p foliage shadow segments: kernel {v8m_ms:.3f} ms (unmasked "
+        f"on the same rays {v8_open_ms:.3f} ms), plain "
+        f"{v8m_plain_ms:.3f} ms; {int(v8m_k[1][:, 1, 0].sum())} visits, {v8m_pairs} pairs, "
+        f"{int(v8m_c[1][:, 6].sum())} slab tests, bound {v8m_bound[0]:.4f} ms by {v8m_bound[1]} ({card})")
+
+    # ---- 13. the alpha closest ladder with and without in-kernel masks -----
+    cfg_a = rt.RenderConfig(width=W, height=H, alpha_test=True)
+    ladder = {}
+    for use in (True, False):
+        rec = []
+        be = wrap_backend_with_alpha(make_hybrid_backend(fol, cfg_a, use_amask=use), fol, cfg_a,
+                                     record=rec)
+
+        def run_ladder():
+            rec.clear()
+            return be.closest(fo, fd, cfg_a.t_min, cfg_a.t_max, common="origin")
+
+        ms, h = cuda_ms(run_ladder, 3)
+        ladder[use] = (ms, h, [n for _, n in rec])
+        say(f"[13] alpha closest ladder, 1080p foliage primaries, masks {'on' if use else 'off'}: "
+            f"{ms:.3f} ms; rays needing each round {ladder[use][2]} "
+            f"({sum(n > 0 for n in ladder[use][2])} rounds run of {cfg_a.alpha_rounds}) ({card})")
+    hm, hn = ladder[True][1], ladder[False][1]
+    thr = cfg_a.alpha_threshold
+    exhausted = (hit_alpha(fol, hn, fo, fd) < thr) & hn.hit
+    differ = ~((hm.prim_id == hn.prim_id) | (hm.t == hn.t))
+    further = differ & exhausted & (hm.t >= hn.t)
+    nearer = differ & (hm.t < hn.t) & (hit_alpha(fol, hm, fo, fd) >= thr)
+    require(bool((differ == (further | nearer)).all()),
+            f"[13] {int((differ & ~(further | nearer)).sum())} rays differ otherwise between the "
+            "ladders (a mask that rejected an opaque hit would show here)")
+    say(f"[13] {int(exhausted.sum())} rays exhaust the unmasked ladder; hits differ on "
+        f"{int(differ.sum())} rays: {int(further.sum())} exhausted rays resolve further with masks, "
+        f"on {int(nearer.sum())} the unmasked ladder stepped past the nearer opaque hit the masked "
+        f"trace keeps ({int((nearer & exhausted).sum())} of them exhausted)")
+
+    # ---- 14. the alpha-tested frames ---------------------------------------
+    expect_kernels = {"auto": ("trace_v9_masked", "trace_v8_masked"),
+                      "hybrid": ("trace_v9_masked", "trace_v8_masked"),
+                      "pallas": ("trace_v7_masked",)}
+
+    def alpha_frame(what, backend, render, timed, again=None):
+        """Render once with every count zeroed just before and read just
+        after; then time `again` (default: render) by CUDA events, median
+        of `timed` runs after a discarded warm-up."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        syncs0, rounds0 = wrap_backend_with_alpha.syncs, wrap_backend_with_alpha.rounds
+        zero_counts()
+        t0 = time.perf_counter()
+        img_t = render()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        syncs = wrap_backend_with_alpha.syncs - syncs0
+        rounds = wrap_backend_with_alpha.rounds - rounds0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        require(img_t.device.type == "cuda", f"[14] {what}: rendered on {img_t.device}")
+        for name, n in counts.items():
+            used = name in expect_kernels[backend] or name == "atrous_pair"
+            require((n > 0) == used, f"[14] {what}: {name} launched {n} times")
+        require(counts["atrous_pair"] == 4, f"[14] {what}: {counts['atrous_pair']} A-Trous launches")
+        out = img_t.cpu().numpy()
+        require(out.shape == (H, W, 3) and bool(np.isfinite(out).all()), f"[14] {what}: bad image")
+        require(float(out.std()) > 1e-3, f"[14] {what}: constant image")
+        again = again or render
+        again()                                             # warm-up, discarded
+        times = []
+        for _ in range(timed):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            again()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        ms = statistics.median(times)
+        say(f"[14] {what}: {wall:.2f} s wall for the first frame; launches {counts}; host syncs "
+            f"{syncs}, ladder rounds run {rounds}; peak memory {peak:.3f} GiB, of which "
+            f"{held / 2**30:.3f} GiB were held before; frame {ms:.2f} ms (median of {timed}, "
+            f"all {[round(x, 2) for x in times]}) ({card})")
+        return out, counts, ms, syncs, peak
+
+    cfg_t = rt.RenderConfig(width=W, height=H, primary_rays=4, shadow_rays=3, denoise_iterations=4)
+    require(cfg_t.alpha_test is None and cfg_t.backend == "auto", "reference defaults changed")
+    tframe = tobj_scene.camera.viewport_frame(W, H, device=dev)
+    frames14 = {}
+    frames14["textured_obj hybrid"] = alpha_frame(
+        "textured_obj, rt.render(scene, cfg), default device and backend", "auto",
+        lambda: rt.render(tobj_scene, cfg_t), 3,
+        again=lambda: render_pipeline_gpu(tobj, tframe, cfg_t.replace(alpha_test=True)))
+    frames14["textured_obj pallas"] = alpha_frame(
+        "textured_obj, pallas route", "pallas",
+        lambda: render_pipeline_gpu(tobj, tframe, cfg_t.replace(alpha_test=True, backend="pallas")), 1)
+    ffr = fol_scene.camera.viewport_frame(W, H, device=dev)
+    cfg_f = cfg_t.replace(alpha_test=True)
+    frames14["foliage hybrid"] = alpha_frame(
+        "foliage_field baked, render_pipeline_gpu, hybrid route", "auto",
+        lambda: render_pipeline_gpu(fol, ffr, cfg_f), 3)
+    frames14["foliage pallas"] = alpha_frame(
+        "foliage_field baked, pallas route", "pallas",
+        lambda: render_pipeline_gpu(fol, ffr, cfg_f.replace(backend="pallas")), 1)
+    for name in ("textured_obj", "foliage"):
+        hy, pa = frames14[f"{name} hybrid"][0], frames14[f"{name} pallas"][0]
+        share = image_rule(hy, pa, f"[14] {name}: hybrid vs pallas route")
+        say(f"[14] {name}: hybrid and pallas images differ by > 2e-3 in {share:.6%} of values, "
+            f"max |err| {np.abs(hy - pa).max()}")
+
+    # ---- 15. small alpha frame, kernels vs plain twins ---------------------
+    cfg15 = cfg_f.replace(width=160, height=90, primary_rays=1)
+    frame15 = fol_scene.camera.viewport_frame(160, 90, device=dev)
+    img_k = render_pipeline_gpu(fol, frame15, cfg15).cpu().numpy()
+    with torch.inference_mode():
+        plain = wrap_backend_with_alpha(make_hybrid_backend(fol, cfg15, plain=True), fol, cfg15)
+        comp = render_components(fol, frame15, cfg15, 0, backend=plain)
+        s_, u_ = comp.shadowed, comp.unshadowed
+        for i in range(cfg15.denoise_iterations):
+            s_, u_ = atrous_pair_iteration_plain(s_, u_, comp.normal, comp.position, i + 1, *phis6)
+        img_p = ratio_combine(comp.analytic, s_, u_).cpu().numpy()
+    share = image_rule(img_k, img_p, "[15] 160x90 alpha frame, kernels vs plain")
+    say(f"[15] 160x90 alpha-tested foliage frame kernels vs plain: {share:.6%} of values differ "
+        f"by > 2e-3, max |err| {np.abs(img_k - img_p).max()}")
+
     shadow_row = v8_rows["occluded shadow segments"]
     say(json.dumps({"kernels": [
         {"name": "trace_v7", "route": "cuda", "source": "realtimeraytracer_torch/csrc/trace_v7.cu",
@@ -581,6 +818,21 @@ def main() -> int:
          "replaces": "realtimeraytracer_tpu/ops/denoise_pallas.py:152",
          "launches": counts9["atrous_pair"], "max_abs_err": dn_err, "ms": dn_ms, "plain_ms": dn_plain_ms,
          "bound_ms": dn_bound[0], "bound_by": dn_bound[1], "library_ms": None},
+        {"name": "trace_v7_masked", "route": "cuda", "source": "realtimeraytracer_torch/csrc/trace_v7.cu",
+         "replaces": "realtimeraytracer_tpu/render/pallas_backend.py:640",
+         "launches": frames14["foliage pallas"][1]["trace_v7_masked"], "max_abs_err": v7m_err,
+         "ms": v7m_ms, "plain_ms": v7m_plain_ms, "bound_ms": v7m_bound[0], "bound_by": v7m_bound[1],
+         "library_ms": None},
+        {"name": "trace_v9_masked", "route": "cuda", "source": "realtimeraytracer_torch/csrc/trace_v9.cu",
+         "replaces": "realtimeraytracer_tpu/render/quarter_backend.py:316",
+         "launches": frames14["foliage hybrid"][1]["trace_v9_masked"], "max_abs_err": v9m_err,
+         "ms": v9m_ms, "plain_ms": v9m_plain_ms, "bound_ms": v9m_bound[0], "bound_by": v9m_bound[1],
+         "library_ms": None},
+        {"name": "trace_v8_masked", "route": "cuda", "source": "realtimeraytracer_torch/csrc/trace_v8.cu",
+         "replaces": "realtimeraytracer_tpu/render/hier_backend.py:587",
+         "launches": frames14["foliage hybrid"][1]["trace_v8_masked"], "max_abs_err": v8m_err,
+         "ms": v8m_ms, "plain_ms": v8m_plain_ms, "bound_ms": v8m_bound[0], "bound_by": v8m_bound[1],
+         "library_ms": None},
     ]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -4,8 +4,9 @@ Counterpart of realtimeraytracer_tpu/config.py: the same fields, defaults
 and backend strings, so one set of knobs drives both packages.  The port
 renders the ratio-estimator frame with the "hybrid" route (v9 and v8
 traversal, CUDA kernels), "pallas" (v7), "quarter" (v9 closest, v7
-occlusion), "hier" (v8) or "brute"; the wide XLA backend, and every field
-that only unported code reads, raise when set (``check_supported``).
+occlusion), "hier" (v8) or "brute", alpha-tested or not; the wide XLA
+backend, and every field that only unported code reads, raise when set
+(``check_supported``).
 """
 
 from __future__ import annotations
@@ -22,7 +23,6 @@ UNPORTED_BACKENDS = {
 # (ROADMAP.md queue A).  check_supported raises when one is set away from
 # its default, so that no setting is dropped silently.
 _WAVEFRONT = "it waits for the wavefront path tracer (ROADMAP A5)"
-_ALPHA = "it waits for alpha-tested any-hit (ROADMAP A3)"
 _MIPS = "it waits for the texture atlas and mips (ROADMAP A1)"
 _WIDE = "it belongs to the wide XLA backend (ROADMAP A, 'Not to port')"
 _ATTIC = "it belongs to the JAX package's retired render/attic/ backends"
@@ -31,9 +31,6 @@ UNPORTED_FIELDS = {
     "max_bounces": _WAVEFRONT,
     "sort_bounces": _WAVEFRONT,
     "tile_rays": _WAVEFRONT,
-    "alpha_rounds": _ALPHA,
-    "alpha_threshold": _ALPHA,
-    "serialize_shadow_samples": _ALPHA,
     "alpha_split": _NOT_PORTED,
     "batch_occlusion": _NOT_PORTED,
     "batch_occlusion_min_rays": _NOT_PORTED,
@@ -71,6 +68,10 @@ class RenderConfig:
     denoise_n_phi: float = 0.001
     denoise_p_phi: float = 0.001
 
+    # An XLA scheduling fence between the alpha ladder's shadow samples in
+    # the JAX package.  PyTorch runs the samples eagerly, one after the
+    # other, so there is nothing to fence: the port reads the field and
+    # every value renders the same frame.
     serialize_shadow_samples: bool | None = None
 
     tonemap: str = "aces"
@@ -137,10 +138,6 @@ def check_supported(cfg: RenderConfig) -> None:
         raise NotImplementedError(
             f"backend {cfg.backend!r} is not ported yet: "
             f"{UNPORTED_BACKENDS[cfg.backend]}")
-    if cfg.alpha_test:
-        raise NotImplementedError(
-            "alpha-tested any-hit (render/alpha.py) is not ported yet "
-            "(ROADMAP queue A)")
     if cfg.debug_traversal:
         raise NotImplementedError(
             "traversal diagnostics (render/diagnostics.py) are not ported yet "

@@ -6,7 +6,10 @@
 // tile's packed block keys (Ts, nkeys) i32 (entry-distance bits with the
 // block id in the low id bits, +inf bits = no candidate), Baldwin-Weber
 // coefficient blocks (CB, 12, 128) f32 rows [n | -n.A | r1 | -r1.A | r2 |
-// -r2.A].  Outputs: outf row 0 = t (closest; 3e38 on a miss) or the
+// -r2.A]; optional alpha masks (CB, 2, 128) i32 (closest mode only: bit
+// b = 8 gj + gi of a triangle's 64-bit mask, word b >> 5, is 0 where the
+// barycentric cell (gi, gj) = (int(8u), int(8v)) is definitely
+// transparent; ops/alpha_mask.py).  Outputs: outf row 0 = t (closest; 3e38 on a miss) or the
 // occluded flag; outi row 0 = sorted-triangle id (-1 on a miss), row 1 =
 // blocks visited, row 5 = ray-triangle pairs this ray tested (live rays
 // only, up to the first hit in occluded mode: the bound's operation
@@ -38,6 +41,13 @@
 // same expressions in the same order, so t and ids agree bit for bit; the
 // Baldwin-Weber u = dot_o + t*dot_d is cancellation-prone, and contraction
 // would move t by a few ulp.
+//
+// Alpha masks (the TPU kernel's _mask_ok): a masked launch stages the
+// visited block's two mask rows in shared memory beside its coefficients
+// and rejects an accepted pair whose (u, v) cell bit is 0, on the u and v
+// the accept test just computed; ints truncate toward zero as XLA's
+// astype(int32) does.  The masked variant is its own instantiation, so
+// the unmasked launch pays nothing for it.
 #include <cuda_runtime.h>
 
 namespace {
@@ -65,11 +75,21 @@ __device__ __forceinline__ float dot_d(const float* c, int base, int j,
          z * c[(base + 2) * TILE + j];
 }
 
-template <int MODE, int COMMON>
+// The alpha-mask bit of lane j's triangle at barycentrics (u, v); m holds
+// the visited block's two mask rows (2 x TILE).
+__device__ __forceinline__ bool mask_bit(const int* m, int j, float u, float v) {
+  const int gi = min(max(__float2int_rz(u * 8.0f), 0), 7);
+  const int gj = min(max(__float2int_rz(v * 8.0f), 0), 7);
+  const int b = gj * 8 + gi;
+  return ((static_cast<unsigned>(m[(b >> 5) * TILE + j]) >> (b & 31)) & 1u) != 0u;
+}
+
+template <int MODE, int COMMON, bool MASK>
 __global__ void __launch_bounds__(TILE) trace_v7_kernel(
     const float* __restrict__ rays, const int* __restrict__ keys,
-    const float* __restrict__ coeff, float* __restrict__ outf,
-    int* __restrict__ outi, int nkeys, int cb, int id_mask) {
+    const float* __restrict__ coeff, const int* __restrict__ amask,
+    float* __restrict__ outf, int* __restrict__ outi, int nkeys, int cb,
+    int id_mask) {
   extern __shared__ int smem[];
   __shared__ int count;
   int* skeys = smem;                                     // sort capacity
@@ -80,6 +100,7 @@ __global__ void __launch_bounds__(TILE) trace_v7_kernel(
   while (cap < nkeys) cap <<= 1;
   float* coef = reinterpret_cast<float*>(smem + cap);   // CROWS x TILE
   float* fam = coef + CROWS * TILE;                      // 3 x TILE
+  int* smask = reinterpret_cast<int*>(fam + 3 * TILE);   // 2 x TILE if MASK
 
   const float* r = rays + (size_t)tile * 8 * TILE;
   const float ox = r[0 * TILE + lane], oy = r[1 * TILE + lane],
@@ -137,6 +158,11 @@ __global__ void __launch_bounds__(TILE) trace_v7_kernel(
 #pragma unroll
     for (int row = 0; row < CROWS; ++row)
       coef[row * TILE + lane] = cg[row * TILE + lane];
+    if (MASK) {
+      const int* mg = amask + (size_t)cid * 2 * TILE;
+      smask[lane] = mg[lane];
+      smask[TILE + lane] = mg[TILE + lane];
+    }
     if (COMMON != COMMON_NONE) {
       __syncthreads();
 #pragma unroll
@@ -178,8 +204,9 @@ __global__ void __launch_bounds__(TILE) trace_v7_kernel(
       const float t = den_ok ? (-s0) / s1 : BIG;
       const float u = ou + t * du;
       const float v = ov + t * dv;
-      const bool ok = den_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f &&
-                      t >= tmin && t <= limit;
+      bool ok = den_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f &&
+                t >= tmin && t <= limit;
+      if (MASK && ok) ok = mask_bit(smask, j, u, v);
       if (MODE == CLOSEST) {
         // Packed (t | lane) key: one min finds the nearest t and, on a
         // quantized tie, the lowest lane.  Misses carry +inf bits.
@@ -210,35 +237,47 @@ __global__ void __launch_bounds__(TILE) trace_v7_kernel(
   oi[5 * TILE + lane] = pairs;
 }
 
-typedef void (*TraceFn)(const float*, const int*, const float*, float*, int*,
-                        int, int, int);
+typedef void (*TraceFn)(const float*, const int*, const float*, const int*,
+                        float*, int*, int, int, int);
 
-TraceFn pick(int mode, int common) {
+// Masks exist in closest mode only (occlusion under alpha is a ladder of
+// closest traces); a masked occluded launch has no kernel.
+TraceFn pick(int mode, int common, bool masked) {
   if (mode == CLOSEST) {
-    if (common == COMMON_ORIGIN) return trace_v7_kernel<CLOSEST, COMMON_ORIGIN>;
-    if (common == COMMON_DIR) return trace_v7_kernel<CLOSEST, COMMON_DIR>;
-    return trace_v7_kernel<CLOSEST, COMMON_NONE>;
+    if (masked) {
+      if (common == COMMON_ORIGIN) return trace_v7_kernel<CLOSEST, COMMON_ORIGIN, true>;
+      if (common == COMMON_DIR) return trace_v7_kernel<CLOSEST, COMMON_DIR, true>;
+      return trace_v7_kernel<CLOSEST, COMMON_NONE, true>;
+    }
+    if (common == COMMON_ORIGIN) return trace_v7_kernel<CLOSEST, COMMON_ORIGIN, false>;
+    if (common == COMMON_DIR) return trace_v7_kernel<CLOSEST, COMMON_DIR, false>;
+    return trace_v7_kernel<CLOSEST, COMMON_NONE, false>;
   }
-  if (common == COMMON_ORIGIN) return trace_v7_kernel<OCCLUDED, COMMON_ORIGIN>;
-  if (common == COMMON_DIR) return trace_v7_kernel<OCCLUDED, COMMON_DIR>;
-  return trace_v7_kernel<OCCLUDED, COMMON_NONE>;
+  if (masked) return nullptr;
+  if (common == COMMON_ORIGIN) return trace_v7_kernel<OCCLUDED, COMMON_ORIGIN, false>;
+  if (common == COMMON_DIR) return trace_v7_kernel<OCCLUDED, COMMON_DIR, false>;
+  return trace_v7_kernel<OCCLUDED, COMMON_NONE, false>;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches one CTA per tile on `stream`.  Returns cudaGetLastError() after
+// Launches one CTA per tile on `stream`.  amask may be null (no alpha
+// masks; closest mode only otherwise).  Returns cudaGetLastError() after
 // the launch (0 = launched), or the error of the shared-memory opt-in.
 int rt_trace_v7(const void* rays, const void* keys, const void* coeff,
-                void* outf, void* outi, int ts, int nkeys, int cb,
-                int id_mask, int mode, int common, void* stream) {
+                const void* amask, void* outf, void* outi, int ts, int nkeys,
+                int cb, int id_mask, int mode, int common, void* stream) {
   if (ts <= 0) return 0;
   int cap = 1;
   while (cap < nkeys) cap <<= 1;
+  const bool masked = amask != nullptr;
   const size_t smem = (size_t)cap * sizeof(int) +
-                      (size_t)(CROWS + 3) * TILE * sizeof(float);
-  TraceFn fn = pick(mode, common);
+                      (size_t)(CROWS + 3) * TILE * sizeof(float) +
+                      (masked ? (size_t)2 * TILE * sizeof(int) : 0);
+  TraceFn fn = pick(mode, common, masked);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -246,7 +285,7 @@ int rt_trace_v7(const void* rays, const void* keys, const void* coeff,
   }
   fn<<<ts, TILE, smem, (cudaStream_t)stream>>>(
       (const float*)rays, (const int*)keys, (const float*)coeff,
-      (float*)outf, (int*)outi, nkeys, cb, id_mask);
+      (const int*)amask, (float*)outf, (int*)outi, nkeys, cb, id_mask);
   return (int)cudaGetLastError();
 }
 

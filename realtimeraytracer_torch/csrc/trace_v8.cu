@@ -8,7 +8,10 @@
 // (SPAGES, 8, 128) f32 (lane = supercluster of 128 blocks, page-major),
 // blk (NSUP, 8, 128) f32 (lane = block within the super), rows
 // [min.xyz | max.xyz | 0 | 0], pad lanes inverted (+BIG, -BIG);
-// coefficient blocks (CB, 12, 128) f32; optional hints (Ts, hn) i32.
+// coefficient blocks (CB, 12, 128) f32; optional alpha masks (CB, 2, 128)
+// i32 (closest mode only; bit b = 8 gj + gi in word b >> 5 is 0 where the
+// barycentric cell is definitely transparent, ops/alpha_mask.py); optional
+// hints (Ts, hn) i32.
 // Outputs: outf row 0 = t (closest; 3e38 on a miss) or the occluded flag,
 // row 1 = superclusters popped; outi row 0 = sorted-triangle id (closest,
 // -1 on a miss) or the first occluder block (occluded, -1 if none), row 1
@@ -60,6 +63,12 @@
 // rays stop at their first hit) and 27 per slab test (the tile's 128 rays
 // against each super box, then against the 128 block boxes of each popped
 // super, and each live ray once per visit).
+//
+// Alpha masks (the TPU kernel's intersect_block with am_ref): a masked
+// launch stages the visited block's two mask rows in shared memory beside
+// its coefficients and rejects an accepted pair whose (u, v) cell bit is
+// 0, on the u and v the accept test just computed.  The masked variant is
+// its own instantiation (closest mode only), so other launches pay nothing.
 //
 // Numerics: -fmad=false, the same expressions and order as the plain twin
 // (render/hier_backend.py::trace_hier_plain).
@@ -115,6 +124,15 @@ __device__ __forceinline__ float slab_entry(const float* lo, const float* hi,
   }
   const bool ok = lo[0] <= hi[0] && near <= far && far >= tmin && near <= limit;
   return ok ? fmaxf(near, 0.0f) : __int_as_float(INVALID);
+}
+
+// The alpha-mask bit of lane j's triangle at barycentrics (u, v); m holds
+// the visited block's two mask rows (2 x TILE).
+__device__ __forceinline__ bool mask_bit(const int* m, int j, float u, float v) {
+  const int gi = min(max(__float2int_rz(u * 8.0f), 0), 7);
+  const int gj = min(max(__float2int_rz(v * 8.0f), 0), 7);
+  const int b = gj * 8 + gi;
+  return ((static_cast<unsigned>(m[(b >> 5) * TILE + j]) >> (b & 31)) & 1u) != 0u;
 }
 
 // Sort `p` (a power of two) ints of s ascending with the CTA's threads.
@@ -182,10 +200,11 @@ __device__ __forceinline__ float box_min_entry(const Tile& T, const float* page,
 // One block visit: stage the block's coefficients, then each live ray whose
 // window still overlaps the block box tests its 128 triangles.  Every thread
 // of the CTA calls it (it holds barriers); lane = threadIdx.x.
-template <int MODE, int COMMON, bool COUNT>
+template <int MODE, int COMMON, bool COUNT, bool MASK>
 __device__ __forceinline__ void visit(
     int cid, const float* __restrict__ coeff, const float* __restrict__ blk,
-    float* coef, float* fam, const float* o, const float* d, const float* inv,
+    const int* __restrict__ amask, float* coef, float* fam, int* smask,
+    const float* o, const float* d, const float* inv,
     int fl, float tmin, float tmax, float cx, float cy, float cz,
     float& best_t, int& best_k, int& visits, int* work) {
   const int lane = threadIdx.x;
@@ -193,6 +212,11 @@ __device__ __forceinline__ void visit(
 #pragma unroll
   for (int row = 0; row < CROWS; ++row)
     coef[row * TILE + lane] = cg[row * TILE + lane];
+  if (MASK) {
+    const int* mg = amask + (size_t)cid * 2 * TILE;
+    smask[lane] = mg[lane];
+    smask[TILE + lane] = mg[TILE + lane];
+  }
   if (COMMON != COMMON_NONE) {
     __syncthreads();
 #pragma unroll
@@ -244,8 +268,9 @@ __device__ __forceinline__ void visit(
     const float t = den_ok ? (-s0) / s1 : BIG;
     const float u = ou + t * du;
     const float v = ov + t * dv;
-    const bool ok = den_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f &&
-                    t >= tmin && t <= limit;
+    bool ok = den_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f &&
+              t >= tmin && t <= limit;
+    if (MASK && ok) ok = mask_bit(smask, j, u, v);
     if (MODE == CLOSEST) {
       const float tm = ok ? t : __int_as_float(INVALID);
       kbest = min(kbest, (__float_as_int(tm) & ~127) | j);
@@ -267,16 +292,18 @@ __device__ __forceinline__ void visit(
   }
 }
 
-template <int MODE, int COMMON, bool COUNT>
+template <int MODE, int COMMON, bool COUNT, bool MASK>
 __global__ void __launch_bounds__(TILE) trace_v8_kernel(
     const float* __restrict__ rays, const float* __restrict__ sup,
     const float* __restrict__ blk, const float* __restrict__ coeff,
-    const int* __restrict__ hints, float* __restrict__ outf,
-    int* __restrict__ outi, int nsup, int cap1, int cb, int hn, int l1_mask) {
+    const int* __restrict__ amask, const int* __restrict__ hints,
+    float* __restrict__ outf, int* __restrict__ outi, int nsup, int cap1,
+    int cb, int hn, int l1_mask) {
   extern __shared__ int l1keys[];                 // cap1 super keys
   __shared__ Tile T;
   __shared__ float coef[CROWS * TILE];
   __shared__ float fam[3 * TILE];
+  __shared__ int smask[MASK ? 2 * TILE : 1];
   __shared__ int l2keys[SUP];
   __shared__ int count;
   __shared__ int hint_lo, hint_hi;
@@ -319,9 +346,9 @@ __global__ void __launch_bounds__(TILE) trace_v8_kernel(
     const int h = hints[(size_t)tile * hn + j];
     if (h >= 0) {
       __syncthreads();            // retire the previous visit's reads
-      visit<MODE, COMMON, COUNT>(min(h, cb - 1), coeff, blk, coef, fam, o, d, inv, fl,
-                          tmin, tmax, cx, cy, cz, best_t, best_k, visits,
-                          work);
+      visit<MODE, COMMON, COUNT, MASK>(min(h, cb - 1), coeff, blk, amask, coef, fam,
+                                       smask, o, d, inv, fl, tmin, tmax, cx, cy, cz,
+                                       best_t, best_k, visits, work);
     }
   }
 
@@ -365,8 +392,9 @@ __global__ void __launch_bounds__(TILE) trace_v8_kernel(
                             (k2 & ~((1 << BLK_BITS) - 1))))
         break;
       const int cid = min(s * SUP + (k2 & ((1 << BLK_BITS) - 1)), cb - 1);
-      visit<MODE, COMMON, COUNT>(cid, coeff, blk, coef, fam, o, d, inv, fl, tmin, tmax,
-                          cx, cy, cz, best_t, best_k, visits, work);
+      visit<MODE, COMMON, COUNT, MASK>(cid, coeff, blk, amask, coef, fam, smask, o, d,
+                                       inv, fl, tmin, tmax, cx, cy, cz, best_t, best_k,
+                                       visits, work);
     }
   }
 
@@ -399,46 +427,58 @@ __global__ void __launch_bounds__(TILE) trace_v8_kernel(
 }
 
 typedef void (*TraceFn)(const float*, const float*, const float*, const float*,
-                        const int*, float*, int*, int, int, int, int, int);
+                        const int*, const int*, float*, int*, int, int, int, int,
+                        int);
 
+// Masks exist in closest mode only (occlusion under alpha is a ladder of
+// closest traces); a masked occluded launch has no kernel.
 template <bool COUNT>
-TraceFn pick(int mode, int common) {
+TraceFn pick(int mode, int common, bool masked) {
   if (mode == CLOSEST) {
-    if (common == COMMON_ORIGIN) return trace_v8_kernel<CLOSEST, COMMON_ORIGIN, COUNT>;
-    if (common == COMMON_DIR) return trace_v8_kernel<CLOSEST, COMMON_DIR, COUNT>;
-    return trace_v8_kernel<CLOSEST, COMMON_NONE, COUNT>;
+    if (masked) {
+      if (common == COMMON_ORIGIN) return trace_v8_kernel<CLOSEST, COMMON_ORIGIN, COUNT, true>;
+      if (common == COMMON_DIR) return trace_v8_kernel<CLOSEST, COMMON_DIR, COUNT, true>;
+      return trace_v8_kernel<CLOSEST, COMMON_NONE, COUNT, true>;
+    }
+    if (common == COMMON_ORIGIN) return trace_v8_kernel<CLOSEST, COMMON_ORIGIN, COUNT, false>;
+    if (common == COMMON_DIR) return trace_v8_kernel<CLOSEST, COMMON_DIR, COUNT, false>;
+    return trace_v8_kernel<CLOSEST, COMMON_NONE, COUNT, false>;
   }
-  if (common == COMMON_ORIGIN) return trace_v8_kernel<OCCLUDED, COMMON_ORIGIN, COUNT>;
-  if (common == COMMON_DIR) return trace_v8_kernel<OCCLUDED, COMMON_DIR, COUNT>;
-  return trace_v8_kernel<OCCLUDED, COMMON_NONE, COUNT>;
+  if (masked) return nullptr;
+  if (common == COMMON_ORIGIN) return trace_v8_kernel<OCCLUDED, COMMON_ORIGIN, COUNT, false>;
+  if (common == COMMON_DIR) return trace_v8_kernel<OCCLUDED, COMMON_DIR, COUNT, false>;
+  return trace_v8_kernel<OCCLUDED, COMMON_NONE, COUNT, false>;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches one CTA per tile on `stream`.  hints may be null (hn = 0);
-// count = 1 also writes the work counts (outi rows 5 and 6).  Returns
+// Launches one CTA per tile on `stream`.  amask may be null (no alpha
+// masks; closest mode only otherwise); hints may be null (hn = 0); count
+// = 1 also writes the work counts (outi rows 5 and 6).  Returns
 // cudaGetLastError() after the launch (0 = launched), or the error of the
 // shared-memory opt-in.
 int rt_trace_v8(const void* rays, const void* sup, const void* blk,
-                const void* coeff, const void* hints, void* outf, void* outi,
-                int ts, int nsup, int cb, int hn, int l1_mask, int mode,
-                int common, int count, void* stream) {
+                const void* coeff, const void* amask, const void* hints,
+                void* outf, void* outi, int ts, int nsup, int cb, int hn,
+                int l1_mask, int mode, int common, int count, void* stream) {
   if (ts <= 0) return 0;
   int cap1 = 1;
   while (cap1 < nsup) cap1 <<= 1;
   const size_t smem = (size_t)cap1 * sizeof(int);
-  TraceFn fn = count ? pick<true>(mode, common) : pick<false>(mode, common);
-  if (smem + sizeof(Tile) + (CROWS + 6) * TILE * sizeof(float) > 48 * 1024) {
+  const bool masked = amask != nullptr;
+  TraceFn fn = count ? pick<true>(mode, common, masked) : pick<false>(mode, common, masked);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  if (smem + sizeof(Tile) + (CROWS + 8) * TILE * sizeof(float) > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   fn<<<ts, TILE, smem, (cudaStream_t)stream>>>(
       (const float*)rays, (const float*)sup, (const float*)blk,
-      (const float*)coeff, (const int*)hints, (float*)outf, (int*)outi, nsup,
-      cap1, cb, hn, l1_mask);
+      (const float*)coeff, (const int*)amask, (const int*)hints, (float*)outf,
+      (int*)outi, nsup, cap1, cb, hn, l1_mask);
   return (int)cudaGetLastError();
 }
 

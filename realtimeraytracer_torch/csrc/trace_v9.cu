@@ -9,7 +9,11 @@
 // 4B + q (lanes [32q, 32q+32) of coefficient block B) with the block id B
 // in the low id bits (+inf bits = no candidate); coefficient blocks
 // (CB, 12, 128) f32; an optional pads-before-group table group_off
-// (CB*4,) i32 of the SAH-repacked panels.  Outputs: outf row 0 = t (3e38
+// (CB*4,) i32 of the SAH-repacked panels; optional alpha masks (CB, 2,
+// 128) i32 laid out like the coefficient blocks, i.e. by repacked slot
+// (pad lanes 0; bit b = 8 gj + gi in word b >> 5 is 0 where the
+// barycentric cell is definitely transparent, ops/alpha_mask.py).
+// Outputs: outf row 0 = t (3e38
 // on a miss); outi row 0 = sorted-triangle id (-1 on a miss), row 1 =
 // subclusters visited (4 per composite visit), row 5 = ray-triangle pairs
 // this ray tested on real subclusters (live rays only; a drained stream's
@@ -40,6 +44,14 @@
 // Numerics: -fmad=false, the same expressions and order as the plain
 // twin (render/quarter_backend.py::trace_quarter_plain), so t and ids
 // agree bit for bit.
+//
+// Alpha masks (the TPU kernel's composite_amask + _mask_ok): a masked
+// launch composites each popped block's mask rows by the same lane
+// quarters as its coefficients, so lane j of the visit reads the mask of
+// the slot it tests, which is the repacked slot (the id before the
+// group_off remap).  An accepted pair whose (u, v) cell bit is 0 is
+// rejected, on the u and v the accept test just computed.  The masked
+// variant is its own instantiation; the unmasked launch pays nothing.
 #include <cuda_runtime.h>
 
 namespace {
@@ -68,15 +80,25 @@ __device__ __forceinline__ float dot_d(const float* c, int base, int j,
          z * c[(base + 2) * TILE + j];
 }
 
-template <int COMMON>
+// The alpha-mask bit of lane j's triangle at barycentrics (u, v); m holds
+// the visit's two composited mask rows (2 x TILE).
+__device__ __forceinline__ bool mask_bit(const int* m, int j, float u, float v) {
+  const int gi = min(max(__float2int_rz(u * 8.0f), 0), 7);
+  const int gj = min(max(__float2int_rz(v * 8.0f), 0), 7);
+  const int b = gj * 8 + gi;
+  return ((static_cast<unsigned>(m[(b >> 5) * TILE + j]) >> (b & 31)) & 1u) != 0u;
+}
+
+template <int COMMON, bool MASK>
 __global__ void __launch_bounds__(TILE) trace_v9_kernel(
     const float* __restrict__ rays, const int* __restrict__ keys,
     const float* __restrict__ coeff, const int* __restrict__ group_off,
-    float* __restrict__ outf, int* __restrict__ outi, int nkeys, int cap,
-    int cb, int id_mask) {
+    const int* __restrict__ amask, float* __restrict__ outf,
+    int* __restrict__ outi, int nkeys, int cap, int cb, int id_mask) {
   extern __shared__ int sq[];                  // NQ streams of `cap` keys
   __shared__ float coef[CROWS * TILE];
   __shared__ float fam[3 * TILE];
+  __shared__ int smask[MASK ? 2 * TILE : 1];
   __shared__ int count[NQ];
   const int tile = blockIdx.x;
   const int lane = threadIdx.x;
@@ -155,9 +177,15 @@ __global__ void __launch_bounds__(TILE) trace_v9_kernel(
 #pragma unroll
       for (int row = 0; row < CROWS; ++row)
         coef[row * TILE + lane] = cg[row * TILE + lane];
+      if (MASK) {
+        const int* mg = amask + (size_t)cid * 2 * TILE;
+        smask[lane] = mg[lane];
+        smask[TILE + lane] = mg[TILE + lane];
+      }
     } else {
 #pragma unroll
       for (int row = 0; row < CROWS; ++row) coef[row * TILE + lane] = 0.0f;
+      if (MASK) smask[lane] = smask[TILE + lane] = 0;
     }
     if (COMMON != COMMON_NONE) {
       __syncthreads();
@@ -199,8 +227,9 @@ __global__ void __launch_bounds__(TILE) trace_v9_kernel(
       const float t = den_ok ? (-s0) / s1 : BIG;
       const float u = ou + t * du;
       const float vv = ov + t * dv;
-      const bool ok = den_ok && u >= 0.0f && vv >= 0.0f && u + vv <= 1.0f &&
-                      t >= tmin && t <= limit;
+      bool ok = den_ok && u >= 0.0f && vv >= 0.0f && u + vv <= 1.0f &&
+                t >= tmin && t <= limit;
+      if (MASK && ok) ok = mask_bit(smask, j, u, vv);
       // Packed (t | lane) key: nearest quantized t, then the lowest lane.
       const float tm = ok ? t : __int_as_float(INVALID);
       kbest = min(kbest, (__float_as_int(tm) & ~127) | j);
@@ -223,12 +252,13 @@ __global__ void __launch_bounds__(TILE) trace_v9_kernel(
 }
 
 typedef void (*TraceFn)(const float*, const int*, const float*, const int*,
-                        float*, int*, int, int, int, int);
+                        const int*, float*, int*, int, int, int, int);
 
+template <bool MASK>
 TraceFn pick(int common) {
-  if (common == COMMON_ORIGIN) return trace_v9_kernel<COMMON_ORIGIN>;
-  if (common == COMMON_DIR) return trace_v9_kernel<COMMON_DIR>;
-  return trace_v9_kernel<COMMON_NONE>;
+  if (common == COMMON_ORIGIN) return trace_v9_kernel<COMMON_ORIGIN, MASK>;
+  if (common == COMMON_DIR) return trace_v9_kernel<COMMON_DIR, MASK>;
+  return trace_v9_kernel<COMMON_NONE, MASK>;
 }
 
 }  // namespace
@@ -236,17 +266,21 @@ TraceFn pick(int common) {
 extern "C" {
 
 // Launches one CTA per tile on `stream`.  group_off may be null (panels
-// without repacking: ids are slot ids).  Returns cudaGetLastError() after
-// the launch (0 = launched), or the error of the shared-memory opt-in.
+// without repacking: ids are slot ids); amask may be null (no alpha
+// masks).  Returns cudaGetLastError() after the launch (0 = launched), or
+// the error of the shared-memory opt-in.
 int rt_trace_v9(const void* rays, const void* keys, const void* coeff,
-                const void* group_off, void* outf, void* outi, int ts,
-                int nkeys, int cb, int id_mask, int common, void* stream) {
+                const void* group_off, const void* amask, void* outf,
+                void* outi, int ts, int nkeys, int cb, int id_mask,
+                int common, void* stream) {
   if (ts <= 0) return 0;
   int cap = 1;
   while (cap < nkeys) cap <<= 1;
   const size_t smem = (size_t)NQ * cap * sizeof(int);
-  TraceFn fn = pick(common);
-  const size_t static_smem = (CROWS + 3) * TILE * sizeof(float) + NQ * sizeof(int);
+  const bool masked = amask != nullptr;
+  TraceFn fn = masked ? pick<true>(common) : pick<false>(common);
+  const size_t static_smem = (CROWS + 3) * TILE * sizeof(float) + NQ * sizeof(int) +
+                             (masked ? 2 * TILE * sizeof(int) : sizeof(int));
   if (smem + static_smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -254,8 +288,8 @@ int rt_trace_v9(const void* rays, const void* keys, const void* coeff,
   }
   fn<<<ts, TILE, smem, (cudaStream_t)stream>>>(
       (const float*)rays, (const int*)keys, (const float*)coeff,
-      (const int*)group_off, (float*)outf, (int*)outi, nkeys, cap, cb,
-      id_mask);
+      (const int*)group_off, (const int*)amask, (float*)outf, (int*)outi,
+      nkeys, cap, cb, id_mask);
   return (int)cudaGetLastError();
 }
 

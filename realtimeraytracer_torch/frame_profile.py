@@ -2,25 +2,29 @@
 
     python -m realtimeraytracer_torch.frame_profile [--width 1920] [--height 1080]
         [--spp 4] [--shadow-rays 3] [--tris 100000] [--backend auto]
-        [--no-sort-shadows]
+        [--no-sort-shadows] [--scene procedural_mesh]
 
 No JAX counterpart (the JAX package profiled with scripts/ probes on the
-TPU).  Renders procedural_mesh(tris) through the chosen route ("auto" is
-the hybrid route; "pallas" the v7 route) once to warm up, times three
+TPU).  Renders procedural_mesh(tris), or one of the alpha-tested
+flagships (--scene textured_obj, or foliage_field compiled with
+bake_instances=True; both with alpha_test=True), through the chosen route
+("auto" is the hybrid route; "pallas" the v7 route) once to warm up, times three
 frames with CUDA events (median), then renders one frame under
 torch.profiler with CPU and CUDA activities and prints: the device's busy
 time (the sum of kernel durations; one stream, so kernels do not overlap)
 and idle share over that frame, the same idle share against the unprofiled median
 (the profiler slows the host, which opens launch gaps), the peak device
 memory of the run, the device-timeline span of each labelled range of the
-frame (shade.*, v7.*, v8.*, v9.*, frame.denoise) beside the kernel time
-that starts inside it, and the kernels with the most device time.  It
-needs a CUDA device and fails without one.
+frame (shade.*, v7.*, v8.*, v9.*, the alpha ladder's rounds alpha.round,
+frame.denoise) beside the kernel time that starts inside it, the ladder's
+host syncs, and the kernels with the most device time.  It needs a CUDA
+device and fails without one.
 """
 
 from __future__ import annotations
 
 import argparse
+import bisect
 import collections
 import subprocess
 
@@ -29,11 +33,12 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from realtimeraytracer_torch import RenderConfig, scenes
+from realtimeraytracer_torch.render.alpha import wrap_backend_with_alpha
 from realtimeraytracer_torch.render.pipeline import render_pipeline_gpu
 
 RANGES = ("shade.closest", "shade.lights", "shade.sun", "v7.cull",
           "v7.closest", "v7.occluded", "v9.cull", "v9.closest", "v8.closest",
-          "v8.occluded", "frame.denoise")
+          "v8.occluded", "alpha.round", "frame.denoise")
 
 
 def main(argv=None) -> None:
@@ -47,6 +52,9 @@ def main(argv=None) -> None:
                     help="RenderConfig.backend: auto (hybrid), pallas, quarter, hier")
     ap.add_argument("--no-sort-shadows", action="store_true",
                     help="trace area shadows in pixel-block order (cfg.sort_shadows=False)")
+    ap.add_argument("--scene", default="procedural_mesh",
+                    choices=("procedural_mesh", "textured_obj", "foliage_field"),
+                    help="the flagships render alpha-tested; --tris is procedural_mesh's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("frame_profile needs a CUDA device")
@@ -56,9 +64,13 @@ def main(argv=None) -> None:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     cfg = RenderConfig(width=args.width, height=args.height, primary_rays=args.spp,
                        shadow_rays=args.shadow_rays, backend=args.backend,
-                       sort_shadows=not args.no_sort_shadows)
-    scene = scenes.procedural_mesh(args.tris, sun=True)
-    gpu = scene.compile().to("cuda")
+                       sort_shadows=not args.no_sort_shadows,
+                       alpha_test=args.scene != "procedural_mesh")
+    if args.scene == "procedural_mesh":
+        scene = scenes.procedural_mesh(args.tris, sun=True)
+    else:
+        scene = getattr(scenes, args.scene)()
+    gpu = scene.compile(bake_instances=bool(scene.instances)).to("cuda")
     frame = scene.camera.viewport_frame(cfg.width, cfg.height, device="cuda")
     torch.cuda.reset_peak_memory_stats()
     render_pipeline_gpu(gpu, frame, cfg)                        # warm-up
@@ -75,8 +87,10 @@ def main(argv=None) -> None:
         return start.elapsed_time(end)
 
     times = [timed_frame() for _ in range(3)]
+    syncs = wrap_backend_with_alpha.syncs
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         profiled_ms = timed_frame()
+    syncs = wrap_backend_with_alpha.syncs - syncs
 
     # Device-side events: kernels and memcpys, plus the GPU-timeline spans
     # of the record_function ranges (which carry the ranges' names).
@@ -86,7 +100,8 @@ def main(argv=None) -> None:
     print(f"card: {card}")
     print(f"frame {cfg.width}x{cfg.height}, {args.spp} spp x {args.shadow_rays} shadow rays, "
           f"backend={cfg.backend}, sort_shadows={cfg.sort_shadows}, "
-          f"procedural_mesh({args.tris}): "
+          f"{args.scene}({args.tris if args.scene == 'procedural_mesh' else ''}) "
+          f"({gpu.num_tris} tris, alpha_test={cfg.alpha_test}, {syncs} ladder host syncs): "
           f"{sorted(times)[1]:.2f} ms median of {[round(t, 2) for t in times]} (CUDA events); "
           f"{profiled_ms:.2f} ms under the profiler")
     median_ms = sorted(times)[1]
@@ -98,13 +113,21 @@ def main(argv=None) -> None:
     span = collections.defaultdict(float)
     inside = collections.defaultdict(float)
     calls = collections.Counter()
+    # Kernel time starting inside each range: kernels sorted by start, with
+    # prefix sums of their durations (an alpha frame has ~10^5 kernels and
+    # ~10^3 ranges).
+    kernels.sort(key=lambda k: k.time_range.start)
+    starts = [k.time_range.start for k in kernels]
+    prefix = [0.0]
+    for k in kernels:
+        prefix.append(prefix[-1] + k.time_range.elapsed_us())
     for e in device:
         if e.name in RANGES:
             span[e.name] += e.time_range.elapsed_us() / 1e3
             calls[e.name] += 1
-            inside[e.name] += sum(k.time_range.elapsed_us() for k in kernels
-                                  if e.time_range.start <= k.time_range.start
-                                  < e.time_range.end) / 1e3
+            lo = bisect.bisect_left(starts, e.time_range.start)
+            hi = bisect.bisect_left(starts, e.time_range.end)
+            inside[e.name] += (prefix[hi] - prefix[lo]) / 1e3
     for name in RANGES:
         print(f"range {name:14s} {span[name]:10.2f} ms device span, {inside[name]:10.2f} ms "
               f"kernel time, over {calls[name]} calls")

@@ -11,7 +11,10 @@ with unified prim ids: [0, F) triangles, [F, F+S) analytic spheres.  The
 port has "brute" (chunked all-pairs, exact), "pallas" (the v7 CUDA kernel,
 render/v7_backend.py), "quarter" (v9, render/quarter_backend.py), "hier"
 (v8, render/hier_backend.py) and "hybrid", which routes each trace class to
-one of them as the JAX package does on its accelerator.
+one of them as the JAX package does on its accelerator.  With
+``cfg.alpha_test`` set, ``make_backend`` wraps the backend in the alpha
+re-trace ladder (render/alpha.py), and the closest traces of v7, v9 and
+v8 apply the scene's in-kernel alpha masks (``masks_enabled``).
 """
 
 from __future__ import annotations
@@ -88,15 +91,28 @@ def make_bruteforce_backend(gpu: TorchScene, cfg: RenderConfig) -> TraceBackend:
                         num_tris=num_tris, num_spheres=num_spheres)
 
 
+def masks_enabled(cfg: RenderConfig) -> bool:
+    """Whether closest traces apply the scene's in-kernel alpha masks: with
+    the alpha ladder on, at a threshold no lower than the one the masks
+    were built at (RenderConfig.alpha_threshold), so a 0 bit stays
+    conservative (the JAX package's gate).  The JAX package masks only
+    VMEM-resident scenes; the port has no resident split and masks at any
+    size, which can move no result (ROADMAP queue C)."""
+    return bool(cfg.alpha_test) and cfg.alpha_threshold >= RenderConfig.alpha_threshold
+
+
 def make_hybrid_backend(gpu: TorchScene, cfg: RenderConfig,
-                        plain: bool = False) -> TraceBackend:
+                        plain: bool = False,
+                        use_amask: bool | None = None) -> TraceBackend:
     """Route each trace class to a kernel, as the JAX package's
     make_hybrid_backend does: coherent closest traces (common origin or
     direction) go to v9 when the scene has at most RESIDENT_CB blocks and
     to v7 otherwise; incoherent closest traces and every occlusion go to
     v8, whose per-ray cull also makes the shadow-ray sort unnecessary.
     plain=True routes to the kernels' plain twins on any device (the
-    reference the kernels are checked against on the card)."""
+    reference the kernels are checked against on the card).  use_amask:
+    closest traces apply the scene's alpha masks; None takes the config's
+    gate (masks_enabled)."""
     from realtimeraytracer_torch.render import hier_backend as v8m
     from realtimeraytracer_torch.render import quarter_backend as v9m
     from realtimeraytracer_torch.render import v7_backend as v7m
@@ -104,15 +120,17 @@ def make_hybrid_backend(gpu: TorchScene, cfg: RenderConfig,
 
     v7_trace = v7m.trace_blocks_plain if plain else v7m.trace_blocks
     v8 = v8m.make_hier_backend(
-        gpu, cfg, trace=v8m.trace_blocks_hier_plain if plain else v8m.trace_blocks_hier)
+        gpu, cfg, trace=v8m.trace_blocks_hier_plain if plain else v8m.trace_blocks_hier,
+        use_amask=use_amask)
     resident = (gpu.pallas_panels is not None
                 and gpu.pallas_panels.shape[0] <= RESIDENT_CB)
     if resident:
         coherent = v9m.make_quarter_backend(
             gpu, cfg, v7_trace=v7_trace,
-            trace=v9m.trace_blocks_quarter_plain if plain else v9m.trace_blocks_quarter)
+            trace=v9m.trace_blocks_quarter_plain if plain else v9m.trace_blocks_quarter,
+            use_amask=use_amask)
     else:
-        coherent = v7m.make_v7_backend(gpu, cfg, trace=v7_trace)
+        coherent = v7m.make_v7_backend(gpu, cfg, trace=v7_trace, use_amask=use_amask)
 
     def closest(origins, dirs, t_min, t_max, common=None):
         be = coherent if common in ("origin", "dir") else v8
@@ -143,19 +161,28 @@ def resolve_backend_kind(gpu: TorchScene, cfg: RenderConfig) -> str:
 
 
 def make_backend(gpu: TorchScene, cfg: RenderConfig) -> TraceBackend:
+    """The backend the config selects for this scene, wrapped in the alpha
+    re-trace ladder when cfg.alpha_test is set (the ladder returns the
+    backend unwrapped when the scene has no opacity map)."""
     kind = resolve_backend_kind(gpu, cfg)
     if kind == "pallas":
         from realtimeraytracer_torch.render.v7_backend import make_v7_backend
 
-        return make_v7_backend(gpu, cfg)
-    if kind == "quarter":
+        backend = make_v7_backend(gpu, cfg)
+    elif kind == "quarter":
         from realtimeraytracer_torch.render.quarter_backend import make_quarter_backend
 
-        return make_quarter_backend(gpu, cfg)
-    if kind == "hier":
+        backend = make_quarter_backend(gpu, cfg)
+    elif kind == "hier":
         from realtimeraytracer_torch.render.hier_backend import make_hier_backend
 
-        return make_hier_backend(gpu, cfg)
-    if kind == "hybrid":
-        return make_hybrid_backend(gpu, cfg)
-    return make_bruteforce_backend(gpu, cfg)
+        backend = make_hier_backend(gpu, cfg)
+    elif kind == "hybrid":
+        backend = make_hybrid_backend(gpu, cfg)
+    else:
+        backend = make_bruteforce_backend(gpu, cfg)
+    if cfg.alpha_test:
+        from realtimeraytracer_torch.render.alpha import wrap_backend_with_alpha
+
+        backend = wrap_backend_with_alpha(backend, gpu, cfg)
+    return backend

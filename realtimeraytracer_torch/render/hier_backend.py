@@ -13,9 +13,14 @@ so the shadow-ray sort buys nothing (``perray_cull``).  Occlusion traces
 emit per-tile hints (the tile's least and greatest first-occluder block)
 that the next correlated trace visits first.
 
-Not ported: the instanced pair level and in-kernel alpha masks (ROADMAP
-A4, A3), and the multi-segment occlusion kernel, which the JAX package
-leaves unwired (ROADMAP B4).
+Closest traces apply the scene's conservative alpha masks (pallas_amask)
+when asked (``use_amask``, as in JAX): kernel and twin reject hits in
+definitely-transparent barycentric cells; the masked kernel counts its
+launches in ``trace_blocks_hier.masked_launches``.
+
+Not ported: the instanced pair level (ROADMAP A4, with B3's pair level)
+and the multi-segment occlusion kernel, which the JAX package leaves
+unwired (ROADMAP B4).
 
 ``trace_blocks_hier`` launches the kernel for CUDA tensors and runs the
 plain twin (``trace_hier_plain``) for CPU tensors, with no fallback
@@ -37,8 +42,8 @@ from realtimeraytracer_torch.ops.intersect import BIG_T, HitRecord
 from realtimeraytracer_torch.render.backends import (
     TraceBackend, _merge_sphere_hits, sphere_occluded)
 from realtimeraytracer_torch.render.v7_backend import (
-    BIG, BIG_BITS, EPS, _COMMON, _INT64_MAX, _MODES, _check, _intersect_pairs,
-    _pack_rays)
+    BIG, BIG_BITS, EPS, _COMMON, _INT64_MAX, _MODES, _check, _check_amask,
+    _intersect_pairs, _pack_rays)
 from realtimeraytracer_torch.scene.gpu_scene import TorchScene
 from realtimeraytracer_torch.scene.panels import CROWS, RESIDENT_CB, TILE
 
@@ -113,7 +118,7 @@ def _slab_pass(o, inv, fl, tmin, limit, lo, hi):
 
 
 def trace_hier_plain(rays, sup_panel, blk_panels, coeff, nsup: int, mode: str,
-                     common: str | None = None, hints=None):
+                     common: str | None = None, hints=None, amask=None):
     """Plain PyTorch twin of the v8 kernel, for any device.
 
     Per-ray block cull under each ray's window [t_min, t_max], then every
@@ -123,7 +128,8 @@ def trace_hier_plain(rays, sup_panel, blk_panels, coeff, nsup: int, mode: str,
     greatest of those (-1 if none).  Results do not depend on `hints` or
     on the super level, which only prune.  Row 1 of outi holds the tile's
     candidate block count; rows 5 and 6 the pairs and the slab tests the
-    twin made for each live ray."""
+    twin made for each live ray.  amask: (CB, 2, 128) alpha masks (closest
+    mode only) or None."""
     del sup_panel, nsup, hints
     ts = rays.shape[0]
     dev = rays.device
@@ -159,7 +165,8 @@ def trace_hier_plain(rays, sup_panel, blk_panels, coeff, nsup: int, mode: str,
     first = torch.full((r_all,), _NO_HIT, dtype=torch.int64, device=dev)
     for s in range(0, pair_ray.shape[0], chunk):
         rr, bb = pair_ray[s:s + chunk], pair_blk[s:s + chunk]
-        t, ok = _intersect_pairs(per_ray[rr][:, :, None], coeff[bb], None)
+        t, ok = _intersect_pairs(per_ray[rr][:, :, None], coeff[bb], None,
+                                 None if amask is None else amask[bb])
         t, ok = t[:, 0], ok[:, 0]                               # (P, 128)
         if closest:
             tm = torch.where(ok, t, float("inf"))
@@ -199,9 +206,12 @@ def trace_hier_plain(rays, sup_panel, blk_panels, coeff, nsup: int, mode: str,
 
 
 def trace_hier_kernel(rays, sup_panel, blk_panels, coeff, nsup: int, mode: str,
-                      common: str | None = None, hints=None, count: bool = False):
+                      common: str | None = None, hints=None, count: bool = False,
+                      amask=None):
     """Launch csrc/trace_v8.cu (CUDA tensors only); adds one to
-    ``trace_blocks_hier.launches``.  hints: (Ts, hn) int32 or None.
+    ``trace_blocks_hier.launches``, or with alpha masks (amask (CB, 2, 128)
+    int32, closest mode) to ``trace_blocks_hier.masked_launches``.  hints:
+    (Ts, hn) int32 or None.
     count=True launches the variant that also writes its work counts
     (outi rows 5 and 6, the bound's operation count); the render path
     does not, as counting slows the kernel."""
@@ -218,6 +228,7 @@ def trace_hier_kernel(rays, sup_panel, blk_panels, coeff, nsup: int, mode: str,
             raise ValueError("the v8 kernel's inputs must be on one device")
     if mode not in _MODES or common not in _COMMON:
         raise ValueError(f"bad mode/common {mode!r}/{common!r}")
+    _check_amask(amask, coeff, mode)
     if not 0 < nsup <= SPAGES * 128 or nsup * SUP < cb:
         raise ValueError(f"{nsup} superclusters for {cb} blocks: the v8 kernel "
                          f"takes 1 to {SPAGES * 128} supers covering every block")
@@ -228,11 +239,15 @@ def trace_hier_kernel(rays, sup_panel, blk_panels, coeff, nsup: int, mode: str,
         stream = torch.cuda.current_stream().cuda_stream
         kernels.launch("trace_v8", rays.data_ptr(), sup_panel.data_ptr(),
                        blk_panels.data_ptr(), coeff.data_ptr(),
+                       None if amask is None else amask.data_ptr(),
                        None if hints is None else hints.data_ptr(),
                        outf.data_ptr(), outi.data_ptr(), ts, nsup, cb,
                        0 if hints is None else hints.shape[1], l1_mask,
                        _MODES[mode], _COMMON[common], int(count), stream)
-    trace_blocks_hier.launches += 1
+    if amask is None:
+        trace_blocks_hier.launches += 1
+    else:
+        trace_blocks_hier.masked_launches += 1
     return outf, outi
 
 
@@ -245,7 +260,8 @@ def _hier_inputs(gpu: TorchScene):
 
 
 def trace_blocks_hier(gpu: TorchScene, ray_blocks, mode: str,
-                      common: str | None = None, hints=None):
+                      common: str | None = None, hints=None,
+                      use_amask: bool = False):
     """Trace packed (Ts, 8, 128) ray tiles through the v8 hierarchy; the
     kernel's wrapper.  Returns (outf, outi), each (Ts, 8, 128): outf row 0 =
     t (3e38 on a miss) or the occluded flag; outi row 0 = sorted-triangle id
@@ -253,9 +269,11 @@ def trace_blocks_hier(gpu: TorchScene, ray_blocks, mode: str,
     tile's hints for the next correlated trace, rows 5 and 6 = the
     ray-triangle pairs and slab tests each thread made.  hints ((Ts, hn) int32)
     are visited first, in occluded mode on scenes of at most RESIDENT_CB
-    blocks; they never change the result.  CUDA tensors launch the kernel;
-    CPU tensors run the plain twin."""
+    blocks; they never change the result.  use_amask: apply the scene's
+    alpha masks (closest mode, when the scene has them).  CUDA tensors
+    launch the kernel; CPU tensors run the plain twin."""
     coeff, sup_panel, blk_panels, nsup = _hier_inputs(gpu)
+    amask = gpu.pallas_amask if use_amask and mode == "closest" else None
     if hints is not None and (mode != "occluded" or coeff.shape[0] > RESIDENT_CB):
         hints = None
     if hints is not None and (hints.ndim != 2 or hints.shape[0] != ray_blocks.shape[0]):
@@ -264,39 +282,46 @@ def trace_blocks_hier(gpu: TorchScene, ray_blocks, mode: str,
     with record_function(f"v8.{mode}"):
         if ray_blocks.device.type == "cuda":
             return trace_hier_kernel(ray_blocks, sup_panel, blk_panels, coeff,
-                                     nsup, mode, common, hints)
+                                     nsup, mode, common, hints, amask=amask)
         if ray_blocks.device.type == "cpu":
             return trace_hier_plain(ray_blocks, sup_panel, blk_panels, coeff,
-                                    nsup, mode, common, hints)
+                                    nsup, mode, common, hints, amask)
     raise ValueError(f"no v8 trace for device {ray_blocks.device}")
 
 
 trace_blocks_hier.launches = 0
+trace_blocks_hier.masked_launches = 0
 
 
 def trace_blocks_hier_plain(gpu: TorchScene, ray_blocks, mode: str,
-                            common: str | None = None, hints=None):
+                            common: str | None = None, hints=None,
+                            use_amask: bool = False):
     """trace_blocks_hier through the plain twin on any device."""
     coeff, sup_panel, blk_panels, nsup = _hier_inputs(gpu)
+    amask = gpu.pallas_amask if use_amask and mode == "closest" else None
     return trace_hier_plain(ray_blocks, sup_panel, blk_panels, coeff, nsup,
-                            mode, common, hints)
+                            mode, common, hints, amask)
 
 
-def _run(gpu, origins, dirs, t_min, t_max, mode, common, trace, hints=None):
+def _run(gpu, origins, dirs, t_min, t_max, mode, common, trace, hints=None,
+         use_amask=False):
     r = origins.shape[0]
     t_min = intersect.as_per_ray(t_min, r, origins.device)
     t_max = intersect.as_per_ray(t_max, r, origins.device)
     rays, r_orig, _ = _pack_rays(origins, dirs, t_min, t_max)
-    outf, outi = trace(gpu, rays, mode, common=common, hints=hints)
+    outf, outi = trace(gpu, rays, mode, common=common, hints=hints,
+                       use_amask=use_amask)
     return (outf[:, 0, :].reshape(-1)[:r_orig], outi[:, 0, :].reshape(-1)[:r_orig],
             outi)
 
 
 def hier_closest(gpu, origins, dirs, t_min, t_max, common=None,
-                 trace=trace_blocks_hier) -> HitRecord:
+                 trace=trace_blocks_hier, use_amask: bool = False) -> HitRecord:
     """Closest triangle hits; (u, v) are zeros (the surface resolver
-    recomputes them)."""
-    tb, kb, _ = _run(gpu, origins, dirs, t_min, t_max, "closest", common, trace)
+    recomputes them).  use_amask: reject hits in definitely-transparent
+    cells of the scene's alpha masks."""
+    tb, kb, _ = _run(gpu, origins, dirs, t_min, t_max, "closest", common, trace,
+                     use_amask=use_amask)
     zeros = torch.zeros_like(tb)
     return HitRecord(t=tb, prim_id=torch.where(kb >= 0, kb, -1), u=zeros, v=zeros)
 
@@ -320,16 +345,24 @@ def hier_occluded_hinted(gpu, origins, dirs, t_min, t_max, hints=None,
 
 
 def make_hier_backend(gpu: TorchScene, cfg: RenderConfig,
-                      trace=trace_blocks_hier) -> TraceBackend:
+                      trace=trace_blocks_hier,
+                      use_amask: bool | None = None) -> TraceBackend:
     """The "hier" backend.  trace: trace_blocks_hier (kernel on CUDA, twin
     on CPU) or trace_blocks_hier_plain (twin everywhere).  Hinted
     occlusion exists for scenes of at most RESIDENT_CB blocks, as in the
-    JAX package; the multi-segment query is not wired there either."""
+    JAX package; the multi-segment query is not wired there either.
+    use_amask: closest traces apply the scene's alpha masks; None takes the
+    config's gate (backends.masks_enabled)."""
+    from realtimeraytracer_torch.render.backends import masks_enabled
+
     num_tris = gpu.num_tris
     num_spheres = gpu.num_spheres
+    if use_amask is None:
+        use_amask = masks_enabled(cfg)
 
     def closest(origins, dirs, t_min, t_max, common=None):
-        hit = hier_closest(gpu, origins, dirs, t_min, t_max, common, trace)
+        hit = hier_closest(gpu, origins, dirs, t_min, t_max, common, trace,
+                           use_amask)
         if num_spheres:
             sph = intersect.intersect_spheres(
                 origins, dirs, gpu.sph_center, gpu.sph_radius, t_min, t_max)

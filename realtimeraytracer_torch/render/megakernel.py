@@ -12,7 +12,9 @@ The whole image is one ray batch; per-ray control flow is masks.  The
 shadow-hint chain of the JAX version is carried: with a backend that has
 ``occluded_hinted`` (v8 on the "hier" and "hybrid" routes), each light's
 occlusion traces and the sun's warm-start from the previous trace's hints,
-across samples and primary samples.  The per-light shadow-ray sort is
+across samples and primary samples.  The alpha-tested backend
+(render/alpha.py) has no hinted occlusion, so on alpha scenes the chain is
+off, as in the JAX package.  The per-light shadow-ray sort is
 carried for per-tile culls (v7) and skipped for per-ray culls (v8).  The
 multi-segment and batched-occlusion branches are not: no ported backend
 has a fused multi-segment query (the JAX package leaves v8's unwired), and
@@ -191,6 +193,10 @@ def shade_sample(gpu: TorchScene, cfg: RenderConfig, origins, dirs,
                 contrib = brdf * radiance * inv_pdf
                 shadowed_sum = shadowed_sum + lit * contrib
                 unshadowed_sum = unshadowed_sum + contrib
+                # cfg.serialize_shadow_samples: the JAX package fences here so
+                # that XLA does not overlap the alpha ladders of several
+                # samples and run out of memory.  Eager PyTorch runs the
+                # samples one after the other, so there is nothing to fence.
             if use_sort:
                 both = torch.cat([shadowed_sum, unshadowed_sum], dim=1)[inv_order]
                 shadowed_sum, unshadowed_sum = both[:, 0:3], both[:, 3:6]

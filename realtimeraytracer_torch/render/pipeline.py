@@ -55,7 +55,10 @@ def render_pipeline(scene, cfg: RenderConfig | None = None,
     frame and render.  Returns an (H, W, 3) float32 image in [0, 1].
 
     Runs on the GPU unless the caller passes device="cpu"; without a CUDA
-    device the default raises, it never renders on the CPU instead."""
+    device the default raises, it never renders on the CPU instead.
+    cfg.alpha_test=None resolves to whether some mesh's material has an
+    opacity map, as in the JAX package (which looks at scene.meshes only,
+    so the instances of an instanced scene do not count)."""
     from realtimeraytracer_torch.scene.scene import Scene
 
     device = torch.device(device)
@@ -68,6 +71,9 @@ def render_pipeline(scene, cfg: RenderConfig | None = None,
         raise TypeError(
             "render_pipeline(scene) expects a Scene; for compiled scenes use "
             "render_pipeline_gpu(gpu, frame, cfg)")
+    if cfg.alpha_test is None:
+        cfg = cfg.replace(alpha_test=any(
+            m.material.opacity_map is not None for m in scene.meshes))
     check_supported(cfg)
     # Only the v9 kernel reads the SAH-repacked panels; other routes skip
     # their host build.

@@ -18,6 +18,13 @@ plain twin (``trace_quarter_plain``) for CPU tensors, with no fallback
 between the two.  The twin intersects every candidate subcluster of a tile
 and keeps the least (quantized t, visit, lane) key per ray, the kernel's
 tie rule, so the two agree bit for bit.
+
+With ``use_amask`` (JAX ``use_amask``) the kernel and the twin reject
+hits in definitely-transparent cells of the scene's alpha masks: q_amask,
+laid out by repacked slot, on the repacked panels (else pallas_amask).
+Each visit composites the mask rows by lane quarter, as it does the
+coefficients.  The masked kernel counts its launches in
+``trace_blocks_quarter.masked_launches``.
 """
 
 from __future__ import annotations
@@ -31,8 +38,8 @@ from realtimeraytracer_torch.ops import intersect
 from realtimeraytracer_torch.ops.intersect import HitRecord
 from realtimeraytracer_torch.render.backends import TraceBackend, _merge_sphere_hits
 from realtimeraytracer_torch.render.v7_backend import (
-    BIG, BIG_BITS, CPB, INVALID, _COMMON, _INT64_MAX, _check, _intersect_pairs,
-    _pack_rays, cull_quarter_keys, make_v7_backend, trace_blocks)
+    BIG, BIG_BITS, CPB, INVALID, _COMMON, _INT64_MAX, _check, _check_amask,
+    _intersect_pairs, _pack_rays, cull_quarter_keys, make_v7_backend, trace_blocks)
 from realtimeraytracer_torch.scene.gpu_scene import TorchScene
 from realtimeraytracer_torch.scene.panels import CB, CROWS, RESIDENT_CB, SUBK, TILE
 
@@ -42,7 +49,7 @@ _PAIR_CHUNK_CUDA, _PAIR_CHUNK_CPU = 4096, 256
 
 
 def trace_quarter_plain(rays, keys, coeff, group_off, id_mask: int,
-                        common: str | None = None):
+                        common: str | None = None, amask=None):
     """Plain PyTorch twin of the v9 kernel on culled quarter keys (Ts, 4,
     CBn, 8, 128), for any device.
 
@@ -52,7 +59,8 @@ def trace_quarter_plain(rays, keys, coeff, group_off, id_mask: int,
     wins, which is the kernel's rule (nearest quantized t, then the
     earliest visit, then the lowest lane).  Row 1 of outi holds 4 x the
     longest stream (the kernel's visit count without the stop rule), row 5
-    the pairs the twin tested for each live ray."""
+    the pairs the twin tested for each live ray.  amask: (CB, 2, 128) alpha
+    masks by slot, or None."""
     ts = rays.shape[0]
     dev = rays.device
     cb = coeff.shape[0]
@@ -62,13 +70,15 @@ def trace_quarter_plain(rays, keys, coeff, group_off, id_mask: int,
     tile_of, q_of, rank = cand.nonzero(as_tuple=True)
     cid = torch.clamp(sk[tile_of, q_of, rank] & id_mask, max=cb - 1).long()
     quarters = coeff.reshape(cb, CROWS, NQ, SUBK)
+    mask_q = None if amask is None else amask.reshape(cb, 2, NQ, SUBK)
     sub_lane = torch.arange(SUBK, device=dev, dtype=torch.int32)
     lane = torch.arange(TILE, device=dev, dtype=torch.int32)
     best = torch.full((ts * TILE,), _INT64_MAX, dtype=torch.int64, device=dev)
     for s in range(0, tile_of.shape[0], chunk):
         tt, qq, rr = tile_of[s:s + chunk], q_of[s:s + chunk], rank[s:s + chunk]
-        t, ok = _intersect_pairs(rays[tt], quarters[cid[s:s + chunk], :, qq, :],
-                                 common)                       # (P, 128, 32)
+        cc = cid[s:s + chunk]
+        t, ok = _intersect_pairs(rays[tt], quarters[cc, :, qq, :], common,
+                                 None if mask_q is None else mask_q[cc, :, qq, :])
         lanes = (qq[:, None].to(torch.int32) * SUBK + sub_lane)[:, None, :]
         tm = torch.where(ok, t, float("inf"))
         kbest = ((tm.view(torch.int32) & ~127) | lanes).amin(dim=2)
@@ -99,9 +109,10 @@ def trace_quarter_plain(rays, keys, coeff, group_off, id_mask: int,
 
 
 def trace_quarter_kernel(rays, keys, coeff, group_off, id_mask: int,
-                         common: str | None = None):
+                         common: str | None = None, amask=None):
     """Launch csrc/trace_v9.cu on culled quarter keys (CUDA tensors only);
-    adds one to ``trace_blocks_quarter.launches``."""
+    adds one to ``trace_blocks_quarter.launches``, or with alpha masks to
+    ``trace_blocks_quarter.masked_launches``."""
     ts = rays.shape[0]
     cb = coeff.shape[0]
     cbn = keys.shape[2]
@@ -115,6 +126,7 @@ def trace_quarter_kernel(rays, keys, coeff, group_off, id_mask: int,
             raise ValueError("rays, keys, coeff and group_off must be on one device")
     if common not in _COMMON:
         raise ValueError(f"bad common {common!r}")
+    _check_amask(amask, coeff, "closest")
     if cb > RESIDENT_CB:
         raise ValueError(f"the v9 kernel takes at most {RESIDENT_CB} blocks, "
                          f"got {cb}; route larger scenes to v8")
@@ -125,29 +137,38 @@ def trace_quarter_kernel(rays, keys, coeff, group_off, id_mask: int,
         kernels.launch("trace_v9", rays.data_ptr(), keys.data_ptr(),
                        coeff.data_ptr(),
                        None if group_off is None else group_off.data_ptr(),
+                       None if amask is None else amask.data_ptr(),
                        outf.data_ptr(), outi.data_ptr(), ts, cbn * CPB, cb,
                        id_mask, _COMMON[common], stream)
-    trace_blocks_quarter.launches += 1
+    if amask is None:
+        trace_blocks_quarter.launches += 1
+    else:
+        trace_blocks_quarter.masked_launches += 1
     return outf, outi
 
 
-def _quarter_panels(gpu: TorchScene):
-    """(coeff, cl_min, cl_max, group_off): the repacked panels when the
-    scene has them, else the v7 panels with slot ids = sorted ids."""
+def _quarter_panels(gpu: TorchScene, use_amask: bool = False):
+    """(coeff, cl_min, cl_max, group_off, amask): the repacked panels (and
+    their slot-ordered masks) when the scene has them, else the v7 panels
+    with slot ids = sorted ids; amask None unless asked for and built."""
     if gpu.q_panels is not None:
-        return gpu.q_panels, gpu.q_cl_min, gpu.q_cl_max, gpu.q_group_off
+        return (gpu.q_panels, gpu.q_cl_min, gpu.q_cl_max, gpu.q_group_off,
+                gpu.q_amask if use_amask else None)
     if gpu.pallas_panels is None:
         raise ValueError("scene has no traversal panels (compile it with a BVH)")
-    return gpu.pallas_panels, gpu.pallas_cl_min, gpu.pallas_cl_max, None
+    return (gpu.pallas_panels, gpu.pallas_cl_min, gpu.pallas_cl_max, None,
+            gpu.pallas_amask if use_amask else None)
 
 
-def trace_blocks_quarter(gpu: TorchScene, ray_blocks, common: str | None = None):
+def trace_blocks_quarter(gpu: TorchScene, ray_blocks, common: str | None = None,
+                         use_amask: bool = False):
     """Closest-hit trace of packed (Ts, 8, 128) ray tiles, v9 scheme; the
     kernel's wrapper.  Same output contract as v7's closest mode: outf row
     0 = t (3e38 on a miss); outi row 0 = sorted-triangle id or -1, row 1 =
-    subclusters visited, row 5 = ray-triangle pairs each ray tested.  CUDA
-    tensors launch the kernel; CPU tensors run the plain twin."""
-    coeff, cl_min, cl_max, group_off = _quarter_panels(gpu)
+    subclusters visited, row 5 = ray-triangle pairs each ray tested.
+    use_amask: apply the scene's alpha masks.  CUDA tensors launch the
+    kernel; CPU tensors run the plain twin."""
+    coeff, cl_min, cl_max, group_off, amask = _quarter_panels(gpu, use_amask)
     if coeff.shape[0] > RESIDENT_CB:
         raise ValueError(f"the v9 kernel takes at most {RESIDENT_CB} blocks "
                          f"({coeff.shape[0]}); callers route larger scenes to v8")
@@ -156,35 +177,38 @@ def trace_blocks_quarter(gpu: TorchScene, ray_blocks, common: str | None = None)
     with record_function("v9.closest"):
         if ray_blocks.device.type == "cuda":
             return trace_quarter_kernel(ray_blocks, keys, coeff, group_off,
-                                        id_mask, common)
+                                        id_mask, common, amask)
         if ray_blocks.device.type == "cpu":
             return trace_quarter_plain(ray_blocks, keys, coeff, group_off,
-                                       id_mask, common)
+                                       id_mask, common, amask)
     raise ValueError(f"no v9 trace for device {ray_blocks.device}")
 
 
 trace_blocks_quarter.launches = 0
+trace_blocks_quarter.masked_launches = 0
 
 
 def trace_blocks_quarter_plain(gpu: TorchScene, ray_blocks,
-                               common: str | None = None):
+                               common: str | None = None, use_amask: bool = False):
     """trace_blocks_quarter through the plain twin on any device."""
-    coeff, cl_min, cl_max, group_off = _quarter_panels(gpu)
+    coeff, cl_min, cl_max, group_off, amask = _quarter_panels(gpu, use_amask)
     keys, id_mask = cull_quarter_keys(ray_blocks, cl_min, cl_max)
-    return trace_quarter_plain(ray_blocks, keys, coeff, group_off, id_mask, common)
+    return trace_quarter_plain(ray_blocks, keys, coeff, group_off, id_mask, common,
+                               amask)
 
 
 def quarter_closest(gpu: TorchScene, origins, dirs, t_min, t_max,
                     common: str | None = None,
-                    trace=trace_blocks_quarter) -> HitRecord:
+                    trace=trace_blocks_quarter, use_amask: bool = False) -> HitRecord:
     """Closest hits through v9 (v7's output contract): faces are in BVH
     order, so the sorted id is the face id; (u, v) are zeros (the surface
-    resolver recomputes them)."""
+    resolver recomputes them).  use_amask: reject hits in
+    definitely-transparent cells of the scene's alpha masks."""
     r = origins.shape[0]
     t_min = intersect.as_per_ray(t_min, r, origins.device)
     t_max = intersect.as_per_ray(t_max, r, origins.device)
     rays, r_orig, _ = _pack_rays(origins, dirs, t_min, t_max)
-    outf, outi = trace(gpu, rays, common=common)
+    outf, outi = trace(gpu, rays, common=common, use_amask=use_amask)
     tb = outf[:, 0, :].reshape(-1)[:r_orig]
     kb = outi[:, 0, :].reshape(-1)[:r_orig]
     zeros = torch.zeros_like(tb)
@@ -193,17 +217,24 @@ def quarter_closest(gpu: TorchScene, origins, dirs, t_min, t_max,
 
 def make_quarter_backend(gpu: TorchScene, cfg: RenderConfig,
                          trace=trace_blocks_quarter,
-                         v7_trace=trace_blocks) -> TraceBackend:
+                         v7_trace=trace_blocks,
+                         use_amask: bool | None = None) -> TraceBackend:
     """The "quarter" backend: v9 closest; occlusion delegates to v7, as in
     the JAX package (occlusion retires on any hit, so v9's finer visits buy
     nothing there).  trace / v7_trace: the wrappers (kernel on CUDA, twin
-    on CPU) or their *_plain versions."""
+    on CPU) or their *_plain versions.  use_amask: closest traces apply the
+    scene's alpha masks; None takes the config's gate."""
+    from realtimeraytracer_torch.render.backends import masks_enabled
+
     num_tris = gpu.num_tris
     num_spheres = gpu.num_spheres
-    v7 = make_v7_backend(gpu, cfg, trace=v7_trace)
+    if use_amask is None:
+        use_amask = masks_enabled(cfg)
+    v7 = make_v7_backend(gpu, cfg, trace=v7_trace, use_amask=use_amask)
 
     def closest(origins, dirs, t_min, t_max, common=None):
-        hit = quarter_closest(gpu, origins, dirs, t_min, t_max, common, trace)
+        hit = quarter_closest(gpu, origins, dirs, t_min, t_max, common, trace,
+                              use_amask)
         if num_spheres:
             sph = intersect.intersect_spheres(
                 origins, dirs, gpu.sph_center, gpu.sph_radius, t_min, t_max)

@@ -3,9 +3,11 @@
 Counterpart of realtimeraytracer_tpu/render/surface.py::resolve_surface
 (the closest-hit shader, closesthit.rchit) for triangles and analytic
 spheres: light-hit detection by object row, barycentric interpolation of
-position and normal (barycentrics recomputed from the winning triangle),
-constant materials with sRGB decode and roughness = 1 - specular.  The
-instance-transform, texture and mip branches are not ported yet.
+position, normal and uv (barycentrics recomputed from the winning
+triangle), materials from the object table with their color, specular and
+metallic maps sampled bilinearly from the packed atlas at the hit's uv
+(one gather per map), sRGB decode and roughness = 1 - specular.  The
+instance-transform and mip branches are not ported yet (ROADMAP A4, A1).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import NamedTuple
 import torch
 
 from realtimeraytracer_torch.ops.intersect import HitRecord, ray_triangle
+from realtimeraytracer_torch.ops.texture import sample_atlas_packed
 from realtimeraytracer_torch.ops.tonemap import srgb_to_linear
 from realtimeraytracer_torch.ops.vecmath import normalize
 from realtimeraytracer_torch.scene.gpu_scene import TorchScene
@@ -94,18 +97,32 @@ def resolve_surface(gpu: TorchScene, hit: HitRecord, origins: torch.Tensor,
     ], dim=1)
     m = mat_row[obj]
     color = m[..., 0:3]
+    # Emitters keep the raw material color, never a texel
+    # (closesthit.rchit:46-50).
+    emit_color = color
     spec = m[..., 3]
     metal = m[..., 4]
     hit_light = (~missed) & (m[..., 5] > 0)
+    tex = m[..., 6:10].to(torch.int32)
     valid = (~missed) & (~hit_light)
 
     # Non-hits carry overflow-prone positions (sphere path: o + BIG_T*d).
     position = torch.where(valid[..., None], position, 0.0)
     normal = torch.where(valid[..., None], normal, 0.0)
 
+    if gpu.has_textures:
+        # Texture overrides only where a map index is >= 0; one gather per
+        # map from the packed atlas.
+        def fetch(ch):
+            return sample_atlas_packed(gpu.tex_atlas_packed, gpu.tex_size,
+                                       tex[..., ch], uv[..., 0], uv[..., 1])
+        color = torch.where((tex[..., 0] >= 0)[..., None], fetch(0)[..., :3], color)
+        spec = torch.where(tex[..., 1] >= 0, fetch(1)[..., 0], spec)
+        metal = torch.where(tex[..., 2] >= 0, fetch(2)[..., 0], metal)
+
     return Surface(
         valid=valid, hit_light=hit_light, missed=missed,
         position=position, normal=normal, uv=uv,
         albedo=srgb_to_linear(color), roughness=1.0 - spec, metallic=metal,
-        light_color=color, obj_id=obj,
+        light_color=emit_color, obj_id=obj,
     )

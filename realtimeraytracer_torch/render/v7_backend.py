@@ -15,6 +15,12 @@ tile instead of running the ordered loop: the stop rule is exact, so it
 finds the same hits.  It keeps the kernel's packed (t | lane) key and its
 visit-order tie rule, so t and ids agree bit for bit (ids may differ only
 where two blocks hold the same quantized t; see ROADMAP queue C).
+
+Closest traces take the scene's conservative alpha masks (pallas_amask,
+ops/alpha_mask.py) when asked (``use_amask``; JAX ``amask``): kernel and
+twin reject an accepted pair whose barycentric cell is definitely
+transparent (``_mask_ok``).  The masked kernel is its own instantiation and
+counts its launches in ``trace_blocks.masked_launches``.
 """
 
 from __future__ import annotations
@@ -156,10 +162,24 @@ def cull_quarter_keys(rays, cl_min, cl_max, chunk_tiles: int = 2048):
     return keys, id_mask
 
 
-def _intersect_pairs(r, c, common):
+def _mask_ok(ok, u, v, m):
+    """The in-kernel alpha-mask filter (JAX pallas_backend._mask_ok): m (P,
+    2, L) mask rows of the pairs' triangles; bit b = 8*gj + gi of a
+    triangle's 64-bit mask (word b >> 5, bit b & 31) is 0 where the cell
+    (gi, gj) = (int(8u), int(8v)), clamped to [0, 7], is definitely
+    transparent.  u, v of lanes that are not ok are garbage: the clamps
+    bound them and ok masks the result."""
+    gi = torch.clamp((u * 8.0).to(torch.int32), 0, 7)
+    gj = torch.clamp((v * 8.0).to(torch.int32), 0, 7)
+    b = gj * 8 + gi
+    w = torch.where(b < 32, m[:, 0, None, :], m[:, 1, None, :])
+    return ok & (((w >> (b & 31)) & 1) != 0)
+
+
+def _intersect_pairs(r, c, common, m=None):
     """Baldwin-Weber t and hit mask of each (pair, ray, triangle): r (P, 8,
-    128) ray tiles, c (P, 12, 128) coefficient blocks.  Same expressions and
-    association as the kernel."""
+    128) ray tiles, c (P, 12, L) coefficient blocks, m (P, 2, L) their alpha
+    mask rows or None.  Same expressions and association as the kernel."""
     if common == "origin":
         o = [r[:, a, 0:1, None] for a in range(3)]
     else:
@@ -186,11 +206,13 @@ def _intersect_pairs(r, c, common):
     v = dot_o(8) + t * dot_d(8)
     ok = (den_ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
           & (t >= r[:, 6, :, None]) & (t <= r[:, 7, :, None]))
+    if m is not None:
+        ok = _mask_ok(ok, u, v, m)
     return t, ok
 
 
 def trace_keys_plain(rays, keys, coeff, id_mask: int, mode: str,
-                     common: str | None = None):
+                     common: str | None = None, amask=None):
     """Plain PyTorch twin of the v7 kernel on culled keys, for any device.
 
     Intersects every candidate (tile, block) pair, in chunks.  Closest hits
@@ -198,7 +220,8 @@ def trace_keys_plain(rays, keys, coeff, id_mask: int, mode: str,
     the least quantized t wins, a tie goes to the block visited first and
     then the lowest lane — the ordered loop's rule.  Row 1 of outi holds
     the tile's candidate count (the kernel's visit count is at most that),
-    row 5 the pairs the twin tested for each live ray."""
+    row 5 the pairs the twin tested for each live ray.  amask: (CB, 2, 128)
+    alpha masks (closest mode only) or None."""
     ts = rays.shape[0]
     dev = rays.device
     cb = coeff.shape[0]
@@ -213,7 +236,9 @@ def trace_keys_plain(rays, keys, coeff, id_mask: int, mode: str,
     hits = torch.zeros(ts * TILE, dtype=torch.int32, device=dev)
     for s in range(0, tile_of.shape[0], chunk):
         tt = tile_of[s:s + chunk]
-        t, ok = _intersect_pairs(rays[tt], coeff[cid[s:s + chunk]], common)
+        cc = cid[s:s + chunk]
+        t, ok = _intersect_pairs(rays[tt], coeff[cc], common,
+                                 None if amask is None else amask[cc])
         ray_idx = (tt[:, None] * TILE + lane).reshape(-1)
         if closest:
             tm = torch.where(ok, t, float("inf"))
@@ -257,10 +282,21 @@ def _check(x: torch.Tensor, name: str, dtype, shape) -> None:
         raise ValueError(f"{name} requires grad; the traversal kernels have no backward")
 
 
+def _check_amask(amask, coeff, mode: str) -> None:
+    if amask is None:
+        return
+    if mode != "closest":
+        raise ValueError("alpha masks apply to closest traces only")
+    _check(amask, "amask", torch.int32, (coeff.shape[0], 2, TILE))
+    if amask.device != coeff.device:
+        raise ValueError("amask and coeff must be on one device")
+
+
 def trace_keys_kernel(rays, keys, coeff, id_mask: int, mode: str,
-                      common: str | None = None):
+                      common: str | None = None, amask=None):
     """Launch csrc/trace_v7.cu on culled keys (CUDA tensors only); adds one
-    to ``trace_blocks.launches``."""
+    to ``trace_blocks.launches``, or with alpha masks (closest mode) to
+    ``trace_blocks.masked_launches``."""
     ts = rays.shape[0]
     cb = coeff.shape[0]
     nkeys = keys.shape[1] * CPB
@@ -271,8 +307,9 @@ def trace_keys_kernel(rays, keys, coeff, id_mask: int, mode: str,
         raise ValueError("rays, keys and coeff must be on one device")
     if mode not in _MODES or common not in _COMMON:
         raise ValueError(f"bad mode/common {mode!r}/{common!r}")
+    _check_amask(amask, coeff, mode)
     cap = 1 << max(0, nkeys - 1).bit_length()
-    if cap * 4 + (CROWS + 3) * TILE * 4 > _SMEM_LIMIT:
+    if cap * 4 + (CROWS + 5) * TILE * 4 > _SMEM_LIMIT:
         raise ValueError(f"{cb} coefficient blocks need more shared memory "
                          "for the key sort than a CTA has")
     outf = torch.zeros((ts, 8, TILE), dtype=torch.float32, device=rays.device)
@@ -280,21 +317,29 @@ def trace_keys_kernel(rays, keys, coeff, id_mask: int, mode: str,
     with torch.cuda.device(rays.device):
         stream = torch.cuda.current_stream().cuda_stream
         kernels.launch("trace_v7", rays.data_ptr(), keys.data_ptr(),
-                       coeff.data_ptr(), outf.data_ptr(), outi.data_ptr(),
+                       coeff.data_ptr(), None if amask is None else amask.data_ptr(),
+                       outf.data_ptr(), outi.data_ptr(),
                        ts, nkeys, cb, id_mask, _MODES[mode], _COMMON[common],
                        stream)
-    trace_blocks.launches += 1
+    if amask is None:
+        trace_blocks.launches += 1
+    else:
+        trace_blocks.masked_launches += 1
     return outf, outi
 
 
-def _panels(gpu: TorchScene):
+def _panels(gpu: TorchScene, mode: str = "occluded", use_amask: bool = False):
+    """(coeff, cl_min, cl_max, amask): amask is the scene's pallas_amask for
+    a closest trace that asks for masks on a scene that has them, else
+    None."""
     if gpu.pallas_panels is None:
         raise ValueError("scene has no v7 panels (compile it with a BVH)")
-    return gpu.pallas_panels, gpu.pallas_cl_min, gpu.pallas_cl_max
+    amask = gpu.pallas_amask if use_amask and mode == "closest" else None
+    return gpu.pallas_panels, gpu.pallas_cl_min, gpu.pallas_cl_max, amask
 
 
 def trace_blocks(gpu: TorchScene, ray_blocks, mode: str,
-                 common: str | None = None):
+                 common: str | None = None, use_amask: bool = False):
     """Trace packed (Ts, 8, 128) ray tiles; the kernel's wrapper.
 
     common: "origin" iff every ray of every tile shares one origin
@@ -302,45 +347,50 @@ def trace_blocks(gpu: TorchScene, ray_blocks, mode: str,
     Returns (outf, outi), each (Ts, 8, 128): outf row 0 = t (3e38 on a
     miss) or the occluded flag; outi row 0 = sorted-triangle id or -1,
     row 1 = blocks visited, row 5 = ray-triangle pairs each ray tested.
-    CUDA tensors launch the kernel; CPU tensors run the plain twin."""
-    coeff, cl_min, cl_max = _panels(gpu)
+    use_amask: apply the scene's alpha masks (closest mode, when the scene
+    has them).  CUDA tensors launch the kernel; CPU tensors run the plain
+    twin."""
+    coeff, cl_min, cl_max, amask = _panels(gpu, mode, use_amask)
     with record_function("v7.cull"):
         keys, id_mask = cull_keys(ray_blocks, cl_min, cl_max)
     with record_function(f"v7.{mode}"):
         if ray_blocks.device.type == "cuda":
-            return trace_keys_kernel(ray_blocks, keys, coeff, id_mask, mode, common)
+            return trace_keys_kernel(ray_blocks, keys, coeff, id_mask, mode, common, amask)
         if ray_blocks.device.type == "cpu":
-            return trace_keys_plain(ray_blocks, keys, coeff, id_mask, mode, common)
+            return trace_keys_plain(ray_blocks, keys, coeff, id_mask, mode, common, amask)
     raise ValueError(f"no v7 trace for device {ray_blocks.device}")
 
 
 trace_blocks.launches = 0
+trace_blocks.masked_launches = 0
 
 
 def trace_blocks_plain(gpu: TorchScene, ray_blocks, mode: str,
-                       common: str | None = None):
+                       common: str | None = None, use_amask: bool = False):
     """trace_blocks through the plain twin on any device (the reference
     the kernel is checked against on the card)."""
-    coeff, cl_min, cl_max = _panels(gpu)
+    coeff, cl_min, cl_max, amask = _panels(gpu, mode, use_amask)
     keys, id_mask = cull_keys(ray_blocks, cl_min, cl_max)
-    return trace_keys_plain(ray_blocks, keys, coeff, id_mask, mode, common)
+    return trace_keys_plain(ray_blocks, keys, coeff, id_mask, mode, common, amask)
 
 
-def _run(gpu, origins, dirs, t_min, t_max, mode, common, trace):
+def _run(gpu, origins, dirs, t_min, t_max, mode, common, trace, use_amask=False):
     r = origins.shape[0]
     t_min = intersect.as_per_ray(t_min, r, origins.device)
     t_max = intersect.as_per_ray(t_max, r, origins.device)
     rays, r_orig, _ = _pack_rays(origins, dirs, t_min, t_max)
-    outf, outi = trace(gpu, rays, mode, common=common)
+    outf, outi = trace(gpu, rays, mode, common=common, use_amask=use_amask)
     return outf[:, 0, :].reshape(-1)[:r_orig], outi[:, 0, :].reshape(-1)[:r_orig]
 
 
 def v7_closest(gpu, origins, dirs, t_min, t_max, common=None,
-               trace=trace_blocks) -> HitRecord:
+               trace=trace_blocks, use_amask: bool = False) -> HitRecord:
     """Closest triangle hits (pallas_closest).  Faces are in BVH order, so
     the sorted id is the face id; (u, v) are zeros — the surface resolver
-    recomputes them from the winning triangle."""
-    tb, kb = _run(gpu, origins, dirs, t_min, t_max, "closest", common, trace)
+    recomputes them from the winning triangle.  use_amask: reject hits in
+    definitely-transparent cells of the scene's alpha masks."""
+    tb, kb = _run(gpu, origins, dirs, t_min, t_max, "closest", common, trace,
+                  use_amask)
     zeros = torch.zeros_like(tb)
     return HitRecord(t=tb, prim_id=torch.where(kb >= 0, kb, -1), u=zeros, v=zeros)
 
@@ -353,14 +403,20 @@ def v7_occluded(gpu, origins, dirs, t_min, t_max, common=None,
 
 
 def make_v7_backend(gpu: TorchScene, cfg: RenderConfig,
-                    trace=trace_blocks) -> TraceBackend:
+                    trace=trace_blocks, use_amask: bool | None = None) -> TraceBackend:
     """The "pallas" backend.  trace: trace_blocks (kernel on CUDA, twin on
-    CPU) or trace_blocks_plain (twin everywhere, for comparisons)."""
+    CPU) or trace_blocks_plain (twin everywhere, for comparisons).
+    use_amask: closest traces apply the scene's alpha masks; None takes
+    the config's gate (backends.masks_enabled)."""
+    from realtimeraytracer_torch.render.backends import masks_enabled
+
     num_tris = gpu.num_tris
     num_spheres = gpu.num_spheres
+    if use_amask is None:
+        use_amask = masks_enabled(cfg)
 
     def closest(origins, dirs, t_min, t_max, common=None):
-        hit = v7_closest(gpu, origins, dirs, t_min, t_max, common, trace)
+        hit = v7_closest(gpu, origins, dirs, t_min, t_max, common, trace, use_amask)
         if num_spheres:
             sph = intersect.intersect_spheres(
                 origins, dirs, gpu.sph_center, gpu.sph_radius, t_min, t_max)

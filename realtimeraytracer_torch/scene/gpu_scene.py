@@ -1,11 +1,11 @@
 """TorchScene: the compiled, device-resident scene.
 
 Counterpart of realtimeraytracer_tpu/scene/gpu_scene.py (``GPUScene``), for
-the non-instanced, untextured scenes this port renders: the same leaves,
-names, shapes and dtypes, as tensors, the v9 repacked panels included.
-Textures, mips, alpha masks, the opaque/alpha panel split, refit ranges
-and the instancing tables are not carried; a scene that needs them raises
-where it is built.
+the non-instanced scenes this port renders: the same leaves, names, shapes
+and dtypes, as tensors, including the v9 repacked panels, the texture atlas
+and its packed-neighbour twin, and the alpha masks of both panel sets.  The
+mip atlas, the opaque/alpha panel split, refit ranges and the instancing
+tables are not carried; an instanced scene raises where it is built.
 """
 
 from __future__ import annotations
@@ -29,7 +29,8 @@ class TorchScene:
     obj_specular: torch.Tensor  # (O,) f32; roughness = 1 - specular
     obj_metallic: torch.Tensor  # (O,) f32
     obj_is_light: torch.Tensor  # (O,) i32
-    obj_tex: torch.Tensor       # (O, 4) i32, all -1 here
+    obj_tex: torch.Tensor       # (O, 4) i32 texture ids [color, specular,
+                                #   metallic, opacity], -1 = constant
     # analytic spheres
     sph_center: torch.Tensor    # (S, 3) f32
     sph_radius: torch.Tensor    # (S,) f32
@@ -73,6 +74,22 @@ class TorchScene:
     q_group_off: torch.Tensor | None = None     # (Cq*4,) i32
     vert_obj: torch.Tensor | None = None        # (V,) i32
     lt_obj: torch.Tensor | None = None          # (LT,) i32
+    # Texture atlas: textures padded to (S, S), true (h, w) in tex_size;
+    # T = 0 when the scene has none.  tex_atlas_packed carries each
+    # texel's 2x2 bilinear footprint (one gather per fetch).
+    tex_atlas: torch.Tensor | None = None         # (T, S, S, 4) f32
+    tex_size: torch.Tensor | None = None          # (T, 2) i32
+    tex_atlas_packed: torch.Tensor | None = None  # (T, S, S, 16) f32
+    # Conservative 8x8 barycentric alpha masks (ops/alpha_mask.py), laid
+    # out like the v7/v8 panels and, by repacked slot, like the v9 panels.
+    pallas_amask: torch.Tensor | None = None      # (CB, 2, 128) i32
+    q_amask: torch.Tensor | None = None           # (Cq, 2, 128) i32
+
+    @property
+    def has_textures(self) -> bool:
+        """Whether the scene has textures (then tex_atlas_packed, which the
+        samplers read, is there too)."""
+        return self.tex_atlas is not None and self.tex_atlas.shape[0] > 0
 
     @property
     def has_bvh(self) -> bool:
@@ -111,17 +128,14 @@ def from_numpy_leaves(leaves: dict[str, np.ndarray],
     e.g. the JAX package's ``GPUScene._asdict()`` passed through
     ``np.asarray`` — so both packages can render one compiled scene.
 
-    Leaves this port does not use are ignored; an instanced or textured
-    scene raises NotImplementedError rather than rendering wrongly."""
+    Leaves this port does not use are ignored; an instanced scene raises
+    NotImplementedError rather than rendering wrongly (compile it with
+    bake_instances=True)."""
     if leaves.get("inst_inv") is not None:
         raise NotImplementedError(
             "instanced scenes need the v8 kernel's instance level, which is "
-            "not ported yet (ROADMAP queue A, A4)")
-    atlas = leaves.get("tex_atlas")
-    if atlas is not None and np.shape(atlas)[0] > 0:
-        raise NotImplementedError(
-            "textured scenes need the texture atlas samplers, which are not "
-            "ported yet (ROADMAP queue A)")
-    kw = {name: torch.from_numpy(np.array(leaves[name], copy=True))
+            "not ported yet (ROADMAP queue A, A4); compile with "
+            "bake_instances=True")
+    kw = {name: torch.from_numpy(np.array(leaves[name], copy=True, order="C"))
           for name in LEAF_NAMES if leaves.get(name) is not None}
     return TorchScene(**kw).to(device)

@@ -1,20 +1,26 @@
 """Scene container and scene compilation (host scene -> TorchScene).
 
 Counterpart of realtimeraytracer_tpu/scene/scene.py (``Scene``,
-``Scene.compile`` on its non-instanced path, ``load_ltc_tables``): collect
-lights then objects into one world-space vertex/index pool (lights first,
-tlas.cppm:77-82), build the object and light tables, the LBVH, the v7 coefficient panels
-and, for scenes of at most RESIDENT_CB blocks, the v9 repacked panels
-(ops/repack.py), and attach the LTC LUTs.  The leaves equal the JAX
-compile's when both use the NumPy BVH builder.
+``Scene.compile`` on its non-instanced path, ``compile(bake_instances=True)``,
+``_pack_textures``, ``load_ltc_tables``): collect lights then objects into
+one world-space vertex/index pool (lights first, tlas.cppm:77-82), build
+the object and light tables (texture ids included), pack the textures into
+a padded atlas and its packed-neighbour twin, build the LBVH, the v7
+coefficient panels and, for scenes of at most RESIDENT_CB blocks, the v9
+repacked panels (ops/repack.py), the conservative alpha masks of both
+panel sets (ops/alpha_mask.py), and attach the LTC LUTs.  The leaves equal
+the JAX compile's when both use the NumPy BVH builder.
 
-Not ported yet (ROADMAP queue A): textures and mips, alpha masks,
-instancing (the JAX shared-geometry compile) and the native C++ BVH
-builder.  Scenes that need them raise.
+Not ported yet (ROADMAP queue A): the mip atlas, the shared-geometry
+instanced compile (instanced scenes compile only with
+bake_instances=True), and the native C++ BVH builder.  The opaque/alpha
+panel split of the JAX compile belongs to ``alpha_split``, which is not
+ported.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from pathlib import Path
 
@@ -46,15 +52,41 @@ def _transform_normals(mat: np.ndarray, nrm: np.ndarray) -> np.ndarray:
     return out / np.maximum(n, 1e-20)
 
 
+def _tex_id(ref) -> int:
+    if ref is None:
+        return -1
+    if isinstance(ref, int):
+        return ref
+    raise ValueError(
+        f"texture path {ref!r} not resolved: register it with add_texture "
+        "or load it through scene.obj_loader.load_obj_scene")
+
+
 def _mat_row(mat: Material, is_light: int, color=None):
-    maps = (mat.color_map, mat.specular_map, mat.metallic_map, mat.opacity_map)
-    if any(m is not None for m in maps):
-        raise NotImplementedError(
-            "texture maps are not ported yet (ROADMAP queue A)")
     c = color if color is not None else mat.color
     return (np.asarray(c, np.float32), np.float32(mat.specular),
             np.float32(mat.metallic), np.int32(is_light),
-            np.full(4, -1, np.int32))
+            np.array([_tex_id(mat.color_map), _tex_id(mat.specular_map),
+                      _tex_id(mat.metallic_map), _tex_id(mat.opacity_map)],
+                     np.int32))
+
+
+def _pack_textures(textures) -> tuple[np.ndarray, np.ndarray]:
+    """Pack variable-size textures into one padded (T, S, S, 4) stack and
+    their true (h, w) sizes; S is the largest side rounded up to a multiple
+    of 8.  No textures: a (0, 8, 8, 4) sentinel that lets consumers skip
+    texture sampling."""
+    if not textures:
+        return np.zeros((0, 8, 8, 4), np.float32), np.zeros((0, 2), np.int32)
+    s = max(max(t.shape[0], t.shape[1]) for t in textures)
+    s = max(8, -(-s // 8) * 8)
+    atlas = np.zeros((len(textures), s, s, 4), np.float32)
+    sizes = np.zeros((len(textures), 2), np.int32)
+    for i, t in enumerate(textures):
+        h, w = t.shape[:2]
+        atlas[i, :h, :w, : t.shape[2]] = t
+        sizes[i] = (h, w)
+    return atlas, sizes
 
 
 @dataclasses.dataclass
@@ -87,25 +119,68 @@ class Scene:
                 raise TypeError(f"cannot add {type(it)} to Scene")
         return self
 
+    def add_instances(self, mesh: TriangleMesh, transforms) -> "Scene":
+        """Instance one shared mesh at each (4, 4) transform
+        (geometry_builder.cppm:178-198 / tlas.cppm:60-67 parity)."""
+        for t in transforms:
+            self.instances.append(
+                MeshInstance(mesh=mesh, transform=np.asarray(t, np.float32)))
+        return self
+
+    def add_texture(self, image: np.ndarray) -> int:
+        """Register a texture (H, W, C) float [0,1]; returns its index.
+        Grey maps repeat to four channels, RGB gains alpha 1."""
+        img = np.asarray(image, np.float32)
+        if img.ndim == 2:
+            img = img[..., None]
+        if img.shape[-1] == 1:
+            img = np.repeat(img, 4, axis=-1)
+        elif img.shape[-1] == 3:
+            img = np.concatenate([img, np.ones_like(img[..., :1])], axis=-1)
+        self.textures.append(img)
+        return len(self.textures) - 1
+
     def compile(self, bvh_leaf_size: int = 4, bvh_threshold: int = 64,
-                quarter_panels: bool = True) -> TorchScene:
+                quarter_panels: bool = True,
+                bake_instances: bool = False) -> TorchScene:
         """Compile to a TorchScene on the CPU (``.to(device)`` moves it)."""
         return from_numpy_leaves(self.compile_leaves(
-            bvh_leaf_size, bvh_threshold, quarter_panels))
+            bvh_leaf_size, bvh_threshold, quarter_panels, bake_instances))
+
+    def _baked(self) -> "Scene":
+        """A copy whose instances are world-space meshes (transform =
+        instance transform @ mesh transform; the instance's material if it
+        has one)."""
+        baked = copy.copy(self)
+        baked.meshes = list(self.meshes)
+        baked.instances = []
+        for inst in self.instances:
+            m = inst.mesh
+            baked.meshes.append(TriangleMesh(
+                vertices=m.vertices, faces=m.faces, normals=m.normals,
+                uvs=m.uvs, material=inst.material or m.material,
+                transform=np.asarray(inst.transform, np.float32) @ m.transform,
+                name=inst.name or m.name))
+        return baked
 
     def compile_leaves(self, bvh_leaf_size: int = 4, bvh_threshold: int = 64,
-                       quarter_panels: bool = True) -> dict[str, np.ndarray]:
+                       quarter_panels: bool = True,
+                       bake_instances: bool = False) -> dict[str, np.ndarray]:
         """The compiled leaves as NumPy arrays (TorchScene field names).
         Builds the LBVH and v7 panels when the soup exceeds bvh_threshold
         triangles, and the v9 repacked panels too unless quarter_panels is
         False (the JAX compile always builds them; a route that runs no v9
-        trace skips the repack's host time)."""
+        trace skips the repack's host time).  Scenes with instances compile
+        only with bake_instances=True, which expands every instance into a
+        world-space copy (the JAX package's oracle for its instanced form)."""
         if self.instances:
-            raise NotImplementedError(
-                "instanced scenes are not ported yet (ROADMAP queue A)")
-        if self.textures:
-            raise NotImplementedError(
-                "textured scenes are not ported yet (ROADMAP queue A)")
+            if not bake_instances:
+                raise NotImplementedError(
+                    "the shared-geometry compile of instanced scenes is not "
+                    "ported yet (ROADMAP queue A, A4); compile with "
+                    "bake_instances=True")
+            return self._baked().compile_leaves(bvh_leaf_size, bvh_threshold,
+                                                quarter_panels)
         verts, norms, uvs, faces, face_obj, vert_obj = [], [], [], [], [], []
         obj_rows: list[tuple] = []
         lt_v0, lt_v1, lt_v2, lt_col, lt_int, lt_two, lt_obj = \
@@ -199,6 +274,14 @@ class Scene:
         hdri = np.ones((1, 1, 3), np.float32) if self.hdri is None else self.hdri
         ltc1, ltc2 = load_ltc_tables()
 
+        atlas, tex_size = _pack_textures(self.textures)
+        if len(self.textures):
+            from realtimeraytracer_torch.ops.texture import pack_atlas_neighbors_np
+
+            atlas_packed = pack_atlas_neighbors_np(atlas, tex_size)
+        else:
+            atlas_packed = np.zeros((0, 8, 8, 16), np.float32)
+
         if len(faces_arr) > bvh_threshold:
             from realtimeraytracer_torch.ops.bvh import build_bvh
             from realtimeraytracer_torch.scene.panels import pack_clusters_np
@@ -221,14 +304,32 @@ class Scene:
                 pallas_panels=panels, pallas_cl_min=p_lo, pallas_cl_max=p_hi)
             # SAH-repacked v9 panels: only where the hybrid route can send
             # traces to v9, and only if the repacked table fits as well.
+            q_slots = None
             if quarter_panels and panels.shape[0] <= RESIDENT_CB:
                 from realtimeraytracer_torch.ops.repack import build_q_panels_np
 
-                qp, q_lo, q_hi, q_off, _ = build_q_panels_np(
+                qp, q_lo, q_hi, q_off, q_slots = build_q_panels_np(
                     bvh.tri_v0, bvh.tri_v1, bvh.tri_v2)
                 if qp.shape[0] <= RESIDENT_CB:
                     bvh_fields.update(q_panels=qp, q_cl_min=q_lo,
                                       q_cl_max=q_hi, q_group_off=q_off)
+                else:
+                    q_slots = None
+            # Conservative barycentric alpha masks aligned with both panel
+            # sets: v9's by repacked slot, pad lanes 0.
+            face_tex = ot[face_obj_arr, 3]
+            if (face_tex >= 0).any():
+                from realtimeraytracer_torch.config import RenderConfig
+                from realtimeraytracer_torch.ops.alpha_mask import (
+                    build_face_masks_np, pack_amask_np)
+
+                fmasks = build_face_masks_np(
+                    uv_arr[faces_arr[:, 0]], uv_arr[faces_arr[:, 1]],
+                    uv_arr[faces_arr[:, 2]], face_tex, atlas[..., 0],
+                    tex_size, RenderConfig.alpha_threshold)
+                bvh_fields.update(pallas_amask=pack_amask_np(fmasks, panels.shape[0]))
+                if q_slots is not None:
+                    bvh_fields.update(q_amask=pack_amask_np(fmasks, qp.shape[0], q_slots))
         else:
             z3 = np.zeros((1, 3), np.float32)
             z1 = np.zeros(1, np.int32)
@@ -253,4 +354,5 @@ class Scene:
             sun_intensity=np.asarray(sun_int, np.float32),
             hdri=np.asarray(hdri, np.float32),
             env_color=np.asarray(self.env_color, np.float32),
-            ltc1=ltc1, ltc2=ltc2, **bvh_fields)
+            ltc1=ltc1, ltc2=ltc2, tex_atlas=atlas, tex_size=tex_size,
+            tex_atlas_packed=atlas_packed, **bvh_fields)

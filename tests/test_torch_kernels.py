@@ -6,6 +6,8 @@ jax (whose tests/conftest.py cannot load):
     python -m pytest --noconftest tests/test_torch_kernels.py -q
 
 Tests marked ``cuda`` need an NVIDIA GPU and nvcc and skip without a GPU.
+The masked variants (alpha masks in closest mode) are held to their twins
+by the same rule on a soup of alpha-mapped triangles.
 Tolerances: v7, v8 and v9 hit masks and occluded flags equal, t to rtol
 1e-6 and ids equal or t equal (kernel and twin round alike: no multiply-add
 contraction on either side); v8 hints as in tests/test_torch_hier.py; the A-Trous pair rtol 1e-5, atol 1e-6 (expf and the
@@ -29,6 +31,7 @@ from realtimeraytracer_torch.render.backends import make_hybrid_backend
 from realtimeraytracer_torch.render.megakernel import render_components
 from realtimeraytracer_torch.render.pipeline import render_pipeline_gpu
 from realtimeraytracer_torch.scene.geometry import TriangleMesh
+from realtimeraytracer_torch.scene.materials import Material
 from realtimeraytracer_torch.scene.scene import Scene
 
 torch.set_num_threads(2)
@@ -51,6 +54,21 @@ def _soup_scene(n=1000, seed=0):
     s = Scene()
     s.add(TriangleMesh(vertices=tris.reshape(-1, 3),
                        faces=np.arange(3 * n, dtype=np.int32).reshape(n, 3)))
+    return s.compile(bvh_threshold=0)
+
+
+def _alpha_soup_scene(n=1000, seed=0):
+    """A soup of triangles with random uvs and one blocky opacity map, so
+    that the alpha masks hold both 0 and 1 cells."""
+    r = np.random.default_rng(seed)
+    tris = (r.uniform(-4, 4, (n, 1, 3)) + r.normal(0, 0.6, (n, 3, 3))).astype(np.float32)
+    s = Scene()
+    coarse = (r.random((4, 4)) > 0.5).astype(np.float32)
+    tex = s.add_texture(np.kron(coarse, np.ones((8, 8), np.float32)))
+    s.add(TriangleMesh(vertices=tris.reshape(-1, 3),
+                       faces=np.arange(3 * n, dtype=np.int32).reshape(n, 3),
+                       uvs=r.uniform(0, 1, (3 * n, 2)).astype(np.float32),
+                       material=Material(opacity_map=tex)))
     return s.compile(bvh_threshold=0)
 
 
@@ -277,6 +295,88 @@ def test_hybrid_frame_kernels_match_twins(cuda):
     counts = [c.launches - b for c, b in zip(counters, before)]
     assert counts == [0, 2, 2 * (2 * 2 + 1), 4]
     plain = make_hybrid_backend(gpu, cfg, plain=True)
+    with torch.inference_mode():
+        comp = render_components(gpu, frame, cfg, 0, backend=plain)
+        s, u = comp.shadowed, comp.unshadowed
+        for i in range(4):
+            s, u = atrous_pair_iteration_plain(s, u, comp.normal, comp.position, i + 1, *PHIS)
+        img_p = ratio_combine(comp.analytic, s, u).cpu().numpy()
+    assert np.isfinite(img_k).all() and img_k.std() > 0
+    assert (np.abs(img_k - img_p) > 2e-3).mean() < 5e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["v7", "v9", "v8"])
+@pytest.mark.parametrize("common", [None, "origin", "dir"])
+def test_masked_kernels_match_twins(cuda, kernel, common):
+    """Each kernel's masked variant against its masked twin; the masks
+    reject some hits the unmasked kernel keeps."""
+    gpu = _alpha_soup_scene().to(cuda)
+    rays = _ray_tiles(common, 8, cuda, n=1000)
+    if kernel == "v7":
+        keys, id_mask = v7.cull_keys(rays, gpu.pallas_cl_min, gpu.pallas_cl_max)
+        args = (rays, keys, gpu.pallas_panels, id_mask, "closest", common)
+        amask, counter = gpu.pallas_amask, v7.trace_blocks
+        launch, twin = v7.trace_keys_kernel, v7.trace_keys_plain
+    elif kernel == "v9":
+        keys, id_mask = v7.cull_quarter_keys(rays, gpu.q_cl_min, gpu.q_cl_max)
+        args = (rays, keys, gpu.q_panels, gpu.q_group_off, id_mask, common)
+        amask, counter = gpu.q_amask, qb.trace_blocks_quarter
+        launch, twin = qb.trace_quarter_kernel, qb.trace_quarter_plain
+    else:
+        coeff, sup, blk, nsup = hb._hier_inputs(gpu)
+        args = (rays, sup, blk, coeff, nsup, "closest", common, None)
+        amask, counter = gpu.pallas_amask, hb.trace_blocks_hier
+        launch, twin = hb.trace_hier_kernel, hb.trace_hier_plain
+    before = (counter.launches, counter.masked_launches)
+    k = launch(*args, amask=amask)
+    assert (counter.launches, counter.masked_launches) == (before[0], before[1] + 1)
+    p = twin(*args, amask=amask)
+    _same_closest(k, p)
+    unmasked = launch(*args)
+    assert bool((unmasked[1][:, 0] != k[1][:, 0]).any())
+    if kernel == "v8":
+        counted = launch(*args, count=True, amask=amask)
+        assert torch.equal(counted[0][:, 0], k[0][:, 0]) and torch.equal(counted[1][:, 0], k[1][:, 0])
+
+
+@pytest.mark.cuda
+def test_masked_kernels_refuse_occlusion(cuda):
+    gpu = _alpha_soup_scene(200).to(cuda)
+    rays = _ray_tiles(None, 3, cuda)
+    keys, id_mask = v7.cull_keys(rays, gpu.pallas_cl_min, gpu.pallas_cl_max)
+    with pytest.raises(ValueError, match="closest"):
+        v7.trace_keys_kernel(rays, keys, gpu.pallas_panels, id_mask, "occluded",
+                             amask=gpu.pallas_amask)
+    coeff, sup, blk, nsup = hb._hier_inputs(gpu)
+    with pytest.raises(ValueError, match="closest"):
+        hb.trace_hier_kernel(rays, sup, blk, coeff, nsup, "occluded", amask=gpu.pallas_amask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["auto", "pallas"])
+def test_alpha_frame_kernels_match_twins(cuda, backend):
+    """textured_obj's alpha-tested frame: masked kernels on both routes,
+    against the same ladder over the plain twins."""
+    from realtimeraytracer_torch.render.alpha import wrap_backend_with_alpha
+
+    scene = scenes.textured_obj()
+    gpu = scene.compile().to(cuda)
+    cfg = RenderConfig(width=64, height=36, primary_rays=1, shadow_rays=2,
+                       denoise_iterations=4, alpha_test=True, backend=backend,
+                       sort_shadows_min_rays=0)
+    frame = scene.camera.viewport_frame(64, 36, device=cuda)
+    counters = (v7.trace_blocks, qb.trace_blocks_quarter, hb.trace_blocks_hier)
+    before = [c.masked_launches for c in counters]
+    img_k = render_pipeline_gpu(gpu, frame, cfg).cpu().numpy()
+    masked = [c.masked_launches - b for c, b in zip(counters, before)]
+    if backend == "auto":
+        assert masked[0] == 0 and masked[1] >= 2 and masked[2] >= 2 * 4
+        plain = make_hybrid_backend(gpu, cfg, plain=True)
+    else:
+        assert masked[0] >= 2 + 2 * 4 and masked[1] == masked[2] == 0
+        plain = v7.make_v7_backend(gpu, cfg, trace=v7.trace_blocks_plain)
+    plain = wrap_backend_with_alpha(plain, gpu, cfg)
     with torch.inference_mode():
         comp = render_components(gpu, frame, cfg, 0, backend=plain)
         s, u = comp.shadowed, comp.unshadowed

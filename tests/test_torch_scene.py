@@ -64,37 +64,45 @@ def test_from_numpy_leaves_roundtrip(monkeypatch):
 
 
 def test_unported_scene_features_raise(monkeypatch):
+    """Textured scenes compile since the third slice; the instanced
+    (shared-geometry) compile still raises until ROADMAP A4, on JAX leaves
+    and in the port's own compile, unless the instances are baked."""
     tex = JaxScene()
     idx = tex.add_texture(np.ones((4, 4, 3), np.float32))
     tex.add(JaxMesh(vertices=np.eye(3, dtype=np.float32), faces=np.array([[0, 1, 2]]),
                     material=JaxMaterial(color_map=idx)))
-    with pytest.raises(NotImplementedError):
-        from_numpy_leaves(_jax_leaves(tex, monkeypatch))
+    assert from_numpy_leaves(_jax_leaves(tex, monkeypatch)).has_textures
     inst = JaxScene().add_instances(
         JaxMesh(vertices=np.eye(3, dtype=np.float32), faces=np.array([[0, 1, 2]])),
         [np.eye(4, dtype=np.float32)])
     with pytest.raises(NotImplementedError):
         from_numpy_leaves(_jax_leaves(inst, monkeypatch))
-    mapped = scenes.sphere_plane().add(TriangleMesh(
-        vertices=np.eye(3, dtype=np.float32), faces=np.array([[0, 1, 2]]),
-        material=Material(color_map=0)))
-    with pytest.raises(NotImplementedError):
+    mapped = scenes.sphere_plane()
+    mapped.add_texture(np.ones((4, 4, 3), np.float32))
+    mapped.add(TriangleMesh(vertices=np.eye(3, dtype=np.float32), faces=np.array([[0, 1, 2]]),
+                            material=Material(color_map=0)))
+    assert mapped.compile().obj_tex[:, 0].max() == 0
+    mapped.add_instances(mapped.meshes[-1], [np.eye(4, dtype=np.float32)])
+    with pytest.raises(NotImplementedError, match="bake_instances"):
         mapped.compile()
+    assert mapped.compile(bake_instances=True).num_tris == 4
 
 
 @pytest.mark.parametrize("backend", ["wide", "hier", "quarter", "hybrid"])
 def test_unported_backends_raise(backend):
     """Only the wide XLA backend has no port; the v8, v9 and hybrid
-    backends build, and raise for the alpha-tested any-hit none of them
-    has yet."""
+    backends build, with alpha testing too (on a scene without opacity
+    maps the alpha ladder leaves the backend as it is)."""
     gpu = scenes.procedural_mesh(200).compile()
     if backend == "wide":
         with pytest.raises(NotImplementedError):
             make_backend(gpu, RenderConfig(backend=backend))
         return
-    assert make_backend(gpu, RenderConfig(backend=backend)).num_tris == gpu.num_tris
-    with pytest.raises(NotImplementedError, match="alpha"):
-        make_backend(gpu, RenderConfig(backend=backend, alpha_test=True))
+    plain = make_backend(gpu, RenderConfig(backend=backend))
+    assert plain.num_tris == gpu.num_tris
+    alpha = make_backend(gpu, RenderConfig(backend=backend, alpha_test=True))
+    assert alpha.num_tris == gpu.num_tris
+    assert (alpha.occluded_hinted is None) == (plain.occluded_hinted is None)
 
 
 @pytest.mark.parametrize("field", sorted(UNPORTED_FIELDS))
@@ -121,5 +129,16 @@ def test_backend_resolution():
     assert resolve_backend_kind(bvh, RenderConfig(use_bvh=False)) == "brute"
     assert resolve_backend_kind(small, RenderConfig()) == "brute"
     assert resolve_backend_kind(small, RenderConfig(backend="pallas")) == "brute"
+    assert resolve_backend_kind(bvh, RenderConfig(alpha_test=True)) == "hybrid"
     with pytest.raises(NotImplementedError):
-        resolve_backend_kind(bvh, RenderConfig(alpha_test=True))
+        resolve_backend_kind(bvh, RenderConfig(backend="wide"))
+
+
+@pytest.mark.parametrize("field,value", [
+    ("alpha_rounds", 2), ("alpha_threshold", 0.95), ("serialize_shadow_samples", True),
+    ("serialize_shadow_samples", False), ("alpha_test", True)])
+def test_alpha_fields_are_supported(field, value):
+    """The alpha-tested frame reads these fields; serialize_shadow_samples
+    is read and has nothing to fence in eager PyTorch."""
+    assert field not in UNPORTED_FIELDS
+    check_supported(RenderConfig(**{field: value}))
