@@ -47,8 +47,26 @@ Phases, each of which ends the run with a non-zero exit on failure:
      also through the "pallas" route: launches per kernel, host syncs,
      frame time, peak memory, the two routes' images compared;
  15. a 160x90 alpha-tested foliage frame through the kernels and through
-     the twins.
-Each main-path frame (5, 9 and 14) is driven with every kernel's launch
+     the twins;
+ 16. scenes.foliage_field() compiled in its shared-geometry (instanced)
+     form: instances, (instance, super) pairs, pool blocks, host compile
+     time, and the device bytes of the instanced scene beside the baked one;
+ 17. the instanced v8 kernel against its twin: closest (masked and not) on
+     320x180 primaries, occluded on area-light and sun segments from their
+     hits; then 1080p primaries through the instanced kernel against the
+     baked scene's v9 kernel on the same rays (t and object), with times,
+     launches and bounds;
+ 18. the instanced foliage through the entry points: rt.render(scene, cfg)
+     with the reference defaults (no alpha test: no mesh of the scene has
+     an opacity map; default device and backend), and the alpha-tested
+     1080p frame through render_pipeline_gpu(..., alpha_test=True): launches
+     per kernel (only the instanced v8 kernels and A-Trous), host syncs,
+     frame time, peak memory, the image against the baked frame of 14;
+ 19. a 160x90 instanced alpha frame through the kernels and through the
+     twins;
+ 20. apply_instance_transforms on the card: the moved instances traced
+     against a fresh instanced compile at the moved transforms.
+Each main-path frame (5, 9, 14 and 18) is driven with every kernel's launch
 count set to 0 just before and read just after.  The line before the last is a
 JSON object describing each kernel (times, launches, error, bound); the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -57,6 +75,7 @@ without the package beside it, the script fails before printing either.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -94,6 +113,21 @@ def cuda_ms(fn, reps: int):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps, out
+
+
+def once_ms(fn):
+    """(milliseconds of one call of fn by CUDA events, its result): for the
+    plain twins that take seconds."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
 
 
 def image_rule(img: np.ndarray, ref: np.ndarray, what: str) -> float:
@@ -144,6 +178,10 @@ OPS_PER_PAIR = {None: 47, "origin": 29, "dir": 32}
 # axis two subtractions, two multiplications, a min and a max (18), the
 # near/far combine (4), four compares and max(near, 0).
 SLAB_OPS = 27
+# f32 operations per mesh-space transform of a ray in the instanced v8
+# kernel: origin rows 3 x (3 mul + 3 add), direction rows 3 x (3 mul + 2
+# add), three |d| tests (6) and three reciprocals (3).
+TRANSFORM_OPS = 42
 
 
 def nbytes(*tensors) -> int:
@@ -160,14 +198,18 @@ def trace_bound(outi, common, moved: int) -> tuple[tuple[float, str], int]:
     """A traversal call's (bound, pairs).  Operations: the ray-triangle
     pairs its rays tested (outi row 5: live rays only, up to the first hit
     in occluded mode) x the pair ops, plus v8's slab tests (outi row 6,
-    zero in v7 and v9) x SLAB_OPS.  The tile-shared dot products of a
-    common origin or direction (under 1% more) are left out."""
+    zero in v7 and v9) x SLAB_OPS, plus the instanced v8's mesh-space
+    transforms (outi row 7, zero elsewhere) x TRANSFORM_OPS.  The
+    tile-shared dot products of a common origin or direction (under 1%
+    more) are left out."""
     visits = int(outi[:, 1, 0].sum().item())
     pairs = int(outi[:, 5].sum().item())
     slabs = int(outi[:, 6].sum().item())
+    transforms = int(outi[:, 7].sum().item())
     require(0 < pairs <= visits * 128 * 128,
             f"pair count {pairs} outside (0, {visits} visits x 128 x 128]")
-    return bound(pairs * OPS_PER_PAIR[common] + slabs * SLAB_OPS, moved), pairs
+    return bound(pairs * OPS_PER_PAIR[common] + slabs * SLAB_OPS + transforms * TRANSFORM_OPS,
+                 moved), pairs
 
 
 def atrous_bound(h: int, w: int, iterations: int) -> tuple[float, str]:
@@ -197,6 +239,7 @@ def main() -> int:
     from realtimeraytracer_torch.ops.denoise_kernel import (
         atrous_denoise_pair, atrous_pair_iteration_kernel, atrous_pair_iteration_plain)
     from realtimeraytracer_torch.ops.denoise import ratio_combine
+    from realtimeraytracer_torch.ops.refit import apply_instance_transforms
     from realtimeraytracer_torch.render import hier_backend as v8
     from realtimeraytracer_torch.render import quarter_backend as v9
     from realtimeraytracer_torch.render import v7_backend as v7
@@ -213,7 +256,9 @@ def main() -> int:
                 "atrous_pair": (atrous_denoise_pair, "launches"),
                 "trace_v7_masked": (v7.trace_blocks, "masked_launches"),
                 "trace_v9_masked": (v9.trace_blocks_quarter, "masked_launches"),
-                "trace_v8_masked": (v8.trace_blocks_hier, "masked_launches")}
+                "trace_v8_masked": (v8.trace_blocks_hier, "masked_launches"),
+                "trace_v8_inst": (v8.trace_blocks_hier, "launches_inst"),
+                "trace_v8_inst_masked": (v8.trace_blocks_hier, "masked_launches_inst")}
 
     def zero_counts() -> None:
         for c, attr in counters.values():
@@ -224,7 +269,8 @@ def main() -> int:
 
     def unmasked(**kw) -> dict:
         """Expected counts of an opaque frame: the masked variants unused."""
-        return {**kw, "trace_v7_masked": 0, "trace_v9_masked": 0, "trace_v8_masked": 0}
+        return {**kw, "trace_v7_masked": 0, "trace_v9_masked": 0, "trace_v8_masked": 0,
+                "trace_v8_inst": 0, "trace_v8_inst_masked": 0}
 
     # ---- 1. environment -------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -715,9 +761,11 @@ def main() -> int:
     # ---- 14. the alpha-tested frames ---------------------------------------
     expect_kernels = {"auto": ("trace_v9_masked", "trace_v8_masked"),
                       "hybrid": ("trace_v9_masked", "trace_v8_masked"),
-                      "pallas": ("trace_v7_masked",)}
+                      "pallas": ("trace_v7_masked",),
+                      "instanced": ("trace_v8_inst",),
+                      "instanced alpha": ("trace_v8_inst_masked",)}
 
-    def alpha_frame(what, backend, render, timed, again=None):
+    def alpha_frame(what, backend, render, timed, again=None, phase="14"):
         """Render once with every count zeroed just before and read just
         after; then time `again` (default: render) by CUDA events, median
         of `timed` runs after a discarded warm-up."""
@@ -734,14 +782,14 @@ def main() -> int:
         syncs = wrap_backend_with_alpha.syncs - syncs0
         rounds = wrap_backend_with_alpha.rounds - rounds0
         peak = torch.cuda.max_memory_allocated() / 2**30
-        require(img_t.device.type == "cuda", f"[14] {what}: rendered on {img_t.device}")
+        require(img_t.device.type == "cuda", f"[{phase}] {what}: rendered on {img_t.device}")
         for name, n in counts.items():
             used = name in expect_kernels[backend] or name == "atrous_pair"
-            require((n > 0) == used, f"[14] {what}: {name} launched {n} times")
-        require(counts["atrous_pair"] == 4, f"[14] {what}: {counts['atrous_pair']} A-Trous launches")
+            require((n > 0) == used, f"[{phase}] {what}: {name} launched {n} times")
+        require(counts["atrous_pair"] == 4, f"[{phase}] {what}: {counts['atrous_pair']} A-Trous launches")
         out = img_t.cpu().numpy()
-        require(out.shape == (H, W, 3) and bool(np.isfinite(out).all()), f"[14] {what}: bad image")
-        require(float(out.std()) > 1e-3, f"[14] {what}: constant image")
+        require(out.shape == (H, W, 3) and bool(np.isfinite(out).all()), f"[{phase}] {what}: bad image")
+        require(float(out.std()) > 1e-3, f"[{phase}] {what}: constant image")
         again = again or render
         again()                                             # warm-up, discarded
         times = []
@@ -753,7 +801,7 @@ def main() -> int:
             b.synchronize()
             times.append(a.elapsed_time(b))
         ms = statistics.median(times)
-        say(f"[14] {what}: {wall:.2f} s wall for the first frame; launches {counts}; host syncs "
+        say(f"[{phase}] {what}: {wall:.2f} s wall for the first frame; launches {counts}; host syncs "
             f"{syncs}, ladder rounds run {rounds}; peak memory {peak:.3f} GiB, of which "
             f"{held / 2**30:.3f} GiB were held before; frame {ms:.2f} ms (median of {timed}, "
             f"all {[round(x, 2) for x in times]}) ({card})")
@@ -799,6 +847,169 @@ def main() -> int:
     say(f"[15] 160x90 alpha-tested foliage frame kernels vs plain: {share:.6%} of values differ "
         f"by > 2e-3, max |err| {np.abs(img_k - img_p).max()}")
 
+    # ---- 16. the instanced (shared-geometry) foliage -----------------------
+    t0 = time.perf_counter()
+    fol_i = fol_scene.compile().to(dev)
+    t_fol_i = time.perf_counter() - t0
+    require(fol_i.instanced and fol_i.pallas_amask is not None, "[16] foliage: not instanced, or no masks")
+    n_pairs = int(fol_i.pair_tab[:, 3].sum())
+
+    def scene_bytes(g) -> int:
+        return sum(nbytes(getattr(g, f.name)) for f in dataclasses.fields(g)
+                   if getattr(g, f.name) is not None)
+
+    say(f"[16] foliage_field instanced: {fol_i.inst_inv.shape[0]} instances, {n_pairs} (instance, super) "
+        f"pairs on {fol_i.pair_panel.shape[0]} pages, {fol_i.pallas_panels.shape[0]} pool blocks in "
+        f"{fol_i.blk_panel.shape[0]} blk rows, pallas_amask {tuple(fol_i.pallas_amask.shape)}; host compile "
+        f"{t_fol_i:.2f} s (baked: {t_fol:.2f} s); device bytes {scene_bytes(fol_i)} instanced, "
+        f"{scene_bytes(fol)} baked")
+
+    # ---- 17. the instanced v8 kernel vs its twin ----------------------------
+    iargs = v8._inst_args(fol_i)
+
+    def compare_instances(k, p, what):
+        """Instance ids (outi row 2) equal, or else the two t equal."""
+        same = (k[1][:, 2] == p[1][:, 2]) | (k[0][:, 0] == p[0][:, 0])
+        require(bool(same.all()), f"{what}: instance ids differ with unequal t on {int((~same).sum())} rays")
+        require(bool((k[1][:, 2][k[1][:, 0] < 0] == -1).all()), f"{what}: a miss carries an instance")
+
+    def inst_both(rays, mode, amask=None):
+        k = v8.trace_hier_inst_kernel(rays, *iargs, mode, amask=amask)
+        p = v8.trace_hier_inst_plain(rays, *iargs, mode, amask)
+        torch.cuda.synchronize()
+        return k, p
+
+    sprim = v7._pack_rays(*scene_primaries(fol_scene, 320, 180))[0]
+    k, p = inst_both(sprim, "closest")
+    vi_err = compare_closest(k, p, "[17] instanced closest, 320x180 primaries")
+    compare_instances(k, p, "[17] instanced closest")
+    k320 = k
+    k_m, p_m = inst_both(sprim, "closest", fol_i.pallas_amask)
+    vim_err = compare_closest(k_m, p_m, "[17] instanced masked closest, 320x180 primaries")
+    compare_instances(k_m, p_m, "[17] instanced masked closest")
+    so = sprim[:, 0:3].permute(0, 2, 1).reshape(-1, 3)
+    sd = sprim[:, 3:6].permute(0, 2, 1).reshape(-1, 3)
+    shit = k[1][:, 0].reshape(-1) >= 0
+    sp = so + sd * torch.where(shit, k[0][:, 0].reshape(-1), 0.0)[:, None] - sd * 1e-3
+    g = np.random.default_rng(17)
+    ab = torch.from_numpy(g.uniform(0, 0.5, (sp.shape[0], 2)).astype(np.float32)).to(dev)
+    l0, l1, l2 = fol_i.lt_v0[0], fol_i.lt_v1[0], fol_i.lt_v2[0]
+    delta = l0 + ab[:, :1] * (l1 - l0) + ab[:, 1:] * (l2 - l0) - sp
+    dist = delta.norm(dim=1)
+    big = torch.full_like(dist, 3.0e38)
+    iseg = v7._pack_rays(sp, delta / dist[:, None], torch.where(shit, 1e-3, big),
+                         torch.where(shit, dist - 0.5, -big))[0]
+    isun = v7._pack_rays(sp, fol_i.sun_direction.expand_as(sp).contiguous(),
+                         torch.where(shit, 1e-3, big), torch.where(shit, 1e4, -big))[0]
+    vi_err = max(vi_err, compare_occluded(*inst_both(iseg, "occluded"),
+                                          "[17] instanced occluded, area-light segments"))
+    vi_err = max(vi_err, compare_occluded(*inst_both(isun, "occluded"), "[17] instanced occluded, sun"))
+
+    # 1080p primaries (fo, fd of phase 12): instanced kernel vs its twin,
+    # timed, and against the baked scene's v9 kernel on the same rays.
+    inst_rows = {}
+    for masked in (False, True):
+        am = fol_i.pallas_amask if masked else None
+        what = "masked closest" if masked else "closest"
+        km, k = cuda_ms(lambda: v8.trace_hier_inst_kernel(fprim, *iargs, "closest", amask=am), 3)
+        pm, p = once_ms(lambda: v8.trace_hier_inst_plain(fprim, *iargs, "closest", am))
+        err = compare_closest(k, p, f"[17] instanced {what}, 1080p primaries")
+        compare_instances(k, p, f"[17] instanced {what}, 1080p")
+        kc = v8.trace_hier_inst_kernel(fprim, *iargs, "closest", count=True, amask=am)
+        require(torch.equal(kc[0][:, 0], k[0][:, 0]) and torch.equal(kc[1][:, 0:3], k[1][:, 0:3]),
+                f"[17] instanced {what}: the counting variant's results differ")
+        b, pairs = trace_bound(kc[1], None, nbytes(fprim, *iargs) + (0 if am is None else nbytes(am))
+                               + 5 * fprim.shape[0] * 128 * 4)
+        inst_rows[masked] = (km, pm, err, b, k)
+        say(f"[17] instanced {what}, 1080p foliage primaries: kernel {km:.3f} ms, plain {pm:.3f} ms; "
+            f"{int(k[1][:, 1, 0].sum())} visits, {int(k[0][:, 1, 0].sum())} pairs popped, {pairs} "
+            f"ray-triangle pairs, {int(kc[1][:, 6].sum())} slab tests, {int(kc[1][:, 7].sum())} "
+            f"transforms, bound {b[0]:.4f} ms by {b[1]} ({card})")
+    vi_err = max(vi_err, inst_rows[False][2])
+    vim_err = max(vim_err, inst_rows[True][2])
+    ki = inst_rows[False][4]
+    ti, tb = ki[0][:, 0].flatten(), v9_open[0][:, 0].flatten()
+    ii, ib = ki[1][:, 0].flatten(), v9_open[1][:, 0].flatten()
+    hi_, hb_ = ii >= 0, ib >= 0
+    both = hi_ & hb_
+    tol = torch.clamp(tb * 1e-4, min=1e-3)
+    t_ok = (ti - tb).abs() <= tol
+    obj_i = fol_i.inst_obj[ki[1][:, 2].flatten().clamp(min=0).long()]
+    obj_b = fol.face_obj[ib.clamp(min=0).long()]
+    mask_off = int((hi_ != hb_).sum())
+    t_off = int((both & ~t_ok).sum())
+    obj_off = int((both & t_ok & (obj_i != obj_b)).sum())
+    n_rays = int(hi_.numel())
+    say(f"[17] instanced vs baked v9 on the 1080p primaries: {int(both.sum())} both hit, hit masks differ on "
+        f"{mask_off}, |dt| > max(1e-3, 1e-4 t) on {t_off}, objects differ within the t bound on {obj_off} "
+        f"of {n_rays} rays")
+    require(max(mask_off, t_off, obj_off) <= 1e-3 * n_rays,
+            "[17] instanced and baked traces disagree on more than 0.1% of rays")
+
+    # ---- 18. the instanced foliage frames ------------------------------------
+    cfg18 = rt.RenderConfig(width=W, height=H, primary_rays=4, shadow_rays=3, denoise_iterations=4)
+    frames18 = {}
+    frames18["defaults"] = alpha_frame(
+        "foliage_field instanced, rt.render(scene, cfg), default device and backend, reference "
+        "defaults (alpha_test None: off)", "instanced", lambda: rt.render(fol_scene, cfg18), 1,
+        again=lambda: render_pipeline_gpu(fol_i, ffr, cfg18), phase="18")
+    frames18["alpha"] = alpha_frame(
+        "foliage_field instanced, render_pipeline_gpu, alpha_test=True, default backend",
+        "instanced alpha", lambda: render_pipeline_gpu(fol_i, ffr, cfg_f), 3, phase="18")
+    share18 = image_rule(frames18["alpha"][0], frames14["foliage hybrid"][0],
+                         "[18] instanced vs baked alpha-tested foliage frame")
+    say(f"[18] instanced and baked (hybrid) alpha-tested frames differ by > 2e-3 in {share18:.6%} of "
+        f"values, max |err| {np.abs(frames18['alpha'][0] - frames14['foliage hybrid'][0]).max()}; frame "
+        f"{frames18['alpha'][2]:.2f} ms instanced, {frames14['foliage hybrid'][2]:.2f} ms baked ({card})")
+
+    # ---- 19. small instanced alpha frame, kernels vs plain twins -------------
+    img_k = render_pipeline_gpu(fol_i, frame15, cfg15).cpu().numpy()
+    with torch.inference_mode():
+        plain = wrap_backend_with_alpha(
+            v8.make_hier_backend(fol_i, cfg15, trace=v8.trace_blocks_hier_plain), fol_i, cfg15)
+        comp = render_components(fol_i, frame15, cfg15, 0, backend=plain)
+        s_, u_ = comp.shadowed, comp.unshadowed
+        for i in range(cfg15.denoise_iterations):
+            s_, u_ = atrous_pair_iteration_plain(s_, u_, comp.normal, comp.position, i + 1, *phis6)
+        img_p = ratio_combine(comp.analytic, s_, u_).cpu().numpy()
+    share = image_rule(img_k, img_p, "[19] 160x90 instanced alpha frame, kernels vs plain")
+    say(f"[19] 160x90 instanced alpha-tested foliage frame kernels vs plain: {share:.6%} of values "
+        f"differ by > 2e-3, max |err| {np.abs(img_k - img_p).max()}")
+
+    # ---- 20. apply_instance_transforms on the card ----------------------------
+    shift = np.array([0.35, 0.0, -0.25], np.float32)
+    moved_scene = dataclasses.replace(fol_scene, instances=[
+        dataclasses.replace(inst, transform=np.asarray(inst.transform, np.float32)
+                            + np.pad(shift[:, None], ((0, 1), (3, 0))))
+        for inst in fol_scene.instances])
+    rows = ([np.eye(4, dtype=np.float32)] * len(fol_scene.area_lights)
+            + [np.asarray(m.transform, np.float32) for m in fol_scene.meshes]
+            + [np.asarray(i.transform, np.float32) @ np.asarray(i.mesh.transform, np.float32)
+               for i in moved_scene.instances])
+    table = torch.from_numpy(np.stack(rows)).to(dev)
+    refit_ms, moved = cuda_ms(lambda: apply_instance_transforms(fol_i, table), 5)
+    fresh = moved_scene.compile().to(dev)
+    require(bool(torch.equal(fresh.pair_tab, moved.pair_tab)), "[20] pair tables differ")
+    torch.testing.assert_close(moved.inst_fwd, fresh.inst_fwd, rtol=0, atol=0)
+    torch.testing.assert_close(moved.inst_inv, fresh.inst_inv, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(moved.pair_panel, fresh.pair_panel, rtol=1e-5, atol=1e-4)
+    margs, fargs = v8._inst_args(moved), v8._inst_args(fresh)
+    km = v8.trace_hier_inst_kernel(sprim, *margs, "closest")
+    kf = v8.trace_hier_inst_kernel(sprim, *fargs, "closest")
+    hm, hf = km[1][:, 0] >= 0, kf[1][:, 0] >= 0
+    both = hm & hf
+    t_off = int((both & ((km[0][:, 0] - kf[0][:, 0]).abs() > torch.clamp(kf[0][:, 0] * 1e-4, min=1e-3))).sum())
+    inst_off = int((both & (km[0][:, 0] == kf[0][:, 0]) & (km[1][:, 2] != kf[1][:, 2])).sum())
+    mask_off = int((hm != hf).sum())
+    moved_px = int((km[0][:, 0] != k320[0][:, 0]).sum())
+    say(f"[20] apply_instance_transforms ({table.shape[0]} rows): {refit_ms:.3f} ms ({card}); traced "
+        f"against a fresh compile at the moved transforms on 320x180 primaries: hit masks differ on "
+        f"{mask_off}, |dt| > max(1e-3, 1e-4 t) on {t_off}, instances differ at equal t on {inst_off} of "
+        f"{int(hm.numel())} rays; the move changed t on {moved_px} rays")
+    require(max(mask_off, t_off) <= 1e-3 * hm.numel() and inst_off == 0,
+            "[20] the moved scene and the fresh compile disagree")
+    require(moved_px > 0, "[20] the move changed no hit")
+
     shadow_row = v8_rows["occluded shadow segments"]
     say(json.dumps({"kernels": [
         {"name": "trace_v7", "route": "cuda", "source": "realtimeraytracer_torch/csrc/trace_v7.cu",
@@ -833,6 +1044,16 @@ def main() -> int:
          "launches": frames14["foliage hybrid"][1]["trace_v8_masked"], "max_abs_err": v8m_err,
          "ms": v8m_ms, "plain_ms": v8m_plain_ms, "bound_ms": v8m_bound[0], "bound_by": v8m_bound[1],
          "library_ms": None},
+        {"name": "trace_v8_inst", "route": "cuda", "source": "realtimeraytracer_torch/csrc/trace_v8.cu",
+         "replaces": "realtimeraytracer_tpu/render/hier_backend.py:387",
+         "launches": frames18["defaults"][1]["trace_v8_inst"], "max_abs_err": vi_err,
+         "ms": inst_rows[False][0], "plain_ms": inst_rows[False][1], "bound_ms": inst_rows[False][3][0],
+         "bound_by": inst_rows[False][3][1], "library_ms": None},
+        {"name": "trace_v8_inst_masked", "route": "cuda", "source": "realtimeraytracer_torch/csrc/trace_v8.cu",
+         "replaces": "realtimeraytracer_tpu/render/hier_backend.py:387",
+         "launches": frames18["alpha"][1]["trace_v8_inst_masked"], "max_abs_err": vim_err,
+         "ms": inst_rows[True][0], "plain_ms": inst_rows[True][1], "bound_ms": inst_rows[True][3][0],
+         "bound_by": inst_rows[True][3][1], "library_ms": None},
     ]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -2,16 +2,19 @@
 
 A port of ``realtimeraytracer_tpu`` (JAX on a TPU), which stays in the
 repository as its reference.  This package imports torch and NumPy, never
-jax.  It renders the reference's ratio-estimator frame on non-instanced
-scenes, textured and alpha-tested ones included (instanced scenes compile
-with bake_instances=True): jittered primaries, closest hit under the alpha
+jax.  It renders the reference's ratio-estimator frame, on textured,
+alpha-tested and shared-geometry instanced scenes too (the instanced form
+traces through the v8 kernel's instanced level, and moves with
+ops/refit.apply_instance_transforms): jittered primaries, closest hit under the alpha
 re-trace ladder, surface with texture maps, LTC analytic light,
 stochastic area-light shadows, sun, HDRI miss, tonemap, A-Trous denoising
 of both stochastic images and the ratio combine.  Four hand-written CUDA
 kernels for Hopper carry it on a GPU (csrc/): the v9 quarter-composited
 traversal and the v8 per-ray hierarchy of the default hybrid route, the
 v7 block traversal of the "pallas" route (each with an in-kernel alpha
-mask variant), and the fused two-image A-Trous iteration.  ``render`` runs on the GPU unless the
+mask variant; v8 also with its instanced instantiation, which carries
+every trace of an instanced scene), and the fused two-image A-Trous
+iteration.  ``render`` runs on the GPU unless the
 caller passes ``device="cpu"``.
 
 Public API:

@@ -2,12 +2,13 @@
 
     python -m realtimeraytracer_torch.frame_profile [--width 1920] [--height 1080]
         [--spp 4] [--shadow-rays 3] [--tris 100000] [--backend auto]
-        [--no-sort-shadows] [--scene procedural_mesh]
+        [--no-sort-shadows] [--scene procedural_mesh] [--bake]
 
 No JAX counterpart (the JAX package profiled with scripts/ probes on the
 TPU).  Renders procedural_mesh(tris), or one of the alpha-tested
-flagships (--scene textured_obj, or foliage_field compiled with
-bake_instances=True; both with alpha_test=True), through the chosen route
+flagships (--scene textured_obj, or foliage_field in its shared-geometry
+instanced form, or with --bake its world-space copies; both with
+alpha_test=True), through the chosen route
 ("auto" is the hybrid route; "pallas" the v7 route) once to warm up, times three
 frames with CUDA events (median), then renders one frame under
 torch.profiler with CPU and CUDA activities and prints: the device's busy
@@ -55,6 +56,8 @@ def main(argv=None) -> None:
     ap.add_argument("--scene", default="procedural_mesh",
                     choices=("procedural_mesh", "textured_obj", "foliage_field"),
                     help="the flagships render alpha-tested; --tris is procedural_mesh's")
+    ap.add_argument("--bake", action="store_true",
+                    help="compile an instanced scene's instances to world-space copies")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("frame_profile needs a CUDA device")
@@ -70,7 +73,7 @@ def main(argv=None) -> None:
         scene = scenes.procedural_mesh(args.tris, sun=True)
     else:
         scene = getattr(scenes, args.scene)()
-    gpu = scene.compile(bake_instances=bool(scene.instances)).to("cuda")
+    gpu = scene.compile(bake_instances=args.bake).to("cuda")
     frame = scene.camera.viewport_frame(cfg.width, cfg.height, device="cuda")
     torch.cuda.reset_peak_memory_stats()
     render_pipeline_gpu(gpu, frame, cfg)                        # warm-up
@@ -101,7 +104,8 @@ def main(argv=None) -> None:
     print(f"frame {cfg.width}x{cfg.height}, {args.spp} spp x {args.shadow_rays} shadow rays, "
           f"backend={cfg.backend}, sort_shadows={cfg.sort_shadows}, "
           f"{args.scene}({args.tris if args.scene == 'procedural_mesh' else ''}) "
-          f"({gpu.num_tris} tris, alpha_test={cfg.alpha_test}, {syncs} ladder host syncs): "
+          f"({gpu.num_tris} tris{', instanced' if gpu.instanced else ''}, "
+          f"alpha_test={cfg.alpha_test}, {syncs} ladder host syncs): "
           f"{sorted(times)[1]:.2f} ms median of {[round(t, 2) for t in times]} (CUDA events); "
           f"{profiled_ms:.2f} ms under the profiler")
     median_ms = sorted(times)[1]

@@ -39,14 +39,17 @@ NVCC_FLAGS = (
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
-# source name -> (entry symbol, argtypes); each entry returns a cudaError_t
-# and has a companion `<symbol>_error(int) -> const char*`.
+# entry name -> (source name, entry symbol, argtypes); each entry returns a
+# cudaError_t, and its source has a companion `rt_<source>_error(int) ->
+# const char*`.
 SIGNATURES = {
-    "trace_v7": ("rt_trace_v7", [_P] * 6 + [_I] * 6 + [_P]),
-    "trace_v8": ("rt_trace_v8", [_P] * 8 + [_I] * 8 + [_P]),
-    "trace_v9": ("rt_trace_v9", [_P] * 7 + [_I] * 5 + [_P]),
-    "atrous_pair": ("rt_atrous_pair", [_P] * 6 + [_I] * 3 + [_F] * 4 + [_P]),
+    "trace_v7": ("trace_v7", "rt_trace_v7", [_P] * 6 + [_I] * 6 + [_P]),
+    "trace_v8": ("trace_v8", "rt_trace_v8", [_P] * 8 + [_I] * 8 + [_P]),
+    "trace_v8_inst": ("trace_v8", "rt_trace_v8_inst", [_P] * 9 + [_I] * 8 + [_P]),
+    "trace_v9": ("trace_v9", "rt_trace_v9", [_P] * 7 + [_I] * 5 + [_P]),
+    "atrous_pair": ("atrous_pair", "rt_atrous_pair", [_P] * 6 + [_I] * 3 + [_F] * 4 + [_P]),
 }
+SOURCES = tuple(dict.fromkeys(src for src, _, _ in SIGNATURES.values()))
 
 _lock = threading.Lock()
 _loaded: dict[str, tuple] = {}
@@ -85,16 +88,17 @@ def build(name: str) -> Path:
 
 
 def kernel(name: str):
-    """The ctypes entry of csrc/<name>.cu, building it on first use."""
+    """The ctypes entry `name` of SIGNATURES, building its source on first
+    use."""
     with _lock:
         entry = _loaded.get(name)
         if entry is None:
-            symbol, argtypes = SIGNATURES[name]
-            lib = ctypes.CDLL(str(build(name)))
+            source, symbol, argtypes = SIGNATURES[name]
+            lib = ctypes.CDLL(str(build(source)))
             fn = getattr(lib, symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            err = getattr(lib, symbol + "_error")
+            err = getattr(lib, f"rt_{source}_error")
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
             entry = _loaded[name] = (fn, err)
@@ -114,6 +118,6 @@ def launch(name: str, *args) -> None:
 def build_all() -> dict[str, Path]:
     """Build (or find) every kernel library, one nvcc per source, all
     started together; returns name -> path."""
-    with ThreadPoolExecutor(max_workers=len(SIGNATURES)) as pool:
-        futures = {name: pool.submit(build, name) for name in SIGNATURES}
+    with ThreadPoolExecutor(max_workers=len(SOURCES)) as pool:
+        futures = {name: pool.submit(build, name) for name in SOURCES}
         return {name: f.result() for name, f in futures.items()}

@@ -1,14 +1,17 @@
 """LBVH build: Morton-ordered bounding volume hierarchy with skip links.
 
-The builder of realtimeraytracer_tpu/ops/bvh.py (host NumPy, unchanged): the
-JAX package cannot be imported without jax, so the port carries its own.
-Refitting (``refit_numpy``) comes with instancing and refit (ROADMAP A4).
+The builder and the host refit of realtimeraytracer_tpu/ops/bvh.py (host
+NumPy, unchanged): the JAX package cannot be imported without jax, so the
+port carries its own.  ``refit_numpy`` is the oracle of the device-side
+refit (ops/refit.py).
 
 TPU-native replacement for the reference's hardware acceleration structures
 (BLAS per mesh + TLAS of instances, vulkan/raytracing/blas.cppm:75-167 and
-tlas.cppm:44-149, built by Vulkan on the GPU).  Since scene compilation
-already bakes instance transforms to world space (scene/scene.py), a single
-world-space BVH over the whole triangle soup plays the role of BLAS+TLAS.
+tlas.cppm:44-149, built by Vulkan on the GPU).  A scene without instances
+compiles to a world-space soup, and a single BVH over it plays the role of
+BLAS+TLAS; the shared-geometry compile (scene/scene.py) sorts each unique
+mesh by its own build, and the v8 kernel's (instance, super) pairs play
+the TLAS.
 
 Design for a *stackless, vectorized* traversal (render/bvh_backend.py):
   * triangles are sorted by the Morton code of their centroid, so every
@@ -129,3 +132,31 @@ def build_bvh(
         tri_v2=sv2.astype(np.float32), tri_id=order,
     )
 
+
+def refit_numpy(bvh: BVHArrays, v0, v1, v2) -> BVHArrays:
+    """Recompute AABBs for moved vertices, keeping topology (TLAS::refit
+    parity, tlas.cppm:151-207). v0/v1/v2 are in ORIGINAL triangle order."""
+    sv0, sv1, sv2 = v0[bvh.tri_id], v1[bvh.tri_id], v2[bvh.tri_id]
+    tri_min = np.minimum(np.minimum(sv0, sv1), sv2)
+    tri_max = np.maximum(np.maximum(sv0, sv1), sv2)
+    node_min = bvh.node_min.copy()
+    node_max = bvh.node_max.copy()
+    # Nodes are in DFS pre-order and children follow parents, so a reverse
+    # sweep sees both children of a node before the node.
+    n = len(node_min)
+    for i in range(n - 1, -1, -1):
+        if bvh.node_count[i] > 0:
+            s = bvh.node_first[i]
+            e = s + bvh.node_count[i]
+            node_min[i] = tri_min[s:e].min(axis=0)
+            node_max[i] = tri_max[s:e].max(axis=0)
+        else:
+            left = i + 1
+            right_skip = bvh.node_skip[left]
+            node_min[i] = np.minimum(node_min[left], node_min[right_skip])
+            node_max[i] = np.maximum(node_max[left], node_max[right_skip])
+    return bvh._replace(
+        node_min=node_min, node_max=node_max,
+        tri_v0=sv0.astype(np.float32), tri_v1=sv1.astype(np.float32),
+        tri_v2=sv2.astype(np.float32),
+    )

@@ -24,6 +24,9 @@ class HitRecord(NamedTuple):
     prim_id: torch.Tensor  # unified prim id (-1 if miss)
     u: torch.Tensor
     v: torch.Tensor
+    # Instance id on shared-geometry scenes (render/hier_backend.py): None
+    # on non-instanced paths, -1 on misses and spheres.
+    inst: torch.Tensor | None = None
 
     @property
     def hit(self) -> torch.Tensor:

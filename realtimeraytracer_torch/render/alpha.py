@@ -1,7 +1,7 @@
 """Alpha-tested transparency: the any-hit shader as a re-trace ladder.
 
 Counterpart of realtimeraytracer_tpu/render/alpha.py (``_alpha_face_row``,
-``hit_alpha`` on non-instanced scenes, ``wrap_backend_with_alpha`` with its
+``hit_alpha`` with its instance branch, ``wrap_backend_with_alpha`` with its
 closest and occlusion ladders and ``step_past``; the opaque/alpha panel
 split belongs to ``alpha_split``, which is not ported).  Parity target: the
 reference's opacity any-hit shader (opacity.rahit:31-64) ignores an
@@ -35,6 +35,7 @@ from realtimeraytracer_torch.config import RenderConfig
 from realtimeraytracer_torch.ops.intersect import BIG_T, HitRecord, as_per_ray, ray_triangle
 from realtimeraytracer_torch.ops.texture import sample_atlas_packed
 from realtimeraytracer_torch.render.backends import TraceBackend
+from realtimeraytracer_torch.render.hier_backend import to_mesh
 from realtimeraytracer_torch.scene.gpu_scene import TorchScene
 
 
@@ -54,7 +55,13 @@ def hit_alpha(gpu: TorchScene, hit: HitRecord, origins, dirs,
     """Opacity of each hit: 1 where the object has no opacity map, the hit
     is a sphere or the ray missed.  Barycentrics are recomputed from the
     winning triangle (the kernels return none); hit.u / hit.v are only the
-    fallback for degenerate re-tests."""
+    fallback for degenerate re-tests.
+
+    On an instanced scene the pools are mesh-space and face_obj is zeros:
+    the ray moves into mesh space by inst_inv[hit.inst] (directions not
+    renormalized, as in the traversal kernel; barycentrics do not change
+    under the affine map) and the opacity map is the instance's object's,
+    obj_tex[inst_obj[hit.inst], 3]."""
     num_tris = gpu.num_tris
     is_tri = (hit.prim_id >= 0) & (hit.prim_id < num_tris)
     tid = torch.clamp(hit.prim_id, 0, max(num_tris - 1, 0)).long()
@@ -62,12 +69,19 @@ def hit_alpha(gpu: TorchScene, hit: HitRecord, origins, dirs,
         face_row = _alpha_face_row(gpu)
     g = face_row[tid]
     v0, v1, v2 = g[..., 0:3], g[..., 3:6], g[..., 6:9]
+    instanced = gpu.instanced and hit.inst is not None
+    if instanced:
+        iid = torch.clamp(hit.inst, 0, gpu.inst_inv.shape[0] - 1).long()
+        origins, dirs = to_mesh(gpu.inst_inv[iid], origins, dirs)
+        is_tri = is_tri & (hit.inst >= 0)
     _, rt_u, rt_v, rt_ok = ray_triangle(origins, dirs, v0, v1, v2)
     hu = torch.where(rt_ok, rt_u, hit.u)
     hv = torch.where(rt_ok, rt_v, hit.v)
     w0 = (1.0 - hu - hv)[..., None]
     uv = g[..., 9:11] * w0 + g[..., 11:13] * hu[..., None] + g[..., 13:15] * hv[..., None]
     tex = g[..., 15].to(torch.int32)
+    if instanced:
+        tex = gpu.obj_tex[gpu.inst_obj[iid].long(), 3]
     a = sample_atlas_packed(gpu.tex_atlas_packed, gpu.tex_size, tex,
                             uv[..., 0], uv[..., 1])[..., 0]
     return torch.where(is_tri & (tex >= 0), a, 1.0)
@@ -83,7 +97,10 @@ def step_past(t: torch.Tensor) -> torch.Tensor:
 
 
 def _merge(mask, new: HitRecord, old: HitRecord) -> HitRecord:
-    return HitRecord(*(torch.where(mask, a, b) for a, b in zip(new, old)))
+    """new where mask holds, else old; inst stays None when the trace
+    returns none (non-instanced scenes)."""
+    return HitRecord(*(None if a is None else torch.where(mask, a, b)
+                       for a, b in zip(new, old)))
 
 
 def wrap_backend_with_alpha(backend: TraceBackend, gpu: TorchScene,

@@ -11,7 +11,9 @@ with unified prim ids: [0, F) triangles, [F, F+S) analytic spheres.  The
 port has "brute" (chunked all-pairs, exact), "pallas" (the v7 CUDA kernel,
 render/v7_backend.py), "quarter" (v9, render/quarter_backend.py), "hier"
 (v8, render/hier_backend.py) and "hybrid", which routes each trace class to
-one of them as the JAX package does on its accelerator.  With
+one of them as the JAX package does on its accelerator.  Instanced
+(shared-geometry) scenes trace only through v8's instanced kernel: the
+BVH backends route there and "brute" raises.  With
 ``cfg.alpha_test`` set, ``make_backend`` wraps the backend in the alpha
 re-trace ladder (render/alpha.py), and the closest traces of v7, v9 and
 v8 apply the scene's in-kernel alpha masks (``masks_enabled``).
@@ -46,6 +48,9 @@ def _merge_sphere_hits(tri_hit: intersect.HitRecord,
                        sph_hit: intersect.HitRecord,
                        num_tris: int) -> intersect.HitRecord:
     use_sph = sph_hit.t < tri_hit.t
+    inst = tri_hit.inst
+    if inst is not None:
+        inst = torch.where(use_sph, -1, inst)
     return intersect.HitRecord(
         t=torch.where(use_sph, sph_hit.t, tri_hit.t),
         prim_id=torch.where(
@@ -54,6 +59,7 @@ def _merge_sphere_hits(tri_hit: intersect.HitRecord,
             tri_hit.prim_id).to(torch.int32),
         u=torch.where(use_sph, sph_hit.u, tri_hit.u),
         v=torch.where(use_sph, sph_hit.v, tri_hit.v),
+        inst=inst,
     )
 
 
@@ -112,7 +118,8 @@ def make_hybrid_backend(gpu: TorchScene, cfg: RenderConfig,
     plain=True routes to the kernels' plain twins on any device (the
     reference the kernels are checked against on the card).  use_amask:
     closest traces apply the scene's alpha masks; None takes the config's
-    gate (masks_enabled)."""
+    gate (masks_enabled).  An instanced scene gets v8 alone, as
+    make_backend routes it."""
     from realtimeraytracer_torch.render import hier_backend as v8m
     from realtimeraytracer_torch.render import quarter_backend as v9m
     from realtimeraytracer_torch.render import v7_backend as v7m
@@ -122,6 +129,8 @@ def make_hybrid_backend(gpu: TorchScene, cfg: RenderConfig,
     v8 = v8m.make_hier_backend(
         gpu, cfg, trace=v8m.trace_blocks_hier_plain if plain else v8m.trace_blocks_hier,
         use_amask=use_amask)
+    if gpu.instanced:
+        return v8
     resident = (gpu.pallas_panels is not None
                 and gpu.pallas_panels.shape[0] <= RESIDENT_CB)
     if resident:
@@ -148,9 +157,16 @@ def resolve_backend_kind(gpu: TorchScene, cfg: RenderConfig) -> str:
     """The backend string a config selects for this scene: "auto" is
     "hybrid" when the scene has a BVH and use_bvh is set (the JAX
     package's choice on its accelerator), else "brute"; a BVH backend on a
-    scene without a BVH is "brute"."""
+    scene without a BVH is "brute".  An instanced scene holds mesh-space
+    pools that only v8's instanced level reads: every BVH backend and
+    "auto" give "hier" there, and "brute" raises (JAX make_backend)."""
     check_supported(cfg)
     kind = cfg.backend
+    if gpu.instanced:
+        if kind in ("auto",) + _BVH_KINDS:
+            return "hier"
+        raise ValueError(f"backend {kind!r} cannot trace an instanced scene: use "
+                         "'hier' (or compile with bake_instances=True)")
     if kind == "auto":
         kind = "hybrid" if cfg.use_bvh and gpu.has_bvh else "brute"
     if kind in _BVH_KINDS and not gpu.has_bvh:

@@ -6,8 +6,11 @@ spheres: light-hit detection by object row, barycentric interpolation of
 position, normal and uv (barycentrics recomputed from the winning
 triangle), materials from the object table with their color, specular and
 metallic maps sampled bilinearly from the packed atlas at the hit's uv
-(one gather per map), sRGB decode and roughness = 1 - specular.  The
-instance-transform and mip branches are not ported yet (ROADMAP A4, A1).
+(one gather per map), sRGB decode and roughness = 1 - specular.  On
+instanced scenes the mesh-space pools move to world space by the hit's
+instance (points by its forward transform, normals by the inverse
+transpose) and the material is the instance's object row.  The mip branch
+is not ported yet (ROADMAP A1).
 """
 
 from __future__ import annotations
@@ -59,6 +62,24 @@ def resolve_surface(gpu: TorchScene, hit: HitRecord, origins: torch.Tensor,
     g = face_row[tid]
     v0, v1, v2 = g[..., 0:3], g[..., 3:6], g[..., 6:9]
 
+    # Shared-geometry instances: one (I, 21) row gather carries [fwd R | t |
+    # inv R] of each hit's instance (tlas.cppm:60-67).
+    inst_tr = None
+    if gpu.instanced:
+        inst_ids = hit.inst if hit.inst is not None else torch.zeros_like(tid)
+        iid = torch.clamp(inst_ids, 0, gpu.inst_fwd.shape[0] - 1).long()
+        inst_tr = torch.cat([gpu.inst_fwd, gpu.inst_inv[:, :9]], dim=1)[iid]
+
+        def xf_pt(p):
+            t = inst_tr
+            return torch.stack([
+                t[:, 0] * p[:, 0] + t[:, 1] * p[:, 1] + t[:, 2] * p[:, 2] + t[:, 9],
+                t[:, 3] * p[:, 0] + t[:, 4] * p[:, 1] + t[:, 5] * p[:, 2] + t[:, 10],
+                t[:, 6] * p[:, 0] + t[:, 7] * p[:, 1] + t[:, 8] * p[:, 2] + t[:, 11],
+            ], dim=-1)
+
+        v0, v1, v2 = xf_pt(v0), xf_pt(v1), xf_pt(v2)
+
     rt_t, rt_u, rt_v, rt_ok = ray_triangle(origins, dirs, v0, v1, v2)
     hit_u = torch.where(rt_ok, rt_u, hit.u)
     hit_v = torch.where(rt_ok, rt_v, hit.v)
@@ -66,9 +87,20 @@ def resolve_surface(gpu: TorchScene, hit: HitRecord, origins: torch.Tensor,
     w1 = hit_u[..., None]
     w2 = hit_v[..., None]
     tri_pos = v0 * w0 + v1 * w1 + v2 * w2
-    tri_nrm = normalize(g[..., 9:12] * w0 + g[..., 12:15] * w1 + g[..., 15:18] * w2)
+    nrm = g[..., 9:12] * w0 + g[..., 12:15] * w1 + g[..., 15:18] * w2
+    if inst_tr is not None:
+        iv = inst_tr[:, 12:21]                  # n' = inv^T n
+        nrm = torch.stack([
+            iv[:, 0] * nrm[:, 0] + iv[:, 3] * nrm[:, 1] + iv[:, 6] * nrm[:, 2],
+            iv[:, 1] * nrm[:, 0] + iv[:, 4] * nrm[:, 1] + iv[:, 7] * nrm[:, 2],
+            iv[:, 2] * nrm[:, 0] + iv[:, 5] * nrm[:, 1] + iv[:, 8] * nrm[:, 2],
+        ], dim=-1)
+    tri_nrm = normalize(nrm)
     tri_uv = g[..., 18:20] * w0 + g[..., 20:22] * w1 + g[..., 22:24] * w2
-    tri_obj = g[..., 24].to(torch.int64)        # exact for < 2^24 objects
+    if inst_tr is not None:
+        tri_obj = gpu.inst_obj[iid].to(torch.int64)   # the instance's row
+    else:
+        tri_obj = g[..., 24].to(torch.int64)    # exact for < 2^24 objects
 
     if num_spheres:
         sid = torch.clamp(hit.prim_id.long() - num_tris, 0, num_spheres - 1)

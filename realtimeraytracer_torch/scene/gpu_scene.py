@@ -1,11 +1,11 @@
 """TorchScene: the compiled, device-resident scene.
 
-Counterpart of realtimeraytracer_tpu/scene/gpu_scene.py (``GPUScene``), for
-the non-instanced scenes this port renders: the same leaves, names, shapes
-and dtypes, as tensors, including the v9 repacked panels, the texture atlas
-and its packed-neighbour twin, and the alpha masks of both panel sets.  The
-mip atlas, the opaque/alpha panel split, refit ranges and the instancing
-tables are not carried; an instanced scene raises where it is built.
+Counterpart of realtimeraytracer_tpu/scene/gpu_scene.py (``GPUScene``): the
+same leaves, names, shapes and dtypes, as tensors, including the v9
+repacked panels, the texture atlas and its packed-neighbour twin, the alpha
+masks of both panel sets, the BVH's refit ranges and the shared-geometry
+instancing tables (``instanced``).  The mip atlas and the opaque/alpha
+panel split are not carried.
 """
 
 from __future__ import annotations
@@ -84,6 +84,29 @@ class TorchScene:
     # out like the v7/v8 panels and, by repacked slot, like the v9 panels.
     pallas_amask: torch.Tensor | None = None      # (CB, 2, 128) i32
     q_amask: torch.Tensor | None = None           # (Cq, 2, 128) i32
+    # Per BVH node, its [start, end) range of sorted triangles: the
+    # device-side refit's range reductions (ops/refit.py).
+    bvh_node_tri_start: torch.Tensor | None = None  # (N,) i32
+    bvh_node_tri_end: torch.Tensor | None = None    # (N,) i32
+    # Shared-geometry instancing (scene/scene.py::_compile_instanced).  When
+    # set, vertices, normals, uvs and faces are mesh-space pools shared by
+    # every instance; the v8 kernel traces each (instance, super) pair in
+    # mesh space and the surface resolver applies the instance transform.
+    inst_inv: torch.Tensor | None = None        # (I, 12) f32 world->mesh [R|t]
+    inst_fwd: torch.Tensor | None = None        # (I, 12) f32 mesh->world [R|t]
+    inst_obj: torch.Tensor | None = None        # (I,) i32 object-table row
+    pair_panel: torch.Tensor | None = None      # (PP, 8, 128) f32 world boxes
+                                                #   of the (instance, super) pairs
+    pair_tab: torch.Tensor | None = None        # (PP*128, 4) i32 rows [inst,
+                                                #   blk_panel row, block base, valid]
+    blk_panel: torch.Tensor | None = None       # (NSUP, 8, 128) f32 mesh-space
+                                                #   block boxes per super
+    pair_mesh_aabb: torch.Tensor | None = None  # (PP*128, 6) f32 mesh-space
+                                                #   super box per pair (refit)
+
+    @property
+    def instanced(self) -> bool:
+        return self.inst_inv is not None
 
     @property
     def has_textures(self) -> bool:
@@ -126,16 +149,8 @@ def from_numpy_leaves(leaves: dict[str, np.ndarray],
                       device: str | torch.device = "cpu") -> TorchScene:
     """Build a TorchScene from a compiled scene's leaves as NumPy arrays —
     e.g. the JAX package's ``GPUScene._asdict()`` passed through
-    ``np.asarray`` — so both packages can render one compiled scene.
-
-    Leaves this port does not use are ignored; an instanced scene raises
-    NotImplementedError rather than rendering wrongly (compile it with
-    bake_instances=True)."""
-    if leaves.get("inst_inv") is not None:
-        raise NotImplementedError(
-            "instanced scenes need the v8 kernel's instance level, which is "
-            "not ported yet (ROADMAP queue A, A4); compile with "
-            "bake_instances=True")
+    ``np.asarray`` — so both packages can render one compiled scene,
+    instanced ones included.  Leaves this port does not use are ignored."""
     kw = {name: torch.from_numpy(np.array(leaves[name], copy=True, order="C"))
           for name in LEAF_NAMES if leaves.get(name) is not None}
     return TorchScene(**kw).to(device)

@@ -1,14 +1,17 @@
 """Baldwin-Weber coefficient panels for the traversal kernels.
 
 Counterpart of realtimeraytracer_tpu/render/pallas_backend.py::
-pack_clusters_np (host NumPy, run once at scene compile) and its layout
-constants, RESIDENT_CB included.  The port keeps it in the scene package
-because the JAX module that holds it imports Pallas.
+pack_clusters_np (host NumPy, run once at scene compile), its in-graph twin
+pack_clusters (tensors on any device, for the device-side refit of
+ops/refit.py) and their layout constants, RESIDENT_CB included.  The port
+keeps them in the scene package because the JAX module that holds them
+imports Pallas.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from realtimeraytracer_torch.ops.intersect import BIG_T
 
@@ -61,3 +64,33 @@ def pack_clusters_np(tv0, tv1, tv2):
         tmin = np.where(valid, tmin, np.float32(BIG_T))
         tmax = np.where(valid, tmax, np.float32(-BIG_T))
     return coeff, tmin.min(1).astype(np.float32), tmax.max(1).astype(np.float32)
+
+
+def pack_clusters(gpu):
+    """pack_clusters_np on the scene's BVH-sorted triangles as tensors, on
+    their device: (coeff, cl_min, cl_max) of the same layout."""
+    v0, v1, v2 = gpu.bvh_tri_v0, gpu.bvh_tri_v1, gpu.bvh_tri_v2
+    t = v0.shape[0]
+    cb = -(-t // CB)
+    pad = cb * CB - t
+    if pad:
+        v0, v1, v2 = (torch.cat([x, x.new_zeros((pad, 3))]) for x in (v0, v1, v2))
+    e1, e2 = v1 - v0, v2 - v0
+    n = torch.linalg.cross(e1, e2)
+    det = (n * n).sum(-1, keepdim=True)
+    inv = torch.where(det > 1e-24, 1.0 / torch.where(det > 1e-24, det, 1.0), 0.0)
+    r1 = torch.linalg.cross(e2, n) * inv
+    r2 = torch.linalg.cross(n, e1) * inv
+    parts = []
+    for rows in (n, r1, r2):
+        parts += [rows[:, 0], rows[:, 1], rows[:, 2], -(rows * v0).sum(-1)]
+    coeff = torch.stack(parts).reshape(CROWS, cb, CB).permute(1, 0, 2).contiguous()
+
+    c32 = cb * (CB // SUBK)
+    tmin = torch.minimum(torch.minimum(v0, v1), v2).reshape(c32, SUBK, 3)
+    tmax = torch.maximum(torch.maximum(v0, v1), v2).reshape(c32, SUBK, 3)
+    if pad:
+        valid = (torch.arange(cb * CB, device=v0.device) < t).reshape(c32, SUBK, 1)
+        tmin = torch.where(valid, tmin, BIG_T)
+        tmax = torch.where(valid, tmax, -BIG_T)
+    return coeff, tmin.amin(dim=1), tmax.amax(dim=1)

@@ -6,6 +6,9 @@ jax (whose tests/conftest.py cannot load):
     python -m pytest --noconftest tests/test_torch_kernels.py -q
 
 Tests marked ``cuda`` need an NVIDIA GPU and nvcc and skip without a GPU.
+The instanced v8 kernel is held to its twin on foliage_field(20_000)
+compiled instanced and at 3,000 (instance, super) pairs, with instance ids
+equal or t equal.
 The masked variants (alpha masks in closest mode) are held to their twins
 by the same rule on a soup of alpha-mapped triangles.
 Tolerances: v7, v8 and v9 hit masks and occluded flags equal, t to rtol
@@ -377,6 +380,145 @@ def test_alpha_frame_kernels_match_twins(cuda, backend):
         assert masked[0] >= 2 + 2 * 4 and masked[1] == masked[2] == 0
         plain = v7.make_v7_backend(gpu, cfg, trace=v7.trace_blocks_plain)
     plain = wrap_backend_with_alpha(plain, gpu, cfg)
+    with torch.inference_mode():
+        comp = render_components(gpu, frame, cfg, 0, backend=plain)
+        s, u = comp.shadowed, comp.unshadowed
+        for i in range(4):
+            s, u = atrous_pair_iteration_plain(s, u, comp.normal, comp.position, i + 1, *PHIS)
+        img_p = ratio_combine(comp.analytic, s, u).cpu().numpy()
+    assert np.isfinite(img_k).all() and img_k.std() > 0
+    assert (np.abs(img_k - img_p) > 2e-3).mean() < 5e-3
+
+
+def _foliage_instanced(device):
+    scene = scenes.foliage_field(target_tris=20_000)
+    gpu = scene.compile()
+    assert gpu.instanced
+    return scene, gpu.to(device)
+
+
+def _inst_primaries(scene, device, w=64, h=36):
+    from realtimeraytracer_torch.ops.camera_rays import generate_rays
+
+    o, d = generate_rays(scene.camera.viewport_frame(w, h), w, h, jitter=True)
+    r = o.shape[0]
+    return v7._pack_rays(*(x.to(device) for x in (o, d, torch.full((r,), 1e-3),
+                                                   torch.full((r,), 1e4))))[0]
+
+
+def _same_instances(k, p):
+    """Instance ids (outi row 2) equal, or else the two t equal."""
+    kf, pf = k[0][:, 0].cpu().numpy(), p[0][:, 0].cpu().numpy()
+    ki, pi = k[1][:, 2].cpu().numpy(), p[1][:, 2].cpu().numpy()
+    assert ((ki == pi) | (kf == pf)).all()
+    assert (ki[k[1][:, 0].cpu().numpy() < 0] == -1).all()
+
+
+def test_inst_kernel_refuses_cpu_tensors():
+    gpu = _blob_like_instanced(20)
+    rays = _ray_tiles(None, 1, "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        hb.trace_hier_inst_kernel(rays, *hb._inst_args(gpu), "closest")
+
+
+def _blob_like_instanced(k, n=50, seed=0):
+    """k instances on a grid of one n-triangle soup: k (instance, super)
+    pairs."""
+    from realtimeraytracer_torch.scene.geometry import MeshInstance
+
+    r = np.random.default_rng(seed)
+    tris = (r.uniform(-0.4, 0.4, (n, 1, 3)) + r.normal(0, 0.1, (n, 3, 3))).astype(np.float32)
+    mesh = TriangleMesh(vertices=tris.reshape(-1, 3),
+                        faces=np.arange(3 * n, dtype=np.int32).reshape(n, 3))
+    s = Scene()
+    side = int(np.ceil(np.sqrt(k)))
+    for i in range(k):
+        t = np.eye(4, dtype=np.float32)
+        t[:3, 3] = ((i % side) - side / 2, 0.0, (i // side) - side / 2)
+        if i % 3 == 1:
+            t[:3, :3] = np.array([[0, 0, 1], [0, 1, 0], [-1, 0, 0]], np.float32) * 0.8
+        s.add(MeshInstance(mesh=mesh, transform=t))
+    return s.compile()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("query", ["closest", "occluded", "masked_closest"])
+def test_inst_kernel_matches_twin(cuda, query):
+    """foliage_field(20_000) compiled instanced (273 pairs on 3 pages): the
+    instanced kernel against its twin on jittered primaries and on
+    segments from their hits toward light triangle 0."""
+    scene, gpu = _foliage_instanced(cuda)
+    args = hb._inst_args(gpu)
+    rays = _inst_primaries(scene, cuda)
+    amask = gpu.pallas_amask if query == "masked_closest" else None
+    mode = "occluded" if query == "occluded" else "closest"
+    if mode == "occluded":
+        prim = hb.trace_hier_inst_plain(rays, *args, "closest")
+        o = rays[:, 0:3].permute(0, 2, 1).reshape(-1, 3)
+        d = rays[:, 3:6].permute(0, 2, 1).reshape(-1, 3)
+        t = prim[0][:, 0].reshape(-1)
+        hit = prim[1][:, 0].reshape(-1) >= 0
+        p = o + d * torch.where(hit, t, 0.0)[:, None] - d * 1e-3
+        delta = (gpu.lt_v0[0] + gpu.lt_v1[0] + gpu.lt_v2[0]) / 3.0 - p
+        dist = delta.norm(dim=1)
+        rays = v7._pack_rays(p, delta / dist[:, None], torch.where(hit, 1e-3, BIG_T),
+                             torch.where(hit, dist - 0.05, -BIG_T))[0]
+    counter = "masked_launches_inst" if amask is not None else "launches_inst"
+    before = getattr(hb.trace_blocks_hier, counter)
+    k = hb.trace_hier_inst_kernel(rays, *args, mode, amask=amask)
+    assert getattr(hb.trace_blocks_hier, counter) == before + 1
+    p = hb.trace_hier_inst_plain(rays, *args, mode, amask)
+    if mode == "closest":
+        _same_closest(k, p)
+        _same_instances(k, p)
+    else:
+        _same_occluded(k, p)
+    counted = hb.trace_hier_inst_kernel(rays, *args, mode, count=True, amask=amask)
+    assert torch.equal(counted[0][:, 0], k[0][:, 0]) and torch.equal(counted[1][:, 0:3], k[1][:, 0:3])
+    _fewer_pairs(counted, p, rays)
+    assert counted[1][:, 6].sum() > 0 and counted[1][:, 7].sum() > 0
+
+
+@pytest.mark.cuda
+def test_inst_kernel_near_pair_capacity(cuda):
+    """3,000 (instance, super) pairs of the kernel's 3,072: the L1 sort at
+    4,096 keys, pair ids in 12 bits."""
+    gpu = _blob_like_instanced(3000).to(cuda)
+    assert int(gpu.pair_tab[:, 3].sum()) == 3000
+    args = hb._inst_args(gpu)
+    rays = _ray_tiles(None, 9, cuda, n=1000, span=28.0)
+    for mode in ("closest", "occluded"):
+        k = hb.trace_hier_inst_kernel(rays, *args, mode)
+        p = hb.trace_hier_inst_plain(rays, *args, mode)
+        if mode == "closest":
+            _same_closest(k, p)
+            _same_instances(k, p)
+        else:
+            _same_occluded(k, p)
+
+
+@pytest.mark.cuda
+def test_instanced_alpha_frame_kernels_match_twins(cuda):
+    """The instanced foliage's alpha-tested frame launches only the
+    instanced v8 kernels and A-Trous, and matches the twins' frame."""
+    from realtimeraytracer_torch.render.alpha import wrap_backend_with_alpha
+
+    scene, gpu = _foliage_instanced(cuda)
+    cfg = RenderConfig(width=64, height=36, primary_rays=1, shadow_rays=2,
+                       denoise_iterations=4, alpha_test=True)
+    frame = scene.camera.viewport_frame(64, 36, device=cuda)
+    h = hb.trace_blocks_hier
+    names = ("launches", "masked_launches", "launches_inst", "masked_launches_inst")
+    before = [getattr(h, n) for n in names]
+    v7_before = (v7.trace_blocks.launches, v7.trace_blocks.masked_launches)
+    img_k = render_pipeline_gpu(gpu, frame, cfg).cpu().numpy()
+    got = [getattr(h, n) - b for n, b in zip(names, before)]
+    # Under the alpha test every trace is a masked closest one (occlusion
+    # is a ladder of closest traces).
+    assert got[0] == got[1] == got[2] == 0 and got[3] > 0
+    assert (v7.trace_blocks.launches, v7.trace_blocks.masked_launches) == v7_before
+    plain = wrap_backend_with_alpha(hb.make_hier_backend(gpu, cfg, trace=hb.trace_blocks_hier_plain),
+                                    gpu, cfg)
     with torch.inference_mode():
         comp = render_components(gpu, frame, cfg, 0, backend=plain)
         s, u = comp.shadowed, comp.unshadowed

@@ -64,9 +64,9 @@ def test_from_numpy_leaves_roundtrip(monkeypatch):
 
 
 def test_unported_scene_features_raise(monkeypatch):
-    """Textured scenes compile since the third slice; the instanced
-    (shared-geometry) compile still raises until ROADMAP A4, on JAX leaves
-    and in the port's own compile, unless the instances are baked."""
+    """Textured scenes compile since the third slice and instanced ones, on
+    JAX leaves and in the port's own compile, since the fourth; the mip
+    path still raises where a config asks for it."""
     tex = JaxScene()
     idx = tex.add_texture(np.ones((4, 4, 3), np.float32))
     tex.add(JaxMesh(vertices=np.eye(3, dtype=np.float32), faces=np.array([[0, 1, 2]]),
@@ -75,17 +75,18 @@ def test_unported_scene_features_raise(monkeypatch):
     inst = JaxScene().add_instances(
         JaxMesh(vertices=np.eye(3, dtype=np.float32), faces=np.array([[0, 1, 2]])),
         [np.eye(4, dtype=np.float32)])
-    with pytest.raises(NotImplementedError):
-        from_numpy_leaves(_jax_leaves(inst, monkeypatch))
+    assert from_numpy_leaves(_jax_leaves(inst, monkeypatch)).instanced
     mapped = scenes.sphere_plane()
     mapped.add_texture(np.ones((4, 4, 3), np.float32))
     mapped.add(TriangleMesh(vertices=np.eye(3, dtype=np.float32), faces=np.array([[0, 1, 2]]),
                             material=Material(color_map=0)))
     assert mapped.compile().obj_tex[:, 0].max() == 0
     mapped.add_instances(mapped.meshes[-1], [np.eye(4, dtype=np.float32)])
-    with pytest.raises(NotImplementedError, match="bake_instances"):
-        mapped.compile()
+    assert mapped.compile().instanced
     assert mapped.compile(bake_instances=True).num_tris == 4
+    for field, value in (("mip_textures", True), ("aniso_taps", 4)):
+        with pytest.raises(NotImplementedError, match=field):
+            check_supported(RenderConfig(**{field: value}))
 
 
 @pytest.mark.parametrize("backend", ["wide", "hier", "quarter", "hybrid"])

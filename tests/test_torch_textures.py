@@ -312,9 +312,9 @@ def test_baked_foliage_leaves_match_jax(monkeypatch):
     want = {k: np.asarray(v) for k, v in jax_gpu._asdict().items() if v is not None}
     scene = scenes.foliage_field(target_tris=FOLIAGE_TRIS)
     assert scene.instances
-    with pytest.raises(NotImplementedError, match="bake_instances"):
-        scene.compile_leaves()
+    assert "inst_inv" in scene.compile_leaves()     # the shared-geometry form
     got = scene.compile_leaves(bake_instances=True)
+    assert "inst_inv" not in got
     assert (got["pallas_amask"] != -1).any()       # some cells are transparent
     _compare_leaves(got, want, TEXTURE_LEAVES)
     ts = from_numpy_leaves(want)
