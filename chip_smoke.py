@@ -65,9 +65,22 @@ Phases, each of which ends the run with a non-zero exit on failure:
  19. a 160x90 instanced alpha frame through the kernels and through the
      twins;
  20. apply_instance_transforms on the card: the moved instances traced
-     against a fresh instanced compile at the moved transforms.
-Each main-path frame (5, 9, 14 and 18) is driven with every kernel's launch
-count set to 0 just before and read just after.  The line before the last is a
+     against a fresh instanced compile at the moved transforms;
+ 21. the multi-segment occlusion kernel (hier_occluded_multi) on the area
+     segments the frame traces toward light triangle 0: against its twin
+     for S = 1, 2, 3 and 8 (320x180), against three single v8 launches
+     (1080p, S = 3; also hint-chained, and on directions that straddle
+     zero), its time beside the three single traces', visits, work counts
+     and bound;
+ 22. the reference-default 1080p frame through the fused shadow query
+     (v8's hier_occluded_multi wired into the default backend): launches,
+     bit-equality with the default frame, both frame times, peak memory;
+     a 160x90 fused frame through the kernels and through the twins;
+ 23. the f32 FMA peak probe (probes.fma_peak) against its twin, its rate
+     beside the data sheet's 67 TFLOP/s, the FFMA count of its SASS.
+Each main-path frame (5, 9, 14, 18 and 22) and the probe's timed run (23)
+are driven with every kernel's launch count set to 0 just before and read
+just after.  The line before the last is a
 JSON object describing each kernel (times, launches, error, bound); the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 without the package beside it, the script fails before printing either.
@@ -77,6 +90,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -182,6 +197,14 @@ SLAB_OPS = 27
 # kernel: origin rows 3 x (3 mul + 3 add), direction rows 3 x (3 mul + 2
 # add), three |d| tests (6) and three reciprocals (3).
 TRANSFORM_OPS = 42
+# The multi-segment v8 kernel (csrc/trace_v8.cu, MULTI): per sample test the
+# pair ops less the origin dots (47 - 18), per origin-family evaluation the
+# three origin dots, per hull slab test per axis two subtractions, four
+# multiplications and six min/max, then the near/far combine (4), four
+# compares and max(near, 0).
+MULTI_TEST_OPS = 29
+FAMILY_OPS = 18
+HULL_SLAB_OPS = 45
 
 
 def nbytes(*tensors) -> int:
@@ -234,7 +257,7 @@ def main() -> int:
         import realtimeraytracer_torch as rt
     except ImportError as e:
         raise SmokeFailure(f"cannot import realtimeraytracer_torch ({e}); run from the repository root") from e
-    from realtimeraytracer_torch import kernels, scenes
+    from realtimeraytracer_torch import kernels, probes, scenes
     from realtimeraytracer_torch.ops.camera_rays import block_permutation, generate_rays
     from realtimeraytracer_torch.ops.denoise_kernel import (
         atrous_denoise_pair, atrous_pair_iteration_kernel, atrous_pair_iteration_plain)
@@ -244,7 +267,7 @@ def main() -> int:
     from realtimeraytracer_torch.render import quarter_backend as v9
     from realtimeraytracer_torch.render import v7_backend as v7
     from realtimeraytracer_torch.render.alpha import hit_alpha, wrap_backend_with_alpha
-    from realtimeraytracer_torch.render.backends import make_hybrid_backend
+    from realtimeraytracer_torch.render.backends import make_backend, make_hybrid_backend
     from realtimeraytracer_torch.render.megakernel import render_components
     from realtimeraytracer_torch.render.pipeline import render_pipeline_gpu
 
@@ -258,7 +281,9 @@ def main() -> int:
                 "trace_v9_masked": (v9.trace_blocks_quarter, "masked_launches"),
                 "trace_v8_masked": (v8.trace_blocks_hier, "masked_launches"),
                 "trace_v8_inst": (v8.trace_blocks_hier, "launches_inst"),
-                "trace_v8_inst_masked": (v8.trace_blocks_hier, "masked_launches_inst")}
+                "trace_v8_inst_masked": (v8.trace_blocks_hier, "masked_launches_inst"),
+                "trace_v8_multi": (v8.trace_blocks_hier, "launches_multi"),
+                "fma_peak": (probes.fma_peak_kernel, "launches")}
 
     def zero_counts() -> None:
         for c, attr in counters.values():
@@ -268,9 +293,11 @@ def main() -> int:
         return {name: getattr(c, attr) for name, (c, attr) in counters.items()}
 
     def unmasked(**kw) -> dict:
-        """Expected counts of an opaque frame: the masked variants unused."""
-        return {**kw, "trace_v7_masked": 0, "trace_v9_masked": 0, "trace_v8_masked": 0,
-                "trace_v8_inst": 0, "trace_v8_inst_masked": 0}
+        """Expected counts of an opaque frame: the masked, instanced and
+        multi-segment variants and the probe unused unless kw names them."""
+        return {"trace_v7_masked": 0, "trace_v9_masked": 0, "trace_v8_masked": 0,
+                "trace_v8_inst": 0, "trace_v8_inst_masked": 0, "trace_v8_multi": 0,
+                "fma_peak": 0, **kw}
 
     # ---- 1. environment -------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -292,9 +319,13 @@ def main() -> int:
     libs = kernels.build_all()
     say(f"[2] built {len(libs)} kernel libraries in {time.perf_counter() - t0:.2f} s")
     for name, log in kernels.build_log.items():
+        entry = ""
         for line in log.splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
-                say(f"  {name}: {line.strip()}")
+            m = re.search(r"Compiling entry function '.*?_cu_[0-9a-f]+\d+(\w+?kernel)(I\w*?E)?(?=E)", line)
+            if m:     # the kernel and its template arguments, as mangled
+                entry = m.group(1) + (m.group(2) or "")
+            elif "registers" in line or "smem" in line or "spill" in line:
+                say(f"  {name} {entry}: {line.strip()}")
 
     # ---- 3. v7 kernel vs plain ------------------------------------------
     scene = scenes.procedural_mesh(100_000, sun=True)
@@ -1010,6 +1041,201 @@ def main() -> int:
             "[20] the moved scene and the fresh compile disagree")
     require(moved_px > 0, "[20] the move changed no hit")
 
+    # ---- 21. the multi-segment occlusion kernel (B4) ---------------------------
+    def frame_segments(w, h, shadow_rays):
+        """The area-light shadow segments the megakernel traces for primary
+        sample 0 of a w x h frame of the 100k scene: one (origins, dirs_s,
+        t_lo, t_hi_s) per light triangle, recorded by a fused query that
+        resolves them with the kernel."""
+        got = []
+
+        def record(o, ds, lo, hs):
+            got.append((o, ds, lo, hs))
+            return v8.hier_occluded_multi(gpu, cfg9, o, ds, lo, hs)
+
+        cfg_s = cfg9.replace(width=w, height=h, primary_rays=1, shadow_rays=shadow_rays)
+        be = make_backend(gpu, cfg_s)._replace(occluded_multi=record)
+        with torch.inference_mode():
+            render_components(gpu, scene.camera.viewport_frame(w, h, device=dev), cfg_s, 0, be)
+        require(len(got) == gpu.num_light_tris, f"[21] {len(got)} fused queries recorded")
+        return got
+
+    def multi_kernel(o, ds, lo, hs, count=False):
+        rays, _ = v8.pack_rays_multi(o, ds, lo, hs)
+        return v8.trace_hier_multi_kernel(rays, sup, blk, hcoeff, nsup, count)
+
+    def singles(o, ds, lo, hs, hinted=False, count=False):
+        """One v8 occluded launch per sample on the same segments; hinted:
+        chained as the frame chains them, each fed the previous one's
+        hints."""
+        outs, hints = [], None
+        for d, hi in zip(ds, hs):
+            out = v8_kernel(v7._pack_rays(o, d, lo, hi)[0], "occluded", None, hints, count)
+            hints = out[1][:, 3:5, 0].contiguous() if hinted else None
+            outs.append(out)
+        return outs
+
+    def same_flags(k, outs, what):
+        for s, out in enumerate(outs):
+            diff = int((k[0][:, s] != out[0][:, 0]).sum())
+            require(diff == 0, f"{what}: sample {s} flags differ on {diff} rays")
+        say(f"  {what}: {sum(int(out[0][:, 0].sum()) for out in outs)} occluded of "
+            f"{len(outs) * outs[0][0][:, 0].numel()} sample lanes, flags equal")
+
+    def median_ms(fn, reps):
+        """(median milliseconds of `reps` calls of fn, each timed alone by
+        CUDA events after one warm-up; the last result)."""
+        out = fn()
+        times = []
+        for _ in range(reps):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return statistics.median(times), out
+
+    # (a) against the twin on the segments of a 320x180 frame, S = 8 and its
+    # first 1, 2 and 3 samples.
+    o8, ds8, lo8, hs8 = frame_segments(320, 180, 8)[0]
+    multi_err = 0.0
+    for n_s in (1, 2, 3, 8):
+        rays, _ = v8.pack_rays_multi(o8, ds8[:n_s], lo8, hs8[:n_s])
+        k = v8.trace_hier_multi_kernel(rays, sup, blk, hcoeff, nsup)
+        p = v8.trace_hier_multi_plain(rays, sup, blk, hcoeff, nsup)
+        diff = int((k[0][:, :n_s] != p[0][:, :n_s]).sum())
+        require(diff == 0, f"[21] B4 vs its twin, 320x180, S = {n_s}: flags differ on {diff} lanes")
+        multi_err = max(multi_err, float((k[0] - p[0]).abs().max()))
+        say(f"  [21] B4 vs its twin, 320x180 light-0 segments, S = {n_s}: "
+            f"{int(k[0][:, :n_s].sum())} occluded of {n_s * rays.shape[0] * 128} sample lanes, flags equal")
+
+    # (b) against three single v8 launches at 1080p, S = 3.
+    o, ds, lo, hs = frame_segments(W, H, 3)[0]
+    inactive = float((lo > 1e30).float().mean())
+    k3 = multi_kernel(o, ds, lo, hs)
+    same_flags(k3, singles(o, ds, lo, hs), "[21] B4 vs three single v8 launches, 1080p, S = 3")
+    same_flags(k3, singles(o, ds, lo, hs, hinted=True), "[21] B4 vs three hint-chained v8 launches")
+    rays3, _ = v8.pack_rays_multi(o, ds, lo, hs)
+    b4_plain_ms, p3 = once_ms(lambda: v8.trace_hier_multi_plain(rays3, sup, blk, hcoeff, nsup))
+    require(torch.equal(k3[0][:, :3], p3[0][:, :3]), "[21] B4 vs its twin at 1080p: flags differ")
+    # (c) a direction set whose x and z components straddle zero per ray.
+    g = np.random.default_rng(21)
+    active = lo < 1e30
+    ds_x, hs_x = [], []
+    for _ in range(3):
+        dx = torch.from_numpy(np.stack([g.uniform(-0.4, 0.4, o.shape[0]), np.ones(o.shape[0]),
+                                        g.uniform(-0.4, 0.4, o.shape[0])], 1).astype(np.float32)).to(dev)
+        ds_x.append(dx / dx.norm(dim=1, keepdim=True))
+        hx = torch.from_numpy(g.uniform(2.0, 12.0, o.shape[0]).astype(np.float32)).to(dev)
+        hs_x.append(torch.where(active, hx, -3.0e38))
+    kx = multi_kernel(o, ds_x, lo, hs_x)
+    same_flags(kx, singles(o, ds_x, lo, hs_x), "[21] B4 vs three single launches, straddling directions")
+
+    b4_ms, _ = median_ms(lambda: multi_kernel(o, ds, lo, hs), 10)
+    one_ms, one = median_ms(lambda: singles(o, ds, lo, hs), 10)
+    chain_ms, chain = median_ms(lambda: singles(o, ds, lo, hs, hinted=True), 10)
+    b4c = multi_kernel(o, ds, lo, hs, count=True)
+    require(torch.equal(b4c[0], k3[0]) and torch.equal(b4c[1][:, 0:2], k3[1][:, 0:2]),
+            "[21] B4: the counting variant's results differ")
+    hslabs, tests, fams, slabs = (int(b4c[1][:, r].sum()) for r in (4, 5, 6, 7))
+    require(tests > 0 and fams > 0, "[21] B4 counted no work")
+    b4_bound = bound(MULTI_TEST_OPS * tests + FAMILY_OPS * fams + HULL_SLAB_OPS * hslabs
+                     + SLAB_OPS * slabs, nbytes(rays3) + h_in + (3 + 2) * rays3.shape[0] * 128 * 4)
+    one_c = singles(o, ds, lo, hs, count=True)
+    b4_visits = int(k3[1][:, 0, 0].sum())
+    one_visits = [int(x[1][:, 1, 0].sum()) for x in one]
+    chain_visits = [int(x[1][:, 1, 0].sum()) for x in chain]
+    say(f"[21] 1080p light-0 segments, S = 3, {inactive:.4f} of the rays inactive: B4 {b4_ms:.3f} ms "
+        f"(median of 10), three single v8 traces {one_ms:.3f} ms unhinted, {chain_ms:.3f} ms "
+        f"hint-chained, B4's twin {b4_plain_ms:.3f} ms ({card})")
+    say(f"[21] visits (tile sums): B4 {b4_visits}, singles unhinted {one_visits}, hint-chained "
+        f"{chain_visits}; B4 sample tests {tests}, origin-family evaluations {fams}, hull slab tests "
+        f"{hslabs}, per-sample slab tests {slabs}; the singles' pairs tested "
+        f"{[int(x[1][:, 5].sum()) for x in one_c]}, slab tests {[int(x[1][:, 6].sum()) for x in one_c]}; "
+        f"B4 bound {b4_bound[0]:.4f} ms by {b4_bound[1]}")
+
+    # ---- 22. the reference-default frame through the fused path --------------
+    def fused(cfg_f, trace=v8.trace_blocks_hier_multi, plain=False):
+        be = make_hybrid_backend(gpu, cfg_f, plain=True) if plain else make_backend(gpu, cfg_f)
+        return be._replace(occluded_multi=lambda o_, ds_, lo_, hs_: v8.hier_occluded_multi(
+            gpu, cfg_f, o_, ds_, lo_, hs_, trace=trace))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held22 = torch.cuda.memory_allocated()
+    zero_counts()
+    img22 = render_pipeline_gpu(gpu, frame, cfg9, backend=fused(cfg9))
+    torch.cuda.synchronize()
+    counts22 = read_counts()
+    peak22 = torch.cuda.max_memory_allocated() / 2**30
+    want22 = unmasked(trace_v7=0, trace_v9=cfg9.primary_rays, trace_v8=cfg9.primary_rays,
+                      trace_v8_multi=cfg9.primary_rays * gpu.num_light_tris,
+                      atrous_pair=cfg9.denoise_iterations)
+    say(f"[22] the reference-default frame with v8's fused shadow query: launches {counts22}")
+    require(counts22 == want22, f"[22] fused frame: expected launches {want22}, counted {counts22}")
+    img22 = img22.cpu().numpy()
+    img_def = render_pipeline_gpu(gpu, frame, cfg9).cpu().numpy()
+    n_diff = int((img22 != img_def).sum())
+    require(n_diff == 0, f"[22] the fused frame differs from the default frame in {n_diff} values")
+    say(f"[22] fused frame bit-equal to the default frame on the same compiled scene; bit-equal to "
+        f"phase 9's rt.render image: {bool(np.array_equal(img22, img9))}; peak memory {peak22:.3f} "
+        f"GiB, of which {held22 / 2**30:.3f} GiB were held before")
+    times22 = {"default": [], "fused": []}
+    be22 = {"default": None, "fused": fused(cfg9)}
+    for name in times22:
+        render_pipeline_gpu(gpu, frame, cfg9, backend=be22[name])       # warm-up, discarded
+    for _ in range(3):
+        for name in times22:
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            render_pipeline_gpu(gpu, frame, cfg9, backend=be22[name])
+            b.record()
+            b.synchronize()
+            times22[name].append(a.elapsed_time(b))
+    frame22 = {k: statistics.median(v) for k, v in times22.items()}
+    say(f"[22] frame time, CUDA events, median of 3 after a warm-up, in turns: default "
+        f"{frame22['default']:.2f} ms {[round(x, 2) for x in times22['default']]}, fused "
+        f"{frame22['fused']:.2f} ms {[round(x, 2) for x in times22['fused']]} ({card})")
+    cfg22 = cfg9.replace(width=160, height=90)
+    frame22s = scene.camera.viewport_frame(160, 90, device=dev)
+    img_k = render_pipeline_gpu(gpu, frame22s, cfg22, backend=fused(cfg22)).cpu().numpy()
+    with torch.inference_mode():
+        comp = render_components(gpu, frame22s, cfg22, 0, backend=fused(
+            cfg22, trace=v8.trace_blocks_hier_multi_plain, plain=True))
+        s_, u_ = comp.shadowed, comp.unshadowed
+        for i in range(cfg22.denoise_iterations):
+            s_, u_ = atrous_pair_iteration_plain(s_, u_, comp.normal, comp.position, i + 1, *phis6)
+        img_p = ratio_combine(comp.analytic, s_, u_).cpu().numpy()
+    share = image_rule(img_k, img_p, "[22] 160x90 fused frame, kernels vs plain")
+    say(f"[22] 160x90 fused frame kernels vs plain: {share:.6%} of values differ by > 2e-3, "
+        f"max |err| {np.abs(img_k - img_p).max()}")
+
+    # ---- 23. the f32 FMA peak probe (B6) ----------------------------------------
+    zero_counts()
+    fma_ms, fma_tflops, fma_out = probes.fma_peak(dev, iters=32)
+    counts23 = read_counts()
+    require(counts23 == {name: (33 if name == "fma_peak" else 0) for name in counts23},
+            f"[23] the probe's launches: {counts23}")
+    ones = torch.ones((probes.ROWS, probes.LANES), dtype=torch.float32, device=dev)
+    fma_plain_ms, fma_ref = once_ms(lambda: probes.fma_peak_plain(ones))
+    torch.testing.assert_close(fma_out, fma_ref, rtol=1e-6, atol=0.0, msg=lambda m: f"[23] probe: {m}")
+    xr = torch.from_numpy(g.uniform(0.5, 1.5, (probes.ROWS, probes.LANES)).astype(np.float32)).to(dev)
+    fk, fp = probes.fma_peak_kernel(xr), probes.fma_peak_plain(xr)
+    torch.testing.assert_close(fk, fp, rtol=1e-6, atol=0.0, msg=lambda m: f"[23] probe, random x: {m}")
+    fma_err = max(float((fma_out - fma_ref).abs().max()), float((fk - fp).abs().max()))
+    fma_bound = bound(probes.FLOP_PER_CALL, 2 * ones.numel() * 4)
+    sass = subprocess.run([shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump", "-sass",
+                           str(kernels.build("fma_peak"))], capture_output=True, text=True, timeout=120)
+    require(sass.returncode == 0, f"[23] cuobjdump failed: {sass.stderr.strip()}")
+    ffma = sum(1 for line in sass.stdout.splitlines() if re.search(r"\bFFMA\b", line))
+    require(ffma >= probes.CHAINS * probes.STEPS, f"[23] {ffma} FFMA in the probe's SASS, "
+            f"not the {probes.CHAINS * probes.STEPS} of its chains")
+    say(f"[23] FMA peak probe: {fma_ms:.5f} ms per call (mean of 32 after a warm-up), "
+        f"{fma_tflops:.3f} TFLOP/s f32 FMA against the data sheet's 67 TFLOP/s; {ffma} FFMA per "
+        f"thread in the SASS; twin {fma_plain_ms:.3f} ms, max |err| {fma_err}; bound "
+        f"{fma_bound[0]:.5f} ms by {fma_bound[1]} ({card})")
+
     shadow_row = v8_rows["occluded shadow segments"]
     say(json.dumps({"kernels": [
         {"name": "trace_v7", "route": "cuda", "source": "realtimeraytracer_torch/csrc/trace_v7.cu",
@@ -1054,6 +1280,14 @@ def main() -> int:
          "launches": frames18["alpha"][1]["trace_v8_inst_masked"], "max_abs_err": vim_err,
          "ms": inst_rows[True][0], "plain_ms": inst_rows[True][1], "bound_ms": inst_rows[True][3][0],
          "bound_by": inst_rows[True][3][1], "library_ms": None},
+        {"name": "trace_v8_multi", "route": "cuda", "source": "realtimeraytracer_torch/csrc/trace_v8.cu",
+         "replaces": "realtimeraytracer_tpu/render/hier_backend.py:985",
+         "launches": counts22["trace_v8_multi"], "max_abs_err": multi_err, "ms": b4_ms,
+         "plain_ms": b4_plain_ms, "bound_ms": b4_bound[0], "bound_by": b4_bound[1], "library_ms": None},
+        {"name": "fma_peak", "route": "cuda", "source": "realtimeraytracer_torch/csrc/fma_peak.cu",
+         "replaces": "scripts/r4_probe.py:58",
+         "launches": counts23["fma_peak"], "max_abs_err": fma_err, "ms": fma_ms,
+         "plain_ms": fma_plain_ms, "bound_ms": fma_bound[0], "bound_by": fma_bound[1], "library_ms": None},
     ]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -96,8 +96,53 @@
 // traversal, and the L1 sort takes up to SPAGES*128 keys (padded to 4,096:
 // 16 KB of dynamic shared memory).
 //
+// Multi-segment occlusion (MULTI, entry rt_trace_v8_multi; replaces
+// realtimeraytracer_tpu/render/hier_backend.py::hier_occluded_multi, kernel
+// body _trace_kernel_multi/_tile_body_multi).  The S stochastic shadow
+// segments of one light triangle share their origin and are traced in one
+// pass.  Rays (Ts, 4 + 4S, 128) f32 rows [o.xyz | t_min | (d.xyz | t_hi) x S]
+// (render/hier_backend.py::pack_rays_multi; pad lanes and inactive rays
+// t_min = 3e38, t_hi = -3e38), 1 <= S <= 8; sup, blk and coeff as above, a
+// non-instanced scene; no hints, no masks.  Outputs: outf rows 0..S-1 = 1.0
+// where sample s is occluded, which equals an occluded launch of the kernel
+// above on (o, d_s, t_min, t_hi_s); outi row 0 = blocks visited, row 1 =
+// supers popped.  Work counts with count = 1: outi row 4 = hull slab tests
+// (this thread's share of the tile's L1 and L2 culls), row 5 = ray-triangle
+// sample tests (each sample up to its first hit), row 6 = origin-family
+// evaluations (one per triangle a ray reaches at a visit), row 7 = the
+// per-sample slab tests at visits.
+//   Design.  One thread per ray; its origin, t_min and the S directions,
+//   inverse directions and t_hi sit in registers (S is a template
+//   parameter).  The culls use the ray's direction hull: per axis the
+//   interval [min_s d, max_s d]; a sign-definite one (lo > EPS or hi < -EPS)
+//   inverts to [1/hi, 1/lo], one that straddles zero passes the axis, and
+//   the slab takes the min and max of (p - o) times both ends.  Division and
+//   multiplication round monotonically, so every sample's own slab interval
+//   lies inside the hull's: a hull entry is a lower bound for every sample
+//   and v8's stop rules stay exact.  A ray's live limit is the greatest t_hi
+//   of its samples not yet occluded (-3e38 when none is left: retired).  At
+//   a visit each live sample slab-tests the block with its own inverse
+//   direction under its own window, as the single kernel's per-visit test
+//   does.  Each trace then reaches every block whose slab test passes for
+//   the sample until the sample is occluded and tests no other, so both
+//   flags are the same any-hit over the same blocks.  Per triangle the
+//   origin family (s0, ou, ov) is computed once, then each sample still
+//   untested in this block pays its direction dots and accept test; a sample
+//   retires at its first hit.  One thread per ray means a retired sample or
+//   ray skips its math without holding its neighbours, which the TPU's
+//   128-lane blocks could not do (there the fused trace lost to three
+//   single ones).
+//   What bounds it: f32 operations, 29 per sample test (three direction
+//   dots 15, |s1| > eps 2, t 2, u and v 4, u + v 1, five compares), 18 per
+//   origin-family evaluation (three origin dots), 45 per hull slab test (per
+//   axis two subtractions, four multiplications and six min/max, then the
+//   near/far combine 4, four compares and max(near, 0)) and 27 per
+//   per-sample slab test.
+//
 // Numerics: -fmad=false, the same expressions and order as the plain twins
-// (render/hier_backend.py::trace_hier_plain, trace_hier_inst_plain).
+// (render/hier_backend.py::trace_hier_plain, trace_hier_inst_plain; the
+// multi-segment twin trace_hier_multi_plain runs trace_hier_plain per
+// sample).
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -625,6 +670,268 @@ int launch(TraceFn fn, size_t static_smem, const void* rays, const void* sup,
 // dot, mask, key and work rows, and with INST the InstTile).
 constexpr size_t STATIC_SMEM = sizeof(Tile) + (CROWS + 3 + 2 + 1 + 3) * TILE * sizeof(float) + 64;
 
+// ---- MULTI: S shared-origin occlusion segments per ray --------------------
+
+constexpr int MAX_SEGMENTS = 8;
+
+// The multi-segment kernel's shared ray state: origins, the inverse of each
+// ray's direction hull, its straddle bits, t_min and the live limits.
+struct HullTile {
+  float o[3][TILE];
+  float ilo[3][TILE];
+  float ihi[3][TILE];
+  int fl[TILE];          // bit a set where the hull's axis a straddles zero
+  float tmin[TILE];
+  float limit[TILE];
+};
+
+// slab_entry for every direction of a ray's hull: the interval of (p - o)
+// times [ilo, ihi] per axis; fl's axes pass every slab.
+__device__ __forceinline__ float hull_entry(const float* lo, const float* hi, const float* o,
+                                           const float* ilo, const float* ihi, int fl,
+                                           float tmin, float limit) {
+  float near = 0.0f, far = 0.0f;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    float na, fa;
+    if (fl & (1 << a)) {
+      na = -BIG;
+      fa = BIG;
+    } else {
+      const float s0 = lo[a] - o[a], s1 = hi[a] - o[a];
+      const float p0 = s0 * ilo[a], q0 = s0 * ihi[a];
+      const float p1 = s1 * ilo[a], q1 = s1 * ihi[a];
+      na = fminf(fminf(p0, q0), fminf(p1, q1));
+      fa = fmaxf(fmaxf(p0, q0), fmaxf(p1, q1));
+    }
+    near = a == 0 ? na : fmaxf(near, na);
+    far = a == 0 ? fa : fminf(far, fa);
+  }
+  const bool ok = lo[0] <= hi[0] && near <= far && far >= tmin && near <= limit;
+  return ok ? fmaxf(near, 0.0f) : __int_as_float(INVALID);
+}
+
+// box_min_entry under the rays' hulls.  A valid box adds `live` to this
+// thread's hull slab count.
+template <bool COUNT>
+__device__ __forceinline__ float hull_min_entry(const HullTile& T, const float* page, int b,
+                                               int live, int& hslabs) {
+  float lo[3], hi[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    lo[a] = page[a * TILE + b];
+    hi[a] = page[(3 + a) * TILE + b];
+  }
+  float emin = __int_as_float(INVALID);
+  if (!(lo[0] <= hi[0])) return emin;
+  if (COUNT) hslabs += live;
+  for (int r = 0; r < TILE; ++r) {
+    const float o[3] = {T.o[0][r], T.o[1][r], T.o[2][r]};
+    const float ilo[3] = {T.ilo[0][r], T.ilo[1][r], T.ilo[2][r]};
+    const float ihi[3] = {T.ihi[0][r], T.ihi[1][r], T.ihi[2][r]};
+    emin = fminf(emin, hull_entry(lo, hi, o, ilo, ihi, T.fl[r], T.tmin[r], T.limit[r]));
+  }
+  return emin;
+}
+
+// The greatest t_hi over the samples not yet occluded, -BIG if none is left.
+template <int S>
+__device__ __forceinline__ float live_limit(const float (&thi)[S], unsigned occ) {
+  float lim = -BIG;
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+    if (!((occ >> s) & 1u)) lim = fmaxf(lim, thi[s]);
+  return lim;
+}
+
+// One block visit for S samples: stage the coefficients; each live sample
+// slab-tests the block box (lane b of `page`) with its own inverse direction
+// (axis bits 3s..3s+2 of sfl) under [tmin, thi_s]; those that pass test the
+// block's triangles, sharing the origin family per triangle.  Every thread
+// of the CTA calls it (it holds a barrier).
+template <int S, bool COUNT>
+__device__ __forceinline__ void visit_multi(
+    int cid, const float* __restrict__ coeff, const float* __restrict__ page, int b,
+    float* coef, const float (&o)[3], const float (&d)[S][3], const float (&inv)[S][3],
+    int sfl, const float (&thi)[S], float tmin, unsigned& occ, int& visits, int& tests,
+    int& fams, int& slabs) {
+  const int lane = threadIdx.x;
+  const float* cg = coeff + (size_t)cid * CROWS * TILE;
+#pragma unroll
+  for (int row = 0; row < CROWS; ++row)
+    coef[row * TILE + lane] = cg[row * TILE + lane];
+  __syncthreads();
+  ++visits;
+  float lo[3], hi[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    lo[a] = page[a * TILE + b];
+    hi[a] = page[(3 + a) * TILE + b];
+  }
+  unsigned todo = 0;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    if (((occ >> s) & 1u) || !(tmin <= thi[s])) continue;
+    if (COUNT) ++slabs;
+    if (slab_entry(lo, hi, o, inv[s], (sfl >> (3 * s)) & 7, tmin, thi[s]) <
+        __int_as_float(INVALID))
+      todo |= 1u << s;
+  }
+  for (int j = 0; j < TILE && todo; ++j) {
+    const float s0 = dot_o(coef, 0, j, o[0], o[1], o[2]);
+    const float ou = dot_o(coef, 4, j, o[0], o[1], o[2]);
+    const float ov = dot_o(coef, 8, j, o[0], o[1], o[2]);
+    if (COUNT) ++fams;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      if (!((todo >> s) & 1u)) continue;
+      if (COUNT) ++tests;
+      const float s1 = dot_d(coef, 0, j, d[s][0], d[s][1], d[s][2]);
+      const float du = dot_d(coef, 4, j, d[s][0], d[s][1], d[s][2]);
+      const float dv = dot_d(coef, 8, j, d[s][0], d[s][1], d[s][2]);
+      const bool den_ok = fabsf(s1) > EPS;
+      const float t = den_ok ? (-s0) / s1 : BIG;
+      const float u = ou + t * du;
+      const float v = ov + t * dv;
+      if (den_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t >= tmin && t <= thi[s]) {
+        todo &= ~(1u << s);
+        occ |= 1u << s;
+      }
+    }
+  }
+}
+
+template <int S, bool COUNT>
+__global__ void __launch_bounds__(TILE) trace_v8_multi_kernel(
+    const float* __restrict__ rays, const float* __restrict__ sup,
+    const float* __restrict__ blk, const float* __restrict__ coeff,
+    float* __restrict__ outf, int* __restrict__ outi, int nsup, int cb, int l1_mask) {
+  extern __shared__ int l1keys[];                 // cap1 super keys
+  __shared__ HullTile T;
+  __shared__ float coef[CROWS * TILE];
+  __shared__ int l2keys[SUP];
+  __shared__ int count;
+  const int tile = blockIdx.x;
+  const int lane = threadIdx.x;
+
+  const float* r = rays + (size_t)tile * (4 + 4 * S) * TILE;
+  const float o[3] = {r[0 * TILE + lane], r[1 * TILE + lane], r[2 * TILE + lane]};
+  const float tmin = r[3 * TILE + lane];
+  float d[S][3], inv[S][3], thi[S];
+  int sfl = 0;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      d[s][a] = r[(4 + 4 * s + a) * TILE + lane];
+      const bool par = fabsf(d[s][a]) <= EPS;
+      sfl |= par ? 1 << (3 * s + a) : 0;
+      inv[s][a] = 1.0f / (par ? 1.0f : d[s][a]);
+    }
+    thi[s] = r[(7 + 4 * s) * TILE + lane];
+  }
+  int hfl = 0;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    float lo = d[0][a], hi = d[0][a];
+#pragma unroll
+    for (int s = 1; s < S; ++s) {
+      lo = fminf(lo, d[s][a]);
+      hi = fmaxf(hi, d[s][a]);
+    }
+    const bool definite = lo > EPS || hi < -EPS;
+    hfl |= definite ? 0 : 1 << a;
+    T.o[a][lane] = o[a];
+    T.ilo[a][lane] = definite ? 1.0f / hi : -BIG;
+    T.ihi[a][lane] = definite ? 1.0f / lo : BIG;
+  }
+  T.fl[lane] = hfl;
+  T.tmin[lane] = tmin;
+
+  unsigned occ = 0;
+  int visits = 0, l1pops = 0, hslabs = 0, tests = 0, fams = 0, slabs = 0;
+
+  // L1: least hull entry per super over the live rays, sorted once.
+  if (lane == 0) count = 0;
+  T.limit[lane] = live_limit<S>(thi, occ);
+  const int live1 = live_count<COUNT>(tmin <= live_limit<S>(thi, occ));
+  for (int s = lane; s < nsup; s += TILE) {
+    const float e = hull_min_entry<COUNT>(T, sup + (size_t)(s / TILE) * 8 * TILE, s % TILE,
+                                          live1, hslabs);
+    if (__float_as_int(e) != INVALID)
+      l1keys[atomicAdd(&count, 1)] = (__float_as_int(e) & ~l1_mask) | s;
+  }
+  __syncthreads();
+  const int n1 = count;
+  int p1 = 1;
+  while (p1 < n1) p1 <<= 1;
+  for (int k = n1 + lane; k < p1; k += TILE) l1keys[k] = KEY_PAD;
+  __syncthreads();
+  bitonic_sort(l1keys, p1);
+
+  for (int i = 0; i < n1; ++i) {
+    const int key = l1keys[i];
+    if (!__syncthreads_or(__float_as_int(live_limit<S>(thi, occ)) >= (key & ~l1_mask)))
+      break;
+    ++l1pops;
+    const int s = key & l1_mask;
+    // L2: block keys of this super against the live hulls.
+    const float* page = blk + (size_t)s * 8 * TILE;
+    T.limit[lane] = live_limit<S>(thi, occ);
+    const int live2 = live_count<COUNT>(tmin <= live_limit<S>(thi, occ));
+    const float e = hull_min_entry<COUNT>(T, page, lane, live2, hslabs);
+    l2keys[lane] = __float_as_int(e) == INVALID
+                       ? INVALID
+                       : (__float_as_int(e) & ~((1 << BLK_BITS) - 1)) | lane;
+    __syncthreads();
+    bitonic_sort(l2keys, SUP);
+    for (int j = 0; j < SUP; ++j) {
+      const int k2 = l2keys[j];
+      if (k2 == INVALID) break;                      // uniform: shared read
+      if (!__syncthreads_or(__float_as_int(live_limit<S>(thi, occ)) >=
+                            (k2 & ~((1 << BLK_BITS) - 1))))
+        break;
+      const int b = k2 & ((1 << BLK_BITS) - 1);
+      visit_multi<S, COUNT>(min(s * SUP + b, cb - 1), coeff, page, b, coef, o, d, inv, sfl,
+                            thi, tmin, occ, visits, tests, fams, slabs);
+    }
+  }
+
+  float* of = outf + (size_t)tile * 8 * TILE;
+  int* oi = outi + (size_t)tile * 8 * TILE;
+#pragma unroll
+  for (int s = 0; s < S; ++s) of[s * TILE + lane] = ((occ >> s) & 1u) ? 1.0f : 0.0f;
+  oi[lane] = visits;
+  oi[TILE + lane] = l1pops;
+  if (COUNT) {
+    oi[4 * TILE + lane] = hslabs;
+    oi[5 * TILE + lane] = tests;
+    oi[6 * TILE + lane] = fams;
+    oi[7 * TILE + lane] = slabs;
+  }
+}
+
+typedef void (*MultiFn)(const float*, const float*, const float*, const float*, float*, int*,
+                        int, int, int);
+
+template <bool COUNT>
+MultiFn pick_multi(int s_count) {
+  switch (s_count) {
+    case 1: return trace_v8_multi_kernel<1, COUNT>;
+    case 2: return trace_v8_multi_kernel<2, COUNT>;
+    case 3: return trace_v8_multi_kernel<3, COUNT>;
+    case 4: return trace_v8_multi_kernel<4, COUNT>;
+    case 5: return trace_v8_multi_kernel<5, COUNT>;
+    case 6: return trace_v8_multi_kernel<6, COUNT>;
+    case 7: return trace_v8_multi_kernel<7, COUNT>;
+    case MAX_SEGMENTS: return trace_v8_multi_kernel<MAX_SEGMENTS, COUNT>;
+    default: return nullptr;
+  }
+}
+
+// An upper bound of the multi-segment CTA's static shared memory.
+constexpr size_t MULTI_STATIC_SMEM = sizeof(HullTile) + (CROWS + 1) * TILE * sizeof(float) + 64;
+
 }  // namespace
 
 extern "C" {
@@ -660,6 +967,29 @@ int rt_trace_v8_inst(const void* rays, const void* pairs, const void* blk,
   TraceFn fn = count ? pick_inst<true>(mode, masked) : pick_inst<false>(mode, masked);
   return launch(fn, STATIC_SMEM + sizeof(InstTile), rays, pairs, blk, coeff, amask, nullptr,
                 pair_tab, inst_inv, outf, outi, ts, npair, cb, 0, l1_mask, nblk, ninst, stream);
+}
+
+// The multi-segment kernel: rays (ts, 4 + 4 s_count, 128), 1 <= s_count <=
+// 8; sup, blk and coeff as rt_trace_v8's.  count = 1 also writes outi rows 4
+// to 7.  Returns cudaErrorInvalidValue for another s_count.
+int rt_trace_v8_multi(const void* rays, const void* sup, const void* blk,
+                      const void* coeff, void* outf, void* outi, int ts, int nsup,
+                      int cb, int l1_mask, int s_count, int count, void* stream) {
+  if (ts <= 0) return 0;
+  MultiFn fn = count ? pick_multi<true>(s_count) : pick_multi<false>(s_count);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  int cap1 = 1;
+  while (cap1 < nsup) cap1 <<= 1;
+  const size_t smem = (size_t)cap1 * sizeof(int);
+  if (smem + MULTI_STATIC_SMEM > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  fn<<<ts, TILE, smem, (cudaStream_t)stream>>>(
+      (const float*)rays, (const float*)sup, (const float*)blk, (const float*)coeff,
+      (float*)outf, (int*)outi, nsup, cb, l1_mask);
+  return (int)cudaGetLastError();
 }
 
 const char* rt_trace_v8_error(int err) {

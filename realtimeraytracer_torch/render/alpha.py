@@ -107,10 +107,10 @@ def wrap_backend_with_alpha(backend: TraceBackend, gpu: TorchScene,
                             cfg: RenderConfig, record: list | None = None) -> TraceBackend:
     """The backend with alpha-tested closest and occlusion queries; the
     backend itself when the scene has no opacity map.  The result has no
-    ``occluded_hinted`` (its occlusion is a ladder of closest traces), so
-    the frame's hint chain turns off.  record: if a list, each ladder
-    decision appends (query, rays that need the round), "closest" or
-    "occluded"."""
+    ``occluded_hinted`` and no ``occluded_multi`` (its occlusion is a ladder
+    of closest traces), so the frame's hint chain turns off.  record: if a
+    list, each ladder decision appends (query, rays that need the round),
+    "closest" or "occluded"."""
     if not gpu.has_textures:
         return backend
     wrap_backend_with_alpha.syncs += 1
@@ -174,6 +174,8 @@ def wrap_backend_with_alpha(backend: TraceBackend, gpu: TorchScene,
                 transparent = in_range & (a < threshold) & ~occ
         return occ
 
+    # occluded_multi is not forwarded: alpha-tested occlusion re-traces
+    # closest hits, which the fused multi-segment path does not do.
     return TraceBackend(closest=closest, occluded=occluded,
                         num_tris=backend.num_tris, num_spheres=backend.num_spheres,
                         perray_cull=backend.perray_cull)

@@ -38,6 +38,11 @@ class TraceBackend(NamedTuple):
     # True when the backend culls per ray (the v8 kernel); callers then
     # skip their shadow-ray sort.
     perray_cull: bool = False
+    # Fused shadow query: occluded_multi(origins, dirs_s, t_lo, t_hi_s) ->
+    # list of S masks, the S shared-origin segments of one light triangle in
+    # one trace (render/hier_backend.py::hier_occluded_multi).  None when the
+    # backend has no fused path; no route supplies one, as in JAX.
+    occluded_multi: Callable | None = None
     # Hint-chained occlusion (v8): occluded_hinted(o, d, lo, hi, hints=...,
     # common=...) -> (mask, hints_out); callers thread hints_out into the
     # next correlated occlusion query.  The mask never depends on hints.
@@ -147,7 +152,8 @@ def make_hybrid_backend(gpu: TorchScene, cfg: RenderConfig,
 
     return TraceBackend(closest=closest, occluded=v8.occluded,
                         num_tris=v8.num_tris, num_spheres=v8.num_spheres,
-                        perray_cull=True, occluded_hinted=v8.occluded_hinted)
+                        perray_cull=True, occluded_multi=v8.occluded_multi,
+                        occluded_hinted=v8.occluded_hinted)
 
 
 _BVH_KINDS = ("pallas", "quarter", "hier", "hybrid")

@@ -3,7 +3,9 @@
 Counterpart of realtimeraytracer_tpu/render/hier_backend.py:
 ``pack_hierarchy``, ``trace_blocks_hier`` (the Pallas kernel, here the CUDA
 kernel csrc/trace_v8.cu), ``hier_closest``, ``hier_occluded``,
-``hier_occluded_hinted`` and ``make_hier_backend``.  Blocks of 128 sorted
+``hier_occluded_hinted``, ``hier_occluded_multi`` (its pack
+``_pack_rays_multi`` is ``pack_rays_multi``, its kernel another entry of
+the same source) and ``make_hier_backend``.  Blocks of 128 sorted
 triangles group into supers of 128 blocks; per tile the kernel slab-tests
 every ray against the super boxes, pops supers in entry order, slab-tests
 the rays against the popped super's block boxes under their live windows,
@@ -26,8 +28,13 @@ definitely-transparent barycentric cells.  Launches count on
 ``trace_blocks_hier``: ``launches`` and ``masked_launches``, and for the
 instanced kernel ``launches_inst`` and ``masked_launches_inst``.
 
-Not ported: the multi-segment occlusion kernel, which the JAX package
-leaves unwired (ROADMAP B4).
+``hier_occluded_multi`` traces the S shadow segments of one light
+triangle, which share their origin, in one launch of the kernel's
+multi-segment entry (``trace_blocks_hier.launches_multi``): the culls use
+each ray's direction hull, the visits share the origin dot family, and
+each sample's flag equals a single ``hier_occluded`` call.  As in the JAX
+package no backend route supplies it (``occluded_multi=None``); a caller
+wires it with ``backend._replace(occluded_multi=...)``.
 
 ``trace_blocks_hier`` launches the kernel for CUDA tensors and runs the
 plain twin (``trace_hier_plain``, ``trace_hier_inst_plain``) for CPU
@@ -214,6 +221,23 @@ def trace_hier_plain(rays, sup_panel, blk_panels, coeff, nsup: int, mode: str,
     return outf, outi
 
 
+def _check_hierarchy(rays, sup_panel, blk_panels, coeff, nsup: int) -> int:
+    """Check the non-instanced kernel's hierarchy inputs (CUDA tensors on
+    the rays' device, supers covering every block); returns the L1 key id
+    mask."""
+    cb = coeff.shape[0]
+    _check(sup_panel, "sup_panel", torch.float32, (SPAGES, 8, 128))
+    _check(blk_panels, "blk_panels", torch.float32, (nsup, 8, 128))
+    _check(coeff, "coeff", torch.float32, (cb, CROWS, TILE))
+    for x in (sup_panel, blk_panels, coeff):
+        if x.device != rays.device:
+            raise ValueError("the v8 kernel's inputs must be on one device")
+    if not 0 < nsup <= SPAGES * 128 or nsup * SUP < cb:
+        raise ValueError(f"{nsup} superclusters for {cb} blocks: the v8 kernel "
+                         f"takes 1 to {SPAGES * 128} supers covering every block")
+    return (1 << max(7, (nsup - 1).bit_length())) - 1
+
+
 def trace_hier_kernel(rays, sup_panel, blk_panels, coeff, nsup: int, mode: str,
                       common: str | None = None, hints=None, count: bool = False,
                       amask=None):
@@ -227,21 +251,14 @@ def trace_hier_kernel(rays, sup_panel, blk_panels, coeff, nsup: int, mode: str,
     ts = rays.shape[0]
     cb = coeff.shape[0]
     _check(rays, "rays", torch.float32, (ts, 8, TILE))
-    _check(sup_panel, "sup_panel", torch.float32, (SPAGES, 8, 128))
-    _check(blk_panels, "blk_panels", torch.float32, (nsup, 8, 128))
-    _check(coeff, "coeff", torch.float32, (cb, CROWS, TILE))
+    l1_mask = _check_hierarchy(rays, sup_panel, blk_panels, coeff, nsup)
     if hints is not None:
         _check(hints, "hints", torch.int32, (ts, hints.shape[1]))
-    for x in (sup_panel, blk_panels, coeff, hints):
-        if x is not None and x.device != rays.device:
+        if hints.device != rays.device:
             raise ValueError("the v8 kernel's inputs must be on one device")
     if mode not in _MODES or common not in _COMMON:
         raise ValueError(f"bad mode/common {mode!r}/{common!r}")
     _check_amask(amask, coeff, mode)
-    if not 0 < nsup <= SPAGES * 128 or nsup * SUP < cb:
-        raise ValueError(f"{nsup} superclusters for {cb} blocks: the v8 kernel "
-                         f"takes 1 to {SPAGES * 128} supers covering every block")
-    l1_mask = (1 << max(7, (nsup - 1).bit_length())) - 1
     outf = torch.zeros((ts, 8, TILE), dtype=torch.float32, device=rays.device)
     outi = torch.zeros((ts, 8, TILE), dtype=torch.int32, device=rays.device)
     with torch.cuda.device(rays.device):
@@ -528,6 +545,7 @@ trace_blocks_hier.launches = 0
 trace_blocks_hier.masked_launches = 0
 trace_blocks_hier.launches_inst = 0
 trace_blocks_hier.masked_launches_inst = 0
+trace_blocks_hier.launches_multi = 0
 
 
 def trace_blocks_hier_plain(gpu: TorchScene, ray_blocks, mode: str,
@@ -588,15 +606,150 @@ def hier_occluded_hinted(gpu, origins, dirs, t_min, t_max, hints=None,
     return tb > 0.5, outi[:, 3:5, 0].contiguous()
 
 
+# ---- multi-segment occlusion: S shared-origin segments in one pass ---------
+
+MAX_SEGMENTS = 8     # the kernel's outf rows; also JAX's limit
+
+
+def pack_rays_multi(origins, dirs_s, t_lo, t_hi_s):
+    """(R, 3) origins, S x (R, 3) directions, (R,) t_lo and S x (R,) t_hi
+    -> ((Ts, 4+4S, 128) ray tiles, R); rows [o.xyz | t_lo | (d.xyz | t_hi)
+    x S].  Pad lanes get o = d = 0, t_lo = BIG_T and t_hi = -BIG_T (the
+    JAX package's _pack_rays_multi)."""
+    r = origins.shape[0]
+    ts = -(-r // TILE)
+    pad = ts * TILE - r
+
+    def padv(x, fill):
+        if not pad:
+            return x
+        return torch.cat([x, x.new_full((pad,) + tuple(x.shape[1:]), fill)])
+
+    rows = [padv(origins, 0.0).T, padv(t_lo, BIG_T)[None, :]]
+    for d, hi in zip(dirs_s, t_hi_s):
+        rows.append(padv(d, 0.0).T)
+        rows.append(padv(hi, -BIG_T)[None, :])
+    rows = torch.cat(rows, dim=0)                     # (4+4S, R')
+    return rows.reshape(rows.shape[0], ts, TILE).permute(1, 0, 2).contiguous(), r
+
+
+def _segments(rays) -> int:
+    """S of (Ts, 4+4S, 128) multi-segment ray tiles."""
+    nrows = rays.shape[1]
+    s_count = (nrows - 4) // 4
+    if rays.ndim != 3 or nrows != 4 + 4 * s_count or not 1 <= s_count <= MAX_SEGMENTS:
+        raise ValueError(f"multi-segment rays must be (Ts, 4+4S, 128) with 1 <= S <= "
+                         f"{MAX_SEGMENTS}, got {tuple(rays.shape)}")
+    return s_count
+
+
+def trace_hier_multi_plain(rays, sup_panel, blk_panels, coeff, nsup: int):
+    """Plain PyTorch twin of the multi-segment kernel, for any device: one
+    occluded trace_hier_plain per sample on (o, d_s, t_min, t_hi_s).  outf
+    rows 0..S-1 = the flags; outi row 0 = the tile's candidate blocks and
+    rows 5 and 7 the pairs and slab tests of each ray, summed over the
+    samples."""
+    s_count = _segments(rays)
+    ts = rays.shape[0]
+    outf = torch.zeros((ts, 8, TILE), dtype=torch.float32, device=rays.device)
+    outi = torch.zeros((ts, 8, TILE), dtype=torch.int32, device=rays.device)
+    for s in range(s_count):
+        c = 4 + 4 * s
+        single = torch.cat([rays[:, 0:3], rays[:, c:c + 3], rays[:, 3:4], rays[:, c + 3:c + 4]],
+                           dim=1)
+        f, i = trace_hier_plain(single, sup_panel, blk_panels, coeff, nsup, "occluded")
+        outf[:, s] = f[:, 0]
+        outi[:, 0] += i[:, 1]
+        outi[:, 5] += i[:, 5]
+        outi[:, 7] += i[:, 6]
+    return outf, outi
+
+
+def trace_hier_multi_kernel(rays, sup_panel, blk_panels, coeff, nsup: int,
+                            count: bool = False):
+    """Launch the multi-segment entry of csrc/trace_v8.cu (CUDA tensors
+    only); adds one to ``trace_blocks_hier.launches_multi``.  rays (Ts,
+    4+4S, 128) f32 from pack_rays_multi, 1 <= S <= 8.  Returns (outf,
+    outi): outf rows 0..S-1 = the occluded flags, outi row 0 = blocks
+    visited, row 1 = supers popped.  count=True launches the variant that
+    also writes its work counts: outi row 4 = hull slab tests, 5 =
+    ray-triangle sample tests, 6 = origin-family evaluations, 7 =
+    per-sample slab tests."""
+    ts, cb = rays.shape[0], coeff.shape[0]
+    s_count = _segments(rays)
+    _check(rays, "rays", torch.float32, (ts, 4 + 4 * s_count, TILE))
+    l1_mask = _check_hierarchy(rays, sup_panel, blk_panels, coeff, nsup)
+    outf = torch.zeros((ts, 8, TILE), dtype=torch.float32, device=rays.device)
+    outi = torch.zeros((ts, 8, TILE), dtype=torch.int32, device=rays.device)
+    with torch.cuda.device(rays.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        kernels.launch("trace_v8_multi", rays.data_ptr(), sup_panel.data_ptr(),
+                       blk_panels.data_ptr(), coeff.data_ptr(), outf.data_ptr(),
+                       outi.data_ptr(), ts, nsup, cb, l1_mask, s_count, int(count), stream)
+    trace_blocks_hier.launches_multi += 1
+    return outf, outi
+
+
+def _multi_inputs(gpu: TorchScene):
+    """_hier_inputs of a scene the multi-segment kernel takes: not
+    instanced, at most RESIDENT_CB blocks (the JAX package's limit)."""
+    if gpu.instanced or (gpu.pallas_panels is not None
+                         and gpu.pallas_panels.shape[0] > RESIDENT_CB):
+        raise ValueError("multi-segment occlusion supports resident non-instanced scenes "
+                         f"(at most {RESIDENT_CB} blocks); use occluded per sample")
+    return _hier_inputs(gpu)
+
+
+def trace_blocks_hier_multi(gpu: TorchScene, ray_blocks):
+    """Trace (Ts, 4+4S, 128) multi-segment tiles: the kernel for CUDA
+    tensors, the plain twin for CPU tensors."""
+    coeff, sup_panel, blk_panels, nsup = _multi_inputs(gpu)
+    with record_function("v8.occluded_multi"):
+        if ray_blocks.device.type == "cuda":
+            return trace_hier_multi_kernel(ray_blocks, sup_panel, blk_panels, coeff, nsup)
+        if ray_blocks.device.type == "cpu":
+            return trace_hier_multi_plain(ray_blocks, sup_panel, blk_panels, coeff, nsup)
+    raise ValueError(f"no v8 trace for device {ray_blocks.device}")
+
+
+def trace_blocks_hier_multi_plain(gpu: TorchScene, ray_blocks):
+    """trace_blocks_hier_multi through the plain twin on any device."""
+    coeff, sup_panel, blk_panels, nsup = _multi_inputs(gpu)
+    return trace_hier_multi_plain(ray_blocks, sup_panel, blk_panels, coeff, nsup)
+
+
+def hier_occluded_multi(gpu: TorchScene, cfg: RenderConfig, origins, dirs_s, t_lo, t_hi_s,
+                        trace=trace_blocks_hier_multi) -> list:
+    """S shared-origin occlusion segments in one trace.
+
+    dirs_s / t_hi_s: length-S lists of (R, 3) / (R,) (or scalars for t);
+    returns a list of S (R,) bool masks, each equal to the corresponding
+    hier_occluded call.  Triangles only: analytic spheres are not tested
+    (as in the JAX package; ROADMAP C).  Raises ValueError unless 1 <= S
+    <= 8, and on instanced scenes and scenes of more than RESIDENT_CB
+    blocks.  cfg is the JAX signature's; nothing here reads it."""
+    del cfg
+    s_count = len(dirs_s)
+    if not 1 <= s_count <= MAX_SEGMENTS or len(t_hi_s) != s_count:
+        raise ValueError(f"{s_count} directions and {len(t_hi_s)} t_hi: multi-segment "
+                         f"occlusion takes 1 to {MAX_SEGMENTS} segments, one t_hi each")
+    r, dev = origins.shape[0], origins.device
+    rays, r_orig = pack_rays_multi(
+        origins, dirs_s, intersect.as_per_ray(t_lo, r, dev),
+        [intersect.as_per_ray(h, r, dev) for h in t_hi_s])
+    outf, _ = trace(gpu, rays)
+    return [outf[:, s, :].reshape(-1)[:r_orig] > 0.5 for s in range(s_count)]
+
+
 def make_hier_backend(gpu: TorchScene, cfg: RenderConfig,
                       trace=trace_blocks_hier,
                       use_amask: bool | None = None) -> TraceBackend:
     """The "hier" backend.  trace: trace_blocks_hier (kernel on CUDA, twin
     on CPU) or trace_blocks_hier_plain (twin everywhere).  Hinted
     occlusion exists for scenes of at most RESIDENT_CB blocks, as in the
-    JAX package, and not on instanced scenes; the multi-segment query is
-    not wired there either.  use_amask: closest traces apply the scene's alpha masks; None takes the
-    config's gate (backends.masks_enabled)."""
+    JAX package, and not on instanced scenes.  use_amask: closest traces
+    apply the scene's alpha masks; None takes the config's gate
+    (backends.masks_enabled)."""
     from realtimeraytracer_torch.render.backends import masks_enabled
 
     num_tris = gpu.num_tris
@@ -624,7 +777,10 @@ def make_hier_backend(gpu: TorchScene, cfg: RenderConfig,
 
     hintable = (not gpu.instanced and gpu.pallas_panels is not None
                 and gpu.pallas_panels.shape[0] <= RESIDENT_CB)
+    # hier_occluded_multi is not wired, as in the JAX package (which measured
+    # the fused trace slower than three single ones on its TPU); whether it
+    # pays on the GPU is measured first (ROADMAP D).
     return TraceBackend(closest=closest, occluded=occluded,
                         num_tris=num_tris, num_spheres=num_spheres,
-                        perray_cull=True,
+                        perray_cull=True, occluded_multi=None,
                         occluded_hinted=occluded_hinted if hintable else None)

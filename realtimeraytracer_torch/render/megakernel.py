@@ -15,10 +15,14 @@ occlusion traces and the sun's warm-start from the previous trace's hints,
 across samples and primary samples.  The alpha-tested backend
 (render/alpha.py) has no hinted occlusion, so on alpha scenes the chain is
 off, as in the JAX package.  The per-light shadow-ray sort is
-carried for per-tile culls (v7) and skipped for per-ray culls (v8).  The
-multi-segment and batched-occlusion branches are not: no ported backend
-has a fused multi-segment query (the JAX package leaves v8's unwired), and
-batch_occlusion is a JAX option that is not ported.
+carried for per-tile culls (v7) and skipped for per-ray culls (v8).  So is
+the fused shadow branch: with a backend that has ``occluded_multi`` and
+more than one shadow ray, each light triangle's samples are all drawn
+first and their occlusion resolved by one call, ahead of the hint chain
+(the sun keeps its hints).  No ``make_backend`` route supplies one, as in
+the JAX package; a caller wires v8's with
+``backend._replace(occluded_multi=...)``.  batch_occlusion is a JAX option
+that is not ported.
 """
 
 from __future__ import annotations
@@ -152,11 +156,11 @@ def shade_sample(gpu: TorchScene, cfg: RenderConfig, origins, dirs,
                 m_specs, roughs = m_specular, surf.roughness
                 seeds, actives, sos = pixel_seed, active, shadow_origin
 
-            shadowed_sum = torch.zeros_like(ps)
-            unshadowed_sum = torch.zeros_like(ps)
+            # Barycentric light samples (raygen.rgen:213-219), all drawn
+            # before any is traced; seeds are decorrelated per sample, light
+            # triangle and primary sample.
+            samples = []
             for s in range(num_s):
-                # Barycentric light sample (raygen.rgen:213-219); seeds are
-                # decorrelated per sample, light triangle and primary sample.
                 seed = (seeds + s + i * 7919 + sample_index * 15485863) & rng.MASK32
                 r1 = rng.uniform(seed)
                 r2 = rng.uniform(seed + 100)
@@ -167,21 +171,33 @@ def shade_sample(gpu: TorchScene, cfg: RenderConfig, origins, dirs,
                         + r2[:, None] * (p2 - p0)[None, :])
                 delta = lpos - ps
                 dist = torch.sqrt(torch.clamp_min((delta * delta).sum(-1), 1e-20))
-                sdir = delta / dist[..., None]
+                samples.append((dist, delta / dist[..., None]))
 
-                # Forward shadow segments with the margin at the light end;
-                # inactive lanes get the empty interval [BIG, -BIG).
-                t_lo = torch.where(actives, cfg.t_min, BIG_T)
-                t_hi = torch.where(actives, dist - cfg.shadow_ray_margin, -BIG_T)
+            # Forward shadow segments with the margin at the light end;
+            # inactive lanes get the empty interval [BIG, -BIG).  A backend
+            # with a fused shadow query resolves all samples in one trace.
+            t_lo = torch.where(actives, cfg.t_min, BIG_T)
+            t_his = [torch.where(actives, dist - cfg.shadow_ray_margin, -BIG_T)
+                     for dist, _ in samples]
+            occ_multi = None
+            if backend.occluded_multi is not None and num_s > 1:
+                occ_multi = backend.occluded_multi(sos, [d for _, d in samples], t_lo, t_his)
+
+            shadowed_sum = torch.zeros_like(ps)
+            unshadowed_sum = torch.zeros_like(ps)
+            for s in range(num_s):
+                dist, sdir = samples[s]
+                if occ_multi is not None:
+                    occ = occ_multi[s]
                 # Shadow-hint chain: a light's samples share their tiles'
                 # dominant occluders, so each trace visits the previous
                 # one's first (per-ray-culling backends, which skip the
                 # sort, so the ray layout is the same across traces).
-                if hint_state is not None and not use_sort:
+                elif hint_state is not None and not use_sort:
                     occ, hint_state[("lt", i)] = backend.occluded_hinted(
-                        sos, sdir, t_lo, t_hi, hints=hint_state.get(("lt", i)))
+                        sos, sdir, t_lo, t_his[s], hints=hint_state.get(("lt", i)))
                 else:
-                    occ = backend.occluded(sos, sdir, t_lo, t_hi)
+                    occ = backend.occluded(sos, sdir, t_lo, t_his[s])
                 lit = torch.where(occ, 0.0, 1.0)[:, None]
 
                 ndotl = torch.clamp_min((ns * sdir).sum(-1), 0.1)

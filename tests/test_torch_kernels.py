@@ -10,7 +10,11 @@ The instanced v8 kernel is held to its twin on foliage_field(20_000)
 compiled instanced and at 3,000 (instance, super) pairs, with instance ids
 equal or t equal.
 The masked variants (alpha masks in closest mode) are held to their twins
-by the same rule on a soup of alpha-mapped triangles.
+by the same rule on a soup of alpha-mapped triangles.  The multi-segment
+v8 kernel (hier_occluded_multi) is held to its twin and to one single v8
+occluded launch per sample, flags equal, for S = 1, 3 and 8; the FMA peak
+probe to its twin under rtol 1e-6 (the twin rounds each FMA step through
+float64, which differs from the fused rounding only in rare ties).
 Tolerances: v7, v8 and v9 hit masks and occluded flags equal, t to rtol
 1e-6 and ids equal or t equal (kernel and twin round alike: no multiply-add
 contraction on either side); v8 hints as in tests/test_torch_hier.py; the A-Trous pair rtol 1e-5, atol 1e-6 (expf and the
@@ -527,3 +531,80 @@ def test_instanced_alpha_frame_kernels_match_twins(cuda):
         img_p = ratio_combine(comp.analytic, s, u).cpu().numpy()
     assert np.isfinite(img_k).all() and img_k.std() > 0
     assert (np.abs(img_k - img_p) > 2e-3).mean() < 5e-3
+
+
+# ---- multi-segment occlusion (hier_occluded_multi) and the FMA probe -------
+
+def _multi_segments(device, s_count, n=1000, seed=21):
+    """(o, dirs, tlo, this) of n rays: S directions toward jittered points
+    of a light patch above, every third ray's directions straddling zero
+    in x and z across the samples, one direction with an x component below
+    the parallel-axis epsilon; 20% of the rays inactive."""
+    r = np.random.default_rng(seed)
+    o = r.uniform(-6, 6, (n, 3)).astype(np.float32)
+    dirs, this = [], []
+    for s in range(s_count):
+        lp = np.array([0.0, 8.0, 0.0]) + r.normal(0, 0.5, (n, 3))
+        lp[::3, 0] = o[::3, 0] + r.uniform(-3, 3, len(o[::3]))
+        lp[::3, 2] = o[::3, 2] + r.uniform(-3, 3, len(o[::3]))
+        delta = (lp - o).astype(np.float32)
+        if s == 0:
+            delta[1::3, 0] = 1e-13
+        dist = np.linalg.norm(delta, axis=1)
+        dirs.append((delta / dist[:, None]).astype(np.float32))
+        this.append((dist - 0.5).astype(np.float32))
+    act = r.random(n) > 0.2
+    tlo = np.where(act, 1e-3, BIG_T).astype(np.float32)
+    this = [np.where(act, h, -BIG_T).astype(np.float32) for h in this]
+    to = lambda x: torch.from_numpy(x).to(device)  # noqa: E731
+    return to(o), [to(d) for d in dirs], to(tlo), [to(h) for h in this]
+
+
+def test_multi_kernel_refuses_cpu_tensors():
+    gpu = _soup_scene(200)
+    coeff, sup, blk, nsup = hb._hier_inputs(gpu)
+    o, ds, lo, hs = _multi_segments("cpu", 2, n=300)
+    rays, _ = hb.pack_rays_multi(o, ds, lo, hs)
+    with pytest.raises(ValueError, match="CUDA"):
+        hb.trace_hier_multi_kernel(rays, sup, blk, coeff, nsup)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_tris", [1000, 17000])
+@pytest.mark.parametrize("s_count", [1, 3, 8])
+def test_multi_kernel_matches_twin_and_singles(cuda, n_tris, s_count):
+    """Flags equal the twin's and S single v8 occluded launches'; the
+    counting variant gives the same flags and tests no more pairs than the
+    twin."""
+    gpu = _soup_scene(n_tris).to(cuda)
+    coeff, sup, blk, nsup = hb._hier_inputs(gpu)
+    o, ds, lo, hs = _multi_segments(cuda, s_count)
+    rays, n = hb.pack_rays_multi(o, ds, lo, hs)
+    before = hb.trace_blocks_hier.launches_multi
+    k = hb.trace_hier_multi_kernel(rays, sup, blk, coeff, nsup)
+    assert hb.trace_blocks_hier.launches_multi == before + 1
+    p = hb.trace_hier_multi_plain(rays, sup, blk, coeff, nsup)
+    assert torch.equal(k[0][:, :s_count], p[0][:, :s_count])
+    occ = 0
+    for s in range(s_count):
+        single = v7._pack_rays(o, ds[s], lo, hs[s])[0]
+        f, _ = hb.trace_hier_kernel(single, sup, blk, coeff, nsup, "occluded")
+        assert torch.equal(k[0][:, s], f[:, 0]), f"sample {s}"
+        occ += int(f[:, 0].sum())
+    assert 10 < occ < s_count * n - 10
+    c = hb.trace_hier_multi_kernel(rays, sup, blk, coeff, nsup, count=True)
+    assert torch.equal(c[0], k[0]) and torch.equal(c[1][:, 0:2], k[1][:, 0:2])
+    assert c[1][:, 5].sum() > 0 and (c[1][:, 5] <= p[1][:, 5]).all()
+    assert c[1][:, 4].sum() > 0 and c[1][:, 6].sum() > 0 and c[1][:, 7].sum() > 0
+
+
+@pytest.mark.cuda
+def test_fma_peak_kernel_matches_twin(cuda):
+    from realtimeraytracer_torch.probes import fma_peak, fma_peak_kernel, fma_peak_plain
+
+    x = torch.from_numpy(np.random.default_rng(3).uniform(0.5, 1.5, (512, 128))
+                         .astype(np.float32)).to(cuda)
+    torch.testing.assert_close(fma_peak_kernel(x), fma_peak_plain(x), rtol=1e-6, atol=0.0)
+    ms, tflops, out = fma_peak(cuda, iters=4)
+    assert ms > 0 and tflops > 0
+    torch.testing.assert_close(out, fma_peak_plain(torch.ones_like(out)), rtol=1e-6, atol=0.0)
