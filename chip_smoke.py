@@ -20,21 +20,27 @@ Phases, each of which ends the run with a non-zero exit on failure:
      twin's at the frame's shapes;
   6. a 320x180 "pallas" frame rendered through the kernels and through the
      plain twins, compared;
-  7. the v9 kernel against its twin on 320x180 and 1080p primaries;
+  7. the v9 kernel, which runs its quarter cull in-kernel, against its
+     twin (the plain-torch cull, then the plain trace) on 320x180 and
+     1080p primaries, every output row against the plain cull's ordered
+     visit loop, its time beside the plain cull's;
   8. the v8 kernel against its twin at 1080p: occluded shadow and sun
      segments, closest on incoherent (bounce) rays, and hinted traces fed
-     no hints, their own hints and garbage hints;
+     no hints, their own hints and garbage hints; tiles whose own hints
+     retire every ray (no super popped); procedural_mesh(1_000_000), above
+     32 supers, against the twin at 320x180 and timed at 1080p;
   9. the reference-default frame through rt.render(scene, cfg) with no
      device argument and the default backend ("auto", the hybrid route: v9
-     primaries, v8 occlusion with hints), its launch counts, frame time
-     and peak memory;
+     primaries, v8 occlusion with hints), its launch counts (and no
+     plain-torch quarter cull: v9 culls in-kernel), frame time and peak
+     memory;
  10. a 320x180 hybrid frame through the kernels and through the twins;
  11. the textured, alpha-tested scenes: scenes.foliage_field() compiled
      with bake_instances=True (about 120k triangles) and
      scenes.textured_obj() (through the OBJ, MTL, PNG and HDR loaders);
  12. each masked kernel (in-kernel alpha masks) against its masked twin on
-     the baked foliage at 1080p: v9 and v7 on the primaries, v8 closest on
-     area-light shadow segments;
+     the baked foliage at 1080p: v9 (as in 7) and v7 on the primaries, v8
+     closest on area-light shadow segments;
  13. the alpha closest ladder on the foliage's 1080p primaries with and
      without in-kernel masks: rounds, rays per round, time; hits agree but
      for rays that exhaust the unmasked ladder (the masked hit lies at
@@ -197,6 +203,12 @@ SLAB_OPS = 27
 # kernel: origin rows 3 x (3 mul + 3 add), direction rows 3 x (3 mul + 2
 # add), three |d| tests (6) and three reciprocals (3).
 TRANSFORM_OPS = 42
+# f32 operations per (tile, subcluster box) of the quarter cull that v9 runs
+# in its prologue (csrc/trace_v9.cu sub_key): per axis four subtractions,
+# eight multiplications, twelve min/max in the two interval products and
+# two more for the axis interval (26); the near/far combine (4), three
+# compares, max(entry, 0) and the finiteness test.
+CULL_OPS = 87
 # The multi-segment v8 kernel (csrc/trace_v8.cu, MULTI): per sample test the
 # pair ops less the origin dots (47 - 18), per origin-family evaluation the
 # three origin dots, per hull slab test per axis two subtractions, four
@@ -217,13 +229,14 @@ def bound(ops: float, moved: float) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def trace_bound(outi, common, moved: int) -> tuple[tuple[float, str], int]:
+def trace_bound(outi, common, moved: int, extra_ops: float = 0.0) -> tuple[tuple[float, str], int]:
     """A traversal call's (bound, pairs).  Operations: the ray-triangle
     pairs its rays tested (outi row 5: live rays only, up to the first hit
     in occluded mode) x the pair ops, plus v8's slab tests (outi row 6,
     zero in v7 and v9) x SLAB_OPS, plus the instanced v8's mesh-space
-    transforms (outi row 7, zero elsewhere) x TRANSFORM_OPS.  The
-    tile-shared dot products of a common origin or direction (under 1%
+    transforms (outi row 7, zero elsewhere) x TRANSFORM_OPS, plus
+    `extra_ops` (the fused v9's in-kernel cull).  The tile-shared dot
+    products of a common origin or direction (under 1%
     more) are left out."""
     visits = int(outi[:, 1, 0].sum().item())
     pairs = int(outi[:, 5].sum().item())
@@ -231,8 +244,8 @@ def trace_bound(outi, common, moved: int) -> tuple[tuple[float, str], int]:
     transforms = int(outi[:, 7].sum().item())
     require(0 < pairs <= visits * 128 * 128,
             f"pair count {pairs} outside (0, {visits} visits x 128 x 128]")
-    return bound(pairs * OPS_PER_PAIR[common] + slabs * SLAB_OPS + transforms * TRANSFORM_OPS,
-                 moved), pairs
+    return bound(pairs * OPS_PER_PAIR[common] + slabs * SLAB_OPS + transforms * TRANSFORM_OPS
+                 + extra_ops, moved), pairs
 
 
 def atrous_bound(h: int, w: int, iterations: int) -> tuple[float, str]:
@@ -511,34 +524,57 @@ def main() -> int:
     require(q_coeff is not None, "the 100k scene carries no v9 repacked panels")
     say(f"[7] v9 repacked panels: {q_coeff.shape[0]} blocks")
 
-    def v9_both(rays, common):
-        qkeys, qmask = v7.cull_quarter_keys(rays, gpu.q_cl_min, gpu.q_cl_max)
-        k = v9.trace_quarter_kernel(rays, qkeys, q_coeff, q_off, qmask, common)
-        p = v9.trace_quarter_plain(rays, qkeys, q_coeff, q_off, qmask, common)
-        torch.cuda.synchronize()
-        return k, p
+    def v9_twin(rays, common, amask=None, g=gpu, ordered=True):
+        """The fused kernel's twin: the plain quarter cull, then the plain
+        trace (t, ids) and, with `ordered`, the ordered visit loop (every
+        row; else None)."""
+        qkeys, qmask = v7.cull_quarter_keys(rays, g.q_cl_min, g.q_cl_max)
+        p = v9.trace_quarter_plain(rays, qkeys, g.q_panels, g.q_group_off, qmask, common, amask)
+        if not ordered:
+            return p, None
+        return p, v9.trace_quarter_ordered(rays, qkeys, g.q_panels, g.q_group_off, qmask, common,
+                                           amask)
 
-    v9_err = compare_closest(*v9_both(primary_tiles(320, 180), "origin"),
-                             "[7] v9 closest common=origin 320x180")
+    def v9_fused(rays, common, amask=None, g=gpu):
+        return v9.trace_quarter_kernel(rays, g.q_cl_min, g.q_cl_max, g.q_panels, g.q_group_off,
+                                       common, amask)
+
+    def same_rows(k, o, what):
+        """Every output row of the fused kernel equals the ordered loop's on
+        the plain keys: t, ids, visits (row 1) and pairs (row 5)."""
+        for r_ in range(8):
+            require(torch.equal(k[0][:, r_], o[0][:, r_]), f"{what}: outf row {r_} differs from the "
+                    "plain cull's ordered loop")
+            require(torch.equal(k[1][:, r_], o[1][:, r_]), f"{what}: outi row {r_} differs from the "
+                    "plain cull's ordered loop")
+        say(f"  {what}: every row equals the plain cull's ordered loop ({int(k[1][:, 1, 0].sum())} "
+            f"subcluster visits, {int(k[1][:, 5].sum())} pairs)")
+
+    k = v9_fused(primary_tiles(320, 180), "origin")
+    p, o = v9_twin(primary_tiles(320, 180), "origin")
+    v9_err = compare_closest(k, p, "[7] v9 closest common=origin 320x180")
+    same_rows(k, o, "[7] v9 320x180")
     qkeys, qmask = v7.cull_quarter_keys(prim, gpu.q_cl_min, gpu.q_cl_max)
     qcull_ms, _ = cuda_ms(lambda: v7.cull_quarter_keys(prim, gpu.q_cl_min, gpu.q_cl_max), 3)
-    v9_ms, v9_k = cuda_ms(
-        lambda: v9.trace_quarter_kernel(prim, qkeys, q_coeff, q_off, qmask, "origin"), 10)
-    v9_plain_ms, v9_p = cuda_ms(
-        lambda: v9.trace_quarter_plain(prim, qkeys, q_coeff, q_off, qmask, "origin"), 1)
+    v9_ms, v9_k = cuda_ms(lambda: v9_fused(prim, "origin"), 10)
+    v9_plain_ms, (v9_p, _) = cuda_ms(lambda: v9_twin(prim, "origin", ordered=False), 1)
+    _, v9_o = v9_twin(prim, "origin")
     v9_err = max(v9_err, compare_closest(v9_k, v9_p, "[7] v9 closest common=origin 1080p"))
+    same_rows(v9_k, v9_o, "[7] v9 1080p")
     v9_visits = int(v9_k[1][:, 1, 0].sum().item()) // 4
-    v9_bound, v9_pairs = trace_bound(v9_k[1], "origin", nbytes(prim, qkeys, q_coeff, q_off)
-                                     + 4 * prim.shape[0] * 128 * 4)
+    cull_ops = CULL_OPS * prim.shape[0] * gpu.q_cl_min.shape[0]
+    v9_bound, v9_pairs = trace_bound(v9_k[1], "origin", nbytes(prim, gpu.q_cl_min, gpu.q_cl_max,
+                                     q_coeff, q_off) + 3 * prim.shape[0] * 128 * 4, extra_ops=cull_ops)
     per_stream = (qkeys.reshape(prim.shape[0], 4, -1) != v7.INVALID).sum(dim=2).float()
     say(f"[7] candidates per tile: v7 {float((keys != v7.INVALID).sum()) / prim.shape[0]:.2f} blocks; "
         f"v9 {float(per_stream.mean()):.2f} subclusters per stream, longest stream "
-        f"{float(per_stream.amax(dim=1).mean()):.2f}; visits per tile: v7 {v7_visits / prim.shape[0]:.2f}, "
-        f"v9 {v9_visits / prim.shape[0]:.2f}")
-    say(f"[7] v9 closest, 1080p primaries: quarter cull {qcull_ms:.3f} ms, kernel {v9_ms:.3f} ms, "
-        f"plain {v9_plain_ms:.3f} ms; {v9_visits} composite visits (v7: {v7_visits}), {v9_pairs} "
-        f"pairs tested ({v9_pairs / (v9_visits * 16384):.4f} of visits x 128 x 128; v7: "
-        f"{v7_pairs}), bound {v9_bound[0]:.4f} ms by {v9_bound[1]} ({card})")
+        f"{float(per_stream.amax(dim=1).mean()):.2f} (greatest {int(per_stream.amax())}); visits per "
+        f"tile: v7 {v7_visits / prim.shape[0]:.2f}, v9 {v9_visits / prim.shape[0]:.2f}")
+    say(f"[7] v9 closest with its quarter cull in-kernel, 1080p primaries: kernel {v9_ms:.3f} ms; the "
+        f"plain-torch quarter cull alone {qcull_ms:.3f} ms on the same rays; plain cull + twin "
+        f"{v9_plain_ms:.3f} ms; {v9_visits} composite visits (v7: {v7_visits}), {v9_pairs} pairs tested "
+        f"({v9_pairs / (v9_visits * 16384):.4f} of visits x 128 x 128; v7: {v7_pairs}), {cull_ops} cull "
+        f"operations, bound {v9_bound[0]:.4f} ms by {v9_bound[1]} ({card})")
 
     # ---- 8. v8 kernel vs plain ------------------------------------------
     hcoeff, sup, blk, nsup = v8._hier_inputs(gpu)
@@ -616,17 +652,93 @@ def main() -> int:
     say(f"[8] v8 hints hold on {int(has.sum())} tiles with occluded rays; hinted trace "
         f"{fed_ms:.3f} ms, {fed_visits} visits (cold {v8_rows['occluded shadow segments'][2]}) ({card})")
 
+    # Tiles whose own hints retire every ray: the occluded segment rays
+    # regrouped by their first-occluder block, so that most tiles' rays
+    # share one or two occluder blocks.  Fed its own hints, such a tile
+    # retires every live ray in the hint visits and pops no super.
+    first = cold[1][:, 0].reshape(-1)
+    occ_r = (first >= 0).nonzero()[:, 0]
+    per_ray = seg.permute(0, 2, 1).reshape(-1, 8)[occ_r[torch.argsort(first[occ_r], stable=True)]]
+    rt_tiles = v7._pack_rays(per_ray[:, 0:3], per_ray[:, 3:6], per_ray[:, 6], per_ray[:, 7])[0]
+    want_r = v8_plain(rt_tiles, "occluded", None)
+    cold_r = v8_kernel(rt_tiles, "occluded", None)
+    hints_r = cold_r[1][:, 3:5, 0].contiguous()
+    fed_r = v8_kernel(rt_tiles, "occluded", None, hints_r)
+    for got, what in ((cold_r, "cold"), (fed_r, "fed its own hints")):
+        v8_err = max(v8_err, compare_occluded(got, want_r, f"[8] v8 regrouped occluded segments ({what})"))
+    live_r = rt_tiles[:, 6] <= rt_tiles[:, 7]
+    b_r = cold_r[1][:, 0]
+    covered = ((b_r == hints_r[:, 0:1]) | (b_r == hints_r[:, 1:2]) | ~live_r).all(dim=1)
+    require(float(covered.float().mean()) > 0.5, "[8] regrouped segments: few tiles covered by their hints")
+    require(bool((fed_r[0][:, 1, 0][covered] == 0).all()),
+            "[8] a tile whose hints retire every ray popped a super")
+    require(bool((fed_r[1][:, 1, 0][covered] == 2).all()),
+            "[8] a tile whose hints retire every ray visited more than its two hint blocks")
+    say(f"[8] v8 hints that retire every ray: {int(covered.sum())} of {rt_tiles.shape[0]} regrouped tiles "
+        f"pop no super and visit only their 2 hint blocks; flags equal the twin's")
+
+    # A non-instanced scene above 32 supers (the L1 keys span more warps):
+    # procedural_mesh(1_000_000), the 1M rung, where v7 takes coherent
+    # closest and v8 gets no hints.
+    t0 = time.perf_counter()
+    big = scenes.procedural_mesh(1_000_000, sun=True)
+    gbig = big.compile(quarter_panels=False).to(dev)
+    t_big = time.perf_counter() - t0
+    bcoeff, bsup, bblk, bnsup = v8._hier_inputs(gbig)
+    require(bnsup > 32, f"[8] procedural_mesh(1_000_000) has {bnsup} supers")
+    say(f"[8] procedural_mesh(1_000_000): {gbig.num_tris} tris, {bcoeff.shape[0]} blocks in {bnsup} "
+        f"supers; host compile {t_big:.2f} s")
+
+    def big_tiles(w, h):
+        fr = big.camera.viewport_frame(w, h, device=dev)
+        o_, d_ = generate_rays(fr, w, h, sample_index=0, jitter=True)
+        perm_, _ = block_permutation(w, h, device=dev)
+        n_ = o_.shape[0]
+        o_, d_ = o_[perm_], d_[perm_]
+        bp = v7._pack_rays(o_, d_, torch.full((n_,), 1e-3, device=dev), torch.full((n_,), 1e4, device=dev))[0]
+        k_ = v8.trace_hier_kernel(bp, bsup, bblk, bcoeff, bnsup, "closest", None)
+        hit_ = k_[1][:, 0].reshape(-1) >= 0
+        p_ = o_ + d_ * torch.where(hit_, k_[0][:, 0].reshape(-1), 0.0)[:, None] - d_ * 1e-3
+        delta = (gbig.lt_v0[0] + gbig.lt_v1[0] + gbig.lt_v2[0]) / 3.0 - p_
+        dist = delta.norm(dim=1)
+        big_ = torch.full_like(dist, 3.0e38)
+        bs = v7._pack_rays(p_, delta / dist[:, None], torch.where(hit_, 1e-3, big_),
+                           torch.where(hit_, dist - 0.5, -big_))[0]
+        return bp, k_, bs
+
+    bp, bk, bs = big_tiles(320, 180)
+    v8_err = max(v8_err, compare_closest(bk, v8.trace_hier_plain(bp, bsup, bblk, bcoeff, bnsup, "closest"),
+                                         "[8] v8 closest, 1M triangles, 320x180 primaries"))
+    v8_err = max(v8_err, compare_occluded(
+        v8.trace_hier_kernel(bs, bsup, bblk, bcoeff, bnsup, "occluded", None),
+        v8.trace_hier_plain(bs, bsup, bblk, bcoeff, bnsup, "occluded"),
+        "[8] v8 occluded, 1M triangles, 320x180 segments to light 0"))
+    bp, bk, bs = big_tiles(W, H)
+    big_closest_ms, _ = cuda_ms(lambda: v8.trace_hier_kernel(bp, bsup, bblk, bcoeff, bnsup, "closest", None), 3)
+    big_occ_ms, bo_ = cuda_ms(lambda: v8.trace_hier_kernel(bs, bsup, bblk, bcoeff, bnsup, "occluded", None), 3)
+    say(f"[8] v8 at 1M triangles, 1080p: closest primaries {big_closest_ms:.3f} ms "
+        f"({int(bk[1][:, 1, 0].sum())} visits, {int(bk[0][:, 1, 0].sum())} supers popped), occluded "
+        f"segments to light 0 {big_occ_ms:.3f} ms ({int(bo_[1][:, 1, 0].sum())} visits) ({card})")
+    del big, gbig, bcoeff, bsup, bblk, bp, bk, bs, bo_
+
     # ---- 9. the frame through the default route --------------------------
     cfg9 = rt.RenderConfig(width=W, height=H, primary_rays=4, shadow_rays=3, denoise_iterations=4)
     require(cfg9.backend == "auto", "the default backend is not 'auto'")
     torch.cuda.reset_peak_memory_stats()
     held9 = torch.cuda.memory_allocated()
     zero_counts()
+    plain_culls = []                 # v9 culls in-kernel: no plain-torch quarter cull runs
+    cull = v9.cull_quarter_keys
+    v9.cull_quarter_keys = lambda *a, **k: plain_culls.append(1) or cull(*a, **k)
     t0 = time.perf_counter()
-    img_t = rt.render(scene, cfg9)
-    torch.cuda.synchronize()
+    try:
+        img_t = rt.render(scene, cfg9)
+        torch.cuda.synchronize()
+    finally:
+        v9.cull_quarter_keys = cull
     wall = time.perf_counter() - t0
     counts9 = read_counts()
+    require(not plain_culls, f"[9] the hybrid frame ran the plain-torch quarter cull {len(plain_culls)} times")
     require(img_t.device.type == "cuda", f"render with no device ran on {img_t.device}")
     n_v8 = cfg9.primary_rays * (gpu.num_light_tris * cfg9.shadow_rays + 1)
     want9 = unmasked(trace_v7=0, trace_v9=cfg9.primary_rays, trace_v8=n_v8,
@@ -703,15 +815,19 @@ def main() -> int:
     fprim = v7._pack_rays(fo, fd, ftmin, ftmax)[0]
     out_bytes = 4 * fprim.shape[0] * 128 * 4
 
-    qkeys, qid = v7.cull_quarter_keys(fprim, fol.q_cl_min, fol.q_cl_max)
-    v9m_args = (fprim, qkeys, fol.q_panels, fol.q_group_off, qid, "origin")
-    v9m_ms, v9m_k = cuda_ms(lambda: v9.trace_quarter_kernel(*v9m_args, amask=fol.q_amask), 10)
-    v9m_plain_ms, v9m_p = cuda_ms(lambda: v9.trace_quarter_plain(*v9m_args, amask=fol.q_amask), 1)
+    fcull_ms, _ = cuda_ms(lambda: v7.cull_quarter_keys(fprim, fol.q_cl_min, fol.q_cl_max), 3)
+    v9m_ms, v9m_k = cuda_ms(lambda: v9_fused(fprim, "origin", fol.q_amask, fol), 10)
+    v9m_plain_ms, (v9m_p, _) = cuda_ms(
+        lambda: v9_twin(fprim, "origin", fol.q_amask, fol, ordered=False), 1)
     v9m_err = compare_closest(v9m_k, v9m_p, "[12] v9 masked closest common=origin 1080p")
-    v9_open_ms, v9_open = cuda_ms(lambda: v9.trace_quarter_kernel(*v9m_args), 10)
-    v9m_bound, v9m_pairs = trace_bound(v9m_k[1], "origin", nbytes(fprim, qkeys, fol.q_panels,
-                                       fol.q_group_off, fol.q_amask) + out_bytes)
-    say(f"[12] v9 masked, 1080p foliage primaries: kernel {v9m_ms:.3f} ms, plain {v9m_plain_ms:.3f} ms, "
+    same_rows(v9m_k, v9_twin(fprim, "origin", fol.q_amask, fol)[1], "[12] v9 masked 1080p")
+    v9_open_ms, v9_open = cuda_ms(lambda: v9_fused(fprim, "origin", None, fol), 10)
+    fcull_ops = CULL_OPS * fprim.shape[0] * fol.q_cl_min.shape[0]
+    v9m_bound, v9m_pairs = trace_bound(v9m_k[1], "origin", nbytes(fprim, fol.q_cl_min, fol.q_cl_max,
+                                       fol.q_panels, fol.q_group_off, fol.q_amask) + out_bytes,
+                                       extra_ops=fcull_ops)
+    say(f"[12] v9 masked with its cull in-kernel, 1080p foliage primaries: kernel {v9m_ms:.3f} ms, the "
+        f"plain-torch quarter cull alone {fcull_ms:.3f} ms, plain cull + twin {v9m_plain_ms:.3f} ms, "
         f"unmasked kernel on the same rays {v9_open_ms:.3f} ms, "
         f"{int((v9m_k[1][:, 0] != v9_open[1][:, 0]).sum())} hits differ from its; "
         f"{v9m_pairs} pairs, bound {v9m_bound[0]:.4f} ms by {v9m_bound[1]} ({card})")

@@ -33,21 +33,46 @@
 // Design.  One thread per ray.
 //   Hints in: the tile's hint blocks (clamped to cb-1, -1 = skip) are
 //     visited first, so the rays they occlude enter the culls retired.
-//   L1: thread s slab-tests super box s against the tile's 128 rays (read
-//     from shared memory) and keeps the least entry max(near, 0) over rays
-//     whose window [t_min, min(best_t, t_max)] overlaps the box; the keys
-//     (entry bits with the super id in the low bits) are sorted once and
-//     popped in order.
-//   L2: per popped super, thread b does the same for block b against the
-//     live windows, then the 128 block keys are sorted and visited in order.
-//   Visit: the block's 12x128 coefficients are staged in shared memory;
-//     each live ray whose own slab test passes the block box under its
-//     live window tests the 128 triangles (v7's math).  Occluded mode
-//     retires a ray on its first hit (best_t = -3e38) and records the block.
+//   Live rays: before each cull the tile's rays whose window [t_min,
+//     min(best_t, t_max)] is not empty are compacted by a warp ballot (warp
+//     w's live lanes at list[32 w ...], in lane order: deterministic, no
+//     atomics, one barrier).  Both culls loop over that list only; a tile
+//     with no live ray has no L1 key and skips the traversal.
+//   L1: thread s slab-tests super box s against the live rays (read from
+//     shared memory) and keeps the least entry max(near, 0); the keys
+//     (entry bits with the super id in the low bits) are appended with one
+//     atomic per warp and sorted once, then popped in order.
+//   L2: per popped super, thread b does the same for block b, and the 128
+//     block keys are sorted and visited in order.
+//   Sorts: the keys are unique (the id sits in the low bits; no candidate
+//     = INVALID + lane), so a thread counts the keys below its own and
+//     scatters it to that rank: the 128 L2 keys take two barriers where a
+//     bitonic network took 28.  L1 takes the same rank sort for up to 512
+//     keys (four a thread); above that, a bitonic network.
+//   Staging: the block of each visit is copied into one of two shared
+//     buffers with cp.async (16 bytes a thread and copy: 384 copies for the
+//     12x128 coefficients, 64 for the mask rows): while block j is tested,
+//     the next sorted key's block is in flight, and a prefetch that the
+//     stop rule makes needless is dropped (waited for, never read).  The
+//     popped super's blk page (its six box rows) is staged the same way:
+//     the next L1 key's page is in flight while this super is culled and
+//     visited.  Hints are visited first, in the same way.
+//   Visit, transposed: each live ray slab-tests the block box under its
+//     live window; those that pass (the active rays) are compacted by a
+//     ballot into shared memory.  Thread j then holds triangle j's
+//     coefficients in registers and the whole CTA walks the active rays
+//     together: per ray one ray-triangle test per thread (v7's math) and
+//     one warp reduction (REDUX min of the packed (quantized t | lane) key,
+//     or a ballot for the first hit in lane order), so a visit costs the
+//     active rays, not 128 iterations for every warp that holds one.
+//     Occluded mode retires a ray on its first hit (best_t = -3e38) and
+//     records the block.
 //   Stop rules, both levels: the next key's entry exceeds every live ray's
 //     min(best_t, t_max) (int32 f32 bits), one __syncthreads_or each.
 //     Entries are lower bounds (id bits cleared = rounded down), so the
-//     traversal is exact.
+//     traversal is exact.  Keys, their order and what each visit tests are
+//     those of the design this replaces, so ties on quantized t still go
+//     to the block visited first.
 // Pad boxes are inverted; a min/max slab test would pass them with near =
 // -inf, so box validity (min.x <= max.x) is tested explicitly.  Axes with
 // |d| <= 1e-12 pass every slab.  Empty lanes ([3e38, -3e38)) have negative
@@ -56,17 +81,28 @@
 // visits, exact stop rules, hints.  Dropped, being scheduling for the TPU's
 // scalar unit: multi-pop `pack`, the cond `stride` and the capped re-cull
 // rounds; the per-ray slab test at each visit subsumes the re-cull.  The
-// coefficient table is read from global memory on every path, so the TPU's
-// resident vs HBM-DMA split has no counterpart.  The JAX kernel packs L1
-// ids into 12 bits and truncates above 3072 supers; here the id bits grow
-// with the super count and the wrapper refuses more supers than the
-// shared-memory sort holds.
+// coefficient table is read from global memory on every path (staged
+// asynchronously), so the TPU's resident vs HBM-DMA split has no
+// counterpart.  The JAX kernel packs L1 ids into 12 bits and truncates
+// above 3072 supers; here the id bits grow with the super count and the
+// wrapper refuses more supers than the shared-memory sort holds.
 //
 // What bounds it: f32 operations, 47 per ray-triangle pair tested (32 with
 // a common direction; rays whose slab test fails skip the visit, occluded
-// rays stop at their first hit) and 27 per slab test (the tile's 128 rays
+// rays stop at their first hit) and 27 per slab test (the tile's live rays
 // against each super box, then against the 128 block boxes of each popped
-// super, and each live ray once per visit).
+// super, and each live ray once per visit).  What held the design before
+// this one far from that bound (7.0 ms against 1.0 ms on 1080p shadow
+// segments, 22.5 against 1.7 ms on incoherent closest rays; NVIDIA H100
+// 80GB HBM3, 700 W) was SIMT, not memory: one thread per ray looped over
+// the 128 triangles, so a warp paid the full loop whenever one of its 32
+// rays passed the block's slab test, and on incoherent rays a ninth of
+// those lanes did.  The transposed visit pays per active ray instead.  The
+// live-ray culls and the rank sorts take a few percent more, the
+// asynchronous staging none measurable on v8 (its visits now read only
+// their own triangle from the staged block); the instanced form's L1 cull
+// (2,584 pair boxes a tile) tests four boxes a thread per pass over the
+// live rays.  Ablations and times: PERF.md.
 //
 // Alpha masks (the TPU kernel's intersect_block with am_ref): a masked
 // launch stages the visited block's two mask rows in shared memory beside
@@ -91,10 +127,10 @@
 // the instance of the best key; occluded retires a ray on its first hit.
 // Hints are refused (hn = 0).  What changes the design against the
 // non-instanced form: L1 has thousands of boxes (the 120k-triangle foliage
-// has 2,584 pairs, against 8 supers baked), so each cull loops over a
-// compacted list of the tile's live rays, a tile with none skips the
-// traversal, and the L1 sort takes up to SPAGES*128 keys (padded to 4,096:
-// 16 KB of dynamic shared memory).
+// has 2,584 pairs, against 8 supers baked), so the L1 sort takes up to
+// SPAGES*128 keys (padded to 4,096: 16 KB of dynamic shared memory), and a
+// popped pair's blk page is the pair's blk row (read from pair_tab when
+// the page is staged).
 //
 // Multi-segment occlusion (MULTI, entry rt_trace_v8_multi; replaces
 // realtimeraytracer_tpu/render/hier_backend.py::hier_occluded_multi, kernel
@@ -156,6 +192,10 @@ constexpr float BIG = 3.0e38f;
 constexpr float EPS = 1e-12f;
 constexpr int INVALID = 0x7F800000;
 constexpr int KEY_PAD = 0x7FFFFFFF;
+// Resident CTAs an SM is asked to hold (at most 128 registers a thread).
+// Without it ptxas spills 4 to 28 bytes in most instantiations, though
+// none uses more than 120 registers.
+constexpr int MIN_CTAS = 4;
 constexpr int BLK_BITS = 7;           // block-in-super id bits of L2 keys
 
 enum Mode { CLOSEST = 0, OCCLUDED = 1 };
@@ -199,17 +239,8 @@ __device__ __forceinline__ float slab_entry(const float* lo, const float* hi,
   return ok ? fmaxf(near, 0.0f) : __int_as_float(INVALID);
 }
 
-// The alpha-mask bit of lane j's triangle at barycentrics (u, v); m holds
-// the visited block's two mask rows (2 x TILE).
-__device__ __forceinline__ bool mask_bit(const int* m, int j, float u, float v) {
-  const int gi = min(max(__float2int_rz(u * 8.0f), 0), 7);
-  const int gj = min(max(__float2int_rz(v * 8.0f), 0), 7);
-  const int b = gj * 8 + gi;
-  return ((static_cast<unsigned>(m[(b >> 5) * TILE + j]) >> (b & 31)) & 1u) != 0u;
-}
-
 // Sort `p` (a power of two) ints of s ascending with the CTA's threads.
-__device__ void bitonic_sort(int* s, int p) {
+__device__ __forceinline__ void bitonic_sort(int* s, int p) {
   for (int k = 2; k <= p; k <<= 1) {
     for (int j = k >> 1; j > 0; j >>= 1) {
       for (int i = threadIdx.x; i < p; i += TILE) {
@@ -237,193 +268,345 @@ __device__ __forceinline__ int live_count(bool pred) {
   return 0;
 }
 
+// The tile's rays as the culls read them, one ray per slot: [o.xyz |
+// t_min], [guarded inverse direction | the live window's upper end,
+// refreshed per cull], parallel-axis bits.
 struct Tile {
-  float o[3][TILE];      // origins
-  float inv[3][TILE];    // guarded inverse directions
-  int fl[TILE];          // parallel-axis bits
-  float tmin[TILE];
-  float limit[TILE];     // live windows' upper ends, refreshed per cull
+  float4 ray[TILE][2];
+  int fl[TILE];
 };
 
 // The instanced kernel's shared state (INST only).
 struct InstTile {
-  Tile m;                // the tile's rays in the popped pair's mesh space
-  int live[TILE];        // lanes whose window is live, compacted per cull
-  int nlive;
   float xf[12];          // the popped pair's instance inverse [R | t]
-  int brow, bbase, inst; // its blk row, block base and instance
+  int bbase, inst;       // its block base and instance
 };
 
-// Compacts the lanes whose window is live into I.live; returns their
-// count.  Every thread of the CTA calls it (it holds barriers).  The order
-// of the list varies from run to run; the culls only take minima over it.
-__device__ __forceinline__ int compact_live(InstTile& I, bool live) {
-  if (threadIdx.x == 0) I.nlive = 0;
-  __syncthreads();
-  if (live) I.live[atomicAdd(&I.nlive, 1)] = threadIdx.x;
-  __syncthreads();
-  return I.nlive;
+// ---- asynchronous staging (cp.async, 16 bytes a thread and copy) ---------
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
 }
 
-// Least entry over the tile's rays of box `b` of a (8, 128) box page, or
-// +inf bits when no ray's window overlaps it.  A valid box adds `live`, the
-// tile's rays with a live window, to this thread's slab count (counted once
-// per cull by the caller's barrier, which keeps the count out of the ray
-// loop).
-template <bool COUNT>
-__device__ __forceinline__ float box_min_entry(const Tile& T, const float* page,
-                                              int b, int live, int* work) {
-  float lo[3], hi[3];
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's copy groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Stages coefficient block `cid` (12 x 128 f32, 384 chunks) and, with
+// MASK, its two mask rows (64 chunks) as one copy group.  Every thread of
+// the CTA calls it.
+template <bool MASK>
+__device__ __forceinline__ void stage_block(const float* __restrict__ coeff,
+                                            const int* __restrict__ amask, int cid,
+                                            float* cdst, int* mdst) {
+  const int lane = threadIdx.x;
 #pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    lo[a] = page[a * TILE + b];
-    hi[a] = page[(3 + a) * TILE + b];
+  for (int i = 0; i < 3; ++i) {
+    const int c = lane + i * TILE;
+    const int off = (c >> 5) * TILE + 4 * (c & 31);
+    cp_async16(cdst + off, coeff + (size_t)cid * CROWS * TILE + off);
   }
-  float emin = __int_as_float(INVALID);
-  if (!(lo[0] <= hi[0])) return emin;
-  if (COUNT) work[TILE + threadIdx.x] += live;
-  for (int r = 0; r < TILE; ++r) {
-    const float o[3] = {T.o[0][r], T.o[1][r], T.o[2][r]};
-    const float inv[3] = {T.inv[0][r], T.inv[1][r], T.inv[2][r]};
-    emin = fminf(emin, slab_entry(lo, hi, o, inv, T.fl[r], T.tmin[r], T.limit[r]));
+  if (MASK && lane < 64) {
+    const int off = (lane >> 5) * TILE + 4 * (lane & 31);
+    cp_async16(mdst + off, amask + (size_t)cid * 2 * TILE + off);
   }
-  return emin;
+  cp_async_commit();
 }
 
-// box_min_entry over the `nlive` compacted live rays `live` only (INST);
-// the same minimum, as rays outside the list have empty windows.
-template <bool COUNT>
-__device__ __forceinline__ float box_min_entry_live(const Tile& T, const int* live,
-                                                   int nlive, const float* page,
-                                                   int b, int* work) {
-  float lo[3], hi[3];
+// Stages the six box rows of a (8, 128) box page (192 chunks) as one copy
+// group.  Every thread of the CTA calls it.
+__device__ __forceinline__ void stage_page(const float* __restrict__ page, float* dst) {
+  for (int c = threadIdx.x; c < 6 * TILE / 4; c += TILE) {
+    const int off = (c >> 5) * TILE + 4 * (c & 31);
+    cp_async16(dst + off, page + off);
+  }
+  cp_async_commit();
+}
+
+// ---- the tile's live rays, compacted without atomics ----------------------
+
+constexpr int WARPS = TILE / 32;
+constexpr unsigned FULL = 0xFFFFFFFFu;
+
+// Warp w's live lanes sit at list[32 w, 32 w + cnt[w]), in lane order.
+struct Live {
+  int list[TILE];
+  int cnt[WARPS];
+};
+
+// Compacts the lanes whose window is live (one ballot per warp) and returns
+// their count.  Every thread of the CTA calls it: its one barrier also
+// publishes the caller's earlier shared writes.
+__device__ __forceinline__ int compact_live(Live& L, bool live) {
+  const int lane = threadIdx.x;
+  const unsigned m = __ballot_sync(FULL, live);
+  if (live) L.list[(lane & ~31) + __popc(m & ((1u << (lane & 31)) - 1u))] = lane;
+  if ((lane & 31) == 0) L.cnt[lane >> 5] = __popc(m);
+  __syncthreads();
+  int n = 0;
 #pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    lo[a] = page[a * TILE + b];
-    hi[a] = page[(3 + a) * TILE + b];
-  }
-  float emin = __int_as_float(INVALID);
-  if (!(lo[0] <= hi[0])) return emin;
-  if (COUNT) work[TILE + threadIdx.x] += nlive;
-  for (int k = 0; k < nlive; ++k) {
-    const int r = live[k];
-    const float o[3] = {T.o[0][r], T.o[1][r], T.o[2][r]};
-    const float inv[3] = {T.inv[0][r], T.inv[1][r], T.inv[2][r]};
-    emin = fminf(emin, slab_entry(lo, hi, o, inv, T.fl[r], T.tmin[r], T.limit[r]));
-  }
-  return emin;
+  for (int w = 0; w < WARPS; ++w) n += L.cnt[w];
+  return n;
 }
 
-// One block visit: stage the block's coefficients, then each live ray whose
-// window still overlaps the block box (lane b of the box page `page`) tests
-// its 128 triangles.  Every thread of the CTA calls it (it holds barriers);
-// lane = threadIdx.x.  A closest hit that improves best_t sets best_i to
-// `inst` (the instanced kernel's instance; -1 otherwise).
+// Least entries over the tile's live rays (the compacted list; the other
+// rays' windows are empty) of NB boxes (lane b[i] of the (8, 128) box page
+// page[i]; boxes i >= nbox are skipped), +inf bits where no live window
+// overlaps a box.  Each ray is read once for the NB boxes, and the NB slab
+// tests are independent; each box still takes its minimum over the rays
+// in list order.  A valid box adds `nlive` to this thread's slab count.
+template <int NB, bool COUNT>
+__device__ __forceinline__ void box_min_entries(const Tile& T, const Live& L, int nlive,
+                                                const float* const (&page)[NB],
+                                                const int (&b)[NB], int nbox,
+                                                float (&emin)[NB], int* work) {
+  float lo[NB][3], hi[NB][3];
+  bool ok[NB];
+  bool any = false;
+#pragma unroll
+  for (int i = 0; i < NB; ++i) {
+    emin[i] = __int_as_float(INVALID);
+    ok[i] = false;
+    if (i < nbox) {
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        lo[i][a] = page[i][a * TILE + b[i]];
+        hi[i][a] = page[i][(3 + a) * TILE + b[i]];
+      }
+      ok[i] = lo[i][0] <= hi[i][0];
+      if (COUNT && ok[i]) work[TILE + threadIdx.x] += nlive;
+    }
+    any |= ok[i];
+  }
+  if (!any) return;
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) {
+    const int c = L.cnt[w];
+    for (int k = 0; k < c; ++k) {
+      const int r = L.list[32 * w + k];
+      const float4 ra = T.ray[r][0], rb = T.ray[r][1];
+      const int f = T.fl[r];
+      const float o[3] = {ra.x, ra.y, ra.z};
+      const float inv[3] = {rb.x, rb.y, rb.z};
+#pragma unroll
+      for (int i = 0; i < NB; ++i)
+        if (ok[i]) emin[i] = fminf(emin[i], slab_entry(lo[i], hi[i], o, inv, f, ra.w, rb.w));
+    }
+  }
+}
+
+// ---- key sorts -----------------------------------------------------------
+
+// Rank of `key` among s[0, n): the number of entries below it (16-byte
+// aligned s; keys unique).
+__device__ __forceinline__ int rank_of(const int* s, int n, int key) {
+  int rank = 0, j = 0;
+  for (; j + 4 <= n; j += 4) {
+    const int4 x = *reinterpret_cast<const int4*>(s + j);
+    rank += (x.x < key) + (x.y < key) + (x.z < key) + (x.w < key);
+  }
+  for (; j < n; ++j) rank += s[j] < key;
+  return rank;
+}
+
+// L1 keys held by one thread in a rank sort; more keys than TILE x
+// RANK_L1 go through the bitonic network instead.
+constexpr int RANK_L1 = 4;
+
+// Sorts the n unique keys s[0, n) ascending.  Every thread of the CTA
+// calls it; s is published on entry.  Up to TILE x RANK_L1 keys: each
+// thread ranks its own keys (held in registers) and, after one barrier,
+// scatters them in place.  Above that, a bitonic network over the keys
+// padded to a power of two (cap1 >= that power).
+__device__ __forceinline__ void sort_keys(int* s, int n) {
+  const int lane = threadIdx.x;
+  if (n <= TILE * RANK_L1) {
+    int key[RANK_L1], rank[RANK_L1];
+#pragma unroll
+    for (int k = 0; k < RANK_L1; ++k) {
+      const int i = lane + k * TILE;
+      key[k] = i < n ? s[i] : 0;
+      rank[k] = i < n ? rank_of(s, n, key[k]) : -1;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < RANK_L1; ++k)
+      if (rank[k] >= 0) s[rank[k]] = key[k];
+    __syncthreads();
+    return;
+  }
+  int p = 1;
+  while (p < n) p <<= 1;
+  for (int k = n + lane; k < p; k += TILE) s[k] = KEY_PAD;
+  __syncthreads();
+  bitonic_sort(s, p);
+}
+
+// The alpha-mask bit of this thread's triangle at barycentrics (u, v): m0
+// and m1 are its two mask words (mask_bit with the rows in registers).
+__device__ __forceinline__ bool mask_bit_words(int m0, int m1, float u, float v) {
+  const int gi = min(max(__float2int_rz(u * 8.0f), 0), 7);
+  const int gj = min(max(__float2int_rz(v * 8.0f), 0), 7);
+  const int b = gj * 8 + gi;
+  return ((static_cast<unsigned>(b >> 5 ? m1 : m0) >> (b & 31)) & 1u) != 0u;
+}
+
+// A visit's active rays, slot 32 w + k for the k-th active lane of warp w
+// (L.cnt[w] of them): [o.xyz | t_min], [d.xyz | limit]; and per warp and
+// slot the warp's least packed key (closest) or first hit lane (occluded).
+struct VisitRays {
+  float4 ray[TILE][2];
+  int key[WARPS][TILE];
+};
+
+// One block visit on a staged block (coef / smask: its coefficients and
+// mask rows in shared memory, each thread's copies waited for by the
+// caller).  Each live ray slab-tests the block box (lane b of the box page
+// `page`, shared or global) under its live window; the rays that pass are
+// the visit's active rays.  Then the visit is transposed: thread j holds
+// triangle j's coefficients (and, with a common origin or direction, its
+// shared dot products) in registers and the CTA loops over the active rays
+// together, one ray-triangle pair per thread and ray, a warp reduction
+// (REDUX min of the packed keys, or a ballot for the first hit) per warp
+// and ray.  The pair's arithmetic and the per-ray results (the least
+// packed (quantized t | lane) key; the first hit's lane) are those of a
+// ray testing the 128 triangles in order.  Every thread of the CTA calls it
+// (it holds two barriers); lane = threadIdx.x.  A closest hit that
+// improves best_t sets best_i to `inst` (the instanced kernel's instance;
+// -1 otherwise).
 template <int MODE, int COMMON, bool COUNT, bool MASK>
 __device__ __forceinline__ void visit(
-    int cid, const float* __restrict__ coeff, const float* __restrict__ page, int b,
-    const int* __restrict__ amask, float* coef, float* fam, int* smask,
-    const float* o, const float* d, const float* inv,
+    int cid, const float* coef, const int* smask, const float* page, int b, Live& L,
+    VisitRays& V, const float* o, const float* d, const float* inv,
     int fl, float tmin, float tmax, float cx, float cy, float cz,
     float& best_t, int& best_k, int inst, int& best_i, int& visits, int* work) {
   const int lane = threadIdx.x;
-  const float* cg = coeff + (size_t)cid * CROWS * TILE;
-#pragma unroll
-  for (int row = 0; row < CROWS; ++row)
-    coef[row * TILE + lane] = cg[row * TILE + lane];
-  if (MASK) {
-    const int* mg = amask + (size_t)cid * 2 * TILE;
-    smask[lane] = mg[lane];
-    smask[TILE + lane] = mg[TILE + lane];
-  }
-  if (COMMON != COMMON_NONE) {
-    __syncthreads();
-#pragma unroll
-    for (int f = 0; f < 3; ++f)
-      fam[f * TILE + lane] = COMMON == COMMON_ORIGIN
-                                 ? dot_o(coef, 4 * f, lane, cx, cy, cz)
-                                 : dot_d(coef, 4 * f, lane, cx, cy, cz);
-  }
-  __syncthreads();
+  const int warp = lane >> 5;
   ++visits;
   const float limit = fminf(best_t, tmax);
-  const bool live = MODE == CLOSEST || best_t >= 0.0f;
-  if (!live || !(tmin <= limit)) return;
-  float lo[3], hi[3];
+  bool active = false;
+  if ((MODE == CLOSEST || best_t >= 0.0f) && tmin <= limit) {
+    float lo[3], hi[3];
 #pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    lo[a] = page[a * TILE + b];
-    hi[a] = page[(3 + a) * TILE + b];
+    for (int a = 0; a < 3; ++a) {
+      lo[a] = page[a * TILE + b];
+      hi[a] = page[(3 + a) * TILE + b];
+    }
+    if (COUNT) ++work[TILE + lane];
+    active = slab_entry(lo, hi, o, inv, fl, tmin, limit) < __int_as_float(INVALID);
   }
-  if (COUNT) ++work[TILE + lane];
-  if (!(slab_entry(lo, hi, o, inv, fl, tmin, limit) < __int_as_float(INVALID)))
-    return;
-  int kbest = KEY_PAD;
-  bool hit = false;
-  int tested = TILE;
-  for (int j = 0; j < TILE; ++j) {
-    float s0, ou, ov, s1, du, dv;
-    if (COMMON == COMMON_ORIGIN) {
-      s0 = fam[j];
-      ou = fam[TILE + j];
-      ov = fam[2 * TILE + j];
-    } else {
-      s0 = dot_o(coef, 0, j, o[0], o[1], o[2]);
-      ou = dot_o(coef, 4, j, o[0], o[1], o[2]);
-      ov = dot_o(coef, 8, j, o[0], o[1], o[2]);
-    }
-    if (COMMON == COMMON_DIR) {
-      s1 = fam[j];
-      du = fam[TILE + j];
-      dv = fam[2 * TILE + j];
-    } else {
-      s1 = dot_d(coef, 0, j, d[0], d[1], d[2]);
-      du = dot_d(coef, 4, j, d[0], d[1], d[2]);
-      dv = dot_d(coef, 8, j, d[0], d[1], d[2]);
-    }
-    const bool den_ok = fabsf(s1) > EPS;
-    const float t = den_ok ? (-s0) / s1 : BIG;
-    const float u = ou + t * du;
-    const float v = ov + t * dv;
-    bool ok = den_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f &&
-              t >= tmin && t <= limit;
-    if (MASK && ok) ok = mask_bit(smask, j, u, v);
-    if (MODE == CLOSEST) {
-      const float tm = ok ? t : __int_as_float(INVALID);
-      kbest = min(kbest, (__float_as_int(tm) & ~127) | j);
-    } else if (ok) {
-      hit = true;
-      if (COUNT) tested = j + 1;
-      break;
+  const unsigned m = __ballot_sync(FULL, active);
+  const int slot = (lane & ~31) + __popc(m & ((1u << (lane & 31)) - 1u));
+  if (active) {
+    V.ray[slot][0] = make_float4(o[0], o[1], o[2], tmin);
+    V.ray[slot][1] = make_float4(d[0], d[1], d[2], limit);
+  }
+  if ((lane & 31) == 0) L.cnt[warp] = __popc(m);
+  __syncthreads();              // the active rays and the staged block
+
+  float c[CROWS];
+#pragma unroll
+  for (int r = 0; r < CROWS; ++r) c[r] = coef[r * TILE + lane];
+  float f0 = 0.0f, f1 = 0.0f, f2 = 0.0f;       // the tile-shared dot products
+  if (COMMON == COMMON_ORIGIN) {
+    f0 = ((cx * c[0] + cy * c[1]) + cz * c[2]) + c[3];
+    f1 = ((cx * c[4] + cy * c[5]) + cz * c[6]) + c[7];
+    f2 = ((cx * c[8] + cy * c[9]) + cz * c[10]) + c[11];
+  } else if (COMMON == COMMON_DIR) {
+    f0 = (cx * c[0] + cy * c[1]) + cz * c[2];
+    f1 = (cx * c[4] + cy * c[5]) + cz * c[6];
+    f2 = (cx * c[8] + cy * c[9]) + cz * c[10];
+  }
+  const int m0 = MASK ? smask[lane] : 0, m1 = MASK ? smask[TILE + lane] : 0;
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) {
+    const int n = L.cnt[w];
+    for (int k = 0; k < n; ++k) {
+      const int sl = 32 * w + k;
+      const float4 ra = V.ray[sl][0], rb = V.ray[sl][1];
+      float s0, ou, ov, s1, du, dv;
+      if (COMMON == COMMON_ORIGIN) {
+        s0 = f0;
+        ou = f1;
+        ov = f2;
+      } else {
+        s0 = ((ra.x * c[0] + ra.y * c[1]) + ra.z * c[2]) + c[3];
+        ou = ((ra.x * c[4] + ra.y * c[5]) + ra.z * c[6]) + c[7];
+        ov = ((ra.x * c[8] + ra.y * c[9]) + ra.z * c[10]) + c[11];
+      }
+      if (COMMON == COMMON_DIR) {
+        s1 = f0;
+        du = f1;
+        dv = f2;
+      } else {
+        s1 = (rb.x * c[0] + rb.y * c[1]) + rb.z * c[2];
+        du = (rb.x * c[4] + rb.y * c[5]) + rb.z * c[6];
+        dv = (rb.x * c[8] + rb.y * c[9]) + rb.z * c[10];
+      }
+      const bool den_ok = fabsf(s1) > EPS;
+      const float t = den_ok ? (-s0) / s1 : BIG;
+      const float u = ou + t * du;
+      const float v = ov + t * dv;
+      bool ok = den_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t >= ra.w && t <= rb.w;
+      if (MASK && ok) ok = mask_bit_words(m0, m1, u, v);
+      int r;
+      if (MODE == CLOSEST) {
+        const float tm = ok ? t : __int_as_float(INVALID);
+        r = __reduce_min_sync(FULL, (__float_as_int(tm) & ~127) | lane);
+      } else {
+        const unsigned h = __ballot_sync(FULL, ok);
+        r = h ? (lane & ~31) + __ffs(h) - 1 : KEY_PAD;
+      }
+      if ((lane & 31) == 0) V.key[warp][sl] = r;
     }
   }
-  if (COUNT) work[lane] += tested;
+  __syncthreads();              // the warps' keys
+  if (!active) return;
+  const int r = min(min(V.key[0][slot], V.key[1][slot]), min(V.key[2][slot], V.key[3][slot]));
   if (MODE == CLOSEST) {
-    if (kbest < __float_as_int(best_t)) {
-      best_t = __int_as_float(kbest & ~127);
-      best_k = cid * TILE + (kbest & 127);
+    if (COUNT) work[lane] += TILE;
+    if (r < __float_as_int(best_t)) {
+      best_t = __int_as_float(r & ~127);
+      best_k = cid * TILE + (r & 127);
       best_i = inst;
     }
-  } else if (hit) {
-    best_t = -BIG;
-    if (best_k < 0) best_k = cid;
+  } else {
+    const bool hit = r < KEY_PAD;
+    if (COUNT) work[lane] += hit ? r + 1 : TILE;     // up to the first hit, in lane order
+    if (hit) {
+      best_t = -BIG;
+      if (best_k < 0) best_k = cid;
+    }
   }
 }
 
 template <int MODE, int COMMON, bool COUNT, bool MASK, bool INST>
-__global__ void __launch_bounds__(TILE) trace_v8_kernel(
+__global__ void __launch_bounds__(TILE, MIN_CTAS) trace_v8_kernel(
     const float* __restrict__ rays, const float* __restrict__ sup,
     const float* __restrict__ blk, const float* __restrict__ coeff,
     const int* __restrict__ amask, const int* __restrict__ hints,
     const int* __restrict__ pair_tab, const float* __restrict__ inst_inv,
     float* __restrict__ outf, int* __restrict__ outi, int nsup, int cap1,
     int cb, int hn, int l1_mask, int nblk, int ninst) {
-  extern __shared__ int l1keys[];                 // cap1 super (pair) keys
-  __shared__ Tile T;
-  __shared__ float coef[CROWS * TILE];
-  __shared__ float fam[3 * TILE];
-  __shared__ int smask[MASK ? 2 * TILE : 1];
+  extern __shared__ __align__(16) int l1keys[];   // cap1 super (pair) keys
+  // The culls' rays and a visit's active rays share their room: a visit
+  // runs between culls, and each cull rewrites the rays first.
+  __shared__ union { Tile T; VisitRays V; } U;
+  Tile& T = U.T;
+  VisitRays& V = U.V;
+  __shared__ __align__(16) float coefb[2][CROWS * TILE];      // staged blocks
+  __shared__ __align__(16) int smaskb[2][MASK ? 2 * TILE : 4];
+  __shared__ __align__(16) float pageb[2][6 * TILE];          // staged blk pages
+  __shared__ __align__(16) int l2in[SUP];
   __shared__ int l2keys[SUP];
+  __shared__ Live L;
   __shared__ int count;
   __shared__ int hint_lo, hint_hi;
   // Work counts (COUNT only), kept in shared memory rather than registers:
@@ -448,11 +631,7 @@ __global__ void __launch_bounds__(TILE) trace_v8_kernel(
     const bool par = fabsf(d[a]) <= EPS;
     fl |= par ? (1 << a) : 0;
     inv[a] = 1.0f / (par ? 1.0f : d[a]);
-    T.o[a][lane] = o[a];
-    T.inv[a][lane] = inv[a];
   }
-  T.fl[lane] = fl;
-  T.tmin[lane] = tmin;
   // The popped pair's mesh-space ray (INST; the world ray otherwise).
   float mo[3] = {o[0], o[1], o[2]}, md[3] = {d[0], d[1], d[2]};
   float minv[3] = {inv[0], inv[1], inv[2]};
@@ -466,60 +645,100 @@ __global__ void __launch_bounds__(TILE) trace_v8_kernel(
     work[TILE + lane] = 0;
     if (INST) work[2 * TILE + lane] = 0;
   }
+  int cbuf = 0;                     // the coefficient buffer of the next visit
+  // This thread's ray as the culls read it, under its live window.
+  auto publish_ray = [&](const float (&ro)[3], const float (&ri)[3], int rf) {
+    T.ray[lane][0] = make_float4(ro[0], ro[1], ro[2], tmin);
+    T.ray[lane][1] = make_float4(ri[0], ri[1], ri[2], fminf(best_t, tmax));
+    T.fl[lane] = rf;
+  };
 
-  // Hints in: visit the previous correlated trace's occluder blocks.
-  for (int j = 0; j < hn; ++j) {
-    const int h = hints[(size_t)tile * hn + j];
-    if (h >= 0) {
-      __syncthreads();            // retire the previous visit's reads
-      const int hc = min(h, cb - 1);
-      visit<MODE, COMMON, COUNT, MASK>(hc, coeff, blk + (size_t)(hc / SUP) * 8 * TILE,
-                                       hc % SUP, amask, coef, fam, smask, o, d, inv, fl,
-                                       tmin, tmax, cx, cy, cz, best_t, best_k, -1, best_i,
-                                       visits, work);
+  // Hints in: visit the previous correlated trace's occluder blocks, the
+  // next one staged while the current one is tested.
+  auto next_hint = [&](int j) {
+    while (j < hn && hints[(size_t)tile * hn + j] < 0) ++j;
+    return j;
+  };
+  auto hint_block = [&](int j) { return min(hints[(size_t)tile * hn + j], cb - 1); };
+  int jh = next_hint(0);
+  if (jh < hn) stage_block<MASK>(coeff, amask, hint_block(jh), coefb[cbuf], smaskb[cbuf]);
+  while (jh < hn) {
+    // The previous visit's closing barrier retired its reads of the buffer
+    // the prefetch overwrites; the visit's first barrier publishes this one.
+    const int jn = next_hint(jh + 1);
+    if (jn < hn) {
+      stage_block<MASK>(coeff, amask, hint_block(jn), coefb[cbuf ^ 1], smaskb[cbuf ^ 1]);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
+    const int hc = hint_block(jh);
+    visit<MODE, COMMON, COUNT, MASK>(hc, coefb[cbuf], smaskb[cbuf],
+                                     blk + (size_t)(hc / SUP) * 8 * TILE, hc % SUP, L, V, o, d,
+                                     inv, fl, tmin, tmax, cx, cy, cz, best_t, best_k, -1, best_i,
+                                     visits, work);
+    cbuf ^= 1;
+    jh = jn;
   }
 
   // L1: least entry per super (pair) over the live windows, sorted once.
+  // A tile with no live ray has no key and skips the traversal.
+  if (hn > 0) __syncthreads();      // the hint visits' last reads of V
   if (lane == 0) count = 0;
-  T.limit[lane] = fminf(best_t, tmax);
-  if constexpr (INST) {
-    const int live1 = compact_live(I, tmin <= fminf(best_t, tmax));
-    if (live1 > 0) {
-      for (int s = lane; s < nsup; s += TILE) {
-        const float e = box_min_entry_live<COUNT>(T, I.live, live1,
-                                                  sup + (size_t)(s / TILE) * 8 * TILE,
-                                                  s % TILE, work);
-        if (__float_as_int(e) != INVALID)
-          l1keys[atomicAdd(&count, 1)] = (__float_as_int(e) & ~l1_mask) | s;
+  publish_ray(o, inv, fl);
+  const int live1 = compact_live(L, tmin <= fminf(best_t, tmax));
+  if (live1 > 0) {
+    // Four boxes a thread per pass: s = base + 128 i + lane.
+    for (int base = 0; base < nsup; base += 4 * TILE) {
+      const float* pg[4];
+      int bl[4];
+      float e[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        pg[i] = sup + (size_t)(base / TILE + i) * 8 * TILE;
+        bl[i] = lane;
       }
-    }
-  } else {
-    const int live1 = live_count<COUNT>(tmin <= fminf(best_t, tmax));
-    for (int s = lane; s < nsup; s += TILE) {
-      const float e = box_min_entry<COUNT>(T, sup + (size_t)(s / TILE) * 8 * TILE, s % TILE,
-                                           live1, work);
-      if (__float_as_int(e) != INVALID)
-        l1keys[atomicAdd(&count, 1)] = (__float_as_int(e) & ~l1_mask) | s;
+      const int nbox = min(4, (nsup - base - lane + TILE - 1) / TILE);
+      box_min_entries<4, COUNT>(T, L, live1, pg, bl, nbox, e, work);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int s = base + i * TILE + lane;
+        const int key = i < nbox && __float_as_int(e[i]) != INVALID
+                            ? (__float_as_int(e[i]) & ~l1_mask) | s
+                            : INVALID;
+        // Append this warp's keys with one atomic (the order is sorted away).
+        const unsigned m = __ballot_sync(FULL, key != INVALID);
+        int at = 0;
+        if ((lane & 31) == 0 && m) at = atomicAdd(&count, __popc(m));
+        at = __shfl_sync(FULL, at, 0);
+        if (key != INVALID) l1keys[at + __popc(m & ((1u << (lane & 31)) - 1u))] = key;
+      }
     }
   }
   __syncthreads();
   const int n1 = count;
-  int p1 = 1;
-  while (p1 < n1) p1 <<= 1;
-  for (int k = n1 + lane; k < p1; k += TILE) l1keys[k] = KEY_PAD;
-  __syncthreads();
-  bitonic_sort(l1keys, p1);
+  sort_keys(l1keys, n1);
 
+  // The blk page of super (pair) s: INST reads its blk row from pair_tab.
+  auto page_of = [&](int s) {
+    const int row = INST ? min(max(pair_tab[(size_t)s * 4 + 1], 0), nblk - 1) : s;
+    return blk + (size_t)row * 8 * TILE;
+  };
+  int pbuf = 0;
   for (int i = 0; i < n1; ++i) {
     const int key = l1keys[i];
     if (!__syncthreads_or(__float_as_int(fminf(best_t, tmax)) >= (key & ~l1_mask)))
       break;
     ++l1pops;
     const int s = key & l1_mask;
-    // L2: block keys of this super (of this pair's super, in mesh space)
-    // against the live windows.
-    const float* page = blk + (size_t)s * 8 * TILE;
+    // This pop's blk page (the previous pop prefetched it) and the next's.
+    if (i == 0) stage_page(page_of(s), pageb[pbuf]);
+    const bool pre = i + 1 < n1;
+    if (pre) stage_page(page_of(l1keys[i + 1] & l1_mask), pageb[pbuf ^ 1]);
+    const float* page = pageb[pbuf];
+    // L2: block keys of this super (of this pair's super, in mesh space:
+    // the L1 cull is done, so the tile's shared rays become mesh-space
+    // rays) against the live windows.
     int base = s * SUP, inst = -1;
     float e;
     if constexpr (INST) {
@@ -529,13 +748,11 @@ __global__ void __launch_bounds__(TILE) trace_v8_kernel(
         I.xf[lane] = inst_inv[(size_t)ins * 12 + lane];
         if (lane == 0) {
           I.inst = ins;
-          I.brow = min(max(row[1], 0), nblk - 1);
           I.bbase = row[2];
         }
       }
       __syncthreads();
       inst = I.inst;
-      page = blk + (size_t)I.brow * 8 * TILE;
       base = I.bbase;
       mfl = 0;
 #pragma unroll
@@ -546,39 +763,56 @@ __global__ void __launch_bounds__(TILE) trace_v8_kernel(
         const bool par = fabsf(md[a]) <= EPS;
         mfl |= par ? (1 << a) : 0;
         minv[a] = 1.0f / (par ? 1.0f : md[a]);
-        I.m.o[a][lane] = mo[a];
-        I.m.inv[a][lane] = minv[a];
       }
-      I.m.fl[lane] = mfl;
-      I.m.tmin[lane] = tmin;
-      I.m.limit[lane] = fminf(best_t, tmax);
-      const bool live = tmin <= fminf(best_t, tmax);
-      if (COUNT && live) ++work[2 * TILE + lane];
-      const int live2 = compact_live(I, live);
-      e = box_min_entry_live<COUNT>(I.m, I.live, live2, page, lane, work);
-    } else {
-      T.limit[lane] = fminf(best_t, tmax);
-      const int live2 = live_count<COUNT>(tmin <= fminf(best_t, tmax));
-      e = box_min_entry<COUNT>(T, page, lane, live2, work);
+      if (COUNT && tmin <= fminf(best_t, tmax)) ++work[2 * TILE + lane];
     }
-    l2keys[lane] = __float_as_int(e) == INVALID
-                       ? INVALID
-                       : (__float_as_int(e) & ~((1 << BLK_BITS) - 1)) | lane;
+    publish_ray(mo, minv, mfl);
+    if (pre) cp_async_wait<1>(); else cp_async_wait<0>();
+    const int live2 = compact_live(L, tmin <= fminf(best_t, tmax));  // also publishes the page
+    {
+      const float* pg[1] = {page};
+      const int bl[1] = {lane};
+      float e1[1];
+      box_min_entries<1, COUNT>(T, L, live2, pg, bl, 1, e1, work);
+      e = e1[0];
+    }
+    // Sort the 128 block keys: each thread ranks its own (unique: the block
+    // in the low bits; no candidate = INVALID + lane, after every key).
+    const int k2own = __float_as_int(e) == INVALID
+                          ? INVALID + lane
+                          : (__float_as_int(e) & ~((1 << BLK_BITS) - 1)) | lane;
+    l2in[lane] = k2own;
     __syncthreads();
-    bitonic_sort(l2keys, SUP);
+    l2keys[rank_of(l2in, SUP, k2own)] = k2own;
+    __syncthreads();
     for (int j = 0; j < SUP; ++j) {
       const int k2 = l2keys[j];
-      if (k2 == INVALID) break;                      // uniform: shared read
+      if (k2 >= INVALID) break;                      // uniform: shared read
       if (!__syncthreads_or(__float_as_int(fminf(best_t, tmax)) >=
                             (k2 & ~((1 << BLK_BITS) - 1))))
         break;
       const int b = k2 & ((1 << BLK_BITS) - 1);
       const int cid = min(base + b, cb - 1);
-      visit<MODE, COMMON, COUNT, MASK>(cid, coeff, page, b, amask, coef, fam, smask, mo, md,
-                                       minv, mfl, tmin, tmax, cx, cy, cz, best_t, best_k,
-                                       inst, best_i, visits, work);
+      // Stage this block (the previous visit prefetched all but the first)
+      // and prefetch the next key's, dropped if the stop rule ends here.
+      if (j == 0) stage_block<MASK>(coeff, amask, cid, coefb[cbuf], smaskb[cbuf]);
+      const int kn = j + 1 < SUP ? l2keys[j + 1] : INVALID;
+      if (kn < INVALID) {
+        stage_block<MASK>(coeff, amask, min(base + (kn & ((1 << BLK_BITS) - 1)), cb - 1),
+                          coefb[cbuf ^ 1], smaskb[cbuf ^ 1]);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      visit<MODE, COMMON, COUNT, MASK>(cid, coefb[cbuf], smaskb[cbuf], page, b, L, V, mo, md,
+                                       minv, mfl, tmin, tmax, cx, cy, cz, best_t, best_k, inst,
+                                       best_i, visits, work);
+      cbuf ^= 1;
     }
+    cp_async_wait<0>();             // a block prefetch the stop rule dropped
+    pbuf ^= 1;
   }
+  cp_async_wait<0>();               // a page prefetch the stop rule dropped
 
   float* of = outf + (size_t)tile * 8 * TILE;
   int* oi = outi + (size_t)tile * 8 * TILE;
@@ -645,7 +879,17 @@ TraceFn pick_inst(int mode, bool masked) {
 
 // Launches `fn` with cap1 = the L1 key count padded to a power of two, as
 // dynamic shared memory, opted into where the CTA's total passes 48 KB.
-int launch(TraceFn fn, size_t static_smem, const void* rays, const void* sup,
+template <typename Fn>
+cudaError_t opt_in(Fn fn, size_t smem) {
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, fn);
+  if (e != cudaSuccess) return e;
+  if (smem + attr.sharedSizeBytes > 48 * 1024)
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  return e;
+}
+
+int launch(TraceFn fn, const void* rays, const void* sup,
            const void* blk, const void* coeff, const void* amask, const void* hints,
            const void* pair_tab, const void* inst_inv, void* outf, void* outi, int ts,
            int nl1, int cb, int hn, int l1_mask, int nblk, int ninst, void* stream) {
@@ -653,11 +897,8 @@ int launch(TraceFn fn, size_t static_smem, const void* rays, const void* sup,
   int cap1 = 1;
   while (cap1 < nl1) cap1 <<= 1;
   const size_t smem = (size_t)cap1 * sizeof(int);
-  if (smem + static_smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const cudaError_t e = opt_in(fn, smem);
+  if (e != cudaSuccess) return (int)e;
   fn<<<ts, TILE, smem, (cudaStream_t)stream>>>(
       (const float*)rays, (const float*)sup, (const float*)blk,
       (const float*)coeff, (const int*)amask, (const int*)hints,
@@ -665,10 +906,6 @@ int launch(TraceFn fn, size_t static_smem, const void* rays, const void* sup,
       nl1, cap1, cb, hn, l1_mask, nblk, ninst);
   return (int)cudaGetLastError();
 }
-
-// An upper bound of a CTA's static shared memory (Tile, the coefficient,
-// dot, mask, key and work rows, and with INST the InstTile).
-constexpr size_t STATIC_SMEM = sizeof(Tile) + (CROWS + 3 + 2 + 1 + 3) * TILE * sizeof(float) + 64;
 
 // ---- MULTI: S shared-origin occlusion segments per ray --------------------
 
@@ -802,7 +1039,7 @@ __device__ __forceinline__ void visit_multi(
 }
 
 template <int S, bool COUNT>
-__global__ void __launch_bounds__(TILE) trace_v8_multi_kernel(
+__global__ void __launch_bounds__(TILE, MIN_CTAS) trace_v8_multi_kernel(
     const float* __restrict__ rays, const float* __restrict__ sup,
     const float* __restrict__ blk, const float* __restrict__ coeff,
     float* __restrict__ outf, int* __restrict__ outi, int nsup, int cb, int l1_mask) {
@@ -948,7 +1185,7 @@ int rt_trace_v8(const void* rays, const void* sup, const void* blk,
   if (ts <= 0) return 0;
   const bool masked = amask != nullptr;
   TraceFn fn = count ? pick<true>(mode, common, masked) : pick<false>(mode, common, masked);
-  return launch(fn, STATIC_SMEM, rays, sup, blk, coeff, amask, hints, nullptr, nullptr,
+  return launch(fn, rays, sup, blk, coeff, amask, hints, nullptr, nullptr,
                 outf, outi, ts, nsup, cb, hn, l1_mask, nsup, 1, stream);
 }
 
@@ -965,7 +1202,7 @@ int rt_trace_v8_inst(const void* rays, const void* pairs, const void* blk,
   if (ts <= 0) return 0;
   const bool masked = amask != nullptr;
   TraceFn fn = count ? pick_inst<true>(mode, masked) : pick_inst<false>(mode, masked);
-  return launch(fn, STATIC_SMEM + sizeof(InstTile), rays, pairs, blk, coeff, amask, nullptr,
+  return launch(fn, rays, pairs, blk, coeff, amask, nullptr,
                 pair_tab, inst_inv, outf, outi, ts, npair, cb, 0, l1_mask, nblk, ninst, stream);
 }
 

@@ -1,49 +1,74 @@
 // v9 quarter-composited ordered-visit closest-hit traversal, written for
-// Hopper (sm_90a).
+// Hopper (sm_90a), with its quarter cull computed in the tile prologue.
 //
 // Replaces realtimeraytracer_tpu/render/quarter_backend.py::
-// trace_blocks_quarter (kernel body _trace_kernel/_tile_body).  Same
-// contract: one 128-ray tile per CTA, rays (Ts, 8, 128) f32 rows
-// [o.xyz | d.xyz | t_min | t_max]; four per-quarter key streams per tile
-// (Ts, 4, nkeys) i32, a quarter-q key packing the entry bound of subcluster
-// 4B + q (lanes [32q, 32q+32) of coefficient block B) with the block id B
-// in the low id bits (+inf bits = no candidate); coefficient blocks
-// (CB, 12, 128) f32; an optional pads-before-group table group_off
-// (CB*4,) i32 of the SAH-repacked panels; optional alpha masks (CB, 2,
-// 128) i32 laid out like the coefficient blocks, i.e. by repacked slot
-// (pad lanes 0; bit b = 8 gj + gi in word b >> 5 is 0 where the
-// barycentric cell is definitely transparent, ops/alpha_mask.py).
-// Outputs: outf row 0 = t (3e38
-// on a miss); outi row 0 = sorted-triangle id (-1 on a miss), row 1 =
-// subclusters visited (4 per composite visit), row 5 = ray-triangle pairs
-// this ray tested on real subclusters (live rays only; a drained stream's
-// zero lanes are not counted): the bound's operation count.
+// trace_blocks_quarter (kernel body _trace_kernel/_tile_body) together with
+// the XLA cull that feeds it (render/pallas_backend.py::cull_quarter_keys;
+// the port's plain copy is render/v7_backend.py::cull_quarter_keys).  One
+// 128-ray tile per CTA, rays (Ts, 8, 128) f32 rows [o.xyz | d.xyz | t_min |
+// t_max]; subcluster boxes cl_min / cl_max (4 CB, 3) f32 (subcluster 4B + q
+// is lanes [32q, 32q+32) of coefficient block B); coefficient blocks (CB,
+// 12, 128) f32, CB <= 1024; an optional pads-before-group table group_off
+// (CB*4,) i32 of the SAH-repacked panels; optional alpha masks (CB, 2, 128)
+// i32 laid out like the coefficient blocks, i.e. by repacked slot (pad
+// lanes 0; bit b = 8 gj + gi in word b >> 5 is 0 where the barycentric cell
+// is definitely transparent, ops/alpha_mask.py).
+// Outputs: outf row 0 = t (3e38 on a miss); outi row 0 = sorted-triangle id
+// (-1 on a miss), row 1 = subclusters visited (4 per composite visit), row
+// 5 = ray-triangle pairs this ray tested on real subclusters (live rays
+// only; a drained stream's zero lanes are not counted): the bound's
+// operation count.
 //
-// Design.  One thread per ray.  Each quarter stream's valid keys are
-// compacted into shared memory and the four streams are bitonic-sorted
-// side by side; visit v then takes the v-th key of every stream, which is
-// the TPU kernel's pop order (each iteration pops every stream's minimum).
-// A visit stages each popped block's own 32-lane quarter into one 12x128
-// shared tile, so one pass over 128 lanes tests four subclusters from
-// (generally) four different blocks.  A drained stream's lanes are zero,
-// which fails the determinant test: the TPU kernel instead re-composites
-// block cb-1 there, with the same result.  Stop rule (exact, as on the
-// TPU): the least of the four stream heads is the least remaining entry
-// bound; stop when it exceeds every live ray's min(best_t, t_max), compared
-// as int32 f32 bits, with one __syncthreads_or per visit.  The winning
-// lane's quarter names its block, and group_off maps the repacked slot
-// back to the sorted id.  The coefficient table is read from global memory
-// (4.8 MB at 100k triangles, resident in the 50 MB L2).
+// Design.  One thread per ray.
+//   Cull (the prologue; cull_quarter_keys' arithmetic, in its order): the
+//     tile's rays reduce to the bundle's origin box, direction interval,
+//     least t_min and greatest t_max (pad lanes included, as _pack_rays pads
+//     them; warp shuffles, then the four warps' partials in order).  Thread
+//     `lane` takes blocks B = lane + 128 k and evaluates the interval entry
+//     bound of their four subcluster boxes (_sub_entries), packing each into
+//     quarter q's key ((entry bits & ~id_mask) | B, +inf bits where the box
+//     cannot be hit) in shared memory; warp ballots count each stream.
+//   Sort: keys of a stream are unique (the block id sits in the low bits)
+//     and every invalid key is greater than every valid one, so each thread
+//     counts, for each of its valid keys, the stream's keys below it (16-
+//     byte loads) and writes the key to that rank: no compaction, no
+//     atomics, one barrier, in place of the bitonic networks' barrier per
+//     stage.
+//   Visits: visit v takes the v-th key of every stream, which is the TPU
+//     kernel's pop order (each iteration pops every stream's minimum).  A
+//     visit composites each popped block's own 32-lane quarter into one
+//     12x128 shared tile, so one pass over 128 lanes tests four subclusters
+//     from (generally) four different blocks.  The tiles are gathered with
+//     cp.async (16 bytes a thread and copy) into two buffers: visit v + 1's
+//     four quarters are in flight while visit v is tested, and a prefetch
+//     that the stop rule makes needless is dropped.  A drained stream's
+//     lanes are zero-filled by the copy itself (source size 0), which fails
+//     the determinant test: the TPU kernel instead re-composites block cb-1
+//     there, with the same result.  The staging buffers reuse the shared
+//     memory that held the prologue's keys.  Each ray tests the tile NV = 4
+//     triangles a step: one 16-byte broadcast load per coefficient row and
+//     four independent tests, which the scheduler overlaps.
+//   Stop rule (exact, as on the TPU): the least of the four stream heads is
+//     the least remaining entry bound; stop when it exceeds every live ray's
+//     min(best_t, t_max), compared as int32 f32 bits, with one
+//     __syncthreads_or per visit.  The winning lane's quarter names its
+//     block, and group_off maps the repacked slot back to the sorted id.
 //
 // What bounds it: f32 operations per visit (47 per ray-triangle pair in
-// general, 29 with a common origin, 128x128 pairs per visit) and the
-// number of visits the cull lets through; a visit costs what a v7 visit
-// costs, but tests four 32-triangle subclusters the cull chose instead of
-// one 128-triangle block.
+// general, 29 with a common origin, 128x128 pairs per visit, most of them
+// live on coherent primaries) and the number of visits the cull lets
+// through.  On the card the visit loop is bound by latency: each test is a
+// dependent chain (dots, an IEEE division, the accept test) and a thread
+// has few of them in flight, so the loop issues far below the card's rate.
+// Four tests a step and the prefetched composite raise what is in flight;
+// the prologue costs about a tenth of the kernel (ablations in PERF.md).
+// Before the cull moved in-kernel, the plain-torch cull wrote 16 KB of keys
+// per tile (265 MB per 1080p call) and cost twice the kernel it fed.
 //
-// Numerics: -fmad=false, the same expressions and order as the plain
-// twin (render/quarter_backend.py::trace_quarter_plain), so t and ids
-// agree bit for bit.
+// Numerics: -fmad=false and IEEE division, the same expressions and order
+// as the plain cull and the plain twin (render/v7_backend.py::
+// _sub_entries, _pack_id_keys; render/quarter_backend.py::
+// trace_quarter_plain), so the keys, t and ids agree bit for bit.
 //
 // Alpha masks (the TPU kernel's composite_amask + _mask_ok): a masked
 // launch composites each popped block's mask rows by the same lane
@@ -57,13 +82,16 @@
 namespace {
 
 constexpr int TILE = 128;
+constexpr int WARPS = TILE / 32;
 constexpr int CROWS = 12;
 constexpr int NQ = 4;
 constexpr int SUBK = 32;
+constexpr int MAX_CB = 1024;                  // RESIDENT_CB
 constexpr float BIG = 3.0e38f;
 constexpr float EPS = 1e-12f;
 constexpr int INVALID = 0x7F800000;
 constexpr int KEY_PAD = 0x7FFFFFFF;
+constexpr unsigned FULL = 0xFFFFFFFFu;
 
 enum Common { COMMON_NONE = 0, COMMON_ORIGIN = 1, COMMON_DIR = 2 };
 
@@ -89,139 +117,63 @@ __device__ __forceinline__ bool mask_bit(const int* m, int j, float u, float v) 
   return ((static_cast<unsigned>(m[(b >> 5) * TILE + j]) >> (b & 31)) & 1u) != 0u;
 }
 
+// Triangles tested per step of the inner loop: each step reads NV
+// consecutive lanes of every coefficient row with one vector load (a
+// broadcast: every thread of the warp reads the same address) and runs NV
+// independent ray-triangle tests, which the scheduler can overlap.
+constexpr int NV = 4;
+
+template <int N>
+__device__ __forceinline__ void load_lanes(const float* p, float (&v)[N]) {
+  if constexpr (N == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+  } else if constexpr (N == 2) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    v[0] = x.x; v[1] = x.y;
+  } else {
+    v[0] = p[0];
+  }
+}
+
+// The least packed (quantized t | lane) key of one ray over a staged
+// 128-triangle tile (coef: 12 x 128; fam: the tile-shared dot products of
+// a common origin or direction; smask: the two mask rows), KEY_PAD if no
+// triangle is hit in [tmin, limit].  dot_o / dot_d's expressions and
+// order, NV triangles per step.
 template <int COMMON, bool MASK>
-__global__ void __launch_bounds__(TILE) trace_v9_kernel(
-    const float* __restrict__ rays, const int* __restrict__ keys,
-    const float* __restrict__ coeff, const int* __restrict__ group_off,
-    const int* __restrict__ amask, float* __restrict__ outf,
-    int* __restrict__ outi, int nkeys, int cap, int cb, int id_mask) {
-  extern __shared__ int sq[];                  // NQ streams of `cap` keys
-  __shared__ float coef[CROWS * TILE];
-  __shared__ float fam[3 * TILE];
-  __shared__ int smask[MASK ? 2 * TILE : 1];
-  __shared__ int count[NQ];
-  const int tile = blockIdx.x;
-  const int lane = threadIdx.x;
-
-  const float* r = rays + (size_t)tile * 8 * TILE;
-  const float ox = r[0 * TILE + lane], oy = r[1 * TILE + lane],
-              oz = r[2 * TILE + lane];
-  const float dx = r[3 * TILE + lane], dy = r[4 * TILE + lane],
-              dz = r[5 * TILE + lane];
-  const float tmin = r[6 * TILE + lane], tmax = r[7 * TILE + lane];
-  const int cbase = COMMON == COMMON_DIR ? 3 : 0;
-  const float cx = r[(cbase + 0) * TILE], cy = r[(cbase + 1) * TILE],
-              cz = r[(cbase + 2) * TILE];
-
-  // Compact each quarter stream's candidate keys.
-  if (lane < NQ) count[lane] = 0;
-  __syncthreads();
-  const int* tk = keys + (size_t)tile * NQ * nkeys;
-  for (int q = 0; q < NQ; ++q) {
-    for (int k = lane; k < nkeys; k += TILE) {
-      const int key = tk[(size_t)q * nkeys + k];
-      if (key != INVALID) sq[q * cap + atomicAdd(&count[q], 1)] = key;
-    }
-  }
-  __syncthreads();
-  int n[NQ];
-  int nmax = 0;
+__device__ __forceinline__ int closest_key(const float* coef, const float* fam,
+                                           const int* smask, const float (&o)[3],
+                                           const float (&d)[3], float tmin, float limit) {
+  int kbest = KEY_PAD;
+  for (int j0 = 0; j0 < TILE; j0 += NV) {
+    float c[CROWS][NV], f[3][NV];
 #pragma unroll
-  for (int q = 0; q < NQ; ++q) {
-    n[q] = count[q];
-    nmax = max(nmax, n[q]);
-  }
-  // Sort the four streams side by side: bitonic networks of size p each.
-  int p = 1;
-  while (p < nmax) p <<= 1;
-  for (int q = 0; q < NQ; ++q)
-    for (int k = n[q] + lane; k < p; k += TILE) sq[q * cap + k] = KEY_PAD;
-  __syncthreads();
-  for (int k = 2; k <= p; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int idx = lane; idx < NQ * p; idx += TILE) {
-        const int q = idx / p;
-        const int i = idx - q * p;
-        const int ixj = i ^ j;
-        if (ixj > i) {
-          int* s = sq + q * cap;
-          const int a = s[i], b = s[ixj];
-          const bool up = (i & k) == 0;
-          if ((a > b) == up) {
-            s[i] = b;
-            s[ixj] = a;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-  float best_t = BIG;
-  int best_k = -1;
-  int visits = 0, pairs = 0;
-  const int my_q = lane / SUBK;
-  for (int v = 0; v < nmax; ++v) {
-    int kmin = KEY_PAD;
-#pragma unroll
-    for (int q = 0; q < NQ; ++q)
-      if (v < n[q]) kmin = min(kmin, sq[q * cap + v]);
-    const int entry = kmin & ~id_mask;
-    const int limit_bits = __float_as_int(fminf(best_t, tmax));
-    // Exact stop rule; the barrier also retires the previous visit's reads.
-    if (!__syncthreads_or(limit_bits >= entry)) break;
-    // Composite: lane j takes quarter j/32 of that quarter's popped block.
-    if (v < count[my_q]) {
-      const int cid = min(sq[my_q * cap + v] & id_mask, cb - 1);
-      const float* cg = coeff + (size_t)cid * CROWS * TILE;
-#pragma unroll
-      for (int row = 0; row < CROWS; ++row)
-        coef[row * TILE + lane] = cg[row * TILE + lane];
-      if (MASK) {
-        const int* mg = amask + (size_t)cid * 2 * TILE;
-        smask[lane] = mg[lane];
-        smask[TILE + lane] = mg[TILE + lane];
-      }
-    } else {
-#pragma unroll
-      for (int row = 0; row < CROWS; ++row) coef[row * TILE + lane] = 0.0f;
-      if (MASK) smask[lane] = smask[TILE + lane] = 0;
-    }
+    for (int r = 0; r < CROWS; ++r) load_lanes<NV>(coef + r * TILE + j0, c[r]);
     if (COMMON != COMMON_NONE) {
-      __syncthreads();
 #pragma unroll
-      for (int f = 0; f < 3; ++f)
-        fam[f * TILE + lane] = COMMON == COMMON_ORIGIN
-                                   ? dot_o(coef, 4 * f, lane, cx, cy, cz)
-                                   : dot_d(coef, 4 * f, lane, cx, cy, cz);
+      for (int k = 0; k < 3; ++k) load_lanes<NV>(fam + k * TILE + j0, f[k]);
     }
-    __syncthreads();
-    ++visits;
-
-    const float limit = fminf(best_t, tmax);
-    if (!(tmin <= limit)) continue;            // this ray cannot hit here
 #pragma unroll
-    for (int q = 0; q < NQ; ++q) pairs += v < n[q] ? SUBK : 0;
-    int kbest = KEY_PAD;
-    for (int j = 0; j < TILE; ++j) {
+    for (int i = 0; i < NV; ++i) {
       float s0, ou, ov, s1, du, dv;
       if (COMMON == COMMON_ORIGIN) {
-        s0 = fam[j];
-        ou = fam[TILE + j];
-        ov = fam[2 * TILE + j];
+        s0 = f[0][i];
+        ou = f[1][i];
+        ov = f[2][i];
       } else {
-        s0 = dot_o(coef, 0, j, ox, oy, oz);
-        ou = dot_o(coef, 4, j, ox, oy, oz);
-        ov = dot_o(coef, 8, j, ox, oy, oz);
+        s0 = ((o[0] * c[0][i] + o[1] * c[1][i]) + o[2] * c[2][i]) + c[3][i];
+        ou = ((o[0] * c[4][i] + o[1] * c[5][i]) + o[2] * c[6][i]) + c[7][i];
+        ov = ((o[0] * c[8][i] + o[1] * c[9][i]) + o[2] * c[10][i]) + c[11][i];
       }
       if (COMMON == COMMON_DIR) {
-        s1 = fam[j];
-        du = fam[TILE + j];
-        dv = fam[2 * TILE + j];
+        s1 = f[0][i];
+        du = f[1][i];
+        dv = f[2][i];
       } else {
-        s1 = dot_d(coef, 0, j, dx, dy, dz);
-        du = dot_d(coef, 4, j, dx, dy, dz);
-        dv = dot_d(coef, 8, j, dx, dy, dz);
+        s1 = (d[0] * c[0][i] + d[1] * c[1][i]) + d[2] * c[2][i];
+        du = (d[0] * c[4][i] + d[1] * c[5][i]) + d[2] * c[6][i];
+        dv = (d[0] * c[8][i] + d[1] * c[9][i]) + d[2] * c[10][i];
       }
       const bool den_ok = fabsf(s1) > EPS;
       const float t = den_ok ? (-s0) / s1 : BIG;
@@ -229,11 +181,262 @@ __global__ void __launch_bounds__(TILE) trace_v9_kernel(
       const float vv = ov + t * dv;
       bool ok = den_ok && u >= 0.0f && vv >= 0.0f && u + vv <= 1.0f &&
                 t >= tmin && t <= limit;
-      if (MASK && ok) ok = mask_bit(smask, j, u, vv);
+      if (MASK && ok) ok = mask_bit(smask, j0 + i, u, vv);
       // Packed (t | lane) key: nearest quantized t, then the lowest lane.
       const float tm = ok ? t : __int_as_float(INVALID);
-      kbest = min(kbest, (__float_as_int(tm) & ~127) | j);
+      kbest = min(kbest, (__float_as_int(tm) & ~127) | (j0 + i));
     }
+  }
+  return kbest;
+}
+
+// 16 bytes from global to shared memory, asynchronously; fill = false
+// writes 16 zero bytes instead (the source is not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool fill) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(fill ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's copy groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Interval product [a_lo, a_hi] x [b_lo, b_hi] (_sub_entries' `times`).
+__device__ __forceinline__ void times(float a_lo, float a_hi, float b_lo, float b_hi,
+                                      float& lo, float& hi) {
+  const float p1 = a_lo * b_lo, p2 = a_lo * b_hi;
+  const float p3 = a_hi * b_lo, p4 = a_hi * b_hi;
+  lo = fminf(fminf(p1, p2), fminf(p3, p4));
+  hi = fmaxf(fmaxf(p1, p2), fmaxf(p3, p4));
+}
+
+// The tile bundle: origin box, inverse direction interval per axis, least
+// t_min and greatest t_max.
+struct Bundle {
+  float o_lo[3], o_hi[3], inv_lo[3], inv_hi[3], tmin_lb, tmax_ub;
+};
+
+// Quarter key of subcluster c (_sub_entries + _pack_id_keys): entry bits
+// with the id bits cleared, or'ed with block id `blk`; INVALID where the
+// box cannot be hit by the bundle.
+__device__ __forceinline__ int sub_key(const Bundle& b, const float* __restrict__ cl_min,
+                                       const float* __restrict__ cl_max, int c, int blk,
+                                       int id_mask) {
+  float tn = 0.0f, tf = 0.0f;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float bmin = cl_min[c * 3 + a], bmax = cl_max[c * 3 + a];
+    float t0l, t0h, t1l, t1h;
+    times(bmin - b.o_hi[a], bmin - b.o_lo[a], b.inv_lo[a], b.inv_hi[a], t0l, t0h);
+    times(bmax - b.o_hi[a], bmax - b.o_lo[a], b.inv_lo[a], b.inv_hi[a], t1l, t1h);
+    const float lo_a = fminf(t0l, t1l);
+    const float hi_a = fmaxf(t0h, t1h);
+    tn = a == 0 ? lo_a : fmaxf(tn, lo_a);
+    tf = a == 0 ? hi_a : fminf(tf, hi_a);
+  }
+  const bool possible = tn <= tf && tf >= b.tmin_lb && tn <= b.tmax_ub;
+  const float ent = possible ? fmaxf(tn, 0.0f) : __int_as_float(INVALID);
+  if (!isfinite(ent)) return INVALID;
+  return (__float_as_int(ent) & ~id_mask) | blk;
+}
+
+// Reduces the tile's rays to its bundle: every thread of the CTA calls it
+// (it holds a barrier) and gets the same bundle.
+__device__ __forceinline__ Bundle reduce_bundle(const float (&o)[3], const float (&d)[3],
+                                                float tmin, float tmax, float (*red)[14]) {
+  float v[14];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    v[a] = o[a];
+    v[3 + a] = o[a];
+    v[6 + a] = d[a];
+    v[9 + a] = d[a];
+  }
+  v[12] = tmin;
+  v[13] = tmax;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int i = 0; i < 14; ++i) {
+      const float x = __shfl_xor_sync(FULL, v[i], off);
+      const bool is_min = i < 3 || (i >= 6 && i < 9) || i == 12;
+      v[i] = is_min ? fminf(v[i], x) : fmaxf(v[i], x);
+    }
+  }
+  const int w = threadIdx.x / 32;
+  if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+    for (int i = 0; i < 14; ++i) red[w][i] = v[i];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 14; ++i) {
+    const bool is_min = i < 3 || (i >= 6 && i < 9) || i == 12;
+    float x = red[0][i];
+#pragma unroll
+    for (int k = 1; k < WARPS; ++k) x = is_min ? fminf(x, red[k][i]) : fmaxf(x, red[k][i]);
+    v[i] = x;
+  }
+  Bundle b;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    b.o_lo[a] = v[a];
+    b.o_hi[a] = v[3 + a];
+    const float d_lo = v[6 + a], d_hi = v[9 + a];
+    const bool span = d_lo > EPS || d_hi < -EPS;                 // sign-definite
+    const float safe_hi = fabsf(d_hi) > EPS ? d_hi : EPS;
+    const float safe_lo = fabsf(d_lo) > EPS ? d_lo : EPS;
+    b.inv_lo[a] = span ? 1.0f / safe_hi : -BIG;
+    b.inv_hi[a] = span ? 1.0f / safe_lo : BIG;
+  }
+  b.tmin_lb = v[12];
+  b.tmax_ub = v[13];
+  return b;
+}
+
+template <int COMMON, bool MASK>
+__global__ void __launch_bounds__(TILE) trace_v9_kernel(
+    const float* __restrict__ rays, const float* __restrict__ cl_min,
+    const float* __restrict__ cl_max, const float* __restrict__ coeff,
+    const int* __restrict__ group_off, const int* __restrict__ amask,
+    float* __restrict__ outf, int* __restrict__ outi, int cb, int cap, int id_mask) {
+  // Dynamic: NQ sorted streams of `cap` keys, then every block's quarter
+  // keys (the prologue), whose room the two staging buffers take after.
+  extern __shared__ __align__(16) int dyn[];
+  int* sq = dyn;
+  int* kall = dyn + NQ * cap;
+  float* coefb = reinterpret_cast<float*>(kall);               // 2 x CROWS x TILE
+  int* smaskb = reinterpret_cast<int*>(coefb + 2 * CROWS * TILE);  // 2 x 2 x TILE
+  __shared__ __align__(16) float fam[3 * TILE];
+  __shared__ float red[WARPS][14];
+  __shared__ int wsum[NQ][WARPS];
+  const int tile = blockIdx.x;
+  const int lane = threadIdx.x;
+  const int warp = lane / 32;
+
+  const float* r = rays + (size_t)tile * 8 * TILE;
+  const float o[3] = {r[0 * TILE + lane], r[1 * TILE + lane], r[2 * TILE + lane]};
+  const float d[3] = {r[3 * TILE + lane], r[4 * TILE + lane], r[5 * TILE + lane]};
+  const float tmin = r[6 * TILE + lane], tmax = r[7 * TILE + lane];
+  const int cbase = COMMON == COMMON_DIR ? 3 : 0;
+  const float cx = r[(cbase + 0) * TILE], cy = r[(cbase + 1) * TILE],
+              cz = r[(cbase + 2) * TILE];
+
+  // Cull: quarter q's key of block B goes to kall[q * kcap + B] (INVALID
+  // past cb); warp ballots count each stream's valid keys.
+  const Bundle bundle = reduce_bundle(o, d, tmin, tmax, red);
+  const int rounds = (cb + TILE - 1) / TILE;
+  const int kcap = rounds * TILE;
+  int mine[NQ] = {0, 0, 0, 0};
+  for (int k = 0; k < rounds; ++k) {
+    const int blk = k * TILE + lane;
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      const int key = blk < cb ? sub_key(bundle, cl_min, cl_max, NQ * blk + q, blk, id_mask)
+                               : INVALID;
+      kall[q * kcap + blk] = key;
+      mine[q] += __popc(__ballot_sync(FULL, key != INVALID));
+    }
+  }
+  if ((lane & 31) == 0) {
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) wsum[q][warp] = mine[q];
+  }
+  __syncthreads();
+  int n[NQ];
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) n[q] = wsum[q][0] + wsum[q][1] + wsum[q][2] + wsum[q][3];
+  // Sort: each valid key goes to its rank among its stream's keys (the
+  // INVALID ones are greater than every valid key).
+  for (int k = 0; k < rounds; ++k) {
+    const int blk = k * TILE + lane;
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      const int key = kall[q * kcap + blk];
+      if (key == INVALID) continue;
+      const int* s = kall + q * kcap;
+      int rank = 0;
+      for (int j = 0; j < kcap; j += 4) {
+        const int4 x = *reinterpret_cast<const int4*>(s + j);
+        rank += (x.x < key) + (x.y < key) + (x.z < key) + (x.w < key);
+      }
+      sq[q * cap + rank] = key;
+    }
+  }
+  int nmax = 0;
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) nmax = max(nmax, n[q]);
+  __syncthreads();        // the sorted streams are written, kall's room is free
+
+  // Stages visit v's composite into buffer v & 1: 384 16-byte chunks of
+  // coefficients (row c >> 5, lanes 4 (c & 31) .. + 3, quarter (c & 31) >> 3)
+  // and 64 of mask rows; drained quarters are zero-filled.
+  auto stage = [&](int v) {
+    float* cdst = coefb + (v & 1) * CROWS * TILE;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const int c = lane + i * TILE;
+      const int row = c >> 5, m = c & 31, q = m >> 3;
+      const bool live = v < n[q];
+      const int cid = live ? min(sq[q * cap + v] & id_mask, cb - 1) : 0;
+      cp_async16(cdst + row * TILE + 4 * m, coeff + ((size_t)cid * CROWS + row) * TILE + 4 * m,
+                 live);
+    }
+    if (MASK && lane < 64) {
+      const int row = lane >> 5, m = lane & 31, q = m >> 3;
+      const bool live = v < n[q];
+      const int cid = live ? min(sq[q * cap + v] & id_mask, cb - 1) : 0;
+      cp_async16(smaskb + (v & 1) * 2 * TILE + row * TILE + 4 * m,
+                 amask + ((size_t)cid * 2 + row) * TILE + 4 * m, live);
+    }
+    cp_async_commit();
+  };
+
+  float best_t = BIG;
+  int best_k = -1;
+  int visits = 0, pairs = 0;
+  if (nmax > 0) stage(0);
+  for (int v = 0; v < nmax; ++v) {
+    int kmin = KEY_PAD;
+#pragma unroll
+    for (int q = 0; q < NQ; ++q)
+      if (v < n[q]) kmin = min(kmin, sq[q * cap + v]);
+    const int entry = kmin & ~id_mask;
+    const int limit_bits = __float_as_int(fminf(best_t, tmax));
+    // Exact stop rule; the barrier also retires the previous visit's reads
+    // of the buffer the prefetch below overwrites.
+    if (!__syncthreads_or(limit_bits >= entry)) break;
+    if (v + 1 < nmax) {
+      stage(v + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* coef = coefb + (v & 1) * CROWS * TILE;
+    const int* smask = smaskb + (v & 1) * 2 * TILE;
+    if (COMMON != COMMON_NONE) {
+#pragma unroll
+      for (int f = 0; f < 3; ++f)
+        fam[f * TILE + lane] = COMMON == COMMON_ORIGIN
+                                   ? dot_o(coef, 4 * f, lane, cx, cy, cz)
+                                   : dot_d(coef, 4 * f, lane, cx, cy, cz);
+      __syncthreads();
+    }
+    ++visits;
+
+    const float limit = fminf(best_t, tmax);
+    if (!(tmin <= limit)) continue;            // this ray cannot hit here
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) pairs += v < n[q] ? SUBK : 0;
+    const int kbest = closest_key<COMMON, MASK>(coef, fam, smask, o, d, tmin, limit);
     if (kbest < __float_as_int(best_t)) {
       const int j = kbest & 127;
       const int q = j / SUBK;
@@ -242,6 +445,7 @@ __global__ void __launch_bounds__(TILE) trace_v9_kernel(
       best_k = cid * TILE + j - (group_off ? group_off[cid * NQ + q] : 0);
     }
   }
+  cp_async_wait<0>();     // a prefetch the stop rule made needless
 
   float* of = outf + (size_t)tile * 8 * TILE;
   int* oi = outi + (size_t)tile * 8 * TILE;
@@ -251,8 +455,8 @@ __global__ void __launch_bounds__(TILE) trace_v9_kernel(
   oi[5 * TILE + lane] = pairs;
 }
 
-typedef void (*TraceFn)(const float*, const int*, const float*, const int*,
-                        const int*, float*, int*, int, int, int, int);
+typedef void (*TraceFn)(const float*, const float*, const float*, const float*,
+                        const int*, const int*, float*, int*, int, int, int);
 
 template <bool MASK>
 TraceFn pick(int common) {
@@ -265,31 +469,33 @@ TraceFn pick(int common) {
 
 extern "C" {
 
-// Launches one CTA per tile on `stream`.  group_off may be null (panels
-// without repacking: ids are slot ids); amask may be null (no alpha
-// masks).  Returns cudaGetLastError() after the launch (0 = launched), or
-// the error of the shared-memory opt-in.
-int rt_trace_v9(const void* rays, const void* keys, const void* coeff,
-                const void* group_off, const void* amask, void* outf,
-                void* outi, int ts, int nkeys, int cb, int id_mask,
-                int common, void* stream) {
+// Launches one CTA per tile on `stream`.  cl_min / cl_max: (4 cb, 3) f32,
+// 1 <= cb <= 1024; group_off may be null (panels without repacking: ids
+// are slot ids); amask may be null (no alpha masks).  Returns
+// cudaGetLastError() after the launch (0 = launched), the error of the
+// shared-memory opt-in, or cudaErrorInvalidValue for cb outside [1, 1024].
+int rt_trace_v9(const void* rays, const void* cl_min, const void* cl_max,
+                const void* coeff, const void* group_off, const void* amask,
+                void* outf, void* outi, int ts, int cb, int id_mask, int common,
+                void* stream) {
   if (ts <= 0) return 0;
-  int cap = 1;
-  while (cap < nkeys) cap <<= 1;
-  const size_t smem = (size_t)NQ * cap * sizeof(int);
-  const bool masked = amask != nullptr;
-  TraceFn fn = masked ? pick<true>(common) : pick<false>(common);
-  const size_t static_smem = (CROWS + 3) * TILE * sizeof(float) + NQ * sizeof(int) +
-                             (masked ? 2 * TILE * sizeof(int) : sizeof(int));
-  if (smem + static_smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (cb < 1 || cb > MAX_CB) return (int)cudaErrorInvalidValue;
+  const int cap = (cb + 3) & ~3;                     // 16-byte aligned streams
+  const size_t streams = (size_t)NQ * cap * sizeof(int);
+  const size_t keys = (size_t)NQ * ((cb + TILE - 1) / TILE) * TILE * sizeof(int);
+  const size_t staging = (size_t)(2 * CROWS * TILE + (amask ? 2 * 2 * TILE : 0)) * sizeof(float);
+  const size_t smem = streams + (keys > staging ? keys : staging);
+  TraceFn fn = amask != nullptr ? pick<true>(common) : pick<false>(common);
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, fn);
+  if (e != cudaSuccess) return (int)e;
+  if (smem + attr.sharedSizeBytes > 48 * 1024) {
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   fn<<<ts, TILE, smem, (cudaStream_t)stream>>>(
-      (const float*)rays, (const int*)keys, (const float*)coeff,
-      (const int*)group_off, (const int*)amask, (float*)outf, (int*)outi,
-      nkeys, cap, cb, id_mask);
+      (const float*)rays, (const float*)cl_min, (const float*)cl_max, (const float*)coeff,
+      (const int*)group_off, (const int*)amask, (float*)outf, (int*)outi, cb, cap, id_mask);
   return (int)cudaGetLastError();
 }
 

@@ -57,7 +57,7 @@ from realtimeraytracer_torch.ops.intersect import BIG_T, HitRecord
 from realtimeraytracer_torch.render.backends import (
     TraceBackend, _merge_sphere_hits, sphere_occluded)
 from realtimeraytracer_torch.render.v7_backend import (
-    BIG, BIG_BITS, EPS, _COMMON, _INT64_MAX, _MODES, _check, _check_amask,
+    BIG, BIG_BITS, EPS, _COMMON, _INT64_MAX, _MODES, _check, _check_aligned, _check_amask,
     _intersect_pairs, _pack_rays)
 from realtimeraytracer_torch.scene.gpu_scene import TorchScene
 from realtimeraytracer_torch.scene.panels import CROWS, RESIDENT_CB, TILE
@@ -235,6 +235,7 @@ def _check_hierarchy(rays, sup_panel, blk_panels, coeff, nsup: int) -> int:
     if not 0 < nsup <= SPAGES * 128 or nsup * SUP < cb:
         raise ValueError(f"{nsup} superclusters for {cb} blocks: the v8 kernel "
                          f"takes 1 to {SPAGES * 128} supers covering every block")
+    _check_aligned(blk_panels=blk_panels, coeff=coeff)
     return (1 << max(7, (nsup - 1).bit_length())) - 1
 
 
@@ -259,6 +260,7 @@ def trace_hier_kernel(rays, sup_panel, blk_panels, coeff, nsup: int, mode: str,
     if mode not in _MODES or common not in _COMMON:
         raise ValueError(f"bad mode/common {mode!r}/{common!r}")
     _check_amask(amask, coeff, mode)
+    _check_aligned(amask=amask)
     outf = torch.zeros((ts, 8, TILE), dtype=torch.float32, device=rays.device)
     outi = torch.zeros((ts, 8, TILE), dtype=torch.int32, device=rays.device)
     with torch.cuda.device(rays.device):
@@ -450,6 +452,7 @@ def trace_hier_inst_kernel(rays, pair_pages, pair_tab, inst_inv, blk_panel, coef
     if mode not in _MODES:
         raise ValueError(f"bad mode {mode!r}")
     _check_amask(amask, coeff, mode)
+    _check_aligned(blk_panel=blk_panel, coeff=coeff, amask=amask)
     # The pair count and the blk row count are separate: a pair row names
     # its blk row and its block base, which the kernel clamps to nblk and cb.
     if not 0 < npair <= SPAGES * 128 or not ninst > 0 or not nblk > 0:

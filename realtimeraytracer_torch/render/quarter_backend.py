@@ -14,10 +14,14 @@ kernel reads the SAH-repacked panels (scene.q_panels) when the scene has
 them and maps slot ids back to sorted ids with q_group_off.
 
 ``trace_blocks_quarter`` launches the kernel for CUDA tensors and runs the
-plain twin (``trace_quarter_plain``) for CPU tensors, with no fallback
-between the two.  The twin intersects every candidate subcluster of a tile
-and keeps the least (quantized t, visit, lane) key per ray, the kernel's
-tie rule, so the two agree bit for bit.
+plain cull and the plain twin (``trace_quarter_plain``) for CPU tensors,
+with no fallback between the two.  The kernel computes the quarter cull
+itself, in its tile prologue, from the subcluster boxes: on the card no
+key tensor exists.  The twin intersects every candidate subcluster of a
+tile and keeps the least (quantized t, visit, lane) key per ray, the
+kernel's tie rule, so the two agree bit for bit.
+``trace_quarter_ordered`` runs the kernel's ordered visit loop on the
+plain keys, which gives its visit and pair counts as well.
 
 With ``use_amask`` (JAX ``use_amask``) the kernel and the twin reject
 hits in definitely-transparent cells of the scene's alpha masks: q_amask,
@@ -38,14 +42,18 @@ from realtimeraytracer_torch.ops import intersect
 from realtimeraytracer_torch.ops.intersect import HitRecord
 from realtimeraytracer_torch.render.backends import TraceBackend, _merge_sphere_hits
 from realtimeraytracer_torch.render.v7_backend import (
-    BIG, BIG_BITS, CPB, INVALID, _COMMON, _INT64_MAX, _check, _check_amask,
-    _intersect_pairs, _pack_rays, cull_quarter_keys, make_v7_backend, trace_blocks)
+    BIG, BIG_BITS, CPB, INVALID, _COMMON, _INT64_MAX, _check_aligned, _check_layout,
+    _check_on_card,
+    _id_bits, _intersect_pairs, _pack_rays, cull_quarter_keys, make_v7_backend, trace_blocks)
 from realtimeraytracer_torch.scene.gpu_scene import TorchScene
 from realtimeraytracer_torch.scene.panels import CB, CROWS, RESIDENT_CB, SUBK, TILE
 
 NQ = CB // SUBK      # lane quarters per block (4)
 # (tile, subcluster) pairs per chunk of the plain twin, on CUDA and elsewhere.
 _PAIR_CHUNK_CUDA, _PAIR_CHUNK_CPU = 4096, 256
+# Tiles per chunk of trace_quarter_ordered's visit step, on CUDA and elsewhere.
+_TILE_CHUNK_CUDA, _TILE_CHUNK_CPU = 2048, 64
+_KEY_PAD = 0x7FFFFFFF
 
 
 def trace_quarter_plain(rays, keys, coeff, group_off, id_mask: int,
@@ -108,38 +116,121 @@ def trace_quarter_plain(rays, keys, coeff, group_off, id_mask: int,
     return outf, outi
 
 
-def trace_quarter_kernel(rays, keys, coeff, group_off, id_mask: int,
+def trace_quarter_ordered(rays, keys, coeff, group_off, id_mask: int,
+                          common: str | None = None, amask=None):
+    """The v9 kernel's ordered visit loop in plain PyTorch, on culled
+    quarter keys (Ts, 4, CBn, 8, 128), for any device: visit v composites
+    the v-th key of every stream, and a tile stops, as the kernel does,
+    once the least stream head's entry exceeds every ray's min(best_t,
+    t_max).  Unlike the twin (trace_quarter_plain, which tests every
+    candidate) it writes the kernel's own visit and pair counts: outi row 1
+    = 4 x the composite visits, row 5 = the pairs each live ray tested on
+    real subclusters.  A check of the kernel's in-kernel cull and visit
+    order, row for row; t and ids are the twin's."""
+    ts = rays.shape[0]
+    dev = rays.device
+    cb = coeff.shape[0]
+    chunk = _TILE_CHUNK_CUDA if dev.type == "cuda" else _TILE_CHUNK_CPU
+    sk = torch.sort(keys.reshape(ts, NQ, -1), dim=2).values
+    n = (sk != INVALID).sum(dim=2)                                  # (Ts, NQ)
+    quarters = coeff.reshape(cb, CROWS, NQ, SUBK)
+    mask_q = None if amask is None else amask.reshape(cb, 2, NQ, SUBK)
+    q_idx = torch.arange(NQ, device=dev)
+    lane = torch.arange(TILE, device=dev, dtype=torch.int32)
+    best_t = torch.full((ts, TILE), BIG, dtype=torch.float32, device=dev)
+    best_k = torch.full((ts, TILE), -1, dtype=torch.int32, device=dev)
+    visits = torch.zeros(ts, dtype=torch.int32, device=dev)
+    pairs = torch.zeros((ts, TILE), dtype=torch.int32, device=dev)
+    going = n.amax(dim=1) > 0
+    for v in range(int(n.amax()) if ts else 0):
+        has = v < n
+        kv = sk[:, :, v]
+        entry = torch.where(has, kv, _KEY_PAD).amin(dim=1) & ~id_mask
+        limit = torch.minimum(best_t, rays[:, 7])
+        going &= has.any(dim=1) & (limit.view(torch.int32) >= entry[:, None]).any(dim=1)
+        tiles = going.nonzero()[:, 0]
+        if not tiles.numel():
+            break
+        for s in range(0, tiles.numel(), chunk):
+            tt = tiles[s:s + chunk]
+            cid = torch.clamp(kv[tt] & id_mask, max=cb - 1).long()     # (P, NQ)
+            live_q = has[tt]
+            comp = torch.where(live_q[:, :, None, None], quarters[cid, :, q_idx, :], 0.0)
+            comp = comp.permute(0, 2, 1, 3).reshape(-1, CROWS, TILE)
+            m = None
+            if mask_q is not None:
+                m = torch.where(live_q[:, :, None, None], mask_q[cid, :, q_idx, :], 0)
+                m = m.permute(0, 2, 1, 3).reshape(-1, 2, TILE)
+            r = rays[tt].clone()
+            r[:, 7] = limit[tt]
+            t, ok = _intersect_pairs(r, comp, common, m)
+            tm = torch.where(ok, t, float("inf"))
+            kbest = ((tm.view(torch.int32) & ~127) | lane).amin(dim=2)      # (P, 128)
+            better = kbest < best_t[tt].view(torch.int32)
+            j = (kbest & 127).long()
+            q = j // SUBK
+            bcid = torch.gather(cid, 1, q)
+            ids = bcid * TILE + j
+            if group_off is not None:
+                ids = ids - group_off[bcid * NQ + q]
+            best_t[tt] = torch.where(better, (kbest & ~127).view(torch.float32), best_t[tt])
+            best_k[tt] = torch.where(better, ids.to(torch.int32), best_k[tt])
+            alive = r[:, 6] <= r[:, 7]
+            pairs[tt] += alive.to(torch.int32) * (live_q.sum(dim=1, dtype=torch.int32) * SUBK)[:, None]
+        visits += going.to(torch.int32)
+    outf = torch.zeros((ts, 8, TILE), dtype=torch.float32, device=dev)
+    outi = torch.zeros((ts, 8, TILE), dtype=torch.int32, device=dev)
+    outf[:, 0] = best_t
+    outi[:, 0] = best_k
+    outi[:, 1] = NQ * visits[:, None]
+    outi[:, 5] = pairs
+    return outf, outi
+
+
+def trace_quarter_kernel(rays, cl_min, cl_max, coeff, group_off,
                          common: str | None = None, amask=None):
-    """Launch csrc/trace_v9.cu on culled quarter keys (CUDA tensors only);
-    adds one to ``trace_blocks_quarter.launches``, or with alpha masks to
-    ``trace_blocks_quarter.masked_launches``."""
+    """Launch csrc/trace_v9.cu, which culls each tile against the
+    subcluster boxes cl_min / cl_max (4 CB, 3) itself and traces the
+    quarter streams (CUDA tensors only); adds one to
+    ``trace_blocks_quarter.launches``, or with alpha masks to
+    ``trace_blocks_quarter.masked_launches``.  Its outputs equal
+    cull_quarter_keys followed by trace_quarter_plain (t, ids) and by
+    trace_quarter_ordered (every row).  Layouts, capacity (at most
+    RESIDENT_CB blocks) and devices are checked before the kernel is built
+    or launched."""
     ts = rays.shape[0]
     cb = coeff.shape[0]
-    cbn = keys.shape[2]
-    _check(rays, "rays", torch.float32, (ts, 8, TILE))
-    _check(keys, "keys", torch.int32, (ts, NQ, cbn, 8, 128))
-    _check(coeff, "coeff", torch.float32, (cb, CROWS, TILE))
+    _check_layout(rays, "rays", torch.float32, (ts, 8, TILE))
+    _check_layout(coeff, "coeff", torch.float32, (cb, CROWS, TILE))
+    _check_layout(cl_min, "cl_min", torch.float32, (cb * NQ, 3))
+    _check_layout(cl_max, "cl_max", torch.float32, (cb * NQ, 3))
     if group_off is not None:
-        _check(group_off, "group_off", torch.int32, (cb * NQ,))
-    for x in (keys, coeff, group_off):
-        if x is not None and x.device != rays.device:
-            raise ValueError("rays, keys, coeff and group_off must be on one device")
+        _check_layout(group_off, "group_off", torch.int32, (cb * NQ,))
+    if amask is not None:
+        _check_layout(amask, "amask", torch.int32, (cb, 2, TILE))
+    if not 0 < cb <= RESIDENT_CB:
+        raise ValueError(f"the v9 kernel takes 1 to {RESIDENT_CB} blocks, "
+                         f"got {cb}; route larger scenes to v8")
     if common not in _COMMON:
         raise ValueError(f"bad common {common!r}")
-    _check_amask(amask, coeff, "closest")
-    if cb > RESIDENT_CB:
-        raise ValueError(f"the v9 kernel takes at most {RESIDENT_CB} blocks, "
-                         f"got {cb}; route larger scenes to v8")
+    for x, name in ((rays, "rays"), (cl_min, "cl_min"), (cl_max, "cl_max"), (coeff, "coeff"),
+                    (group_off, "group_off"), (amask, "amask")):
+        if x is not None:
+            _check_on_card(x, name)
+            if x.device != rays.device:
+                raise ValueError("the v9 kernel's inputs must be on one device")
+    _check_aligned(coeff=coeff, amask=amask)
+    id_mask = (1 << _id_bits(-(-cb // CPB) * CPB)) - 1
     outf = torch.zeros((ts, 8, TILE), dtype=torch.float32, device=rays.device)
     outi = torch.zeros((ts, 8, TILE), dtype=torch.int32, device=rays.device)
     with torch.cuda.device(rays.device):
         stream = torch.cuda.current_stream().cuda_stream
-        kernels.launch("trace_v9", rays.data_ptr(), keys.data_ptr(),
+        kernels.launch("trace_v9", rays.data_ptr(), cl_min.data_ptr(), cl_max.data_ptr(),
                        coeff.data_ptr(),
                        None if group_off is None else group_off.data_ptr(),
                        None if amask is None else amask.data_ptr(),
-                       outf.data_ptr(), outi.data_ptr(), ts, cbn * CPB, cb,
-                       id_mask, _COMMON[common], stream)
+                       outf.data_ptr(), outi.data_ptr(), ts, cb, id_mask,
+                       _COMMON[common], stream)
     if amask is None:
         trace_blocks_quarter.launches += 1
     else:
@@ -172,13 +263,14 @@ def trace_blocks_quarter(gpu: TorchScene, ray_blocks, common: str | None = None,
     if coeff.shape[0] > RESIDENT_CB:
         raise ValueError(f"the v9 kernel takes at most {RESIDENT_CB} blocks "
                          f"({coeff.shape[0]}); callers route larger scenes to v8")
-    with record_function("v9.cull"):
-        keys, id_mask = cull_quarter_keys(ray_blocks, cl_min, cl_max)
-    with record_function("v9.closest"):
-        if ray_blocks.device.type == "cuda":
-            return trace_quarter_kernel(ray_blocks, keys, coeff, group_off,
-                                        id_mask, common, amask)
-        if ray_blocks.device.type == "cpu":
+    if ray_blocks.device.type == "cuda":
+        with record_function("v9.closest"):       # the cull runs in the kernel
+            return trace_quarter_kernel(ray_blocks, cl_min, cl_max, coeff, group_off,
+                                        common, amask)
+    if ray_blocks.device.type == "cpu":
+        with record_function("v9.cull"):
+            keys, id_mask = cull_quarter_keys(ray_blocks, cl_min, cl_max)
+        with record_function("v9.closest"):
             return trace_quarter_plain(ray_blocks, keys, coeff, group_off,
                                        id_mask, common, amask)
     raise ValueError(f"no v9 trace for device {ray_blocks.device}")

@@ -269,17 +269,38 @@ def trace_keys_plain(rays, keys, coeff, id_mask: int, mode: str,
     return outf, outi
 
 
-def _check(x: torch.Tensor, name: str, dtype, shape) -> None:
-    if x.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
+def _check_layout(x: torch.Tensor, name: str, dtype, shape) -> None:
+    """dtype, shape and contiguity of a kernel input, on any device."""
     if x.dtype != dtype:
         raise ValueError(f"{name} must be {dtype}, got {x.dtype}")
     if tuple(x.shape) != tuple(shape):
         raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _check_on_card(x: torch.Tensor, name: str) -> None:
+    """A kernel input lies on the card and needs no gradient."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
     if x.requires_grad:
         raise ValueError(f"{name} requires grad; the traversal kernels have no backward")
+
+
+def _check_aligned(**tensors) -> None:
+    """Inputs a kernel stages with 16-byte copies (cp.async) start on a
+    16-byte boundary."""
+    for name, x in tensors.items():
+        if x is not None and x.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernel stages it with "
+                             "16-byte copies)")
+
+
+def _check(x: torch.Tensor, name: str, dtype, shape) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
+    _check_layout(x, name, dtype, shape)
+    _check_on_card(x, name)
 
 
 def _check_amask(amask, coeff, mode: str) -> None:

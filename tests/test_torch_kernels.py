@@ -15,6 +15,18 @@ v8 kernel (hier_occluded_multi) is held to its twin and to one single v8
 occluded launch per sample, flags equal, for S = 1, 3 and 8; the FMA peak
 probe to its twin under rtol 1e-6 (the twin rounds each FMA step through
 float64, which differs from the fused rounding only in rare ties).
+The v9 kernel culls in its prologue: it is held to the plain cull followed
+by the twin (as below) and, every output row exactly, to the plain cull
+followed by trace_quarter_ordered (the kernel's visit loop in torch), on
+1,024 blocks (the in-kernel cull's capacity) and on streams that drain at
+different visits.  v8's redesign (staging, live-ray culls, rank sorts, the
+transposed visit) is held to the twin on tiles whose hints retire every
+ray, on L1 key lists longer than a warp (34 supers; the 2,584-pair
+instanced foliage) and on a tie of quantized t across two blocks, which
+goes to the block visited first (the v8 twin takes the lower block id).
+On the CPU: the fused v9 entry refuses bad inputs before any build, the
+ordered loop agrees with the twin, and each ctypes signature matches its
+C entry.
 Tolerances: v7, v8 and v9 hit masks and occluded flags equal, t to rtol
 1e-6 and ids equal or t equal (kernel and twin round alike: no multiply-add
 contraction on either side); v8 hints as in tests/test_torch_hier.py; the A-Trous pair rtol 1e-5, atol 1e-6 (expf and the
@@ -39,6 +51,7 @@ from realtimeraytracer_torch.render.megakernel import render_components
 from realtimeraytracer_torch.render.pipeline import render_pipeline_gpu
 from realtimeraytracer_torch.scene.geometry import TriangleMesh
 from realtimeraytracer_torch.scene.materials import Material
+from realtimeraytracer_torch.scene.panels import RESIDENT_CB
 from realtimeraytracer_torch.scene.scene import Scene
 
 torch.set_num_threads(2)
@@ -117,6 +130,19 @@ def _fewer_pairs(k, p, rays):
     kp, pp = k[1][:, 5].cpu(), p[1][:, 5].cpu()
     assert kp.sum() > 0 and (kp <= pp).all()
     assert (kp[(rays[:, 6] > rays[:, 7]).cpu()] == 0).all()
+
+
+def _same_v9(k, rays, cl_min, cl_max, coeff, group_off, common, amask=None):
+    """The fused v9 kernel's outputs k against the plain cull followed by
+    the twin (hits, t, ids) and by the ordered visit loop (every row,
+    exactly: the in-kernel keys give the same visits and pairs)."""
+    keys, id_mask = v7.cull_quarter_keys(rays, cl_min, cl_max)
+    p = qb.trace_quarter_plain(rays, keys, coeff, group_off, id_mask, common, amask)
+    o = qb.trace_quarter_ordered(rays, keys, coeff, group_off, id_mask, common, amask)
+    _same_closest(k, p)
+    assert torch.equal(k[0], o[0]) and torch.equal(k[1], o[1])
+    _fewer_pairs(k, p, rays)
+    return p
 
 
 def _denoise_data(h, w, seed):
@@ -203,15 +229,16 @@ def test_atrous_kernel_beyond_four_iterations(cuda, iterations):
 @pytest.mark.cuda
 @pytest.mark.parametrize("common", [None, "origin"])
 def test_v9_kernel_matches_twin(cuda, common):
+    """The kernel culls in its prologue: its outputs equal the plain cull
+    followed by the twin (t, ids) and by the ordered visit loop (every
+    row)."""
     gpu = _soup_scene().to(cuda)
     rays = _ray_tiles(common, 5, cuda)
-    keys, id_mask = v7.cull_quarter_keys(rays, gpu.q_cl_min, gpu.q_cl_max)
     before = qb.trace_blocks_quarter.launches
-    k = qb.trace_quarter_kernel(rays, keys, gpu.q_panels, gpu.q_group_off, id_mask, common)
+    k = qb.trace_quarter_kernel(rays, gpu.q_cl_min, gpu.q_cl_max, gpu.q_panels,
+                                gpu.q_group_off, common)
     assert qb.trace_blocks_quarter.launches == before + 1
-    p = qb.trace_quarter_plain(rays, keys, gpu.q_panels, gpu.q_group_off, id_mask, common)
-    _same_closest(k, p)
-    _fewer_pairs(k, p, rays)
+    _same_v9(k, rays, gpu.q_cl_min, gpu.q_cl_max, gpu.q_panels, gpu.q_group_off, common)
 
 
 @pytest.mark.cuda
@@ -327,9 +354,16 @@ def test_masked_kernels_match_twins(cuda, kernel, common):
         launch, twin = v7.trace_keys_kernel, v7.trace_keys_plain
     elif kernel == "v9":
         keys, id_mask = v7.cull_quarter_keys(rays, gpu.q_cl_min, gpu.q_cl_max)
-        args = (rays, keys, gpu.q_panels, gpu.q_group_off, id_mask, common)
+        args = ()
         amask, counter = gpu.q_amask, qb.trace_blocks_quarter
-        launch, twin = qb.trace_quarter_kernel, qb.trace_quarter_plain
+
+        def launch(amask=None):
+            return qb.trace_quarter_kernel(rays, gpu.q_cl_min, gpu.q_cl_max, gpu.q_panels,
+                                           gpu.q_group_off, common, amask)
+
+        def twin(amask=None):
+            return qb.trace_quarter_plain(rays, keys, gpu.q_panels, gpu.q_group_off, id_mask,
+                                          common, amask)
     else:
         coeff, sup, blk, nsup = hb._hier_inputs(gpu)
         args = (rays, sup, blk, coeff, nsup, "closest", common, None)
@@ -340,6 +374,9 @@ def test_masked_kernels_match_twins(cuda, kernel, common):
     assert (counter.launches, counter.masked_launches) == (before[0], before[1] + 1)
     p = twin(*args, amask=amask)
     _same_closest(k, p)
+    if kernel == "v9":
+        _same_v9(k, rays, gpu.q_cl_min, gpu.q_cl_max, gpu.q_panels, gpu.q_group_off, common,
+                 amask)
     unmasked = launch(*args)
     assert bool((unmasked[1][:, 0] != k[1][:, 0]).any())
     if kernel == "v8":
@@ -608,3 +645,263 @@ def test_fma_peak_kernel_matches_twin(cuda):
     ms, tflops, out = fma_peak(cuda, iters=4)
     assert ms > 0 and tflops > 0
     torch.testing.assert_close(out, fma_peak_plain(torch.ones_like(out)), rtol=1e-6, atol=0.0)
+
+
+# ---- the redesigned v8 and the fused v9 (in-kernel quarter cull) ----------
+
+def _lattice_tris(nblocks, seed=0, far_quarters_every=0):
+    """nblocks x 128 small triangles, block b's in cell b of a lattice of
+    unit cells (row-major over 16 x 16 columns), in block order, so that
+    blocks and supers are compact.  far_quarters_every = k > 0 moves lanes
+    32-127 of every k-th block far away, so that quarter 0's stream
+    outlasts the other three."""
+    r = np.random.default_rng(seed)
+    b = np.arange(nblocks)
+    cell = np.stack([b % 16, (b // 16) % 16, b // 256], 1).astype(np.float32) - 8.0
+    tris = (cell[:, None, None, :] + r.uniform(0, 1, (nblocks, 128, 1, 3))
+            + r.normal(0, 0.15, (nblocks, 128, 3, 3))).astype(np.float32)
+    if far_quarters_every:
+        tris[::far_quarters_every, 32:] += np.float32(1000.0)
+    return tris.reshape(-1, 3, 3)
+
+
+def _pinhole_tiles(device, common, seed, side=64):
+    """A side x side pinhole image of the lattice from z = -40, in tiles of
+    16 x 8 pixels (coherent bundles); common=None jitters each origin."""
+    r = np.random.default_rng(seed)
+    ty, tx, py, px = np.meshgrid(np.arange(side // 8), np.arange(side // 16), np.arange(8),
+                                 np.arange(16), indexing="ij")
+    x = ((tx * 16 + px + 0.5) / side - 0.5) * 0.5
+    y = ((ty * 8 + py + 0.5) / side - 0.5) * 0.5
+    d = np.stack([x.ravel(), y.ravel(), np.ones(x.size)], 1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o = np.tile([0.0, 0.0, -40.0], (x.size, 1))
+    if common is None:
+        o += r.normal(0, 0.05, o.shape)
+    n = x.size
+    to = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)  # noqa: E731
+    return v7._pack_rays(to(o), to(d), to(np.full(n, 1e-3)), to(np.full(n, 1e3)))[0]
+
+
+def _panels(tris, device):
+    """(coeff, cl_min, cl_max) of triangles (T, 3, 3) in the given order:
+    no BVH sort, no repack (group_off None)."""
+    from realtimeraytracer_torch.scene.panels import pack_clusters_np
+
+    return tuple(torch.from_numpy(x).to(device)
+                 for x in pack_clusters_np(tris[:, 0], tris[:, 1], tris[:, 2]))
+
+
+def _v9_entry_args(case, device):
+    """Arguments of the fused v9 entry with one defect each."""
+    gpu = _soup_scene(200)
+    rays = _ray_tiles(None, 3, "cpu")
+    args = dict(rays=rays, cl_min=gpu.q_cl_min, cl_max=gpu.q_cl_max, coeff=gpu.q_panels,
+                group_off=gpu.q_group_off)
+    if case == "f64 rays":
+        args["rays"] = rays.double()
+    elif case == "cl_min shape":
+        args["cl_min"] = gpu.q_cl_min[:-4]
+    elif case == "group_off dtype":
+        args["group_off"] = gpu.q_group_off.long()
+    elif case == "over capacity":
+        n = RESIDENT_CB + 1
+        args.update(coeff=torch.zeros((n, 12, 128)), cl_min=torch.zeros((4 * n, 3)),
+                    cl_max=torch.zeros((4 * n, 3)), group_off=None)
+    return args
+
+
+@pytest.mark.parametrize("case,match", [("cpu tensors", "CUDA"), ("f64 rays", "float32"),
+                                        ("cl_min shape", "shape"), ("group_off dtype", "int32"),
+                                        ("over capacity", "1024 blocks")])
+def test_v9_entry_refuses_bad_inputs_before_any_build(monkeypatch, case, match):
+    """The fused v9 entry checks layouts, capacity and devices before it
+    builds or launches anything."""
+    from realtimeraytracer_torch import kernels
+
+    def no_build(*a, **k):
+        raise AssertionError("the kernel was built or launched")
+
+    monkeypatch.setattr(kernels, "kernel", no_build)
+    monkeypatch.setattr(kernels, "build", no_build)
+    before = qb.trace_blocks_quarter.launches
+    with pytest.raises(ValueError, match=match):
+        qb.trace_quarter_kernel(**_v9_entry_args(case, "cpu"))
+    assert qb.trace_blocks_quarter.launches == before
+
+
+@pytest.mark.parametrize("common", [None, "origin"])
+def test_v9_ordered_loop_agrees_with_twin(common):
+    """trace_quarter_ordered (the kernel's visit loop, which checks the
+    fused kernel's visit and pair rows on the card) finds the twin's hits,
+    t and ids, in no more visits and pairs."""
+    gpu = _soup_scene(3000)
+    rays = _ray_tiles(common, 5, "cpu", n=700)
+    keys, id_mask = v7.cull_quarter_keys(rays, gpu.q_cl_min, gpu.q_cl_max)
+    p = qb.trace_quarter_plain(rays, keys, gpu.q_panels, gpu.q_group_off, id_mask, common)
+    o = qb.trace_quarter_ordered(rays, keys, gpu.q_panels, gpu.q_group_off, id_mask, common)
+    assert torch.equal(o[0][:, 0], p[0][:, 0])
+    assert torch.equal(o[1][:, 0], p[1][:, 0])
+    assert (o[1][:, 1] <= p[1][:, 1]).all() and (o[1][:, 5] <= p[1][:, 5]).all()
+    assert o[1][:, 1].sum() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nblocks,far,common", [(1024, 0, "origin"), (1024, 3, None),
+                                                (300, 2, "origin")])
+def test_v9_fused_cull_capacity_and_drained_streams(cuda, nblocks, far, common):
+    """1,024 blocks (the in-kernel cull's capacity, 4,096 subcluster keys)
+    and streams that drain at different visits (far quarters)."""
+    coeff, cl_min, cl_max = _panels(_lattice_tris(nblocks, 4, far), cuda)
+    assert coeff.shape[0] == nblocks
+    rays = _pinhole_tiles(cuda, common, 11)
+    k = qb.trace_quarter_kernel(rays, cl_min, cl_max, coeff, None, common)
+    _same_v9(k, rays, cl_min, cl_max, coeff, None, common)
+    keys, _ = v7.cull_quarter_keys(rays, cl_min, cl_max)
+    n = (keys.reshape(rays.shape[0], 4, -1) != v7.INVALID).sum(dim=2)
+    assert bool((n.amax(dim=1) > n.amin(dim=1)).any())          # some stream drains first
+
+
+def _tie_tris():
+    """Six blocks: one triangle X (plane y = 0) at lane 7 of blocks 0 and 5;
+    block 5's lane 8 holds a small triangle at y = 3 off the rays' path, so
+    its box (and its quarter 0's) is entered first from above; every other
+    lane a small far triangle."""
+    far = np.array([[50, 0, 50], [50.1, 0, 50], [50, 0, 50.1]], np.float32)
+    tris = np.tile(far, (6 * 128, 1, 1))
+    x = np.array([[-1, 0, -1], [1, 0, -1], [0, 0, 1]], np.float32)
+    tris[7] = x
+    tris[5 * 128 + 7] = x
+    tris[5 * 128 + 8] = np.array([[10, 3, 0], [10.1, 3, 0], [10, 3, 0.1]], np.float32)
+    return tris
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["v8", "v9"])
+def test_equal_t_across_blocks_goes_to_the_first_visited(cuda, kernel):
+    """Two copies of one triangle in blocks 0 and 5 give equal quantized t;
+    block 5 is entered first, so the kernels keep its copy (strict <).  The
+    v9 twin orders ties by stream rank and agrees; the v8 twin orders them
+    by block id and keeps block 0's copy (ROADMAP C)."""
+    coeff, cl_min, cl_max = _panels(_tie_tris(), cuda)
+    r = np.random.default_rng(12)
+    n = 256
+    o = np.stack([r.uniform(-0.2, 0.2, n), np.full(n, 5.0), r.uniform(-0.5, 0.1, n)], 1)
+    d = np.stack([r.normal(0, 0.005, n), -np.ones(n), r.normal(0, 0.005, n)], 1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    to = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(cuda)  # noqa: E731
+    rays = v7._pack_rays(to(o), to(d), to(np.full(n, 1e-3)), to(np.full(n, 100.0)))[0]
+    if kernel == "v9":
+        k = qb.trace_quarter_kernel(rays, cl_min, cl_max, coeff, None, None)
+        _same_v9(k, rays, cl_min, cl_max, coeff, None, None)
+    else:
+        sup, blk = hb.pack_hierarchy(cl_min, cl_max)
+        k = hb.trace_hier_kernel(rays, sup, blk, coeff, blk.shape[0], "closest")
+        p = hb.trace_hier_plain(rays, sup, blk, coeff, blk.shape[0], "closest")
+        assert torch.equal(k[0][:, 0], p[0][:, 0])
+        assert bool((p[1][:, 0] == 7).all())
+    assert bool((k[1][:, 0] == 5 * 128 + 7).all())
+
+
+@pytest.mark.cuda
+def test_v8_hints_that_retire_every_ray(cuda):
+    """Every ray of every tile is occluded by one quad in block 0: fed its
+    own hints, the kernel retires all rays in the hint visits, skips the
+    culls (no super popped) and still gives the twin's flags and hints."""
+    r = np.random.default_rng(13)
+    quad = np.array([[[-9, 2, -9], [9, 2, -9], [9, 2, 9]], [[-9, 2, -9], [9, 2, 9], [-9, 2, 9]]],
+                    np.float32)
+    soup = _lattice_tris(40, 13)
+    soup[..., 1] -= 20.0                                      # below the rays
+    tris = np.concatenate([quad, soup[:128 * 40 - 2]])
+    coeff, cl_min, cl_max = _panels(tris, cuda)
+    sup, blk = hb.pack_hierarchy(cl_min, cl_max)
+    n = 1000
+    o = np.stack([r.uniform(-6, 6, n), np.zeros(n), r.uniform(-6, 6, n)], 1)
+    d = np.stack([r.normal(0, 0.1, n), np.ones(n), r.normal(0, 0.1, n)], 1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    to = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(cuda)  # noqa: E731
+    rays = v7._pack_rays(to(o), to(d), to(np.full(n, 1e-3)), to(np.full(n, 10.0)))[0]
+    nsup = blk.shape[0]
+    want = hb.trace_hier_plain(rays, sup, blk, coeff, nsup, "occluded")
+    cold = hb.trace_hier_kernel(rays, sup, blk, coeff, nsup, "occluded")
+    hints = cold[1][:, 3:5, 0].contiguous()
+    assert bool((hints == 0).all())
+    fed = hb.trace_hier_kernel(rays, sup, blk, coeff, nsup, "occluded", hints=hints, count=True)
+    live = (rays[:, 6] <= rays[:, 7]).any(dim=1)
+    assert bool((want[0][:, 0][rays[:, 6] <= rays[:, 7]] == 1.0).all())
+    for got in (cold, fed):
+        assert torch.equal(got[0][:, 0], want[0][:, 0])
+        assert torch.equal(got[1][:, 3:5], want[1][:, 3:5])
+    assert bool((fed[0][:, 1] == 0).all())                    # no super popped
+    assert bool((fed[1][:, 1] == 2).all())                    # the two hint visits
+    assert bool((cold[0][:, 1][live] > 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["closest", "occluded"])
+def test_v8_l1_sort_beyond_one_warp(cuda, mode):
+    """4,229 blocks in 34 supers, non-instanced: each tile of random rays
+    overlaps more than 32 super boxes, so the L1 keys span more than one
+    warp; flags, t and ids equal the twin's, and the counting variant's
+    results equal the plain launch's."""
+    coeff, cl_min, cl_max = _panels(_lattice_tris(33 * 128 + 5, 14), cuda)
+    sup, blk = hb.pack_hierarchy(cl_min, cl_max)
+    nsup = blk.shape[0]
+    assert nsup == 34
+    rays = _ray_tiles(None, 15, cuda, n=1000, span=8.0)
+    k = hb.trace_hier_kernel(rays, sup, blk, coeff, nsup, mode)
+    p = hb.trace_hier_plain(rays, sup, blk, coeff, nsup, mode)
+    (_same_closest if mode == "closest" else _same_occluded)(k, p)
+    c = hb.trace_hier_kernel(rays, sup, blk, coeff, nsup, mode, count=True)
+    assert torch.equal(c[0][:, 0:2], k[0][:, 0:2]) and torch.equal(c[1][:, 0:5], k[1][:, 0:5])
+    _fewer_pairs(c, p, rays)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("query", ["closest", "occluded", "masked_closest"])
+def test_inst_kernel_l1_keys_across_warps(cuda, query):
+    """foliage_field() instanced (2,584 pairs): random rays above the field
+    with long windows give hundreds of L1 keys per tile (the rank sort with
+    several keys per thread, and the bitonic network above 512)."""
+    gpu = scenes.foliage_field().compile().to(cuda)
+    args = hb._inst_args(gpu)
+    r = np.random.default_rng(16)
+    n = 1024
+    o = np.stack([r.uniform(-15, 15, n), r.uniform(0.5, 4.0, n), r.uniform(-15, 15, n)], 1)
+    d = r.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    to = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(cuda)  # noqa: E731
+    rays = v7._pack_rays(to(o), to(d), to(np.full(n, 1e-3)), to(np.full(n, 30.0)))[0]
+    amask = gpu.pallas_amask if query == "masked_closest" else None
+    mode = "occluded" if query == "occluded" else "closest"
+    k = hb.trace_hier_inst_kernel(rays, *args, mode, amask=amask)
+    p = hb.trace_hier_inst_plain(rays, *args, mode, amask)
+    if mode == "closest":
+        _same_closest(k, p)
+        _same_instances(k, p)
+    else:
+        _same_occluded(k, p)
+
+
+@pytest.mark.parametrize("name", sorted(__import__("realtimeraytracer_torch.kernels",
+                                                    fromlist=["SIGNATURES"]).SIGNATURES))
+def test_kernel_signature_matches_its_c_entry(name):
+    """Each ctypes signature lists the C entry's parameters in order: a
+    pointer as c_void_p, an int as c_int, a float as c_float (a mismatch
+    passes a cut pointer to the kernel)."""
+    import ctypes
+    import re
+
+    from realtimeraytracer_torch import kernels
+
+    source, symbol, argtypes = kernels.SIGNATURES[name]
+    text = (kernels.CSRC / f"{source}.cu").read_text()
+    m = re.search(rf"\bint {symbol}\(([^)]*)\)\s*\{{", text)
+    assert m, f"no C entry {symbol} in {source}.cu"
+    kinds = []
+    for param in m.group(1).split(","):
+        param = param.strip()
+        kinds.append(ctypes.c_void_p if "*" in param else
+                     ctypes.c_float if param.startswith("float") else ctypes.c_int)
+    assert kinds == list(argtypes)

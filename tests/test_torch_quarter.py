@@ -153,6 +153,6 @@ def test_kernel_refuses_cpu_tensors(scenes_pair):
     _, tscene = scenes_pair
     o, d, tmin, tmax, _ = _rays(None, seed=3)
     rays = v7._pack_rays(*(torch.from_numpy(x) for x in (o, d, tmin, tmax)))[0]
-    keys, id_mask = v7.cull_quarter_keys(rays, tscene.q_cl_min, tscene.q_cl_max)
     with pytest.raises(ValueError, match="CUDA"):
-        qb.trace_quarter_kernel(rays, keys, tscene.q_panels, tscene.q_group_off, id_mask)
+        qb.trace_quarter_kernel(rays, tscene.q_cl_min, tscene.q_cl_max, tscene.q_panels,
+                                tscene.q_group_off)
