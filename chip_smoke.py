@@ -9,15 +9,20 @@ Phases, each of which ends the run with a non-zero exit on failure:
   1. environment: card name and power limit, torch and CUDA versions;
   2. build: compile every CUDA kernel from csrc/ with nvcc, one nvcc per
      source, all started together;
-  3. the v7 traversal kernel against its plain PyTorch twin on the
-     100k-triangle scene: closest primaries (common origin), shadow segments
-     and sun segments (common direction);
+  3. the v7 traversal kernel, which runs its cull in-kernel, against its
+     twin (the plain-torch cull, then the plain trace) on the 100k-triangle
+     scene: closest primaries (common origin), shadow segments and sun
+     segments (common direction), every output row against the plain
+     cull's ordered visit loop;
   4. the A-Trous pair kernel against its plain twin at 1920x1080, 4 steps,
-     and single iterations at steps 5, 6 and 8;
+     and single iterations at steps 5 to 8; its time beside its bound and
+     the issue-rate floor of its SASS instructions per tap; how far an IEEE
+     quotient by a phi lies from the product with its reciprocal;
   5. the reference-default frame (1920x1080, 4 primary x 3 shadow rays,
-     4 denoise iterations) through the "pallas" route (v7), with the
-     kernels' launch counts, the frame time and v7's time beside its plain
-     twin's at the frame's shapes;
+     4 denoise iterations) through the "pallas" route (v7, no plain-torch
+     cull), with the kernels' launch counts, the frame time and v7's time
+     beside the plain cull's and its twin's at the frame's shapes
+     (primaries, shadow segments, sun), every row against the ordered loop;
   6. a 320x180 "pallas" frame rendered through the kernels and through the
      plain twins, compared;
   7. the v9 kernel, which runs its quarter cull in-kernel, against its
@@ -28,7 +33,10 @@ Phases, each of which ends the run with a non-zero exit on failure:
      segments, closest on incoherent (bounce) rays, and hinted traces fed
      no hints, their own hints and garbage hints; tiles whose own hints
      retire every ray (no super popped); procedural_mesh(1_000_000), above
-     32 supers, against the twin at 320x180 and timed at 1080p;
+     32 supers, against the twin at 320x180 and timed at 1080p, with v7
+     closest on its primaries (keys on 8 pages; against the twin and the
+     ordered loop at 320x180, timed at 1080p) and its 1080p hybrid frame
+     (v7 coherent closest, no plain-torch cull): time and peak memory;
   9. the reference-default frame through rt.render(scene, cfg) with no
      device argument and the default backend ("auto", the hybrid route: v9
      primaries, v8 occlusion with hints), its launch counts (and no
@@ -39,8 +47,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
      with bake_instances=True (about 120k triangles) and
      scenes.textured_obj() (through the OBJ, MTL, PNG and HDR loaders);
  12. each masked kernel (in-kernel alpha masks) against its masked twin on
-     the baked foliage at 1080p: v9 (as in 7) and v7 on the primaries, v8
-     closest on area-light shadow segments;
+     the baked foliage at 1080p: v9 and v7 (as in 7 and 3) on the
+     primaries, v8 closest on area-light shadow segments;
  13. the alpha closest ladder on the foliage's 1080p primaries with and
      without in-kernel masks: rounds, rays per round, time; hits agree but
      for rays that exhaust the unmasked ladder (the masked hit lies at
@@ -50,8 +58,9 @@ Phases, each of which ends the run with a non-zero exit on failure:
  14. the reference-default alpha-tested frames: textured_obj through
      rt.render(scene, cfg) with no device and the default backend, the
      baked foliage through render_pipeline_gpu with alpha_test=True, each
-     also through the "pallas" route: launches per kernel, host syncs,
-     frame time, peak memory, the two routes' images compared;
+     also through the "pallas" route (no plain-torch cull): launches per
+     kernel, host syncs, frame time, peak memory, the two routes' images
+     compared;
  15. a 160x90 alpha-tested foliage frame through the kernels and through
      the twins;
  16. scenes.foliage_field() compiled in its shared-geometry (instanced)
@@ -84,7 +93,7 @@ Phases, each of which ends the run with a non-zero exit on failure:
      a 160x90 fused frame through the kernels and through the twins;
  23. the f32 FMA peak probe (probes.fma_peak) against its twin, its rate
      beside the data sheet's 67 TFLOP/s, the FFMA count of its SASS.
-Each main-path frame (5, 9, 14, 18 and 22) and the probe's timed run (23)
+Each main-path frame (5, 8, 9, 14, 18 and 22) and the probe's timed run (23)
 are driven with every kernel's launch count set to 0 just before and read
 just after.  The line before the last is a
 JSON object describing each kernel (times, launches, error, bound); the
@@ -94,6 +103,7 @@ without the package beside it, the script fails before printing either.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -134,6 +144,23 @@ def cuda_ms(fn, reps: int):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps, out
+
+
+def median_ms(fn, reps: int):
+    """(median milliseconds of `reps` calls of fn, each timed alone by CUDA
+    events after one warm-up; the last result)."""
+    import torch
+
+    out = fn()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times), out
 
 
 def once_ms(fn):
@@ -248,17 +275,53 @@ def trace_bound(outi, common, moved: int, extra_ops: float = 0.0) -> tuple[tuple
                  + extra_ops, moved), pairs
 
 
+def atrous_taps(h: int, w: int, iterations: int) -> int:
+    """In-bounds taps of `iterations` A-Trous iterations (steps 1, 2, ...)."""
+    taps = 0
+    for step in range(1, iterations + 1):
+        rows = sum(max(0, h - abs(k - 2) * step) for k in range(5))
+        cols = sum(max(0, w - abs(k - 2) * step) for k in range(5))
+        taps += rows * cols
+    return taps
+
+
 def atrous_bound(h: int, w: int, iterations: int) -> tuple[float, str]:
     """4 images read (48 B/px) and 2 written (24 B/px) per iteration; per
     in-bounds tap 67 f32 operations (four squared distances 32, four
     weights 17 with exp and division counted as one each, weight products
     4, accumulation 14), per pixel 8 in the normalization."""
-    ops = 0
-    for step in range(1, iterations + 1):
-        rows = sum(max(0, h - abs(k - 2) * step) for k in range(5))
-        cols = sum(max(0, w - abs(k - 2) * step) for k in range(5))
-        ops += rows * cols * 67 + h * w * 8
-    return bound(ops, iterations * h * w * 72)
+    return bound(atrous_taps(h, w, iterations) * 67 + iterations * h * w * 8,
+                 iterations * h * w * 72)
+
+
+def same_rows(k, o, what: str) -> None:
+    """Every output row of a fused kernel (its cull in-kernel) equals the
+    plain cull's ordered visit loop: t or flags, ids, visits (row 1) and
+    pairs (row 5)."""
+    import torch
+
+    for r_ in range(8):
+        require(torch.equal(k[0][:, r_], o[0][:, r_]), f"{what}: outf row {r_} differs from the "
+                "plain cull's ordered loop")
+        require(torch.equal(k[1][:, r_], o[1][:, r_]), f"{what}: outi row {r_} differs from the "
+                "plain cull's ordered loop")
+    say(f"  {what}: every row equals the plain cull's ordered loop ({int(k[1][:, 1, 0].sum())} "
+        f"visits, {int(k[1][:, 5].sum())} pairs)")
+
+
+@contextlib.contextmanager
+def no_plain_cull(module, name: str, what: str):
+    """Counts the calls of module.name (a plain-torch cull) while the body
+    runs and fails if there was one: on the card the fused kernels cull in
+    their prologue."""
+    calls = []
+    cull = getattr(module, name)
+    setattr(module, name, lambda *a, **k: calls.append(1) or cull(*a, **k))
+    try:
+        yield
+    finally:
+        setattr(module, name, cull)
+    require(not calls, f"{what} ran the plain-torch cull {name} {len(calls)} times")
 
 
 def main() -> int:
@@ -283,6 +346,7 @@ def main() -> int:
     from realtimeraytracer_torch.render.backends import make_backend, make_hybrid_backend
     from realtimeraytracer_torch.render.megakernel import render_components
     from realtimeraytracer_torch.render.pipeline import render_pipeline_gpu
+    from realtimeraytracer_torch.kernel_ab import sass_functions, tap_instructions
 
     # Launch counters: (wrapper, attribute); a masked variant counts on its
     # wrapper's masked_launches.
@@ -381,20 +445,37 @@ def main() -> int:
                             torch.where(hit, 1e-3, big), torch.where(hit, 1e4, -big))[0]
         return seg, sun
 
-    def both(rays, mode, common):
-        keys, id_mask = v7.cull_keys(rays, cl_min, cl_max)
-        k = v7.trace_keys_kernel(rays, keys, coeff, id_mask, mode, common)
-        p = v7.trace_keys_plain(rays, keys, coeff, id_mask, mode, common)
+    def v7_fused(rays, mode, common, amask=None, g=gpu):
+        return v7.trace_v7_kernel(rays, g.pallas_cl_min, g.pallas_cl_max, g.pallas_panels, mode,
+                                  common, amask)
+
+    def v7_twin(rays, mode, common, amask=None, g=gpu, ordered=True):
+        """The fused v7's twin: the plain cull, then the plain trace (t, ids,
+        flags) and, with `ordered`, the ordered visit loop (every row; else
+        None)."""
+        keys_, id_ = v7.cull_keys(rays, g.pallas_cl_min, g.pallas_cl_max)
+        p_ = v7.trace_keys_plain(rays, keys_, g.pallas_panels, id_, mode, common, amask)
+        if not ordered:
+            return p_, None
+        return p_, v7.trace_keys_ordered(rays, keys_, g.pallas_panels, id_, mode, common, amask)
+
+    def both(rays, mode, common, what):
+        k_ = v7_fused(rays, mode, common)
+        p_, o_ = v7_twin(rays, mode, common)
         torch.cuda.synchronize()
-        return k, p
+        same_rows(k_, o_, what)
+        return k_, p_
 
     prim = primary_tiles(320, 180)
-    k, p = both(prim, "closest", "origin")
+    k, p = both(prim, "closest", "origin", "[3] v7 closest 320x180")
     v7_err = compare_closest(k, p, "[3] closest common=origin 320x180")
     seg, sun = shadow_tiles(prim, k, 7)
-    v7_err = max(v7_err, compare_occluded(*both(seg, "occluded", None), "[3] occluded shadow segments"))
-    v7_err = max(v7_err, compare_occluded(*both(sun, "occluded", "dir"), "[3] occluded sun common=dir"))
-    v7_err = max(v7_err, compare_closest(*both(seg, "closest", None), "[3] closest general (shadow rays)"))
+    v7_err = max(v7_err, compare_occluded(*both(seg, "occluded", None, "[3] v7 occluded segments"),
+                                          "[3] occluded shadow segments"))
+    v7_err = max(v7_err, compare_occluded(*both(sun, "occluded", "dir", "[3] v7 occluded sun"),
+                                          "[3] occluded sun common=dir"))
+    v7_err = max(v7_err, compare_closest(*both(seg, "closest", None, "[3] v7 closest general"),
+                                         "[3] closest general (shadow rays)"))
 
     # ---- 4. denoise kernel vs plain at 1080p ----------------------------
     H, W = 1080, 1920
@@ -424,19 +505,44 @@ def main() -> int:
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6, msg=lambda m: f"[4] {what}: {m}")
         dn_err = max(dn_err, (a - b).abs().max().item())
     say(f"[4] A-Trous pair kernel vs plain at {W}x{H}, 4 iterations: max |err| {dn_err}")
-    for step in (5, 6, 8):   # denoise_iterations > 4 run the kernel as well
+    for step in (5, 6, 7, 8):   # denoise_iterations > 4 run the kernel as well
         ks, ku = atrous_pair_iteration_kernel(*dn, step, *phis)
         ps, pu = atrous_pair_iteration_plain(*dn, step, *phis)
         for a, b, what in ((ks, ps, "shadowed"), (ku, pu, "unshadowed")):
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6,
                                        msg=lambda m: f"[4] step {step} {what}: {m}")
             dn_err = max(dn_err, (a - b).abs().max().item())
-    say(f"[4] A-Trous pair kernel vs plain at steps 5, 6, 8 agree; max |err| so far {dn_err}")
+    say(f"[4] A-Trous pair kernel vs plain at steps 5, 6, 7, 8 agree; max |err| so far {dn_err}")
+    # The kernel multiplies by the phi's reciprocals (computed in double,
+    # rounded to float), as the twin's division by a Python scalar does on
+    # the card; the IEEE quotient of the design before differs from that
+    # product by this many ulp on the taps of step 1 (squared normal and
+    # position distances).
+    from realtimeraytracer_torch.ops.denoise import _sq3, shifted_taps
+    ulp = 0
+    for _, _, (ns, ps), _ in shifted_taps((dn[2], dn[3]), 1):
+        for x, phi in ((_sq3(dn[2], ns), phis[1]), (_sq3(dn[3], ps), phis[2])):
+            quot = -x / torch.tensor(phi, dtype=torch.float32, device=dev)
+            prod = -x * torch.tensor(np.float32(1.0 / phi), dtype=torch.float32, device=dev)
+            ulp = max(ulp, int((quot.view(torch.int32) - prod.view(torch.int32)).abs().max()))
+    say(f"[4] x / phi (IEEE) against x * (1 / phi) on step 1's taps: at most {ulp} ulp apart")
+    dn_bits = all(torch.equal(a, b) for a, b in ((sk, sp), (uk, up)))
     dn_ms, _ = cuda_ms(lambda: denoise_with(atrous_pair_iteration_kernel), 5)
     dn_plain_ms, _ = cuda_ms(lambda: denoise_with(atrous_pair_iteration_plain), 3)
     dn_bound = atrous_bound(H, W, 4)
+    # The issue-rate floor: the SASS instructions the kernel's tap loops
+    # issue per tap x the in-bounds taps, one warp instruction per
+    # scheduler and clock (132 SMs x 4 schedulers at the card's greatest SM
+    # clock).
+    ins = next(v for k_, v in sass_functions(kernels.build("atrous_pair")).items() if "atrous" in k_)
+    per_tap, code_taps = tap_instructions(ins)
+    clk = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    dn_floor = per_tap * atrous_taps(H, W, 4) / 32 / (132 * 4 * float(clk) * 1e6) * 1e3
     say(f"[4] denoise 4 iterations, both images: kernel {dn_ms:.3f} ms, plain {dn_plain_ms:.3f} ms, "
-        f"bound {dn_bound[0]:.4f} ms by {dn_bound[1]} ({card})")
+        f"bound {dn_bound[0]:.4f} ms by {dn_bound[1]}; SASS {len(ins)} instructions, its tap loops "
+        f"{per_tap:.1f} a tap ({code_taps} taps in the code); issue-rate floor {dn_floor:.4f} ms at "
+        f"{clk} MHz; kernel bit-equal to the twin: {dn_bits} ({card})")
 
     # ---- 5. the frame ---------------------------------------------------
     cfg = rt.RenderConfig(width=W, height=H, primary_rays=4, shadow_rays=3,
@@ -445,8 +551,9 @@ def main() -> int:
     held5 = torch.cuda.memory_allocated()
     zero_counts()
     t0 = time.perf_counter()
-    img_t = rt.render(scene, cfg, device="cuda")
-    torch.cuda.synchronize()
+    with no_plain_cull(v7, "cull_keys", "[5] the pallas frame"):
+        img_t = rt.render(scene, cfg, device="cuda")
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts5 = read_counts()
     n_trace = counts5["trace_v7"]
@@ -467,40 +574,49 @@ def main() -> int:
     frame = scene.camera.viewport_frame(W, H, device=dev)
     render_pipeline_gpu(gpu, frame, cfg)                       # warm-up, discarded
     times = []
-    for _ in range(3):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        render_pipeline_gpu(gpu, frame, cfg)
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
+    with no_plain_cull(v7, "cull_keys", "[5] the timed pallas frames"):
+        for _ in range(3):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            render_pipeline_gpu(gpu, frame, cfg)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
     frame_ms = statistics.median(times)
     say(f"[5] frame time (render_pipeline_gpu, CUDA events, median of 3 after a warm-up): "
         f"{frame_ms:.2f} ms; all: {[round(x, 2) for x in times]} ({card})")
 
     # Kernel vs plain at the frame's shapes (1080p primaries and shadows):
-    # timed, and compared once more at full size.
+    # timed, and compared once more at full size, every row against the
+    # plain cull's ordered loop.
     prim = primary_tiles(W, H)
     keys, id_mask = v7.cull_keys(prim, cl_min, cl_max)
     cull_ms, _ = cuda_ms(lambda: v7.cull_keys(prim, cl_min, cl_max), 3)
-    v7_ms, prim_k = cuda_ms(
-        lambda: v7.trace_keys_kernel(prim, keys, coeff, id_mask, "closest", "origin"), 10)
-    v7_plain_ms, prim_p = cuda_ms(
-        lambda: v7.trace_keys_plain(prim, keys, coeff, id_mask, "closest", "origin"), 1)
+    v7_ms, prim_k = cuda_ms(lambda: v7_fused(prim, "closest", "origin"), 10)
+    v7_plain_ms, (prim_p, _) = cuda_ms(lambda: v7_twin(prim, "closest", "origin", ordered=False), 1)
+    same_rows(prim_k, v7_twin(prim, "closest", "origin")[1], "[5] v7 closest 1080p")
     v7_visits = int(prim_k[1][:, 1, 0].sum().item())
-    v7_bound, v7_pairs = trace_bound(prim_k[1], "origin",
-                                     nbytes(prim, keys, coeff) + 4 * prim.shape[0] * 128 * 4)
-    say(f"[5] v7 closest, 1080p primaries ({prim.shape[0]} tiles): cull {cull_ms:.3f} ms, "
-        f"kernel {v7_ms:.3f} ms, plain {v7_plain_ms:.3f} ms; {v7_visits} visits, {v7_pairs} pairs "
-        f"tested ({v7_pairs / (v7_visits * 16384):.4f} of visits x 128 x 128), "
+    v7_cull_ops = CULL_OPS * prim.shape[0] * cl_min.shape[0]
+    v7_bound, v7_pairs = trace_bound(prim_k[1], "origin", nbytes(prim, cl_min, cl_max, coeff)
+                                     + 4 * prim.shape[0] * 128 * 4, extra_ops=v7_cull_ops)
+    say(f"[5] v7 closest with its cull in-kernel, 1080p primaries ({prim.shape[0]} tiles): kernel "
+        f"{v7_ms:.3f} ms; the plain-torch cull alone {cull_ms:.3f} ms on the same rays; plain cull + "
+        f"twin {v7_plain_ms:.3f} ms; {v7_visits} visits, {v7_pairs} pairs tested "
+        f"({v7_pairs / (v7_visits * 16384):.4f} of visits x 128 x 128), {v7_cull_ops} cull operations, "
         f"bound {v7_bound[0]:.4f} ms by {v7_bound[1]} ({card})")
     v7_err = max(v7_err, compare_closest(prim_k, prim_p, "[5] closest common=origin 1080p"))
     seg, sun = shadow_tiles(prim, prim_k, 8)
+    v7_occ = {}
     for rays, common, what in ((seg, None, "shadow segments"), (sun, "dir", "sun common=dir")):
-        keys_s, _ = v7.cull_keys(rays, cl_min, cl_max)
-        km, k = cuda_ms(lambda: v7.trace_keys_kernel(rays, keys_s, coeff, id_mask, "occluded", common), 5)
-        pm, p = cuda_ms(lambda: v7.trace_keys_plain(rays, keys_s, coeff, id_mask, "occluded", common), 1)
-        say(f"[5] v7 occluded, 1080p {what} (unsorted): kernel {km:.3f} ms, plain {pm:.3f} ms ({card})")
+        km, k = cuda_ms(lambda: v7_fused(rays, "occluded", common), 5)
+        pm, (p, _) = cuda_ms(lambda: v7_twin(rays, "occluded", common, ordered=False), 1)
+        same_rows(k, v7_twin(rays, "occluded", common)[1], f"[5] v7 occluded {what} 1080p")
+        b, pairs = trace_bound(k[1], common, nbytes(rays, cl_min, cl_max, coeff)
+                               + 4 * rays.shape[0] * 128 * 4, extra_ops=v7_cull_ops)
+        v7_occ[what] = (km, pm, b)
+        say(f"[5] v7 occluded, 1080p {what} (unsorted), cull in-kernel: kernel {km:.3f} ms, plain cull + "
+            f"twin {pm:.3f} ms; {int(k[1][:, 1, 0].sum())} visits, {pairs} pairs, bound {b[0]:.4f} ms "
+            f"by {b[1]} ({card})")
         v7_err = max(v7_err, compare_occluded(k, p, f"[5] occluded {what} 1080p"))
 
     # ---- 6. small frame, kernels vs plain twins -------------------------
@@ -538,17 +654,6 @@ def main() -> int:
     def v9_fused(rays, common, amask=None, g=gpu):
         return v9.trace_quarter_kernel(rays, g.q_cl_min, g.q_cl_max, g.q_panels, g.q_group_off,
                                        common, amask)
-
-    def same_rows(k, o, what):
-        """Every output row of the fused kernel equals the ordered loop's on
-        the plain keys: t, ids, visits (row 1) and pairs (row 5)."""
-        for r_ in range(8):
-            require(torch.equal(k[0][:, r_], o[0][:, r_]), f"{what}: outf row {r_} differs from the "
-                    "plain cull's ordered loop")
-            require(torch.equal(k[1][:, r_], o[1][:, r_]), f"{what}: outi row {r_} differs from the "
-                    "plain cull's ordered loop")
-        say(f"  {what}: every row equals the plain cull's ordered loop ({int(k[1][:, 1, 0].sum())} "
-            f"subcluster visits, {int(k[1][:, 5].sum())} pairs)")
 
     k = v9_fused(primary_tiles(320, 180), "origin")
     p, o = v9_twin(primary_tiles(320, 180), "origin")
@@ -713,13 +818,54 @@ def main() -> int:
         v8.trace_hier_kernel(bs, bsup, bblk, bcoeff, bnsup, "occluded", None),
         v8.trace_hier_plain(bs, bsup, bblk, bcoeff, bnsup, "occluded"),
         "[8] v8 occluded, 1M triangles, 320x180 segments to light 0"))
+    # v7 there, which takes the hybrid route's coherent closest traces above
+    # 1,024 blocks: keys on 8 pages (13 id bits), against the plain cull +
+    # twin and every row against the ordered loop at 320x180.
+    kb7 = v7_fused(bp, "closest", "origin", g=gbig)
+    pb7, ob7 = v7_twin(bp, "closest", "origin", g=gbig)
+    v7_err = max(v7_err, compare_closest(kb7, pb7, "[8] v7 closest, 1M triangles, 320x180 primaries"))
+    same_rows(kb7, ob7, "[8] v7 1M 320x180")
     bp, bk, bs = big_tiles(W, H)
     big_closest_ms, _ = cuda_ms(lambda: v8.trace_hier_kernel(bp, bsup, bblk, bcoeff, bnsup, "closest", None), 3)
     big_occ_ms, bo_ = cuda_ms(lambda: v8.trace_hier_kernel(bs, bsup, bblk, bcoeff, bnsup, "occluded", None), 3)
     say(f"[8] v8 at 1M triangles, 1080p: closest primaries {big_closest_ms:.3f} ms "
         f"({int(bk[1][:, 1, 0].sum())} visits, {int(bk[0][:, 1, 0].sum())} supers popped), occluded "
         f"segments to light 0 {big_occ_ms:.3f} ms ({int(bo_[1][:, 1, 0].sum())} visits) ({card})")
-    del big, gbig, bcoeff, bsup, bblk, bp, bk, bs, bo_
+    big_v7_ms, kb7 = cuda_ms(lambda: v7_fused(bp, "closest", "origin", g=gbig), 3)
+    big_cull_ms, (bkeys, _) = once_ms(lambda: v7.cull_keys(bp, gbig.pallas_cl_min, gbig.pallas_cl_max))
+    require(bool(((kb7[1][:, 0] == bk[1][:, 0]) | (kb7[0][:, 0] == bk[0][:, 0])).all()),
+            "[8] v7 and v8 disagree on the 1M primaries (ids differ with unequal t)")
+    cand = (bkeys.reshape(bp.shape[0], -1) != v7.INVALID).sum(dim=1)
+    say(f"[8] v7 at 1M triangles, 1080p primaries, cull in-kernel: {big_v7_ms:.3f} ms, "
+        f"{int(kb7[1][:, 1, 0].sum())} visits; the plain-torch cull alone {big_cull_ms:.3f} ms and "
+        f"{nbytes(bkeys)} bytes of keys; candidates per tile mean {float(cand.float().mean()):.1f}, "
+        f"greatest {int(cand.amax())} (the rank sort up to 512, the bitonic network above, on "
+        f"{int((cand > 512).sum())} tiles) ({card})")
+    del bkeys, kb7, pb7, ob7
+
+    # The hybrid frame at the 1M rung (v7 coherent closest, v8 occlusion).
+    cfg8 = rt.RenderConfig(width=W, height=H, primary_rays=4, shadow_rays=3, denoise_iterations=4)
+    frame8 = big.camera.viewport_frame(W, H, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held8 = torch.cuda.memory_allocated()
+    zero_counts()
+    with no_plain_cull(v7, "cull_keys", "[8] the 1M hybrid frame"):
+        img8 = render_pipeline_gpu(gbig, frame8, cfg8)
+        torch.cuda.synchronize()
+    counts8 = read_counts()
+    peak8 = (torch.cuda.max_memory_allocated() - held8) / 2**30
+    require(counts8 == unmasked(trace_v7=cfg8.primary_rays, trace_v9=0,
+                                trace_v8=cfg8.primary_rays * (gbig.num_light_tris * cfg8.shadow_rays + 1),
+                                atrous_pair=cfg8.denoise_iterations),
+            f"[8] 1M hybrid frame launches {counts8}")
+    img8 = img8.cpu().numpy()
+    require(bool(np.isfinite(img8).all()) and float(img8.std()) > 1e-3, "[8] 1M hybrid frame: bad image")
+    ms8, _ = median_ms(lambda: render_pipeline_gpu(gbig, frame8, cfg8), 3)
+    say(f"[8] the 1M hybrid frame (render_pipeline_gpu, reference defaults): {ms8:.2f} ms (median of 3 "
+        f"after a warm-up), peak memory {peak8:.3f} GiB above the {held8 / 2**30:.3f} GiB held; "
+        f"launches {counts8} ({card})")
+    del big, gbig, bcoeff, bsup, bblk, bp, bk, bs, bo_, img8
 
     # ---- 9. the frame through the default route --------------------------
     cfg9 = rt.RenderConfig(width=W, height=H, primary_rays=4, shadow_rays=3, denoise_iterations=4)
@@ -727,18 +873,12 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     held9 = torch.cuda.memory_allocated()
     zero_counts()
-    plain_culls = []                 # v9 culls in-kernel: no plain-torch quarter cull runs
-    cull = v9.cull_quarter_keys
-    v9.cull_quarter_keys = lambda *a, **k: plain_culls.append(1) or cull(*a, **k)
     t0 = time.perf_counter()
-    try:
+    with no_plain_cull(v9, "cull_quarter_keys", "[9] the hybrid frame"):
         img_t = rt.render(scene, cfg9)
         torch.cuda.synchronize()
-    finally:
-        v9.cull_quarter_keys = cull
     wall = time.perf_counter() - t0
     counts9 = read_counts()
-    require(not plain_culls, f"[9] the hybrid frame ran the plain-torch quarter cull {len(plain_culls)} times")
     require(img_t.device.type == "cuda", f"render with no device ran on {img_t.device}")
     n_v8 = cfg9.primary_rays * (gpu.num_light_tris * cfg9.shadow_rays + 1)
     want9 = unmasked(trace_v7=0, trace_v9=cfg9.primary_rays, trace_v8=n_v8,
@@ -832,16 +972,21 @@ def main() -> int:
         f"{int((v9m_k[1][:, 0] != v9_open[1][:, 0]).sum())} hits differ from its; "
         f"{v9m_pairs} pairs, bound {v9m_bound[0]:.4f} ms by {v9m_bound[1]} ({card})")
 
-    fkeys, fid = v7.cull_keys(fprim, fol.pallas_cl_min, fol.pallas_cl_max)
-    v7m_args = (fprim, fkeys, fol.pallas_panels, fid, "closest", "origin")
-    v7m_ms, v7m_k = cuda_ms(lambda: v7.trace_keys_kernel(*v7m_args, amask=fol.pallas_amask), 10)
-    v7m_plain_ms, v7m_p = cuda_ms(lambda: v7.trace_keys_plain(*v7m_args, amask=fol.pallas_amask), 1)
+    fv7_cull_ms, _ = cuda_ms(lambda: v7.cull_keys(fprim, fol.pallas_cl_min, fol.pallas_cl_max), 3)
+    v7m_ms, v7m_k = cuda_ms(lambda: v7_fused(fprim, "closest", "origin", fol.pallas_amask, fol), 10)
+    v7m_plain_ms, (v7m_p, _) = cuda_ms(
+        lambda: v7_twin(fprim, "closest", "origin", fol.pallas_amask, fol, ordered=False), 1)
     v7m_err = compare_closest(v7m_k, v7m_p, "[12] v7 masked closest common=origin 1080p")
-    v7m_bound, v7m_pairs = trace_bound(v7m_k[1], "origin", nbytes(fprim, fkeys, fol.pallas_panels,
-                                       fol.pallas_amask) + out_bytes)
-    v7_open_ms, _ = cuda_ms(lambda: v7.trace_keys_kernel(*v7m_args), 10)
-    say(f"[12] v7 masked, 1080p foliage primaries: kernel {v7m_ms:.3f} ms (unmasked on the same rays "
-        f"{v7_open_ms:.3f} ms), plain {v7m_plain_ms:.3f} ms; "
+    same_rows(v7m_k, v7_twin(fprim, "closest", "origin", fol.pallas_amask, fol)[1],
+              "[12] v7 masked 1080p")
+    fv7_cull_ops = CULL_OPS * fprim.shape[0] * fol.pallas_cl_min.shape[0]
+    v7m_bound, v7m_pairs = trace_bound(v7m_k[1], "origin", nbytes(fprim, fol.pallas_cl_min,
+                                       fol.pallas_cl_max, fol.pallas_panels, fol.pallas_amask)
+                                       + out_bytes, extra_ops=fv7_cull_ops)
+    v7_open_ms, _ = cuda_ms(lambda: v7_fused(fprim, "closest", "origin", None, fol), 10)
+    say(f"[12] v7 masked with its cull in-kernel, 1080p foliage primaries: kernel {v7m_ms:.3f} ms "
+        f"(unmasked on the same rays {v7_open_ms:.3f} ms), the plain-torch cull alone "
+        f"{fv7_cull_ms:.3f} ms, plain cull + twin {v7m_plain_ms:.3f} ms; "
         f"{v7m_pairs} pairs, bound {v7m_bound[0]:.4f} ms by {v7m_bound[1]} ({card})")
     require(bool(((v7m_k[1][:, 0] == v9m_k[1][:, 0]) | (v7m_k[0][:, 0] == v9m_k[0][:, 0])).all()),
             "[12] masked v7 and v9 disagree on the foliage primaries")
@@ -962,17 +1107,20 @@ def main() -> int:
         "textured_obj, rt.render(scene, cfg), default device and backend", "auto",
         lambda: rt.render(tobj_scene, cfg_t), 3,
         again=lambda: render_pipeline_gpu(tobj, tframe, cfg_t.replace(alpha_test=True)))
-    frames14["textured_obj pallas"] = alpha_frame(
-        "textured_obj, pallas route", "pallas",
-        lambda: render_pipeline_gpu(tobj, tframe, cfg_t.replace(alpha_test=True, backend="pallas")), 1)
+    with no_plain_cull(v7, "cull_keys", "[14] the textured_obj pallas frames"):
+        frames14["textured_obj pallas"] = alpha_frame(
+            "textured_obj, pallas route", "pallas",
+            lambda: render_pipeline_gpu(tobj, tframe, cfg_t.replace(alpha_test=True, backend="pallas")),
+            1)
     ffr = fol_scene.camera.viewport_frame(W, H, device=dev)
     cfg_f = cfg_t.replace(alpha_test=True)
     frames14["foliage hybrid"] = alpha_frame(
         "foliage_field baked, render_pipeline_gpu, hybrid route", "auto",
         lambda: render_pipeline_gpu(fol, ffr, cfg_f), 3)
-    frames14["foliage pallas"] = alpha_frame(
-        "foliage_field baked, pallas route", "pallas",
-        lambda: render_pipeline_gpu(fol, ffr, cfg_f.replace(backend="pallas")), 1)
+    with no_plain_cull(v7, "cull_keys", "[14] the foliage pallas frames"):
+        frames14["foliage pallas"] = alpha_frame(
+            "foliage_field baked, pallas route", "pallas",
+            lambda: render_pipeline_gpu(fol, ffr, cfg_f.replace(backend="pallas")), 1)
     for name in ("textured_obj", "foliage"):
         hy, pa = frames14[f"{name} hybrid"][0], frames14[f"{name} pallas"][0]
         share = image_rule(hy, pa, f"[14] {name}: hybrid vs pallas route")
@@ -1197,20 +1345,6 @@ def main() -> int:
             require(diff == 0, f"{what}: sample {s} flags differ on {diff} rays")
         say(f"  {what}: {sum(int(out[0][:, 0].sum()) for out in outs)} occluded of "
             f"{len(outs) * outs[0][0][:, 0].numel()} sample lanes, flags equal")
-
-    def median_ms(fn, reps):
-        """(median milliseconds of `reps` calls of fn, each timed alone by
-        CUDA events after one warm-up; the last result)."""
-        out = fn()
-        times = []
-        for _ in range(reps):
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            out = fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        return statistics.median(times), out
 
     # (a) against the twin on the segments of a 320x180 frame, S = 8 and its
     # first 1, 2 and 3 samples.

@@ -1,14 +1,14 @@
-"""Scratch copies of the package with one lever of the v8 / v9 design undone,
-for ablations on a GPU (times only; no copy is a configuration of the
-package).
+"""Scratch copies of the package with one lever of the v7, v8, v9 or A-Trous
+design undone, for ablations on a GPU (times only; no copy is a
+configuration of the package).
 
 No JAX counterpart.  ``python3 -m realtimeraytracer_torch.ablate <dir>
 [name ...]`` writes ``<dir>/<name>/realtimeraytracer_torch`` (and a link to
 the repository's assets) for each named variant, or for all of them; then
 ``PYTHONPATH=<dir>/<name> python3 realtimeraytracer_torch/kernel_ab.py
 kernels <name> --no-foliage`` times it beside the unchanged tree.  Each
-variant replaces one exact stretch of a kernel source and fails if that
-stretch is gone:
+variant replaces exact stretches of a kernel source and fails if one of
+them is gone:
 
 - v8_bitonic_l2: the L2 keys sorted by the bitonic network (28 barriers)
   instead of by rank;
@@ -16,11 +16,16 @@ stretch is gone:
   stores instead of cp.async;
 - v8_all_rays: every lane counted live in the culls' compaction (the culls
   test retired and empty rays too, and a tile with no live ray still culls);
-- v9_sync_gather: v9's composites gathered by plain loads instead of
-  cp.async;
-- v9_prologue_only: v9 runs its cull and sort and no visit;
-- v9_nv1, v9_nv2: one or two triangles per step of v9's test loop instead
-  of four.
+- sync_staging: v7's blocks and v9's composites copied by plain loads
+  instead of cp.async (tile_trace.cuh, which both include);
+- v7_prologue_only, v9_prologue_only: the kernel runs its cull and sort
+  and no visit;
+- nv1, nv2: one or two triangles per step of v7's and v9's test loops
+  instead of four (tile_trace.cuh);
+- atrous_unstaged: the A-Trous pair reads every tap and centre from global
+  memory (the same loop and reuse; no shared staging);
+- atrous_py2: two output rows a thread instead of four (fewer registers,
+  more CTAs an SM, less reuse of each staged tap).
 """
 
 from __future__ import annotations
@@ -31,39 +36,68 @@ from pathlib import Path
 
 PKG = Path(__file__).resolve().parent
 
+# name -> (source, [(stretch, replacement), ...])
 VARIANTS = {
-    "v8_bitonic_l2": ("trace_v8.cu", (
+    "v8_bitonic_l2": ("trace_v8.cu", [(
         """    l2in[lane] = k2own;
     __syncthreads();
     l2keys[rank_of(l2in, SUP, k2own)] = k2own;
     __syncthreads();""",
         """    l2keys[lane] = k2own;
     __syncthreads();
-    bitonic_sort(l2keys, SUP);""")),
-    "v8_sync_staging": ("trace_v8.cu", (
+    bitonic_sort(l2keys, SUP);""")]),
+    "v8_sync_staging": ("trace_v8.cu", [(
         """  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\\n" ::"r"(s), "l"(src) : "memory");""",
-        """  *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);""")),
-    "v8_all_rays": ("trace_v8.cu", (
+        """  *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);""")]),
+    "v8_all_rays": ("trace_v8.cu", [(
         """  const unsigned m = __ballot_sync(FULL, live);""",
         """  live = true;
-  const unsigned m = __ballot_sync(FULL, live);""")),
-    "v9_sync_gather": ("trace_v9.cu", (
+  const unsigned m = __ballot_sync(FULL, live);""")]),
+    "sync_staging": ("tile_trace.cuh", [(
         """  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\\n" ::"r"(s), "l"(src),
                "r"(fill ? 16 : 0) : "memory");""",
         """  *reinterpret_cast<float4*>(dst) = fill ? *reinterpret_cast<const float4*>(src)
-                                          : make_float4(0.f, 0.f, 0.f, 0.f);""")),
-    "v9_prologue_only": ("trace_v9.cu", ("  if (nmax > 0) stage(0);", "  nmax = 0;")),
-    "v9_nv1": ("trace_v9.cu", ("constexpr int NV = 4;", "constexpr int NV = 1;")),
-    "v9_nv2": ("trace_v9.cu", ("constexpr int NV = 4;", "constexpr int NV = 2;")),
+                                          : make_float4(0.f, 0.f, 0.f, 0.f);""")]),
+    "v7_prologue_only": ("trace_v7.cu", [("  if (n > 0) stage(0);", "  n = 0;")]),
+    "v9_prologue_only": ("trace_v9.cu", [("  if (nmax > 0) stage(0);", "  nmax = 0;")]),
+    "nv1": ("tile_trace.cuh", [("constexpr int NV = 4;", "constexpr int NV = 1;")]),
+    "nv2": ("tile_trace.cuh", [("constexpr int NV = 4;", "constexpr int NV = 2;")]),
+    "atrous_unstaged": ("atrous_pair.cu", [
+        ("    const int n = schunks[jj][k];", "    const int n = 0;"),
+        ("""    const int f = jj * geo.row_floats + (pix_ok[p] ? sbase[jj][seg] + 3 * x : 0);
+    load3(sp + f, cs[p]);
+    load3(up + f, cu[p]);
+    load3(np + f, cn[p]);
+    load3(pp + f, cp[p]);""",
+         """    const size_t f = pix_ok[p] ? ((size_t)(y_first + (jj - 2) * step) * w + x) * 3 : 0;
+    load3(s_in + f, cs[p]);
+    load3(u_in + f, cu[p]);
+    load3(nrm + f, cn[p]);
+    load3(pos + f, cp[p]);"""),
+        ("""      const int f = sbase[jj][geo.nseg == 1 ? 0 : kx] + 3 * xx;
+      float qs[3], qu[3], qn[3], qp[3];
+      load3(srow + f, qs);
+      load3(srow + plane_floats + f, qu);
+      load3(srow + 2 * plane_floats + f, qn);
+      load3(srow + 3 * plane_floats + f, qp);""",
+         """      const size_t f = ((size_t)yy * w + xx) * 3;
+      float qs[3], qu[3], qn[3], qp[3];
+      load3(s_in + f, qs);
+      load3(u_in + f, qu);
+      load3(nrm + f, qn);
+      load3(pos + f, qp);""")]),
+    "atrous_py2": ("atrous_pair.cu", [
+        ("constexpr int PY = 4;             // output rows per thread",
+         "constexpr int PY = 2;             // output rows per thread")]),
 }
 
 
 def write_variant(out: Path, name: str) -> Path:
     """Writes <out>/<name>/realtimeraytracer_torch with variant `name`'s
     edit; returns <out>/<name> (the PYTHONPATH entry)."""
-    source, (old, new) = VARIANTS[name]
+    source, edits = VARIANTS[name]
     root = out / name
     if root.exists():
         shutil.rmtree(root)
@@ -72,9 +106,11 @@ def write_variant(out: Path, name: str) -> Path:
     (root / "assets").symlink_to(PKG.parent / "assets")
     path = dst / "csrc" / source
     text = path.read_text()
-    if text.count(old) != 1:
-        raise SystemExit(f"{name}: the stretch it replaces in {source} is gone or ambiguous")
-    path.write_text(text.replace(old, new))
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise SystemExit(f"{name}: a stretch it replaces in {source} is gone or ambiguous")
+        text = text.replace(old, new)
+    path.write_text(text)
     return root
 
 

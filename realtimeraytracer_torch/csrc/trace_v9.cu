@@ -65,6 +65,9 @@
 // Before the cull moved in-kernel, the plain-torch cull wrote 16 KB of keys
 // per tile (265 MB per 1080p call) and cost twice the kernel it fed.
 //
+// The cull, the four-wide test and the staging copies live in
+// tile_trace.cuh, which trace_v7.cu shares.
+//
 // Numerics: -fmad=false and IEEE division, the same expressions and order
 // as the plain cull and the plain twin (render/v7_backend.py::
 // _sub_entries, _pack_id_keys; render/quarter_backend.py::
@@ -79,149 +82,12 @@
 // variant is its own instantiation; the unmasked launch pays nothing.
 #include <cuda_runtime.h>
 
+#include "tile_trace.cuh"
+
 namespace {
 
-constexpr int TILE = 128;
-constexpr int WARPS = TILE / 32;
-constexpr int CROWS = 12;
-constexpr int NQ = 4;
 constexpr int SUBK = 32;
 constexpr int MAX_CB = 1024;                  // RESIDENT_CB
-constexpr float BIG = 3.0e38f;
-constexpr float EPS = 1e-12f;
-constexpr int INVALID = 0x7F800000;
-constexpr int KEY_PAD = 0x7FFFFFFF;
-constexpr unsigned FULL = 0xFFFFFFFFu;
-
-enum Common { COMMON_NONE = 0, COMMON_ORIGIN = 1, COMMON_DIR = 2 };
-
-// ((o0*c0 + o1*c1) + o2*c2) + c3: the TPU kernel's association.
-__device__ __forceinline__ float dot_o(const float* c, int base, int j,
-                                      float x, float y, float z) {
-  return ((x * c[(base + 0) * TILE + j] + y * c[(base + 1) * TILE + j]) +
-          z * c[(base + 2) * TILE + j]) + c[(base + 3) * TILE + j];
-}
-
-__device__ __forceinline__ float dot_d(const float* c, int base, int j,
-                                      float x, float y, float z) {
-  return (x * c[(base + 0) * TILE + j] + y * c[(base + 1) * TILE + j]) +
-         z * c[(base + 2) * TILE + j];
-}
-
-// The alpha-mask bit of lane j's triangle at barycentrics (u, v); m holds
-// the visit's two composited mask rows (2 x TILE).
-__device__ __forceinline__ bool mask_bit(const int* m, int j, float u, float v) {
-  const int gi = min(max(__float2int_rz(u * 8.0f), 0), 7);
-  const int gj = min(max(__float2int_rz(v * 8.0f), 0), 7);
-  const int b = gj * 8 + gi;
-  return ((static_cast<unsigned>(m[(b >> 5) * TILE + j]) >> (b & 31)) & 1u) != 0u;
-}
-
-// Triangles tested per step of the inner loop: each step reads NV
-// consecutive lanes of every coefficient row with one vector load (a
-// broadcast: every thread of the warp reads the same address) and runs NV
-// independent ray-triangle tests, which the scheduler can overlap.
-constexpr int NV = 4;
-
-template <int N>
-__device__ __forceinline__ void load_lanes(const float* p, float (&v)[N]) {
-  if constexpr (N == 4) {
-    const float4 x = *reinterpret_cast<const float4*>(p);
-    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
-  } else if constexpr (N == 2) {
-    const float2 x = *reinterpret_cast<const float2*>(p);
-    v[0] = x.x; v[1] = x.y;
-  } else {
-    v[0] = p[0];
-  }
-}
-
-// The least packed (quantized t | lane) key of one ray over a staged
-// 128-triangle tile (coef: 12 x 128; fam: the tile-shared dot products of
-// a common origin or direction; smask: the two mask rows), KEY_PAD if no
-// triangle is hit in [tmin, limit].  dot_o / dot_d's expressions and
-// order, NV triangles per step.
-template <int COMMON, bool MASK>
-__device__ __forceinline__ int closest_key(const float* coef, const float* fam,
-                                           const int* smask, const float (&o)[3],
-                                           const float (&d)[3], float tmin, float limit) {
-  int kbest = KEY_PAD;
-  for (int j0 = 0; j0 < TILE; j0 += NV) {
-    float c[CROWS][NV], f[3][NV];
-#pragma unroll
-    for (int r = 0; r < CROWS; ++r) load_lanes<NV>(coef + r * TILE + j0, c[r]);
-    if (COMMON != COMMON_NONE) {
-#pragma unroll
-      for (int k = 0; k < 3; ++k) load_lanes<NV>(fam + k * TILE + j0, f[k]);
-    }
-#pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      float s0, ou, ov, s1, du, dv;
-      if (COMMON == COMMON_ORIGIN) {
-        s0 = f[0][i];
-        ou = f[1][i];
-        ov = f[2][i];
-      } else {
-        s0 = ((o[0] * c[0][i] + o[1] * c[1][i]) + o[2] * c[2][i]) + c[3][i];
-        ou = ((o[0] * c[4][i] + o[1] * c[5][i]) + o[2] * c[6][i]) + c[7][i];
-        ov = ((o[0] * c[8][i] + o[1] * c[9][i]) + o[2] * c[10][i]) + c[11][i];
-      }
-      if (COMMON == COMMON_DIR) {
-        s1 = f[0][i];
-        du = f[1][i];
-        dv = f[2][i];
-      } else {
-        s1 = (d[0] * c[0][i] + d[1] * c[1][i]) + d[2] * c[2][i];
-        du = (d[0] * c[4][i] + d[1] * c[5][i]) + d[2] * c[6][i];
-        dv = (d[0] * c[8][i] + d[1] * c[9][i]) + d[2] * c[10][i];
-      }
-      const bool den_ok = fabsf(s1) > EPS;
-      const float t = den_ok ? (-s0) / s1 : BIG;
-      const float u = ou + t * du;
-      const float vv = ov + t * dv;
-      bool ok = den_ok && u >= 0.0f && vv >= 0.0f && u + vv <= 1.0f &&
-                t >= tmin && t <= limit;
-      if (MASK && ok) ok = mask_bit(smask, j0 + i, u, vv);
-      // Packed (t | lane) key: nearest quantized t, then the lowest lane.
-      const float tm = ok ? t : __int_as_float(INVALID);
-      kbest = min(kbest, (__float_as_int(tm) & ~127) | (j0 + i));
-    }
-  }
-  return kbest;
-}
-
-// 16 bytes from global to shared memory, asynchronously; fill = false
-// writes 16 zero bytes instead (the source is not read).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool fill) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(fill ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N of this thread's copy groups are pending.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Interval product [a_lo, a_hi] x [b_lo, b_hi] (_sub_entries' `times`).
-__device__ __forceinline__ void times(float a_lo, float a_hi, float b_lo, float b_hi,
-                                      float& lo, float& hi) {
-  const float p1 = a_lo * b_lo, p2 = a_lo * b_hi;
-  const float p3 = a_hi * b_lo, p4 = a_hi * b_hi;
-  lo = fminf(fminf(p1, p2), fminf(p3, p4));
-  hi = fmaxf(fmaxf(p1, p2), fmaxf(p3, p4));
-}
-
-// The tile bundle: origin box, inverse direction interval per axis, least
-// t_min and greatest t_max.
-struct Bundle {
-  float o_lo[3], o_hi[3], inv_lo[3], inv_hi[3], tmin_lb, tmax_ub;
-};
 
 // Quarter key of subcluster c (_sub_entries + _pack_id_keys): entry bits
 // with the id bits cleared, or'ed with block id `blk`; INVALID where the
@@ -229,76 +95,7 @@ struct Bundle {
 __device__ __forceinline__ int sub_key(const Bundle& b, const float* __restrict__ cl_min,
                                        const float* __restrict__ cl_max, int c, int blk,
                                        int id_mask) {
-  float tn = 0.0f, tf = 0.0f;
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const float bmin = cl_min[c * 3 + a], bmax = cl_max[c * 3 + a];
-    float t0l, t0h, t1l, t1h;
-    times(bmin - b.o_hi[a], bmin - b.o_lo[a], b.inv_lo[a], b.inv_hi[a], t0l, t0h);
-    times(bmax - b.o_hi[a], bmax - b.o_lo[a], b.inv_lo[a], b.inv_hi[a], t1l, t1h);
-    const float lo_a = fminf(t0l, t1l);
-    const float hi_a = fmaxf(t0h, t1h);
-    tn = a == 0 ? lo_a : fmaxf(tn, lo_a);
-    tf = a == 0 ? hi_a : fminf(tf, hi_a);
-  }
-  const bool possible = tn <= tf && tf >= b.tmin_lb && tn <= b.tmax_ub;
-  const float ent = possible ? fmaxf(tn, 0.0f) : __int_as_float(INVALID);
-  if (!isfinite(ent)) return INVALID;
-  return (__float_as_int(ent) & ~id_mask) | blk;
-}
-
-// Reduces the tile's rays to its bundle: every thread of the CTA calls it
-// (it holds a barrier) and gets the same bundle.
-__device__ __forceinline__ Bundle reduce_bundle(const float (&o)[3], const float (&d)[3],
-                                                float tmin, float tmax, float (*red)[14]) {
-  float v[14];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    v[a] = o[a];
-    v[3 + a] = o[a];
-    v[6 + a] = d[a];
-    v[9 + a] = d[a];
-  }
-  v[12] = tmin;
-  v[13] = tmax;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-    for (int i = 0; i < 14; ++i) {
-      const float x = __shfl_xor_sync(FULL, v[i], off);
-      const bool is_min = i < 3 || (i >= 6 && i < 9) || i == 12;
-      v[i] = is_min ? fminf(v[i], x) : fmaxf(v[i], x);
-    }
-  }
-  const int w = threadIdx.x / 32;
-  if ((threadIdx.x & 31) == 0) {
-#pragma unroll
-    for (int i = 0; i < 14; ++i) red[w][i] = v[i];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 14; ++i) {
-    const bool is_min = i < 3 || (i >= 6 && i < 9) || i == 12;
-    float x = red[0][i];
-#pragma unroll
-    for (int k = 1; k < WARPS; ++k) x = is_min ? fminf(x, red[k][i]) : fmaxf(x, red[k][i]);
-    v[i] = x;
-  }
-  Bundle b;
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    b.o_lo[a] = v[a];
-    b.o_hi[a] = v[3 + a];
-    const float d_lo = v[6 + a], d_hi = v[9 + a];
-    const bool span = d_lo > EPS || d_hi < -EPS;                 // sign-definite
-    const float safe_hi = fabsf(d_hi) > EPS ? d_hi : EPS;
-    const float safe_lo = fabsf(d_lo) > EPS ? d_lo : EPS;
-    b.inv_lo[a] = span ? 1.0f / safe_hi : -BIG;
-    b.inv_hi[a] = span ? 1.0f / safe_lo : BIG;
-  }
-  b.tmin_lb = v[12];
-  b.tmax_ub = v[13];
-  return b;
+  return pack_key(sub_entry(b, cl_min, cl_max, c), blk, id_mask);
 }
 
 template <int COMMON, bool MASK>

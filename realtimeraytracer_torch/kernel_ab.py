@@ -5,35 +5,46 @@ No JAX counterpart.  Run it as a file, so that the package it measures is
 the one on PYTHONPATH (a tree unpacked with ``git archive``, or this one):
 
     PYTHONPATH=<tree> python3 realtimeraytracer_torch/kernel_ab.py kernels <tag> [--no-foliage]
-    PYTHONPATH=<tree> python3 realtimeraytracer_torch/kernel_ab.py frames <tag>
+    PYTHONPATH=<tree> python3 realtimeraytracer_torch/kernel_ab.py frames <tag> [--images <dir>]
     python3 realtimeraytracer_torch/kernel_ab.py compare <log> [<log> ...]
+    python3 realtimeraytracer_torch/kernel_ab.py images <dir>/<tag a> <dir>/<tag b>
 
 ``kernels`` traces the chip_smoke shapes (1080p primaries of
-procedural_mesh(100_000, sun=True) from v7's hits: v9 closest, v8 shadow
-segments, sun, incoherent closest, hinted segments, each v8 launch also
-with its work counts; with the foliage, baked: masked v9, masked v8 closest
-on shadow segments; instanced: v8 closest, masked closest and occluded) and
+procedural_mesh(100_000, sun=True): v7 closest, and from its hits v7
+occluded shadow segments and sun, v9 closest, v8 shadow segments, sun,
+incoherent closest, hinted segments, each v8 launch also with its work
+counts; the A-Trous pair's four 1080p iterations on chip_smoke's
+G-buffer; with the foliage, baked: masked v7 and v9, masked v8 closest on
+shadow segments; instanced: v8 closest, masked closest and occluded) and
 prints one line ``AB {json}``: a hash of every output row, each kernel's
-median time over 10 calls (CUDA events; v9 of a tree whose v9 takes culled
-keys includes its plain-torch cull), and the card.  ``frames`` renders the
-reference-default opaque hybrid frame and the baked foliage alpha-tested
-hybrid frame: one frame (peak memory above what was held, an image hash),
-then the median of 3 by CUDA events; it prints ``FR {json}``.  ``compare``
-reads those lines from logs, lists every row hash that differs between the
-first two tags, and prints each tag's times side by side.  Run parent,
-change, change, parent in one call to compare two trees on one card.
+median time over 10 calls (CUDA events; v7 of a tree whose kernel takes
+culled keys includes its plain-torch cull), the A-Trous kernel's SASS
+instruction counts, and the card.  ``frames`` renders the
+reference-default opaque frame on the hybrid and the "pallas" route, the
+baked foliage alpha-tested hybrid frame and the 1M-triangle hybrid frame:
+one frame (peak memory above what was held, an image hash), then the
+median of 3 by CUDA events; it prints ``FR {json}`` and, with
+``--images``, saves each image as ``<dir>/<tag>/<frame>.npy``.
+``compare`` reads those lines from logs, lists every row hash that differs
+between the first two tags, and prints each tag's times side by side.
+``images`` holds two tags' saved frames to the frame rule (under 0.5% of
+values off by more than 2e-3) and prints their largest difference.  Run
+parent, change, change, parent in one call to compare two trees on one
+card.
 """
 
 from __future__ import annotations
 
 import argparse
 import hashlib
-import inspect
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 W, H = 1920, 1080
 
@@ -41,6 +52,51 @@ W, H = 1920, 1080
 def _card() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
+
+
+def sass_functions(lib) -> dict[str, list[tuple[int, str]]]:
+    """Each kernel function of a built library (`cuobjdump -sass`): name ->
+    [(address, instruction), ...] in order, NOPs left out."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    funcs: dict[str, list[tuple[int, str]]] = {}
+    cur = None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function\s*:\s*(\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
+        if m and cur is not None and not re.match(r"(@!?U?P\w+\s+)?NOP\b", m.group(2).strip()):
+            cur.append((int(m.group(1), 16), m.group(2).strip()))
+    return funcs
+
+
+def tap_instructions(ins: list[tuple[int, str]]) -> tuple[float, int]:
+    """SASS instructions an A-Trous tap issues, and the taps the code holds
+    (four MUFU.EX2 a tap, one per expf).  Counted over the innermost loops
+    (a branch back to a lower address) that hold MUFU.EX2, which is where
+    the taps run; a kernel without such a loop (every tap unrolled) counts
+    its body up to its last EXIT (the division slow path after it is left
+    out)."""
+    def ex2(seq):
+        return sum("MUFU.EX2" in t for _, t in seq)
+
+    loops = []
+    for i, (addr, text) in enumerate(ins):
+        m = re.search(r"\bBRA\s+(?:!?U?P\w+,\s*)?(?:`\(\.L_x_\d+\)\s*)?(0x[0-9a-f]+|\d+)", text)
+        if m and int(m.group(1), 16 if m.group(1).startswith("0x") else 10) < addr:
+            start = int(m.group(1), 16 if m.group(1).startswith("0x") else 10)
+            loops.append([x for x in ins[:i + 1] if x[0] >= start])
+    inner = [lp for lp in loops if ex2(lp) and not any(
+        o is not lp and lp[0][0] <= o[0][0] and o[-1][0] <= lp[-1][0] for o in loops)]
+    if inner:
+        taps = sum(ex2(lp) for lp in inner) // 4
+        return sum(len(lp) for lp in inner) / taps, taps
+    last = max(i for i, (_, t) in enumerate(ins) if re.match(r"EXIT\b", t))
+    taps = ex2(ins[:last + 1]) // 4
+    return (last + 1) / taps, taps
 
 
 def _median_ms(fn, reps: int = 10):
@@ -65,22 +121,25 @@ def kernels_ab(tag: str, foliage: bool) -> dict:
 
     from realtimeraytracer_torch import kernels, scenes
     from realtimeraytracer_torch.ops.camera_rays import block_permutation, generate_rays
+    from realtimeraytracer_torch.ops.denoise_kernel import atrous_pair_iteration_kernel
     from realtimeraytracer_torch.render import hier_backend as v8
     from realtimeraytracer_torch.render import quarter_backend as v9
     from realtimeraytracer_torch.render import v7_backend as v7
 
     dev = torch.device("cuda", 0)
-    boxes = "cl_min" in inspect.signature(v9.trace_quarter_kernel).parameters
+    fused_v7 = hasattr(v7, "trace_v7_kernel")       # else a tree before v7's fused cull
     t0 = time.perf_counter()
     kernels.build_all()
     res = {"tag": tag, "package": v8.__file__, "build_s": time.perf_counter() - t0,
            "hash": {}, "ms": {}}
 
+    def digest(x):
+        return hashlib.sha256(x.contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+
     def record(name, out):
         for r in range(8):
             for side, x in (("f", out[0]), ("i", out[1])):
-                res["hash"][f"{name}.{side}{r}"] = hashlib.sha256(
-                    x[:, r].contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+                res["hash"][f"{name}.{side}{r}"] = digest(x[:, r])
 
     def timed(name, fn, reps=10):
         ms, out = _median_ms(fn, reps)
@@ -98,13 +157,16 @@ def kernels_ab(tag: str, foliage: bool) -> dict:
         return o, d, v7._pack_rays(o, d, tmin, tmax)[0]
 
     def v9_closest(g, rays, masked=False):
-        amask = g.q_amask if masked else None
-        if boxes:
-            return v9.trace_quarter_kernel(rays, g.q_cl_min, g.q_cl_max, g.q_panels,
-                                           g.q_group_off, "origin", amask)
-        keys, id_mask = v7.cull_quarter_keys(rays, g.q_cl_min, g.q_cl_max)
-        return v9.trace_quarter_kernel(rays, keys, g.q_panels, g.q_group_off, id_mask,
-                                       "origin", amask)
+        return v9.trace_quarter_kernel(rays, g.q_cl_min, g.q_cl_max, g.q_panels, g.q_group_off,
+                                       "origin", g.q_amask if masked else None)
+
+    def v7_trace(g, rays, mode, common, masked=False):
+        amask = g.pallas_amask if masked else None
+        if fused_v7:
+            return v7.trace_v7_kernel(rays, g.pallas_cl_min, g.pallas_cl_max, g.pallas_panels,
+                                      mode, common, amask)
+        keys, id_mask = v7.cull_keys(rays, g.pallas_cl_min, g.pallas_cl_max)
+        return v7.trace_keys_kernel(rays, keys, g.pallas_panels, id_mask, mode, common, amask)
 
     def secondary(g, o, d, out, seed):
         """Shadow segments toward light triangle 0, sun segments and
@@ -129,7 +191,10 @@ def kernels_ab(tag: str, foliage: bool) -> dict:
     scene = scenes.procedural_mesh(100_000, sun=True)
     gpu = scene.compile().to(dev)
     o, d, prim = primaries(scene)
-    seg, sun, bounce = secondary(gpu, o, d, v7.trace_blocks(gpu, prim, "closest", "origin"), 9)
+    seg, sun, bounce = secondary(gpu, o, d, timed("v7", lambda: v7_trace(gpu, prim, "closest",
+                                                                       "origin")), 9)
+    timed("v7.seg", lambda: v7_trace(gpu, seg, "occluded", None))
+    timed("v7.sun", lambda: v7_trace(gpu, sun, "occluded", "dir"))
     coeff, sup, blk, nsup = v8._hier_inputs(gpu)
 
     def hier(rays, mode, common, hints=None, count=False):
@@ -143,12 +208,34 @@ def kernels_ab(tag: str, foliage: bool) -> dict:
     hints = hier(seg, "occluded", None)[1][:, 3:5, 0].contiguous()
     timed("v8.seg.hinted", lambda: hier(seg, "occluded", None, hints))
     timed("v9", lambda: v9_closest(gpu, prim))
+    # The A-Trous pair: chip_smoke's 1080p G-buffer, four iterations.
+    g = np.random.default_rng(11)
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    pos = np.stack([xx * 2e-3, yy * 2e-3, 0.05 * np.sin(xx * 0.01)], -1) + g.normal(0, 2e-3, (H, W, 3))
+    nrm = np.stack([0.05 * np.sin(yy * 0.02), np.ones_like(xx), 0.05 * np.cos(xx * 0.03)], -1)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    unsh = g.uniform(0.2, 1.0, (H, W, 3))
+    shad = unsh * (g.uniform(0, 1, (H, W, 1)) > 0.3)
+    dn = [torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev) for a in (shad, unsh, nrm, pos)]
+
+    def denoise():
+        s_, u_ = dn[0], dn[1]
+        for i in range(4):
+            s_, u_ = atrous_pair_iteration_kernel(s_, u_, dn[2], dn[3], i + 1, 1.0, 0.001, 0.001)
+        return s_, u_
+
+    res["ms"]["atrous"], (s_, u_) = _median_ms(denoise)
+    res["hash"]["atrous.shadowed"], res["hash"]["atrous.unshadowed"] = digest(s_), digest(u_)
+    ins = next(v for k_, v in sass_functions(kernels.build("atrous_pair")).items() if "atrous" in k_)
+    per_tap, code_taps = tap_instructions(ins)
+    res["atrous_sass"] = {"instructions": len(ins), "per_tap": per_tap, "taps_in_code": code_taps,
+                          "MUFU.RCP": sum("MUFU.RCP" in t for _, t in ins)}
     if foliage:
         fs = scenes.foliage_field()
         fol = fs.compile(bake_instances=True).to(dev)
         fo, fd, fprim = primaries(fs)
-        fseg, _, _ = secondary(fol, fo, fd, v7.trace_blocks(fol, fprim, "closest", "origin",
-                                                            use_amask=True), 13)
+        fseg, _, _ = secondary(fol, fo, fd, timed("v7m", lambda: v7_trace(fol, fprim, "closest",
+                                                                         "origin", True)), 13)
         fc, fsup, fblk, fns = v8._hier_inputs(fol)
         timed("v8m", lambda: v8.trace_hier_kernel(fseg, fsup, fblk, fc, fns, "closest",
                                                   amask=fol.pallas_amask))
@@ -169,7 +256,8 @@ def kernels_ab(tag: str, foliage: bool) -> dict:
     return res
 
 
-def frames_ab(tag: str) -> dict:
+def frames_ab(tag: str, images: str | None = None) -> dict:
+    import numpy as np
     import torch
 
     import realtimeraytracer_torch as rt
@@ -188,6 +276,10 @@ def frames_ab(tag: str) -> dict:
         torch.cuda.synchronize()
         res["peak_gib"][name] = (torch.cuda.max_memory_allocated() - held) / 2**30
         res["hash"][name] = hashlib.sha256(img.cpu().numpy().tobytes()).hexdigest()[:16]
+        if images:
+            out = Path(images) / tag
+            out.mkdir(parents=True, exist_ok=True)
+            np.save(out / f"{name.replace(' ', '_')}.npy", img.cpu().numpy())
         times = []
         for _ in range(3):
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -203,7 +295,13 @@ def frames_ab(tag: str) -> dict:
     scene = scenes.procedural_mesh(100_000, sun=True)
     gpu = scene.compile().to(dev)
     run("opaque hybrid", gpu, scene.camera.viewport_frame(W, H, device=dev), cfg)
+    run("opaque pallas", gpu, scene.camera.viewport_frame(W, H, device=dev),
+        cfg.replace(backend="pallas"))
     del gpu
+    big = scenes.procedural_mesh(1_000_000, sun=True)
+    gbig = big.compile(quarter_panels=False).to(dev)
+    run("1M hybrid", gbig, big.camera.viewport_frame(W, H, device=dev), cfg)
+    del gbig
     fs = scenes.foliage_field()
     fol = fs.compile(bake_instances=True).to(dev)
     run("foliage baked hybrid", fol, fs.camera.viewport_frame(W, H, device=dev),
@@ -235,6 +333,20 @@ def compare(paths) -> None:
         print(f"{name:22s}", " | ".join(cells))
 
 
+def images(a: str, b: str) -> None:
+    """Each frame saved under both directories: equal, or the share of
+    values off by more than 2e-3 (the frame rule: under 0.5%) and the
+    largest difference."""
+    import numpy as np
+
+    for pa in sorted(Path(a).glob("*.npy")):
+        x, y = np.load(pa), np.load(Path(b) / pa.name)
+        share = float((np.abs(x - y) > 2e-3).mean())
+        print(f"{pa.stem:22s} equal {bool(np.array_equal(x, y))}, max |err| "
+              f"{float(np.abs(x - y).max())}, {share:.6%} of values off by > 2e-3, frame rule "
+              f"{'met' if share < 5e-3 and np.isfinite(x).all() and np.isfinite(y).all() else 'FAILED'}")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     sub = ap.add_subparsers(dest="what", required=True)
@@ -243,11 +355,18 @@ def main(argv=None) -> None:
     k.add_argument("--no-foliage", action="store_true")
     f = sub.add_parser("frames")
     f.add_argument("tag")
+    f.add_argument("--images", help="save each frame as <dir>/<tag>/<frame>.npy")
     c = sub.add_parser("compare")
     c.add_argument("logs", nargs="+")
+    i = sub.add_parser("images")
+    i.add_argument("a")
+    i.add_argument("b")
     args = ap.parse_args(argv)
     if args.what == "compare":
         compare(args.logs)
+        return
+    if args.what == "images":
+        images(args.a, args.b)
         return
     import torch
 
@@ -257,7 +376,7 @@ def main(argv=None) -> None:
         res = kernels_ab(args.tag, not args.no_foliage)
         print("AB " + json.dumps(res), flush=True)
     else:
-        print("FR " + json.dumps(frames_ab(args.tag)), flush=True)
+        print("FR " + json.dumps(frames_ab(args.tag, args.images)), flush=True)
 
 
 if __name__ == "__main__":

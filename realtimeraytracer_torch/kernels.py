@@ -6,8 +6,10 @@ Here each source under ``csrc/`` is compiled by ``nvcc`` for Hopper
 first use, under ``build/kernels/`` beside the package (in a checkout, the
 repository's ``build/kernels/``).  Set ``RT_TORCH_KERNEL_DIR`` to build
 elsewhere, e.g. when the package is installed into a read-only or shared
-``site-packages``.  A library's file name carries a hash of its source and
-flags, so an edited source is rebuilt and an unchanged one is reused.
+``site-packages``.  A library's file name carries a hash of its source,
+every header under ``csrc/`` (``*.cuh``, which sources include) and the
+flags, so an edited source or header is rebuilt and an unchanged one is
+reused.
 Libraries load with ``ctypes``; every pointer and the CUDA stream are
 passed as ``c_void_p``.
 
@@ -43,7 +45,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # cudaError_t, and its source has a companion `rt_<source>_error(int) ->
 # const char*`.
 SIGNATURES = {
-    "trace_v7": ("trace_v7", "rt_trace_v7", [_P] * 6 + [_I] * 6 + [_P]),
+    "trace_v7": ("trace_v7", "rt_trace_v7", [_P] * 7 + [_I] * 5 + [_P]),
     "trace_v8": ("trace_v8", "rt_trace_v8", [_P] * 8 + [_I] * 8 + [_P]),
     "trace_v8_inst": ("trace_v8", "rt_trace_v8_inst", [_P] * 9 + [_I] * 8 + [_P]),
     "trace_v8_multi": ("trace_v8", "rt_trace_v8_multi", [_P] * 6 + [_I] * 6 + [_P]),
@@ -70,12 +72,20 @@ def _nvcc() -> str:
     return path
 
 
+def library_path(name: str) -> Path:
+    """Where csrc/<name>.cu's library goes: its name carries a hash of the
+    source, the headers under csrc/ and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
 def build(name: str) -> Path:
     """Compile csrc/<name>.cu unless a library of the same hash exists."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"{name}-{digest}.so"
+    out = library_path(name)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -6,11 +6,15 @@ once per iteration for CUDA tensors and runs the plain PyTorch twin
 (``atrous_pair_iteration_plain``) for CPU tensors; there is no fallback
 between the two.  Both share the normal/position weights between the two
 images and use the TPU kernel's term order, so they agree with the
-per-image stencil (ops/denoise.py) to a few float32 ulp.
+per-image stencil (ops/denoise.py) to a few float32 ulp.  The kernel
+multiplies by the phi's reciprocals, each computed in double and rounded
+to float, which is what PyTorch's CUDA division by a Python scalar does
+in the twin, so on the card the two agree bit for bit.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from realtimeraytracer_torch import kernels
@@ -44,6 +48,12 @@ def atrous_pair_iteration_plain(shadowed, unshadowed, normal, position,
             acc_u / torch.clamp_min(cum_u, 1e-5)[..., None])
 
 
+def _reciprocal(phi: float) -> float:
+    """1 / phi as PyTorch's CUDA division by a Python scalar takes it:
+    computed in double, rounded to float32."""
+    return float(np.float32(1.0 / phi))
+
+
 def _check(images) -> None:
     shape = images[0].shape
     for name, x in zip(("shadowed", "unshadowed", "normal", "position"), images):
@@ -57,13 +67,20 @@ def _check(images) -> None:
             raise ValueError(f"{name} must be contiguous")
         if x.requires_grad:
             raise ValueError(f"{name} requires grad; the denoise kernel has no backward")
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernel stages it with "
+                             "16-byte copies)")
 
 
 def atrous_pair_iteration_kernel(shadowed, unshadowed, normal, position,
                                  step: int, c_phi: float, n_phi: float,
                                  p_phi: float):
-    """One launch of csrc/atrous_pair.cu (CUDA tensors only); adds one to
-    ``atrous_denoise_pair.launches``."""
+    """One launch of csrc/atrous_pair.cu (CUDA tensors only, 16-byte
+    aligned; any step >= 1); adds one to ``atrous_denoise_pair.launches``.
+    Each CTA stages its tile and the taps' rows of the four planes in
+    shared memory; the result equals the twin's."""
+    if step < 1:
+        raise ValueError(f"step must be at least 1, got {step}")
     _check((shadowed, unshadowed, normal, position))
     h, w = shadowed.shape[0], shadowed.shape[1]
     s_out = torch.empty_like(shadowed)
@@ -73,7 +90,7 @@ def atrous_pair_iteration_kernel(shadowed, unshadowed, normal, position,
         kernels.launch("atrous_pair", shadowed.data_ptr(), unshadowed.data_ptr(),
                        normal.data_ptr(), position.data_ptr(), s_out.data_ptr(),
                        u_out.data_ptr(), h, w, step, 1.0 / float(step * step),
-                       c_phi, n_phi, p_phi, stream)
+                       *(_reciprocal(phi) for phi in (c_phi, n_phi, p_phi)), stream)
     atrous_denoise_pair.launches += 1
     return s_out, u_out
 

@@ -43,8 +43,8 @@ from realtimeraytracer_torch.ops.intersect import HitRecord
 from realtimeraytracer_torch.render.backends import TraceBackend, _merge_sphere_hits
 from realtimeraytracer_torch.render.v7_backend import (
     BIG, BIG_BITS, CPB, INVALID, _COMMON, _INT64_MAX, _check_aligned, _check_layout,
-    _check_on_card,
-    _id_bits, _intersect_pairs, _pack_rays, cull_quarter_keys, make_v7_backend, trace_blocks)
+    _check_one_card, _id_bits, _intersect_pairs, _pack_rays, cull_quarter_keys, make_v7_backend,
+    trace_blocks)
 from realtimeraytracer_torch.scene.gpu_scene import TorchScene
 from realtimeraytracer_torch.scene.panels import CB, CROWS, RESIDENT_CB, SUBK, TILE
 
@@ -213,12 +213,8 @@ def trace_quarter_kernel(rays, cl_min, cl_max, coeff, group_off,
                          f"got {cb}; route larger scenes to v8")
     if common not in _COMMON:
         raise ValueError(f"bad common {common!r}")
-    for x, name in ((rays, "rays"), (cl_min, "cl_min"), (cl_max, "cl_max"), (coeff, "coeff"),
-                    (group_off, "group_off"), (amask, "amask")):
-        if x is not None:
-            _check_on_card(x, name)
-            if x.device != rays.device:
-                raise ValueError("the v9 kernel's inputs must be on one device")
+    _check_one_card("v9", rays=rays, cl_min=cl_min, cl_max=cl_max, coeff=coeff,
+                    group_off=group_off, amask=amask)
     _check_aligned(coeff=coeff, amask=amask)
     id_mask = (1 << _id_bits(-(-cb // CPB) * CPB)) - 1
     outf = torch.zeros((ts, 8, TILE), dtype=torch.float32, device=rays.device)

@@ -8,13 +8,16 @@ kernel csrc/trace_v7.cu), ``pallas_closest`` / ``pallas_occluded`` (here
 ``v7_closest`` / ``v7_occluded``) and ``make_pallas_backend`` (here
 ``make_v7_backend``; the config string stays "pallas").
 
-``trace_blocks`` launches the CUDA kernel for CUDA tensors and runs its plain
-PyTorch twin (``trace_keys_plain``) for CPU tensors; there is no fallback
-between the two.  The twin intersects every culled candidate block of a
+``trace_blocks`` launches the CUDA kernel for CUDA tensors and runs the
+plain cull and the plain twin (``trace_keys_plain``) for CPU tensors;
+there is no fallback between the two.  The kernel computes the cull
+itself, in its tile prologue, from the subcluster boxes: on the card no
+key tensor exists.  The twin intersects every culled candidate block of a
 tile instead of running the ordered loop: the stop rule is exact, so it
 finds the same hits.  It keeps the kernel's packed (t | lane) key and its
-visit-order tie rule, so t and ids agree bit for bit (ids may differ only
-where two blocks hold the same quantized t; see ROADMAP queue C).
+visit-order tie rule, so t and ids agree bit for bit.
+``trace_keys_ordered`` runs the kernel's ordered visit loop on the plain
+keys, which gives its visit and pair counts as well.
 
 Closest traces take the scene's conservative alpha masks (pallas_amask,
 ops/alpha_mask.py) when asked (``use_amask``; JAX ``amask``): kernel and
@@ -46,8 +49,14 @@ _INT64_MAX = torch.iinfo(torch.int64).max
 _MODES = {"closest": 0, "occluded": 1}
 _COMMON = {None: 0, "origin": 1, "dir": 2}
 _SMEM_LIMIT = 232448    # bytes of shared memory a Hopper CTA may opt into
+# Static shared memory of csrc/trace_v7.cu (each warp's common-family dot
+# products, the bundle's warp partials, the cull's warp counts).
+_V7_STATIC_SMEM = 4 * (4 * 3 * TILE + 4 * 14 + 2 * 4)
+_RANK_MAX_KEYS = 512    # the kernel's rank sort; a bitonic network above
 # (tile, block) pairs per chunk of the plain twin, on CUDA and elsewhere.
 _PAIR_CHUNK_CUDA, _PAIR_CHUNK_CPU = 1024, 64
+# Tiles per chunk of trace_keys_ordered's visit step, on CUDA and elsewhere.
+_TILE_CHUNK_CUDA, _TILE_CHUNK_CPU = 1024, 64
 
 
 def _id_bits(total_blocks: int) -> int:
@@ -124,8 +133,10 @@ def _pack_id_keys(ent, ids, id_mask: int, pages: int):
 def cull_keys(rays, cl_min, cl_max, chunk_tiles: int = 2048):
     """Per-tile packed block-candidate keys (Ts, CBn, 8, 128) int32 and the
     id mask: box entries reduce to 128-triangle block keys (entry = min over
-    the block's boxes).  Chunked over tiles to bound the (Ts, C32)
-    temporaries."""
+    the block's boxes, plus +0.0: a -0 entry, from a box face on the
+    bundle's origin bound, becomes +0, whose key is not negative and does
+    not hang on which zero amin returns).  Chunked over tiles to bound the
+    (Ts, C32) temporaries."""
     ts = rays.shape[0]
     c32 = cl_min.shape[0]
     cb = c32 // (CB // SUBK)
@@ -136,7 +147,7 @@ def cull_keys(rays, cl_min, cl_max, chunk_tiles: int = 2048):
     for s in range(0, ts, chunk_tiles):
         e = min(ts, s + chunk_tiles)
         ent = _sub_entries(rays[s:e], cl_min, cl_max)
-        ent = ent.reshape(e - s, cb, CB // SUBK).amin(dim=2)
+        ent = ent.reshape(e - s, cb, CB // SUBK).amin(dim=2) + 0.0
         keys[s:e] = _pack_id_keys(ent, ids, id_mask, cbn)
     return keys, id_mask
 
@@ -269,6 +280,71 @@ def trace_keys_plain(rays, keys, coeff, id_mask: int, mode: str,
     return outf, outi
 
 
+def trace_keys_ordered(rays, keys, coeff, id_mask: int, mode: str,
+                       common: str | None = None, amask=None):
+    """The v7 kernel's ordered visit loop in plain PyTorch, on culled keys
+    (Ts, CBn, 8, 128), for any device: visit v takes each tile's v-th
+    least key, and a tile stops, as the kernel does, once that key's entry
+    exceeds every ray's min(best_t, t_max) (int32 f32 bits; an occluded
+    ray's best_t is -3e38 after its first hit).  Unlike the twin
+    (trace_keys_plain, which tests every candidate) it writes the kernel's
+    own visit and pair counts: outi row 1 = the tile's visits, row 5 = the
+    pairs each live ray tested (128 a visit, or up to and including its
+    first hit in occluded mode).  A check of the kernel's in-kernel cull
+    and visit order, row for row; t, ids and flags are the twin's."""
+    ts = rays.shape[0]
+    dev = rays.device
+    cb = coeff.shape[0]
+    chunk = _TILE_CHUNK_CUDA if dev.type == "cuda" else _TILE_CHUNK_CPU
+    closest = mode == "closest"
+    sk = torch.sort(keys.reshape(ts, -1), dim=1).values
+    n = (sk != INVALID).sum(dim=1)
+    lane = torch.arange(TILE, device=dev, dtype=torch.int32)
+    best_t = torch.full((ts, TILE), BIG, dtype=torch.float32, device=dev)
+    best_k = torch.full((ts, TILE), -1, dtype=torch.int32, device=dev)
+    visits = torch.zeros(ts, dtype=torch.int32, device=dev)
+    pairs = torch.zeros((ts, TILE), dtype=torch.int32, device=dev)
+    going = n > 0
+    for v in range(int(n.amax()) if ts else 0):
+        kv = sk[:, v]
+        limit = torch.minimum(best_t, rays[:, 7])
+        going &= (v < n) & (limit.view(torch.int32) >= (kv & ~id_mask)[:, None]).any(dim=1)
+        tiles = going.nonzero()[:, 0]
+        if not tiles.numel():
+            break
+        for s in range(0, tiles.numel(), chunk):
+            tt = tiles[s:s + chunk]
+            cid = torch.clamp(kv[tt] & id_mask, max=cb - 1).long()
+            r = rays[tt].clone()
+            if closest:
+                r[:, 7] = limit[tt]
+            else:                      # a ray is live until its first hit
+                r[:, 7] = torch.where(best_t[tt] >= 0.0, r[:, 7], -BIG)
+            t, ok = _intersect_pairs(r, coeff[cid], common, None if amask is None else amask[cid])
+            alive = r[:, 6] <= r[:, 7]
+            if closest:
+                tm = torch.where(ok, t, float("inf"))
+                kbest = ((tm.view(torch.int32) & ~127) | lane).amin(dim=2)      # (P, 128)
+                better = kbest < best_t[tt].view(torch.int32)
+                ids = cid[:, None].to(torch.int32) * TILE + (kbest & 127)
+                best_t[tt] = torch.where(better, (kbest & ~127).view(torch.float32), best_t[tt])
+                best_k[tt] = torch.where(better, ids, best_k[tt])
+                pairs[tt] += alive.to(torch.int32) * TILE
+            else:
+                hit = ok.any(dim=2)
+                first = ok.to(torch.int32).argmax(dim=2) + 1
+                pairs[tt] += torch.where(alive, torch.where(hit, first, TILE), 0).to(torch.int32)
+                best_t[tt] = torch.where(hit, -BIG, best_t[tt])
+        visits += going.to(torch.int32)
+    outf = torch.zeros((ts, 8, TILE), dtype=torch.float32, device=dev)
+    outi = torch.zeros((ts, 8, TILE), dtype=torch.int32, device=dev)
+    outf[:, 0] = best_t if closest else (best_t < 0.0).to(torch.float32)
+    outi[:, 0] = best_k
+    outi[:, 1] = visits[:, None]
+    outi[:, 5] = pairs
+    return outf, outi
+
+
 def _check_layout(x: torch.Tensor, name: str, dtype, shape) -> None:
     """dtype, shape and contiguity of a kernel input, on any device."""
     if x.dtype != dtype:
@@ -285,6 +361,17 @@ def _check_on_card(x: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
     if x.requires_grad:
         raise ValueError(f"{name} requires grad; the traversal kernels have no backward")
+
+
+def _check_one_card(kernel: str, **tensors) -> None:
+    """Every given input (None: absent) lies on the card, on one device,
+    and needs no gradient."""
+    first = next(x for x in tensors.values() if x is not None)
+    for name, x in tensors.items():
+        if x is not None:
+            _check_on_card(x, name)
+            if x.device != first.device:
+                raise ValueError(f"the {kernel} kernel's inputs must be on one device")
 
 
 def _check_aligned(**tensors) -> None:
@@ -313,35 +400,50 @@ def _check_amask(amask, coeff, mode: str) -> None:
         raise ValueError("amask and coeff must be on one device")
 
 
-def trace_keys_kernel(rays, keys, coeff, id_mask: int, mode: str,
-                      common: str | None = None, amask=None):
-    """Launch csrc/trace_v7.cu on culled keys (CUDA tensors only); adds one
-    to ``trace_blocks.launches``, or with alpha masks (closest mode) to
-    ``trace_blocks.masked_launches``."""
+def _v7_dynamic_smem(cb: int, masked: bool) -> int:
+    """Dynamic shared memory of a v7 launch (rt_trace_v7): the key room
+    (cb keys, 16-byte aligned; above the rank sort's 512 keys the next
+    power of two, for the bitonic network) and the two staging buffers."""
+    cap = (cb + 3) & ~3 if cb <= _RANK_MAX_KEYS else 1 << (cb - 1).bit_length()
+    return 4 * cap + 4 * (2 * CROWS * TILE + (2 * 2 * TILE if masked else 0))
+
+
+def trace_v7_kernel(rays, cl_min, cl_max, coeff, mode: str, common: str | None = None,
+                    amask=None):
+    """Launch csrc/trace_v7.cu, which culls each tile against the
+    subcluster boxes cl_min / cl_max (4 CB, 3) itself and visits the
+    blocks in entry order (CUDA tensors only); adds one to
+    ``trace_blocks.launches``, or with alpha masks (closest mode) to
+    ``trace_blocks.masked_launches``.  Its outputs equal cull_keys followed
+    by trace_keys_plain (t, ids, flags) and by trace_keys_ordered (every
+    row).  The block count's shared memory, layouts and devices are checked
+    before the kernel is built or launched."""
     ts = rays.shape[0]
     cb = coeff.shape[0]
-    nkeys = keys.shape[1] * CPB
-    _check(rays, "rays", torch.float32, (ts, 8, TILE))
-    _check(keys, "keys", torch.int32, (ts, keys.shape[1], 8, 128))
-    _check(coeff, "coeff", torch.float32, (cb, CROWS, TILE))
-    if keys.device != rays.device or coeff.device != rays.device:
-        raise ValueError("rays, keys and coeff must be on one device")
     if mode not in _MODES or common not in _COMMON:
         raise ValueError(f"bad mode/common {mode!r}/{common!r}")
-    _check_amask(amask, coeff, mode)
-    cap = 1 << max(0, nkeys - 1).bit_length()
-    if cap * 4 + (CROWS + 5) * TILE * 4 > _SMEM_LIMIT:
-        raise ValueError(f"{cb} coefficient blocks need more shared memory "
-                         "for the key sort than a CTA has")
+    if cb < 1 or _v7_dynamic_smem(cb, amask is not None) > _SMEM_LIMIT - _V7_STATIC_SMEM:
+        raise ValueError(f"{cb} coefficient blocks: their keys do not fit the v7 kernel's "
+                         "shared memory")
+    _check_layout(rays, "rays", torch.float32, (ts, 8, TILE))
+    _check_layout(coeff, "coeff", torch.float32, (cb, CROWS, TILE))
+    _check_layout(cl_min, "cl_min", torch.float32, (cb * (CB // SUBK), 3))
+    _check_layout(cl_max, "cl_max", torch.float32, (cb * (CB // SUBK), 3))
+    if amask is not None:
+        if mode != "closest":
+            raise ValueError("alpha masks apply to closest traces only")
+        _check_layout(amask, "amask", torch.int32, (cb, 2, TILE))
+    _check_one_card("v7", rays=rays, cl_min=cl_min, cl_max=cl_max, coeff=coeff, amask=amask)
+    _check_aligned(coeff=coeff, amask=amask)
+    id_mask = (1 << _id_bits(-(-cb // CPB) * CPB)) - 1
     outf = torch.zeros((ts, 8, TILE), dtype=torch.float32, device=rays.device)
     outi = torch.zeros((ts, 8, TILE), dtype=torch.int32, device=rays.device)
     with torch.cuda.device(rays.device):
         stream = torch.cuda.current_stream().cuda_stream
-        kernels.launch("trace_v7", rays.data_ptr(), keys.data_ptr(),
+        kernels.launch("trace_v7", rays.data_ptr(), cl_min.data_ptr(), cl_max.data_ptr(),
                        coeff.data_ptr(), None if amask is None else amask.data_ptr(),
-                       outf.data_ptr(), outi.data_ptr(),
-                       ts, nkeys, cb, id_mask, _MODES[mode], _COMMON[common],
-                       stream)
+                       outf.data_ptr(), outi.data_ptr(), ts, cb, id_mask, _MODES[mode],
+                       _COMMON[common], stream)
     if amask is None:
         trace_blocks.launches += 1
     else:
@@ -372,12 +474,13 @@ def trace_blocks(gpu: TorchScene, ray_blocks, mode: str,
     has them).  CUDA tensors launch the kernel; CPU tensors run the plain
     twin."""
     coeff, cl_min, cl_max, amask = _panels(gpu, mode, use_amask)
-    with record_function("v7.cull"):
-        keys, id_mask = cull_keys(ray_blocks, cl_min, cl_max)
-    with record_function(f"v7.{mode}"):
-        if ray_blocks.device.type == "cuda":
-            return trace_keys_kernel(ray_blocks, keys, coeff, id_mask, mode, common, amask)
-        if ray_blocks.device.type == "cpu":
+    if ray_blocks.device.type == "cuda":
+        with record_function(f"v7.{mode}"):        # the cull runs in the kernel
+            return trace_v7_kernel(ray_blocks, cl_min, cl_max, coeff, mode, common, amask)
+    if ray_blocks.device.type == "cpu":
+        with record_function("v7.cull"):
+            keys, id_mask = cull_keys(ray_blocks, cl_min, cl_max)
+        with record_function(f"v7.{mode}"):
             return trace_keys_plain(ray_blocks, keys, coeff, id_mask, mode, common, amask)
     raise ValueError(f"no v7 trace for device {ray_blocks.device}")
 

@@ -159,44 +159,49 @@ def _denoise_data(h, w, seed):
 def test_kernels_refuse_cpu_tensors():
     gpu = _soup_scene(200)
     rays = _ray_tiles(None, 1, "cpu")
-    keys, id_mask = v7.cull_keys(rays, gpu.pallas_cl_min, gpu.pallas_cl_max)
     with pytest.raises(ValueError, match="CUDA"):
-        v7.trace_keys_kernel(rays, keys, gpu.pallas_panels, id_mask, "closest")
+        v7.trace_v7_kernel(rays, gpu.pallas_cl_min, gpu.pallas_cl_max, gpu.pallas_panels,
+                           "closest")
     with pytest.raises(ValueError, match="CUDA"):
         atrous_pair_iteration_kernel(*_denoise_data(8, 8, 0), 1, *PHIS)
+
+
+def _same_v7(k, rays, cl_min, cl_max, coeff, mode, common, amask=None):
+    """The fused v7 kernel's outputs k against the plain cull followed by
+    the twin (hits, t, ids, flags) and by the ordered visit loop (every
+    row, exactly: the in-kernel keys give the same visits and pairs)."""
+    keys, id_mask = v7.cull_keys(rays, cl_min, cl_max)
+    p = v7.trace_keys_plain(rays, keys, coeff, id_mask, mode, common, amask)
+    o = v7.trace_keys_ordered(rays, keys, coeff, id_mask, mode, common, amask)
+    (_same_closest if mode == "closest" else _same_occluded)(k, p)
+    assert torch.equal(k[0], o[0]) and torch.equal(k[1], o[1])
+    _fewer_pairs(k, p, rays)
+    return p
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode,common", [("closest", None), ("closest", "origin"),
                                          ("occluded", None), ("occluded", "dir")])
 def test_v7_kernel_matches_twin(cuda, mode, common):
+    """The kernel culls in its prologue: its outputs equal the plain cull
+    followed by the twin (t, ids, flags) and by the ordered visit loop
+    (every row)."""
     gpu = _soup_scene().to(cuda)
     rays = _ray_tiles(common, 5, cuda)
-    keys, id_mask = v7.cull_keys(rays, gpu.pallas_cl_min, gpu.pallas_cl_max)
     before = v7.trace_blocks.launches
-    kf, ki = v7.trace_keys_kernel(rays, keys, gpu.pallas_panels, id_mask, mode, common)
+    k = v7.trace_v7_kernel(rays, gpu.pallas_cl_min, gpu.pallas_cl_max, gpu.pallas_panels, mode,
+                           common)
     assert v7.trace_blocks.launches == before + 1
-    pf, pi = v7.trace_keys_plain(rays, keys, gpu.pallas_panels, id_mask, mode, common)
-    _fewer_pairs((kf, ki), (pf, pi), rays)
-    kf, ki, pf, pi = (x[:, 0].cpu().numpy().ravel() for x in (kf, ki, pf, pi))
-    if mode == "occluded":
-        assert 10 < pf.sum() < pf.size - 10
-        np.testing.assert_array_equal(kf, pf)
-        return
-    hit = pi >= 0
-    assert hit.sum() > 20
-    np.testing.assert_array_equal(ki >= 0, hit)
-    np.testing.assert_allclose(kf[hit], pf[hit], rtol=1e-6)
-    assert ((ki == pi) | (kf == pf)).all()
+    _same_v7(k, rays, gpu.pallas_cl_min, gpu.pallas_cl_max, gpu.pallas_panels, mode, common)
 
 
 @pytest.mark.cuda
 def test_v7_kernel_rejects_grad_inputs(cuda):
     gpu = _soup_scene(200).to(cuda)
     rays = _ray_tiles(None, 2, cuda)
-    keys, id_mask = v7.cull_keys(rays, gpu.pallas_cl_min, gpu.pallas_cl_max)
     with pytest.raises(ValueError, match="grad"):
-        v7.trace_keys_kernel(rays.requires_grad_(), keys, gpu.pallas_panels, id_mask, "closest")
+        v7.trace_v7_kernel(rays.requires_grad_(), gpu.pallas_cl_min, gpu.pallas_cl_max,
+                           gpu.pallas_panels, "closest")
 
 
 @pytest.mark.cuda
@@ -349,9 +354,16 @@ def test_masked_kernels_match_twins(cuda, kernel, common):
     rays = _ray_tiles(common, 8, cuda, n=1000)
     if kernel == "v7":
         keys, id_mask = v7.cull_keys(rays, gpu.pallas_cl_min, gpu.pallas_cl_max)
-        args = (rays, keys, gpu.pallas_panels, id_mask, "closest", common)
+        args = ()
         amask, counter = gpu.pallas_amask, v7.trace_blocks
-        launch, twin = v7.trace_keys_kernel, v7.trace_keys_plain
+
+        def launch(amask=None):
+            return v7.trace_v7_kernel(rays, gpu.pallas_cl_min, gpu.pallas_cl_max,
+                                      gpu.pallas_panels, "closest", common, amask)
+
+        def twin(amask=None):
+            return v7.trace_keys_plain(rays, keys, gpu.pallas_panels, id_mask, "closest",
+                                       common, amask)
     elif kernel == "v9":
         keys, id_mask = v7.cull_quarter_keys(rays, gpu.q_cl_min, gpu.q_cl_max)
         args = ()
@@ -377,6 +389,9 @@ def test_masked_kernels_match_twins(cuda, kernel, common):
     if kernel == "v9":
         _same_v9(k, rays, gpu.q_cl_min, gpu.q_cl_max, gpu.q_panels, gpu.q_group_off, common,
                  amask)
+    if kernel == "v7":
+        _same_v7(k, rays, gpu.pallas_cl_min, gpu.pallas_cl_max, gpu.pallas_panels, "closest",
+                 common, amask)
     unmasked = launch(*args)
     assert bool((unmasked[1][:, 0] != k[1][:, 0]).any())
     if kernel == "v8":
@@ -388,10 +403,9 @@ def test_masked_kernels_match_twins(cuda, kernel, common):
 def test_masked_kernels_refuse_occlusion(cuda):
     gpu = _alpha_soup_scene(200).to(cuda)
     rays = _ray_tiles(None, 3, cuda)
-    keys, id_mask = v7.cull_keys(rays, gpu.pallas_cl_min, gpu.pallas_cl_max)
     with pytest.raises(ValueError, match="closest"):
-        v7.trace_keys_kernel(rays, keys, gpu.pallas_panels, id_mask, "occluded",
-                             amask=gpu.pallas_amask)
+        v7.trace_v7_kernel(rays, gpu.pallas_cl_min, gpu.pallas_cl_max, gpu.pallas_panels,
+                           "occluded", amask=gpu.pallas_amask)
     coeff, sup, blk, nsup = hb._hier_inputs(gpu)
     with pytest.raises(ValueError, match="closest"):
         hb.trace_hier_kernel(rays, sup, blk, coeff, nsup, "occluded", amask=gpu.pallas_amask)
@@ -777,12 +791,12 @@ def _tie_tris():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["v8", "v9"])
+@pytest.mark.parametrize("kernel", ["v8", "v9", "v7"])
 def test_equal_t_across_blocks_goes_to_the_first_visited(cuda, kernel):
     """Two copies of one triangle in blocks 0 and 5 give equal quantized t;
     block 5 is entered first, so the kernels keep its copy (strict <).  The
-    v9 twin orders ties by stream rank and agrees; the v8 twin orders them
-    by block id and keeps block 0's copy (ROADMAP C)."""
+    v9 and v7 twins order ties by visit rank and agree; the v8 twin orders
+    them by block id and keeps block 0's copy (ROADMAP C)."""
     coeff, cl_min, cl_max = _panels(_tie_tris(), cuda)
     r = np.random.default_rng(12)
     n = 256
@@ -794,6 +808,9 @@ def test_equal_t_across_blocks_goes_to_the_first_visited(cuda, kernel):
     if kernel == "v9":
         k = qb.trace_quarter_kernel(rays, cl_min, cl_max, coeff, None, None)
         _same_v9(k, rays, cl_min, cl_max, coeff, None, None)
+    elif kernel == "v7":
+        k = v7.trace_v7_kernel(rays, cl_min, cl_max, coeff, "closest")
+        _same_v7(k, rays, cl_min, cl_max, coeff, "closest", None)
     else:
         sup, blk = hb.pack_hierarchy(cl_min, cl_max)
         k = hb.trace_hier_kernel(rays, sup, blk, coeff, blk.shape[0], "closest")
@@ -882,6 +899,163 @@ def test_inst_kernel_l1_keys_across_warps(cuda, query):
         _same_instances(k, p)
     else:
         _same_occluded(k, p)
+
+
+# ---- the fused v7 (in-kernel cull) and the staged A-Trous pair ------------
+
+def _v7_entry_args(case):
+    """Arguments of the fused v7 entry with one defect each."""
+    gpu = _alpha_soup_scene(200)
+    rays = _ray_tiles(None, 3, "cpu")
+    args = dict(rays=rays, cl_min=gpu.pallas_cl_min, cl_max=gpu.pallas_cl_max,
+                coeff=gpu.pallas_panels, mode="closest", common=None, amask=None)
+    if case == "f64 rays":
+        args["rays"] = rays.double()
+    elif case == "cl_max shape":
+        args["cl_max"] = gpu.pallas_cl_max[:-4]
+    elif case == "amask dtype":
+        args["amask"] = gpu.pallas_amask.long()
+    elif case == "masked occlusion":
+        args.update(mode="occluded", amask=gpu.pallas_amask)
+    elif case == "over capacity":
+        # 32,769 blocks: the sorted keys' room (the next power of two, 128
+        # KB) and the staging buffers pass the 227 KB a CTA can hold.
+        n = 32769
+        args.update(coeff=torch.zeros((1, 12, 128)).expand(n, 12, 128),
+                    cl_min=torch.zeros((1, 3)).expand(4 * n, 3),
+                    cl_max=torch.zeros((1, 3)).expand(4 * n, 3))
+    return args
+
+
+@pytest.mark.parametrize("case,match", [("cpu tensors", "CUDA"), ("f64 rays", "float32"),
+                                        ("cl_max shape", "shape"), ("amask dtype", "int32"),
+                                        ("masked occlusion", "closest"),
+                                        ("over capacity", "shared memory")])
+def test_v7_entry_refuses_bad_inputs_before_any_build(monkeypatch, case, match):
+    """The fused v7 entry checks layouts, the block count's shared memory
+    and devices before it builds or launches anything."""
+    from realtimeraytracer_torch import kernels
+
+    def no_build(*a, **k):
+        raise AssertionError("the kernel was built or launched")
+
+    monkeypatch.setattr(kernels, "kernel", no_build)
+    monkeypatch.setattr(kernels, "build", no_build)
+    before = (v7.trace_blocks.launches, v7.trace_blocks.masked_launches)
+    with pytest.raises(ValueError, match=match):
+        v7.trace_v7_kernel(**_v7_entry_args(case))
+    assert (v7.trace_blocks.launches, v7.trace_blocks.masked_launches) == before
+
+
+def test_v7_entry_takes_32768_blocks():
+    """32,768 blocks (4.2M triangles) pass the capacity check, masked too;
+    one more does not: the refusal above is the capacity's."""
+    assert v7._v7_dynamic_smem(32768, True) <= v7._SMEM_LIMIT - v7._V7_STATIC_SMEM
+    assert v7._v7_dynamic_smem(32769, False) > v7._SMEM_LIMIT - v7._V7_STATIC_SMEM
+
+
+@pytest.mark.parametrize("mode,common,masked", [
+    ("closest", None, False), ("closest", "origin", False), ("occluded", None, False),
+    ("occluded", "dir", False), ("closest", None, True), ("closest", "origin", True)])
+def test_v7_ordered_loop_agrees_with_twin(mode, common, masked):
+    """trace_keys_ordered (the kernel's visit loop, which checks the fused
+    kernel's visit and pair rows on the card) finds the twin's hits, t, ids
+    and flags, in no more visits and pairs."""
+    gpu = _alpha_soup_scene(3000) if masked else _soup_scene(3000)
+    amask = gpu.pallas_amask if masked else None
+    rays = _ray_tiles(common, 5, "cpu", n=700)
+    keys, id_mask = v7.cull_keys(rays, gpu.pallas_cl_min, gpu.pallas_cl_max)
+    p = v7.trace_keys_plain(rays, keys, gpu.pallas_panels, id_mask, mode, common, amask)
+    o = v7.trace_keys_ordered(rays, keys, gpu.pallas_panels, id_mask, mode, common, amask)
+    assert torch.equal(o[0][:, 0], p[0][:, 0])
+    assert torch.equal(o[1][:, 0], p[1][:, 0])
+    assert (o[1][:, 1] <= p[1][:, 1]).all() and (o[1][:, 5] <= p[1][:, 5]).all()
+    assert o[1][:, 1].sum() > 0
+    assert (o[1][:, 5][rays[:, 6] > rays[:, 7]] == 0).all()
+
+
+def test_kernel_library_hash_covers_headers(tmp_path, monkeypatch):
+    """A library's name hashes its source and every csrc/ header, so an
+    edited header (tile_trace.cuh, shared by v7 and v9) is rebuilt, not
+    loaded stale."""
+    from realtimeraytracer_torch import kernels
+
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(kernels, "CSRC", tmp_path)
+    first = kernels.library_path("k")
+    assert kernels.library_path("k") == first
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert kernels.library_path("k") != first
+    assert kernels.library_path("k").name.startswith("k-")
+
+
+def test_atrous_kernel_refuses_step_zero():
+    with pytest.raises(ValueError, match="step"):
+        atrous_pair_iteration_kernel(*_denoise_data(8, 8, 0), 0, *PHIS)
+
+
+def _v7_case(case, device):
+    """(coeff, cl_min, cl_max, rays) of the fused v7 edge cases."""
+    if case == "8 pages":
+        # 7,200 blocks (keys on 8 pages of 1,024, 13 id bits); random rays
+        # with long windows make every block a candidate of every tile, so
+        # the keys take the bitonic network.
+        coeff, cl_min, cl_max = _panels(_lattice_tris(7200, 17), device)
+        return coeff, cl_min, cl_max, _ray_tiles(None, 18, device, n=1000, span=8.0)
+    coeff, cl_min, cl_max = _panels(_lattice_tris(300, 19), device)
+    rays = _pinhole_tiles(device, "origin", 20)
+    if case == "no block":
+        # The first half of the tiles look away from the lattice: their cull
+        # passes no block.
+        rays[: rays.shape[0] // 2, 3:6] *= -1.0
+    elif case == "zero entry":
+        # Rays from the lattice's far x face (all origins on it), looking
+        # in: the box entries of the blocks on that face are (+0 * -1) = -0
+        # before the +0.0.
+        r = np.random.default_rng(21)
+        n = 2048
+        o = np.stack([np.full(n, float(cl_max[:, 0].max())), r.uniform(-8, 8, n),
+                      r.uniform(-7.8, -6.2, n)], 1)
+        d = np.tile([-1.0, 0.0, 0.0], (n, 1))
+        to = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)  # noqa: E731
+        rays = v7._pack_rays(to(o), to(d), to(np.full(n, 1e-3)), to(np.full(n, 1e3)))[0]
+    return coeff, cl_min, cl_max, rays
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,mode", [("8 pages", "closest"), ("8 pages", "occluded"),
+                                       ("no block", "closest"), ("no block", "occluded"),
+                                       ("zero entry", "closest")])
+def test_v7_fused_cull_edge_cases(cuda, case, mode):
+    """Keys on 8 pages through the bitonic sort, tiles whose cull passes no
+    block, and -0 box entries: every row equals the plain cull followed by
+    the ordered loop."""
+    coeff, cl_min, cl_max, rays = _v7_case(case, cuda)
+    common = {"8 pages": None, "no block": "origin", "zero entry": "dir"}[case]
+    k = v7.trace_v7_kernel(rays, cl_min, cl_max, coeff, mode, common)
+    keys, _ = v7.cull_keys(rays, cl_min, cl_max)
+    n = (keys.reshape(rays.shape[0], -1) != v7.INVALID).sum(dim=1)
+    if case == "8 pages":
+        assert int(n.amin()) > 512
+    if case == "no block":
+        assert bool((n[: rays.shape[0] // 2] == 0).all()) and bool((n > 0).any())
+        assert bool((k[1][: rays.shape[0] // 2, 1] == 0).all())
+    if case == "zero entry":
+        assert bool((keys.reshape(rays.shape[0], -1)[:, 0] >= 0).all())
+    _same_v7(k, rays, cl_min, cl_max, coeff, mode, common)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step", [8, 31, 32, 40])
+def test_atrous_kernel_wide_steps(cuda, step):
+    """Steps from 8 up: one staged segment below 32, five column bands from
+    32 on, a single row residue per CTA above the image height."""
+    ins = [x.to(cuda) for x in _denoise_data(70, 150, 7)]
+    ks, ku = atrous_pair_iteration_kernel(*ins, step, *PHIS)
+    ps, pu = atrous_pair_iteration_plain(*ins, step, *PHIS)
+    torch.testing.assert_close(ks, ps, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(ku, pu, rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("name", sorted(__import__("realtimeraytracer_torch.kernels",

@@ -133,3 +133,21 @@ def test_cpu_wrapper_counts_no_launch(scenes_pair):
     before = v7.trace_blocks.launches
     v7.v7_closest(tscene, *(torch.from_numpy(x) for x in (o, d, tmin, tmax)))
     assert v7.trace_blocks.launches == before
+
+
+def test_cull_keys_zero_entries_are_positive():
+    """A bundle whose origin lies on a box's max-x face, looking in, has the
+    box entry (+0 * -1) = -0; the block key carries +0 (key = block id), not
+    the sign bit, which would make the key negative and its entry bits lower
+    than every ray's limit, empty lanes' included."""
+    cl_min = torch.zeros((4, 3))
+    cl_max = torch.ones((4, 3))
+    n = 128
+    o = torch.tensor([1.0, 0.5, 0.5]).expand(n, 3)
+    d = torch.tensor([-1.0, 0.0, 0.0]).expand(n, 3)
+    rays, _, _ = v7._pack_rays(o, d, torch.full((n,), 1e-3), torch.full((n,), 10.0))
+    ent = v7._sub_entries(rays, cl_min, cl_max)
+    assert bool((ent == 0).all()) and bool(torch.signbit(ent).all())   # CPU clamp_min keeps -0
+    keys, id_mask = v7.cull_keys(rays, cl_min, cl_max)
+    assert int(keys.reshape(-1)[0]) == 0
+    assert bool((keys >= 0).all())
