@@ -83,10 +83,13 @@ Phases, each of which ends the run with a non-zero exit on failure:
      against a fresh instanced compile at the moved transforms;
  21. the multi-segment occlusion kernel (hier_occluded_multi) on the area
      segments the frame traces toward light triangle 0: against its twin
-     for S = 1, 2, 3 and 8 (320x180), against three single v8 launches
-     (1080p, S = 3; also hint-chained, and on directions that straddle
-     zero), its time beside the three single traces', visits, work counts
-     and bound;
+     for S = 1, 2, 3 and 8 (320x180) and S = 8 (1080p), against three
+     single v8 launches (1080p, S = 3; also hint-chained, on directions
+     that straddle zero, and with every ray of every fifth tile inactive:
+     those tiles visit and pop nothing), the counting variant's results
+     equal to the timed one's (S = 3 and 8), its time beside the three
+     single traces', visits, work counts and bound; registers, spills and
+     shared memory of each S instantiation;
  22. the reference-default 1080p frame through the fused shadow query
      (v8's hier_occluded_multi wired into the default backend): launches,
      bit-equality with the default frame, both frame times, peak memory;
@@ -292,6 +295,24 @@ def atrous_bound(h: int, w: int, iterations: int) -> tuple[float, str]:
     4, accumulation 14), per pixel 8 in the normalization."""
     return bound(atrous_taps(h, w, iterations) * 67 + iterations * h * w * 8,
                  iterations * h * w * 72)
+
+
+def ptxas_usage(log: str) -> dict:
+    """Each entry function of an `nvcc -Xptxas -v` report: mangled name ->
+    {"registers", "spill" (bytes stored plus loaded), "smem" (static
+    bytes)}."""
+    usage: dict = {}
+    cur = None
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            cur = usage.setdefault(m.group(1), {"registers": 0, "spill": 0, "smem": 0})
+        elif cur is not None and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            cur["spill"] = int(m.group(1)) + int(m.group(2))
+        elif cur is not None and (m := re.search(r"Used (\d+) registers", line)):
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(sm.group(1)) if sm else 0
+    return usage
 
 
 def same_rows(k, o, what: str) -> None:
@@ -1381,6 +1402,32 @@ def main() -> int:
         hs_x.append(torch.where(active, hx, -3.0e38))
     kx = multi_kernel(o, ds_x, lo, hs_x)
     same_flags(kx, singles(o, ds_x, lo, hs_x), "[21] B4 vs three single launches, straddling directions")
+    # (d) every ray of every fifth tile inactive: those tiles visit and pop
+    # nothing, and the other tiles' flags stay the singles'.
+    dead = (torch.arange(o.shape[0], device=dev) // 128) % 5 == 0
+    lo_d = torch.where(dead, 3.0e38, lo)
+    hs_d = [torch.where(dead, -3.0e38, h) for h in hs]
+    kd = multi_kernel(o, ds, lo_d, hs_d)
+    same_flags(kd, singles(o, ds, lo_d, hs_d), "[21] B4 vs three single launches, every fifth tile inactive")
+    dead_t = dead.reshape(-1, 128)[:, 0]
+    require(not kd[0][dead_t].any() and not kd[1][dead_t, 0:2].any(),
+            "[21] B4: a tile with no active ray visited or popped")
+    say(f"  [21] {int(dead_t.sum())} all-inactive tiles: no visit, no pop; the other tiles "
+        f"{int(kd[1][~dead_t, 0, 0].sum())} visits")
+    # (e) S = 8 at 1080p against the twin, the counting variant beside it.
+    o8f, ds8f, lo8f, hs8f = frame_segments(W, H, 8)[0]
+    rays8, _ = v8.pack_rays_multi(o8f, ds8f, lo8f, hs8f)
+    k8 = v8.trace_hier_multi_kernel(rays8, sup, blk, hcoeff, nsup)
+    p8 = v8.trace_hier_multi_plain(rays8, sup, blk, hcoeff, nsup)
+    c8 = v8.trace_hier_multi_kernel(rays8, sup, blk, hcoeff, nsup, count=True)
+    diff8 = int((k8[0] != p8[0]).sum())
+    require(diff8 == 0, f"[21] B4 vs its twin, 1080p, S = 8: flags differ on {diff8} lanes")
+    require(torch.equal(c8[0], k8[0]) and torch.equal(c8[1][:, 0:2], k8[1][:, 0:2]),
+            "[21] B4, S = 8: the counting variant's results differ")
+    say(f"  [21] B4 vs its twin, 1080p light-0 segments, S = 8: {int(k8[0].sum())} occluded of "
+        f"{8 * rays8.shape[0] * 128} sample lanes, flags equal; counting variant equal")
+    multi_err = max(multi_err, float((k8[0] - p8[0]).abs().max()))
+    del p8, c8
 
     b4_ms, _ = median_ms(lambda: multi_kernel(o, ds, lo, hs), 10)
     one_ms, one = median_ms(lambda: singles(o, ds, lo, hs), 10)
@@ -1403,7 +1450,22 @@ def main() -> int:
         f"{chain_visits}; B4 sample tests {tests}, origin-family evaluations {fams}, hull slab tests "
         f"{hslabs}, per-sample slab tests {slabs}; the singles' pairs tested "
         f"{[int(x[1][:, 5].sum()) for x in one_c]}, slab tests {[int(x[1][:, 6].sum()) for x in one_c]}; "
-        f"B4 bound {b4_bound[0]:.4f} ms by {b4_bound[1]}")
+        f"B4 bound {b4_bound[0]:.4f} ms by {b4_bound[1]}, {b4_bound[0] / b4_ms:.1%} of it")
+    # Registers, spills and shared memory of each S instantiation (timed and
+    # counting), from this process's ptxas report (phase 2's build).
+    usage = ptxas_usage(kernels.build_log.get("trace_v8", ""))
+    multi_usage = {(int(m.group(1)), m.group(2) == "1"): u for e, u in usage.items()
+                   if (m := re.search(r"trace_v8_multi_kernelILi(\d+)ELb([01])E", e))}
+    if kernels.build_log.get("trace_v8"):
+        require(len(multi_usage) == 16, f"[21] {len(multi_usage)} B4 instantiations in the ptxas report")
+        for s_ in range(1, 9):
+            t_, c_ = multi_usage[(s_, False)], multi_usage[(s_, True)]
+            say(f"  [21] B4 S = {s_}: {t_['registers']} registers, {t_['spill']} bytes spilled, "
+                f"{t_['smem']} + {v8.multi_dynamic_smem(s_, nsup)} bytes shared (static + dynamic); "
+                f"counting: {c_['registers']} registers, {c_['spill']} bytes spilled, {c_['smem']} static")
+        require(all(u["spill"] == 0 for u in multi_usage.values()), "[21] a B4 instantiation spills")
+    else:
+        say("  [21] trace_v8 was not built in this process: no ptxas report")
 
     # ---- 22. the reference-default frame through the fused path --------------
     def fused(cfg_f, trace=v8.trace_blocks_hier_multi, plain=False):

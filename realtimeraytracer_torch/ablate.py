@@ -1,5 +1,5 @@
-"""Scratch copies of the package with one lever of the v7, v8, v9 or A-Trous
-design undone, for ablations on a GPU (times only; no copy is a
+"""Scratch copies of the package with one lever of the v7, v8 (B4 too), v9
+or A-Trous design undone, for ablations on a GPU (times only; no copy is a
 configuration of the package).
 
 No JAX counterpart.  ``python3 -m realtimeraytracer_torch.ablate <dir>
@@ -16,6 +16,21 @@ them is gone:
   stores instead of cp.async;
 - v8_all_rays: every lane counted live in the culls' compaction (the culls
   test retired and empty rays too, and a tile with no live ray still culls);
+  B4's culls too;
+- b4_sync_staging: B4 waits for every copy group, the prefetched next
+  block's and page's included, before each cull and visit (no copy
+  overlaps a test);
+- b4_branch_quotient: B4's sample test branches around its division where
+  |s1| <= EPS, as single v8's visit does, instead of dividing in every lane;
+- b4_five_ctas: B4 asks for 4 KB more shared memory, so five CTAs fit an
+  SM at S = 3 instead of six;
+- b4_test_twice: B4 runs each visit's transposed test twice (the same
+  results: the difference in time is the test's share);
+- b4_no_skip: B4 waits for and tests a block that no sample's slab test
+  passes (a visit over no active ray);
+- b4_per_ray_visit: B4's visit tests one ray a thread, each walking the
+  staged block's 128 triangles while a sample is to do (the design before
+  the transposed visit), behind the same culls, staging and skip;
 - sync_staging: v7's blocks and v9's composites copied by plain loads
   instead of cp.async (tile_trace.cuh, which both include);
 - v7_prologue_only, v9_prologue_only: the kernel runs its cull and sort
@@ -39,13 +54,13 @@ PKG = Path(__file__).resolve().parent
 # name -> (source, [(stretch, replacement), ...])
 VARIANTS = {
     "v8_bitonic_l2": ("trace_v8.cu", [(
-        """    l2in[lane] = k2own;
-    __syncthreads();
-    l2keys[rank_of(l2in, SUP, k2own)] = k2own;
-    __syncthreads();""",
-        """    l2keys[lane] = k2own;
-    __syncthreads();
-    bitonic_sort(l2keys, SUP);""")]),
+        """  in[lane] = own;
+  __syncthreads();
+  keys[rank_of(in, SUP, own)] = own;
+  __syncthreads();""",
+        """  keys[lane] = own;
+  __syncthreads();
+  bitonic_sort(keys, SUP);""")]),
     "v8_sync_staging": ("trace_v8.cu", [(
         """  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\\n" ::"r"(s), "l"(src) : "memory");""",
@@ -54,6 +69,62 @@ VARIANTS = {
         """  const unsigned m = __ballot_sync(FULL, live);""",
         """  live = true;
   const unsigned m = __ballot_sync(FULL, live);""")]),
+    "b4_sync_staging": ("trace_v8.cu", [(
+        """    if (pre) cp_async_wait<1>(); else cp_async_wait<0>();
+    const int live2 = compact_live(L, tmin <= lim);""",
+        """    cp_async_wait<0>();
+    const int live2 = compact_live(L, tmin <= lim);"""), (
+        """      visit_multi<S, COUNT>(coefb[cbuf], bpre, page, b,""",
+        """      cp_async_wait<0>();
+      visit_multi<S, COUNT>(coefb[cbuf], false, page, b,""")]),
+    "b4_branch_quotient": ("trace_v8.cu", [(
+        """        const float q = (-s0) / s1;       // every lane: a branch around it costs more
+        const float t = den_ok ? q : BIG;""",
+        """        const float t = den_ok ? (-s0) / s1 : BIG;""")]),
+    "b4_five_ctas": ("trace_v8.cu", [(
+        """  const size_t smem = s_count * sizeof(Samples<1>) + (size_t)cap1 * sizeof(int);""",
+        """  const size_t smem = s_count * sizeof(Samples<1>) + (size_t)cap1 * sizeof(int) + 4096;""")]),
+    "b4_test_twice": ("trace_v8.cu", [(
+        """  test_block<S, COUNT>(coef, T, P, L, V);
+  __syncthreads();                          // the warps' votes""",
+        """  test_block<S, COUNT>(coef, T, P, L, V);
+  test_block<S, COUNT>(coef, T, P, L, V);
+  __syncthreads();                          // the warps' votes""")]),
+    "b4_no_skip": ("trace_v8.cu", [(
+        """  if (active == 0) return;                  // no sample needs the block
+""", "")]),
+    "b4_per_ray_visit": ("trace_v8.cu", [(
+        """  test_block<S, COUNT>(coef, T, P, L, V);
+  __syncthreads();                          // the warps' votes
+  if (todo) retire<S, COUNT>(V, slot, todo, P, occ, lim, tests, fams);""",
+        """  const float* cf = coef;
+  for (int j = 0; j < TILE && todo; ++j) {
+    const float s0 = ((o[0] * cf[j] + o[1] * cf[TILE + j]) + o[2] * cf[2 * TILE + j]) +
+                     cf[3 * TILE + j];
+    const float ou = ((o[0] * cf[4 * TILE + j] + o[1] * cf[5 * TILE + j]) +
+                      o[2] * cf[6 * TILE + j]) + cf[7 * TILE + j];
+    const float ov = ((o[0] * cf[8 * TILE + j] + o[1] * cf[9 * TILE + j]) +
+                      o[2] * cf[10 * TILE + j]) + cf[11 * TILE + j];
+    if (COUNT) ++fams;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      if (!((todo >> s) & 1u)) continue;
+      if (COUNT) ++tests;
+      const float4 dt = P.dt[s][lane];
+      const float s1 = (dt.x * cf[j] + dt.y * cf[TILE + j]) + dt.z * cf[2 * TILE + j];
+      const float du = (dt.x * cf[4 * TILE + j] + dt.y * cf[5 * TILE + j]) + dt.z * cf[6 * TILE + j];
+      const float dv = (dt.x * cf[8 * TILE + j] + dt.y * cf[9 * TILE + j]) + dt.z * cf[10 * TILE + j];
+      const bool den_ok = fabsf(s1) > EPS;
+      const float t = den_ok ? (-s0) / s1 : BIG;
+      const float u = ou + t * du;
+      const float v = ov + t * dv;
+      if (den_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t >= tmin && t <= dt.w) {
+        todo &= ~(1u << s);
+        occ |= 1u << s;
+      }
+    }
+  }
+  lim = live_limit<S>(P, lane, occ);""")]),
     "sync_staging": ("tile_trace.cuh", [(
         """  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\\n" ::"r"(s), "l"(src),

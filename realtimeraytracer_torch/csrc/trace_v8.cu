@@ -147,33 +147,59 @@
 // sample tests (each sample up to its first hit), row 6 = origin-family
 // evaluations (one per triangle a ray reaches at a visit), row 7 = the
 // per-sample slab tests at visits.
-//   Design.  One thread per ray; its origin, t_min and the S directions,
-//   inverse directions and t_hi sit in registers (S is a template
-//   parameter).  The culls use the ray's direction hull: per axis the
-//   interval [min_s d, max_s d]; a sign-definite one (lo > EPS or hi < -EPS)
-//   inverts to [1/hi, 1/lo], one that straddles zero passes the axis, and
-//   the slab takes the min and max of (p - o) times both ends.  Division and
-//   multiplication round monotonically, so every sample's own slab interval
-//   lies inside the hull's: a hull entry is a lower bound for every sample
-//   and v8's stop rules stay exact.  A ray's live limit is the greatest t_hi
-//   of its samples not yet occluded (-3e38 when none is left: retired).  At
-//   a visit each live sample slab-tests the block with its own inverse
-//   direction under its own window, as the single kernel's per-visit test
-//   does.  Each trace then reaches every block whose slab test passes for
-//   the sample until the sample is occluded and tests no other, so both
-//   flags are the same any-hit over the same blocks.  Per triangle the
-//   origin family (s0, ou, ov) is computed once, then each sample still
-//   untested in this block pays its direction dots and accept test; a sample
-//   retires at its first hit.  One thread per ray means a retired sample or
-//   ray skips its math without holding its neighbours, which the TPU's
-//   128-lane blocks could not do (there the fused trace lost to three
-//   single ones).
+//   Design: single v8's, per (ray, sample).  The S directions, inverse
+//   directions and t_hi sit in shared memory (dynamic, 28 bytes a ray and
+//   sample: 28 KB at S = 8, so the launch opts in per S), the origin and
+//   the occluded mask in the ray's thread.  The culls use the ray's
+//   direction hull: per axis the interval [min_s d, max_s d]; a
+//   sign-definite one (lo > EPS or hi < -EPS) inverts to [1/hi, 1/lo], one
+//   that straddles zero passes the axis, and the slab takes the min and max
+//   of (p - o) times both ends.  Division and multiplication round
+//   monotonically, so every sample's own slab interval lies inside the
+//   hull's: a hull entry is a lower bound for every sample and the stop
+//   rules stay exact.  A ray's live limit is the greatest t_hi of its
+//   samples not yet occluded (-3e38 when none is left: retired).
+//     Live rays: before each cull the rays whose window [t_min, limit] is
+//     not empty are compacted (compact_live); both culls loop over that
+//     list only (box_min_entries, l1_keys), and a tile with no live ray
+//     skips the traversal.  Both levels sort by rank (sort_keys, sort_l2);
+//     the stop rule is one __syncthreads_or per key.
+//     Staging: blocks and blk pages are double-buffered with cp.async as in
+//     single v8 (block j + 1 in flight while block j is tested, the next L1
+//     key's page while this super is culled); a prefetch the stop rule
+//     makes needless is dropped.  The CTA's shared memory is kept to six
+//     CTAs an SM at S = 3 (one vote word per active slot, ORed by the
+//     warps; no padding in the hull tile): the visit's test loop is most
+//     of the time, and it runs faster with more warps to hide its latency.
+//     Visit: each live sample of each ray slab-tests the block with its own
+//     inverse direction under [t_min, t_hi_s], as the single kernel's
+//     per-visit test does; the rays with a sample that passes are compacted
+//     with their samples to do.  If none passes, the block is neither
+//     waited for nor tested (the visit still counts).  Otherwise the visit
+//     is transposed: thread j holds triangle j's coefficients and the CTA
+//     walks the active rays; per ray each thread computes the origin family
+//     (s0, ou, ov) once, then each sample to do pays its direction dots and
+//     accept test, and each warp votes once per sample.  A sample hit
+//     anywhere in the block is occluded for the whole CTA (the warps' votes
+//     ORed into the ray's mask).  Any-hit flags do not depend on the order
+//     of the tests, so each sample's flag is the any-hit over the blocks
+//     its slab test passes until it is occluded: that of a single trace.
 //   What bounds it: f32 operations, 29 per sample test (three direction
 //   dots 15, |s1| > eps 2, t 2, u and v 4, u + v 1, five compares), 18 per
 //   origin-family evaluation (three origin dots), 45 per hull slab test (per
 //   axis two subtractions, four multiplications and six min/max, then the
 //   near/far combine 4, four compares and max(near, 0)) and 27 per
-//   per-sample slab test.
+//   per-sample slab test.  The work counts are those of a ray walking each
+//   block's triangles in order until its samples are done: a sample test
+//   counts up to the sample's first hit in lane order, the origin family up
+//   to the last of those; the transposed visit tests all 128 triangles of
+//   the block for each sample to do, which the counts leave out.  What held
+//   the design before this one far from the bound (18.6 ms against 2.26 ms
+//   on 1080p light-0 segments, S = 3; NVIDIA H100 80GB HBM3, 700 W) was
+//   SIMT: one thread per ray walked the 128 triangles, so a warp paid the
+//   whole loop whenever one of its rays had a sample to do, and every
+//   block was staged synchronously and visited under a barrier even when
+//   no sample needed it.  Times and ablations: PERF.md.
 //
 // Numerics: -fmad=false, the same expressions and order as the plain twins
 // (render/hier_backend.py::trace_hier_plain, trace_hier_inst_plain; the
@@ -201,18 +227,6 @@ constexpr int BLK_BITS = 7;           // block-in-super id bits of L2 keys
 enum Mode { CLOSEST = 0, OCCLUDED = 1 };
 enum Common { COMMON_NONE = 0, COMMON_ORIGIN = 1, COMMON_DIR = 2 };
 
-__device__ __forceinline__ float dot_o(const float* c, int base, int j,
-                                      float x, float y, float z) {
-  return ((x * c[(base + 0) * TILE + j] + y * c[(base + 1) * TILE + j]) +
-          z * c[(base + 2) * TILE + j]) + c[(base + 3) * TILE + j];
-}
-
-__device__ __forceinline__ float dot_d(const float* c, int base, int j,
-                                      float x, float y, float z) {
-  return (x * c[(base + 0) * TILE + j] + y * c[(base + 1) * TILE + j]) +
-         z * c[(base + 2) * TILE + j];
-}
-
 // Slab test of one ray against box (lo, hi) with window [tmin, limit]:
 // returns max(near, 0), or +inf if the ray's window misses the box.
 // fl: bit a set where |d_a| <= EPS (the axis passes every slab).
@@ -231,6 +245,33 @@ __device__ __forceinline__ float slab_entry(const float* lo, const float* hi,
       const float t1 = (hi[a] - o[a]) * inv[a];
       na = fminf(t0, t1);
       fa = fmaxf(t0, t1);
+    }
+    near = a == 0 ? na : fmaxf(near, na);
+    far = a == 0 ? fa : fminf(far, fa);
+  }
+  const bool ok = lo[0] <= hi[0] && near <= far && far >= tmin && near <= limit;
+  return ok ? fmaxf(near, 0.0f) : __int_as_float(INVALID);
+}
+
+// slab_entry for every direction of a ray's direction hull (MULTI): the
+// interval of (p - o) times [ilo, ihi] per axis; fl's axes (the hull
+// straddles zero) pass every slab.
+__device__ __forceinline__ float hull_entry(const float* lo, const float* hi, const float* o,
+                                           const float* ilo, const float* ihi, int fl,
+                                           float tmin, float limit) {
+  float near = 0.0f, far = 0.0f;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    float na, fa;
+    if (fl & (1 << a)) {
+      na = -BIG;
+      fa = BIG;
+    } else {
+      const float s0 = lo[a] - o[a], s1 = hi[a] - o[a];
+      const float p0 = s0 * ilo[a], q0 = s0 * ihi[a];
+      const float p1 = s1 * ilo[a], q1 = s1 * ihi[a];
+      na = fminf(fminf(p0, q0), fminf(p1, q1));
+      fa = fmaxf(fmaxf(p0, q0), fmaxf(p1, q1));
     }
     near = a == 0 ? na : fmaxf(near, na);
     far = a == 0 ? fa : fminf(far, fa);
@@ -259,21 +300,45 @@ __device__ __forceinline__ void bitonic_sort(int* s, int p) {
   }
 }
 
-// A barrier; with COUNT, also the number of the CTA's threads whose
-// predicate holds.
-template <bool COUNT>
-__device__ __forceinline__ int live_count(bool pred) {
-  if (COUNT) return __syncthreads_count(pred);
-  __syncthreads();
-  return 0;
-}
-
 // The tile's rays as the culls read them, one ray per slot: [o.xyz |
 // t_min], [guarded inverse direction | the live window's upper end,
-// refreshed per cull], parallel-axis bits.
+// refreshed per cull], parallel-axis bits.  get(r) reads ray r, whose
+// entry(lo, hi) is its slab test against a box.
 struct Tile {
   float4 ray[TILE][2];
   int fl[TILE];
+  struct Ray {
+    float4 a, b;
+    int fl;
+    __device__ __forceinline__ float entry(const float* lo, const float* hi) const {
+      const float o[3] = {a.x, a.y, a.z};
+      const float inv[3] = {b.x, b.y, b.z};
+      return slab_entry(lo, hi, o, inv, fl, a.w, b.w);
+    }
+  };
+  __device__ __forceinline__ Ray get(int r) const { return {ray[r][0], ray[r][1], fl[r]}; }
+};
+
+// The multi-segment kernel's rays as its culls read them: [o.xyz | t_min],
+// [inverse hull lo.xyz | the live limit, refreshed per cull], the inverse
+// hull's hi ends, the hull's straddle bits; entry(lo, hi) is hull_entry.
+struct HullTile {
+  float4 ray[TILE][2];
+  float ihi[3][TILE];
+  int fl[TILE];
+  struct Ray {
+    float4 a, b;
+    float ihi[3];
+    int fl;
+    __device__ __forceinline__ float entry(const float* lo, const float* hi) const {
+      const float o[3] = {a.x, a.y, a.z};
+      const float ilo[3] = {b.x, b.y, b.z};
+      return hull_entry(lo, hi, o, ilo, ihi, fl, a.w, b.w);
+    }
+  };
+  __device__ __forceinline__ Ray get(int r) const {
+    return {ray[r][0], ray[r][1], {ihi[0][r], ihi[1][r], ihi[2][r]}, fl[r]};
+  }
 };
 
 // The instanced kernel's shared state (INST only).
@@ -356,17 +421,18 @@ __device__ __forceinline__ int compact_live(Live& L, bool live) {
   return n;
 }
 
-// Least entries over the tile's live rays (the compacted list; the other
-// rays' windows are empty) of NB boxes (lane b[i] of the (8, 128) box page
-// page[i]; boxes i >= nbox are skipped), +inf bits where no live window
-// overlaps a box.  Each ray is read once for the NB boxes, and the NB slab
-// tests are independent; each box still takes its minimum over the rays
-// in list order.  A valid box adds `nlive` to this thread's slab count.
-template <int NB, bool COUNT>
-__device__ __forceinline__ void box_min_entries(const Tile& T, const Live& L, int nlive,
+// Least entries over the tile's live rays (the compacted list of ray slots
+// of T, a Tile or a HullTile; the other rays' windows are empty) of NB
+// boxes (lane b[i] of the (8, 128) box page page[i]; boxes i >= nbox are
+// skipped), +inf bits where no live window overlaps a box.  Each ray is
+// read once for the NB boxes, and the NB slab tests are independent; each
+// box still takes its minimum over the rays in list order.  A valid box
+// adds `nlive` to *slabs (COUNT).
+template <int NB, bool COUNT, class RayTile>
+__device__ __forceinline__ void box_min_entries(const RayTile& T, const Live& L, int nlive,
                                                 const float* const (&page)[NB],
                                                 const int (&b)[NB], int nbox,
-                                                float (&emin)[NB], int* work) {
+                                                float (&emin)[NB], int* slabs) {
   float lo[NB][3], hi[NB][3];
   bool ok[NB];
   bool any = false;
@@ -381,7 +447,7 @@ __device__ __forceinline__ void box_min_entries(const Tile& T, const Live& L, in
         hi[i][a] = page[i][(3 + a) * TILE + b[i]];
       }
       ok[i] = lo[i][0] <= hi[i][0];
-      if (COUNT && ok[i]) work[TILE + threadIdx.x] += nlive;
+      if (COUNT && ok[i]) *slabs += nlive;
     }
     any |= ok[i];
   }
@@ -390,14 +456,46 @@ __device__ __forceinline__ void box_min_entries(const Tile& T, const Live& L, in
   for (int w = 0; w < WARPS; ++w) {
     const int c = L.cnt[w];
     for (int k = 0; k < c; ++k) {
-      const int r = L.list[32 * w + k];
-      const float4 ra = T.ray[r][0], rb = T.ray[r][1];
-      const int f = T.fl[r];
-      const float o[3] = {ra.x, ra.y, ra.z};
-      const float inv[3] = {rb.x, rb.y, rb.z};
+      const typename RayTile::Ray ray = T.get(L.list[32 * w + k]);
 #pragma unroll
       for (int i = 0; i < NB; ++i)
-        if (ok[i]) emin[i] = fminf(emin[i], slab_entry(lo[i], hi[i], o, inv, f, ra.w, rb.w));
+        if (ok[i]) emin[i] = fminf(emin[i], ray.entry(lo[i], hi[i]));
+    }
+  }
+}
+
+// L1 keys of the tile's live rays: the least entry of each of the nsup
+// boxes of the (8, 128) pages `sup` (page-major), four a thread per pass
+// (s = base + 128 i + lane), as (entry bits & ~l1_mask) | s, appended to
+// keys with one atomic per warp on `count` (the order is sorted away).
+// Every thread of the CTA calls it.
+template <bool COUNT, class RayTile>
+__device__ __forceinline__ void l1_keys(const RayTile& T, const Live& L, int nlive,
+                                        const float* __restrict__ sup, int nsup, int l1_mask,
+                                        int* keys, int& count, int* slabs) {
+  const int lane = threadIdx.x;
+  for (int base = 0; base < nsup; base += 4 * TILE) {
+    const float* pg[4];
+    int bl[4];
+    float e[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      pg[i] = sup + (size_t)(base / TILE + i) * 8 * TILE;
+      bl[i] = lane;
+    }
+    const int nbox = min(4, (nsup - base - lane + TILE - 1) / TILE);
+    box_min_entries<4, COUNT>(T, L, nlive, pg, bl, nbox, e, slabs);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int s = base + i * TILE + lane;
+      const int key = i < nbox && __float_as_int(e[i]) != INVALID
+                          ? (__float_as_int(e[i]) & ~l1_mask) | s
+                          : INVALID;
+      const unsigned m = __ballot_sync(FULL, key != INVALID);
+      int at = 0;
+      if ((lane & 31) == 0 && m) at = atomicAdd(&count, __popc(m));
+      at = __shfl_sync(FULL, at, 0);
+      if (key != INVALID) keys[at + __popc(m & ((1u << (lane & 31)) - 1u))] = key;
     }
   }
 }
@@ -447,6 +545,23 @@ __device__ __forceinline__ void sort_keys(int* s, int n) {
   for (int k = n + lane; k < p; k += TILE) s[k] = KEY_PAD;
   __syncthreads();
   bitonic_sort(s, p);
+}
+
+// The 128 block keys of a popped super, sorted ascending into `keys` (`in`:
+// 16-byte aligned scratch).  This thread's block entry e becomes (entry
+// bits with the block bits cleared) | block, or INVALID + block where no
+// live window overlaps the block (after every key).  The keys are unique,
+// so each thread scatters its own to its rank: two barriers where a
+// bitonic network takes 28.  Every thread of the CTA calls it.
+__device__ __forceinline__ void sort_l2(float e, int* in, int* keys) {
+  const int lane = threadIdx.x;
+  const int own = __float_as_int(e) == INVALID
+                      ? INVALID + lane
+                      : (__float_as_int(e) & ~((1 << BLK_BITS) - 1)) | lane;
+  in[lane] = own;
+  __syncthreads();
+  keys[rank_of(in, SUP, own)] = own;
+  __syncthreads();
 }
 
 // The alpha-mask bit of this thread's triangle at barycentrics (u, v): m0
@@ -686,35 +801,9 @@ __global__ void __launch_bounds__(TILE, MIN_CTAS) trace_v8_kernel(
   if (hn > 0) __syncthreads();      // the hint visits' last reads of V
   if (lane == 0) count = 0;
   publish_ray(o, inv, fl);
+  int* slabs = &work[COUNT ? TILE + lane : 0];      // this thread's slab tests (COUNT)
   const int live1 = compact_live(L, tmin <= fminf(best_t, tmax));
-  if (live1 > 0) {
-    // Four boxes a thread per pass: s = base + 128 i + lane.
-    for (int base = 0; base < nsup; base += 4 * TILE) {
-      const float* pg[4];
-      int bl[4];
-      float e[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pg[i] = sup + (size_t)(base / TILE + i) * 8 * TILE;
-        bl[i] = lane;
-      }
-      const int nbox = min(4, (nsup - base - lane + TILE - 1) / TILE);
-      box_min_entries<4, COUNT>(T, L, live1, pg, bl, nbox, e, work);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int s = base + i * TILE + lane;
-        const int key = i < nbox && __float_as_int(e[i]) != INVALID
-                            ? (__float_as_int(e[i]) & ~l1_mask) | s
-                            : INVALID;
-        // Append this warp's keys with one atomic (the order is sorted away).
-        const unsigned m = __ballot_sync(FULL, key != INVALID);
-        int at = 0;
-        if ((lane & 31) == 0 && m) at = atomicAdd(&count, __popc(m));
-        at = __shfl_sync(FULL, at, 0);
-        if (key != INVALID) l1keys[at + __popc(m & ((1u << (lane & 31)) - 1u))] = key;
-      }
-    }
-  }
+  if (live1 > 0) l1_keys<COUNT>(T, L, live1, sup, nsup, l1_mask, l1keys, count, slabs);
   __syncthreads();
   const int n1 = count;
   sort_keys(l1keys, n1);
@@ -773,18 +862,10 @@ __global__ void __launch_bounds__(TILE, MIN_CTAS) trace_v8_kernel(
       const float* pg[1] = {page};
       const int bl[1] = {lane};
       float e1[1];
-      box_min_entries<1, COUNT>(T, L, live2, pg, bl, 1, e1, work);
+      box_min_entries<1, COUNT>(T, L, live2, pg, bl, 1, e1, slabs);
       e = e1[0];
     }
-    // Sort the 128 block keys: each thread ranks its own (unique: the block
-    // in the low bits; no candidate = INVALID + lane, after every key).
-    const int k2own = __float_as_int(e) == INVALID
-                          ? INVALID + lane
-                          : (__float_as_int(e) & ~((1 << BLK_BITS) - 1)) | lane;
-    l2in[lane] = k2own;
-    __syncthreads();
-    l2keys[rank_of(l2in, SUP, k2own)] = k2own;
-    __syncthreads();
+    sort_l2(e, l2in, l2keys);
     for (int j = 0; j < SUP; ++j) {
       const int k2 = l2keys[j];
       if (k2 >= INVALID) break;                      // uniform: shared read
@@ -911,93 +992,137 @@ int launch(TraceFn fn, const void* rays, const void* sup,
 
 constexpr int MAX_SEGMENTS = 8;
 
-// The multi-segment kernel's shared ray state: origins, the inverse of each
-// ray's direction hull, its straddle bits, t_min and the live limits.
-struct HullTile {
-  float o[3][TILE];
-  float ilo[3][TILE];
-  float ihi[3][TILE];
-  int fl[TILE];          // bit a set where the hull's axis a straddles zero
-  float tmin[TILE];
-  float limit[TILE];
+// The tile's samples, sample-major, in dynamic shared memory (sized per S):
+// dt[s][r] = [d.xyz | t_hi] of sample s of ray r, inv[s][a][r] its guarded
+// inverse direction.  A ray's thread reads its own column; the visit's
+// threads read one active ray's column together (a broadcast).
+template <int S>
+struct Samples {
+  float4 dt[S][TILE];
+  float inv[S][3][TILE];
+};
+static_assert(sizeof(Samples<MAX_SEGMENTS>) == MAX_SEGMENTS * sizeof(Samples<1>),
+              "the launch sizes the samples as S times one sample's room");
+
+// A visit's results per active slot: the samples some triangle of the
+// block hits (the warps' votes ORed), and (COUNT) per warp and sample the
+// warp's first hitting lane (32: none).
+template <int S, bool COUNT>
+struct MultiVisit {
+  unsigned hit[TILE];
+  unsigned char first[COUNT ? WARPS : 1][TILE][S];
 };
 
-// slab_entry for every direction of a ray's hull: the interval of (p - o)
-// times [ilo, ihi] per axis; fl's axes pass every slab.
-__device__ __forceinline__ float hull_entry(const float* lo, const float* hi, const float* o,
-                                           const float* ilo, const float* ihi, int fl,
-                                           float tmin, float limit) {
-  float near = 0.0f, far = 0.0f;
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    float na, fa;
-    if (fl & (1 << a)) {
-      na = -BIG;
-      fa = BIG;
-    } else {
-      const float s0 = lo[a] - o[a], s1 = hi[a] - o[a];
-      const float p0 = s0 * ilo[a], q0 = s0 * ihi[a];
-      const float p1 = s1 * ilo[a], q1 = s1 * ihi[a];
-      na = fminf(fminf(p0, q0), fminf(p1, q1));
-      fa = fmaxf(fmaxf(p0, q0), fmaxf(p1, q1));
-    }
-    near = a == 0 ? na : fmaxf(near, na);
-    far = a == 0 ? fa : fminf(far, fa);
-  }
-  const bool ok = lo[0] <= hi[0] && near <= far && far >= tmin && near <= limit;
-  return ok ? fmaxf(near, 0.0f) : __int_as_float(INVALID);
-}
-
-// box_min_entry under the rays' hulls.  A valid box adds `live` to this
-// thread's hull slab count.
-template <bool COUNT>
-__device__ __forceinline__ float hull_min_entry(const HullTile& T, const float* page, int b,
-                                               int live, int& hslabs) {
-  float lo[3], hi[3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    lo[a] = page[a * TILE + b];
-    hi[a] = page[(3 + a) * TILE + b];
-  }
-  float emin = __int_as_float(INVALID);
-  if (!(lo[0] <= hi[0])) return emin;
-  if (COUNT) hslabs += live;
-  for (int r = 0; r < TILE; ++r) {
-    const float o[3] = {T.o[0][r], T.o[1][r], T.o[2][r]};
-    const float ilo[3] = {T.ilo[0][r], T.ilo[1][r], T.ilo[2][r]};
-    const float ihi[3] = {T.ihi[0][r], T.ihi[1][r], T.ihi[2][r]};
-    emin = fminf(emin, hull_entry(lo, hi, o, ilo, ihi, T.fl[r], T.tmin[r], T.limit[r]));
-  }
-  return emin;
-}
-
-// The greatest t_hi over the samples not yet occluded, -BIG if none is left.
+// The greatest t_hi over ray r's samples not yet occluded, -BIG if none is
+// left: the ray's live limit.
 template <int S>
-__device__ __forceinline__ float live_limit(const float (&thi)[S], unsigned occ) {
+__device__ __forceinline__ float live_limit(const Samples<S>& P, int r, unsigned occ) {
   float lim = -BIG;
 #pragma unroll
   for (int s = 0; s < S; ++s)
-    if (!((occ >> s) & 1u)) lim = fmaxf(lim, thi[s]);
+    if (!((occ >> s) & 1u)) lim = fmaxf(lim, P.dt[s][r].w);
   return lim;
 }
 
-// One block visit for S samples: stage the coefficients; each live sample
-// slab-tests the block box (lane b of `page`) with its own inverse direction
-// (axis bits 3s..3s+2 of sfl) under [tmin, thi_s]; those that pass test the
-// block's triangles, sharing the origin family per triangle.  Every thread
-// of the CTA calls it (it holds a barrier).
+// The transposed test of a staged block (coef, published) against the
+// visit's active rays (L: slot values ray | samples to do << 8): thread j
+// holds triangle j's coefficients in registers and the CTA walks the active
+// rays together.  Per ray each thread computes the origin family (s0, ou,
+// ov) once, then the direction dots and the accept test of each sample to
+// do, and each warp votes once per sample.  The pair arithmetic is the
+// twin's, in its order.
+template <int S, bool COUNT>
+__device__ __forceinline__ void test_block(const float* coef, const HullTile& T,
+                                           const Samples<S>& P, const Live& L,
+                                           MultiVisit<S, COUNT>& V) {
+  const int lane = threadIdx.x;
+  const int warp = lane >> 5;
+  float c[CROWS];
+#pragma unroll
+  for (int r = 0; r < CROWS; ++r) c[r] = coef[r * TILE + lane];
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) {
+    const int n = L.cnt[w];
+    for (int k = 0; k < n; ++k) {
+      const int sl = 32 * w + k;
+      const int at = L.list[sl];
+      const int r = at & (TILE - 1);
+      const unsigned todo = static_cast<unsigned>(at) >> 8;
+      const float4 ra = T.ray[r][0];                      // o.xyz | t_min
+      const float s0 = ((ra.x * c[0] + ra.y * c[1]) + ra.z * c[2]) + c[3];
+      const float ou = ((ra.x * c[4] + ra.y * c[5]) + ra.z * c[6]) + c[7];
+      const float ov = ((ra.x * c[8] + ra.y * c[9]) + ra.z * c[10]) + c[11];
+      unsigned hit = 0;
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        if (!((todo >> s) & 1u)) continue;                // uniform: a shared read
+        const float4 dt = P.dt[s][r];                     // d.xyz | t_hi
+        const float s1 = (dt.x * c[0] + dt.y * c[1]) + dt.z * c[2];
+        const float du = (dt.x * c[4] + dt.y * c[5]) + dt.z * c[6];
+        const float dv = (dt.x * c[8] + dt.y * c[9]) + dt.z * c[10];
+        const bool den_ok = fabsf(s1) > EPS;
+        const float q = (-s0) / s1;       // every lane: a branch around it costs more
+        const float t = den_ok ? q : BIG;
+        const float u = ou + t * du;
+        const float v = ov + t * dv;
+        const bool ok = den_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t >= ra.w &&
+                        t <= dt.w;
+        if (COUNT) {
+          const unsigned h = __ballot_sync(FULL, ok);
+          hit |= static_cast<unsigned>(h != 0u) << s;
+          if ((lane & 31) == 0) V.first[warp][sl][s] = h ? __ffs(h) - 1 : 32;
+        } else {
+          hit |= static_cast<unsigned>(__any_sync(FULL, ok)) << s;
+        }
+      }
+      if ((lane & 31) == 0 && hit) atomicOr(&V.hit[sl], hit);
+    }
+  }
+}
+
+// Folds a visit's warp votes into this thread's ray (slot: its active
+// slot; todo: its samples tested): a sample hit anywhere in the block is
+// occluded.  COUNT: each sample tested counts the triangles up to its first
+// hit in lane order (all 128 if none), and the origin family counts the
+// triangles up to the last of those (the work of a ray walking the block's
+// triangles in order until its samples are done).
+template <int S, bool COUNT>
+__device__ __forceinline__ void retire(const MultiVisit<S, COUNT>& V, int slot, unsigned todo,
+                                       const Samples<S>& P, unsigned& occ, float& lim,
+                                       int& tests, int& fams) {
+  occ |= V.hit[slot];
+  lim = live_limit<S>(P, threadIdx.x, occ);
+  if (COUNT) {
+    int last = 0;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      if (!((todo >> s) & 1u)) continue;
+      int f = TILE;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w)
+        if (V.first[w][slot][s] < 32) f = min(f, 32 * w + V.first[w][slot][s]);
+      const int n = f < TILE ? f + 1 : TILE;
+      tests += n;
+      last = max(last, n);
+    }
+    fams += last;
+  }
+}
+
+// One block visit (coef: the block's buffer, its copy group committed;
+// pre: a later group was committed after it; page: the staged blk page,
+// lane b the block's box).  Each live sample of this thread's ray
+// slab-tests the block with its own inverse direction under [t_min,
+// t_hi_s]; the rays with a sample that passes are compacted with the
+// samples to do.  A block that no sample passes is neither waited for nor
+// tested; otherwise test_block and retire.  Every thread of the CTA calls
+// it.
 template <int S, bool COUNT>
 __device__ __forceinline__ void visit_multi(
-    int cid, const float* __restrict__ coeff, const float* __restrict__ page, int b,
-    float* coef, const float (&o)[3], const float (&d)[S][3], const float (&inv)[S][3],
-    int sfl, const float (&thi)[S], float tmin, unsigned& occ, int& visits, int& tests,
-    int& fams, int& slabs) {
+    const float* coef, bool pre, const float* page, int b, const HullTile& T,
+    const Samples<S>& P, Live& L, MultiVisit<S, COUNT>& V, const float (&o)[3], float tmin,
+    int sfl, unsigned& occ, float& lim, int& visits, int& tests, int& fams, int& slabs) {
   const int lane = threadIdx.x;
-  const float* cg = coeff + (size_t)cid * CROWS * TILE;
-#pragma unroll
-  for (int row = 0; row < CROWS; ++row)
-    coef[row * TILE + lane] = cg[row * TILE + lane];
-  __syncthreads();
   ++visits;
   float lo[3], hi[3];
 #pragma unroll
@@ -1008,34 +1133,30 @@ __device__ __forceinline__ void visit_multi(
   unsigned todo = 0;
 #pragma unroll
   for (int s = 0; s < S; ++s) {
-    if (((occ >> s) & 1u) || !(tmin <= thi[s])) continue;
+    const float thi = P.dt[s][lane].w;
+    if (((occ >> s) & 1u) || !(tmin <= thi)) continue;
     if (COUNT) ++slabs;
-    if (slab_entry(lo, hi, o, inv[s], (sfl >> (3 * s)) & 7, tmin, thi[s]) <
-        __int_as_float(INVALID))
+    const float inv[3] = {P.inv[s][0][lane], P.inv[s][1][lane], P.inv[s][2][lane]};
+    if (slab_entry(lo, hi, o, inv, (sfl >> (3 * s)) & 7, tmin, thi) < __int_as_float(INVALID))
       todo |= 1u << s;
   }
-  for (int j = 0; j < TILE && todo; ++j) {
-    const float s0 = dot_o(coef, 0, j, o[0], o[1], o[2]);
-    const float ou = dot_o(coef, 4, j, o[0], o[1], o[2]);
-    const float ov = dot_o(coef, 8, j, o[0], o[1], o[2]);
-    if (COUNT) ++fams;
+  // The active rays, listed as compact_live lists the live ones, each
+  // with its samples to do.
+  const unsigned m = __ballot_sync(FULL, todo != 0u);
+  const int slot = (lane & ~31) + __popc(m & ((1u << (lane & 31)) - 1u));
+  if (todo) L.list[slot] = lane | static_cast<int>(todo << 8);
+  if ((lane & 31) == 0) L.cnt[lane >> 5] = __popc(m);
+  __syncthreads();                          // the active rays
+  int active = 0;
 #pragma unroll
-    for (int s = 0; s < S; ++s) {
-      if (!((todo >> s) & 1u)) continue;
-      if (COUNT) ++tests;
-      const float s1 = dot_d(coef, 0, j, d[s][0], d[s][1], d[s][2]);
-      const float du = dot_d(coef, 4, j, d[s][0], d[s][1], d[s][2]);
-      const float dv = dot_d(coef, 8, j, d[s][0], d[s][1], d[s][2]);
-      const bool den_ok = fabsf(s1) > EPS;
-      const float t = den_ok ? (-s0) / s1 : BIG;
-      const float u = ou + t * du;
-      const float v = ov + t * dv;
-      if (den_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t >= tmin && t <= thi[s]) {
-        todo &= ~(1u << s);
-        occ |= 1u << s;
-      }
-    }
-  }
+  for (int w = 0; w < WARPS; ++w) active += L.cnt[w];
+  if (active == 0) return;                  // no sample needs the block
+  if (todo) V.hit[slot] = 0u;
+  if (pre) cp_async_wait<1>(); else cp_async_wait<0>();
+  __syncthreads();                          // the staged block and the cleared votes
+  test_block<S, COUNT>(coef, T, P, L, V);
+  __syncthreads();                          // the warps' votes
+  if (todo) retire<S, COUNT>(V, slot, todo, P, occ, lim, tests, fams);
 }
 
 template <int S, bool COUNT>
@@ -1043,96 +1164,119 @@ __global__ void __launch_bounds__(TILE, MIN_CTAS) trace_v8_multi_kernel(
     const float* __restrict__ rays, const float* __restrict__ sup,
     const float* __restrict__ blk, const float* __restrict__ coeff,
     float* __restrict__ outf, int* __restrict__ outi, int nsup, int cb, int l1_mask) {
-  extern __shared__ int l1keys[];                 // cap1 super keys
+  extern __shared__ __align__(16) unsigned char msmem[];   // Samples<S>, then the L1 keys
+  Samples<S>& P = *reinterpret_cast<Samples<S>*>(msmem);
+  int* l1keys = reinterpret_cast<int*>(msmem + sizeof(Samples<S>));
   __shared__ HullTile T;
-  __shared__ float coef[CROWS * TILE];
+  __shared__ __align__(16) float coefb[2][CROWS * TILE];      // staged blocks
+  __shared__ __align__(16) float pageb[2][6 * TILE];          // staged blk pages
+  __shared__ __align__(16) int l2in[SUP];
   __shared__ int l2keys[SUP];
+  __shared__ Live L;
+  __shared__ MultiVisit<S, COUNT> V;
   __shared__ int count;
   const int tile = blockIdx.x;
   const int lane = threadIdx.x;
 
+  // This thread's ray: its samples to shared memory, its direction hull's
+  // inverse to the culls' tile.
   const float* r = rays + (size_t)tile * (4 + 4 * S) * TILE;
   const float o[3] = {r[0 * TILE + lane], r[1 * TILE + lane], r[2 * TILE + lane]};
   const float tmin = r[3 * TILE + lane];
-  float d[S][3], inv[S][3], thi[S];
+  float dlo[3], dhi[3];
   int sfl = 0;
 #pragma unroll
   for (int s = 0; s < S; ++s) {
+    float d[3];
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
-      d[s][a] = r[(4 + 4 * s + a) * TILE + lane];
-      const bool par = fabsf(d[s][a]) <= EPS;
+      d[a] = r[(4 + 4 * s + a) * TILE + lane];
+      const bool par = fabsf(d[a]) <= EPS;
       sfl |= par ? 1 << (3 * s + a) : 0;
-      inv[s][a] = 1.0f / (par ? 1.0f : d[s][a]);
+      P.inv[s][a][lane] = 1.0f / (par ? 1.0f : d[a]);
+      dlo[a] = s == 0 ? d[a] : fminf(dlo[a], d[a]);
+      dhi[a] = s == 0 ? d[a] : fmaxf(dhi[a], d[a]);
     }
-    thi[s] = r[(7 + 4 * s) * TILE + lane];
+    P.dt[s][lane] = make_float4(d[0], d[1], d[2], r[(7 + 4 * s) * TILE + lane]);
   }
+  float ilo[3], ihi[3];
   int hfl = 0;
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
-    float lo = d[0][a], hi = d[0][a];
-#pragma unroll
-    for (int s = 1; s < S; ++s) {
-      lo = fminf(lo, d[s][a]);
-      hi = fmaxf(hi, d[s][a]);
-    }
-    const bool definite = lo > EPS || hi < -EPS;
+    const bool definite = dlo[a] > EPS || dhi[a] < -EPS;
     hfl |= definite ? 0 : 1 << a;
-    T.o[a][lane] = o[a];
-    T.ilo[a][lane] = definite ? 1.0f / hi : -BIG;
-    T.ihi[a][lane] = definite ? 1.0f / lo : BIG;
+    ilo[a] = definite ? 1.0f / dhi[a] : -BIG;
+    ihi[a] = definite ? 1.0f / dlo[a] : BIG;
   }
+  T.ray[lane][0] = make_float4(o[0], o[1], o[2], tmin);
+#pragma unroll
+  for (int a = 0; a < 3; ++a) T.ihi[a][lane] = ihi[a];
   T.fl[lane] = hfl;
-  T.tmin[lane] = tmin;
 
   unsigned occ = 0;
+  float lim = live_limit<S>(P, lane, occ);
   int visits = 0, l1pops = 0, hslabs = 0, tests = 0, fams = 0, slabs = 0;
 
-  // L1: least hull entry per super over the live rays, sorted once.
+  // L1: least hull entry per super over the live rays, sorted once.  A tile
+  // with no live ray has no key and skips the traversal.
   if (lane == 0) count = 0;
-  T.limit[lane] = live_limit<S>(thi, occ);
-  const int live1 = live_count<COUNT>(tmin <= live_limit<S>(thi, occ));
-  for (int s = lane; s < nsup; s += TILE) {
-    const float e = hull_min_entry<COUNT>(T, sup + (size_t)(s / TILE) * 8 * TILE, s % TILE,
-                                          live1, hslabs);
-    if (__float_as_int(e) != INVALID)
-      l1keys[atomicAdd(&count, 1)] = (__float_as_int(e) & ~l1_mask) | s;
-  }
+  T.ray[lane][1] = make_float4(ilo[0], ilo[1], ilo[2], lim);
+  const int live1 = compact_live(L, tmin <= lim);
+  if (live1 > 0) l1_keys<COUNT>(T, L, live1, sup, nsup, l1_mask, l1keys, count, &hslabs);
   __syncthreads();
   const int n1 = count;
-  int p1 = 1;
-  while (p1 < n1) p1 <<= 1;
-  for (int k = n1 + lane; k < p1; k += TILE) l1keys[k] = KEY_PAD;
-  __syncthreads();
-  bitonic_sort(l1keys, p1);
+  sort_keys(l1keys, n1);
 
+  int cbuf = 0, pbuf = 0;           // the buffers of the next visit and pop
   for (int i = 0; i < n1; ++i) {
     const int key = l1keys[i];
-    if (!__syncthreads_or(__float_as_int(live_limit<S>(thi, occ)) >= (key & ~l1_mask)))
-      break;
+    if (!__syncthreads_or(__float_as_int(lim) >= (key & ~l1_mask))) break;
     ++l1pops;
     const int s = key & l1_mask;
+    // This pop's blk page (the previous pop prefetched it) and the next's.
+    if (i == 0) stage_page(blk + (size_t)s * 8 * TILE, pageb[pbuf]);
+    const bool pre = i + 1 < n1;
+    if (pre) stage_page(blk + (size_t)(l1keys[i + 1] & l1_mask) * 8 * TILE, pageb[pbuf ^ 1]);
+    const float* page = pageb[pbuf];
     // L2: block keys of this super against the live hulls.
-    const float* page = blk + (size_t)s * 8 * TILE;
-    T.limit[lane] = live_limit<S>(thi, occ);
-    const int live2 = live_count<COUNT>(tmin <= live_limit<S>(thi, occ));
-    const float e = hull_min_entry<COUNT>(T, page, lane, live2, hslabs);
-    l2keys[lane] = __float_as_int(e) == INVALID
-                       ? INVALID
-                       : (__float_as_int(e) & ~((1 << BLK_BITS) - 1)) | lane;
-    __syncthreads();
-    bitonic_sort(l2keys, SUP);
+    T.ray[lane][1].w = lim;
+    if (pre) cp_async_wait<1>(); else cp_async_wait<0>();
+    const int live2 = compact_live(L, tmin <= lim);       // also publishes the page
+    float e;
+    {
+      const float* pg[1] = {page};
+      const int bl[1] = {lane};
+      float e1[1];
+      box_min_entries<1, COUNT>(T, L, live2, pg, bl, 1, e1, &hslabs);
+      e = e1[0];
+    }
+    sort_l2(e, l2in, l2keys);
     for (int j = 0; j < SUP; ++j) {
       const int k2 = l2keys[j];
-      if (k2 == INVALID) break;                      // uniform: shared read
-      if (!__syncthreads_or(__float_as_int(live_limit<S>(thi, occ)) >=
-                            (k2 & ~((1 << BLK_BITS) - 1))))
-        break;
+      if (k2 >= INVALID) break;                      // uniform: shared read
+      if (!__syncthreads_or(__float_as_int(lim) >= (k2 & ~((1 << BLK_BITS) - 1)))) break;
       const int b = k2 & ((1 << BLK_BITS) - 1);
-      visit_multi<S, COUNT>(min(s * SUP + b, cb - 1), coeff, page, b, coef, o, d, inv, sfl,
-                            thi, tmin, occ, visits, tests, fams, slabs);
+      // Stage this block (the previous key prefetched all but the first)
+      // and prefetch the next key's into the other buffer, once the copy
+      // that last filled it (two keys back: a skipped block's is never
+      // waited for at its visit) has landed.  A prefetch that the stop rule
+      // makes needless is dropped.
+      if (j == 0) stage_block<false>(coeff, nullptr, min(s * SUP + b, cb - 1), coefb[cbuf], nullptr);
+      const int kn = j + 1 < SUP ? l2keys[j + 1] : INVALID;
+      const bool bpre = kn < INVALID;
+      if (bpre) {
+        cp_async_wait<1>();
+        stage_block<false>(coeff, nullptr, min(s * SUP + (kn & ((1 << BLK_BITS) - 1)), cb - 1),
+                           coefb[cbuf ^ 1], nullptr);
+      }
+      visit_multi<S, COUNT>(coefb[cbuf], bpre, page, b, T, P, L, V, o, tmin, sfl, occ, lim,
+                            visits, tests, fams, slabs);
+      cbuf ^= 1;
     }
+    cp_async_wait<0>();             // block copies the stop rule or a skip left
+    pbuf ^= 1;
   }
+  cp_async_wait<0>();               // a page prefetch the stop rule dropped
 
   float* of = outf + (size_t)tile * 8 * TILE;
   int* oi = outi + (size_t)tile * 8 * TILE;
@@ -1165,9 +1309,6 @@ MultiFn pick_multi(int s_count) {
     default: return nullptr;
   }
 }
-
-// An upper bound of the multi-segment CTA's static shared memory.
-constexpr size_t MULTI_STATIC_SMEM = sizeof(HullTile) + (CROWS + 1) * TILE * sizeof(float) + 64;
 
 }  // namespace
 
@@ -1217,12 +1358,9 @@ int rt_trace_v8_multi(const void* rays, const void* sup, const void* blk,
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   int cap1 = 1;
   while (cap1 < nsup) cap1 <<= 1;
-  const size_t smem = (size_t)cap1 * sizeof(int);
-  if (smem + MULTI_STATIC_SMEM > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const size_t smem = s_count * sizeof(Samples<1>) + (size_t)cap1 * sizeof(int);
+  const cudaError_t e = opt_in(fn, smem);
+  if (e != cudaSuccess) return (int)e;
   fn<<<ts, TILE, smem, (cudaStream_t)stream>>>(
       (const float*)rays, (const float*)sup, (const float*)blk, (const float*)coeff,
       (float*)outf, (int*)outi, nsup, cb, l1_mask);

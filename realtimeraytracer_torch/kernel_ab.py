@@ -13,8 +13,9 @@ the one on PYTHONPATH (a tree unpacked with ``git archive``, or this one):
 procedural_mesh(100_000, sun=True): v7 closest, and from its hits v7
 occluded shadow segments and sun, v9 closest, v8 shadow segments, sun,
 incoherent closest, hinted segments, each v8 launch also with its work
-counts; the A-Trous pair's four 1080p iterations on chip_smoke's
-G-buffer; with the foliage, baked: masked v7 and v9, masked v8 closest on
+counts; the multi-segment v8 kernel (B4) on the frame's light-0 shadow
+segments, S = 3, also with its work counts; the A-Trous pair's four 1080p
+iterations on chip_smoke's G-buffer; with the foliage, baked: masked v7 and v9, masked v8 closest on
 shadow segments; instanced: v8 closest, masked closest and occluded) and
 prints one line ``AB {json}``: a hash of every output row, each kernel's
 median time over 10 calls (CUDA events; v7 of a tree whose kernel takes
@@ -115,6 +116,32 @@ def _median_ms(fn, reps: int = 10):
     return statistics.median(times), out
 
 
+def light_segments(scene, gpu, s_count: int):
+    """(origins, dirs_s, t_lo, t_hi_s): the area-light shadow segments that
+    the reference-default 1080p frame's primary sample 0 traces toward
+    light triangle 0, S per ray, recorded from the frame's fused query."""
+    import torch
+
+    import realtimeraytracer_torch as rt
+    from realtimeraytracer_torch.render import hier_backend as v8
+    from realtimeraytracer_torch.render.backends import make_backend
+    from realtimeraytracer_torch.render.megakernel import render_components
+
+    cfg = rt.RenderConfig(width=W, height=H, primary_rays=1, shadow_rays=s_count,
+                          denoise_iterations=4)
+    got = []
+
+    def record(o, ds, lo, hs):
+        got.append((o, ds, lo, hs))
+        return v8.hier_occluded_multi(gpu, cfg, o, ds, lo, hs)
+
+    backend = make_backend(gpu, cfg)._replace(occluded_multi=record)
+    with torch.inference_mode():
+        render_components(gpu, scene.camera.viewport_frame(W, H, device=gpu.device),
+                          cfg, 0, backend)
+    return got[0]
+
+
 def kernels_ab(tag: str, foliage: bool) -> dict:
     import numpy as np
     import torch
@@ -207,6 +234,11 @@ def kernels_ab(tag: str, foliage: bool) -> dict:
         record(name + ".count", hier(rays, mode, common, count=True))
     hints = hier(seg, "occluded", None)[1][:, 3:5, 0].contiguous()
     timed("v8.seg.hinted", lambda: hier(seg, "occluded", None, hints))
+    # B4, the multi-segment kernel, on the segments the reference-default
+    # frame traces toward light triangle 0 (chip_smoke phase 21), S = 3.
+    mrays, _ = v8.pack_rays_multi(*light_segments(scene, gpu, 3))
+    timed("b4", lambda: v8.trace_hier_multi_kernel(mrays, sup, blk, coeff, nsup))
+    record("b4.count", v8.trace_hier_multi_kernel(mrays, sup, blk, coeff, nsup, count=True))
     timed("v9", lambda: v9_closest(gpu, prim))
     # The A-Trous pair: chip_smoke's 1080p G-buffer, four iterations.
     g = np.random.default_rng(11)

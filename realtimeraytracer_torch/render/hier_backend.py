@@ -58,7 +58,7 @@ from realtimeraytracer_torch.render.backends import (
     TraceBackend, _merge_sphere_hits, sphere_occluded)
 from realtimeraytracer_torch.render.v7_backend import (
     BIG, BIG_BITS, EPS, _COMMON, _INT64_MAX, _MODES, _check, _check_aligned, _check_amask,
-    _intersect_pairs, _pack_rays)
+    _check_layout, _check_one_card, _intersect_pairs, _pack_rays)
 from realtimeraytracer_torch.scene.gpu_scene import TorchScene
 from realtimeraytracer_torch.scene.panels import CROWS, RESIDENT_CB, TILE
 
@@ -222,19 +222,17 @@ def trace_hier_plain(rays, sup_panel, blk_panels, coeff, nsup: int, mode: str,
 
 
 def _check_hierarchy(rays, sup_panel, blk_panels, coeff, nsup: int) -> int:
-    """Check the non-instanced kernel's hierarchy inputs (CUDA tensors on
-    the rays' device, supers covering every block); returns the L1 key id
-    mask."""
+    """Check the non-instanced kernel's hierarchy inputs (layouts, supers
+    covering every block, then CUDA tensors on the rays' device); returns
+    the L1 key id mask."""
     cb = coeff.shape[0]
-    _check(sup_panel, "sup_panel", torch.float32, (SPAGES, 8, 128))
-    _check(blk_panels, "blk_panels", torch.float32, (nsup, 8, 128))
-    _check(coeff, "coeff", torch.float32, (cb, CROWS, TILE))
-    for x in (sup_panel, blk_panels, coeff):
-        if x.device != rays.device:
-            raise ValueError("the v8 kernel's inputs must be on one device")
+    _check_layout(sup_panel, "sup_panel", torch.float32, (SPAGES, 8, 128))
+    _check_layout(blk_panels, "blk_panels", torch.float32, (nsup, 8, 128))
+    _check_layout(coeff, "coeff", torch.float32, (cb, CROWS, TILE))
     if not 0 < nsup <= SPAGES * 128 or nsup * SUP < cb:
         raise ValueError(f"{nsup} superclusters for {cb} blocks: the v8 kernel "
                          f"takes 1 to {SPAGES * 128} supers covering every block")
+    _check_one_card("v8", rays=rays, sup_panel=sup_panel, blk_panels=blk_panels, coeff=coeff)
     _check_aligned(blk_panels=blk_panels, coeff=coeff)
     return (1 << max(7, (nsup - 1).bit_length())) - 1
 
@@ -668,6 +666,14 @@ def trace_hier_multi_plain(rays, sup_panel, blk_panels, coeff, nsup: int):
     return outf, outi
 
 
+def multi_dynamic_smem(s_count: int, nsup: int) -> int:
+    """Dynamic shared memory of a multi-segment launch (rt_trace_v8_multi),
+    in bytes: the tile's samples (28 bytes a ray and sample: [d | t_hi] and
+    the inverse direction) and the L1 key room (nsup keys, padded to a
+    power of two)."""
+    return s_count * TILE * 28 + 4 * (1 << (nsup - 1).bit_length())
+
+
 def trace_hier_multi_kernel(rays, sup_panel, blk_panels, coeff, nsup: int,
                             count: bool = False):
     """Launch the multi-segment entry of csrc/trace_v8.cu (CUDA tensors
@@ -677,10 +683,11 @@ def trace_hier_multi_kernel(rays, sup_panel, blk_panels, coeff, nsup: int,
     visited, row 1 = supers popped.  count=True launches the variant that
     also writes its work counts: outi row 4 = hull slab tests, 5 =
     ray-triangle sample tests, 6 = origin-family evaluations, 7 =
-    per-sample slab tests."""
+    per-sample slab tests.  Layouts and devices are checked before the
+    kernel is built or launched."""
     ts, cb = rays.shape[0], coeff.shape[0]
     s_count = _segments(rays)
-    _check(rays, "rays", torch.float32, (ts, 4 + 4 * s_count, TILE))
+    _check_layout(rays, "rays", torch.float32, (ts, 4 + 4 * s_count, TILE))
     l1_mask = _check_hierarchy(rays, sup_panel, blk_panels, coeff, nsup)
     outf = torch.zeros((ts, 8, TILE), dtype=torch.float32, device=rays.device)
     outi = torch.zeros((ts, 8, TILE), dtype=torch.int32, device=rays.device)

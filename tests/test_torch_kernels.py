@@ -12,7 +12,11 @@ equal or t equal.
 The masked variants (alpha masks in closest mode) are held to their twins
 by the same rule on a soup of alpha-mapped triangles.  The multi-segment
 v8 kernel (hier_occluded_multi) is held to its twin and to one single v8
-occluded launch per sample, flags equal, for S = 1, 3 and 8; the FMA peak
+occluded launch per sample, flags equal, for S = 1, 3 and 8, on tiles
+whose every ray is inactive (no visit, no pop), on rays whose samples the
+single traces retire in different blocks and on S = 8 directions that all
+straddle zero; on the CPU its entry refuses bad inputs before any build,
+and its dynamic shared memory per S is checked; the FMA peak
 probe to its twin under rtol 1e-6 (the twin rounds each FMA step through
 float64, which differs from the fused rounding only in rare ties).
 The v9 kernel culls in its prologue: it is held to the plain cull followed
@@ -586,18 +590,21 @@ def test_instanced_alpha_frame_kernels_match_twins(cuda):
 
 # ---- multi-segment occlusion (hier_occluded_multi) and the FMA probe -------
 
-def _multi_segments(device, s_count, n=1000, seed=21):
+def _multi_segments(device, s_count, n=1000, seed=21, case="mixed"):
     """(o, dirs, tlo, this) of n rays: S directions toward jittered points
     of a light patch above, every third ray's directions straddling zero
     in x and z across the samples, one direction with an x component below
-    the parallel-axis epsilon; 20% of the rays inactive."""
+    the parallel-axis epsilon; 20% of the rays inactive.  case "straddling":
+    every ray's directions straddle zero in x and z; "inactive tiles":
+    also every ray of tiles 1 and 3 inactive."""
     r = np.random.default_rng(seed)
     o = r.uniform(-6, 6, (n, 3)).astype(np.float32)
     dirs, this = [], []
     for s in range(s_count):
         lp = np.array([0.0, 8.0, 0.0]) + r.normal(0, 0.5, (n, 3))
-        lp[::3, 0] = o[::3, 0] + r.uniform(-3, 3, len(o[::3]))
-        lp[::3, 2] = o[::3, 2] + r.uniform(-3, 3, len(o[::3]))
+        every = 1 if case == "straddling" else 3
+        lp[::every, 0] = o[::every, 0] + r.uniform(-3, 3, len(o[::every]))
+        lp[::every, 2] = o[::every, 2] + r.uniform(-3, 3, len(o[::every]))
         delta = (lp - o).astype(np.float32)
         if s == 0:
             delta[1::3, 0] = 1e-13
@@ -605,6 +612,8 @@ def _multi_segments(device, s_count, n=1000, seed=21):
         dirs.append((delta / dist[:, None]).astype(np.float32))
         this.append((dist - 0.5).astype(np.float32))
     act = r.random(n) > 0.2
+    if case == "inactive tiles":
+        act[128:256] = act[384:512] = False
     tlo = np.where(act, 1e-3, BIG_T).astype(np.float32)
     this = [np.where(act, h, -BIG_T).astype(np.float32) for h in this]
     to = lambda x: torch.from_numpy(x).to(device)  # noqa: E731
@@ -621,32 +630,94 @@ def test_multi_kernel_refuses_cpu_tensors():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_tris", [1000, 17000])
-@pytest.mark.parametrize("s_count", [1, 3, 8])
-def test_multi_kernel_matches_twin_and_singles(cuda, n_tris, s_count):
+@pytest.mark.parametrize("n_tris,s_count,case", [
+    (1000, 1, "mixed"), (1000, 3, "mixed"), (1000, 8, "mixed"), (17000, 1, "mixed"),
+    (17000, 3, "mixed"), (17000, 8, "mixed"), (17000, 3, "inactive tiles"),
+    (17000, 3, "retired apart"), (17000, 8, "straddling")])
+def test_multi_kernel_matches_twin_and_singles(cuda, n_tris, s_count, case):
     """Flags equal the twin's and S single v8 occluded launches'; the
     counting variant gives the same flags and tests no more pairs than the
-    twin."""
+    twin.  "inactive tiles": tiles whose every ray is inactive visit and pop
+    nothing; "retired apart": rays whose samples the single traces retire
+    in different blocks; "straddling": every ray's hull straddles zero in x
+    and z."""
     gpu = _soup_scene(n_tris).to(cuda)
     coeff, sup, blk, nsup = hb._hier_inputs(gpu)
-    o, ds, lo, hs = _multi_segments(cuda, s_count)
+    o, ds, lo, hs = _multi_segments(cuda, s_count, case=case)
     rays, n = hb.pack_rays_multi(o, ds, lo, hs)
     before = hb.trace_blocks_hier.launches_multi
     k = hb.trace_hier_multi_kernel(rays, sup, blk, coeff, nsup)
     assert hb.trace_blocks_hier.launches_multi == before + 1
     p = hb.trace_hier_multi_plain(rays, sup, blk, coeff, nsup)
     assert torch.equal(k[0][:, :s_count], p[0][:, :s_count])
-    occ = 0
+    occ, first = 0, []
     for s in range(s_count):
         single = v7._pack_rays(o, ds[s], lo, hs[s])[0]
-        f, _ = hb.trace_hier_kernel(single, sup, blk, coeff, nsup, "occluded")
+        f, i = hb.trace_hier_kernel(single, sup, blk, coeff, nsup, "occluded")
         assert torch.equal(k[0][:, s], f[:, 0]), f"sample {s}"
         occ += int(f[:, 0].sum())
+        first.append(i[:, 0])
     assert 10 < occ < s_count * n - 10
+    if case == "inactive tiles":
+        for t in (1, 3):
+            assert not k[0][t].any() and not k[1][t, 0:2].any()
+    if case == "retired apart":
+        apart = (first[0] >= 0) & (first[1] >= 0) & (first[0] != first[1])
+        assert int(apart.sum()) > 10
     c = hb.trace_hier_multi_kernel(rays, sup, blk, coeff, nsup, count=True)
     assert torch.equal(c[0], k[0]) and torch.equal(c[1][:, 0:2], k[1][:, 0:2])
     assert c[1][:, 5].sum() > 0 and (c[1][:, 5] <= p[1][:, 5]).all()
     assert c[1][:, 4].sum() > 0 and c[1][:, 6].sum() > 0 and c[1][:, 7].sum() > 0
+
+
+def _multi_entry_args(case):
+    """Arguments of the multi-segment entry with one defect each (CPU
+    tensors)."""
+    gpu = _soup_scene(200)
+    coeff, sup, blk, nsup = hb._hier_inputs(gpu)
+    o, ds, lo, hs = _multi_segments("cpu", 2, n=300)
+    rays, _ = hb.pack_rays_multi(o, ds, lo, hs)
+    args = dict(rays=rays, sup_panel=sup, blk_panels=blk, coeff=coeff, nsup=nsup)
+    if case == "nine samples":
+        args["rays"] = torch.zeros((rays.shape[0], 40, 128))
+    elif case == "f64 rays":
+        args["rays"] = rays.double()
+    elif case == "blk shape":
+        args["blk_panels"] = torch.zeros((nsup + 1, 8, 128))
+    elif case == "too few supers":
+        args["coeff"] = torch.zeros((nsup * hb.SUP + 1, 12, 128))
+    return args
+
+
+@pytest.mark.parametrize("case,match", [("cpu tensors", "CUDA"), ("nine samples", "1 <= S"),
+                                        ("f64 rays", "float32"), ("blk shape", "shape"),
+                                        ("too few supers", "covering every block")])
+def test_multi_entry_refuses_bad_inputs_before_any_build(monkeypatch, case, match):
+    """The multi-segment entry checks its sample count, layouts, supers and
+    devices before it builds or launches anything."""
+    from realtimeraytracer_torch import kernels
+
+    def no_build(*a, **k):
+        raise AssertionError("the kernel was built or launched")
+
+    monkeypatch.setattr(kernels, "kernel", no_build)
+    monkeypatch.setattr(kernels, "build", no_build)
+    before = hb.trace_blocks_hier.launches_multi
+    with pytest.raises(ValueError, match=match):
+        hb.trace_hier_multi_kernel(**_multi_entry_args(case))
+    assert hb.trace_blocks_hier.launches_multi == before
+
+
+@pytest.mark.parametrize("s_count,nsup,want", [(1, 1, 3588), (3, 7, 10784), (8, 8, 28704),
+                                               (8, 3072, 45056)])
+def test_multi_dynamic_smem_per_sample_count(s_count, nsup, want):
+    """The multi-segment launch's dynamic shared memory: 28 bytes a ray and
+    sample (d | t_hi, the inverse direction) and the L1 keys padded to a
+    power of two; S = 8 at the most supers the v8 kernel takes stays far
+    below the 227 KB a CTA may opt into, beside its static part (about 32
+    KB)."""
+    assert hb.multi_dynamic_smem(s_count, nsup) == want
+    assert hb.multi_dynamic_smem(8, hb.SPAGES * 128) + 40 * 1024 <= v7._SMEM_LIMIT
 
 
 @pytest.mark.cuda
