@@ -95,10 +95,34 @@ Phases, each of which ends the run with a non-zero exit on failure:
      bit-equality with the default frame, both frame times, peak memory;
      a 160x90 fused frame through the kernels and through the twins;
  23. the f32 FMA peak probe (probes.fma_peak) against its twin, its rate
-     beside the data sheet's 67 TFLOP/s, the FFMA count of its SASS.
-Each main-path frame (5, 8, 9, 14, 18 and 22) and the probe's timed run (23)
-are driven with every kernel's launch count set to 0 just before and read
-just after.  The line before the last is a
+     beside the data sheet's 67 TFLOP/s, the FFMA count of its SASS;
+ 24. BASELINE config 4 through render_wavefront (1920x1080, 4 spp,
+     max_bounces=2, one light sample and the sun per vertex, no denoise,
+     default backend) on procedural_mesh(100_000, sun=True): launches (v9 4,
+     v8 8 closest and 16 unhinted occluded, A-Trous 0), frame time, peak
+     memory, live rays at each bounce, kernel time of each stage (the sorts
+     among them) in one profiled frame; the unsorted frame's time and its
+     image bit-equal to the sorted one; one 1-spp frame on
+     procedural_mesh(1_000_000, sun=True), whose bounce 0 goes to v7;
+ 25. 160x90 wavefront frames (2 spp, 2 bounces) through the kernels and
+     through the twins, on the hybrid and the "pallas" route;
+ 26. the baked foliage through render_wavefront (1080p, 1 spp, 2 bounces,
+     alpha_test=True): launches (masked v9 and v8 only), host syncs, one
+     timed run after the first; a 160x90 frame through the kernels and the
+     twins;
+ 27. Application() with its defaults (1920x1080, cornell_box, fast_lut) on
+     the card: run(8) with a scripted controller (moves, mouse, spin), frames
+     per second, images on the card and all different, the camera moved,
+     the first frame equal to render_pipeline_gpu's at frame index 0; the
+     phase-9 frame with debug_traversal=True bit-equal to phase 9's image;
+ 28. textured_obj and the baked foliage compiled with mips: host seconds and
+     device bytes of the mip leaves, the 1080p alpha-tested frames with
+     mip_textures=True at aniso_taps 1 and 4 (launches, frame time, peak
+     memory, beside phase 14's base-level frames), the difference from the
+     base-level image.
+Each main-path frame (5, 8, 9, 14, 18, 22, 24, 26, 27 and 28) and the
+probe's timed run (23) are driven with every kernel's launch count set to 0
+just before and read just after.  The line before the last is a
 JSON object describing each kernel (times, launches, error, bound); the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 without the package beside it, the script fails before printing either.
@@ -106,6 +130,7 @@ without the package beside it, the script fails before printing either.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -115,6 +140,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -366,7 +392,10 @@ def main() -> int:
     from realtimeraytracer_torch.render.alpha import hit_alpha, wrap_backend_with_alpha
     from realtimeraytracer_torch.render.backends import make_backend, make_hybrid_backend
     from realtimeraytracer_torch.render.megakernel import render_components
-    from realtimeraytracer_torch.render.pipeline import render_pipeline_gpu
+    from realtimeraytracer_torch.render.pipeline import compile_for, render_pipeline_gpu
+    from realtimeraytracer_torch.render.wavefront import render_wavefront
+    from realtimeraytracer_torch.app.application import Application
+    from realtimeraytracer_torch.frame_profile import range_times
     from realtimeraytracer_torch.kernel_ab import sass_functions, tap_instructions
 
     # Launch counters: (wrapper, attribute); a masked variant counts on its
@@ -1118,7 +1147,7 @@ def main() -> int:
             f"{syncs}, ladder rounds run {rounds}; peak memory {peak:.3f} GiB, of which "
             f"{held / 2**30:.3f} GiB were held before; frame {ms:.2f} ms (median of {timed}, "
             f"all {[round(x, 2) for x in times]}) ({card})")
-        return out, counts, ms, syncs, peak
+        return out, counts, ms, syncs, peak - held / 2**30
 
     cfg_t = rt.RenderConfig(width=W, height=H, primary_rays=4, shadow_rays=3, denoise_iterations=4)
     require(cfg_t.alpha_test is None and cfg_t.backend == "auto", "reference defaults changed")
@@ -1547,6 +1576,241 @@ def main() -> int:
         f"{fma_tflops:.3f} TFLOP/s f32 FMA against the data sheet's 67 TFLOP/s; {ffma} FFMA per "
         f"thread in the SASS; twin {fma_plain_ms:.3f} ms, max |err| {fma_err}; bound "
         f"{fma_bound[0]:.5f} ms by {fma_bound[1]} ({card})")
+
+    # ---- 24. BASELINE config 4: the wavefront path tracer ------------------------
+    @contextlib.contextmanager
+    def v8_calls():
+        """Counts the v8 traces of the backends built while the body runs,
+        by (mode, hinted): each v8 backend's trace function is wrapped where
+        the routes build it (make_hier_backend, looked up at each build)."""
+        calls = collections.Counter()
+        make = v8.make_hier_backend
+
+        def counting_make(gpu_, cfg_, trace=v8.trace_blocks_hier, **kw):
+            def counted(*a, **k):
+                calls[(a[2] if len(a) > 2 else k["mode"], k.get("hints") is not None)] += 1
+                return trace(*a, **k)
+            return make(gpu_, cfg_, trace=counted, **kw)
+
+        v8.make_hier_backend = counting_make
+        try:
+            yield calls
+        finally:
+            v8.make_hier_backend = make
+
+    cfg24 = rt.RenderConfig(width=W, height=H, primary_rays=4, shadow_rays=1, max_bounces=2,
+                            denoise_iterations=0)
+    require(cfg24.backend == "auto" and cfg24.jitter and cfg24.sort_bounces,
+            "[24] config 4's defaults changed")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held24 = torch.cuda.memory_allocated()
+    zero_counts()
+    t0 = time.perf_counter()
+    with v8_calls() as modes24, no_plain_cull(v9, "cull_quarter_keys", "[24] the wavefront frame"):
+        img24_t = render_wavefront(gpu, frame, cfg24)
+        torch.cuda.synchronize()
+    wall24 = time.perf_counter() - t0
+    counts24 = read_counts()
+    peak24 = (torch.cuda.max_memory_allocated() - held24) / 2**30
+    spp24 = cfg24.primary_rays
+    want24 = unmasked(trace_v7=0, trace_v9=spp24, trace_v8=6 * spp24, atrous_pair=0)
+    say(f"[24] render_wavefront, BASELINE config 4 (1920x1080, 4 spp, max_bounces=2, default "
+        f"backend) on procedural_mesh(100_000, sun=True): {wall24:.2f} s wall for the first frame; "
+        f"launches {counts24}; v8 calls by (mode, hinted) {dict(modes24)}")
+    require(counts24 == want24, f"[24] expected launches {want24}, counted {counts24}")
+    require(dict(modes24) == {("closest", False): 2 * spp24, ("occluded", False): 4 * spp24},
+            f"[24] v8: expected 8 closest and 16 unhinted occluded calls, counted {dict(modes24)}")
+    require(img24_t.device.type == "cuda", f"[24] rendered on {img24_t.device}")
+    img24 = img24_t.cpu().numpy()
+    require(img24.shape == (H, W, 3) and bool(np.isfinite(img24).all()), "[24] bad image")
+    require(float(img24.std()) > 1e-3, "[24] constant image")
+    # Live rays at each bounce: the closest queries' lanes with a non-empty
+    # interval (a backend that counts them; the image must not change).
+    live24 = []
+    be24 = make_backend(gpu, cfg24)
+
+    def counting_closest(o_, d_, lo_, hi_, common=None):
+        live24.append(int((lo_ < 1e30).sum()))
+        return be24.closest(o_, d_, lo_, hi_, common=common)
+
+    img24_live = render_wavefront(gpu, frame, cfg24, backend=be24._replace(closest=counting_closest))
+    require(np.array_equal(img24_live.cpu().numpy(), img24), "[24] the counting backend changed the image")
+    per_bounce = [live24[b::cfg24.max_bounces + 1] for b in range(cfg24.max_bounces + 1)]
+    ms24, _ = median_ms(lambda: render_wavefront(gpu, frame, cfg24), 3)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof24:
+        render_wavefront(gpu, frame, cfg24)
+        torch.cuda.synchronize()
+    busy24, _, ranges24 = range_times(prof24)
+    stages24 = {k.split(".", 1)[1]: round(v[1], 3) for k, v in ranges24.items()
+                if k.startswith("wavefront.")}
+    say(f"[24] frame time {ms24:.2f} ms (CUDA events, median of 3 after a warm-up); peak memory "
+        f"{peak24:.3f} GiB above the {held24 / 2**30:.3f} GiB held; live rays per bounce (each "
+        f"sample) {per_bounce} of {W * H}; kernel ms inside each stage of one profiled frame "
+        f"{stages24} (the sorts: {ranges24['wavefront.sort'][2]} calls, "
+        f"{ranges24['wavefront.sort'][1]:.3f} ms); device busy {busy24:.2f} ms, idle share "
+        f"{max(0.0, 1.0 - busy24 / ms24):.4f} of the unprofiled median ({card})")
+    cfg24u = cfg24.replace(sort_bounces=False)
+    ms24u, img24u = median_ms(lambda: render_wavefront(gpu, frame, cfg24u), 3)
+    n_diff = int((img24u.cpu().numpy() != img24).sum())
+    require(n_diff == 0, f"[24] the unsorted frame differs from the sorted one in {n_diff} values")
+    say(f"[24] sort_bounces=False: {ms24u:.2f} ms (median of 3 after a warm-up), image bit-equal to "
+        f"the sorted frame's; sorted {ms24:.2f} ms ({card})")
+    # The 1M rung: bounce 0 above RESIDENT_CB goes to v7.
+    big24 = scenes.procedural_mesh(1_000_000, sun=True)
+    t0 = time.perf_counter()
+    gbig24 = big24.compile().to(dev)
+    t_big24 = time.perf_counter() - t0
+    frame24b = big24.camera.viewport_frame(W, H, device=dev)
+    cfg24b = cfg24.replace(primary_rays=1)
+    render_wavefront(gbig24, frame24b, cfg24b)                  # warm-up, discarded
+    zero_counts()
+    with no_plain_cull(v7, "cull_keys", "[24] the 1M wavefront frame"):
+        ms24b, img24b = once_ms(lambda: render_wavefront(gbig24, frame24b, cfg24b))
+    counts24b = read_counts()
+    require(counts24b == unmasked(trace_v7=1, trace_v9=0, trace_v8=6, atrous_pair=0),
+            f"[24] 1M wavefront frame launches {counts24b}")
+    img24b = img24b.cpu().numpy()
+    require(bool(np.isfinite(img24b).all()) and float(img24b.std()) > 1e-3, "[24] 1M frame: bad image")
+    say(f"[24] config 4 at 1 spp on procedural_mesh(1_000_000, sun=True) ({gbig24.num_tris} tris, "
+        f"{gbig24.pallas_panels.shape[0]} blocks, host compile {t_big24:.2f} s): {ms24b:.2f} ms, one "
+        f"run after a warm-up; launches {counts24b} ({card})")
+    del big24, gbig24, img24b
+
+    # ---- 25. small wavefront frames, kernels vs plain twins ----------------------
+    cfg25 = cfg24.replace(width=160, height=90, primary_rays=2)
+    frame25 = scene.camera.viewport_frame(160, 90, device=dev)
+    for route in ("auto", "pallas"):
+        c25 = cfg25.replace(backend=route)
+        with no_plain_cull(v7, "cull_keys", f"[25] the 160x90 {route} wavefront frame"):
+            img_k = render_wavefront(gpu, frame25, c25).cpu().numpy()
+        plain = (make_hybrid_backend(gpu, c25, plain=True) if route == "auto"
+                 else v7.make_v7_backend(gpu, c25, trace=v7.trace_blocks_plain))
+        img_p = render_wavefront(gpu, frame25, c25, backend=plain).cpu().numpy()
+        share = image_rule(img_k, img_p, f"[25] 160x90 {route} wavefront frame, kernels vs plain")
+        require(float(img_k.std()) > 1e-3, f"[25] {route}: constant image")
+        say(f"[25] 160x90 wavefront frame, 2 spp, 2 bounces, route {route}: kernels vs plain "
+            f"{share:.6%} of values differ by > 2e-3, max |err| {np.abs(img_k - img_p).max()}")
+
+    # ---- 26. the alpha-tested baked foliage through the wavefront ---------------
+    cfg26 = cfg24.replace(primary_rays=1, alpha_test=True)
+    syncs0, rounds0 = wrap_backend_with_alpha.syncs, wrap_backend_with_alpha.rounds
+    zero_counts()
+    t0 = time.perf_counter()
+    with v8_calls() as modes26:
+        img26 = render_wavefront(fol, ffr, cfg26)
+        torch.cuda.synchronize()
+    wall26 = time.perf_counter() - t0
+    counts26 = read_counts()
+    syncs26 = wrap_backend_with_alpha.syncs - syncs0
+    rounds26 = wrap_backend_with_alpha.rounds - rounds0
+    for name_, n_ in counts26.items():
+        used = name_ in ("trace_v9_masked", "trace_v8_masked")
+        require((n_ > 0) == used, f"[26] foliage wavefront: {name_} launched {n_} times")
+    require(set(modes26) == {("closest", False)}, f"[26] v8 calls {dict(modes26)}: the ladder "
+            "traces closest hits only")
+    img26 = img26.cpu().numpy()
+    require(img26.shape == (H, W, 3) and bool(np.isfinite(img26).all()), "[26] bad image")
+    require(float(img26.std()) > 1e-3, "[26] constant image")
+    ms26, _ = once_ms(lambda: render_wavefront(fol, ffr, cfg26))
+    say(f"[26] foliage_field baked, render_wavefront, 1080p, 1 spp, 2 bounces, alpha_test=True: "
+        f"{wall26:.2f} s wall for the first frame, {ms26:.2f} ms one run after it; launches "
+        f"{counts26}; host syncs {syncs26}, ladder rounds run {rounds26} ({card})")
+    cfg26s = cfg26.replace(width=160, height=90)
+    frame26 = fol_scene.camera.viewport_frame(160, 90, device=dev)
+    img_k = render_wavefront(fol, frame26, cfg26s).cpu().numpy()
+    plain = wrap_backend_with_alpha(make_hybrid_backend(fol, cfg26s, plain=True), fol, cfg26s)
+    img_p = render_wavefront(fol, frame26, cfg26s, backend=plain).cpu().numpy()
+    share = image_rule(img_k, img_p, "[26] 160x90 alpha-tested foliage wavefront, kernels vs plain")
+    say(f"[26] 160x90 alpha-tested foliage wavefront frame kernels vs plain: {share:.6%} of values "
+        f"differ by > 2e-3, max |err| {np.abs(img_k - img_p).max()}")
+
+    # ---- 27. the application loop on the card -----------------------------------
+    app = Application()
+    require(app.device.type == "cuda" and app.config.fast_lut
+            and (app.config.width, app.config.height) == (W, H), "[27] Application defaults changed")
+    t0 = time.perf_counter()
+    app.compile_scene()
+    t_app = time.perf_counter() - t0
+    cam = app.scene.camera
+    pos0, yaw0 = cam.position, cam.yaw
+    gpu27 = compile_for(app.scene, app.config, dev)
+    want27 = render_pipeline_gpu(gpu27, cam.viewport_frame(W, H, device=dev), app.config, 0)
+    first27 = app.render_frame()
+    require(torch.equal(first27, want27), "[27] the Application's first frame differs from "
+            "render_pipeline_gpu's at frame index 0")
+    images27 = []
+
+    def controller(a, i):
+        a.process_input(forward=1.0 if i % 2 == 0 else 0.0, strafe=0.5 if i % 3 == 0 else 0.0,
+                        mouse_dx=3.0, mouse_dy=-1.5)
+        if i == 4:
+            a.toggle_spin()
+
+    zero_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fps27 = app.run(8, controller=controller, on_frame=lambda i, img: images27.append(img))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    counts27 = read_counts()
+    # Where torch saw a synchronizing call (the warning's caller); the
+    # loop's own waits are torch.cuda.synchronize, called by application.py.
+    flagged = collections.Counter(f"{w_.filename}:{w_.lineno}" for w_ in caught
+                                  if "synchroniz" in str(w_.message))
+    implicit = {k: n for k, n in flagged.items()
+                if not re.search(r"(/application\.py|/torch/cuda/__init__\.py):\d+$", k)}
+    require(len(images27) == 8 and all(im.device.type == "cuda" for im in images27),
+            "[27] the loop's images are not all on the card")
+    require(all(not torch.equal(a_, b_) for a_, b_ in zip(images27, images27[1:])),
+            "[27] two consecutive frames are equal")
+    require(cam.position != pos0 and cam.yaw != yaw0, "[27] the camera did not move")
+    require(counts27 == unmasked(trace_v7=0, trace_v9=0, trace_v8=0, atrous_pair=4 * 9),
+            f"[27] Application loop launches {counts27}")
+    require(not implicit, f"[27] the frames synchronized with the host: {implicit}")
+    say(f"[27] Application() on the card: cornell_box ({gpu27.num_tris} tris, brute force), "
+        f"{W}x{H}, fast_lut=True; compile {t_app:.2f} s; run(8) with a scripted controller: "
+        f"{fps27:.3f} frames per second (one warm-up frame, one device wait after it and one at the "
+        f"end); launches {counts27}; synchronizing calls flagged by torch.cuda.set_sync_debug_mode "
+        f"in the loop: {dict(flagged) or 'none'}; camera moved {pos0} -> {cam.position}, yaw {yaw0:.2f} -> "
+        f"{cam.yaw:.2f}; first frame bit-equal to render_pipeline_gpu's ({card})")
+    img27 = render_pipeline_gpu(gpu, frame, cfg9.replace(debug_traversal=True)).cpu().numpy()
+    require(np.array_equal(img27, img9), "[27] debug_traversal=True changed phase 9's frame")
+    say("[27] the phase-9 frame with debug_traversal=True is bit-equal to phase 9's image")
+    del app, gpu27, images27
+
+    # ---- 28. mip-mapped and anisotropic textures on the card ---------------------
+    mip28 = {}
+    for name, sc, g0, base_key, bake, fr in (
+            ("textured_obj", tobj_scene, tobj, "textured_obj hybrid", False, tframe),
+            ("foliage_field baked", fol_scene, fol, "foliage hybrid", True, ffr)):
+        t0 = time.perf_counter()
+        gm = sc.compile(bake_instances=bake, mip_textures=True).to(dev)
+        torch.cuda.synchronize()
+        t_mip = time.perf_counter() - t0
+        require(gm.has_mips, f"[28] {name}: no mip chain")
+        mip_bytes = nbytes(gm.tex_mip_atlas, gm.tex_mip_atlas_packed, gm.face_uv_density)
+        base_img, _, base_ms, _, base_peak = frames14[base_key]   # peak above what was held
+        say(f"[28] {name} compiled with mips: host {t_mip:.2f} s (phase 11 compiled it without "
+            f"mips); mip leaves {mip_bytes} device bytes ({gm.mip_levels} levels of "
+            f"{tuple(gm.tex_mip_atlas.shape)}); scene {scene_bytes(gm)} device bytes, without mips "
+            f"{scene_bytes(g0)}")
+        for taps in (1, 4):
+            c28 = cfg_f.replace(mip_textures=True, aniso_taps=taps)
+            out, counts, ms, syncs, peak = alpha_frame(
+                f"{name}, mip_textures=True, aniso_taps={taps}", "auto",
+                lambda: render_pipeline_gpu(gm, fr, c28), 3, phase="28")
+            diff = np.abs(out - base_img)
+            mip28[(name, taps)] = (ms, peak, float(diff.mean()), float(diff.max()))
+            say(f"[28] {name}, aniso_taps={taps}: frame {ms:.2f} ms against {base_ms:.2f} ms at base "
+                f"level (phase 14); peak memory above what was held {peak:.3f} GiB against "
+                f"{base_peak:.3f} GiB; "
+                f"difference from the base-level image: mean {diff.mean():.6f}, largest "
+                f"{diff.max():.6f} ({card})")
+        del gm
 
     shadow_row = v8_rows["occluded shadow segments"]
     say(json.dumps({"kernels": [

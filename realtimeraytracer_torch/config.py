@@ -4,9 +4,12 @@ Counterpart of realtimeraytracer_tpu/config.py: the same fields, defaults
 and backend strings, so one set of knobs drives both packages.  The port
 renders the ratio-estimator frame with the "hybrid" route (v9 and v8
 traversal, CUDA kernels), "pallas" (v7), "quarter" (v9 closest, v7
-occlusion), "hier" (v8) or "brute", alpha-tested or not; the wide XLA
-backend, and every field that only unported code reads, raise when set
-(``check_supported``).
+occlusion), "hier" (v8) or "brute", alpha-tested or not, with mip-mapped
+and anisotropic textures or not, and the wavefront multi-bounce frame
+(render/wavefront.py: max_bounces, sort_bounces).  The wide XLA backend,
+and every field that only unported code reads, raise when set
+(``check_supported``).  ``tile_rays`` is accepted and read by no code, as
+in the JAX package, whose only reader is a docstring (ROADMAP queue C).
 """
 
 from __future__ import annotations
@@ -22,20 +25,13 @@ UNPORTED_BACKENDS = {
 # Fields of the JAX RenderConfig that no code of this port reads, and why
 # (ROADMAP.md queue A).  check_supported raises when one is set away from
 # its default, so that no setting is dropped silently.
-_WAVEFRONT = "it waits for the wavefront path tracer (ROADMAP A5)"
-_MIPS = "it waits for the texture atlas and mips (ROADMAP A1)"
 _WIDE = "it belongs to the wide XLA backend (ROADMAP A, 'Not to port')"
 _ATTIC = "it belongs to the JAX package's retired render/attic/ backends"
 _NOT_PORTED = "the JAX package's option is not ported (ROADMAP A, 'Not to port')"
 UNPORTED_FIELDS = {
-    "max_bounces": _WAVEFRONT,
-    "sort_bounces": _WAVEFRONT,
-    "tile_rays": _WAVEFRONT,
     "alpha_split": _NOT_PORTED,
     "batch_occlusion": _NOT_PORTED,
     "batch_occlusion_min_rays": _NOT_PORTED,
-    "mip_textures": _MIPS,
-    "aniso_taps": _MIPS,
     "cluster_size": _WIDE,
     "wide_tile": _WIDE,
     "max_cluster_visits": _WIDE,
@@ -56,6 +52,9 @@ class RenderConfig:
     primary_rays: int = 4
     jitter: bool = True
     shadow_rays: int = 3
+    # Path depth of the wavefront frame (render/wavefront.py); the
+    # ratio-estimator frame of render_pipeline traces one surface and
+    # ignores it, as in the JAX package.
     max_bounces: int = 1
 
     t_min: float = 1e-3
@@ -102,9 +101,15 @@ class RenderConfig:
     wide_tile: int = 128
     max_cluster_visits: int = 64
     ray_order: str = "block"
+    # Traversal diagnostics (render/diagnostics.py): the port's kernels and
+    # brute force are exact and uncapped, so there is no cap to watch and
+    # make_backend passes every ported backend through unchanged.
     debug_traversal: bool = False
 
+    # Read by no code of either package (ROADMAP queue C).
     tile_rays: int = 8192
+    # Sort the wavefront's bounce rays by coherence_key before each trace;
+    # the image is the same either way (each ray's seed travels with it).
     sort_bounces: bool = True
 
     sort_shadows: bool = True
@@ -118,6 +123,9 @@ class RenderConfig:
     # it; False, the JAX package's per-image stencil, raises.
     use_pallas_denoise: bool | None = None
 
+    # Trilinear textures from the mip chain at the footprint's LOD, and
+    # with aniso_taps > 1 that many taps along its major axis (not on
+    # instanced scenes).  render_pipeline compiles the chain only when set.
     mip_textures: bool = False
     aniso_taps: int = 1
 
@@ -138,10 +146,6 @@ def check_supported(cfg: RenderConfig) -> None:
         raise NotImplementedError(
             f"backend {cfg.backend!r} is not ported yet: "
             f"{UNPORTED_BACKENDS[cfg.backend]}")
-    if cfg.debug_traversal:
-        raise NotImplementedError(
-            "traversal diagnostics (render/diagnostics.py) are not ported yet "
-            "(ROADMAP queue A)")
     if cfg.use_pallas_denoise is False:
         raise ValueError(
             "use_pallas_denoise=False has no counterpart in the port: the "

@@ -3,6 +3,7 @@
     python -m realtimeraytracer_torch.frame_profile [--width 1920] [--height 1080]
         [--spp 4] [--shadow-rays 3] [--tris 100000] [--backend auto]
         [--no-sort-shadows] [--scene procedural_mesh] [--bake]
+        [--wavefront]
 
 No JAX counterpart (the JAX package profiled with scripts/ probes on the
 TPU).  Renders procedural_mesh(tris), or one of the alpha-tested
@@ -17,9 +18,12 @@ and idle share over that frame, the same idle share against the unprofiled media
 (the profiler slows the host, which opens launch gaps), the peak device
 memory of the run, the device-timeline span of each labelled range of the
 frame (shade.*, v7.*, v8.*, v9.*, the alpha ladder's rounds alpha.round,
-frame.denoise) beside the kernel time that starts inside it, the ladder's
-host syncs, and the kernels with the most device time.  It needs a CUDA
-device and fails without one.
+frame.denoise; with --wavefront the multi-bounce frame of
+render/wavefront.py, BASELINE config 4 at the defaults (4 spp, 2 bounces),
+and its stages wavefront.closest, wavefront.nee_occluded, wavefront.sort
+and wavefront.shade) beside the kernel time that starts inside it, the
+ladder's host syncs, and the kernels with the most device time.  It needs
+a CUDA device and fails without one.
 """
 
 from __future__ import annotations
@@ -36,10 +40,39 @@ from torch.profiler import ProfilerActivity, profile
 from realtimeraytracer_torch import RenderConfig, scenes
 from realtimeraytracer_torch.render.alpha import wrap_backend_with_alpha
 from realtimeraytracer_torch.render.pipeline import render_pipeline_gpu
+from realtimeraytracer_torch.render.wavefront import render_wavefront
 
 RANGES = ("shade.closest", "shade.lights", "shade.sun", "v7.cull",
           "v7.closest", "v7.occluded", "v9.cull", "v9.closest", "v8.closest",
-          "v8.occluded", "alpha.round", "frame.denoise")
+          "v8.occluded", "alpha.round", "frame.denoise", "wavefront.closest",
+          "wavefront.nee_occluded", "wavefront.sort", "wavefront.shade")
+
+
+def range_times(prof, ranges=RANGES):
+    """Of a profiled run: (device busy ms, the kernel events, {range:
+    [device-timeline span ms, ms of kernel time starting inside it,
+    calls]}).  Device events other than the ranges' own spans count as
+    kernels (one stream, so they do not overlap)."""
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in device if e.name not in ranges]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    # Kernels sorted by start, with prefix sums of their durations (an
+    # alpha frame has ~10^5 kernels and ~10^3 ranges).
+    kernels.sort(key=lambda k: k.time_range.start)
+    starts = [k.time_range.start for k in kernels]
+    prefix = [0.0]
+    for k in kernels:
+        prefix.append(prefix[-1] + k.time_range.elapsed_us())
+    out = {name: [0.0, 0.0, 0] for name in ranges}
+    for e in device:
+        if e.name in ranges:
+            lo = bisect.bisect_left(starts, e.time_range.start)
+            hi = bisect.bisect_left(starts, e.time_range.end)
+            row = out[e.name]
+            row[0] += e.time_range.elapsed_us() / 1e3
+            row[1] += (prefix[hi] - prefix[lo]) / 1e3
+            row[2] += 1
+    return busy_ms, kernels, out
 
 
 def main(argv=None) -> None:
@@ -58,6 +91,9 @@ def main(argv=None) -> None:
                     help="the flagships render alpha-tested; --tris is procedural_mesh's")
     ap.add_argument("--bake", action="store_true",
                     help="compile an instanced scene's instances to world-space copies")
+    ap.add_argument("--wavefront", action="store_true",
+                    help="the multi-bounce frame (render_wavefront, max_bounces=2) instead of "
+                         "the ratio frame")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("frame_profile needs a CUDA device")
@@ -68,7 +104,9 @@ def main(argv=None) -> None:
     cfg = RenderConfig(width=args.width, height=args.height, primary_rays=args.spp,
                        shadow_rays=args.shadow_rays, backend=args.backend,
                        sort_shadows=not args.no_sort_shadows,
-                       alpha_test=args.scene != "procedural_mesh")
+                       alpha_test=args.scene != "procedural_mesh",
+                       max_bounces=2 if args.wavefront else 1)
+    render = render_wavefront if args.wavefront else render_pipeline_gpu
     if args.scene == "procedural_mesh":
         scene = scenes.procedural_mesh(args.tris, sun=True)
     else:
@@ -76,7 +114,7 @@ def main(argv=None) -> None:
     gpu = scene.compile(bake_instances=args.bake).to("cuda")
     frame = scene.camera.viewport_frame(cfg.width, cfg.height, device="cuda")
     torch.cuda.reset_peak_memory_stats()
-    render_pipeline_gpu(gpu, frame, cfg)                        # warm-up
+    render(gpu, frame, cfg)                                     # warm-up
     torch.cuda.synchronize()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
@@ -84,7 +122,7 @@ def main(argv=None) -> None:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        render_pipeline_gpu(gpu, frame, cfg)
+        render(gpu, frame, cfg)
         end.record()
         end.synchronize()
         return start.elapsed_time(end)
@@ -95,14 +133,11 @@ def main(argv=None) -> None:
         profiled_ms = timed_frame()
     syncs = wrap_backend_with_alpha.syncs - syncs
 
-    # Device-side events: kernels and memcpys, plus the GPU-timeline spans
-    # of the record_function ranges (which carry the ranges' names).
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    kernels = [e for e in device if e.name not in RANGES]
-    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    busy_ms, kernels, ranges = range_times(prof)
     print(f"card: {card}")
-    print(f"frame {cfg.width}x{cfg.height}, {args.spp} spp x {args.shadow_rays} shadow rays, "
-          f"backend={cfg.backend}, sort_shadows={cfg.sort_shadows}, "
+    what = (f"wavefront, max_bounces={cfg.max_bounces}"
+            if args.wavefront else f"{args.shadow_rays} shadow rays, sort_shadows={cfg.sort_shadows}")
+    print(f"frame {cfg.width}x{cfg.height}, {args.spp} spp, {what}, backend={cfg.backend}, "
           f"{args.scene}({args.tris if args.scene == 'procedural_mesh' else ''}) "
           f"({gpu.num_tris} tris{', instanced' if gpu.instanced else ''}, "
           f"alpha_test={cfg.alpha_test}, {syncs} ladder host syncs): "
@@ -113,28 +148,9 @@ def main(argv=None) -> None:
           f"{max(0.0, 1.0 - busy_ms / profiled_ms):.4f} of the profiled frame, "
           f"{max(0.0, 1.0 - busy_ms / median_ms):.4f} of the unprofiled median")
     print(f"peak device memory {peak_gib:.3f} GiB (max_memory_allocated over one frame)")
-
-    span = collections.defaultdict(float)
-    inside = collections.defaultdict(float)
-    calls = collections.Counter()
-    # Kernel time starting inside each range: kernels sorted by start, with
-    # prefix sums of their durations (an alpha frame has ~10^5 kernels and
-    # ~10^3 ranges).
-    kernels.sort(key=lambda k: k.time_range.start)
-    starts = [k.time_range.start for k in kernels]
-    prefix = [0.0]
-    for k in kernels:
-        prefix.append(prefix[-1] + k.time_range.elapsed_us())
-    for e in device:
-        if e.name in RANGES:
-            span[e.name] += e.time_range.elapsed_us() / 1e3
-            calls[e.name] += 1
-            lo = bisect.bisect_left(starts, e.time_range.start)
-            hi = bisect.bisect_left(starts, e.time_range.end)
-            inside[e.name] += (prefix[hi] - prefix[lo]) / 1e3
-    for name in RANGES:
-        print(f"range {name:14s} {span[name]:10.2f} ms device span, {inside[name]:10.2f} ms "
-              f"kernel time, over {calls[name]} calls")
+    for name, (span, inside, calls) in ranges.items():
+        print(f"range {name:22s} {span:10.2f} ms device span, {inside:10.2f} ms "
+              f"kernel time, over {calls} calls")
 
     by_name = collections.defaultdict(lambda: [0.0, 0])
     for e in kernels:

@@ -22,10 +22,13 @@ median time over 10 calls (CUDA events; v7 of a tree whose kernel takes
 culled keys includes its plain-torch cull), the A-Trous kernel's SASS
 instruction counts, and the card.  ``frames`` renders the
 reference-default opaque frame on the hybrid and the "pallas" route, the
-baked foliage alpha-tested hybrid frame and the 1M-triangle hybrid frame:
-one frame (peak memory above what was held, an image hash), then the
-median of 3 by CUDA events; it prints ``FR {json}`` and, with
-``--images``, saves each image as ``<dir>/<tag>/<frame>.npy``.
+1M-triangle hybrid frame, the alpha-tested textured_obj (base-level
+textures) and baked foliage hybrid frames, and BASELINE config 4 (the
+wavefront frame at 4 spp and 2 bounces on the 100k scene; skipped on a
+tree without render/wavefront.py): one frame (peak memory above what was
+held, an image hash), then the median of 3 by CUDA events; it prints
+``FR {json}`` and, with ``--images``, saves each image as
+``<dir>/<tag>/<frame>.npy``.
 ``compare`` reads those lines from logs, lists every row hash that differs
 between the first two tags, and prints each tag's times side by side.
 ``images`` holds two tags' saved frames to the frame rule (under 0.5% of
@@ -300,11 +303,11 @@ def frames_ab(tag: str, images: str | None = None) -> dict:
     dev = torch.device("cuda", 0)
     res = {"tag": tag, "ms": {}, "all": {}, "peak_gib": {}, "hash": {}}
 
-    def run(name, gpu, frame, cfg):
+    def run(name, gpu, frame, cfg, render=render_pipeline_gpu):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
-        img = render_pipeline_gpu(gpu, frame, cfg)
+        img = render(gpu, frame, cfg)
         torch.cuda.synchronize()
         res["peak_gib"][name] = (torch.cuda.max_memory_allocated() - held) / 2**30
         res["hash"][name] = hashlib.sha256(img.cpu().numpy().tobytes()).hexdigest()[:16]
@@ -316,7 +319,7 @@ def frames_ab(tag: str, images: str | None = None) -> dict:
         for _ in range(3):
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             a.record()
-            render_pipeline_gpu(gpu, frame, cfg)
+            render(gpu, frame, cfg)
             b.record()
             b.synchronize()
             times.append(a.elapsed_time(b))
@@ -329,11 +332,22 @@ def frames_ab(tag: str, images: str | None = None) -> dict:
     run("opaque hybrid", gpu, scene.camera.viewport_frame(W, H, device=dev), cfg)
     run("opaque pallas", gpu, scene.camera.viewport_frame(W, H, device=dev),
         cfg.replace(backend="pallas"))
+    try:
+        from realtimeraytracer_torch.render.wavefront import render_wavefront
+    except ImportError:
+        res["absent"] = ["config 4 wavefront"]
+    else:
+        run("config 4 wavefront", gpu, scene.camera.viewport_frame(W, H, device=dev),
+            cfg.replace(shadow_rays=1, max_bounces=2, denoise_iterations=0),
+            render=render_wavefront)
     del gpu
     big = scenes.procedural_mesh(1_000_000, sun=True)
     gbig = big.compile(quarter_panels=False).to(dev)
     run("1M hybrid", gbig, big.camera.viewport_frame(W, H, device=dev), cfg)
     del gbig
+    ts = scenes.textured_obj()
+    run("textured_obj hybrid", ts.compile().to(dev), ts.camera.viewport_frame(W, H, device=dev),
+        cfg.replace(alpha_test=True))
     fs = scenes.foliage_field()
     fol = fs.compile(bake_instances=True).to(dev)
     run("foliage baked hybrid", fol, fs.camera.viewport_frame(W, H, device=dev),

@@ -41,14 +41,22 @@ def _block_permutation_np(width: int, height: int, block_w: int, block_h: int):
     return perm, inv
 
 
+@functools.lru_cache(maxsize=8)
+def _block_permutation_on(width: int, height: int, block_w: int, block_h: int,
+                          device: torch.device):
+    perm, inv = _block_permutation_np(width, height, block_w, block_h)
+    return torch.tensor(perm, device=device), torch.tensor(inv, device=device)
+
+
 def block_permutation(width: int, height: int, block_w: int = 16,
                       block_h: int = 8, device: str | torch.device = "cpu"):
     """Permutation turning raster-order rays into (block_h x block_w)-tile
     order, plus its inverse, as int64 index tensors.  Coherent pixel blocks
     give each 128-ray tile a tight direction cone for the cull.  Static per
-    resolution: the host argsort is cached."""
-    perm, inv = _block_permutation_np(width, height, block_w, block_h)
-    return (torch.tensor(perm, device=device), torch.tensor(inv, device=device))
+    resolution and device: built once and cached, so a frame copies nothing
+    from the host for it (the tensors are shared: read them, never write
+    them)."""
+    return _block_permutation_on(width, height, block_w, block_h, torch.device(device))
 
 
 def generate_rays(frame: ViewportFrame, width: int, height: int,

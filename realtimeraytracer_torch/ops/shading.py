@@ -1,14 +1,16 @@
 """BRDF math: GGX Cook-Torrance microfacet model + Lambert diffuse.
 
 Counterpart of realtimeraytracer_tpu/ops/shading.py (reference
-cook-torrance.glsl and raygen.rgen:135-139).  Vectors are (..., 3) float32.
+cook-torrance.glsl and raygen.rgen:135-139), with the wavefront's two
+samplers, ``sample_ggx`` and ``cosine_hemisphere``.  Vectors are (..., 3)
+float32.
 """
 
 from __future__ import annotations
 
 import torch
 
-from realtimeraytracer_torch.ops.vecmath import dot, mix, normalize
+from realtimeraytracer_torch.ops.vecmath import cross, dot, mix, normalize
 
 PI = 3.14159265359
 
@@ -66,3 +68,38 @@ def cook_torrance_specular(view, light, normal, roughness, f0,
 def lambert_diffuse(albedo, metallic):
     """Lambert term (1-metallic)*albedo/pi (raygen.rgen:258)."""
     return (1.0 - metallic[..., None]) * albedo / PI
+
+
+def sample_ggx(n, v, roughness, r1, r2):
+    """GGX importance-sampled reflection direction (cook-torrance.glsl:21-42).
+    Where v is parallel to n the tangent is the zero vector (normalize's
+    eps clamp), as in the JAX package."""
+    a = roughness * roughness
+    phi = 2.0 * PI * r1
+    cos_t = torch.sqrt((1.0 - r2) / (1.0 + (a * a - 1.0) * r2))
+    sin_t = torch.sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
+    hx = torch.cos(phi) * sin_t
+    hy = torch.sin(phi) * sin_t
+
+    t = normalize(v - n * dot(n, v)[..., None])
+    b = cross(n, t)
+    halfway = normalize(hx[..., None] * t + hy[..., None] * b + cos_t[..., None] * n)
+    return 2.0 * dot(v, halfway)[..., None] * halfway - v
+
+
+def cosine_hemisphere(n, r1, r2):
+    """Cosine-weighted hemisphere sample around n, in Frisvad's branchless
+    basis; n.z = -0.0 takes the +1 sign, as jnp.where does."""
+    phi = 2.0 * PI * r1
+    cos_t = torch.sqrt(1.0 - r2)
+    sin_t = torch.sqrt(r2)
+    sign = torch.where(n[..., 2] >= 0.0, 1.0, -1.0)
+    a = -1.0 / (sign + n[..., 2])
+    bvec = n[..., 0] * n[..., 1] * a
+    t = torch.stack([1.0 + sign * n[..., 0] * n[..., 0] * a, sign * bvec,
+                     -sign * n[..., 0]], dim=-1)
+    b = torch.stack([bvec, sign + n[..., 1] * n[..., 1] * a, -n[..., 1]], dim=-1)
+    d = ((torch.cos(phi) * sin_t)[..., None] * t
+         + (torch.sin(phi) * sin_t)[..., None] * b
+         + cos_t[..., None] * n)
+    return normalize(d)

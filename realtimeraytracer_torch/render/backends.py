@@ -183,9 +183,11 @@ def resolve_backend_kind(gpu: TorchScene, cfg: RenderConfig) -> str:
 
 
 def make_backend(gpu: TorchScene, cfg: RenderConfig) -> TraceBackend:
-    """The backend the config selects for this scene, wrapped in the alpha
-    re-trace ladder when cfg.alpha_test is set (the ladder returns the
-    backend unwrapped when the scene has no opacity map)."""
+    """The backend the config selects for this scene, passed through the
+    traversal diagnostics when cfg.debug_traversal is set (which leave
+    every ported backend as it is: none has a cap) and wrapped in the
+    alpha re-trace ladder when cfg.alpha_test is set (the ladder returns
+    the backend unwrapped when the scene has no opacity map)."""
     kind = resolve_backend_kind(gpu, cfg)
     if kind == "pallas":
         from realtimeraytracer_torch.render.v7_backend import make_v7_backend
@@ -203,6 +205,10 @@ def make_backend(gpu: TorchScene, cfg: RenderConfig) -> TraceBackend:
         backend = make_hybrid_backend(gpu, cfg)
     else:
         backend = make_bruteforce_backend(gpu, cfg)
+    if cfg.debug_traversal:
+        from realtimeraytracer_torch.render.diagnostics import wrap_backend_with_debug
+
+        backend = wrap_backend_with_debug(backend, gpu, cfg)
     if cfg.alpha_test:
         from realtimeraytracer_torch.render.alpha import wrap_backend_with_alpha
 

@@ -1,8 +1,8 @@
 """The single-pass frame renderer: primaries, surface, lights, sun.
 
 Counterpart of realtimeraytracer_tpu/render/megakernel.py
-(``_shadow_sort_key``, ``shade_sample``, ``render_components``,
-``render``), the re-design of the reference's ray-generation shader
+(``_shadow_sort_key`` as ``coherence_key``, ``shade_sample``,
+``render_components``, ``render``), the re-design of the reference's ray-generation shader
 (raygen.rgen:71-364).  Per pixel it traces jittered primary rays and
 produces three radiance estimates — analytic direct light via LTC,
 stochastic unshadowed and stochastic shadowed — plus a normal/position
@@ -55,19 +55,22 @@ def _spread(v: torch.Tensor) -> torch.Tensor:
     return v
 
 
-def _shadow_sort_key(origin, to_light, active):
-    """Shadow-ray coherence key (uint32 in int64): direction-to-light octant
-    in the high 3 bits, then a 3D Morton code of the shadow origin; inactive
-    lanes get 0xFFFFFFFF and sort last.  Sorted tiles have thin shadow
-    shafts, which is what a per-tile cull pays for."""
+def coherence_key(origin, direction, active):
+    """Ray coherence key (uint32 in int64): the direction's octant in the
+    high 3 bits, then a 15-bit 3D Morton code of the origin over the active
+    rays' bounds; inactive lanes get 0xFFFFFFFF and sort last.  Sorted
+    tiles have thin ray shafts, which is what a per-tile cull pays for.
+    The JAX package's ``_shadow_sort_key`` (direction = toward the light)
+    and the wavefront's ``_coherence_key`` (bounce rays) are this one
+    function."""
     lo = torch.where(active[:, None], origin, 1e9).amin(dim=0)
     hi = torch.where(active[:, None], origin, -1e9).amax(dim=0)
     ext = torch.clamp_min(hi - lo, 1e-6)
     q = torch.clamp((origin - lo) / ext * 31.0, 0, 31).to(torch.int64)
     m = (_spread(q[:, 0]) << 2) | (_spread(q[:, 1]) << 1) | _spread(q[:, 2])
-    oct_ = ((to_light[:, 0] > 0).to(torch.int64)
-            + 2 * (to_light[:, 1] > 0).to(torch.int64)
-            + 4 * (to_light[:, 2] > 0).to(torch.int64))
+    oct_ = ((direction[:, 0] > 0).to(torch.int64)
+            + 2 * (direction[:, 1] > 0).to(torch.int64)
+            + 4 * (direction[:, 2] > 0).to(torch.int64))
     key = (oct_ << 28) | (m & 0x0FFFFFFF)
     return torch.where(active, key, 0xFFFFFFFF)
 
@@ -85,16 +88,22 @@ class SampleRadiance(NamedTuple):
 def shade_sample(gpu: TorchScene, cfg: RenderConfig, origins, dirs,
                  pixel_seed, backend: TraceBackend,
                  sample_index: int = 0,
+                 lod_scale: torch.Tensor | None = None,
                  hint_state: dict | None = None) -> SampleRadiance:
     """Shade one primary sample of every pixel.  pixel_seed: (R,) uint32
-    values in int64 (px*733 + py*1933 + frame).  hint_state: the shadow-hint
-    chain (key ("lt", i) per light triangle, "sun"), updated in place; None
-    when the backend has no hinted occlusion."""
+    values in int64 (px*733 + py*1933 + frame).  lod_scale: the pixel
+    footprint per unit distance (render_components computes it when
+    cfg.mip_textures is set); textures are then sampled from the mip chain.
+    hint_state: the shadow-hint chain (key ("lt", i) per light triangle,
+    "sun"), updated in place; None when the backend has no hinted
+    occlusion."""
     R = origins.shape[0]
     # Primaries share the pinhole origin: common="origin".
     with record_function("shade.closest"):
         hit = backend.closest(origins, dirs, cfg.t_min, cfg.t_max, common="origin")
-    surf = resolve_surface(gpu, hit, origins, dirs)
+    surf = resolve_surface(gpu, hit, origins, dirs,
+                           lod_scale=lod_scale if cfg.mip_textures else None,
+                           aniso_taps=cfg.aniso_taps)
 
     # Miss: equirect HDRI environment (miss.rmiss:21-26).
     env = srgb_to_linear(sample_equirect(gpu.hdri, dirs)) * gpu.env_color
@@ -135,13 +144,13 @@ def shade_sample(gpu: TorchScene, cfg: RenderConfig, origins, dirs,
             active = (lvalid & (ltwo | front)) & surf.valid
             active_f = active.to(torch.float32)[:, None]
 
-            # Shadow-ray reordering (_shadow_sort_key): one stable argsort per
+            # Shadow-ray reordering (coherence_key): one stable argsort per
             # light triangle; all samples trace and shade in sorted order and
             # the per-ray seed travels with the ray, so results equal the
             # unsorted path.
             if use_sort:
                 centroid = (p0 + p1 + p2) * (1.0 / 3.0)
-                key = _shadow_sort_key(shadow_origin, centroid[None, :] - p, active)
+                key = coherence_key(shadow_origin, centroid[None, :] - p, active)
                 order = torch.argsort(key, stable=True)
                 inv_order = torch.argsort(order, stable=True)
                 packed = torch.cat([p, n, view, lam, m_specular,
@@ -299,6 +308,15 @@ def render_components(gpu: TorchScene, frame: ViewportFrame, cfg: RenderConfig,
     else:
         perm = inv_perm = None
 
+    # Pixel angular footprint for the mip LOD: the world pixel step on the
+    # viewport plane over the centre ray's distance to that plane.
+    lod_scale = None
+    if cfg.mip_textures:
+        center = (frame.top_left + (w * 0.5) * frame.h_delta
+                  + (h * 0.5) * frame.v_delta - frame.position)
+        lod_scale = (torch.linalg.vector_norm(frame.h_delta)
+                     / torch.clamp_min(torch.linalg.vector_norm(center), 1e-6))
+
     acc = None
     # Shadow-hint chain (see shade_sample), threaded through the samples.
     hint_state = {} if backend.occluded_hinted is not None else None
@@ -307,7 +325,7 @@ def render_components(gpu: TorchScene, frame: ViewportFrame, cfg: RenderConfig,
         if perm is not None:
             o, d = o[perm], d[perm]
         out = shade_sample(gpu, cfg, o, d, pixel_seed, backend, sample_index=s,
-                           hint_state=hint_state)
+                           lod_scale=lod_scale, hint_state=hint_state)
         acc = out if acc is None else SampleRadiance(*(a + b for a, b in zip(acc, out)))
     if inv_perm is not None:
         acc = SampleRadiance(*(x[inv_perm] for x in acc))

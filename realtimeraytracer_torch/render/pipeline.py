@@ -48,6 +48,26 @@ def render_pipeline_gpu(gpu: TorchScene, frame: ViewportFrame, cfg: RenderConfig
         return denoise_and_combine(comp, cfg)
 
 
+def require_device(device: str | torch.device) -> torch.device:
+    """The device an entry point renders on; a CUDA device that is not
+    there raises (an entry point never renders on the CPU instead)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"render on {device} needs a CUDA device and none is available; "
+            "pass device='cpu' to render with the plain PyTorch twins")
+    return device
+
+
+def compile_for(scene, cfg: RenderConfig, device: torch.device) -> TorchScene:
+    """Compile a Scene for cfg's frame and move it to `device`.  Only the
+    v9 kernel reads the SAH-repacked panels, and only the mip path the mip
+    chain; frames that need neither skip their host build."""
+    v9 = cfg.backend in ("quarter", "hybrid") or (cfg.backend == "auto" and cfg.use_bvh)
+    return scene.compile(bvh_leaf_size=cfg.bvh_leaf_size, quarter_panels=v9,
+                         mip_textures=cfg.mip_textures).to(device)
+
+
 def render_pipeline(scene, cfg: RenderConfig | None = None,
                     frame_index: int = 0,
                     device: str | torch.device = "cuda") -> torch.Tensor:
@@ -61,11 +81,7 @@ def render_pipeline(scene, cfg: RenderConfig | None = None,
     so the instances of an instanced scene do not count)."""
     from realtimeraytracer_torch.scene.scene import Scene
 
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"render on {device} needs a CUDA device and none is available; "
-            "pass device='cpu' to render with the plain PyTorch twins")
+    device = require_device(device)
     cfg = cfg or RenderConfig()
     if not isinstance(scene, Scene):
         raise TypeError(
@@ -75,9 +91,6 @@ def render_pipeline(scene, cfg: RenderConfig | None = None,
         cfg = cfg.replace(alpha_test=any(
             m.material.opacity_map is not None for m in scene.meshes))
     check_supported(cfg)
-    # Only the v9 kernel reads the SAH-repacked panels; other routes skip
-    # their host build.
-    v9 = cfg.backend in ("quarter", "hybrid") or (cfg.backend == "auto" and cfg.use_bvh)
-    gpu = scene.compile(bvh_leaf_size=cfg.bvh_leaf_size, quarter_panels=v9).to(device)
+    gpu = compile_for(scene, cfg, device)
     frame = scene.camera.viewport_frame(cfg.width, cfg.height, device=device)
     return render_pipeline_gpu(gpu, frame, cfg, frame_index)

@@ -9,8 +9,12 @@ metallic maps sampled bilinearly from the packed atlas at the hit's uv
 (one gather per map), sRGB decode and roughness = 1 - specular.  On
 instanced scenes the mesh-space pools move to world space by the hit's
 instance (points by its forward transform, normals by the inverse
-transpose) and the material is the instance's object row.  The mip branch
-is not ported yet (ROADMAP A1).
+transpose) and the material is the instance's object row.  Given a
+``lod_scale`` (cfg.mip_textures), the maps are sampled trilinearly from
+the mip chain at the LOD of the hit's pixel footprint, and with
+``aniso_taps`` > 1 by that many taps along the footprint's major axis
+(image_sampler.cppm:11-51; not on instanced scenes, as in the JAX
+package).
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from typing import NamedTuple
 import torch
 
 from realtimeraytracer_torch.ops.intersect import HitRecord, ray_triangle
+from realtimeraytracer_torch.ops import texture
 from realtimeraytracer_torch.ops.texture import sample_atlas_packed
 from realtimeraytracer_torch.ops.tonemap import srgb_to_linear
 from realtimeraytracer_torch.ops.vecmath import normalize
@@ -43,7 +48,12 @@ class Surface(NamedTuple):
 
 
 def resolve_surface(gpu: TorchScene, hit: HitRecord, origins: torch.Tensor,
-                    dirs: torch.Tensor) -> Surface:
+                    dirs: torch.Tensor, lod_scale: torch.Tensor | None = None,
+                    aniso_taps: int = 1) -> Surface:
+    """lod_scale: the pixel footprint in world units per unit of distance
+    along the ray; given, the maps are sampled from the mip chain (the
+    scene must have been compiled with mip_textures=True).  None samples
+    the base level bilinearly."""
     num_tris = gpu.num_tris
     num_spheres = gpu.num_spheres
 
@@ -142,12 +152,19 @@ def resolve_surface(gpu: TorchScene, hit: HitRecord, origins: torch.Tensor,
     position = torch.where(valid[..., None], position, 0.0)
     normal = torch.where(valid[..., None], normal, 0.0)
 
-    if gpu.has_textures:
+    if gpu.has_textures and lod_scale is not None:
+        if not gpu.has_mips:
+            raise ValueError("mip-mapped sampling needs the mip chain: compile the "
+                             "scene with mip_textures=True")
+        fetch = _mip_fetch(gpu, hit, dirs, normal, uv, tex, g, v0, v1, v2, is_tri,
+                           lod_scale, aniso_taps)
+    elif gpu.has_textures:
         # Texture overrides only where a map index is >= 0; one gather per
         # map from the packed atlas.
         def fetch(ch):
             return sample_atlas_packed(gpu.tex_atlas_packed, gpu.tex_size,
                                        tex[..., ch], uv[..., 0], uv[..., 1])
+    if gpu.has_textures:
         color = torch.where((tex[..., 0] >= 0)[..., None], fetch(0)[..., :3], color)
         spec = torch.where(tex[..., 1] >= 0, fetch(1)[..., 0], spec)
         metal = torch.where(tex[..., 2] >= 0, fetch(2)[..., 0], metal)
@@ -158,3 +175,60 @@ def resolve_surface(gpu: TorchScene, hit: HitRecord, origins: torch.Tensor,
         albedo=srgb_to_linear(color), roughness=1.0 - spec, metallic=metal,
         light_color=emit_color, obj_id=obj,
     )
+
+
+def _mip_fetch(gpu: TorchScene, hit: HitRecord, dirs, normal, uv, tex, g,
+               v0, v1, v2, is_tri, lod_scale, aniso_taps: int):
+    """The mip branch's fetch(channel).  The footprint at the hit is
+    t * lod_scale (its minor axis); the grazing stretch 1/cos gives the
+    major axis.  Isotropic sampling (aniso_taps = 1) blurs to the major
+    extent; anisotropic sampling keeps the minor-axis LOD, the anisotropy
+    clamped to the tap count, and spreads the taps along the view
+    direction projected into the surface and mapped to uv through the
+    triangle's edge-to-uv map."""
+    cosang = torch.clamp(torch.abs((normal * dirs).sum(-1)), 0.08, 1.0)
+    aniso = aniso_taps > 1 and not gpu.instanced
+    fp_minor = hit.t * lod_scale
+    fp_world = fp_minor / cosang
+    if aniso:
+        fp_minor = torch.maximum(fp_minor, fp_world / aniso_taps)
+    tid = torch.clamp(hit.prim_id, 0, max(gpu.num_tris - 1, 0)).long()
+    density = gpu.face_uv_density[tid] * is_tri.to(torch.float32)
+    fp_uv = (fp_minor if aniso else fp_world) * density
+    num_levels = gpu.mip_levels
+
+    duv_half = None
+    if aniso:
+        e1, e2 = v1 - v0, v2 - v0
+        duv1 = g[..., 20:22] - g[..., 18:20]
+        duv2 = g[..., 22:24] - g[..., 18:20]
+        m_w = dirs - normal * (dirs * normal).sum(-1, keepdim=True)
+        m_w = m_w / torch.clamp_min(torch.linalg.vector_norm(m_w, dim=-1, keepdim=True), 1e-8)
+        g11 = (e1 * e1).sum(-1)
+        g12 = (e1 * e2).sum(-1)
+        g22 = (e2 * e2).sum(-1)
+        det = torch.clamp_min(g11 * g22 - g12 * g12, 1e-12)
+        b1 = (m_w * e1).sum(-1)
+        b2 = (m_w * e2).sum(-1)
+        a = (g22 * b1 - g12 * b2) / det
+        b = (g11 * b2 - g12 * b1) / det
+        uv_dir = a[..., None] * duv1 + b[..., None] * duv2
+        # Half the major extent beyond the minor one: the taps' minor-LOD
+        # footprints then cover the stretched pixel without overshooting.
+        half_w = 0.5 * torch.clamp_min(fp_world - fp_minor, 0.0)
+        duv_half = torch.where(is_tri[..., None], uv_dir * half_w[..., None], 0.0)
+
+    def fetch(channel):
+        dims = gpu.tex_size[torch.clamp_min(tex[..., channel], 0).long()]
+        texels = fp_uv * torch.sqrt((dims[..., 0] * dims[..., 1]).to(torch.float32))
+        lod = torch.log2(torch.clamp_min(texels, 1.0))
+        if aniso:
+            return texture.sample_atlas_aniso(
+                gpu.tex_mip_atlas, gpu.tex_size, num_levels, tex[..., channel],
+                uv[..., 0], uv[..., 1], lod, duv_half, aniso_taps,
+                packed=gpu.tex_mip_atlas_packed)
+        return texture.sample_atlas_mip(
+            gpu.tex_mip_atlas, gpu.tex_size, num_levels, tex[..., channel],
+            uv[..., 0], uv[..., 1], lod, packed=gpu.tex_mip_atlas_packed)
+
+    return fetch

@@ -2,10 +2,11 @@
 
 Counterpart of realtimeraytracer_tpu/scene/gpu_scene.py (``GPUScene``): the
 same leaves, names, shapes and dtypes, as tensors, including the v9
-repacked panels, the texture atlas and its packed-neighbour twin, the alpha
-masks of both panel sets, the BVH's refit ranges and the shared-geometry
-instancing tables (``instanced``).  The mip atlas and the opaque/alpha
-panel split are not carried.
+repacked panels, the texture atlas and its packed-neighbour twin, the mip
+chain of the atlas with its packed twin and the per-face uv density (when
+the scene was compiled with mips), the alpha masks of both panel sets, the
+BVH's refit ranges and the shared-geometry instancing tables
+(``instanced``).  The opaque/alpha panel split is not carried.
 """
 
 from __future__ import annotations
@@ -80,6 +81,12 @@ class TorchScene:
     tex_atlas: torch.Tensor | None = None         # (T, S, S, 4) f32
     tex_size: torch.Tensor | None = None          # (T, 2) i32
     tex_atlas_packed: torch.Tensor | None = None  # (T, S, S, 16) f32
+    # Mip chain of the atlas (ops/texture.py::build_mip_atlas_np): level k
+    # at rows [2S - 2S/2^k, ...); its packed twin; per face sqrt(uv area /
+    # world area) for the LOD.  None unless compiled with mip_textures.
+    tex_mip_atlas: torch.Tensor | None = None         # (T, 2S, S, 4) f32
+    tex_mip_atlas_packed: torch.Tensor | None = None  # (T, 2S, S, 16) f32
+    face_uv_density: torch.Tensor | None = None       # (F,) f32
     # Conservative 8x8 barycentric alpha masks (ops/alpha_mask.py), laid
     # out like the v7/v8 panels and, by repacked slot, like the v9 panels.
     pallas_amask: torch.Tensor | None = None      # (CB, 2, 128) i32
@@ -113,6 +120,18 @@ class TorchScene:
         """Whether the scene has textures (then tex_atlas_packed, which the
         samplers read, is there too)."""
         return self.tex_atlas is not None and self.tex_atlas.shape[0] > 0
+
+    @property
+    def has_mips(self) -> bool:
+        """Whether the scene carries the mip leaves that the mip path reads."""
+        return (self.tex_mip_atlas is not None and self.tex_mip_atlas.shape[0] > 0
+                and self.tex_mip_atlas_packed is not None
+                and self.face_uv_density is not None)
+
+    @property
+    def mip_levels(self) -> int:
+        """Levels of the mip chain: S = 2^n gives n + 1 (1 for S = 1)."""
+        return max(1, self.tex_mip_atlas.shape[2].bit_length())
 
     @property
     def has_bvh(self) -> bool:

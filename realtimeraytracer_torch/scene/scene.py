@@ -6,7 +6,9 @@ Counterpart of realtimeraytracer_tpu/scene/scene.py (``Scene``,
 
 Scenes without instances compile to one world-space vertex/index pool
 (lights first, tlas.cppm:77-82) with the object and light tables (texture
-ids included), the texture atlas and its packed-neighbour twin, the LBVH
+ids included), the texture atlas and its packed-neighbour twin (with
+``mip_textures=True`` also its mip chain, the chain's packed twin and the
+per-face uv density that the mip LOD reads), the LBVH
 with its per-node refit ranges (ops/refit.py), the v7 coefficient panels
 and, for scenes of at most RESIDENT_CB blocks, the v9 repacked panels
 (ops/repack.py), the conservative alpha masks of both panel sets
@@ -19,8 +21,11 @@ table, and world-space (instance, supercluster) box pages for the v8
 kernel's instanced top level (render/hier_backend.py).  The leaves equal
 the JAX compile's when both use the NumPy BVH builder.
 
-Not ported yet (ROADMAP queue A): the mip atlas and the per-face uv
-density of the mip path, and the native C++ BVH builder.  The opaque/alpha
+The JAX compile builds the mip leaves for every textured scene; the port
+builds them only when asked (``compile(mip_textures=True)``, which
+``render_pipeline`` sets from ``cfg.mip_textures``), so frames without
+mips keep their compile time and device bytes (ROADMAP queue C).  Not
+ported yet (ROADMAP queue A): the native C++ BVH builder.  The opaque/alpha
 panel split of the JAX compile belongs to ``alpha_split``, which is not
 ported.
 """
@@ -99,6 +104,15 @@ def _pack_textures(textures) -> tuple[np.ndarray, np.ndarray]:
         atlas[i, :h, :w, : t.shape[2]] = t
         sizes[i] = (h, w)
     return atlas, sizes
+
+
+def _uv_density(v0, v1, v2, uv0, uv1, uv2) -> np.ndarray:
+    """Per-face sqrt(uv area / world area): the texture-LOD density of the
+    mip path."""
+    world_a2 = np.linalg.norm(np.cross(v1 - v0, v2 - v0), axis=1)
+    e1uv, e2uv = uv1 - uv0, uv2 - uv0
+    uv_a2 = np.abs(e1uv[:, 0] * e2uv[:, 1] - e1uv[:, 1] * e2uv[:, 0])
+    return np.sqrt(uv_a2 / np.maximum(world_a2, 1e-20)).astype(np.float32)
 
 
 def _cat(parts, empty_shape, dtype=np.float32):
@@ -225,11 +239,12 @@ class Scene:
         return len(self.textures) - 1
 
     def compile(self, bvh_leaf_size: int = 4, bvh_threshold: int = 64,
-                quarter_panels: bool = True,
-                bake_instances: bool = False) -> TorchScene:
+                quarter_panels: bool = True, bake_instances: bool = False,
+                mip_textures: bool = False) -> TorchScene:
         """Compile to a TorchScene on the CPU (``.to(device)`` moves it)."""
         return from_numpy_leaves(self.compile_leaves(
-            bvh_leaf_size, bvh_threshold, quarter_panels, bake_instances))
+            bvh_leaf_size, bvh_threshold, quarter_panels, bake_instances,
+            mip_textures))
 
     def _baked(self) -> "Scene":
         """A copy whose instances are world-space meshes (transform =
@@ -247,19 +262,29 @@ class Scene:
                 name=inst.name or m.name))
         return baked
 
-    def _env_leaves(self) -> dict[str, np.ndarray]:
-        """Sun, environment, LTC tables and the texture atlas."""
+    def _env_leaves(self, mip_textures: bool = False) -> dict[str, np.ndarray]:
+        """Sun, environment, LTC tables and the texture atlas (with its mip
+        chain when asked)."""
         sun = self.sun
         sun_dir = sun.normalized_direction() if sun else np.zeros(3, np.float32)
         hdri = np.ones((1, 1, 3), np.float32) if self.hdri is None else self.hdri
         ltc1, ltc2 = load_ltc_tables()
         atlas, tex_size = _pack_textures(self.textures)
+        mips = {}
         if len(self.textures):
-            from realtimeraytracer_torch.ops.texture import pack_atlas_neighbors_np
+            from realtimeraytracer_torch.ops import texture
 
-            atlas_packed = pack_atlas_neighbors_np(atlas, tex_size)
+            atlas_packed = texture.pack_atlas_neighbors_np(atlas, tex_size)
+            if mip_textures:
+                mip_atlas, n_levels = texture.build_mip_atlas_np(atlas, tex_size)
+                mips = dict(tex_mip_atlas=mip_atlas,
+                            tex_mip_atlas_packed=texture.pack_mip_atlas_neighbors_np(
+                                mip_atlas, tex_size, n_levels))
         else:
             atlas_packed = np.zeros((0, 8, 8, 16), np.float32)
+        if mip_textures and not mips:
+            mips = dict(tex_mip_atlas=np.zeros((0, 16, 8, 4), np.float32),
+                        tex_mip_atlas_packed=np.zeros((0, 16, 8, 16), np.float32))
         return dict(
             sun_direction=np.asarray(sun_dir, np.float32),
             sun_color=np.asarray(sun.color if sun else (0, 0, 0), np.float32),
@@ -267,11 +292,11 @@ class Scene:
             hdri=np.asarray(hdri, np.float32),
             env_color=np.asarray(self.env_color, np.float32),
             ltc1=ltc1, ltc2=ltc2, tex_atlas=atlas, tex_size=tex_size,
-            tex_atlas_packed=atlas_packed)
+            tex_atlas_packed=atlas_packed, **mips)
 
     def compile_leaves(self, bvh_leaf_size: int = 4, bvh_threshold: int = 64,
-                       quarter_panels: bool = True,
-                       bake_instances: bool = False) -> dict[str, np.ndarray]:
+                       quarter_panels: bool = True, bake_instances: bool = False,
+                       mip_textures: bool = False) -> dict[str, np.ndarray]:
         """The compiled leaves as NumPy arrays (TorchScene field names).
         Builds the LBVH and v7 panels when the soup exceeds bvh_threshold
         triangles, and the v9 repacked panels too unless quarter_panels is
@@ -280,12 +305,14 @@ class Scene:
         to the shared-geometry form (``_compile_instanced``; the BVH
         arguments do not apply there), or with bake_instances=True to
         world-space copies of every instance (the JAX package's oracle for
-        its instanced form)."""
+        its instanced form).  mip_textures=True adds the mip chain of the
+        atlas, its packed twin and the per-face uv density (face_uv_density,
+        in the compiled face order)."""
         if self.instances:
             if not bake_instances:
-                return self._compile_instanced()
+                return self._compile_instanced(mip_textures)
             return self._baked().compile_leaves(bvh_leaf_size, bvh_threshold,
-                                                quarter_panels)
+                                                quarter_panels, mip_textures=mip_textures)
         verts, norms, uvs, faces, face_obj, vert_obj = [], [], [], [], [], []
         obj_rows: list[tuple] = []
         lights = _Lights()
@@ -335,7 +362,7 @@ class Scene:
 
         objs = _obj_leaves(obj_rows)
         ot = objs["obj_tex"]
-        env = self._env_leaves()
+        env = self._env_leaves(mip_textures)
         atlas, tex_size = env["tex_atlas"], env["tex_size"]
 
         if len(faces_arr) > bvh_threshold:
@@ -392,13 +419,18 @@ class Scene:
             bvh_fields.update(bvh_node_tri_start=ns, bvh_node_tri_end=ne)
         else:
             bvh_fields = dict(_BVH_DUMMIES)
+        if mip_textures:
+            # After the BVH face permutation, so that it is indexed by prim id.
+            bvh_fields.update(face_uv_density=_uv_density(
+                *(vertices[faces_arr[:, k]] for k in range(3)),
+                *(uv_arr[faces_arr[:, k]] for k in range(3))))
 
         return dict(
             vertices=vertices, normals=normals, uvs=uv_arr,
             faces=faces_arr, face_obj=face_obj_arr, **objs, **sph,
             **lights.leaves(), vert_obj=vert_obj_arr, **env, **bvh_fields)
 
-    def _compile_instanced(self) -> dict[str, np.ndarray]:
+    def _compile_instanced(self, mip_textures: bool = False) -> dict[str, np.ndarray]:
         """Shared-geometry leaves: one coefficient-panel set per unique mesh
         (the BLAS analogue), a per-instance transform and object table, and
         world-space (instance, supercluster) box pages for the v8 kernel's
@@ -410,7 +442,9 @@ class Scene:
         the surface resolver index without per-mesh offset tables.  Each
         light quad is its own world-space mesh with an identity instance
         (lights first, tlas.cppm:77-82); meshes and then instances follow,
-        one object row each."""
+        one object row each.  With mip_textures, face_uv_density is the
+        mesh-space density of each pool face (instance scale taken as 1, as
+        in the JAX package)."""
         from realtimeraytracer_torch.ops.bvh import build_bvh
         from realtimeraytracer_torch.scene.panels import pack_clusters_np
 
@@ -457,7 +491,7 @@ class Scene:
         sph = _sphere_leaves(self.spheres, obj_rows)
 
         # ---- per-unique-mesh pools (mesh space, Morton-sorted) ----------
-        verts_p, norms_p, uvs_p, faces_p = [], [], [], []
+        verts_p, norms_p, uvs_p, faces_p, dens_p = [], [], [], [], []
         coeff_l, clmin_l, clmax_l, blk_rows = [], [], [], []
         mesh_block_base, mesh_sup_base, mesh_sup_aabbs = [], [], []
         vtx_base = blk_base = sup_base = 0
@@ -474,6 +508,10 @@ class Scene:
             fpad = nb * CB - len(fs)
             faces_p.append(np.concatenate([fs + vtx_base, np.zeros((fpad, 3), np.int32)]))
             verts_p.append(v); norms_p.append(n); uvs_p.append(uv)
+            if mip_textures:
+                dens = _uv_density(tv0[perm], tv1[perm], tv2[perm],
+                                   uv[fs[:, 0]], uv[fs[:, 1]], uv[fs[:, 2]])
+                dens_p.append(np.concatenate([dens, np.zeros(fpad, np.float32)]))
 
             bmin = clmin.reshape(nb, 4, 3).min(axis=1)
             bmax = clmax.reshape(nb, 4, 3).max(axis=1)
@@ -547,7 +585,9 @@ class Scene:
 
         objs = _obj_leaves(obj_rows)
         ot = objs["obj_tex"]
-        env = self._env_leaves()
+        env = self._env_leaves(mip_textures)
+        if mip_textures:
+            env["face_uv_density"] = np.concatenate(dens_p).astype(np.float32)
 
         # Conservative alpha masks over the pools.  A pool face's opacity
         # map is its instances' material's; where the instances of one

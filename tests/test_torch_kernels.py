@@ -28,6 +28,8 @@ transposed visit) is held to the twin on tiles whose hints retire every
 ray, on L1 key lists longer than a warp (34 supers; the 2,584-pair
 instanced foliage) and on a tie of quantized t across two blocks, which
 goes to the block visited first (the v8 twin takes the lower block id).
+The wavefront multi-bounce frame (render/wavefront.py) is held to its
+twins at 160x90 on the hybrid and the "pallas" route, with its launches.
 On the CPU: the fused v9 entry refuses bad inputs before any build, the
 ordered loop agrees with the twin, and each ctypes signature matches its
 C entry.
@@ -53,6 +55,7 @@ from realtimeraytracer_torch.render import v7_backend as v7
 from realtimeraytracer_torch.render.backends import make_hybrid_backend
 from realtimeraytracer_torch.render.megakernel import render_components
 from realtimeraytracer_torch.render.pipeline import render_pipeline_gpu
+from realtimeraytracer_torch.render.wavefront import render_wavefront
 from realtimeraytracer_torch.scene.geometry import TriangleMesh
 from realtimeraytracer_torch.scene.materials import Material
 from realtimeraytracer_torch.scene.panels import RESIDENT_CB
@@ -344,6 +347,30 @@ def test_hybrid_frame_kernels_match_twins(cuda):
         for i in range(4):
             s, u = atrous_pair_iteration_plain(s, u, comp.normal, comp.position, i + 1, *PHIS)
         img_p = ratio_combine(comp.analytic, s, u).cpu().numpy()
+    assert np.isfinite(img_k).all() and img_k.std() > 0
+    assert (np.abs(img_k - img_p) > 2e-3).mean() < 5e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["auto", "pallas"])
+def test_wavefront_kernels_match_twins(cuda, backend):
+    """The multi-bounce frame: hybrid (v9 at bounce 0, v8 incoherent
+    closest and unhinted occlusion) or pallas (v7 everywhere), 160x90."""
+    scene = scenes.procedural_mesh(3000, sun=True)
+    gpu = scene.compile().to(cuda)
+    cfg = RenderConfig(width=160, height=90, primary_rays=2, shadow_rays=1, max_bounces=2,
+                       backend=backend)
+    frame = scene.camera.viewport_frame(160, 90, device=cuda)
+    counters = (v7.trace_blocks, qb.trace_blocks_quarter, hb.trace_blocks_hier)
+    before = [c.launches for c in counters]
+    img_k = render_wavefront(gpu, frame, cfg).cpu().numpy()
+    counts = [c.launches - b for c, b in zip(counters, before)]
+    # Per sample: 3 closest traces (bounces 0-2), 2 x 2 occlusions (bounces 0-1).
+    assert counts == ([0, 2, 2 * 6] if backend == "auto" else [2 * 7, 0, 0])
+    plain = (make_hybrid_backend(gpu, cfg, plain=True) if backend == "auto"
+             else v7.make_v7_backend(gpu, cfg, trace=v7.trace_blocks_plain))
+    img_p = render_wavefront(gpu, frame, cfg, backend=plain).cpu().numpy()
+    assert [c.launches - b for c, b in zip(counters, before)] == counts
     assert np.isfinite(img_k).all() and img_k.std() > 0
     assert (np.abs(img_k - img_p) > 2e-3).mean() < 5e-3
 

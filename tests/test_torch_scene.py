@@ -64,9 +64,8 @@ def test_from_numpy_leaves_roundtrip(monkeypatch):
 
 
 def test_unported_scene_features_raise(monkeypatch):
-    """Textured scenes compile since the third slice and instanced ones, on
-    JAX leaves and in the port's own compile, since the fourth; the mip
-    path still raises where a config asks for it."""
+    """Textured and instanced scenes compile, on JAX leaves and in the
+    port's own compile, and a config may ask for the mip fields."""
     tex = JaxScene()
     idx = tex.add_texture(np.ones((4, 4, 3), np.float32))
     tex.add(JaxMesh(vertices=np.eye(3, dtype=np.float32), faces=np.array([[0, 1, 2]]),
@@ -85,8 +84,8 @@ def test_unported_scene_features_raise(monkeypatch):
     assert mapped.compile().instanced
     assert mapped.compile(bake_instances=True).num_tris == 4
     for field, value in (("mip_textures", True), ("aniso_taps", 4)):
-        with pytest.raises(NotImplementedError, match=field):
-            check_supported(RenderConfig(**{field: value}))
+        assert field not in UNPORTED_FIELDS
+        check_supported(RenderConfig(**{field: value}))
 
 
 @pytest.mark.parametrize("backend", ["wide", "hier", "quarter", "hybrid"])
@@ -141,5 +140,16 @@ def test_backend_resolution():
 def test_alpha_fields_are_supported(field, value):
     """The alpha-tested frame reads these fields; serialize_shadow_samples
     is read and has nothing to fence in eager PyTorch."""
+    assert field not in UNPORTED_FIELDS
+    check_supported(RenderConfig(**{field: value}))
+
+
+@pytest.mark.parametrize("field,value", [
+    ("max_bounces", 3), ("sort_bounces", False), ("tile_rays", 4096),
+    ("mip_textures", True), ("aniso_taps", 4), ("debug_traversal", True)])
+def test_bounce_and_texture_fields_are_supported(field, value):
+    """The wavefront reads max_bounces and sort_bounces, the mip path
+    mip_textures and aniso_taps, make_backend debug_traversal; tile_rays
+    is read by no code of either package and is accepted as in JAX."""
     assert field not in UNPORTED_FIELDS
     check_supported(RenderConfig(**{field: value}))
