@@ -119,10 +119,33 @@ Phases, each of which ends the run with a non-zero exit on failure:
      device bytes of the mip leaves, the 1080p alpha-tested frames with
      mip_textures=True at aniso_taps 1 and 4 (launches, frame time, peak
      memory, beside phase 14's base-level frames), the difference from the
-     base-level image.
-Each main-path frame (5, 8, 9, 14, 18, 22, 24, 26, 27 and 28) and the
-probe's timed run (23) are driven with every kernel's launch count set to 0
-just before and read just after.  The line before the last is a
+     base-level image;
+ 29. the A-Trous pair's backward (B5b, csrc/atrous_pair_vjp.cu) against its
+     twin (autograd of the plain iteration) at 320x180 and 1920x1080:
+     steps 1 to 8 with and without the normal and position gradients, and
+     the four iterations under autograd; registers and spills, its time
+     for the frame's four iterations beside its bound, the twin's time and
+     peak memory;
+ 30. gradients through the kernels against the twins: radiance_loss on
+     procedural_mesh(100_000, sun=True) at 320x180, shadow_rays=3, for
+     obj_color, lt_intensity, sun_intensity, env_color and vertices, and on
+     sphere_plane (compiled with a BVH) for sph_center and sph_radius: the
+     losses bit-equal, the gradients within rtol 1e-4; launches;
+ 31. BASELINE config 5 on one card: fit(loss="radiance") on
+     procedural_mesh(100_000, sun=True) at 1920x1080 (raster-order
+     primaries, shadow_rays=3, obj_color and lt_intensity from a perturbed
+     start), 5 steps with a falling loss and their launches; the step's
+     median time, peak memory, launches and host syncs per step; a
+     checkpoint saved at step 3 and restored, whose next step equals the
+     uninterrupted one;
+ 32. one pipeline_loss gradient at the reference defaults (obj_color,
+     vertices: launches, forward and backward time of a first and a second
+     run, peak memory), one
+     wavefront_loss gradient (1 spp, 2 bounces), and a 160x90
+     pipeline_loss gradient through the kernels against the twins.
+Each main-path run (5, 8, 9, 14, 18, 22, 24, 26, 27, 28, 30, each step of
+31 and 32) and the probe's timed run (23) are driven with every kernel's
+launch count set to 0 just before and read just after.  The line before the last is a
 JSON object describing each kernel (times, launches, error, bound); the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 without the package beside it, the script fails before printing either.
@@ -141,6 +164,7 @@ import subprocess
 import sys
 import time
 import warnings
+from pathlib import Path
 
 import numpy as np
 
@@ -382,8 +406,10 @@ def main() -> int:
         raise SmokeFailure(f"cannot import realtimeraytracer_torch ({e}); run from the repository root") from e
     from realtimeraytracer_torch import kernels, probes, scenes
     from realtimeraytracer_torch.ops.camera_rays import block_permutation, generate_rays
+    from realtimeraytracer_torch.diff import checkpoint, optimize as opt
     from realtimeraytracer_torch.ops.denoise_kernel import (
-        atrous_denoise_pair, atrous_pair_iteration_kernel, atrous_pair_iteration_plain)
+        atrous_denoise_pair, atrous_pair_iteration_kernel, atrous_pair_iteration_plain,
+        atrous_pair_iteration_vjp_kernel, atrous_pair_iteration_vjp_plain)
     from realtimeraytracer_torch.ops.denoise import ratio_combine
     from realtimeraytracer_torch.ops.refit import apply_instance_transforms
     from realtimeraytracer_torch.render import hier_backend as v8
@@ -391,7 +417,7 @@ def main() -> int:
     from realtimeraytracer_torch.render import v7_backend as v7
     from realtimeraytracer_torch.render.alpha import hit_alpha, wrap_backend_with_alpha
     from realtimeraytracer_torch.render.backends import make_backend, make_hybrid_backend
-    from realtimeraytracer_torch.render.megakernel import render_components
+    from realtimeraytracer_torch.render.megakernel import render_components, shade_sample
     from realtimeraytracer_torch.render.pipeline import compile_for, render_pipeline_gpu
     from realtimeraytracer_torch.render.wavefront import render_wavefront
     from realtimeraytracer_torch.app.application import Application
@@ -404,6 +430,7 @@ def main() -> int:
                 "trace_v9": (v9.trace_blocks_quarter, "launches"),
                 "trace_v8": (v8.trace_blocks_hier, "launches"),
                 "atrous_pair": (atrous_denoise_pair, "launches"),
+                "atrous_pair_vjp": (atrous_denoise_pair, "vjp_launches"),
                 "trace_v7_masked": (v7.trace_blocks, "masked_launches"),
                 "trace_v9_masked": (v9.trace_blocks_quarter, "masked_launches"),
                 "trace_v8_masked": (v8.trace_blocks_hier, "masked_launches"),
@@ -421,10 +448,11 @@ def main() -> int:
 
     def unmasked(**kw) -> dict:
         """Expected counts of an opaque frame: the masked, instanced and
-        multi-segment variants and the probe unused unless kw names them."""
+        multi-segment variants, the A-Trous backward and the probe unused
+        unless kw names them."""
         return {"trace_v7_masked": 0, "trace_v9_masked": 0, "trace_v8_masked": 0,
                 "trace_v8_inst": 0, "trace_v8_inst_masked": 0, "trace_v8_multi": 0,
-                "fma_peak": 0, **kw}
+                "atrous_pair_vjp": 0, "fma_peak": 0, **kw}
 
     # ---- 1. environment -------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1812,6 +1840,340 @@ def main() -> int:
                 f"{diff.max():.6f} ({card})")
         del gm
 
+    # ---- 29. the A-Trous pair's backward (B5b) against its twin ------------------
+    vjp_use = ptxas_usage(kernels.build_log.get("atrous_pair_vjp", ""))
+    for fn_, u_ in vjp_use.items():
+        say(f"[29] {fn_}: {u_['registers']} registers, {u_['spill']} spill bytes, "
+            f"{u_['smem']} bytes static shared memory")
+    require(vjp_use and all(u_["spill"] == 0 for u_ in vjp_use.values()),
+            f"[29] the VJP kernels spill (or no ptxas report): {vjp_use}")
+
+    def vjp_close(k_, t_, what):
+        """|kernel - twin| <= 1e-5 |twin| + 1e-6 max|twin|, per gradient:
+        the sums run in another order (both lie within about 5e-7 max|g|
+        of a float64 twin).  Returns the largest error over max|twin|."""
+        nonlocal vjp_abs
+        worst = 0.0
+        for name_, a_, b_ in zip(("shadowed", "unshadowed", "normal", "position"), k_, t_):
+            if b_ is None:
+                require(a_ is None, f"{what}: the kernel gave a {name_} gradient nobody asked for")
+                continue
+            sc = float(b_.abs().max())
+            torch.testing.assert_close(a_, b_, rtol=1e-5, atol=1e-6 * sc,
+                                       msg=lambda m: f"{what} {name_}: {m}")
+            vjp_abs = max(vjp_abs, float((a_ - b_).abs().max()))
+            worst = max(worst, float((a_ - b_).abs().max()) / sc)
+        return worst
+
+    vjp_err = vjp_abs = 0.0
+    rng29 = np.random.default_rng(29)
+    for (h_, w_) in ((180, 320), (H, W)):
+        if h_ == H:
+            ins29 = dn
+        else:
+            ins29 = [x[:h_, :w_].contiguous() for x in dn]
+        g_s, g_u = (torch.from_numpy(rng29.normal(size=(h_, w_, 3)).astype(np.float32)).to(dev)
+                    for _ in range(2))
+        for step in range(1, 9):
+            o_s, o_u = atrous_pair_iteration_kernel(*ins29, step, *phis)
+            for geom in (True, False):
+                k_ = atrous_pair_iteration_vjp_kernel(*ins29, o_s, o_u, step, *phis, g_s, g_u, geom)
+                t_ = atrous_pair_iteration_vjp_plain(*ins29, step, *phis, g_s, g_u, geom)
+                vjp_err = max(vjp_err, vjp_close(k_, t_, f"[29] {w_}x{h_} step {step} geometry {geom}"))
+        # The four chained iterations of the frame's denoise, under autograd.
+        xs = [x.clone().requires_grad_() for x in ins29]
+        fwd0, vjp0 = atrous_denoise_pair.launches, atrous_denoise_pair.vjp_launches
+        torch.autograd.backward(atrous_denoise_pair(*xs, 4, *phis), (g_s, g_u))
+        require(atrous_denoise_pair.launches - fwd0 == 4 and atrous_denoise_pair.vjp_launches - vjp0 == 4,
+                "[29] atrous_denoise_pair under autograd did not launch 4 forwards and 4 VJPs")
+        ys = [x.clone().requires_grad_() for x in ins29]
+        s_, u_ = ys[0], ys[1]
+        for i in range(4):
+            s_, u_ = atrous_pair_iteration_plain(s_, u_, ys[2], ys[3], i + 1, *phis)
+        torch.autograd.backward((s_, u_), (g_s, g_u))
+        for name_, x_, y_ in zip(("shadowed", "unshadowed", "normal", "position"), xs, ys):
+            sc = float(y_.grad.abs().max())
+            torch.testing.assert_close(x_.grad, y_.grad, rtol=1e-5, atol=1e-5 * sc,
+                                       msg=lambda m: f"[29] {w_}x{h_} 4 iterations {name_}: {m}")
+        say(f"[29] B5b vs its twin at {w_}x{h_}: steps 1-8, with and without normal/position "
+            f"gradients, and the 4-iteration chain under autograd agree; largest |err| / max|twin| "
+            f"so far {vjp_err:.3e}")
+    # At 1080p: the four iterations' VJPs of the frame's denoise (steps 1-4).
+    outs29 = []
+    s_, u_ = dn[0], dn[1]
+    for i in range(4):
+        outs29.append((s_, u_) + atrous_pair_iteration_kernel(s_, u_, dn[2], dn[3], i + 1, *phis))
+        s_, u_ = outs29[-1][2], outs29[-1][3]
+
+    def vjp4(fn, geom):
+        for i, (si, ui, so, uo) in enumerate(outs29):
+            if fn is atrous_pair_iteration_vjp_kernel:
+                fn(si, ui, dn[2], dn[3], so, uo, i + 1, *phis, g_s, g_u, geom)
+            else:
+                fn(si, ui, dn[2], dn[3], i + 1, *phis, g_s, g_u, geom)
+
+    zero_counts()
+    vjp_ms, _ = cuda_ms(lambda: vjp4(atrous_pair_iteration_vjp_kernel, True), 10)
+    vjp_ms_colour, _ = cuda_ms(lambda: vjp4(atrous_pair_iteration_vjp_kernel, False), 10)
+    vjp_plain_ms, _ = cuda_ms(lambda: vjp4(atrous_pair_iteration_vjp_plain, True), 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held29 = torch.cuda.memory_allocated()
+    atrous_pair_iteration_vjp_plain(*dn, 1, *phis, g_s, g_u, True)
+    torch.cuda.synchronize()
+    twin_peak29 = (torch.cuda.max_memory_allocated() - held29) / 2**30
+    taps4 = atrous_taps(H, W, 4)
+    # Operations per in-bounds tap (csrc/atrous_pair_vjp.cu): the weight pass
+    # 55 (the forward's 53 of distances, weights and products, two sums); the
+    # gather 53 for the weights, per image 37 (e_xy 9, e_yx 9, E 2, the
+    # direct term 7, the colour term 10), 21 for the normal and position
+    # terms.  Bytes per pixel: eight (H, W, 3) images read, four written.
+    vjp_bound = bound(taps4 * (55 + 53 + 2 * 37 + 21), 4 * H * W * 12 * (8 + 4))
+    vjp_bound_colour = bound(taps4 * (55 + 53 + 2 * 37), 4 * H * W * 12 * (8 + 2))
+    say(f"[29] B5b at {W}x{H}, the 4 iterations of the frame's denoise (steps 1-4): {vjp_ms:.3f} ms "
+        f"with normal/position gradients (bound {vjp_bound[0]:.4f} ms by {vjp_bound[1]}), "
+        f"{vjp_ms_colour:.3f} ms without (bound {vjp_bound_colour[0]:.4f} ms by "
+        f"{vjp_bound_colour[1]}); the twin (autograd of the plain iteration) {vjp_plain_ms:.3f} ms, "
+        f"its peak memory {twin_peak29:.3f} GiB for one iteration; the forward (phase 4) "
+        f"{dn_ms:.3f} ms ({card})")
+
+    # ---- 30. gradients through the kernels against the twins ----------------------
+    @contextlib.contextmanager
+    def twin_route():
+        """The losses' backend (opt.make_backend) as the kernels' plain twins
+        on the card, and the denoiser's iterations as the plain twin's
+        autograd."""
+        from realtimeraytracer_torch.render import pipeline as pipeline_mod
+
+        make, pair = opt.make_backend, pipeline_mod.atrous_denoise_pair
+
+        def plain_pair(s_, u_, n_, p_, iterations, *ph):
+            for i in range(iterations):
+                s_, u_ = atrous_pair_iteration_plain(s_, u_, n_, p_, i + 1, *ph)
+            return s_, u_
+
+        opt.make_backend = lambda g_, c_: make_hybrid_backend(g_, c_, plain=True)
+        pipeline_mod.atrous_denoise_pair = plain_pair
+        try:
+            yield
+        finally:
+            opt.make_backend, pipeline_mod.atrous_denoise_pair = make, pair
+
+    def loss_grads(loss_fn, names, g_, *args):
+        params = {n_: getattr(g_, n_).detach().clone().requires_grad_() for n_ in names}
+        val = loss_fn(params, g_, *args)
+        val.backward()
+        return float(val.detach()), {n_: p_.grad for n_, p_ in params.items()}
+
+    def grads_close(k_, t_, what):
+        """Gradients through the kernels against the twins': index_add_ on
+        the card accumulates with atomics in another order each run, so
+        rtol 1e-4 with atol 1e-5 x the leaf's largest entry."""
+        worst = 0.0
+        for n_, a_ in k_.items():
+            b_ = t_[n_]
+            require(bool(torch.isfinite(a_).all()), f"{what}: non-finite {n_} gradient")
+            sc = float(b_.abs().max())
+            require(sc > 0, f"{what}: the {n_} gradient is zero")
+            torch.testing.assert_close(a_, b_, rtol=1e-4, atol=1e-5 * sc,
+                                       msg=lambda m: f"{what} {n_}: {m}")
+            worst = max(worst, float((a_ - b_).abs().max()) / sc)
+        return worst
+
+    cfg30 = rt.RenderConfig(width=320, height=180, primary_rays=1, shadow_rays=3, jitter=False)
+    o30, d30 = generate_rays(frame6, 320, 180, jitter=False)
+    seed30 = torch.arange(o30.shape[0], device=dev)
+    target30 = torch.full_like(o30, 0.1)
+    names30 = ("obj_color", "lt_intensity", "sun_intensity", "env_color", "vertices")
+    zero_counts()
+    loss_k, gk = loss_grads(opt.radiance_loss, names30, gpu, cfg30, o30, d30, seed30, target30)
+    torch.cuda.synchronize()
+    counts30 = read_counts()
+    want30 = unmasked(trace_v7=0, trace_v9=1, trace_v8=gpu.num_light_tris * 3 + 1, atrous_pair=0,
+                      atrous_pair_vjp=0)
+    require(counts30 == want30, f"[30] radiance_loss gradient launches {counts30}, expected {want30}")
+    with twin_route():
+        loss_p, gp_ = loss_grads(opt.radiance_loss, names30, gpu, cfg30, o30, d30, seed30, target30)
+    require(loss_k == loss_p, f"[30] radiance_loss through the kernels {loss_k!r}, twins {loss_p!r}")
+    grad_err = grads_close(gk, gp_, "[30] radiance_loss on procedural_mesh(100_000)")
+    say(f"[30] radiance_loss gradient at 320x180, shadow_rays=3, {names30}: kernels vs twins, loss "
+        f"bit-equal ({loss_k!r}), largest |err| / max|grad| {grad_err:.3e}; launches {counts30} (no "
+        f"kernel took a gradient-carrying input: each wrapper refuses one)")
+    sph_scene = scenes.sphere_plane()
+    # Its 2 triangles get a BVH of one-triangle leaves (and v7 panels, which
+    # v9 reads in place of the SAH-repacked ones) so that the hybrid route's
+    # kernels trace them.
+    sph = sph_scene.compile(bvh_leaf_size=1, bvh_threshold=0, quarter_panels=False).to(dev)
+    require(sph.has_bvh and sph.num_spheres > 0, "[30] sphere_plane compiled without a BVH or spheres")
+    fr30 = sph_scene.camera.viewport_frame(320, 180, device=dev)
+    o30s, d30s = generate_rays(fr30, 320, 180, jitter=False)
+    zero_counts()
+    loss_k, gk = loss_grads(opt.radiance_loss, ("sph_center", "sph_radius"), sph, cfg30, o30s, d30s,
+                            seed30, target30)
+    counts30s = read_counts()
+    require(counts30s["trace_v9"] == 1 and counts30s["trace_v8"] > 0,
+            f"[30] sphere_plane through the hybrid route: launches {counts30s}")
+    with twin_route():
+        loss_p, gp_ = loss_grads(opt.radiance_loss, ("sph_center", "sph_radius"), sph, cfg30, o30s,
+                                 d30s, seed30, target30)
+    require(loss_k == loss_p, f"[30] sphere_plane loss through the kernels {loss_k!r}, twins {loss_p!r}")
+    grad_err = max(grad_err, grads_close(gk, gp_, "[30] radiance_loss on sphere_plane"))
+    say(f"[30] sphere_plane (compiled with a BVH) sph_center, sph_radius: kernels vs twins, loss "
+        f"bit-equal, largest |err| / max|grad| so far {grad_err:.3e}; launches {counts30s}")
+
+    # ---- 31. BASELINE config 5 on one card ----------------------------------------
+    cfg31 = rt.RenderConfig(width=W, height=H, primary_rays=1, shadow_rays=3, jitter=False)
+    o31, d31 = generate_rays(frame, W, H, jitter=False)
+    seed31 = torch.arange(o31.shape[0], device=dev)
+    with torch.no_grad():
+        target31 = shade_sample(gpu, cfg31, o31, d31, seed31, make_backend(gpu, cfg31)).analytic
+    wrong = dataclasses.replace(gpu, obj_color=gpu.obj_color * 0.4 + 0.3,
+                                lt_intensity=gpu.lt_intensity * 0.5)
+    names31 = ("obj_color", "lt_intensity")
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    fit_params, losses31 = opt.fit(wrong, cfg31, o31, d31, seed31, target31, param_names=names31,
+                                   steps=5)
+    fit_s = time.perf_counter() - t0
+    counts31 = read_counts()
+    want31fit = unmasked(trace_v7=0, trace_v9=5, trace_v8=5 * (gpu.num_light_tris * 3 + 1),
+                         atrous_pair=0, atrous_pair_vjp=0)
+    require(counts31 == want31fit, f"[31] fit's launches {counts31}, expected {want31fit}")
+    require(all(np.isfinite(losses31)) and losses31[-1] < losses31[0],
+            f"[31] fit(loss='radiance') losses {losses31} do not fall")
+    require(all(p_.device == dev for p_ in fit_params.values()), "[31] fit returned params off the card")
+    say(f"[31] BASELINE config 5: fit(loss='radiance') on procedural_mesh(100_000, sun=True) at "
+        f"{W}x{H}, shadow_rays=3, params {names31}, 5 steps: losses {losses31}; {fit_s:.2f} s wall "
+        f"with the first step; launches {counts31}")
+
+    def fresh_state():
+        p_ = {n_: t_.detach().clone().requires_grad_()
+              for n_, t_ in opt.extract_params(wrong, names31).items()}
+        return opt.TrainState(p_, opt.adam(p_, 2e-2))
+
+    state31 = fresh_state()
+    step31 = opt.make_train_step(cfg31, state31.optimizer)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held31 = torch.cuda.memory_allocated()
+    step_ms, step_counts, step_syncs = [], [], []
+    for i in range(5):
+        zero_counts()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                state31, loss31 = step31(state31, wrong, o31, d31, seed31, target31)
+                b.record()
+                loss_val = float(loss31)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        b.synchronize()
+        step_ms.append(a.elapsed_time(b))
+        step_counts.append(read_counts())
+        step_syncs.append(collections.Counter(f"{w_.filename}:{w_.lineno}" for w_ in caught
+                                              if "synchroniz" in str(w_.message)))
+        require(np.isfinite(loss_val), f"[31] step {i}: loss {loss_val}")
+    peak31 = (torch.cuda.max_memory_allocated() - held31) / 2**30
+    want31 = unmasked(trace_v7=0, trace_v9=1, trace_v8=gpu.num_light_tris * 3 + 1, atrous_pair=0,
+                      atrous_pair_vjp=0)
+    require(all(c_ == want31 for c_ in step_counts), f"[31] launches per step {step_counts}")
+    say(f"[31] config 5 step (make_train_step, the step fit runs): median {statistics.median(step_ms[1:]):.2f} "
+        f"ms of steps 2-5 (CUDA events; all {[round(x, 2) for x in step_ms]}); peak memory "
+        f"{peak31:.3f} GiB above the {held31 / 2**30:.3f} GiB held (the scene and the phases' "
+        f"tensors); launches per step {step_counts[-1]}; host syncs per step (set_sync_debug_mode, "
+        f"float(loss) among them): {[sum(c_.values()) for c_ in step_syncs]}, at "
+        f"{dict(step_syncs[-1])} ({card})")
+    # Checkpoint round trip: save at step 3, restore, and step both.
+    state_a = fresh_state()
+    step_a = opt.make_train_step(cfg31, state_a.optimizer)
+    for _ in range(3):
+        state_a, _ = step_a(state_a, wrong, o31, d31, seed31, target31)
+    ckpt_dir = str(Path(__file__).resolve().parent / "build" / "smoke_checkpoint")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    checkpoint.save_checkpoint(ckpt_dir, state_a, 3)
+    require(checkpoint.latest_step(ckpt_dir) == 3, "[31] latest_step is not 3")
+    state_b = checkpoint.restore_checkpoint(ckpt_dir, state_a, 3)
+    require(all(p_.device == dev for p_ in state_b.params.values()), "[31] restored params off the card")
+    state_a, loss_a = step_a(state_a, wrong, o31, d31, seed31, target31)
+    state_b, loss_b = opt.make_train_step(cfg31, state_b.optimizer)(state_b, wrong, o31, d31, seed31,
+                                                                     target31)
+    require(float(loss_a) == float(loss_b), f"[31] the restored step's loss {float(loss_b)!r} differs "
+            f"from the uninterrupted {float(loss_a)!r}")
+    for n_ in names31:
+        torch.testing.assert_close(state_b.params[n_], state_a.params[n_], rtol=1e-5, atol=1e-7,
+                                   msg=lambda m: f"[31] restored step, {n_}: {m}")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    say("[31] checkpoint saved at step 3 and restored: the next step's loss equals the uninterrupted "
+        "one's bit for bit, its params within rtol 1e-5 (the gradient's atomics)")
+
+    # ---- 32. the full-frame gradients at 1080p -------------------------------------
+    def timed_grad(what, loss_fn, names, g_, *args):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        params = {n_: getattr(g_, n_).detach().clone().requires_grad_() for n_ in names}
+        zero_counts()
+        a, m_, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        a.record()
+        val = loss_fn(params, g_, *args)
+        m_.record()
+        val.backward()
+        b.record()
+        b.synchronize()
+        counts = read_counts()
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+        for n_, p_ in params.items():
+            require(bool(torch.isfinite(p_.grad).all()) and float(p_.grad.abs().sum()) > 0,
+                    f"[32] {what}: the {n_} gradient is non-finite or zero")
+        first = (a.elapsed_time(m_), m_.elapsed_time(b))
+        del params, val
+        # Once more, the caching allocator now holding the first run's blocks.
+        params = {n_: getattr(g_, n_).detach().clone().requires_grad_() for n_ in names}
+        a.record()
+        val = loss_fn(params, g_, *args)
+        m_.record()
+        val.backward()
+        b.record()
+        b.synchronize()
+        say(f"[32] {what}: loss {float(val.detach())!r}; forward {first[0]:.2f} ms, backward "
+            f"{first[1]:.2f} ms (CUDA events, first run), {a.elapsed_time(m_):.2f} and "
+            f"{m_.elapsed_time(b):.2f} ms (second run); peak memory {peak:.3f} GiB above the "
+            f"{held / 2**30:.3f} GiB held; launches {counts} (first run) ({card})")
+        return counts
+
+    target32 = torch.from_numpy(img9).to(dev)
+    g32 = dataclasses.replace(gpu, obj_color=gpu.obj_color * 0.8)
+    counts32 = timed_grad("pipeline_loss gradient at the reference defaults (1920x1080, 4 spp x 3, "
+                          "4 denoise iterations; obj_color and vertices)", opt.pipeline_loss,
+                          ("obj_color", "vertices"), g32, cfg9, frame, 0, target32)
+    n_v8_32 = cfg9.primary_rays * (gpu.num_light_tris * cfg9.shadow_rays + 1)
+    want32 = unmasked(trace_v7=0, trace_v9=cfg9.primary_rays, trace_v8=n_v8_32, atrous_pair=4,
+                      atrous_pair_vjp=4)
+    require(counts32 == want32, f"[32] pipeline_loss launches {counts32}, expected {want32}")
+    counts32w = timed_grad("wavefront_loss gradient (1920x1080, 1 spp, max_bounces=2; obj_color and "
+                           "vertices)", opt.wavefront_loss, ("obj_color", "vertices"), g32,
+                           cfg24.replace(primary_rays=1), frame, 0, target32)
+    require(counts32w == unmasked(trace_v7=0, trace_v9=1, trace_v8=6, atrous_pair=0, atrous_pair_vjp=0),
+            f"[32] wavefront_loss launches {counts32w}")
+    cfg32s = cfg9.replace(width=160, height=90)
+    frame32s = scene.camera.viewport_frame(160, 90, device=dev)
+    target32s = torch.zeros((90, 160, 3), device=dev)
+    loss_k, gk = loss_grads(opt.pipeline_loss, ("obj_color", "vertices"), g32, cfg32s, frame32s, 0,
+                            target32s)
+    with twin_route():
+        loss_p, gp_ = loss_grads(opt.pipeline_loss, ("obj_color", "vertices"), g32, cfg32s, frame32s,
+                                 0, target32s)
+    require(abs(loss_k - loss_p) <= 1e-6 * abs(loss_p), f"[32] 160x90 pipeline_loss through the kernels "
+            f"{loss_k!r}, twins {loss_p!r}")
+    grad_err = max(grad_err, grads_close(gk, gp_, "[32] 160x90 pipeline_loss"))
+    say(f"[32] 160x90 pipeline_loss gradient (reference defaults otherwise) through the kernels and "
+        f"through the twins: losses {loss_k!r} and {loss_p!r}; largest |err| / max|grad| so far "
+        f"{grad_err:.3e}")
+
     shadow_row = v8_rows["occluded shadow segments"]
     say(json.dumps({"kernels": [
         {"name": "trace_v7", "route": "cuda", "source": "realtimeraytracer_torch/csrc/trace_v7.cu",
@@ -1831,6 +2193,12 @@ def main() -> int:
          "replaces": "realtimeraytracer_tpu/ops/denoise_pallas.py:152",
          "launches": counts9["atrous_pair"], "max_abs_err": dn_err, "ms": dn_ms, "plain_ms": dn_plain_ms,
          "bound_ms": dn_bound[0], "bound_by": dn_bound[1], "library_ms": None},
+        {"name": "atrous_pair_vjp", "route": "cuda",
+         "source": "realtimeraytracer_torch/csrc/atrous_pair_vjp.cu",
+         "replaces": "realtimeraytracer_tpu/ops/denoise.py:46",
+         "launches": counts32["atrous_pair_vjp"], "max_abs_err": vjp_abs, "ms": vjp_ms,
+         "plain_ms": vjp_plain_ms, "bound_ms": vjp_bound[0], "bound_by": vjp_bound[1],
+         "library_ms": None},
         {"name": "trace_v7_masked", "route": "cuda", "source": "realtimeraytracer_torch/csrc/trace_v7.cu",
          "replaces": "realtimeraytracer_tpu/render/pallas_backend.py:640",
          "launches": frames14["foliage pallas"][1]["trace_v7_masked"], "max_abs_err": v7m_err,

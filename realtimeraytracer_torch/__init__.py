@@ -8,14 +8,16 @@ traces through the v8 kernel's instanced level, and moves with
 ops/refit.apply_instance_transforms): jittered primaries, closest hit under the alpha
 re-trace ladder, surface with texture maps, LTC analytic light,
 stochastic area-light shadows, sun, HDRI miss, tonemap, A-Trous denoising
-of both stochastic images and the ratio combine.  Four hand-written CUDA
+of both stochastic images and the ratio combine.  Hand-written CUDA
 kernels for Hopper carry it on a GPU (csrc/): the v9 quarter-composited
 traversal and the v8 per-ray hierarchy of the default hybrid route, the
 v7 block traversal of the "pallas" route (each with an in-kernel alpha
 mask variant; v8 also with its instanced instantiation, which carries
-every trace of an instanced scene), and the fused two-image A-Trous
-iteration.  ``render`` runs on the GPU unless the
-caller passes ``device="cpu"``.
+every trace of an instanced scene), the fused two-image A-Trous
+iteration and its backward.  Pixel losses differentiate through shading
+and intersection to material, light and geometry parameters (diff/:
+the losses, the training step, ``fit``, checkpoints).  ``render`` runs on
+the GPU unless the caller passes ``device="cpu"``.
 
 Public API:
     Scene, Camera, Material, Sphere, TriangleMesh, AreaLight, DirectionalLight

@@ -3,7 +3,7 @@
     python -m realtimeraytracer_torch.frame_profile [--width 1920] [--height 1080]
         [--spp 4] [--shadow-rays 3] [--tris 100000] [--backend auto]
         [--no-sort-shadows] [--scene procedural_mesh] [--bake]
-        [--wavefront]
+        [--wavefront] [--train-step]
 
 No JAX counterpart (the JAX package profiled with scripts/ probes on the
 TPU).  Renders procedural_mesh(tris), or one of the alpha-tested
@@ -22,8 +22,13 @@ frame.denoise; with --wavefront the multi-bounce frame of
 render/wavefront.py, BASELINE config 4 at the defaults (4 spp, 2 bounces),
 and its stages wavefront.closest, wavefront.nee_occluded, wavefront.sort
 and wavefront.shade) beside the kernel time that starts inside it, the
-ladder's host syncs, and the kernels with the most device time.  It needs
-a CUDA device and fails without one.
+ladder's host syncs, and the kernels with the most device time.  With
+--train-step it profiles BASELINE config 5's gradient step instead
+(diff/optimize.py's make_train_step: radiance_loss on 1 spp raster-order
+primaries, obj_color and lt_intensity from a perturbed start, Adam) and its
+range diff.forward (the backward runs on autograd's device thread, which
+the ranges do not see: the step less the forward is the backward and the
+update).  It needs a CUDA device and fails without one.
 """
 
 from __future__ import annotations
@@ -45,7 +50,8 @@ from realtimeraytracer_torch.render.wavefront import render_wavefront
 RANGES = ("shade.closest", "shade.lights", "shade.sun", "v7.cull",
           "v7.closest", "v7.occluded", "v9.cull", "v9.closest", "v8.closest",
           "v8.occluded", "alpha.round", "frame.denoise", "wavefront.closest",
-          "wavefront.nee_occluded", "wavefront.sort", "wavefront.shade")
+          "wavefront.nee_occluded", "wavefront.sort", "wavefront.shade",
+          "diff.forward")
 
 
 def range_times(prof, ranges=RANGES):
@@ -75,6 +81,30 @@ def range_times(prof, ranges=RANGES):
     return busy_ms, kernels, out
 
 
+def _train_step(gpu, frame, cfg):
+    """BASELINE config 5's step as a call render(gpu, frame, cfg) can stand
+    for: the target is the analytic channel at the scene's params, the
+    step starts from obj_color * 0.4 + 0.3 and lt_intensity * 0.5."""
+    import dataclasses
+
+    from realtimeraytracer_torch.diff import optimize as opt
+    from realtimeraytracer_torch.ops.camera_rays import generate_rays
+    from realtimeraytracer_torch.render.backends import make_backend
+    from realtimeraytracer_torch.render.megakernel import shade_sample
+
+    o, d = generate_rays(frame, cfg.width, cfg.height, jitter=False)
+    seed = torch.arange(o.shape[0], device=o.device)
+    with torch.no_grad():
+        target = shade_sample(gpu, cfg, o, d, seed, make_backend(gpu, cfg)).analytic
+    wrong = dataclasses.replace(gpu, obj_color=gpu.obj_color * 0.4 + 0.3,
+                                lt_intensity=gpu.lt_intensity * 0.5)
+    params = {n: t.detach().clone().requires_grad_()
+              for n, t in opt.extract_params(wrong, ("obj_color", "lt_intensity")).items()}
+    state = opt.TrainState(params, opt.adam(params, 2e-2))
+    step = opt.make_train_step(cfg, state.optimizer)
+    return lambda *_: step(state, wrong, o, d, seed, target)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--width", type=int, default=1920)
@@ -94,6 +124,9 @@ def main(argv=None) -> None:
     ap.add_argument("--wavefront", action="store_true",
                     help="the multi-bounce frame (render_wavefront, max_bounces=2) instead of "
                          "the ratio frame")
+    ap.add_argument("--train-step", action="store_true",
+                    help="BASELINE config 5's gradient step (radiance_loss, 1 spp) instead of "
+                         "a frame")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("frame_profile needs a CUDA device")
@@ -113,6 +146,8 @@ def main(argv=None) -> None:
         scene = getattr(scenes, args.scene)()
     gpu = scene.compile(bake_instances=args.bake).to("cuda")
     frame = scene.camera.viewport_frame(cfg.width, cfg.height, device="cuda")
+    if args.train_step:
+        render = _train_step(gpu, frame, cfg.replace(primary_rays=1, jitter=False))
     torch.cuda.reset_peak_memory_stats()
     render(gpu, frame, cfg)                                     # warm-up
     torch.cuda.synchronize()
@@ -137,6 +172,8 @@ def main(argv=None) -> None:
     print(f"card: {card}")
     what = (f"wavefront, max_bounces={cfg.max_bounces}"
             if args.wavefront else f"{args.shadow_rays} shadow rays, sort_shadows={cfg.sort_shadows}")
+    if args.train_step:
+        what += ", the config-5 training step (1 spp) in place of the frame"
     print(f"frame {cfg.width}x{cfg.height}, {args.spp} spp, {what}, backend={cfg.backend}, "
           f"{args.scene}({args.tris if args.scene == 'procedural_mesh' else ''}) "
           f"({gpu.num_tris} tris{', instanced' if gpu.instanced else ''}, "

@@ -45,7 +45,12 @@ def _block_permutation_np(width: int, height: int, block_w: int, block_h: int):
 def _block_permutation_on(width: int, height: int, block_w: int, block_h: int,
                           device: torch.device):
     perm, inv = _block_permutation_np(width, height, block_w, block_h)
-    return torch.tensor(perm, device=device), torch.tensor(inv, device=device)
+    # Built outside inference mode whatever the caller's mode: an inference
+    # tensor cannot be saved for backward, and a gradient's gather by
+    # inv_perm saves it, so the first frame of a process (rendered under
+    # inference_mode) would otherwise break every later loss.
+    with torch.inference_mode(False):
+        return torch.tensor(perm, device=device), torch.tensor(inv, device=device)
 
 
 def block_permutation(width: int, height: int, block_w: int = 16,

@@ -1,15 +1,25 @@
 """Fused A-Trous denoiser: both stochastic images in one pass per iteration.
 
 Counterpart of realtimeraytracer_tpu/ops/denoise_pallas.py::
-atrous_denoise_pair.  ``atrous_denoise_pair`` launches csrc/atrous_pair.cu
-once per iteration for CUDA tensors and runs the plain PyTorch twin
-(``atrous_pair_iteration_plain``) for CPU tensors; there is no fallback
-between the two.  Both share the normal/position weights between the two
-images and use the TPU kernel's term order, so they agree with the
-per-image stencil (ops/denoise.py) to a few float32 ulp.  The kernel
-multiplies by the phi's reciprocals, each computed in double and rounded
-to float, which is what PyTorch's CUDA division by a Python scalar does
-in the twin, so on the card the two agree bit for bit.
+atrous_denoise_pair.  ``atrous_denoise_pair`` runs each iteration as a
+``torch.autograd.Function`` (``AtrousPairIteration``): its forward launches
+csrc/atrous_pair.cu for CUDA tensors and runs the plain PyTorch twin
+(``atrous_pair_iteration_plain``) for CPU tensors; its backward launches
+csrc/atrous_pair_vjp.cu (B5b) for CUDA tensors and runs the twin's
+autograd (``atrous_pair_iteration_vjp_plain``) for CPU tensors.  There is
+no fallback between the two.  Both forwards share the normal/position
+weights between the two images and use the TPU kernel's term order, so
+they agree with the per-image stencil (ops/denoise.py) to a few float32
+ulp.  The kernel multiplies by the phi's reciprocals, each computed in
+double and rounded to float, which is what PyTorch's CUDA division by a
+Python scalar does in the twin, so on the card the two agree bit for bit.
+
+The JAX package differentiates no Pallas kernel: under AD its dispatch
+routes to the per-image XLA stencil.  The port keeps the pair under AD,
+with a backward of its own (a port-only kernel).  The weights' clamp
+``min(exp(.), 1)`` passes the whole gradient at a tie (exp == 1.0), as
+``torch.clamp_max`` does; JAX's ``jnp.minimum`` passes half.  A tie needs
+a squared difference under about 6e-8 * phi, where the term is tiny.
 """
 
 from __future__ import annotations
@@ -54,9 +64,15 @@ def _reciprocal(phi: float) -> float:
     return float(np.float32(1.0 / phi))
 
 
-def _check(images) -> None:
+_NAMES = ("shadowed", "unshadowed", "normal", "position")
+
+
+def _check(images, names=_NAMES, staged: bool = True) -> None:
+    """CUDA tensors on one device, float32, (H, W, 3) alike, contiguous,
+    needing no gradient; `staged` inputs (read with 16-byte copies) also
+    16-byte aligned."""
     shape = images[0].shape
-    for name, x in zip(("shadowed", "unshadowed", "normal", "position"), images):
+    for name, x in zip(names, images):
         if x.device.type != "cuda" or x.device != images[0].device:
             raise ValueError(f"{name} must be a CUDA tensor on {images[0].device}")
         if x.dtype != torch.float32:
@@ -66,8 +82,9 @@ def _check(images) -> None:
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if x.requires_grad:
-            raise ValueError(f"{name} requires grad; the denoise kernel has no backward")
-        if x.data_ptr() % 16:
+            raise ValueError(f"{name} requires grad; differentiate through "
+                             "atrous_denoise_pair, whose backward is the VJP kernel")
+        if staged and x.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned (the kernel stages it with "
                              "16-byte copies)")
 
@@ -95,22 +112,109 @@ def atrous_pair_iteration_kernel(shadowed, unshadowed, normal, position,
     return s_out, u_out
 
 
+def atrous_pair_iteration_vjp_plain(shadowed, unshadowed, normal, position,
+                                    step: int, c_phi: float, n_phi: float,
+                                    p_phi: float, g_shadowed, g_unshadowed,
+                                    geometry_grads: bool = True):
+    """The VJP of one pair iteration, plainly: recompute
+    atrous_pair_iteration_plain under autograd and differentiate it (any
+    device; the twin of the VJP kernel on the card).  Returns the
+    gradients of (shadowed, unshadowed, normal, position) for the upstream
+    gradients of the two outputs; normal's and position's are None unless
+    geometry_grads."""
+    with torch.enable_grad():
+        ins = [x.detach().requires_grad_(i < 2 or geometry_grads)
+               for i, x in enumerate((shadowed, unshadowed, normal, position))]
+        outs = atrous_pair_iteration_plain(*ins, step, c_phi, n_phi, p_phi)
+        grads = torch.autograd.grad(outs, ins if geometry_grads else ins[:2],
+                                    (g_shadowed, g_unshadowed))
+    return tuple(grads) + ((None, None) if not geometry_grads else ())
+
+
+def atrous_pair_iteration_vjp_kernel(shadowed, unshadowed, normal, position,
+                                     out_shadowed, out_unshadowed, step: int,
+                                     c_phi: float, n_phi: float, p_phi: float,
+                                     g_shadowed, g_unshadowed,
+                                     geometry_grads: bool = True):
+    """One call of csrc/atrous_pair_vjp.cu (CUDA tensors only): the VJP of
+    the iteration whose inputs are (shadowed, unshadowed, normal, position)
+    and whose outputs were (out_shadowed, out_unshadowed), for the upstream
+    gradients g_*.  The entry runs a weight-sum pass (each pixel's W for
+    both images) and then the gather pass, one thread a pixel.  Returns the
+    gradients of the four inputs, normal's and position's None unless
+    geometry_grads; adds one to ``atrous_denoise_pair.vjp_launches``.  Its
+    result equals atrous_pair_iteration_vjp_plain's up to float32 sums in
+    another order."""
+    if step < 1:
+        raise ValueError(f"step must be at least 1, got {step}")
+    ins = (shadowed, unshadowed, normal, position, out_shadowed, out_unshadowed,
+           g_shadowed, g_unshadowed)
+    _check(ins, _NAMES + ("out_shadowed", "out_unshadowed", "g_shadowed", "g_unshadowed"),
+           staged=False)
+    h, w = shadowed.shape[0], shadowed.shape[1]
+    gs, gu = torch.empty_like(shadowed), torch.empty_like(unshadowed)
+    gn = torch.empty_like(normal) if geometry_grads else None
+    gp = torch.empty_like(position) if geometry_grads else None
+    wsum = torch.empty((2, h, w), dtype=torch.float32, device=shadowed.device)
+    with torch.cuda.device(shadowed.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        kernels.launch("atrous_pair_vjp", *(x.data_ptr() for x in ins), wsum.data_ptr(),
+                       gs.data_ptr(), gu.data_ptr(),
+                       None if gn is None else gn.data_ptr(),
+                       None if gp is None else gp.data_ptr(), h, w, step,
+                       1.0 / float(step * step),
+                       *(_reciprocal(phi) for phi in (c_phi, n_phi, p_phi)), stream)
+    atrous_denoise_pair.vjp_launches += 1
+    return gs, gu, gn, gp
+
+
+class AtrousPairIteration(torch.autograd.Function):
+    """One pair iteration under autograd.  Forward: the kernel on CUDA
+    tensors, the twin on CPU tensors.  Backward: the VJP kernel on CUDA
+    tensors, the twin's autograd on CPU tensors; normal's and position's
+    gradients only when asked for (with vertex or sphere parameters)."""
+
+    @staticmethod
+    def forward(ctx, shadowed, unshadowed, normal, position, step, c_phi, n_phi, p_phi):
+        ins = tuple(x.detach() for x in (shadowed, unshadowed, normal, position))
+        device = shadowed.device.type
+        if device == "cuda":
+            outs = atrous_pair_iteration_kernel(*ins, step, c_phi, n_phi, p_phi)
+        elif device == "cpu":
+            outs = atrous_pair_iteration_plain(*ins, step, c_phi, n_phi, p_phi)
+        else:
+            raise ValueError(f"no A-Trous pair denoiser for device {shadowed.device}")
+        ctx.save_for_backward(*ins, *outs)
+        ctx.params = (step, c_phi, n_phi, p_phi)
+        return outs
+
+    @staticmethod
+    def backward(ctx, g_shadowed, g_unshadowed):
+        # The saved outputs come back as the graph's tensors: detach all.
+        s, u, n, p, out_s, out_u = (x.detach() for x in ctx.saved_tensors)
+        g_shadowed = torch.zeros_like(s) if g_shadowed is None else g_shadowed.contiguous()
+        g_unshadowed = torch.zeros_like(u) if g_unshadowed is None else g_unshadowed.contiguous()
+        geometry = ctx.needs_input_grad[2] or ctx.needs_input_grad[3]
+        if s.device.type == "cuda":
+            grads = atrous_pair_iteration_vjp_kernel(
+                s, u, n, p, out_s, out_u, *ctx.params, g_shadowed, g_unshadowed, geometry)
+        else:
+            grads = atrous_pair_iteration_vjp_plain(
+                s, u, n, p, *ctx.params, g_shadowed, g_unshadowed, geometry)
+        return grads + (None,) * 4
+
+
 def atrous_denoise_pair(shadowed, unshadowed, normal, position,
                         iterations: int = 4, c_phi: float = 1.0,
                         n_phi: float = 0.001, p_phi: float = 0.001):
     """Denoise both stochastic images, step_width = 1..iterations
-    (application.cppm:395-434).  Returns (shadowed', unshadowed')."""
-    device = shadowed.device.type
-    if device == "cuda":
-        step_fn = atrous_pair_iteration_kernel
-    elif device == "cpu":
-        step_fn = atrous_pair_iteration_plain
-    else:
-        raise ValueError(f"no A-Trous pair denoiser for device {shadowed.device}")
+    (application.cppm:395-434).  Returns (shadowed', unshadowed').
+    Differentiable: each iteration is an AtrousPairIteration."""
     s, u = shadowed, unshadowed
     for i in range(iterations):
-        s, u = step_fn(s, u, normal, position, i + 1, c_phi, n_phi, p_phi)
+        s, u = AtrousPairIteration.apply(s, u, normal, position, i + 1, c_phi, n_phi, p_phi)
     return s, u
 
 
 atrous_denoise_pair.launches = 0
+atrous_denoise_pair.vjp_launches = 0

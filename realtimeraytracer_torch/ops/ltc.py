@@ -21,9 +21,13 @@ LUT_BIAS = 0.5 / LUT_SIZE
 
 
 def ltc_lut_coords(roughness: torch.Tensor, ndotv: torch.Tensor):
-    """LUT (u, v) from roughness and N.V (raygen.rgen:143-145)."""
+    """LUT (u, v) from roughness and N.V (raygen.rgen:143-145).  At N.V = 1
+    the square root's derivative is infinite: its branch is taken only
+    where 1 - N.V > 0 (the value is the same, sqrt(0) = 0), so a view along
+    the normal carries a zero gradient instead of NaN."""
     u = roughness * LUT_SCALE + LUT_BIAS
-    v = torch.sqrt(torch.clamp_min(1.0 - ndotv, 0.0)) * LUT_SCALE + LUT_BIAS
+    x = 1.0 - ndotv
+    v = torch.where(x > 0.0, torch.sqrt(torch.where(x > 0.0, x, 1.0)), 0.0) * LUT_SCALE + LUT_BIAS
     return u, v
 
 

@@ -6,8 +6,9 @@ Counterpart of realtimeraytracer_tpu/ops/refit.py (``subtree_ranges``,
 reference's TLAS::updateTransform and refit (tlas.cppm:60-67, 151-207), so
 that animation needs no host rebuild.  Here they are plain PyTorch
 functions on the scene's tensors, on its device; each returns a new
-TorchScene and leaves its input as it was.  Their gradients are not ported
-(ROADMAP A6).
+TorchScene and leaves its input as it was.  Both are differentiable: a
+transform table that requires grad carries gradients from every moved
+leaf, as JAX's do (``translate`` adds into a copy, which keeps the graph).
 
 Two forms of motion:
   * ``apply_transforms``: a per-object (O, 4, 4) transform table on a

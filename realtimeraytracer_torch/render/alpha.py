@@ -117,7 +117,10 @@ def wrap_backend_with_alpha(backend: TraceBackend, gpu: TorchScene,
     if not bool((gpu.obj_tex[:, 3] >= 0).any()):
         return backend
     threshold = cfg.alpha_threshold
-    face_row = _alpha_face_row(gpu)
+    # The ladder's opacities and step_past intervals are decisions, not
+    # loss terms: they carry no gradient (the traces detach their inputs).
+    sg_gpu = gpu.detach()
+    face_row = _alpha_face_row(sg_gpu)
 
     def need(mask: torch.Tensor, query: str) -> bool:
         """Whether any ray needs the next round (one host sync)."""
@@ -130,7 +133,8 @@ def wrap_backend_with_alpha(backend: TraceBackend, gpu: TorchScene,
         return n > 0
 
     def alpha(hit, origins, dirs):
-        return hit_alpha(gpu, hit, origins, dirs, face_row)
+        with torch.no_grad():
+            return hit_alpha(sg_gpu, hit, origins, dirs, face_row)
 
     def closest(origins, dirs, t_min, t_max, common=None):
         r = origins.shape[0]
@@ -142,7 +146,7 @@ def wrap_backend_with_alpha(backend: TraceBackend, gpu: TorchScene,
             if not need(rejected, "closest"):
                 break
             with record_function("alpha.round"):
-                t_lo = torch.where(rejected, step_past(hit.t), t_lo)
+                t_lo = torch.where(rejected, step_past(hit.t.detach()), t_lo)
                 re = backend.closest(origins, dirs, torch.where(rejected, t_lo, BIG_T),
                                      torch.where(rejected, t_hi, -BIG_T), common=common)
                 hit = _merge(rejected, re, hit)
@@ -164,7 +168,7 @@ def wrap_backend_with_alpha(backend: TraceBackend, gpu: TorchScene,
             if not need(transparent, "occluded"):
                 break
             with record_function("alpha.round"):
-                t_lo = torch.where(transparent, step_past(hit.t), t_lo)
+                t_lo = torch.where(transparent, step_past(hit.t.detach()), t_lo)
                 re = backend.closest(origins, dirs, torch.where(transparent, t_lo, BIG_T),
                                      torch.where(transparent, t_hi, -BIG_T), common=common)
                 hit = _merge(transparent, re, hit)

@@ -68,6 +68,19 @@ def _merge_sphere_hits(tri_hit: intersect.HitRecord,
     )
 
 
+def stop_gradient(*xs) -> tuple:
+    """xs with every gradient-carrying tensor detached (other tensors,
+    numbers and None pass as they are).
+    The BVH backends hand their traces (kernels and twins alike) detached
+    rays, intervals and scene leaves, as the JAX package's backends hand
+    theirs ``jax.lax.stop_gradient``: the hit search is discrete, and the
+    surface resolver recomputes the continuous hit quantities from the
+    scene's leaves, so a trace's outputs carry no gradient.  The analytic
+    spheres and the brute-force backend stay differentiable."""
+    return tuple(x.detach() if isinstance(x, torch.Tensor) and x.requires_grad else x
+                 for x in xs)
+
+
 def sphere_occluded(gpu: TorchScene, occ, origins, dirs, t_min, t_max):
     """OR the analytic spheres into a triangle occlusion mask."""
     if not gpu.num_spheres:

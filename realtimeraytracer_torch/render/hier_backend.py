@@ -55,7 +55,7 @@ from realtimeraytracer_torch.config import RenderConfig
 from realtimeraytracer_torch.ops import intersect
 from realtimeraytracer_torch.ops.intersect import BIG_T, HitRecord
 from realtimeraytracer_torch.render.backends import (
-    TraceBackend, _merge_sphere_hits, sphere_occluded)
+    TraceBackend, _merge_sphere_hits, sphere_occluded, stop_gradient)
 from realtimeraytracer_torch.render.v7_backend import (
     BIG, BIG_BITS, EPS, _COMMON, _INT64_MAX, _MODES, _check, _check_aligned, _check_amask,
     _check_layout, _check_one_card, _intersect_pairs, _pack_rays)
@@ -737,12 +737,16 @@ def hier_occluded_multi(gpu: TorchScene, cfg: RenderConfig, origins, dirs_s, t_l
     hier_occluded call.  Triangles only: analytic spheres are not tested
     (as in the JAX package; ROADMAP C).  Raises ValueError unless 1 <= S
     <= 8, and on instanced scenes and scenes of more than RESIDENT_CB
-    blocks.  cfg is the JAX signature's; nothing here reads it."""
+    blocks.  cfg is the JAX signature's; nothing here reads it.  The trace
+    takes detached inputs (backends.stop_gradient)."""
     del cfg
     s_count = len(dirs_s)
     if not 1 <= s_count <= MAX_SEGMENTS or len(t_hi_s) != s_count:
         raise ValueError(f"{s_count} directions and {len(t_hi_s)} t_hi: multi-segment "
                          f"occlusion takes 1 to {MAX_SEGMENTS} segments, one t_hi each")
+    gpu = gpu.detach()
+    origins, t_lo = stop_gradient(origins, t_lo)
+    dirs_s, t_hi_s = stop_gradient(*dirs_s), stop_gradient(*t_hi_s)
     r, dev = origins.shape[0], origins.device
     rays, r_orig = pack_rays_multi(
         origins, dirs_s, intersect.as_per_ray(t_lo, r, dev),
@@ -767,8 +771,10 @@ def make_hier_backend(gpu: TorchScene, cfg: RenderConfig,
     if use_amask is None:
         use_amask = masks_enabled(cfg)
 
+    sg_gpu = gpu.detach()
+
     def closest(origins, dirs, t_min, t_max, common=None):
-        hit = hier_closest(gpu, origins, dirs, t_min, t_max, common, trace,
+        hit = hier_closest(sg_gpu, *stop_gradient(origins, dirs, t_min, t_max), common, trace,
                            use_amask)
         if num_spheres:
             sph = intersect.intersect_spheres(
@@ -777,12 +783,12 @@ def make_hier_backend(gpu: TorchScene, cfg: RenderConfig,
         return hit
 
     def occluded(origins, dirs, t_min, t_max, common=None):
-        occ = hier_occluded(gpu, origins, dirs, t_min, t_max, common, trace)
+        occ = hier_occluded(sg_gpu, *stop_gradient(origins, dirs, t_min, t_max), common, trace)
         return sphere_occluded(gpu, occ, origins, dirs, t_min, t_max)
 
     def occluded_hinted(origins, dirs, t_min, t_max, hints=None, common=None):
-        occ, h = hier_occluded_hinted(gpu, origins, dirs, t_min, t_max, hints,
-                                      common, trace)
+        occ, h = hier_occluded_hinted(sg_gpu, *stop_gradient(origins, dirs, t_min, t_max),
+                                      hints, common, trace)
         return sphere_occluded(gpu, occ, origins, dirs, t_min, t_max), h
 
     hintable = (not gpu.instanced and gpu.pallas_panels is not None

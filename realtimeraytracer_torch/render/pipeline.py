@@ -26,7 +26,9 @@ def denoise_and_combine(comp: RenderComponents, cfg: RenderConfig) -> torch.Tens
 
     Always the fused pair denoiser (ops/denoise_kernel.py): the CUDA kernel
     on CUDA tensors, at any iteration count, and its plain twin on CPU
-    tensors."""
+    tensors.  Differentiable: under a gradient each iteration's backward
+    is the VJP kernel (its twin's autograd on CPU tensors), where the JAX
+    package switches to its per-image XLA stencil."""
     it = cfg.denoise_iterations
     if it <= 0:
         return ratio_combine(comp.analytic, comp.shadowed, comp.unshadowed)
@@ -41,7 +43,8 @@ def render_pipeline_gpu(gpu: TorchScene, frame: ViewportFrame, cfg: RenderConfig
                         frame_index: int = 0,
                         backend: TraceBackend | None = None) -> torch.Tensor:
     """Render a compiled scene: (H, W, 3) float32 image on the scene's
-    device."""
+    device, under inference mode (the losses of diff/optimize.py call
+    render_components and denoise_and_combine themselves)."""
     check_supported(cfg)
     with torch.inference_mode():
         comp = render_components(gpu, frame, cfg, frame_index, backend)

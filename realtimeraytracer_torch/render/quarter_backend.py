@@ -40,7 +40,8 @@ from realtimeraytracer_torch import kernels
 from realtimeraytracer_torch.config import RenderConfig
 from realtimeraytracer_torch.ops import intersect
 from realtimeraytracer_torch.ops.intersect import HitRecord
-from realtimeraytracer_torch.render.backends import TraceBackend, _merge_sphere_hits
+from realtimeraytracer_torch.render.backends import (
+    TraceBackend, _merge_sphere_hits, stop_gradient)
 from realtimeraytracer_torch.render.v7_backend import (
     BIG, BIG_BITS, CPB, INVALID, _COMMON, _INT64_MAX, _check_aligned, _check_layout,
     _check_one_card, _id_bits, _intersect_pairs, _pack_rays, cull_quarter_keys, make_v7_backend,
@@ -319,10 +320,11 @@ def make_quarter_backend(gpu: TorchScene, cfg: RenderConfig,
     if use_amask is None:
         use_amask = masks_enabled(cfg)
     v7 = make_v7_backend(gpu, cfg, trace=v7_trace, use_amask=use_amask)
+    sg_gpu = gpu.detach()
 
     def closest(origins, dirs, t_min, t_max, common=None):
-        hit = quarter_closest(gpu, origins, dirs, t_min, t_max, common, trace,
-                              use_amask)
+        hit = quarter_closest(sg_gpu, *stop_gradient(origins, dirs, t_min, t_max), common,
+                              trace, use_amask)
         if num_spheres:
             sph = intersect.intersect_spheres(
                 origins, dirs, gpu.sph_center, gpu.sph_radius, t_min, t_max)

@@ -31,6 +31,15 @@ from realtimeraytracer_torch.ops.vecmath import normalize
 from realtimeraytracer_torch.scene.gpu_scene import TorchScene
 
 
+def rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table[idx] for a 1-D index, by index_select: the same values, and a
+    backward that scatters with index_add_.  Advanced indexing's backward
+    sorts the indices and runs each run of equal ones serially, which on a
+    table of a few rows (objects, spheres, light triangles) gathered by 2M
+    rays took 286 ms of a 1080p gradient step on the card."""
+    return torch.index_select(table, 0, idx)
+
+
 class Surface(NamedTuple):
     """Per-ray shading inputs (all leading dim R)."""
 
@@ -69,7 +78,7 @@ def resolve_surface(gpu: TorchScene, hit: HitRecord, origins: torch.Tensor,
         gpu.uvs[f0], gpu.uvs[f1], gpu.uvs[f2],
         gpu.face_obj[:, None].to(torch.float32),
     ], dim=1)
-    g = face_row[tid]
+    g = rows(face_row, tid)
     v0, v1, v2 = g[..., 0:3], g[..., 3:6], g[..., 6:9]
 
     # Shared-geometry instances: one (I, 21) row gather carries [fwd R | t |
@@ -78,7 +87,7 @@ def resolve_surface(gpu: TorchScene, hit: HitRecord, origins: torch.Tensor,
     if gpu.instanced:
         inst_ids = hit.inst if hit.inst is not None else torch.zeros_like(tid)
         iid = torch.clamp(inst_ids, 0, gpu.inst_fwd.shape[0] - 1).long()
-        inst_tr = torch.cat([gpu.inst_fwd, gpu.inst_inv[:, :9]], dim=1)[iid]
+        inst_tr = rows(torch.cat([gpu.inst_fwd, gpu.inst_inv[:, :9]], dim=1), iid)
 
         def xf_pt(p):
             t = inst_tr
@@ -114,7 +123,7 @@ def resolve_surface(gpu: TorchScene, hit: HitRecord, origins: torch.Tensor,
 
     if num_spheres:
         sid = torch.clamp(hit.prim_id.long() - num_tris, 0, num_spheres - 1)
-        sph_c = gpu.sph_center[sid]
+        sph_c = rows(gpu.sph_center, sid)
         sph_p = origins + hit.t[..., None] * dirs
         sph_n = normalize(sph_p - sph_c)
         su = torch.atan2(sph_n[..., 2], sph_n[..., 0]) / 6.28318530718 + 0.5
@@ -137,7 +146,7 @@ def resolve_surface(gpu: TorchScene, hit: HitRecord, origins: torch.Tensor,
         gpu.obj_is_light[:, None].to(torch.float32),
         gpu.obj_tex.to(torch.float32),
     ], dim=1)
-    m = mat_row[obj]
+    m = rows(mat_row, obj)
     color = m[..., 0:3]
     # Emitters keep the raw material color, never a texel
     # (closesthit.rchit:46-50).

@@ -36,7 +36,7 @@ from realtimeraytracer_torch.config import RenderConfig
 from realtimeraytracer_torch.ops import intersect
 from realtimeraytracer_torch.ops.intersect import BIG_T, HitRecord
 from realtimeraytracer_torch.render.backends import (
-    TraceBackend, _merge_sphere_hits, sphere_occluded)
+    TraceBackend, _merge_sphere_hits, sphere_occluded, stop_gradient)
 from realtimeraytracer_torch.scene.gpu_scene import TorchScene
 from realtimeraytracer_torch.scene.panels import CB, CROWS, SUBK, TILE
 
@@ -356,11 +356,14 @@ def _check_layout(x: torch.Tensor, name: str, dtype, shape) -> None:
 
 
 def _check_on_card(x: torch.Tensor, name: str) -> None:
-    """A kernel input lies on the card and needs no gradient."""
+    """A kernel input lies on the card and needs no gradient (the backends
+    hand their traces detached inputs, backends.stop_gradient; this guards
+    a caller that skips them)."""
     if x.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
     if x.requires_grad:
-        raise ValueError(f"{name} requires grad; the traversal kernels have no backward")
+        raise ValueError(f"{name} requires grad; the traversal kernels have no backward "
+                         "(trace through a backend, which detaches its inputs)")
 
 
 def _check_one_card(kernel: str, **tensors) -> None:
@@ -539,8 +542,11 @@ def make_v7_backend(gpu: TorchScene, cfg: RenderConfig,
     if use_amask is None:
         use_amask = masks_enabled(cfg)
 
+    sg_gpu = gpu.detach()
+
     def closest(origins, dirs, t_min, t_max, common=None):
-        hit = v7_closest(gpu, origins, dirs, t_min, t_max, common, trace, use_amask)
+        hit = v7_closest(sg_gpu, *stop_gradient(origins, dirs, t_min, t_max), common, trace,
+                         use_amask)
         if num_spheres:
             sph = intersect.intersect_spheres(
                 origins, dirs, gpu.sph_center, gpu.sph_radius, t_min, t_max)
@@ -548,7 +554,7 @@ def make_v7_backend(gpu: TorchScene, cfg: RenderConfig,
         return hit
 
     def occluded(origins, dirs, t_min, t_max, common=None):
-        occ = v7_occluded(gpu, origins, dirs, t_min, t_max, common, trace)
+        occ = v7_occluded(sg_gpu, *stop_gradient(origins, dirs, t_min, t_max), common, trace)
         return sphere_occluded(gpu, occ, origins, dirs, t_min, t_max)
 
     return TraceBackend(closest=closest, occluded=occluded,

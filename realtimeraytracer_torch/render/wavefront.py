@@ -41,7 +41,7 @@ from realtimeraytracer_torch.ops.tonemap import srgb_to_linear, tonemap
 from realtimeraytracer_torch.ops.vecmath import cross, dot, normalize
 from realtimeraytracer_torch.render.backends import TraceBackend, make_backend
 from realtimeraytracer_torch.render.megakernel import coherence_key
-from realtimeraytracer_torch.render.surface import resolve_surface
+from realtimeraytracer_torch.render.surface import resolve_surface, rows
 from realtimeraytracer_torch.scene.gpu_scene import TorchScene
 
 
@@ -74,9 +74,9 @@ def _sample_one_light(gpu: TorchScene, cfg: RenderConfig, backend: TraceBackend,
 
     # One light triangle per ray (an unsigned modulo of the hash).
     li = rng.hash_u32(seed + 7777) % lt
-    p0, p1, p2 = gpu.lt_v0[li], gpu.lt_v1[li], gpu.lt_v2[li]
-    lcol = gpu.lt_color[li]
-    lint = gpu.lt_intensity[li][:, None]
+    p0, p1, p2 = rows(gpu.lt_v0, li), rows(gpu.lt_v1, li), rows(gpu.lt_v2, li)
+    lcol = rows(gpu.lt_color, li)
+    lint = rows(gpu.lt_intensity, li)[:, None]
     valid_l = gpu.lt_valid[li]
     two = gpu.lt_two_sided[li]
 
@@ -206,12 +206,13 @@ def trace_paths(gpu: TorchScene, cfg: RenderConfig, origins: torch.Tensor,
     return out
 
 
-def render_wavefront(gpu: TorchScene, frame: ViewportFrame, cfg: RenderConfig,
-                     frame_index: int = 0,
-                     backend: TraceBackend | None = None) -> torch.Tensor:
-    """Multi-bounce render of a compiled scene: the tonemapped (H, W, 3)
-    float32 image on the scene's device.  The frame must lie on that
-    device too."""
+def wavefront_frame(gpu: TorchScene, frame: ViewportFrame, cfg: RenderConfig,
+                    frame_index: int = 0,
+                    backend: TraceBackend | None = None) -> torch.Tensor:
+    """render_wavefront's body, differentiable: gradients reach the
+    scene's leaves through the NEE and GGX estimator (bounce directions
+    and hit ids are detached, the continuous shading recompute is not), as
+    diff/optimize.py's wavefront_loss takes them."""
     check_supported(cfg)
     if frame.position.device != gpu.device:
         raise ValueError(f"the frame is on {frame.position.device} and the scene on "
@@ -221,11 +222,20 @@ def render_wavefront(gpu: TorchScene, frame: ViewportFrame, cfg: RenderConfig,
     py = torch.arange(h, dtype=torch.int64, device=dev)[:, None]
     px = torch.arange(w, dtype=torch.int64, device=dev)[None, :]
     pixel_seed = ((px * 733 + py * 1933 + int(frame_index)) & rng.MASK32).reshape(-1)
+    if backend is None:
+        backend = make_backend(gpu, cfg)
+    acc = torch.zeros((h * w, 3), dtype=torch.float32, device=dev)
+    for s in range(cfg.primary_rays):
+        o, d = generate_rays(frame, w, h, sample_index=s, jitter=cfg.jitter)
+        acc = acc + trace_paths(gpu, cfg, o, d, pixel_seed, backend, s)
+    return tonemap(acc / cfg.primary_rays, cfg.tonemap, cfg.gamma).reshape(h, w, 3)
+
+
+def render_wavefront(gpu: TorchScene, frame: ViewportFrame, cfg: RenderConfig,
+                     frame_index: int = 0,
+                     backend: TraceBackend | None = None) -> torch.Tensor:
+    """Multi-bounce render of a compiled scene: the tonemapped (H, W, 3)
+    float32 image on the scene's device, under inference mode.  The frame
+    must lie on that device too."""
     with torch.inference_mode():
-        if backend is None:
-            backend = make_backend(gpu, cfg)
-        acc = torch.zeros((h * w, 3), dtype=torch.float32, device=dev)
-        for s in range(cfg.primary_rays):
-            o, d = generate_rays(frame, w, h, sample_index=s, jitter=cfg.jitter)
-            acc = acc + trace_paths(gpu, cfg, o, d, pixel_seed, backend, s)
-        return tonemap(acc / cfg.primary_rays, cfg.tonemap, cfg.gamma).reshape(h, w, 3)
+        return wavefront_frame(gpu, frame, cfg, frame_index, backend)

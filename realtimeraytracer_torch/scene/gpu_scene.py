@@ -160,6 +160,16 @@ class TorchScene:
             for f in dataclasses.fields(self)
             if getattr(self, f.name) is not None})
 
+    def detach(self) -> "TorchScene":
+        """The scene with no leaf in the autograd graph: what the traversal
+        kernels and their twins are handed, as the JAX package hands them
+        ``stop_gradient(gpu)``.  Itself when no leaf requires grad (every
+        frame), else a copy with the gradient-carrying leaves detached
+        (views of the same storage)."""
+        carried = {f.name: getattr(self, f.name).detach() for f in dataclasses.fields(self)
+                   if getattr(self, f.name) is not None and getattr(self, f.name).requires_grad}
+        return dataclasses.replace(self, **carried) if carried else self
+
 
 LEAF_NAMES = tuple(f.name for f in dataclasses.fields(TorchScene))
 

@@ -33,6 +33,9 @@ twins at 160x90 on the hybrid and the "pallas" route, with its launches.
 On the CPU: the fused v9 entry refuses bad inputs before any build, the
 ordered loop agrees with the twin, and each ctypes signature matches its
 C entry.
+The A-Trous pair's backward (B5b, csrc/atrous_pair_vjp.cu) is held to
+autograd of the twin at steps 1 to 40, with and without the normal and
+position gradients, and through atrous_denoise_pair under autograd.
 Tolerances: v7, v8 and v9 hit masks and occluded flags equal, t to rtol
 1e-6 and ids equal or t equal (kernel and twin round alike: no multiply-add
 contraction on either side); v8 hints as in tests/test_torch_hier.py; the A-Trous pair rtol 1e-5, atol 1e-6 (expf and the
@@ -47,7 +50,8 @@ import torch
 
 from realtimeraytracer_torch import RenderConfig, scenes
 from realtimeraytracer_torch.ops.denoise_kernel import (
-    atrous_denoise_pair, atrous_pair_iteration_kernel, atrous_pair_iteration_plain)
+    atrous_denoise_pair, atrous_pair_iteration_kernel, atrous_pair_iteration_plain,
+    atrous_pair_iteration_vjp_kernel, atrous_pair_iteration_vjp_plain)
 from realtimeraytracer_torch.ops.denoise import ratio_combine
 from realtimeraytracer_torch.render import hier_backend as hb
 from realtimeraytracer_torch.render import quarter_backend as qb
@@ -1154,6 +1158,63 @@ def test_atrous_kernel_wide_steps(cuda, step):
     ps, pu = atrous_pair_iteration_plain(*ins, step, *PHIS)
     torch.testing.assert_close(ks, ps, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(ku, pu, rtol=1e-5, atol=1e-6)
+
+
+def _vjp_inputs(h, w, seed, device):
+    ins = [x.to(device) for x in _denoise_data(h, w, seed)]
+    r = np.random.default_rng(seed)
+    gs, gu = (torch.from_numpy(r.normal(size=(h, w, 3)).astype(np.float32)).to(device)
+              for _ in range(2))
+    return ins, gs, gu
+
+
+def test_atrous_vjp_kernel_refuses_cpu_tensors_and_bad_steps():
+    ins, gs, gu = _vjp_inputs(8, 8, 0, "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        atrous_pair_iteration_vjp_kernel(*ins, ins[0], ins[1], 1, *PHIS, gs, gu)
+    with pytest.raises(ValueError, match="step"):
+        atrous_pair_iteration_vjp_kernel(*ins, ins[0], ins[1], 0, *PHIS, gs, gu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step,geometry", [(1, True), (2, False), (3, True), (4, True),
+                                           (7, False), (40, True)])
+def test_atrous_vjp_kernel_matches_twin(cuda, step, geometry):
+    """B5b against its plain version (autograd of the twin): the sums run
+    in another order, so |kernel - twin| <= 1e-5 |twin| + 1e-6 max|twin|
+    (on the card both lie within about 5e-7 max|g| of a float64 twin)."""
+    ins, gs, gu = _vjp_inputs(45, 70, step, cuda)
+    out_s, out_u = atrous_pair_iteration_kernel(*ins, step, *PHIS)
+    before = atrous_denoise_pair.vjp_launches
+    k = atrous_pair_iteration_vjp_kernel(*ins, out_s, out_u, step, *PHIS, gs, gu, geometry)
+    assert atrous_denoise_pair.vjp_launches == before + 1
+    t = atrous_pair_iteration_vjp_plain(*ins, step, *PHIS, gs, gu, geometry)
+    for a, b in zip(k, t):
+        if b is None:
+            assert a is None
+            continue
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6 * b.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_atrous_pair_backward_launches_the_vjp_kernel(cuda):
+    """atrous_denoise_pair under autograd on the card: four forward and four
+    VJP launches, the gradients of all four inputs against autograd through
+    four twin iterations (1e-5 relative to the largest: four chained
+    backward passes)."""
+    ins, gs, gu = _vjp_inputs(45, 70, 11, cuda)
+    xs = [x.clone().requires_grad_() for x in ins]
+    fwd, vjp = atrous_denoise_pair.launches, atrous_denoise_pair.vjp_launches
+    out = atrous_denoise_pair(*xs, 4, *PHIS)
+    torch.autograd.backward(out, (gs, gu))
+    assert atrous_denoise_pair.launches - fwd == 4 and atrous_denoise_pair.vjp_launches - vjp == 4
+    ys = [x.clone().requires_grad_() for x in ins]
+    s, u = ys[0], ys[1]
+    for i in range(4):
+        s, u = atrous_pair_iteration_plain(s, u, ys[2], ys[3], i + 1, *PHIS)
+    torch.autograd.backward((s, u), (gs, gu))
+    for x, y in zip(xs, ys):
+        torch.testing.assert_close(x.grad, y.grad, rtol=1e-5, atol=1e-5 * y.grad.abs().max().item())
 
 
 @pytest.mark.parametrize("name", sorted(__import__("realtimeraytracer_torch.kernels",
