@@ -122,10 +122,13 @@ Phases, each of which ends the run with a non-zero exit on failure:
      base-level image;
  29. the A-Trous pair's backward (B5b, csrc/atrous_pair_vjp.cu) against its
      twin (autograd of the plain iteration) at 320x180 and 1920x1080:
-     steps 1 to 8 with and without the normal and position gradients, and
-     the four iterations under autograd; registers and spills, its time
-     for the frame's four iterations beside its bound, the twin's time and
-     peak memory;
+     steps 1 to 12 with and without the normal and position gradients, and
+     the four iterations under autograd; B5's weight-sum output (which B5b
+     reads) against the twin's, its images unchanged; registers and
+     spills, B5b's time for the frame's four iterations beside the bound
+     of its work and of the two-pass design's (a weight-sum pass, then a
+     gather), the twin's time and peak memory, B5's time without and with
+     its W output;
  30. gradients through the kernels against the twins: radiance_loss on
      procedural_mesh(100_000, sun=True) at 320x180, shadow_rays=3, for
      obj_color, lt_intensity, sun_intensity, env_color and vertices, and on
@@ -142,9 +145,19 @@ Phases, each of which ends the run with a non-zero exit on failure:
      vertices: launches, forward and backward time of a first and a second
      run, peak memory), one
      wavefront_loss gradient (1 spp, 2 bounces), and a 160x90
-     pipeline_loss gradient through the kernels against the twins.
+     pipeline_loss gradient through the kernels against the twins;
+ 33. ray sharding (parallel/) on a one-rank NCCL process group (127.0.0.1,
+     a free port; no other backend): render_pipeline_sharded at the
+     reference defaults, bit-equal to phase 9's frame with its launches,
+     timed in turns with render_pipeline_gpu; wavefront_sample_sharded at
+     config 4's shapes gathered over the mesh, bit-equal to trace_paths;
+     atrous_pair_slab on four 1080p row slabs with 8-row halos, bit-equal
+     to phase 4's four iterations; config 5's step through
+     make_train_step(cfg, mesh, optimizer), loss and params bit-equal to
+     the group-less step's under deterministic algorithms, its all-reduce
+     logged, timed beside phase 31's step; then the group is destroyed.
 Each main-path run (5, 8, 9, 14, 18, 22, 24, 26, 27, 28, 30, each step of
-31 and 32) and the probe's timed run (23) are driven with every kernel's
+31 and 32, 33) and the probe's timed run (23) are driven with every kernel's
 launch count set to 0 just before and read just after.  The line before the last is a
 JSON object describing each kernel (times, launches, error, bound); the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -159,6 +172,7 @@ import dataclasses
 import json
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -397,6 +411,7 @@ def no_plain_cull(module, name: str, what: str):
 
 def main() -> int:
     import torch
+    import torch.distributed as tdist
 
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
@@ -409,9 +424,12 @@ def main() -> int:
     from realtimeraytracer_torch.diff import checkpoint, optimize as opt
     from realtimeraytracer_torch.ops.denoise_kernel import (
         atrous_denoise_pair, atrous_pair_iteration_kernel, atrous_pair_iteration_plain,
-        atrous_pair_iteration_vjp_kernel, atrous_pair_iteration_vjp_plain)
+        atrous_pair_iteration_vjp_kernel, atrous_pair_iteration_vjp_plain, atrous_pair_slab)
     from realtimeraytracer_torch.ops.denoise import ratio_combine
     from realtimeraytracer_torch.ops.refit import apply_instance_transforms
+    from realtimeraytracer_torch.parallel.mesh import initialize_multihost, make_ray_mesh
+    from realtimeraytracer_torch.parallel.sharded import (render_pipeline_sharded,
+                                                          wavefront_sample_sharded)
     from realtimeraytracer_torch.render import hier_backend as v8
     from realtimeraytracer_torch.render import quarter_backend as v9
     from realtimeraytracer_torch.render import v7_backend as v7
@@ -419,7 +437,7 @@ def main() -> int:
     from realtimeraytracer_torch.render.backends import make_backend, make_hybrid_backend
     from realtimeraytracer_torch.render.megakernel import render_components, shade_sample
     from realtimeraytracer_torch.render.pipeline import compile_for, render_pipeline_gpu
-    from realtimeraytracer_torch.render.wavefront import render_wavefront
+    from realtimeraytracer_torch.render.wavefront import render_wavefront, trace_paths
     from realtimeraytracer_torch.app.application import Application
     from realtimeraytracer_torch.frame_profile import range_times
     from realtimeraytracer_torch.kernel_ab import sass_functions, tap_instructions
@@ -1874,10 +1892,11 @@ def main() -> int:
             ins29 = [x[:h_, :w_].contiguous() for x in dn]
         g_s, g_u = (torch.from_numpy(rng29.normal(size=(h_, w_, 3)).astype(np.float32)).to(dev)
                     for _ in range(2))
-        for step in range(1, 9):
-            o_s, o_u = atrous_pair_iteration_kernel(*ins29, step, *phis)
+        for step in range(1, 13):
+            o_s, o_u, ws_ = atrous_pair_iteration_kernel(*ins29, step, *phis, weights=True)
             for geom in (True, False):
-                k_ = atrous_pair_iteration_vjp_kernel(*ins29, o_s, o_u, step, *phis, g_s, g_u, geom)
+                k_ = atrous_pair_iteration_vjp_kernel(*ins29, o_s, o_u, ws_, step, *phis, g_s, g_u,
+                                                      geom)
                 t_ = atrous_pair_iteration_vjp_plain(*ins29, step, *phis, g_s, g_u, geom)
                 vjp_err = max(vjp_err, vjp_close(k_, t_, f"[29] {w_}x{h_} step {step} geometry {geom}"))
         # The four chained iterations of the frame's denoise, under autograd.
@@ -1895,27 +1914,48 @@ def main() -> int:
             sc = float(y_.grad.abs().max())
             torch.testing.assert_close(x_.grad, y_.grad, rtol=1e-5, atol=1e-5 * sc,
                                        msg=lambda m: f"[29] {w_}x{h_} 4 iterations {name_}: {m}")
-        say(f"[29] B5b vs its twin at {w_}x{h_}: steps 1-8, with and without normal/position "
+        say(f"[29] B5b vs its twin at {w_}x{h_}: steps 1-12, with and without normal/position "
             f"gradients, and the 4-iteration chain under autograd agree; largest |err| / max|twin| "
             f"so far {vjp_err:.3e}")
-    # At 1080p: the four iterations' VJPs of the frame's denoise (steps 1-4).
+    # At 1080p: the four iterations' VJPs of the frame's denoise (steps
+    # 1-4), on the forward's outputs and weight sums.  B5's W output: the
+    # images bit-equal to those without it, the sums to the twin's.
     outs29 = []
     s_, u_ = dn[0], dn[1]
     for i in range(4):
-        outs29.append((s_, u_) + atrous_pair_iteration_kernel(s_, u_, dn[2], dn[3], i + 1, *phis))
+        outs29.append((s_, u_) + atrous_pair_iteration_kernel(s_, u_, dn[2], dn[3], i + 1, *phis,
+                                                              weights=True))
         s_, u_ = outs29[-1][2], outs29[-1][3]
+        _, _, w_plain = atrous_pair_iteration_plain(*outs29[-1][:2], dn[2], dn[3], i + 1, *phis,
+                                                    weights=True)
+        torch.testing.assert_close(outs29[-1][4], w_plain, rtol=1e-6, atol=0,
+                                   msg=lambda m: f"[29] B5's W output, step {i + 1}: {m}")
+    require(torch.equal(s_, sk) and torch.equal(u_, uk),
+            "[29] B5 with its W output changed the denoised images (phase 4)")
 
     def vjp4(fn, geom):
-        for i, (si, ui, so, uo) in enumerate(outs29):
+        for i, (si, ui, so, uo, wo) in enumerate(outs29):
             if fn is atrous_pair_iteration_vjp_kernel:
-                fn(si, ui, dn[2], dn[3], so, uo, i + 1, *phis, g_s, g_u, geom)
+                fn(si, ui, dn[2], dn[3], so, uo, wo, i + 1, *phis, g_s, g_u, geom)
             else:
                 fn(si, ui, dn[2], dn[3], i + 1, *phis, g_s, g_u, geom)
+
+    def denoise_w():
+        s_, u_ = dn[0], dn[1]
+        for i in range(4):
+            s_, u_, _ = atrous_pair_iteration_kernel(s_, u_, dn[2], dn[3], i + 1, *phis,
+                                                     weights=True)
+        return s_, u_
 
     zero_counts()
     vjp_ms, _ = cuda_ms(lambda: vjp4(atrous_pair_iteration_vjp_kernel, True), 10)
     vjp_ms_colour, _ = cuda_ms(lambda: vjp4(atrous_pair_iteration_vjp_kernel, False), 10)
     vjp_plain_ms, _ = cuda_ms(lambda: vjp4(atrous_pair_iteration_vjp_plain, True), 2)
+    # B5 without and with its W output, in turns.
+    b5_ms = {"without W": [], "with W": []}
+    for key in ("without W", "with W", "with W", "without W"):
+        b5_ms[key].append(cuda_ms(lambda: denoise_with(atrous_pair_iteration_kernel)
+                                  if key == "without W" else denoise_w(), 10)[0])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held29 = torch.cuda.memory_allocated()
@@ -1923,19 +1963,30 @@ def main() -> int:
     torch.cuda.synchronize()
     twin_peak29 = (torch.cuda.max_memory_allocated() - held29) / 2**30
     taps4 = atrous_taps(H, W, 4)
-    # Operations per in-bounds tap (csrc/atrous_pair_vjp.cu): the weight pass
-    # 55 (the forward's 53 of distances, weights and products, two sums); the
-    # gather 53 for the weights, per image 37 (e_xy 9, e_yx 9, E 2, the
-    # direct term 7, the colour term 10), 21 for the normal and position
-    # terms.  Bytes per pixel: eight (H, W, 3) images read, four written.
-    vjp_bound = bound(taps4 * (55 + 53 + 2 * 37 + 21), 4 * H * W * 12 * (8 + 4))
-    vjp_bound_colour = bound(taps4 * (55 + 53 + 2 * 37), 4 * H * W * 12 * (8 + 2))
+    # The bound of the work of the two-pass design before this one (a
+    # weight-sum pass, then a gather), per in-bounds tap: the weight pass 55
+    # (the forward's 53 of distances, weights and products, two sums); the
+    # gather 53 for the weights, per image 37, 21 for the normal and
+    # position terms; eight (H, W, 3) images read, four written.
+    old_bound = bound(taps4 * (55 + 53 + 2 * 37 + 21), 4 * H * W * 12 * (8 + 4))
+    # The work this design does (csrc/atrous_pair_vjp.cu), per in-bounds tap
+    # with a fused multiply-add as two operations and an exp as one: four
+    # differences 12, four squared norms 20, the exponents 9, two exps and
+    # kernel weights 4, per image the weight term 18 and the accumulation
+    # 13, the normal and position terms 13; per pixel eight (H, W, 3) images
+    # and the two weight sums read, four (two) images written.
+    vjp_bound = bound(taps4 * 118, 4 * H * W * (12 * 8 + 8 + 12 * 4))
+    vjp_bound_colour = bound(taps4 * 105, 4 * H * W * (12 * 8 + 8 + 12 * 2))
+    b5_no_w, b5_w = statistics.mean(b5_ms["without W"]), statistics.mean(b5_ms["with W"])
     say(f"[29] B5b at {W}x{H}, the 4 iterations of the frame's denoise (steps 1-4): {vjp_ms:.3f} ms "
-        f"with normal/position gradients (bound {vjp_bound[0]:.4f} ms by {vjp_bound[1]}), "
+        f"with normal/position gradients (bound of this design's work {vjp_bound[0]:.4f} ms by "
+        f"{vjp_bound[1]}; of the two-pass design's {old_bound[0]:.4f} ms by {old_bound[1]}), "
         f"{vjp_ms_colour:.3f} ms without (bound {vjp_bound_colour[0]:.4f} ms by "
         f"{vjp_bound_colour[1]}); the twin (autograd of the plain iteration) {vjp_plain_ms:.3f} ms, "
-        f"its peak memory {twin_peak29:.3f} GiB for one iteration; the forward (phase 4) "
-        f"{dn_ms:.3f} ms ({card})")
+        f"its peak memory {twin_peak29:.3f} GiB for one iteration; B5's 4 iterations without its W "
+        f"output {b5_no_w:.3f} ms {[round(x, 4) for x in b5_ms['without W']]}, with it {b5_w:.3f} "
+        f"ms {[round(x, 4) for x in b5_ms['with W']]} (in turns: without, with, with, without) "
+        f"({card})")
 
     # ---- 30. gradients through the kernels against the twins ----------------------
     @contextlib.contextmanager
@@ -2053,7 +2104,8 @@ def main() -> int:
         return opt.TrainState(p_, opt.adam(p_, 2e-2))
 
     state31 = fresh_state()
-    step31 = opt.make_train_step(cfg31, state31.optimizer)
+    mesh31 = make_ray_mesh()
+    step31 = opt.make_train_step(cfg31, mesh31, state31.optimizer)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held31 = torch.cuda.memory_allocated()
@@ -2089,7 +2141,7 @@ def main() -> int:
         f"{dict(step_syncs[-1])} ({card})")
     # Checkpoint round trip: save at step 3, restore, and step both.
     state_a = fresh_state()
-    step_a = opt.make_train_step(cfg31, state_a.optimizer)
+    step_a = opt.make_train_step(cfg31, mesh31, state_a.optimizer)
     for _ in range(3):
         state_a, _ = step_a(state_a, wrong, o31, d31, seed31, target31)
     ckpt_dir = str(Path(__file__).resolve().parent / "build" / "smoke_checkpoint")
@@ -2099,8 +2151,8 @@ def main() -> int:
     state_b = checkpoint.restore_checkpoint(ckpt_dir, state_a, 3)
     require(all(p_.device == dev for p_ in state_b.params.values()), "[31] restored params off the card")
     state_a, loss_a = step_a(state_a, wrong, o31, d31, seed31, target31)
-    state_b, loss_b = opt.make_train_step(cfg31, state_b.optimizer)(state_b, wrong, o31, d31, seed31,
-                                                                     target31)
+    state_b, loss_b = opt.make_train_step(cfg31, mesh31, state_b.optimizer)(
+        state_b, wrong, o31, d31, seed31, target31)
     require(float(loss_a) == float(loss_b), f"[31] the restored step's loss {float(loss_b)!r} differs "
             f"from the uninterrupted {float(loss_a)!r}")
     for n_ in names31:
@@ -2173,6 +2225,120 @@ def main() -> int:
     say(f"[32] 160x90 pipeline_loss gradient (reference defaults otherwise) through the kernels and "
         f"through the twins: losses {loss_k!r} and {loss_p!r}; largest |err| / max|grad| so far "
         f"{grad_err:.3e}")
+
+    # ---- 33. ray sharding (A7) over a one-rank NCCL process group ----------------
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port33 = sock.getsockname()[1]
+    sock.close()
+    initialize_multihost(backend="nccl", init_method=f"tcp://127.0.0.1:{port33}", world_size=1,
+                         rank=0)
+    try:
+        backend33 = tdist.get_backend() if tdist.is_initialized() else None
+        require(backend33 == "nccl", f"[33] no NCCL process group (backend {backend33})")
+        mesh33 = make_ray_mesh()
+        require(mesh33.group is not None and mesh33.size == 1 and mesh33.device == dev,
+                f"[33] make_ray_mesh() under the group: {mesh33}")
+        # (a) The reference-default frame: v9, v8 and B5 as in phase 9.
+        zero_counts()
+        img33 = render_pipeline_sharded(gpu, frame, cfg9, mesh33)
+        torch.cuda.synchronize()
+        counts33 = read_counts()
+        require(counts33 == want9, f"[33] sharded frame launches {counts33}, expected {want9}")
+        require(np.array_equal(img33.cpu().numpy(), img9),
+                "[33] render_pipeline_sharded's frame differs from phase 9's")
+        frame_ms33 = {"render_pipeline_gpu": [], "render_pipeline_sharded": []}
+        for key in ("render_pipeline_gpu", "render_pipeline_sharded", "render_pipeline_sharded",
+                    "render_pipeline_gpu"):
+            fn33 = render_pipeline_gpu if key == "render_pipeline_gpu" else (
+                lambda g_, f_, c_: render_pipeline_sharded(g_, f_, c_, mesh33))
+            frame_ms33[key].append(median_ms(lambda: fn33(gpu, frame, cfg9), 3)[0])
+        say(f"[33] render_pipeline_sharded on a one-rank NCCL mesh, reference defaults: launches "
+            f"{counts33}, the image bit-equal to phase 9's; frame ms (median of 3 each, in turns) "
+            f"{frame_ms33}; phase 9's {statistics.median(times9):.2f} ms ({card})")
+        # (b) One wavefront sample at config 4's shapes, gathered over the mesh.
+        cfg33 = cfg24.replace(primary_rays=1)
+        o33, d33 = generate_rays(frame, W, H, sample_index=0, jitter=True)
+        py33 = torch.arange(H, device=dev)[:, None]
+        px33 = torch.arange(W, device=dev)[None, :]
+        seed33 = (px33 * 733 + py33 * 1933).reshape(-1)
+        with torch.inference_mode():
+            zero_counts()
+            wf33 = mesh33.all_gather_rows(
+                wavefront_sample_sharded(gpu, cfg33, o33, d33, seed33, mesh33))
+            torch.cuda.synchronize()
+            counts33w = read_counts()
+            wf_ref = trace_paths(gpu, cfg33, o33, d33, seed33)
+        require(counts33w == unmasked(trace_v7=0, trace_v9=1, trace_v8=6, atrous_pair=0),
+                f"[33] wavefront sample launches {counts33w}")
+        require(torch.equal(wf33, wf_ref), "[33] wavefront_sample_sharded differs from trace_paths")
+        say(f"[33] wavefront_sample_sharded at config 4's shapes (1920x1080, 2 bounces), gathered "
+            f"over the mesh: bit-equal to trace_paths; launches {counts33w}")
+        # (c) The slab function on four 1080p row slabs with 8-row halos.
+        zero_counts()
+        s33, u33 = dn[0], dn[1]
+        rows33 = H // 4
+        for i in range(4):
+            parts = []
+            for r in range(4):
+                a_, b_ = max(r * rows33 - 8, 0), min((r + 1) * rows33 + 8, H)
+                parts.append(atrous_pair_slab(
+                    *(x[a_:b_].contiguous() for x in (s33, u33, dn[2], dn[3])), r * rows33 - a_,
+                    rows33, i + 1, *phis))
+            s33, u33 = torch.cat([p_[0] for p_ in parts]), torch.cat([p_[1] for p_ in parts])
+        torch.cuda.synchronize()
+        counts33s = read_counts()
+        require(counts33s["atrous_pair"] == 16, f"[33] slab launches {counts33s}")
+        require(torch.equal(s33, sk) and torch.equal(u33, uk),
+                "[33] the four-slab denoise differs from the unsharded pair kernel (phase 4)")
+        say(f"[33] atrous_pair_slab on four {W}x{rows33} row slabs (8-row halos), 4 iterations: "
+            f"16 B5 launches, bit-equal to the unsharded kernel's 4 iterations")
+        # (d) Config 5's step through make_train_step(cfg, mesh, optimizer):
+        # under deterministic algorithms (the gradient's index_add_ sorted,
+        # not atomic), against the group-less mesh of phase 31.
+        def step33(mesh_, steps):
+            st_ = fresh_state()
+            fn_ = opt.make_train_step(cfg31, mesh_, st_.optimizer)
+            ms_, loss_ = [], None
+            for _ in range(steps):
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                st_, loss_ = fn_(st_, wrong, o31, d31, seed31, target31)
+                b.record()
+                b.synchronize()
+                ms_.append(a.elapsed_time(b))
+            return st_, float(loss_), ms_
+
+        with warnings.catch_warnings(record=True) as caught33:
+            warnings.simplefilter("always")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                st_1, loss_1, _ = step33(mesh31, 1)
+                zero_counts()
+                mesh33.log.clear()
+                st_n, loss_n, _ = step33(mesh33, 1)
+                counts33d = read_counts()
+            finally:
+                torch.use_deterministic_algorithms(False)
+        nondet = sorted({str(w_.message)[:120] for w_ in caught33 if "determinis" in str(w_.message)})
+        require(counts33d == want31, f"[33] sharded step launches {counts33d}, expected {want31}")
+        log33 = list(mesh33.log)
+        require([e_["kind"] for e_ in log33] == ["all_reduce"], f"[33] the step's collectives {log33}")
+        require(loss_n == loss_1, f"[33] sharded step loss {loss_n!r}, unsharded {loss_1!r}")
+        for n_ in names31:
+            require(torch.equal(st_n.params[n_], st_1.params[n_]),
+                    f"[33] sharded step {n_} differs from the unsharded step's "
+                    f"(nondeterministic ops warned: {nondet})")
+        _, _, ms_n = step33(mesh33, 5)
+        _, _, ms_1 = step33(mesh31, 5)
+        say(f"[33] config 5's step through make_train_step(cfg, mesh, optimizer) on the one-rank "
+            f"NCCL mesh: loss and params bit-equal to the group-less step's (deterministic "
+            f"algorithms; warned: {nondet}); its collectives {log33}; launches {counts33d}; "
+            f"median of steps 2-5 {statistics.median(ms_n[1:]):.2f} ms sharded, "
+            f"{statistics.median(ms_1[1:]):.2f} ms group-less; phase 31's "
+            f"{statistics.median(step_ms[1:]):.2f} ms ({card})")
+    finally:
+        tdist.destroy_process_group()
 
     shadow_row = v8_rows["occluded shadow segments"]
     say(json.dumps({"kernels": [

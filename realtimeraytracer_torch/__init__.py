@@ -16,8 +16,10 @@ mask variant; v8 also with its instanced instantiation, which carries
 every trace of an instanced scene), the fused two-image A-Trous
 iteration and its backward.  Pixel losses differentiate through shading
 and intersection to material, light and geometry parameters (diff/:
-the losses, the training step, ``fit``, checkpoints).  ``render`` runs on
-the GPU unless the caller passes ``device="cpu"``.
+the losses, the training step, ``fit``, checkpoints).  A frame, a
+wavefront sample or a training step splits its rays over the ranks of a
+torch.distributed process group (parallel/: gloo on the CPU, NCCL on the
+GPU).  ``render`` runs on the GPU unless the caller passes ``device="cpu"``.
 
 Public API:
     Scene, Camera, Material, Sphere, TriangleMesh, AreaLight, DirectionalLight

@@ -40,7 +40,18 @@ them is gone:
 - atrous_unstaged: the A-Trous pair reads every tap and centre from global
   memory (the same loop and reuse; no shared staging);
 - atrous_py2: two output rows a thread instead of four (fewer registers,
-  more CTAs an SM, less reuse of each staged tap).
+  more CTAs an SM, less reuse of each staged tap);
+- vjp_two_ctas, vjp_four_ctas: B5b with geometry gradients capped for two
+  or four resident CTAs an SM instead of three (88 registers; 64, which
+  spill);
+- vjp_colour_three_ctas: B5b without them capped for three instead of four;
+- vjp_forward_weights: B5b evaluates each tap's weights exactly as the
+  forward does (four clamped expf of unfused squared distances), so they
+  round as the W and outputs it reads;
+- vjp_four_exps: B5b evaluates the forward's four clamped weights a tap
+  (four expf) instead of one exp of the summed exponents per image;
+- vjp_column_residues: B5b stages one column residue class at every step
+  (36 strided columns) instead of a contiguous segment up to step 8.
 """
 
 from __future__ import annotations
@@ -162,6 +173,42 @@ VARIANTS = {
     "atrous_py2": ("atrous_pair.cu", [
         ("constexpr int PY = 4;             // output rows per thread",
          "constexpr int PY = 2;             // output rows per thread")]),
+    "vjp_two_ctas": ("atrous_pair_vjp.cu", [
+        ("constexpr int MIN_BLOCKS_GEOM = 3;", "constexpr int MIN_BLOCKS_GEOM = 2;")]),
+    "vjp_four_ctas": ("atrous_pair_vjp.cu", [
+        ("constexpr int MIN_BLOCKS_GEOM = 3;", "constexpr int MIN_BLOCKS_GEOM = 4;")]),
+    "vjp_colour_three_ctas": ("atrous_pair_vjp.cu", [
+        ("constexpr int MIN_BLOCKS_COLOUR = 4;", "constexpr int MIN_BLOCKS_COLOUR = 3;")]),
+    "vjp_forward_weights": ("atrous_pair_vjp.cu", [(
+        """struct Consts {
+  float neg_inv_c, neg_inv_np, neg_inv_p;   // the exponents' factors""",
+        """struct Consts {
+  float inv_step2, inv_c, inv_n, inv_p;""",
+    ), (
+        """  const Consts k{-inv_c, -(inv_step2 * inv_n), -inv_p,""",
+        """  const Consts k{inv_step2, inv_c, inv_n, inv_p,""",
+    ), (
+        """      const float t = fmaf(dot3(dp, dp), k.neg_inv_p, dot3(dn, dn) * k.neg_inv_np);
+      const float kern = KERNEL5[ky * 5 + kx];
+      const float a_s = kern * expf(fmaf(dot3(dcs, dcs), k.neg_inv_c, t));
+      const float a_u = kern * expf(fmaf(dot3(dcu, dcu), k.neg_inv_c, t));""",
+        """      const auto sq = [](float3 d) { return (d.x * d.x + d.y * d.y) + d.z * d.z; };
+      const float w_n = fminf(expf(-(sq(dn) * k.inv_step2) * k.inv_n), 1.0f);
+      const float w_p = fminf(expf(-sq(dp) * k.inv_p), 1.0f);
+      const float wnp = (w_n * w_p) * KERNEL5[ky * 5 + kx];
+      const float a_s = fminf(expf(-sq(dcs) * k.inv_c), 1.0f) * wnp;
+      const float a_u = fminf(expf(-sq(dcu) * k.inv_c), 1.0f) * wnp;""")]),
+    "vjp_four_exps": ("atrous_pair_vjp.cu", [(
+        """      const float t = fmaf(dot3(dp, dp), k.neg_inv_p, dot3(dn, dn) * k.neg_inv_np);
+      const float kern = KERNEL5[ky * 5 + kx];
+      const float a_s = kern * expf(fmaf(dot3(dcs, dcs), k.neg_inv_c, t));
+      const float a_u = kern * expf(fmaf(dot3(dcu, dcu), k.neg_inv_c, t));""",
+        """      const float wnp = (fminf(expf(dot3(dn, dn) * k.neg_inv_np), 1.0f)
+                         * fminf(expf(dot3(dp, dp) * k.neg_inv_p), 1.0f)) * KERNEL5[ky * 5 + kx];
+      const float a_s = fminf(expf(dot3(dcs, dcs) * k.neg_inv_c), 1.0f) * wnp;
+      const float a_u = fminf(expf(dot3(dcu, dcu) * k.neg_inv_c), 1.0f) * wnp;""")]),
+    "vjp_column_residues": ("atrous_pair_vjp.cu", [
+        ("constexpr int KMAX = 8;", "constexpr int KMAX = 0;")]),
 }
 
 

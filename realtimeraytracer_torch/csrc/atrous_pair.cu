@@ -16,7 +16,10 @@
 // where each division by a phi is a product with its reciprocal (inv_c =
 // 1 / c_phi computed in double and rounded to float, ...), which is how
 // PyTorch's CUDA division by a Python scalar evaluates the twin's
-// `x / c_phi`.
+// `x / c_phi`.  When the caller passes a `wsum` buffer (the autograd
+// forward, whose backward csrc/atrous_pair_vjp.cu reads it), the kernel
+// also writes each pixel's cum of both images: wsum = [cum_s (h, w) |
+// cum_u (h, w)].
 // Out-of-bounds taps are skipped by a bounds test, which is what a weight of
 // exactly 0 contributes in the reference.  Any step runs (no halo limit).
 //
@@ -121,8 +124,8 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes
 __global__ void __launch_bounds__(NT) atrous_pair_kernel(
     const float* __restrict__ s_in, const float* __restrict__ u_in,
     const float* __restrict__ nrm, const float* __restrict__ pos,
-    float* __restrict__ s_out, float* __restrict__ u_out, int h, int w,
-    int step, int residues, float inv_step2, float inv_c, float inv_n, float inv_p) {
+    float* __restrict__ s_out, float* __restrict__ u_out, float* __restrict__ wsum, int h,
+    int w, int step, int residues, float inv_step2, float inv_c, float inv_n, float inv_p) {
   extern __shared__ __align__(16) float stage[];   // 4 planes x SR x row_floats
   // Per staged row and segment: the float offset of pixel x in the row's
   // room is sbase + 3 x; schunks 16-byte copies hold it (0: not staged).
@@ -249,6 +252,10 @@ __global__ void __launch_bounds__(NT) atrous_pair_kernel(
       s_out[o + c] = acc_s[p][c] / den_s;
       u_out[o + c] = acc_u[p][c] / den_u;
     }
+    if (wsum != nullptr) {
+      wsum[o / 3] = cum_s[p];
+      wsum[(size_t)h * w + o / 3] = cum_u[p];
+    }
   }
 }
 
@@ -258,12 +265,13 @@ extern "C" {
 
 // One iteration at dilation `step` (>= 1) on `stream`; the four inputs
 // start on 16-byte boundaries; inv_c, inv_n, inv_p are the float
-// reciprocals of the three phi's.  Returns cudaGetLastError() after the launch
+// reciprocals of the three phi's; wsum is null or (2, h, w) f32, which
+// receives each pixel's weight sums.  Returns cudaGetLastError() after the launch
 // (0 = launched), the error of the shared-memory opt-in, or
 // cudaErrorInvalidValue for step < 1.
 int rt_atrous_pair(const void* s_in, const void* u_in, const void* nrm,
-                   const void* pos, void* s_out, void* u_out, int h, int w,
-                   int step, float inv_step2, float inv_c, float inv_n,
+                   const void* pos, void* s_out, void* u_out, void* wsum, int h,
+                   int w, int step, float inv_step2, float inv_c, float inv_n,
                    float inv_p, void* stream) {
   if (h <= 0 || w <= 0) return 0;
   if (step < 1) return (int)cudaErrorInvalidValue;
@@ -282,8 +290,8 @@ int rt_atrous_pair(const void* s_in, const void* u_in, const void* nrm,
   const dim3 grid((w + TW - 1) / TW, groups * residues);
   atrous_pair_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
       (const float*)s_in, (const float*)u_in, (const float*)nrm,
-      (const float*)pos, (float*)s_out, (float*)u_out, h, w, step, residues, inv_step2,
-      inv_c, inv_n, inv_p);
+      (const float*)pos, (float*)s_out, (float*)u_out, (float*)wsum, h, w, step, residues,
+      inv_step2, inv_c, inv_n, inv_p);
   return (int)cudaGetLastError();
 }
 

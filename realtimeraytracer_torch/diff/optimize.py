@@ -15,9 +15,12 @@ loss differentiates the fused A-Trous pair through its VJP kernel
 ``torch.optim.Adam`` stands in for ``optax.adam`` (b1 0.9, b2 0.999, eps
 1e-8 added outside the square root in both).  A step runs where the scene
 lies: a scene on the card trains on the card, a CPU scene on the CPU, and
-inputs on another device raise.  JAX's step shards the rays over a mesh
-and all-reduces the gradients; the port's runs on one device, and
-``fit(mesh=...)`` raises until ROADMAP A7 adds the process group.
+inputs on another device raise.  The training step shards the rays over
+the ray mesh (parallel/mesh.py): each rank takes radiance_loss on its slab,
+and the loss and the parameter gradients become their means over the ranks
+(one all-reduce a step, JAX's pmean and the psum of its transpose), so
+every rank's Adam step sees the same gradient and the params stay
+replicated.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from torch.profiler import record_function
 
 from realtimeraytracer_torch.config import RenderConfig
 from realtimeraytracer_torch.ops.camera_rays import ViewportFrame
+from realtimeraytracer_torch.parallel.mesh import RayMesh, make_ray_mesh
 from realtimeraytracer_torch.render.backends import make_backend
 from realtimeraytracer_torch.render.megakernel import render_components, shade_sample
 from realtimeraytracer_torch.render.pipeline import denoise_and_combine
@@ -130,31 +134,54 @@ def _same_device(gpu: TorchScene, **tensors) -> None:
                              "runs where the scene lies")
 
 
-def _step(state: TrainState, optimizer: torch.optim.Optimizer, loss_fn):
+def _step(state: TrainState, optimizer: torch.optim.Optimizer, loss_fn,
+          mesh: RayMesh | None = None):
     """One gradient step of loss_fn(params) on state, in place (PyTorch's
     optimizers step their tensors in place): returns (state, the loss as a
-    0-d tensor on the scene's device)."""
+    0-d tensor on the scene's device).  With a mesh, loss_fn is this rank's
+    share and the loss and gradients are averaged over its ranks (one
+    all-reduce of them all) before the update."""
     if state.optimizer is not optimizer:
         raise ValueError("the state's optimizer is not the one the step was built with")
     optimizer.zero_grad(set_to_none=True)
     with record_function("diff.forward"):
         loss = loss_fn(state.params)
     loss.backward()
+    loss = loss.detach()
+    if mesh is not None and mesh.group is not None:
+        params = list(state.params.values())
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+        flat = mesh.all_reduce_mean(torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1)]))
+        at = 0
+        for p in params:
+            p.grad = flat[at:at + p.numel()].view_as(p)
+            at += p.numel()
+        loss = flat[at]
     optimizer.step()
-    return state, loss.detach()
+    return state, loss
 
 
-def make_train_step(cfg: RenderConfig, optimizer: torch.optim.Optimizer):
-    """The gradient step of radiance_loss: step(state, gpu, origins, dirs,
-    pixel_seed, target) -> (state, loss), on the device of the scene (the
-    rays and target must lie there too).  The state must carry `optimizer`,
-    which steps its params in place."""
+def make_train_step(cfg: RenderConfig, mesh: RayMesh, optimizer: torch.optim.Optimizer):
+    """The sharded gradient step of radiance_loss: step(state, gpu,
+    origins, dirs, pixel_seed, target) -> (state, loss), on the device of
+    the scene (the rays and target must lie there too).  The rays (R
+    divisible by the mesh size) split over the mesh, each rank taking its
+    slab; the loss is the mean of the ranks' losses (the global mean, the
+    slabs being equal) and the gradients are all-reduced, so the params
+    stay replicated.  A one-rank mesh is the single-device step.  The state
+    must carry `optimizer`, which steps its params in place."""
+    if not isinstance(mesh, RayMesh):
+        raise TypeError(f"mesh must be a RayMesh (parallel/mesh.py::make_ray_mesh), got "
+                        f"{type(mesh).__name__}")
 
     def train_step(state: TrainState, gpu: TorchScene, origins, dirs, pixel_seed, target):
         _same_device(gpu, origins=origins, dirs=dirs, pixel_seed=pixel_seed, target=target,
                      **state.params)
+        if mesh.group is not None and mesh.device.type != gpu.device.type:
+            raise ValueError(f"the mesh is on {mesh.device} and the scene on {gpu.device}")
+        a, b = mesh.slab(origins.shape[0])
         return _step(state, optimizer, lambda p: radiance_loss(
-            p, gpu, cfg, origins, dirs, pixel_seed, target))
+            p, gpu, cfg, origins[a:b], dirs[a:b], pixel_seed[a:b], target[a:b]), mesh)
 
     return train_step
 
@@ -175,17 +202,18 @@ def fit(
     losses), the params as detached tensors by name and one float a step
     (each is one host sync).
 
-    loss="radiance": analytic-channel MSE on explicit rays.
+    loss="radiance": analytic-channel MSE on explicit rays, sharded over
+    the ray mesh (default make_ray_mesh() on the scene's device: every
+    rank of the process group, or this process alone) with all-reduced
+    gradients.
     loss="pipeline" / "wavefront": full-image MSE through the complete
     pipeline (denoise + ratio combine) or the multi-bounce path tracer;
-    pass `frame` (camera ViewportFrame) and an (H, W, 3) `target`.
-    Everything runs on the scene's device.  mesh: JAX shards the radiance
-    step over a ray mesh; the port's sharded step is ROADMAP A7, and any
-    mesh raises NotImplementedError."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "fit(mesh=...): the sharded training step (a process group and the gradient "
-            "all-reduce) is ROADMAP A7; the port trains on the device that holds the scene")
+    pass `frame` (camera ViewportFrame) and an (H, W, 3) `target`.  These
+    run as one logical device, as in JAX (mesh is not read).
+    Everything runs on the scene's device."""
+    if mesh is not None and not isinstance(mesh, RayMesh):
+        raise TypeError(f"mesh must be a RayMesh (parallel/mesh.py::make_ray_mesh), got "
+                        f"{type(mesh).__name__}")
     params = {n: t.detach().clone().requires_grad_()
               for n, t in extract_params(gpu, param_names).items()}
     optimizer = adam(params, learning_rate)
@@ -193,7 +221,7 @@ def fit(
     if loss == "radiance":
         if origins is None or dirs is None or pixel_seed is None or target is None:
             raise ValueError("loss='radiance' requires origins=, dirs=, pixel_seed= and target=")
-        step = make_train_step(cfg, optimizer)
+        step = make_train_step(cfg, mesh or make_ray_mesh(device=gpu.device), optimizer)
 
         def run(st):
             return step(st, gpu, origins, dirs, pixel_seed, target)

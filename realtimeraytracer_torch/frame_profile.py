@@ -89,6 +89,7 @@ def _train_step(gpu, frame, cfg):
 
     from realtimeraytracer_torch.diff import optimize as opt
     from realtimeraytracer_torch.ops.camera_rays import generate_rays
+    from realtimeraytracer_torch.parallel.mesh import make_ray_mesh
     from realtimeraytracer_torch.render.backends import make_backend
     from realtimeraytracer_torch.render.megakernel import shade_sample
 
@@ -101,7 +102,7 @@ def _train_step(gpu, frame, cfg):
     params = {n: t.detach().clone().requires_grad_()
               for n, t in opt.extract_params(wrong, ("obj_color", "lt_intensity")).items()}
     state = opt.TrainState(params, opt.adam(params, 2e-2))
-    step = opt.make_train_step(cfg, state.optimizer)
+    step = opt.make_train_step(cfg, make_ray_mesh(device=gpu.device), state.optimizer)
     return lambda *_: step(state, wrong, o, d, seed, target)
 
 

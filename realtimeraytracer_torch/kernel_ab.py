@@ -5,6 +5,7 @@ No JAX counterpart.  Run it as a file, so that the package it measures is
 the one on PYTHONPATH (a tree unpacked with ``git archive``, or this one):
 
     PYTHONPATH=<tree> python3 realtimeraytracer_torch/kernel_ab.py kernels <tag> [--no-foliage]
+    PYTHONPATH=<tree> python3 realtimeraytracer_torch/kernel_ab.py atrous <tag>
     PYTHONPATH=<tree> python3 realtimeraytracer_torch/kernel_ab.py frames <tag> [--images <dir>]
     python3 realtimeraytracer_torch/kernel_ab.py compare <log> [<log> ...]
     python3 realtimeraytracer_torch/kernel_ab.py images <dir>/<tag a> <dir>/<tag b>
@@ -15,8 +16,11 @@ occluded shadow segments and sun, v9 closest, v8 shadow segments, sun,
 incoherent closest, hinted segments, each v8 launch also with its work
 counts; the multi-segment v8 kernel (B4) on the frame's light-0 shadow
 segments, S = 3, also with its work counts; the A-Trous pair's four 1080p
-iterations on chip_smoke's G-buffer; with the foliage, baked: masked v7 and v9, masked v8 closest on
-shadow segments; instanced: v8 closest, masked closest and occluded) and
+iterations on chip_smoke's G-buffer (B5, also with its weight-sum output
+on a tree that has one) and their backward (B5b, with and without the
+normal and position gradients, its error against the twin); with the
+foliage, baked: masked v7 and v9, masked v8 closest on shadow segments;
+instanced: v8 closest, masked closest and occluded) and
 prints one line ``AB {json}``: a hash of every output row, each kernel's
 median time over 10 calls (CUDA events; v7 of a tree whose kernel takes
 culled keys includes its plain-torch cull), the A-Trous kernel's SASS
@@ -29,6 +33,8 @@ tree without render/wavefront.py): one frame (peak memory above what was
 held, an image hash), then the median of 3 by CUDA events; it prints
 ``FR {json}`` and, with ``--images``, saves each image as
 ``<dir>/<tag>/<frame>.npy``.
+``atrous`` times the A-Trous pair and its backward alone (the same
+``AB`` line with those keys only).
 ``compare`` reads those lines from logs, lists every row hash that differs
 between the first two tags, and prints each tag's times side by side.
 ``images`` holds two tags' saved frames to the frame rule (under 0.5% of
@@ -41,6 +47,7 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import inspect
 import json
 import re
 import shutil
@@ -145,13 +152,87 @@ def light_segments(scene, gpu, s_count: int):
     return got[0]
 
 
+def atrous_ab(res: dict) -> dict:
+    """The A-Trous pair on chip_smoke's 1080p G-buffer, into res (its "ms"
+    and "hash" maps): B5's four iterations (also with its weight-sum output
+    on a tree that has one) and their backward (B5b, with and without the
+    normal and position gradients; its error against the twin's last
+    iteration: the designs sum in other orders, so no hash), the SASS
+    counts of B5's tap loops."""
+    import numpy as np
+    import torch
+
+    from realtimeraytracer_torch import kernels
+    from realtimeraytracer_torch.ops import denoise_kernel as dk
+
+    dev = torch.device("cuda", 0)
+
+    def digest(x):
+        return hashlib.sha256(x.contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+
+    g = np.random.default_rng(11)
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    pos = np.stack([xx * 2e-3, yy * 2e-3, 0.05 * np.sin(xx * 0.01)], -1) + g.normal(0, 2e-3, (H, W, 3))
+    nrm = np.stack([0.05 * np.sin(yy * 0.02), np.ones_like(xx), 0.05 * np.cos(xx * 0.03)], -1)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    unsh = g.uniform(0.2, 1.0, (H, W, 3))
+    shad = unsh * (g.uniform(0, 1, (H, W, 1)) > 0.3)
+    dn = [torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev) for a in (shad, unsh, nrm, pos)]
+
+    phis = (1.0, 0.001, 0.001)
+    # A tree whose B5 writes its weight sums for B5b (else B5b recomputes them).
+    with_w = "weights" in inspect.signature(dk.atrous_pair_iteration_vjp_kernel).parameters
+
+    def denoise(weights=False):
+        s_, u_ = dn[0], dn[1]
+        for i in range(4):
+            s_, u_ = dk.atrous_pair_iteration_kernel(s_, u_, dn[2], dn[3], i + 1, *phis,
+                                                     **({"weights": True} if weights else {}))[:2]
+        return s_, u_
+
+    res["ms"]["atrous"], (s_, u_) = _median_ms(denoise)
+    res["hash"]["atrous.shadowed"], res["hash"]["atrous.unshadowed"] = digest(s_), digest(u_)
+    if with_w:
+        res["ms"]["atrous.w"], (s_, u_) = _median_ms(lambda: denoise(weights=True))
+        res["hash"]["atrous.w.shadowed"], res["hash"]["atrous.w.unshadowed"] = digest(s_), digest(u_)
+    # B5b: the VJPs of the four iterations.
+    gr = np.random.default_rng(29)
+    g_s, g_u = (torch.from_numpy(gr.normal(size=(H, W, 3)).astype(np.float32)).to(dev)
+                for _ in range(2))
+    fw, s_, u_ = [], dn[0], dn[1]
+    for i in range(4):
+        out = dk.atrous_pair_iteration_kernel(s_, u_, dn[2], dn[3], i + 1, *phis,
+                                              **({"weights": True} if with_w else {}))
+        fw.append((s_, u_) + tuple(out))
+        s_, u_ = out[0], out[1]
+
+    def vjp(geom):
+        for i, f in enumerate(fw):
+            got = dk.atrous_pair_iteration_vjp_kernel(f[0], f[1], dn[2], dn[3], *f[2:], i + 1,
+                                                      *phis, g_s, g_u, geom)
+        return got
+
+    for key, geom in (("atrous.vjp", True), ("atrous.vjp.colour", False)):
+        res["ms"][key], got = _median_ms(lambda: vjp(geom))
+        want = dk.atrous_pair_iteration_vjp_plain(fw[-1][0], fw[-1][1], dn[2], dn[3], 4, *phis,
+                                                  g_s, g_u, geom)
+        res[key + ".err"] = max(float((a - b).abs().max() / b.abs().max())
+                                for a, b in zip(got, want) if b is not None)
+    ins = next(v for k_, v in sass_functions(kernels.build("atrous_pair")).items() if "atrous" in k_)
+    per_tap, code_taps = tap_instructions(ins)
+    res["atrous_sass"] = {"instructions": len(ins), "per_tap": per_tap, "taps_in_code": code_taps,
+                          "MUFU.RCP": sum("MUFU.RCP" in t for _, t in ins)}
+    res["vjp_ptxas"] = [line.strip() for line in kernels.build_log.get("atrous_pair_vjp", "")
+                        .splitlines() if "registers" in line or "spill" in line]
+    return res
+
+
 def kernels_ab(tag: str, foliage: bool) -> dict:
     import numpy as np
     import torch
 
     from realtimeraytracer_torch import kernels, scenes
     from realtimeraytracer_torch.ops.camera_rays import block_permutation, generate_rays
-    from realtimeraytracer_torch.ops.denoise_kernel import atrous_pair_iteration_kernel
     from realtimeraytracer_torch.render import hier_backend as v8
     from realtimeraytracer_torch.render import quarter_backend as v9
     from realtimeraytracer_torch.render import v7_backend as v7
@@ -243,28 +324,7 @@ def kernels_ab(tag: str, foliage: bool) -> dict:
     timed("b4", lambda: v8.trace_hier_multi_kernel(mrays, sup, blk, coeff, nsup))
     record("b4.count", v8.trace_hier_multi_kernel(mrays, sup, blk, coeff, nsup, count=True))
     timed("v9", lambda: v9_closest(gpu, prim))
-    # The A-Trous pair: chip_smoke's 1080p G-buffer, four iterations.
-    g = np.random.default_rng(11)
-    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
-    pos = np.stack([xx * 2e-3, yy * 2e-3, 0.05 * np.sin(xx * 0.01)], -1) + g.normal(0, 2e-3, (H, W, 3))
-    nrm = np.stack([0.05 * np.sin(yy * 0.02), np.ones_like(xx), 0.05 * np.cos(xx * 0.03)], -1)
-    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
-    unsh = g.uniform(0.2, 1.0, (H, W, 3))
-    shad = unsh * (g.uniform(0, 1, (H, W, 1)) > 0.3)
-    dn = [torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev) for a in (shad, unsh, nrm, pos)]
-
-    def denoise():
-        s_, u_ = dn[0], dn[1]
-        for i in range(4):
-            s_, u_ = atrous_pair_iteration_kernel(s_, u_, dn[2], dn[3], i + 1, 1.0, 0.001, 0.001)
-        return s_, u_
-
-    res["ms"]["atrous"], (s_, u_) = _median_ms(denoise)
-    res["hash"]["atrous.shadowed"], res["hash"]["atrous.unshadowed"] = digest(s_), digest(u_)
-    ins = next(v for k_, v in sass_functions(kernels.build("atrous_pair")).items() if "atrous" in k_)
-    per_tap, code_taps = tap_instructions(ins)
-    res["atrous_sass"] = {"instructions": len(ins), "per_tap": per_tap, "taps_in_code": code_taps,
-                          "MUFU.RCP": sum("MUFU.RCP" in t for _, t in ins)}
+    atrous_ab(res)
     if foliage:
         fs = scenes.foliage_field()
         fol = fs.compile(bake_instances=True).to(dev)
@@ -399,6 +459,8 @@ def main(argv=None) -> None:
     k = sub.add_parser("kernels")
     k.add_argument("tag")
     k.add_argument("--no-foliage", action="store_true")
+    a = sub.add_parser("atrous")
+    a.add_argument("tag")
     f = sub.add_parser("frames")
     f.add_argument("tag")
     f.add_argument("--images", help="save each frame as <dir>/<tag>/<frame>.npy")
@@ -420,6 +482,9 @@ def main(argv=None) -> None:
         raise SystemExit("kernel_ab measures on a CUDA device")
     if args.what == "kernels":
         res = kernels_ab(args.tag, not args.no_foliage)
+        print("AB " + json.dumps(res), flush=True)
+    elif args.what == "atrous":
+        res = atrous_ab({"tag": args.tag, "hash": {}, "ms": {}, "card": _card()})
         print("AB " + json.dumps(res), flush=True)
     else:
         print("FR " + json.dumps(frames_ab(args.tag, args.images)), flush=True)

@@ -50,7 +50,7 @@ SIGNATURES = {
     "trace_v8_inst": ("trace_v8", "rt_trace_v8_inst", [_P] * 9 + [_I] * 8 + [_P]),
     "trace_v8_multi": ("trace_v8", "rt_trace_v8_multi", [_P] * 6 + [_I] * 6 + [_P]),
     "trace_v9": ("trace_v9", "rt_trace_v9", [_P] * 8 + [_I] * 4 + [_P]),
-    "atrous_pair": ("atrous_pair", "rt_atrous_pair", [_P] * 6 + [_I] * 3 + [_F] * 4 + [_P]),
+    "atrous_pair": ("atrous_pair", "rt_atrous_pair", [_P] * 7 + [_I] * 3 + [_F] * 4 + [_P]),
     "atrous_pair_vjp": ("atrous_pair_vjp", "rt_atrous_pair_vjp",
                         [_P] * 13 + [_I] * 3 + [_F] * 4 + [_P]),
     "fma_peak": ("fma_peak", "rt_fma_peak", [_P] * 2 + [_I] * 2 + [_P]),

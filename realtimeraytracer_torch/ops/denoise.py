@@ -1,13 +1,15 @@
 """Edge-avoiding A-Trous wavelet denoiser and the ratio combine.
 
 Counterpart of realtimeraytracer_tpu/ops/denoise.py (``atrous_iteration``,
-``atrous_denoise``, ``ratio_combine``; reference shaders/denoise.comp and
-combine.comp): a 5x5 kernel dilated by step_width, edge-stopping weights
-exp(-|dColor|^2/c_phi) * exp(-|dNormal|^2/(step^2 n_phi)) *
-exp(-|dPos|^2/p_phi), out-of-bounds taps skipped, step_width = i+1.  This is
-the per-image reference stencil; the frame denoises with the fused
-two-image pair of ops/denoise_kernel.py (CUDA kernel, or its plain twin on
-the CPU), which shares ``shifted_taps`` and the term order with it.
+``atrous_denoise``, ``ratio_combine``, ``atrous_denoise_sharded_rows``;
+reference shaders/denoise.comp and combine.comp): a 5x5 kernel dilated by
+step_width, edge-stopping weights exp(-|dColor|^2/c_phi) *
+exp(-|dNormal|^2/(step^2 n_phi)) * exp(-|dPos|^2/p_phi), out-of-bounds taps
+skipped, step_width = i+1.  This is the per-image reference stencil; the
+frame denoises with the fused two-image pair of ops/denoise_kernel.py (CUDA
+kernel, or its plain twin on the CPU), which shares ``shifted_taps`` and
+the term order with it; the row-sharded denoise runs that pair on
+halo-padded row slabs.
 """
 
 from __future__ import annotations
@@ -78,3 +80,42 @@ def ratio_combine(analytic, shadowed, unshadowed, eps: float = 1e-3):
     """Heitz-style ratio estimator: analytic * shadowed / max(unshadowed,
     eps) (combine.comp:31-33)."""
     return analytic * (shadowed / torch.clamp_min(unshadowed, eps))
+
+
+def atrous_denoise_sharded_rows(shadowed, unshadowed, normal, position, mesh,
+                                iterations: int = 4, c_phi: float = 1.0,
+                                n_phi: float = 0.001, p_phi: float = 0.001):
+    """A-Trous denoise of both images of a ROW-SHARDED frame: each rank of
+    `mesh` (parallel/mesh.py) holds its contiguous (H/n, W, 3) row slab.
+
+    Iteration i's dilated taps reach +-2 (i + 1) rows, so each iteration
+    exchanges a halo of 2 * iterations rows with the two ring neighbours
+    (the filtered images change every pass; the G-buffer halos are
+    exchanged once), then runs the pair iteration on the halo-padded slab
+    (ops/denoise_kernel.py::atrous_pair_slab: the kernel on the card, the
+    twin on the CPU) and keeps its centre rows.  A slab is padded only
+    where a neighbour exists, so the kernel's own bounds test is the whole
+    image's, and every pixel's arithmetic is the unsharded pair's: the
+    result equals atrous_denoise_pair's rows.  No full-image gather.
+    Returns this rank's (shadowed', unshadowed') rows."""
+    from realtimeraytracer_torch.ops.denoise_kernel import atrous_pair_slab
+
+    halo = 2 * iterations
+    rows = shadowed.shape[0]
+    if rows < halo:
+        raise ValueError(
+            f"row slab of {rows} rows cannot supply the {halo}-row halo (2*iterations) from a "
+            "single neighbor; use fewer devices or fewer iterations")
+
+    def padded(x, edges):
+        return torch.cat([e for e in (edges[0], x, edges[1]) if e is not None])
+
+    top = halo if mesh.rank > 0 else 0
+    n_edges, p_edges = mesh.exchange_halo([normal, position], halo)
+    normal_p, position_p = padded(normal, n_edges), padded(position, p_edges)
+    s, u = shadowed, unshadowed
+    for i in range(iterations):
+        s_edges, u_edges = mesh.exchange_halo([s, u], halo)
+        s, u = atrous_pair_slab(padded(s, s_edges), padded(u, u_edges), normal_p, position_p,
+                                top, rows, i + 1, c_phi, n_phi, p_phi)
+    return s, u

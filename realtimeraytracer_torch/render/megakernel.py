@@ -290,20 +290,26 @@ class RenderComponents(NamedTuple):
 
 def render_components(gpu: TorchScene, frame: ViewportFrame, cfg: RenderConfig,
                       frame_index: int = 0,
-                      backend: TraceBackend | None = None) -> RenderComponents:
+                      backend: TraceBackend | None = None,
+                      rows: tuple[int, int] | None = None) -> RenderComponents:
     """primary_rays jittered samples per pixel, averaged (raygen.rgen main,
-    without the denoise/combine passes)."""
+    without the denoise/combine passes).  rows: trace only the pixel rows
+    [start, stop) of the frame (a rank's slab, parallel/sharded.py), whose
+    rays and seeds are the frame's; the components are then (stop - start,
+    W, 3)."""
     if backend is None:
         backend = make_backend(gpu, cfg)
     h, w = cfg.height, cfg.width
+    r0, r1 = rows if rows is not None else (0, h)
     dev = gpu.device
     py = torch.arange(h, dtype=torch.int64, device=dev)[:, None]
     px = torch.arange(w, dtype=torch.int64, device=dev)[None, :]
     pixel_seed = ((px * 733 + py * 1933 + int(frame_index)) & rng.MASK32).reshape(-1)
+    pixel_seed = pixel_seed[r0 * w:r1 * w]
 
     # Coherent 2-D pixel blocks for the tile cull; undone before reshaping.
     if cfg.ray_order == "block":
-        perm, inv_perm = block_permutation(w, h, device=dev)
+        perm, inv_perm = block_permutation(w, r1 - r0, device=dev)
         pixel_seed = pixel_seed[perm]
     else:
         perm = inv_perm = None
@@ -322,6 +328,7 @@ def render_components(gpu: TorchScene, frame: ViewportFrame, cfg: RenderConfig,
     hint_state = {} if backend.occluded_hinted is not None else None
     for s in range(cfg.primary_rays):
         o, d = generate_rays(frame, w, h, sample_index=s, jitter=cfg.jitter)
+        o, d = o[r0 * w:r1 * w], d[r0 * w:r1 * w]
         if perm is not None:
             o, d = o[perm], d[perm]
         out = shade_sample(gpu, cfg, o, d, pixel_seed, backend, sample_index=s,
@@ -333,14 +340,14 @@ def render_components(gpu: TorchScene, frame: ViewportFrame, cfg: RenderConfig,
     inv = 1.0 / cfg.primary_rays
 
     def tm(x):
-        return tonemap(x * inv, cfg.tonemap, cfg.gamma).reshape(h, w, 3)
+        return tonemap(x * inv, cfg.tonemap, cfg.gamma).reshape(r1 - r0, w, 3)
 
     return RenderComponents(
         analytic=tm(acc.analytic),
         shadowed=tm(acc.shadowed),
         unshadowed=tm(acc.unshadowed),
-        normal=normalize(acc.normal * inv).reshape(h, w, 3),
-        position=(acc.position * inv).reshape(h, w, 3),
+        normal=normalize(acc.normal * inv).reshape(r1 - r0, w, 3),
+        position=(acc.position * inv).reshape(r1 - r0, w, 3),
     )
 
 

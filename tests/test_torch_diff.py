@@ -66,6 +66,7 @@ from realtimeraytracer_torch.ops import camera_rays, refit
 from realtimeraytracer_torch.ops import denoise_kernel as dk
 from realtimeraytracer_torch.ops.camera_rays import generate_rays
 from realtimeraytracer_torch.ops.vecmath import normalize
+from realtimeraytracer_torch.parallel.mesh import make_ray_mesh
 from realtimeraytracer_torch.render import hier_backend as hb
 from realtimeraytracer_torch.render import quarter_backend as qb
 from realtimeraytracer_torch.render import v7_backend as v7
@@ -464,7 +465,7 @@ def test_adam_step_matches_optax():
     mu = {n: r.normal(0, 0.05, v.shape).astype(np.float32) for n, v in params.items()}
     nu = {n: r.uniform(1e-4, 1e-2, v.shape).astype(np.float32) for n, v in params.items()}
     state = opt.train_state_from_numpy(params, mu, nu, 3, 5e-2)
-    step = opt.make_train_step(tcfg, state.optimizer)
+    step = opt.make_train_step(tcfg, make_ray_mesh(device="cpu"), state.optimizer)
     state, _ = step(state, tg, o, d, seed, target)
     grads = {n: p.grad.numpy() for n, p in state.params.items()}
 
@@ -525,8 +526,10 @@ def test_fit_pipeline_recovers_albedo():
 
 def test_fit_refusals():
     wrong, cfg, o, d, seed, target = _cornell_fit_setup()
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(TypeError, match="RayMesh"):
         opt.fit(wrong, cfg, o, d, seed, target, mesh=object())
+    with pytest.raises(TypeError, match="RayMesh"):
+        opt.make_train_step(cfg, object(), opt.adam({"obj_color": wrong.obj_color}, 0.1))
     with pytest.raises(ValueError, match="frame="):
         opt.fit(wrong, cfg, target=target, loss="pipeline")
     with pytest.raises(ValueError, match="unknown loss"):
@@ -549,15 +552,15 @@ def test_checkpoint_round_trip(tmp_path):
     params = {n: t.detach().clone().requires_grad_()
               for n, t in opt.extract_params(wrong, ("obj_color", "lt_intensity")).items()}
     state = opt.TrainState(params, opt.adam(params, 5e-2))
-    step = opt.make_train_step(cfg, state.optimizer)
+    step = opt.make_train_step(cfg, make_ray_mesh(device="cpu"), state.optimizer)
     for _ in range(3):
         state, _ = step(state, wrong, o, d, seed, target)
     checkpoint.save_checkpoint(str(tmp_path), state, 3)
     assert checkpoint.latest_step(str(tmp_path)) == 3
     restored = checkpoint.restore_checkpoint(str(tmp_path), state, 3)
     state, loss_a = step(state, wrong, o, d, seed, target)
-    restored, loss_b = opt.make_train_step(cfg, restored.optimizer)(
-        restored, wrong, o, d, seed, target)
+    restored, loss_b = opt.make_train_step(cfg, make_ray_mesh(device="cpu"),
+                                           restored.optimizer)(restored, wrong, o, d, seed, target)
     assert float(loss_a) == float(loss_b)
     for n in params:
         assert torch.equal(state.params[n], restored.params[n])

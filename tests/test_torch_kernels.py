@@ -51,7 +51,7 @@ import torch
 from realtimeraytracer_torch import RenderConfig, scenes
 from realtimeraytracer_torch.ops.denoise_kernel import (
     atrous_denoise_pair, atrous_pair_iteration_kernel, atrous_pair_iteration_plain,
-    atrous_pair_iteration_vjp_kernel, atrous_pair_iteration_vjp_plain)
+    atrous_pair_iteration_vjp_kernel, atrous_pair_iteration_vjp_plain, atrous_pair_slab)
 from realtimeraytracer_torch.ops.denoise import ratio_combine
 from realtimeraytracer_torch.render import hier_backend as hb
 from realtimeraytracer_torch.render import quarter_backend as qb
@@ -1170,10 +1170,11 @@ def _vjp_inputs(h, w, seed, device):
 
 def test_atrous_vjp_kernel_refuses_cpu_tensors_and_bad_steps():
     ins, gs, gu = _vjp_inputs(8, 8, 0, "cpu")
+    wsum = torch.ones((2, 8, 8))
     with pytest.raises(ValueError, match="CUDA"):
-        atrous_pair_iteration_vjp_kernel(*ins, ins[0], ins[1], 1, *PHIS, gs, gu)
+        atrous_pair_iteration_vjp_kernel(*ins, ins[0], ins[1], wsum, 1, *PHIS, gs, gu)
     with pytest.raises(ValueError, match="step"):
-        atrous_pair_iteration_vjp_kernel(*ins, ins[0], ins[1], 0, *PHIS, gs, gu)
+        atrous_pair_iteration_vjp_kernel(*ins, ins[0], ins[1], wsum, 0, *PHIS, gs, gu)
 
 
 @pytest.mark.cuda
@@ -1184,9 +1185,9 @@ def test_atrous_vjp_kernel_matches_twin(cuda, step, geometry):
     in another order, so |kernel - twin| <= 1e-5 |twin| + 1e-6 max|twin|
     (on the card both lie within about 5e-7 max|g| of a float64 twin)."""
     ins, gs, gu = _vjp_inputs(45, 70, step, cuda)
-    out_s, out_u = atrous_pair_iteration_kernel(*ins, step, *PHIS)
+    out_s, out_u, wsum = atrous_pair_iteration_kernel(*ins, step, *PHIS, weights=True)
     before = atrous_denoise_pair.vjp_launches
-    k = atrous_pair_iteration_vjp_kernel(*ins, out_s, out_u, step, *PHIS, gs, gu, geometry)
+    k = atrous_pair_iteration_vjp_kernel(*ins, out_s, out_u, wsum, step, *PHIS, gs, gu, geometry)
     assert atrous_denoise_pair.vjp_launches == before + 1
     t = atrous_pair_iteration_vjp_plain(*ins, step, *PHIS, gs, gu, geometry)
     for a, b in zip(k, t):
@@ -1194,6 +1195,57 @@ def test_atrous_vjp_kernel_matches_twin(cuda, step, geometry):
             assert a is None
             continue
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6 * b.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step,geometry", [(1, True), (1, False), (4, True), (4, False),
+                                           (9, True), (12, False)])
+def test_atrous_vjp_kernel_on_1080p_rows(cuda, step, geometry):
+    """B5b at the frame's width and many CTAs (contiguous column segments up
+    to step 8, column residues above), with and without the geometry
+    gradients, against the twin: |err| <= 1e-5 |twin| + 1e-6 max|twin|."""
+    ins, gs, gu = _vjp_inputs(64, 1920, 20 + step, cuda)
+    out_s, out_u, wsum = atrous_pair_iteration_kernel(*ins, step, *PHIS, weights=True)
+    k = atrous_pair_iteration_vjp_kernel(*ins, out_s, out_u, wsum, step, *PHIS, gs, gu, geometry)
+    t = atrous_pair_iteration_vjp_plain(*ins, step, *PHIS, gs, gu, geometry)
+    for a, b in zip(k, t):
+        if b is None:
+            assert a is None
+            continue
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6 * b.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step", [1, 3, 8, 40])
+def test_atrous_kernel_weight_output_matches_twin(cuda, step):
+    """B5 with its W output: the images equal those without it bit for
+    bit, and the weight sums equal the twin's cum (the same float sums in
+    the same order)."""
+    ins = [x.to(cuda) for x in _denoise_data(45, 70, 30 + step)]
+    ks, ku, wsum = atrous_pair_iteration_kernel(*ins, step, *PHIS, weights=True)
+    ks0, ku0 = atrous_pair_iteration_kernel(*ins, step, *PHIS)
+    assert torch.equal(ks, ks0) and torch.equal(ku, ku0)
+    _, _, want = atrous_pair_iteration_plain(*ins, step, *PHIS, weights=True)
+    assert wsum.shape == (2, 45, 70)
+    torch.testing.assert_close(wsum, want, rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+def test_atrous_pair_slabs_equal_the_unsharded_kernel(cuda):
+    """Four row slabs of a 64-row image, each padded with its neighbours'
+    8 rows where they exist, through atrous_pair_slab for 4 iterations: the
+    rows equal the unsharded kernel's bit for bit."""
+    ins = [x.to(cuda) for x in _denoise_data(64, 150, 12)]
+    ks, ku = atrous_denoise_pair(*ins, 4, *PHIS)
+    s, u = ins[0], ins[1]
+    for i in range(4):
+        parts = []
+        for r in range(4):
+            a, b = max(16 * r - 8, 0), min(16 * r + 24, 64)
+            parts.append(atrous_pair_slab(*(x[a:b].contiguous() for x in (s, u, ins[2], ins[3])),
+                                          16 * r - a, 16, i + 1, *PHIS))
+        s, u = torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+    assert torch.equal(s, ks) and torch.equal(u, ku)
 
 
 @pytest.mark.cuda
