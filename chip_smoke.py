@@ -8,7 +8,9 @@ Run from the repository root, with no arguments:
 Phases, each of which ends the run with a non-zero exit on failure:
   1. environment: card name and power limit, torch and CUDA versions;
   2. build: compile every CUDA kernel from csrc/ with nvcc, one nvcc per
-     source, all started together;
+     source, all started together, and beside them the native host library
+     (native/*.cpp with $CXX or g++ and native/Makefile's flags), which
+     builds the BVH of every scene compiled from phase 3 on (binned SAH);
   3. the v7 traversal kernel, which runs its cull in-kernel, against its
      twin (the plain-torch cull, then the plain trace) on the 100k-triangle
      scene: closest primaries (common origin), shadow segments and sun
@@ -52,9 +54,11 @@ Phases, each of which ends the run with a non-zero exit on failure:
  13. the alpha closest ladder on the foliage's 1080p primaries with and
      without in-kernel masks: rounds, rays per round, time; hits agree but
      for rays that exhaust the unmasked ladder (the masked hit lies at
-     least as far) and rays whose unmasked ladder stepped past an opaque
+     least as far), rays whose unmasked ladder stepped past an opaque
      hit just behind a transparent one (the masked hit is that nearer
-     opaque hit);
+     opaque hit), and rays whose masked ladder stepped past the unmasked
+     ladder's opaque hit together with a transparent triangle of its t
+     bucket (shown by testing every triangle against the ray);
  14. the reference-default alpha-tested frames: textured_obj through
      rt.render(scene, cfg) with no device and the default backend, the
      baked foliage through render_pipeline_gpu with alpha_test=True, each
@@ -155,9 +159,21 @@ Phases, each of which ends the run with a non-zero exit on failure:
      to phase 4's four iterations; config 5's step through
      make_train_step(cfg, mesh, optimizer), loss and params bit-equal to
      the group-less step's under deterministic algorithms, its all-reduce
-     logged, timed beside phase 31's step; then the group is destroyed.
+     logged, timed beside phase 31's step; then the group is destroyed;
+ 34. the native host library and the thin slice: the compiles since phase
+     3 went through the native SAH builder; host compile seconds with it
+     and with the NumPy LBVH (procedural_mesh 100k and 1M, the baked
+     foliage, textured_obj) and textured_obj's OBJ parse through each
+     tokenizer; camera ray blocks (generate_ray_blocks) on the card against
+     the CPU's (directions within 2e-7); the thin slice (blocks, then
+     trace_primary_blocks: v9 at 100k, v7 at the 1M rung) on each block
+     order against the twins at 320x180 (every row) and timed at 1080p
+     (median of 10), with rays/s, subclusters or blocks visited, pairs
+     tested and the bound, the two orders' hits the same triangle or the
+     same t; the reference-default hybrid frame on each order (frame rule,
+     in turns); `demo render mesh100k`, its launches and PNG.
 Each main-path run (5, 8, 9, 14, 18, 22, 24, 26, 27, 28, 30, each step of
-31 and 32, 33) and the probe's timed run (23) are driven with every kernel's
+31 and 32, 33, 34) and the probe's timed run (23) are driven with every kernel's
 launch count set to 0 just before and read just after.  The line before the last is a
 JSON object describing each kernel (times, launches, error, bound); the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -177,7 +193,9 @@ import statistics
 import subprocess
 import sys
 import time
+import tempfile
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -409,6 +427,26 @@ def no_plain_cull(module, name: str, what: str):
     require(not calls, f"{what} ran the plain-torch cull {name} {len(calls)} times")
 
 
+@contextlib.contextmanager
+def bvh_builder(native_module, builder: str, calls: list):
+    """The scene compiles in the body build their BVHs natively ("sah",
+    the default path; each call's success is appended to `calls`) or with
+    the NumPy LBVH ("numpy": native_build_bvh answers None, as on a machine
+    without a C++ compiler)."""
+    real = native_module.native_build_bvh
+
+    def counted(*a, **k):
+        out = real(*a, **k) if builder == "sah" else None
+        calls.append(out is not None)
+        return out
+
+    native_module.native_build_bvh = counted
+    try:
+        yield
+    finally:
+        native_module.native_build_bvh = real
+
+
 def main() -> int:
     import torch
     import torch.distributed as tdist
@@ -419,13 +457,15 @@ def main() -> int:
         import realtimeraytracer_torch as rt
     except ImportError as e:
         raise SmokeFailure(f"cannot import realtimeraytracer_torch ({e}); run from the repository root") from e
-    from realtimeraytracer_torch import kernels, probes, scenes
-    from realtimeraytracer_torch.ops.camera_rays import block_permutation, generate_rays
+    from realtimeraytracer_torch import demo, kernels, probes, scenes
+    from realtimeraytracer_torch.ops.camera_rays import (block_permutation, generate_ray_blocks,
+                                                         generate_rays)
     from realtimeraytracer_torch.diff import checkpoint, optimize as opt
     from realtimeraytracer_torch.ops.denoise_kernel import (
         atrous_denoise_pair, atrous_pair_iteration_kernel, atrous_pair_iteration_plain,
         atrous_pair_iteration_vjp_kernel, atrous_pair_iteration_vjp_plain, atrous_pair_slab)
     from realtimeraytracer_torch.ops.denoise import ratio_combine
+    from realtimeraytracer_torch.ops.intersect import HitRecord, ray_triangle
     from realtimeraytracer_torch.ops.refit import apply_instance_transforms
     from realtimeraytracer_torch.parallel.mesh import initialize_multihost, make_ray_mesh
     from realtimeraytracer_torch.parallel.sharded import (render_pipeline_sharded,
@@ -433,14 +473,18 @@ def main() -> int:
     from realtimeraytracer_torch.render import hier_backend as v8
     from realtimeraytracer_torch.render import quarter_backend as v9
     from realtimeraytracer_torch.render import v7_backend as v7
-    from realtimeraytracer_torch.render.alpha import hit_alpha, wrap_backend_with_alpha
-    from realtimeraytracer_torch.render.backends import make_backend, make_hybrid_backend
+    from realtimeraytracer_torch.render.alpha import hit_alpha, step_past, wrap_backend_with_alpha
+    from realtimeraytracer_torch.render.backends import (make_backend, make_hybrid_backend,
+                                                         trace_primary_blocks)
     from realtimeraytracer_torch.render.megakernel import render_components, shade_sample
     from realtimeraytracer_torch.render.pipeline import compile_for, render_pipeline_gpu
     from realtimeraytracer_torch.render.wavefront import render_wavefront, trace_paths
     from realtimeraytracer_torch.app.application import Application
     from realtimeraytracer_torch.frame_profile import range_times
     from realtimeraytracer_torch.kernel_ab import sass_functions, tap_instructions
+    from realtimeraytracer_torch.scene import obj_loader
+    from realtimeraytracer_torch.utils import native
+    from realtimeraytracer_torch.utils.image_io import read_png
 
     # Launch counters: (wrapper, attribute); a masked variant counts on its
     # wrapper's masked_launches.
@@ -488,9 +532,23 @@ def main() -> int:
     torch.cuda.set_device(dev)
 
     # ---- 2. build -------------------------------------------------------
+    # The native host library (g++, native/) beside the nvcc builds: the
+    # scene compiles from phase 3 on build their BVHs with it.
+    def build_native():
+        t_ = time.perf_counter()
+        lib_ = native.load_library()
+        return lib_, time.perf_counter() - t_
+
     t0 = time.perf_counter()
-    libs = kernels.build_all()
-    say(f"[2] built {len(libs)} kernel libraries in {time.perf_counter() - t0:.2f} s")
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        native_job = pool.submit(build_native)
+        libs = kernels.build_all()
+        native_lib, native_s = native_job.result()
+    require(native_lib is not None, f"no C++ compiler ({native._compiler()}): the native host "
+            "library cannot be built")
+    say(f"[2] built {len(libs)} kernel libraries in {time.perf_counter() - t0:.2f} s; the native "
+        f"host library {native.library_path(native._compiler()).name} in {native_s:.2f} s with "
+        f"{' '.join(native._compiler())} {' '.join(native.CXX_FLAGS)}")
     for name, log in kernels.build_log.items():
         entry = ""
         for line in log.splitlines():
@@ -1138,13 +1196,46 @@ def main() -> int:
     differ = ~((hm.prim_id == hn.prim_id) | (hm.t == hn.t))
     further = differ & exhausted & (hm.t >= hn.t)
     nearer = differ & (hm.t < hn.t) & (hit_alpha(fol, hm, fo, fd) >= thr)
-    require(bool((differ == (further | nearer)).all()),
+    # The kernels return t with its low 7 mantissa bits cleared, and which
+    # of two triangles in one such bucket wins depends on the tile's visit
+    # order, so the two ladders may take different ones; a ladder that
+    # rejects the transparent one steps past the bucket (step_past), and
+    # the opaque one with it.  Where the masked ladder passed the unmasked
+    # ladder's opaque hit, it is held to have met such a triangle: one the
+    # ray meets (Moller-Trumbore over every triangle) within a bucket below
+    # and a step above the opaque hit's t, transparent at its hit, its mask
+    # bit set.  No mask rejected an opaque hit there.
+    tied = torch.zeros_like(differ)
+    for i in torch.nonzero(differ & ~(further | nearer) & (hm.t > hn.t)
+                           & (hit_alpha(fol, hn, fo, fd) >= thr)).flatten()[:64].tolist():
+        n_ = fol.num_tris
+        o_, d_ = fo[i].expand(n_, 3), fd[i].expand(n_, 3)
+        t_, u_, v_, ok_ = ray_triangle(o_, d_, fol.bvh_tri_v0, fol.bvh_tri_v1, fol.bvh_tri_v2)
+        bucket_ = hn.t[i] * 2.0 ** -16
+        mates = torch.nonzero(ok_ & (t_ >= hn.t[i] - bucket_) & (t_ < step_past(hn.t[i]))
+                              & (torch.arange(n_, device=dev) != hn.prim_id[i])).flatten()
+        if mates.numel() == 0:
+            continue
+        rec_ = HitRecord(t=t_[mates], prim_id=mates.to(hn.prim_id.dtype), u=u_[mates], v=v_[mates])
+        a_ = hit_alpha(fol, rec_, o_[mates], d_[mates])
+        w_ = fol.pallas_amask[mates // 128, :, mates % 128]
+        mask_ok = v7._mask_ok(torch.ones_like(mates, dtype=torch.bool)[None], u_[mates][None],
+                              v_[mates][None], w_.T[None])[0]
+        tied[i] = bool(((a_ < thr) & mask_ok).any())
+    odd = torch.nonzero(differ & ~(further | nearer | tied)).flatten()[:8]
+    require(odd.numel() == 0,
             f"[13] {int((differ & ~(further | nearer)).sum())} rays differ otherwise between the "
-            "ladders (a mask that rejected an opaque hit would show here)")
+            "ladders (a mask that rejected an opaque hit would show here): ray, (t, prim, alpha) "
+            "masked, unmasked, unmasked exhausted: " + "; ".join(
+                f"{int(i)}, ({float(hm.t[i])!r}, {int(hm.prim_id[i])}, "
+                f"{float(hit_alpha(fol, hm, fo, fd)[i])!r}), ({float(hn.t[i])!r}, {int(hn.prim_id[i])}, "
+                f"{float(hit_alpha(fol, hn, fo, fd)[i])!r}), {bool(exhausted[i])}" for i in odd))
     say(f"[13] {int(exhausted.sum())} rays exhaust the unmasked ladder; hits differ on "
         f"{int(differ.sum())} rays: {int(further.sum())} exhausted rays resolve further with masks, "
         f"on {int(nearer.sum())} the unmasked ladder stepped past the nearer opaque hit the masked "
-        f"trace keeps ({int((nearer & exhausted).sum())} of them exhausted)")
+        f"trace keeps ({int((nearer & exhausted).sum())} of them exhausted), on {int(tied.sum())} the "
+        f"masked ladder stepped past the unmasked ladder's opaque hit with a transparent triangle "
+        f"of its t bucket")
 
     # ---- 14. the alpha-tested frames ---------------------------------------
     expect_kernels = {"auto": ("trace_v9_masked", "trace_v8_masked"),
@@ -2339,6 +2430,176 @@ def main() -> int:
             f"{statistics.median(step_ms[1:]):.2f} ms ({card})")
     finally:
         tdist.destroy_process_group()
+
+    # ---- 34. the native host library and the thin slice ------------------------
+    # (a) The default compile went through the native SAH builder; host
+    # compile seconds with it and with the NumPy LBVH (both through the
+    # port, scene generation excluded); textured_obj's OBJ through each
+    # tokenizer.
+    require(native._lib is not None, "[34] the native host library is not loaded")
+
+    def compiled(make, builder, **kw):
+        """(host seconds, TorchScene on the host) of make().compile(**kw)
+        with the BVH builder `builder`."""
+        sc_, calls_ = make(), []
+        with bvh_builder(native, builder, calls_):
+            t_ = time.perf_counter()
+            g_ = sc_.compile(**kw)
+            sec_ = time.perf_counter() - t_
+        require(bool(calls_) and all(calls_) if builder == "sah" else not any(calls_),
+                f"[34] compile with the {builder} builder: native builds {calls_}")
+        return sec_, g_
+
+    compile34, keep34 = {}, {}
+    for what, make, kw in (
+            ("procedural_mesh(100_000)", lambda: scenes.procedural_mesh(100_000), {}),
+            ("procedural_mesh(1_000_000)", lambda: scenes.procedural_mesh(1_000_000), {}),
+            ("foliage_field() baked", scenes.foliage_field, {"bake_instances": True}),
+            ("textured_obj", scenes.textured_obj, {})):
+        for builder in ("sah", "numpy"):
+            sec_, g_ = compiled(make, builder, **kw)
+            compile34[what, builder] = sec_
+            if what.startswith("procedural_mesh"):
+                keep34[what, builder] = g_.to(dev)
+            del g_
+    with tempfile.TemporaryDirectory() as d34:
+        scenes.textured_obj(d34)                  # writes the OBJ, MTL and texture files
+        obj34 = str(Path(d34) / "scene.obj")
+        parsed = {}
+        parse34 = {}
+        for allow in (True, False, True, False):
+            t0 = time.perf_counter()
+            parsed[allow] = obj_loader.parse_obj(obj34, allow_native=allow)
+            parse34.setdefault(allow, []).append((time.perf_counter() - t0) * 1e3)
+    for k_ in range(3):
+        require(np.array_equal(parsed[True][k_], parsed[False][k_]),
+                "[34] the two tokenizers disagree on textured_obj")
+    require([(s_.name, s_.material, [tuple(map(tuple, t_)) for t_ in s_.faces])
+             for s_ in parsed[True][3]] == [(s_.name, s_.material, s_.faces) for s_ in parsed[False][3]],
+            "[34] the two tokenizers' shapes differ on textured_obj")
+    say(f"[34] the native host library ({native.library_path(native._compiler()).name}, built in "
+        f"{native_s:.2f} s in phase 2) carried every compile since phase 3; host compile seconds, "
+        f"native SAH / NumPy LBVH: " + "; ".join(
+            f"{w_} {compile34[w_, 'sah']:.2f} / {compile34[w_, 'numpy']:.2f}"
+            for w_ in dict.fromkeys(k_[0] for k_ in compile34))
+        + f"; textured_obj's OBJ parse (ms, twice each) native {[round(x, 2) for x in parse34[True]]}, "
+        f"Python {[round(x, 2) for x in parse34[False]]}, the same arrays and shapes")
+
+    # (b) The thin slice: camera ray blocks on the card, then v9 (v7 above
+    # RESIDENT_CB blocks), on each block order.
+    def slice_blocks(sc_, w_, h_):
+        return generate_ray_blocks(sc_.camera.viewport_frame(w_, h_, device=dev), w_, h_,
+                                   sample_index=0, jitter=True)
+
+    blocks34 = slice_blocks(scene, W, H)
+    blocks_cpu = generate_ray_blocks(scene.camera.viewport_frame(W, H), W, H, sample_index=0,
+                                     jitter=True)
+    bdiff = float((blocks34.cpu()[:, 3:6] - blocks_cpu[:, 3:6]).abs().max())
+    require(blocks34.shape == (-(-W // 16) * -(-H // 8), 8, 128) and bdiff <= 2e-7
+            and torch.equal(blocks34.cpu()[:, :3], blocks_cpu[:, :3])
+            and torch.equal(blocks34.cpu()[:, 6:], blocks_cpu[:, 6:]),
+            f"[34] ray blocks on the card against the CPU's: directions {bdiff}")
+    big34 = scenes.procedural_mesh(1_000_000)
+    slice34, hits34 = {}, {}
+    for rung, sc_, kernel_ in (("100k", scene, "trace_v9"), ("1M", big34, "trace_v7")):
+        small_ = slice_blocks(sc_, 320, 180)
+        big_ = blocks34 if rung == "100k" else slice_blocks(sc_, W, H)
+        for order in ("sah", "numpy"):
+            g_ = keep34[f"procedural_mesh({'100_000' if rung == '100k' else '1_000_000'})", order]
+            tag = f"{rung} {'SAH' if order == 'sah' else 'LBVH'}"
+            k_ = trace_primary_blocks(g_, small_)
+            if kernel_ == "trace_v9":
+                p_, o_ = v9_twin(small_, "origin", g=g_)
+            else:
+                p_, o_ = v7_twin(small_, "closest", "origin", g=g_)
+            err_ = compare_closest(k_, p_, f"[34] {kernel_} {tag}, 320x180 ray blocks")
+            if kernel_ == "trace_v9":
+                v9_err = max(v9_err, err_)
+            else:
+                v7_err = max(v7_err, err_)
+            same_rows(k_, o_, f"[34] {kernel_} {tag} 320x180")
+            zero_counts()
+            trace_primary_blocks(g_, big_)
+            torch.cuda.synchronize()
+            c_ = read_counts()
+            require(c_ == unmasked(trace_v7=int(kernel_ == "trace_v7"), trace_v9=int(kernel_ == "trace_v9"),
+                                   trace_v8=0, atrous_pair=0), f"[34] thin slice {tag} launches {c_}")
+            ms_, out_ = median_ms(lambda: trace_primary_blocks(g_, big_), 10)
+            ts_ = big_.shape[0]
+            if kernel_ == "trace_v9":
+                moved_ = nbytes(big_, g_.q_cl_min, g_.q_cl_max, g_.q_panels, g_.q_group_off) + 3 * ts_ * 512
+                cull_ = CULL_OPS * ts_ * g_.q_cl_min.shape[0]
+            else:
+                moved_ = nbytes(big_, g_.pallas_cl_min, g_.pallas_cl_max, g_.pallas_panels) + 4 * ts_ * 512
+                cull_ = CULL_OPS * ts_ * g_.pallas_cl_min.shape[0]
+            b_, pairs_ = trace_bound(out_[1], "origin", moved_, extra_ops=cull_)
+            slice34[tag] = dict(kernel=kernel_, ms=ms_, rays_per_s=W * H / ms_ * 1e3,
+                                visited=int(out_[1][:, 1, 0].sum()), pairs=pairs_, bound_ms=b_[0],
+                                bound_by=b_[1], launches=c_[kernel_])
+            ids_ = out_[1][:, 0].reshape(-1)
+            hits34[tag] = (ids_ >= 0, out_[0][:, 0].reshape(-1),
+                           g_.faces[ids_.clamp(min=0)].where((ids_ >= 0)[:, None], -1))
+            say(f"[34] thin slice {tag} (generate_ray_blocks, then {kernel_}), 1080p: {ms_:.3f} ms "
+                f"(median of 10 after a warm-up), {slice34[tag]['rays_per_s']:.4e} rays/s, "
+                f"{slice34[tag]['visited']} {'subclusters' if kernel_ == 'trace_v9' else 'blocks'} "
+                f"visited, {pairs_} pairs tested, bound {b_[0]:.4f} ms by {b_[1]}; launches {c_} ({card})")
+        # The same hits on both orders: the same triangle (its vertex ids)
+        # or the same t.
+        (hs, ts_s, fs), (hl, ts_l, fl) = hits34[f"{rung} SAH"], hits34[f"{rung} LBVH"]
+        require(bool((hs == hl).all()), f"[34] {rung}: hit masks differ on {int((hs != hl).sum())} rays")
+        other = hs & (fs != fl).any(dim=1)
+        require(bool((ts_s[other] == ts_l[other]).all()),
+                f"[34] {rung}: another triangle at another t on {int((ts_s[other] != ts_l[other]).sum())} rays")
+        say(f"[34] {rung}: both orders hit the same rays ({int(hs.sum())}), the same triangle or the "
+            f"same t ({int(other.sum())} ties on another triangle)")
+    del big34
+
+    # (c) The reference-default hybrid frame on both orders, in turns.
+    gpu_l = keep34["procedural_mesh(100_000)", "numpy"]
+    frames34, times34 = {}, {"SAH": [], "LBVH": []}
+    for tag, g_ in (("SAH", gpu), ("LBVH", gpu_l)):
+        zero_counts()
+        frames34[tag] = render_pipeline_gpu(g_, frame, cfg9)
+        torch.cuda.synchronize()
+        c_ = read_counts()
+        require(c_ == want9, f"[34] {tag} hybrid frame launches {c_}, expected {want9}")
+        frames34[tag] = frames34[tag].cpu().numpy()
+    share34 = image_rule(frames34["SAH"], frames34["LBVH"], "[34] the hybrid frame, SAH against LBVH")
+    require(np.array_equal(frames34["SAH"], img9), "[34] the SAH frame differs from phase 9's")
+    for tag in ("SAH", "LBVH", "LBVH", "SAH"):
+        g_ = gpu if tag == "SAH" else gpu_l
+        times34[tag].append(median_ms(lambda: render_pipeline_gpu(g_, frame, cfg9), 3)[0])
+    say(f"[34] reference-default hybrid frame, SAH against LBVH: {share34:.4%} of values differ by "
+        f"> 2e-3 (max |err| {float(np.abs(frames34['SAH'] - frames34['LBVH']).max())}); frame ms "
+        f"(median of 3 each, in turns SAH, LBVH, LBVH, SAH) {times34}; launches {want9} each ({card})")
+    keep34.clear()
+    del gpu_l, frames34
+
+    # (d) The demo CLI's render of mesh100k through its entry point.
+    png34 = Path(__file__).resolve().parent / "build" / "demo_mesh100k.png"
+    png34.parent.mkdir(parents=True, exist_ok=True)
+    _, cfg34 = demo.SCENES["mesh100k"]()
+    zero_counts()
+    t0 = time.perf_counter()
+    img34 = demo.cmd_render("mesh100k", str(png34))
+    torch.cuda.synchronize()
+    wall34 = time.perf_counter() - t0
+    c_ = read_counts()
+    require(img34.device == dev and c_["trace_v9"] == cfg34.primary_rays and c_["trace_v8"] > 0
+            and c_["atrous_pair"] == cfg34.denoise_iterations and c_["trace_v7"] == 0
+            and c_ == unmasked(trace_v7=0, trace_v9=c_["trace_v9"], trace_v8=c_["trace_v8"],
+                               atrous_pair=c_["atrous_pair"]),
+            f"[34] demo render mesh100k launches {c_}")
+    png = read_png(str(png34))
+    require(png.shape == (cfg34.height, cfg34.width, 3) and float(img34.std()) > 1e-3,
+            f"[34] demo render mesh100k wrote {png.shape}")
+    say(f"[34] python -m realtimeraytracer_torch.demo render mesh100k {png34.name}: "
+        f"{cfg34.width}x{cfg34.height}, {wall34:.2f} s wall with the compile; launches {c_}; "
+        f"image mean {float(img34.mean()):.6f} ({card})")
+    say("[34] " + json.dumps({"thin_slice": slice34, "host_compile_s": {
+        f"{w_} {b_}": v_ for (w_, b_), v_ in compile34.items()},
+        "obj_parse_ms": {"native": parse34[True], "python": parse34[False]},
+        "hybrid_frame_ms": times34, "native_build_s": native_s, "card": card}))
 
     shadow_row = v8_rows["occluded shadow segments"]
     say(json.dumps({"kernels": [

@@ -5,6 +5,13 @@ NumPy, unchanged): the JAX package cannot be imported without jax, so the
 port carries its own.  ``refit_numpy`` is the oracle of the device-side
 refit (ops/refit.py).
 
+The scene compile's default is the native binned-SAH build
+(utils/native.py::native_build_bvh, native/bvh_sah.cpp), as in the JAX
+package; this NumPy LBVH is its fallback on a machine without a C++
+compiler, and gives the same order as the native LBVH
+(``native_build_bvh(..., builder="lbvh")``).  Both builders emit the same
+layout below, so the traversal, the panels and the refit read either.
+
 TPU-native replacement for the reference's hardware acceleration structures
 (BLAS per mesh + TLAS of instances, vulkan/raytracing/blas.cppm:75-167 and
 tlas.cppm:44-149, built by Vulkan on the GPU).  A scene without instances

@@ -169,6 +169,24 @@ def make_hybrid_backend(gpu: TorchScene, cfg: RenderConfig,
                         occluded_hinted=v8.occluded_hinted)
 
 
+def trace_primary_blocks(gpu: TorchScene, ray_blocks: torch.Tensor):
+    """Closest hits of packed camera ray blocks (one origin a tile, as
+    ops/camera_rays.py::generate_ray_blocks emits them) by the hybrid
+    route's coherent rule, as bench.py's thin slice routes them: v9 on
+    scenes of at most RESIDENT_CB blocks with repacked panels, v7 above.
+    Returns the kernel's (outf, outi): row 0 the t and the sorted-triangle
+    id; on CPU tensors the kernels' wrappers run their plain twins."""
+    from realtimeraytracer_torch.render import quarter_backend as v9m
+    from realtimeraytracer_torch.render import v7_backend as v7m
+    from realtimeraytracer_torch.scene.panels import RESIDENT_CB
+
+    if gpu.instanced or gpu.pallas_panels is None:
+        raise ValueError("the thin slice traces a compiled BVH scene without instances")
+    if gpu.q_panels is not None and gpu.pallas_panels.shape[0] <= RESIDENT_CB:
+        return v9m.trace_blocks_quarter(gpu, ray_blocks, common="origin")
+    return v7m.trace_blocks(gpu, ray_blocks, "closest", common="origin")
+
+
 _BVH_KINDS = ("pallas", "quarter", "hier", "hybrid")
 
 

@@ -2,9 +2,10 @@
 
 Counterpart of realtimeraytracer_tpu/scene/obj_loader.py (the replacement
 of the reference's vendored tinyobjloader, core/file.cppm:44-268):
-``parse_mtl``, ``parse_obj`` (the pure-Python parser; the JAX package's
-native tokenizer waits for ROADMAP A9), ``_dedup_shape``, ``load_obj``,
-``load_obj_mtl``, ``load_texture_file``, ``decode_radiance_hdr``,
+``parse_mtl``, ``parse_obj`` (the native C++ tokenizer of
+native/objparse.cpp through utils/native.py, or the pure-Python parser
+with ``allow_native=False`` or without a C++ compiler), ``_dedup_shape``,
+``load_obj``, ``load_obj_mtl``, ``load_texture_file``, ``decode_radiance_hdr``,
 ``encode_radiance_hdr``, ``load_hdr`` and ``load_obj_scene``, with the same
 results.  Texture files are read by the port's own PNG codec
 (utils/png.py) instead of Pillow: 8-bit grey, RGB and RGBA PNGs, with
@@ -96,13 +97,25 @@ class _ShapeAccum:
     faces: list = field(default_factory=list)    # triangles of corner-indices
 
 
-def parse_obj(path: str):
+def parse_obj(path: str, allow_native: bool = True):
     """Parse an OBJ file.
 
     Returns (positions (V,3), texcoords (T,2), normals (N,3), shapes,
     mtllibs), where each shape holds triangulated faces of (vi, ti, ni)
     corners, split on o/g/usemtl boundaries (tinyobjloader shape
-    semantics)."""
+    semantics).
+
+    Uses the native C++ tokenizer (native/objparse.cpp) unless
+    `allow_native` is False or the machine has no C++ compiler; the
+    pure-Python path below is the reference implementation and fallback
+    (it also raises a file's error)."""
+    from realtimeraytracer_torch.utils import native
+
+    if allow_native and native.load_library() is not None:
+        try:
+            return _parse_obj_native(path)
+        except OSError:
+            pass
     positions: list = []
     texcoords: list = []
     normals: list = []
@@ -155,6 +168,26 @@ def parse_obj(path: str):
         shapes,
         mtllibs,
     )
+
+
+def _parse_obj_native(path: str):
+    """Native-tokenizer front end producing the same structures as the
+    pure-Python parser."""
+    from realtimeraytracer_torch.utils.native import NativeObj
+
+    positions, texcoords, normals, corners, tri_shape, shape_meta, mtllibs = \
+        NativeObj(path).arrays()
+    order = np.argsort(tri_shape, kind="stable")
+    bounds = np.searchsorted(tri_shape[order], np.arange(len(shape_meta) + 1))
+    corner_rows = corners[order].tolist()
+    shapes = []
+    for i, (name, mat) in enumerate(shape_meta):
+        if bounds[i] == bounds[i + 1]:
+            continue
+        s = _ShapeAccum(name=name, material=mat)
+        s.faces = [tuple(map(tuple, tri)) for tri in corner_rows[bounds[i]:bounds[i + 1]]]
+        shapes.append(s)
+    return positions, texcoords, normals, shapes, mtllibs
 
 
 def _dedup_shape(shape: _ShapeAccum, positions, texcoords, normals):

@@ -8,8 +8,9 @@ Scenes without instances compile to one world-space vertex/index pool
 (lights first, tlas.cppm:77-82) with the object and light tables (texture
 ids included), the texture atlas and its packed-neighbour twin (with
 ``mip_textures=True`` also its mip chain, the chain's packed twin and the
-per-face uv density that the mip LOD reads), the LBVH
-with its per-node refit ranges (ops/refit.py), the v7 coefficient panels
+per-face uv density that the mip LOD reads), the BVH (the native
+binned-SAH build of utils/native.py; the NumPy LBVH of ops/bvh.py only on
+a machine without a C++ compiler) with its per-node refit ranges (ops/refit.py), the v7 coefficient panels
 and, for scenes of at most RESIDENT_CB blocks, the v9 repacked panels
 (ops/repack.py), the conservative alpha masks of both panel sets
 (ops/alpha_mask.py), and the LTC LUTs.
@@ -18,15 +19,16 @@ Scenes holding ``MeshInstance`` objects compile to the shared-geometry form
 (geometry_builder.cppm:178-198, tlas.cppm:60-67): mesh-space pools with one
 coefficient-panel set per unique mesh, a per-instance transform and object
 table, and world-space (instance, supercluster) box pages for the v8
-kernel's instanced top level (render/hier_backend.py).  The leaves equal
-the JAX compile's when both use the NumPy BVH builder.
+kernel's instanced top level (render/hier_backend.py); each unique mesh
+above CB triangles is sorted by its own native SAH build.  The leaves
+equal the JAX compile's: both build through the same native sources with
+the same flags, or both through the NumPy builder.
 
 The JAX compile builds the mip leaves for every textured scene; the port
 builds them only when asked (``compile(mip_textures=True)``, which
 ``render_pipeline`` sets from ``cfg.mip_textures``), so frames without
-mips keep their compile time and device bytes (ROADMAP queue C).  Not
-ported yet (ROADMAP queue A): the native C++ BVH builder.  The opaque/alpha
-panel split of the JAX compile belongs to ``alpha_split``, which is not
+mips keep their compile time and device bytes (ROADMAP queue C).  The
+opaque/alpha panel split of the JAX compile belongs to ``alpha_split``, which is not
 ported.
 """
 
@@ -369,9 +371,14 @@ class Scene:
             from realtimeraytracer_torch.ops.bvh import build_bvh
             from realtimeraytracer_torch.ops.refit import subtree_ranges
             from realtimeraytracer_torch.scene.panels import pack_clusters_np
+            from realtimeraytracer_torch.utils.native import native_build_bvh
 
-            bvh = build_bvh(vertices[faces_arr[:, 0]], vertices[faces_arr[:, 1]],
-                            vertices[faces_arr[:, 2]], leaf_size=bvh_leaf_size)
+            # The native binned-SAH builder first (the NumPy LBVH without a
+            # C++ compiler), as the JAX compile does.
+            tv0, tv1, tv2 = (vertices[faces_arr[:, k]] for k in range(3))
+            bvh = native_build_bvh(tv0, tv1, tv2, bvh_leaf_size)
+            if bvh is None:
+                bvh = build_bvh(tv0, tv1, tv2, leaf_size=bvh_leaf_size)
             # Faces in BVH order: the traversal's sorted id IS the face id.
             perm = np.asarray(bvh.tri_id, np.int64)
             faces_arr = faces_arr[perm]
@@ -438,7 +445,7 @@ class Scene:
 
         Pools (vertices, normals, uvs, faces) are mesh-space; the sorted
         prim id maps 1:1 to padded face rows (each mesh's faces are
-        Morton-sorted, then padded to a multiple of 128), so the kernel and
+        sorted by their BVH build, then padded to a multiple of 128), so the kernel and
         the surface resolver index without per-mesh offset tables.  Each
         light quad is its own world-space mesh with an identity instance
         (lights first, tlas.cppm:77-82); meshes and then instances follow,
@@ -447,6 +454,7 @@ class Scene:
         in the JAX package)."""
         from realtimeraytracer_torch.ops.bvh import build_bvh
         from realtimeraytracer_torch.scene.panels import pack_clusters_np
+        from realtimeraytracer_torch.utils.native import native_build_bvh
 
         obj_rows: list[tuple] = []
         mesh_entries: list[tuple] = []   # (verts, norms, uvs, faces), mesh space
@@ -490,7 +498,7 @@ class Scene:
 
         sph = _sphere_leaves(self.spheres, obj_rows)
 
-        # ---- per-unique-mesh pools (mesh space, Morton-sorted) ----------
+        # ---- per-unique-mesh pools (mesh space, BVH-sorted) -------------
         verts_p, norms_p, uvs_p, faces_p, dens_p = [], [], [], [], []
         coeff_l, clmin_l, clmax_l, blk_rows = [], [], [], []
         mesh_block_base, mesh_sup_base, mesh_sup_aabbs = [], [], []
@@ -498,7 +506,10 @@ class Scene:
         for v, n, uv, f in mesh_entries:
             tv0, tv1, tv2 = v[f[:, 0]], v[f[:, 1]], v[f[:, 2]]
             if len(f) > CB:
-                perm = np.asarray(build_bvh(tv0, tv1, tv2, leaf_size=4).tri_id, np.int64)
+                bvh = native_build_bvh(tv0, tv1, tv2, 4)
+                if bvh is None:
+                    bvh = build_bvh(tv0, tv1, tv2, leaf_size=4)
+                perm = np.asarray(bvh.tri_id, np.int64)
             else:
                 perm = np.arange(len(f))
             fs = f[perm]

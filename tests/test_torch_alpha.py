@@ -1,7 +1,7 @@
 """Alpha-tested any-hit of the PyTorch port against the JAX package.
 
-Held here, on scenes compiled by the JAX package (pure-Python OBJ parser,
-NumPy BVH builder) and carried across with from_numpy_leaves: the
+Held here, on scenes compiled by the JAX package (its default path: the
+native OBJ tokenizer and SAH BVH builder) and carried across with from_numpy_leaves: the
 alpha-mask builder; the masked twins of v7, v9 and v8 against the JAX
 kernels in interpret mode, on a baked foliage_field (its leaf cards have
 wide transparent margins, so the masks reject hits; textured_obj's disc
@@ -31,8 +31,6 @@ import torch
 import jax.numpy as jnp
 
 import realtimeraytracer_tpu as jax_rt
-import realtimeraytracer_tpu.scene.obj_loader as jax_obj
-import realtimeraytracer_tpu.utils.native as jax_native
 from realtimeraytracer_tpu import scenes as jax_scenes
 from realtimeraytracer_tpu.ops import alpha_mask as jax_amask
 from realtimeraytracer_tpu.render import alpha as jax_alpha
@@ -60,11 +58,7 @@ FOLIAGE_TRIS = 12_000        # the smallest baked foliage_field with plants
 def _scene_and_rays(build):
     """A JAX-compiled scene, the port's copy of it, and N_RAYS rays from
     the camera to random points of its alpha-mapped triangles."""
-    mp = pytest.MonkeyPatch()
-    mp.setattr(jax_obj, "_parse_obj_native", lambda path: (_ for _ in ()).throw(RuntimeError()))
-    mp.setattr(jax_native, "native_build_bvh", lambda *a, **k: None)
     jscene, jgpu = build()
-    mp.undo()
     leaves = {k: np.asarray(v) for k, v in jgpu._asdict().items() if v is not None}
     tgpu = from_numpy_leaves(leaves)
     rng = np.random.default_rng(5)

@@ -48,7 +48,6 @@ import jax
 import jax.numpy as jnp
 
 import realtimeraytracer_tpu as jax_rt
-import realtimeraytracer_tpu.utils.native as jax_native
 from realtimeraytracer_tpu import scenes as jax_scenes
 from realtimeraytracer_tpu.diff import optimize as jax_opt
 from realtimeraytracer_tpu.ops import refit as jax_refit
@@ -92,9 +91,7 @@ def _cfgs(**kw):
 @functools.lru_cache(maxsize=None)
 def _scene(name):
     """(JAX GPUScene, the port's TorchScene of the same leaves)."""
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jax_native, "native_build_bvh", lambda *a, **k: None)
-        jgpu = getattr(jax_scenes, name)().compile()
+    jgpu = getattr(jax_scenes, name)().compile()
     return jgpu, from_numpy_leaves({k: np.asarray(v) for k, v in jgpu._asdict().items()
                                     if v is not None})
 
@@ -587,9 +584,7 @@ def test_apply_transforms_grads_match_jax(leaves):
     triangle's |n|^2, so their gradient sums terms up to thousands over 600
     triangles in float32: rtol 1e-3 with atol 1e-4 x the largest entry
     there (the other leaves agree bit for bit)."""
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jax_native, "native_build_bvh", lambda *a, **k: None)
-        jg = jax_scenes.procedural_mesh(600).compile()
+    jg = jax_scenes.procedural_mesh(600).compile()
     tg = from_numpy_leaves({k: np.asarray(v) for k, v in jg._asdict().items() if v is not None})
     names = (("pallas_panels",) if leaves == "panels" else
              ("vertices", "normals", "lt_v0", "lt_v1", "lt_v2", "bvh_tri_v0", "bvh_tri_v1",

@@ -4,9 +4,9 @@ package.
 Scenes: ``foliage_field(target_tris=20_000)`` (273 instances and 273
 (instance, super) pairs on 3 pages; at 8_000 it places no instance at all)
 and the ``_blob`` scene of tests/test_instancing.py (nine instances of one
-random triangle soup, some scaled).  The JAX side is patched to its NumPy
-BVH builder, as in tests/test_torch_scene.py, and its v8 kernel runs in
-interpret mode.
+random triangle soup, some scaled).  Both packages compile on their
+default path (each unique mesh above 128 triangles sorted by the native
+SAH build), and JAX's v8 kernel runs in interpret mode.
 
 Tolerances:
   * compiled leaves: integer and boolean leaves equal, float leaves rtol
@@ -32,7 +32,6 @@ import torch
 import jax
 import jax.numpy as jnp
 
-import realtimeraytracer_tpu.utils.native as jax_native
 from realtimeraytracer_tpu import scenes as jax_scenes
 from realtimeraytracer_tpu.config import RenderConfig as JaxConfig
 from realtimeraytracer_tpu.ops import refit as jax_refit
@@ -78,11 +77,6 @@ def _leaves(gpu):
     return {k: np.asarray(v) for k, v in gpu._asdict().items() if v is not None}
 
 
-@pytest.fixture
-def numpy_builder(monkeypatch):
-    monkeypatch.setattr(jax_native, "native_build_bvh", lambda *a, **k: None)
-
-
 # ---- the _blob scene of tests/test_instancing.py, in both packages ------
 
 def _blob_arrays(n=300, seed=0):
@@ -121,9 +115,7 @@ def _blob_scene(jax_side: bool, k=9, shift=(0.0, 0.0, 0.0)):
 
 @pytest.fixture(scope="module")
 def foliage():
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jax_native, "native_build_bvh", lambda *a, **k: None)
-        jg = jax_scenes.foliage_field(target_tris=FOLIAGE_TRIS).compile()
+    jg = jax_scenes.foliage_field(target_tris=FOLIAGE_TRIS).compile()
     tg = from_numpy_leaves(_leaves(jg))
     assert jg.instanced and tg.instanced
     scene = scenes.foliage_field(target_tris=FOLIAGE_TRIS)
@@ -166,7 +158,7 @@ def _assert_closest_matches(got: HitRecord, want):
 # ---- compile ---------------------------------------------------------------
 
 @pytest.mark.parametrize("name", ["foliage_20k", "blob"])
-def test_instanced_compile_matches_jax(numpy_builder, name):
+def test_instanced_compile_matches_jax(name):
     if name == "blob":
         want = _leaves(_blob_scene(True).compile())
         got = _blob_scene(False).compile_leaves()
@@ -339,7 +331,7 @@ def _moved_transforms(n_fixed):
     return np.concatenate([eye, np.stack(_transforms(9, (0.5, 0.4, -0.3)))])
 
 
-def test_apply_instance_transforms_matches_jax(numpy_builder):
+def test_apply_instance_transforms_matches_jax():
     jg = _blob_scene(True).compile()
     tg = _blob_scene(False).compile()
     all_t = _moved_transforms(tg.inst_inv.shape[0] - 9)
@@ -362,7 +354,7 @@ def test_apply_instance_transforms_matches_jax(numpy_builder):
         refit.apply_instance_transforms(_blob_scene(False).compile(bake_instances=True), all_t)
 
 
-def test_apply_transforms_matches_jax(numpy_builder):
+def test_apply_transforms_matches_jax():
     """A per-object table on a world-space scene: vertices, normals,
     lights, the BVH soup, its refit node boxes and the repacked panels."""
     jg = jax_scenes.procedural_mesh(600).compile()

@@ -16,8 +16,6 @@ import jax
 import jax.numpy as jnp
 
 import realtimeraytracer_tpu as jax_rt
-import realtimeraytracer_tpu.scene.obj_loader as jax_obj
-import realtimeraytracer_tpu.utils.native as jax_native
 from realtimeraytracer_tpu import scenes as jax_scenes
 from realtimeraytracer_tpu.ops import texture as jax_tex
 from realtimeraytracer_tpu.render.megakernel import render_components as jax_components
@@ -84,11 +82,7 @@ def test_samplers_match_jax(taps, packed):
 
 
 def _jax_leaves(jscene, **kw):
-    mp = pytest.MonkeyPatch()
-    mp.setattr(jax_obj, "_parse_obj_native", lambda path: (_ for _ in ()).throw(RuntimeError()))
-    mp.setattr(jax_native, "native_build_bvh", lambda *a, **k: None)
     gpu = jscene.compile(**kw)
-    mp.undo()
     return {k: np.asarray(v) for k, v in gpu._asdict().items() if v is not None}
 
 

@@ -238,11 +238,17 @@ def test_spheres():
 
 def test_import_without_jax():
     """Every module of the package (found by walking it, not listed by
-    hand) imports without loading jax or the JAX package."""
+    hand, the native host library's bindings and the demo CLI among them)
+    imports without loading jax or the JAX package, and so does a build and
+    use of the native library."""
     code = ("import importlib, pkgutil, sys, realtimeraytracer_torch as p; "
             "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]; "
             "[importlib.import_module(m) for m in mods]; "
             "assert len(mods) > 30, mods; "
+            "assert {'realtimeraytracer_torch.utils.native', 'realtimeraytracer_torch.demo'} "
+            "<= set(mods), mods; "
+            "from realtimeraytracer_torch.utils import native; "
+            "assert native.load_library() is not None; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', "
             "'realtimeraytracer_tpu'))); print(bad); sys.exit(1 if bad else 0)")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -2,8 +2,9 @@
 
 The port's own ``Scene.compile`` is held leaf by leaf against the JAX
 compile of the same scene built by both packages' ``scenes`` modules from
-one seed.  The JAX side is patched to its NumPy BVH builder (its native C++
-builder orders triangles differently).  Tolerance: integer and boolean
+one seed, both on their default path (the native binned-SAH BVH builds of
+the same sources with the same flags), and once more with both packages
+patched to their NumPy LBVH builder.  Tolerance: integer and boolean
 leaves equal; float leaves rtol 1e-6 (both are the same NumPy float32
 arithmetic, so they are in fact equal).
 """
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 import realtimeraytracer_tpu.utils.native as jax_native
+import realtimeraytracer_torch.utils.native as native
 from realtimeraytracer_tpu import scenes as jax_scenes
 from realtimeraytracer_tpu.scene.scene import Scene as JaxScene
 from realtimeraytracer_tpu.scene.geometry import TriangleMesh as JaxMesh
@@ -27,22 +29,12 @@ from realtimeraytracer_torch.scene.materials import Material
 torch.set_num_threads(2)
 
 
-def _jax_leaves(scene, monkeypatch):
-    monkeypatch.setattr(jax_native, "native_build_bvh", lambda *a, **k: None)
+def _jax_leaves(scene):
     gpu = scene.compile()
     return {k: np.asarray(v) for k, v in gpu._asdict().items() if v is not None}
 
 
-@pytest.mark.parametrize("name,args", [
-    ("procedural_mesh", (600,)),
-    ("procedural_mesh", (300, 5, False)),
-    ("cornell_box", ()),
-    ("sphere_plane", ()),
-    ("sky_sphere", ()),
-])
-def test_compile_matches_jax(monkeypatch, name, args):
-    want = _jax_leaves(getattr(jax_scenes, name)(*args), monkeypatch)
-    got = getattr(scenes, name)(*args).compile_leaves()
+def _compare(got, want):
     assert set(got) <= set(want)
     for key, g in got.items():
         w = want[key]
@@ -54,8 +46,32 @@ def test_compile_matches_jax(monkeypatch, name, args):
             np.testing.assert_array_equal(g, w, err_msg=key)
 
 
-def test_from_numpy_leaves_roundtrip(monkeypatch):
-    leaves = _jax_leaves(jax_scenes.procedural_mesh(300), monkeypatch)
+@pytest.mark.parametrize("name,args", [
+    ("procedural_mesh", (600,)),
+    ("procedural_mesh", (300, 5, False)),
+    ("cornell_box", ()),
+    ("sphere_plane", ()),
+    ("sky_sphere", ()),
+])
+def test_compile_matches_jax(name, args):
+    _compare(getattr(scenes, name)(*args).compile_leaves(),
+             _jax_leaves(getattr(jax_scenes, name)(*args)))
+
+
+def test_compile_matches_jax_numpy_builder(monkeypatch):
+    """Both packages patched to their NumPy LBVH builder (the port's
+    fallback without a C++ compiler): the leaves equal, and the order is
+    not the default SAH order."""
+    sah = scenes.procedural_mesh(600).compile_leaves()
+    monkeypatch.setattr(jax_native, "native_build_bvh", lambda *a, **k: None)
+    monkeypatch.setattr(native, "native_build_bvh", lambda *a, **k: None)
+    got = scenes.procedural_mesh(600).compile_leaves()
+    _compare(got, _jax_leaves(jax_scenes.procedural_mesh(600)))
+    assert not np.array_equal(got["faces"], sah["faces"])
+
+
+def test_from_numpy_leaves_roundtrip():
+    leaves = _jax_leaves(jax_scenes.procedural_mesh(300))
     ts = from_numpy_leaves(leaves)
     assert ts.has_bvh and ts.num_tris == leaves["faces"].shape[0]
     for name in LEAF_NAMES:
@@ -63,18 +79,18 @@ def test_from_numpy_leaves_roundtrip(monkeypatch):
             np.testing.assert_array_equal(getattr(ts, name).numpy(), leaves[name])
 
 
-def test_unported_scene_features_raise(monkeypatch):
+def test_unported_scene_features_raise():
     """Textured and instanced scenes compile, on JAX leaves and in the
     port's own compile, and a config may ask for the mip fields."""
     tex = JaxScene()
     idx = tex.add_texture(np.ones((4, 4, 3), np.float32))
     tex.add(JaxMesh(vertices=np.eye(3, dtype=np.float32), faces=np.array([[0, 1, 2]]),
                     material=JaxMaterial(color_map=idx)))
-    assert from_numpy_leaves(_jax_leaves(tex, monkeypatch)).has_textures
+    assert from_numpy_leaves(_jax_leaves(tex)).has_textures
     inst = JaxScene().add_instances(
         JaxMesh(vertices=np.eye(3, dtype=np.float32), faces=np.array([[0, 1, 2]])),
         [np.eye(4, dtype=np.float32)])
-    assert from_numpy_leaves(_jax_leaves(inst, monkeypatch)).instanced
+    assert from_numpy_leaves(_jax_leaves(inst)).instanced
     mapped = scenes.sphere_plane()
     mapped.add_texture(np.ones((4, 4, 3), np.float32))
     mapped.add(TriangleMesh(vertices=np.eye(3, dtype=np.float32), faces=np.array([[0, 1, 2]]),

@@ -27,7 +27,6 @@ import torch.distributed as dist
 import jax
 
 import realtimeraytracer_tpu as jax_rt
-import realtimeraytracer_tpu.utils.native as jax_native
 from realtimeraytracer_tpu import scenes as jax_scenes
 from realtimeraytracer_tpu.parallel.mesh import make_ray_mesh as jax_make_ray_mesh
 from realtimeraytracer_tpu.parallel.sharded import (
@@ -59,9 +58,7 @@ def _free_port() -> int:
 
 @pytest.fixture(scope="module")
 def jax_scene():
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jax_native, "native_build_bvh", lambda *a, **k: None)
-        return jax_scenes.cornell_box().compile()
+    return jax_scenes.cornell_box().compile()
 
 
 @pytest.fixture(scope="module")

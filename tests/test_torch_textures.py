@@ -3,10 +3,10 @@
 Held here: the port's PNG codec (realtimeraytracer_torch/utils/png.py)
 against Pillow in both directions; texture files, the Radiance HDR codec
 and the OBJ/MTL loader against the JAX package on textured_obj's fixture
-files (the JAX side with its pure-Python OBJ parser); the atlas samplers
+files (both sides with their native OBJ tokenizer); the atlas samplers
 against JAX on seeded uvs; resolve_surface's texture branch; the compiled
 texture and alpha-mask leaves of textured_obj and of a baked
-foliage_field against the JAX compile (NumPy BVH builder on both sides);
+foliage_field against the JAX compile (native SAH builder on both sides);
 a 32x32 alpha-tested frame of each scene against JAX's; and, in a
 subprocess, that the port imports no Pillow.
 
@@ -45,7 +45,6 @@ from PIL import Image
 import realtimeraytracer_tpu as jax_rt
 
 import realtimeraytracer_tpu.scene.obj_loader as jax_obj
-import realtimeraytracer_tpu.utils.native as jax_native
 from realtimeraytracer_tpu import scenes as jax_scenes
 from realtimeraytracer_tpu.ops import texture as jax_texture
 from realtimeraytracer_tpu.ops.intersect import HitRecord as JaxHit
@@ -76,25 +75,13 @@ PNGS = ("ground_kd.png", "ground_ks.png", "leaf_kd.png", "leaf_d.png", "pillar_p
 FOLIAGE_TRIS = 12_000
 
 
-def _pure_python_obj(monkeypatch):
-    """Route the JAX loader to its pure-Python OBJ parser (the port has no
-    native tokenizer yet) and the JAX compile to its NumPy BVH builder."""
-    def no_native(path):
-        raise RuntimeError("native OBJ tokenizer disabled")
-    monkeypatch.setattr(jax_obj, "_parse_obj_native", no_native)
-    monkeypatch.setattr(jax_native, "native_build_bvh", lambda *a, **k: None)
-
-
 @pytest.fixture(scope="module")
 def fixtures(tmp_path_factory):
     """textured_obj's files as each package writes them, and both scenes."""
-    mp = pytest.MonkeyPatch()
-    _pure_python_obj(mp)
     jdir, tdir = tmp_path_factory.mktemp("jax_obj"), tmp_path_factory.mktemp("torch_obj")
     jscene, tscene = jax_scenes.textured_obj(str(jdir)), scenes.textured_obj(str(tdir))
     jleaves = {k: np.asarray(v) for k, v in jscene.compile()._asdict().items()
                if v is not None}
-    mp.undo()
     return str(jdir), str(tdir), jscene, tscene, jleaves
 
 
@@ -198,8 +185,7 @@ def test_hdr_codec_matches_jax(fixtures, tmp_path):
     assert obj_loader.encode_radiance_hdr(sky) == jax_obj.encode_radiance_hdr(sky)
 
 
-def test_obj_mtl_loader_matches_jax(fixtures, monkeypatch):
-    _pure_python_obj(monkeypatch)
+def test_obj_mtl_loader_matches_jax(fixtures):
     jdir, *_ = fixtures
     obj, mtl = os.path.join(jdir, "scene.obj"), os.path.join(jdir, "scene.mtl")
     assert {k: vars(v) for k, v in obj_loader.parse_mtl(mtl).items()} == \
@@ -306,8 +292,7 @@ def test_textured_obj_leaves_match_jax(fixtures):
     _compare_leaves(got, jleaves, TEXTURE_LEAVES)
 
 
-def test_baked_foliage_leaves_match_jax(monkeypatch):
-    monkeypatch.setattr(jax_native, "native_build_bvh", lambda *a, **k: None)
+def test_baked_foliage_leaves_match_jax():
     jax_gpu = jax_scenes.foliage_field(target_tris=FOLIAGE_TRIS).compile(bake_instances=True)
     want = {k: np.asarray(v) for k, v in jax_gpu._asdict().items() if v is not None}
     scene = scenes.foliage_field(target_tris=FOLIAGE_TRIS)
@@ -411,12 +396,9 @@ def alpha_frames(request, fixtures):
     if request.param == "textured_obj":
         _, _, jscene, tscene, jleaves = fixtures
     else:
-        mp = pytest.MonkeyPatch()
-        mp.setattr(jax_native, "native_build_bvh", lambda *a, **k: None)
         jscene = jax_scenes.foliage_field(target_tris=FOLIAGE_TRIS)
         jleaves = {k: np.asarray(v) for k, v in jscene.compile(bake_instances=True)
                    ._asdict().items() if v is not None}
-        mp.undo()
         tscene = scenes.foliage_field(target_tris=FOLIAGE_TRIS)
     from realtimeraytracer_tpu.scene.gpu_scene import GPUScene
 

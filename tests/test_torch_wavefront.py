@@ -23,8 +23,6 @@ import jax
 import jax.numpy as jnp
 
 import realtimeraytracer_tpu as jax_rt
-import realtimeraytracer_tpu.scene.obj_loader as jax_obj
-import realtimeraytracer_tpu.utils.native as jax_native
 from realtimeraytracer_tpu import scenes as jax_scenes
 from realtimeraytracer_tpu.ops import shading as jax_shading
 from realtimeraytracer_tpu.render import wavefront as jax_wf
@@ -58,10 +56,7 @@ def _golden(got, want):
 
 
 def _jax_leaves(jscene, **compile_kw):
-    mp = pytest.MonkeyPatch()
-    mp.setattr(jax_native, "native_build_bvh", lambda *a, **k: None)
     gpu = jscene.compile(**compile_kw)
-    mp.undo()
     return {k: np.asarray(v) for k, v in gpu._asdict().items() if v is not None}
 
 
@@ -208,15 +203,11 @@ def test_empty_intervals_miss_on_every_route(backend):
 
 
 def _alpha_scene():
-    """textured_obj's JAX leaves (pure-Python OBJ parser, NumPy BVH), JAX
+    """textured_obj's JAX leaves (native OBJ tokenizer and SAH BVH), JAX
     host scene and the port's host scene, once per module."""
     if "textured_obj" not in _SCENES:
-        mp = pytest.MonkeyPatch()
-        mp.setattr(jax_obj, "_parse_obj_native",
-                   lambda path: (_ for _ in ()).throw(RuntimeError()))
         jscene = jax_scenes.textured_obj()
         leaves = _jax_leaves(jscene)
-        mp.undo()
         _SCENES["textured_obj"] = leaves, jscene, scenes.textured_obj()
     return _SCENES["textured_obj"]
 
