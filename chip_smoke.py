@@ -171,9 +171,28 @@ Phases, each of which ends the run with a non-zero exit on failure:
      (median of 10), with rays/s, subclusters or blocks visited, pairs
      tested and the bound, the two orders' hits the same triangle or the
      same t; the reference-default hybrid frame on each order (frame rule,
-     in turns); `demo render mesh100k`, its launches and PNG.
+     in turns); `demo render mesh100k`, its launches and PNG;
+ 35. alpha_split on the baked foliage and textured_obj at 1080p (hybrid):
+     the frame's first light-0 shadow segments through the split and the
+     classic ladder, flags equal on every segment the classic ladder
+     resolved within its rounds, and each other difference held to its
+     evidence (the classic ladder out of rounds, or a transparent and an
+     occluding triangle in one t bucket; counts printed); the split
+     through the kernels bit-equal to the split on the twins (320x180
+     segments of the central 320x180 pixels); the reference-default frame
+     with the split against phase 14's without it (frame rule): frame ms
+     (the two in turns, median of 3 after a warm-up each), host syncs,
+     ladder rounds, launches per kernel, kernel ms inside alpha.round (one
+     profiled frame each), peak memory;
+ 36. batch_occlusion on procedural_mesh(100_000, sun=True) and the baked
+     foliage at 1080p (hybrid): render_components with one occluded call
+     per primary sample for all area segments bit-equal to the separate
+     traces in analytic, shadowed and unshadowed, and the frames bit-equal
+     to phase 9's and 14's; frame ms in turns with the separate traces
+     (on the opaque frame the hint-chained ones: the area-light hints it
+     gives up), launches, host syncs, peak memory.
 Each main-path run (5, 8, 9, 14, 18, 22, 24, 26, 27, 28, 30, each step of
-31 and 32, 33, 34) and the probe's timed run (23) are driven with every kernel's
+31 and 32, 33, 34, 35, 36) and the probe's timed run (23) are driven with every kernel's
 launch count set to 0 just before and read just after.  The line before the last is a
 JSON object describing each kernel (times, launches, error, bound); the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -473,7 +492,8 @@ def main() -> int:
     from realtimeraytracer_torch.render import hier_backend as v8
     from realtimeraytracer_torch.render import quarter_backend as v9
     from realtimeraytracer_torch.render import v7_backend as v7
-    from realtimeraytracer_torch.render.alpha import hit_alpha, step_past, wrap_backend_with_alpha
+    from realtimeraytracer_torch.render.alpha import (hit_alpha, occlusion_ladder, step_past,
+                                                      wrap_backend_with_alpha)
     from realtimeraytracer_torch.render.backends import (make_backend, make_hybrid_backend,
                                                          trace_primary_blocks)
     from realtimeraytracer_torch.render.megakernel import render_components, shade_sample
@@ -2600,6 +2620,192 @@ def main() -> int:
         f"{w_} {b_}": v_ for (w_, b_), v_ in compile34.items()},
         "obj_parse_ms": {"native": parse34[True], "python": parse34[False]},
         "hybrid_frame_ms": times34, "native_build_s": native_s, "card": card}))
+
+    # ---- 35. alpha_split: two-phase alpha occlusion at 1080p ---------------
+    expect_kernels["split"] = ("trace_v9_masked", "trace_v8_masked", "trace_v8")
+
+    def first_area_segments(g_, fr_, cfg_):
+        """The area-light segments a frame traces first (light triangle 0,
+        shadow ray 0, primary sample 0): the first occluded call without a
+        common origin or direction, captured from one primary sample."""
+        seen = []
+        be_ = make_backend(g_, cfg_)
+
+        def occluded(o_, d_, lo_, hi_, common=None):
+            if common is None and not seen:
+                seen.append((o_, d_, lo_, hi_))
+            return be_.occluded(o_, d_, lo_, hi_, common=common)
+
+        render_components(g_, fr_, cfg_.replace(primary_rays=1), 0,
+                          backend=be_._replace(occluded=occluded))
+        require(len(seen) == 1, "[35] the frame traced no area-light segment")
+        return seen[0]
+
+    def bucket_evidence(g_, o_, d_, lo_, hi_, thr) -> bool:
+        """Whether the segment meets, in range, a transparent triangle that
+        the masks accept and an occluding one (opacity at its hit at least
+        thr) within one step_past of each other: one t bucket, whose winner
+        depends on the visit order (ROADMAP queue C, 't buckets')."""
+        n_ = g_.num_tris
+        oo, dd = o_.expand(n_, 3), d_.expand(n_, 3)
+        t_, u_, v_, ok_ = ray_triangle(oo, dd, g_.bvh_tri_v0, g_.bvh_tri_v1, g_.bvh_tri_v2)
+        cand = torch.nonzero(ok_ & (t_ >= lo_) & (t_ < hi_)).flatten()
+        if cand.numel() < 2:
+            return False
+        rec_ = HitRecord(t=t_[cand], prim_id=cand.to(torch.int32), u=u_[cand], v=v_[cand])
+        a_ = hit_alpha(g_, rec_, oo[cand], dd[cand])
+        w_ = g_.pallas_amask[cand // 128, :, cand % 128]
+        mask_ok = v7._mask_ok(torch.ones_like(cand, dtype=torch.bool)[None], u_[cand][None],
+                              v_[cand][None], w_.T[None])[0]
+        tt, to = t_[cand][(a_ < thr) & mask_ok], t_[cand][a_ >= thr]
+        if not tt.numel() or not to.numel():
+            return False
+        far = torch.maximum(tt[:, None], to[None, :])
+        return bool(((tt[:, None] - to[None, :]).abs() <= step_past(far) - far).any())
+
+    def in_turns(renders: dict, rounds: int = 3) -> dict:
+        """{name: (median ms, all ms)} of each render by CUDA events, in
+        turns: one warm-up each, then `rounds` rounds of one frame each."""
+        for fn in renders.values():
+            fn()
+        times = {k: [] for k in renders}
+        for _ in range(rounds):
+            for k, fn in renders.items():
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                fn()
+                b.record()
+                b.synchronize()
+                times[k].append(a.elapsed_time(b))
+        return {k: (statistics.median(v), v) for k, v in times.items()}
+
+    res35 = {}
+    crop = block_permutation(W, H, device=dev)[0]             # raster pixel of each lane
+    crop = torch.nonzero(((crop // W - H // 2).abs() < 90) & ((crop % W - W // 2).abs() < 160)).flatten()
+    for name, g_, fr_, cfg_ in (("foliage", fol, ffr, cfg_f),
+                                ("textured_obj", tobj, tframe, cfg_t.replace(alpha_test=True))):
+        require(g_.has_alpha_split, f"[35] {name}: the compile built no opaque/alpha split")
+        cfg_s = cfg_.replace(alpha_split=True)
+        o35, d35, lo35, hi35 = first_area_segments(g_, fr_, cfg_)
+        thr = cfg_.alpha_threshold
+        # (a) The occlusion query: the split against the classic ladder.
+        hyb = make_hybrid_backend(g_, cfg_)
+        classic_ms, (occ_c, unres_c) = cuda_ms(
+            lambda: occlusion_ladder(hyb, g_, cfg_, o35, d35, lo35, hi35), 3)
+        split_be = wrap_backend_with_alpha(make_hybrid_backend(g_, cfg_s), g_, cfg_s)
+        split_ms, occ_s = cuda_ms(lambda: split_be.occluded(o35, d35, lo35, hi35), 3)
+        differ = occ_c != occ_s
+        exhausted = differ & unres_c
+        rest = torch.nonzero(differ & ~unres_c).flatten()
+        require(rest.numel() <= 256, f"[35] {name}: {rest.numel()} segments differ from the classic "
+                "ladder that resolved within its rounds")
+        tied = [i for i in rest.tolist()
+                if bucket_evidence(g_, o35[i], d35[i], lo35[i], hi35[i], thr)]
+        odd = sorted(set(rest.tolist()) - set(tied))
+        require(not odd, f"[35] {name}: {len(odd)} segments differ with no evidence (segment, "
+                "classic, split): " + "; ".join(f"{i}, {bool(occ_c[i])}, {bool(occ_s[i])}"
+                                                  for i in odd[:8]))
+        live = int((lo35 < hi35).sum())
+        say(f"[35] {name}, the frame's first light-0 segments ({live} live of {o35.shape[0]}): "
+            f"classic ladder {int(occ_c.sum())} occluded, {int(unres_c.sum())} out of rounds; split "
+            f"{int(occ_s.sum())} occluded; flags differ on {int(differ.sum())}: "
+            f"{int(exhausted.sum())} where the classic ladder ran out of rounds, {len(tied)} with a "
+            f"transparent and an occluding triangle in one t bucket, 0 otherwise; query "
+            f"{classic_ms:.3f} ms classic, {split_ms:.3f} ms split ({card})")
+        # (b) The split on the card against the same split on the twins, on
+        # the segments of the frame's central 320x180 pixels.
+        args_c = (o35[crop], d35[crop], lo35[crop], hi35[crop])
+        k_ = split_be.occluded(*args_c)
+        with torch.inference_mode():
+            p_ = wrap_backend_with_alpha(make_hybrid_backend(g_, cfg_s, plain=True), g_, cfg_s,
+                                         plain=True).occluded(*args_c)
+        require(torch.equal(k_, p_), f"[35] {name}: the split's flags differ from its twins' on "
+                f"{int((k_ != p_).sum())} of the 320x180 crop's segments")
+        require(int((args_c[2] < args_c[3]).sum()) >= 1000 and bool(k_.any()),
+                f"[35] {name}: the crop's segments are inactive or none is occluded")
+        say(f"[35] {name}: the split through the kernels equals its twins on the segments of the "
+            f"central 320x180 pixels ({int((args_c[2] < args_c[3]).sum())} live, {int(k_.sum())} "
+            f"occluded)")
+        # (c) The full frame with the split (launches, syncs, peak) and
+        # phase 14's without it (the same configuration), then both timed
+        # in turns; one profiled frame of each.
+        rows = {"split": alpha_frame(f"{name} hybrid, alpha_split=True", "split",
+                                     lambda: render_pipeline_gpu(g_, fr_, cfg_s), 1, phase="35"),
+                "classic": frames14[f"{name} hybrid"]}
+        turns = in_turns({"classic": lambda: render_pipeline_gpu(g_, fr_, cfg_),
+                          "split": lambda: render_pipeline_gpu(g_, fr_, cfg_s)})
+        for tag, c_ in (("split", cfg_s), ("classic", cfg_)):
+            out_, counts_, _, syncs_, peak_ = rows[tag]
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                    torch.profiler.ProfilerActivity.CUDA]) as prof_:
+                render_pipeline_gpu(g_, fr_, c_)
+                torch.cuda.synchronize()
+            _, _, ranges_ = range_times(prof_)
+            rows[tag] = (out_, counts_, turns[tag], syncs_, peak_, ranges_["alpha.round"])
+        share = image_rule(rows["split"][0], rows["classic"][0], f"[35] {name}: split vs classic")
+        res35[name] = {tag: {"frame_ms": r_[2][0], "frame_ms_all": r_[2][1], "host_syncs": r_[3],
+                             "peak_gib": round(r_[4], 3),
+                             "launches": {k: v for k, v in r_[1].items() if v},
+                             "alpha_round_kernel_ms": round(r_[5][1], 3),
+                             "alpha_round_calls": r_[5][2]} for tag, r_ in rows.items()}
+        say(f"[35] {name}: split and classic frames differ by > 2e-3 in {share:.6%} of values; "
+            + json.dumps(res35[name]) + f" ({card})")
+    del hyb, split_be
+
+    # ---- 36. batch_occlusion: one trace for all of a sample's segments ----
+    res36 = {}
+    for name, g_, fr_, cfg_ in (("opaque", gpu, frame, cfg9), ("foliage", fol, ffr, cfg_f)):
+        cfg_b = cfg_.replace(batch_occlusion=True, batch_occlusion_min_rays=0)
+        comps = {b_: render_components(g_, fr_, c_, 0) for b_, c_ in ((True, cfg_b), (False, cfg_))}
+        for part in ("analytic", "shadowed", "unshadowed"):
+            require(torch.equal(getattr(comps[True], part), getattr(comps[False], part)),
+                    f"[36] {name}: batched {part} differs from the separate traces'")
+        del comps
+        if name == "opaque":
+            rows36 = {}
+            for tag, c_ in (("separate", cfg_), ("batched", cfg_b)):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                held_ = torch.cuda.memory_allocated()
+                zero_counts()
+                img_ = render_pipeline_gpu(g_, fr_, c_)
+                torch.cuda.synchronize()
+                rows36[tag] = [read_counts(), torch.cuda.max_memory_allocated() / 2**30
+                               - held_ / 2**30, img_.cpu().numpy(), []]
+            want36 = unmasked(trace_v7=0, trace_v9=cfg_.primary_rays, trace_v8=2 * cfg_.primary_rays,
+                              atrous_pair=cfg_.denoise_iterations)
+            require(rows36["batched"][0] == want36,
+                    f"[36] opaque batched frame launches {rows36['batched'][0]}, expected {want36}")
+            require(rows36["separate"][0] == want9, "[36] the separate frame's launches moved")
+            require(np.array_equal(rows36["batched"][2], img9) and np.array_equal(rows36["separate"][2], img9),
+                    "[36] the opaque frames differ from phase 9's")
+            for tag in ("separate", "batched", "batched", "separate"):
+                c_ = cfg_b if tag == "batched" else cfg_
+                rows36[tag][3].append(median_ms(lambda: render_pipeline_gpu(g_, fr_, c_), 3)[0])
+            res36[name] = {tag: {"frame_ms": r_[3], "peak_gib": round(r_[1], 3),
+                                 "launches": {k: v for k, v in r_[0].items() if v}}
+                           for tag, r_ in rows36.items()}
+        else:
+            out_, counts_, _, syncs_, peak_ = alpha_frame(
+                "foliage hybrid, batch_occlusion=True", "auto",
+                lambda: render_pipeline_gpu(g_, fr_, cfg_b), 1, phase="36")
+            require(np.array_equal(out_, frames14["foliage hybrid"][0]),
+                    "[36] foliage: the batched frame differs from phase 14's")
+            turns = in_turns({"separate": lambda: render_pipeline_gpu(g_, fr_, cfg_),
+                              "batched": lambda: render_pipeline_gpu(g_, fr_, cfg_b)})
+            sep = res35["foliage"]["classic"]
+            res36[name] = {"batched": {"frame_ms": turns["batched"][0],
+                                       "frame_ms_all": turns["batched"][1], "host_syncs": syncs_,
+                                       "peak_gib": round(peak_, 3),
+                                       "launches": {k: v for k, v in counts_.items() if v}},
+                           "separate": {"frame_ms": turns["separate"][0],
+                                        "frame_ms_all": turns["separate"][1],
+                                        **{k: sep[k] for k in ("host_syncs", "peak_gib", "launches")}}}
+        say(f"[36] {name}: batched components bit-equal to the separate traces' (analytic, shadowed, "
+            f"unshadowed), frames bit-equal; " + json.dumps(res36[name]) + f" ({card})")
+    say(f"[36] opaque frame, the area-light hint chain given up by batch_occlusion: "
+        f"{res36['opaque']['batched']['frame_ms']} ms batched (no area-light hints) against "
+        f"{res36['opaque']['separate']['frame_ms']} ms separate (hint-chained), in turns ({card})")
 
     shadow_row = v8_rows["occluded shadow segments"]
     say(json.dumps({"kernels": [

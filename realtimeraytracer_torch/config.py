@@ -4,12 +4,17 @@ Counterpart of realtimeraytracer_tpu/config.py: the same fields, defaults
 and backend strings, so one set of knobs drives both packages.  The port
 renders the ratio-estimator frame with the "hybrid" route (v9 and v8
 traversal, CUDA kernels), "pallas" (v7), "quarter" (v9 closest, v7
-occlusion), "hier" (v8) or "brute", alpha-tested or not, with mip-mapped
-and anisotropic textures or not, and the wavefront multi-bounce frame
-(render/wavefront.py: max_bounces, sort_bounces).  The wide XLA backend,
-and every field that only unported code reads, raise when set
-(``check_supported``).  ``tile_rays`` is accepted and read by no code, as
-in the JAX package, whose only reader is a docstring (ROADMAP queue C).
+occlusion), "hier" (v8) or "brute", alpha-tested or not (with the
+opaque/alpha split of ``alpha_split`` or the classic ladder), with one
+occlusion trace for all of a sample's area-light segments
+(``batch_occlusion``) or one per segment, with mip-mapped and anisotropic
+textures or not, and the wavefront multi-bounce frame
+(render/wavefront.py: max_bounces, sort_bounces).  The wide XLA backend
+and its fields, the retired attic fields and ``use_pallas_denoise=False``
+raise when set (``check_supported``): they are the only JAX options the
+port refuses (ROADMAP queue A, 'Not to port').  ``tile_rays`` is
+accepted and read by no code, as in the JAX package, whose only reader is
+a docstring (ROADMAP queue C).
 """
 
 from __future__ import annotations
@@ -23,15 +28,12 @@ UNPORTED_BACKENDS = {
 }
 
 # Fields of the JAX RenderConfig that no code of this port reads, and why
-# (ROADMAP.md queue A).  check_supported raises when one is set away from
-# its default, so that no setting is dropped silently.
+# (ROADMAP.md queue A, 'Not to port'): the wide backend's and the attic's.
+# check_supported raises when one is set away from its default, so that no
+# setting is dropped silently.
 _WIDE = "it belongs to the wide XLA backend (ROADMAP A, 'Not to port')"
 _ATTIC = "it belongs to the JAX package's retired render/attic/ backends"
-_NOT_PORTED = "the JAX package's option is not ported (ROADMAP A, 'Not to port')"
 UNPORTED_FIELDS = {
-    "alpha_split": _NOT_PORTED,
-    "batch_occlusion": _NOT_PORTED,
-    "batch_occlusion_min_rays": _NOT_PORTED,
     "cluster_size": _WIDE,
     "wide_tile": _WIDE,
     "max_cluster_visits": _WIDE,
@@ -89,6 +91,10 @@ class RenderConfig:
     alpha_test: bool | None = None
     alpha_rounds: int = 4
     alpha_threshold: float = 0.9
+    # Two-phase alpha occlusion (render/alpha.py): the raw occluded trace
+    # on the opaque triangles, then the ladder on the alpha-mapped ones
+    # for the rays still unresolved.  Per-ray-culling routes only, on
+    # scenes whose compile built the split (not instanced).
     alpha_split: bool = False
 
     # "auto" resolves to "hybrid" (v9 coherent closest, v8 occlusion and
@@ -115,6 +121,10 @@ class RenderConfig:
     sort_shadows: bool = True
     sort_shadows_min_rays: int = 65536
 
+    # One occlusion trace for all of a primary sample's light x sample
+    # area-shadow segments (render/megakernel.py), on per-ray-culling
+    # routes, at least batch_occlusion_min_rays rays and at most 8 light
+    # triangles; the segments leave the hint chain.
     batch_occlusion: bool = False
     batch_occlusion_min_rays: int = 65536
 

@@ -47,7 +47,7 @@ from realtimeraytracer_torch.render.alpha import wrap_backend_with_alpha
 from realtimeraytracer_torch.render.pipeline import render_pipeline_gpu
 from realtimeraytracer_torch.render.wavefront import render_wavefront
 
-RANGES = ("shade.closest", "shade.lights", "shade.sun", "v7.cull",
+RANGES = ("shade.closest", "shade.batch_occlusion", "shade.lights", "shade.sun", "v7.cull",
           "v7.closest", "v7.occluded", "v9.cull", "v9.closest", "v8.closest",
           "v8.occluded", "alpha.round", "frame.denoise", "wavefront.closest",
           "wavefront.nee_occluded", "wavefront.sort", "wavefront.shade",

@@ -21,7 +21,8 @@ Two forms of motion:
     (bvh_node_tri_start/end): the topology stays, so traversal stays
     correct for any motion and only its quality degrades, as with a
     hardware refit.  The v7/v8 coefficient panels are repacked
-    (scene/panels.py::pack_clusters); the SAH-repacked v9 panels were
+    (scene/panels.py::pack_clusters), and so are the opaque/alpha split's
+    (which the JAX package leaves as compiled); the SAH-repacked v9 panels were
     built over the old geometry and are dropped (the v9 route then
     traces the repacked v7 panels).
   * ``apply_instance_transforms``: new (I, 4, 4) mesh-to-world matrices
@@ -139,13 +140,21 @@ def apply_transforms(gpu: TorchScene, obj_mats) -> TorchScene:
     updates.update(bvh_tri_v0=tv0, bvh_tri_v1=tv1, bvh_tri_v2=tv2)
     if gpu.bvh_node_tri_start is not None:
         updates["bvh_node_min"], updates["bvh_node_max"] = refit_nodes(gpu, tv0, tv1, tv2)
-    out = dataclasses.replace(gpu, **updates)
     if gpu.pallas_panels is not None:
         from realtimeraytracer_torch.scene.panels import pack_clusters
 
-        panels, lo, hi = pack_clusters(out)
-        out = dataclasses.replace(out, pallas_panels=panels, pallas_cl_min=lo,
-                                  pallas_cl_max=hi)
+        keys = ("pallas_panels", "pallas_cl_min", "pallas_cl_max")
+        updates.update(zip(keys, pack_clusters(tv0, tv1, tv2)))
+        if gpu.has_alpha_split:
+            # The split's panels move with their triangles (the JAX
+            # package keeps the compile's: ROADMAP queue C); ids and masks
+            # are uv-space and stay.
+            alp = torch.zeros(tv0.shape[0], dtype=torch.bool, device=tv0.device)
+            alp[gpu.alpha_tri_id.long()] = True
+            for part, keep in (("_opq", ~alp), ("_alp", alp)):
+                updates.update(zip((k + part for k in keys),
+                                   pack_clusters(tv0[keep], tv1[keep], tv2[keep])))
+    out = dataclasses.replace(gpu, **updates)
     if gpu.q_panels is not None:
         # Their masks go with them (the slot order they follow is gone).
         out = dataclasses.replace(out, q_panels=None, q_cl_min=None, q_cl_max=None,

@@ -2,11 +2,10 @@
 
 Counterpart of realtimeraytracer_tpu/render/alpha.py (``_alpha_face_row``,
 ``hit_alpha`` with its instance branch, ``wrap_backend_with_alpha`` with its
-closest and occlusion ladders and ``step_past``; the opaque/alpha panel
-split belongs to ``alpha_split``, which is not ported).  Parity target: the
-reference's opacity any-hit shader (opacity.rahit:31-64) ignores an
-intersection whose sampled opacity is below 0.9, for closest and shadow
-rays alike.
+closest and occlusion ladders, the two-phase occlusion of ``alpha_split``
+and ``step_past``).  Parity target: the reference's opacity any-hit shader
+(opacity.rahit:31-64) ignores an intersection whose sampled opacity is
+below 0.9, for closest and shadow rays alike.
 
 Here a closest trace is followed by an opacity evaluation at the accepted
 hit, and the rays whose hit was rejected re-trace with t_min moved just
@@ -24,9 +23,26 @@ counts them in ``.syncs`` (and the rounds that ran in ``.rounds``), with one
 more sync where a backend is wrapped (whether the scene has an opacity
 map).  A skipped round means every later round is skipped too, so the
 ladder stops there.
+
+Two-phase occlusion (``cfg.alpha_split``): occluded iff some opaque
+triangle lies in range, or some alpha-mapped one whose sampled opacity
+reaches the threshold; the two are decided apart.  Phase 1 is v8's raw
+occluded trace on the opaque triangles (and the spheres), exact and with no
+ladder; phase 2 runs the occlusion ladder on the alpha-mapped triangles
+alone, for the rays phase 1 left unresolved (every other lane gets [BIG,
+-BIG)).  It engages where the JAX package's does: the option set, the
+compile's split leaves present (scene/scene.py), the scene not instanced
+and the backend culling per ray ("hier" and "hybrid"); on the "pallas",
+"quarter" and "brute" routes the classic ladder runs, as in JAX.  The two
+subset backends are v8's, built once per wrapped backend; the alpha
+subset traces with its own masks (``gpu_scene.alpha_subset_amask``), never
+with the whole scene's, which the JAX split reads (ROADMAP queue C).
+Closest traces keep the classic ladder.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 from torch.profiler import record_function
@@ -35,8 +51,9 @@ from realtimeraytracer_torch.config import RenderConfig
 from realtimeraytracer_torch.ops.intersect import BIG_T, HitRecord, as_per_ray, ray_triangle
 from realtimeraytracer_torch.ops.texture import sample_atlas_packed
 from realtimeraytracer_torch.render.backends import TraceBackend
+from realtimeraytracer_torch.render import hier_backend as v8m
 from realtimeraytracer_torch.render.hier_backend import to_mesh
-from realtimeraytracer_torch.scene.gpu_scene import TorchScene
+from realtimeraytracer_torch.scene.gpu_scene import TorchScene, alpha_subset_amask
 
 
 def _alpha_face_row(gpu: TorchScene) -> torch.Tensor:
@@ -103,14 +120,92 @@ def _merge(mask, new: HitRecord, old: HitRecord) -> HitRecord:
                        for a, b in zip(new, old)))
 
 
+def _need(mask: torch.Tensor, query: str, record: list | None) -> bool:
+    """Whether any ray needs the next round of a ladder (one host sync,
+    counted on wrap_backend_with_alpha; record, if a list, gets (query,
+    rays that need the round))."""
+    n = int(mask.sum())
+    wrap_backend_with_alpha.syncs += 1
+    if record is not None:
+        record.append((query, n))
+    if n:
+        wrap_backend_with_alpha.rounds += 1
+    return n > 0
+
+
+def occlusion_ladder(backend: TraceBackend, gpu: TorchScene, cfg: RenderConfig,
+                     origins, dirs, t_min, t_max, common=None,
+                     face_row: torch.Tensor | None = None, record: list | None = None):
+    """Alpha-tested occlusion from closest traces of `backend`: occluded
+    iff an opaque hit lies in range, stepping past transparent hits at
+    most alpha_rounds + 1 times.  face_row: the hit_alpha rows of the prim
+    ids the backend returns (default: the scene's).  Returns (occluded,
+    unresolved): unresolved marks the rays whose last hit in range was
+    still transparent when the rounds ran out (reported not occluded)."""
+    threshold = cfg.alpha_threshold
+    gpu = gpu.detach()
+    if face_row is None:
+        face_row = _alpha_face_row(gpu)
+
+    def alpha(hit):
+        with torch.no_grad():
+            return hit_alpha(gpu, hit, origins, dirs, face_row)
+
+    r = origins.shape[0]
+    t_lo = as_per_ray(t_min, r, origins.device)
+    t_hi = as_per_ray(t_max, r, origins.device)
+    hit = backend.closest(origins, dirs, t_lo, t_hi, common=common)
+    a = alpha(hit)
+    in_range = hit.hit & (hit.t < t_hi)
+    occ = in_range & (a >= threshold)
+    transparent = in_range & (a < threshold)
+    for _ in range(cfg.alpha_rounds + 1):
+        if not _need(transparent, "occluded", record):
+            break
+        with record_function("alpha.round"):
+            t_lo = torch.where(transparent, step_past(hit.t.detach()), t_lo)
+            re = backend.closest(origins, dirs, torch.where(transparent, t_lo, BIG_T),
+                                 torch.where(transparent, t_hi, -BIG_T), common=common)
+            hit = _merge(transparent, re, hit)
+            a = alpha(hit)
+            in_range = hit.hit & (hit.t < t_hi)
+            occ = occ | (in_range & (a >= threshold))
+            transparent = in_range & (a < threshold) & ~occ
+    return occ, transparent
+
+
+def split_backends(gpu: TorchScene, cfg: RenderConfig, plain: bool = False):
+    """The two-phase occlusion's v8 backends (opaque, alpha) on the
+    compile's subset scenes: each a copy of the scene with the subset's
+    panels, boxes and masks; the alpha subset without spheres (spheres are
+    opaque and go with phase 1), as in the JAX package.  plain=True traces
+    through the kernels' plain twins on any device."""
+    trace = v8m.trace_blocks_hier_plain if plain else v8m.trace_blocks_hier
+    opq = dataclasses.replace(gpu, pallas_panels=gpu.pallas_panels_opq,
+                              pallas_cl_min=gpu.pallas_cl_min_opq,
+                              pallas_cl_max=gpu.pallas_cl_max_opq, pallas_amask=None)
+    alp = dataclasses.replace(gpu, pallas_panels=gpu.pallas_panels_alp,
+                              pallas_cl_min=gpu.pallas_cl_min_alp,
+                              pallas_cl_max=gpu.pallas_cl_max_alp,
+                              pallas_amask=alpha_subset_amask(gpu),
+                              sph_center=gpu.sph_center[:0], sph_radius=gpu.sph_radius[:0],
+                              sph_obj=gpu.sph_obj[:0])
+    return (v8m.make_hier_backend(opq, cfg, trace=trace),
+            v8m.make_hier_backend(alp, cfg, trace=trace))
+
+
 def wrap_backend_with_alpha(backend: TraceBackend, gpu: TorchScene,
-                            cfg: RenderConfig, record: list | None = None) -> TraceBackend:
+                            cfg: RenderConfig, record: list | None = None,
+                            plain: bool = False) -> TraceBackend:
     """The backend with alpha-tested closest and occlusion queries; the
     backend itself when the scene has no opacity map.  The result has no
     ``occluded_hinted`` and no ``occluded_multi`` (its occlusion is a ladder
     of closest traces), so the frame's hint chain turns off.  record: if a
     list, each ladder decision appends (query, rays that need the round),
-    "closest" or "occluded"."""
+    "closest" or "occluded".  With cfg.alpha_split, occlusion takes two
+    phases where the split engages (see the module docstring); plain=True
+    builds its subset backends on the plain twins, as the wrapped backend
+    of make_hybrid_backend(..., plain=True) traces."""
     if not gpu.has_textures:
         return backend
     wrap_backend_with_alpha.syncs += 1
@@ -121,16 +216,11 @@ def wrap_backend_with_alpha(backend: TraceBackend, gpu: TorchScene,
     # loss terms: they carry no gradient (the traces detach their inputs).
     sg_gpu = gpu.detach()
     face_row = _alpha_face_row(sg_gpu)
-
-    def need(mask: torch.Tensor, query: str) -> bool:
-        """Whether any ray needs the next round (one host sync)."""
-        n = int(mask.sum())
-        wrap_backend_with_alpha.syncs += 1
-        if record is not None:
-            record.append((query, n))
-        if n:
-            wrap_backend_with_alpha.rounds += 1
-        return n > 0
+    split = (cfg.alpha_split and sg_gpu.has_alpha_split and not sg_gpu.instanced
+             and backend.perray_cull)
+    if split:
+        opq_backend, alp_backend = split_backends(sg_gpu, cfg, plain)
+        alpha_row = face_row[sg_gpu.alpha_tri_id.long()]
 
     def alpha(hit, origins, dirs):
         with torch.no_grad():
@@ -143,7 +233,7 @@ def wrap_backend_with_alpha(backend: TraceBackend, gpu: TorchScene,
         hit = backend.closest(origins, dirs, t_lo, t_max, common=common)
         rejected = hit.hit & (alpha(hit, origins, dirs) < threshold)
         for _ in range(cfg.alpha_rounds):
-            if not need(rejected, "closest"):
+            if not _need(rejected, "closest", record):
                 break
             with record_function("alpha.round"):
                 t_lo = torch.where(rejected, step_past(hit.t.detach()), t_lo)
@@ -154,29 +244,19 @@ def wrap_backend_with_alpha(backend: TraceBackend, gpu: TorchScene,
         return hit
 
     def occluded(origins, dirs, t_min, t_max, common=None):
-        # Occluded iff some opaque hit lies in range: the same ladder,
-        # stepping past transparent hits.
+        if not split:
+            return occlusion_ladder(backend, sg_gpu, cfg, origins, dirs, t_min, t_max,
+                                    common, face_row, record)[0]
         r = origins.shape[0]
         t_lo = as_per_ray(t_min, r, origins.device)
         t_hi = as_per_ray(t_max, r, origins.device)
-        hit = backend.closest(origins, dirs, t_lo, t_hi, common=common)
-        a = alpha(hit, origins, dirs)
-        in_range = hit.hit & (hit.t < t_hi)
-        occ = in_range & (a >= threshold)
-        transparent = in_range & (a < threshold)
-        for _ in range(cfg.alpha_rounds + 1):
-            if not need(transparent, "occluded"):
-                break
-            with record_function("alpha.round"):
-                t_lo = torch.where(transparent, step_past(hit.t.detach()), t_lo)
-                re = backend.closest(origins, dirs, torch.where(transparent, t_lo, BIG_T),
-                                     torch.where(transparent, t_hi, -BIG_T), common=common)
-                hit = _merge(transparent, re, hit)
-                a = alpha(hit, origins, dirs)
-                in_range = hit.hit & (hit.t < t_hi)
-                occ = occ | (in_range & (a >= threshold))
-                transparent = in_range & (a < threshold) & ~occ
-        return occ
+        occ_opq = opq_backend.occluded(origins, dirs, t_lo, t_hi, common=common)
+        # Only the lanes phase 1 left unresolved walk the alpha subset.
+        live = ~occ_opq & (t_hi > t_lo)
+        occ_alp, _ = occlusion_ladder(alp_backend, sg_gpu, cfg, origins, dirs,
+                                      torch.where(live, t_lo, BIG_T),
+                                      torch.where(live, t_hi, -BIG_T), common, alpha_row, record)
+        return occ_opq | occ_alp
 
     # occluded_multi is not forwarded: alpha-tested occlusion re-traces
     # closest hits, which the fused multi-segment path does not do.

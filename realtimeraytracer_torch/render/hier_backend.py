@@ -763,7 +763,10 @@ def make_hier_backend(gpu: TorchScene, cfg: RenderConfig,
     occlusion exists for scenes of at most RESIDENT_CB blocks, as in the
     JAX package, and not on instanced scenes.  use_amask: closest traces
     apply the scene's alpha masks; None takes the config's gate
-    (backends.masks_enabled)."""
+    (backends.masks_enabled).  gpu may be a subset scene of the
+    opaque/alpha split (render/alpha.py::split_backends): a copy whose
+    pallas_panels, pallas_cl_min, pallas_cl_max and pallas_amask are the
+    subset's, whose closest hits then carry the subset's sorted ids."""
     from realtimeraytracer_torch.render.backends import masks_enabled
 
     num_tris = gpu.num_tris

@@ -21,8 +21,19 @@ more than one shadow ray, each light triangle's samples are all drawn
 first and their occlusion resolved by one call, ahead of the hint chain
 (the sun keeps its hints).  No ``make_backend`` route supplies one, as in
 the JAX package; a caller wires v8's with
-``backend._replace(occluded_multi=...)``.  batch_occlusion is a JAX option
-that is not ported.
+``backend._replace(occluded_multi=...)``.
+
+``cfg.batch_occlusion`` traces all of a primary sample's light x sample
+area-shadow segments in one ``backend.occluded`` call, as the JAX package
+does: on per-ray-culling backends ("hier", "hybrid"), with at least one
+shadow ray, more than one segment, at least ``batch_occlusion_min_rays``
+rays and at most 8 light triangles (above 8 it warns once and traces per
+light, as JAX's scan path does).  Every light's samples are drawn with the
+per-light loop's seeds and inactive lanes get [BIG, -BIG), so the flags
+are the per-segment traces' and the frame is bit-equal.  The batched
+segments leave the area-light hint chain (the sun keeps its hints); on
+alpha scenes the one call is one occlusion ladder instead of lights x
+samples ladders.
 """
 
 from __future__ import annotations
@@ -46,6 +57,22 @@ from realtimeraytracer_torch.ops.vecmath import cross, dot, normalize
 from realtimeraytracer_torch.render.backends import TraceBackend, make_backend
 from realtimeraytracer_torch.render.surface import resolve_surface
 from realtimeraytracer_torch.scene.gpu_scene import TorchScene
+from realtimeraytracer_torch.utils import log
+
+# Light triangles above which batch_occlusion is ignored (JAX: the
+# unrolled light loop; a lax.scan above it).
+BATCH_MAX_LIGHTS = 8
+_batch_warned = False
+
+
+def _warn_batch_ignored() -> None:
+    """JAX's warning for batch_occlusion above BATCH_MAX_LIGHTS light
+    triangles, once per process."""
+    global _batch_warned
+    if not _batch_warned:
+        _batch_warned = True
+        log.warn("batch_occlusion is ignored for scenes with more than {} light triangles; "
+                 "shadow segments trace per light as usual", BATCH_MAX_LIGHTS)
 
 
 def _spread(v: torch.Tensor) -> torch.Tensor:
@@ -129,19 +156,70 @@ def shade_sample(gpu: TorchScene, cfg: RenderConfig, origins, dirs,
     shadowed = torch.zeros_like(origins)
     unshadowed = torch.zeros_like(origins)
 
+    def light_geom(i):
+        """Light triangle i's corners, unit normal, 1/pdf and the lanes it
+        lights (front side or two-sided, on a valid surface)."""
+        p0, p1, p2 = gpu.lt_v0[i], gpu.lt_v1[i], gpu.lt_v2[i]
+        nl = cross(p2 - p1, p0 - p1)
+        area = torch.sqrt(torch.clamp_min(dot(nl, nl), 0.0)) * 0.5
+        inv_pdf = area * cfg.light_pdf_scale             # 1/pdf
+        nlu = normalize(nl)
+        front = dot(nlu[None, :], p - p0[None, :]) >= 0.0
+        active = (gpu.lt_valid[i] & (gpu.lt_two_sided[i] | front)) & surf.valid
+        return p0, p1, p2, nlu, inv_pdf, active
+
+    def light_samples(i, p0, p1, p2, ps, seeds):
+        """Barycentric light samples (raygen.rgen:213-219), [(dist, dir)]
+        per shadow ray; seeds are decorrelated per sample, light triangle
+        and primary sample."""
+        samples = []
+        for s in range(num_s):
+            seed = (seeds + s + i * 7919 + sample_index * 15485863) & rng.MASK32
+            r1 = rng.uniform(seed)
+            r2 = rng.uniform(seed + 100)
+            over = r1 + r2 > 1.0
+            r1 = torch.where(over, 1.0 - r1, r1)
+            r2 = torch.where(over, 1.0 - r2, r2)
+            lpos = (p0[None, :] + r1[:, None] * (p1 - p0)[None, :]
+                    + r2[:, None] * (p2 - p0)[None, :])
+            delta = lpos - ps
+            dist = torch.sqrt(torch.clamp_min((delta * delta).sum(-1), 1e-20))
+            samples.append((dist, delta / dist[..., None]))
+        return samples
+
+    # Batched occlusion: every light's samples drawn first (the loop's
+    # seeds; per-ray-culling backends skip the sort, so the rays are in
+    # pixel order), all segments in one occluded call, each light's slices
+    # handed to the loop below in place of its traces.
+    lt_count = gpu.num_light_tris
+    geoms = [light_geom(i) for i in range(lt_count)]
+    batched = None
+    if cfg.batch_occlusion and lt_count > BATCH_MAX_LIGHTS:
+        _warn_batch_ignored()
+    elif (cfg.batch_occlusion and backend.perray_cull and num_s >= 1
+          and lt_count * num_s > 1 and R >= cfg.batch_occlusion_min_rays):
+        with record_function("shade.batch_occlusion"):
+            batched, seg_dir, seg_lo, seg_hi = [], [], [], []
+            for i in range(lt_count):
+                p0, p1, p2, _, _, active = geoms[i]
+                samples = light_samples(i, p0, p1, p2, p, pixel_seed)
+                batched.append(samples)
+                for dist, sdir in samples:
+                    seg_dir.append(sdir)
+                    seg_lo.append(torch.where(active, cfg.t_min, BIG_T))
+                    seg_hi.append(torch.where(active, dist - cfg.shadow_ray_margin, -BIG_T))
+            nseg = len(seg_dir)
+            occ_cat = backend.occluded(shadow_origin.repeat(nseg, 1), torch.cat(seg_dir),
+                                       torch.cat(seg_lo), torch.cat(seg_hi))
+            del seg_dir, seg_lo, seg_hi
+            occ_cat = occ_cat.reshape(lt_count, num_s, R)
+
     # Per light triangle (raygen.rgen:164-285).
     with record_function("shade.lights"):
-        for i in range(gpu.num_light_tris):
-            p0, p1, p2 = gpu.lt_v0[i], gpu.lt_v1[i], gpu.lt_v2[i]
+        for i in range(lt_count):
+            p0, p1, p2, nlu, inv_pdf, active = geoms[i]
             lcolor, lintensity = gpu.lt_color[i], gpu.lt_intensity[i]
-            ltwo, lvalid = gpu.lt_two_sided[i], gpu.lt_valid[i]
-
-            nl = cross(p2 - p1, p0 - p1)
-            area = torch.sqrt(torch.clamp_min(dot(nl, nl), 0.0)) * 0.5
-            inv_pdf = area * cfg.light_pdf_scale             # 1/pdf
-            nlu = normalize(nl)
-            front = dot(nlu[None, :], p - p0[None, :]) >= 0.0
-            active = (lvalid & (ltwo | front)) & surf.valid
+            ltwo = gpu.lt_two_sided[i]
             active_f = active.to(torch.float32)[:, None]
 
             # Shadow-ray reordering (coherence_key): one stable argsort per
@@ -165,31 +243,23 @@ def shade_sample(gpu: TorchScene, cfg: RenderConfig, origins, dirs,
                 m_specs, roughs = m_specular, surf.roughness
                 seeds, actives, sos = pixel_seed, active, shadow_origin
 
-            # Barycentric light samples (raygen.rgen:213-219), all drawn
-            # before any is traced; seeds are decorrelated per sample, light
-            # triangle and primary sample.
-            samples = []
-            for s in range(num_s):
-                seed = (seeds + s + i * 7919 + sample_index * 15485863) & rng.MASK32
-                r1 = rng.uniform(seed)
-                r2 = rng.uniform(seed + 100)
-                over = r1 + r2 > 1.0
-                r1 = torch.where(over, 1.0 - r1, r1)
-                r2 = torch.where(over, 1.0 - r2, r2)
-                lpos = (p0[None, :] + r1[:, None] * (p1 - p0)[None, :]
-                        + r2[:, None] * (p2 - p0)[None, :])
-                delta = lpos - ps
-                dist = torch.sqrt(torch.clamp_min((delta * delta).sum(-1), 1e-20))
-                samples.append((dist, delta / dist[..., None]))
+            # All samples are drawn before any is traced.
+            if batched is not None:
+                samples, batched[i] = batched[i], None
+            else:
+                samples = light_samples(i, p0, p1, p2, ps, seeds)
 
             # Forward shadow segments with the margin at the light end;
-            # inactive lanes get the empty interval [BIG, -BIG).  A backend
-            # with a fused shadow query resolves all samples in one trace.
+            # inactive lanes get the empty interval [BIG, -BIG).  The batched
+            # call above, or a backend's fused shadow query, resolves all of
+            # a light's samples at once.
             t_lo = torch.where(actives, cfg.t_min, BIG_T)
             t_his = [torch.where(actives, dist - cfg.shadow_ray_margin, -BIG_T)
                      for dist, _ in samples]
             occ_multi = None
-            if backend.occluded_multi is not None and num_s > 1:
+            if batched is not None:
+                occ_multi = occ_cat[i]
+            elif backend.occluded_multi is not None and num_s > 1:
                 occ_multi = backend.occluded_multi(sos, [d for _, d in samples], t_lo, t_his)
 
             shadowed_sum = torch.zeros_like(ps)

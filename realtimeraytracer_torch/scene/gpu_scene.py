@@ -5,8 +5,13 @@ same leaves, names, shapes and dtypes, as tensors, including the v9
 repacked panels, the texture atlas and its packed-neighbour twin, the mip
 chain of the atlas with its packed twin and the per-face uv density (when
 the scene was compiled with mips), the alpha masks of both panel sets, the
-BVH's refit ranges and the shared-geometry instancing tables
-(``instanced``).  The opaque/alpha panel split is not carried.
+BVH's refit ranges, the opaque/alpha panel split of ``alpha_split`` and the
+shared-geometry instancing tables (``instanced``).  One leaf is the
+port's own: ``pallas_amask_alp``, the alpha subset's masks packed for its
+own panels.  A JAX ``GPUScene`` carries its seven split leaves across
+(``from_numpy_leaves``) without it; the split then builds it from
+``pallas_amask`` (``alpha_subset_amask``), and never traces the alpha
+subset with the whole scene's masks.
 """
 
 from __future__ import annotations
@@ -91,6 +96,19 @@ class TorchScene:
     # out like the v7/v8 panels and, by repacked slot, like the v9 panels.
     pallas_amask: torch.Tensor | None = None      # (CB, 2, 128) i32
     q_amask: torch.Tensor | None = None           # (Cq, 2, 128) i32
+    # Opaque/alpha panel split (scene/scene.py; render/alpha.py's two-phase
+    # occlusion): the v7/v8 panels of the opaque and of the alpha-mapped
+    # triangles, each subset in sorted order; alpha_tri_id maps a sorted id
+    # of the alpha subset to the scene's; pallas_amask_alp, the alpha
+    # subset's masks laid out like its panels, is the port's own leaf.
+    pallas_panels_opq: torch.Tensor | None = None  # (CBo, 12, 128) f32
+    pallas_cl_min_opq: torch.Tensor | None = None  # (CBo*4, 3) f32
+    pallas_cl_max_opq: torch.Tensor | None = None
+    pallas_panels_alp: torch.Tensor | None = None  # (CBa, 12, 128) f32
+    pallas_cl_min_alp: torch.Tensor | None = None  # (CBa*4, 3) f32
+    pallas_cl_max_alp: torch.Tensor | None = None
+    alpha_tri_id: torch.Tensor | None = None       # (A,) i32
+    pallas_amask_alp: torch.Tensor | None = None   # (CBa, 2, 128) i32
     # Per BVH node, its [start, end) range of sorted triangles: the
     # device-side refit's range reductions (ops/refit.py).
     bvh_node_tri_start: torch.Tensor | None = None  # (N,) i32
@@ -132,6 +150,11 @@ class TorchScene:
     def mip_levels(self) -> int:
         """Levels of the mip chain: S = 2^n gives n + 1 (1 for S = 1)."""
         return max(1, self.tex_mip_atlas.shape[2].bit_length())
+
+    @property
+    def has_alpha_split(self) -> bool:
+        """Whether the compile built the opaque/alpha panel split."""
+        return self.pallas_panels_opq is not None and self.alpha_tri_id is not None
 
     @property
     def has_bvh(self) -> bool:
@@ -183,3 +206,19 @@ def from_numpy_leaves(leaves: dict[str, np.ndarray],
     kw = {name: torch.from_numpy(np.array(leaves[name], copy=True, order="C"))
           for name in LEAF_NAMES if leaves.get(name) is not None}
     return TorchScene(**kw).to(device)
+
+
+def alpha_subset_amask(gpu: TorchScene) -> torch.Tensor:
+    """The alpha subset's masks, (CBa, 2, 128) int32: the scene's own
+    ``pallas_amask_alp``, or, for a scene carried across from the JAX
+    package (which has no such leaf), each alpha triangle's mask moved
+    from its block and lane of ``pallas_amask`` to those of the subset
+    (pad lanes 0, as ``ops/alpha_mask.py::pack_amask_np`` packs them)."""
+    if gpu.pallas_amask_alp is not None:
+        return gpu.pallas_amask_alp
+    ids = gpu.alpha_tri_id.long()
+    out = torch.zeros((gpu.pallas_panels_alp.shape[0], 2, 128), dtype=torch.int32,
+                      device=gpu.pallas_amask.device)
+    k = torch.arange(ids.shape[0], device=ids.device)
+    out[k // 128, :, k % 128] = gpu.pallas_amask[ids // 128, :, ids % 128]
+    return out

@@ -66,10 +66,9 @@ def pack_clusters_np(tv0, tv1, tv2):
     return coeff, tmin.min(1).astype(np.float32), tmax.max(1).astype(np.float32)
 
 
-def pack_clusters(gpu):
-    """pack_clusters_np on the scene's BVH-sorted triangles as tensors, on
-    their device: (coeff, cl_min, cl_max) of the same layout."""
-    v0, v1, v2 = gpu.bvh_tri_v0, gpu.bvh_tri_v1, gpu.bvh_tri_v2
+def pack_clusters(v0, v1, v2):
+    """pack_clusters_np on (T, 3) tensors of triangles in BVH-sorted order,
+    on their device: (coeff, cl_min, cl_max) of the same layout."""
     t = v0.shape[0]
     cb = -(-t // CB)
     pad = cb * CB - t

@@ -27,9 +27,12 @@ the same flags, or both through the NumPy builder.
 The JAX compile builds the mip leaves for every textured scene; the port
 builds them only when asked (``compile(mip_textures=True)``, which
 ``render_pipeline`` sets from ``cfg.mip_textures``), so frames without
-mips keep their compile time and device bytes (ROADMAP queue C).  The
-opaque/alpha panel split of the JAX compile belongs to ``alpha_split``, which is not
-ported.
+mips keep their compile time and device bytes (ROADMAP queue C).  A
+scene without instances that holds both opaque and alpha-mapped triangles
+also gets the opaque/alpha panel split that ``alpha_split`` traces
+(render/alpha.py): the JAX compile's seven leaves, equal to its, and the
+alpha subset's own masks, ``pallas_amask_alp``, which the JAX compile
+lacks.  The instanced compile builds no split, as in JAX.
 """
 
 from __future__ import annotations
@@ -421,6 +424,23 @@ class Scene:
                 bvh_fields.update(pallas_amask=pack_amask_np(fmasks, panels.shape[0]))
                 if q_slots is not None:
                     bvh_fields.update(q_amask=pack_amask_np(fmasks, qp.shape[0], q_slots))
+            # Opaque/alpha panel split for the two-phase alpha occlusion
+            # (render/alpha.py, cfg.alpha_split): only when both subsets
+            # are non-empty, as in the JAX compile.  The alpha subset's
+            # masks are packed for its own panels (pallas_amask_alp; the
+            # JAX compile has none and its split reads the whole scene's,
+            # ROADMAP queue C).
+            amask = face_tex >= 0
+            if amask.any() and not amask.all():
+                o_p, o_lo, o_hi = pack_clusters_np(
+                    bvh.tri_v0[~amask], bvh.tri_v1[~amask], bvh.tri_v2[~amask])
+                a_p, a_lo, a_hi = pack_clusters_np(
+                    bvh.tri_v0[amask], bvh.tri_v1[amask], bvh.tri_v2[amask])
+                bvh_fields.update(
+                    pallas_panels_opq=o_p, pallas_cl_min_opq=o_lo, pallas_cl_max_opq=o_hi,
+                    pallas_panels_alp=a_p, pallas_cl_min_alp=a_lo, pallas_cl_max_alp=a_hi,
+                    alpha_tri_id=np.nonzero(amask)[0].astype(np.int32),
+                    pallas_amask_alp=pack_amask_np(fmasks[amask], a_p.shape[0]))
             # Per-node sorted-triangle ranges for the refit (ops/refit.py).
             ns, ne = subtree_ranges(bvh.node_first, bvh.node_count, bvh.node_skip)
             bvh_fields.update(bvh_node_tri_start=ns, bvh_node_tri_end=ne)

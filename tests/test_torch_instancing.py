@@ -396,5 +396,6 @@ def test_refit_nodes_match_refit_numpy():
     lo, hi = refit.refit_nodes(gpu, gpu.bvh_tri_v0, gpu.bvh_tri_v1, gpu.bvh_tri_v2)
     np.testing.assert_array_equal(lo.numpy(), want.node_min)
     np.testing.assert_array_equal(hi.numpy(), want.node_max)
-    for g, w in zip(pack_clusters(gpu), pack_clusters_np(want.tri_v0, want.tri_v1, want.tri_v2)):
+    for g, w in zip(pack_clusters(gpu.bvh_tri_v0, gpu.bvh_tri_v1, gpu.bvh_tri_v2),
+                    pack_clusters_np(want.tri_v0, want.tri_v1, want.tri_v2)):
         np.testing.assert_allclose(g.numpy(), w, rtol=1e-5, atol=1e-5)

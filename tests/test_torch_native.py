@@ -47,6 +47,7 @@ from realtimeraytracer_torch.ops import camera_rays, refit
 from realtimeraytracer_torch.render import v7_backend as v7
 from realtimeraytracer_torch.render.backends import trace_primary_blocks
 from realtimeraytracer_torch.scene import obj_loader
+from realtimeraytracer_torch.scene.gpu_scene import alpha_subset_amask, from_numpy_leaves
 from realtimeraytracer_torch.utils import log, native
 from realtimeraytracer_torch.utils.image_io import read_png, to_uint8
 
@@ -106,6 +107,12 @@ def test_default_compile_matches_jax(name, monkeypatch, tmp_path):
         jscene, tscene = getattr(jax_scenes, name)(*args), getattr(scenes, name)(*args)
     want = {k: np.asarray(v) for k, v in jscene.compile()._asdict().items() if v is not None}
     got = tscene.compile_leaves()
+    # The port's own leaf, the alpha subset's masks (ROADMAP queue C): what
+    # the split builds from JAX's leaves.
+    own = got.pop("pallas_amask_alp", None)
+    assert (own is None) == ("pallas_panels_alp" not in want)
+    if own is not None:
+        np.testing.assert_array_equal(own, alpha_subset_amask(from_numpy_leaves(want)).numpy())
     assert set(got) <= set(want)
     for key, g in got.items():
         assert g.dtype == want[key].dtype, key

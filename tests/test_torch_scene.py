@@ -131,6 +131,20 @@ def test_unported_fields_raise_when_set(field):
         check_supported(RenderConfig(**{field: value}))
 
 
+@pytest.mark.parametrize("field,value", [
+    ("alpha_split", True), ("batch_occlusion", True), ("batch_occlusion_min_rays", 0),
+    ("batch_occlusion_min_rays", 1 << 20)])
+def test_occlusion_fields_are_supported(field, value):
+    """alpha_split (render/alpha.py) and batch_occlusion with its ray
+    threshold (render/megakernel.py) are ported: check_supported accepts
+    them and the backends build with them."""
+    assert field not in UNPORTED_FIELDS
+    cfg = RenderConfig(**{field: value})
+    check_supported(cfg)
+    gpu = scenes.procedural_mesh(200).compile()
+    assert make_backend(gpu, cfg.replace(alpha_test=True)).num_tris == gpu.num_tris
+
+
 def test_per_image_denoise_is_refused():
     check_supported(RenderConfig(use_pallas_denoise=True))
     with pytest.raises(ValueError, match="use_pallas_denoise"):

@@ -62,7 +62,7 @@ from realtimeraytracer_torch.render.megakernel import render_components
 from realtimeraytracer_torch.render.pipeline import denoise_and_combine
 from realtimeraytracer_torch.render.surface import resolve_surface
 from realtimeraytracer_torch.scene import obj_loader
-from realtimeraytracer_torch.scene.gpu_scene import from_numpy_leaves
+from realtimeraytracer_torch.scene.gpu_scene import alpha_subset_amask, from_numpy_leaves
 from realtimeraytracer_torch.utils import png
 from realtimeraytracer_torch.utils.image_io import to_uint8, write_png
 
@@ -271,6 +271,13 @@ def test_sample_atlas_matches_jax(atlas, packed):
 def _compare_leaves(got: dict, want: dict, required: tuple):
     for key in required:
         assert key in got and key in want, key
+    # The port's own leaf, the alpha subset's masks (ROADMAP queue C): what
+    # the split builds from JAX's leaves.
+    got = dict(got)
+    own = got.pop("pallas_amask_alp", None)
+    assert (own is None) == ("pallas_panels_alp" not in want)
+    if own is not None:
+        np.testing.assert_array_equal(own, alpha_subset_amask(from_numpy_leaves(want)).numpy())
     assert set(got) <= set(want)
     for key, g in got.items():
         w = want[key]
