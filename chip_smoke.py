@@ -190,9 +190,26 @@ Phases, each of which ends the run with a non-zero exit on failure:
      traces in analytic, shadowed and unshadowed, and the frames bit-equal
      to phase 9's and 14's; frame ms in turns with the separate traces
      (on the opaque frame the hint-chained ones: the area-light hints it
-     gives up), launches, host syncs, peak memory.
+     gives up), launches, host syncs, peak memory;
+ 37. the card's name and power limit again, then the wide backend (plain
+     torch, no kernel) and BASELINE config 3: the golden's 10k-triangle OBJ
+     written from this script's own copy of its lines, loaded and compiled
+     by the port (40 clusters); on it and on procedural_mesh(100_000,
+     sun=True) the wide closest and occluded traces of the 1080p
+     primaries and the frame's first area-light segments against the
+     hybrid route's (hits, ids or t, flags; rays decided apart only where
+     a triangle is borderline in float64), uncapped and, on the 100k scene,
+     at the default cap of 64 (tiles that differ from the uncapped traces
+     at most the clipped ones): cap_clipped, steps, host reads, time, peak
+     memory; a starved cap (max_cluster_visits=1) detected, with the debug
+     wrapper's warning; the lane traversal at 320x180 on the 100k scene
+     against the hybrid route, with its steps; config 3's frames (the
+     default route at the reference defaults; the wide and hybrid routes
+     at the golden's sampling, under the frame rule against each other):
+     launches, host syncs, times, peak memory; the reference-default
+     frame with use_pallas_denoise=False against phase 9's (frame rule).
 Each main-path run (5, 8, 9, 14, 18, 22, 24, 26, 27, 28, 30, each step of
-31 and 32, 33, 34, 35, 36) and the probe's timed run (23) are driven with every kernel's
+31 and 32, 33, 34, 35, 36, 37) and the probe's timed run (23) are driven with every kernel's
 launch count set to 0 just before and read just after.  The line before the last is a
 JSON object describing each kernel (times, launches, error, bound); the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -464,6 +481,378 @@ def bvh_builder(native_module, builder: str, calls: list):
         yield
     finally:
         native_module.native_build_bvh = real
+
+
+def write_config3_obj(path: Path, num_tris: int = 10_000, seed: int = 3) -> None:
+    """BASELINE config 3's procedural OBJ, the JAX golden's own lines
+    (tests/test_golden.py:91-104): num_tris random triangles around
+    num_tris // 64 blob centres, from the seed."""
+    rng = np.random.default_rng(seed)
+    n_blobs = max(1, num_tris // 64)
+    centers = rng.uniform([-6, 0.3, -6], [6, 2.5, 6], (n_blobs, 3))
+    base = centers[rng.integers(0, n_blobs, num_tris)]
+    scale = rng.uniform(0.05, 0.3, (num_tris, 1, 1))
+    tris = base[:, None, :] + rng.normal(0, 1, (num_tris, 3, 3)) * scale
+    verts = tris.reshape(-1, 3)
+    lines = ["o rocks"]
+    lines += [f"v {x:.6f} {y:.6f} {z:.6f}" for x, y, z in verts]
+    lines += [f"f {3*i+1} {3*i+2} {3*i+3}" for i in range(num_tris)]
+    path.write_text("\n".join(lines) + "\n")
+
+
+def config3_scene():
+    """BASELINE config 3's scene (tests/test_golden.py:107-129): the OBJ
+    through the port's loader, its camera and area light."""
+    from realtimeraytracer_torch.scene.camera import Camera
+    from realtimeraytracer_torch.scene.lights import AreaLight
+    from realtimeraytracer_torch.scene.materials import Material
+    from realtimeraytracer_torch.scene.obj_loader import load_obj
+    from realtimeraytracer_torch.scene.scene import Scene
+
+    with tempfile.TemporaryDirectory(prefix="rtrt_config3_") as tmp:
+        path = Path(tmp) / "rocks.obj"
+        write_config3_obj(path)
+        mesh = load_obj(str(path), material=Material(color=(0.55, 0.5, 0.45), specular=0.3,
+                                                     metallic=0.05))
+    require(mesh.faces.shape[0] == 10_000, f"[37] the config-3 OBJ loaded {mesh.faces.shape[0]} faces")
+    scene = Scene(camera=Camera(position=(0.0, 3.5, 12.0), look_at=(0.0, 1.0, 0.0),
+                                fov_y_degrees=55.0))
+    scene.add(mesh)
+    light = AreaLight(color=(1.0, 0.95, 0.9), intensity=6.0)
+    light.rotate("x", 90.0).scale(4.0).move(0.0, 7.0, 0.0)
+    scene.add(light)
+    return scene
+
+
+def borderline(g_, o_, d_, lo_, hi_, rays, eps: float = 1e-4) -> list:
+    """For each ray index in `rays`: whether a triangle that the ray meets
+    within eps in float64 (barycentrics >= -eps, t in [lo, hi] with eps
+    relative slack) decides it by a margin under eps (a barycentric within
+    eps of an edge, t within eps relative of an end of [lo, hi]) or meets
+    it at grazing incidence (|cos| under 2^-10, where float32's t is good
+    to ~1e-4 relative): a ray that two intersection formulas may decide
+    apart, or give t apart."""
+    import torch
+
+    v0, v1, v2 = (x.double() for x in (g_.bvh_tri_v0, g_.bvh_tri_v1, g_.bvh_tri_v2))
+    e1, e2 = v1 - v0, v2 - v0
+    nrm = torch.linalg.cross(e1, e2)
+    nrm = nrm / nrm.norm(dim=-1, keepdim=True).clamp_min(1e-300)
+    out = []
+    for i in rays.tolist():
+        o, d = o_[i].double(), d_[i].double()
+        lo, hi = float(lo_[i]), float(hi_[i])
+        p = torch.linalg.cross(d.expand_as(e2), e2)
+        det = (e1 * p).sum(-1)
+        ok = det.abs() > 1e-30
+        inv = torch.where(ok, 1.0 / torch.where(ok, det, 1.0), 0.0)
+        s = o - v0
+        u = (s * p).sum(-1) * inv
+        q = torch.linalg.cross(s, e1)
+        v = (d * q).sum(-1) * inv
+        t = (e2 * q).sum(-1) * inv
+        w = 1.0 - u - v
+        tt = t.abs().clamp_min(1e-6)
+        bary = torch.stack([u, v, w]).amin(0)
+        slack = ok & (bary > -eps) & (t > lo - eps * tt) & (t < hi + eps * tt)
+        near = ((bary.abs() < eps) | ((t - lo).abs() < eps * tt) | ((t - hi).abs() < eps * tt)
+                | ((nrm @ d).abs() < 2.0 ** -10))
+        out.append(bool((slack & near).any()))
+    return out
+
+
+def area_segments(g_, fr_, cfg_):
+    """The area-light segments that a frame traces first (light triangle 0,
+    shadow ray 0, primary sample 0), captured from one primary sample's
+    render with the hint chain off (hints change no ray): (origins, dirs,
+    t_lo, t_hi), the intervals per ray."""
+    from realtimeraytracer_torch.ops.intersect import as_per_ray
+    from realtimeraytracer_torch.render.backends import make_backend
+    from realtimeraytracer_torch.render.megakernel import render_components
+
+    seen = []
+    be_ = make_backend(g_, cfg_)
+
+    def occluded(o_, d_, lo_, hi_, common=None):
+        if common is None and not seen:
+            seen.append((o_, d_, lo_, hi_))
+        return be_.occluded(o_, d_, lo_, hi_, common=common)
+
+    render_components(g_, fr_, cfg_.replace(primary_rays=1), 0,
+                      backend=be_._replace(occluded=occluded, occluded_hinted=None))
+    require(len(seen) == 1, "the frame traced no area-light segment")
+    o_, d_, lo_, hi_ = seen[0]
+    r_ = o_.shape[0]
+    return o_, d_, as_per_ray(lo_, r_, o_.device), as_per_ray(hi_, r_, o_.device)
+
+
+def wide_and_config3(*, rt, torch, dev, card: str, W: int, H: int, scene, gpu, frame, cfg9, img9,
+                     times9, zero_counts, read_counts, unmasked) -> dict:
+    """Phase 37: the wide backend's traces against the hybrid route's at
+    1080p on BASELINE config 3's scene and on procedural_mesh(100_000,
+    sun=True); a starved cap and the debug warning; the lane traversal at
+    320x180; config 3's frames; the per-image denoiser's default frame."""
+    from realtimeraytracer_torch.ops.camera_rays import generate_rays
+    from realtimeraytracer_torch.render import wide_backend as wideb
+    from realtimeraytracer_torch.render.attic import bvh_backend as laneb
+    from realtimeraytracer_torch.render.backends import make_backend
+    from realtimeraytracer_torch.render.diagnostics import diagnose_traversal
+    from realtimeraytracer_torch.render.pipeline import compile_for, render_pipeline_gpu
+    from realtimeraytracer_torch.utils import log as rtlog
+
+    say(card)
+    t37 = time.perf_counter()
+    res = {}
+    tq = 2.0 ** -15          # t: the kernels clear t's low 7 mantissa bits
+
+    def compare_hits(g_, o_, d_, lo_, hi_, got, want, what):
+        """Hit masks equal and t within 2^-15 relative (the kernels' t
+        quantization), ids equal or t equal.  Beyond that: a ray hit on
+        the same triangle with t further apart must stay within float32's
+        forward error of the plane intersection, 64 u (|o - v0| + t) /
+        |cos| (u = 2^-24, in float64 from the triangle); any other ray
+        decided apart must have a borderline triangle (borderline()), at
+        most 256 such rays.  Returns the counts."""
+        gh, wh = got.prim_id >= 0, want.prim_id >= 0
+        both = gh & wh
+        close = (got.t - want.t).abs() <= tq * want.t.abs()
+        same = got.prim_id == want.prim_id
+        cond = torch.nonzero(both & same & ~close).flatten()
+        apart = torch.nonzero((gh != wh) | (both & ~same & ~close)).flatten()
+        require(apart.numel() <= 256 and cond.numel() <= 4096,
+                f"[37] {what}: {apart.numel()} rays decided apart, {cond.numel()} t apart")
+        ratio = 0.0
+        if cond.numel():
+            tri = g_.vertices[g_.faces[want.prim_id[cond].long()].long()].double()   # (n, 3, 3)
+            n_ = torch.linalg.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0])
+            n_ = n_ / n_.norm(dim=-1, keepdim=True)
+            dd, oo = d_[cond].double(), o_[cond].double()
+            tw = want.t[cond].double()
+            bound = (tq * tw + 64 * 2.0 ** -24 * ((oo - tri[:, 0]).norm(dim=-1) + tw)
+                     / (n_ * dd).sum(-1).abs())
+            ratio = float(((got.t[cond].double() - tw).abs() / bound).max())
+            require(ratio <= 1.0, f"[37] {what}: t apart beyond float32's forward error "
+                    f"({ratio:.3f} of the bound)")
+        ev = borderline(g_, o_, d_, lo_, hi_, apart)
+        require(all(ev), f"[37] {what}: rays {apart[[not e for e in ev]].tolist()[:8]} decided "
+                "apart with no borderline triangle")
+        return {"rays": int(gh.numel()), "hits": int(wh.sum()), "apart_borderline": int(apart.numel()),
+                "t_apart_within_f32_error": int(cond.numel()), "worst_t_over_bound": ratio,
+                "id_ties": int((both & close & ~same).sum())}
+
+    def compare_flags(g_, o_, d_, lo_, hi_, got, want, what):
+        apart = torch.nonzero(got != want).flatten()
+        require(apart.numel() <= 256, f"[37] {what}: {apart.numel()} flags differ")
+        ev = borderline(g_, o_, d_, lo_, hi_, apart)
+        require(all(ev), f"[37] {what}: flags of rays {apart[[not e for e in ev]].tolist()[:8]} "
+                "differ with no borderline triangle")
+        return {"rays": int(got.numel()), "occluded": int(want.sum()),
+                "apart_borderline": int(apart.numel())}
+
+    def timed_trace(fn, counter, reps=2):
+        """(result, stats, first-call ms, host reads of that call (counted
+        on `counter`), peak GiB above what was held, median ms of reps
+        calls after it, None for none) of a wide or lane trace fn()."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        reads0 = counter.host_reads
+        first_ms, (out, stats) = once_ms(fn)
+        reads = counter.host_reads - reads0
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+        ms = median_ms(fn, reps)[0] if reps else None
+        return out, stats, first_ms, reads, peak, ms
+
+    # ---- (a) the config-3 scene and the wide traces at 1080p ----
+    t0 = time.perf_counter()
+    scene3 = config3_scene()
+    cfg3 = rt.RenderConfig(width=W, height=H, tonemap="lut", shadow_ray_margin=0.1)
+    gpu3 = compile_for(scene3, cfg3, dev)
+    frame3 = scene3.camera.viewport_frame(W, H, device=dev)
+    clusters3 = -(-gpu3.num_tris // cfg3.cluster_size)
+    say(f"[37] BASELINE config 3: the 10k-triangle OBJ written, loaded and compiled in "
+        f"{time.perf_counter() - t0:.2f} s: {gpu3.num_tris} tris, {gpu3.num_light_tris} light tris, "
+        f"{clusters3} clusters of {cfg3.cluster_size} (cap {cfg3.max_cluster_visits})")
+    require(clusters3 == 40, f"[37] config 3 has {clusters3} clusters, not 40")
+    for name, g_, fr_, cfg_ in (("config3", gpu3, frame3, cfg3), ("mesh100k", gpu, frame, cfg9)):
+        o_, d_ = generate_rays(fr_, W, H, jitter=False)
+        so_, sd_, slo_, shi_ = area_segments(g_, fr_, cfg_)
+        r_ = o_.shape[0]
+        lo_p = torch.full((r_,), cfg_.t_min, device=dev)
+        hi_p = torch.full((r_,), cfg_.t_max, device=dev)
+        hyb = make_backend(g_, cfg_)
+        h_ms, h_hit = median_ms(lambda: hyb.closest(o_, d_, cfg_.t_min, cfg_.t_max, common="origin"), 3)
+        ho_ms, h_occ = median_ms(lambda: hyb.occluded(so_, sd_, slo_, shi_), 3)
+        clusters = -(-g_.num_tris // cfg_.cluster_size)
+        rows = {"clusters": clusters, "hybrid_closest_ms": h_ms, "hybrid_occluded_ms": ho_ms,
+                "segments": int(so_.shape[0])}
+        exact = {}
+        for cap in sorted({min(cfg_.max_cluster_visits, clusters), clusters}):
+            c_ = cfg_.replace(backend="wide", max_cluster_visits=cap)
+            wd = wideb.build_wide(g_, c_.cluster_size)
+            hit, st, f_ms, reads, peak, ms = timed_trace(
+                lambda: wideb.wide_closest(g_, c_, o_, d_, cfg_.t_min, cfg_.t_max,
+                                           return_stats=True, wd=wd), wideb.wide_closest)
+            occ, sto, fo_ms, oreads, opeak, oms = timed_trace(
+                lambda: wideb.wide_occluded(g_, c_, so_, sd_, slo_, shi_, return_stats=True, wd=wd),
+                wideb.wide_occluded)
+            key = "exact" if cap == clusters else "capped"
+            row = {"cap": cap,
+                   "closest": {"cap_clipped": int(st["cap_clipped"]), "steps": st["steps"],
+                               "host_reads": reads, "first_ms": f_ms, "ms": ms, "peak_gib": round(peak, 3)},
+                   "occluded": {"cap_clipped": int(sto["cap_clipped"]), "steps": sto["steps"],
+                                "host_reads": oreads, "first_ms": fo_ms, "ms": oms,
+                                "peak_gib": round(opeak, 3)}}
+            require(st["cap"] == cap and sto["cap"] == cap, f"[37] {name}: stats cap {st['cap']}")
+            if key == "exact":
+                require(int(st["cap_clipped"]) == 0 == int(sto["cap_clipped"]),
+                        f"[37] {name}: the uncapped wide traces clipped")
+                row["closest"]["vs_hybrid"] = compare_hits(g_, o_, d_, lo_p, hi_p, hit, h_hit,
+                                                           f"{name} wide closest")
+                row["occluded"]["vs_hybrid"] = compare_flags(g_, so_, sd_, slo_, shi_, occ, h_occ,
+                                                             f"{name} wide occluded")
+                exact = {"hit": hit, "occ": occ}
+            rows[key] = row
+            rows.setdefault("_runs", []).append((key, hit, occ, st, sto))
+        for key, hit, occ, st, sto in rows.pop("_runs"):
+            if key != "capped":
+                continue
+            # Tiles (128 consecutive rays) whose result differs from the
+            # uncapped trace's can only be tiles that the cap clipped.
+            tile = cfg_.wide_tile
+            d_hit = ((hit.prim_id != exact["hit"].prim_id) | (hit.t != exact["hit"].t))
+            d_occ = occ != exact["occ"]
+            n_hit = int(torch.unique(torch.nonzero(d_hit).flatten() // tile).numel())
+            n_occ = int(torch.unique(torch.nonzero(d_occ).flatten() // tile).numel())
+            require(n_hit <= int(st["cap_clipped"]) and n_occ <= int(sto["cap_clipped"]),
+                    f"[37] {name}: {n_hit} / {n_occ} tiles differ from the uncapped traces, "
+                    f"{int(st['cap_clipped'])} / {int(sto['cap_clipped'])} clipped")
+            rows["capped"]["closest"]["tiles_differing_from_uncapped"] = n_hit
+            rows["capped"]["occluded"]["tiles_differing_from_uncapped"] = n_occ
+        res[name] = rows
+        say(f"[37] {name} wide traces at {W}x{H} (primaries, raster order; the frame's first "
+            f"area-light segments): " + json.dumps(rows) + f" ({card})")
+        del o_, d_, so_, sd_, slo_, shi_, h_hit, h_occ, exact, hyb
+
+    # ---- (b) a starved cap, detected; the debug wrapper's warning ----
+    o3, d3 = generate_rays(frame3, W, H, jitter=False)
+    starved = cfg3.replace(backend="wide", max_cluster_visits=1)
+    _, st = diagnose_traversal(gpu3, starved, o3, d3, cfg3.t_min, cfg3.t_max, kind="wide")
+    require(int(st["cap_clipped"]) > 0 and st["steps"] == 1,
+            f"[37] the starved cap was not detected: {st}")
+    lines, sink = [], rtlog._sink
+    rtlog.set_sink(lines.append)
+    try:
+        make_backend(gpu3, starved.replace(debug_traversal=True)).closest(o3, d3, cfg3.t_min, cfg3.t_max)
+        healthy = make_backend(gpu3, cfg3.replace(backend="wide", debug_traversal=True))
+        healthy.closest(o3, d3, cfg3.t_min, cfg3.t_max)
+    finally:
+        rtlog.set_sink(sink)
+    warned = [m for m in lines if "traversal cap saturated" in m]
+    require(len(warned) == 1, f"[37] debug_traversal warnings {lines}")
+    res["starved"] = {"cap_clipped": int(st["cap_clipped"]), "tiles": -(-o3.shape[0] // cfg3.wide_tile)}
+    say(f"[37] max_cluster_visits=1 on config 3's primaries: {int(st['cap_clipped'])} of "
+        f"{res['starved']['tiles']} tiles clipped; the debug wrapper logged: {warned[0]}; the "
+        f"healthy cap logged nothing")
+    del o3, d3
+
+    # ---- (c) the lane traversal at 320x180 on the 100k scene ----
+    cfg_s = cfg9.replace(width=320, height=180)
+    frame_s = scene.camera.viewport_frame(320, 180, device=dev)
+    o_s, d_s = generate_rays(frame_s, 320, 180, jitter=False)
+    so_s, sd_s, slo_s, shi_s = area_segments(gpu, frame_s, cfg_s)
+    hyb = make_backend(gpu, cfg_s)
+    hit_h = hyb.closest(o_s, d_s, cfg_s.t_min, cfg_s.t_max, common="origin")
+    occ_h = hyb.occluded(so_s, sd_s, slo_s, shi_s)
+    hit_l, st_l, fl_ms, lreads, lpeak, _ = timed_trace(
+        lambda: laneb.traverse_closest(gpu, cfg_s, o_s, d_s, cfg_s.t_min, cfg_s.t_max,
+                                       return_stats=True), laneb.traverse_closest, reps=0)
+    occ_l, st_lo, flo_ms, loreads, lopeak, _ = timed_trace(
+        lambda: laneb.traverse_occluded(gpu, cfg_s, so_s, sd_s, slo_s, shi_s, return_stats=True),
+        laneb.traverse_occluded, reps=0)
+    require(int(st_l["cap_clipped"]) == 0 == int(st_lo["cap_clipped"]), "[37] the lane traversal clipped")
+    r_s = o_s.shape[0]
+    res["lane"] = {
+        "closest": {"steps": st_l["steps"], "cap": st_l["cap"], "host_reads": lreads, "ms": fl_ms,
+                    "peak_gib": round(lpeak, 3),
+                    "vs_hybrid": compare_hits(gpu, o_s, d_s, torch.full((r_s,), cfg_s.t_min, device=dev),
+                                              torch.full((r_s,), cfg_s.t_max, device=dev), hit_l, hit_h,
+                                              "lane closest")},
+        "occluded": {"steps": st_lo["steps"], "host_reads": loreads, "ms": flo_ms,
+                     "peak_gib": round(lopeak, 3),
+                     "vs_hybrid": compare_flags(gpu, so_s, sd_s, slo_s, shi_s, occ_l, occ_h,
+                                                "lane occluded")}}
+    say(f"[37] lane traversal at 320x180 on procedural_mesh(100_000) (one call each): "
+        + json.dumps(res["lane"]) + f" ({card})")
+
+    # ---- (d) config 3's frames ----
+    def frame_run(g_, fr_, c_):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        zero_counts()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                img_t = render_pipeline_gpu(g_, fr_, c_)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        counts = read_counts()
+        syncs = sum(1 for w_ in caught if "synchroniz" in str(w_.message))
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+        img = img_t.cpu().numpy()
+        require(img.shape == (H, W, 3) and bool(np.isfinite(img).all()) and float(img.std()) > 1e-3,
+                "[37] a config-3 frame is not a finite, varied 1080p image")
+        return img, counts, syncs, peak
+
+    cfg3g = cfg3.replace(primary_rays=1, shadow_rays=1, denoise_iterations=0, jitter=False)
+    frames = {}
+    for tag, c_ in (("defaults hybrid", cfg3), ("golden wide", cfg3g.replace(backend="wide")),
+                    ("golden hybrid", cfg3g)):
+        img, counts, syncs, peak = frame_run(gpu3, frame3, c_)
+        if tag == "golden wide":
+            require(not any(counts.values()), f"[37] the wide frame launched kernels: {counts}")
+        else:
+            want = unmasked(trace_v7=0, trace_v9=c_.primary_rays, atrous_pair=c_.denoise_iterations,
+                            trace_v8=counts["trace_v8"])
+            require(counts == want and counts["trace_v8"] > 0, f"[37] {tag} launches {counts}")
+        frames[tag] = {"img": img, "launches": {k: v for k, v in counts.items() if v},
+                       "host_syncs": syncs, "peak_gib": round(peak, 3)}
+    share = image_rule(frames["golden wide"]["img"], frames["golden hybrid"]["img"],
+                       "[37] config 3: the wide frame against the hybrid frame")
+    renders = {"golden wide": lambda: render_pipeline_gpu(gpu3, frame3, cfg3g.replace(backend="wide")),
+               "golden hybrid": lambda: render_pipeline_gpu(gpu3, frame3, cfg3g)}
+    turns = {k: [] for k in renders}
+    for k in ("golden wide", "golden hybrid", "golden hybrid", "golden wide", "golden wide",
+              "golden hybrid"):
+        turns[k].append(once_ms(renders[k])[0])
+    turns = {k: (statistics.median(v[1:]), v) for k, v in turns.items()}
+    frames["defaults hybrid"]["ms"] = median_ms(lambda: render_pipeline_gpu(gpu3, frame3, cfg3), 3)[0]
+    for tag in ("golden wide", "golden hybrid"):
+        frames[tag]["ms"], frames[tag]["ms_all"] = turns[tag]    # the first of each a warm-up
+    res["config3_frames"] = {k: {kk: vv for kk, vv in v.items() if kk != "img"} for k, v in frames.items()}
+    res["config3_frames"]["wide_vs_hybrid_share_over_2e-3"] = share
+    say(f"[37] config 3 frames at {W}x{H} (tonemap lut, shadow_ray_margin 0.1; golden = 1 spp, 1 "
+        "shadow ray, no denoise, no jitter): " + json.dumps(res["config3_frames"]) + f" ({card})")
+
+    # ---- (e) the default frame with the per-image denoiser ----
+    cfg_d = cfg9.replace(use_pallas_denoise=False)
+    img_d, counts_d, syncs_d, peak_d = frame_run(gpu, frame, cfg_d)
+    want_d = unmasked(trace_v7=0, trace_v9=cfg9.primary_rays, atrous_pair=0,
+                      trace_v8=cfg9.primary_rays * (gpu.num_light_tris * cfg9.shadow_rays + 1))
+    require(counts_d == want_d, f"[37] per-image denoise frame launches {counts_d}, expected {want_d}")
+    share_d = image_rule(img_d, img9, "[37] the per-image denoiser's frame against phase 9's")
+    ms_d = median_ms(lambda: render_pipeline_gpu(gpu, frame, cfg_d), 3)[0]
+    res["per_image_denoise"] = {"launches": {k: v for k, v in counts_d.items() if v}, "host_syncs": syncs_d,
+                                "peak_gib": round(peak_d, 3), "ms": ms_d,
+                                "share_over_2e-3_vs_phase9": share_d,
+                                "phase9_ms": statistics.median(times9)}
+    say("[37] reference-default frame with use_pallas_denoise=False: " + json.dumps(res["per_image_denoise"])
+        + f" ({card})")
+    say(f"[37] phase 37 took {time.perf_counter() - t37:.1f} s")
+    return res
 
 
 def main() -> int:
@@ -2806,6 +3195,11 @@ def main() -> int:
     say(f"[36] opaque frame, the area-light hint chain given up by batch_occlusion: "
         f"{res36['opaque']['batched']['frame_ms']} ms batched (no area-light hints) against "
         f"{res36['opaque']['separate']['frame_ms']} ms separate (hint-chained), in turns ({card})")
+
+    # ---- 37. the wide backend, the lane traversal, BASELINE config 3 ----
+    wide_and_config3(rt=rt, torch=torch, dev=dev, card=card, W=W, H=H, scene=scene, gpu=gpu,
+                     frame=frame, cfg9=cfg9, img9=img9, times9=times9, zero_counts=zero_counts,
+                     read_counts=read_counts, unmasked=unmasked)
 
     shadow_row = v8_rows["occluded shadow segments"]
     say(json.dumps({"kernels": [

@@ -4,42 +4,34 @@ Counterpart of realtimeraytracer_tpu/config.py: the same fields, defaults
 and backend strings, so one set of knobs drives both packages.  The port
 renders the ratio-estimator frame with the "hybrid" route (v9 and v8
 traversal, CUDA kernels), "pallas" (v7), "quarter" (v9 closest, v7
-occlusion), "hier" (v8) or "brute", alpha-tested or not (with the
-opaque/alpha split of ``alpha_split`` or the classic ladder), with one
-occlusion trace for all of a sample's area-light segments
-(``batch_occlusion``) or one per segment, with mip-mapped and anisotropic
-textures or not, and the wavefront multi-bounce frame
-(render/wavefront.py: max_bounces, sort_bounces).  The wide XLA backend
-and its fields, the retired attic fields and ``use_pallas_denoise=False``
-raise when set (``check_supported``): they are the only JAX options the
-port refuses (ROADMAP queue A, 'Not to port').  ``tile_rays`` is
-accepted and read by no code, as in the JAX package, whose only reader is
-a docstring (ROADMAP queue C).
+occlusion), "hier" (v8), "wide" (plain torch cluster culling under the
+``max_cluster_visits`` cap, with its ``cluster_size`` and ``wide_tile``)
+or "brute", alpha-tested or not (with the opaque/alpha split of
+``alpha_split`` or the classic ladder), with one occlusion trace for all
+of a sample's area-light segments (``batch_occlusion``) or one per
+segment, with mip-mapped and anisotropic textures or not, denoised by the
+pair denoiser or, with ``use_pallas_denoise=False``, the per-image
+stencil, and the wavefront multi-bounce frame (render/wavefront.py:
+max_bounces, sort_bounces).  ``max_traversal_steps`` caps the attic's
+lane traversal (render/attic/), which the traversal diagnostics run.  The
+attic packet backend's two fields raise when set (``check_supported``):
+with ``dtype`` other than float32 they are the only JAX options the port
+refuses (ROADMAP queue A).  ``tile_rays`` is accepted and read by no code,
+as in the JAX package, whose only reader is a docstring (ROADMAP queue C).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-# Backends of the JAX package that this port does not have, and where
-# ROADMAP.md queues or drops them.
-UNPORTED_BACKENDS = {
-    "wide": "the wide XLA backend (ROADMAP queue A, 'Not to port')",
-}
-
 # Fields of the JAX RenderConfig that no code of this port reads, and why
-# (ROADMAP.md queue A, 'Not to port'): the wide backend's and the attic's.
-# check_supported raises when one is set away from its default, so that no
-# setting is dropped silently.
-_WIDE = "it belongs to the wide XLA backend (ROADMAP A, 'Not to port')"
-_ATTIC = "it belongs to the JAX package's retired render/attic/ backends"
+# (ROADMAP.md queue A, 'Not to port').  check_supported raises when one is
+# set away from its default, so that no setting is dropped silently.
+_PACKET = ("it belongs to the JAX package's attic packet backend, which its "
+           "make_backend refuses and nothing of that package runs")
 UNPORTED_FIELDS = {
-    "cluster_size": _WIDE,
-    "wide_tile": _WIDE,
-    "max_cluster_visits": _WIDE,
-    "packet_size": _ATTIC,
-    "traversal_unroll": _ATTIC,
-    "max_traversal_steps": _ATTIC,
+    "packet_size": _PACKET,
+    "traversal_unroll": _PACKET,
 }
 
 
@@ -107,9 +99,9 @@ class RenderConfig:
     wide_tile: int = 128
     max_cluster_visits: int = 64
     ray_order: str = "block"
-    # Traversal diagnostics (render/diagnostics.py): the port's kernels and
-    # brute force are exact and uncapped, so there is no cap to watch and
-    # make_backend passes every ported backend through unchanged.
+    # Traversal diagnostics (render/diagnostics.py): the "wide" backend
+    # traces with its cap statistics and warns when the cap clips; the
+    # exact backends pass through unchanged.
     debug_traversal: bool = False
 
     # Read by no code of either package (ROADMAP queue C).
@@ -128,9 +120,9 @@ class RenderConfig:
     batch_occlusion: bool = False
     batch_occlusion_min_rays: int = 65536
 
-    # The port always denoises with the pair denoiser (the CUDA kernel on
-    # CUDA tensors, its plain twin on CPU tensors): None and True select
-    # it; False, the JAX package's per-image stencil, raises.
+    # None and True denoise with the pair denoiser (the CUDA kernel on CUDA
+    # tensors, its plain twin on CPU tensors); False with the per-image
+    # stencil (ops/denoise.py::atrous_denoise), the JAX package's XLA one.
     use_pallas_denoise: bool | None = None
 
     # Trilinear textures from the mip chain at the footprint's LOD, and
@@ -152,14 +144,6 @@ class RenderConfig:
 def check_supported(cfg: RenderConfig) -> None:
     """Raise for settings whose code paths are not ported yet, so that a
     frame never renders silently without them."""
-    if cfg.backend in UNPORTED_BACKENDS:
-        raise NotImplementedError(
-            f"backend {cfg.backend!r} is not ported yet: "
-            f"{UNPORTED_BACKENDS[cfg.backend]}")
-    if cfg.use_pallas_denoise is False:
-        raise ValueError(
-            "use_pallas_denoise=False has no counterpart in the port: the "
-            "frame is always denoised by the pair denoiser")
     defaults = {f.name: f.default for f in dataclasses.fields(RenderConfig)}
     for name, home in UNPORTED_FIELDS.items():
         value = getattr(cfg, name)

@@ -10,8 +10,12 @@ backend is a pair of functions over ray batches:
 with unified prim ids: [0, F) triangles, [F, F+S) analytic spheres.  The
 port has "brute" (chunked all-pairs, exact), "pallas" (the v7 CUDA kernel,
 render/v7_backend.py), "quarter" (v9, render/quarter_backend.py), "hier"
-(v8, render/hier_backend.py) and "hybrid", which routes each trace class to
-one of them as the JAX package does on its accelerator.  Instanced
+(v8, render/hier_backend.py), "hybrid", which routes each trace class to
+one of them as the JAX package does on its accelerator, and "wide"
+(render/wide_backend.py: plain torch cluster culling under the
+``max_cluster_visits`` cap, the JAX package's route off its accelerator).
+The attic's lane traversal (render/attic/) is not in the registry, as in
+the JAX package.  Instanced
 (shared-geometry) scenes trace only through v8's instanced kernel: the
 BVH backends route there and "brute" raises.  With
 ``cfg.alpha_test`` set, ``make_backend`` wraps the backend in the alpha
@@ -187,13 +191,14 @@ def trace_primary_blocks(gpu: TorchScene, ray_blocks: torch.Tensor):
     return v7m.trace_blocks(gpu, ray_blocks, "closest", common="origin")
 
 
-_BVH_KINDS = ("pallas", "quarter", "hier", "hybrid")
+_BVH_KINDS = ("pallas", "quarter", "hier", "hybrid", "wide")
 
 
 def resolve_backend_kind(gpu: TorchScene, cfg: RenderConfig) -> str:
     """The backend string a config selects for this scene: "auto" is
     "hybrid" when the scene has a BVH and use_bvh is set (the JAX
-    package's choice on its accelerator), else "brute"; a BVH backend on a
+    package's choice on its accelerator; off it, the JAX package takes
+    "wide"), else "brute"; a BVH backend ("wide" among them) on a
     scene without a BVH is "brute".  An instanced scene holds mesh-space
     pools that only v8's instanced level reads: every BVH backend and
     "auto" give "hier" there, and "brute" raises (JAX make_backend)."""
@@ -215,10 +220,11 @@ def resolve_backend_kind(gpu: TorchScene, cfg: RenderConfig) -> str:
 
 def make_backend(gpu: TorchScene, cfg: RenderConfig) -> TraceBackend:
     """The backend the config selects for this scene, passed through the
-    traversal diagnostics when cfg.debug_traversal is set (which leave
-    every ported backend as it is: none has a cap) and wrapped in the
-    alpha re-trace ladder when cfg.alpha_test is set (the ladder returns
-    the backend unwrapped when the scene has no opacity map)."""
+    traversal diagnostics when cfg.debug_traversal is set (which watch the
+    "wide" backend's visit cap and leave the exact backends as they are)
+    and wrapped in the alpha re-trace ladder when cfg.alpha_test is set
+    (the ladder returns the backend unwrapped when the scene has no
+    opacity map)."""
     kind = resolve_backend_kind(gpu, cfg)
     if kind == "pallas":
         from realtimeraytracer_torch.render.v7_backend import make_v7_backend
@@ -234,6 +240,10 @@ def make_backend(gpu: TorchScene, cfg: RenderConfig) -> TraceBackend:
         backend = make_hier_backend(gpu, cfg)
     elif kind == "hybrid":
         backend = make_hybrid_backend(gpu, cfg)
+    elif kind == "wide":
+        from realtimeraytracer_torch.render.wide_backend import make_wide_backend
+
+        backend = make_wide_backend(gpu, cfg)
     else:
         backend = make_bruteforce_backend(gpu, cfg)
     if cfg.debug_traversal:

@@ -13,7 +13,7 @@ from torch.profiler import record_function
 
 from realtimeraytracer_torch.config import RenderConfig, check_supported
 from realtimeraytracer_torch.ops.camera_rays import ViewportFrame
-from realtimeraytracer_torch.ops.denoise import ratio_combine
+from realtimeraytracer_torch.ops.denoise import atrous_denoise, ratio_combine
 from realtimeraytracer_torch.ops.denoise_kernel import atrous_denoise_pair
 from realtimeraytracer_torch.render.backends import TraceBackend
 from realtimeraytracer_torch.render.megakernel import (
@@ -24,18 +24,25 @@ from realtimeraytracer_torch.scene.gpu_scene import TorchScene
 def denoise_and_combine(comp: RenderComponents, cfg: RenderConfig) -> torch.Tensor:
     """Denoise the stochastic pair, then ratio-combine with the analytic.
 
-    Always the fused pair denoiser (ops/denoise_kernel.py): the CUDA kernel
-    on CUDA tensors, at any iteration count, and its plain twin on CPU
-    tensors.  Differentiable: under a gradient each iteration's backward
-    is the VJP kernel (its twin's autograd on CPU tensors), where the JAX
-    package switches to its per-image XLA stencil."""
+    By default (cfg.use_pallas_denoise None or True) the fused pair
+    denoiser (ops/denoise_kernel.py): the CUDA kernel on CUDA tensors, at
+    any iteration count, and its plain twin on CPU tensors.
+    Differentiable: under a gradient each iteration's backward is the VJP
+    kernel (its twin's autograd on CPU tensors), where the JAX package
+    switches to its per-image XLA stencil.  use_pallas_denoise=False
+    selects that stencil by name, as in the JAX package: plain torch
+    (ops/denoise.py::atrous_denoise) on each stochastic image."""
     it = cfg.denoise_iterations
     if it <= 0:
         return ratio_combine(comp.analytic, comp.shadowed, comp.unshadowed)
+    phis = (cfg.denoise_c_phi, cfg.denoise_n_phi, cfg.denoise_p_phi)
     with record_function("frame.denoise"):
-        shadowed, unshadowed = atrous_denoise_pair(
-            comp.shadowed, comp.unshadowed, comp.normal, comp.position, it,
-            cfg.denoise_c_phi, cfg.denoise_n_phi, cfg.denoise_p_phi)
+        if cfg.use_pallas_denoise is False:
+            shadowed, unshadowed = (atrous_denoise(x, comp.normal, comp.position, it, *phis)
+                                    for x in (comp.shadowed, comp.unshadowed))
+        else:
+            shadowed, unshadowed = atrous_denoise_pair(
+                comp.shadowed, comp.unshadowed, comp.normal, comp.position, it, *phis)
     return ratio_combine(comp.analytic, shadowed, unshadowed)
 
 

@@ -159,8 +159,19 @@ def test_diagnose_traversal_zeros_and_raises():
         assert torch.equal(hit.prim_id, want.prim_id)
         occ, stats = diagnostics.diagnose_traversal(gpu, cfg, o, d, 1e-3, 1e4, "occluded", kind)
         assert occ.dtype == torch.bool and int(stats["cap_clipped"]) == 0
-    for kind in ("wide", "lane"):
-        with pytest.raises(NotImplementedError, match="Not to port"):
-            diagnostics.diagnose_traversal(gpu, cfg, o, d, 1e-3, 1e4, kind=kind)
-    with pytest.raises(ValueError, match="unknown"):
+    # The capped kinds report their cap: healthy here, so exact and unclipped.
+    for kind, cap in (("wide", -(-gpu.num_tris // cfg.cluster_size)),
+                      ("lane", cfg.max_traversal_steps)):
+        hit, stats = diagnostics.diagnose_traversal(gpu, cfg, o, d, 1e-3, 1e4, kind=kind)
+        assert int(stats["cap_clipped"]) == 0 and stats["cap"] == cap
+        assert 0 < int(stats["steps"]) <= cap
+        assert torch.equal(hit.prim_id >= 0, want.prim_id >= 0)
+        occ, stats = diagnostics.diagnose_traversal(gpu, cfg, o, d, 1e-3, 1e4, "occluded", kind)
+        assert occ.dtype == torch.bool and int(stats["cap_clipped"]) == 0
+    _, stats = diagnostics.diagnose_traversal(gpu, cfg.replace(max_cluster_visits=1), o, d,
+                                              1e-3, 1e4, kind="wide")
+    assert int(stats["cap_clipped"]) > 0 and stats["steps"] == stats["cap"] == 1
+    with pytest.raises(ValueError, match="packet"):
         diagnostics.diagnose_traversal(gpu, cfg, o, d, 1e-3, 1e4, kind="packet")
+    with pytest.raises(ValueError, match="unknown"):
+        diagnostics.diagnose_traversal(gpu, cfg, o, d, 1e-3, 1e4, kind="bogus")

@@ -213,7 +213,7 @@ def test_radiance_loss_grads_match_jax_spheres():
     assert all(np.isfinite(v).all() for v in all_grads.values())
 
 
-@pytest.mark.parametrize("kind", ["hybrid", "pallas"])
+@pytest.mark.parametrize("kind", ["hybrid", "pallas", "wide"])
 def test_route_grads_match_brute_force(kind):
     """Gradients through the port's BVH routes (the kernels' plain twins on
     the CPU) equal its brute force's: the traces return the same hit ids

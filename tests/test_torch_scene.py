@@ -106,19 +106,21 @@ def test_unported_scene_features_raise():
 
 @pytest.mark.parametrize("backend", ["wide", "hier", "quarter", "hybrid"])
 def test_unported_backends_raise(backend):
-    """Only the wide XLA backend has no port; the v8, v9 and hybrid
-    backends build, with alpha testing too (on a scene without opacity
-    maps the alpha ladder leaves the backend as it is)."""
+    """Every backend of the JAX package's registry has its port: the wide
+    backend, v8, v9 and the hybrid route build and trace, with alpha
+    testing too (on a scene without opacity maps the alpha ladder leaves
+    the backend as it is)."""
     gpu = scenes.procedural_mesh(200).compile()
-    if backend == "wide":
-        with pytest.raises(NotImplementedError):
-            make_backend(gpu, RenderConfig(backend=backend))
-        return
     plain = make_backend(gpu, RenderConfig(backend=backend))
     assert plain.num_tris == gpu.num_tris
     alpha = make_backend(gpu, RenderConfig(backend=backend, alpha_test=True))
     assert alpha.num_tris == gpu.num_tris
     assert (alpha.occluded_hinted is None) == (plain.occluded_hinted is None)
+    o = torch.tensor([[0.0, 3.0, 14.0]]).expand(8, 3)
+    d = torch.nn.functional.normalize(torch.tensor([[0.0, -0.3, -1.0]]).expand(8, 3), dim=1)
+    brute = make_backend(gpu, RenderConfig(backend="brute"))
+    assert torch.equal(plain.closest(o, d, 1e-3, 1e4).prim_id, brute.closest(o, d, 1e-3, 1e4).prim_id)
+    assert torch.equal(plain.occluded(o, d, 1e-3, 10.0), brute.occluded(o, d, 1e-3, 10.0))
 
 
 @pytest.mark.parametrize("field", sorted(UNPORTED_FIELDS))
@@ -129,6 +131,20 @@ def test_unported_fields_raise_when_set(field):
     check_supported(RenderConfig())
     with pytest.raises(NotImplementedError, match=field):
         check_supported(RenderConfig(**{field: value}))
+
+
+@pytest.mark.parametrize("field", ["cluster_size", "max_cluster_visits", "max_traversal_steps",
+                                   "wide_tile"])
+def test_traversal_cap_fields_are_supported(field):
+    """The wide backend's fields and the lane traversal's step cap have
+    their code paths (render/wide_backend.py, render/attic/): check_supported
+    accepts them set away from their defaults and the wide backend builds."""
+    assert field not in UNPORTED_FIELDS
+    value = RenderConfig.__dataclass_fields__[field].default // 2
+    cfg = RenderConfig(backend="wide", **{field: value})
+    check_supported(cfg)
+    gpu = scenes.procedural_mesh(200).compile()
+    assert make_backend(gpu, cfg).num_tris == gpu.num_tris
 
 
 @pytest.mark.parametrize("field,value", [
@@ -146,9 +162,14 @@ def test_occlusion_fields_are_supported(field, value):
 
 
 def test_per_image_denoise_is_refused():
-    check_supported(RenderConfig(use_pallas_denoise=True))
-    with pytest.raises(ValueError, match="use_pallas_denoise"):
-        check_supported(RenderConfig(use_pallas_denoise=False))
+    """use_pallas_denoise=False (the per-image stencil) is accepted now,
+    as None and True are; only the packet fields and a dtype other than
+    float32 are refused."""
+    for value in (None, True, False):
+        check_supported(RenderConfig(use_pallas_denoise=value))
+    assert sorted(UNPORTED_FIELDS) == ["packet_size", "traversal_unroll"]
+    with pytest.raises(ValueError, match="float32"):
+        check_supported(RenderConfig(dtype="bfloat16"))
 
 
 def test_backend_resolution():
@@ -160,8 +181,12 @@ def test_backend_resolution():
     assert resolve_backend_kind(small, RenderConfig()) == "brute"
     assert resolve_backend_kind(small, RenderConfig(backend="pallas")) == "brute"
     assert resolve_backend_kind(bvh, RenderConfig(alpha_test=True)) == "hybrid"
-    with pytest.raises(NotImplementedError):
-        resolve_backend_kind(bvh, RenderConfig(backend="wide"))
+    assert resolve_backend_kind(bvh, RenderConfig(backend="wide")) == "wide"
+    assert resolve_backend_kind(small, RenderConfig(backend="wide")) == "brute"
+    assert resolve_backend_kind(bvh, RenderConfig(backend="wide", use_bvh=False)) == "wide"
+    for kind in ("lane", "packet"):
+        with pytest.raises(ValueError, match="unknown backend"):
+            resolve_backend_kind(bvh, RenderConfig(backend=kind))
 
 
 @pytest.mark.parametrize("field,value", [
