@@ -10,7 +10,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
   2. build: compile every CUDA kernel from csrc/ with nvcc, one nvcc per
      source, all started together, and beside them the native host library
      (native/*.cpp with $CXX or g++ and native/Makefile's flags), which
-     builds the BVH of every scene compiled from phase 3 on (binned SAH);
+     builds the BVH of every scene compiled from phase 3 on (binned SAH),
+     and the image decoder library that phase 38 reads textures with;
   3. the v7 traversal kernel, which runs its cull in-kernel, against its
      twin (the plain-torch cull, then the plain trace) on the 100k-triangle
      scene: closest primaries (common origin), shadow segments and sun
@@ -208,8 +209,21 @@ Phases, each of which ends the run with a non-zero exit on failure:
      at the golden's sampling, under the frame rule against each other):
      launches, host syncs, times, peak memory; the reference-default
      frame with use_pallas_denoise=False against phase 9's (frame rule).
+ 38. the card's name and power limit again, then the host image decoders
+     (utils/image_decode.py, the native library of
+     realtimeraytracer_torch/native/image_decode.cpp built with the host's
+     C++ compiler): every fixture of tests/data/images decoded through
+     load_texture_file, both grayscale values, its digest equal to
+     expected.json (the JAX package's output); textured_obj's OBJ with
+     its ground and leaf maps replaced by the JPEG and TGA fixtures, and
+     again by PNGs of the same decoded pixels: both 1080p frames at the
+     reference defaults through rt.render, hash-equal, with their masked
+     v9/v8 and B5 launches; host decode times, median of 5: the 1024^2
+     JPEG, a 2048^2 RGBA Paeth PNG through the native path, and a 256^2
+     crop of it through the native path and through png.decode_png (about
+     a minute a decode on the whole image, so the crop).
 Each main-path run (5, 8, 9, 14, 18, 22, 24, 26, 27, 28, 30, each step of
-31 and 32, 33, 34, 35, 36, 37) and the probe's timed run (23) are driven with every kernel's
+31 and 32, 33, 34, 35, 36, 37, 38) and the probe's timed run (23) are driven with every kernel's
 launch count set to 0 just before and read just after.  The line before the last is a
 JSON object describing each kernel (times, launches, error, bound); the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -855,6 +869,115 @@ def wide_and_config3(*, rt, torch, dev, card: str, W: int, H: int, scene, gpu, f
     return res
 
 
+def image_decoders(*, rt, torch, card: str, W: int, H: int, zero_counts, read_counts) -> dict:
+    """Phase 38: the host image decoders on the committed fixtures, a
+    1080p frame textured by JPEG and TGA files against the same frame
+    textured by PNGs of their pixels, and host decode times."""
+    import hashlib
+
+    from realtimeraytracer_torch import scenes
+    from realtimeraytracer_torch.scene.obj_loader import load_obj_scene, load_texture_file
+    from realtimeraytracer_torch.scene.scene import Scene
+    from realtimeraytracer_torch.utils import image_decode, png
+
+    say(card)
+    t38 = time.perf_counter()
+    fx = Path(__file__).resolve().parent / "tests" / "data" / "images"
+    expected = json.loads((fx / "expected.json").read_text())["digests"]
+    for name, digests in expected.items():
+        for grayscale in (False, True):
+            got = image_decode.pixels_digest(load_texture_file(str(fx / name), grayscale))
+            want = digests[str(grayscale).lower()]
+            require(got == want, f"[38] {name}, grayscale={grayscale}: digest {got[:16]}, "
+                                 f"expected.json {want[:16]}")
+    say(f"[38] {len(expected)} fixtures decoded on the host with both grayscale values: every "
+        f"digest equal to expected.json's")
+
+    # textured_obj's maps that the fixtures replace (its MTL names them).
+    roles = {"ground_kd.png": "prog420_odd.jpg", "ground_ks.png": "grey.jpg",
+             "leaf_kd.png": "base422_rst.jpg", "leaf_d.png": "rle.tga"}
+    cfg = rt.RenderConfig(width=W, height=H, primary_rays=4, shadow_rays=3, denoise_iterations=4)
+    frames = {}
+    with tempfile.TemporaryDirectory(prefix="rtrt_images_") as d:
+        base = scenes.textured_obj(str(Path(d) / "png"))
+
+        def variant(tag, files):
+            vd = Path(d) / tag
+            vd.mkdir()
+            mtl = (Path(d) / "png" / "scene.mtl").read_text()
+            for name in ("scene.obj", "pillar_pm.png"):
+                shutil.copy(Path(d) / "png" / name, vd / name)
+            for map_name, (fname, data) in files.items():
+                (vd / fname).write_bytes(data)
+                mtl = mtl.replace(map_name, fname)
+            (vd / "scene.mtl").write_text(mtl)
+            sc = Scene(camera=base.camera, hdri=base.hdri, env_color=base.env_color,
+                       area_lights=list(base.area_lights), sun=base.sun)
+            load_obj_scene(sc, str(vd / "scene.obj"))
+            require(len(sc.textures) == 5, f"[38] {tag}: {len(sc.textures)} textures loaded")
+            return sc
+
+        fixture_bytes = {m: (f, (fx / f).read_bytes()) for m, f in roles.items()}
+        scenes38 = {
+            "JPEG/TGA maps": variant("fixtures", fixture_bytes),
+            "PNG maps": variant("repng", {
+                m: (m.replace(".png", "_fx.png"), png.encode_png(image_decode.decode_image(b)[0]))
+                for m, (_, b) in fixture_bytes.items()}),
+        }
+        for tag, sc in scenes38.items():
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            img_t = rt.render(sc, cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            require(img_t.device.type == "cuda", f"[38] {tag}: rendered on {img_t.device}")
+            for name, n in counts.items():
+                used = name in ("trace_v9_masked", "trace_v8_masked", "atrous_pair")
+                require((n > 0) == used, f"[38] {tag}: {name} launched {n} times")
+            require(counts["atrous_pair"] == cfg.denoise_iterations,
+                    f"[38] {tag}: {counts['atrous_pair']} A-Trous launches")
+            out = img_t.cpu().numpy()
+            require(out.shape == (H, W, 3) and bool(np.isfinite(out).all()), f"[38] {tag}: bad image")
+            require(float(out.std()) > 1e-3, f"[38] {tag}: constant image")
+            frames[tag] = {"sha256": hashlib.sha256(out.tobytes()).hexdigest(),
+                           "wall_s": round(wall, 3),
+                           "launches": {k: v for k, v in counts.items() if v}}
+    a, b = frames.values()
+    require(a["sha256"] == b["sha256"], f"[38] the JPEG/TGA-textured frame differs from the PNG one: "
+                                        f"{a['sha256'][:16]} against {b['sha256'][:16]}")
+    say(f"[38] textured_obj at 1080p, reference defaults, rt.render: the frame with JPEG/TGA maps is "
+        f"hash-equal to the frame with PNG maps of the same pixels; " + json.dumps(frames))
+
+    def med5(fn):
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times), times
+
+    jpeg = (fx / "smooth1024.jpg").read_bytes()
+    yy, xx = np.mgrid[0:2048, 0:2048]
+    noise = np.random.default_rng(38).integers(0, 16, (2048, 2048, 4))
+    rgba = ((yy % 200)[..., None] + noise + np.stack([xx % 7, xx % 11, yy % 5, xx % 3], -1)).astype(np.uint8)
+    paeth = png.encode_png(rgba, filters=[4])
+    crop = png.encode_png(rgba[:256, :256], filters=[4])
+    require(np.array_equal(image_decode.decode_image(paeth)[0], rgba), "[38] the 2048^2 PNG decodes wrong")
+    require(np.array_equal(png.decode_png(crop), image_decode.decode_image(crop)[0]),
+            "[38] the crop's native and Python decodes differ")
+    times = {"jpeg_1024_native": med5(lambda: image_decode.decode_image(jpeg)),
+             "png_paeth_2048_native": med5(lambda: image_decode.decode_image(paeth)),
+             "png_paeth_256_native": med5(lambda: image_decode.decode_image(crop)),
+             "png_paeth_256_python": med5(lambda: png.decode_png(crop))}
+    res = {k: {"ms": v[0], "ms_all": v[1]} for k, v in times.items()}
+    res["bytes"] = {"jpeg_1024": len(jpeg), "png_paeth_2048": len(paeth), "png_paeth_256": len(crop)}
+    say(f"[38] host decode ms, median of 5 (host side, the card machine's CPU; {card}): " + json.dumps(res))
+    say(f"[38] phase 38 took {time.perf_counter() - t38:.1f} s")
+    return {"frames": frames, "decode": res}
+
+
 def main() -> int:
     import torch
     import torch.distributed as tdist
@@ -892,7 +1015,7 @@ def main() -> int:
     from realtimeraytracer_torch.frame_profile import range_times
     from realtimeraytracer_torch.kernel_ab import sass_functions, tap_instructions
     from realtimeraytracer_torch.scene import obj_loader
-    from realtimeraytracer_torch.utils import native
+    from realtimeraytracer_torch.utils import image_decode, native
     from realtimeraytracer_torch.utils.image_io import read_png
 
     # Launch counters: (wrapper, attribute); a masked variant counts on its
@@ -948,16 +1071,25 @@ def main() -> int:
         lib_ = native.load_library()
         return lib_, time.perf_counter() - t_
 
+    def build_image_decoder():                 # phase 38's host decoders
+        t_ = time.perf_counter()
+        image_decode.load_library()
+        return time.perf_counter() - t_
+
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=1) as pool:
+    with ThreadPoolExecutor(max_workers=2) as pool:
         native_job = pool.submit(build_native)
+        image_job = pool.submit(build_image_decoder)
         libs = kernels.build_all()
         native_lib, native_s = native_job.result()
+        image_s = image_job.result()
     require(native_lib is not None, f"no C++ compiler ({native._compiler()}): the native host "
             "library cannot be built")
     say(f"[2] built {len(libs)} kernel libraries in {time.perf_counter() - t0:.2f} s; the native "
         f"host library {native.library_path(native._compiler()).name} in {native_s:.2f} s with "
-        f"{' '.join(native._compiler())} {' '.join(native.CXX_FLAGS)}")
+        f"{' '.join(native._compiler())} {' '.join(native.CXX_FLAGS)}; the image decoder "
+        f"{image_decode.library_path(native._compiler()).name} in {image_s:.2f} s with "
+        f"{' '.join(image_decode.CXX_FLAGS)}")
     for name, log in kernels.build_log.items():
         entry = ""
         for line in log.splitlines():
@@ -3200,6 +3332,10 @@ def main() -> int:
     wide_and_config3(rt=rt, torch=torch, dev=dev, card=card, W=W, H=H, scene=scene, gpu=gpu,
                      frame=frame, cfg9=cfg9, img9=img9, times9=times9, zero_counts=zero_counts,
                      read_counts=read_counts, unmasked=unmasked)
+
+    # ---- 38. the host image decoders and a JPEG/TGA-textured frame -------
+    image_decoders(rt=rt, torch=torch, card=card, W=W, H=H, zero_counts=zero_counts,
+                   read_counts=read_counts)
 
     shadow_row = v8_rows["occluded shadow segments"]
     say(json.dumps({"kernels": [

@@ -1,0 +1,1130 @@
+// Texture image decoders of the port: JPEG, PNG reconstruction, TGA, BMP.
+//
+// The JAX package reads texture files with Pillow (Image.open, then
+// convert("RGBA") or convert("L")); the reference C++ with stb_image.  This
+// library returns what Pillow returns, pixel for pixel, in Pillow's mode:
+//
+//   JPEG  baseline, extended and progressive Huffman, 8-bit, 1 or 3
+//         components, any integral sampling, restart intervals; decoded as
+//         libjpeg-turbo decodes by default: the ISLOW integer IDCT
+//         (jidctint.c), "fancy" triangle upsampling (jdsample.c: h2v1, h1v2,
+//         h2v2; a component 2 samples wide or narrower takes the box
+//         filter), the integer YCbCr->RGB tables (jdcolor.c).
+//   PNG   unfiltering, Adam7 de-interlacing and unpacking of every colour
+//         type and depth; the inflate is zlib's, done by the caller.
+//   TGA   types 1, 2, 3, 9, 10, 11 at 8, 24 and 32 bits, the origin bits.
+//   BMP   uncompressed 1/4/8-bit palette, 24- and 32-bit, BI_RGB and
+//         BI_BITFIELDS, bottom-up and top-down.
+//
+// Pixels come back as uint8 (H, W, C): C = 1 grey, 2 grey + alpha, 3 RGB,
+// 4 RGBA (palette images are expanded through their palette).  Anything
+// malformed or not ported throws, and the C entry points turn that into an
+// error message: every read of the input is bounds-checked.
+//
+// Build: c++ -O2 -fPIC -std=c++17 -shared (no -march=native: the decode is
+// integer arithmetic, and the same bytes must come out on every host).
+
+#include <algorithm>
+#include <cstdint>
+#include <cstring>
+#include <stdexcept>
+#include <string>
+#include <vector>
+
+namespace {
+
+struct DecodeError : std::runtime_error {
+  using std::runtime_error::runtime_error;
+};
+
+[[noreturn]] void fail(const std::string& msg) { throw DecodeError(msg); }
+
+// Pillow raises DecompressionBombError above twice Image.MAX_IMAGE_PIXELS.
+constexpr int64_t kMaxPixels = 2 * int64_t(89478485);
+
+void check_size(int64_t w, int64_t h) {
+  if (w <= 0 || h <= 0) fail("image has no pixels");
+  if (w > kMaxPixels / h)
+    fail("image of " + std::to_string(w) + "x" + std::to_string(h) +
+         " pixels exceeds the limit of " + std::to_string(kMaxPixels));
+}
+
+struct Image {
+  int64_t w = 0, h = 0, c = 0;
+  std::string mode;
+  std::vector<uint8_t> px;
+
+  void alloc(int64_t w_, int64_t h_, int64_t c_, const char* mode_) {
+    check_size(w_, h_);
+    w = w_, h = h_, c = c_, mode = mode_;
+    px.assign(size_t(w * h * c), 0);
+  }
+  uint8_t* at(int64_t y, int64_t x) { return px.data() + (y * w + x) * c; }
+};
+
+struct Bytes {
+  const uint8_t* p;
+  size_t n;
+  void need(size_t off, size_t len, const char* what) const {
+    if (off > n || len > n - off) fail(std::string("truncated ") + what);
+  }
+  uint8_t u8(size_t o, const char* what) const { need(o, 1, what); return p[o]; }
+  uint32_t le16(size_t o, const char* what) const {
+    need(o, 2, what);
+    return uint32_t(p[o]) | uint32_t(p[o + 1]) << 8;
+  }
+  uint32_t le32(size_t o, const char* what) const {
+    need(o, 4, what);
+    return uint32_t(p[o]) | uint32_t(p[o + 1]) << 8 | uint32_t(p[o + 2]) << 16 |
+           uint32_t(p[o + 3]) << 24;
+  }
+  uint32_t be16(size_t o, const char* what) const {
+    need(o, 2, what);
+    return uint32_t(p[o]) << 8 | uint32_t(p[o + 1]);
+  }
+};
+
+// A palette as Pillow holds it: 256 RGBA entries, opaque black where the
+// file gives none.
+struct Palette {
+  uint8_t e[256][4];
+  Palette() {
+    for (auto& x : e) x[0] = x[1] = x[2] = 0, x[3] = 255;
+  }
+};
+
+// ---------------------------------------------------------------- JPEG ----
+
+// Zigzag index -> natural (row-major) position of a coefficient.
+constexpr uint8_t kNatural[64] = {
+    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
+
+struct Huffman {
+  bool defined = false;
+  uint16_t fast[512];  // 9-bit lookahead -> (length << 8) | symbol; 0: longer code
+  int32_t maxcode[17], mincode[17], valptr[17];
+  uint8_t vals[256];
+  int nvals = 0;
+
+  void build(const uint8_t counts[16], const uint8_t* symbols, int n) {
+    std::memset(fast, 0, sizeof fast);
+    std::memcpy(vals, symbols, size_t(n));
+    nvals = n;
+    int32_t code = 0, k = 0, maxlen = 0;
+    for (int len = 1; len <= 16; ++len)
+      if (counts[len - 1]) maxlen = len;
+    for (int len = 1; len <= 16; ++len) {
+      // jdhuff.c: the codes of each length must fit in it, all-ones excluded.
+      if (len <= maxlen && code + counts[len - 1] >= (int32_t(1) << len))
+        fail("corrupt JPEG: bad Huffman table");
+      valptr[len] = k;
+      mincode[len] = code;
+      for (int i = 0; i < counts[len - 1]; ++i, ++k, ++code)
+        if (len <= 9)
+          for (int s = 0; s < 1 << (9 - len); ++s)
+            fast[(code << (9 - len)) | s] = uint16_t(len << 8 | symbols[k]);
+      maxcode[len] = counts[len - 1] ? code - 1 : -1;
+      code <<= 1;
+    }
+    defined = true;
+  }
+};
+
+// Bit reader over entropy-coded data.  Bytes FF 00 are a data FF; FF
+// followed by anything else is a marker: the reader stops there and feeds
+// zero bits, but any decode that consumes one of them fails.
+struct BitReader {
+  const uint8_t* d;
+  size_t n, pos;
+  uint32_t acc = 0;
+  int bits = 0, pad = 0;
+  int marker = -1;        // code of the marker hit, -1 before one is hit
+  size_t marker_pos = 0;  // index of its code byte
+
+  void fill() {
+    while (bits <= 24) {
+      uint32_t b = 0;
+      if (marker >= 0) {
+        pad += 8;
+      } else {
+        if (pos >= n) fail("truncated JPEG data");
+        b = d[pos];
+        if (b == 0xFF) {
+          size_t q = pos + 1;
+          while (q < n && d[q] == 0xFF) ++q;
+          if (q >= n) fail("truncated JPEG data");
+          if (d[q] == 0) {
+            pos = q + 1;
+          } else {
+            marker = d[q], marker_pos = q, b = 0, pad += 8;
+          }
+        } else {
+          ++pos;
+        }
+      }
+      acc |= b << (24 - bits);
+      bits += 8;
+    }
+  }
+  void consume(int k) {
+    bits -= k;
+    acc <<= k;
+    if (bits < pad) fail("corrupt JPEG data: premature end of a data segment");
+  }
+  uint32_t get(int k) {  // 1 <= k <= 16
+    fill();
+    uint32_t v = acc >> (32 - k);
+    consume(k);
+    return v;
+  }
+  int extend(int s) {  // the s-bit signed value that follows a Huffman symbol
+    if (s == 0) return 0;
+    if (s > 16) fail("corrupt JPEG data: coefficient of " + std::to_string(s) + " bits");
+    int v = int(get(s));
+    return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v;
+  }
+  int decode(const Huffman& t) {
+    fill();
+    uint16_t e = t.fast[acc >> 23];
+    if (e) {
+      consume(e >> 8);
+      return e & 0xFF;
+    }
+    for (int len = 10; len <= 16; ++len) {
+      int32_t code = int32_t(acc >> (32 - len));
+      if (code <= t.maxcode[len]) {
+        int idx = t.valptr[len] + code - t.mincode[len];
+        if (idx < 0 || idx >= t.nvals) break;
+        consume(len);
+        return t.vals[idx];
+      }
+    }
+    fail("corrupt JPEG data: bad Huffman code");
+  }
+  // Moves to the next marker (skipping the rest of the data segment) and
+  // returns the index of its code byte.
+  size_t seek_marker() {
+    if (marker < 0) {
+      size_t q = pos;
+      for (;;) {
+        if (q >= n) fail("truncated JPEG data");
+        if (d[q] != 0xFF) { ++q; continue; }
+        size_t r = q + 1;
+        while (r < n && d[r] == 0xFF) ++r;
+        if (r >= n) fail("truncated JPEG data");
+        if (d[r] == 0) { q = r + 1; continue; }
+        marker = d[r], marker_pos = r;
+        break;
+      }
+    }
+    acc = 0, bits = 0, pad = 0;
+    return marker_pos;
+  }
+};
+
+struct Component {
+  int id = 0, h = 1, v = 1, tq = 0;
+  int dw = 0, dh = 0;        // downsampled width and height in samples
+  int bw = 0, bh = 0;        // blocks holding them
+  int bw_pad = 0, bh_pad = 0;  // blocks of whole MCUs
+  bool latched = false;
+  int32_t q[64] = {};        // quantization table, natural order (zero until latched)
+  std::vector<int16_t> coef;  // bw_pad * bh_pad blocks of 64, natural order
+  int coef_bits[64];         // progressive: the bit the coefficient is known down to, -1 unseen
+  int16_t* block(int bx, int by) { return coef.data() + (size_t(by) * bw_pad + bx) * 64; }
+};
+
+struct Jpeg {
+  Bytes in;
+  int width = 0, height = 0, maxh = 1, maxv = 1, mcux = 0, mcuy = 0;
+  bool progressive = false, have_frame = false, saw_jfif = false, saw_adobe = false;
+  int adobe_transform = 0, restart_interval = 0;
+  std::vector<Component> comps;
+  int32_t qt[4][64];
+  bool qt_defined[4] = {false, false, false, false};
+  Huffman dc[4], ac[4];
+
+  explicit Jpeg(Bytes b) : in(b) {}
+
+  void read_dqt(size_t p, size_t end) {
+    while (p < end) {
+      int pq = in.u8(p, "DQT") >> 4, tq = in.u8(p, "DQT") & 15;
+      ++p;
+      if (tq > 3 || pq > 1) fail("corrupt JPEG: bad DQT table id");
+      size_t len = pq ? 128 : 64;
+      if (p + len > end) fail("corrupt JPEG: DQT segment too short");
+      for (int k = 0; k < 64; ++k)
+        qt[tq][kNatural[k]] = pq ? int32_t(in.be16(p + 2 * k, "DQT")) : in.p[p + k];
+      qt_defined[tq] = true;
+      p += len;
+    }
+  }
+
+  void read_dht(size_t p, size_t end) {
+    while (p < end) {
+      if (p + 17 > end) fail("corrupt JPEG: DHT segment too short");
+      int tc = in.p[p] >> 4, th = in.p[p] & 15;
+      if (tc > 1 || th > 3) fail("corrupt JPEG: bad DHT table id");
+      const uint8_t* counts = in.p + p + 1;
+      int total = 0;
+      for (int i = 0; i < 16; ++i) total += counts[i];
+      if (total > 256 || p + 17 + size_t(total) > end) fail("corrupt JPEG: bad DHT counts");
+      (tc ? ac : dc)[th].build(counts, in.p + p + 17, total);
+      p += 17 + size_t(total);
+    }
+  }
+
+  void read_sof(int code, size_t p, size_t end) {
+    if (have_frame) fail("corrupt JPEG: two frames");
+    if (end - p < 6) fail("corrupt JPEG: SOF segment too short");
+    int precision = in.p[p];
+    height = int(in.be16(p + 1, "SOF"));
+    width = int(in.be16(p + 3, "SOF"));
+    int nc = in.p[p + 5];
+    if (precision != 8)
+      fail(std::to_string(precision) + "-bit JPEG is not supported (8-bit only)");
+    if (height == 0) fail("JPEG with its height in a DNL marker is not supported");
+    if (width == 0) fail("corrupt JPEG: width 0");
+    if (width > 65500 || height > 65500) fail("JPEG dimensions exceed 65500");
+    if (nc == 4) fail("CMYK/YCCK (Adobe) JPEG is not supported");
+    if (nc != 1 && nc != 3) fail("JPEG with " + std::to_string(nc) + " components is not supported");
+    if (end - p < size_t(6 + 3 * nc)) fail("corrupt JPEG: SOF segment too short");
+    progressive = code == 0xC2;
+    comps.resize(size_t(nc));
+    for (int i = 0; i < nc; ++i) {
+      Component& c = comps[size_t(i)];
+      c.id = in.p[p + 6 + 3 * i];
+      c.h = in.p[p + 7 + 3 * i] >> 4;
+      c.v = in.p[p + 7 + 3 * i] & 15;
+      c.tq = in.p[p + 8 + 3 * i];
+      if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4) fail("corrupt JPEG: bad sampling factors");
+      if (c.tq > 3) fail("corrupt JPEG: bad quantization table id");
+      maxh = std::max(maxh, c.h), maxv = std::max(maxv, c.v);
+    }
+    check_size(width, height);  // before the coefficient buffers
+    mcux = (width + 8 * maxh - 1) / (8 * maxh);
+    mcuy = (height + 8 * maxv - 1) / (8 * maxv);
+    for (Component& c : comps) {
+      c.dw = int((int64_t(width) * c.h + maxh - 1) / maxh);
+      c.dh = int((int64_t(height) * c.v + maxv - 1) / maxv);
+      c.bw = (c.dw + 7) / 8, c.bh = (c.dh + 7) / 8;
+      c.bw_pad = mcux * c.h, c.bh_pad = mcuy * c.v;
+      c.coef.assign(size_t(c.bw_pad) * c.bh_pad * 64, 0);
+      std::fill(c.coef_bits, c.coef_bits + 64, -1);
+    }
+    have_frame = true;
+  }
+
+  // One scan, from the SOS segment [p, end); returns the index of the
+  // code byte of the marker that ends it.
+  size_t read_scan(size_t p, size_t end) {
+    if (!have_frame) fail("corrupt JPEG: SOS before SOF");
+    int ns = in.u8(p, "SOS");
+    if (ns < 1 || ns > 4 || end - p != size_t(4 + 2 * ns)) fail("corrupt JPEG: bad SOS segment");
+    std::vector<Component*> sc;
+    std::vector<int> td, ta;
+    int blocks = 0;
+    for (int i = 0; i < ns; ++i) {
+      int id = in.p[p + 1 + 2 * i], t = in.p[p + 2 + 2 * i];
+      Component* c = nullptr;
+      for (Component& k : comps)
+        if (k.id == id) c = &k;
+      if (!c || std::find(sc.begin(), sc.end(), c) != sc.end())
+        fail("corrupt JPEG: bad component in SOS");
+      sc.push_back(c);
+      td.push_back(t >> 4), ta.push_back(t & 15);
+      if (td.back() > 3 || ta.back() > 3) fail("corrupt JPEG: bad Huffman table id");
+      blocks += c->h * c->v;
+    }
+    if (ns > 1 && blocks > 10) fail("corrupt JPEG: more than 10 blocks in an MCU");
+    int ss = in.p[p + 1 + 2 * ns], se = in.p[p + 2 + 2 * ns];
+    int ah = in.p[p + 3 + 2 * ns] >> 4, al = in.p[p + 3 + 2 * ns] & 15;
+    if (progressive) {
+      bool bad = ss == 0 ? se != 0 : (se < ss || se > 63 || ns != 1);
+      if (ah != 0 && al != ah - 1) bad = true;
+      if (al > 13) bad = true;
+      if (bad) fail("corrupt JPEG: bad progressive scan parameters");
+    } else if (ss != 0 || se != 63 || ah != 0 || al != 0) {
+      fail("corrupt JPEG: bad sequential scan parameters");
+    }
+    for (size_t i = 0; i < sc.size(); ++i) {
+      Component& c = *sc[i];
+      if (!c.latched) {  // jdinput.c latches a table at the component's first scan
+        if (!qt_defined[c.tq]) fail("corrupt JPEG: quantization table missing");
+        std::memcpy(c.q, qt[c.tq], sizeof c.q);
+        c.latched = true;
+      }
+      bool need_dc = ss == 0 && ah == 0, need_ac = !progressive || ss > 0;
+      if (need_dc) {
+        if (!dc[td[i]].defined) fail("corrupt JPEG: Huffman table missing");
+        for (int k = 0; k < dc[td[i]].nvals; ++k)
+          if (dc[td[i]].vals[k] > 15) fail("corrupt JPEG: bad Huffman table");
+      }
+      if (need_ac && !ac[ta[i]].defined) fail("corrupt JPEG: Huffman table missing");
+      for (int k = ss; k <= se; ++k) c.coef_bits[k] = al;
+    }
+
+    BitReader br{in.p, in.n, end};
+    int pred[4] = {0, 0, 0, 0};
+    int eobrun = 0, next_rst = 0;
+    int64_t total = ns == 1 ? int64_t(sc[0]->bw) * sc[0]->bh : int64_t(mcux) * mcuy;
+    auto one_block = [&](int i, int16_t* blk) {
+      if (!progressive) {
+        decode_sequential(br, dc[td[size_t(i)]], ac[ta[size_t(i)]], pred[i], blk);
+      } else if (ss == 0) {
+        if (ah == 0) {
+          int t = br.decode(dc[td[size_t(i)]]);
+          pred[i] += br.extend(t);
+          blk[0] = int16_t(uint32_t(pred[i]) << al);
+        } else if (br.get(1)) {
+          blk[0] = int16_t(blk[0] | (1 << al));
+        }
+      } else if (ah == 0) {
+        decode_ac_first(br, ac[ta[size_t(i)]], ss, se, al, eobrun, blk);
+      } else {
+        decode_ac_refine(br, ac[ta[size_t(i)]], ss, se, al, eobrun, blk);
+      }
+    };
+    for (int64_t m = 0; m < total; ++m) {
+      if (restart_interval && m > 0 && m % restart_interval == 0) {
+        size_t mp = br.seek_marker();
+        if (br.marker != 0xD0 + next_rst)
+          fail("corrupt JPEG data: expected RST" + std::to_string(next_rst));
+        br.pos = mp + 1, br.marker = -1;
+        next_rst = (next_rst + 1) & 7;
+        std::fill(pred, pred + 4, 0);
+        eobrun = 0;
+      }
+      if (ns == 1) {
+        Component& c = *sc[0];
+        one_block(0, c.block(int(m % c.bw), int(m / c.bw)));
+      } else {
+        int mx = int(m % mcux), my = int(m / mcux);
+        for (int i = 0; i < ns; ++i) {
+          Component& c = *sc[size_t(i)];
+          for (int y = 0; y < c.v; ++y)
+            for (int x = 0; x < c.h; ++x) one_block(i, c.block(mx * c.h + x, my * c.v + y));
+        }
+      }
+    }
+    return br.seek_marker();
+  }
+
+  static void decode_sequential(BitReader& br, const Huffman& dct, const Huffman& act, int& pred,
+                                int16_t* blk) {
+    int t = br.decode(dct);
+    pred += br.extend(t);
+    blk[0] = int16_t(pred);
+    for (int k = 1; k < 64;) {
+      int rs = br.decode(act), r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        if (k > 63) fail("corrupt JPEG data: coefficient index past 63");
+        blk[kNatural[k]] = int16_t(br.extend(s));
+        ++k;
+      } else {
+        if (r != 15) break;
+        k += 16;
+      }
+    }
+  }
+
+  static void decode_ac_first(BitReader& br, const Huffman& act, int ss, int se, int al,
+                              int& eobrun, int16_t* blk) {
+    if (eobrun > 0) {
+      --eobrun;
+      return;
+    }
+    for (int k = ss; k <= se; ++k) {
+      int rs = br.decode(act), r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        if (k > se) fail("corrupt JPEG data: coefficient index past the band");
+        blk[kNatural[k]] = int16_t(uint32_t(br.extend(s)) << al);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun = 1 << r;
+        if (r) eobrun += int(br.get(r));
+        --eobrun;
+        break;
+      }
+    }
+  }
+
+  // jdphuff.c decode_mcu_AC_refine.
+  static void decode_ac_refine(BitReader& br, const Huffman& act, int ss, int se, int al,
+                               int& eobrun, int16_t* blk) {
+    const int p1 = 1 << al, m1 = -1 * (1 << al);
+    auto correct = [&](int16_t& c) {
+      if (br.get(1) && (c & p1) == 0) c = int16_t(c >= 0 ? c + p1 : c + m1);
+    };
+    int k = ss;
+    if (eobrun == 0) {
+      for (; k <= se; ++k) {
+        int rs = br.decode(act), r = rs >> 4, s = rs & 15;
+        if (s) {
+          if (s != 1) fail("corrupt JPEG data: refinement coefficient of size " + std::to_string(s));
+          s = br.get(1) ? p1 : m1;
+        } else if (r != 15) {
+          eobrun = 1 << r;
+          if (r) eobrun += int(br.get(r));
+          break;
+        }
+        do {
+          int16_t& c = blk[kNatural[k]];
+          if (c != 0) {
+            correct(c);
+          } else if (--r < 0) {
+            break;
+          }
+          ++k;
+        } while (k <= se);
+        if (s) {
+          if (k > se) fail("corrupt JPEG data: coefficient index past the band");
+          blk[kNatural[k]] = int16_t(s);
+        }
+      }
+    }
+    if (eobrun > 0) {
+      for (; k <= se; ++k) {
+        int16_t& c = blk[kNatural[k]];
+        if (c != 0) correct(c);
+      }
+      --eobrun;
+    }
+  }
+
+  // jidctint.c jpeg_idct_islow, with its post-IDCT range-limit table.
+  static void idct_islow(const int16_t* in, const int32_t* q, uint8_t* out, size_t stride) {
+    static uint8_t limit[1024];
+    static bool init = false;
+    if (!init) {
+      for (int i = 0; i < 1024; ++i)
+        limit[i] = uint8_t(i < 128 ? i + 128 : i < 512 ? 255 : i < 896 ? 0 : i - 896);
+      init = true;
+    }
+    constexpr int CB = 13, P1 = 2;
+    constexpr int64_t F0298 = 2446, F0390 = 3196, F0541 = 4433, F0765 = 6270, F0899 = 7373,
+                      F1175 = 9633, F1501 = 12299, F1847 = 15137, F1961 = 16069, F2053 = 16819,
+                      F2562 = 20995, F3072 = 25172;
+    auto descale = [](int64_t x, int n) { return (x + (int64_t(1) << (n - 1))) >> n; };
+    int ws[64];
+    for (int col = 0; col < 8; ++col) {
+      const int16_t* ip = in + col;
+      const int32_t* qp = q + col;
+      int* wp = ws + col;
+      if (!ip[8] && !ip[16] && !ip[24] && !ip[32] && !ip[40] && !ip[48] && !ip[56]) {
+        int dc = int(int64_t(ip[0]) * qp[0] * (1 << P1));
+        for (int r = 0; r < 8; ++r) wp[8 * r] = dc;
+        continue;
+      }
+      int64_t z2 = int64_t(ip[16]) * qp[16], z3 = int64_t(ip[48]) * qp[48];
+      int64_t z1 = (z2 + z3) * F0541;
+      int64_t tmp2 = z1 + z3 * -F1847, tmp3 = z1 + z2 * F0765;
+      z2 = int64_t(ip[0]) * qp[0], z3 = int64_t(ip[32]) * qp[32];
+      int64_t tmp0 = (z2 + z3) * (1 << CB), tmp1 = (z2 - z3) * (1 << CB);
+      int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+      tmp0 = int64_t(ip[56]) * qp[56], tmp1 = int64_t(ip[40]) * qp[40];
+      tmp2 = int64_t(ip[24]) * qp[24], tmp3 = int64_t(ip[8]) * qp[8];
+      z1 = tmp0 + tmp3, z2 = tmp1 + tmp2, z3 = tmp0 + tmp2;
+      int64_t z4 = tmp1 + tmp3, z5 = (z3 + z4) * F1175;
+      tmp0 *= F0298, tmp1 *= F2053, tmp2 *= F3072, tmp3 *= F1501;
+      z1 *= -F0899, z2 *= -F2562, z3 *= -F1961, z4 *= -F0390;
+      z3 += z5, z4 += z5;
+      tmp0 += z1 + z3, tmp1 += z2 + z4, tmp2 += z2 + z3, tmp3 += z1 + z4;
+      wp[0] = int(descale(tmp10 + tmp3, CB - P1));
+      wp[56] = int(descale(tmp10 - tmp3, CB - P1));
+      wp[8] = int(descale(tmp11 + tmp2, CB - P1));
+      wp[48] = int(descale(tmp11 - tmp2, CB - P1));
+      wp[16] = int(descale(tmp12 + tmp1, CB - P1));
+      wp[40] = int(descale(tmp12 - tmp1, CB - P1));
+      wp[24] = int(descale(tmp13 + tmp0, CB - P1));
+      wp[32] = int(descale(tmp13 - tmp0, CB - P1));
+    }
+    for (int row = 0; row < 8; ++row) {
+      const int* wp = ws + 8 * row;
+      uint8_t* op = out + row * stride;
+      if (!wp[1] && !wp[2] && !wp[3] && !wp[4] && !wp[5] && !wp[6] && !wp[7]) {
+        uint8_t v = limit[descale(wp[0], P1 + 3) & 1023];
+        for (int i = 0; i < 8; ++i) op[i] = v;
+        continue;
+      }
+      int64_t z2 = wp[2], z3 = wp[6];
+      int64_t z1 = (z2 + z3) * F0541;
+      int64_t tmp2 = z1 + z3 * -F1847, tmp3 = z1 + z2 * F0765;
+      int64_t tmp0 = (int64_t(wp[0]) + wp[4]) * (1 << CB), tmp1 = (int64_t(wp[0]) - wp[4]) * (1 << CB);
+      int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+      tmp0 = wp[7], tmp1 = wp[5], tmp2 = wp[3], tmp3 = wp[1];
+      z1 = tmp0 + tmp3, z2 = tmp1 + tmp2, z3 = tmp0 + tmp2;
+      int64_t z4 = tmp1 + tmp3, z5 = (z3 + z4) * F1175;
+      tmp0 *= F0298, tmp1 *= F2053, tmp2 *= F3072, tmp3 *= F1501;
+      z1 *= -F0899, z2 *= -F2562, z3 *= -F1961, z4 *= -F0390;
+      z3 += z5, z4 += z5;
+      tmp0 += z1 + z3, tmp1 += z2 + z4, tmp2 += z2 + z3, tmp3 += z1 + z4;
+      constexpr int S = CB + P1 + 3;
+      op[0] = limit[descale(tmp10 + tmp3, S) & 1023];
+      op[7] = limit[descale(tmp10 - tmp3, S) & 1023];
+      op[1] = limit[descale(tmp11 + tmp2, S) & 1023];
+      op[6] = limit[descale(tmp11 - tmp2, S) & 1023];
+      op[2] = limit[descale(tmp12 + tmp1, S) & 1023];
+      op[5] = limit[descale(tmp12 - tmp1, S) & 1023];
+      op[3] = limit[descale(tmp13 + tmp0, S) & 1023];
+      op[4] = limit[descale(tmp13 - tmp0, S) & 1023];
+    }
+  }
+
+  // The component's samples at full size (width x height), upsampled as
+  // jdsample.c does, with the vertical context of jdmainct.c (the rows
+  // above the first and below the last real row repeat it).
+  std::vector<uint8_t> full_plane(Component& c) {
+    const size_t pw = size_t(c.bw) * 8;
+    std::vector<uint8_t> plane(pw * size_t(c.bh) * 8);
+    for (int by = 0; by < c.bh; ++by)
+      for (int bx = 0; bx < c.bw; ++bx)
+        idct_islow(c.block(bx, by), c.q, plane.data() + size_t(by) * 8 * pw + size_t(bx) * 8, pw);
+    if (maxh % c.h || maxv % c.v) fail("JPEG with fractional sampling ratios is not supported");
+    const int he = maxh / c.h, ve = maxv / c.v, dw = c.dw, dh = c.dh;
+    std::vector<uint8_t> out(size_t(width) * height);
+    auto row = [&](int r) { return plane.data() + size_t(std::clamp(r, 0, dh - 1)) * pw; };
+    std::vector<int> up(size_t(2 * dw) + 2);
+    for (int y = 0; y < height; ++y) {
+      uint8_t* o = out.data() + size_t(y) * width;
+      if (he == 1 && ve == 1) {
+        std::memcpy(o, row(y), size_t(width));
+      } else if (he == 2 && ve == 1 && dw > 2) {  // h2v1_fancy_upsample
+        const uint8_t* in = row(y);
+        up[0] = in[0];
+        up[1] = (in[0] * 3 + in[1] + 2) >> 2;
+        for (int i = 1; i < dw - 1; ++i) {
+          up[size_t(2 * i)] = (in[i] * 3 + in[i - 1] + 1) >> 2;
+          up[size_t(2 * i + 1)] = (in[i] * 3 + in[i + 1] + 2) >> 2;
+        }
+        up[size_t(2 * dw - 2)] = (in[dw - 1] * 3 + in[dw - 2] + 1) >> 2;
+        up[size_t(2 * dw - 1)] = in[dw - 1];
+        for (int x = 0; x < width; ++x) o[x] = uint8_t(up[size_t(x)]);
+      } else if (he == 1 && ve == 2) {  // h1v2_fancy_upsample
+        int r = y / 2, odd = y & 1;
+        const uint8_t *in0 = row(r), *in1 = row(odd ? r + 1 : r - 1);
+        for (int x = 0; x < width; ++x) o[x] = uint8_t((in0[x] * 3 + in1[x] + 1 + odd) >> 2);
+      } else if (he == 2 && ve == 2 && dw > 2) {  // h2v2_fancy_upsample
+        int r = y / 2;
+        const uint8_t *in0 = row(r), *in1 = row(y & 1 ? r + 1 : r - 1);
+        auto cs = [&](int i) { return in0[i] * 3 + in1[i]; };
+        up[0] = (cs(0) * 4 + 8) >> 4;
+        up[1] = (cs(0) * 3 + cs(1) + 7) >> 4;
+        for (int i = 1; i < dw - 1; ++i) {
+          up[size_t(2 * i)] = (cs(i) * 3 + cs(i - 1) + 8) >> 4;
+          up[size_t(2 * i + 1)] = (cs(i) * 3 + cs(i + 1) + 7) >> 4;
+        }
+        up[size_t(2 * dw - 2)] = (cs(dw - 1) * 3 + cs(dw - 2) + 8) >> 4;
+        up[size_t(2 * dw - 1)] = (cs(dw - 1) * 4 + 7) >> 4;
+        for (int x = 0; x < width; ++x) o[x] = uint8_t(up[size_t(x)]);
+      } else {  // h2v1 / h2v2 box filter, int_upsample
+        const uint8_t* in = row(y / ve);
+        for (int x = 0; x < width; ++x) o[x] = in[x / he];
+      }
+    }
+    return out;
+  }
+
+  Image decode() {
+    if (in.n < 2 || in.p[0] != 0xFF || in.p[1] != 0xD8) fail("not a JPEG file");
+    size_t p = 2;
+    bool scanned = false;
+    for (;;) {
+      if (in.u8(p, "JPEG file") != 0xFF) fail("corrupt JPEG: expected a marker");
+      while (in.u8(p, "JPEG file") == 0xFF) ++p;
+      int code = in.p[p++];
+      if (code == 0xD9) break;  // EOI
+      if (code >= 0xD0 && code <= 0xD7) fail("corrupt JPEG: RST marker outside a scan");
+      if (code == 0x01 || code == 0xD8) fail("corrupt JPEG: unexpected marker");
+      size_t len = in.be16(p, "JPEG marker segment");
+      if (len < 2) fail("corrupt JPEG: bad segment length");
+      in.need(p, len, "JPEG marker segment");
+      size_t body = p + 2, end = p + len;
+      p = end;
+      switch (code) {
+        case 0xC0: case 0xC1: case 0xC2:
+          read_sof(code, body, end);
+          break;
+        case 0xC3: case 0xC7: case 0xCB: case 0xCF:
+          fail("lossless JPEG is not supported");
+        case 0xC5: case 0xC6: case 0xCD: case 0xCE:
+          fail("hierarchical JPEG is not supported");
+        case 0xC9: case 0xCA: case 0xCC:
+          fail("arithmetic-coded JPEG is not supported");
+        case 0xC4:
+          read_dht(body, end);
+          break;
+        case 0xDB:
+          read_dqt(body, end);
+          break;
+        case 0xDD:
+          if (len != 4) fail("corrupt JPEG: bad DRI segment");
+          restart_interval = int(in.be16(body, "DRI"));
+          break;
+        case 0xDA:
+          p = read_scan(body, end) - 1;  // at the FF of the marker that ends the scan
+          scanned = true;
+          break;
+        case 0xDC:
+          fail("JPEG with a DNL marker is not supported");
+        case 0xE0:
+          if (len - 2 >= 14 && !std::memcmp(in.p + body, "JFIF\0", 5)) saw_jfif = true;
+          break;
+        case 0xEE:
+          if (len - 2 >= 12 && !std::memcmp(in.p + body, "Adobe", 5)) {
+            saw_adobe = true;
+            adobe_transform = in.p[body + 11];
+          }
+          break;
+        default:
+          if ((code >= 0xE0 && code <= 0xEF) || code == 0xFE) break;  // APPn, COM
+          fail("corrupt JPEG: unknown marker 0x" + std::to_string(code));
+      }
+    }
+    if (!have_frame || !scanned) fail("corrupt JPEG: no frame or no scan");
+    if (progressive) {  // jdcoefct.c would smooth the blocks of an incomplete file
+      for (const Component& c : comps)
+        for (int k = 0; k < 64; ++k)
+          if (c.coef_bits[k] != 0)
+            fail("incomplete progressive JPEG (block smoothing is not supported)");
+    }
+    // jdapimin.c default_decompress_parms.
+    bool ycc = comps.size() == 3;
+    if (ycc && !saw_jfif) {
+      if (saw_adobe) ycc = adobe_transform != 0;
+      else if (comps[0].id == 82 && comps[1].id == 71 && comps[2].id == 66) ycc = false;
+    }
+    Image img;
+    img.alloc(width, height, int64_t(comps.size()), comps.size() == 1 ? "L" : "RGB");
+    std::vector<std::vector<uint8_t>> planes;
+    for (Component& c : comps) planes.push_back(full_plane(c));
+    const size_t npx = size_t(width) * height;
+    if (comps.size() == 1) {
+      std::memcpy(img.px.data(), planes[0].data(), npx);
+      return img;
+    }
+    // jdcolor.c build_ycc_rgb_table and ycc_rgb_convert.
+    int cr_r[256], cb_b[256];
+    int64_t cr_g[256], cb_g[256];
+    constexpr int SB = 16;
+    constexpr int64_t HALF = int64_t(1) << (SB - 1);
+    auto fix = [](double x) { return int64_t(x * (1 << SB) + 0.5); };
+    for (int i = 0, x = -128; i < 256; ++i, ++x) {
+      cr_r[i] = int((fix(1.40200) * x + HALF) >> SB);
+      cb_b[i] = int((fix(1.77200) * x + HALF) >> SB);
+      cr_g[i] = -fix(0.71414) * x;
+      cb_g[i] = -fix(0.34414) * x + HALF;
+    }
+    auto clamp8 = [](int v) { return uint8_t(v < 0 ? 0 : v > 255 ? 255 : v); };
+    uint8_t* o = img.px.data();
+    for (size_t i = 0; i < npx; ++i, o += 3) {
+      int y = planes[0][i], cb = planes[1][i], cr = planes[2][i];
+      if (!ycc) {
+        o[0] = uint8_t(y), o[1] = uint8_t(cb), o[2] = uint8_t(cr);
+        continue;
+      }
+      o[0] = clamp8(y + cr_r[cr]);
+      o[1] = clamp8(y + int((cb_g[cb] + cr_g[cr]) >> SB));
+      o[2] = clamp8(y + cb_b[cb]);
+    }
+    return img;
+  }
+};
+
+// ----------------------------------------------------------------- PNG ----
+
+// Reconstructs a PNG's pixels from its inflated image data, as Pillow's
+// PngImagePlugin reads them (its _MODES table):
+//   grey 1 -> "1" (0/255), 2/4 -> "L" scaled to 0-255, 8 -> "L";
+//   grey 16 -> "I;16", returned as v >> 8 (stb_image's 16-to-8 bit rule);
+//   grey with tRNS -> grey + alpha, alpha 0 where the sample, scaled to
+//     0-255, equals the key as Pillow holds it (1-bit: 255 for any key but
+//     0; 2/4/8-bit: the raw key), 16-bit: where the raw sample equals it;
+//   RGB 8/16 -> "RGB" (16-bit: the high byte; tRNS ignored, as Pillow keeps
+//     the mode RGB);
+//   palette 1/2/4/8 -> "P", expanded to RGBA with tRNS alpha;
+//   grey + alpha 8 -> "LA", 16 -> "RGBA" (high bytes), both as grey + alpha;
+//   RGBA 8/16 -> "RGBA" (16-bit: high bytes).
+Image png_reconstruct(Bytes raw, int64_t w, int64_t h, int depth, int ctype, int interlace,
+                      Bytes plte, Bytes trns) {
+  int spp;
+  bool ok;
+  switch (ctype) {
+    case 0: spp = 1, ok = depth == 1 || depth == 2 || depth == 4 || depth == 8 || depth == 16; break;
+    case 2: spp = 3, ok = depth == 8 || depth == 16; break;
+    case 3: spp = 1, ok = depth == 1 || depth == 2 || depth == 4 || depth == 8; break;
+    case 4: spp = 2, ok = depth == 8 || depth == 16; break;
+    case 6: spp = 4, ok = depth == 8 || depth == 16; break;
+    default: fail("PNG colour type " + std::to_string(ctype) + " does not exist");
+  }
+  if (!ok) fail("PNG bit depth " + std::to_string(depth) + " is invalid for colour type " + std::to_string(ctype));
+  if (interlace != 0 && interlace != 1) fail("PNG interlace method " + std::to_string(interlace) + " does not exist");
+  if (w <= 0 || h <= 0 || w > 0x7FFFFFFF || h > 0x7FFFFFFF) fail("PNG has bad dimensions");
+  Palette pal;
+  if (ctype == 3) {
+    if (plte.n == 0) fail("palette PNG has no PLTE chunk");
+    if (plte.n % 3 || plte.n > 768) fail("PNG PLTE chunk has a bad length");
+    for (size_t i = 0; i < plte.n / 3; ++i)
+      for (int k = 0; k < 3; ++k) pal.e[i][k] = plte.p[3 * i + size_t(k)];
+    for (size_t i = 0; i < std::min<size_t>(trns.n, 256); ++i) pal.e[i][3] = trns.p[i];
+  }
+  const bool grey_key = ctype == 0 && trns.n > 0;
+  if (grey_key && trns.n < 2) fail("PNG tRNS chunk too short");
+  uint32_t key = grey_key ? trns.be16(0, "tRNS") : 0;
+  if (grey_key && depth == 1) key = key ? 255 : 0;  // PngImagePlugin.chunk_tRNS, mode "1"
+  static const char* modes[] = {"", "1", "L", "", "L", "", "", "", "L"};
+  const char* mode = ctype == 0 ? (depth == 16 ? "I;16" : modes[depth])
+                     : ctype == 2 ? "RGB" : ctype == 3 ? "P" : ctype == 4 ? (depth == 8 ? "LA" : "RGBA")
+                     : "RGBA";
+  const int channels = ctype == 0 ? (grey_key ? 2 : 1) : ctype == 2 ? 3 : ctype == 4 ? 2 : 4;
+  Image img;
+  img.alloc(w, h, channels, mode);
+
+  static const int kPass[7][4] = {{0, 0, 8, 8}, {4, 0, 8, 8}, {0, 4, 4, 8}, {2, 0, 4, 4},
+                                  {0, 2, 2, 4}, {1, 0, 2, 2}, {0, 1, 1, 2}};
+  static const int kWhole[1][4] = {{0, 0, 1, 1}};
+  const int (*passes)[4] = interlace ? kPass : kWhole;
+  const int npass = interlace ? 7 : 1;
+  const int bits_pp = spp * depth, bpp = std::max(1, bits_pp / 8);
+  // The exact size of the image data.
+  size_t expect = 0;
+  for (int i = 0; i < npass; ++i) {
+    int64_t pw = (w - passes[i][0] + passes[i][2] - 1) / passes[i][2];
+    int64_t ph = (h - passes[i][1] + passes[i][3] - 1) / passes[i][3];
+    if (pw > 0 && ph > 0) expect += size_t(ph) * (1 + size_t((pw * bits_pp + 7) / 8));
+  }
+  if (raw.n != expect)
+    fail("PNG image data holds " + std::to_string(raw.n) + " bytes, expected " + std::to_string(expect));
+
+  const int scale = depth == 1 ? 255 : depth == 2 ? 85 : depth == 4 ? 17 : 1;
+  size_t off = 0;
+  std::vector<uint8_t> cur, prior;
+  for (int i = 0; i < npass; ++i) {
+    const int x0 = passes[i][0], y0 = passes[i][1], dx = passes[i][2], dy = passes[i][3];
+    int64_t pw = (w - x0 + dx - 1) / dx, ph = (h - y0 + dy - 1) / dy;
+    if (pw <= 0 || ph <= 0) continue;
+    const size_t rb = size_t((pw * bits_pp + 7) / 8);
+    prior.assign(rb, 0);
+    cur.assign(rb, 0);
+    for (int64_t r = 0; r < ph; ++r) {
+      const int f = raw.p[off];
+      const uint8_t* src = raw.p + off + 1;
+      off += 1 + rb;
+      const size_t b = size_t(bpp);
+      switch (f) {
+        case 0: std::memcpy(cur.data(), src, rb); break;
+        case 1:
+          for (size_t j = 0; j < rb; ++j) cur[j] = uint8_t(src[j] + (j >= b ? cur[j - b] : 0));
+          break;
+        case 2:
+          for (size_t j = 0; j < rb; ++j) cur[j] = uint8_t(src[j] + prior[j]);
+          break;
+        case 3:
+          for (size_t j = 0; j < rb; ++j)
+            cur[j] = uint8_t(src[j] + (((j >= b ? cur[j - b] : 0) + prior[j]) >> 1));
+          break;
+        case 4:  // Paeth; left and upper-left are 0 in the first pixel
+          for (size_t j = 0; j < std::min(b, rb); ++j) cur[j] = uint8_t(src[j] + prior[j]);
+          for (size_t j = b; j < rb; ++j) {
+            const int a = cur[j - b], up = prior[j], c = prior[j - b];
+            const int pa = std::abs(up - c), pb = std::abs(a - c), pc = std::abs(a + up - 2 * c);
+            cur[j] = uint8_t(src[j] + (pa <= pb && pa <= pc ? a : pb <= pc ? up : c));
+          }
+          break;
+        default: fail("PNG row filter " + std::to_string(f) + " does not exist (0-4)");
+      }
+      const int64_t y = y0 + r * dy;
+      if (depth == 8 && dx == 1 && (ctype == 2 || ctype == 4 || ctype == 6 || (ctype == 0 && !grey_key))) {
+        std::memcpy(img.at(y, 0), cur.data(), rb);  // the samples are the pixels
+        std::swap(cur, prior);
+        continue;
+      }
+      for (int64_t xi = 0; xi < pw; ++xi) {
+        uint8_t* o = img.at(y, x0 + xi * dx);
+        auto sample = [&](int k) -> uint32_t {
+          if (depth == 8) return cur[size_t(xi * spp + k)];
+          if (depth == 16) {
+            size_t q = size_t(2 * (xi * spp + k));
+            return uint32_t(cur[q]) << 8 | cur[q + 1];
+          }
+          size_t bit = size_t(xi) * size_t(depth);
+          return (cur[bit >> 3] >> (8 - depth - int(bit & 7))) & ((1u << depth) - 1);
+        };
+        switch (ctype) {
+          case 0: {
+            uint32_t s = sample(0);
+            uint32_t v = depth == 16 ? s >> 8 : s * uint32_t(scale);
+            o[0] = uint8_t(v);
+            if (grey_key) o[1] = (depth == 16 ? s : v) == key ? 0 : 255;
+            break;
+          }
+          case 3:
+            std::memcpy(o, pal.e[sample(0) & 255], 4);
+            break;
+          default:
+            for (int k = 0; k < spp; ++k) o[k] = uint8_t(depth == 16 ? sample(k) >> 8 : sample(k));
+        }
+      }
+      std::swap(cur, prior);
+    }
+  }
+  return img;
+}
+
+// ----------------------------------------------------------------- TGA ----
+
+// As Pillow's TgaImagePlugin: types 1/9 (colour-mapped, 8-bit indexes, a
+// 24-bit map whose first `start` entries are black) -> "P"; 3/11 (grey,
+// 8-bit) -> "L"; 2/10 (true colour) 24-bit -> "RGB", 32-bit -> "RGBA";
+// origin bit 0x20 top, 0x10 right.  Beyond what Pillow 12 reads, as
+// stb_image does: RLE packets that cross rows, a 32-bit colour map (its
+// alpha kept), a colour map beside a true-colour image (skipped).
+Image tga(Bytes in) {
+  if (in.n < 18) fail("truncated TGA header");
+  const int id_len = in.p[0], cmap_type = in.p[1], type = in.p[2];
+  const int cmap_start = int(in.le16(3, "TGA")), cmap_len = int(in.le16(5, "TGA")), cmap_depth = in.p[7];
+  const int w = int(in.le16(12, "TGA")), h = int(in.le16(14, "TGA")), depth = in.p[16], flags = in.p[17];
+  if (cmap_type > 1 || w <= 0 || h <= 0 ||
+      !(depth == 1 || depth == 8 || depth == 16 || depth == 24 || depth == 32))
+    fail("not a TGA file");
+  const int base = type & 7;
+  if (!(type == 1 || type == 2 || type == 3 || type == 9 || type == 10 || type == 11))
+    fail("unknown TGA image type " + std::to_string(type));
+  if (base == 2 ? depth != 24 && depth != 32 : depth != 8)
+    fail(std::to_string(depth) + "-bit TGA of type " + std::to_string(type) + " is not supported");
+  if (base == 1 && cmap_type != 1) fail("corrupt TGA: colour-mapped image without a colour map");
+  size_t p = 18 + size_t(id_len);
+  Palette pal;
+  if (cmap_type == 1) {
+    if (cmap_depth == 15 || cmap_depth == 16) fail("TGA with a 16-bit colour map is not supported");
+    if (cmap_depth != 24 && cmap_depth != 32) fail("unknown TGA map depth");
+    const int eb = cmap_depth / 8;
+    in.need(p, size_t(cmap_len) * size_t(eb), "TGA colour map");
+    for (int i = 0; i < cmap_start + cmap_len && i < 256; ++i) {
+      uint8_t* e = pal.e[i];
+      if (i < cmap_start) {
+        e[0] = e[1] = e[2] = 0, e[3] = eb == 4 ? 0 : 255;
+        continue;
+      }
+      const uint8_t* s = in.p + p + size_t(i - cmap_start) * size_t(eb);
+      e[0] = s[2], e[1] = s[1], e[2] = s[0], e[3] = eb == 4 ? s[3] : 255;
+    }
+    p += size_t(cmap_len) * size_t(eb);
+  }
+  const int pb = depth / 8;  // bytes per stored pixel
+  const char* mode = base == 3 ? "L" : base == 1 ? "P" : depth == 24 ? "RGB" : "RGBA";
+  const int channels = base == 3 ? 1 : base == 1 ? 4 : pb;
+  Image img;
+  img.alloc(w, h, channels, mode);
+  const int64_t npx = int64_t(w) * h;
+  std::vector<uint8_t> flat(size_t(npx) * size_t(pb));
+  if (type & 8) {
+    int64_t i = 0;
+    while (i < npx) {
+      const int hdr = in.u8(p++, "TGA RLE data"), count = (hdr & 0x7F) + 1;
+      if (i + count > npx) fail("corrupt TGA: RLE packet past the image");
+      if (hdr & 0x80) {
+        in.need(p, size_t(pb), "TGA RLE data");
+        for (int k = 0; k < count; ++k) std::memcpy(&flat[size_t(i + k) * size_t(pb)], in.p + p, size_t(pb));
+        p += size_t(pb);
+      } else {
+        in.need(p, size_t(count) * size_t(pb), "TGA RLE data");
+        std::memcpy(&flat[size_t(i) * size_t(pb)], in.p + p, size_t(count) * size_t(pb));
+        p += size_t(count) * size_t(pb);
+      }
+      i += count;
+    }
+  } else {
+    in.need(p, flat.size(), "TGA image data");
+    std::memcpy(flat.data(), in.p + p, flat.size());
+  }
+  const bool top = flags & 0x20, right = flags & 0x10;
+  for (int y = 0; y < h; ++y) {
+    const int sy = top ? y : h - 1 - y;
+    for (int x = 0; x < w; ++x) {
+      const int sx = right ? w - 1 - x : x;
+      const uint8_t* s = &flat[(size_t(sy) * size_t(w) + size_t(sx)) * size_t(pb)];
+      uint8_t* o = img.at(y, x);
+      if (channels == 1) {
+        o[0] = s[0];
+      } else if (base == 1) {
+        std::memcpy(o, pal.e[s[0]], 4);
+      } else {
+        o[0] = s[2], o[1] = s[1], o[2] = s[0];
+        if (pb == 4) o[3] = s[3];
+      }
+    }
+  }
+  return img;
+}
+
+// ----------------------------------------------------------------- BMP ----
+
+// As Pillow's BmpImagePlugin: BITMAPCOREHEADER (12) and the 40-124 byte
+// headers; 1/4/8-bit palettes -> "P", expanded (grey palettes -> "1" or
+// "L", one channel); 24-bit -> "RGB"; 32-bit BI_RGB -> "RGB" (the fourth byte
+// ignored); 32-bit BI_BITFIELDS -> the masks Pillow knows, "RGBA" where one
+// is alpha.
+Image bmp(Bytes in) {
+  if (in.n < 18 || in.p[0] != 'B' || in.p[1] != 'M') fail("not a BMP file");
+  size_t offset = in.le32(10, "BMP header");
+  const uint32_t hs = in.le32(14, "BMP header");
+  int64_t w, h;
+  int bits, compression = 0, pad;
+  uint32_t colors = 0, masks[4] = {0, 0, 0, 0};
+  bool top_down = false;
+  in.need(14, hs, "BMP header");
+  size_t p = 14 + hs;  // the palette, or the masks of a 40-byte header
+  if (hs == 12) {
+    w = in.le16(18, "BMP"), h = in.le16(20, "BMP"), bits = int(in.le16(24, "BMP")), pad = 3;
+  } else if (hs == 40 || hs == 52 || hs == 56 || hs == 64 || hs == 108 || hs == 124) {
+    top_down = in.p[25] == 0xFF;
+    w = in.le32(18, "BMP");
+    const uint32_t hr = in.le32(22, "BMP");
+    h = top_down ? int64_t(0x100000000) - hr : int64_t(hr);
+    bits = int(in.le16(28, "BMP"));
+    compression = int(in.le32(30, "BMP"));
+    colors = in.le32(46, "BMP");
+    pad = 4;
+    if (compression == 3) {
+      if (hs - 4 >= 48) {
+        for (int k = 0; k < (hs - 4 >= 52 ? 4 : 3); ++k) masks[k] = in.le32(54 + 4 * size_t(k), "BMP");
+      } else {  // a 40-byte header: three masks follow it
+        for (int k = 0; k < 3; ++k) masks[k] = in.le32(14 + hs + 4 * size_t(k), "BMP bitfields");
+        p += 12;
+      }
+    }
+  } else {
+    fail("unsupported BMP header size " + std::to_string(hs));
+  }
+  if (colors == 0) colors = bits < 32 ? uint32_t(1) << bits : 0;
+  if (offset == 14 + hs && bits <= 8) offset += 4 * size_t(colors);
+  if (compression == 1 || compression == 2) fail("RLE-compressed BMP is not supported");
+  if (compression != 0 && compression != 3) fail("unsupported BMP compression " + std::to_string(compression));
+  if (bits == 16) fail("16-bit BMP is not supported");
+  if (bits != 1 && bits != 4 && bits != 8 && bits != 24 && bits != 32)
+    fail("unsupported BMP pixel depth " + std::to_string(bits));
+  // Channel byte offsets in a stored pixel (BGR order by default), -1: none.
+  int ch[4] = {2, 1, 0, -1};
+  if (compression == 3) {
+    struct Layout { uint32_t m[4]; int ch[4]; };
+    static const Layout l32[] = {
+        {{0xFF0000, 0xFF00, 0xFF, 0}, {2, 1, 0, -1}},                   // BGRX
+        {{0xFF000000, 0xFF0000, 0xFF00, 0}, {3, 2, 1, -1}},            // XBGR
+        {{0xFF000000, 0xFF00, 0xFF, 0}, {3, 1, 0, -1}},                // BGXR
+        {{0xFF000000, 0xFF0000, 0xFF00, 0xFF}, {3, 2, 1, 0}},          // ABGR
+        {{0xFF, 0xFF00, 0xFF0000, 0xFF000000}, {0, 1, 2, 3}},          // RGBA
+        {{0xFF0000, 0xFF00, 0xFF, 0xFF000000}, {2, 1, 0, 3}},          // BGRA
+        {{0xFF000000, 0xFF00, 0xFF, 0xFF0000}, {3, 1, 0, 2}},          // BGAR
+        {{0, 0, 0, 0}, {2, 1, 0, 3}},                                  // BGRA
+    };
+    bool found = false;
+    if (bits == 32) {
+      for (const Layout& l : l32)
+        if (!std::memcmp(l.m, masks, sizeof masks)) std::memcpy(ch, l.ch, sizeof ch), found = true;
+    } else if (bits == 24) {
+      found = masks[0] == 0xFF0000 && masks[1] == 0xFF00 && masks[2] == 0xFF;
+    }
+    if (!found) fail("unsupported BMP bitfields layout");
+  }
+  Palette pal;
+  bool grey = false;
+  if (bits <= 8) {
+    if (colors == 0 || colors > 65536) fail("unsupported BMP palette size " + std::to_string(colors));
+    if (colors > 256) fail("BMP palette of more than 256 entries is not supported");
+    in.need(p, size_t(colors) * size_t(pad), "BMP palette");
+    grey = true;
+    for (uint32_t i = 0; i < colors; ++i) {
+      const uint8_t* s = in.p + p + size_t(i) * size_t(pad);
+      const uint32_t want = colors == 2 ? i * 255 : i;
+      if (s[0] != want || s[1] != want || s[2] != want) grey = false;
+      pal.e[i][0] = s[2], pal.e[i][1] = s[1], pal.e[i][2] = s[0], pal.e[i][3] = 255;
+    }
+    // Pillow reads a grey palette as mode "1" (2 entries) or "L" with raw
+    // 1- or 8-bit samples whatever the depth: only the matching depth
+    // gives the palette's pixels.
+    if (grey && (colors == 2 ? bits != 1 : bits != 8))
+      fail("BMP with a " + std::to_string(colors) + "-entry grey palette at " + std::to_string(bits) +
+           " bits is not supported");
+  }
+  if (w <= 0 || h <= 0) fail("BMP has bad dimensions");
+  const char* mode = grey ? (colors == 2 ? "1" : "L") : bits <= 8 ? "P" : ch[3] >= 0 ? "RGBA" : "RGB";
+  const int channels = grey ? 1 : bits <= 8 ? 4 : ch[3] >= 0 ? 4 : 3;
+  Image img;
+  img.alloc(w, h, channels, mode);
+  const size_t stride = size_t(((w * bits + 31) >> 3) & ~int64_t(3));
+  in.need(offset, stride * size_t(h), "BMP pixel data");
+  for (int64_t y = 0; y < h; ++y) {
+    const uint8_t* row = in.p + offset + stride * size_t(top_down ? y : h - 1 - y);
+    for (int64_t x = 0; x < w; ++x) {
+      uint8_t* o = img.at(y, x);
+      if (bits <= 8) {
+        const size_t bit = size_t(x) * size_t(bits);
+        const int idx = (row[bit >> 3] >> (8 - bits - int(bit & 7))) & ((1 << bits) - 1);
+        std::memcpy(o, pal.e[idx], size_t(channels));
+      } else {
+        const uint8_t* s = row + size_t(x) * size_t(bits / 8);
+        for (int k = 0; k < channels; ++k) o[k] = s[ch[k]];
+      }
+    }
+  }
+  return img;
+}
+
+void* finish(Image&& img) { return new Image(std::move(img)); }
+
+void write_error(char* err, int64_t errlen, const char* msg) {
+  if (err && errlen > 0) {
+    std::strncpy(err, msg, size_t(errlen) - 1);
+    err[errlen - 1] = 0;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// format: 1 JPEG, 2 BMP, 3 TGA.  Returns a handle, or NULL with the reason in err.
+void* imgd_decode(const uint8_t* data, int64_t n, int32_t format, char* err, int64_t errlen) {
+  try {
+    Bytes in{data, size_t(n < 0 ? 0 : n)};
+    switch (format) {
+      case 1: return finish(Jpeg(in).decode());
+      case 2: return finish(bmp(in));
+      case 3: return finish(tga(in));
+      default: fail("unknown image format code " + std::to_string(format));
+    }
+  } catch (const std::exception& e) {
+    write_error(err, errlen, e.what());
+  }
+  return nullptr;
+}
+
+// The pixels of a PNG from its inflated image data and its header fields;
+// plte / trns may be empty (length 0).
+void* imgd_png(const uint8_t* raw, int64_t nraw, int64_t w, int64_t h, int32_t depth, int32_t ctype,
+               int32_t interlace, const uint8_t* plte, int64_t nplte, const uint8_t* trns,
+               int64_t ntrns, char* err, int64_t errlen) {
+  try {
+    return finish(png_reconstruct(Bytes{raw, size_t(nraw)}, w, h, depth, ctype, interlace,
+                                  Bytes{plte, size_t(nplte)}, Bytes{trns, size_t(ntrns)}));
+  } catch (const std::exception& e) {
+    write_error(err, errlen, e.what());
+  }
+  return nullptr;
+}
+
+int64_t imgd_width(void* r) { return static_cast<Image*>(r)->w; }
+int64_t imgd_height(void* r) { return static_cast<Image*>(r)->h; }
+int64_t imgd_channels(void* r) { return static_cast<Image*>(r)->c; }
+const char* imgd_mode(void* r) { return static_cast<Image*>(r)->mode.c_str(); }
+const uint8_t* imgd_pixels(void* r) { return static_cast<Image*>(r)->px.data(); }
+void imgd_free(void* r) { delete static_cast<Image*>(r); }
+
+}  // extern "C"

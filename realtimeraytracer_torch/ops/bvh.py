@@ -1,9 +1,9 @@
 """LBVH build: Morton-ordered bounding volume hierarchy with skip links.
 
-The builder and the host refit of realtimeraytracer_tpu/ops/bvh.py (host
-NumPy, unchanged): the JAX package cannot be imported without jax, so the
-port carries its own.  ``refit_numpy`` is the oracle of the device-side
-refit (ops/refit.py).
+The LBVH build, the host refit and the invariant check of
+realtimeraytracer_tpu/ops/bvh.py (host NumPy, unchanged): the JAX package
+cannot be imported without jax, so the port carries its own.
+``refit_numpy`` is the oracle of the device-side refit (ops/refit.py).
 
 The scene compile's default is the native binned-SAH build
 (utils/native.py::native_build_bvh, native/bvh_sah.cpp), as in the JAX
@@ -167,3 +167,21 @@ def refit_numpy(bvh: BVHArrays, v0, v1, v2) -> BVHArrays:
         tri_v0=sv0.astype(np.float32), tri_v1=sv1.astype(np.float32),
         tri_v2=sv2.astype(np.float32),
     )
+
+
+def validate_bvh(bvh: BVHArrays) -> None:
+    """Sanity invariants (raises AssertionError, as the JAX package's does):
+    every triangle in exactly one leaf; skip links in range; no node box
+    inverted."""
+    n = len(bvh.node_min)
+    t = len(bvh.tri_v0)
+    covered = np.zeros(t, bool)
+    for i in range(n):
+        c = bvh.node_count[i]
+        if c > 0:
+            s = bvh.node_first[i]
+            assert not covered[s:s + c].any(), "leaf overlap"
+            covered[s:s + c] = True
+    assert covered.all(), "leaves must cover all triangles"
+    assert (bvh.node_skip >= 0).all() and (bvh.node_skip <= n).all()
+    assert (bvh.node_min <= bvh.node_max + 1e-6).all()

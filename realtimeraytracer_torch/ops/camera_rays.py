@@ -2,7 +2,7 @@
 
 Counterpart of realtimeraytracer_tpu/ops/camera_rays.py (``ViewportFrame``,
 ``block_permutation``, ``pixel_grid``, ``generate_ray_blocks``,
-``generate_rays``): the reference's
+``blocks_to_image_scatter``, ``generate_rays``): the reference's
 ``dir = normalize(topLeft + (px+jx-0.5)*hDelta + (py+jy-0.5)*vDelta - pos)``
 (raygen.rgen:86-92) over the whole image at once, with the same per-pixel
 counter-hash jitter.  ``generate_ray_blocks`` emits the rays straight in
@@ -131,6 +131,20 @@ def generate_ray_blocks(frame: ViewportFrame, width: int, height: int,
          torch.where(valid, torch.tensor(t_min, dtype=torch.float32, device=dev), big),
          torch.where(valid, torch.tensor(t_max, dtype=torch.float32, device=dev), -big)],
         dim=1)
+
+
+def blocks_to_image_scatter(width: int, height: int, block_w: int = 16, block_h: int = 8,
+                            device: str | torch.device = "cpu") -> torch.Tensor:
+    """(H*W,) int64 index unpacking blocked outputs: image_flat =
+    blocked_flat[scatter], where scatter[y*width + x] is the blocked
+    position of pixel (x, y) (the (Ts, 128) layout of
+    ``generate_ray_blocks``)."""
+    bx = -(-width // block_w)
+    py, px = np.mgrid[0:height, 0:width]
+    tid = (py // block_h) * bx + (px // block_w)
+    lane = (py % block_h) * block_w + (px % block_w)
+    return torch.as_tensor((tid * (block_w * block_h) + lane).reshape(-1), dtype=torch.int64,
+                           device=device)
 
 
 def generate_rays(frame: ViewportFrame, width: int, height: int,

@@ -2,10 +2,12 @@
 
 Counterpart of realtimeraytracer_tpu/ops/vecmath.py.  Shape-polymorphic over
 leading batch dims; safe normalization returns 0 for the zero vector.
+``look_at_angles`` is host math in float64, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -35,3 +37,33 @@ def reflect(incident: torch.Tensor, normal: torch.Tensor) -> torch.Tensor:
 def mix(a, b, t):
     """GLSL mix / lerp."""
     return a * (1.0 - t) + b * t
+
+
+def transform_points(mat4: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Apply a (4,4) homogeneous transform to (..., 3) points."""
+    return pts @ mat4[:3, :3].T + mat4[:3, 3]
+
+
+def transform_dirs(mat4: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+    """Apply the linear part of a (4,4) transform to (..., 3) directions."""
+    return dirs @ mat4[:3, :3].T
+
+
+def normal_matrix(mat4: torch.Tensor) -> torch.Tensor:
+    """Inverse-transpose 3x3 for transforming normals (the reference
+    computes it per hit in GLSL: closesthit.rchit:73-76)."""
+    return torch.linalg.inv(mat4[:3, :3]).T
+
+
+def look_at_angles(position, look_at) -> tuple[float, float]:
+    """Yaw/pitch (degrees) of the direction from position to look_at, in
+    the reference fly camera's convention (camera.cppm:84-86: pitch =
+    asin(dir.y), yaw = atan2(dir.z, dir.x))."""
+    def host(v):
+        if isinstance(v, torch.Tensor):
+            v = v.detach().cpu().numpy()
+        return np.asarray(v, np.float64)
+
+    d = host(look_at) - host(position)
+    d = d / np.linalg.norm(d)
+    return float(np.degrees(np.arctan2(d[2], d[0]))), float(np.degrees(np.arcsin(d[1])))

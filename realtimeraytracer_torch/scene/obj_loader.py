@@ -7,9 +7,9 @@ native/objparse.cpp through utils/native.py, or the pure-Python parser
 with ``allow_native=False`` or without a C++ compiler), ``_dedup_shape``,
 ``load_obj``, ``load_obj_mtl``, ``load_texture_file``, ``decode_radiance_hdr``,
 ``encode_radiance_hdr``, ``load_hdr`` and ``load_obj_scene``, with the same
-results.  Texture files are read by the port's own PNG codec
-(utils/png.py) instead of Pillow: 8-bit grey, RGB and RGBA PNGs, with
-Pillow's grey conversion reproduced bit for bit.
+results.  Texture files and 8-bit skies are read by the port's native
+decoder (utils/image_decode.py: JPEG, PNG, TGA, BMP) instead of Pillow and
+imageio, with Pillow's modes and grey conversion reproduced bit for bit.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ import numpy as np
 
 from realtimeraytracer_torch.scene.geometry import TriangleMesh, compute_vertex_normals
 from realtimeraytracer_torch.scene.materials import Material
-from realtimeraytracer_torch.utils.image_io import read_png
+from realtimeraytracer_torch.utils.image_io import read_image
 
 log = logging.getLogger(__name__)
 
@@ -267,9 +267,10 @@ def load_obj_mtl(obj_path: str, mtl_path: str | None = None) -> list[TriangleMes
 
 
 def _grey(pixels: np.ndarray) -> np.ndarray:
-    """(H, W) uint8 luma of (H, W, C) pixels, rounded as Pillow's
-    convert("L") rounds: (R*19595 + G*38470 + B*7471 + 2^15) >> 16."""
-    if pixels.shape[2] == 1:
+    """(H, W) uint8 luma of (H, W, C) pixels as Pillow's convert("L")
+    gives it: grey (C = 1, 2) as it is, colour rounded as Pillow rounds:
+    (R*19595 + G*38470 + B*7471 + 2^15) >> 16."""
+    if pixels.shape[2] <= 2:
         return pixels[..., 0]
     p = pixels.astype(np.uint32)
     return ((p[..., 0] * 19595 + p[..., 1] * 38470 + p[..., 2] * 7471 + 0x8000)
@@ -277,17 +278,19 @@ def _grey(pixels: np.ndarray) -> np.ndarray:
 
 
 def load_texture_file(path: str, grayscale: bool = False) -> np.ndarray:
-    """Decode a PNG file to float32 [0,1] (H, W, C), vertically flipped to
-    match the reference's stbi_set_flip_vertically_on_load usage
-    (file.cppm:276-291; grayscale R8 vs RGBA8 modes).  As in the JAX
-    package, grey files load as RGBA (alpha 1) unless grayscale is set,
-    and values are divided by 255 only when some value exceeds 1.5."""
-    px = read_png(path)
+    """Decode an image file (JPEG, PNG, TGA, BMP) to float32 [0,1] (H, W,
+    C), vertically flipped to match the reference's
+    stbi_set_flip_vertically_on_load usage (file.cppm:276-291; grayscale R8
+    vs RGBA8 modes).  As in the JAX package, RGB and RGBA files keep their
+    channels and any other file loads as RGBA (palettes expanded, grey with
+    alpha 1 or its own) unless grayscale is set, and values are divided by
+    255 only when some value exceeds 1.5."""
+    px = read_image(path)
     if grayscale:
         px = _grey(px)
-    elif px.shape[2] == 1:
-        px = np.concatenate([np.repeat(px, 3, axis=2),
-                             np.full(px.shape[:2] + (1,), 255, np.uint8)], axis=2)
+    elif px.shape[2] <= 2:
+        alpha = px[..., 1:] if px.shape[2] == 2 else np.full(px.shape[:2] + (1,), 255, np.uint8)
+        px = np.concatenate([np.repeat(px[..., :1], 3, axis=2), alpha], axis=2)
     arr = px.astype(np.float32)
     if arr.max() > 1.5:
         arr = arr / 255.0
@@ -381,18 +384,32 @@ def encode_radiance_hdr(rgb: np.ndarray) -> bytes:
 
 
 def load_hdr(path: str, tone_encode: bool = True) -> np.ndarray:
-    """Load a Radiance .hdr sky to (H, W, 3) float32, flipped (row 0 =
-    bottom) and, with tone_encode, clamped and encoded with pow(1/2.2) as
-    the reference's 8-bit sky path does (application.cppm:250); the miss
-    shader re-linearizes it.  The JAX package also reads other formats
-    through imageio, which the port does not depend on."""
-    if not path.lower().endswith(".hdr"):
-        raise ValueError(f"load_hdr reads Radiance .hdr files only, got {path!r}")
-    with open(path, "rb") as f:
-        rgb = decode_radiance_hdr(f.read())
-    rgb = rgb[::-1]  # flip: row 0 = bottom, so v=1-acos(y)/pi maps up to sky
-    if tone_encode:
-        rgb = np.clip(rgb, 0.0, 1.0) ** (1.0 / 2.2)
+    """Load a sky to (H, W, 3) float32, flipped (row 0 = bottom).
+
+    A Radiance .hdr file is decoded to linear radiance; with tone_encode it
+    is clamped and encoded with pow(1/2.2) as the reference's 8-bit sky path
+    does (application.cppm:250), and the miss shader re-linearizes it.
+
+    Any other file (JPEG, PNG, TGA, BMP through utils/image_decode.py; grey
+    repeated to three channels, alpha dropped) holds 8-bit encoded texels,
+    as ``stbi_load`` gives them to the reference: with tone_encode they
+    come back as texel / 255, the encoded sky; without, as (texel / 255) **
+    2.2, the linear radiance whose encoding the .hdr branch computes.  The
+    JAX package reads such files with imageio and does not divide by 255,
+    so its encoded sky is white wherever a texel is 1 or more (ROADMAP
+    queue C)."""
+    if path.lower().endswith(".hdr"):
+        with open(path, "rb") as f:
+            rgb = decode_radiance_hdr(f.read())
+        rgb = rgb[::-1]  # flip: row 0 = bottom, so v=1-acos(y)/pi maps up to sky
+        if tone_encode:
+            rgb = np.clip(rgb, 0.0, 1.0) ** (1.0 / 2.2)
+        return np.ascontiguousarray(rgb.astype(np.float32))
+    px = read_image(path)
+    rgb = px[..., :3] if px.shape[2] >= 3 else np.repeat(px[..., :1], 3, axis=2)
+    rgb = rgb[::-1].astype(np.float32) / 255.0
+    if not tone_encode:
+        rgb = rgb ** 2.2
     return np.ascontiguousarray(rgb.astype(np.float32))
 
 

@@ -1,0 +1,244 @@
+"""Texture image decoding through the port's native decoder library.
+
+No JAX counterpart: the JAX package opens texture files with Pillow
+(scene/obj_loader.py::load_texture_file, ``Image.open``) and non-``.hdr``
+skies with imageio; the reference C++ with stb_image (file.cppm:276-291).
+The GPU machine has neither Pillow nor imageio, and a Huffman decode in
+Python would take seconds a megapixel, so the port decodes in C++:
+``realtimeraytracer_torch/native/image_decode.cpp``, bound here with ctypes.
+
+``decode_image(data)`` identifies a file by its content, as ``Image.open``
+does (the PNG signature, JPEG's SOI, ``BM``; TGA by a valid header when
+nothing else matches), and returns uint8 (H, W, C) pixels with the Pillow
+mode the JAX package would see.  C is 1 (grey), 2 (grey + alpha), 3 (RGB)
+or 4 (RGBA); palette images come back expanded through their palette.
+Read: JPEG (baseline and progressive Huffman, 8-bit, 1 or 3 components),
+PNG (every colour type, depth and filter, Adam7), TGA (types 1, 2, 3, 9,
+10, 11 at 8, 24, 32 bits), BMP (1/4/8-bit palette, 24 and 32 bits,
+BI_RGB and BI_BITFIELDS).  For PNG, this module checks the chunks and
+inflates with ``zlib``; the library unfilters, de-interlaces and unpacks.
+
+Malformed input and formats not ported (GIF, PNM, TIFF, WebP, PSD, BMP
+RLE, 16-bit BMP and TGA, CMYK, 12-bit, arithmetic-coded and lossless
+JPEG) raise ``ValueError`` naming the cause; nothing falls back to
+another decoder.
+
+The library is built at first use with ``$CXX`` (default g++) into the
+kernels' build directory (``kernels.BUILD_DIR``), under a name that hashes
+the source, the flags and the compiler's ``--version``; a file lock keeps
+concurrent processes to one build.  No ``-march=native``: the decode is
+integer arithmetic and gives the same bytes on every host.  Without a
+compiler, or if the build or the load fails, the call raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import struct
+import subprocess
+import threading
+import zlib
+from pathlib import Path
+
+import numpy as np
+
+from realtimeraytracer_torch.kernels import BUILD_DIR
+from realtimeraytracer_torch.utils import log
+from realtimeraytracer_torch.utils.native import _compiler
+from realtimeraytracer_torch.utils.png import SIGNATURE as PNG_SIGNATURE
+
+SOURCE = Path(__file__).resolve().parents[1] / "native" / "image_decode.cpp"
+CXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-Wall", "-shared")
+# Pillow's Image.open raises DecompressionBombError above twice MAX_IMAGE_PIXELS.
+MAX_PIXELS = 2 * 89478485
+
+_JPEG, _BMP, _TGA = 1, 2, 3
+# Formats Pillow reads that this port does not yet, by their leading bytes.
+_NOT_PORTED = ((b"GIF87a", "GIF"), (b"GIF89a", "GIF"), (b"II*\0", "TIFF"), (b"MM\0*", "TIFF"),
+               (b"8BPS", "PSD"))
+
+_lock = threading.Lock()
+_lib = None
+
+
+def library_path(cxx: list[str]) -> Path:
+    """Where the library built by `cxx` goes: its name hashes the source,
+    the flags and the compiler's version."""
+    version = subprocess.run([*cxx, "--version"], capture_output=True, text=True)
+    if version.returncode != 0:
+        raise RuntimeError(f"{' '.join(cxx)} --version failed:\n{version.stderr}")
+    h = hashlib.sha256(SOURCE.read_bytes())
+    h.update(" ".join(CXX_FLAGS).encode())
+    h.update(version.stdout.encode())
+    return BUILD_DIR / f"librtrt_image-{h.hexdigest()[:16]}.so"
+
+
+def build(cxx: list[str]) -> Path:
+    """Compile the decoder with `cxx` unless a library of the same hash
+    exists; raises with the compiler's stderr if the build fails."""
+    out = library_path(cxx)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "librtrt_image.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():       # built by another process while this one waited
+            return out
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        proc = subprocess.run([*cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"building the image decoder with {' '.join(cxx)} failed:\n"
+                               f"{proc.stderr}")
+        os.replace(tmp, out)
+    log.debug("image decoder built: {}", out)
+    return out
+
+
+def load_library() -> ctypes.CDLL:
+    """The decoder library, built on first use; raises if it cannot be."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        cxx = _compiler()
+        if cxx is None:
+            raise RuntimeError(f"no C++ compiler ({os.environ.get('CXX') or 'g++'}) to build the "
+                               f"image decoder {SOURCE}")
+        path = build(cxx)
+        try:
+            lib = ctypes.CDLL(str(path))
+        except OSError as e:
+            raise RuntimeError(f"cannot load the image decoder {path}: {e}") from e
+        c = ctypes
+        err = [c.c_char_p, c.c_int64]
+        lib.imgd_decode.restype = c.c_void_p
+        lib.imgd_decode.argtypes = [c.c_char_p, c.c_int64, c.c_int32, *err]
+        lib.imgd_png.restype = c.c_void_p
+        lib.imgd_png.argtypes = [c.c_char_p, c.c_int64, c.c_int64, c.c_int64, c.c_int32, c.c_int32,
+                                 c.c_int32, c.c_char_p, c.c_int64, c.c_char_p, c.c_int64, *err]
+        for name in ("imgd_width", "imgd_height", "imgd_channels"):
+            getattr(lib, name).restype = c.c_int64
+            getattr(lib, name).argtypes = [c.c_void_p]
+        lib.imgd_mode.restype = c.c_char_p
+        lib.imgd_mode.argtypes = [c.c_void_p]
+        lib.imgd_pixels.restype = c.POINTER(c.c_uint8)
+        lib.imgd_pixels.argtypes = [c.c_void_p]
+        lib.imgd_free.argtypes = [c.c_void_p]
+        _lib = lib
+        return lib
+
+
+def _collect(lib, call, *args) -> tuple[np.ndarray, str]:
+    """Run a decoder entry point and copy its result out (or raise its error)."""
+    err = ctypes.create_string_buffer(512)
+    handle = call(*args, err, len(err))
+    if not handle:
+        raise ValueError(err.value.decode(errors="replace"))
+    try:
+        h, w, c = lib.imgd_height(handle), lib.imgd_width(handle), lib.imgd_channels(handle)
+        pixels = np.ctypeslib.as_array(lib.imgd_pixels(handle), shape=(h * w * c,))
+        return pixels.reshape(h, w, c).copy(), lib.imgd_mode(handle).decode()
+    finally:
+        lib.imgd_free(handle)
+
+
+def _decode_png(lib, data: bytes) -> tuple[np.ndarray, str]:
+    pos, header, plte, trns, idat = len(PNG_SIGNATURE), None, b"", b"", []
+    while True:
+        if pos + 8 > len(data):
+            raise ValueError("truncated PNG: no IEND chunk")
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        if pos + 12 + length > len(data):
+            raise ValueError(f"truncated PNG chunk {kind!r}")
+        (crc,) = struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])
+        if crc != zlib.crc32(kind + body) & 0xFFFFFFFF:
+            raise ValueError(f"PNG chunk {kind!r} fails its CRC")
+        pos += 12 + length
+        if header is None and kind != b"IHDR":
+            raise ValueError("PNG does not start with an IHDR chunk")
+        if kind == b"IHDR":
+            if length != 13:
+                raise ValueError("PNG IHDR chunk has a bad length")
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            plte = body
+        elif kind == b"tRNS":
+            trns = body
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    w, h, depth, ctype, compression, filt, interlace = header
+    if compression != 0 or filt != 0:
+        raise ValueError(f"PNG compression method {compression} / filter method {filt} does not exist")
+    if w == 0 or h == 0 or w * h > MAX_PIXELS:
+        raise ValueError(f"PNG of {w}x{h} pixels: none, or more than {MAX_PIXELS}")
+    if not idat:
+        raise ValueError("PNG has no IDAT chunk")
+    inflate = zlib.decompressobj()
+    try:
+        # At most 8 bytes a pixel and a filter byte a row and pass, plus one:
+        # a larger stream fails the library's exact size check.
+        raw = inflate.decompress(b"".join(idat), h * (8 * w + 8) + 1)
+    except zlib.error as e:
+        raise ValueError(f"PNG image data does not inflate: {e}") from e
+    if not inflate.eof and not inflate.unconsumed_tail:
+        raise ValueError("truncated PNG image data")
+    return _collect(lib, lib.imgd_png, raw, len(raw), w, h, depth, ctype, interlace,
+                    plte, len(plte), trns, len(trns))
+
+
+def _is_tga(head: bytes) -> bool:
+    """Pillow's test of a TGA header (TgaImagePlugin._open)."""
+    if len(head) < 18:
+        return False
+    w, h = struct.unpack("<HH", head[12:16])
+    return (head[1] in (0, 1) and w > 0 and h > 0 and head[16] in (1, 8, 16, 24, 32)
+            and head[2] in (1, 2, 3, 9, 10, 11))
+
+
+def sniff(data: bytes) -> str:
+    """The format of image bytes, by their content: "PNG", "JPEG", "BMP",
+    "TGA"; raises ValueError for a format not ported or not an image."""
+    if data.startswith(PNG_SIGNATURE):
+        return "PNG"
+    if data.startswith(b"\xff\xd8\xff"):
+        return "JPEG"
+    if data.startswith(b"BM"):
+        return "BMP"
+    for magic, name in _NOT_PORTED:
+        if data.startswith(magic):
+            raise ValueError(f"{name} images are not supported")
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        raise ValueError("WebP images are not supported")
+    if len(data) > 2 and data[:1] == b"P" and data[1:2] in b"1234567fFhH" and data[2:3].isspace():
+        raise ValueError("PNM images are not supported")
+    if _is_tga(data):
+        return "TGA"
+    raise ValueError("not an image file this port reads (PNG, JPEG, BMP, TGA)")
+
+
+def decode_image(data: bytes) -> tuple[np.ndarray, str]:
+    """(uint8 (H, W, C) pixels, Pillow mode) of image file bytes."""
+    data = bytes(data)
+    kind = sniff(data)
+    lib = load_library()
+    if kind == "PNG":
+        return _decode_png(lib, data)
+    code = {"JPEG": _JPEG, "BMP": _BMP, "TGA": _TGA}[kind]
+    return _collect(lib, lib.imgd_decode, data, len(data), code)
+
+
+def pixels_digest(arr: np.ndarray) -> str:
+    """SHA-256 of an array's dtype, shape and C-order bytes (the fixtures'
+    ``expected.json`` holds these of ``load_texture_file``'s output)."""
+    arr = np.ascontiguousarray(arr)
+    h = hashlib.sha256(f"{arr.dtype.str}{arr.shape}".encode())
+    h.update(arr.tobytes())
+    return h.hexdigest()

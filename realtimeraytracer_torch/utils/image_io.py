@@ -3,13 +3,15 @@
 Counterpart of realtimeraytracer_tpu/utils/image_io.py (``to_uint8``,
 ``write_png``, ``write_npy``).  PNGs are written by the port's own codec
 (utils/png.py) instead of Pillow, which the GPU machine does not have;
-``read_png`` is the codec's reader.
+``read_png`` is the codec's 8-bit reader, ``read_image`` reads every
+format of the native decoder (utils/image_decode.py).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from realtimeraytracer_torch.utils.image_decode import decode_image
 from realtimeraytracer_torch.utils.png import decode_png, encode_png
 
 
@@ -35,6 +37,13 @@ def read_png(path: str) -> np.ndarray:
     """(H, W, C) uint8 pixels of an 8-bit grey, RGB or RGBA PNG."""
     with open(path, "rb") as f:
         return decode_png(f.read())
+
+
+def read_image(path: str) -> np.ndarray:
+    """(H, W, C) uint8 pixels of a JPEG, PNG, TGA or BMP file: C is 1
+    (grey), 2 (grey + alpha), 3 (RGB) or 4 (RGBA; palettes expanded)."""
+    with open(path, "rb") as f:
+        return decode_image(f.read())[0]
 
 
 def write_npy(path: str, image) -> None:

@@ -31,6 +31,7 @@ tests/test_torch_slice.py (no NaN, under 0.5% of values off by > 2e-3).
 
 import io
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -349,30 +350,43 @@ def test_write_png_roundtrip(tmp_path):
 
 
 def test_port_needs_no_pillow():
-    """With Pillow made unimportable, every module of the port imports,
-    textured_obj writes and loads its PNGs and compiles; nothing imported
-    PIL."""
+    """With Pillow and imageio made unimportable, every module of the port
+    imports, textured_obj writes and loads its PNGs and compiles, and
+    load_texture_file reads a committed JPEG and the TGA fixture
+    (tests/data/images) through the native decoder; nothing imported PIL.
+    No source file of the port, nor chip_smoke.py, imports jax, PIL or
+    imageio."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         class NoPil:
             def find_spec(self, name, path=None, target=None):
-                if name == "PIL" or name.startswith("PIL."):
-                    raise ImportError("Pillow is not available")
+                if name.split(".")[0] in ("PIL", "imageio"):
+                    raise ImportError(name + " is not available")
         sys.meta_path.insert(0, NoPil())
         import realtimeraytracer_torch as rt
         for m in pkgutil.walk_packages(rt.__path__, "realtimeraytracer_torch."):
             importlib.import_module(m.name)
         from realtimeraytracer_torch import scenes
+        from realtimeraytracer_torch.scene.obj_loader import load_texture_file
         gpu = scenes.textured_obj().compile()
         assert gpu.has_textures and gpu.pallas_amask is not None
-        assert not any(k == "PIL" or k.startswith("PIL.") for k in sys.modules)
+        for name, shape in (("prog420_odd.jpg", (45, 61, 3)), ("rle.tga", (64, 64, 4))):
+            tex = load_texture_file("tests/data/images/" + name)
+            assert tex.shape == shape and 0.0 <= tex.min() and tex.max() <= 1.0, name
+        assert not any(k.split(".")[0] in ("PIL", "imageio") for k in sys.modules)
         assert not any(k == "jax" or k.startswith("realtimeraytracer_tpu") for k in sys.modules)
         print("ok")
     """)
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=root,
                          timeout=300)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+    banned = re.compile(r"^\s*(import|from)\s+(jax|PIL|imageio|realtimeraytracer_tpu)\b", re.M)
+    sources = [os.path.join(root, "chip_smoke.py")] + [
+        os.path.join(d, f) for d, _, files in os.walk(os.path.join(root, "realtimeraytracer_torch"))
+        for f in files if f.endswith(".py")]
+    offenders = [p for p in sources if banned.search(open(p).read())]
+    assert not offenders, offenders
 
 
 def _frame_cfg(module, backend, rounds=1):
