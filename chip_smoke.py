@@ -216,12 +216,18 @@ Phases, each of which ends the run with a non-zero exit on failure:
      load_texture_file, both grayscale values, its digest equal to
      expected.json (the JAX package's output); textured_obj's OBJ with
      its ground and leaf maps replaced by the JPEG and TGA fixtures, and
-     again by PNGs of the same decoded pixels: both 1080p frames at the
-     reference defaults through rt.render, hash-equal, with their masked
-     v9/v8 and B5 launches; host decode times, median of 5: the 1024^2
-     JPEG, a 2048^2 RGBA Paeth PNG through the native path, and a 256^2
-     crop of it through the native path and through png.decode_png (about
-     a minute a decode on the whole image, so the crop).
+     again by PNGs of the same decoded pixels, then by the GIF, PSD, PGM
+     and RLE8 BMP fixtures and their PNG twins: each pair of 1080p frames
+     at the reference defaults through rt.render hash-equal, with their
+     masked v9/v8 and B5 launches only; the C1 frame, the leaf opacity map
+     a PGM of 0/1 texels (0 and 1/255, as stbi_load reads them), hash-equal
+     to the frame with an all-zero map; host decode times, median of 5:
+     the 1024^2 JPEG, a 2048^2 RGBA Paeth PNG through the native path, a
+     256^2 crop of it through the native path and through png.decode_png
+     (about a minute a decode on the whole image, so the crop), and a
+     1024^2 GIF, 16-bit PGM, PackBits PSD, RLE8 and 5-6-5 BMP and 16-bit
+     RLE TGA, written on the host by the tests' encoders
+     (tests/_torch_image_helpers.py).
 Each main-path run (5, 8, 9, 14, 18, 22, 24, 26, 27, 28, 30, each step of
 31 and 32, 33, 34, 35, 36, 37, 38) and the probe's timed run (23) are driven with every kernel's
 launch count set to 0 just before and read just after.  The line before the last is a
@@ -870,15 +876,20 @@ def wide_and_config3(*, rt, torch, dev, card: str, W: int, H: int, scene, gpu, f
 
 
 def image_decoders(*, rt, torch, card: str, W: int, H: int, zero_counts, read_counts) -> dict:
-    """Phase 38: the host image decoders on the committed fixtures, a
-    1080p frame textured by JPEG and TGA files against the same frame
-    textured by PNGs of their pixels, and host decode times."""
+    """Phase 38: the host image decoders on the committed fixtures; 1080p
+    frames textured by JPEG/TGA files and by GIF/PSD/PGM/RLE-BMP files,
+    each against the same frame textured by PNGs of their pixels; the C1
+    frame (a 0/1 opacity map against an all-zero one); host decode
+    times."""
     import hashlib
 
     from realtimeraytracer_torch import scenes
     from realtimeraytracer_torch.scene.obj_loader import load_obj_scene, load_texture_file
     from realtimeraytracer_torch.scene.scene import Scene
     from realtimeraytracer_torch.utils import image_decode, png
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import _torch_image_helpers as enc      # the tests' hand encoders (NumPy only)
 
     say(card)
     t38 = time.perf_counter()
@@ -896,16 +907,19 @@ def image_decoders(*, rt, torch, card: str, W: int, H: int, zero_counts, read_co
     # textured_obj's maps that the fixtures replace (its MTL names them).
     roles = {"ground_kd.png": "prog420_odd.jpg", "ground_ks.png": "grey.jpg",
              "leaf_kd.png": "base422_rst.jpg", "leaf_d.png": "rle.tga"}
+    new_roles = {"ground_kd.png": "frame.gif", "ground_ks.png": "gloss.pgm",
+                 "leaf_kd.png": "leaf.psd", "leaf_d.png": "discs_rle8.bmp"}
+    disc = enc.disc_pattern(64)
     cfg = rt.RenderConfig(width=W, height=H, primary_rays=4, shadow_rays=3, denoise_iterations=4)
     frames = {}
     with tempfile.TemporaryDirectory(prefix="rtrt_images_") as d:
         base = scenes.textured_obj(str(Path(d) / "png"))
 
         def variant(tag, files):
-            vd = Path(d) / tag
+            vd = Path(d) / tag.replace("/", "_").replace(" ", "_")
             vd.mkdir()
             mtl = (Path(d) / "png" / "scene.mtl").read_text()
-            for name in ("scene.obj", "pillar_pm.png"):
+            for name in ("scene.obj", "pillar_pm.png", *(m for m in roles if m not in files)):
                 shutil.copy(Path(d) / "png" / name, vd / name)
             for map_name, (fname, data) in files.items():
                 (vd / fname).write_bytes(data)
@@ -917,12 +931,23 @@ def image_decoders(*, rt, torch, card: str, W: int, H: int, zero_counts, read_co
             require(len(sc.textures) == 5, f"[38] {tag}: {len(sc.textures)} textures loaded")
             return sc
 
-        fixture_bytes = {m: (f, (fx / f).read_bytes()) for m, f in roles.items()}
+        def twins(fixture_roles):
+            return {m: (m.replace(".png", "_fx.png"), png.encode_png(image_decode.decode_image(b)[0]))
+                    for m, (_, b) in fixture_roles.items()}
+
+        old_bytes = {m: (f, (fx / f).read_bytes()) for m, f in roles.items()}
+        new_bytes = {m: (f, (fx / f).read_bytes()) for m, f in new_roles.items()}
         scenes38 = {
-            "JPEG/TGA maps": variant("fixtures", fixture_bytes),
-            "PNG maps": variant("repng", {
-                m: (m.replace(".png", "_fx.png"), png.encode_png(image_decode.decode_image(b)[0]))
-                for m, (_, b) in fixture_bytes.items()}),
+            "JPEG/TGA maps": variant("fixtures", old_bytes),
+            "PNG maps": variant("repng", twins(old_bytes)),
+            "GIF/PSD/PGM/RLE-BMP maps": variant("newfmt", new_bytes),
+            "their PNG maps": variant("newfmt_png", twins(new_bytes)),
+            # C1: 0/1 texels read 0 and 1/255 (stbi_load), below alpha_threshold
+            # like 0; the JAX package's rule kept them 0 and 1.0, opaque leaves.
+            "C1 0/1 opacity PGM": variant("c1", {"leaf_d.png": (
+                "leaf_d01.pgm", enc.encode_pnm(disc.astype(int), b"P5"))}),
+            "all-zero opacity PGM": variant("zero", {"leaf_d.png": (
+                "leaf_d00.pgm", enc.encode_pnm(np.zeros((64, 64), int), b"P5"))}),
         }
         for tag, sc in scenes38.items():
             torch.cuda.synchronize()
@@ -944,11 +969,17 @@ def image_decoders(*, rt, torch, card: str, W: int, H: int, zero_counts, read_co
             frames[tag] = {"sha256": hashlib.sha256(out.tobytes()).hexdigest(),
                            "wall_s": round(wall, 3),
                            "launches": {k: v for k, v in counts.items() if v}}
-    a, b = frames.values()
-    require(a["sha256"] == b["sha256"], f"[38] the JPEG/TGA-textured frame differs from the PNG one: "
-                                        f"{a['sha256'][:16]} against {b['sha256'][:16]}")
-    say(f"[38] textured_obj at 1080p, reference defaults, rt.render: the frame with JPEG/TGA maps is "
-        f"hash-equal to the frame with PNG maps of the same pixels; " + json.dumps(frames))
+    for a, b, what in (("JPEG/TGA maps", "PNG maps", "JPEG/TGA"),
+                       ("GIF/PSD/PGM/RLE-BMP maps", "their PNG maps", "GIF/PSD/PGM/RLE-BMP"),
+                       ("C1 0/1 opacity PGM", "all-zero opacity PGM", "C1 (0/1 opacity)")):
+        ha, hb = frames[a]["sha256"], frames[b]["sha256"]
+        require(ha == hb, f"[38] the {what} frame differs from its twin: {ha[:16]} against {hb[:16]}")
+    require(frames["C1 0/1 opacity PGM"]["sha256"] != frames["PNG maps"]["sha256"],
+            "[38] the C1 frame equals the frame with textured_obj's own cut-outs")
+    say(f"[38] textured_obj at 1080p, reference defaults, rt.render: the JPEG/TGA-textured frame and "
+        f"the GIF/PSD/PGM/RLE-BMP-textured frame are each hash-equal to the frame with PNG maps of the "
+        f"same pixels; the C1 frame (0/1 opacity PGM) is hash-equal to the all-zero one; "
+        + json.dumps(frames))
 
     def med5(fn):
         times = []
@@ -967,12 +998,40 @@ def image_decoders(*, rt, torch, card: str, W: int, H: int, zero_counts, read_co
     require(np.array_equal(image_decode.decode_image(paeth)[0], rgba), "[38] the 2048^2 PNG decodes wrong")
     require(np.array_equal(png.decode_png(crop), image_decode.decode_image(crop)[0]),
             "[38] the crop's native and Python decodes differ")
+    # One 1024^2 GIF, PGM, PSD, RLE and 16-bit BMP and 16-bit TGA, written on the host.
+    rng = np.random.default_rng(381)
+    y1, x1 = np.mgrid[0:1024, 0:1024]
+    blocks = (x1 // 16 + y1 // 16) % 16
+    pal = rng.integers(0, 256, (16, 3))
+    rgb = np.stack([blocks * 16, (blocks * 7) % 256, 255 - blocks * 16], -1).astype(np.uint8)
+    t_enc = time.perf_counter()
+    new_files = {
+        "gif_1024": (enc.encode_gif([dict(indices=blocks, min_size=4)], (1024, 1024), pal), "P"),
+        "pgm16_1024": (enc.encode_pnm(x1 + y1 * 31 % 1000, b"P5", 1000), "I"),
+        "psd_packbits_1024": (enc.encode_psd([rgb[..., k] for k in range(3)], 3, compression=1), "RGB"),
+        "bmp_rle8_1024": (enc.make_bmp(None, 8, 40, False, pal, 1, size=(1024, 1024),
+                                       data=enc.encode_bmp_rle(blocks, False, rng, max_run=64)), "P"),
+        "bmp_565_1024": (enc.make_bmp((x1 * 64 + y1).astype(np.uint16), 16, 40, False, compression=3,
+                                      masks=(0xF800, 0x7E0, 0x1F)), "RGB"),
+        "tga16_rle_1024": (enc.make_tga(np.stack([blocks * 9, blocks], -1), 10, 16, rng=rng,
+                                        max_packet=128), "RGBA"),
+    }
+    t_enc = time.perf_counter() - t_enc
+    for key, (data, mode) in new_files.items():
+        px, got_mode = image_decode.decode_image(data)
+        require(px.shape[:2] == (1024, 1024) and got_mode == mode, f"[38] {key}: {px.shape} {got_mode}")
+    require(np.array_equal(image_decode.decode_image(new_files["gif_1024"][0])[0][..., :3],
+                           pal.astype(np.uint8)[blocks]), "[38] the 1024^2 GIF decodes wrong")
     times = {"jpeg_1024_native": med5(lambda: image_decode.decode_image(jpeg)),
              "png_paeth_2048_native": med5(lambda: image_decode.decode_image(paeth)),
              "png_paeth_256_native": med5(lambda: image_decode.decode_image(crop)),
              "png_paeth_256_python": med5(lambda: png.decode_png(crop))}
+    for key, (data, _) in new_files.items():
+        times[key + "_native"] = med5(lambda data=data: image_decode.decode_image(data))
     res = {k: {"ms": v[0], "ms_all": v[1]} for k, v in times.items()}
-    res["bytes"] = {"jpeg_1024": len(jpeg), "png_paeth_2048": len(paeth), "png_paeth_256": len(crop)}
+    res["bytes"] = {"jpeg_1024": len(jpeg), "png_paeth_2048": len(paeth), "png_paeth_256": len(crop),
+                    **{k: len(v[0]) for k, v in new_files.items()}}
+    res["encode_s"] = t_enc
     say(f"[38] host decode ms, median of 5 (host side, the card machine's CPU; {card}): " + json.dumps(res))
     say(f"[38] phase 38 took {time.perf_counter() - t38:.1f} s")
     return {"frames": frames, "decode": res}
@@ -3333,7 +3392,7 @@ def main() -> int:
                      frame=frame, cfg9=cfg9, img9=img9, times9=times9, zero_counts=zero_counts,
                      read_counts=read_counts, unmasked=unmasked)
 
-    # ---- 38. the host image decoders and a JPEG/TGA-textured frame -------
+    # ---- 38. the host image decoders, frames textured by every format ----
     image_decoders(rt=rt, torch=torch, card=card, W=W, H=H, zero_counts=zero_counts,
                    read_counts=read_counts)
 

@@ -1,4 +1,5 @@
-// Texture image decoders of the port: JPEG, PNG reconstruction, TGA, BMP.
+// Texture image decoders of the port: JPEG, PNG reconstruction, TGA, BMP,
+// GIF, PNM, PSD.
 //
 // The JAX package reads texture files with Pillow (Image.open, then
 // convert("RGBA") or convert("L")); the reference C++ with stb_image.  This
@@ -12,20 +13,31 @@
 //         filter), the integer YCbCr->RGB tables (jdcolor.c).
 //   PNG   unfiltering, Adam7 de-interlacing and unpacking of every colour
 //         type and depth; the inflate is zlib's, done by the caller.
-//   TGA   types 1, 2, 3, 9, 10, 11 at 8, 24 and 32 bits, the origin bits.
-//   BMP   uncompressed 1/4/8-bit palette, 24- and 32-bit, BI_RGB and
-//         BI_BITFIELDS, bottom-up and top-down.
+//   TGA   types 1, 2, 3, 9, 10, 11 at 1 (grey), 8, 16, 24 and 32 bits,
+//         16-, 24- and 32-bit colour maps, the origin bits.
+//   BMP   1/4/8-bit palette (RLE8 and RLE4 too), 16-bit (5-5-5 and 5-6-5),
+//         24- and 32-bit, BI_RGB and BI_BITFIELDS, bottom-up and top-down.
+//   GIF   the first frame: LZW, interlace, local and global colour tables,
+//         the transparent index, a frame offset inside the screen.
+//   PNM   P1-P6 (ASCII and binary, any maxval) and Pf.
+//   PSD   the composite image: raw or PackBits; bitmap, grey, indexed, RGB,
+//         RGBA, CMYK.
 //
 // Pixels come back as uint8 (H, W, C): C = 1 grey, 2 grey + alpha, 3 RGB,
-// 4 RGBA (palette images are expanded through their palette).  Anything
+// 4 RGBA (palette and CMYK images are expanded to RGBA).  Anything
 // malformed or not ported throws, and the C entry points turn that into an
 // error message: every read of the input is bounds-checked.
 //
 // Build: c++ -O2 -fPIC -std=c++17 -shared (no -march=native: the decode is
-// integer arithmetic, and the same bytes must come out on every host).
+// integer arithmetic, and the same bytes must come out on every host; the
+// only floating point, PNM's maxval scaling and PFM's comparisons, is two
+// correctly rounded IEEE operations or exact, the same everywhere).
 
 #include <algorithm>
+#include <cctype>
+#include <cmath>
 #include <cstdint>
+#include <cstdlib>
 #include <cstring>
 #include <stdexcept>
 #include <string>
@@ -879,12 +891,17 @@ Image png_reconstruct(Bytes raw, int64_t w, int64_t h, int depth, int ctype, int
 
 // ----------------------------------------------------------------- TGA ----
 
-// As Pillow's TgaImagePlugin: types 1/9 (colour-mapped, 8-bit indexes, a
-// 24-bit map whose first `start` entries are black) -> "P"; 3/11 (grey,
-// 8-bit) -> "L"; 2/10 (true colour) 24-bit -> "RGB", 32-bit -> "RGBA";
-// origin bit 0x20 top, 0x10 right.  Beyond what Pillow 12 reads, as
-// stb_image does: RLE packets that cross rows, a 32-bit colour map (its
-// alpha kept), a colour map beside a true-colour image (skipped).
+// As Pillow's TgaImagePlugin: types 1/9 (colour-mapped, 8-bit indexes; a
+// 16-, 24- or 32-bit map whose first `start` entries are zero) -> "P";
+// 3/11 (grey) 1-bit -> "1", 8-bit -> "L", 16-bit -> "LA"; 2/10 (true
+// colour) 16-bit -> "RGBA" (Pillow's "BGRA;15Z": 5 bits a channel scaled
+// by 255/31, alpha 0 where the top bit is set), 24-bit -> "RGB", 32-bit ->
+// "RGBA"; origin bit 0x20 top, 0x10 right.  A 1-bit RLE file raises, as
+// Pillow's decoder never finishes one.  A grey image's colour map is
+// skipped, as stb_image skips it (Pillow's convert("RGBA") would look the
+// grey values up in it).  Beyond what Pillow 12 reads, as stb_image does:
+// RLE packets that cross rows, a 32-bit colour map (its alpha kept), a
+// colour map beside a true-colour image (skipped).
 Image tga(Bytes in) {
   if (in.n < 18) fail("truncated TGA header");
   const int id_len = in.p[0], cmap_type = in.p[1], type = in.p[2];
@@ -896,47 +913,58 @@ Image tga(Bytes in) {
   const int base = type & 7;
   if (!(type == 1 || type == 2 || type == 3 || type == 9 || type == 10 || type == 11))
     fail("unknown TGA image type " + std::to_string(type));
-  if (base == 2 ? depth != 24 && depth != 32 : depth != 8)
-    fail(std::to_string(depth) + "-bit TGA of type " + std::to_string(type) + " is not supported");
+  const bool ok = base == 1 ? depth == 8 : base == 3 ? depth == 1 || depth == 8 || depth == 16 : depth != 1 && depth != 8;
+  if (!ok) fail(std::to_string(depth) + "-bit TGA of type " + std::to_string(type) + " does not exist");
   if (base == 1 && cmap_type != 1) fail("corrupt TGA: colour-mapped image without a colour map");
+  if (type == 11 && depth == 1) fail("RLE-compressed 1-bit TGA cannot be read (Pillow's decoder stalls on it)");
   size_t p = 18 + size_t(id_len);
   Palette pal;
   if (cmap_type == 1) {
-    if (cmap_depth == 15 || cmap_depth == 16) fail("TGA with a 16-bit colour map is not supported");
-    if (cmap_depth != 24 && cmap_depth != 32) fail("unknown TGA map depth");
+    if (cmap_depth != 16 && cmap_depth != 24 && cmap_depth != 32) fail("unknown TGA map depth");
+    if (cmap_start + cmap_len > 256) fail("TGA colour map of more than 256 entries (Pillow: invalid palette size)");
     const int eb = cmap_depth / 8;
     in.need(p, size_t(cmap_len) * size_t(eb), "TGA colour map");
-    for (int i = 0; i < cmap_start + cmap_len && i < 256; ++i) {
+    for (int i = 0; i < cmap_start + cmap_len; ++i) {
       uint8_t* e = pal.e[i];
       if (i < cmap_start) {
         e[0] = e[1] = e[2] = 0, e[3] = eb == 4 ? 0 : 255;
         continue;
       }
       const uint8_t* s = in.p + p + size_t(i - cmap_start) * size_t(eb);
-      e[0] = s[2], e[1] = s[1], e[2] = s[0], e[3] = eb == 4 ? s[3] : 255;
+      if (eb == 2) {
+        const uint32_t v = uint32_t(s[0]) | uint32_t(s[1]) << 8;
+        e[0] = uint8_t((v >> 10 & 31) * 255 / 31), e[1] = uint8_t((v >> 5 & 31) * 255 / 31);
+        e[2] = uint8_t((v & 31) * 255 / 31), e[3] = v & 0x8000 ? 0 : 255;
+      } else {
+        e[0] = s[2], e[1] = s[1], e[2] = s[0], e[3] = eb == 4 ? s[3] : 255;
+      }
     }
     p += size_t(cmap_len) * size_t(eb);
   }
-  const int pb = depth / 8;  // bytes per stored pixel
-  const char* mode = base == 3 ? "L" : base == 1 ? "P" : depth == 24 ? "RGB" : "RGBA";
-  const int channels = base == 3 ? 1 : base == 1 ? 4 : pb;
+  const int unit = (depth + 7) / 8;  // bytes a stored pixel (a 1-bit image: a byte)
+  const size_t row_bytes = (size_t(w) * size_t(depth) + 7) / 8;
+  const char* mode = base == 1 ? "P"
+                     : base == 3 ? (depth == 1 ? "1" : depth == 8 ? "L" : "LA")
+                     : depth == 24 ? "RGB" : "RGBA";
+  const int channels = base == 1 ? 4 : base == 3 ? (depth == 16 ? 2 : 1) : depth == 24 ? 3 : 4;
   Image img;
   img.alloc(w, h, channels, mode);
-  const int64_t npx = int64_t(w) * h;
-  std::vector<uint8_t> flat(size_t(npx) * size_t(pb));
+  std::vector<uint8_t> flat(row_bytes * size_t(h));
+  const int64_t nunits = int64_t(flat.size()) / unit;
   if (type & 8) {
     int64_t i = 0;
-    while (i < npx) {
+    while (i < nunits) {
       const int hdr = in.u8(p++, "TGA RLE data"), count = (hdr & 0x7F) + 1;
-      if (i + count > npx) fail("corrupt TGA: RLE packet past the image");
       if (hdr & 0x80) {
-        in.need(p, size_t(pb), "TGA RLE data");
-        for (int k = 0; k < count; ++k) std::memcpy(&flat[size_t(i + k) * size_t(pb)], in.p + p, size_t(pb));
-        p += size_t(pb);
-      } else {
-        in.need(p, size_t(count) * size_t(pb), "TGA RLE data");
-        std::memcpy(&flat[size_t(i) * size_t(pb)], in.p + p, size_t(count) * size_t(pb));
-        p += size_t(count) * size_t(pb);
+        if (i + count > nunits) fail("corrupt TGA: RLE run past the image");
+        in.need(p, size_t(unit), "TGA RLE data");
+        for (int k = 0; k < count; ++k) std::memcpy(&flat[size_t(i + k) * size_t(unit)], in.p + p, size_t(unit));
+        p += size_t(unit);
+      } else {  // a literal past the image is cut, as Pillow cuts it
+        in.need(p, size_t(count) * size_t(unit), "TGA RLE data");
+        const int64_t fit = std::min<int64_t>(count, nunits - i);
+        std::memcpy(&flat[size_t(i) * size_t(unit)], in.p + p, size_t(fit) * size_t(unit));
+        p += size_t(count) * size_t(unit);
       }
       i += count;
     }
@@ -946,18 +974,25 @@ Image tga(Bytes in) {
   }
   const bool top = flags & 0x20, right = flags & 0x10;
   for (int y = 0; y < h; ++y) {
-    const int sy = top ? y : h - 1 - y;
+    const uint8_t* row = &flat[size_t(top ? y : h - 1 - y) * row_bytes];
     for (int x = 0; x < w; ++x) {
       const int sx = right ? w - 1 - x : x;
-      const uint8_t* s = &flat[(size_t(sy) * size_t(w) + size_t(sx)) * size_t(pb)];
+      const uint8_t* s = row + size_t(sx) * size_t(unit);
       uint8_t* o = img.at(y, x);
-      if (channels == 1) {
-        o[0] = s[0];
+      if (depth == 1) {
+        o[0] = (row[sx >> 3] >> (7 - (sx & 7)) & 1) ? 255 : 0;
       } else if (base == 1) {
         std::memcpy(o, pal.e[s[0]], 4);
+      } else if (base == 3) {
+        o[0] = s[0];
+        if (depth == 16) o[1] = s[1];
+      } else if (depth == 16) {
+        const uint32_t v = uint32_t(s[0]) | uint32_t(s[1]) << 8;
+        o[0] = uint8_t((v >> 10 & 31) * 255 / 31), o[1] = uint8_t((v >> 5 & 31) * 255 / 31);
+        o[2] = uint8_t((v & 31) * 255 / 31), o[3] = v & 0x8000 ? 0 : 255;
       } else {
         o[0] = s[2], o[1] = s[1], o[2] = s[0];
-        if (pb == 4) o[3] = s[3];
+        if (depth == 32) o[3] = s[3];
       }
     }
   }
@@ -966,11 +1001,75 @@ Image tga(Bytes in) {
 
 // ----------------------------------------------------------------- BMP ----
 
+// Pillow's BmpRleDecoder, quirks included: an encoded run stops at the
+// row's end, an absolute run does not; an RLE4 absolute run of n pixels
+// reads n / 2 bytes (an odd n drops its last pixel but counts it) and
+// then skips to an even file offset; a delta escape reads two bytes and
+// then takes right and up from the next two; end-of-line pads the row
+// with index 0, and so do deltas.  Returns the indexes row by row in file
+// order; fewer than w * h raise, as Pillow's set_as_raw does.
+std::vector<uint8_t> bmp_rle(Bytes in, size_t pos, int64_t w, int64_t h, bool rle4) {
+  std::vector<uint8_t> data;
+  const size_t dest = size_t(w) * size_t(h);
+  int64_t x = 0;
+  auto read = [&](size_t k) {  // as fd.read: short at the end of the file
+    const size_t got = pos < in.n ? std::min(k, in.n - pos) : 0;
+    const uint8_t* s = in.p + std::min(pos, in.n);
+    pos += got;
+    return std::pair<const uint8_t*, size_t>(s, got);
+  };
+  while (data.size() < dest) {
+    auto pixels = read(1), byte = read(1);
+    if (!pixels.second || !byte.second) break;
+    int64_t n = pixels.first[0];
+    const int b = byte.first[0];
+    if (n) {
+      if (x + n > w) n = std::max<int64_t>(0, w - x);
+      for (int64_t i = 0; i < n; ++i)
+        data.push_back(uint8_t(!rle4 ? b : i % 2 == 0 ? b >> 4 : b & 15));
+      x += n;
+    } else if (b == 0) {
+      while (data.size() % size_t(w)) data.push_back(0);
+      x = 0;
+    } else if (b == 1) {
+      break;
+    } else if (b == 2) {
+      if (read(2).second < 2) break;
+      auto d = read(2);
+      if (d.second < 2) fail("truncated BMP RLE delta");
+      data.insert(data.end(), size_t(d.first[0]) + size_t(d.first[1]) * size_t(w), 0);
+      x = int64_t(data.size() % size_t(w));
+    } else {
+      const size_t count = rle4 ? size_t(b / 2) : size_t(b);
+      auto run = read(count);
+      for (size_t i = 0; i < run.second; ++i) {
+        if (rle4) {
+          data.push_back(run.first[i] >> 4);
+          data.push_back(run.first[i] & 15);
+        } else {
+          data.push_back(run.first[i]);
+        }
+      }
+      if (run.second < count) break;
+      x += b;
+      if (pos % 2) ++pos;  // fd.seek(1, SEEK_CUR), even past the end
+    }
+  }
+  if (data.size() < dest) fail("BMP RLE data ends before the image does");
+  return data;
+}
+
 // As Pillow's BmpImagePlugin: BITMAPCOREHEADER (12) and the 40-124 byte
-// headers; 1/4/8-bit palettes -> "P", expanded (grey palettes -> "1" or
-// "L", one channel); 24-bit -> "RGB"; 32-bit BI_RGB -> "RGB" (the fourth byte
-// ignored); 32-bit BI_BITFIELDS -> the masks Pillow knows, "RGBA" where one
-// is alpha.
+// headers; 1/4/8-bit palettes -> "P", expanded, RLE8 and RLE4 included
+// (bmp_rle above); a grey palette (entry i = i, i, i) -> "L" and the
+// two-entry 0/255 palette -> "1", one channel, which Pillow reads as 8-bit
+// (resp. 1-bit) samples whatever the depth: at a lower depth an "L" row
+// is the w bytes at its file offset, rows overlapping, as Pillow's memory
+// map reads them (bytes past the file's end are 0); 16-bit BI_RGB ->
+// "RGB" as Pillow's "BGR;15" (5 bits a channel scaled by 255/31), 16-bit
+// BI_BITFIELDS 5-6-5 -> "BGR;16" (6 bits scaled by 255/63) and 5-5-5;
+// 24-bit -> "RGB"; 32-bit BI_RGB -> "RGB" (the fourth byte ignored);
+// 32-bit BI_BITFIELDS -> the masks Pillow knows, "RGBA" where one is alpha.
 Image bmp(Bytes in) {
   if (in.n < 18 || in.p[0] != 'B' || in.p[1] != 'M') fail("not a BMP file");
   size_t offset = in.le32(10, "BMP header");
@@ -1005,13 +1104,15 @@ Image bmp(Bytes in) {
   }
   if (colors == 0) colors = bits < 32 ? uint32_t(1) << bits : 0;
   if (offset == 14 + hs && bits <= 8) offset += 4 * size_t(colors);
-  if (compression == 1 || compression == 2) fail("RLE-compressed BMP is not supported");
-  if (compression != 0 && compression != 3) fail("unsupported BMP compression " + std::to_string(compression));
-  if (bits == 16) fail("16-bit BMP is not supported");
-  if (bits != 1 && bits != 4 && bits != 8 && bits != 24 && bits != 32)
+  if (bits != 1 && bits != 4 && bits != 8 && bits != 16 && bits != 24 && bits != 32)
     fail("unsupported BMP pixel depth " + std::to_string(bits));
-  // Channel byte offsets in a stored pixel (BGR order by default), -1: none.
-  int ch[4] = {2, 1, 0, -1};
+  const bool rle = compression == 1 || compression == 2;
+  if (compression != 0 && compression != 3 && !rle)
+    fail("unsupported BMP compression " + std::to_string(compression));
+  if (rle && bits > 8) fail("RLE-compressed BMP of " + std::to_string(bits) + " bits does not exist");
+  // Channel byte offsets in a stored pixel (BGR order by default), -1: none;
+  // a 16-bit pixel: 5 (5-5-5) or 6 (5-6-5), the width of its green field.
+  int ch[4] = {2, 1, 0, -1}, green16 = 5;
   if (compression == 3) {
     struct Layout { uint32_t m[4]; int ch[4]; };
     static const Layout l32[] = {
@@ -1030,6 +1131,10 @@ Image bmp(Bytes in) {
         if (!std::memcmp(l.m, masks, sizeof masks)) std::memcpy(ch, l.ch, sizeof ch), found = true;
     } else if (bits == 24) {
       found = masks[0] == 0xFF0000 && masks[1] == 0xFF00 && masks[2] == 0xFF;
+    } else if (bits == 16) {  // Pillow compares the three colour masks only
+      found = (masks[0] == 0xF800 && masks[1] == 0x7E0 && masks[2] == 0x1F) ||
+              (masks[0] == 0x7C00 && masks[1] == 0x3E0 && masks[2] == 0x1F);
+      green16 = masks[1] == 0x7E0 ? 6 : 5;
     }
     if (!found) fail("unsupported BMP bitfields layout");
   }
@@ -1037,43 +1142,710 @@ Image bmp(Bytes in) {
   bool grey = false;
   if (bits <= 8) {
     if (colors == 0 || colors > 65536) fail("unsupported BMP palette size " + std::to_string(colors));
-    if (colors > 256) fail("BMP palette of more than 256 entries is not supported");
-    in.need(p, size_t(colors) * size_t(pad), "BMP palette");
+    // Pillow reads the palette with a short read at the end of the file: an
+    // entry not wholly there stays black and makes the palette no grey one.
+    const size_t avail = p < in.n ? std::min(size_t(colors) * size_t(pad), in.n - p) : 0;
     grey = true;
     for (uint32_t i = 0; i < colors; ++i) {
       const uint8_t* s = in.p + p + size_t(i) * size_t(pad);
-      const uint32_t want = colors == 2 ? i * 255 : i;
-      if (s[0] != want || s[1] != want || s[2] != want) grey = false;
-      pal.e[i][0] = s[2], pal.e[i][1] = s[1], pal.e[i][2] = s[0], pal.e[i][3] = 255;
+      const uint32_t want = (colors == 2 ? i * 255 : i) & 255;  // Pillow's o8
+      if (size_t(i) * size_t(pad) + 3 > avail || s[0] != want || s[1] != want || s[2] != want) grey = false;
+      if (i < 256 && size_t(i + 1) * size_t(pad) <= avail)
+        pal.e[i][0] = s[2], pal.e[i][1] = s[1], pal.e[i][2] = s[0], pal.e[i][3] = 255;
     }
-    // Pillow reads a grey palette as mode "1" (2 entries) or "L" with raw
-    // 1- or 8-bit samples whatever the depth: only the matching depth
-    // gives the palette's pixels.
-    if (grey && (colors == 2 ? bits != 1 : bits != 8))
-      fail("BMP with a " + std::to_string(colors) + "-entry grey palette at " + std::to_string(bits) +
-           " bits is not supported");
+    if (!grey && avail / size_t(pad) > 256) fail("BMP palette of more than 256 colours (Pillow: invalid palette size)");
+    p += avail;
   }
+  if (offset == 0) offset = p;  // Pillow: the file position after the palette
   if (w <= 0 || h <= 0) fail("BMP has bad dimensions");
-  const char* mode = grey ? (colors == 2 ? "1" : "L") : bits <= 8 ? "P" : ch[3] >= 0 ? "RGBA" : "RGB";
+  const bool one = grey && colors == 2;  // mode "1"
+  const char* mode = grey ? (one ? "1" : "L") : bits <= 8 ? "P" : ch[3] >= 0 ? "RGBA" : "RGB";
   const int channels = grey ? 1 : bits <= 8 ? 4 : ch[3] >= 0 ? 4 : 3;
   Image img;
   img.alloc(w, h, channels, mode);
+  if (rle) {
+    if (one) fail("RLE-compressed BMP with a black-and-white palette cannot be read");  // Pillow: no "1" from "P"
+    const std::vector<uint8_t> idx = bmp_rle(in, offset, w, h, compression == 2);
+    for (int64_t r = 0; r < h; ++r)
+      for (int64_t x = 0; x < w; ++x) {
+        const uint8_t v = idx[size_t(r * w + x)];
+        uint8_t* o = img.at(top_down ? r : h - 1 - r, x);
+        if (grey) o[0] = v;
+        else std::memcpy(o, pal.e[v], 4);
+      }
+    return img;
+  }
   const size_t stride = size_t(((w * bits + 31) >> 3) & ~int64_t(3));
-  in.need(offset, stride * size_t(h), "BMP pixel data");
+  const int read_bits = grey ? (one ? 1 : 8) : bits;  // what Pillow unpacks a pixel from
+  const size_t row_bytes = size_t((w * read_bits + 7) / 8);
+  const size_t body = stride * size_t(h - 1) + row_bytes;
+  // The raw decoder needs each row's bytes (the last row's padding may be
+  // missing); an "L" row wider than its stride is read only through the
+  // memory map, which needs every row's stride.
+  if (row_bytes > stride ? offset > in.n || stride * size_t(h) > in.n - offset
+                         : offset > in.n || body > in.n - offset)
+    fail("truncated BMP pixel data");
   for (int64_t y = 0; y < h; ++y) {
-    const uint8_t* row = in.p + offset + stride * size_t(top_down ? y : h - 1 - y);
+    const size_t row = offset + stride * size_t(top_down ? y : h - 1 - y);
+    auto byte = [&](size_t k) -> uint8_t { return row + k < in.n ? in.p[row + k] : 0; };
     for (int64_t x = 0; x < w; ++x) {
       uint8_t* o = img.at(y, x);
-      if (bits <= 8) {
-        const size_t bit = size_t(x) * size_t(bits);
-        const int idx = (row[bit >> 3] >> (8 - bits - int(bit & 7))) & ((1 << bits) - 1);
-        std::memcpy(o, pal.e[idx], size_t(channels));
+      if (grey && !one) {
+        o[0] = byte(size_t(x));
+      } else if (read_bits <= 8) {
+        const size_t bit = size_t(x) * size_t(read_bits);
+        const int idx = (in.p[row + (bit >> 3)] >> (8 - read_bits - int(bit & 7))) & ((1 << read_bits) - 1);
+        if (one) o[0] = idx ? 255 : 0;
+        else std::memcpy(o, pal.e[idx], 4);
+      } else if (bits == 16) {
+        const uint8_t* s = in.p + row + 2 * size_t(x);
+        const uint32_t v = uint32_t(s[0]) | uint32_t(s[1]) << 8;
+        if (green16 == 6) {
+          o[0] = uint8_t((v >> 11 & 31) * 255 / 31), o[1] = uint8_t((v >> 5 & 63) * 255 / 63);
+        } else {
+          o[0] = uint8_t((v >> 10 & 31) * 255 / 31), o[1] = uint8_t((v >> 5 & 31) * 255 / 31);
+        }
+        o[2] = uint8_t((v & 31) * 255 / 31);
       } else {
-        const uint8_t* s = row + size_t(x) * size_t(bits / 8);
+        const uint8_t* s = in.p + row + size_t(x) * size_t(bits / 8);
         for (int k = 0; k < channels; ++k) o[k] = s[ch[k]];
       }
     }
   }
+  return img;
+}
+
+// ----------------------------------------------------------------- GIF ----
+
+// The first frame of a GIF as Pillow 12 reads it (GifImagePlugin with its
+// default loading strategy, then its LZW decoder GifDecode.c):
+//   - the image is the logical screen, grown to hold the frame; outside the
+//     frame it holds index 0, or the frame's transparent index where its
+//     Graphic Control Extension sets one;
+//   - mode "P" through the frame's colour table (the local one, else the
+//     global one; a table of entries i = i, i, i is dropped), "L" (the
+//     indexes as grey) without one; the transparent index has alpha 0;
+//   - LZW codes of 1 + (0..12) bits growing to 12, clear codes, a full table
+//     with no clear (no entry is added), codes past the table raise;
+//   - an end code pauses the decoder: Pillow's ImageFile.load then reads
+//     the next 64 KiB of the file and the decoder goes on after the end
+//     code, so a frame its codes do not fill raises, as the file ends.
+Image gif(Bytes in) {
+  constexpr size_t kChunk = 65536;  // ImageFile.MAXBLOCK, the load's read size
+  if (in.n < 6 || (std::memcmp(in.p, "GIF87a", 6) && std::memcmp(in.p, "GIF89a", 6))) fail("not a GIF file");
+  int64_t W = in.le16(6, "GIF header"), H = in.le16(8, "GIF header");
+  const int gflags = in.u8(10, "GIF header");
+  size_t p = 13;
+  in.need(11, 2, "GIF header");
+  auto table_needed = [](const uint8_t* t, size_t bytes) {
+    for (size_t i = 0; i < bytes / 3; ++i)
+      if (!(t[3 * i] == i && t[3 * i + 1] == i && t[3 * i + 2] == i)) return true;
+    return false;
+  };
+  const uint8_t* table = nullptr;  // the frame's colour table, or none
+  size_t table_bytes = 0;
+  if (gflags & 128) {
+    table_bytes = size_t(3) << ((gflags & 7) + 1);
+    in.need(p, table_bytes, "GIF colour table");
+    if (table_needed(in.p + p, table_bytes)) table = in.p + p;
+    p += table_bytes;
+  }
+  auto sub_block = [&](size_t& q) -> size_t {  // GifImageFile.data(): the length read, 0 at the end
+    if (q >= in.n) return 0;
+    const size_t len = in.p[q++];
+    const size_t got = std::min(len, in.n - q);
+    q += got;
+    return got;
+  };
+  int transparency = -1;
+  int64_t x0 = 0, y0 = 0, fw = 0, fh = 0;
+  bool interlace = false;
+  for (;;) {
+    if (p >= in.n || in.p[p] == ';') fail("GIF has no image");
+    const uint8_t c = in.p[p++];
+    if (c == '!') {
+      const int label = in.u8(p++, "GIF extension");
+      const size_t start = p;
+      const size_t len = sub_block(p);
+      if (label == 249 && len) {
+        const uint8_t* b = in.p + start + 1;
+        if (len < 3 || ((b[0] & 1) && len < 4)) fail("corrupt GIF: short graphic control extension");
+        if (b[0] & 1) transparency = b[3];
+      } else if (label == 254) {  // a comment's blocks, up to and with the empty one
+        for (size_t l = len; l;) l = sub_block(p);
+        continue;
+      }
+      while (sub_block(p)) {
+      }
+    } else if (c == ',') {
+      in.need(p, 9, "GIF image descriptor");
+      x0 = in.le16(p, "GIF"), y0 = in.le16(p + 2, "GIF"), fw = in.le16(p + 4, "GIF"), fh = in.le16(p + 6, "GIF");
+      const int lflags = in.p[p + 8];
+      p += 9;
+      interlace = lflags & 64;
+      if (lflags & 128) {
+        table_bytes = size_t(3) << ((lflags & 7) + 1);
+        in.need(p, table_bytes, "GIF local colour table");
+        table = table_needed(in.p + p, table_bytes) ? in.p + p : nullptr;
+        p += table_bytes;
+      }
+      break;
+    }
+  }
+  const int bits = in.u8(p++, "GIF image data");
+  if (bits > 12) fail("corrupt GIF: LZW code size " + std::to_string(bits));
+  W = std::max(W, x0 + fw), H = std::max(H, y0 + fh);
+  check_size(W, H);
+  // The decoder's extents (decode.c _setimage: x0 = x1 = 0 means the image).
+  int64_t xoff = x0, yoff = y0, xs = fw, ys = fh;
+  if (x0 == 0 && x0 + fw == 0) xoff = yoff = 0, xs = W, ys = H;
+  if (xs <= 0 || ys <= 0) fail("corrupt GIF: a frame of no pixels");
+  std::vector<uint8_t> idx(size_t(W * H), uint8_t(transparency < 0 ? 0 : transparency));
+
+  const int clear = 1 << bits, end = clear + 1;
+  constexpr int kTable = 4096;
+  std::vector<uint8_t> data(kTable), buffer(kTable);
+  std::vector<uint16_t> link(kTable);
+  int state = 1, next = 0, codesize = 0, codemask = 0, bufferindex = kTable, lastcode = 0;
+  uint8_t lastdata = 0;
+  uint32_t bitbuffer = 0;
+  int bitcount = 0, blocksize = 0;
+  int step = interlace ? 8 : 1, pass = interlace ? 1 : 0;
+  int64_t x = 0, y = 0;
+  size_t avail = std::min(in.n, p + kChunk);
+  auto more = [&] {  // the decoder returned wanting data: the load reads on, or raises
+    if (avail >= in.n) fail("truncated GIF image data");
+    avail = std::min(in.n, avail + kChunk);
+  };
+  for (;;) {
+    if (state == 1) {
+      next = clear + 2, codesize = bits + 1, codemask = (1 << codesize) - 1;
+      bufferindex = kTable, state = 2;
+    }
+    const uint8_t* str;
+    int len;
+    if (bufferindex < kTable) {
+      str = &buffer[size_t(bufferindex)], len = kTable - bufferindex, bufferindex = kTable;
+    } else {
+      while (bitcount < codesize) {
+        if (blocksize > 0) {
+          bitbuffer |= uint32_t(in.p[p++]) << bitcount;
+          bitcount += 8, --blocksize;
+        } else if (p >= avail || avail - p < size_t(in.p[p]) + 1) {
+          more();  // a block is decoded only once all of it is read
+        } else {
+          blocksize = in.p[p++];
+        }
+      }
+      int code = int(bitbuffer & uint32_t(codemask));
+      bitbuffer >>= codesize;
+      bitcount -= codesize;
+      if (code == clear) {
+        if (state != 2) state = 1;
+        continue;
+      }
+      if (code == end) {
+        more();
+        continue;
+      }
+      str = &lastdata, len = 1;
+      if (state == 2) {
+        if (code > clear) fail("corrupt GIF: bad first LZW code");
+        lastdata = uint8_t(code), lastcode = code, state = 3;
+      } else {
+        const int thiscode = code;
+        if (code > next) fail("corrupt GIF: LZW code past the table");
+        if (code == next) {
+          if (bufferindex <= 0) fail("corrupt GIF: LZW string too long");
+          buffer[size_t(--bufferindex)] = lastdata;
+          code = lastcode;
+        }
+        while (code >= clear) {
+          if (bufferindex <= 0 || code >= kTable) fail("corrupt GIF: LZW string too long");
+          buffer[size_t(--bufferindex)] = data[size_t(code)];
+          code = link[size_t(code)];
+        }
+        lastdata = uint8_t(code);
+        if (next < kTable) {
+          data[size_t(next)] = uint8_t(code), link[size_t(next)] = uint16_t(lastcode);
+          if (next == codemask && codesize < 12) codemask = (1 << ++codesize) - 1;
+          ++next;
+        }
+        lastcode = thiscode;
+      }
+    }
+    bool done = false;
+    for (int k = 0; k < len && !done; ++k) {
+      idx[size_t((yoff + y) * W + xoff + x)] = str[k];
+      if (++x < xs) continue;
+      x = 0, y += step;
+      while (y >= ys && !done) {  // GifDecode.c NEWLINE: the interlace passes
+        switch (pass) {
+          case 1: y = 4, pass = 2; break;
+          case 2: step = 4, y = 2, pass = 3; break;
+          case 3: step = 2, y = 1, pass = 0; break;
+          default: done = true;
+        }
+      }
+    }
+    if (done) break;
+  }
+
+  Image img;
+  const bool key = transparency >= 0;
+  if (table) {
+    Palette pal;
+    for (size_t i = 0; i < table_bytes / 3; ++i)
+      for (int k = 0; k < 3; ++k) pal.e[i][k] = table[3 * i + size_t(k)];
+    if (key) pal.e[transparency][3] = 0;
+    img.alloc(W, H, 4, "P");
+    for (size_t i = 0; i < idx.size(); ++i) std::memcpy(&img.px[4 * i], pal.e[idx[i]], 4);
+  } else {
+    img.alloc(W, H, key ? 2 : 1, "L");
+    for (size_t i = 0; i < idx.size(); ++i) {
+      img.px[size_t(img.c) * i] = idx[i];
+      if (key) img.px[2 * i + 1] = idx[i] == transparency ? 0 : 255;
+    }
+  }
+  return img;
+}
+
+// ----------------------------------------------------------------- PNM ----
+
+// As Pillow's PpmImagePlugin: P1/P4 -> "1" (1 is black), P2/P5 -> "L",
+// P3/P6 -> "RGB", Pf -> "F".  A maxval other than 255 scales each sample
+// to round(v / maxval * 255) (Python's round on doubles: half to even; the
+// binary decoder caps at 255); P2/P5 above 255 give "I" at round(v /
+// maxval * 65535), returned as its high byte, stb_image's 16-to-8 bit rule
+// (Pillow's convert would clip it to 255); P3/P6 above 255 stay "RGB".  A
+// "Pf" map (little-endian for a negative scale, rows bottom-up) comes
+// back as convert("L") makes it: 0 at or below 0 and for NaN, 255 from
+// 255, else truncated.  The ASCII decoders work on 1 MiB blocks of the
+// file as Pillow's do, comments included.
+namespace pnm {
+
+bool space(uint8_t c) { return c == ' ' || c == '\t' || c == '\n' || c == '\v' || c == '\f' || c == '\r'; }
+
+// Python's int() of an ASCII token: a sign, digits with single underscores
+// between them.
+bool parse_int(const std::string& t, int64_t& v) {
+  size_t i = t[0] == '+' || t[0] == '-' ? 1 : 0;
+  if (i >= t.size() || !std::isdigit(static_cast<unsigned char>(t[i]))) return false;
+  v = 0;
+  for (; i < t.size(); ++i) {
+    if (t[i] == '_') {
+      if (i + 1 >= t.size() || !std::isdigit(static_cast<unsigned char>(t[i + 1]))) return false;
+      continue;
+    }
+    if (!std::isdigit(static_cast<unsigned char>(t[i]))) return false;
+    v = v * 10 + (t[i] - '0');  // at most 10 digits
+  }
+  if (t[0] == '-') v = -v;
+  return true;
+}
+
+// Python's float() of a token: the sign and whether it is finite and
+// non-zero are all the caller needs; 0 for a token float() refuses.
+int parse_scale_sign(const std::string& t, bool& finite_nonzero) {
+  std::string s;
+  size_t i = 0;
+  const int sign = t[0] == '-' ? -1 : 1;
+  if (t[0] == '+' || t[0] == '-') ++i;
+  std::string rest = t.substr(i), low;
+  for (char c : rest) low.push_back(char(std::tolower(static_cast<unsigned char>(c))));
+  if (low == "inf" || low == "infinity" || low == "nan") {
+    finite_nonzero = false;
+    return sign;
+  }
+  // digitpart ('.' digitpart?)? | '.' digitpart, then an exponent; digitpart:
+  // digits with single underscores between them.
+  auto digits = [&](size_t& k) {
+    size_t start = k;
+    while (k < rest.size()) {
+      if (std::isdigit(static_cast<unsigned char>(rest[k]))) {
+        s.push_back(rest[k++]);
+      } else if (rest[k] == '_' && k > start && k + 1 < rest.size() &&
+                 std::isdigit(static_cast<unsigned char>(rest[k + 1]))) {
+        ++k;
+      } else {
+        break;
+      }
+    }
+    return k > start;
+  };
+  size_t k = 0;
+  bool whole = digits(k), frac = false;
+  if (k < rest.size() && rest[k] == '.') {
+    s.push_back('.');
+    ++k;
+    frac = digits(k);
+  }
+  if (!whole && !frac) return 0;
+  if (k < rest.size() && (rest[k] == 'e' || rest[k] == 'E')) {
+    s.push_back('e');
+    ++k;
+    if (k < rest.size() && (rest[k] == '+' || rest[k] == '-')) s.push_back(rest[k++]);
+    if (!digits(k)) return 0;
+  }
+  if (k != rest.size()) return 0;
+  const double v = std::strtod(s.c_str(), nullptr);
+  finite_nonzero = std::isfinite(v) && v != 0.0;
+  return sign;
+}
+
+// Python's round(v / maxval * top) for v in [0, n): two IEEE operations and
+// a round half to even, the same on every host.
+std::vector<uint32_t> scale_table(size_t n, int64_t maxval, int64_t top) {
+  std::vector<uint32_t> t(n);
+  for (size_t v = 0; v < n; ++v) {
+    const double x = double(v) / double(maxval) * double(top);
+    double r = std::floor(x);
+    const double d = x - r;
+    if (d > 0.5 || (d == 0.5 && std::fmod(r, 2.0) != 0.0)) r += 1.0;
+    t[v] = uint32_t(r);
+  }
+  return t;
+}
+
+struct Plain {  // PpmPlainDecoder
+  static constexpr size_t kBlock = 1 << 20;  // ImageFile.SAFEBLOCK
+  Bytes in;
+  size_t pos;
+  bool spans = false;
+
+  std::string block() {
+    const size_t k = pos < in.n ? std::min(kBlock, in.n - pos) : 0;
+    std::string b(reinterpret_cast<const char*>(in.p) + std::min(pos, in.n), k);
+    pos += k;
+    return b;
+  }
+  static int64_t comment_end(const std::string& b, size_t start) {
+    const size_t a = b.find('\n', start), c = b.find('\r', start);
+    const int64_t ia = a == std::string::npos ? -1 : int64_t(a), ic = c == std::string::npos ? -1 : int64_t(c);
+    return ia * ic > 0 ? std::min(ia, ic) : std::max(ia, ic);
+  }
+  std::string strip_comments(std::string b) {
+    if (spans) {
+      while (!b.empty()) {
+        const int64_t e = comment_end(b, 0);
+        if (e != -1) {
+          b = b.substr(size_t(e) + 1);
+          break;
+        }
+        b = block();
+      }
+    }
+    spans = false;
+    for (;;) {
+      const size_t s = b.find('#');
+      if (s == std::string::npos) break;
+      const int64_t e = comment_end(b, s);
+      if (e != -1) {
+        b = b.substr(0, s) + b.substr(size_t(e) + 1);
+      } else {
+        b = b.substr(0, s);
+        spans = true;
+        break;
+      }
+    }
+    return b;
+  }
+  static std::vector<std::string> split(const std::string& b) {
+    std::vector<std::string> out;
+    size_t i = 0;
+    while (i < b.size()) {
+      while (i < b.size() && space(uint8_t(b[i]))) ++i;
+      size_t j = i;
+      while (j < b.size() && !space(uint8_t(b[j]))) ++j;
+      if (j > i) out.push_back(b.substr(i, j - i));
+      i = j;
+    }
+    return out;
+  }
+  // "1": '0' white, '1' black; every token of a block is checked.
+  std::vector<uint8_t> bitonal(size_t total) {
+    std::string data;
+    while (data.size() != total) {
+      std::string b = block();
+      if (b.empty()) break;
+      b = strip_comments(b);
+      std::string tokens;
+      for (char c : b)
+        if (!space(uint8_t(c))) {
+          if (c != '0' && c != '1') fail("PBM data holds a token other than 0 and 1");
+          tokens.push_back(c);
+        }
+      data = (data + tokens).substr(0, total);
+    }
+    if (data.size() < total) fail("not enough PBM image data");
+    std::vector<uint8_t> out(total);
+    for (size_t i = 0; i < total; ++i) out[i] = data[i] == '0' ? 255 : 0;
+    return out;
+  }
+  std::vector<uint32_t> samples(size_t total, int64_t maxval, int64_t top) {
+    const std::vector<uint32_t> scale = scale_table(size_t(maxval) + 1, maxval, top);
+    std::vector<uint32_t> data;
+    std::string half;
+    while (data.size() != total) {
+      std::string b = block();
+      if (b.empty()) {
+        if (half.empty()) break;
+        b = " ";
+      }
+      b = strip_comments(b);
+      if (!half.empty()) b = half + b, half.clear();
+      std::vector<std::string> tokens = split(b);
+      if (!b.empty() && !space(uint8_t(b.back()))) {
+        half = tokens.back();
+        tokens.pop_back();
+        if (half.size() > 10) fail("PNM token too long");
+      }
+      for (const std::string& t : tokens) {
+        int64_t v;
+        if (t.size() > 10) fail("PNM token too long");
+        if (!parse_int(t, v)) fail("PNM data holds a token that is no number");
+        if (v < 0 || v > maxval) fail("PNM sample outside 0 to maxval");
+        data.push_back(scale[size_t(v)]);
+        if (data.size() == total) break;
+      }
+    }
+    if (data.size() < total) fail("not enough PNM image data");
+    return data;
+  }
+};
+
+}  // namespace pnm
+
+Image pnm_decode(Bytes in) {
+  using pnm::space;
+  size_t pos = 0;
+  std::string magic;
+  for (int i = 0; i < 6 && pos < in.n; ++i) {
+    const uint8_t c = in.p[pos++];
+    if (space(c)) break;
+    magic.push_back(char(c));
+  }
+  static const char* kKnown[] = {"P1", "P2", "P3", "P4", "P5", "P6", "Pf"};
+  if (std::find_if(std::begin(kKnown), std::end(kKnown), [&](const char* k) { return magic == k; }) ==
+      std::end(kKnown))
+    fail("PNM file of magic '" + magic + "' is not supported (P1-P6, Pf)");
+  auto token = [&]() {  // PpmImageFile._read_token
+    std::string t;
+    while (t.size() <= 10) {
+      if (pos >= in.n) break;
+      const uint8_t c = in.p[pos++];
+      if (space(c)) {
+        if (t.empty()) continue;
+        break;
+      }
+      if (c == '#') {
+        while (pos < in.n && in.p[pos] != '\r' && in.p[pos] != '\n') ++pos;
+        if (pos < in.n) ++pos;
+        continue;
+      }
+      t.push_back(char(c));
+    }
+    if (t.empty()) fail("truncated PNM header");
+    if (t.size() > 10) fail("PNM header token too long");
+    return t;
+  };
+  int64_t w, h;
+  if (!pnm::parse_int(token(), w) || !pnm::parse_int(token(), h)) fail("PNM size is no number");
+  if (w <= 0 || h <= 0) fail("PNM has bad dimensions");
+  check_size(w, h);
+  const char kind = magic[1];
+  const bool plain = kind == '1' || kind == '2' || kind == '3';
+  const int bands = kind == '3' || kind == '6' ? 3 : 1;
+  const size_t npx = size_t(w) * size_t(h);
+  Image img;
+  if (kind == 'f') {
+    bool ok = false;
+    const int sign = pnm::parse_scale_sign(token(), ok);
+    if (!sign) fail("PFM scale is no number");
+    if (!ok) fail("PFM scale must be finite and non-zero");
+    in.need(pos, npx * 4, "PFM image data");
+    img.alloc(w, h, 1, "F");
+    for (int64_t y = 0; y < h; ++y)
+      for (int64_t x = 0; x < w; ++x) {
+        const uint8_t* s = in.p + pos + 4 * size_t((h - 1 - y) * w + x);
+        const uint32_t bitsv = sign < 0 ? uint32_t(s[0]) | uint32_t(s[1]) << 8 | uint32_t(s[2]) << 16 | uint32_t(s[3]) << 24
+                                        : uint32_t(s[3]) | uint32_t(s[2]) << 8 | uint32_t(s[1]) << 16 | uint32_t(s[0]) << 24;
+        float f;
+        std::memcpy(&f, &bitsv, 4);
+        img.at(y, x)[0] = !(f > 0.0f) ? 0 : f >= 255.0f ? 255 : uint8_t(int(f));
+      }
+    return img;
+  }
+  if (kind == '1' || kind == '4') {
+    img.alloc(w, h, 1, "1");
+    if (plain) {
+      pnm::Plain rd{in, pos};
+      img.px = rd.bitonal(npx);
+      return img;
+    }
+    const size_t stride = (size_t(w) + 7) / 8;
+    in.need(pos, stride * size_t(h), "PBM image data");
+    for (int64_t y = 0; y < h; ++y)
+      for (int64_t x = 0; x < w; ++x)
+        img.at(y, x)[0] = (in.p[pos + size_t(y) * stride + size_t(x >> 3)] >> (7 - (x & 7)) & 1) ? 0 : 255;
+    return img;
+  }
+  int64_t maxval;
+  if (!pnm::parse_int(token(), maxval)) fail("PNM maxval is no number");
+  if (!(maxval > 0 && maxval < 65536)) fail("PNM maxval must be greater than 0 and less than 65536");
+  const bool wide = maxval > 255 && bands == 1;  // Pillow's mode "I"
+  const int64_t top = wide ? 65535 : 255;
+  img.alloc(w, h, bands, wide ? "I" : bands == 3 ? "RGB" : "L");
+  const size_t total = npx * size_t(bands);
+  std::vector<uint32_t> v;
+  if (plain) {
+    pnm::Plain rd{in, pos};
+    v = rd.samples(total, maxval, top);
+  } else {
+    const int in_bytes = maxval < 256 ? 1 : 2;
+    in.need(pos, total * size_t(in_bytes), "PNM image data");
+    const bool raw = maxval == 255 || (maxval == 65535 && wide);
+    const std::vector<uint32_t> scale = raw ? std::vector<uint32_t>() : pnm::scale_table(size_t(1) << (8 * in_bytes), maxval, top);
+    v.resize(total);
+    for (size_t i = 0; i < total; ++i) {
+      const uint32_t s = in_bytes == 1 ? in.p[pos + i] : uint32_t(in.p[pos + 2 * i]) << 8 | in.p[pos + 2 * i + 1];
+      v[i] = raw ? s : std::min<uint32_t>(uint32_t(top), scale[s]);
+    }
+  }
+  for (size_t i = 0; i < total; ++i) img.px[i] = uint8_t(wide ? v[i] >> 8 : v[i]);
+  return img;
+}
+
+// ----------------------------------------------------------------- PSD ----
+
+// The composite image of a PSD as Pillow's PsdImagePlugin reads it: 8-bit
+// (bitmap: 1-bit) channels, raw or PackBits (whose per-row byte counts
+// only place the channels: each channel decodes on from its start, and a
+// run past its row's end is cut), by Pillow's MODES table: bitmap -> "1",
+// grey, duotone, multichannel -> "L" (the first channel), indexed -> "P"
+// (a 768-byte planar colour table, else all black), RGB -> "RGB" ("RGBA"
+// with exactly four channels), CMYK -> "CMYK" (stored inverted), returned
+// as convert("RGBA") makes it.  16-bit, Lab, missing channels and other
+// compressions raise.
+Image psd(Bytes in) {
+  if (in.n < 26 || std::memcmp(in.p, "8BPS", 4) || in.be16(4, "PSD") != 1) fail("not a PSD file");
+  auto be32 = [&](size_t o, const char* what) { return in.be16(o, what) << 16 | in.be16(o + 2, what); };
+  const int channels = int(in.be16(12, "PSD")), depth = int(in.be16(22, "PSD")), cmode = int(in.be16(24, "PSD"));
+  const int64_t h = be32(14, "PSD"), w = be32(18, "PSD");
+  const char* mode;
+  int need;
+  switch (depth == 8 ? cmode : depth == 1 && cmode == 0 ? 100 : -1) {
+    case 100: mode = "1", need = 1; break;
+    case 0: case 1: case 7: case 8: mode = "L", need = 1; break;
+    case 2: mode = "P", need = 1; break;
+    case 3: mode = "RGB", need = 3; break;
+    case 4: mode = "CMYK", need = 4; break;
+    case 9: fail("PSD in Lab colour is not supported");
+    default:
+      fail("PSD of colour mode " + std::to_string(cmode) + " at " + std::to_string(depth) + " bits is not supported");
+  }
+  if (need > channels) fail("PSD has not enough channels");
+  if (!std::strcmp(mode, "RGB") && channels == 4) mode = "RGBA", need = 4;
+  // The sections before the image data, read as Pillow reads them: a read
+  // past the end of the file comes back short, a length field must be whole.
+  size_t pos = 26;
+  auto skip = [&](size_t k) { pos = pos < in.n ? pos + std::min(k, in.n - pos) : pos; };
+  auto u32 = [&]() {
+    if (pos > in.n || in.n - pos < 4) fail("truncated PSD");
+    pos += 4;
+    return size_t(be32(pos - 4, "PSD"));
+  };
+  Palette pal;
+  const size_t cmd = u32();
+  if (!std::strcmp(mode, "P") && cmd == 768 && pos + 768 <= in.n)
+    for (int i = 0; i < 256; ++i)
+      for (int k = 0; k < 3; ++k) pal.e[i][k] = in.p[pos + size_t(256 * k + i)];
+  skip(cmd);
+  const size_t res = u32();
+  const size_t res_end = pos + res;
+  while (pos < res_end) {  // image resources: signature, id, name, data
+    skip(4);
+    if (pos > in.n || in.n - pos < 3) fail("truncated PSD image resources");
+    pos += 2;
+    const size_t name_len = in.p[pos++];
+    const size_t before = pos;
+    skip(name_len);
+    if (!((pos - before) & 1)) skip(1);
+    const size_t len = u32(), start = pos;
+    skip(len);
+    if ((pos - start) & 1) skip(1);
+  }
+  const size_t layers = u32();
+  if (layers) {
+    const size_t end = pos + layers;
+    u32();
+    pos = end;
+  }
+  if (pos > in.n || in.n - pos < 2) fail("truncated PSD image data");
+  const int compression = int(in.be16(pos, "PSD"));
+  pos += 2;
+  if (compression != 0 && compression != 1)
+    fail("PSD image data compression " + std::to_string(compression) + " is not supported");
+  check_size(w, h);
+  const bool bitmap = !std::strcmp(mode, "1");
+  const size_t row = bitmap ? (size_t(w) + 7) / 8 : size_t(w);
+  std::vector<std::vector<uint8_t>> planes(size_t(need), std::vector<uint8_t>(row * size_t(h)));
+  if (compression == 0) {
+    for (int c = 0; c < need; ++c) {
+      const size_t off = pos + size_t(c) * size_t(w) * size_t(h);
+      in.need(off, row * size_t(h), "PSD image data");
+      std::memcpy(planes[size_t(c)].data(), in.p + off, row * size_t(h));
+    }
+  } else {
+    const size_t counts = pos;
+    in.need(counts, 2 * size_t(need) * size_t(h), "PSD row byte counts");
+    size_t off = counts + 2 * size_t(need) * size_t(h);  // Pillow skips `need` channels' counts
+    for (int c = 0; c < need; ++c) {
+      uint8_t* out = planes[size_t(c)].data();
+      size_t q = off, x = 0;
+      for (int64_t y = 0; y < h;) {  // PackbitsDecode.c
+        if (q >= in.n) fail("truncated PSD PackBits data");
+        const int b = in.p[q];
+        if (b == 0x80) {
+          ++q;
+          continue;
+        }
+        if (b & 0x80) {
+          if (in.n - q < 2) fail("truncated PSD PackBits data");
+          for (int k = 257 - b; k > 0 && x < row; --k) out[size_t(y) * row + x++] = in.p[q + 1];
+          q += 2;
+        } else {
+          if (in.n - q < size_t(b) + 2) fail("truncated PSD PackBits data");
+          for (int k = 1; k < b + 2 && x < row; ++k) out[size_t(y) * row + x++] = in.p[q + size_t(k)];
+          q += size_t(b) + 2;
+        }
+        if (x >= row) x = 0, ++y;
+      }
+      for (int64_t y = 0; y < h; ++y) off += in.be16(counts + 2 * size_t(c * h + y), "PSD");
+    }
+  }
+  const bool cmyk = !std::strcmp(mode, "CMYK"), paletted = !std::strcmp(mode, "P");
+  Image img;
+  img.alloc(w, h, paletted || cmyk ? 4 : need, mode);
+  for (int64_t y = 0; y < h; ++y)
+    for (int64_t x = 0; x < w; ++x) {
+      uint8_t* o = img.at(y, x);
+      const size_t i = size_t(y) * row + size_t(x);
+      if (bitmap) {
+        o[0] = (planes[0][size_t(y) * row + size_t(x >> 3)] >> (7 - (x & 7)) & 1) ? 255 : 0;
+      } else if (paletted) {
+        std::memcpy(o, pal.e[planes[0][i]], 4);
+      } else if (cmyk) {  // Convert.c cmyk2rgb on the inverted samples
+        const int nk = planes[3][i];  // 255 - (255 - stored)
+        for (int k = 0; k < 3; ++k) {
+          const int t = (255 - planes[size_t(k)][i]) * nk + 128;
+          o[k] = uint8_t(std::clamp(nk - (((t >> 8) + t) >> 8), 0, 255));
+        }
+        o[3] = 255;
+      } else {
+        for (int k = 0; k < need; ++k) o[k] = planes[size_t(k)][i];
+      }
+    }
   return img;
 }
 
@@ -1090,7 +1862,8 @@ void write_error(char* err, int64_t errlen, const char* msg) {
 
 extern "C" {
 
-// format: 1 JPEG, 2 BMP, 3 TGA.  Returns a handle, or NULL with the reason in err.
+// format: 1 JPEG, 2 BMP, 3 TGA, 4 GIF, 5 PNM, 6 PSD.  Returns a handle, or
+// NULL with the reason in err.
 void* imgd_decode(const uint8_t* data, int64_t n, int32_t format, char* err, int64_t errlen) {
   try {
     Bytes in{data, size_t(n < 0 ? 0 : n)};
@@ -1098,6 +1871,9 @@ void* imgd_decode(const uint8_t* data, int64_t n, int32_t format, char* err, int
       case 1: return finish(Jpeg(in).decode());
       case 2: return finish(bmp(in));
       case 3: return finish(tga(in));
+      case 4: return finish(gif(in));
+      case 5: return finish(pnm_decode(in));
+      case 6: return finish(psd(in));
       default: fail("unknown image format code " + std::to_string(format));
     }
   } catch (const std::exception& e) {

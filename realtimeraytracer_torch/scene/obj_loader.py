@@ -8,8 +8,9 @@ with ``allow_native=False`` or without a C++ compiler), ``_dedup_shape``,
 ``load_obj``, ``load_obj_mtl``, ``load_texture_file``, ``decode_radiance_hdr``,
 ``encode_radiance_hdr``, ``load_hdr`` and ``load_obj_scene``, with the same
 results.  Texture files and 8-bit skies are read by the port's native
-decoder (utils/image_decode.py: JPEG, PNG, TGA, BMP) instead of Pillow and
-imageio, with Pillow's modes and grey conversion reproduced bit for bit.
+decoder (utils/image_decode.py: JPEG, PNG, TGA, BMP, GIF, PNM, PSD) instead
+of Pillow and imageio, with Pillow's modes and grey conversion reproduced
+bit for bit; every 8-bit texel is divided by 255, as stbi_load reads it.
 """
 
 from __future__ import annotations
@@ -278,22 +279,24 @@ def _grey(pixels: np.ndarray) -> np.ndarray:
 
 
 def load_texture_file(path: str, grayscale: bool = False) -> np.ndarray:
-    """Decode an image file (JPEG, PNG, TGA, BMP) to float32 [0,1] (H, W,
-    C), vertically flipped to match the reference's
-    stbi_set_flip_vertically_on_load usage (file.cppm:276-291; grayscale R8
-    vs RGBA8 modes).  As in the JAX package, RGB and RGBA files keep their
+    """Decode an image file to float32 [0,1] (H, W, C), vertically flipped
+    to match the reference's stbi_set_flip_vertically_on_load usage
+    (file.cppm:276-291; grayscale R8 vs RGBA8 modes).  Read: JPEG, PNG,
+    TGA, BMP, GIF (its first frame), PNM (P1-P6, Pf) and PSD (its composite
+    image), as utils/image_decode.py lists them; TIFF, WebP and the rest
+    raise ValueError.  As in the JAX package, RGB and RGBA files keep their
     channels and any other file loads as RGBA (palettes expanded, grey with
-    alpha 1 or its own) unless grayscale is set, and values are divided by
-    255 only when some value exceeds 1.5."""
+    alpha 1 or its own) unless grayscale is set.  Every texel is divided
+    by 255, as stbi_load's 8-bit images are read (the JAX package divides
+    only when some texel exceeds 1.5, so a file of 0/1 texels reads 0/1
+    there)."""
     px = read_image(path)
     if grayscale:
         px = _grey(px)
     elif px.shape[2] <= 2:
         alpha = px[..., 1:] if px.shape[2] == 2 else np.full(px.shape[:2] + (1,), 255, np.uint8)
         px = np.concatenate([np.repeat(px[..., :1], 3, axis=2), alpha], axis=2)
-    arr = px.astype(np.float32)
-    if arr.max() > 1.5:
-        arr = arr / 255.0
+    arr = px.astype(np.float32) / 255.0
     arr = arr[::-1]  # vertical flip
     if arr.ndim == 2:
         arr = arr[..., None]
@@ -390,14 +393,14 @@ def load_hdr(path: str, tone_encode: bool = True) -> np.ndarray:
     is clamped and encoded with pow(1/2.2) as the reference's 8-bit sky path
     does (application.cppm:250), and the miss shader re-linearizes it.
 
-    Any other file (JPEG, PNG, TGA, BMP through utils/image_decode.py; grey
-    repeated to three channels, alpha dropped) holds 8-bit encoded texels,
-    as ``stbi_load`` gives them to the reference: with tone_encode they
-    come back as texel / 255, the encoded sky; without, as (texel / 255) **
-    2.2, the linear radiance whose encoding the .hdr branch computes.  The
-    JAX package reads such files with imageio and does not divide by 255,
-    so its encoded sky is white wherever a texel is 1 or more (ROADMAP
-    queue C)."""
+    Any other file (JPEG, PNG, TGA, BMP, GIF, PNM, PSD through
+    utils/image_decode.py; grey repeated to three channels, alpha dropped)
+    holds 8-bit encoded texels, as ``stbi_load`` gives them to the
+    reference: with tone_encode they come back as texel / 255, the encoded
+    sky; without, as (texel / 255) ** 2.2, the linear radiance whose
+    encoding the .hdr branch computes.  The JAX package reads such files
+    with imageio and does not divide by 255, so its encoded sky is white
+    wherever a texel is 1 or more (ROADMAP, "Faults of the reference")."""
     if path.lower().endswith(".hdr"):
         with open(path, "rb") as f:
             rgb = decode_radiance_hdr(f.read())

@@ -8,20 +8,26 @@ Python would take seconds a megapixel, so the port decodes in C++:
 ``realtimeraytracer_torch/native/image_decode.cpp``, bound here with ctypes.
 
 ``decode_image(data)`` identifies a file by its content, as ``Image.open``
-does (the PNG signature, JPEG's SOI, ``BM``; TGA by a valid header when
-nothing else matches), and returns uint8 (H, W, C) pixels with the Pillow
-mode the JAX package would see.  C is 1 (grey), 2 (grey + alpha), 3 (RGB)
-or 4 (RGBA); palette images come back expanded through their palette.
-Read: JPEG (baseline and progressive Huffman, 8-bit, 1 or 3 components),
-PNG (every colour type, depth and filter, Adam7), TGA (types 1, 2, 3, 9,
-10, 11 at 8, 24, 32 bits), BMP (1/4/8-bit palette, 24 and 32 bits,
-BI_RGB and BI_BITFIELDS).  For PNG, this module checks the chunks and
-inflates with ``zlib``; the library unfilters, de-interlaces and unpacks.
+does (the PNG signature, JPEG's SOI, ``BM``, ``GIF87a``/``GIF89a``, a PNM
+magic, ``8BPS``; TGA by a valid header when nothing else matches), and
+returns uint8 (H, W, C) pixels with the Pillow mode the JAX package would
+see.  C is 1 (grey), 2 (grey + alpha), 3 (RGB) or 4 (RGBA); palette and
+CMYK images come back expanded to RGBA.  Read: JPEG (baseline and
+progressive Huffman, 8-bit, 1 or 3 components), PNG (every colour type,
+depth and filter, Adam7), TGA (types 1, 2, 3, 9, 10, 11 at 1, 8, 16, 24,
+32 bits; 16-, 24-, 32-bit colour maps), BMP (1/4/8-bit palette, RLE8 and
+RLE4, 16, 24 and 32 bits, BI_RGB and BI_BITFIELDS), GIF (the first
+frame), PNM (P1-P6, any maxval; Pf), PSD (the composite image: raw or
+PackBits; bitmap, grey, indexed, RGB, RGBA, CMYK).  For PNG, this module
+checks the chunks and inflates with ``zlib``; the library unfilters,
+de-interlaces and unpacks.  Two values differ from Pillow's, as stb_image
+(the reference's decoder) has them: 16-bit grey PNG and 16-bit PGM
+samples come back as their high byte, where Pillow's convert clips them.
 
-Malformed input and formats not ported (GIF, PNM, TIFF, WebP, PSD, BMP
-RLE, 16-bit BMP and TGA, CMYK, 12-bit, arithmetic-coded and lossless
-JPEG) raise ``ValueError`` naming the cause; nothing falls back to
-another decoder.
+Malformed input and formats not ported (TIFF, WebP, Lab and 16-bit PSD,
+CMYK/YCCK, 12-bit, arithmetic-coded, lossless and hierarchical JPEG, a
+JPEG height in a DNL marker, an incomplete progressive JPEG) raise
+``ValueError`` naming the cause; nothing falls back to another decoder.
 
 The library is built at first use with ``$CXX`` (default g++) into the
 kernels' build directory (``kernels.BUILD_DIR``), under a name that hashes
@@ -55,10 +61,10 @@ CXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-Wall", "-shared")
 # Pillow's Image.open raises DecompressionBombError above twice MAX_IMAGE_PIXELS.
 MAX_PIXELS = 2 * 89478485
 
-_JPEG, _BMP, _TGA = 1, 2, 3
+# The library's format codes (imgd_decode).
+_CODES = {"JPEG": 1, "BMP": 2, "TGA": 3, "GIF": 4, "PNM": 5, "PSD": 6}
 # Formats Pillow reads that this port does not yet, by their leading bytes.
-_NOT_PORTED = ((b"GIF87a", "GIF"), (b"GIF89a", "GIF"), (b"II*\0", "TIFF"), (b"MM\0*", "TIFF"),
-               (b"8BPS", "PSD"))
+_NOT_PORTED = ((b"II*\0", "TIFF"), (b"MM\0*", "TIFF"))
 
 _lock = threading.Lock()
 _lib = None
@@ -205,23 +211,28 @@ def _is_tga(head: bytes) -> bool:
 
 def sniff(data: bytes) -> str:
     """The format of image bytes, by their content: "PNG", "JPEG", "BMP",
-    "TGA"; raises ValueError for a format not ported or not an image."""
+    "GIF", "PNM", "PSD", "TGA"; raises ValueError for a format not ported
+    or not an image."""
     if data.startswith(PNG_SIGNATURE):
         return "PNG"
     if data.startswith(b"\xff\xd8\xff"):
         return "JPEG"
     if data.startswith(b"BM"):
         return "BMP"
+    if data.startswith((b"GIF87a", b"GIF89a")):
+        return "GIF"
+    if len(data) >= 2 and data[:1] == b"P" and data[1:2] in b"0123456fy":   # PpmImagePlugin._accept
+        return "PNM"
+    if data.startswith(b"8BPS"):
+        return "PSD"
     for magic, name in _NOT_PORTED:
         if data.startswith(magic):
             raise ValueError(f"{name} images are not supported")
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         raise ValueError("WebP images are not supported")
-    if len(data) > 2 and data[:1] == b"P" and data[1:2] in b"1234567fFhH" and data[2:3].isspace():
-        raise ValueError("PNM images are not supported")
     if _is_tga(data):
         return "TGA"
-    raise ValueError("not an image file this port reads (PNG, JPEG, BMP, TGA)")
+    raise ValueError("not an image file this port reads (PNG, JPEG, BMP, GIF, PNM, PSD, TGA)")
 
 
 def decode_image(data: bytes) -> tuple[np.ndarray, str]:
@@ -231,8 +242,7 @@ def decode_image(data: bytes) -> tuple[np.ndarray, str]:
     lib = load_library()
     if kind == "PNG":
         return _decode_png(lib, data)
-    code = {"JPEG": _JPEG, "BMP": _BMP, "TGA": _TGA}[kind]
-    return _collect(lib, lib.imgd_decode, data, len(data), code)
+    return _collect(lib, lib.imgd_decode, data, len(data), _CODES[kind])
 
 
 def pixels_digest(arr: np.ndarray) -> str:

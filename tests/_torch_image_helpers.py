@@ -1,7 +1,11 @@
 """Image writers for the port's decoder tests, and the committed fixtures.
 
 Pillow writes no Adam7 PNG, no PNG of an arbitrary colour type and depth,
-and no JPEG sampled 4:4:0 or 4:1:1, so ``make_png`` and ``encode_jpeg``
+no JPEG sampled 4:4:0 or 4:1:1, no PSD, no RLE or 16-bit BMP, no 16-bit
+TGA, no PNM with comments or an odd maxval, and no GIF with a local
+colour table, an offset frame or an unusual LZW stream, so ``make_png``,
+``encode_jpeg``, ``make_bmp`` (with ``encode_bmp_rle``), ``make_tga``,
+``encode_gif`` (with ``lzw_encode``), ``encode_pnm`` and ``encode_psd``
 write them here from NumPy; Pillow then decodes them as the oracle.
 
 ``python tests/_torch_image_helpers.py`` rewrites ``tests/data/images/``:
@@ -28,7 +32,9 @@ from realtimeraytracer_torch.utils.png import SIGNATURE, _chunk  # noqa: E402
 
 FIXTURES = Path(__file__).resolve().parent / "data" / "images"
 FIXTURE_NAMES = ("prog420_odd.jpg", "base422_rst.jpg", "grey.jpg", "rle.tga", "palette_trns.png",
-                 "adam7.png", "rgb24.bmp", "smooth1024.jpg")
+                 "adam7.png", "rgb24.bmp", "smooth1024.jpg", "frame.gif", "leaf.psd", "cmyk.psd",
+                 "gloss.pgm", "comments.ppm", "discs_rle8.bmp", "rle4.bmp", "bf565.bmp",
+                 "rgb16_rle.tga")
 
 ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
          (0, 1, 1, 2))
@@ -200,12 +206,363 @@ def encode_jpeg(planes, factors, q: int = 4, restart: int = 0, adobe: int | None
     return head + bytes(out) + b"\xff\xd9"
 
 
+def make_tga(pix, itype: int, depth: int, flags: int = 0, cmap=None, cmap_start: int = 0,
+             cmap_depth: int = 24, idfield: bytes = b"", rng=None, width: int | None = None,
+             max_packet: int = 5) -> bytes:
+    """TGA bytes of (h, w, bytes a pixel) stored values (a 1-bit image:
+    (h, packed row bytes, 1) and its `width`); RLE packets (type & 8) of
+    1 to `max_packet` pixels break at each row, as Pillow's do; `cmap`
+    holds the map's stored bytes."""
+    pix = np.asarray(pix)
+    h, units = pix.shape[:2]
+    w = units if width is None else width
+    ncmap = 0 if cmap is None else len(cmap) // (cmap_depth // 8)
+    head = struct.pack("<BBBHHBHHHHBB", len(idfield), int(cmap is not None), itype, cmap_start,
+                       ncmap, cmap_depth if cmap is not None else 0, 0, 0, w, h, depth, flags)
+    body = bytearray()
+    for row in pix.reshape(h, units, -1).astype(np.uint8):
+        if not itype & 8:
+            body += row.tobytes()
+            continue
+        i = 0
+        while i < units:
+            n = min(int(rng.integers(1, max_packet + 1)), units - i)
+            if (row[i:i + n] == row[i]).all():
+                body.append(0x80 | (n - 1))
+                body += row[i].tobytes()
+            else:
+                body.append(n - 1)
+                body += row[i:i + n].tobytes()
+            i += n
+    return head + idfield + (bytes(cmap) if cmap is not None else b"") + bytes(body)
+
+
+def make_bmp(pix, bits: int, hs: int = 40, top_down: bool = False, palette=None,
+             compression: int = 0, masks=None, data: bytes | None = None, size=None) -> bytes:
+    """BMP bytes with a `hs`-byte header: (h, w[, bytes]) samples packed at
+    `bits` (16: uint16 values), or the given pixel `data` (RLE) of `size`
+    (w, h); masks follow a 40-byte header."""
+    if data is None:
+        pix = np.asarray(pix)
+        h, w = pix.shape[:2]
+        stride = ((w * bits + 31) >> 3) & ~3
+        rows = []
+        for r in pix:
+            if bits <= 8:
+                b = np.packbits(np.unpackbits(r.reshape(-1).astype(np.uint8)[:, None], axis=1)
+                                [:, 8 - bits:].reshape(-1)).tobytes()
+            elif bits == 16:
+                b = r.reshape(-1).astype("<u2").tobytes()
+            else:
+                b = r.astype(np.uint8).tobytes()
+            rows.append(b + bytes(stride - len(b)))
+        data = b"".join(rows if top_down else rows[::-1])
+    else:
+        w, h = size
+    pad = b"" if hs == 12 else b"\0"
+    pal = b"" if palette is None else b"".join(bytes(np.asarray(p, np.uint8)[::-1]) + pad
+                                               for p in palette)
+    ncol = 0 if palette is None else len(palette)
+    if hs == 12:
+        dib = struct.pack("<IHHHH", 12, w, h, 1, bits)
+    else:
+        dib = struct.pack("<IiiHHIIiiII", hs, w, -h if top_down else h, 1, bits, compression,
+                          len(data), 2835, 2835, ncol, 0)
+        m = b"" if masks is None else struct.pack(f"<{len(masks)}I", *masks)
+        dib = dib + m + bytes(hs - len(dib) - len(m)) if hs > 40 else dib + m
+    off = 14 + len(dib) + len(pal)
+    return b"BM" + struct.pack("<IHHI", off + len(data), 0, 0, off) + dib + pal + data
+
+
+def encode_bmp_rle(idx, rle4: bool, rng, delta: bool = False, odd_runs: bool = False,
+                   max_run: int = 8) -> bytes:
+    """BMP RLE8/RLE4 data of (h, w) palette indexes, bottom row first:
+    encoded runs of up to `max_run` (< 254) pixels (some past the row's
+    end, which decoders cut) and absolute runs of 3 or more (padded to 16
+    bits; an RLE4 run of n pixels holds (n + 1) / 2 bytes, and only
+    `odd_runs` gives n = 1 mod 4, which Pillow reads short), end-of-line
+    after each row, end-of-bitmap; with `delta`, delta escapes here and
+    there.  Without deltas, decoders that read the runs as written give
+    back `idx`."""
+    idx = np.asarray(idx)
+    h, w = idx.shape
+    out = bytearray()
+    for r, row in enumerate(idx[::-1]):
+        x = 0
+        while x < w:
+            if delta and rng.random() < 0.1:
+                dx, dy = int(rng.integers(0, 4)), int(rng.random() < 0.2)
+                out += bytes([0, 2, dx, dy, dx, dy])       # Pillow reads the second pair
+            n = int(rng.integers(1, max_run + 1))
+            if rle4 and not odd_runs and n % 4 == 1 and n > 1:
+                n += 2
+            seg = row[x:x + n]
+            even, odd = seg[::2], seg[1::2]
+            encodable = (even == even[0]).all() and (not rle4 or (odd == odd[:1]).all()) and \
+                (rle4 or (odd == even[0]).all())
+            if len(seg) >= 3 and (not encodable or rng.random() < 0.4):
+                if rle4:
+                    nib = np.concatenate([seg, [0]])[:len(seg) + (len(seg) & 1)]
+                    body = bytes(int(a) << 4 | int(b) for a, b in zip(nib[::2], nib[1::2]))
+                else:
+                    body = bytes(seg.astype(np.uint8))
+                out += bytes([0, len(seg)]) + body + bytes(len(body) & 1)
+            else:
+                if not encodable:
+                    seg = seg[:2 if rle4 else 1]
+                v = int(seg[0]) if not rle4 else int(seg[0]) << 4 | int(seg[1] if len(seg) > 1 else 0)
+                run = len(seg) + (2 if x + len(seg) == w and rng.random() < 0.3 else 0)   # past the end
+                out += bytes([run, v])
+            x += len(seg)
+        out += b"\0\0"
+    return bytes(out + b"\0\1")
+
+
+def lzw_encode(indices, min_size: int, deferred: bool = False, clear_every: int = 0,
+               end_after: int | None = None, end: bool = True, lead_clear: bool = True,
+               pause_after: int | None = None) -> bytes:
+    """GIF LZW codes of `indices`, packed LSB first: codes widen as the
+    decoder's table grows, a full table emits a clear code (or, with
+    `deferred`, none: 12-bit codes go on with no new entry); `clear_every`
+    codes a clear; the end code after `end_after` pixels, or none; with
+    `pause_after`, an end code and a clear code after that many pixels and
+    then the rest."""
+    clear, eoi = 1 << min_size, (1 << min_size) + 1
+    out, acc = bytearray(), [0, 0]
+    dec = {}
+
+    def reset():
+        dec.update(next=clear + 2, size=min_size + 1, first=True)
+
+    def emit(code):
+        acc[0] |= code << acc[1]
+        acc[1] += dec["size"]
+        while acc[1] >= 8:
+            out.append(acc[0] & 255)
+            acc[0] >>= 8
+            acc[1] -= 8
+        if code == clear:
+            reset()
+        elif code != eoi:
+            if dec["first"]:
+                dec["first"] = False
+            elif dec["next"] < 4096:
+                if dec["next"] == (1 << dec["size"]) - 1 and dec["size"] < 12:
+                    dec["size"] += 1
+                dec["next"] += 1
+
+    reset()
+    px = [int(v) for v in np.asarray(indices).reshape(-1)][:end_after]
+    table, nxt, ncodes, w = {}, clear + 2, 0, None
+    if lead_clear:
+        emit(clear)
+    for i, k in enumerate(px):
+        if i == pause_after and w is not None:
+            emit(w)
+            emit(eoi)
+            emit(clear)
+            table, nxt, w = {}, clear + 2, None
+        if w is None:
+            w = k
+        elif (w, k) in table:
+            w = table[(w, k)]
+        else:
+            emit(w)
+            ncodes += 1
+            if nxt < 4096:
+                table[(w, k)] = nxt
+                nxt += 1
+            elif not deferred:
+                emit(clear)
+                table, nxt = {}, clear + 2
+            if clear_every and ncodes % clear_every == 0 and nxt != clear + 2:
+                emit(clear)
+                table, nxt = {}, clear + 2
+            w = k
+    if w is not None:
+        emit(w)
+    if end:
+        emit(eoi)
+    if acc[1]:
+        out.append(acc[0] & 255)
+    return bytes(out)
+
+
+def _gif_table(pal, bits):
+    pal = bytes(np.asarray(pal, np.uint8).reshape(-1))
+    return pal + bytes(3 * (1 << bits) - len(pal))
+
+
+def _gif_bits(pal, bits):
+    return bits or max(1, int(np.ceil(np.log2(max(2, len(pal))))))
+
+
+def encode_gif(frames, screen, palette=None, pal_bits: int | None = None, tail: bytes = b";",
+               version: bytes = b"GIF89a") -> bytes:
+    """GIF bytes.  `frames`: dicts of ``indices`` (h, w) and optionally
+    ``x``, ``y``, ``palette`` (a local table), ``pal_bits``, ``transparency``,
+    ``interlace`` (rows written in the four passes), ``min_size``, ``lzw``
+    (lzw_encode options) or ``data`` (the LZW bytes), ``block`` (sub-block
+    size), ``extensions`` (raw bytes before the descriptor)."""
+    w, h = screen
+    flags = 0
+    if palette is not None:
+        gb = _gif_bits(palette, pal_bits)
+        flags = 0xF0 | (gb - 1)
+    out = bytearray(version + struct.pack("<HHBBB", w, h, flags, 0, 0))
+    if palette is not None:
+        out += _gif_table(palette, gb)
+    for f in frames:
+        idx = np.asarray(f["indices"])
+        fh, fw = idx.shape
+        out += b"".join(f.get("extensions", ()))
+        t = f.get("transparency")
+        if t is not None:
+            out += b"!\xf9\x04" + bytes([1]) + struct.pack("<H", 0) + bytes([t]) + b"\0"
+        lp = f.get("palette")
+        lflags = 0x40 if f.get("interlace") else 0
+        if lp is not None:
+            lb = _gif_bits(lp, f.get("pal_bits"))
+            lflags |= 0x80 | (lb - 1)
+        out += b"," + struct.pack("<HHHHB", f.get("x", 0), f.get("y", 0), fw, fh, lflags)
+        if lp is not None:
+            out += _gif_table(lp, lb)
+        rows = np.concatenate([idx[0::8], idx[4::8], idx[2::4], idx[1::2]]) if f.get("interlace") else idx
+        ms = f.get("min_size", 8)
+        data = f["data"] if "data" in f else lzw_encode(rows, ms, **f.get("lzw", {}))
+        out.append(ms)
+        bs = f.get("block", 255)
+        for i in range(0, len(data), bs):
+            out += bytes([len(data[i:i + bs])]) + data[i:i + bs]
+        out += b"\0"
+    return bytes(out + tail)
+
+
+def encode_pnm(samples, magic: bytes, maxval: int = 255, comments: bool = False, rng=None,
+               scale: float = -1.0) -> bytes:
+    """PNM bytes: P1/P4 of (h, w) bits (1 = black), P2/P3/P5/P6 of (h, w[, 3])
+    samples (binary: 16-bit big-endian above 255), Pf of (h, w) floats
+    (little-endian for a negative scale, rows bottom-up; PF of (h, w, 3)).  With `comments`,
+    ``#`` lines between the header tokens and between ASCII samples, and
+    ASCII rows of irregular whitespace."""
+    s = np.asarray(samples)
+    h, w = s.shape[:2]
+    c = b"# a comment\n" if comments else b""
+    head = magic + b"\n" + c + b"%d " % w + c + b"%d\n" % h
+    if magic in (b"Pf", b"PF"):
+        f = s.astype("<f4" if scale < 0 else ">f4")[::-1]
+        return head + b"%r\n" % scale + f.tobytes()
+    if magic not in (b"P1", b"P4"):
+        head += c + b"%d\n" % maxval
+    if magic == b"P4":
+        return head + b"".join(np.packbits(r.astype(np.uint8)).tobytes() for r in s)
+    if magic in (b"P5", b"P6"):
+        return head + s.astype(">u2" if maxval > 255 else np.uint8).tobytes()
+    out = bytearray(head)
+    for r in s.reshape(h, -1):
+        for v in r:
+            out += b"%d" % v + (b" " if magic != b"P1" or rng is None or rng.random() < 0.5 else b"")
+            if comments and rng is not None and rng.random() < 0.05:
+                out += b" # note\n"
+        out += b"\n" if rng is None or rng.random() < 0.7 else b"\t\r\n"
+    return bytes(out)
+
+
+def packbits(row: bytes, rng=None) -> bytes:
+    """PackBits of one row: runs of 2+ equal bytes, literals, and (with
+    `rng`) now and then a no-op byte 0x80."""
+    out, i = bytearray(), 0
+    while i < len(row):
+        if rng is not None and rng.random() < 0.05:
+            out.append(0x80)
+        j = i
+        while j + 1 < len(row) and row[j + 1] == row[i] and j - i < 127:
+            j += 1
+        if j > i:
+            out += bytes([257 - (j - i + 1), row[i]])
+            i = j + 1
+            continue
+        j = i + 1
+        while j < len(row) and j - i < 128 and not (j + 1 < len(row) and row[j + 1] == row[j]):
+            j += 1
+        out += bytes([j - i - 1]) + row[i:j]
+        i = j
+    return bytes(out)
+
+
+def encode_psd(planes, color_mode: int, depth: int = 8, compression: int = 0,
+               channels: int | None = None, width: int | None = None, palette: bytes = b"",
+               resources: bytes = b"", layers: bytes = b"", rng=None) -> bytes:
+    """PSD bytes with a composite image of (h, w) uint8 planes (a bitmap:
+    packed rows and their `width`), raw or PackBits with per-row byte
+    counts, `channels` in the header (default: the planes'); colour mode
+    data `palette`, image resources and a layer section as given."""
+    planes = [np.asarray(p, np.uint8) for p in planes]
+    h, rb = planes[0].shape
+    out = bytearray(b"8BPS" + struct.pack(">H6xHIIHH", 1, channels or len(planes), h, width or rb,
+                                          depth, color_mode))
+    out += struct.pack(">I", len(palette)) + palette
+    out += struct.pack(">I", len(resources)) + resources
+    out += struct.pack(">I", len(layers)) + layers
+    out += struct.pack(">H", compression)
+    if compression == 0:
+        out += b"".join(p.tobytes() for p in planes)
+    else:
+        rows = [packbits(r.tobytes(), rng) for p in planes for r in p]
+        out += b"".join(struct.pack(">H", len(r)) for r in rows) + b"".join(rows)
+    return bytes(out)
+
+
 def smooth_image(rng, h: int, w: int, c: int, noise: int = 40) -> np.ndarray:
     """Sine gradients per channel plus uniform noise, uint8."""
     y, x = np.mgrid[0:h, 0:w]
     chans = [np.sin(x / (3.0 + 2 * k) + y / (5.0 + k)) * 0.5 + 0.5 for k in range(c)]
     a = np.stack(chans, -1) * (255 - noise) + rng.integers(0, noise + 1, (h, w, c))
     return np.clip(a, 0, 255).astype(np.uint8)
+
+
+def disc_pattern(n: int = 64) -> np.ndarray:
+    """textured_obj's leaf cut-out: a grid of discs, (n, n) bool."""
+    yy, xx = np.mgrid[0:n, 0:n]
+    return (xx % 16 - 8.0) ** 2 + (yy % 16 - 8.0) ** 2 < 36.0
+
+
+def write_new_format_fixtures(out: Path) -> None:
+    """The GIF, PSD, PNM, RLE/16-bit BMP and 16-bit TGA fixtures: the GIF,
+    PSD, PGM and RLE8 BMP stand in for textured_obj's ground colour, leaf
+    colour, ground specular and leaf opacity maps (chip_smoke phase 38)."""
+    rng = np.random.default_rng(16)
+    yy, xx = np.mgrid[0:64, 0:64]
+    checker = (xx // 8 + yy // 8) % 2
+    idx = (checker * 8 + rng.integers(0, 8, (64, 64)))[3:62, 2:62]
+    pal = np.concatenate([np.stack([64 + 4 * np.arange(8), 56 + 3 * np.arange(8), 51 + np.arange(8)], -1),
+                          np.stack([200 + 4 * np.arange(8), 158 + 3 * np.arange(8), 115 + np.arange(8)], -1)])
+    (out / "frame.gif").write_bytes(encode_gif(
+        [dict(indices=idx, x=2, y=3, palette=pal, interlace=True, transparency=5, min_size=4),
+         dict(indices=rng.integers(0, 4, (8, 8)), x=10, y=10, min_size=2)],
+        (64, 64), rng.integers(0, 256, (4, 3))))
+    leaf = np.stack([26 + 20 * checker, 115 + 64 * checker, np.full((64, 64), 20)], -1)
+    leaf = (leaf + rng.integers(0, 4, (64, 64, 1))).astype(np.uint8)
+    (out / "leaf.psd").write_bytes(encode_psd([leaf[..., k] for k in range(3)], 3, compression=1, rng=rng))
+    (out / "cmyk.psd").write_bytes(encode_psd(
+        [smooth_image(rng, 15, 20, 1, noise=60)[..., 0] for _ in range(4)], 4))
+    gloss = np.clip(xx * 100 // 63, 5, 95)
+    (out / "gloss.pgm").write_bytes(encode_pnm(gloss, b"P5", 100, comments=True))
+    (out / "comments.ppm").write_bytes(encode_pnm(
+        rng.integers(0, 1001, (12, 16, 3)), b"P3", 1000, comments=True, rng=rng))
+    (out / "discs_rle8.bmp").write_bytes(make_bmp(
+        None, 8, 40, False, [[12, 20, 8], [225, 235, 215]], 1,
+        data=encode_bmp_rle(disc_pattern().astype(int), False, rng), size=(64, 64)))
+    idx4 = rng.integers(0, 16, (17, 31))
+    idx4[:, ::2] = idx4[:, :1]
+    (out / "rle4.bmp").write_bytes(make_bmp(
+        None, 4, 40, False, rng.integers(0, 256, (16, 3)), 2,
+        data=encode_bmp_rle(idx4, True, rng), size=(31, 17)))
+    (out / "bf565.bmp").write_bytes(make_bmp(
+        smooth_image(rng, 17, 33, 2).view("<u2")[..., 0], 16, 40, False, compression=3,
+        masks=(0xF800, 0x7E0, 0x1F)))
+    (out / "rgb16_rle.tga").write_bytes(make_tga(
+        smooth_image(rng, 23, 37, 2, noise=8), 10, 16, 0x21, rng=rng))
 
 
 def write_fixtures(out: Path = FIXTURES) -> dict:
@@ -234,6 +591,7 @@ def write_fixtures(out: Path = FIXTURES) -> dict:
     big = np.stack([128 + 100 * np.sin(x / 97 + y / 131), 128 + 100 * np.cos(x / 151 - y / 83),
                     128 + 90 * np.sin((x + y) / 211)], -1).astype(np.uint8)
     Image.fromarray(big).save(out / "smooth1024.jpg", quality=90)
+    write_new_format_fixtures(out)
     digests = {name: {str(g).lower(): pixels_digest(load_texture_file(str(out / name), g))
                       for g in (False, True)} for name in FIXTURE_NAMES}
     (out / "expected.json").write_text(json.dumps({

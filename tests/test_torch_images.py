@@ -37,8 +37,9 @@ from PIL import Image
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from _torch_image_helpers import (FIXTURES, encode_jpeg, make_png,  # noqa: E402
-                                  smooth_image)
+from _torch_image_helpers import (FIXTURE_NAMES, FIXTURES, disc_pattern,  # noqa: E402
+                                  encode_bmp_rle, encode_gif, encode_jpeg, encode_pnm, encode_psd,
+                                  make_bmp, make_png, make_tga, smooth_image)
 from realtimeraytracer_torch.ops import bvh as tbvh  # noqa: E402
 from realtimeraytracer_torch.ops import camera_rays as tcam  # noqa: E402
 from realtimeraytracer_torch.ops import vecmath as tvm  # noqa: E402
@@ -53,11 +54,21 @@ from realtimeraytracer_tpu.scene import obj_loader as jol  # noqa: E402
 SIZES = ((23, 37), (1, 1), (2, 3), (17, 2), (9, 33), (40, 24))   # (h, w)
 
 
+def _jax_c1(path, grayscale):
+    """The JAX package's load_texture_file with every texel divided by 255:
+    where JAX's texels (Pillow's, after its convert) are all 1 or less, it
+    skips the division, and the port (C1, as stbi_load) does not."""
+    arr = jol.load_texture_file(str(path), grayscale)
+    img = Image.open(path)
+    img = img.convert("L") if grayscale else img if img.mode in ("RGB", "RGBA") else img.convert("RGBA")
+    return arr if np.asarray(img).max() > 1.5 else arr / np.float32(255.0)
+
+
 def _same_as_jax(path, mode=None):
-    """The port's load_texture_file equals the JAX package's, for both
-    grayscale values; and the decoder reports Pillow's mode."""
+    """The port's load_texture_file equals the JAX package's (C1 applied),
+    for both grayscale values; and the decoder reports Pillow's mode."""
     for grayscale in (False, True):
-        want = jol.load_texture_file(str(path), grayscale)
+        want = _jax_c1(path, grayscale)
         got = tol.load_texture_file(str(path), grayscale)
         assert got.dtype == want.dtype and got.shape == want.shape, (path, grayscale)
         assert np.array_equal(got, want), (path, grayscale, float(np.abs(got - want).max()))
@@ -211,30 +222,6 @@ def test_pillow_tga_matches_jax(tmp_path, mode):
         _same_as_jax(_save(tmp_path, f"{h}x{w}-rle.tga", img, compression="tga_rle"))
 
 
-def _tga(pix, itype, depth, flags=0, cmap=None, cmap_start=0, idfield=b"", rng=None):
-    """TGA bytes; RLE packets (type & 8) break at each row, as Pillow's do."""
-    h, w = pix.shape[:2]
-    ncmap = 0 if cmap is None else len(cmap) // 3
-    head = struct.pack("<BBBHHBHHHHBB", len(idfield), int(cmap is not None), itype, cmap_start,
-                       ncmap, 24 if cmap is not None else 0, 0, 0, w, h, depth, flags)
-    body = bytearray()
-    for row in pix.reshape(h, w, -1).astype(np.uint8):
-        if not itype & 8:
-            body += row.tobytes()
-            continue
-        i = 0
-        while i < w:
-            n = min(int(rng.integers(1, 6)), w - i)
-            if (row[i:i + n] == row[i]).all():
-                body.append(0x80 | (n - 1))
-                body += row[i].tobytes()
-            else:
-                body.append(n - 1)
-                body += row[i:i + n].tobytes()
-            i += n
-    return head + idfield + (bytes(cmap) if cmap is not None else b"") + bytes(body)
-
-
 @pytest.mark.parametrize("flags", [0x00, 0x20, 0x10, 0x30, 0x28])
 def test_tga_origins_and_colour_maps_match_jax(tmp_path, flags):
     rng = np.random.default_rng(flags)
@@ -247,10 +234,10 @@ def test_tga_origins_and_colour_maps_match_jax(tmp_path, flags):
         cmap = rng.integers(0, 256, 27).astype(np.uint8)
         for rle in (0, 8):
             for name, data in {
-                "grey": _tga(g, 3 | rle, 8, flags, idfield=b"id", rng=rng),
-                "rgb": _tga(c3, 2 | rle, 24, flags, rng=rng),
-                "rgba": _tga(c4, 2 | rle, 32, flags | 8, rng=rng),
-                "mapped": _tga(idx, 1 | rle, 8, flags, cmap, cmap_start=2, rng=rng),
+                "grey": make_tga(g, 3 | rle, 8, flags, idfield=b"id", rng=rng),
+                "rgb": make_tga(c3, 2 | rle, 24, flags, rng=rng),
+                "rgba": make_tga(c4, 2 | rle, 32, flags | 8, rng=rng),
+                "mapped": make_tga(idx, 1 | rle, 8, flags, cmap, cmap_start=2, rng=rng),
             }.items():
                 p = tmp_path / f"{name}{rle}-{h}x{w}.tga"
                 p.write_bytes(data)
@@ -271,33 +258,6 @@ def test_pillow_bmp_matches_jax(tmp_path, mode):
         _same_as_jax(_save(tmp_path, f"{h}x{w}.bmp", img))
 
 
-def _bmp(pix, bits, hs=40, top_down=False, palette=None, compression=0, masks=None):
-    """BMP bytes with a `hs`-byte header; masks follow a 40-byte header."""
-    h, w = pix.shape[:2]
-    stride = ((w * bits + 31) >> 3) & ~3
-    rows = []
-    for r in pix:
-        if bits <= 8:
-            b = np.packbits(np.unpackbits(r.reshape(-1).astype(np.uint8)[:, None], axis=1)
-                            [:, 8 - bits:].reshape(-1)).tobytes()
-        else:
-            b = r.astype(np.uint8).tobytes()
-        rows.append(b + bytes(stride - len(b)))
-    data = b"".join(rows if top_down else rows[::-1])
-    pad = b"" if hs == 12 else b"\0"
-    pal = b"" if palette is None else b"".join(bytes(p[::-1]) + pad for p in palette)
-    ncol = 0 if palette is None else len(palette)
-    if hs == 12:
-        dib = struct.pack("<IHHHH", 12, w, h, 1, bits)
-    else:
-        dib = struct.pack("<IiiHHIIiiII", hs, w, -h if top_down else h, 1, bits, compression,
-                          len(data), 2835, 2835, ncol, 0)
-        m = b"" if masks is None else struct.pack(f"<{len(masks)}I", *masks)
-        dib = dib + m + bytes(hs - len(dib) - len(m)) if hs > 40 else dib + m
-    off = 14 + len(dib) + len(pal)
-    return b"BM" + struct.pack("<IHHI", off + len(data), 0, 0, off) + dib + pal + data
-
-
 @pytest.mark.parametrize("hs,top_down", [(12, False), (40, False), (40, True), (108, False),
                                          (108, True), (124, False), (124, True)])
 def test_bmp_headers_bitfields_and_rows_match_jax(tmp_path, hs, top_down):
@@ -307,17 +267,17 @@ def test_bmp_headers_bitfields_and_rows_match_jax(tmp_path, hs, top_down):
         files = {}
         for bits in (1, 4, 8):
             npal = (1 << bits) if hs == 12 else min(1 << bits, 5)   # a short palette: black
-            files[f"p{bits}"] = _bmp(rng.integers(0, 1 << bits, (h, w, 1)), bits, hs, top_down,
+            files[f"p{bits}"] = make_bmp(rng.integers(0, 1 << bits, (h, w, 1)), bits, hs, top_down,
                                      rng.integers(0, 256, (npal, 3)))
-        files["rgb24"] = _bmp(rng.integers(0, 256, (h, w, 3)), 24, hs, top_down)
-        files["rgb32"] = _bmp(rng.integers(0, 256, (h, w, 4)), 32, hs, top_down)
+        files["rgb24"] = make_bmp(rng.integers(0, 256, (h, w, 3)), 24, hs, top_down)
+        files["rgb32"] = make_bmp(rng.integers(0, 256, (h, w, 4)), 32, hs, top_down)
         if hs != 12:
-            files["bf24"] = _bmp(rng.integers(0, 256, (h, w, 3)), 24, hs, top_down, compression=3,
+            files["bf24"] = make_bmp(rng.integers(0, 256, (h, w, 3)), 24, hs, top_down, compression=3,
                                  masks=(0xFF0000, 0xFF00, 0xFF))
             for masks in ((0xFF0000, 0xFF00, 0xFF, 0xFF000000), (0xFF, 0xFF00, 0xFF0000, 0xFF000000),
                           (0xFF000000, 0xFF0000, 0xFF00, 0xFF), (0xFF0000, 0xFF00, 0xFF, 0),
                           (0xFF000000, 0xFF00, 0xFF, 0xFF0000), (0, 0, 0, 0)):
-                files[f"bf32-{masks[0]:x}-{masks[3]:x}"] = _bmp(
+                files[f"bf32-{masks[0]:x}-{masks[3]:x}"] = make_bmp(
                     rng.integers(0, 256, (h, w, 4)), 32, hs, top_down, compression=3,
                     masks=masks if hs != 40 else masks[:3])
         for name, data in files.items():
@@ -328,6 +288,386 @@ def test_bmp_headers_bitfields_and_rows_match_jax(tmp_path, hs, top_down):
                     tol.load_texture_file(str(p))
                 continue
             _same_as_jax(p)
+
+
+def _matches_jax(path, mode=None):
+    """Where the JAX package's load_texture_file reads the file, as
+    _same_as_jax; where it raises, the port raises ValueError too."""
+    try:
+        for grayscale in (False, True):
+            jol.load_texture_file(str(path), grayscale)
+    except Exception:   # noqa: BLE001 - Pillow raises OSError, ValueError, EOFError, KeyError...
+        for grayscale in (False, True):
+            with pytest.raises(ValueError):
+                tol.load_texture_file(str(path), grayscale)
+        return False
+    _same_as_jax(path, mode)
+    return True
+
+
+def _write_all(tmp_path, files, ext):
+    """Write each named file and check it against JAX; returns how many
+    JAX read."""
+    read = 0
+    for name, data in files.items():
+        p = tmp_path / f"{name}.{ext}"
+        p.write_bytes(data)
+        read += _matches_jax(p)
+    return read
+
+
+def _gif_files(case, rng, h, w):
+    pal = rng.integers(0, 256, (16, 3))
+    idx = rng.integers(0, 16, (h, w))
+    idx[:, ::3] = idx[:, :1]
+
+    def one(**kw):
+        return encode_gif([dict(indices=idx, min_size=4, **kw)], (w, h), pal)
+
+    if case == "pillow":
+        quant = Image.fromarray(smooth_image(rng, h, w, 3, noise=120)).quantize(13)
+        files = {}
+        for name, img, kw in (("p", quant, {}), ("p-flat", quant, {"interlace": False}),
+                              ("l", Image.fromarray(smooth_image(rng, h, w, 1)[..., 0]), {}),
+                              ("trns", quant, {"transparency": 3})):
+            buf = io.BytesIO()
+            img.save(buf, format="GIF", **kw)
+            files[name] = buf.getvalue()
+        return files
+    if case == "code-sizes":
+        files = {}
+        for ms in (0, 1, 2, 3, 5, 7, 8, 9, 12):
+            top = 1 << min(max(ms, 1), 8)
+            files[f"ms{ms}"] = encode_gif([dict(indices=rng.integers(0, top, (h, w)), min_size=ms)], (w, h),
+                                          rng.integers(0, 256, (top, 3)))
+        return files
+    if case == "growth-and-clears":
+        big = rng.integers(0, 256, (h + 60, w + 70))
+        bpal = rng.integers(0, 256, (256, 3))
+        return {name: encode_gif([dict(indices=big, min_size=8, lzw=lzw)], big.shape[::-1], bpal)
+                for name, lzw in (("clear-when-full", {}), ("deferred-clear", {"deferred": True}),
+                                  ("clear-every-37", {"clear_every": 37}),
+                                  ("no-leading-clear", {"lead_clear": False}))}
+    if case == "end-codes":
+        files = {"no-end-code": one(lzw={"end": False}),
+                 "early-end-code": one(lzw={"end_after": h * w // 2}),     # Pillow: truncated
+                 "small-blocks": one(block=7)}
+        big = rng.integers(0, 256, (200 + h, 300 + w))
+        bpal = rng.integers(0, 256, (256, 3))
+        # The end code lies in the first 64 KiB of a longer file: Pillow reads on.
+        files["paused"] = encode_gif([dict(indices=big, min_size=8, lzw={"pause_after": 5000})],
+                                     big.shape[::-1], bpal)
+        files["paused-late"] = encode_gif([dict(indices=big, min_size=8,
+                                                lzw={"pause_after": big.size - 50})], big.shape[::-1], bpal)
+        return files
+    if case == "local-tables":
+        short = rng.integers(0, 256, (5, 3))
+        grey = np.repeat(np.arange(16)[:, None], 3, 1)
+        return {"local-over-global": encode_gif([dict(indices=idx, min_size=4, palette=short)], (w, h), pal),
+                "local-only": encode_gif([dict(indices=idx, min_size=4, palette=pal)], (w, h)),
+                "short-global": encode_gif([dict(indices=idx, min_size=4)], (w, h), short),
+                "identity-global": encode_gif([dict(indices=idx, min_size=4)], (w, h), grey),
+                "no-table": encode_gif([dict(indices=idx, min_size=4)], (w, h))}
+    if case == "interlace":
+        return {"interlaced": one(interlace=True), "interlaced-trns": one(interlace=True, transparency=2)}
+    if case == "transparency":
+        return {"p": one(transparency=int(idx[0, 0])), "p-unused": one(transparency=15),
+                "p-past-palette": encode_gif([dict(indices=idx, min_size=4, transparency=200)], (w, h),
+                                             pal[:5]),
+                "l": encode_gif([dict(indices=idx, min_size=4, transparency=int(idx[0, 0]))], (w, h))}
+    if case == "sub-frame":
+        return {"inside": encode_gif([dict(indices=idx, x=3, y=2, min_size=4)], (w + 5, h + 4), pal),
+                "inside-trns": encode_gif([dict(indices=idx, x=1, y=4, min_size=4, transparency=7)],
+                                          (w + 2, h + 6), pal),
+                "past-screen": encode_gif([dict(indices=idx, x=2, y=1, min_size=4)], (w, max(h - 1, 1)), pal)}
+    if case == "multi-frame":
+        second = dict(indices=rng.integers(0, 16, (2, 3)), x=1, y=0, min_size=4, transparency=0)
+        frames = [Image.fromarray(smooth_image(rng, h, w, 3, noise=100)).quantize(9) for _ in range(3)]
+        buf = io.BytesIO()
+        frames[0].save(buf, format="GIF", save_all=True, append_images=frames[1:], duration=40, loop=0)
+        return {"hand": encode_gif([dict(indices=idx, min_size=4), second], (w, h), pal),
+                "pillow": buf.getvalue()}
+    assert case == "extensions"
+    ext = [b"!\xfe\x05hello\x03abc\x00", b"!\xff\x0bNETSCAPE2.0\x03\x01\x00\x00\x00",
+           b"!\x01\x0c" + bytes(12) + b"\x00", b"\x00\x17"]       # comment, loop, plain text, stray bytes
+    return {"extensions": encode_gif([dict(indices=idx, min_size=4, extensions=ext)], (w, h), pal)}
+
+
+GIF_CASES = ("pillow", "code-sizes", "growth-and-clears", "end-codes", "local-tables", "interlace",
+             "transparency", "sub-frame", "multi-frame", "extensions")
+
+
+@pytest.mark.parametrize("case", GIF_CASES)
+def test_gif_matches_jax(tmp_path, case):
+    """GIF's first frame (Pillow's GifImagePlugin and LZW decoder): code
+    sizes 0-12, growth to 12 bits, clear codes, a full table with no clear,
+    end codes (Pillow reads on past one only where the file has more than
+    its first 64 KiB), tables local, global, short, identity or none,
+    interlace, transparency, frames inside or past the screen, later
+    frames ignored, extensions and stray bytes skipped."""
+    rng = np.random.default_rng(100 + GIF_CASES.index(case))
+    read = 0
+    for h, w in ((23, 37), (1, 1), (2, 3), (17, 2)):
+        read += _write_all(tmp_path, _gif_files(case, rng, h, w), "gif")
+    assert read > 0
+
+
+def _pnm_files(case, rng, h, w):
+    if case == "pbm":
+        bits = rng.integers(0, 2, (h, w))
+        return {"p1": encode_pnm(bits, b"P1"), "p1-packed": encode_pnm(bits, b"P1", rng=rng),
+                "p4": encode_pnm(bits, b"P4")}
+    if case in ("pgm", "ppm"):
+        files = {}
+        shape = (h, w) if case == "pgm" else (h, w, 3)
+        for maxval in ((255, 1, 15, 100, 254) if case == "pgm" else (255, 7, 1000, 65535)):
+            s = rng.integers(0, maxval + 1, shape)
+            for magic in ((b"P2", b"P5") if case == "pgm" else (b"P3", b"P6")):
+                files[f"{magic.decode()}-{maxval}"] = encode_pnm(s, magic, maxval)
+        return files
+    if case == "comments":
+        s = rng.integers(0, 101, (h, w, 3))
+        joined = (b"P2\n%d %d\n9\n" % (w, h) + b" ".join(b"%d" % v for v in rng.integers(0, 10, h * w - 1))
+                  + b" 1#x\n2")                         # the last sample "12": past maxval
+        return {"p3": encode_pnm(s, b"P3", 100, comments=True, rng=rng),
+                "p6": encode_pnm(s, b"P6", 100, comments=True),
+                "p1": encode_pnm(s[..., 0] & 1, b"P1", comments=True, rng=rng),
+                "in-token": b"P5 1#c\n3 %d\n255\n" % h                 # the width token "13"
+                + rng.integers(0, 256, 13 * h).astype(np.uint8).tobytes(),
+                "joined": joined}
+    if case == "above-maxval":
+        return {"p5": encode_pnm(rng.integers(0, 256, (h, w)), b"P5", 77),
+                "p6": encode_pnm(rng.integers(0, 65536, (h, w, 3)), b"P6", 300)}
+    assert case == "pfm"
+    f = rng.choice(np.float32([0, 0.4, 1, 1.99, 2, 37.5, 254.9, 255, 300, -2, np.inf, -np.inf, np.nan]),
+                   (h, w))
+    f[0, 0] = 200.0
+    return {"le": encode_pnm(f, b"Pf", scale=-1.0), "be": encode_pnm(f, b"Pf", scale=2.5),
+            "colour": encode_pnm(np.repeat(f[..., None], 3, -1), b"PF", scale=-1.0)}   # Pillow: none
+
+
+PNM_CASES = ("pbm", "pgm", "ppm", "comments", "above-maxval", "pfm")
+
+
+@pytest.mark.parametrize("case", PNM_CASES)
+def test_pnm_matches_jax(tmp_path, case):
+    """PNM as Pillow's PpmImagePlugin reads it: P1-P6, ASCII and binary,
+    comments between header tokens, inside one and in ASCII data, PBM's
+    inverted bits, maxval below 255 (rounded as Pillow rounds), P3/P6
+    above 255, binary samples above maxval (capped), Pf in both byte
+    orders (convert truncates; PF, colour, is no file Pillow reads)."""
+    rng = np.random.default_rng(200 + PNM_CASES.index(case))
+    read = 0
+    for h, w in ((13, 11), (1, 1), (2, 9), (7, 1)):
+        read += _write_all(tmp_path, _pnm_files(case, rng, h, w), "pnm")
+    assert read > 0
+
+
+def test_pnm_headers_and_bad_data_raise_as_jax(tmp_path):
+    """Header tokens Python's int() reads and refuses, maxval bounds, ASCII
+    samples past maxval or negative, short data: where JAX reads, the port
+    reads the same; where JAX raises, the port raises ValueError."""
+    files = [b"P5 4 3 255\n" + bytes(range(12)), b"P5\t4\r3 255 " + bytes(range(12)),
+             b"P5 4#c\n3 255\n" + bytes(range(12)), b"P5 +4 3 2_55\n" + bytes(range(12)),
+             b"P5 04 3 0255\n" + bytes(range(12)), b"P5 4 3 255#x\n" + bytes(range(13)),
+             b"P5 4 3 0\n" + bytes(12), b"P5 4 3 65536\n" + bytes(24), b"P5 4 -3 255\n" + bytes(12),
+             b"P5 4 3 255\n" + bytes(11), b"P54 3 255\n" + bytes(12), b"P2 2 2 9 1 2 3 10",
+             b"P2 2 2 9 1 2 3 -1", b"P2 2 2 9 1 2 3", b"P2 2 2 9 1 2 3 4 5 x", b"P2 2 2 9 1 2 3 0004",
+             b"P1 3 2 01011x", b"P1 3 2 0101", b"P1 3 2 01 # x\n0110 junk", b"P3 1 1 255 1 2 3",
+             b"Pf 2 1 1e999\n" + bytes(8), b"Pf 2 1 nan\n" + bytes(8), b"Pf 2 1 0\n" + bytes(8),
+             b"Pf 2 1 -0x1p3\n" + bytes(8), b"Pf 2 1 1_0.5\n" + np.float32([3, 4]).byteswap().tobytes(),
+             b"P7 2 1\n", b"P2 1 1 12345678901 1"]
+    read = sum(_write_all(tmp_path, {f"h{i}": d}, "pnm") for i, d in enumerate(files))
+    assert 6 <= read < len(files)
+
+
+def test_16bit_pgm_diverges_from_jax_as_stb(tmp_path):
+    """Pillow opens P2/P5 above maxval 255 as "I" (samples scaled to 0-65535)
+    and the JAX package's convert clips them to 255; the port keeps the
+    high byte, stb_image's 16-to-8 bit rule, as for 16-bit grey PNG."""
+    s = np.array([[65535, 40000, 255, 256, 0]])
+    for magic, maxval in ((b"P5", 65535), (b"P2", 65535), (b"P5", 1000)):
+        p = tmp_path / f"i16-{maxval}.pgm"
+        p.write_bytes(encode_pnm(np.minimum(s, maxval), magic, maxval))
+        assert Image.open(p).mode == "I"
+        pillow = np.asarray(Image.open(p))[0]
+        want_jax = np.minimum(pillow, 255).astype(np.float32)
+        want_jax = want_jax / 255 if want_jax.max() > 1.5 else want_jax
+        for g in (False, True):
+            assert np.array_equal(jol.load_texture_file(str(p), g)[0, :, 0], want_jax)
+            port = tol.load_texture_file(str(p), g)
+            assert np.array_equal(port[0, :, 0], (pillow >> 8).astype(np.float32) / 255)
+        assert np.array_equal(tol.load_texture_file(str(p))[0, :, 3], np.ones(5, np.float32))
+
+
+def _psd_files(case, compression, rng, h, w):
+    def planes(n):
+        out = [rng.integers(0, 256, (h, w)) for _ in range(n)]
+        for p in out:
+            p[:, ::4] = p[:, :1]                 # runs for PackBits
+        return out
+
+    kw = dict(compression=compression, rng=rng)
+    if case == "bitmap":
+        return {"1": encode_psd([rng.integers(0, 256, (h, (w + 7) // 8))], 0, 1, width=w, **kw)}
+    if case == "grey":
+        return {"grey": encode_psd(planes(1), 1, **kw), "bitmap-8": encode_psd(planes(1), 0, **kw),
+                "duotone": encode_psd(planes(1), 8, **kw), "multichannel": encode_psd(planes(2), 7, **kw),
+                "grey-alpha": encode_psd(planes(2), 1, **kw)}
+    if case == "indexed":
+        table = rng.integers(0, 256, 768).astype(np.uint8).tobytes()
+        return {"table": encode_psd(planes(1), 2, palette=table, **kw),
+                "no-table": encode_psd(planes(1), 2, palette=table[:300], **kw)}
+    if case == "rgb":
+        return {"rgb": encode_psd(planes(3), 3, **kw), "rgba": encode_psd(planes(4), 3, **kw),
+                "five-channels": encode_psd(planes(5), 3, **kw)}
+    if case == "cmyk":
+        return {"cmyk": encode_psd(planes(4), 4, **kw), "cmyk-alpha": encode_psd(planes(5), 4, **kw)}
+    assert case == "sections"
+    res = (b"8BIM" + struct.pack(">H", 1005) + b"\x03abc" + struct.pack(">I", 5) + b"hello\0"
+           + b"8BIM" + struct.pack(">H", 1039) + b"\x00\x00" + struct.pack(">I", 4) + b"icc!")
+    return {"resources": encode_psd(planes(3), 3, resources=res, **kw),
+            "layers": encode_psd(planes(3), 3, layers=struct.pack(">I", 0) + bytes(9), **kw),
+            "16-bit": encode_psd(planes(3), 3, 16, **kw),
+            "short-of-channels": encode_psd(planes(3), 4, **kw),
+            "mode-5": encode_psd(planes(1), 5, **kw)}
+
+
+PSD_CASES = ("bitmap", "grey", "indexed", "rgb", "cmyk", "sections")
+
+
+@pytest.mark.parametrize("compression", [0, 1])
+@pytest.mark.parametrize("case", PSD_CASES)
+def test_psd_matches_jax(tmp_path, case, compression):
+    """PSD's composite image, raw and PackBits (no-op bytes; Pillow places
+    each channel's data after as many channels' row counts as its mode
+    reads), by Pillow's MODES table: bitmap "1", grey/duotone/multichannel
+    "L", indexed "P" (without a 768-byte table: black), "RGB", "RGBA"
+    (four channels exactly), "CMYK" (stored inverted, expanded by Pillow's
+    convert); image resources and a layer section skipped; 16-bit, too few
+    channels and unknown modes raise where JAX raises."""
+    rng = np.random.default_rng(300 + 2 * PSD_CASES.index(case) + compression)
+    read = 0
+    for h, w in ((13, 11), (1, 1), (3, 20), (9, 2)):
+        read += _write_all(tmp_path, _psd_files(case, compression, rng, h, w), "psd")
+    assert read > 0
+
+
+@pytest.mark.parametrize("hs", [40, 56, 124])
+def test_16bit_bmp_matches_jax(tmp_path, hs):
+    """16-bit BMP: BI_RGB as Pillow's "BGR;15", BI_BITFIELDS 5-6-5 and
+    5-5-5 (an alpha mask ignored, as Pillow compares the colour masks),
+    other masks raise where JAX raises; bottom-up and top-down."""
+    rng = np.random.default_rng(400 + hs)
+    read = 0
+    for h, w in ((7, 5), (1, 1), (3, 20), (4, 33)):
+        for top_down in (False, True):
+            files = {"bi-rgb": make_bmp(rng.integers(0, 65536, (h, w)), 16, hs, top_down)}
+            for name, masks in (("565", (0xF800, 0x7E0, 0x1F, 0)), ("555", (0x7C00, 0x3E0, 0x1F, 0x8000)),
+                                ("444", (0xF00, 0xF0, 0xF, 0)), ("bgr565", (0x1F, 0x7E0, 0xF800, 0))):
+                files[name] = make_bmp(rng.integers(0, 65536, (h, w)), 16, hs, top_down, compression=3,
+                                       masks=masks[:3] if hs == 40 else masks)
+            read += _write_all(tmp_path, {f"{k}-{h}x{w}-{top_down}": v for k, v in files.items()}, "bmp")
+    assert read == 4 * 2 * 3
+
+
+@pytest.mark.parametrize("rle4", [False, True])
+def test_rle_bmp_matches_jax(tmp_path, rle4):
+    """BMP RLE8 and RLE4 as Pillow's BmpRleDecoder reads them: encoded runs
+    (cut at the row's end), absolute runs (padded to 16 bits; an odd RLE4
+    run Pillow reads short), end-of-line, end-of-bitmap, deltas (Pillow
+    takes right and up from the second byte pair; skipped pixels index 0),
+    bottom-up and top-down, grey palettes ("L"); data that ends before the
+    image raises where JAX raises."""
+    rng = np.random.default_rng(500 + rle4)
+    bits, read = (4 if rle4 else 8), 0
+    for h, w in ((7, 5), (1, 1), (3, 20), (9, 33)):
+        idx = rng.integers(0, 16, (h, w))
+        idx[:, ::2] = idx[:, :1]
+        pal = rng.integers(0, 256, (16, 3))
+        grey = np.repeat(np.arange(16)[:, None], 3, 1)
+        files = {}
+        for name, kw, table, top_down in (("plain", {}, pal, False), ("top-down", {}, pal, True),
+                                          ("delta", {"delta": True}, pal, False),
+                                          ("odd-runs", {"odd_runs": True}, pal, False),
+                                          ("grey", {}, grey, False)):
+            data = encode_bmp_rle(idx, rle4, rng, **kw)
+            files[name] = make_bmp(None, bits, 40, top_down, table, 2 if rle4 else 1, data=data, size=(w, h))
+        data = encode_bmp_rle(idx, rle4, rng)
+        files["early-end"] = make_bmp(None, bits, 40, False, pal, 2 if rle4 else 1,
+                                      data=data[:len(data) // 2] + b"\0\1", size=(w, h))
+        read += _write_all(tmp_path, {f"{k}-{h}x{w}": v for k, v in files.items()}, "bmp")
+    assert read >= 4 * 4
+
+
+def test_grey_bmp_palettes_at_every_depth_match_jax(tmp_path):
+    """Pillow reads a palette of entries i = i, i, i as "L" and the
+    two-entry 0/255 one as "1", whatever the depth: 8-bit (resp. 1-bit)
+    samples from the file's rows, an "L" row wider than its stride read
+    through the memory map into the next rows (past the file's end: 0)."""
+    rng = np.random.default_rng(600)
+    read = 0
+    for h, w in ((5, 13), (1, 1), (3, 40)):
+        files = {}
+        for bits in (1, 4, 8):
+            for npal in (1, 2, 16, 256):
+                table = (np.array([[0, 0, 0], [255, 255, 255]]) if npal == 2
+                         else np.repeat(np.arange(npal)[:, None], 3, 1))
+                idx = rng.integers(0, min(npal, 1 << bits), (h, w))
+                files[f"{bits}-{npal}"] = make_bmp(idx, bits, 40, False, table)
+                files[f"{bits}-{npal}-12"] = make_bmp(idx, bits, 12, False, table)
+        read += _write_all(tmp_path, {f"{k}-{h}x{w}": v for k, v in files.items()}, "bmp")
+    assert read == 3 * 24
+
+
+@pytest.mark.parametrize("rle", [0, 8])
+def test_16bit_1bit_and_la_tga_match_jax(tmp_path, rle):
+    """TGA as Pillow reads it: 16-bit true colour as "BGRA;15Z" (alpha 0
+    where the top bit is set, whatever the attribute bits), grey 16-bit as
+    "LA", 1-bit grey as "1" (an RLE one raises, as Pillow's decoder never
+    ends one), colour maps of 16-bit entries (15-bit ones raise where JAX
+    raises); every origin."""
+    rng = np.random.default_rng(700 + rle)
+    read = 0
+    for h, w in ((7, 5), (1, 1), (3, 20), (5, 9)):
+        for flags in (0x00, 0x20, 0x10, 0x31, 0x08):
+            c2 = rng.integers(0, 256, (h, w, 2))
+            c2[:, ::3] = c2[:, :1]
+            files = {"rgb16": make_tga(c2, 2 | rle, 16, flags, rng=rng),
+                     "la": make_tga(rng.integers(0, 256, (h, w, 2)), 3 | rle, 16, flags, rng=rng),
+                     "bit1": make_tga(rng.integers(0, 256, (h, (w + 7) // 8, 1)), 3 | rle, 1, flags,
+                                      rng=rng, width=w)}
+            for depth in (16, 15):
+                cmap = rng.integers(0, 256, 2 * 12).astype(np.uint8)
+                files[f"map{depth}"] = make_tga(rng.integers(0, 14, (h, w, 1)), 1 | rle, 8, flags, cmap,
+                                                cmap_start=2, cmap_depth=depth, rng=rng)
+            read += _write_all(tmp_path, {f"{k}-{h}x{w}-{flags}": v for k, v in files.items()}, "tga")
+    assert read == 4 * 5 * (3 if rle else 4)
+
+
+def test_palette_pillow_applies_to_grey_diverges_as_stb(tmp_path):
+    """Pillow turns an "L" image that carries a colour table into "P" when
+    it loads it, so convert("RGBA") looks the grey values up in that table
+    (and convert("L") keeps them): a GIF whose local table is the identity
+    ramp beside a global table (the global one is used), a grey TGA with a
+    colour map.  stb_image reads the values, and so does the port."""
+    rng = np.random.default_rng(800)
+    idx = rng.integers(0, 16, (6, 7))
+    pal = rng.integers(0, 256, (16, 3))
+    ident = np.repeat(np.arange(16)[:, None], 3, 1)
+    cmap = rng.integers(0, 256, 3 * 16).astype(np.uint8)
+    for name, data in (("gif", encode_gif([dict(indices=idx, min_size=4, palette=ident)], (7, 6), pal)),
+                       ("tga", make_tga(idx[..., None], 3, 8, 0x20, cmap))):
+        p = tmp_path / f"grey.{name}"
+        p.write_bytes(data)
+        assert Image.open(p).mode == "L"
+        table = pal.astype(np.float32) if name == "gif" else cmap.reshape(16, 3)[:, ::-1].astype(np.float32)
+        assert np.array_equal(jol.load_texture_file(str(p))[::-1, :, :3], table[idx] / 255)
+        values = idx.astype(np.float32) / 255
+        assert np.array_equal(jol.load_texture_file(str(p), True)[::-1, :, 0], values)
+        for g in (False, True):
+            got = tol.load_texture_file(str(p), g)[::-1]
+            assert np.array_equal(got[..., 0], values) and got.shape[2] == (1 if g else 4)
 
 
 @pytest.mark.parametrize("channels", [1, 3, 4])
@@ -348,16 +688,56 @@ def _fixture(name):
     return (FIXTURES / name).read_bytes()
 
 
+def _gif_first_frame_end(data):
+    """Offset of the block terminator that ends a GIF's first frame."""
+    p = 13 + (3 << ((data[10] & 7) + 1) if data[10] & 128 else 0)
+    while data[p] != 0x2C:                         # extensions before the image
+        p += 2
+        while data[p]:
+            p += data[p] + 1
+        p += 1
+    flags = data[p + 9]
+    p += 10 + (3 << ((flags & 7) + 1) if flags & 128 else 0) + 1
+    while data[p]:
+        p += data[p] + 1
+    return p
+
+
+# Bytes at a fixture's end that no decoder needs: a TGA footer, a BMP's
+# last row padding (Pillow reads a file without it), an RLE BMP's
+# end-of-bitmap (and end-of-line, unless an odd RLE4 run left the row
+# short), a GIF's later frames.
+_SPARE = {"rle.tga": 26, "rgb24.bmp": 1, "bf565.bmp": 2, "discs_rle8.bmp": 4, "rle4.bmp": 2}
+
+
 @pytest.mark.parametrize("name", ["prog420_odd.jpg", "base422_rst.jpg", "adam7.png", "rle.tga",
-                                  "rgb24.bmp", "palette_trns.png"])
-def test_truncated_and_corrupt_files_raise(name):
+                                  "rgb24.bmp", "palette_trns.png", "frame.gif", "leaf.psd", "cmyk.psd",
+                                  "gloss.pgm", "discs_rle8.bmp", "rle4.bmp", "bf565.bmp",
+                                  "rgb16_rle.tga"])
+def test_truncated_and_corrupt_files_raise(tmp_path, name):
     """Cut at several points, or with a marker, a CRC or a header field
-    broken: ValueError, never a crash or a quiet result."""
+    broken: ValueError, never a crash or a quiet result (for the GIF, PSD,
+    PNM and 16-bit/RLE BMP and TGA fixtures: where the JAX package raises
+    too)."""
     data = _fixture(name)
-    end = len(data) - 26 if data.endswith(b"TRUEVISION-XFILE.\0") else len(data)  # TGA footer
-    for cut in (end - 1, end - 7, end * 3 // 4, end // 2, 40, 20, 10, 3):
+    new = name in FIXTURE_NAMES[8:]        # the GIF, PSD, PNM and 16-bit/RLE BMP and TGA fixtures
+    end = _gif_first_frame_end(data) if name.endswith(".gif") else len(data) - _SPARE.get(name, 0)
+
+    def raises(bad):
         with pytest.raises(ValueError):
-            image_decode.decode_image(data[:cut])
+            image_decode.decode_image(bad)
+        if new:
+            p = tmp_path / f"bad-{name}"
+            p.write_bytes(bad)
+            with pytest.raises(Exception):   # noqa: B017 - whatever Pillow raises
+                jol.load_texture_file(str(p))
+
+    if name.endswith(".bmp"):           # the spare bytes are spare: both read the file without them
+        p = tmp_path / f"cut-{name}"
+        p.write_bytes(data[:end])
+        _same_as_jax(p)
+    for cut in (end - 1, end - 7, end * 3 // 4, end // 2, 40, 20, 10, 3):
+        raises(data[:cut])
     broken = []
     if name.endswith(".jpg"):
         sof = data.index(b"\xff\xc2" if "prog" in name else b"\xff\xc0")
@@ -371,25 +751,39 @@ def test_truncated_and_corrupt_files_raise(name):
     elif name.endswith(".png"):
         broken += [data[:40] + bytes([data[40] ^ 0xFF]) + data[41:],      # bad CRC
                    data[:24] + b"\x07" + data[25:]]                        # bad bit depth
-    elif name.endswith(".tga"):
-        broken += [data[:2] + b"\x05" + data[3:], data[:16] + b"\x10" + data[17:]]
-    else:
-        broken += [data[:28] + b"\x07" + data[29:], data[:30] + b"\x01" + data[31:]]
+    elif name.endswith(".tga"):                                            # type 5, depth 15
+        broken += [data[:2] + b"\x05" + data[3:], data[:16] + b"\x0f" + data[17:]]
+    elif name.endswith(".gif"):
+        start = data.index(b",")
+        start += 10 + (3 << ((data[start + 9] & 7) + 1) if data[start + 9] & 128 else 0)
+        broken += [data[:start] + b"\x0d" + data[start + 1:],                 # LZW code size 13
+                   data[:start + 2] + b"\xff\xff" + data[start + 4:],         # a code past the table
+                   b"GIF88a" + data[6:]]
+    elif name.endswith(".psd"):
+        broken += [data[:5] + b"\x02" + data[6:],                              # version 2
+                   data[:23] + b"\x10" + data[24:],                            # 16-bit
+                   data[:13] + b"\x01" + data[14:]]                            # too few channels
+    elif name.endswith(".pgm"):
+        broken += [data.replace(b"100\n", b"0\n", 1), b"P7" + data[2:]]
+    else:                                                       # 7 bits; RLE8 or PNG compression
+        broken += [data[:28] + b"\x07" + data[29:], data[:30] + (b"\x05" if "rle" in name else b"\x01")
+                   + data[31:]]
+        if name == "bf565.bmp":
+            broken.append(data[:54] + struct.pack("<I", 0x1F) + data[58:])  # unknown masks
     for bad in broken:
-        with pytest.raises(ValueError):
-            image_decode.decode_image(bad)
+        raises(bad)
 
 
 def test_refused_formats_and_features_raise(tmp_path):
-    """Formats and features not ported raise ValueError naming them."""
+    """Formats and features not ported raise ValueError naming them: TIFF,
+    WebP, CMYK JPEG, 12-bit, arithmetic-coded, lossless and hierarchical
+    JPEG, an incomplete progressive JPEG, Lab PSD."""
     img = Image.fromarray(smooth_image(np.random.default_rng(0), 16, 16, 3))
-    for fmt, words in (("GIF", "GIF"), ("TIFF", "TIFF"), ("WEBP", "WebP"), ("PPM", "PNM")):
+    for fmt, words in (("TIFF", "TIFF"), ("WEBP", "WebP")):
         buf = io.BytesIO()
         img.save(buf, format=fmt)
         with pytest.raises(ValueError, match=words):
             image_decode.decode_image(buf.getvalue())
-    with pytest.raises(ValueError, match="PSD"):
-        image_decode.decode_image(b"8BPS" + bytes(40))
     cmyk = io.BytesIO()
     img.convert("CMYK").save(cmyk, format="JPEG")
     with pytest.raises(ValueError, match="CMYK"):
@@ -406,18 +800,38 @@ def test_refused_formats_and_features_raise(tmp_path):
     last_sos = prog.rindex(b"\xff\xda")
     with pytest.raises(ValueError, match="incomplete progressive"):
         image_decode.decode_image(prog[:last_sos] + b"\xff\xd9")
-    # BMP RLE8 and 16-bit, 16-bit TGA.
-    bmp8 = _bmp(np.zeros((4, 4, 1), int), 8, palette=np.zeros((4, 3), int))
-    with pytest.raises(ValueError, match="RLE"):
-        image_decode.decode_image(bmp8[:30] + b"\x01" + bmp8[31:])
-    bmp16 = _bmp(np.zeros((4, 4, 2), int), 16)
-    with pytest.raises(ValueError, match="16-bit BMP"):
-        image_decode.decode_image(bmp16)
-    tga16 = _tga(np.zeros((4, 4, 2), int), 2, 16)
-    with pytest.raises(ValueError, match="16-bit TGA"):
-        image_decode.decode_image(tga16)
+    lab = encode_psd([np.zeros((2, 3), np.uint8)] * 3, 9)
+    with pytest.raises(ValueError, match="Lab"):
+        image_decode.decode_image(lab)
     with pytest.raises(ValueError, match="not an image"):
         image_decode.decode_image(b"plain text, not an image")
+
+
+def test_dark_8bit_texture_is_divided_as_stb(tmp_path):
+    """C1: the JAX package divides by 255 only when some texel exceeds 1.5,
+    so a file of 0/1 texels keeps them: a 0/1 opacity cut-out reads 0 and
+    1.0 there, and the leaves stand opaque.  stbi_load (the reference)
+    gives 8-bit texels, and the port divides every one by 255: 0 and 1/255.
+    A grey file read as RGBA gains alpha 255, so JAX divides it then, and
+    the two agree; grey maps (grayscale=True: specular, metallic, opacity)
+    and RGB files differ."""
+    mask = disc_pattern(16)
+    for name, data, rgb in (("grey.png", encode_png(mask.astype(np.uint8)), False),
+                            ("grey.pgm", encode_pnm(mask.astype(int), b"P5"), False),
+                            ("rgb.png", encode_png(np.repeat(mask[..., None], 3, -1).astype(np.uint8)), True),
+                            ("rgb.ppm", encode_pnm(np.repeat(mask[..., None], 3, -1), b"P3"), True)):
+        p = tmp_path / name
+        p.write_bytes(data)
+        texels = mask[::-1].astype(np.float32)
+        for grayscale in (False, True):
+            jax = jol.load_texture_file(str(p), grayscale)
+            port = tol.load_texture_file(str(p), grayscale)
+            assert jax.shape == port.shape and port.dtype == np.float32
+            assert np.array_equal(port[..., 0], texels / 255), (name, grayscale)
+            jax_divides = not grayscale and not rgb
+            assert np.array_equal(jax[..., 0], texels / 255 if jax_divides else texels), (name, grayscale)
+            if port.shape[2] == 4:
+                assert np.array_equal(port[..., 3], np.ones_like(texels))
 
 
 def test_grey16_png_diverges_from_jax_as_stb(tmp_path):

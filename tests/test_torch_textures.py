@@ -352,8 +352,9 @@ def test_write_png_roundtrip(tmp_path):
 def test_port_needs_no_pillow():
     """With Pillow and imageio made unimportable, every module of the port
     imports, textured_obj writes and loads its PNGs and compiles, and
-    load_texture_file reads a committed JPEG and the TGA fixture
-    (tests/data/images) through the native decoder; nothing imported PIL.
+    load_texture_file reads a committed JPEG, the TGA, GIF and PSD
+    fixtures (tests/data/images) through the native decoder; nothing
+    imported PIL.
     No source file of the port, nor chip_smoke.py, imports jax, PIL or
     imageio."""
     code = textwrap.dedent("""
@@ -370,7 +371,8 @@ def test_port_needs_no_pillow():
         from realtimeraytracer_torch.scene.obj_loader import load_texture_file
         gpu = scenes.textured_obj().compile()
         assert gpu.has_textures and gpu.pallas_amask is not None
-        for name, shape in (("prog420_odd.jpg", (45, 61, 3)), ("rle.tga", (64, 64, 4))):
+        for name, shape in (("prog420_odd.jpg", (45, 61, 3)), ("rle.tga", (64, 64, 4)),
+                            ("frame.gif", (64, 64, 4)), ("leaf.psd", (64, 64, 3))):
             tex = load_texture_file("tests/data/images/" + name)
             assert tex.shape == shape and 0.0 <= tex.min() and tex.max() <= 1.0, name
         assert not any(k.split(".")[0] in ("PIL", "imageio") for k in sys.modules)
