@@ -877,10 +877,10 @@ def wide_and_config3(*, rt, torch, dev, card: str, W: int, H: int, scene, gpu, f
 
 def image_decoders(*, rt, torch, card: str, W: int, H: int, zero_counts, read_counts) -> dict:
     """Phase 38: the host image decoders on the committed fixtures; 1080p
-    frames textured by JPEG/TGA files and by GIF/PSD/PGM/RLE-BMP files,
-    each against the same frame textured by PNGs of their pixels; the C1
-    frame (a 0/1 opacity map against an all-zero one); host decode
-    times."""
+    frames textured by JPEG/TGA files, by GIF/PSD/PGM/RLE-BMP files and by
+    LZW/Deflate/JPEG/PackBits TIFF files, each against the same frame
+    textured by PNGs of their pixels; the C1 frame (a 0/1 opacity map
+    against an all-zero one); host decode times."""
     import hashlib
 
     from realtimeraytracer_torch import scenes
@@ -909,6 +909,8 @@ def image_decoders(*, rt, torch, card: str, W: int, H: int, zero_counts, read_co
              "leaf_kd.png": "base422_rst.jpg", "leaf_d.png": "rle.tga"}
     new_roles = {"ground_kd.png": "frame.gif", "ground_ks.png": "gloss.pgm",
                  "leaf_kd.png": "leaf.psd", "leaf_d.png": "discs_rle8.bmp"}
+    tiff_roles = {"ground_kd.png": "lzw_pred_rgb.tif", "ground_ks.png": "deflate_tiles_grey.tif",
+                  "leaf_kd.png": "jpeg_ycbcr.tif", "leaf_d.png": "packbits_rgba.tif"}
     disc = enc.disc_pattern(64)
     cfg = rt.RenderConfig(width=W, height=H, primary_rays=4, shadow_rays=3, denoise_iterations=4)
     frames = {}
@@ -937,11 +939,14 @@ def image_decoders(*, rt, torch, card: str, W: int, H: int, zero_counts, read_co
 
         old_bytes = {m: (f, (fx / f).read_bytes()) for m, f in roles.items()}
         new_bytes = {m: (f, (fx / f).read_bytes()) for m, f in new_roles.items()}
+        tiff_bytes = {m: (f, (fx / f).read_bytes()) for m, f in tiff_roles.items()}
         scenes38 = {
             "JPEG/TGA maps": variant("fixtures", old_bytes),
             "PNG maps": variant("repng", twins(old_bytes)),
             "GIF/PSD/PGM/RLE-BMP maps": variant("newfmt", new_bytes),
             "their PNG maps": variant("newfmt_png", twins(new_bytes)),
+            "TIFF maps": variant("tiff", tiff_bytes),
+            "the TIFFs' PNG maps": variant("tiff_png", twins(tiff_bytes)),
             # C1: 0/1 texels read 0 and 1/255 (stbi_load), below alpha_threshold
             # like 0; the JAX package's rule kept them 0 and 1.0, opaque leaves.
             "C1 0/1 opacity PGM": variant("c1", {"leaf_d.png": (
@@ -971,19 +976,21 @@ def image_decoders(*, rt, torch, card: str, W: int, H: int, zero_counts, read_co
                            "launches": {k: v for k, v in counts.items() if v}}
     for a, b, what in (("JPEG/TGA maps", "PNG maps", "JPEG/TGA"),
                        ("GIF/PSD/PGM/RLE-BMP maps", "their PNG maps", "GIF/PSD/PGM/RLE-BMP"),
+                       ("TIFF maps", "the TIFFs' PNG maps", "LZW/Deflate/JPEG/PackBits TIFF"),
                        ("C1 0/1 opacity PGM", "all-zero opacity PGM", "C1 (0/1 opacity)")):
         ha, hb = frames[a]["sha256"], frames[b]["sha256"]
         require(ha == hb, f"[38] the {what} frame differs from its twin: {ha[:16]} against {hb[:16]}")
     require(frames["C1 0/1 opacity PGM"]["sha256"] != frames["PNG maps"]["sha256"],
             "[38] the C1 frame equals the frame with textured_obj's own cut-outs")
-    say(f"[38] textured_obj at 1080p, reference defaults, rt.render: the JPEG/TGA-textured frame and "
-        f"the GIF/PSD/PGM/RLE-BMP-textured frame are each hash-equal to the frame with PNG maps of the "
-        f"same pixels; the C1 frame (0/1 opacity PGM) is hash-equal to the all-zero one; "
+    say(f"[38] textured_obj at 1080p, reference defaults, rt.render: the JPEG/TGA-textured frame, "
+        f"the GIF/PSD/PGM/RLE-BMP-textured frame and the TIFF-textured frame are each hash-equal to the "
+        f"frame with PNG maps of the same pixels; the C1 frame (0/1 opacity PGM) is hash-equal to the "
+        f"all-zero one; "
         + json.dumps(frames))
 
-    def med5(fn):
+    def med5(fn, n=5):
         times = []
-        for _ in range(5):
+        for _ in range(n):
             t0 = time.perf_counter()
             fn()
             times.append((time.perf_counter() - t0) * 1e3)
@@ -1022,17 +1029,45 @@ def image_decoders(*, rt, torch, card: str, W: int, H: int, zero_counts, read_co
         require(px.shape[:2] == (1024, 1024) and got_mode == mode, f"[38] {key}: {px.shape} {got_mode}")
     require(np.array_equal(image_decode.decode_image(new_files["gif_1024"][0])[0][..., :3],
                            pal.astype(np.uint8)[blocks]), "[38] the 1024^2 GIF decodes wrong")
+    # One 1024^2 LZW + predictor RGB TIFF in strips, Deflate grey TIFF in
+    # tiles, JPEG-compressed YCbCr TIFF in tiles (a 256^2 crop repeated:
+    # equal strips and tiles are encoded once), CMYK and YCCK JPEG.
+    smooth = np.stack([128 + 100 * np.sin(x1 / 97 + y1 / 131), 128 + 100 * np.cos(x1 / 151 - y1 / 83),
+                       128 + 90 * np.sin((x1 + y1) / 211)], -1).astype(np.uint8)
+    repeated = np.tile(smooth[:256, :256], (4, 4, 1))
+    cmyk_planes = [smooth[..., k] for k in (0, 1, 2, 0)]
+    t_enc_tiff = time.perf_counter()
+    new_files.update({
+        "tiff_lzw_pred_strips_1024": (enc.make_tiff(repeated, 8, 2, compression=5, predictor=2,
+                                                    rows_per_strip=256), "RGB"),
+        "tiff_deflate_tiles_1024": (enc.make_tiff(repeated[..., 1], 8, 1, compression=8, tile=(256, 256)),
+                                    "L"),
+        "tiff_jpeg_ycbcr_tiles_1024": (enc.make_tiff(repeated, 8, 6, compression=7, subsampling=(2, 2),
+                                                     tile=(256, 256)), "RGB"),
+        "jpeg_cmyk_1024": (enc.encode_jpeg(cmyk_planes, [(1, 1)] * 4, adobe=0), "CMYK"),
+        "jpeg_ycck_1024": (enc.encode_jpeg(cmyk_planes, [(2, 2), (1, 1), (1, 1), (2, 2)], adobe=2), "CMYK"),
+    })
+    t_enc += time.perf_counter() - t_enc_tiff
+    for key, (data, mode) in new_files.items():
+        if key.startswith(("tiff", "jpeg")):
+            px, got_mode = image_decode.decode_image(data)
+            require(px.shape[:2] == (1024, 1024) and got_mode == mode, f"[38] {key}: {px.shape} {got_mode}")
+    require(np.array_equal(image_decode.decode_image(new_files["tiff_lzw_pred_strips_1024"][0])[0], repeated),
+            "[38] the 1024^2 LZW TIFF decodes wrong")
+    require(np.array_equal(image_decode.decode_image(new_files["tiff_deflate_tiles_1024"][0])[0][..., 0],
+                           repeated[..., 1]), "[38] the 1024^2 Deflate TIFF decodes wrong")
     times = {"jpeg_1024_native": med5(lambda: image_decode.decode_image(jpeg)),
              "png_paeth_2048_native": med5(lambda: image_decode.decode_image(paeth)),
              "png_paeth_256_native": med5(lambda: image_decode.decode_image(crop)),
-             "png_paeth_256_python": med5(lambda: png.decode_png(crop))}
+             "png_paeth_256_python": med5(lambda: png.decode_png(crop), 3)}   # about 1 s a call
     for key, (data, _) in new_files.items():
         times[key + "_native"] = med5(lambda data=data: image_decode.decode_image(data))
     res = {k: {"ms": v[0], "ms_all": v[1]} for k, v in times.items()}
     res["bytes"] = {"jpeg_1024": len(jpeg), "png_paeth_2048": len(paeth), "png_paeth_256": len(crop),
                     **{k: len(v[0]) for k, v in new_files.items()}}
     res["encode_s"] = t_enc
-    say(f"[38] host decode ms, median of 5 (host side, the card machine's CPU; {card}): " + json.dumps(res))
+    say(f"[38] host decode ms, median of 5 (of 3 for the Python PNG decoder; host side, the card machine's "
+        f"CPU; {card}): " + json.dumps(res))
     say(f"[38] phase 38 took {time.perf_counter() - t38:.1f} s")
     return {"frames": frames, "decode": res}
 

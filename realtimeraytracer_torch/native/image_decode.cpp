@@ -1,16 +1,18 @@
 // Texture image decoders of the port: JPEG, PNG reconstruction, TGA, BMP,
-// GIF, PNM, PSD.
+// GIF, PNM, PSD, TIFF.
 //
 // The JAX package reads texture files with Pillow (Image.open, then
 // convert("RGBA") or convert("L")); the reference C++ with stb_image.  This
 // library returns what Pillow returns, pixel for pixel, in Pillow's mode:
 //
-//   JPEG  baseline, extended and progressive Huffman, 8-bit, 1 or 3
-//         components, any integral sampling, restart intervals; decoded as
-//         libjpeg-turbo decodes by default: the ISLOW integer IDCT
-//         (jidctint.c), "fancy" triangle upsampling (jdsample.c: h2v1, h1v2,
-//         h2v2; a component 2 samples wide or narrower takes the box
-//         filter), the integer YCbCr->RGB tables (jdcolor.c).
+//   JPEG  baseline, extended and progressive Huffman, 8-bit, 1, 3 or 4
+//         components (CMYK, or YCCK by the Adobe transform, read inverted
+//         as Pillow's "CMYK;I"), any integral sampling, restart intervals;
+//         decoded as libjpeg-turbo decodes by default: the ISLOW integer
+//         IDCT (jidctint.c), "fancy" triangle upsampling of each component
+//         (jdsample.c: h2v1, h1v2, h2v2; a component 2 samples wide or
+//         narrower takes the box filter), the integer YCbCr->RGB and
+//         YCCK->CMYK tables (jdcolor.c).
 //   PNG   unfiltering, Adam7 de-interlacing and unpacking of every colour
 //         type and depth; the inflate is zlib's, done by the caller.
 //   TGA   types 1, 2, 3, 9, 10, 11 at 1 (grey), 8, 16, 24 and 32 bits,
@@ -22,16 +24,27 @@
 //   PNM   P1-P6 (ASCII and binary, any maxval) and Pf.
 //   PSD   the composite image: raw or PackBits; bitmap, grey, indexed, RGB,
 //         RGBA, CMYK.
+//   TIFF  the first directory, as Pillow reads it: its mode table
+//         (TiffImagePlugin.OPEN_INFO); uncompressed files through Pillow's
+//         own unpackers (a planar file by each band's letter), compressed
+//         ones as libtiff decodes them (PackBits, LZW, Deflate inflated by
+//         the caller, JPEG through the decoder above; predictors 2 and 3;
+//         host-order samples) and Pillow unpacks them; YCbCr without JPEG
+//         through libtiff's TIFFRGBAImage (its float-built tables, its
+//         block walk); Orientation as Pillow 12's load applies it.
 //
 // Pixels come back as uint8 (H, W, C): C = 1 grey, 2 grey + alpha, 3 RGB,
-// 4 RGBA (palette and CMYK images are expanded to RGBA).  Anything
-// malformed or not ported throws, and the C entry points turn that into an
-// error message: every read of the input is bounds-checked.
+// 4 RGBA (palette and CMYK images are expanded to RGBA); a float TIFF also
+// keeps its float32 samples.  Anything malformed or not ported throws,
+// and the C entry points turn that into an error message: every read of
+// the input is bounds-checked.
 //
 // Build: c++ -O2 -fPIC -std=c++17 -shared (no -march=native: the decode is
 // integer arithmetic, and the same bytes must come out on every host; the
-// only floating point, PNM's maxval scaling and PFM's comparisons, is two
-// correctly rounded IEEE operations or exact, the same everywhere).
+// only floating point, PNM's maxval scaling, PFM's and TIFF's float
+// comparisons and libtiff's YCbCr table init (float operations in
+// libtiff's order, no contraction under -std=c++17), is correctly rounded
+// IEEE arithmetic or exact, the same everywhere).
 
 #include <algorithm>
 #include <cctype>
@@ -39,6 +52,7 @@
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
+#include <map>
 #include <stdexcept>
 #include <string>
 #include <vector>
@@ -65,6 +79,8 @@ struct Image {
   int64_t w = 0, h = 0, c = 0;
   std::string mode;
   std::vector<uint8_t> px;
+  std::vector<float> fl;  // TIFF F or PFM: the float samples, fh x fw (px holds convert's bytes)
+  int64_t fw = 0, fh = 0;
 
   void alloc(int64_t w_, int64_t h_, int64_t c_, const char* mode_) {
     check_size(w_, h_);
@@ -104,6 +120,17 @@ struct Palette {
     for (auto& x : e) x[0] = x[1] = x[2] = 0, x[3] = 255;
   }
 };
+
+// Pillow's cmyk2rgb (Convert.c) of one pixel, alpha 255.
+void cmyk_to_rgba(int c, int m, int y, int k, uint8_t* o) {
+  const int nk = 255 - k;
+  const int cmy[3] = {c, m, y};
+  for (int i = 0; i < 3; ++i) {
+    const int t = cmy[i] * nk + 128;
+    o[i] = uint8_t(std::clamp(nk - (((t >> 8) + t) >> 8), 0, 255));
+  }
+  o[3] = 255;
+}
 
 // ---------------------------------------------------------------- JPEG ----
 
@@ -301,8 +328,7 @@ struct Jpeg {
     if (height == 0) fail("JPEG with its height in a DNL marker is not supported");
     if (width == 0) fail("corrupt JPEG: width 0");
     if (width > 65500 || height > 65500) fail("JPEG dimensions exceed 65500");
-    if (nc == 4) fail("CMYK/YCCK (Adobe) JPEG is not supported");
-    if (nc != 1 && nc != 3) fail("JPEG with " + std::to_string(nc) + " components is not supported");
+    if (nc < 1 || nc > 4) fail("JPEG with " + std::to_string(nc) + " components is not supported");
     if (end - p < size_t(6 + 3 * nc)) fail("corrupt JPEG: SOF segment too short");
     progressive = code == 0xC2;
     comps.resize(size_t(nc));
@@ -643,7 +669,10 @@ struct Jpeg {
     return out;
   }
 
-  Image decode() {
+  // Reads the markers from SOI to EOI.  A tables-only stream (a TIFF's
+  // JPEGTables) holds no frame and no scan; an abbreviated stream (a TIFF
+  // strip or tile) may use tables an earlier stream defined.
+  void read_stream(bool tables_only) {
     if (in.n < 2 || in.p[0] != 0xFF || in.p[1] != 0xD8) fail("not a JPEG file");
     size_t p = 2;
     bool scanned = false;
@@ -659,6 +688,9 @@ struct Jpeg {
       in.need(p, len, "JPEG marker segment");
       size_t body = p + 2, end = p + len;
       p = end;
+      if (tables_only && (code == 0xDA || (code >= 0xC0 && code <= 0xCF && code != 0xC4 && code != 0xC8 &&
+                                           code != 0xCC)))
+        fail("corrupt JPEG tables: a frame or scan in JPEGTables");
       switch (code) {
         case 0xC0: case 0xC1: case 0xC2:
           read_sof(code, body, end);
@@ -699,6 +731,7 @@ struct Jpeg {
           fail("corrupt JPEG: unknown marker 0x" + std::to_string(code));
       }
     }
+    if (tables_only) return;
     if (!have_frame || !scanned) fail("corrupt JPEG: no frame or no scan");
     if (progressive) {  // jdcoefct.c would smooth the blocks of an incomplete file
       for (const Component& c : comps)
@@ -706,22 +739,48 @@ struct Jpeg {
           if (c.coef_bits[k] != 0)
             fail("incomplete progressive JPEG (block smoothing is not supported)");
     }
-    // jdapimin.c default_decompress_parms.
-    bool ycc = comps.size() == 3;
-    if (ycc && !saw_jfif) {
-      if (saw_adobe) ycc = adobe_transform != 0;
-      else if (comps[0].id == 82 && comps[1].id == 71 && comps[2].id == 66) ycc = false;
+  }
+
+  // The tables a TIFF's JPEG streams share (libjpeg keeps them in its
+  // decompressor from one stream to the next).
+  void take_tables(const Jpeg& o) {
+    std::memcpy(qt, o.qt, sizeof qt);
+    std::memcpy(qt_defined, o.qt_defined, sizeof qt_defined);
+    for (int i = 0; i < 4; ++i) dc[i] = o.dc[i], ac[i] = o.ac[i];
+  }
+
+  // How the samples become colours, as libjpeg's jpeg_color_space: from
+  // the markers (jdapimin.c default_decompress_parms), none (JCS_UNKNOWN:
+  // the components as they are), or YCbCr.
+  enum class Colour { FromMarkers, None, YCbCr };
+
+  // The full-size planes converted as `colour` says, interleaved: 1 grey,
+  // 3 RGB, 4 CMYK (YCCK converted, not inverted); None keeps the samples.
+  std::vector<uint8_t> samples(Colour colour) {
+    const int nc = int(comps.size());
+    bool ycc = false;
+    if (colour == Colour::YCbCr) {
+      if (nc != 3) fail("corrupt JPEG: YCbCr with " + std::to_string(nc) + " components");
+      ycc = true;
+    } else if (colour == Colour::FromMarkers && nc == 3) {
+      ycc = true;
+      if (!saw_jfif) {
+        if (saw_adobe) ycc = adobe_transform != 0;
+        else if (comps[0].id == 82 && comps[1].id == 71 && comps[2].id == 66) ycc = false;
+      }
+    } else if (colour == Colour::FromMarkers && nc == 4) {
+      ycc = saw_adobe && adobe_transform != 0;  // YCCK, else CMYK
     }
-    Image img;
-    img.alloc(width, height, int64_t(comps.size()), comps.size() == 1 ? "L" : "RGB");
     std::vector<std::vector<uint8_t>> planes;
     for (Component& c : comps) planes.push_back(full_plane(c));
     const size_t npx = size_t(width) * height;
-    if (comps.size() == 1) {
-      std::memcpy(img.px.data(), planes[0].data(), npx);
-      return img;
+    std::vector<uint8_t> out(npx * size_t(nc));
+    if (!ycc) {
+      for (size_t i = 0; i < npx; ++i)
+        for (int k = 0; k < nc; ++k) out[i * size_t(nc) + size_t(k)] = planes[size_t(k)][i];
+      return out;
     }
-    // jdcolor.c build_ycc_rgb_table and ycc_rgb_convert.
+    // jdcolor.c build_ycc_rgb_table, ycc_rgb_convert and ycck_cmyk_convert.
     int cr_r[256], cb_b[256];
     int64_t cr_g[256], cb_g[256];
     constexpr int SB = 16;
@@ -734,17 +793,32 @@ struct Jpeg {
       cb_g[i] = -fix(0.34414) * x + HALF;
     }
     auto clamp8 = [](int v) { return uint8_t(v < 0 ? 0 : v > 255 ? 255 : v); };
-    uint8_t* o = img.px.data();
-    for (size_t i = 0; i < npx; ++i, o += 3) {
+    uint8_t* o = out.data();
+    for (size_t i = 0; i < npx; ++i, o += nc) {
       int y = planes[0][i], cb = planes[1][i], cr = planes[2][i];
-      if (!ycc) {
-        o[0] = uint8_t(y), o[1] = uint8_t(cb), o[2] = uint8_t(cr);
-        continue;
-      }
-      o[0] = clamp8(y + cr_r[cr]);
-      o[1] = clamp8(y + int((cb_g[cb] + cr_g[cr]) >> SB));
-      o[2] = clamp8(y + cb_b[cb]);
+      int rgb[3] = {y + cr_r[cr], y + int((cb_g[cb] + cr_g[cr]) >> SB), y + cb_b[cb]};
+      for (int k = 0; k < 3; ++k) o[k] = clamp8(nc == 4 ? 255 - rgb[k] : rgb[k]);
+      if (nc == 4) o[3] = planes[3][i];
     }
+    return out;
+  }
+
+  Image decode() {
+    read_stream(false);
+    const int nc = int(comps.size());
+    if (nc == 2) fail("JPEG with 2 components is not supported");
+    std::vector<uint8_t> px = samples(Colour::FromMarkers);
+    Image img;
+    if (nc != 4) {
+      img.alloc(width, height, nc, nc == 1 ? "L" : "RGB");
+      img.px = std::move(px);
+      return img;
+    }
+    // Pillow reads every CMYK JPEG with rawmode "CMYK;I" (Adobe's inverted
+    // samples), then convert("RGBA").
+    img.alloc(width, height, 4, "CMYK");
+    for (size_t i = 0; i < img.px.size(); i += 4)
+      cmyk_to_rgba(255 - px[i], 255 - px[i + 1], 255 - px[i + 2], 255 - px[i + 3], img.px.data() + i);
     return img;
   }
 };
@@ -1665,6 +1739,7 @@ Image pnm_decode(Bytes in) {
     if (!ok) fail("PFM scale must be finite and non-zero");
     in.need(pos, npx * 4, "PFM image data");
     img.alloc(w, h, 1, "F");
+    img.fl.resize(npx), img.fw = w, img.fh = h;
     for (int64_t y = 0; y < h; ++y)
       for (int64_t x = 0; x < w; ++x) {
         const uint8_t* s = in.p + pos + 4 * size_t((h - 1 - y) * w + x);
@@ -1672,6 +1747,7 @@ Image pnm_decode(Bytes in) {
                                         : uint32_t(s[3]) | uint32_t(s[2]) << 8 | uint32_t(s[1]) << 16 | uint32_t(s[0]) << 24;
         float f;
         std::memcpy(&f, &bitsv, 4);
+        img.fl[size_t(y * w + x)] = f;
         img.at(y, x)[0] = !(f > 0.0f) ? 0 : f >= 255.0f ? 255 : uint8_t(int(f));
       }
     return img;
@@ -1835,19 +1911,1035 @@ Image psd(Bytes in) {
         o[0] = (planes[0][size_t(y) * row + size_t(x >> 3)] >> (7 - (x & 7)) & 1) ? 255 : 0;
       } else if (paletted) {
         std::memcpy(o, pal.e[planes[0][i]], 4);
-      } else if (cmyk) {  // Convert.c cmyk2rgb on the inverted samples
-        const int nk = planes[3][i];  // 255 - (255 - stored)
-        for (int k = 0; k < 3; ++k) {
-          const int t = (255 - planes[size_t(k)][i]) * nk + 128;
-          o[k] = uint8_t(std::clamp(nk - (((t >> 8) + t) >> 8), 0, 255));
-        }
-        o[3] = 255;
+      } else if (cmyk) {  // stored inverted
+        cmyk_to_rgba(255 - planes[0][i], 255 - planes[1][i], 255 - planes[2][i], 255 - planes[3][i], o);
       } else {
         for (int k = 0; k < need; ++k) o[k] = planes[size_t(k)][i];
       }
     }
   return img;
 }
+
+// ---------------------------------------------------------------- TIFF ----
+
+// Deflate is inflated by the caller's zlib (this library links nothing):
+// inflate(src, n, dst, cap) writes at most cap bytes and returns how many,
+// or -1 if the stream is corrupt.
+using InflateFn = int64_t (*)(const uint8_t*, int64_t, uint8_t*, int64_t);
+
+namespace tiff {
+
+// Pillow's TiffImagePlugin.OPEN_INFO: (byte order, photometric, sample
+// format, fill order, bits per sample, extra samples) -> (mode, rawmode).
+struct OpenInfo {
+  bool mm;
+  int photo;
+  std::vector<int> fmt;
+  int fill;
+  std::vector<int> bps, extra;
+  const char *mode, *raw;
+};
+
+const std::vector<OpenInfo>& open_info() {
+  static const std::vector<OpenInfo> table = {
+  {false, 0, {1}, 1, {1}, {}, "1", "1;I"},
+  {true, 0, {1}, 1, {1}, {}, "1", "1;I"},
+  {false, 0, {1}, 2, {1}, {}, "1", "1;IR"},
+  {true, 0, {1}, 2, {1}, {}, "1", "1;IR"},
+  {false, 1, {1}, 1, {1}, {}, "1", "1"},
+  {true, 1, {1}, 1, {1}, {}, "1", "1"},
+  {false, 1, {1}, 2, {1}, {}, "1", "1;R"},
+  {true, 1, {1}, 2, {1}, {}, "1", "1;R"},
+  {false, 0, {1}, 1, {2}, {}, "L", "L;2I"},
+  {true, 0, {1}, 1, {2}, {}, "L", "L;2I"},
+  {false, 0, {1}, 2, {2}, {}, "L", "L;2IR"},
+  {true, 0, {1}, 2, {2}, {}, "L", "L;2IR"},
+  {false, 1, {1}, 1, {2}, {}, "L", "L;2"},
+  {true, 1, {1}, 1, {2}, {}, "L", "L;2"},
+  {false, 1, {1}, 2, {2}, {}, "L", "L;2R"},
+  {true, 1, {1}, 2, {2}, {}, "L", "L;2R"},
+  {false, 0, {1}, 1, {4}, {}, "L", "L;4I"},
+  {true, 0, {1}, 1, {4}, {}, "L", "L;4I"},
+  {false, 0, {1}, 2, {4}, {}, "L", "L;4IR"},
+  {true, 0, {1}, 2, {4}, {}, "L", "L;4IR"},
+  {false, 1, {1}, 1, {4}, {}, "L", "L;4"},
+  {true, 1, {1}, 1, {4}, {}, "L", "L;4"},
+  {false, 1, {1}, 2, {4}, {}, "L", "L;4R"},
+  {true, 1, {1}, 2, {4}, {}, "L", "L;4R"},
+  {false, 0, {1}, 1, {8}, {}, "L", "L;I"},
+  {true, 0, {1}, 1, {8}, {}, "L", "L;I"},
+  {false, 0, {1}, 2, {8}, {}, "L", "L;IR"},
+  {true, 0, {1}, 2, {8}, {}, "L", "L;IR"},
+  {false, 1, {1}, 1, {8}, {}, "L", "L"},
+  {true, 1, {1}, 1, {8}, {}, "L", "L"},
+  {false, 1, {2}, 1, {8}, {}, "L", "L"},
+  {true, 1, {2}, 1, {8}, {}, "L", "L"},
+  {false, 1, {1}, 2, {8}, {}, "L", "L;R"},
+  {true, 1, {1}, 2, {8}, {}, "L", "L;R"},
+  {false, 1, {1}, 1, {12}, {}, "I;16", "I;12"},
+  {false, 0, {1}, 1, {16}, {}, "I;16", "I;16"},
+  {false, 1, {1}, 1, {16}, {}, "I;16", "I;16"},
+  {true, 1, {1}, 1, {16}, {}, "I;16B", "I;16B"},
+  {false, 1, {1}, 2, {16}, {}, "I;16", "I;16R"},
+  {false, 1, {2}, 1, {16}, {}, "I", "I;16S"},
+  {true, 1, {2}, 1, {16}, {}, "I", "I;16BS"},
+  {false, 0, {3}, 1, {32}, {}, "F", "F;32F"},
+  {true, 0, {3}, 1, {32}, {}, "F", "F;32BF"},
+  {false, 1, {1}, 1, {32}, {}, "I", "I;32N"},
+  {false, 1, {2}, 1, {32}, {}, "I", "I;32S"},
+  {true, 1, {2}, 1, {32}, {}, "I", "I;32BS"},
+  {false, 1, {3}, 1, {32}, {}, "F", "F;32F"},
+  {true, 1, {3}, 1, {32}, {}, "F", "F;32BF"},
+  {false, 1, {1}, 1, {8, 8}, {2}, "LA", "LA"},
+  {true, 1, {1}, 1, {8, 8}, {2}, "LA", "LA"},
+  {false, 2, {1}, 1, {8, 8, 8}, {}, "RGB", "RGB"},
+  {true, 2, {1}, 1, {8, 8, 8}, {}, "RGB", "RGB"},
+  {false, 2, {1}, 2, {8, 8, 8}, {}, "RGB", "RGB;R"},
+  {true, 2, {1}, 2, {8, 8, 8}, {}, "RGB", "RGB;R"},
+  {false, 2, {1}, 1, {8, 8, 8, 8}, {}, "RGBA", "RGBA"},
+  {true, 2, {1}, 1, {8, 8, 8, 8}, {}, "RGBA", "RGBA"},
+  {false, 2, {1}, 1, {8, 8, 8, 8}, {0}, "RGB", "RGBX"},
+  {true, 2, {1}, 1, {8, 8, 8, 8}, {0}, "RGB", "RGBX"},
+  {false, 2, {1}, 1, {8, 8, 8, 8, 8}, {0, 0}, "RGB", "RGBXX"},
+  {true, 2, {1}, 1, {8, 8, 8, 8, 8}, {0, 0}, "RGB", "RGBXX"},
+  {false, 2, {1}, 1, {8, 8, 8, 8, 8, 8}, {0, 0, 0}, "RGB", "RGBXXX"},
+  {true, 2, {1}, 1, {8, 8, 8, 8, 8, 8}, {0, 0, 0}, "RGB", "RGBXXX"},
+  {false, 2, {1}, 1, {8, 8, 8, 8}, {1}, "RGBA", "RGBa"},
+  {true, 2, {1}, 1, {8, 8, 8, 8}, {1}, "RGBA", "RGBa"},
+  {false, 2, {1}, 1, {8, 8, 8, 8, 8}, {1, 0}, "RGBA", "RGBaX"},
+  {true, 2, {1}, 1, {8, 8, 8, 8, 8}, {1, 0}, "RGBA", "RGBaX"},
+  {false, 2, {1}, 1, {8, 8, 8, 8, 8, 8}, {1, 0, 0}, "RGBA", "RGBaXX"},
+  {true, 2, {1}, 1, {8, 8, 8, 8, 8, 8}, {1, 0, 0}, "RGBA", "RGBaXX"},
+  {false, 2, {1}, 1, {8, 8, 8, 8}, {2}, "RGBA", "RGBA"},
+  {true, 2, {1}, 1, {8, 8, 8, 8}, {2}, "RGBA", "RGBA"},
+  {false, 2, {1}, 1, {8, 8, 8, 8, 8}, {2, 0}, "RGBA", "RGBAX"},
+  {true, 2, {1}, 1, {8, 8, 8, 8, 8}, {2, 0}, "RGBA", "RGBAX"},
+  {false, 2, {1}, 1, {8, 8, 8, 8, 8, 8}, {2, 0, 0}, "RGBA", "RGBAXX"},
+  {true, 2, {1}, 1, {8, 8, 8, 8, 8, 8}, {2, 0, 0}, "RGBA", "RGBAXX"},
+  {false, 2, {1}, 1, {8, 8, 8, 8}, {999}, "RGBA", "RGBA"},
+  {true, 2, {1}, 1, {8, 8, 8, 8}, {999}, "RGBA", "RGBA"},
+  {false, 2, {1}, 1, {16, 16, 16}, {}, "RGB", "RGB;16L"},
+  {true, 2, {1}, 1, {16, 16, 16}, {}, "RGB", "RGB;16B"},
+  {false, 2, {1}, 1, {16, 16, 16, 16}, {}, "RGBA", "RGBA;16L"},
+  {true, 2, {1}, 1, {16, 16, 16, 16}, {}, "RGBA", "RGBA;16B"},
+  {false, 2, {1}, 1, {16, 16, 16, 16}, {0}, "RGB", "RGBX;16L"},
+  {true, 2, {1}, 1, {16, 16, 16, 16}, {0}, "RGB", "RGBX;16B"},
+  {false, 2, {1}, 1, {16, 16, 16, 16}, {1}, "RGBA", "RGBa;16L"},
+  {true, 2, {1}, 1, {16, 16, 16, 16}, {1}, "RGBA", "RGBa;16B"},
+  {false, 2, {1}, 1, {16, 16, 16, 16}, {2}, "RGBA", "RGBA;16L"},
+  {true, 2, {1}, 1, {16, 16, 16, 16}, {2}, "RGBA", "RGBA;16B"},
+  {false, 3, {1}, 1, {1}, {}, "P", "P;1"},
+  {true, 3, {1}, 1, {1}, {}, "P", "P;1"},
+  {false, 3, {1}, 2, {1}, {}, "P", "P;1R"},
+  {true, 3, {1}, 2, {1}, {}, "P", "P;1R"},
+  {false, 3, {1}, 1, {2}, {}, "P", "P;2"},
+  {true, 3, {1}, 1, {2}, {}, "P", "P;2"},
+  {false, 3, {1}, 2, {2}, {}, "P", "P;2R"},
+  {true, 3, {1}, 2, {2}, {}, "P", "P;2R"},
+  {false, 3, {1}, 1, {4}, {}, "P", "P;4"},
+  {true, 3, {1}, 1, {4}, {}, "P", "P;4"},
+  {false, 3, {1}, 2, {4}, {}, "P", "P;4R"},
+  {true, 3, {1}, 2, {4}, {}, "P", "P;4R"},
+  {false, 3, {1}, 1, {8}, {}, "P", "P"},
+  {true, 3, {1}, 1, {8}, {}, "P", "P"},
+  {false, 3, {1}, 1, {8, 8}, {0}, "P", "PX"},
+  {true, 3, {1}, 1, {8, 8}, {0}, "P", "PX"},
+  {false, 3, {1}, 1, {8, 8}, {2}, "PA", "PA"},
+  {true, 3, {1}, 1, {8, 8}, {2}, "PA", "PA"},
+  {false, 3, {1}, 2, {8}, {}, "P", "P;R"},
+  {true, 3, {1}, 2, {8}, {}, "P", "P;R"},
+  {false, 5, {1}, 1, {8, 8, 8, 8}, {}, "CMYK", "CMYK"},
+  {true, 5, {1}, 1, {8, 8, 8, 8}, {}, "CMYK", "CMYK"},
+  {false, 5, {1}, 1, {8, 8, 8, 8, 8}, {0}, "CMYK", "CMYKX"},
+  {true, 5, {1}, 1, {8, 8, 8, 8, 8}, {0}, "CMYK", "CMYKX"},
+  {false, 5, {1}, 1, {8, 8, 8, 8, 8, 8}, {0, 0}, "CMYK", "CMYKXX"},
+  {true, 5, {1}, 1, {8, 8, 8, 8, 8, 8}, {0, 0}, "CMYK", "CMYKXX"},
+  {false, 5, {1}, 1, {16, 16, 16, 16}, {}, "CMYK", "CMYK;16L"},
+  {true, 5, {1}, 1, {16, 16, 16, 16}, {}, "CMYK", "CMYK;16B"},
+  {false, 6, {1}, 1, {8}, {}, "L", "L"},
+  {true, 6, {1}, 1, {8}, {}, "L", "L"},
+  {false, 6, {1}, 1, {8, 8, 8}, {}, "RGB", "RGBX"},
+  {true, 6, {1}, 1, {8, 8, 8}, {}, "RGB", "RGBX"},
+  {false, 8, {1}, 1, {8, 8, 8}, {}, "LAB", "LAB"},
+  {true, 8, {1}, 1, {8, 8, 8}, {}, "LAB", "LAB"},
+  };
+  return table;
+}
+
+uint8_t rev8(uint8_t b) {
+  b = uint8_t((b & 0xF0) >> 4 | (b & 0x0F) << 4);
+  b = uint8_t((b & 0xCC) >> 2 | (b & 0x33) << 2);
+  return uint8_t((b & 0xAA) >> 1 | (b & 0x55) << 1);
+}
+
+int bands_of(const std::string& mode) {
+  if (mode == "LA" || mode == "PA") return 2;
+  if (mode == "RGB" || mode == "LAB") return 3;
+  if (mode == "RGBA" || mode == "CMYK") return 4;
+  return 1;
+}
+
+// The bits a pixel of `raw` takes (Pillow's unpacker table), 0 if Pillow
+// has no unpacker of that rawmode for `mode`.
+int raw_bits(const std::string& mode, const std::string& raw) {
+  if (raw.size() == 1) {  // a band of a planar image
+    const size_t b = mode == "1" || mode == "L" || mode == "P" || mode == "I" || mode == "F" ? mode.find(raw[0])
+                     : mode == "RGB" || mode == "RGBA" || mode == "CMYK" ? mode.find(raw[0]) : std::string::npos;
+    if (b == std::string::npos) return 0;
+    return mode == "1" ? 1 : mode == "I" || mode == "F" ? 32 : 8;
+  }
+  static const struct { const char *mode, *raw; int bits; } kRaw[] = {
+      {"1", "1;I", 1}, {"1", "1;IR", 1}, {"1", "1;R", 1},
+      {"L", "L;2", 2}, {"L", "L;2I", 2}, {"L", "L;2R", 2}, {"L", "L;2IR", 2},
+      {"L", "L;4", 4}, {"L", "L;4I", 4}, {"L", "L;4R", 4}, {"L", "L;4IR", 4},
+      {"L", "L;I", 8}, {"L", "L;R", 8},
+      {"I;16", "I;16", 16}, {"I;16", "I;16N", 16}, {"I;16", "I;16R", 16}, {"I;16B", "I;16B", 16},
+      {"I;16B", "I;16N", 16},
+      {"I", "I;16S", 16}, {"I", "I;16BS", 16}, {"I", "I;32N", 32}, {"I", "I;32S", 32}, {"I", "I;32BS", 32},
+      {"F", "F;32F", 32}, {"F", "F;32BF", 32},
+      {"LA", "LA", 16}, {"PA", "PA", 16},
+      {"P", "P;1", 1}, {"P", "P;2", 2}, {"P", "P;4", 4}, {"P", "P;R", 8}, {"P", "PX", 16},
+      {"RGB", "RGB;R", 24}, {"RGB", "RGBX", 32}, {"RGB", "RGBXX", 40}, {"RGB", "RGBXXX", 48},
+      {"RGB", "RGB;16L", 48}, {"RGB", "RGB;16B", 48}, {"RGB", "RGB;16N", 48},
+      {"RGB", "RGBX;16L", 64}, {"RGB", "RGBX;16B", 64}, {"RGB", "RGBX;16N", 64},
+      {"RGBA", "RGBA", 32}, {"RGBA", "RGBa", 32}, {"RGBA", "RGBAX", 40}, {"RGBA", "RGBaX", 40},
+      {"RGBA", "RGBAXX", 48}, {"RGBA", "RGBaXX", 48},
+      {"RGBA", "RGBA;16L", 64}, {"RGBA", "RGBA;16B", 64}, {"RGBA", "RGBA;16N", 64},
+      {"RGBA", "RGBa;16L", 64}, {"RGBA", "RGBa;16B", 64}, {"RGBA", "RGBa;16N", 64},
+      {"CMYK", "CMYK", 32}, {"CMYK", "CMYKX", 40}, {"CMYK", "CMYKXX", 48},
+      {"CMYK", "CMYK;16L", 64}, {"CMYK", "CMYK;16B", 64}, {"CMYK", "CMYK;16N", 64},
+      {"LAB", "LAB", 24}};
+  if (raw == mode && (mode == "L" || mode == "P" || mode == "RGB")) return mode == "RGB" ? 24 : 8;
+  for (const auto& r : kRaw)
+    if (mode == r.mode && raw == r.raw) return r.bits;
+  return 0;
+}
+
+// Pillow's unpackRGBa: premultiplied alpha divided out.
+void unpremultiply(uint32_t* o) {
+  const uint32_t a = o[3];
+  if (a == 0) {
+    o[0] = o[1] = o[2] = 0;
+  } else if (a != 255) {
+    for (int k = 0; k < 3; ++k) o[k] = std::min<uint32_t>(255, o[k] * 255 / a);
+  }
+}
+
+// Unpacks n pixels of `raw` from `in` into out (`bands` values a pixel:
+// bytes, 16-bit samples, int32 or float32 bits by the mode), as Pillow's
+// unpacker of that name does; a one-letter rawmode fills one band.
+void unpack(const std::string& mode, const std::string& raw, const uint8_t* in, int64_t n, uint32_t* out,
+            int bands) {
+  auto le16 = [&](size_t o) { return uint32_t(in[o]) | uint32_t(in[o + 1]) << 8; };
+  auto be16 = [&](size_t o) { return uint32_t(in[o]) << 8 | in[o + 1]; };
+  auto le32 = [&](size_t o) { return le16(o) | le16(o + 2) << 16; };
+  auto be32 = [&](size_t o) { return be16(o) << 16 | be16(o + 2); };
+  auto sub = [&](int64_t i, int nb, bool rev) {
+    const size_t bit = size_t(i) * size_t(nb);
+    const uint8_t byte = rev ? rev8(in[bit >> 3]) : in[bit >> 3];
+    return uint32_t(byte >> (8 - nb - int(bit & 7))) & ((1u << nb) - 1);
+  };
+  if (raw.size() == 1) {
+    const int b = int(mode.find(raw[0]));
+    for (int64_t i = 0; i < n; ++i) {
+      uint32_t v = mode == "1" ? (sub(i, 1, false) ? 255 : 0) : mode == "I" || mode == "F" ? le32(size_t(4 * i)) : in[i];
+      out[size_t(i) * size_t(bands) + size_t(b)] = v;
+    }
+    return;
+  }
+  const bool rev = raw.size() > 1 && raw.back() == 'R' && raw != "I;16R" && raw.find(';') != std::string::npos;
+  const bool inv = raw.find(";I") != std::string::npos || raw.find(";2I") != std::string::npos ||
+                   raw.find(";4I") != std::string::npos;
+  if (mode == "1") {
+    for (int64_t i = 0; i < n; ++i) out[i] = (sub(i, 1, rev) != 0) != inv ? 255 : 0;
+  } else if (mode == "L") {
+    const int nb = raw.compare(0, 3, "L;2") == 0 ? 2 : raw.compare(0, 3, "L;4") == 0 ? 4 : 8;
+    const uint32_t scale = nb == 2 ? 85 : nb == 4 ? 17 : 1;
+    for (int64_t i = 0; i < n; ++i) {
+      const uint32_t v = (nb == 8 ? uint32_t(rev ? rev8(in[i]) : in[i]) : sub(i, nb, rev)) * scale;
+      out[i] = inv ? 255 - v : v;
+    }
+  } else if (mode == "P") {
+    const int nb = raw == "P;1" ? 1 : raw == "P;2" ? 2 : raw == "P;4" ? 4 : 8;
+    for (int64_t i = 0; i < n; ++i)
+      out[i] = raw == "PX" ? in[2 * i] : nb == 8 ? (rev ? rev8(in[i]) : in[i]) : sub(i, nb, false);
+  } else if (mode == "LA" || mode == "PA") {
+    for (int64_t i = 0; i < 2 * n; ++i) out[i] = in[i];
+  } else if (mode == "I;16" || mode == "I;16B") {
+    for (int64_t i = 0; i < n; ++i) {
+      const size_t o = size_t(2 * i);
+      out[i] = raw == "I;16B" ? be16(o) : raw == "I;16R" ? uint32_t(rev8(in[o])) | uint32_t(rev8(in[o + 1])) << 8
+                                                           : le16(o);
+    }
+  } else if (mode == "I") {
+    for (int64_t i = 0; i < n; ++i) {
+      if (raw == "I;16S") out[i] = uint32_t(int32_t(int16_t(le16(size_t(2 * i)))));
+      else if (raw == "I;16BS") out[i] = uint32_t(int32_t(int16_t(be16(size_t(2 * i)))));
+      else out[i] = raw == "I;32BS" ? be32(size_t(4 * i)) : le32(size_t(4 * i));
+    }
+  } else if (mode == "F") {
+    for (int64_t i = 0; i < n; ++i) out[i] = raw == "F;32BF" ? be32(size_t(4 * i)) : le32(size_t(4 * i));
+  } else {  // RGB, RGBA, CMYK, LAB: bytes or the high bytes of 16-bit samples
+    const bool wide = raw.find(";16") != std::string::npos;
+    const bool big = wide && raw.back() == 'B';
+    const int step = raw_bits(mode, raw) / 8, take = bands_of(mode);
+    const bool premultiplied = raw.compare(0, 4, "RGBa") == 0;
+    for (int64_t i = 0; i < n; ++i) {
+      const uint8_t* p = in + size_t(i) * size_t(step);
+      uint32_t* o = out + size_t(i) * size_t(take);
+      for (int k = 0; k < take; ++k) o[k] = wide ? p[2 * k + (big ? 0 : 1)] : rev ? rev8(p[k]) : p[k];
+      if (premultiplied) unpremultiply(o);
+    }
+  }
+}
+
+struct Field {
+  int type = 0;
+  uint64_t count = 0;
+  size_t off = 0;
+};
+
+constexpr int kTypeSize[17] = {0, 1, 1, 2, 4, 8, 1, 1, 2, 4, 8, 4, 8, 4, 0, 0, 8};  // Pillow's types
+
+// The first image file directory, read as Pillow's ImageFileDirectory_v2
+// reads it: a tag of a type it does not know or without values is left
+// out; reading stops (keeping the tags before) at a truncated entry or at
+// values outside the file; a later tag of the same number replaces an
+// earlier.  `clean` is false if anything was left out or cut short: the
+// libtiff path, which reads the directory again with its own checks,
+// refuses such a file.
+struct Dir {
+  Bytes in;
+  bool mm = false, big = false, libtiff_header = false, clean = true;
+  std::map<int, Field> tags;
+
+  uint64_t u(size_t o, int k) const {
+    in.need(o, size_t(k), "TIFF file");
+    uint64_t v = 0;
+    for (int i = 0; i < k; ++i) v = mm ? v << 8 | in.p[o + size_t(i)] : v | uint64_t(in.p[o + size_t(i)]) << (8 * i);
+    return v;
+  }
+  bool has(int tag) const { return tags.count(tag) != 0; }
+  int64_t at(const Field& f, uint64_t i, const char* name) const {
+    switch (f.type) {
+      case 1: case 7: return int64_t(u(f.off + i, 1));
+      case 6: return int64_t(int8_t(u(f.off + i, 1)));
+      case 3: return int64_t(u(f.off + 2 * i, 2));
+      case 8: return int64_t(int16_t(u(f.off + 2 * i, 2)));
+      case 4: case 13: return int64_t(u(f.off + 4 * i, 4));
+      case 9: return int64_t(int32_t(u(f.off + 4 * i, 4)));
+      case 16: return int64_t(u(f.off + 8 * i, 8));
+      default: fail(std::string("TIFF tag ") + name + " does not hold integers");
+    }
+  }
+  bool scalar(int tag, int64_t& v, const char* name) const {
+    auto it = tags.find(tag);
+    if (it == tags.end()) return false;
+    v = at(it->second, 0, name);
+    return true;
+  }
+  int64_t get(int tag, int64_t dflt, const char* name) const {
+    int64_t v = dflt;
+    scalar(tag, v, name);
+    return v;
+  }
+  std::vector<int64_t> ints(int tag, std::vector<int64_t> dflt, const char* name) const {
+    auto it = tags.find(tag);
+    if (it == tags.end()) return dflt;
+    std::vector<int64_t> v(size_t(it->second.count));
+    for (uint64_t i = 0; i < it->second.count; ++i) v[size_t(i)] = at(it->second, i, name);
+    return v;
+  }
+  // libtiff's float of a RATIONAL, FLOAT or integer value.
+  float real(int tag, uint64_t i) const {
+    const Field& f = tags.at(tag);
+    if (i >= f.count) fail("TIFF tag " + std::to_string(tag) + " has too few values");
+    switch (f.type) {
+      case 5: return float(double(u(f.off + 8 * i, 4)) / double(u(f.off + 8 * i + 4, 4)));
+      case 10: return float(double(int32_t(u(f.off + 8 * i, 4))) / double(int32_t(u(f.off + 8 * i + 4, 4))));
+      case 11: { uint32_t b = uint32_t(u(f.off + 4 * i, 4)); float x; std::memcpy(&x, &b, 4); return x; }
+      case 12: { uint64_t b = u(f.off + 8 * i, 8); double x; std::memcpy(&x, &b, 8); return float(x); }
+      default: return float(at(f, i, "ReferenceBlackWhite"));
+    }
+  }
+
+  explicit Dir(Bytes b) : in(b) {
+    if (in.n < 8) fail("truncated TIFF header");
+    mm = in.p[0] == 'M';
+    big = in.p[2] == 43;
+    const uint16_t magic = uint16_t(u(2, 2));
+    libtiff_header = magic == 42 || magic == 43;
+    if (mm && in.p[2] == 0 && in.p[3] == 43)
+      fail("big-endian BigTIFF is not supported (Pillow reads its header as a classic TIFF's)");
+    const uint64_t first = big ? u(8, 8) : u(4, 4);
+    const size_t esz = big ? 20 : 12, slot = big ? 8 : 4;
+    if (first >= in.n) fail("truncated TIFF: the first directory lies outside the file");
+    size_t pos = size_t(first);
+    if (pos > in.n || in.n - pos < (big ? 8u : 2u)) fail("TIFF without dimensions");
+    const uint64_t n = big ? u(pos, 8) : u(pos, 2);
+    pos += big ? 8 : 2;
+    for (uint64_t i = 0; i < n; ++i, pos += esz) {
+      if (pos > in.n || in.n - pos < esz) {
+        clean = false;  // _ensure_read fails: the directory ends here
+        break;
+      }
+      Field f;
+      const int tag = int(u(pos, 2));
+      f.type = int(u(pos + 2, 2));
+      f.count = big ? u(pos + 4, 8) : u(pos + 4, 4);
+      const size_t val = pos + (big ? 12 : 8);
+      if (f.type < 1 || f.type > 16 || kTypeSize[f.type] == 0) {
+        clean = false;
+        continue;
+      }
+      const uint64_t size = f.count > in.n ? in.n + 1 : f.count * uint64_t(kTypeSize[f.type]);
+      if (size > slot) {
+        const uint64_t off = u(val, int(slot));
+        if (off > in.n || size > in.n - off) {
+          clean = false;  // _safe_read raises: the directory ends here
+          break;
+        }
+        f.off = size_t(off);
+      } else {
+        f.off = val;
+      }
+      // libtiff reads these as one value each and refuses another count.
+      if (f.count != 1 && (tag == 256 || tag == 257 || tag == 277 || tag == 278 || tag == 284 || tag == 322 ||
+                           tag == 323))
+        clean = false;
+      if (f.count) tags[tag] = f;
+    }
+    if (pos > in.n || in.n - pos < slot) clean = false;  // no next-directory pointer
+  }
+};
+
+const char* compression_name(int64_t c) {
+  switch (c) {
+    case 2: return "CCITT RLE (2)";
+    case 3: return "CCITT Group 3 fax (3)";
+    case 4: return "CCITT Group 4 fax (4)";
+    case 6: return "old-style JPEG (6)";
+    case 32771: return "raw 16-bit padded (32771)";
+    case 32809: return "ThunderScan (32809)";
+    case 34676: return "SGILog (34676)";
+    case 34677: return "SGILog24 (34677)";
+    case 34925: return "LZMA (34925)";
+    case 50000: return "ZSTD (50000)";
+    case 50001: return "WebP (50001)";
+    default: return nullptr;
+  }
+}
+
+// libtiff's PackBitsDecode of one segment into `need` bytes.
+std::vector<uint8_t> unpackbits(Bytes src, size_t need) {
+  std::vector<uint8_t> out(need);
+  size_t cc = src.n, occ = need, ip = 0, op = 0;
+  while (cc > 0 && occ > 0) {
+    int n = int(int8_t(src.p[ip++]));
+    --cc;
+    if (n < 0) {
+      if (n == -128) continue;
+      size_t k = size_t(-n + 1);
+      if (occ < k) k = occ;  // "Discarding bytes to avoid buffer overrun"
+      if (cc == 0) break;
+      occ -= k;
+      const uint8_t b = src.p[ip++];
+      --cc;
+      std::memset(out.data() + op, b, k);
+      op += k;
+    } else {
+      const size_t k = std::min(size_t(n) + 1, occ);
+      if (cc < k) break;
+      std::memcpy(out.data() + op, src.p + ip, k);
+      op += k, occ -= k, ip += k, cc -= k;
+    }
+  }
+  if (occ > 0) fail("not enough PackBits data in a TIFF strip or tile");
+  return out;
+}
+
+// libtiff's LZWDecode (codes most significant bit first, 9 to 12 bits,
+// each width one code early) of one segment into `need` bytes.
+std::vector<uint8_t> unlzw(Bytes src, size_t need) {
+  if (src.n >= 2 && src.p[0] == 0 && (src.p[1] & 1))
+    fail("old-style (LSB-first) TIFF LZW is not supported");
+  struct Code { int next; uint16_t length; uint8_t value, first; };
+  constexpr int kClear = 256, kEoi = 257, kFirst = 258, kSize = 4095 + 1024;
+  std::vector<Code> tab(kSize);
+  for (int i = 0; i < 256; ++i) tab[size_t(i)] = Code{-1, 1, uint8_t(i), uint8_t(i)};
+  std::vector<uint8_t> out(need);
+  size_t op = 0, bitpos = 0;
+  const size_t nbits_total = src.n * 8;
+  int nbits = 9, free_ent = kFirst, maxcode = 510, old = -1;
+  auto next_code = [&]() -> int {
+    if (nbits_total - std::min(bitpos, nbits_total) < size_t(nbits)) return kEoi;  // no EOI: stop
+    int v = 0;
+    for (int k = 0; k < nbits; ++k, ++bitpos) v = v << 1 | (src.p[bitpos >> 3] >> (7 - (bitpos & 7)) & 1);
+    return v;
+  };
+  auto emit = [&](int code) {  // the string of `code`, cut at the end of the segment
+    const size_t len = tab[size_t(code)].length;
+    size_t k = len;
+    int c = code;
+    while (k > need - op) c = tab[size_t(c)].next, --k;  // skip the tail that does not fit
+    for (size_t j = k; j > 0; --j) {
+      out[op + j - 1] = tab[size_t(c)].value;
+      c = tab[size_t(c)].next;
+    }
+    op += k;
+  };
+  while (op < need) {
+    int code = next_code();
+    if (code == kEoi) break;
+    if (code == kClear) {
+      do {
+        for (int i = kFirst; i < kSize; ++i) tab[size_t(i)].length = 0;
+        free_ent = kFirst, nbits = 9, maxcode = 510;
+        code = next_code();
+      } while (code == kClear);
+      if (code == kEoi) break;
+      if (code > kClear) fail("corrupt TIFF LZW data: bad first code");
+      out[op++] = uint8_t(code);
+      old = code;
+      continue;
+    }
+    if (old < 0) fail("corrupt TIFF LZW data: no clear code first");
+    if (free_ent >= kSize) fail("corrupt TIFF LZW data: table overflow");
+    Code& e = tab[size_t(free_ent)];
+    e.next = old;
+    e.first = tab[size_t(old)].first;
+    e.length = uint16_t(tab[size_t(old)].length + 1);
+    e.value = code < free_ent ? tab[size_t(code)].first : e.first;
+    if (++free_ent > maxcode) {
+      nbits = std::min(nbits + 1, 12);
+      maxcode = (1 << nbits) - 2;
+    }
+    old = code;
+    if (tab[size_t(code)].length == 0) fail("corrupt TIFF LZW data: a code not yet defined");
+    emit(code);
+  }
+  if (op < need) fail("not enough LZW data in a TIFF strip or tile");
+  return out;
+}
+
+// libtiff's TIFFYCbCrToRGBInit tables and TIFFYCbCrtoRGB (tif_color.c), in
+// its float arithmetic.
+struct YCbCr {
+  int32_t cr_r[256], cb_b[256], cr_g[256], cb_g[256], y_tab[256];
+
+  YCbCr(const float luma[3], const float rbw[6]) {
+    auto fix = [](float x) { return int32_t(double(x * float(1L << 16)) + 0.5); };
+    auto clampf = [](float f, float lo, float hi) { return f < lo ? lo : f > hi ? hi : f; };
+    auto clampw = [](float f, float lo, float hi) { return !(f >= lo) ? lo : f > hi ? hi : f; };
+    auto code2v = [](int32_t c, float rb, float rw, float cr) {
+      return float(c - int32_t(rb)) * cr / (rw - rb != 0 ? rw - rb : 1.0f);
+    };
+    const float f1 = 2 - 2 * luma[0];
+    const int32_t d1 = fix(clampf(f1, 0.0f, 2.0f));
+    const float f2 = luma[0] * f1 / luma[1];
+    const int32_t d2 = -fix(clampf(f2, 0.0f, 2.0f));
+    const float f3 = 2 - 2 * luma[2];
+    const int32_t d3 = fix(clampf(f3, 0.0f, 2.0f));
+    const float f4 = luma[2] * f3 / luma[1];
+    const int32_t d4 = -fix(clampf(f4, 0.0f, 2.0f));
+    for (int i = 0, x = -128; i < 256; ++i, ++x) {
+      const int32_t cr = int32_t(clampw(code2v(x, rbw[4] - 128.0f, rbw[5] - 128.0f, 127), -128.0f * 32, 128.0f * 32));
+      const int32_t cb = int32_t(clampw(code2v(x, rbw[2] - 128.0f, rbw[3] - 128.0f, 127), -128.0f * 32, 128.0f * 32));
+      cr_r[i] = (d1 * cr + (1 << 15)) >> 16;
+      cb_b[i] = (d3 * cb + (1 << 15)) >> 16;
+      cr_g[i] = d2 * cr;
+      cb_g[i] = d4 * cb + (1 << 15);
+      y_tab[i] = int32_t(clampw(code2v(x + 128, rbw[0], rbw[1], 255), -128.0f * 32, 128.0f * 32));
+    }
+  }
+  void rgb(int y, int cb, int cr, uint32_t* o) const {
+    auto c8 = [](int32_t v) { return uint32_t(v < 0 ? 0 : v > 255 ? 255 : v); };
+    o[0] = c8(y_tab[y] + cr_r[cr]);
+    o[1] = c8(y_tab[y] + ((cb_g[cb] + cr_g[cr]) >> 16));
+    o[2] = c8(y_tab[y] + cb_b[cb]);
+  }
+};
+
+// A TIFF as Pillow holds it before convert: `bands` values a pixel.
+struct Raster {
+  int64_t w = 0, h = 0;
+  int bands = 1;
+  std::vector<uint32_t> v;
+  uint32_t* at(int64_t y, int64_t x) { return v.data() + (size_t(y) * size_t(w) + size_t(x)) * size_t(bands); }
+};
+
+// ImageOps.exif_transpose for Orientation 2-8 (load_end applies it).
+Raster transpose(Raster& r, int64_t orientation) {
+  if (orientation < 2 || orientation > 8) return std::move(r);
+  const bool swap = orientation >= 5;
+  Raster o;
+  o.w = swap ? r.h : r.w, o.h = swap ? r.w : r.h, o.bands = r.bands;
+  o.v.resize(r.v.size());
+  for (int64_t y = 0; y < o.h; ++y)
+    for (int64_t x = 0; x < o.w; ++x) {
+      int64_t sy = y, sx = x;
+      switch (orientation) {
+        case 2: sx = r.w - 1 - x; break;                       // FLIP_LEFT_RIGHT
+        case 3: sy = r.h - 1 - y, sx = r.w - 1 - x; break;     // ROTATE_180
+        case 4: sy = r.h - 1 - y; break;                       // FLIP_TOP_BOTTOM
+        case 5: sy = x, sx = y; break;                         // TRANSPOSE
+        case 6: sy = r.h - 1 - x, sx = y; break;               // ROTATE_270
+        case 7: sy = r.h - 1 - x, sx = r.w - 1 - y; break;     // TRANSVERSE
+        case 8: sy = x, sx = r.w - 1 - y; break;               // ROTATE_90
+      }
+      std::memcpy(o.at(y, x), r.at(sy, sx), size_t(r.bands) * 4);
+    }
+  return o;
+}
+
+const OpenInfo* find_mode(bool mm, int64_t photo, const std::vector<int64_t>& fmt, int64_t fill,
+                          const std::vector<int64_t>& bps, const std::vector<int64_t>& extra) {
+  auto same = [](const std::vector<int>& a, const std::vector<int64_t>& b) {
+    return a.size() == b.size() && std::equal(a.begin(), a.end(), b.begin());
+  };
+  for (const OpenInfo& k : open_info())
+    if (k.mm == mm && k.photo == photo && same(k.fmt, fmt) && k.fill == fill && same(k.bps, bps) &&
+        same(k.extra, extra))
+      return &k;
+  return nullptr;
+}
+
+// One JPEG strip or tile (compression 7) as libtiff's JPEG codec gives it:
+// interleaved 8-bit samples, `rows` x `cols` of them.  Its first
+// component must be sampled (h0, v0) (-1: the first stream's, which
+// JPEGFixupTags reads when no YCbCrSubsampling tag gives it), the others
+// 1 x 1.
+std::vector<uint8_t> jpeg_segment(Bytes seg, Jpeg& tables, Jpeg::Colour colour, int64_t cols, int64_t rows,
+                                  bool last_strip, int spp, int64_t& h0, int64_t& v0) {
+  Jpeg j(seg);
+  j.take_tables(tables);
+  j.read_stream(false);
+  tables.take_tables(j);
+  if (int(j.comps.size()) != spp) fail("TIFF JPEG segment has the wrong number of components");
+  if (h0 < 0) h0 = j.comps[0].h, v0 = j.comps[0].v;
+  if (j.comps[0].h != h0 || j.comps[0].v != v0) fail("TIFF JPEG segment has improper sampling factors");
+  for (size_t i = 1; i < j.comps.size(); ++i)
+    if (j.comps[i].h != 1 || j.comps[i].v != 1) fail("TIFF JPEG segment has improper sampling factors");
+  if (j.width != cols || (j.height != rows && !(last_strip && j.height > rows)))
+    fail("TIFF JPEG strip or tile of " + std::to_string(j.width) + "x" + std::to_string(j.height) +
+         ", expected " + std::to_string(cols) + "x" + std::to_string(rows));
+  std::vector<uint8_t> px = j.samples(colour);
+  px.resize(size_t(cols) * size_t(rows) * size_t(spp));
+  return px;
+}
+
+Image decode(Bytes in, InflateFn inflate) {
+  Dir d(in);
+  if (d.has(0xBC01)) fail("Windows Media Photo in a TIFF is not supported");
+  int64_t w = 0, h = 0;
+  if (!d.scalar(256, w, "ImageWidth") || !d.scalar(257, h, "ImageLength")) fail("TIFF without dimensions");
+  const int64_t comp = d.get(259, 1, "Compression");
+  if (comp != 1 && comp != 5 && comp != 7 && comp != 8 && comp != 32773 && comp != 32946) {
+    const char* name = compression_name(comp);
+    fail(name ? std::string("TIFF compression ") + name + " is not supported"
+              : "TIFF compression " + std::to_string(comp) + " does not exist");
+  }
+  const int64_t photo = d.get(262, 0, "PhotometricInterpretation");
+  const int64_t fill = d.get(266, 1, "FillOrder");
+  const int64_t planar = d.get(284, 1, "PlanarConfiguration");
+  std::vector<int64_t> fmt = d.ints(339, {1}, "SampleFormat");
+  if (fmt.size() > 1 && std::all_of(fmt.begin(), fmt.end(), [](int64_t v) { return v == 1; })) fmt = {1};
+  std::vector<int64_t> bps = d.ints(258, {1}, "BitsPerSample");
+  const std::vector<int64_t> extra = d.ints(338, {}, "ExtraSamples");
+  const int64_t spp = d.get(277, 1, "SamplesPerPixel");
+  if (spp > 6) fail("TIFF with " + std::to_string(spp) + " samples per pixel is not supported");
+  if (spp < int64_t(bps.size())) bps.resize(size_t(std::max<int64_t>(spp, 0)));
+  else if (spp > int64_t(bps.size()) && bps.size() == 1) bps.assign(size_t(spp), bps[0]);
+  if (int64_t(bps.size()) != spp || spp < 1) fail("TIFF of an unknown data organization");
+  const int bps_count = (photo == 2 || photo == 6 || photo == 8 ? 3 : photo == 5 ? 4 : 1) + int(extra.size());
+  const OpenInfo* key = find_mode(d.mm, photo, fmt, fill, bps, extra);
+  if (!key) fail("TIFF pixel layout (photometric " + std::to_string(photo) + ", " + std::to_string(spp) +
+                 " samples of " + std::to_string(bps[0]) + " bits) has no Pillow mode");
+  if (planar != 1 && planar != 2) fail("TIFF planar configuration " + std::to_string(planar) + " does not exist");
+  const bool libtiff = comp != 1;
+  if (libtiff && fill == 2) key = find_mode(d.mm, photo, fmt, 1, bps, extra);
+  const std::string mode = key->mode;
+  std::string raw = key->raw;
+  if (mode == "LAB") fail("TIFF in Lab colour is not supported");
+  if (libtiff) {  // libtiff hands on host-order (little-endian) 16-bit samples
+    auto ends = [&](const char* t) { return raw.size() >= 4 && raw.compare(raw.size() - 4, 4, t) == 0; };
+    if (photo == 6 && comp == 7 && planar == 1) raw = "RGB";
+    else if (raw == "I;16") raw = "I;16N";
+    else if (ends(";16B") || ends(";16L")) raw = raw.substr(0, raw.size() - 1) + "N";
+  }
+  if (key->raw == std::string("I;12")) fail("12-bit TIFF is not supported");
+  const int64_t orientation = d.get(274, 1, "Orientation");
+  check_size(w, h);
+  Raster r;
+  r.w = w, r.h = h, r.bands = bands_of(mode);
+  r.v.assign(size_t(w) * size_t(h) * size_t(r.bands), 0);
+
+  if (!libtiff) {
+    // Pillow's own raw decoder: every offset read as its strip or tile,
+    // extents placed row by row (a planar file's next plane after the
+    // last row), the rawmode a band's letter in a planar file.
+    const bool strips = d.has(273);
+    if (!strips && !d.has(324)) fail("TIFF of an unknown data organization");
+    std::vector<int64_t> offsets = d.ints(strips ? 273 : 324, {}, "StripOffsets");
+    int64_t tw = w, th = 0;
+    if (strips) {
+      th = d.get(278, h, "RowsPerStrip");
+    } else if (!d.scalar(322, tw, "TileWidth") || !d.scalar(323, th, "TileLength")) {
+      fail("TIFF with invalid tile dimensions");
+    }
+    if (tw <= 0 || th <= 0) fail("TIFF with no rows per strip or an empty tile");
+    if (tw == w && th == h && planar != 2 && !offsets.empty()) offsets = {offsets.back()};
+    int64_t sum_bits = 0;
+    for (int64_t b : bps) sum_bits += b;
+    struct Tile { int64_t off, x0, y0, x1, y1, stride; std::string raw; };
+    std::vector<Tile> tiles;
+    int64_t x = 0, y = 0;
+    size_t layer = 0;
+    // The end of a run of `len` from `at` (< lim), kept at most `lim`: a
+    // BigTIFF's LONG8 tile size would overflow the sum.
+    auto end = [](int64_t at, int64_t len, int64_t lim) { return len > lim - at ? lim : at + len; };
+    for (int64_t off : offsets) {
+      double stride = tw > w - x ? double(tw) * double(sum_bits) / 8 : 0;
+      std::string tile_raw = raw;
+      if (planar == 2) {
+        if (layer >= raw.size()) fail("TIFF has more planes than its mode");
+        tile_raw = raw.substr(layer, 1);
+        stride /= bps_count;
+      }
+      // Pillow hands the stride to its raw decoder as a C int.
+      if (stride > 2147483647.0) fail("TIFF tile row of more than 2^31 bytes");
+      tiles.push_back({off, x, y, end(x, tw, w), end(y, th, h), int64_t(stride), tile_raw});
+      x = end(x, tw, w);
+      if (x >= w) {
+        x = 0, y = end(y, th, h);
+        if (y >= h) y = 0, ++layer;
+      }
+    }
+    // ImageFile.load memory-maps a lone tile whose rawmode is its mode: it
+    // reads the whole image from the tile's offset, whatever the tile's
+    // extent, rows at the tile's stride (or the image's row size), at the
+    // image's size, which Orientation 5-8 has already swapped (load_end
+    // then transposes what was read).  Pillow decodes as usual if the rows
+    // at the tile's own stride pass the file's end, and raises if the map
+    // does; where its last row runs past the end (rows that overlap, at a
+    // stride below the row size), Pillow reads past the file and the port
+    // raises.
+    static const char* kMapModes[] = {"L", "P", "RGBX", "RGBA", "CMYK", "I;16", "I;16L", "I;16B"};
+    bool mapped = false;
+    if (tiles.size() == 1 && tiles[0].raw == mode &&
+        std::find(std::begin(kMapModes), std::end(kMapModes), mode) != std::end(kMapModes)) {
+      const Tile& t = tiles[0];
+      const bool swap = orientation >= 5 && orientation <= 8;
+      const int64_t mw = swap ? h : w, mh = swap ? w : h;
+      const int64_t bpp = mode == "L" || mode == "P" ? 1 : mode.compare(0, 4, "I;16") == 0 ? 2 : 4;
+      const int64_t step = t.stride ? t.stride : mw * bpp;
+      if (t.off < 0) fail("TIFF tile offset cannot be negative");
+      if (size_t(t.off) <= in.n && size_t(mh * t.stride) <= in.n - size_t(t.off)) {
+        const size_t room = in.n - size_t(t.off);
+        if (size_t(mh * step) > room || size_t((mh - 1) * step + mw * bpp) > room)
+          fail("truncated TIFF image data");
+        r.w = mw, r.h = mh;
+        for (int64_t row = 0; row < mh; ++row) unpack(mode, t.raw, in.p + t.off + row * step, mw, r.at(row, 0), r.bands);
+        mapped = true;
+      }
+    }
+    std::stable_sort(tiles.begin(), tiles.end(), [](const Tile& a, const Tile& b) { return a.off < b.off; });
+    for (size_t i = 0; i < (mapped ? 0 : tiles.size()); ++i) {
+      const Tile& t = tiles[i];
+      if (i + 1 < tiles.size()) {  // ImageFile.load keeps the last of equal neighbours
+        const Tile& u = tiles[i + 1];
+        if (u.x0 == t.x0 && u.y0 == t.y0 && u.x1 == t.x1 && u.y1 == t.y1 && u.stride == t.stride && u.raw == t.raw)
+          continue;
+      }
+      const int bits = raw_bits(mode, t.raw);
+      if (!bits) fail("TIFF rawmode " + t.raw + " has no unpacker for mode " + mode);
+      const int64_t cols = t.x1 - t.x0, rows = t.y1 - t.y0;
+      const int64_t bytes = (cols * bits + 7) / 8;
+      if (t.stride && t.stride < bytes) fail("TIFF strip or tile narrower than its rows");
+      const int64_t step = t.stride ? t.stride : bytes;
+      if (t.off < 0 || size_t(t.off) > in.n || size_t(bytes) > in.n - size_t(t.off) ||
+          (rows > 1 && size_t(step) > (in.n - size_t(t.off) - size_t(bytes)) / size_t(rows - 1)))
+        fail("truncated TIFF image data");
+      for (int64_t row = 0; row < rows; ++row)
+        unpack(mode, t.raw, in.p + t.off + row * step, cols, r.at(t.y0 + row, t.x0), r.bands);
+    }
+  } else {
+    if (!d.libtiff_header) fail("TIFF header in the wrong byte order: libtiff refuses it");
+    if (!d.clean) fail("malformed TIFF directory: libtiff refuses it");
+    if (!raw_bits(mode, raw)) fail("TIFF rawmode " + raw + " has no unpacker for mode " + mode);
+    for (int64_t b : bps)
+      if (b != bps[0]) fail("TIFF with different bits per sample is not supported");
+    const int bits = int(bps[0]);
+    const bool tiled = d.has(322);
+    int64_t tw = w, th = h;
+    // libtiff reads these three tags as 32-bit values; Pillow takes a tile
+    // of at most INT_MAX - 1 bytes, each side at most INT_MAX.
+    constexpr int64_t kIntMax = 2147483647;
+    if (tiled) {
+      if (!d.scalar(322, tw, "TileWidth") || !d.scalar(323, th, "TileLength") || tw <= 0 || th <= 0 ||
+          tw > kIntMax || th > kIntMax)
+        fail("TIFF with invalid tile dimensions");
+      if ((tw * int64_t(spp) * bits + 7) / 8 > (kIntMax - 1) / th) fail("TIFF tile of more than 2^31 bytes");
+    } else {
+      th = d.get(278, int64_t(0xFFFFFFFF), "RowsPerStrip");
+      if (th <= 0 || th > int64_t(0xFFFFFFFF)) fail("TIFF with invalid rows per strip");
+      th = std::min(th, h);
+    }
+    const int64_t across = (w + tw - 1) / tw, down = (h + th - 1) / th;
+    const int planes = planar == 2 ? int(spp) : 1;  // segments a pixel row spans
+    const std::vector<int64_t> offsets = d.ints(tiled ? 324 : 273, {}, "StripOffsets");
+    const std::vector<int64_t> counts = d.ints(tiled ? 325 : 279, {}, "StripByteCounts");
+    const size_t nseg = size_t(across * down * planes);
+    if (offsets.size() < nseg || counts.size() < nseg)
+      fail("TIFF lists too few strips or tiles, or no byte counts");
+    const int64_t predictor = comp == 5 || comp == 8 || comp == 32946 ? d.get(317, 1, "Predictor") : 1;
+    if (predictor < 1 || predictor > 3) fail("TIFF predictor " + std::to_string(predictor) + " does not exist");
+    if (predictor == 2 && bits != 8 && bits != 16 && bits != 32)
+      fail("TIFF horizontal predictor with " + std::to_string(bits) + "-bit samples is not supported");
+    if (predictor == 3 && (fmt[0] != 3 || bits != 32))
+      fail("TIFF floating-point predictor needs 32-bit float samples");
+    const bool ycbcr = photo == 6;
+    if (ycbcr && (bits != 8 || spp != 3)) fail("TIFF YCbCr of this layout is not supported");
+    // The compressed bytes of one segment, decoded into `need` bytes in the
+    // host's (little-endian) byte order, as libtiff hands them on.
+    Jpeg tables(Bytes{nullptr, 0});
+    if (comp == 7 && d.has(347)) {
+      const Field& f = d.tags.at(347);
+      Jpeg t(Bytes{in.p + f.off, size_t(f.count) * size_t(kTypeSize[f.type])});
+      t.read_stream(true);
+      tables.take_tables(t);
+    }
+    int64_t h0 = 1, v0 = 1;
+    if (ycbcr && comp == 7) {
+      const std::vector<int64_t> sub = d.ints(530, {-1, -1}, "YCbCrSubsampling");
+      if (sub.size() < 2) fail("TIFF YCbCrSubsampling needs two values");
+      h0 = sub[0], v0 = sub[1];
+    }
+    auto segment = [&](size_t index, size_t need, int64_t cols, int64_t rows, int64_t row_bytes, int seg_spp,
+                       bool last_strip) {
+      const int64_t off = offsets[index], cnt = counts[index];
+      if (off < 0 || cnt < 0 || size_t(off) > in.n || size_t(cnt) > in.n - size_t(off))
+        fail("truncated TIFF: a strip or tile lies outside the file");
+      Bytes src{in.p + off, size_t(cnt)};
+      std::vector<uint8_t> flipped;
+      if (fill == 2) {
+        flipped.assign(src.p, src.p + src.n);
+        for (uint8_t& b : flipped) b = rev8(b);
+        src.p = flipped.data();
+      }
+      std::vector<uint8_t> out;
+      if (comp == 7) {
+        if (bits != 8) fail("TIFF JPEG with " + std::to_string(bits) + "-bit samples is not supported");
+        int64_t one = 1;
+        return jpeg_segment(src, tables, ycbcr && seg_spp == 3 ? Jpeg::Colour::YCbCr : Jpeg::Colour::None, cols,
+                            rows, last_strip, seg_spp, seg_spp == 3 ? h0 : one, seg_spp == 3 ? v0 : one);
+      }
+      if (comp == 32773) {
+        out = unpackbits(src, need);
+      } else if (comp == 5) {
+        out = unlzw(src, need);
+      } else {
+        out.resize(need);
+        const int64_t got = inflate(src.p, int64_t(src.n), out.data(), int64_t(need));
+        if (got < 0) fail("TIFF Deflate data does not inflate");
+        if (size_t(got) < need) fail("not enough Deflate data in a TIFF strip or tile");
+      }
+      const int stride = planar == 2 ? 1 : int(spp);
+      if (predictor != 1 && (out.size() % size_t(row_bytes) || (predictor == 3 && row_bytes % (4 * stride))))
+        fail("TIFF predictor rows do not divide the strip or tile");
+      for (size_t row = 0; row + size_t(row_bytes) <= out.size(); row += size_t(row_bytes)) {
+        uint8_t* p = out.data() + row;
+        if (predictor == 3) {  // tif_predict.c fpAcc
+          for (int64_t i = stride; i < row_bytes; ++i) p[i] = uint8_t(p[i] + p[i - stride]);
+          const std::vector<uint8_t> tmp(p, p + row_bytes);
+          const int64_t wc = row_bytes / 4;
+          for (int64_t i = 0; i < wc; ++i)
+            for (int b = 0; b < 4; ++b) p[4 * i + b] = tmp[size_t((3 - b) * wc + i)];
+          continue;
+        }
+        if (d.mm && (bits == 16 || bits == 32))  // libtiff swabs to host order
+          for (int64_t i = 0; i + bits / 8 <= row_bytes; i += bits / 8) std::reverse(p + i, p + i + bits / 8);
+        if (predictor == 2) {  // horAcc8/16/32
+          const int k = bits / 8;
+          for (int64_t i = stride; i < row_bytes / k; ++i) {
+            uint64_t a = 0, b = 0;
+            for (int j = 0; j < k; ++j) a |= uint64_t(p[i * k + j]) << (8 * j), b |= uint64_t(p[(i - stride) * k + j]) << (8 * j);
+            a += b;
+            for (int j = 0; j < k; ++j) p[i * k + j] = uint8_t(a >> (8 * j));
+          }
+        }
+      }
+      return out;
+    };
+
+    if (ycbcr && comp != 7) {
+      // Pillow's _decodeAsRGBA: libtiff's TIFFRGBAImage, a block of hs x vs
+      // luma samples, then Cb and Cr, for each block of pixels.
+      const std::vector<int64_t> sub = d.ints(530, {2, 2}, "YCbCrSubsampling");
+      if (sub.size() < 2) fail("TIFF YCbCrSubsampling needs two values");
+      const int64_t hs = sub[0], vs = sub[1];
+      const int64_t code = hs << 4 | vs;
+      if (code != 0x44 && code != 0x42 && code != 0x41 && code != 0x22 && code != 0x21 && code != 0x12 && code != 0x11)
+        fail("TIFF YCbCr subsampling " + std::to_string(hs) + "x" + std::to_string(vs) + " is not supported");
+      float luma[3] = {0.299f, 0.587f, 0.114f}, rbw[6] = {0, 255, 128, 255, 128, 255};
+      if (d.has(529)) for (int i = 0; i < 3; ++i) luma[i] = d.real(529, uint64_t(i));
+      if (d.has(532)) for (int i = 0; i < 6; ++i) rbw[i] = d.real(532, uint64_t(i));
+      if (std::isnan(luma[0]) || std::isnan(luma[1]) || std::isnan(luma[2]) || std::fabs(luma[1]) < 1e-10)
+        fail("TIFF YCbCrCoefficients are invalid");
+      for (float f : rbw)
+        if (!(f > -2147483647.0f + 128 && f < 2147483647.0f - 128)) fail("TIFF ReferenceBlackWhite is invalid");
+      const YCbCr conv(luma, rbw);
+      const int64_t unit = hs * vs + 2;
+      if (planar == 2) {  // putseparate8bitYCbCr11tile, libtiff's only planar case
+        if (code != 0x11) fail("planar TIFF YCbCr subsampled " + std::to_string(hs) + "x" + std::to_string(vs) +
+                               " is not supported");
+        for (int64_t ty = 0; ty < down; ++ty)
+          for (int64_t tx = 0; tx < across; ++tx) {
+            const int64_t cols = tiled ? tw : w, rows = tiled ? th : std::min(th, h - ty * th);
+            std::vector<uint8_t> pl[3];
+            for (int p = 0; p < 3; ++p)
+              pl[p] = segment(size_t(p * across * down + ty * across + tx), size_t(rows * cols), cols, rows, cols, 1,
+                              !tiled && ty == down - 1);
+            for (int64_t yy = 0; yy < std::min(rows, h - ty * th); ++yy)
+              for (int64_t xx = 0; xx < std::min(cols, w - tx * tw); ++xx) {
+                const size_t i = size_t(yy * cols + xx);
+                conv.rgb(pl[0][i], pl[1][i], pl[2][i], r.at(ty * th + yy, tx * tw + xx));
+              }
+          }
+      }
+      for (int64_t ty = 0; ty < (planar == 2 ? 0 : down); ++ty)
+        for (int64_t tx = 0; tx < across; ++tx) {
+          const int64_t cols = tiled ? tw : w, rows = tiled ? th : std::min(th, h - ty * th);
+          const int64_t bw = (cols + hs - 1) / hs;
+          const int64_t scanline = bw * unit / vs;
+          const int64_t blocks = (rows + vs - 1) / vs * bw * unit;  // what the put functions read
+          // gtStripContig decodes whole block rows of (rounded-down)
+          // scanlines into a zeroed buffer; gtTileContig whole tiles.
+          const int64_t need = tiled ? blocks : std::min(blocks, (rows + vs - 1) / vs * vs * scanline);
+          std::vector<uint8_t> seg = segment(size_t(ty * across + tx), size_t(need), cols, rows, scanline, 3, false);
+          seg.resize(size_t(blocks), 0);
+          // The putcontig8bitYCbCr*tile walk: blocks across the pixels kept,
+          // then `fromskew` past the tile's right edge, which the 4x4
+          // function counts in 10-byte units instead of 18.
+          const int64_t npix = std::min(cols, w - tx * tw), nrow = std::min(rows, h - ty * th);
+          const int64_t skip = (cols - npix) / hs * (code == 0x44 ? 10 : unit);
+          size_t pp = 0;
+          for (int64_t by = 0; by < nrow; by += vs) {
+            for (int64_t bx = 0; bx < npix; bx += hs, pp += size_t(unit)) {
+              if (pp + size_t(unit) > seg.size()) fail("TIFF YCbCr blocks run past their strip or tile");
+              const uint8_t* blk = seg.data() + pp;
+              for (int64_t yy = by; yy < std::min(by + vs, nrow); ++yy)
+                for (int64_t xx = bx; xx < std::min(bx + hs, npix); ++xx)
+                  conv.rgb(blk[(yy - by) * hs + xx - bx], blk[hs * vs], blk[hs * vs + 1],
+                           r.at(ty * th + yy, tx * tw + xx));
+            }
+            pp += size_t(skip);
+          }
+        }
+    } else {
+      // Pillow's _decodeStrip / _decodeTile: each row unpacked by the
+      // rawmode (planar: each plane into its band).
+      const int seg_spp = comp == 7 && ycbcr ? 3 : planar == 2 ? 1 : int(spp);
+      const int out_bits = comp == 7 ? 8 : bits;
+      if (planar == 2 && r.bands != spp) fail("planar TIFF of " + std::to_string(spp) + " samples in mode " + mode);
+      for (int p = 0; p < planes; ++p)
+        for (int64_t ty = 0; ty < down; ++ty)
+          for (int64_t tx = 0; tx < across; ++tx) {
+            const int64_t rows = tiled ? th : std::min(th, h - ty * th);
+            const int64_t row_bytes = (tw * seg_spp * out_bits + 7) / 8;
+            const size_t index = size_t(p) * size_t(across * down) + size_t(ty * across + tx);
+            const std::vector<uint8_t> seg = segment(index, size_t(rows * row_bytes), tw, rows, row_bytes, seg_spp,
+                                                     !tiled && ty == down - 1);
+            for (int64_t yy = 0; yy < rows && ty * th + yy < h; ++yy) {
+              const int64_t cols = std::min(tw, w - tx * tw);
+              const uint8_t* src = seg.data() + size_t(yy * row_bytes);
+              uint32_t* dst = r.at(ty * th + yy, tx * tw);
+              if (planar == 1 || spp == 1) {
+                unpack(mode, raw, src, cols, dst, r.bands);
+                continue;
+              }
+              // A plane into its band; LA and PA lose their alpha plane.
+              if ((mode == "LA" || mode == "PA") && p == 1) continue;
+              for (int64_t i = 0; i < cols; ++i) {
+                const uint8_t* s = src + size_t(i) * size_t(bits / 8);
+                dst[size_t(i) * size_t(r.bands) + size_t(p)] = bits == 16 ? s[1] : s[0];
+              }
+            }
+          }
+      // Pillow's planar RGBA treats alpha as associated unless libtiff reads
+      // ExtraSamples as unassociated (2, or Corel's 999, which libtiff
+      // patches to 2).
+      if (planar == 2 && mode == "RGBA" && !(extra.size() == 1 && (extra[0] == 2 || extra[0] == 999)))
+        for (size_t i = 0; i < r.v.size(); i += 4) unpremultiply(r.v.data() + i);
+    }
+  }
+
+  // Mode F's samples as a sky's reader, imageio's bundled tifffile, gives
+  // them: as stored (no Orientation), in the file's true byte order where
+  // Pillow's rawmode reads a big-endian file's samples byte-swapped (the
+  // libtiff path's host-order samples read as "F;32BF", or a planar raw
+  // file read by the band rawmode "F").
+  std::vector<float> samples;
+  if (mode == "F") {
+    const bool swapped = d.mm && (libtiff ? raw == "F;32BF" : planar == 2);
+    samples.resize(r.v.size());
+    for (size_t i = 0; i < r.v.size(); ++i) {
+      uint32_t b = r.v[i];
+      if (swapped) b = b >> 24 | (b >> 8 & 0xFF00) | (b << 8 & 0xFF0000) | b << 24;
+      std::memcpy(&samples[i], &b, 4);
+    }
+  }
+  const int64_t stored_w = r.w, stored_h = r.h;
+  r = transpose(r, orientation);
+  // Pillow's convert("RGBA") / ("L") input, in this library's channels.
+  Palette pal;
+  if (mode == "P" || mode == "PA") {
+    const std::vector<int64_t> cm = d.ints(320, {}, "ColorMap");
+    if (cm.empty()) fail("palette TIFF without a ColorMap");
+    const size_t n = std::min<size_t>(cm.size() / 3, 256);
+    for (size_t i = 0; i < n; ++i)
+      for (int k = 0; k < 3; ++k) pal.e[i][k] = uint8_t((cm[size_t(k) * (cm.size() / 3) + i] & 0xFFFF) / 256);
+  }
+  enum { kBytes, kPalette, kPaletteAlpha, kCmyk, kHigh16, kInt, kFloat } kind =
+      mode == "P" ? kPalette : mode == "PA" ? kPaletteAlpha : mode == "CMYK" ? kCmyk
+      : mode == "I;16" || mode == "I;16B" || (mode == "I" && bps[0] == 16) ? kHigh16
+      : mode == "I" ? kInt : mode == "F" ? kFloat : kBytes;
+  const bool signed16 = mode == "I";
+  Image img;
+  img.alloc(r.w, r.h, kind == kPalette || kind == kPaletteAlpha || kind == kCmyk ? 4 : r.bands, mode.c_str());
+  if (kind == kFloat) img.fl = std::move(samples), img.fw = stored_w, img.fh = stored_h;
+  const size_t npx = size_t(r.w) * size_t(r.h);
+  const uint32_t* s = r.v.data();
+  uint8_t* o = img.px.data();
+  for (size_t i = 0; i < npx; ++i, s += r.bands, o += img.c) {
+    switch (kind) {
+      case kPalette: std::memcpy(o, pal.e[s[0] & 255], 4); break;
+      case kPaletteAlpha: std::memcpy(o, pal.e[s[0] & 255], 4), o[3] = uint8_t(s[1]); break;
+      case kCmyk: cmyk_to_rgba(int(s[0]), int(s[1]), int(s[2]), int(s[3]), o); break;
+      case kHigh16: {  // stb_image's 16-to-8-bit rule (a negative signed sample: 0)
+        const int32_t v = signed16 ? int32_t(s[0]) : int32_t(s[0] & 0xFFFF);
+        o[0] = uint8_t(v < 0 ? 0 : v >> 8);
+        break;
+      }
+      case kInt: {  // convert("L")'s clip
+        const int32_t v = int32_t(s[0]);
+        o[0] = uint8_t(v < 0 ? 0 : v > 255 ? 255 : v);
+        break;
+      }
+      case kFloat: {  // convert("L")'s truncation and clip
+        float f;
+        std::memcpy(&f, s, 4);
+        o[0] = !(f > 0.0f) ? 0 : f >= 255.0f ? 255 : uint8_t(int(f));
+        break;
+      }
+      default:
+        for (int k = 0; k < r.bands; ++k) o[k] = uint8_t(s[k]);
+    }
+  }
+  return img;
+}
+
+}  // namespace tiff
 
 void* finish(Image&& img) { return new Image(std::move(img)); }
 
@@ -1882,6 +2974,16 @@ void* imgd_decode(const uint8_t* data, int64_t n, int32_t format, char* err, int
   return nullptr;
 }
 
+// A TIFF, its Deflate strips and tiles inflated by `inflate`.
+void* imgd_tiff(const uint8_t* data, int64_t n, InflateFn inflate, char* err, int64_t errlen) {
+  try {
+    return finish(tiff::decode(Bytes{data, size_t(n < 0 ? 0 : n)}, inflate));
+  } catch (const std::exception& e) {
+    write_error(err, errlen, e.what());
+  }
+  return nullptr;
+}
+
 // The pixels of a PNG from its inflated image data and its header fields;
 // plte / trns may be empty (length 0).
 void* imgd_png(const uint8_t* raw, int64_t nraw, int64_t w, int64_t h, int32_t depth, int32_t ctype,
@@ -1901,6 +3003,14 @@ int64_t imgd_height(void* r) { return static_cast<Image*>(r)->h; }
 int64_t imgd_channels(void* r) { return static_cast<Image*>(r)->c; }
 const char* imgd_mode(void* r) { return static_cast<Image*>(r)->mode.c_str(); }
 const uint8_t* imgd_pixels(void* r) { return static_cast<Image*>(r)->px.data(); }
+// A TIFF of mode F or a PFM: its float32 samples (h x w, written to *h
+// and *w; top row first, no Orientation applied); NULL for any other
+// image.
+const float* imgd_floats(void* r, int64_t* h, int64_t* w) {
+  const Image* img = static_cast<Image*>(r);
+  *h = img->fh, *w = img->fw;
+  return img->fl.empty() ? nullptr : img->fl.data();
+}
 void imgd_free(void* r) { delete static_cast<Image*>(r); }
 
 }  // extern "C"

@@ -23,6 +23,7 @@ import numpy as np
 
 from realtimeraytracer_torch.scene.geometry import TriangleMesh, compute_vertex_normals
 from realtimeraytracer_torch.scene.materials import Material
+from realtimeraytracer_torch.utils.image_decode import decode_float_samples, decode_image
 from realtimeraytracer_torch.utils.image_io import read_image
 
 log = logging.getLogger(__name__)
@@ -282,9 +283,9 @@ def load_texture_file(path: str, grayscale: bool = False) -> np.ndarray:
     """Decode an image file to float32 [0,1] (H, W, C), vertically flipped
     to match the reference's stbi_set_flip_vertically_on_load usage
     (file.cppm:276-291; grayscale R8 vs RGBA8 modes).  Read: JPEG, PNG,
-    TGA, BMP, GIF (its first frame), PNM (P1-P6, Pf) and PSD (its composite
-    image), as utils/image_decode.py lists them; TIFF, WebP and the rest
-    raise ValueError.  As in the JAX package, RGB and RGBA files keep their
+    TGA, BMP, GIF (its first frame), PNM (P1-P6, Pf), PSD (its composite
+    image) and TIFF (its first image), as utils/image_decode.py lists them;
+    WebP and the rest raise ValueError.  As in the JAX package, RGB and RGBA files keep their
     channels and any other file loads as RGBA (palettes expanded, grey with
     alpha 1 or its own) unless grayscale is set.  Every texel is divided
     by 255, as stbi_load's 8-bit images are read (the JAX package divides
@@ -393,22 +394,36 @@ def load_hdr(path: str, tone_encode: bool = True) -> np.ndarray:
     is clamped and encoded with pow(1/2.2) as the reference's 8-bit sky path
     does (application.cppm:250), and the miss shader re-linearizes it.
 
-    Any other file (JPEG, PNG, TGA, BMP, GIF, PNM, PSD through
+    A float TIFF (mode F, grey) or a PFM holds linear radiance, as a .hdr
+    file does: its samples, repeated to three channels, take the .hdr
+    branch's clamp and encoding, as the JAX package's imageio path gives
+    a TIFF's (a PFM's it rounds to bytes, ROADMAP, "Faults of the
+    reference").  A float TIFF of more channels or of 16-bit samples
+    raises, as the texture path does: Pillow's TIFF table has no mode
+    for it.
+
+    Any other file (JPEG, PNG, TGA, BMP, GIF, PNM, PSD, TIFF through
     utils/image_decode.py; grey repeated to three channels, alpha dropped)
     holds 8-bit encoded texels, as ``stbi_load`` gives them to the
-    reference: with tone_encode they come back as texel / 255, the encoded
-    sky; without, as (texel / 255) ** 2.2, the linear radiance whose
-    encoding the .hdr branch computes.  The JAX package reads such files
-    with imageio and does not divide by 255, so its encoded sky is white
-    wherever a texel is 1 or more (ROADMAP, "Faults of the reference")."""
+    reference (a 16- or 32-bit TIFF the texture path's bytes): with
+    tone_encode they come back as texel / 255, the encoded sky; without,
+    as (texel / 255) ** 2.2, the linear radiance whose encoding the .hdr
+    branch computes.  The JAX package reads such files with imageio and
+    does not divide by 255, so its encoded sky is white wherever a texel
+    is 1 or more (ROADMAP, "Faults of the reference")."""
+    with open(path, "rb") as f:
+        data = f.read()
     if path.lower().endswith(".hdr"):
-        with open(path, "rb") as f:
-            rgb = decode_radiance_hdr(f.read())
+        rgb = decode_radiance_hdr(data)
+    else:
+        rgb = decode_float_samples(data)
+        rgb = None if rgb is None else np.repeat(rgb, 3, axis=2)
+    if rgb is not None:
         rgb = rgb[::-1]  # flip: row 0 = bottom, so v=1-acos(y)/pi maps up to sky
         if tone_encode:
             rgb = np.clip(rgb, 0.0, 1.0) ** (1.0 / 2.2)
         return np.ascontiguousarray(rgb.astype(np.float32))
-    px = read_image(path)
+    px, _ = decode_image(data)
     rgb = px[..., :3] if px.shape[2] >= 3 else np.repeat(px[..., :1], 3, axis=2)
     rgb = rgb[::-1].astype(np.float32) / 255.0
     if not tone_encode:

@@ -9,25 +9,35 @@ Python would take seconds a megapixel, so the port decodes in C++:
 
 ``decode_image(data)`` identifies a file by its content, as ``Image.open``
 does (the PNG signature, JPEG's SOI, ``BM``, ``GIF87a``/``GIF89a``, a PNM
-magic, ``8BPS``; TGA by a valid header when nothing else matches), and
-returns uint8 (H, W, C) pixels with the Pillow mode the JAX package would
-see.  C is 1 (grey), 2 (grey + alpha), 3 (RGB) or 4 (RGBA); palette and
-CMYK images come back expanded to RGBA.  Read: JPEG (baseline and
-progressive Huffman, 8-bit, 1 or 3 components), PNG (every colour type,
+magic, ``8BPS``, Pillow's six TIFF prefixes; TGA by a valid header when
+nothing else matches), and returns uint8 (H, W, C) pixels with the Pillow
+mode the JAX package would see.  C is 1 (grey), 2 (grey + alpha), 3
+(RGB) or 4 (RGBA); palette and CMYK images come back expanded to RGBA.
+Read: JPEG (baseline and progressive Huffman, 8-bit, 1, 3 or 4
+components: CMYK and YCCK by the Adobe marker), PNG (every colour type,
 depth and filter, Adam7), TGA (types 1, 2, 3, 9, 10, 11 at 1, 8, 16, 24,
 32 bits; 16-, 24-, 32-bit colour maps), BMP (1/4/8-bit palette, RLE8 and
 RLE4, 16, 24 and 32 bits, BI_RGB and BI_BITFIELDS), GIF (the first
 frame), PNM (P1-P6, any maxval; Pf), PSD (the composite image: raw or
-PackBits; bitmap, grey, indexed, RGB, RGBA, CMYK).  For PNG, this module
-checks the chunks and inflates with ``zlib``; the library unfilters,
-de-interlaces and unpacks.  Two values differ from Pillow's, as stb_image
-(the reference's decoder) has them: 16-bit grey PNG and 16-bit PGM
-samples come back as their high byte, where Pillow's convert clips them.
+PackBits; bitmap, grey, indexed, RGB, RGBA, CMYK), TIFF (the first image:
+classic, BigTIFF and the "invalid" byte-order prefixes; strips and tiles,
+planar or not, FillOrder 2; uncompressed, PackBits, LZW, Deflate and
+JPEG with predictors 2 and 3; every entry of Pillow's mode table that its
+convert accepts, YCbCr through libtiff's RGBA rules; Orientation applied
+as Pillow 12 applies it).  For PNG and TIFF's Deflate, this module
+inflates with ``zlib`` (the library calls ``_inflate`` back for each
+strip or tile); the library does the rest.  Two values differ from
+Pillow's, as stb_image (the reference's decoder) has them: 16-bit grey
+PNG, PGM and TIFF samples come back as their high byte, where Pillow's
+convert clips them.  ``decode_float_samples(data)`` gives a float TIFF
+(mode F) or a PFM as its float32 samples, as a sky's linear radiance.
 
-Malformed input and formats not ported (TIFF, WebP, Lab and 16-bit PSD,
-CMYK/YCCK, 12-bit, arithmetic-coded, lossless and hierarchical JPEG, a
-JPEG height in a DNL marker, an incomplete progressive JPEG) raise
-``ValueError`` naming the cause; nothing falls back to another decoder.
+Malformed input and formats not ported (WebP, Lab and 16-bit PSD, Lab
+TIFF, TIFF compressed by CCITT, old-style JPEG, ThunderScan, SGILog,
+LZMA, ZSTD or WebP, 12-bit, arithmetic-coded, lossless and hierarchical
+JPEG, a JPEG height in a DNL marker, an incomplete progressive JPEG)
+raise ``ValueError`` naming the cause; nothing falls back to another
+decoder.
 
 The library is built at first use with ``$CXX`` (default g++) into the
 kernels' build directory (``kernels.BUILD_DIR``), under a name that hashes
@@ -39,6 +49,7 @@ compiler, or if the build or the load fails, the call raises.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import hashlib
@@ -63,11 +74,30 @@ MAX_PIXELS = 2 * 89478485
 
 # The library's format codes (imgd_decode).
 _CODES = {"JPEG": 1, "BMP": 2, "TGA": 3, "GIF": 4, "PNM": 5, "PSD": 6}
-# Formats Pillow reads that this port does not yet, by their leading bytes.
-_NOT_PORTED = ((b"II*\0", "TIFF"), (b"MM\0*", "TIFF"))
+# Pillow's TiffImagePlugin.PREFIXES: both byte orders, the "invalid" ones
+# (magic in the other order) and BigTIFF.
+TIFF_PREFIXES = (b"MM\0*", b"II*\0", b"MM*\0", b"II\0*", b"MM\0+", b"II+\0")
 
 _lock = threading.Lock()
 _lib = None
+
+_INFLATE = ctypes.CFUNCTYPE(ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64)
+
+
+@_INFLATE
+def _inflate(src, n, dst, cap):
+    """The library's Deflate callback (TIFF compression 8 and 32946): at
+    most `cap` bytes of the zlib stream's output into `dst`; -1 if the
+    stream is corrupt.  libtiff stops where the strip is full, so does
+    this."""
+    if cap <= 0:
+        return 0
+    try:
+        out = zlib.decompressobj().decompress(ctypes.string_at(src, n), cap)
+    except zlib.error:
+        return -1
+    ctypes.memmove(dst, out, len(out))
+    return len(out)
 
 
 def library_path(cxx: list[str]) -> Path:
@@ -124,6 +154,8 @@ def load_library() -> ctypes.CDLL:
         err = [c.c_char_p, c.c_int64]
         lib.imgd_decode.restype = c.c_void_p
         lib.imgd_decode.argtypes = [c.c_char_p, c.c_int64, c.c_int32, *err]
+        lib.imgd_tiff.restype = c.c_void_p
+        lib.imgd_tiff.argtypes = [c.c_char_p, c.c_int64, _INFLATE, *err]
         lib.imgd_png.restype = c.c_void_p
         lib.imgd_png.argtypes = [c.c_char_p, c.c_int64, c.c_int64, c.c_int64, c.c_int32, c.c_int32,
                                  c.c_int32, c.c_char_p, c.c_int64, c.c_char_p, c.c_int64, *err]
@@ -134,23 +166,33 @@ def load_library() -> ctypes.CDLL:
         lib.imgd_mode.argtypes = [c.c_void_p]
         lib.imgd_pixels.restype = c.POINTER(c.c_uint8)
         lib.imgd_pixels.argtypes = [c.c_void_p]
+        lib.imgd_floats.restype = c.POINTER(c.c_float)
+        lib.imgd_floats.argtypes = [c.c_void_p, c.POINTER(c.c_int64), c.POINTER(c.c_int64)]
         lib.imgd_free.argtypes = [c.c_void_p]
         _lib = lib
         return lib
 
 
-def _collect(lib, call, *args) -> tuple[np.ndarray, str]:
-    """Run a decoder entry point and copy its result out (or raise its error)."""
+@contextlib.contextmanager
+def _result(lib, call, *args):
+    """The handle of a decoder entry point's result (or its error raised),
+    freed on exit."""
     err = ctypes.create_string_buffer(512)
     handle = call(*args, err, len(err))
     if not handle:
         raise ValueError(err.value.decode(errors="replace"))
     try:
+        yield handle
+    finally:
+        lib.imgd_free(handle)
+
+
+def _collect(lib, call, *args) -> tuple[np.ndarray, str]:
+    """Run a decoder entry point and copy its pixels and mode out."""
+    with _result(lib, call, *args) as handle:
         h, w, c = lib.imgd_height(handle), lib.imgd_width(handle), lib.imgd_channels(handle)
         pixels = np.ctypeslib.as_array(lib.imgd_pixels(handle), shape=(h * w * c,))
         return pixels.reshape(h, w, c).copy(), lib.imgd_mode(handle).decode()
-    finally:
-        lib.imgd_free(handle)
 
 
 def _decode_png(lib, data: bytes) -> tuple[np.ndarray, str]:
@@ -211,8 +253,8 @@ def _is_tga(head: bytes) -> bool:
 
 def sniff(data: bytes) -> str:
     """The format of image bytes, by their content: "PNG", "JPEG", "BMP",
-    "GIF", "PNM", "PSD", "TGA"; raises ValueError for a format not ported
-    or not an image."""
+    "GIF", "PNM", "PSD", "TIFF", "TGA"; raises ValueError for a format not
+    ported or not an image."""
     if data.startswith(PNG_SIGNATURE):
         return "PNG"
     if data.startswith(b"\xff\xd8\xff"):
@@ -225,14 +267,13 @@ def sniff(data: bytes) -> str:
         return "PNM"
     if data.startswith(b"8BPS"):
         return "PSD"
-    for magic, name in _NOT_PORTED:
-        if data.startswith(magic):
-            raise ValueError(f"{name} images are not supported")
+    if data.startswith(TIFF_PREFIXES):
+        return "TIFF"
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         raise ValueError("WebP images are not supported")
     if _is_tga(data):
         return "TGA"
-    raise ValueError("not an image file this port reads (PNG, JPEG, BMP, GIF, PNM, PSD, TGA)")
+    raise ValueError("not an image file this port reads (PNG, JPEG, BMP, GIF, PNM, PSD, TIFF, TGA)")
 
 
 def decode_image(data: bytes) -> tuple[np.ndarray, str]:
@@ -242,7 +283,30 @@ def decode_image(data: bytes) -> tuple[np.ndarray, str]:
     lib = load_library()
     if kind == "PNG":
         return _decode_png(lib, data)
+    if kind == "TIFF":
+        return _collect(lib, lib.imgd_tiff, data, len(data), _inflate)
     return _collect(lib, lib.imgd_decode, data, len(data), _CODES[kind])
+
+
+def decode_float_samples(data: bytes) -> np.ndarray | None:
+    """The float32 (H, W, 1) samples of a float TIFF (grey, mode F) or a
+    PFM, top row first: the linear radiance a sky holds, as the JAX
+    package's imageio reads a TIFF (its bundled tifffile: as stored, no
+    Orientation applied).  None for any other image, which
+    ``decode_image`` reads."""
+    data = bytes(data)
+    kind = sniff(data)
+    if kind not in ("TIFF", "PNM"):
+        return None
+    lib = load_library()
+    call = (lib.imgd_tiff, data, len(data), _inflate) if kind == "TIFF" else \
+        (lib.imgd_decode, data, len(data), _CODES[kind])
+    with _result(lib, *call) as handle:
+        h, w = ctypes.c_int64(), ctypes.c_int64()
+        floats = lib.imgd_floats(handle, ctypes.byref(h), ctypes.byref(w))
+        if not floats:
+            return None
+        return np.ctypeslib.as_array(floats, shape=(h.value * w.value,)).reshape(h.value, w.value, 1).copy()
 
 
 def pixels_digest(arr: np.ndarray) -> str:

@@ -3,10 +3,13 @@
 Pillow writes no Adam7 PNG, no PNG of an arbitrary colour type and depth,
 no JPEG sampled 4:4:0 or 4:1:1, no PSD, no RLE or 16-bit BMP, no 16-bit
 TGA, no PNM with comments or an odd maxval, and no GIF with a local
-colour table, an offset frame or an unusual LZW stream, so ``make_png``,
+colour table, an offset frame or an unusual LZW stream, no tiled, planar,
+predicted, BigTIFF, bit-reversed or subsampled YCbCr TIFF, no TIFF of
+associated alpha or 2-bit grey, and no YCCK JPEG, so ``make_png``,
 ``encode_jpeg``, ``make_bmp`` (with ``encode_bmp_rle``), ``make_tga``,
-``encode_gif`` (with ``lzw_encode``), ``encode_pnm`` and ``encode_psd``
-write them here from NumPy; Pillow then decodes them as the oracle.
+``encode_gif`` (with ``lzw_encode``), ``encode_pnm``, ``encode_psd`` and
+``make_tiff`` (with ``tiff_lzw``) write them here from NumPy; Pillow then
+decodes them as the oracle.
 
 ``python tests/_torch_image_helpers.py`` rewrites ``tests/data/images/``:
 the fixtures (written with Pillow and ``make_png`` from seeded NumPy
@@ -34,7 +37,8 @@ FIXTURES = Path(__file__).resolve().parent / "data" / "images"
 FIXTURE_NAMES = ("prog420_odd.jpg", "base422_rst.jpg", "grey.jpg", "rle.tga", "palette_trns.png",
                  "adam7.png", "rgb24.bmp", "smooth1024.jpg", "frame.gif", "leaf.psd", "cmyk.psd",
                  "gloss.pgm", "comments.ppm", "discs_rle8.bmp", "rle4.bmp", "bf565.bmp",
-                 "rgb16_rle.tga")
+                 "rgb16_rle.tga", "lzw_pred_rgb.tif", "deflate_tiles_grey.tif", "jpeg_ycbcr.tif",
+                 "packbits_rgba.tif", "bigtiff_planar.tif", "ycbcr22_lzw.tif", "ycck.jpg", "cmyk.jpg")
 
 ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
          (0, 1, 1, 2))
@@ -128,7 +132,7 @@ def encode_jpeg(planes, factors, q: int = 4, restart: int = 0, adobe: int | None
         small = full.reshape(full.shape[0] // sy, sy, full.shape[1] // sx, sx).mean(axis=(1, 3))
         blocks = small.reshape(small.shape[0] // 8, 8, small.shape[1] // 8, 8).transpose(0, 2, 1, 3)
         coefs = np.rint(np.einsum("ux,abxy,vy->abuv", _DCT, blocks - 128, _DCT) / q).astype(int)
-        comps.append(coefs.reshape(coefs.shape[0], coefs.shape[1], 64)[:, :, _NATURAL])
+        comps.append(coefs.reshape(coefs.shape[0], coefs.shape[1], 64)[:, :, _NATURAL].tolist())
     out = bytearray()
     acc = [0, 0]                      # bits, count
 
@@ -141,6 +145,7 @@ def encode_jpeg(planes, factors, q: int = 4, restart: int = 0, adobe: int | None
             out.append(b)
             if b == 0xFF:
                 out.append(0)
+        acc[0] &= (1 << acc[1]) - 1
 
     def flush():
         if acc[1]:
@@ -176,9 +181,9 @@ def encode_jpeg(planes, factors, q: int = 4, restart: int = 0, adobe: int | None
     if n == 1:
         (h, v), = factors
         bw, bh = -(-(-(-wid * h // mh)) // 8), -(-(-(-hgt * v // mv)) // 8)
-        units = [[(0, comps[0][by, bx])] for by in range(bh) for bx in range(bw)]
+        units = [[(0, comps[0][by][bx])] for by in range(bh) for bx in range(bw)]
     else:
-        units = [[(ci, comps[ci][my * v + y, mx * h + x]) for ci, (h, v) in enumerate(factors)
+        units = [[(ci, comps[ci][my * v + y][mx * h + x]) for ci, (h, v) in enumerate(factors)
                   for y in range(v) for x in range(h)]
                  for my in range(mcuy) for mx in range(mcux)]
     for i, unit in enumerate(units):
@@ -513,6 +518,277 @@ def encode_psd(planes, color_mode: int, depth: int = 8, compression: int = 0,
     return bytes(out)
 
 
+def tiff_lzw(data: bytes) -> bytes:
+    """TIFF LZW of `data`: codes packed most significant bit first, 9 to
+    12 bits wide, each width one code earlier than GIF's (libtiff's
+    LZWEncode); a clear code first, another when the table fills, the end
+    code last."""
+    out = bytearray()
+    acc = nacc = 0
+    bits, free = 9, 258
+    table = {}                       # (prefix code << 8 | byte) -> code
+
+    def put(code):
+        nonlocal acc, nacc
+        acc = (acc << bits) | code
+        nacc += bits
+        while nacc >= 8:
+            nacc -= 8
+            out.append((acc >> nacc) & 255)
+        acc &= (1 << nacc) - 1
+
+    put(256)
+    w = -1
+    for c in data:
+        if w < 0:
+            w = c
+            continue
+        key = w << 8 | c
+        code = table.get(key)
+        if code is not None:
+            w = code
+            continue
+        put(w)
+        table[key] = free
+        free += 1                    # the entry the decoder adds for this code
+        if free == 4094:
+            put(256)
+            table.clear()
+            bits, free = 9, 258
+        elif free > (1 << bits) - 1:
+            bits += 1
+        w = c
+    if w >= 0:
+        put(w)
+        free += 1
+        if free == 4094:
+            put(256)
+            bits = 9
+        elif free > (1 << bits) - 1:
+            bits += 1
+    put(257)
+    if nacc:
+        out.append((acc << (8 - nacc)) & 255)
+    return bytes(out)
+
+
+_TIFF_FMT = {1: "B", 2: "B", 3: "H", 4: "I", 5: "I", 6: "b", 7: "B", 8: "h", 9: "i", 10: "i",
+             11: "f", 12: "d", 16: "Q", 17: "q"}
+_TIFF_SIZE = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8, 11: 4, 12: 8, 16: 8, 17: 8}
+
+
+def _tiff_pack(samples: np.ndarray, bits: int, order: str, fmt: int) -> bytes:
+    """(rows, n) samples of one segment row by row: each row packed most
+    significant bit first below 8 bits and padded to a byte, else in the
+    file's byte order (`fmt` 3: float16 or float32)."""
+    rows = []
+    for row in samples:
+        if bits < 8:
+            b = np.unpackbits(row.astype(np.uint8)[:, None], axis=1)[:, 8 - bits:]
+            rows.append(np.packbits(b.reshape(-1)).tobytes())
+        else:
+            dt = {8: "u1", 16: "u2", 32: "u4"}[bits] if fmt != 3 else {16: "f2", 32: "f4"}[bits]
+            if fmt == 2:
+                dt = dt.replace("u", "i")
+            rows.append(row.astype(order + dt).tobytes())
+    return b"".join(rows)
+
+
+def _hor_diff(rows: np.ndarray, bits: int, spp: int) -> np.ndarray:
+    """Horizontal differencing (predictor 2) of integer sample rows."""
+    a = rows.astype(np.int64)
+    d = a.copy()
+    d[:, spp:] = a[:, spp:] - a[:, :-spp]
+    return d & ((1 << bits) - 1)
+
+
+def _fp_predict(row_bytes: bytes, spp: int) -> bytes:
+    """libtiff's fpDiff on one row of float32 samples in native order:
+    byte planes, most significant first, then bytewise differencing."""
+    v = np.frombuffer(row_bytes, "<u4")
+    planes = np.stack([(v >> s) & 255 for s in (24, 16, 8, 0)]).astype(np.uint8).reshape(-1)
+    d = planes.astype(np.int16)
+    d[spp:] = d[spp:] - planes[:-spp].astype(np.int16)
+    return (d & 255).astype(np.uint8).tobytes()
+
+
+def tiff_reverse_bits(data: bytes) -> bytes:
+    """Each byte's bits reversed (FillOrder 2)."""
+    a = np.frombuffer(data, np.uint8)
+    return np.packbits(np.unpackbits(a[:, None], axis=1)[:, ::-1].reshape(-1)).tobytes()
+
+
+def make_tiff(samples, bits, photometric: int, *, order: str = "<", header: str = "tiff",
+              sample_format=None, extra=None, planar: int = 1, fill_order=None,
+              compression: int = 1, predictor=None, rows_per_strip=None, tile=None,
+              colormap=None, subsampling=None, jpeg_q: int = 4, jpeg_tables: bool = True,
+              tags=None, omit=(), packbits_rng=None, ifd_first: bool = False,
+              seg_data=None) -> bytes:
+    """TIFF bytes of (h, w[, n]) samples: `bits` per sample (an int, or a
+    tuple for the tag), in byte order `order` ("<" II, ">" MM); `header`
+    "tiff", "bigtiff" or "swapped" (the magic in the other order, which
+    Pillow accepts as an "invalid" prefix); strips of `rows_per_strip` or
+    `tile` (w, h) tiles (edge tiles padded); `planar` 2 writes a segment
+    per sample plane; compression 1 (none), 32773 (PackBits), 5 (LZW), 8
+    or 32946 (Deflate) with `predictor` 2 or 3, or 7 (JPEG: each segment a
+    JPEG of `encode_jpeg`, its tables in JPEGTables unless `jpeg_tables`
+    is false; YCbCr with `subsampling` (h, v) samples luma at that rate
+    and chroma once a block).  Without JPEG, YCbCr data is written in
+    libtiff's blocks of h*v luma samples, Cb, Cr.  `fill_order` 2 reverses
+    the bits of every stored byte.  `sample_format`, `extra` and
+    `colormap` ((2^bits, 3) 16-bit entries) fill their tags; `jpeg_q` is
+    the JPEG quantizer, `packbits_rng` adds PackBits no-ops; `ifd_first`
+    puts the directory before the data.  `tags` adds or replaces (tag,
+    type, values) entries; `omit` drops tags by number; `seg_data`
+    replaces the stored segments."""
+    s = np.asarray(samples)
+    if s.ndim == 2:
+        s = s[..., None]
+    h, w, n = s.shape
+    bits_t = tuple(bits) if isinstance(bits, (tuple, list)) else (bits,) * n
+    b0 = bits_t[0]
+    fmt = (sample_format[0] if isinstance(sample_format, (tuple, list)) else sample_format) or 1
+    if tile:
+        tw, th = tile
+        grid = [(x, y) for y in range(0, h, th) for x in range(0, w, tw)]
+    else:
+        tw, th = w, rows_per_strip or h
+        grid = [(0, y) for y in range(0, h, th)]
+    planes = [s[..., k:k + 1] for k in range(n)] if planar == 2 else [s]
+    tables = b""
+
+    def encode(seg):
+        nonlocal tables
+        sh, sw, sn = seg.shape
+        if compression == 7:
+            comps = [seg[..., k].astype(np.uint8) for k in range(sn)]
+            fac = [(1, 1)] * sn
+            if photometric == 6 and subsampling and planar == 1:
+                fac[0] = tuple(subsampling)
+            data = encode_jpeg(comps, fac, q=jpeg_q, jfif=False)
+            if jpeg_tables:
+                parts, pos, kept = [], 2, [b"\xff\xd8"]
+                while data[pos + 1] != 0xDA:
+                    ln = struct.unpack(">H", data[pos + 2:pos + 4])[0]
+                    (parts if data[pos + 1] in (0xDB, 0xC4) else kept).append(data[pos:pos + 2 + ln])
+                    pos += 2 + ln
+                tables = b"\xff\xd8" + b"".join(parts) + b"\xff\xd9"
+                data = b"".join(kept) + data[pos:]
+            return data
+        if photometric == 6 and subsampling and planar == 1:
+            hs, vs = subsampling
+            pad = np.pad(seg, ((0, -sh % vs), (0, -sw % hs), (0, 0)), mode="edge").astype(np.int64)
+            bh, bw = pad.shape[0] // vs, pad.shape[1] // hs
+            blk = pad.reshape(bh, vs, bw, hs, 3)
+            ys = blk[..., 0].transpose(0, 2, 1, 3).reshape(bh, bw, vs * hs)
+            cb, cr = blk[:, 0, :, 0, 1], blk[:, 0, :, 0, 2]
+            raw = np.concatenate([ys, cb[..., None], cr[..., None]], -1).astype(np.uint8).tobytes()
+        else:
+            flat = seg.reshape(sh, sw * sn)
+            if predictor == 2:
+                flat = _hor_diff(flat, b0, sn)
+            if predictor == 3:
+                raw = b"".join(_fp_predict(r.astype("<f4").tobytes(), sn) for r in flat)
+            else:
+                raw = _tiff_pack(flat, b0, order, fmt)
+        if compression == 32773:
+            rb = len(raw) // sh
+            return b"".join(packbits(raw[i:i + rb], packbits_rng) for i in range(0, len(raw), rb))
+        if compression == 5:
+            return tiff_lzw(raw)
+        if compression in (8, 32946):
+            return zlib.compress(raw)
+        return raw
+
+    segments, done = [], {}           # equal segments are encoded once
+    for plane in planes:
+        for x, y in grid:
+            seg = plane[y:y + th, x:x + tw]
+            if tile:
+                seg = np.pad(seg, ((0, th - seg.shape[0]), (0, tw - seg.shape[1]), (0, 0)), mode="edge")
+            key = (seg.shape, seg.dtype.str, seg.tobytes())
+            if key not in done or packbits_rng is not None:
+                done[key] = encode(seg)
+            segments.append(done[key])
+    if fill_order == 2:
+        segments = [tiff_reverse_bits(d) for d in segments]
+    if seg_data is not None:
+        segments = list(seg_data)
+    big = header == "bigtiff"
+    entries = {256: (4, [w]), 257: (4, [h]), 258: (3, list(bits_t)), 259: (3, [compression]),
+               262: (3, [photometric]), 277: (3, [n])}
+    if planar != 1:
+        entries[284] = (3, [planar])
+    if fill_order:
+        entries[266] = (3, [fill_order])
+    if sample_format:
+        entries[339] = (3, list(sample_format) if isinstance(sample_format, (tuple, list)) else [fmt] * n)
+    if extra:
+        entries[338] = (3, list(extra))
+    if predictor:
+        entries[317] = (3, [predictor])
+    if colormap is not None:
+        entries[320] = (3, [int(v) for v in np.asarray(colormap).T.reshape(-1)])
+    if subsampling:
+        entries[530] = (3, list(subsampling))
+    if tables and compression == 7:
+        entries[347] = (7, list(tables))
+    lens = [len(d) for d in segments]
+    off_type = 16 if big else 4
+    if tile:
+        entries[322] = (3, [tw])
+        entries[323] = (3, [th])
+        entries[324], entries[325] = (off_type, [0] * len(segments)), (off_type, lens)
+    else:
+        entries[278] = (4, [th])
+        entries[273], entries[279] = (off_type, [0] * len(segments)), (off_type, lens)
+    for tag, typ, vals in tags or ():
+        entries[tag] = (typ, list(vals))
+    for tag in omit:
+        entries.pop(tag, None)
+    hdr_len = 16 if big else 8
+    data_blob = b"".join(segments)
+    nent = len(entries)
+    ifd_len = (8 + 20 * nent + 8) if big else (2 + 12 * nent + 4)
+    ifd_off = hdr_len if ifd_first else hdr_len + len(data_blob) + (len(data_blob) & 1)
+    data_off = hdr_len + ifd_len if ifd_first else hdr_len
+    seg_offs, pos = [], data_off
+    for d in segments:
+        seg_offs.append(pos)
+        pos += len(d)
+    offkey = 324 if tile else 273
+    if offkey in entries:
+        entries[offkey] = (entries[offkey][0], seg_offs)
+    slot = 8 if big else 4
+    extra_off = (ifd_off + ifd_len) if not ifd_first else data_off + len(data_blob)
+    ext = bytearray()
+    body = bytearray()
+    for tag in sorted(entries):
+        typ, vals = entries[tag]
+        if typ in (5, 10):
+            payload = b"".join(struct.pack(order + _TIFF_FMT[typ] * 2, *v) for v in vals)
+            count = len(vals)
+        else:
+            payload = struct.pack(order + _TIFF_FMT[typ] * len(vals), *vals)
+            count = len(vals)
+        if len(payload) <= slot:
+            value = payload.ljust(slot, b"\0")
+        else:
+            value = struct.pack(order + ("Q" if big else "I"), extra_off + len(ext))
+            ext += payload + (b"\0" if len(payload) & 1 else b"")
+        body += struct.pack(order + ("HHQ" if big else "HHI"), tag, typ, count) + value
+    ifd = struct.pack(order + ("Q" if big else "H"), nent) + body + bytes(slot)
+    bo = b"II" if order == "<" else b"MM"
+    if big:
+        head = bo + struct.pack(order + "HHHQ", 43, 8, 0, ifd_off)
+    else:
+        magic = struct.pack(order + "H", 42)
+        head = bo + (magic[::-1] if header == "swapped" else magic) + struct.pack(order + "I", ifd_off)
+    if ifd_first:
+        return bytes(head + ifd + data_blob + ext)
+    return bytes(head + data_blob + (b"\0" if len(data_blob) & 1 else b"") + ifd + ext)
+
+
 def smooth_image(rng, h: int, w: int, c: int, noise: int = 40) -> np.ndarray:
     """Sine gradients per channel plus uniform noise, uint8."""
     y, x = np.mgrid[0:h, 0:w]
@@ -565,6 +841,39 @@ def write_new_format_fixtures(out: Path) -> None:
         smooth_image(rng, 23, 37, 2, noise=8), 10, 16, 0x21, rng=rng))
 
 
+def write_tiff_fixtures(out: Path) -> None:
+    """The TIFF, YCCK and CMYK JPEG fixtures: the first four stand in for
+    textured_obj's ground colour, ground specular, leaf colour and leaf
+    opacity maps (chip_smoke phase 38)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(17)
+    yy, xx = np.mgrid[0:64, 0:64]
+    checker = (xx // 8 + yy // 8) % 2
+    ground = np.stack([96 + 64 * checker, 80 + 40 * checker, 60 + 20 * checker], -1)
+    ground = (ground + rng.integers(0, 6, (64, 64, 3))).astype(np.uint8)
+    (out / "lzw_pred_rgb.tif").write_bytes(make_tiff(ground, 8, 2, compression=5, predictor=2,
+                                                     rows_per_strip=8))
+    gloss = np.clip(xx * 3 + yy, 0, 255)[:50, :37].astype(np.uint8)
+    (out / "deflate_tiles_grey.tif").write_bytes(make_tiff(gloss, 8, 1, compression=32946, tile=(16, 16),
+                                                           order=">"))
+    leaf = np.stack([26 + 20 * checker, 115 + 64 * checker, np.full((64, 64), 20)], -1).astype(np.uint8)
+    ycc = np.asarray(Image.fromarray(leaf).convert("YCbCr"))
+    (out / "jpeg_ycbcr.tif").write_bytes(make_tiff(ycc, 8, 6, compression=7, subsampling=(2, 2),
+                                                   tile=(32, 32), jpeg_q=2))
+    disc = disc_pattern(64)
+    cut = np.where(disc[..., None], [225, 235, 215, 255], [12, 20, 8, 96]).astype(np.uint8)
+    (out / "packbits_rgba.tif").write_bytes(make_tiff(cut, 8, 2, extra=[2], compression=32773, planar=2,
+                                                      rows_per_strip=16, packbits_rng=rng))
+    (out / "bigtiff_planar.tif").write_bytes(make_tiff(smooth_image(rng, 23, 29, 3), 8, 2, header="bigtiff",
+                                                       planar=2, compression=8, rows_per_strip=10))
+    (out / "ycbcr22_lzw.tif").write_bytes(make_tiff(smooth_image(rng, 19, 27, 3), 8, 6, compression=5,
+                                                    subsampling=(2, 2), rows_per_strip=6))
+    (out / "ycck.jpg").write_bytes(encode_jpeg([smooth_image(rng, 21, 35, 1)[..., 0] for _ in range(4)],
+                                               [(2, 2), (1, 1), (1, 1), (2, 2)], q=3, adobe=2))
+    Image.fromarray(smooth_image(rng, 24, 30, 4), "CMYK").save(out / "cmyk.jpg", quality=90)
+
+
 def write_fixtures(out: Path = FIXTURES) -> dict:
     """Write the committed fixtures and expected.json; returns the digests."""
     from PIL import Image
@@ -592,6 +901,7 @@ def write_fixtures(out: Path = FIXTURES) -> dict:
                     128 + 90 * np.sin((x + y) / 211)], -1).astype(np.uint8)
     Image.fromarray(big).save(out / "smooth1024.jpg", quality=90)
     write_new_format_fixtures(out)
+    write_tiff_fixtures(out)
     digests = {name: {str(g).lower(): pixels_digest(load_texture_file(str(out / name), g))
                       for g in (False, True)} for name in FIXTURE_NAMES}
     (out / "expected.json").write_text(json.dumps({

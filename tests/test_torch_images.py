@@ -39,7 +39,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from _torch_image_helpers import (FIXTURE_NAMES, FIXTURES, disc_pattern,  # noqa: E402
                                   encode_bmp_rle, encode_gif, encode_jpeg, encode_pnm, encode_psd,
-                                  make_bmp, make_png, make_tga, smooth_image)
+                                  make_bmp, make_png, make_tga, make_tiff, smooth_image)
 from realtimeraytracer_torch.ops import bvh as tbvh  # noqa: E402
 from realtimeraytracer_torch.ops import camera_rays as tcam  # noqa: E402
 from realtimeraytracer_torch.ops import vecmath as tvm  # noqa: E402
@@ -775,19 +775,34 @@ def test_truncated_and_corrupt_files_raise(tmp_path, name):
 
 
 def test_refused_formats_and_features_raise(tmp_path):
-    """Formats and features not ported raise ValueError naming them: TIFF,
-    WebP, CMYK JPEG, 12-bit, arithmetic-coded, lossless and hierarchical
-    JPEG, an incomplete progressive JPEG, Lab PSD."""
+    """Formats and features not ported raise ValueError naming them: WebP,
+    the TIFF codecs left out (CCITT, old-style JPEG, ThunderScan, SGILog,
+    LZMA, ZSTD, WebP) and Lab TIFF, a two-component JPEG, 12-bit,
+    arithmetic-coded, lossless and hierarchical JPEG, an incomplete
+    progressive JPEG, Lab PSD."""
     img = Image.fromarray(smooth_image(np.random.default_rng(0), 16, 16, 3))
-    for fmt, words in (("TIFF", "TIFF"), ("WEBP", "WebP")):
+    buf = io.BytesIO()
+    img.save(buf, format="WEBP")
+    with pytest.raises(ValueError, match="WebP"):
+        image_decode.decode_image(buf.getvalue())
+    for mode, compression, words in (("1", "group4", "CCITT Group 4"), ("1", "group3", "CCITT Group 3"),
+                                     ("1", "tiff_ccitt", "CCITT RLE"), ("RGB", "lzma", "LZMA"),
+                                     ("RGB", "zstd", "ZSTD")):
         buf = io.BytesIO()
-        img.save(buf, format=fmt)
+        img.convert(mode).save(buf, format="TIFF", compression=compression)
         with pytest.raises(ValueError, match=words):
             image_decode.decode_image(buf.getvalue())
-    cmyk = io.BytesIO()
-    img.convert("CMYK").save(cmyk, format="JPEG")
-    with pytest.raises(ValueError, match="CMYK"):
-        image_decode.decode_image(cmyk.getvalue())
+    # Pillow's WebP-in-TIFF writer crashes: these codes are written by hand.
+    for code, words in ((6, "old-style JPEG"), (32809, "ThunderScan"), (34676, "SGILog"), (50001, "WebP"),
+                        (12345, "compression 12345")):
+        with pytest.raises(ValueError, match=words):
+            image_decode.decode_image(make_tiff(np.zeros((4, 4, 3), int), 8, 2, compression=1,
+                                                tags=[(259, 3, [code])]))
+    with pytest.raises(ValueError, match="Lab"):
+        image_decode.decode_image(make_tiff(np.zeros((4, 4, 3), int), 8, 8))
+    two = encode_jpeg([np.zeros((8, 8), np.uint8)] * 2, [(1, 1)] * 2)
+    with pytest.raises(ValueError, match="2 components"):
+        image_decode.decode_image(two)
     base = _fixture("base422_rst.jpg")
     sof = base.index(b"\xff\xc0")
     for marker, precision, words in ((b"\xff\xc0", 12, "12-bit"), (b"\xff\xc9", 8, "arithmetic"),
@@ -874,6 +889,349 @@ def test_8bit_sky_diverges_from_jax_as_stb(tmp_path):
     sky = tol.load_hdr(str(g))
     grey = np.asarray(Image.open(g), np.float32)[::-1] / 255.0
     assert sky.shape == (6, 10, 3) and np.array_equal(sky, np.repeat(grey[..., None], 3, -1))
+
+
+# ---------------------------------------------------------------- TIFF ----
+
+def _tiff_same_as_jax(tmp_path, name, data):
+    p = tmp_path / name
+    p.write_bytes(data)
+    _same_as_jax(p)
+
+
+def _both_raise(tmp_path, name, data, words=None):
+    """The JAX package (Pillow) raises on the file for both grayscale
+    values, and so does the port, with ValueError."""
+    p = tmp_path / name
+    p.write_bytes(data)
+    for grayscale in (False, True):
+        with pytest.raises(Exception):   # noqa: B017 - whatever Pillow raises
+            jol.load_texture_file(str(p), grayscale)
+    with pytest.raises(ValueError, match=words):
+        image_decode.decode_image(data)
+
+
+def _same_or_both_raise(tmp_path, name, data, words=None):
+    """Bit-equal where Pillow reads the file; ValueError where it raises."""
+    p = tmp_path / name
+    p.write_bytes(data)
+    try:
+        Image.open(p).load()
+    except Exception:                      # noqa: BLE001 - Pillow refuses: so must the port
+        _both_raise(tmp_path, f"bad-{name}", data, words)
+        return
+    _same_as_jax(p)
+
+
+def _samples(rng, h, w, n, bits=8, fmt=1):
+    if fmt == 3:
+        return (rng.random((h, w, n)) * 2 - 0.3).astype(np.float32)
+    if fmt == 2:
+        return rng.integers(-(1 << (bits - 1)), 1 << (bits - 1), (h, w, n))
+    return rng.integers(0, 1 << bits, (h, w, n))
+
+
+# Pillow's OPEN_INFO entries by family: (samples, bits, photometric, tags).
+TIFF_MODES = {
+    "1-black0": (1, 1, 1, {}), "1-white0": (1, 1, 0, {}), "L2": (1, 2, 1, {}), "L2-white0": (1, 2, 0, {}),
+    "L4": (1, 4, 1, {}), "L4-white0": (1, 4, 0, {}), "L": (1, 8, 1, {}), "L-white0": (1, 8, 0, {}),
+    "LA": (2, 8, 1, dict(extra=[2])), "RGB": (3, 8, 2, {}), "RGBX": (4, 8, 2, dict(extra=[0])),
+    "RGBXX": (5, 8, 2, dict(extra=[0, 0])), "RGBA": (4, 8, 2, dict(extra=[2])),
+    "RGBa": (4, 8, 2, dict(extra=[1])), "RGBaX": (5, 8, 2, dict(extra=[1, 0])),
+    "RGBA-no-extra": (4, 8, 2, {}), "RGBA-corel": (4, 8, 2, dict(extra=[999])),
+    "RGBAXX": (6, 8, 2, dict(extra=[2, 0, 0])), "RGB16": (3, 16, 2, {}), "RGBA16": (4, 16, 2, dict(extra=[2])),
+    "RGBa16": (4, 16, 2, dict(extra=[1])), "RGBX16": (4, 16, 2, dict(extra=[0])), "CMYK": (4, 8, 5, {}),
+    "CMYKX": (5, 8, 5, dict(extra=[0])), "P1": (1, 1, 3, {}), "P2": (1, 2, 3, {}), "P4": (1, 4, 3, {}),
+    "P": (1, 8, 3, {}), "PA": (2, 8, 3, dict(extra=[2])), "PX": (2, 8, 3, dict(extra=[0])),
+    "YCbCr-raw-RGBX": (3, 8, 6, dict(subsampling=(1, 1))), "I32": (1, 32, 1, dict(sample_format=2)),
+    "F": (1, 32, 1, dict(sample_format=3)),
+}
+TIFF_LAYOUTS = {"strips": dict(rows_per_strip=4), "tiles": dict(tile=(16, 16)),
+                "planar": dict(rows_per_strip=4, planar=2)}
+
+
+@pytest.mark.parametrize("mode", sorted(TIFF_MODES))
+def test_tiff_modes_match_jax(tmp_path, mode):
+    """Every mode of Pillow's TIFF table that convert accepts, in both byte
+    orders, raw (Pillow's own unpackers: a planar file reads each plane by
+    its band's letter) and PackBits, LZW and Deflate (libtiff's path:
+    host-order samples, a big-endian 32-bit file read byte-swapped), in
+    strips, tiles and planes: bit-equal, or raising where
+    Pillow raises (a planar RGBX, a band letter without an unpacker)."""
+    n, bits, photo, tags = TIFF_MODES[mode]
+    rng = np.random.default_rng(sorted(TIFF_MODES).index(mode))
+    for order in "<>":
+        for comp in (1, 32773, 5, 8):
+            for layout, kw in TIFF_LAYOUTS.items():
+                s = _samples(rng, 9, 13, n, bits, tags.get("sample_format", 1))
+                if mode == "I32":
+                    s //= 1000
+                kw = {**tags, **kw}
+                if photo == 3:
+                    kw["colormap"] = rng.integers(0, 65536, (1 << bits, 3))
+                _same_or_both_raise(tmp_path, f"{order}{comp}{layout}.tif",
+                                    make_tiff(s, bits, photo, order=order, compression=comp, **kw))
+
+
+@pytest.mark.parametrize("compression", ["raw", "packbits", "tiff_lzw", "tiff_adobe_deflate", "tiff_deflate",
+                                         "jpeg"])
+def test_pillow_tiff_matches_jax(tmp_path, compression):
+    """TIFFs Pillow writes (libtiff for every compression but raw) in each
+    mode it saves, at sizes that end strips and MCUs mid-way.  Pillow's
+    libtiff-written JPEG TIFFs of modes 1, P, I;16, I and F corrupt its heap,
+    so those are left out."""
+    rng = np.random.default_rng(3)
+    for h, w in ((13, 11), (1, 1), (40, 33)):
+        base = smooth_image(rng, h, w, 4)
+        images = {"1": Image.fromarray(base[..., 0] > 128), "L": Image.fromarray(base[..., 0]),
+                  "LA": Image.fromarray(base[..., :2], "LA"), "P": Image.fromarray(base[..., :3]).quantize(37),
+                  "RGB": Image.fromarray(base[..., :3]), "RGBA": Image.fromarray(base, "RGBA"),
+                  "CMYK": Image.fromarray(base, "CMYK"), "YCbCr": Image.fromarray(base[..., :3], "YCbCr"),
+                  "I": Image.fromarray(base[..., 0].astype(np.int32) * 3 - 200),
+                  "F": Image.fromarray(base[..., 0].astype(np.float32) / 100 - 0.3)}
+        for mode, img in images.items():
+            if compression == "jpeg" and mode in ("1", "P", "I", "F"):
+                continue
+            p = _save(tmp_path, f"{mode}{h}x{w}.tif", img, compression=compression)
+            if mode == "YCbCr" and compression == "raw":   # Pillow's raw reader takes 4 bytes a pixel
+                _both_raise(tmp_path, "ycbcr-raw.tif", p.read_bytes(), "truncated")
+                continue
+            _same_as_jax(p)
+
+
+def test_tiff_predictors_match_jax(tmp_path):
+    """Predictor 2 at 8, 16 and 32 bits (after libtiff's byte swap) and 3
+    on float samples, with LZW and both Deflate codes, in strips, tiles and
+    planes, both byte orders; a predictor on a PackBits file is ignored, as
+    libtiff ignores it."""
+    rng = np.random.default_rng(4)
+    for bits, photo, n, fmt in ((8, 1, 1, None), (8, 2, 3, None), (16, 2, 3, None), (32, 1, 1, 2),
+                                (8, 2, 4, None), (8, 5, 4, None), (32, 1, 1, 3)):
+        for comp in (5, 8, 32946):
+            for layout in TIFF_LAYOUTS.values():
+                for order in "<>":
+                    s = _samples(rng, 19, 27, n, min(bits, 16), fmt or 1)
+                    kw = dict(sample_format=fmt) if fmt else {}
+                    if n == 4 and photo == 2:
+                        kw["extra"] = [2]
+                    for pred in (2, 3) if fmt == 3 else (2,):
+                        _tiff_same_as_jax(tmp_path, f"p{bits}{photo}{comp}{order}{pred}.tif",
+                                          make_tiff(s, bits, photo, order=order, compression=comp,
+                                                    predictor=pred, **kw, **layout))
+    _tiff_same_as_jax(tmp_path, "pb-pred.tif", make_tiff(smooth_image(rng, 9, 13, 3), 8, 2, compression=32773,
+                                                         predictor=2))
+
+
+@pytest.mark.parametrize("subsampling", [(1, 1), (2, 1), (1, 2), (2, 2), (4, 1), (4, 2), (4, 4)])
+def test_tiff_ycbcr_matches_jax(tmp_path, subsampling):
+    """YCbCr without JPEG, which Pillow reads through libtiff's RGBA
+    interface: each block of luma with its Cb and Cr, libtiff's float-built
+    YCbCr tables (ReferenceBlackWhite and YCbCrCoefficients too), strips
+    that end mid-block (gtStripContig's rounded-down scanlines, zeroed
+    past them), tiles cut at the image's edge (putcontig8bitYCbCr44tile
+    skips 10 bytes a block there, not 18)."""
+    rng = np.random.default_rng(5)
+    for comp in (32773, 5, 8):
+        for layout in ({"rows_per_strip": 3}, {"rows_per_strip": 8}, {"tile": (16, 16)}, {}):
+            for h, w in ((19, 27), (19, 8), (5, 13)):
+                _tiff_same_as_jax(tmp_path, f"y{comp}{h}{w}.tif", make_tiff(
+                    smooth_image(rng, h, w, 3), 8, 6, compression=comp, subsampling=subsampling, **layout))
+    _tiff_same_as_jax(tmp_path, "y-ref.tif", make_tiff(
+        smooth_image(rng, 19, 27, 3), 8, 6, compression=5, subsampling=subsampling, rows_per_strip=4,
+        tags=[(532, 5, [(16, 1), (235, 1), (128, 1), (240, 1), (128, 1), (240, 1)]),
+              (529, 5, [(2126, 10000), (7152, 10000), (722, 10000)])]))
+
+
+TIFF_JPEG = {"ycbcr": (3, 6, {}), "rgb": (3, 2, {}), "grey": (1, 1, {}), "cmyk": (4, 5, {}),
+             "rgba": (4, 2, dict(extra=[2])), "la": (2, 1, dict(extra=[2]))}
+
+
+@pytest.mark.parametrize("kind", sorted(TIFF_JPEG))
+def test_tiff_jpeg_matches_jax(tmp_path, kind):
+    """Compression 7: each strip or tile an abbreviated JPEG (its tables in
+    JPEGTables, or its own), decoded by the port's JPEG decoder as libtiff
+    asks libjpeg: YCbCr converted to RGB (JPEGCOLORMODE_RGB) at the
+    stream's sampling, any other photometric's components as they are;
+    a last strip coded taller than the image is cut."""
+    n, photo, tags = TIFF_JPEG[kind]
+    rng = np.random.default_rng(6)
+    subs = [(1, 1), (2, 1), (1, 2), (2, 2)] if photo == 6 else [None]
+    for sub in subs:
+        for layout in ({"rows_per_strip": 8}, {"rows_per_strip": 16}, {"tile": (16, 16)}, {}):
+            for tables in (True, False):
+                order = ">" if tables else "<"
+                kw = dict(tags, **layout)
+                if sub:
+                    kw["subsampling"] = sub
+                _tiff_same_as_jax(tmp_path, f"j{sub}{tables}.tif", make_tiff(
+                    smooth_image(rng, 19, 27, n), 8, photo, order=order, compression=7, jpeg_tables=tables,
+                    **kw))
+    # 32 rows coded, ImageLength 19: the second strip's JPEG is 16 rows for 3.
+    tall = make_tiff(smooth_image(rng, 32, 27, n), 8, photo, compression=7, rows_per_strip=16,
+                     tags=[(257, 4, [19])], **tags)
+    _tiff_same_as_jax(tmp_path, "tall.tif", tall)
+
+
+def test_tiff_containers_and_orientation_match_jax(tmp_path):
+    """BigTIFF; the two "invalid" byte-order prefixes (Pillow's raw reader
+    takes them, libtiff refuses them); the directory before the data;
+    every Orientation (Pillow 12 transposes at load); FillOrder 2 on every
+    entry that has one (raw: Pillow's ";R" unpackers, where they exist;
+    compressed: libtiff reverses the bytes first)."""
+    rng = np.random.default_rng(7)
+    rgb = smooth_image(rng, 19, 27, 3)
+    for order in "<>":
+        for comp in (1, 5, 8, 32773, 7):
+            big = make_tiff(rgb, 8, 2, order=order, header="bigtiff", compression=comp, rows_per_strip=7)
+            swapped = make_tiff(rgb, 8, 2, order=order, header="swapped", compression=comp, rows_per_strip=7)
+            if order == "<":
+                _tiff_same_as_jax(tmp_path, f"big{comp}.tif", big)
+            else:        # Pillow reads a big-endian BigTIFF's header as a classic one's
+                _both_raise(tmp_path, f"bigmm{comp}.tif", big, "BigTIFF")
+            if comp == 1:
+                _tiff_same_as_jax(tmp_path, f"sw{order}.tif", swapped)
+            else:
+                _both_raise(tmp_path, f"sw{order}{comp}.tif", swapped, "byte order")
+    for comp in (1, 5):
+        _tiff_same_as_jax(tmp_path, f"first{comp}.tif", make_tiff(
+            smooth_image(rng, 9, 13, 4), 8, 2, extra=[2], compression=comp, ifd_first=True, rows_per_strip=3))
+        for o in range(0, 10):
+            _tiff_same_as_jax(tmp_path, f"o{o}{comp}.tif", make_tiff(rgb, 8, 2, compression=comp,
+                                                                   tags=[(274, 3, [o])]))
+            _tiff_same_as_jax(tmp_path, f"op{o}{comp}.tif", make_tiff(
+                rng.integers(0, 16, (9, 13)), 4, 3, compression=comp, colormap=rng.integers(0, 65536, (16, 3)),
+                tile=(16, 16), tags=[(274, 3, [o])]))
+    for bits, photo in ((1, 0), (1, 1), (2, 1), (4, 0), (8, 1), (8, 0), (8, 2), (1, 3), (2, 3), (4, 3), (8, 3)):
+        for comp in (1, 32773, 5, 8):
+            for order in "<>":
+                s = rng.integers(0, 1 << bits, (9, 13, 3 if photo == 2 else 1))
+                kw = dict(colormap=rng.integers(0, 65536, (1 << bits, 3))) if photo == 3 else {}
+                _same_or_both_raise(tmp_path, f"f{bits}{photo}{comp}{order}.tif",    # no "P;2R" unpacker
+                                    make_tiff(s, bits, photo, order=order, compression=comp, fill_order=2, **kw))
+
+
+def test_tiff_directory_faults_raise_as_jax(tmp_path):
+    """Where Pillow refuses a TIFF, so does the port: a layout not in its
+    table, too many samples, no ColorMap, no offsets, a strip or tile past
+    the file's end, a raw strip cut short, a directory whose values lie
+    past the end (Pillow stops reading it there); and a codec's data cut
+    short or corrupt raises for every compression (a cut that leaves the
+    image whole reads as Pillow reads it)."""
+    rng = np.random.default_rng(8)
+    rgb = smooth_image(rng, 9, 13, 3)
+    cases = {
+        "no-mode": make_tiff(rng.integers(0, 8, (9, 13, 1)), 3, 1),
+        "mm-unsigned32": make_tiff(rng.integers(0, 9, (9, 13, 1)), 32, 1, order=">"),
+        "seven-samples": make_tiff(rng.integers(0, 9, (9, 13, 7)), 8, 2),
+        "no-colormap": make_tiff(rng.integers(0, 9, (9, 13, 1)), 8, 3),
+        "no-offsets": make_tiff(rgb, 8, 2, omit=(273,)),
+        "no-dimensions": make_tiff(rgb, 8, 2, omit=(257,)),
+        "bps-past-end": make_tiff(rgb, 8, 2, tags=[(258, 3, [8, 8, 8])])[:-4],
+        "windows-media-photo": make_tiff(rgb, 8, 2, tags=[(0xBC01, 3, [1])]),
+        "lab-grey": make_tiff(rgb, 8, 8),
+    }
+    for name, data in cases.items():
+        p = tmp_path / f"{name}.tif"
+        p.write_bytes(data)
+        if name == "lab-grey":   # convert("RGBA") reads Lab, convert("L") refuses it
+            with pytest.raises(ValueError):
+                jol.load_texture_file(str(p), grayscale=True)
+            with pytest.raises(ValueError, match="Lab"):
+                image_decode.decode_image(data)
+            continue
+        _both_raise(tmp_path, f"{name}-2.tif", data)
+    for comp in (1, 32773, 5, 8, 7):
+        data = make_tiff(rgb, 8, 2, compression=comp, ifd_first=True, rows_per_strip=5)
+        for cut in (len(data) - 1, len(data) - 9, len(data) * 3 // 4):
+            _same_or_both_raise(tmp_path, f"cut{comp}-{cut}.tif", data[:cut])
+    for comp, junk in ((5, bytes([0x80, 0x40, 0x30]) * 8), (8, b"\x78\x9c\xff\xff" * 4),
+                       (32773, b"\x7f\x00"), (7, b"\xff\xd8\xff\xd9")):
+        data = make_tiff(rgb, 8, 2, compression=comp, rows_per_strip=9, seg_data=[junk])
+        _both_raise(tmp_path, f"junk{comp}.tif", data)
+    # Tile and strip sizes past the file or past 32 bits (a BigTIFF's
+    # LONG8): Pillow's raw reader takes the row stride as a C int, libtiff
+    # reads the three tags as 32-bit values.
+    g = rng.integers(0, 256, (5, 4), dtype=np.uint8)
+    for comp in (1, 5):
+        for name, kw in (("tw62", dict(tile=(4, 5), tags=[(322, 16, [2 ** 62]), (323, 16, [5])])),
+                         ("th62", dict(tile=(4, 5), tags=[(322, 16, [4]), (323, 16, [2 ** 62])])),
+                         ("rps62", dict(tags=[(278, 16, [2 ** 62])])),
+                         ("tw20", dict(tile=(4, 5), tags=[(322, 16, [2 ** 20])])),
+                         ("spp-count2", dict(tags=[(277, 3, [1, 1])])),
+                         ("w-count2", dict(tags=[(256, 4, [4, 4])]))):
+            _same_or_both_raise(tmp_path, f"{name}-{comp}.tif", make_tiff(g, 8, 1, header="bigtiff",
+                                                                       compression=comp, **kw))
+
+
+@pytest.mark.parametrize("mode", ["L", "P", "RGBA", "CMYK", "L-planar"])
+def test_tiff_mapped_orientation_matches_jax(tmp_path, mode):
+    """Pillow memory-maps a lone uncompressed strip or tile whose rawmode
+    is its mode: it reads the whole image from that offset, whatever the
+    tile's extent, at the size Orientation 5-8 has already swapped (so the
+    bytes are read as an image h wide and w high before they are
+    transposed); the port reads them so.  A tile wider than the image
+    keeps its stride, a map past the file's end raises, a strip cut short
+    of the tile's own stride decodes as usual; where the last mapped row
+    runs past the file's end (rows that overlap), Pillow reads past the
+    file and the port raises."""
+    rng = np.random.default_rng(12)
+    h, w = 7, 11
+    photo, kw = {"L": (1, {}), "P": (3, dict(colormap=rng.integers(0, 65536, (256, 3)))),
+                 "RGBA": (2, dict(extra=[2])), "CMYK": (5, {}), "L-planar": (1, dict(planar=2))}[mode]
+    s = rng.integers(0, 256, (h, w, {"RGBA": 4, "CMYK": 4}.get(mode, 1)))
+    blob = rng.integers(0, 256, 8 * h * w, dtype=np.uint8).tobytes()
+    for o in (1, 5, 6, 7, 8):
+        for layout in (dict(), dict(tile=(16, 16)), dict(rows_per_strip=3),
+                       dict(tile=(4, 4), seg_data=[blob]), dict(tile=(16, 4), seg_data=[blob])):
+            data = make_tiff(s, 8, photo, tags=[(274, 3, [o])], **kw, **layout)
+            for cut in (len(data), len(data) - 3):
+                _same_or_both_raise(tmp_path, f"m{o}{len(layout)}{cut}.tif", data[:cut])
+    if mode == "L":   # rows 4 bytes apart, 7 long once turned, the data last in the file
+        data = make_tiff(s[:, :2], 8, 1, tile=(4, 8), seg_data=[blob[:8]], ifd_first=True, tags=[(274, 3, [6])])
+        assert data.endswith(blob[:8])
+        with pytest.raises(ValueError, match="truncated"):
+            image_decode.decode_image(data)
+
+
+@pytest.mark.parametrize("adobe", [None, 0, 1, 2])
+def test_cmyk_and_ycck_jpeg_match_jax(tmp_path, adobe):
+    """Four-component JPEG: CMYK without an Adobe marker or with transform
+    0, YCCK with any other transform (jdcolor.c ycck_cmyk_convert), each
+    component upsampled on its own at any integral sampling, restart
+    markers; Pillow reads every one as "CMYK;I" (Adobe's inverted
+    samples) and convert applies cmyk2rgb."""
+    rng = np.random.default_rng(9 + (adobe or 0))
+    factors = ([(1, 1)] * 4, [(2, 2), (1, 1), (1, 1), (2, 2)], [(2, 1), (1, 1), (1, 1), (2, 1)],
+               [(1, 2), (1, 1), (1, 1), (1, 2)], [(1, 1), (2, 2), (1, 1), (1, 1)], [(4, 1), (1, 1), (1, 1), (1, 1)])
+    for h, w in SIZES:
+        planes = [smooth_image(rng, h, w, 1)[..., 0] for _ in range(4)]
+        for fac in factors:
+            for restart in (0, 2):
+                _tiff_same_as_jax(tmp_path, f"c{h}x{w}.jpg",
+                                  encode_jpeg(planes, fac, q=3, adobe=adobe, jfif=False, restart=restart))
+        if adobe is None:    # Pillow writes an Adobe marker of transform 0
+            img = Image.fromarray(np.stack(planes, -1), "CMYK")
+            for kw in (dict(quality=90), dict(quality=50, progressive=True), dict(restart_marker_blocks=2)):
+                _same_as_jax(_save(tmp_path, f"p{h}x{w}.jpg", img, **kw))
+
+
+def test_16bit_tiff_grey_diverges_from_jax_as_stb(tmp_path):
+    """Pillow opens 16-bit grey TIFF as "I;16", "I;16B" or (signed) "I",
+    and the JAX package's convert clips each sample to 255; the port takes
+    the high byte, as for 16-bit PNG and PGM (stb_image's rule; a negative
+    signed sample reads 0) (ROADMAP, "Faults of the reference")."""
+    samples = np.array([[55745, 41743, 33497, 200, 0]], np.int64)
+    signed = np.array([[30000, 1000, 255, -5, -30000]], np.int64)
+    for name, s, fmt, order, comp in (("i16.tif", samples, None, "<", 1), ("i16b.tif", samples, None, ">", 5),
+                                      ("i16s.tif", signed, 2, "<", 8), ("i16bs.tif", signed, 2, ">", 1)):
+        p = tmp_path / name
+        p.write_bytes(make_tiff(s, 16, 1, order=order, compression=comp, sample_format=fmt))
+        want_jax = np.clip(s[0], 0, 255).astype(np.float32) / 255
+        want = (np.maximum(s[0], 0) >> 8).astype(np.float32) / 255
+        for grayscale in (False, True):
+            assert np.array_equal(jol.load_texture_file(str(p), grayscale)[0, :, 0], want_jax), name
+            assert np.array_equal(tol.load_texture_file(str(p), grayscale)[0, :, 0], want), name
+        assert image_decode.decode_image(p.read_bytes())[1] == Image.open(p).mode
 
 
 def test_validate_bvh_matches_jax():

@@ -67,6 +67,9 @@ from realtimeraytracer_torch.scene.gpu_scene import alpha_subset_amask, from_num
 from realtimeraytracer_torch.utils import png
 from realtimeraytracer_torch.utils.image_io import to_uint8, write_png
 
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from _torch_image_helpers import encode_pnm, make_tiff  # noqa: E402
+
 torch.set_num_threads(2)
 
 MODES = {1: "L", 3: "RGB", 4: "RGBA"}
@@ -184,6 +187,97 @@ def test_hdr_codec_matches_jax(fixtures, tmp_path):
                                   jax_obj.decode_radiance_hdr(data))
     sky = scenes.make_sky_gradient(8, 16)
     assert obj_loader.encode_radiance_hdr(sky) == jax_obj.encode_radiance_hdr(sky)
+
+
+def test_float_tiff_sky_matches_jax(tmp_path):
+    """A grey float TIFF sky is linear radiance: the port's load_hdr gives
+    the JAX package's (imageio's bundled tifffile: the samples as stored,
+    in their true byte order, no Orientation applied) with and without
+    tone_encode, NaN and infinities included, over raw, LZW with the
+    floating-point predictor and Deflate, planar and tiled files, both
+    byte orders."""
+    rng = np.random.default_rng(31)
+    for order in "<>":
+        for comp, pred in ((1, None), (5, 3), (8, None), (32946, 3)):
+            for layout in (dict(rows_per_strip=3), dict(tile=(16, 16)), dict(planar=2, rows_per_strip=4)):
+                if pred and "tile" in layout:   # the bundled tifffile raises NotImplementedError
+                    continue
+                f = (rng.random((7, 9)) * 3 - 0.5).astype(np.float32)
+                f[0, 0], f[1, 1], f[2, 2] = np.nan, np.inf, -np.inf
+                p = tmp_path / f"sky{order}{comp}.tif"
+                p.write_bytes(make_tiff(f, 32, 1, order=order, compression=comp, predictor=pred,
+                                        sample_format=3, tags=[(274, 3, [6])], **layout))
+                for tone in (True, False):
+                    want = jax_obj.load_hdr(str(p), tone_encode=tone)
+                    got = obj_loader.load_hdr(str(p), tone_encode=tone)
+                    assert got.dtype == np.float32 and got.shape == want.shape == (7, 9, 3)
+                    np.testing.assert_array_equal(got, want)
+
+
+def test_16bit_tiff_sky_diverges_from_jax(tmp_path):
+    """JAX's imageio gives a 16- or 32-bit integer sky's samples undivided,
+    so tone_encode makes it white (the 8-bit sky fault's class); the port
+    reads the texture path's bytes (a 16-bit sample's high byte) as an
+    8-bit sky: texel / 255, and (texel / 255) ** 2.2 without tone_encode
+    (ROADMAP, "Faults of the reference")."""
+    samples = np.array([[0, 255, 4660, 40000, 65535]], np.int64)
+    p = tmp_path / "sky16.tif"
+    p.write_bytes(make_tiff(samples, 16, 1, compression=5))
+    assert np.array_equal(jax_obj.load_hdr(str(p))[0, :, 0], np.array([0, 1, 1, 1, 1], np.float32))
+    assert np.array_equal(jax_obj.load_hdr(str(p), tone_encode=False)[0, :, 0], samples[0].astype(np.float32))
+    texel = (samples[0] >> 8).astype(np.float32) / 255
+    assert np.array_equal(obj_loader.load_hdr(str(p))[0, :, 0], texel)
+    np.testing.assert_allclose(obj_loader.load_hdr(str(p), tone_encode=False)[0, :, 0], texel ** 2.2, rtol=1e-6)
+
+
+def test_pfm_sky_diverges_from_jax(tmp_path):
+    """A PFM sky is linear radiance, as a float TIFF's: the port takes its
+    float samples through the .hdr branch's clamp and encoding.  JAX's
+    imageio reads it through Pillow as bytes, each sample rounded and
+    clipped to [0, 255], and leaves them undivided (ROADMAP, "Faults of
+    the reference")."""
+    samples = np.array([[-1.0, 0.0, 0.4, 0.6, 2.9], [0.25, 64.5, 254.9, 255.0, 1e6]], np.float32)
+    p = tmp_path / "sky.pfm"
+    p.write_bytes(encode_pnm(samples, b"Pf"))
+    rounded = np.clip(np.round(samples), 0, 255)[::-1]
+    assert np.array_equal(jax_obj.load_hdr(str(p), tone_encode=False)[..., 0], rounded)
+    assert np.array_equal(jax_obj.load_hdr(str(p))[..., 0], np.minimum(rounded, 1))
+    for tone in (True, False):
+        got = obj_loader.load_hdr(str(p), tone_encode=tone)
+        want = samples[::-1, :, None].repeat(3, -1)
+        want = np.clip(want, 0, 1) ** (1 / 2.2) if tone else want
+        assert got.dtype == np.float32 and got.shape == (2, 5, 3)
+        np.testing.assert_array_equal(got, want.astype(np.float32))
+
+
+@pytest.mark.parametrize("case", ["rgb-float", "half-float", "orientation"])
+def test_tiff_sky_layouts_diverge_from_jax(tmp_path, case):
+    """Where JAX's imageio (its bundled tifffile) and Pillow part on a TIFF
+    sky (ROADMAP A11 and "Faults of the reference"): a float TIFF of three
+    channels or of 16-bit samples loads in JAX, and the port raises, as
+    its texture path and Pillow do (no mode in Pillow's table); an 8-bit
+    sky with an Orientation comes as stored in JAX and turned as Pillow
+    turns it in the port."""
+    rng = np.random.default_rng(33)
+    p = tmp_path / f"{case}.tif"
+    if case == "orientation":
+        g = rng.integers(0, 256, (3, 5, 3), dtype=np.uint8)
+        p.write_bytes(make_tiff(g, 8, 2, tags=[(274, 3, [6])]))
+        assert np.array_equal(jax_obj.load_hdr(str(p), tone_encode=False), g[::-1].astype(np.float32))
+        turned = np.asarray(Image.open(p), np.float32)
+        assert turned.shape == (5, 3, 3) and np.array_equal(turned, np.rot90(g, -1))
+        assert np.array_equal(obj_loader.load_hdr(str(p)), turned[::-1] / 255)
+        return
+    f = (rng.random((3, 5, 3)) * 2).astype(np.float32) if case == "rgb-float" else \
+        (rng.random((3, 5)) * 2).astype(np.float16)
+    p.write_bytes(make_tiff(f, 32 if case == "rgb-float" else 16, 2 if case == "rgb-float" else 1,
+                            sample_format=3))
+    want = f if f.ndim == 3 else np.repeat(f[..., None], 3, -1)
+    assert np.array_equal(jax_obj.load_hdr(str(p), tone_encode=False), want[::-1].astype(np.float32))
+    with pytest.raises(ValueError, match="no Pillow mode"):
+        obj_loader.load_hdr(str(p))
+    with pytest.raises(Exception):   # noqa: B017 - whatever Pillow raises
+        jax_obj.load_texture_file(str(p), False)
 
 
 def test_obj_mtl_loader_matches_jax(fixtures):
@@ -352,9 +446,9 @@ def test_write_png_roundtrip(tmp_path):
 def test_port_needs_no_pillow():
     """With Pillow and imageio made unimportable, every module of the port
     imports, textured_obj writes and loads its PNGs and compiles, and
-    load_texture_file reads a committed JPEG, the TGA, GIF and PSD
-    fixtures (tests/data/images) through the native decoder; nothing
-    imported PIL.
+    load_texture_file reads a committed JPEG, the TGA, GIF, PSD, TIFF
+    (LZW, Deflate, JPEG) and YCCK JPEG fixtures (tests/data/images)
+    through the native decoder; nothing imported PIL.
     No source file of the port, nor chip_smoke.py, imports jax, PIL or
     imageio."""
     code = textwrap.dedent("""
@@ -372,7 +466,9 @@ def test_port_needs_no_pillow():
         gpu = scenes.textured_obj().compile()
         assert gpu.has_textures and gpu.pallas_amask is not None
         for name, shape in (("prog420_odd.jpg", (45, 61, 3)), ("rle.tga", (64, 64, 4)),
-                            ("frame.gif", (64, 64, 4)), ("leaf.psd", (64, 64, 3))):
+                            ("frame.gif", (64, 64, 4)), ("leaf.psd", (64, 64, 3)),
+                            ("lzw_pred_rgb.tif", (64, 64, 3)), ("deflate_tiles_grey.tif", (50, 37, 4)),
+                            ("jpeg_ycbcr.tif", (64, 64, 3)), ("ycck.jpg", (21, 35, 4))):
             tex = load_texture_file("tests/data/images/" + name)
             assert tex.shape == shape and 0.0 <= tex.min() and tex.max() <= 1.0, name
         assert not any(k.split(".")[0] in ("PIL", "imageio") for k in sys.modules)
