@@ -876,11 +876,12 @@ def wide_and_config3(*, rt, torch, dev, card: str, W: int, H: int, scene, gpu, f
 
 
 def image_decoders(*, rt, torch, card: str, W: int, H: int, zero_counts, read_counts) -> dict:
-    """Phase 38: the host image decoders on the committed fixtures; 1080p
-    frames textured by JPEG/TGA files, by GIF/PSD/PGM/RLE-BMP files and by
-    LZW/Deflate/JPEG/PackBits TIFF files, each against the same frame
-    textured by PNGs of their pixels; the C1 frame (a 0/1 opacity map
-    against an all-zero one); host decode times."""
+    """Phase 38: the host image decoders on the committed fixtures (the
+    corrupt JPEGs and WebP among them); 1080p frames textured by JPEG/TGA
+    files, by GIF/PSD/PGM/RLE-BMP files, by LZW/Deflate/JPEG/PackBits TIFF
+    files and by WebP files (lossy with alpha, lossless), each against the
+    same frame textured by PNGs of their pixels; the C1 frame (a 0/1
+    opacity map against an all-zero one); host decode times."""
     import hashlib
 
     from realtimeraytracer_torch import scenes
@@ -911,6 +912,7 @@ def image_decoders(*, rt, torch, card: str, W: int, H: int, zero_counts, read_co
                  "leaf_kd.png": "leaf.psd", "leaf_d.png": "discs_rle8.bmp"}
     tiff_roles = {"ground_kd.png": "lzw_pred_rgb.tif", "ground_ks.png": "deflate_tiles_grey.tif",
                   "leaf_kd.png": "jpeg_ycbcr.tif", "leaf_d.png": "packbits_rgba.tif"}
+    webp_roles = {"ground_kd.png": "ground_lossless.webp", "leaf_kd.png": "leaf_alpha.webp"}
     disc = enc.disc_pattern(64)
     cfg = rt.RenderConfig(width=W, height=H, primary_rays=4, shadow_rays=3, denoise_iterations=4)
     frames = {}
@@ -940,6 +942,7 @@ def image_decoders(*, rt, torch, card: str, W: int, H: int, zero_counts, read_co
         old_bytes = {m: (f, (fx / f).read_bytes()) for m, f in roles.items()}
         new_bytes = {m: (f, (fx / f).read_bytes()) for m, f in new_roles.items()}
         tiff_bytes = {m: (f, (fx / f).read_bytes()) for m, f in tiff_roles.items()}
+        webp_bytes = {m: (f, (fx / f).read_bytes()) for m, f in webp_roles.items()}
         scenes38 = {
             "JPEG/TGA maps": variant("fixtures", old_bytes),
             "PNG maps": variant("repng", twins(old_bytes)),
@@ -947,6 +950,8 @@ def image_decoders(*, rt, torch, card: str, W: int, H: int, zero_counts, read_co
             "their PNG maps": variant("newfmt_png", twins(new_bytes)),
             "TIFF maps": variant("tiff", tiff_bytes),
             "the TIFFs' PNG maps": variant("tiff_png", twins(tiff_bytes)),
+            "WebP maps": variant("webp", webp_bytes),
+            "the WebPs' PNG maps": variant("webp_png", twins(webp_bytes)),
             # C1: 0/1 texels read 0 and 1/255 (stbi_load), below alpha_threshold
             # like 0; the JAX package's rule kept them 0 and 1.0, opaque leaves.
             "C1 0/1 opacity PGM": variant("c1", {"leaf_d.png": (
@@ -977,13 +982,15 @@ def image_decoders(*, rt, torch, card: str, W: int, H: int, zero_counts, read_co
     for a, b, what in (("JPEG/TGA maps", "PNG maps", "JPEG/TGA"),
                        ("GIF/PSD/PGM/RLE-BMP maps", "their PNG maps", "GIF/PSD/PGM/RLE-BMP"),
                        ("TIFF maps", "the TIFFs' PNG maps", "LZW/Deflate/JPEG/PackBits TIFF"),
+                       ("WebP maps", "the WebPs' PNG maps", "WebP (lossy with alpha, lossless)"),
                        ("C1 0/1 opacity PGM", "all-zero opacity PGM", "C1 (0/1 opacity)")):
         ha, hb = frames[a]["sha256"], frames[b]["sha256"]
         require(ha == hb, f"[38] the {what} frame differs from its twin: {ha[:16]} against {hb[:16]}")
     require(frames["C1 0/1 opacity PGM"]["sha256"] != frames["PNG maps"]["sha256"],
             "[38] the C1 frame equals the frame with textured_obj's own cut-outs")
     say(f"[38] textured_obj at 1080p, reference defaults, rt.render: the JPEG/TGA-textured frame, "
-        f"the GIF/PSD/PGM/RLE-BMP-textured frame and the TIFF-textured frame are each hash-equal to the "
+        f"the GIF/PSD/PGM/RLE-BMP-textured frame, the TIFF-textured frame and the WebP-textured frame "
+        f"are each hash-equal to the "
         f"frame with PNG maps of the same pixels; the C1 frame (0/1 opacity PGM) is hash-equal to the "
         f"all-zero one; "
         + json.dumps(frames))
@@ -1056,6 +1063,19 @@ def image_decoders(*, rt, torch, card: str, W: int, H: int, zero_counts, read_co
             "[38] the 1024^2 LZW TIFF decodes wrong")
     require(np.array_equal(image_decode.decode_image(new_files["tiff_deflate_tiles_1024"][0])[0][..., 0],
                            repeated[..., 1]), "[38] the 1024^2 Deflate TIFF decodes wrong")
+    # The 1024^2 WebP fixtures: lossy with alpha (ALPH), lossy, lossless.
+    webp_1024 = {"webp_lossy_alpha_1024": ("smooth1024_alpha.webp", "RGBA"),
+                 "webp_lossy_1024": ("smooth1024.webp", "RGB"),
+                 "webp_lossless_1024": ("ramp1024_lossless.webp", "RGB")}
+    for key, (name, mode) in webp_1024.items():
+        data = (fx / name).read_bytes()
+        px, got_mode = image_decode.decode_image(data)
+        require(px.shape[:2] == (1024, 1024) and got_mode == mode, f"[38] {key}: {px.shape} {got_mode}")
+        new_files[key] = (data, mode)
+    y1k, x1k = np.mgrid[0:1024, 0:1024]
+    require(np.array_equal(image_decode.decode_image(new_files["webp_lossless_1024"][0])[0],
+                           np.stack([(x1k + y1k) & 255, (2 * x1k) & 255, (3 * y1k) & 255], -1)),
+            "[38] the 1024^2 lossless WebP decodes wrong")
     times = {"jpeg_1024_native": med5(lambda: image_decode.decode_image(jpeg)),
              "png_paeth_2048_native": med5(lambda: image_decode.decode_image(paeth)),
              "png_paeth_256_native": med5(lambda: image_decode.decode_image(crop)),

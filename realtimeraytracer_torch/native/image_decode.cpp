@@ -1,5 +1,6 @@
 // Texture image decoders of the port: JPEG, PNG reconstruction, TGA, BMP,
-// GIF, PNM, PSD, TIFF.
+// GIF, PNM, PSD, TIFF; and WebP, from webp_decode.cpp (the second source
+// of this library).
 //
 // The JAX package reads texture files with Pillow (Image.open, then
 // convert("RGBA") or convert("L")); the reference C++ with stb_image.  This
@@ -9,7 +10,9 @@
 //         components (CMYK, or YCCK by the Adobe transform, read inverted
 //         as Pillow's "CMYK;I"), any integral sampling, restart intervals;
 //         decoded as libjpeg-turbo decodes by default: the ISLOW integer
-//         IDCT (jidctint.c), "fancy" triangle upsampling of each component
+//         IDCT as its x86-64 SIMD code computes it (equal to jidctint.c
+//         but where a corrupt file's coefficients overflow its 16-bit
+//         lanes), "fancy" triangle upsampling of each component
 //         (jdsample.c: h2v1, h1v2, h2v2; a component 2 samples wide or
 //         narrower takes the box filter), the integer YCbCr->RGB and
 //         YCCK->CMYK tables (jdcolor.c).
@@ -24,6 +27,7 @@
 //   PNM   P1-P6 (ASCII and binary, any maxval) and Pf.
 //   PSD   the composite image: raw or PackBits; bitmap, grey, indexed, RGB,
 //         RGBA, CMYK.
+//   WebP  (webp_decode.cpp) lossy and lossless, as Pillow reads it.
 //   TIFF  the first directory, as Pillow reads it: its mode table
 //         (TiffImagePlugin.OPEN_INFO); uncompressed files through Pillow's
 //         own unpackers (a planar file by each band's letter), compressed
@@ -56,6 +60,11 @@
 #include <stdexcept>
 #include <string>
 #include <vector>
+
+namespace webp {  // webp_decode.cpp
+void decode(const uint8_t* data, size_t n, int64_t max_pixels, int64_t& width, int64_t& height,
+            bool& alpha, std::vector<uint8_t>& rgba);
+}
 
 namespace {
 
@@ -536,82 +545,77 @@ struct Jpeg {
     }
   }
 
-  // jidctint.c jpeg_idct_islow, with its post-IDCT range-limit table.
+  // libjpeg-turbo's ISLOW IDCT as its x86-64 SIMD code computes it
+  // (jidctint-sse2.asm and jidctint-avx2.asm give the same bytes), which
+  // is what Pillow's bundled libjpeg-turbo runs on every x86-64 host.  On
+  // coefficients an encoder writes it equals the C code (jidctint.c); on
+  // corrupt ones it differs where 16-bit lanes wrap or saturate:
+  //   - dequantization is a 16-bit multiply (pmullw: the product's low 16
+  //     bits);
+  //   - in0 + in4, in0 - in4 and the odd part's z3 = in7 + in3 and
+  //     z4 = in5 + in1 are 16-bit sums; the products (pmaddwd) and every
+  //     later sum are 32-bit, wrapping;
+  //   - pass 1 descales by 11 and saturates to 16 bits (packssdw); where
+  //     rows 1-7 of the whole block are zero it takes the DC-only path
+  //     instead, (in0 << 2) in 16 bits, for all eight columns;
+  //   - pass 2 descales by 18, saturates to 16 and then 8 bits (packssdw,
+  //     packsswb) and adds 128 in 8 bits.
   static void idct_islow(const int16_t* in, const int32_t* q, uint8_t* out, size_t stride) {
-    static uint8_t limit[1024];
-    static bool init = false;
-    if (!init) {
-      for (int i = 0; i < 1024; ++i)
-        limit[i] = uint8_t(i < 128 ? i + 128 : i < 512 ? 255 : i < 896 ? 0 : i - 896);
-      init = true;
-    }
-    constexpr int CB = 13, P1 = 2;
-    constexpr int64_t F0298 = 2446, F0390 = 3196, F0541 = 4433, F0765 = 6270, F0899 = 7373,
-                      F1175 = 9633, F1501 = 12299, F1847 = 15137, F1961 = 16069, F2053 = 16819,
-                      F2562 = 20995, F3072 = 25172;
-    auto descale = [](int64_t x, int n) { return (x + (int64_t(1) << (n - 1))) >> n; };
-    int ws[64];
+    auto w16 = [](uint32_t v) { return int32_t(int16_t(uint16_t(v))); };  // wrap to 16 bits
+    auto sat16 = [](int32_t v) { return v < -32768 ? -32768 : v > 32767 ? 32767 : v; };
+    auto add = [](int32_t a, int32_t b) { return int32_t(uint32_t(a) + uint32_t(b)); };
+    auto sub = [](int32_t a, int32_t b) { return int32_t(uint32_t(a) - uint32_t(b)); };
+    auto mul = [](int32_t a, int32_t c) { return int32_t(uint32_t(a) * uint32_t(c)); };
+    // One 8-point pass over x[0..7] (16-bit values); the eight sums before
+    // the descale, outputs 0..7.
+    auto pass = [&](const int32_t* x, int32_t* o) {
+      int32_t tmp3 = add(mul(x[2], 10703), mul(x[6], 4433));   // F0541 + F0765, F0541
+      int32_t tmp2 = add(mul(x[2], 4433), mul(x[6], -10704));  // F0541, F0541 - F1847
+      int32_t tmp0 = mul(w16(uint32_t(x[0] + x[4])), 8192), tmp1 = mul(w16(uint32_t(x[0] - x[4])), 8192);
+      int32_t t10 = add(tmp0, tmp3), t13 = sub(tmp0, tmp3), t11 = add(tmp1, tmp2), t12 = sub(tmp1, tmp2);
+      int32_t z3 = w16(uint32_t(x[7] + x[3])), z4 = w16(uint32_t(x[5] + x[1]));
+      int32_t z3m = add(mul(z3, -6436), mul(z4, 9633));        // F1175 - F1961, F1175
+      int32_t z4m = add(mul(z3, 9633), mul(z4, 6437));         // F1175, F1175 - F0390
+      int32_t o0 = add(add(mul(x[7], -4927), mul(x[1], -7373)), z3m);
+      int32_t o3 = add(add(mul(x[7], -7373), mul(x[1], 4926)), z4m);
+      int32_t o1 = add(add(mul(x[5], -4176), mul(x[3], -20995)), z4m);
+      int32_t o2 = add(add(mul(x[5], -20995), mul(x[3], 4177)), z3m);
+      o[0] = add(t10, o3), o[7] = sub(t10, o3), o[1] = add(t11, o2), o[6] = sub(t11, o2);
+      o[2] = add(t12, o1), o[5] = sub(t12, o1), o[3] = add(t13, o0), o[4] = sub(t13, o0);
+    };
+    int32_t dq[64], ws[64], x[8], o[8];
+    for (int k = 0; k < 64; ++k) dq[k] = w16(uint32_t(in[k]) * uint32_t(q[k]));
+    bool dc_only = true;
+    for (int k = 8; k < 64 && dc_only; ++k) dc_only = in[k] == 0;
+    // Shortcuts below give what the full pass gives: a column or row
+    // whose inputs 1-7 are zero has every output x0 * 8192 before the
+    // descale.
+    auto sample = [&](int32_t sum) {
+      const int32_t v = sat16(add(sum, 1 << 17) >> 18);
+      return uint8_t((v < -128 ? -128 : v > 127 ? 127 : v) + 128);
+    };
     for (int col = 0; col < 8; ++col) {
-      const int16_t* ip = in + col;
-      const int32_t* qp = q + col;
-      int* wp = ws + col;
-      if (!ip[8] && !ip[16] && !ip[24] && !ip[32] && !ip[40] && !ip[48] && !ip[56]) {
-        int dc = int(int64_t(ip[0]) * qp[0] * (1 << P1));
-        for (int r = 0; r < 8; ++r) wp[8 * r] = dc;
+      if (dc_only) {
+        for (int r = 0; r < 8; ++r) ws[8 * r + col] = w16(uint32_t(dq[col]) << 2);
         continue;
       }
-      int64_t z2 = int64_t(ip[16]) * qp[16], z3 = int64_t(ip[48]) * qp[48];
-      int64_t z1 = (z2 + z3) * F0541;
-      int64_t tmp2 = z1 + z3 * -F1847, tmp3 = z1 + z2 * F0765;
-      z2 = int64_t(ip[0]) * qp[0], z3 = int64_t(ip[32]) * qp[32];
-      int64_t tmp0 = (z2 + z3) * (1 << CB), tmp1 = (z2 - z3) * (1 << CB);
-      int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-      tmp0 = int64_t(ip[56]) * qp[56], tmp1 = int64_t(ip[40]) * qp[40];
-      tmp2 = int64_t(ip[24]) * qp[24], tmp3 = int64_t(ip[8]) * qp[8];
-      z1 = tmp0 + tmp3, z2 = tmp1 + tmp2, z3 = tmp0 + tmp2;
-      int64_t z4 = tmp1 + tmp3, z5 = (z3 + z4) * F1175;
-      tmp0 *= F0298, tmp1 *= F2053, tmp2 *= F3072, tmp3 *= F1501;
-      z1 *= -F0899, z2 *= -F2562, z3 *= -F1961, z4 *= -F0390;
-      z3 += z5, z4 += z5;
-      tmp0 += z1 + z3, tmp1 += z2 + z4, tmp2 += z2 + z3, tmp3 += z1 + z4;
-      wp[0] = int(descale(tmp10 + tmp3, CB - P1));
-      wp[56] = int(descale(tmp10 - tmp3, CB - P1));
-      wp[8] = int(descale(tmp11 + tmp2, CB - P1));
-      wp[48] = int(descale(tmp11 - tmp2, CB - P1));
-      wp[16] = int(descale(tmp12 + tmp1, CB - P1));
-      wp[40] = int(descale(tmp12 - tmp1, CB - P1));
-      wp[24] = int(descale(tmp13 + tmp0, CB - P1));
-      wp[32] = int(descale(tmp13 - tmp0, CB - P1));
+      for (int r = 0; r < 8; ++r) x[r] = dq[8 * r + col];
+      if (!x[1] && !x[2] && !x[3] && !x[4] && !x[5] && !x[6] && !x[7]) {
+        for (int r = 0; r < 8; ++r) ws[8 * r + col] = sat16(x[0] * 4);
+        continue;
+      }
+      pass(x, o);
+      for (int r = 0; r < 8; ++r) ws[8 * r + col] = sat16(add(o[r], 1 << 10) >> 11);
     }
     for (int row = 0; row < 8; ++row) {
-      const int* wp = ws + 8 * row;
+      const int32_t* wp = ws + 8 * row;
       uint8_t* op = out + row * stride;
       if (!wp[1] && !wp[2] && !wp[3] && !wp[4] && !wp[5] && !wp[6] && !wp[7]) {
-        uint8_t v = limit[descale(wp[0], P1 + 3) & 1023];
-        for (int i = 0; i < 8; ++i) op[i] = v;
+        std::memset(op, sample(wp[0] * 8192), 8);
         continue;
       }
-      int64_t z2 = wp[2], z3 = wp[6];
-      int64_t z1 = (z2 + z3) * F0541;
-      int64_t tmp2 = z1 + z3 * -F1847, tmp3 = z1 + z2 * F0765;
-      int64_t tmp0 = (int64_t(wp[0]) + wp[4]) * (1 << CB), tmp1 = (int64_t(wp[0]) - wp[4]) * (1 << CB);
-      int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-      tmp0 = wp[7], tmp1 = wp[5], tmp2 = wp[3], tmp3 = wp[1];
-      z1 = tmp0 + tmp3, z2 = tmp1 + tmp2, z3 = tmp0 + tmp2;
-      int64_t z4 = tmp1 + tmp3, z5 = (z3 + z4) * F1175;
-      tmp0 *= F0298, tmp1 *= F2053, tmp2 *= F3072, tmp3 *= F1501;
-      z1 *= -F0899, z2 *= -F2562, z3 *= -F1961, z4 *= -F0390;
-      z3 += z5, z4 += z5;
-      tmp0 += z1 + z3, tmp1 += z2 + z4, tmp2 += z2 + z3, tmp3 += z1 + z4;
-      constexpr int S = CB + P1 + 3;
-      op[0] = limit[descale(tmp10 + tmp3, S) & 1023];
-      op[7] = limit[descale(tmp10 - tmp3, S) & 1023];
-      op[1] = limit[descale(tmp11 + tmp2, S) & 1023];
-      op[6] = limit[descale(tmp11 - tmp2, S) & 1023];
-      op[2] = limit[descale(tmp12 + tmp1, S) & 1023];
-      op[5] = limit[descale(tmp12 - tmp1, S) & 1023];
-      op[3] = limit[descale(tmp13 + tmp0, S) & 1023];
-      op[4] = limit[descale(tmp13 - tmp0, S) & 1023];
+      pass(wp, o);
+      for (int i = 0; i < 8; ++i) op[i] = sample(o[i]);
     }
   }
 
@@ -2941,6 +2945,23 @@ Image decode(Bytes in, InflateFn inflate) {
 
 }  // namespace tiff
 
+// WebP, as Pillow reads it (webp_decode.cpp): the canvas as RGBA, or RGB
+// where Pillow's mode is "RGB" (its rawmode RGBX).
+Image webp_image(Bytes in) {
+  int64_t w = 0, h = 0;
+  bool alpha = false;
+  std::vector<uint8_t> rgba;
+  webp::decode(in.p, in.n, kMaxPixels, w, h, alpha, rgba);
+  Image img;
+  img.alloc(w, h, alpha ? 4 : 3, alpha ? "RGBA" : "RGB");
+  if (alpha) {
+    img.px = std::move(rgba);
+  } else {
+    for (size_t i = 0, n = size_t(w * h); i < n; ++i) std::memcpy(&img.px[3 * i], &rgba[4 * i], 3);
+  }
+  return img;
+}
+
 void* finish(Image&& img) { return new Image(std::move(img)); }
 
 void write_error(char* err, int64_t errlen, const char* msg) {
@@ -2954,7 +2975,7 @@ void write_error(char* err, int64_t errlen, const char* msg) {
 
 extern "C" {
 
-// format: 1 JPEG, 2 BMP, 3 TGA, 4 GIF, 5 PNM, 6 PSD.  Returns a handle, or
+// format: 1 JPEG, 2 BMP, 3 TGA, 4 GIF, 5 PNM, 6 PSD, 7 WebP.  Returns a handle, or
 // NULL with the reason in err.
 void* imgd_decode(const uint8_t* data, int64_t n, int32_t format, char* err, int64_t errlen) {
   try {
@@ -2966,6 +2987,7 @@ void* imgd_decode(const uint8_t* data, int64_t n, int32_t format, char* err, int
       case 4: return finish(gif(in));
       case 5: return finish(pnm_decode(in));
       case 6: return finish(psd(in));
+      case 7: return finish(webp_image(in));
       default: fail("unknown image format code " + std::to_string(format));
     }
   } catch (const std::exception& e) {

@@ -284,8 +284,9 @@ def load_texture_file(path: str, grayscale: bool = False) -> np.ndarray:
     to match the reference's stbi_set_flip_vertically_on_load usage
     (file.cppm:276-291; grayscale R8 vs RGBA8 modes).  Read: JPEG, PNG,
     TGA, BMP, GIF (its first frame), PNM (P1-P6, Pf), PSD (its composite
-    image) and TIFF (its first image), as utils/image_decode.py lists them;
-    WebP and the rest raise ValueError.  As in the JAX package, RGB and RGBA files keep their
+    image), TIFF (its first image) and WebP (an animation's first frame),
+    as utils/image_decode.py lists them; the rest raise ValueError.  As in
+    the JAX package, RGB and RGBA files keep their
     channels and any other file loads as RGBA (palettes expanded, grey with
     alpha 1 or its own) unless grayscale is set.  Every texel is divided
     by 255, as stbi_load's 8-bit images are read (the JAX package divides
@@ -402,7 +403,7 @@ def load_hdr(path: str, tone_encode: bool = True) -> np.ndarray:
     raises, as the texture path does: Pillow's TIFF table has no mode
     for it.
 
-    Any other file (JPEG, PNG, TGA, BMP, GIF, PNM, PSD, TIFF through
+    Any other file (JPEG, PNG, TGA, BMP, GIF, PNM, PSD, TIFF, WebP through
     utils/image_decode.py; grey repeated to three channels, alpha dropped)
     holds 8-bit encoded texels, as ``stbi_load`` gives them to the
     reference (a 16- or 32-bit TIFF the texture path's bytes): with

@@ -5,16 +5,19 @@ No JAX counterpart: the JAX package opens texture files with Pillow
 skies with imageio; the reference C++ with stb_image (file.cppm:276-291).
 The GPU machine has neither Pillow nor imageio, and a Huffman decode in
 Python would take seconds a megapixel, so the port decodes in C++:
-``realtimeraytracer_torch/native/image_decode.cpp``, bound here with ctypes.
+``realtimeraytracer_torch/native/image_decode.cpp`` and, for WebP,
+``native/webp_decode.cpp``, one library bound here with ctypes.
 
 ``decode_image(data)`` identifies a file by its content, as ``Image.open``
 does (the PNG signature, JPEG's SOI, ``BM``, ``GIF87a``/``GIF89a``, a PNM
-magic, ``8BPS``, Pillow's six TIFF prefixes; TGA by a valid header when
-nothing else matches), and returns uint8 (H, W, C) pixels with the Pillow
+magic, ``8BPS``, Pillow's six TIFF prefixes, ``RIFF....WEBP`` with a VP8,
+VP8L or VP8X chunk first; TGA by a valid header when nothing else
+matches), and returns uint8 (H, W, C) pixels with the Pillow
 mode the JAX package would see.  C is 1 (grey), 2 (grey + alpha), 3
 (RGB) or 4 (RGBA); palette and CMYK images come back expanded to RGBA.
 Read: JPEG (baseline and progressive Huffman, 8-bit, 1, 3 or 4
-components: CMYK and YCCK by the Adobe marker), PNG (every colour type,
+components: CMYK and YCCK by the Adobe marker; libjpeg-turbo's SIMD
+ISLOW IDCT, whose 16-bit lanes wrap on corrupt coefficients), PNG (every colour type,
 depth and filter, Adam7), TGA (types 1, 2, 3, 9, 10, 11 at 1, 8, 16, 24,
 32 bits; 16-, 24-, 32-bit colour maps), BMP (1/4/8-bit palette, RLE8 and
 RLE4, 16, 24 and 32 bits, BI_RGB and BI_BITFIELDS), GIF (the first
@@ -24,7 +27,11 @@ classic, BigTIFF and the "invalid" byte-order prefixes; strips and tiles,
 planar or not, FillOrder 2; uncompressed, PackBits, LZW, Deflate and
 JPEG with predictors 2 and 3; every entry of Pillow's mode table that its
 convert accepts, YCbCr through libtiff's RGBA rules; Orientation applied
-as Pillow 12 applies it).  For PNG and TIFF's Deflate, this module
+as Pillow 12 applies it), WebP (as Pillow opens it through libwebp's
+animation decoder: lossy VP8 key frames with their ALPH alpha, lossless
+VP8L, the simple and the VP8X container, an animation's first frame on
+its zeroed canvas; "RGBA" where libwebp's features report alpha, else
+"RGB").  For PNG and TIFF's Deflate, this module
 inflates with ``zlib`` (the library calls ``_inflate`` back for each
 strip or tile); the library does the rest.  Two values differ from
 Pillow's, as stb_image (the reference's decoder) has them: 16-bit grey
@@ -32,16 +39,16 @@ PNG, PGM and TIFF samples come back as their high byte, where Pillow's
 convert clips them.  ``decode_float_samples(data)`` gives a float TIFF
 (mode F) or a PFM as its float32 samples, as a sky's linear radiance.
 
-Malformed input and formats not ported (WebP, Lab and 16-bit PSD, Lab
-TIFF, TIFF compressed by CCITT, old-style JPEG, ThunderScan, SGILog,
-LZMA, ZSTD or WebP, 12-bit, arithmetic-coded, lossless and hierarchical
-JPEG, a JPEG height in a DNL marker, an incomplete progressive JPEG)
-raise ``ValueError`` naming the cause; nothing falls back to another
-decoder.
+Malformed input and formats not ported (Lab and 16-bit PSD, Lab TIFF,
+TIFF compressed by CCITT, old-style JPEG, ThunderScan, SGILog, LZMA,
+ZSTD or WebP, 12-bit, arithmetic-coded, lossless and hierarchical JPEG,
+a JPEG height in a DNL marker, an incomplete progressive JPEG, a corrupt
+JPEG scan libjpeg would decode on with a warning) raise ``ValueError``
+naming the cause; nothing falls back to another decoder.
 
 The library is built at first use with ``$CXX`` (default g++) into the
 kernels' build directory (``kernels.BUILD_DIR``), under a name that hashes
-the source, the flags and the compiler's ``--version``; a file lock keeps
+both sources, the flags and the compiler's ``--version``; a file lock keeps
 concurrent processes to one build.  No ``-march=native``: the decode is
 integer arithmetic and gives the same bytes on every host.  Without a
 compiler, or if the build or the load fails, the call raises.
@@ -67,13 +74,14 @@ from realtimeraytracer_torch.utils import log
 from realtimeraytracer_torch.utils.native import _compiler
 from realtimeraytracer_torch.utils.png import SIGNATURE as PNG_SIGNATURE
 
-SOURCE = Path(__file__).resolve().parents[1] / "native" / "image_decode.cpp"
+SOURCES = tuple(Path(__file__).resolve().parents[1] / "native" / name
+                for name in ("image_decode.cpp", "webp_decode.cpp"))
 CXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-Wall", "-shared")
 # Pillow's Image.open raises DecompressionBombError above twice MAX_IMAGE_PIXELS.
 MAX_PIXELS = 2 * 89478485
 
 # The library's format codes (imgd_decode).
-_CODES = {"JPEG": 1, "BMP": 2, "TGA": 3, "GIF": 4, "PNM": 5, "PSD": 6}
+_CODES = {"JPEG": 1, "BMP": 2, "TGA": 3, "GIF": 4, "PNM": 5, "PSD": 6, "WEBP": 7}
 # Pillow's TiffImagePlugin.PREFIXES: both byte orders, the "invalid" ones
 # (magic in the other order) and BigTIFF.
 TIFF_PREFIXES = (b"MM\0*", b"II*\0", b"MM*\0", b"II\0*", b"MM\0+", b"II+\0")
@@ -101,12 +109,14 @@ def _inflate(src, n, dst, cap):
 
 
 def library_path(cxx: list[str]) -> Path:
-    """Where the library built by `cxx` goes: its name hashes the source,
+    """Where the library built by `cxx` goes: its name hashes the sources,
     the flags and the compiler's version."""
     version = subprocess.run([*cxx, "--version"], capture_output=True, text=True)
     if version.returncode != 0:
         raise RuntimeError(f"{' '.join(cxx)} --version failed:\n{version.stderr}")
-    h = hashlib.sha256(SOURCE.read_bytes())
+    h = hashlib.sha256()
+    for source in SOURCES:
+        h.update(source.read_bytes())
     h.update(" ".join(CXX_FLAGS).encode())
     h.update(version.stdout.encode())
     return BUILD_DIR / f"librtrt_image-{h.hexdigest()[:16]}.so"
@@ -124,7 +134,7 @@ def build(cxx: list[str]) -> Path:
         if out.exists():       # built by another process while this one waited
             return out
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        proc = subprocess.run([*cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
+        proc = subprocess.run([*cxx, *CXX_FLAGS, "-o", str(tmp), *map(str, SOURCES)],
                               capture_output=True, text=True)
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
@@ -144,7 +154,7 @@ def load_library() -> ctypes.CDLL:
         cxx = _compiler()
         if cxx is None:
             raise RuntimeError(f"no C++ compiler ({os.environ.get('CXX') or 'g++'}) to build the "
-                               f"image decoder {SOURCE}")
+                               f"image decoder {SOURCES[0]}")
         path = build(cxx)
         try:
             lib = ctypes.CDLL(str(path))
@@ -253,8 +263,8 @@ def _is_tga(head: bytes) -> bool:
 
 def sniff(data: bytes) -> str:
     """The format of image bytes, by their content: "PNG", "JPEG", "BMP",
-    "GIF", "PNM", "PSD", "TIFF", "TGA"; raises ValueError for a format not
-    ported or not an image."""
+    "GIF", "PNM", "PSD", "TIFF", "WEBP", "TGA"; raises ValueError for a
+    format not ported or not an image."""
     if data.startswith(PNG_SIGNATURE):
         return "PNG"
     if data.startswith(b"\xff\xd8\xff"):
@@ -269,11 +279,11 @@ def sniff(data: bytes) -> str:
         return "PSD"
     if data.startswith(TIFF_PREFIXES):
         return "TIFF"
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        raise ValueError("WebP images are not supported")
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP" and data[12:16] in (b"VP8 ", b"VP8L", b"VP8X"):
+        return "WEBP"                                                    # WebPImagePlugin._accept
     if _is_tga(data):
         return "TGA"
-    raise ValueError("not an image file this port reads (PNG, JPEG, BMP, GIF, PNM, PSD, TIFF, TGA)")
+    raise ValueError("not an image file this port reads (PNG, JPEG, BMP, GIF, PNM, PSD, TIFF, WebP, TGA)")
 
 
 def decode_image(data: bytes) -> tuple[np.ndarray, str]:

@@ -40,9 +40,9 @@ def read_png(path: str) -> np.ndarray:
 
 
 def read_image(path: str) -> np.ndarray:
-    """(H, W, C) uint8 pixels of a JPEG, PNG, TGA, BMP, GIF, PNM, PSD or
-    TIFF file: C is 1 (grey), 2 (grey + alpha), 3 (RGB) or 4 (RGBA;
-    palettes and CMYK expanded)."""
+    """(H, W, C) uint8 pixels of a JPEG, PNG, TGA, BMP, GIF, PNM, PSD,
+    TIFF or WebP file: C is 1 (grey), 2 (grey + alpha), 3 (RGB) or 4
+    (RGBA; palettes and CMYK expanded)."""
     with open(path, "rb") as f:
         return decode_image(f.read())[0]
 

@@ -20,6 +20,7 @@ both values of ``grayscale``.  It needs Pillow and the JAX package.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import struct
@@ -38,7 +39,19 @@ FIXTURE_NAMES = ("prog420_odd.jpg", "base422_rst.jpg", "grey.jpg", "rle.tga", "p
                  "adam7.png", "rgb24.bmp", "smooth1024.jpg", "frame.gif", "leaf.psd", "cmyk.psd",
                  "gloss.pgm", "comments.ppm", "discs_rle8.bmp", "rle4.bmp", "bf565.bmp",
                  "rgb16_rle.tga", "lzw_pred_rgb.tif", "deflate_tiles_grey.tif", "jpeg_ycbcr.tif",
-                 "packbits_rgba.tif", "bigtiff_planar.tif", "ycbcr22_lzw.tif", "ycck.jpg", "cmyk.jpg")
+                 "packbits_rgba.tif", "bigtiff_planar.tif", "ycbcr22_lzw.tif", "ycck.jpg", "cmyk.jpg",
+                 "corrupt_ycck.jpg", "corrupt_cmyk.jpg", "corrupt_base422.jpg", "corrupt_prog420.jpg",
+                 "leaf_alpha.webp", "ground_lossless.webp", "smooth1024_alpha.webp", "smooth1024.webp",
+                 "ramp1024_lossless.webp")
+
+# Corrupt JPEGs: a fixture with bytes replaced ((offset, byte), ...), whose
+# dequantized coefficients overflow libjpeg-turbo's 16-bit SIMD IDCT lanes
+# (a quantizer entry and entropy data, a quantizer entry alone, a
+# progressive scan's data).  libjpeg decodes them without an error.
+CORRUPT_JPEGS = {"corrupt_ycck.jpg": ("ycck.jpg", ((68, 104), (3505, 44))),
+                 "corrupt_cmyk.jpg": ("cmyk.jpg", ((42, 250),)),
+                 "corrupt_base422.jpg": ("base422_rst.jpg", ((27, 216),)),
+                 "corrupt_prog420.jpg": ("prog420_odd.jpg", ((693, 38),))}
 
 ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
          (0, 1, 1, 2))
@@ -209,6 +222,63 @@ def encode_jpeg(planes, factors, q: int = 4, restart: int = 0, adobe: int | None
         head += _segment(0xDD, struct.pack(">H", restart))
     head += _segment(0xDA, bytes([n]) + b"".join(bytes([i, 0]) for i in ids) + b"\x00\x3f\x00")
     return head + bytes(out) + b"\xff\xd9"
+
+
+def encode_jpeg_blocks(blocks, w: int, h: int, quant) -> bytes:
+    """A baseline grey JPEG of raw coefficient blocks (each 64 values in
+    zigzag order, raster block order, w x h pixels) and a quantizer of any
+    16-bit values: DC sizes up to 15 in 5-bit codes, every AC run/size in
+    8-bit codes.  For blocks no encoder writes (libjpeg-turbo's IDCT
+    overflow)."""
+    dc_symbols = list(range(16))
+    ac_symbols = [0x00, 0xF0] + [(r << 4) | s for r in range(16) for s in range(1, 16)]
+    out = bytearray()
+    acc = [0, 0]
+
+    def put(value, nbits):
+        acc[0] = (acc[0] << nbits) | (value & ((1 << nbits) - 1))
+        acc[1] += nbits
+        while acc[1] >= 8:
+            b = (acc[0] >> (acc[1] - 8)) & 0xFF
+            acc[1] -= 8
+            out.append(b)
+            if b == 0xFF:
+                out.append(0)
+        acc[0] &= (1 << acc[1]) - 1
+
+    def category(v):
+        s = int(abs(v)).bit_length()
+        return s, (v if v >= 0 else v + (1 << s) - 1)
+
+    pred = 0
+    for zz in blocks:
+        s, bits = category(zz[0] - pred)
+        pred = zz[0]
+        put(s, 5)
+        put(bits, s)
+        run, last = 0, max([k for k in range(1, 64) if zz[k]] or [0])
+        for k in range(1, last + 1):
+            if zz[k] == 0:
+                run += 1
+                continue
+            while run > 15:
+                put(ac_symbols.index(0xF0), 8)
+                run -= 16
+            s, bits = category(zz[k])
+            put(ac_symbols.index((run << 4) | s), 8)
+            put(bits, s)
+            run = 0
+        if last < 63:
+            put(0, 8)
+    if acc[1]:
+        put((1 << (8 - acc[1])) - 1, 8 - acc[1])
+    wide = max(quant) > 255
+    dqt = bytes([0x10 if wide else 0]) + (struct.pack(">64H", *quant) if wide else bytes(quant))
+    return (b"\xff\xd8" + _segment(0xDB, dqt)
+            + _segment(0xC0, struct.pack(">BHHB", 8, h, w, 1) + bytes([1, 0x11, 0]))
+            + _segment(0xC4, b"\x00" + bytes([0, 0, 0, 0, 16] + [0] * 11) + bytes(dc_symbols))
+            + _segment(0xC4, b"\x10" + bytes([0] * 7 + [len(ac_symbols)] + [0] * 8) + bytes(ac_symbols))
+            + _segment(0xDA, b"\x01\x01\x00\x00\x3f\x00") + bytes(out) + b"\xff\xd9")
 
 
 def make_tga(pix, itype: int, depth: int, flags: int = 0, cmap=None, cmap_start: int = 0,
@@ -789,6 +859,160 @@ def make_tiff(samples, bits, photometric: int, *, order: str = "<", header: str 
     return bytes(head + data_blob + (b"\0" if len(data_blob) & 1 else b"") + ifd + ext)
 
 
+# ---------------------------------------------------------------- WebP ----
+
+class _WebPConfig(ctypes.Structure):      # libwebp's encode.h, every field 4 bytes
+    _fields_ = [(name, ctypes.c_float if name in ("quality", "target_PSNR") else ctypes.c_int) for name in (
+        "lossless", "quality", "method", "image_hint", "target_size", "target_PSNR", "segments",
+        "sns_strength", "filter_strength", "filter_sharpness", "filter_type", "autofilter",
+        "alpha_compression", "alpha_filtering", "alpha_quality", "pass_", "show_compressed",
+        "preprocessing", "partitions", "partition_limit", "emulate_jpeg_size", "thread_level",
+        "low_memory", "near_lossless", "exact", "use_delta_palette", "use_sharp_yuv", "qmin", "qmax")]
+
+
+_PTR, _U32 = ctypes.c_void_p, ctypes.c_uint32
+
+
+class _WebPPicture(ctypes.Structure):
+    _fields_ = [("use_argb", ctypes.c_int), ("colorspace", ctypes.c_int), ("width", ctypes.c_int),
+                ("height", ctypes.c_int), ("y", _PTR), ("u", _PTR), ("v", _PTR), ("y_stride", ctypes.c_int),
+                ("uv_stride", ctypes.c_int), ("a", _PTR), ("a_stride", ctypes.c_int), ("pad1", _U32 * 2),
+                ("argb", _PTR), ("argb_stride", ctypes.c_int), ("pad2", _U32 * 3), ("writer", _PTR),
+                ("custom_ptr", _PTR), ("extra_info_type", ctypes.c_int), ("extra_info", _PTR),
+                ("stats", _PTR), ("error_code", ctypes.c_int), ("progress_hook", _PTR), ("user_data", _PTR),
+                ("pad3", _U32 * 3), ("pad4", _PTR), ("pad5", _PTR), ("pad6", _U32 * 8), ("memory_", _PTR),
+                ("memory_argb_", _PTR), ("pad7", _PTR * 2)]
+
+
+class _WebPMemoryWriter(ctypes.Structure):
+    _fields_ = [("mem", ctypes.POINTER(ctypes.c_uint8)), ("size", ctypes.c_size_t),
+                ("max_size", ctypes.c_size_t), ("pad", _U32)]
+
+
+def encode_webp(pixels, quality: float = 75.0, **config) -> bytes:
+    """A WebP file of uint8 (H, W, 3 or 4) pixels from libwebp's advanced
+    encoder (WebPConfig, WebPEncode), for what Pillow's save does not
+    expose: token `partitions` (log2, 0-3), `filter_type` (0 simple, 1
+    normal), `filter_strength`, `filter_sharpness`, `segments`,
+    `alpha_compression`, `alpha_filtering`, ...  It binds the libwebp that
+    Pillow bundles (pillow.libs) with ctypes: tests only."""
+    import glob
+
+    import PIL
+    from PIL import _webp  # noqa: F401 - loads libwebp's own dependencies first
+
+    lib = ctypes.CDLL(sorted(glob.glob(os.path.join(os.path.dirname(PIL.__file__), os.pardir,
+                                                    "pillow.libs", "libwebp-*.so*")))[0])
+    pix = np.ascontiguousarray(pixels, np.uint8)
+    h, w, c = pix.shape
+    abi = 0x0210                                    # WEBP_ENCODER_ABI_VERSION's major 2
+    cfg = _WebPConfig()
+    if not lib.WebPConfigInitInternal(ctypes.byref(cfg), 0, ctypes.c_float(quality), abi):
+        raise RuntimeError("WebPConfigInit failed")
+    for key, value in config.items():
+        setattr(cfg, key, value)
+    if not lib.WebPValidateConfig(ctypes.byref(cfg)):
+        raise ValueError(f"libwebp refuses the configuration {config}")
+    pic = _WebPPicture()
+    if not lib.WebPPictureInitInternal(ctypes.byref(pic), abi):
+        raise RuntimeError("WebPPictureInit failed")
+    pic.width, pic.height, pic.use_argb = w, h, cfg.lossless
+    importer = lib.WebPPictureImportRGBA if c == 4 else lib.WebPPictureImportRGB
+    if not importer(ctypes.byref(pic), pix.ctypes.data_as(ctypes.c_void_p), w * c):
+        raise RuntimeError("WebPPictureImport failed")
+    out = _WebPMemoryWriter()
+    lib.WebPMemoryWriterInit(ctypes.byref(out))
+    pic.writer = ctypes.cast(lib.WebPMemoryWrite, ctypes.c_void_p)
+    pic.custom_ptr = ctypes.cast(ctypes.byref(out), ctypes.c_void_p)
+    ok = lib.WebPEncode(ctypes.byref(cfg), ctypes.byref(pic))
+    data = ctypes.string_at(out.mem, out.size)
+    lib.WebPPictureFree(ctypes.byref(pic))
+    lib.WebPMemoryWriterClear(ctypes.byref(out))
+    if not ok:
+        raise RuntimeError(f"WebPEncode failed with error {pic.error_code}")
+    return data
+
+
+def pillow_webp(pixels, **save) -> bytes:
+    """Pillow's WebP of uint8 (H, W, C) pixels (`save`: quality, method,
+    lossless, exact, ...)."""
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(np.ascontiguousarray(pixels, np.uint8)).save(buf, "WEBP", **save)
+    return buf.getvalue()
+
+
+def webp_chunk(tag: bytes, body: bytes) -> bytes:
+    """A RIFF chunk: tag, little-endian size, body, a pad byte if odd."""
+    return tag + struct.pack("<I", len(body)) + body + b"\0" * (len(body) & 1)
+
+
+def riff_webp(*chunks: bytes) -> bytes:
+    body = b"WEBP" + b"".join(chunks)
+    return b"RIFF" + struct.pack("<I", len(body)) + body
+
+
+def webp_chunks(data: bytes) -> dict:
+    """The chunks of a RIFF WEBP file by tag (each tag's first), bodies
+    without padding; the animation's frames are not opened."""
+    out, p = {}, 12
+    while p + 8 <= len(data):
+        tag, n = data[p:p + 4], struct.unpack("<I", data[p + 4:p + 8])[0]
+        out.setdefault(tag, data[p + 8:p + 8 + n])
+        p += 8 + n + (n & 1)
+    return out
+
+
+def vp8x_chunk(w: int, h: int, alpha: bool = False, animation: bool = False, flags: int = 0) -> bytes:
+    f = flags | (0x10 if alpha else 0) | (0x02 if animation else 0)
+    return webp_chunk(b"VP8X", bytes([f, 0, 0, 0]) + (w - 1).to_bytes(3, "little") + (h - 1).to_bytes(3, "little"))
+
+
+def anim_chunk(background: int = 0, loops: int = 0) -> bytes:
+    return webp_chunk(b"ANIM", struct.pack("<IH", background, loops))
+
+
+def anmf_chunk(x: int, y: int, w: int, h: int, frame: bytes, duration: int = 100, bits: int = 0) -> bytes:
+    """An ANMF chunk of a frame's chunks (ALPH and VP8, or VP8L) at (x, y),
+    which must be even."""
+    head = b"".join(v.to_bytes(3, "little") for v in (x // 2, y // 2, w - 1, h - 1, duration))
+    return webp_chunk(b"ANMF", head + bytes([bits]) + frame)
+
+
+def alpha_residuals(alpha, method: int) -> np.ndarray:
+    """libwebp's ALPH filter `method` (0 none, 1 horizontal, 2 vertical, 3
+    gradient) applied to a uint8 (H, W) plane: the residuals its decoder
+    adds back (first row from the left starting at 0, first column from
+    above)."""
+    a = alpha.astype(np.int32)
+    pred = np.zeros_like(a)
+    if method:
+        pred[0, 1:] = a[0, :-1]
+        pred[1:, 0] = a[:-1, 0]
+        if method == 1:
+            pred[1:, 1:] = a[1:, :-1]
+        elif method == 2:
+            pred[1:, 1:] = a[:-1, 1:]
+        else:
+            pred[1:, 1:] = np.clip(a[1:, :-1] + a[:-1, 1:] - a[:-1, :-1], 0, 255)
+    return ((a - pred) & 255).astype(np.uint8)
+
+
+def alph_chunk(alpha, method: int, compression: int, pre: int = 0) -> bytes:
+    """An ALPH chunk of a uint8 (H, W) plane written by hand: filter
+    `method`, raw (`compression` 0) or as the green channel of a VP8L
+    stream (1: Pillow's lossless encode without its 5-byte header)."""
+    res = alpha_residuals(alpha, method)
+    if compression:
+        res = webp_chunks(pillow_webp(np.repeat(res[..., None], 3, -1), lossless=True))[b"VP8L"][5:]
+    else:
+        res = res.tobytes()
+    return webp_chunk(b"ALPH", bytes([compression | method << 2 | pre << 4]) + res)
+
+
 def smooth_image(rng, h: int, w: int, c: int, noise: int = 40) -> np.ndarray:
     """Sine gradients per channel plus uniform noise, uint8."""
     y, x = np.mgrid[0:h, 0:w]
@@ -874,6 +1098,33 @@ def write_tiff_fixtures(out: Path) -> None:
     Image.fromarray(smooth_image(rng, 24, 30, 4), "CMYK").save(out / "cmyk.jpg", quality=90)
 
 
+def write_webp_fixtures(out: Path) -> None:
+    """The corrupt JPEGs and the WebP fixtures: a 64x64 lossy leaf with its
+    cut-out in ALPH and a 64x64 lossless ground stand in for textured_obj's
+    leaf and ground colour maps (chip_smoke phase 38); the three 1024^2
+    files are phase 38's decode timings (lossy with alpha, lossy, lossless)."""
+    for name, (seed, edits) in CORRUPT_JPEGS.items():
+        data = bytearray((out / seed).read_bytes())
+        for offset, byte in edits:
+            data[offset] = byte
+        (out / name).write_bytes(bytes(data))
+    rng = np.random.default_rng(18)
+    yy, xx = np.mgrid[0:64, 0:64]
+    checker = (xx // 8 + yy // 8) % 2
+    disc = disc_pattern(64)
+    leaf = np.where(disc[..., None], [40, 150, 30, 255], [20, 90, 20, 0]) + rng.integers(0, 24, (64, 64, 4))
+    (out / "leaf_alpha.webp").write_bytes(pillow_webp(np.clip(leaf, 0, 255), quality=80))
+    ground = np.stack([110 + 50 * checker, 84 + 36 * checker, 60 + 20 * checker], -1) + rng.integers(0, 6, (64, 64, 3))
+    (out / "ground_lossless.webp").write_bytes(pillow_webp(ground, lossless=True))
+    y, x = np.mgrid[0:1024, 0:1024]
+    smooth = np.stack([128 + 100 * np.sin(x / 197 + y / 263), 128 + 100 * np.cos(x / 301 - y / 167),
+                       128 + 90 * np.sin((x + y) / 421)], -1).astype(np.uint8)
+    (out / "smooth1024_alpha.webp").write_bytes(pillow_webp(np.dstack([smooth, ((x + y) // 8) & 255]), quality=30))
+    (out / "smooth1024.webp").write_bytes(pillow_webp(smooth, quality=30))
+    ramp = np.stack([(x + y) & 255, (2 * x) & 255, (3 * y) & 255], -1)
+    (out / "ramp1024_lossless.webp").write_bytes(pillow_webp(ramp, lossless=True))
+
+
 def write_fixtures(out: Path = FIXTURES) -> dict:
     """Write the committed fixtures and expected.json; returns the digests."""
     from PIL import Image
@@ -902,6 +1153,7 @@ def write_fixtures(out: Path = FIXTURES) -> dict:
     Image.fromarray(big).save(out / "smooth1024.jpg", quality=90)
     write_new_format_fixtures(out)
     write_tiff_fixtures(out)
+    write_webp_fixtures(out)
     digests = {name: {str(g).lower(): pixels_digest(load_texture_file(str(out / name), g))
                       for g in (False, True)} for name in FIXTURE_NAMES}
     (out / "expected.json").write_text(json.dumps({

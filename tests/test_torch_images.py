@@ -37,9 +37,11 @@ from PIL import Image
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from _torch_image_helpers import (FIXTURE_NAMES, FIXTURES, disc_pattern,  # noqa: E402
-                                  encode_bmp_rle, encode_gif, encode_jpeg, encode_pnm, encode_psd,
-                                  make_bmp, make_png, make_tga, make_tiff, smooth_image)
+from _torch_image_helpers import (CORRUPT_JPEGS, FIXTURE_NAMES, FIXTURES, alph_chunk,  # noqa: E402
+                                  anim_chunk, anmf_chunk, disc_pattern, encode_bmp_rle, encode_gif,
+                                  encode_jpeg, encode_jpeg_blocks, encode_pnm, encode_psd,
+                                  encode_webp, make_bmp, make_png, make_tga, make_tiff, pillow_webp,
+                                  riff_webp, smooth_image, vp8x_chunk, webp_chunk, webp_chunks)
 from realtimeraytracer_torch.ops import bvh as tbvh  # noqa: E402
 from realtimeraytracer_torch.ops import camera_rays as tcam  # noqa: E402
 from realtimeraytracer_torch.ops import vecmath as tvm  # noqa: E402
@@ -775,16 +777,12 @@ def test_truncated_and_corrupt_files_raise(tmp_path, name):
 
 
 def test_refused_formats_and_features_raise(tmp_path):
-    """Formats and features not ported raise ValueError naming them: WebP,
-    the TIFF codecs left out (CCITT, old-style JPEG, ThunderScan, SGILog,
+    """Formats and features not ported raise ValueError naming them: the
+    TIFF codecs left out (CCITT, old-style JPEG, ThunderScan, SGILog,
     LZMA, ZSTD, WebP) and Lab TIFF, a two-component JPEG, 12-bit,
     arithmetic-coded, lossless and hierarchical JPEG, an incomplete
     progressive JPEG, Lab PSD."""
     img = Image.fromarray(smooth_image(np.random.default_rng(0), 16, 16, 3))
-    buf = io.BytesIO()
-    img.save(buf, format="WEBP")
-    with pytest.raises(ValueError, match="WebP"):
-        image_decode.decode_image(buf.getvalue())
     for mode, compression, words in (("1", "group4", "CCITT Group 4"), ("1", "group3", "CCITT Group 3"),
                                      ("1", "tiff_ccitt", "CCITT RLE"), ("RGB", "lzma", "LZMA"),
                                      ("RGB", "zstd", "ZSTD")):
@@ -868,7 +866,7 @@ def test_grey16_png_diverges_from_jax_as_stb(tmp_path):
 
 
 def test_8bit_sky_diverges_from_jax_as_stb(tmp_path):
-    """JAX's load_hdr casts an 8-bit sky's texels to float without
+    """JAX's load_hdr casts an 8-bit sky's texels (PNG, WebP) to float without
     dividing by 255, so tone_encode makes it white (clip(v, 0, 1) **
     (1/2.2) = 1 for any texel of 1 or more); the port returns texel/255
     (the encoded sky stbi_load gives the reference) and, without
@@ -883,6 +881,11 @@ def test_8bit_sky_diverges_from_jax_as_stb(tmp_path):
     assert enc.dtype == np.float32 and np.array_equal(enc, texels.astype(np.float32) / 255.0)
     lin = tol.load_hdr(str(p), tone_encode=False)
     assert np.allclose(lin, (texels / 255.0) ** 2.2, rtol=1e-6, atol=0)
+    # A WebP sky (imageio reads it through Pillow) diverges the same way.
+    w = tmp_path / "sky.webp"
+    w.write_bytes(pillow_webp(texels, lossless=True))
+    assert np.array_equal(jol.load_hdr(str(w), tone_encode=False), texels.astype(np.float32))
+    assert np.array_equal(tol.load_hdr(str(w), tone_encode=True), texels.astype(np.float32) / 255.0)
     # A grey JPEG sky repeats its channel; flipped like the .hdr branch.
     g = tmp_path / "sky.jpg"
     Image.fromarray(smooth_image(np.random.default_rng(3), 6, 10, 1)[..., 0]).save(g)
@@ -1232,6 +1235,250 @@ def test_16bit_tiff_grey_diverges_from_jax_as_stb(tmp_path):
             assert np.array_equal(jol.load_texture_file(str(p), grayscale)[0, :, 0], want_jax), name
             assert np.array_equal(tol.load_texture_file(str(p), grayscale)[0, :, 0], want), name
         assert image_decode.decode_image(p.read_bytes())[1] == Image.open(p).mode
+
+
+# ------------------------------------------------------- corrupt JPEG ----
+
+@pytest.mark.parametrize("name", sorted(CORRUPT_JPEGS))
+def test_corrupt_jpeg_matches_jax(name):
+    """Fixtures with a quantizer entry or entropy bytes changed, which
+    libjpeg decodes without an error: their dequantized coefficients
+    overflow the 16-bit lanes of libjpeg-turbo's SIMD ISLOW IDCT (what
+    Pillow runs on x86-64), and the port computes that IDCT, so it gives
+    JAX's pixels; libjpeg's C IDCT (JSIMD_FORCENONE) gives others."""
+    seed, edits = CORRUPT_JPEGS[name]
+    data = bytearray(_fixture(seed))
+    for offset, byte in edits:
+        data[offset] = byte
+    assert bytes(data) == _fixture(name)
+    _same_as_jax(FIXTURES / name)
+
+
+def test_jpeg_idct_overflow_blocks_match_jax(tmp_path):
+    """Coefficient blocks no encoder writes: DC-only blocks whose (DC x q)
+    << 2 wraps 16 bits, blocks with only row 0 set, AC at every position,
+    quantizers above 32767 (a 16-bit DQT), sums past 16 bits in both
+    passes: bit-equal to JAX's Pillow, whose libjpeg-turbo SIMD IDCT
+    wraps and saturates in 16-bit lanes."""
+    rnd = np.random.default_rng(180)
+    for case in range(24):
+        blocks = []
+        for b in range(4):
+            zz = [0] * 64
+            kind = (case + b) % 4
+            if kind == 0:
+                zz[0] = int(rnd.integers(-32767, 32768))
+            elif kind == 1:
+                for k in (0, 1, 5, 6, 14, 15, 27, 28):        # row 0 of the block
+                    zz[k] = int(rnd.integers(-32767, 32768))
+            elif kind == 2:
+                for k in rnd.choice(64, 6, replace=False):
+                    zz[int(k)] = int(rnd.integers(-32767, 32768))
+            else:
+                zz = [int(v) for v in rnd.integers(-3000, 3001, 64)]
+            blocks.append(zz)
+        pred = 0
+        for zz in blocks:                                   # DC differences fit 15 bits
+            zz[0] = int(np.clip(zz[0], pred - 32767, pred + 32767))
+            pred = zz[0]
+        quant = [int(v) for v in (rnd.integers(1, 256, 64) if case % 3 == 0 else rnd.integers(1, 65536, 64))]
+        p = tmp_path / f"idct{case}.jpg"
+        p.write_bytes(encode_jpeg_blocks(blocks, 16, 16, quant))
+        _same_as_jax(p)
+
+
+def test_corrupt_jpeg_libjpeg_recovers_diverges_from_jax(tmp_path):
+    """A corrupt scan that libjpeg decodes on with a warning (a run past
+    coefficient 63 writes coefficient 63) and Pillow returns as an image:
+    the port raises ValueError naming the fault (ROADMAP queue C: it
+    ports none of libjpeg's recovery)."""
+    data = bytearray(_fixture("grey.jpg"))
+    data[383] = 0x00
+    p = tmp_path / "recovered.jpg"
+    p.write_bytes(bytes(data))
+    for grayscale in (False, True):
+        jax = jol.load_texture_file(str(p), grayscale)
+        assert jax.shape == (31, 40, 4 if not grayscale else 1) and np.isfinite(jax).all()
+        with pytest.raises(ValueError, match="coefficient index past 63"):
+            tol.load_texture_file(str(p), grayscale)
+
+
+# ---------------------------------------------------------------- WebP ----
+
+WEBP_SAVE = {"q80": dict(quality=80), "q10-m0": dict(quality=10, method=0),
+             "q100-m6": dict(quality=100, method=6), "q50-m3": dict(quality=50, method=3),
+             "lossless": dict(lossless=True), "lossless-exact": dict(lossless=True, exact=True)}
+
+
+@pytest.mark.parametrize("channels", [3, 4])
+@pytest.mark.parametrize("case", sorted(WEBP_SAVE))
+def test_pillow_webp_matches_jax(tmp_path, case, channels):
+    """Pillow-written WebP, lossy (VP8 key frames, alpha in ALPH) and
+    lossless (VP8L), RGB and RGBA, at odd sizes and 1x1 (the macroblock
+    and upsampler edges)."""
+    rng = np.random.default_rng(sorted(WEBP_SAVE).index(case) * 2 + channels)
+    for h, w in SIZES:
+        px = smooth_image(rng, h, w, channels)
+        if channels == 4:
+            px[..., 3] = np.where(px[..., 3] < 64, 0, px[..., 3])       # transparent texels too
+        p = tmp_path / f"{h}x{w}.webp"
+        p.write_bytes(pillow_webp(px, **WEBP_SAVE[case]))
+        _same_as_jax(p)
+
+
+WEBP_ENCODER = {**{f"partitions-{1 << k}": dict(partitions=k) for k in range(4)},
+                "simple-filter": dict(filter_type=0, filter_strength=60),
+                "normal-filter": dict(filter_type=1, filter_strength=60),
+                "sharpness-3": dict(filter_type=1, filter_strength=40, filter_sharpness=3),
+                "sharpness-7": dict(filter_type=0, filter_strength=80, filter_sharpness=7),
+                "filter-strength-0": dict(filter_strength=0, autofilter=0),
+                **{f"segments-{k}": dict(segments=k, sns_strength=100) for k in range(1, 5)},
+                **{f"alpha-c{c}-f{f}": dict(alpha_compression=c, alpha_filtering=f)
+                   for c in (0, 1) for f in (0, 1, 2)}}
+
+
+@pytest.mark.parametrize("case", sorted(WEBP_ENCODER))
+def test_libwebp_encoder_options_match_jax(tmp_path, case):
+    """Lossy WebP from libwebp's advanced encoder, for what Pillow's save
+    does not set: 1 to 8 token partitions, the simple and the normal loop
+    filter, sharpness, filter strength 0, 1 to 4 segments, ALPH raw or
+    VP8L-coded with each alpha filtering."""
+    opts = WEBP_ENCODER[case]
+    rng = np.random.default_rng(sorted(WEBP_ENCODER).index(case) + 100)
+    channels = 4 if case.startswith("alpha") else 3
+    for h, w in ((23, 37), (40, 24), (1, 1)):
+        px = smooth_image(rng, h, w, channels, noise=120)
+        if channels == 4:
+            px[..., 3] = smooth_image(rng, h, w, 1, noise=8)[..., 0]
+        data = encode_webp(px, quality=60, **opts)
+        if channels == 4 and h > 1:     # libwebp stores a plane raw where VP8L would not be smaller
+            assert webp_chunks(data)[b"ALPH"][0] & 3 == opts["alpha_compression"]
+        p = tmp_path / f"{h}x{w}.webp"
+        p.write_bytes(data)
+        _same_as_jax(p)
+
+
+@pytest.mark.parametrize("compression", [0, 1])
+@pytest.mark.parametrize("method", [0, 1, 2, 3])
+def test_hand_written_alph_matches_jax(tmp_path, method, compression):
+    """ALPH chunks written by hand beside a lossy VP8 frame: filter none,
+    horizontal, vertical, gradient (libwebp's first-row and first-column
+    rules, a 1-row and a 1-column plane), raw or the green channel of a
+    headerless VP8L stream, the pre-processing bit set or not; and the
+    chunk without the VP8X alpha flag (dropped, the mode still RGBA)."""
+    rng = np.random.default_rng(10 * method + compression)
+    for h, w in ((19, 27), (1, 9), (9, 1)):
+        vp8 = webp_chunks(pillow_webp(smooth_image(rng, h, w, 3), quality=70))[b"VP8 "]
+        alpha = smooth_image(rng, h, w, 1, noise=200)[..., 0]
+        alph = alph_chunk(alpha, method, compression, pre=method & 1)
+        for flag in (True, False):
+            p = tmp_path / f"{h}x{w}-{flag}.webp"
+            p.write_bytes(riff_webp(vp8x_chunk(w, h, alpha=flag), alph, webp_chunk(b"VP8 ", vp8)))
+            _same_as_jax(p)
+        got = image_decode.decode_image(p.read_bytes().replace(b"VP8X\x0a\0\0\0\x00", b"VP8X\x0a\0\0\0\x10"))
+        assert np.array_equal(got[0][..., 3], alpha)
+
+
+@pytest.mark.parametrize("colours", [2, 4, 16, 256])
+def test_lossless_webp_palettes_match_jax(tmp_path, colours):
+    """Lossless files of 2, 4, 16 and 256 colours (VP8L's colour-indexing
+    transform bundles 8, 4, 2 and 1 pixels a byte) at widths that are no
+    multiple of the bundle; RGB and RGBA."""
+    rng = np.random.default_rng(colours)
+    for channels in (3, 4):
+        pal = rng.integers(0, 256, (colours, channels))
+        for h, w in SIZES:
+            p = tmp_path / f"{channels}-{h}x{w}.webp"
+            p.write_bytes(pillow_webp(pal[rng.integers(0, colours, (h, w))], lossless=True))
+            _same_as_jax(p)
+
+
+def test_lossless_alpha_bit_sets_the_mode(tmp_path):
+    """The mode follows VP8L's alpha-is-used bit, not the pixels: an RGB
+    stream with the bit set reads RGBA (alpha 255), an RGBA stream with it
+    cleared reads RGB (its alpha dropped)."""
+    rng = np.random.default_rng(7)
+    for channels, bit in ((3, True), (4, False), (3, False), (4, True)):
+        px = smooth_image(rng, 13, 21, channels)
+        vp8l = bytearray(webp_chunks(pillow_webp(px, lossless=True))[b"VP8L"])
+        vp8l[4] = vp8l[4] | 0x10 if bit else vp8l[4] & ~0x10
+        p = tmp_path / f"{channels}-{bit}.webp"
+        p.write_bytes(riff_webp(webp_chunk(b"VP8L", bytes(vp8l))))
+        _same_as_jax(p, "RGBA" if bit else "RGB")
+
+
+WEBP_ANIMATIONS = ("save_all-rgba", "save_all-lossless", "anmf-offset", "anmf-offset-alpha",
+                   "anmf-alph", "anmf-vp8l", "metadata")
+
+
+@pytest.mark.parametrize("case", WEBP_ANIMATIONS)
+def test_webp_animation_first_frame_and_containers_match_jax(tmp_path, case):
+    """An animation's first frame as Pillow's WebPAnimDecoder gives it: a
+    two-frame save_all (RGBA lossy, RGB lossless), and hand-wrapped ANMF
+    frames at an offset inside a larger canvas (zeros around), with and
+    without the alpha flag, lossy with ALPH and lossless; a still VP8X
+    file with ICCP, EXIF, XMP and unknown chunks skipped."""
+    rng = np.random.default_rng(WEBP_ANIMATIONS.index(case))
+    p = tmp_path / "anim.webp"
+    if case.startswith("save_all"):
+        lossless = case.endswith("lossless")
+        frames = [Image.fromarray(smooth_image(rng, 17, 23, 3 if lossless else 4)) for _ in range(2)]
+        frames[0].save(p, "WEBP", save_all=True, append_images=frames[1:], duration=40, lossless=lossless)
+        assert Image.open(p).n_frames == 2
+    elif case == "metadata":
+        vp8 = webp_chunks(pillow_webp(smooth_image(rng, 11, 13, 3)))[b"VP8 "]
+        p.write_bytes(riff_webp(vp8x_chunk(13, 11, flags=0x2C), webp_chunk(b"ICCP", b"icc" * 5),
+                                webp_chunk(b"ABCD", b"x"), webp_chunk(b"VP8 ", vp8),
+                                webp_chunk(b"EXIF", b"Exif\0\0MM\0*" + bytes(7)), webp_chunk(b"XMP ", b"<x/>")))
+    else:
+        px = smooth_image(rng, 9, 11, 4)
+        if case == "anmf-vp8l":
+            frame = webp_chunk(b"VP8L", webp_chunks(pillow_webp(px, lossless=True))[b"VP8L"])
+        else:
+            frame = webp_chunk(b"VP8 ", webp_chunks(pillow_webp(px[..., :3], quality=60))[b"VP8 "])
+            if case == "anmf-alph":
+                frame = alph_chunk(px[..., 3], 3, 1) + frame
+        alpha = case != "anmf-offset"
+        second = anmf_chunk(0, 0, 40, 30, webp_chunk(b"VP8 ", webp_chunks(
+            pillow_webp(smooth_image(rng, 30, 40, 3)))[b"VP8 "]))
+        p.write_bytes(riff_webp(vp8x_chunk(40, 30, alpha=alpha, animation=True), anim_chunk(),
+                                anmf_chunk(6, 4, 11, 9, frame), second))
+    _same_as_jax(p)
+
+
+def _webp_faults():
+    rng = np.random.default_rng(18)
+    full = pillow_webp(smooth_image(rng, 19, 27, 3), quality=70)
+    vp8 = webp_chunks(full)[b"VP8 "]
+    n = len(full)
+    faults = {f"cut-{cut}": full[:cut] for cut in (n - 1, n - 9, n // 2, 40, 19)}
+    faults.update({
+        "riff-size-past-the-end": full[:4] + struct.pack("<I", n) + full[8:],
+        "riff-size-short": full[:4] + struct.pack("<I", n - 20) + full[8:],
+        "chunk-size-past-riff": full[:16] + struct.pack("<I", n) + full[20:],
+        "vp8x-without-image": riff_webp(vp8x_chunk(27, 19, alpha=True), webp_chunk(b"EXIF", b"e" * 8)),
+        "vp8x-size-differs": riff_webp(vp8x_chunk(29, 19), webp_chunk(b"VP8 ", vp8)),
+        "frame-outside-canvas": riff_webp(vp8x_chunk(30, 20, animation=True), anim_chunk(),
+                                          anmf_chunk(4, 2, 27, 19, webp_chunk(b"VP8 ", vp8))),
+        "not-a-key-frame": riff_webp(webp_chunk(b"VP8 ", bytes([vp8[0] | 1]) + vp8[1:])),
+        "vp8-partition-cut": riff_webp(webp_chunk(b"VP8 ", vp8[:len(vp8) // 2])),
+        "vp8l-bad-signature": riff_webp(webp_chunk(b"VP8L", b"\x2e" + webp_chunks(
+            pillow_webp(smooth_image(rng, 5, 7, 3), lossless=True))[b"VP8L"][1:])),
+    })
+    return faults
+
+
+WEBP_FAULTS = _webp_faults()
+
+
+@pytest.mark.parametrize("fault", sorted(WEBP_FAULTS))
+def test_webp_faults_raise_as_jax(tmp_path, fault):
+    """Files Pillow refuses (WebPDemux or WebPDecode fails): cut short, a
+    RIFF or chunk size past the data, a VP8X without an image or of
+    another size than its image, a frame outside the canvas, a VP8 frame
+    that is no key frame or is cut, a bad VP8L signature: the port raises
+    ValueError."""
+    _both_raise(tmp_path, f"{fault}.webp", WEBP_FAULTS[fault])
 
 
 def test_validate_bvh_matches_jax():
