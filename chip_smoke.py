@@ -217,17 +217,21 @@ Phases, each of which ends the run with a non-zero exit on failure:
      expected.json (the JAX package's output); textured_obj's OBJ with
      its ground and leaf maps replaced by the JPEG and TGA fixtures, and
      again by PNGs of the same decoded pixels, then by the GIF, PSD, PGM
-     and RLE8 BMP fixtures and their PNG twins: each pair of 1080p frames
-     at the reference defaults through rt.render hash-equal, with their
-     masked v9/v8 and B5 launches only; the C1 frame, the leaf opacity map
-     a PGM of 0/1 texels (0 and 1/255, as stbi_load reads them), hash-equal
-     to the frame with an all-zero map; host decode times, median of 5:
-     the 1024^2 JPEG, a 2048^2 RGBA Paeth PNG through the native path, a
-     256^2 crop of it through the native path and through png.decode_png
-     (about a minute a decode on the whole image, so the crop), and a
-     1024^2 GIF, 16-bit PGM, PackBits PSD, RLE8 and 5-6-5 BMP and 16-bit
-     RLE TGA, written on the host by the tests' encoders
-     (tests/_torch_image_helpers.py).
+     and RLE8 BMP fixtures, the TIFF fixtures, the WebP fixtures, and the
+     arithmetic-coded, lossless, incomplete progressive and corrupt JPEG
+     fixtures, each with their PNG twins: each pair of 1080p frames at the
+     reference defaults through rt.render hash-equal, with their masked
+     v9/v8 and B5 launches only; the C1 frame, the leaf opacity map a PGM
+     of 0/1 texels (0 and 1/255, as stbi_load reads them), hash-equal to
+     the frame with an all-zero map; host decode times, median of 3: the
+     1024^2 JPEG, a 2048^2 RGBA Paeth PNG through the native path, a 256^2
+     crop of it through the native path, a 128^2 crop (one run) through
+     png.decode_png (about a minute a decode on the whole image, so the
+     crop), a 1024^2 GIF, 16-bit PGM, PackBits PSD, RLE8 and 5-6-5 BMP,
+     16-bit RLE TGA, LZW, Deflate and JPEG TIFF, CMYK and YCCK JPEG and
+     lossless JPEG, written on the host by the tests' encoders
+     (tests/_torch_image_helpers.py), and the 1024^2 WebP and
+     arithmetic-coded JPEG fixtures.
 Each main-path run (5, 8, 9, 14, 18, 22, 24, 26, 27, 28, 30, each step of
 31 and 32, 33, 34, 35, 36, 37, 38) and the probe's timed run (23) are driven with every kernel's
 launch count set to 0 just before and read just after.  The line before the last is a
@@ -879,9 +883,10 @@ def image_decoders(*, rt, torch, card: str, W: int, H: int, zero_counts, read_co
     """Phase 38: the host image decoders on the committed fixtures (the
     corrupt JPEGs and WebP among them); 1080p frames textured by JPEG/TGA
     files, by GIF/PSD/PGM/RLE-BMP files, by LZW/Deflate/JPEG/PackBits TIFF
-    files and by WebP files (lossy with alpha, lossless), each against the
-    same frame textured by PNGs of their pixels; the C1 frame (a 0/1
-    opacity map against an all-zero one); host decode times."""
+    files, by WebP files (lossy with alpha, lossless) and by arithmetic-
+    coded, lossless, incomplete progressive and corrupt JPEGs, each
+    against the same frame textured by PNGs of their pixels; the C1 frame
+    (a 0/1 opacity map against an all-zero one); host decode times."""
     import hashlib
 
     from realtimeraytracer_torch import scenes
@@ -913,6 +918,10 @@ def image_decoders(*, rt, torch, card: str, W: int, H: int, zero_counts, read_co
     tiff_roles = {"ground_kd.png": "lzw_pred_rgb.tif", "ground_ks.png": "deflate_tiles_grey.tif",
                   "leaf_kd.png": "jpeg_ycbcr.tif", "leaf_d.png": "packbits_rgba.tif"}
     webp_roles = {"ground_kd.png": "ground_lossless.webp", "leaf_kd.png": "leaf_alpha.webp"}
+    # Arithmetic-coded, lossless, incomplete progressive (block-smoothed),
+    # corrupt-and-recovered JPEG.
+    jpeg_roles = {"ground_kd.png": "arith420_rst.jpg", "ground_ks.png": "lossless_grey.jpg",
+                  "leaf_kd.png": "prog420_cut.jpg", "leaf_d.png": "corrupt_recovered.jpg"}
     disc = enc.disc_pattern(64)
     cfg = rt.RenderConfig(width=W, height=H, primary_rays=4, shadow_rays=3, denoise_iterations=4)
     frames = {}
@@ -943,6 +952,7 @@ def image_decoders(*, rt, torch, card: str, W: int, H: int, zero_counts, read_co
         new_bytes = {m: (f, (fx / f).read_bytes()) for m, f in new_roles.items()}
         tiff_bytes = {m: (f, (fx / f).read_bytes()) for m, f in tiff_roles.items()}
         webp_bytes = {m: (f, (fx / f).read_bytes()) for m, f in webp_roles.items()}
+        jpeg_bytes = {m: (f, (fx / f).read_bytes()) for m, f in jpeg_roles.items()}
         scenes38 = {
             "JPEG/TGA maps": variant("fixtures", old_bytes),
             "PNG maps": variant("repng", twins(old_bytes)),
@@ -952,6 +962,8 @@ def image_decoders(*, rt, torch, card: str, W: int, H: int, zero_counts, read_co
             "the TIFFs' PNG maps": variant("tiff_png", twins(tiff_bytes)),
             "WebP maps": variant("webp", webp_bytes),
             "the WebPs' PNG maps": variant("webp_png", twins(webp_bytes)),
+            "rarer JPEG maps": variant("jpeg_variants", jpeg_bytes),
+            "the rarer JPEGs' PNG maps": variant("jpeg_variants_png", twins(jpeg_bytes)),
             # C1: 0/1 texels read 0 and 1/255 (stbi_load), below alpha_threshold
             # like 0; the JAX package's rule kept them 0 and 1.0, opaque leaves.
             "C1 0/1 opacity PGM": variant("c1", {"leaf_d.png": (
@@ -983,19 +995,22 @@ def image_decoders(*, rt, torch, card: str, W: int, H: int, zero_counts, read_co
                        ("GIF/PSD/PGM/RLE-BMP maps", "their PNG maps", "GIF/PSD/PGM/RLE-BMP"),
                        ("TIFF maps", "the TIFFs' PNG maps", "LZW/Deflate/JPEG/PackBits TIFF"),
                        ("WebP maps", "the WebPs' PNG maps", "WebP (lossy with alpha, lossless)"),
+                       ("rarer JPEG maps", "the rarer JPEGs' PNG maps",
+                        "arithmetic, lossless, incomplete progressive, corrupt JPEG"),
                        ("C1 0/1 opacity PGM", "all-zero opacity PGM", "C1 (0/1 opacity)")):
         ha, hb = frames[a]["sha256"], frames[b]["sha256"]
         require(ha == hb, f"[38] the {what} frame differs from its twin: {ha[:16]} against {hb[:16]}")
     require(frames["C1 0/1 opacity PGM"]["sha256"] != frames["PNG maps"]["sha256"],
             "[38] the C1 frame equals the frame with textured_obj's own cut-outs")
     say(f"[38] textured_obj at 1080p, reference defaults, rt.render: the JPEG/TGA-textured frame, "
-        f"the GIF/PSD/PGM/RLE-BMP-textured frame, the TIFF-textured frame and the WebP-textured frame "
+        f"the GIF/PSD/PGM/RLE-BMP-textured frame, the TIFF-textured frame, the WebP-textured frame and "
+        f"the frame textured by arithmetic-coded, lossless, incomplete progressive and corrupt JPEGs "
         f"are each hash-equal to the "
         f"frame with PNG maps of the same pixels; the C1 frame (0/1 opacity PGM) is hash-equal to the "
         f"all-zero one; "
         + json.dumps(frames))
 
-    def med5(fn, n=5):
+    def med3(fn, n=3):
         times = []
         for _ in range(n):
             t0 = time.perf_counter()
@@ -1009,6 +1024,7 @@ def image_decoders(*, rt, torch, card: str, W: int, H: int, zero_counts, read_co
     rgba = ((yy % 200)[..., None] + noise + np.stack([xx % 7, xx % 11, yy % 5, xx % 3], -1)).astype(np.uint8)
     paeth = png.encode_png(rgba, filters=[4])
     crop = png.encode_png(rgba[:256, :256], filters=[4])
+    crop128 = png.encode_png(rgba[:128, :128], filters=[4])     # the Python decoder's timing
     require(np.array_equal(image_decode.decode_image(paeth)[0], rgba), "[38] the 2048^2 PNG decodes wrong")
     require(np.array_equal(png.decode_png(crop), image_decode.decode_image(crop)[0]),
             "[38] the crop's native and Python decodes differ")
@@ -1072,21 +1088,35 @@ def image_decoders(*, rt, torch, card: str, W: int, H: int, zero_counts, read_co
         px, got_mode = image_decode.decode_image(data)
         require(px.shape[:2] == (1024, 1024) and got_mode == mode, f"[38] {key}: {px.shape} {got_mode}")
         new_files[key] = (data, mode)
+    # The 1024^2 arithmetic-coded fixture (4:2:0, its digest checked above)
+    # and a 1024^2 lossless RGB file (predictor 6, a restart every 32 rows)
+    # written here: it decodes to its source exactly.
+    arith = (fx / "smooth1024_arith.jpg").read_bytes()
+    px, got_mode = image_decode.decode_image(arith)
+    require(px.shape == (1024, 1024, 3) and got_mode == "RGB", f"[38] jpeg_arith_1024: {px.shape} {got_mode}")
+    new_files["jpeg_arith_1024"] = (arith, "RGB")
+    big = enc.smooth1024()
+    t_enc_lossless = time.perf_counter()
+    lossless = enc.encode_lossless_jpeg([big[..., k] for k in range(3)], 6, restart_rows=32)
+    t_enc += time.perf_counter() - t_enc_lossless
+    require(np.array_equal(image_decode.decode_image(lossless)[0], big), "[38] the 1024^2 lossless JPEG decodes wrong")
+    new_files["jpeg_lossless_1024"] = (lossless, "RGB")
     y1k, x1k = np.mgrid[0:1024, 0:1024]
     require(np.array_equal(image_decode.decode_image(new_files["webp_lossless_1024"][0])[0],
                            np.stack([(x1k + y1k) & 255, (2 * x1k) & 255, (3 * y1k) & 255], -1)),
             "[38] the 1024^2 lossless WebP decodes wrong")
-    times = {"jpeg_1024_native": med5(lambda: image_decode.decode_image(jpeg)),
-             "png_paeth_2048_native": med5(lambda: image_decode.decode_image(paeth)),
-             "png_paeth_256_native": med5(lambda: image_decode.decode_image(crop)),
-             "png_paeth_256_python": med5(lambda: png.decode_png(crop), 3)}   # about 1 s a call
+    times = {"jpeg_1024_native": med3(lambda: image_decode.decode_image(jpeg)),
+             "png_paeth_2048_native": med3(lambda: image_decode.decode_image(paeth)),
+             "png_paeth_256_native": med3(lambda: image_decode.decode_image(crop)),
+             "png_paeth_128_python": med3(lambda: png.decode_png(crop128), 1)}
     for key, (data, _) in new_files.items():
-        times[key + "_native"] = med5(lambda data=data: image_decode.decode_image(data))
+        times[key + "_native"] = med3(lambda data=data: image_decode.decode_image(data))
     res = {k: {"ms": v[0], "ms_all": v[1]} for k, v in times.items()}
     res["bytes"] = {"jpeg_1024": len(jpeg), "png_paeth_2048": len(paeth), "png_paeth_256": len(crop),
+                    "png_paeth_128": len(crop128),
                     **{k: len(v[0]) for k, v in new_files.items()}}
     res["encode_s"] = t_enc
-    say(f"[38] host decode ms, median of 5 (of 3 for the Python PNG decoder; host side, the card machine's "
+    say(f"[38] host decode ms, median of 3 (one run of the Python PNG decoder; host side, the card machine's "
         f"CPU; {card}): " + json.dumps(res))
     say(f"[38] phase 38 took {time.perf_counter() - t38:.1f} s")
     return {"frames": frames, "decode": res}

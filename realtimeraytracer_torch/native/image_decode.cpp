@@ -6,16 +6,23 @@
 // convert("RGBA") or convert("L")); the reference C++ with stb_image.  This
 // library returns what Pillow returns, pixel for pixel, in Pillow's mode:
 //
-//   JPEG  baseline, extended and progressive Huffman, 8-bit, 1, 3 or 4
-//         components (CMYK, or YCCK by the Adobe transform, read inverted
-//         as Pillow's "CMYK;I"), any integral sampling, restart intervals;
-//         decoded as libjpeg-turbo decodes by default: the ISLOW integer
-//         IDCT as its x86-64 SIMD code computes it (equal to jidctint.c
-//         but where a corrupt file's coefficients overflow its 16-bit
-//         lanes), "fancy" triangle upsampling of each component
-//         (jdsample.c: h2v1, h1v2, h2v2; a component 2 samples wide or
-//         narrower takes the box filter), the integer YCbCr->RGB and
-//         YCCK->CMYK tables (jdcolor.c).
+//   JPEG  8-bit, 1, 3 or 4 components (CMYK, or YCCK by the Adobe
+//         transform, read inverted as Pillow's "CMYK;I"), any integral
+//         sampling, restart intervals: baseline, extended and progressive
+//         Huffman, sequential and progressive arithmetic coding (jdarith.c,
+//         DAC conditioning), lossless (SOF3: predictors 1-7, point
+//         transform; jdlossls.c); decoded as libjpeg-turbo 3.1 decodes by
+//         default: the ISLOW integer IDCT as its x86-64 SIMD code computes
+//         it (equal to jidctint.c but where a corrupt file's coefficients
+//         overflow its 16-bit lanes), block smoothing of an incomplete
+//         progressive file (jdcoefct.c), "fancy" triangle upsampling of
+//         each component (jdsample.c: h2v1, h1v2, h2v2; a component 2
+//         samples wide or narrower takes the box filter), the integer
+//         YCbCr->RGB and YCCK->CMYK tables (jdcolor.c); corrupt data
+//         recovered from as libjpeg does (jdhuff.c, jdphuff.c, jdarith.c,
+//         jdmarker.c: zeros after a marker inside a scan, a bad code read
+//         as 0, a run past the band written to coefficient 63, the restart
+//         resync), a file's end inside a scan an error, as Pillow makes it.
 //   PNG   unfiltering, Adam7 de-interlacing and unpacking of every colour
 //         type and depth; the inflate is zlib's, done by the caller.
 //   TGA   types 1, 2, 3, 9, 10, 11 at 1 (grey), 8, 16, 24 and 32 bits,
@@ -39,9 +46,10 @@
 //
 // Pixels come back as uint8 (H, W, C): C = 1 grey, 2 grey + alpha, 3 RGB,
 // 4 RGBA (palette and CMYK images are expanded to RGBA); a float TIFF also
-// keeps its float32 samples.  Anything malformed or not ported throws,
-// and the C entry points turn that into an error message: every read of
-// the input is bounds-checked.
+// keeps its float32 samples.  Anything malformed or not ported (where
+// Pillow raises: 12-bit, hierarchical and arithmetic-coded lossless JPEG,
+// a JPEG height in a DNL marker) throws, and the C entry points turn that
+// into an error message: every read of the input is bounds-checked.
 //
 // Build: c++ -O2 -fPIC -std=c++17 -shared (no -march=native: the decode is
 // integer arithmetic, and the same bytes must come out on every host; the
@@ -143,239 +151,498 @@ void cmyk_to_rgba(int c, int m, int y, int k, uint8_t* o) {
 
 // ---------------------------------------------------------------- JPEG ----
 
-// Zigzag index -> natural (row-major) position of a coefficient.
-constexpr uint8_t kNatural[64] = {
+// Zigzag index -> natural (row-major) position of a coefficient, with
+// libjpeg's 16 extra entries: a corrupt run past coefficient 63 (up to
+// index 78) lands on coefficient 63 (jutils.c jpeg_natural_order).
+constexpr uint8_t kNatural[80] = {
     0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
     12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
-    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
+    63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
 
+// T.81 Table D.2 as jaricom.c packs it: Qe << 16 | next index after an MPS
+// << 8 | switch-MPS << 7 | next index after an LPS.  Entry 113 is the
+// fixed 0.5 estimate (T.851) that signs and DC refinement bits use.
+#define QM(qe, lps, mps, sw) (int64_t(qe) << 16 | (mps) << 8 | (sw) << 7 | (lps))
+constexpr int64_t kQM[114] = {
+    QM(0x5a1d, 1, 1, 1),     QM(0x2586, 14, 2, 0),    QM(0x1114, 16, 3, 0),    QM(0x080b, 18, 4, 0),
+    QM(0x03d8, 20, 5, 0),    QM(0x01da, 23, 6, 0),    QM(0x00e5, 25, 7, 0),    QM(0x006f, 28, 8, 0),
+    QM(0x0036, 30, 9, 0),    QM(0x001a, 33, 10, 0),   QM(0x000d, 35, 11, 0),   QM(0x0006, 9, 12, 0),
+    QM(0x0003, 10, 13, 0),   QM(0x0001, 12, 13, 0),   QM(0x5a7f, 15, 15, 1),   QM(0x3f25, 36, 16, 0),
+    QM(0x2cf2, 38, 17, 0),   QM(0x207c, 39, 18, 0),   QM(0x17b9, 40, 19, 0),   QM(0x1182, 42, 20, 0),
+    QM(0x0cef, 43, 21, 0),   QM(0x09a1, 45, 22, 0),   QM(0x072f, 46, 23, 0),   QM(0x055c, 48, 24, 0),
+    QM(0x0406, 49, 25, 0),   QM(0x0303, 51, 26, 0),   QM(0x0240, 52, 27, 0),   QM(0x01b1, 54, 28, 0),
+    QM(0x0144, 56, 29, 0),   QM(0x00f5, 57, 30, 0),   QM(0x00b7, 59, 31, 0),   QM(0x008a, 60, 32, 0),
+    QM(0x0068, 62, 33, 0),   QM(0x004e, 63, 34, 0),   QM(0x003b, 32, 35, 0),   QM(0x002c, 33, 9, 0),
+    QM(0x5ae1, 37, 37, 1),   QM(0x484c, 64, 38, 0),   QM(0x3a0d, 65, 39, 0),   QM(0x2ef1, 67, 40, 0),
+    QM(0x261f, 68, 41, 0),   QM(0x1f33, 69, 42, 0),   QM(0x19a8, 70, 43, 0),   QM(0x1518, 72, 44, 0),
+    QM(0x1177, 73, 45, 0),   QM(0x0e74, 74, 46, 0),   QM(0x0bfb, 75, 47, 0),   QM(0x09f8, 77, 48, 0),
+    QM(0x0861, 78, 49, 0),   QM(0x0706, 79, 50, 0),   QM(0x05cd, 48, 51, 0),   QM(0x04de, 50, 52, 0),
+    QM(0x040f, 50, 53, 0),   QM(0x0363, 51, 54, 0),   QM(0x02d4, 52, 55, 0),   QM(0x025c, 53, 56, 0),
+    QM(0x01f8, 54, 57, 0),   QM(0x01a4, 55, 58, 0),   QM(0x0160, 56, 59, 0),   QM(0x0125, 57, 60, 0),
+    QM(0x00f6, 58, 61, 0),   QM(0x00cb, 59, 62, 0),   QM(0x00ab, 61, 63, 0),   QM(0x008f, 61, 32, 0),
+    QM(0x5b12, 65, 65, 1),   QM(0x4d04, 80, 66, 0),   QM(0x412c, 81, 67, 0),   QM(0x37d8, 82, 68, 0),
+    QM(0x2fe8, 83, 69, 0),   QM(0x293c, 84, 70, 0),   QM(0x2379, 86, 71, 0),   QM(0x1edf, 87, 72, 0),
+    QM(0x1aa9, 87, 73, 0),   QM(0x174e, 72, 74, 0),   QM(0x1424, 72, 75, 0),   QM(0x119c, 74, 76, 0),
+    QM(0x0f6b, 74, 77, 0),   QM(0x0d51, 75, 78, 0),   QM(0x0bb6, 77, 79, 0),   QM(0x0a40, 77, 48, 0),
+    QM(0x5832, 80, 81, 1),   QM(0x4d1c, 88, 82, 0),   QM(0x438e, 89, 83, 0),   QM(0x3bdd, 90, 84, 0),
+    QM(0x34ee, 91, 85, 0),   QM(0x2eae, 92, 86, 0),   QM(0x299a, 93, 87, 0),   QM(0x2516, 86, 71, 0),
+    QM(0x5570, 88, 89, 1),   QM(0x4ca9, 95, 90, 0),   QM(0x44d9, 96, 91, 0),   QM(0x3e22, 97, 92, 0),
+    QM(0x3824, 99, 93, 0),   QM(0x32b4, 99, 94, 0),   QM(0x2e17, 93, 86, 0),   QM(0x56a8, 95, 96, 1),
+    QM(0x4f46, 101, 97, 0),  QM(0x47e5, 102, 98, 0),  QM(0x41cf, 103, 99, 0),  QM(0x3c3d, 104, 100, 0),
+    QM(0x375e, 99, 93, 0),   QM(0x5231, 105, 102, 0), QM(0x4c0f, 106, 103, 0), QM(0x4639, 107, 104, 0),
+    QM(0x415e, 103, 99, 0),  QM(0x5627, 105, 106, 1), QM(0x50e7, 108, 107, 0), QM(0x4b85, 109, 103, 0),
+    QM(0x5597, 110, 109, 0), QM(0x504f, 111, 107, 0), QM(0x5a10, 110, 111, 1), QM(0x5522, 112, 109, 0),
+    QM(0x59eb, 112, 111, 1), QM(0x5a1d, 113, 113, 0)};
+#undef QM
+
+// The K.3 tables libjpeg-turbo installs for a Huffman table a scan uses but
+// no DHT defined (jstdhuff.c, for Motion-JPEG): ids 0 and 1.
+constexpr uint8_t kStdBits[4][16] = {{0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0},
+                                     {0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0},
+                                     {0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d},
+                                     {0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77}};
+constexpr uint8_t kStdDcVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+constexpr uint8_t kStdAcVals[2][162] = {
+    {0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51, 0x61, 0x07, 0x22,
+     0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08, 0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33,
+     0x62, 0x72, 0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x34,
+     0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55,
+     0x56, 0x57, 0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75, 0x76,
+     0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96,
+     0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5,
+     0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4,
+     0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1,
+     0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa},
+    {0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07, 0x61, 0x71, 0x13,
+     0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0, 0x15, 0x62,
+     0x72, 0xd1, 0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26, 0x27, 0x28, 0x29,
+     0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54,
+     0x55, 0x56, 0x57, 0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
+     0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94,
+     0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3,
+     0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2,
+     0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea,
+     0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa}};
+
+// A Huffman table as jdhuff.c derives it.  A DHT only stores it; libjpeg
+// checks it (jpeg_make_d_derived_tbl) when a scan uses it.
 struct Huffman {
-  bool defined = false;
-  uint16_t fast[512];  // 9-bit lookahead -> (length << 8) | symbol; 0: longer code
-  int32_t maxcode[17], mincode[17], valptr[17];
+  bool defined = false, bad = false;
+  uint16_t look[256];  // 8-bit lookahead -> (length << 8) | symbol; 0: a longer code
+  int32_t maxcode[18], valoffset[17];
   uint8_t vals[256];
   int nvals = 0;
 
   void build(const uint8_t counts[16], const uint8_t* symbols, int n) {
-    std::memset(fast, 0, sizeof fast);
+    std::memset(look, 0, sizeof look);
     std::memcpy(vals, symbols, size_t(n));
-    nvals = n;
-    int32_t code = 0, k = 0, maxlen = 0;
-    for (int len = 1; len <= 16; ++len)
-      if (counts[len - 1]) maxlen = len;
+    nvals = n, defined = true, bad = false;
+    int32_t code = 0, p = 0;
     for (int len = 1; len <= 16; ++len) {
-      // jdhuff.c: the codes of each length must fit in it, all-ones excluded.
-      if (len <= maxlen && code + counts[len - 1] >= (int32_t(1) << len))
-        fail("corrupt JPEG: bad Huffman table");
-      valptr[len] = k;
-      mincode[len] = code;
-      for (int i = 0; i < counts[len - 1]; ++i, ++k, ++code)
-        if (len <= 9)
-          for (int s = 0; s < 1 << (9 - len); ++s)
-            fast[(code << (9 - len)) | s] = uint16_t(len << 8 | symbols[k]);
-      maxcode[len] = counts[len - 1] ? code - 1 : -1;
+      const int k = counts[len - 1];
+      if (k) {
+        valoffset[len] = p - code;
+        for (int i = 0; i < k; ++i, ++p, ++code) {
+          if (code >= (int32_t(1) << len)) {
+            bad = true;
+            return;
+          }
+          if (len <= 8)
+            for (int s = 0; s < 1 << (8 - len); ++s) look[(code << (8 - len)) | s] = uint16_t(len << 8 | symbols[p]);
+        }
+        maxcode[len] = code - 1;
+        if (code >= (int32_t(1) << len)) bad = true;  // no code may be all ones
+      } else {
+        maxcode[len] = -1;
+      }
       code <<= 1;
     }
-    defined = true;
+    maxcode[17] = 0xFFFFF;
+  }
+  // At a scan's start: the table must exist (a sequential DCT file may
+  // leave ids 0 and 1 to the standard tables, jdhuff.c jinit_huff_decoder),
+  // be a valid code, and hold DC categories up to `max_dc`.
+  void use(bool dc, int id, int max_dc, bool std_ok) {
+    if (!defined) {
+      if (id > 1 || !std_ok) fail("corrupt JPEG: Huffman table missing");
+      const uint8_t* bits = kStdBits[(dc ? 0 : 2) + id];
+      build(bits, dc ? kStdDcVals : kStdAcVals[id], dc ? 12 : 162);
+    }
+    if (bad) fail("corrupt JPEG: bad Huffman table");
+    if (dc)
+      for (int k = 0; k < nvals; ++k)
+        if (vals[k] > max_dc) fail("corrupt JPEG: bad Huffman table");
   }
 };
 
-// Bit reader over entropy-coded data.  Bytes FF 00 are a data FF; FF
-// followed by anything else is a marker: the reader stops there and feeds
-// zero bits, but any decode that consumes one of them fails.
-struct BitReader {
-  const uint8_t* d;
-  size_t n, pos;
-  uint32_t acc = 0;
-  int bits = 0, pad = 0;
-  int marker = -1;        // code of the marker hit, -1 before one is hit
-  size_t marker_pos = 0;  // index of its code byte
+// libjpeg suspended: Pillow's source ran out of data.  Where every row is
+// out (after a single sequential scan) Pillow keeps the image; elsewhere
+// it raises "image file is truncated".
+struct Truncated : DecodeError {
+  Truncated() : DecodeError("truncated JPEG file") {}
+};
 
-  void fill() {
-    while (bits <= 24) {
-      uint32_t b = 0;
-      if (marker >= 0) {
-        pad += 8;
-      } else {
-        if (pos >= n) fail("truncated JPEG data");
-        b = d[pos];
-        if (b == 0xFF) {
-          size_t q = pos + 1;
-          while (q < n && d[q] == 0xFF) ++q;
-          if (q >= n) fail("truncated JPEG data");
-          if (d[q] == 0) {
-            pos = q + 1;
-          } else {
-            marker = d[q], marker_pos = q, b = 0, pad += 8;
-          }
-        } else {
-          ++pos;
-        }
-      }
-      acc |= b << (24 - bits);
-      bits += 8;
+// The bytes as libjpeg's source manager hands them on: Pillow's suspends
+// at the end of its data; libtiff's (a TIFF's JPEG strip or tile) reads a
+// fake EOI past the end, each time it is asked.  Pillow feeds its decoder
+// 64 KiB reads, and an arithmetic decoder cannot suspend (jdarith.c
+// get_byte: JERR_CANT_SUSPEND): inside an arithmetic-coded scan a byte
+// past the reads so far, `limit`, raises.
+struct Source {
+  const uint8_t* d;
+  size_t n;
+  bool eoi_past_end = false;
+  size_t limit = SIZE_MAX;
+  int byte(size_t i) const {
+    if (i >= limit) fail("arithmetic-coded JPEG data past a 64 KiB read (Pillow's decoder cannot suspend it)");
+    if (i < n) return d[i];
+    if (eoi_past_end) return (i - n) & 1 ? 0xD9 : 0xFF;
+    throw Truncated{};
+  }
+};
+
+// jdmarker.c next_marker from `pos`: skips data bytes and FF 00 pairs; the
+// marker's code, `pos` just past it.
+int next_marker(const Source& src, size_t& pos) {
+  for (;;) {
+    int c = src.byte(pos++);
+    while (c != 0xFF) c = src.byte(pos++);
+    do c = src.byte(pos++);
+    while (c == 0xFF);
+    if (c != 0) return c;
+  }
+}
+
+// jdmarker.c read_restart_marker with jpeg_resync_to_restart's actions:
+// the expected RSTn is swallowed (marker = 0); another marker is left for
+// the entropy decoder, which then reads zeros (a valid marker, or one of
+// the next two restarts), skipped to the next marker (an invalid one, or
+// one of the two before), or discarded (any other restart).
+void read_restart_marker(const Source& src, size_t& pos, int& marker, int& next_rst) {
+  if (marker == 0) marker = next_marker(src, pos);
+  if (marker == 0xD0 + next_rst) {
+    marker = 0;
+  } else {
+    for (;;) {
+      int action;
+      if (marker < 0xC0) action = 2;
+      else if (marker < 0xD0 || marker > 0xD7) action = 3;
+      else if (marker == 0xD0 + ((next_rst + 1) & 7) || marker == 0xD0 + ((next_rst + 2) & 7)) action = 3;
+      else if (marker == 0xD0 + ((next_rst - 1) & 7) || marker == 0xD0 + ((next_rst - 2) & 7)) action = 2;
+      else action = 1;
+      if (action == 1) { marker = 0; break; }
+      if (action == 3) break;
+      marker = next_marker(src, pos);
     }
   }
-  void consume(int k) {
+  next_rst = (next_rst + 1) & 7;
+}
+
+// jdhuff.c's bit reader, its slow path: a 64-bit buffer filled to 57 bits
+// when a request finds fewer.  At a marker it stops reading; a request
+// beyond the bits left is met with zero bits and sets `insufficient`
+// (JWRN_HIT_MARKER), after which the entropy decoders decode no more MCUs
+// of the segment.
+struct BitReader {
+  const Source& src;
+  size_t pos;
+  uint64_t buf = 0;
+  int bits = 0;
+  int marker = 0;  // libjpeg's unread_marker
+  bool insufficient = false;
+
+  void fill(int nbits) {
+    if (marker == 0) {
+      while (bits < 57) {
+        int c = src.byte(pos++);
+        if (c == 0xFF) {
+          do c = src.byte(pos++);
+          while (c == 0xFF);
+          if (c == 0) {
+            c = 0xFF;
+          } else {
+            marker = c;
+            break;
+          }
+        }
+        buf = buf << 8 | uint64_t(c);
+        bits += 8;
+      }
+      if (marker == 0) return;
+    }
+    if (nbits > bits) {
+      insufficient = true;
+      buf <<= 57 - bits;
+      bits = 57;
+    }
+  }
+  int get(int k) {  // 0 <= k <= 16
+    if (bits < k) fill(k);
     bits -= k;
-    acc <<= k;
-    if (bits < pad) fail("corrupt JPEG data: premature end of a data segment");
+    return int((buf >> bits) & ((uint64_t(1) << k) - 1));
   }
-  uint32_t get(int k) {  // 1 <= k <= 16
-    fill();
-    uint32_t v = acc >> (32 - k);
-    consume(k);
-    return v;
-  }
-  int extend(int s) {  // the s-bit signed value that follows a Huffman symbol
+  int extend(int s) {  // HUFF_EXTEND of the s bits that follow a category
     if (s == 0) return 0;
-    if (s > 16) fail("corrupt JPEG data: coefficient of " + std::to_string(s) + " bits");
-    int v = int(get(s));
+    int v = get(s);
     return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v;
   }
-  int decode(const Huffman& t) {
-    fill();
-    uint16_t e = t.fast[acc >> 23];
-    if (e) {
-      consume(e >> 8);
-      return e & 0xFF;
+  int decode(const Huffman& t) {  // HUFF_DECODE and jpeg_huff_decode
+    int l = 9;
+    if (bits < 8) {
+      fill(0);
+      if (bits < 8) l = 1;
     }
-    for (int len = 10; len <= 16; ++len) {
-      int32_t code = int32_t(acc >> (32 - len));
-      if (code <= t.maxcode[len]) {
-        int idx = t.valptr[len] + code - t.mincode[len];
-        if (idx < 0 || idx >= t.nvals) break;
-        consume(len);
-        return t.vals[idx];
+    if (l == 9) {
+      const uint16_t e = t.look[(buf >> (bits - 8)) & 0xFF];
+      if (e) {
+        bits -= e >> 8;
+        return e & 0xFF;
       }
     }
-    fail("corrupt JPEG data: bad Huffman code");
+    int32_t code = get(l);
+    while (code > t.maxcode[l]) code = code << 1 | get(1), ++l;
+    if (l > 16) return 0;  // JWRN_HUFF_BAD_CODE: a zero, 17 bits read
+    return t.vals[code + t.valoffset[l]];
   }
-  // Moves to the next marker (skipping the rest of the data segment) and
-  // returns the index of its code byte.
-  size_t seek_marker() {
-    if (marker < 0) {
-      size_t q = pos;
-      for (;;) {
-        if (q >= n) fail("truncated JPEG data");
-        if (d[q] != 0xFF) { ++q; continue; }
-        size_t r = q + 1;
-        while (r < n && d[r] == 0xFF) ++r;
-        if (r >= n) fail("truncated JPEG data");
-        if (d[r] == 0) { q = r + 1; continue; }
-        marker = d[r], marker_pos = r;
-        break;
+  // jdhuff.c process_restart: the buffer's bits are dropped, the marker read.
+  void restart(int& next_rst) {
+    bits = 0;
+    read_restart_marker(src, pos, marker, next_rst);
+    if (marker == 0) insufficient = false;
+  }
+};
+
+// jdarith.c's QM decoder.  At a marker it reads zeros until the scan ends
+// (legal in arithmetic coding); ct = -1 marks a code error
+// (JWRN_ARITH_BAD_CODE), after which no MCU of the segment is decoded.
+struct ArithReader {
+  const Source& src;
+  size_t pos;
+  int marker = 0;
+  int64_t c = 0, a = 0;
+  int ct = -16;
+
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        int data = 0;
+        if (marker == 0) {
+          data = src.byte(pos++);
+          if (data == 0xFF) {
+            do data = src.byte(pos++);
+            while (data == 0xFF);
+            if (data == 0) {
+              data = 0xFF;
+            } else {
+              marker = data;
+              data = 0;
+            }
+          }
+        }
+        c = c << 8 | data;
+        if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    int64_t qe = kQM[sv & 0x7F];
+    const int nl = int(qe & 0xFF);
+    qe >>= 8;
+    const int nm = int(qe & 0xFF);
+    qe >>= 8;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {
+        a = qe;
+        *st = uint8_t((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = uint8_t((sv & 0x80) ^ nm);
       }
     }
-    acc = 0, bits = 0, pad = 0;
-    return marker_pos;
+    return sv >> 7;
+  }
+  void restart(int& next_rst) {
+    read_restart_marker(src, pos, marker, next_rst);
+    c = 0, a = 0, ct = -16;
+  }
+};
+
+// The bytes of a marker segment, read one by one from the source (libjpeg
+// reads a segment's declared contents, not bounded by its length).
+struct Cursor {
+  const Source& src;
+  size_t p;
+  int u8() { return src.byte(p++); }
+  int u16() {
+    const int a = u8();
+    return a << 8 | u8();
+  }
+  void skip(int64_t k) {
+    if (k <= 0) return;
+    if (!src.eoi_past_end && size_t(k) > src.n - std::min(p, src.n)) throw Truncated{};
+    p += size_t(k);
   }
 };
 
 struct Component {
   int id = 0, h = 1, v = 1, tq = 0;
   int dw = 0, dh = 0;        // downsampled width and height in samples
-  int bw = 0, bh = 0;        // blocks holding them
-  int bw_pad = 0, bh_pad = 0;  // blocks of whole MCUs
+  int bw = 0, bh = 0;        // blocks holding them (lossless: samples)
+  int bw_pad = 0, bh_pad = 0;  // blocks (samples) of whole MCUs
   bool latched = false;
   int32_t q[64] = {};        // quantization table, natural order (zero until latched)
   std::vector<int16_t> coef;  // bw_pad * bh_pad blocks of 64, natural order
-  int coef_bits[64];         // progressive: the bit the coefficient is known down to, -1 unseen
+  std::vector<uint8_t> lossless;  // lossless: bw_pad * bh_pad samples
+  // Progressive: the bit each coefficient (zigzag) is known down to, -1
+  // unseen; and coefficients 0-9 as they were before the component's last
+  // scan (jdphuff.c, for block smoothing).
+  int coef_bits[64], prev_bits[10];
   int16_t* block(int bx, int by) { return coef.data() + (size_t(by) * bw_pad + bx) * 64; }
 };
 
 struct Jpeg {
   Bytes in;
+  Source src;
   int width = 0, height = 0, maxh = 1, maxv = 1, mcux = 0, mcuy = 0;
-  bool progressive = false, have_frame = false, saw_jfif = false, saw_adobe = false;
+  bool progressive = false, arith = false, lossless = false;
+  bool have_frame = false, saw_jfif = false, saw_adobe = false;
   int adobe_transform = 0, restart_interval = 0;
   std::vector<Component> comps;
   int32_t qt[4][64];
   bool qt_defined[4] = {false, false, false, false};
   Huffman dc[4], ac[4];
+  uint8_t dc_l[16], dc_u[16], ac_k[16];  // DAC conditioning (jdmarker.c get_soi's defaults)
+  int scans = 0;                // libjpeg's input_scan_number
+  bool multi_scan = false;      // has_multiple_scans: a progressive file, or a first scan without every component
+  int last_good_row = 0;        // jdcoefct.c last_good_iMCU_row
+  bool smooth = false;          // jdcoefct.c decompress_smooth_data on this output pass
+  int latch[4][2][10];          // its coef_bits_latch: [component][current, before the last scan][coefficient]
 
-  explicit Jpeg(Bytes b) : in(b) {}
+  // `tiff`: a TIFF's strip or tile, read through libtiff's source (a fake
+  // EOI past the end) without Pillow's JPEG parser.
+  explicit Jpeg(Bytes b, bool tiff = false) : in(b), src{b.p, b.n, tiff} {
+    std::fill(dc_l, dc_l + 16, 0), std::fill(dc_u, dc_u + 16, 1), std::fill(ac_k, ac_k + 16, 5);
+  }
 
-  void read_dqt(size_t p, size_t end) {
-    while (p < end) {
-      int pq = in.u8(p, "DQT") >> 4, tq = in.u8(p, "DQT") & 15;
-      ++p;
-      if (tq > 3 || pq > 1) fail("corrupt JPEG: bad DQT table id");
-      size_t len = pq ? 128 : 64;
-      if (p + len > end) fail("corrupt JPEG: DQT segment too short");
-      for (int k = 0; k < 64; ++k)
-        qt[tq][kNatural[k]] = pq ? int32_t(in.be16(p + 2 * k, "DQT")) : in.p[p + k];
+  // Marker segments, read as libjpeg's jdmarker.c reads them: byte by byte,
+  // each check where libjpeg makes it, and a Truncated where its source
+  // would run dry.
+  void read_dqt(Cursor& c) {
+    int64_t length = c.u16() - 2;
+    while (length > 0) {
+      const int n = c.u8(), tq = n & 15;
+      if (tq > 3) fail("corrupt JPEG: bad DQT table id");
+      for (int k = 0; k < 64; ++k) qt[tq][kNatural[k]] = n >> 4 ? c.u16() : c.u8();  // any precision but 0: 16-bit
       qt_defined[tq] = true;
-      p += len;
+      length -= n >> 4 ? 129 : 65;
     }
+    if (length != 0) fail("corrupt JPEG: bad DQT segment length");
   }
 
-  void read_dht(size_t p, size_t end) {
-    while (p < end) {
-      if (p + 17 > end) fail("corrupt JPEG: DHT segment too short");
-      int tc = in.p[p] >> 4, th = in.p[p] & 15;
-      if (tc > 1 || th > 3) fail("corrupt JPEG: bad DHT table id");
-      const uint8_t* counts = in.p + p + 1;
+  void read_dht(Cursor& c) {
+    int64_t length = c.u16() - 2;
+    while (length > 16) {
+      const int index = c.u8();
+      uint8_t counts[16], vals[256];
       int total = 0;
-      for (int i = 0; i < 16; ++i) total += counts[i];
-      if (total > 256 || p + 17 + size_t(total) > end) fail("corrupt JPEG: bad DHT counts");
-      (tc ? ac : dc)[th].build(counts, in.p + p + 17, total);
-      p += 17 + size_t(total);
+      for (int i = 0; i < 16; ++i) total += counts[i] = uint8_t(c.u8());
+      length -= 17;
+      if (total > 256 || total > length) fail("corrupt JPEG: bad DHT counts");
+      for (int i = 0; i < total; ++i) vals[i] = uint8_t(c.u8());
+      length -= total;
+      const int tc = index >> 4, th = index & 15;
+      if (tc > 1 || th > 3) fail("corrupt JPEG: bad DHT table id");
+      (tc ? ac : dc)[th].build(counts, vals, total);
     }
+    if (length != 0) fail("corrupt JPEG: bad DHT segment length");
   }
 
-  void read_sof(int code, size_t p, size_t end) {
-    if (have_frame) fail("corrupt JPEG: two frames");
-    if (end - p < 6) fail("corrupt JPEG: SOF segment too short");
-    int precision = in.p[p];
-    height = int(in.be16(p + 1, "SOF"));
-    width = int(in.be16(p + 3, "SOF"));
-    int nc = in.p[p + 5];
+  void read_dac(Cursor& c) {
+    int64_t length = c.u16() - 2;
+    while (length > 0) {
+      const int index = c.u8(), val = c.u8();
+      length -= 2;
+      if (index >= 32) fail("corrupt JPEG: bad DAC table index");
+      if (index >= 16) {
+        ac_k[index - 16] = uint8_t(val);
+      } else {
+        dc_l[index] = uint8_t(val & 15), dc_u[index] = uint8_t(val >> 4);
+        if (dc_l[index] > dc_u[index]) fail("corrupt JPEG: bad DAC value");
+      }
+    }
+    if (length != 0) fail("corrupt JPEG: bad DAC segment length");
+  }
+
+  void read_sof(int code, Cursor& cur) {
+    const int64_t length = cur.u16();
+    const int precision = cur.u8();
+    height = cur.u16();
+    width = cur.u16();
+    const int nc = cur.u8();
     if (precision != 8)
       fail(std::to_string(precision) + "-bit JPEG is not supported (8-bit only)");
     if (height == 0) fail("JPEG with its height in a DNL marker is not supported");
     if (width == 0) fail("corrupt JPEG: width 0");
     if (width > 65500 || height > 65500) fail("JPEG dimensions exceed 65500");
     if (nc < 1 || nc > 4) fail("JPEG with " + std::to_string(nc) + " components is not supported");
-    if (end - p < size_t(6 + 3 * nc)) fail("corrupt JPEG: SOF segment too short");
-    progressive = code == 0xC2;
+    if (length != 8 + 3 * nc) fail("corrupt JPEG: bad SOF segment length");
+    progressive = code == 0xC2 || code == 0xCA;
+    arith = code >= 0xC9;
+    lossless = code == 0xC3;
+    const int unit = lossless ? 1 : 8;  // a lossless "block" is one sample
     comps.resize(size_t(nc));
     for (int i = 0; i < nc; ++i) {
       Component& c = comps[size_t(i)];
-      c.id = in.p[p + 6 + 3 * i];
-      c.h = in.p[p + 7 + 3 * i] >> 4;
-      c.v = in.p[p + 7 + 3 * i] & 15;
-      c.tq = in.p[p + 8 + 3 * i];
+      c.id = cur.u8();
+      const int hv = cur.u8();
+      c.h = hv >> 4, c.v = hv & 15;
+      c.tq = cur.u8();
       if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4) fail("corrupt JPEG: bad sampling factors");
       if (c.tq > 3) fail("corrupt JPEG: bad quantization table id");
       maxh = std::max(maxh, c.h), maxv = std::max(maxv, c.v);
     }
     check_size(width, height);  // before the coefficient buffers
-    mcux = (width + 8 * maxh - 1) / (8 * maxh);
-    mcuy = (height + 8 * maxv - 1) / (8 * maxv);
+    mcux = (width + unit * maxh - 1) / (unit * maxh);
+    mcuy = (height + unit * maxv - 1) / (unit * maxv);
     for (Component& c : comps) {
       c.dw = int((int64_t(width) * c.h + maxh - 1) / maxh);
       c.dh = int((int64_t(height) * c.v + maxv - 1) / maxv);
-      c.bw = (c.dw + 7) / 8, c.bh = (c.dh + 7) / 8;
+      c.bw = (c.dw + unit - 1) / unit, c.bh = (c.dh + unit - 1) / unit;
       c.bw_pad = mcux * c.h, c.bh_pad = mcuy * c.v;
-      c.coef.assign(size_t(c.bw_pad) * c.bh_pad * 64, 0);
+      if (lossless) c.lossless.assign(size_t(c.bw_pad) * c.bh_pad, 0);
+      else c.coef.assign(size_t(c.bw_pad) * c.bh_pad * 64, 0);
       std::fill(c.coef_bits, c.coef_bits + 64, -1);
     }
     have_frame = true;
   }
 
-  // One scan, from the SOS segment [p, end); returns the index of the
-  // code byte of the marker that ends it.
-  size_t read_scan(size_t p, size_t end) {
+  // One scan: its SOS segment from `cur` (at the length), then its data.
+  // Returns the code of the marker its entropy decoder stopped at, `p` just
+  // past that code; or 0, `p` past the data it read.
+  int read_scan(Cursor& cur, size_t& p) {
     if (!have_frame) fail("corrupt JPEG: SOS before SOF");
-    int ns = in.u8(p, "SOS");
-    if (ns < 1 || ns > 4 || end - p != size_t(4 + 2 * ns)) fail("corrupt JPEG: bad SOS segment");
+    const int64_t length = cur.u16();
+    const int ns = cur.u8();
+    if (ns < 1 || ns > 4 || length != 6 + 2 * ns) fail("corrupt JPEG: bad SOS segment");
     std::vector<Component*> sc;
     std::vector<int> td, ta;
     int blocks = 0;
     for (int i = 0; i < ns; ++i) {
-      int id = in.p[p + 1 + 2 * i], t = in.p[p + 2 + 2 * i];
+      const int id = cur.u8(), t = cur.u8();
       Component* c = nullptr;
       for (Component& k : comps)
         if (k.id == id) c = &k;
@@ -383,102 +650,161 @@ struct Jpeg {
         fail("corrupt JPEG: bad component in SOS");
       sc.push_back(c);
       td.push_back(t >> 4), ta.push_back(t & 15);
-      if (td.back() > 3 || ta.back() > 3) fail("corrupt JPEG: bad Huffman table id");
       blocks += c->h * c->v;
     }
     if (ns > 1 && blocks > 10) fail("corrupt JPEG: more than 10 blocks in an MCU");
-    int ss = in.p[p + 1 + 2 * ns], se = in.p[p + 2 + 2 * ns];
-    int ah = in.p[p + 3 + 2 * ns] >> 4, al = in.p[p + 3 + 2 * ns] & 15;
+    const int ss = cur.u8(), se = cur.u8(), a = cur.u8(), ah = a >> 4, al = a & 15;
+    if (scans > 0 && !multi_scan) fail("corrupt JPEG: a second scan after the only one expected");
     if (progressive) {
       bool bad = ss == 0 ? se != 0 : (se < ss || se > 63 || ns != 1);
       if (ah != 0 && al != ah - 1) bad = true;
       if (al > 13) bad = true;
       if (bad) fail("corrupt JPEG: bad progressive scan parameters");
-    } else if (ss != 0 || se != 63 || ah != 0 || al != 0) {
-      fail("corrupt JPEG: bad sequential scan parameters");
-    }
+    } else if (lossless && (ss < 1 || ss > 7 || se != 0 || ah != 0 || al >= 8)) {
+      fail("corrupt JPEG: bad lossless scan parameters");
+    }  // a sequential scan's Ss, Se, Ah, Al only draw a warning (JWRN_NOT_SEQUENTIAL)
+    if (++scans == 1) multi_scan = progressive || ns < int(comps.size());
+    const bool dc_scan = !progressive || (ss == 0 && ah == 0), ac_scan = !progressive || ss > 0;
     for (size_t i = 0; i < sc.size(); ++i) {
       Component& c = *sc[i];
-      if (!c.latched) {  // jdinput.c latches a table at the component's first scan
+      if (!c.latched && !lossless) {  // jdinput.c latches a table at the component's first scan
         if (!qt_defined[c.tq]) fail("corrupt JPEG: quantization table missing");
         std::memcpy(c.q, qt[c.tq], sizeof c.q);
         c.latched = true;
       }
-      bool need_dc = ss == 0 && ah == 0, need_ac = !progressive || ss > 0;
-      if (need_dc) {
-        if (!dc[td[i]].defined) fail("corrupt JPEG: Huffman table missing");
-        for (int k = 0; k < dc[td[i]].nvals; ++k)
-          if (dc[td[i]].vals[k] > 15) fail("corrupt JPEG: bad Huffman table");
+      if (!arith) {  // an arithmetic scan may name any of its 16 conditioning tables
+        if ((dc_scan && td[i] > 3) || (ac_scan && !lossless && ta[i] > 3))
+          fail("corrupt JPEG: Huffman table missing");
+        const bool std_ok = !progressive && !lossless;
+        if (dc_scan) dc[td[i]].use(true, td[i], lossless ? 16 : 15, std_ok);
+        if (ac_scan && !lossless) ac[ta[i]].use(false, ta[i], 255, std_ok);
       }
-      if (need_ac && !ac[ta[i]].defined) fail("corrupt JPEG: Huffman table missing");
-      for (int k = ss; k <= se; ++k) c.coef_bits[k] = al;
+      if (progressive) {  // jdphuff.c / jdarith.c start_pass
+        for (int k = ss == 0 ? 0 : 1; k <= 9; ++k) c.prev_bits[k] = scans > 1 ? c.coef_bits[k] : 0;
+        for (int k = ss; k <= se; ++k) c.coef_bits[k] = al;
+      }
     }
-
-    BitReader br{in.p, in.n, end};
+    const size_t sos_end = cur.p;
+    p = cur.p;
+    if (lossless) return lossless_scan(sc, td, ss, al, p);
     int pred[4] = {0, 0, 0, 0};
-    int eobrun = 0, next_rst = 0;
-    int64_t total = ns == 1 ? int64_t(sc[0]->bw) * sc[0]->bh : int64_t(mcux) * mcuy;
-    auto one_block = [&](int i, int16_t* blk) {
-      if (!progressive) {
-        decode_sequential(br, dc[td[size_t(i)]], ac[ta[size_t(i)]], pred[i], blk);
-      } else if (ss == 0) {
-        if (ah == 0) {
-          int t = br.decode(dc[td[size_t(i)]]);
-          pred[i] += br.extend(t);
-          blk[0] = int16_t(uint32_t(pred[i]) << al);
-        } else if (br.get(1)) {
-          blk[0] = int16_t(blk[0] | (1 << al));
-        }
-      } else if (ah == 0) {
-        decode_ac_first(br, ac[ta[size_t(i)]], ss, se, al, eobrun, blk);
-      } else {
-        decode_ac_refine(br, ac[ta[size_t(i)]], ss, se, al, eobrun, blk);
-      }
-    };
-    for (int64_t m = 0; m < total; ++m) {
-      if (restart_interval && m > 0 && m % restart_interval == 0) {
-        size_t mp = br.seek_marker();
-        if (br.marker != 0xD0 + next_rst)
-          fail("corrupt JPEG data: expected RST" + std::to_string(next_rst));
-        br.pos = mp + 1, br.marker = -1;
-        next_rst = (next_rst + 1) & 7;
-        std::fill(pred, pred + 4, 0);
-        eobrun = 0;
-      }
+    const int64_t total = ns == 1 ? int64_t(sc[0]->bw) * sc[0]->bh : int64_t(mcux) * mcuy;
+    // The MCU's blocks, and its iMCU row (for last_good_iMCU_row).
+    std::vector<std::pair<int, int16_t*>> mcu;
+    auto blocks_of = [&](int64_t m) {
+      mcu.clear();
       if (ns == 1) {
         Component& c = *sc[0];
-        one_block(0, c.block(int(m % c.bw), int(m / c.bw)));
-      } else {
-        int mx = int(m % mcux), my = int(m / mcux);
+        const int by = int(m / c.bw);
+        mcu.emplace_back(0, c.block(int(m % c.bw), by));
+        return by / c.v;
+      }
+      const int mx = int(m % mcux), my = int(m / mcux);
+      for (int i = 0; i < ns; ++i) {
+        Component& c = *sc[size_t(i)];
+        for (int y = 0; y < c.v; ++y)
+          for (int x = 0; x < c.h; ++x) mcu.emplace_back(i, c.block(mx * c.h + x, my * c.v + y));
+      }
+      return my;
+    };
+    int restarts_to_go = restart_interval, next_rst = 0;
+    if (arith) {
+      // jdarith.c: statistics areas, reset at the scan's start and at each restart.
+      uint8_t dcs[16][64], acs[16][256], fixed = 113;
+      int ctx[4] = {0, 0, 0, 0};
+      auto reset = [&] {
         for (int i = 0; i < ns; ++i) {
-          Component& c = *sc[size_t(i)];
-          for (int y = 0; y < c.v; ++y)
-            for (int x = 0; x < c.h; ++x) one_block(i, c.block(mx * c.h + x, my * c.v + y));
+          if (dc_scan) std::memset(dcs[td[size_t(i)]], 0, 64), pred[i] = 0, ctx[i] = 0;
+          if (ac_scan) std::memset(acs[ta[size_t(i)]], 0, 256);
+        }
+      };
+      reset();
+      if (!src.eoi_past_end) src.limit = std::max<size_t>(65536, (sos_end + 65535) / 65536 * 65536);
+      ArithReader ar{src, p};
+      for (int64_t m = 0; m < total; ++m) {
+        const int row = blocks_of(m);
+        if (restart_interval) {
+          if (restarts_to_go == 0) ar.restart(next_rst), reset(), restarts_to_go = restart_interval;
+          --restarts_to_go;
+        }
+        last_good_row = row;
+        if (ar.ct == -1 && !(progressive && ss == 0 && ah != 0)) continue;  // JWRN_ARITH_BAD_CODE
+        for (auto& [i, blk] : mcu) {
+          const int dt = td[size_t(i)], at = ta[size_t(i)];
+          if (!progressive) {
+            if (!arith_dc(ar, dcs[dt], dt, pred[i], ctx[i], 0, blk) ||
+                !arith_ac(ar, acs[at], at, &fixed, 1, 63, 0, blk))
+              break;
+          } else if (ss == 0 && ah == 0) {
+            if (!arith_dc(ar, dcs[dt], dt, pred[i], ctx[i], al, blk)) break;
+          } else if (ss == 0) {
+            if (ar.decode(&fixed)) blk[0] = int16_t(blk[0] | (1 << al));
+          } else if (ah == 0) {
+            if (!arith_ac(ar, acs[at], at, &fixed, ss, se, al, blk)) break;
+          } else if (!arith_ac_refine(ar, acs[at], &fixed, ss, se, al, blk)) {
+            break;
+          }
+        }
+      }
+      src.limit = SIZE_MAX;
+      p = ar.pos;
+      return ar.marker;
+    }
+    BitReader br{src, p};
+    int eobrun = 0;
+    for (int64_t m = 0; m < total; ++m) {
+      const int row = blocks_of(m);
+      if (!br.insufficient) last_good_row = row;
+      if (restart_interval) {
+        if (restarts_to_go == 0) {
+          br.restart(next_rst);
+          std::fill(pred, pred + 4, 0);
+          eobrun = 0, restarts_to_go = restart_interval;
+        }
+        --restarts_to_go;
+      }
+      if (br.insufficient && !(progressive && ss == 0 && ah != 0)) continue;  // the segment's data ran out
+      for (auto& [i, blk] : mcu) {
+        if (!progressive) {
+          decode_sequential(br, dc[td[size_t(i)]], ac[ta[size_t(i)]], pred[i], blk);
+        } else if (ss == 0 && ah == 0) {
+          const int s = br.extend(br.decode(dc[td[size_t(i)]]));
+          if ((pred[i] >= 0 && s > INT32_MAX - pred[i]) || (pred[i] < 0 && s < INT32_MIN - pred[i]))
+            fail("corrupt JPEG data: DC coefficient out of range");
+          pred[i] += s;
+          blk[0] = int16_t(uint32_t(pred[i]) << al);
+        } else if (ss == 0) {  // DC refinement reads its bits even past a marker: zeros change nothing
+          if (br.get(1)) blk[0] = int16_t(blk[0] | (1 << al));
+        } else if (ah == 0) {
+          decode_ac_first(br, ac[ta[size_t(i)]], ss, se, al, eobrun, blk);
+        } else {
+          decode_ac_refine(br, ac[ta[size_t(i)]], ss, se, al, eobrun, blk);
         }
       }
     }
-    return br.seek_marker();
+    p = br.pos;
+    return br.marker;
   }
 
+  // jdhuff.c decode_mcu_slow, one block.
   static void decode_sequential(BitReader& br, const Huffman& dct, const Huffman& act, int& pred,
                                 int16_t* blk) {
-    int t = br.decode(dct);
-    pred += br.extend(t);
+    const int s = br.extend(br.decode(dct));
+    pred = int(uint32_t(pred) + uint32_t(s));  // wraps, as libjpeg's int does in practice
     blk[0] = int16_t(pred);
-    for (int k = 1; k < 64;) {
-      int rs = br.decode(act), r = rs >> 4, s = rs & 15;
-      if (s) {
+    for (int k = 1; k < 64; ++k) {
+      int rs = br.decode(act), r = rs >> 4, s2 = rs & 15;
+      if (s2) {
         k += r;
-        if (k > 63) fail("corrupt JPEG data: coefficient index past 63");
-        blk[kNatural[k]] = int16_t(br.extend(s));
-        ++k;
+        blk[kNatural[k]] = int16_t(br.extend(s2));
       } else {
         if (r != 15) break;
-        k += 16;
+        k += 15;
       }
     }
   }
 
+  // jdphuff.c decode_mcu_AC_first, one block.
   static void decode_ac_first(BitReader& br, const Huffman& act, int ss, int se, int al,
                               int& eobrun, int16_t* blk) {
     if (eobrun > 0) {
@@ -489,20 +815,20 @@ struct Jpeg {
       int rs = br.decode(act), r = rs >> 4, s = rs & 15;
       if (s) {
         k += r;
-        if (k > se) fail("corrupt JPEG data: coefficient index past the band");
         blk[kNatural[k]] = int16_t(uint32_t(br.extend(s)) << al);
       } else if (r == 15) {
         k += 15;
       } else {
         eobrun = 1 << r;
-        if (r) eobrun += int(br.get(r));
+        if (r) eobrun += br.get(r);
         --eobrun;
         break;
       }
     }
   }
 
-  // jdphuff.c decode_mcu_AC_refine.
+  // jdphuff.c decode_mcu_AC_refine, one block (a new coefficient of a size
+  // other than 1 draws only a warning).
   static void decode_ac_refine(BitReader& br, const Huffman& act, int ss, int se, int al,
                                int& eobrun, int16_t* blk) {
     const int p1 = 1 << al, m1 = -1 * (1 << al);
@@ -514,11 +840,10 @@ struct Jpeg {
       for (; k <= se; ++k) {
         int rs = br.decode(act), r = rs >> 4, s = rs & 15;
         if (s) {
-          if (s != 1) fail("corrupt JPEG data: refinement coefficient of size " + std::to_string(s));
           s = br.get(1) ? p1 : m1;
         } else if (r != 15) {
           eobrun = 1 << r;
-          if (r) eobrun += int(br.get(r));
+          if (r) eobrun += br.get(r);
           break;
         }
         do {
@@ -530,10 +855,7 @@ struct Jpeg {
           }
           ++k;
         } while (k <= se);
-        if (s) {
-          if (k > se) fail("corrupt JPEG data: coefficient index past the band");
-          blk[kNatural[k]] = int16_t(s);
-        }
+        if (s) blk[kNatural[k]] = int16_t(s);
       }
     }
     if (eobrun > 0) {
@@ -544,6 +866,207 @@ struct Jpeg {
       --eobrun;
     }
   }
+
+  // jdarith.c: a DC difference (sequential and the first DC scan), added
+  // to the 16-bit predictor; false on a code error (ct = -1).
+  bool arith_dc(ArithReader& ar, uint8_t* stats, int tbl, int& pred, int& ctx, int al, int16_t* blk) {
+    uint8_t* st = stats + ctx;
+    if (ar.decode(st) == 0) {
+      ctx = 0;
+    } else {
+      const int sign = ar.decode(st + 1);
+      st += 2 + sign;
+      int m = ar.decode(st);
+      if (m != 0) {
+        st = stats + 20;
+        while (ar.decode(st)) {
+          if ((m <<= 1) == 0x8000) {
+            ar.ct = -1;
+            return false;
+          }
+          ++st;
+        }
+      }
+      if (m < (1 << dc_l[tbl]) >> 1) ctx = 0;
+      else if (m > (1 << dc_u[tbl]) >> 1) ctx = 12 + sign * 4;
+      else ctx = 4 + sign * 4;
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (ar.decode(st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      pred = (pred + v) & 0xFFFF;
+    }
+    blk[0] = int16_t(uint32_t(pred) << al);
+    return true;
+  }
+
+  // jdarith.c: AC coefficients ss..se (sequential and first AC scans).
+  bool arith_ac(ArithReader& ar, uint8_t* stats, int tbl, uint8_t* fixed, int ss, int se, int al, int16_t* blk) {
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* st = stats + 3 * (k - 1);
+      if (ar.decode(st)) break;  // EOB
+      while (ar.decode(st + 1) == 0) {
+        st += 3;
+        if (++k > se) {
+          ar.ct = -1;  // spectral overflow
+          return false;
+        }
+      }
+      const int sign = ar.decode(fixed);
+      st += 2;
+      int m = ar.decode(st);
+      if (m != 0 && ar.decode(st)) {
+        m <<= 1;
+        st = stats + (k <= ac_k[tbl] ? 189 : 217);
+        while (ar.decode(st)) {
+          if ((m <<= 1) == 0x8000) {
+            ar.ct = -1;
+            return false;
+          }
+          ++st;
+        }
+      }
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (ar.decode(st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      blk[kNatural[k]] = int16_t(uint32_t(v) << al);
+    }
+    return true;
+  }
+
+  // jdarith.c decode_mcu_AC_refine, one block.
+  static bool arith_ac_refine(ArithReader& ar, uint8_t* stats, uint8_t* fixed, int ss, int se, int al,
+                              int16_t* blk) {
+    const int p1 = 1 << al, m1 = -1 * (1 << al);
+    int kex = se;
+    for (; kex > 0; --kex)
+      if (blk[kNatural[kex]]) break;
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* st = stats + 3 * (k - 1);
+      if (k > kex && ar.decode(st)) break;  // EOB
+      for (;;) {
+        int16_t& c = blk[kNatural[k]];
+        if (c) {
+          if (ar.decode(st + 2)) c = int16_t(c < 0 ? c + m1 : c + p1);
+          break;
+        }
+        if (ar.decode(st + 1)) {
+          c = int16_t(ar.decode(fixed) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > se) {
+          ar.ct = -1;
+          return false;
+        }
+      }
+    }
+    return true;
+  }
+
+  // A lossless scan (jdlhuff.c, jddiffct.c, jdlossls.c): Huffman-coded
+  // differences, undifferenced row by row with predictor `psv` (the first
+  // row of the scan, of each restart interval and after the data ran out
+  // from 2^(7 - pt) and the left neighbour, the first column from the row
+  // above) in 16 bits, shifted left by the point transform `pt` into 8-bit
+  // samples.
+  int lossless_scan(const std::vector<Component*>& sc, const std::vector<int>& td, int psv, int pt, size_t& p) {
+    const int ns = int(sc.size());
+    const bool one = ns == 1;
+    const int per_row = one ? sc[0]->bw : mcux;  // MCUs_per_row
+    const int rows = one ? sc[0]->bh : mcuy;     // MCU rows
+    if (restart_interval % per_row) fail("corrupt JPEG: lossless restart interval is not a whole number of rows");
+    const int restart_rows = restart_interval / per_row;
+    // Each component's differences of one iMCU row (v rows, or one for a
+    // single-component scan's MCU row), then its undifferenced values.
+    std::vector<std::vector<int32_t>> diff, undiff;
+    for (const Component* c : sc)
+      diff.emplace_back(size_t(c->bw_pad) * size_t(c->v), 0), undiff.emplace_back(size_t(c->bw_pad) * size_t(c->v), 0);
+    std::vector<bool> first(size_t(ns), true);
+    BitReader br{src, p};
+    int next_rst = 0, rows_to_go = restart_rows;
+    const int imcu_rows = one ? (sc[0]->bh + sc[0]->v - 1) / sc[0]->v : mcuy;
+    for (int r = 0; r < imcu_rows; ++r) {
+      // The MCU rows of this iMCU row: one (interleaved) or v (one component).
+      const int mrows = one ? std::min(sc[0]->v, rows - r * sc[0]->v) : 1;
+      for (int y = 0; y < mrows; ++y) {
+        if (restart_interval) {
+          if (rows_to_go == 0) {
+            br.restart(next_rst);
+            std::fill(first.begin(), first.end(), true);
+            rows_to_go = restart_rows;
+          }
+        }
+        if (br.insufficient) {  // zeros, and the undifferencer starts again
+          for (int i = 0; i < ns; ++i) {
+            const Component& c = *sc[size_t(i)];
+            for (int yy = one ? y : 0; yy < (one ? y + 1 : c.v); ++yy)
+              std::fill_n(diff[size_t(i)].begin() + size_t(yy) * c.bw_pad, c.bw_pad, 0);
+          }
+          std::fill(first.begin(), first.end(), true);
+        } else {
+          for (int mx = 0; mx < per_row; ++mx)
+            for (int i = 0; i < ns; ++i) {
+              const Component& c = *sc[size_t(i)];
+              const int bh = one ? 1 : c.v, bwid = one ? 1 : c.h;
+              for (int yy = 0; yy < bh; ++yy)
+                for (int xx = 0; xx < bwid; ++xx) {
+                  int s = br.decode(dc[td[size_t(i)]]);
+                  if (s == 16) s = 32768;
+                  else s = br.extend(s);
+                  diff[size_t(i)][size_t(one ? y : yy) * c.bw_pad + size_t(mx * bwid + xx)] = s;
+                }
+            }
+        }
+        if (restart_interval) --rows_to_go;
+      }
+      for (int i = 0; i < ns; ++i) {
+        Component& c = *sc[size_t(i)];
+        const int nrow = std::min(c.v, c.bh - r * c.v);
+        const size_t W = size_t(c.bw_pad);
+        for (int row = 0, prev = c.v - 1; row < nrow; prev = row, ++row) {
+          const int32_t* d = diff[size_t(i)].data() + size_t(row) * W;
+          const int32_t* up = undiff[size_t(i)].data() + size_t(prev) * W;
+          int32_t* u = undiff[size_t(i)].data() + size_t(row) * W;
+          // Rb and Rc in registers, as jdlossls.c keeps them: with one
+          // row a component, `up` and `u` are the same buffer row.
+          int32_t rb = up[0], rc = 0;
+          for (int x = 0; x < c.bw; ++x) {
+            int32_t pr;
+            if (x > 0) rc = rb, rb = up[x];
+            if (first[size_t(i)]) {
+              pr = x == 0 ? 1 << (7 - pt) : u[x - 1];
+            } else if (x == 0) {
+              pr = rb;
+            } else {
+              const int32_t ra = u[x - 1];
+              switch (psv) {
+                case 1: pr = ra; break;
+                case 2: pr = rb; break;
+                case 3: pr = rc; break;
+                case 4: pr = ra + rb - rc; break;
+                case 5: pr = ra + ((rb - rc) >> 1); break;
+                case 6: pr = rb + ((ra - rc) >> 1); break;
+                default: pr = (ra + rb) >> 1; break;
+              }
+            }
+            u[x] = (d[x] + pr) & 0xFFFF;
+          }
+          first[size_t(i)] = false;
+          uint8_t* o = c.lossless.data() + size_t(r * c.v + row) * W;
+          for (int x = 0; x < c.bw; ++x) o[x] = uint8_t(uint32_t(u[x]) << pt);
+        }
+      }
+    }
+    p = br.pos;
+    return br.marker;
+  }
+
 
   // libjpeg-turbo's ISLOW IDCT as its x86-64 SIMD code computes it
   // (jidctint-sse2.asm and jidctint-avx2.asm give the same bytes), which
@@ -619,15 +1142,127 @@ struct Jpeg {
     }
   }
 
+  // jdcoefct.c smoothing_ok, as libjpeg-turbo runs it after the last scan
+  // (Pillow decodes with do_block_smoothing on): a progressive file whose
+  // coefficients 1-9 are not all known in full is block-smoothed, if every
+  // component had a DC scan and the first ten quantizers are non-zero.
+  bool smoothing_ok() {
+    if (!progressive) return false;
+    bool useful = false;
+    for (size_t ci = 0; ci < comps.size(); ++ci) {
+      const Component& c = comps[ci];
+      if (!c.latched) return false;
+      for (int pos : {0, 1, 8, 16, 9, 2, 3, 10, 17, 24})
+        if (c.q[pos] == 0) return false;
+      if (c.coef_bits[0] < 0) return false;
+      latch[ci][0][0] = c.coef_bits[0];
+      for (int k = 1; k < 10; ++k) {
+        latch[ci][1][k] = scans > 1 ? c.prev_bits[k] : -1;
+        latch[ci][0][k] = c.coef_bits[k];
+        if (c.coef_bits[k] != 0) useful = true;
+      }
+    }
+    return useful;
+  }
+
+  // jdcoefct.c decompress_smooth_data for block row `by` of component `ci`:
+  // each block's coefficients 1-9 that are still zero and not known to be,
+  // estimated from the DC values of the 5x5 blocks around it (and its DC
+  // too, where no AC coefficient has been seen yet), then its IDCT.
+  void smooth_row(int ci, int by, uint8_t* out, size_t stride) {
+    Component& c = comps[size_t(ci)];
+    const int T = mcuy, r = by / c.v, block_row = by - r * c.v;
+    const int block_rows = r < T - 1 ? c.v : (c.bh % c.v ? c.bh % c.v : c.v);
+    const int ibr = r * block_rows + block_row, ibrs = block_rows * T;
+    const int prev = ibr > 0 ? by - 1 : by, next = ibr < ibrs - 1 ? by + 1 : by;
+    const int prev2 = ibr > 1 ? by - 2 : prev, next2 = ibr < ibrs - 2 ? by + 2 : next;
+    const int* bits = latch[ci][r > last_good_row ? 1 : 0];
+    bool change_dc = true;
+    for (int k = 1; k < 10; ++k) change_dc = change_dc && bits[k] == -1;
+    const int64_t Q00 = c.q[0], Q01 = c.q[1], Q10 = c.q[8], Q20 = c.q[16], Q11 = c.q[9], Q02 = c.q[2],
+                  Q03 = c.q[3], Q12 = c.q[10], Q21 = c.q[17], Q30 = c.q[24];
+    auto dcv = [&](int row, int bx) { return int(c.block(bx, row)[0]); };
+    int DC[26];  // DC[1 + 5 * i + k]: row i, column k of the 5x5 window (1-based, libjpeg's DC01-DC25)
+    const int last = c.bw - 1;
+    const int rows5[5] = {prev2, prev, by, next, next2};
+    int16_t ws[64];
+    auto estimate = [&](int k, int pos, int64_t q, int64_t sum) {
+      const int al = bits[k];
+      if (al == 0 || ws[pos] != 0) return;
+      const int64_t num = Q00 * sum;
+      int pred;
+      if (num >= 0) {
+        pred = int(((q << 7) + num) / (q << 8));
+        if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+      } else {
+        pred = int(((q << 7) - num) / (q << 8));
+        if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+        pred = -pred;
+      }
+      ws[pos] = int16_t(pred);
+    };
+    for (int bx = 0; bx <= last; ++bx) {
+      std::memcpy(ws, c.block(bx, by), sizeof ws);
+      for (int i = 0; i < 5; ++i)
+        for (int k = 0; k < 5; ++k) DC[1 + k + 5 * i] = dcv(rows5[i], std::clamp(bx + k - 2, 0, last));
+      const int* d = DC;
+      if (change_dc) {
+        estimate(1, 1, Q01, -d[1] - d[2] + d[4] + d[5] - 3 * d[6] + 13 * d[7] - 13 * d[9] + 3 * d[10] -
+                                3 * d[11] + 38 * d[12] - 38 * d[14] + 3 * d[15] - 3 * d[16] + 13 * d[17] -
+                                13 * d[19] + 3 * d[20] - d[21] - d[22] + d[24] + d[25]);
+        estimate(2, 8, Q10, -d[1] - 3 * d[2] - 3 * d[3] - 3 * d[4] - d[5] - d[6] + 13 * d[7] + 38 * d[8] +
+                                13 * d[9] - d[10] + d[16] - 13 * d[17] - 38 * d[18] - 13 * d[19] + d[20] +
+                                d[21] + 3 * d[22] + 3 * d[23] + 3 * d[24] + d[25]);
+        estimate(3, 16, Q20, d[3] + 2 * d[7] + 7 * d[8] + 2 * d[9] - 5 * d[12] - 14 * d[13] - 5 * d[14] +
+                                 2 * d[17] + 7 * d[18] + 2 * d[19] + d[23]);
+        estimate(4, 9, Q11, -d[1] + d[5] + 9 * d[7] - 9 * d[9] - 9 * d[17] + 9 * d[19] + d[21] - d[25]);
+        estimate(5, 2, Q02, 2 * d[7] - 5 * d[8] + 2 * d[9] + d[11] + 7 * d[12] - 14 * d[13] + 7 * d[14] +
+                                d[15] + 2 * d[17] - 5 * d[18] + 2 * d[19]);
+        estimate(6, 3, Q03, d[7] - d[9] + 2 * d[12] - 2 * d[14] + d[17] - d[19]);
+        estimate(7, 10, Q12, d[7] - 3 * d[8] + d[9] - d[17] + 3 * d[18] - d[19]);
+        estimate(8, 17, Q21, d[7] - d[9] - 3 * d[12] + 3 * d[14] + d[17] - d[19]);
+        estimate(9, 24, Q30, d[7] + 2 * d[8] + d[9] - d[17] - 2 * d[18] - d[19]);
+        const int64_t num = Q00 * (-2 * d[1] - 6 * d[2] - 8 * d[3] - 6 * d[4] - 2 * d[5] - 6 * d[6] + 6 * d[7] +
+                                   42 * d[8] + 6 * d[9] - 6 * d[10] - 8 * d[11] + 42 * d[12] + 152 * d[13] +
+                                   42 * d[14] - 8 * d[15] - 6 * d[16] + 6 * d[17] + 42 * d[18] + 6 * d[19] -
+                                   6 * d[20] - 2 * d[21] - 6 * d[22] - 8 * d[23] - 6 * d[24] - 2 * d[25]);
+        ws[0] = int16_t(num >= 0 ? int(((Q00 << 7) + num) / (Q00 << 8)) : -int(((Q00 << 7) - num) / (Q00 << 8)));
+      } else {
+        estimate(1, 1, Q01, -7 * d[11] + 50 * d[12] - 50 * d[14] + 7 * d[15]);
+        estimate(2, 8, Q10, -7 * d[3] + 50 * d[8] - 50 * d[18] + 7 * d[23]);
+        estimate(3, 16, Q20, -d[3] + 13 * d[8] - 24 * d[13] + 13 * d[18] - d[23]);
+        estimate(4, 9, Q11, d[10] + d[16] - 10 * d[17] + 10 * d[19] - d[2] - d[20] + d[22] - d[24] + d[4] -
+                                d[6] + 10 * d[7] - 10 * d[9]);
+        estimate(5, 2, Q02, -d[11] + 13 * d[12] - 24 * d[13] + 13 * d[14] - d[15]);
+      }
+      idct_islow(ws, c.q, out + size_t(bx) * 8, stride);
+    }
+  }
+
   // The component's samples at full size (width x height), upsampled as
   // jdsample.c does, with the vertical context of jdmainct.c (the rows
-  // above the first and below the last real row repeat it).
-  std::vector<uint8_t> full_plane(Component& c) {
-    const size_t pw = size_t(c.bw) * 8;
-    std::vector<uint8_t> plane(pw * size_t(c.bh) * 8);
-    for (int by = 0; by < c.bh; ++by)
-      for (int bx = 0; bx < c.bw; ++bx)
-        idct_islow(c.block(bx, by), c.q, plane.data() + size_t(by) * 8 * pw + size_t(bx) * 8, pw);
+  // above the first and below the last real row repeat it).  A lossless
+  // file's samples are upsampled by replication (libjpeg's fancy
+  // upsampling needs a DCT scaling above 1).
+  std::vector<uint8_t> full_plane(int ci) {
+    Component& c = comps[size_t(ci)];
+    size_t pw;
+    std::vector<uint8_t> plane;
+    if (lossless) {
+      pw = size_t(c.bw_pad);
+      plane = c.lossless;
+    } else {
+      pw = size_t(c.bw) * 8;
+      plane.assign(pw * size_t(c.bh) * 8, 0);
+      for (int by = 0; by < c.bh; ++by) {
+        uint8_t* rowp = plane.data() + size_t(by) * 8 * pw;
+        if (smooth) {
+          smooth_row(ci, by, rowp, pw);
+          continue;
+        }
+        for (int bx = 0; bx < c.bw; ++bx) idct_islow(c.block(bx, by), c.q, rowp + size_t(bx) * 8, pw);
+      }
+    }
     if (maxh % c.h || maxv % c.v) fail("JPEG with fractional sampling ratios is not supported");
     const int he = maxh / c.h, ve = maxv / c.v, dw = c.dw, dh = c.dh;
     std::vector<uint8_t> out(size_t(width) * height);
@@ -637,6 +1272,9 @@ struct Jpeg {
       uint8_t* o = out.data() + size_t(y) * width;
       if (he == 1 && ve == 1) {
         std::memcpy(o, row(y), size_t(width));
+      } else if (lossless) {  // int_upsample, h2v1_upsample, h2v2_upsample
+        const uint8_t* in = row(y / ve);
+        for (int x = 0; x < width; ++x) o[x] = in[x / he];
       } else if (he == 2 && ve == 1 && dw > 2) {  // h2v1_fancy_upsample
         const uint8_t* in = row(y);
         up[0] = in[0];
@@ -673,76 +1311,97 @@ struct Jpeg {
     return out;
   }
 
-  // Reads the markers from SOI to EOI.  A tables-only stream (a TIFF's
-  // JPEGTables) holds no frame and no scan; an abbreviated stream (a TIFF
-  // strip or tile) may use tables an earlier stream defined.
+  // Reads the markers from SOI to EOI as libjpeg does (and, before the
+  // first scan of a file, Pillow's own parser).  A tables-only stream (a
+  // TIFF's JPEGTables) holds no frame and no scan; an abbreviated stream (a
+  // TIFF strip or tile) may use tables an earlier stream defined.  Between
+  // markers, data bytes are skipped (JWRN_EXTRANEOUS_DATA).  A file of one
+  // sequential scan with every component may end without EOI anywhere after
+  // that scan: Pillow has every row by then and keeps the image.
   void read_stream(bool tables_only) {
     if (in.n < 2 || in.p[0] != 0xFF || in.p[1] != 0xD8) fail("not a JPEG file");
     size_t p = 2;
-    bool scanned = false;
+    int code = 0;  // a marker the last scan ended at, `p` past its code
     for (;;) {
-      if (in.u8(p, "JPEG file") != 0xFF) fail("corrupt JPEG: expected a marker");
-      while (in.u8(p, "JPEG file") == 0xFF) ++p;
-      int code = in.p[p++];
-      if (code == 0xD9) break;  // EOI
-      if (code >= 0xD0 && code <= 0xD7) fail("corrupt JPEG: RST marker outside a scan");
-      if (code == 0x01 || code == 0xD8) fail("corrupt JPEG: unexpected marker");
-      size_t len = in.be16(p, "JPEG marker segment");
-      if (len < 2) fail("corrupt JPEG: bad segment length");
-      in.need(p, len, "JPEG marker segment");
-      size_t body = p + 2, end = p + len;
-      p = end;
-      if (tables_only && (code == 0xDA || (code >= 0xC0 && code <= 0xCF && code != 0xC4 && code != 0xC8 &&
-                                           code != 0xCC)))
-        fail("corrupt JPEG tables: a frame or scan in JPEGTables");
-      switch (code) {
-        case 0xC0: case 0xC1: case 0xC2:
-          read_sof(code, body, end);
-          break;
-        case 0xC3: case 0xC7: case 0xCB: case 0xCF:
-          fail("lossless JPEG is not supported");
-        case 0xC5: case 0xC6: case 0xCD: case 0xCE:
-          fail("hierarchical JPEG is not supported");
-        case 0xC9: case 0xCA: case 0xCC:
-          fail("arithmetic-coded JPEG is not supported");
-        case 0xC4:
-          read_dht(body, end);
-          break;
-        case 0xDB:
-          read_dqt(body, end);
-          break;
-        case 0xDD:
-          if (len != 4) fail("corrupt JPEG: bad DRI segment");
-          restart_interval = int(in.be16(body, "DRI"));
-          break;
-        case 0xDA:
-          p = read_scan(body, end) - 1;  // at the FF of the marker that ends the scan
-          scanned = true;
-          break;
-        case 0xDC:
-          fail("JPEG with a DNL marker is not supported");
-        case 0xE0:
-          if (len - 2 >= 14 && !std::memcmp(in.p + body, "JFIF\0", 5)) saw_jfif = true;
-          break;
-        case 0xEE:
-          if (len - 2 >= 12 && !std::memcmp(in.p + body, "Adobe", 5)) {
-            saw_adobe = true;
-            adobe_transform = in.p[body + 11];
+      // After a single scan with every component, Pillow has every row and
+      // keeps the image wherever the file ends (libjpeg suspends); libtiff
+      // ignores any error of jpeg_finish_decompress (tif_jpeg.c CALLJPEG's
+      // -1 reads as success).
+      const bool ends = scans > 0 && !multi_scan && !tables_only && !src.eoi_past_end;
+      const bool lenient = scans > 0 && !multi_scan && !tables_only && src.eoi_past_end;
+      try {
+        if (code == 0) {
+          try {
+            code = next_marker(src, p);
+          } catch (const Truncated&) {
+            if (ends) return end_stream();
+            fail("truncated JPEG file");
           }
-          break;
-        default:
-          if ((code >= 0xE0 && code <= 0xEF) || code == 0xFE) break;  // APPn, COM
-          fail("corrupt JPEG: unknown marker 0x" + std::to_string(code));
+        }
+        const int m = code;
+        code = 0;
+        if (m == 0xD9) break;  // EOI
+        if ((m >= 0xD0 && m <= 0xD7) || m == 0x01) {  // RSTn and TEM carry no segment
+          if (m == 0x01 && scans == 0 && !src.eoi_past_end) fail("corrupt JPEG: TEM marker before the first scan");
+          continue;
+        }
+        const bool sof = m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xCC;
+        if (m == 0xD8) fail("corrupt JPEG: unexpected marker");
+        if (m == 0xC5 || m == 0xC6 || m == 0xC7 || m == 0xCD || m == 0xCE || m == 0xCF)
+          fail("hierarchical JPEG is not supported");
+        if (m == 0xC8) fail("corrupt JPEG: JPG marker");
+        if (sof && have_frame) fail("corrupt JPEG: two frames");
+        if (!sof && m != 0xC4 && m != 0xCC && !(m >= 0xDA && m <= 0xDD) && !(m >= 0xE0 && m <= 0xEF) && m != 0xFE)
+          fail("corrupt JPEG: unknown marker " + std::to_string(m));
+        if (tables_only && (m == 0xDA || sof)) fail("corrupt JPEG tables: a frame or scan in JPEGTables");
+        Cursor cur{src, p};
+        try {
+          if (sof) {
+            if (m == 0xCB) fail("arithmetic-coded lossless JPEG is not supported (libjpeg-turbo refuses it)");
+            read_sof(m, cur);
+          } else if (m == 0xC4) {
+            read_dht(cur);
+          } else if (m == 0xCC) {
+            read_dac(cur);
+          } else if (m == 0xDB) {
+            read_dqt(cur);
+          } else if (m == 0xDD) {
+            if (cur.u16() != 4) fail("corrupt JPEG: bad DRI segment");
+            restart_interval = cur.u16();
+          } else if (m == 0xDA) {
+            code = read_scan(cur, p);
+            continue;
+          } else {  // APPn, COM, DNL (which libjpeg skips; a height of 0 in the frame is refused above)
+            const int64_t length = cur.u16() - 2;
+            const int64_t look = m == 0xE0 || m == 0xEE ? std::clamp<int64_t>(length, 0, 14) : 0;
+            uint8_t head[14];
+            for (int64_t i = 0; i < look; ++i) head[i] = uint8_t(cur.u8());
+            // Pillow's parser reads a JFIF or Adobe segment's version (bytes 5-6).
+            if (scans == 0 && !src.eoi_past_end && look < 7 &&
+                ((m == 0xE0 && look >= 4 && !std::memcmp(head, "JFIF", 4)) ||
+                 (m == 0xEE && look >= 5 && !std::memcmp(head, "Adobe", 5))))
+              fail("corrupt JPEG: JFIF or Adobe segment too short");
+            if (m == 0xE0 && look >= 14 && !std::memcmp(head, "JFIF\0", 5)) saw_jfif = true;
+            if (m == 0xEE && look >= 12 && !std::memcmp(head, "Adobe", 5)) saw_adobe = true, adobe_transform = head[11];
+            cur.skip(length - look);
+          }
+        } catch (const Truncated&) {
+          if (ends) return end_stream();
+          fail("truncated JPEG file");
+        }
+        p = cur.p;
+      } catch (const DecodeError&) {
+        if (lenient) return end_stream();
+        throw;
       }
     }
     if (tables_only) return;
-    if (!have_frame || !scanned) fail("corrupt JPEG: no frame or no scan");
-    if (progressive) {  // jdcoefct.c would smooth the blocks of an incomplete file
-      for (const Component& c : comps)
-        for (int k = 0; k < 64; ++k)
-          if (c.coef_bits[k] != 0)
-            fail("incomplete progressive JPEG (block smoothing is not supported)");
-    }
+    end_stream();
+  }
+
+  void end_stream() {
+    if (!have_frame || scans == 0) fail("corrupt JPEG: no frame or no scan");
+    smooth = smoothing_ok();
   }
 
   // The tables a TIFF's JPEG streams share (libjpeg keeps them in its
@@ -760,6 +1419,9 @@ struct Jpeg {
 
   // The full-size planes converted as `colour` says, interleaved: 1 grey,
   // 3 RGB, 4 CMYK (YCCK converted, not inverted); None keeps the samples.
+  // A lossless file takes no conversion (JERR_CONVERSION_NOTIMPL), and
+  // reads three components as RGB unless a JFIF or an Adobe marker says
+  // YCbCr.
   std::vector<uint8_t> samples(Colour colour) {
     const int nc = int(comps.size());
     bool ycc = false;
@@ -767,16 +1429,16 @@ struct Jpeg {
       if (nc != 3) fail("corrupt JPEG: YCbCr with " + std::to_string(nc) + " components");
       ycc = true;
     } else if (colour == Colour::FromMarkers && nc == 3) {
-      ycc = true;
-      if (!saw_jfif) {
-        if (saw_adobe) ycc = adobe_transform != 0;
-        else if (comps[0].id == 82 && comps[1].id == 71 && comps[2].id == 66) ycc = false;
-      }
+      ycc = !lossless;
+      if (saw_jfif) ycc = true;
+      else if (saw_adobe) ycc = adobe_transform != 0;
+      else if (comps[0].id == 82 && comps[1].id == 71 && comps[2].id == 66) ycc = false;
     } else if (colour == Colour::FromMarkers && nc == 4) {
       ycc = saw_adobe && adobe_transform != 0;  // YCCK, else CMYK
     }
+    if (ycc && lossless) fail("lossless JPEG in YCbCr is not supported (libjpeg converts no lossless colours)");
     std::vector<std::vector<uint8_t>> planes;
-    for (Component& c : comps) planes.push_back(full_plane(c));
+    for (int ci = 0; ci < nc; ++ci) planes.push_back(full_plane(ci));
     const size_t npx = size_t(width) * height;
     std::vector<uint8_t> out(npx * size_t(nc));
     if (!ycc) {
@@ -2515,7 +3177,7 @@ const OpenInfo* find_mode(bool mm, int64_t photo, const std::vector<int64_t>& fm
 // 1 x 1.
 std::vector<uint8_t> jpeg_segment(Bytes seg, Jpeg& tables, Jpeg::Colour colour, int64_t cols, int64_t rows,
                                   bool last_strip, int spp, int64_t& h0, int64_t& v0) {
-  Jpeg j(seg);
+  Jpeg j(seg, true);
   j.take_tables(tables);
   j.read_stream(false);
   tables.take_tables(j);
@@ -2706,10 +3368,10 @@ Image decode(Bytes in, InflateFn inflate) {
     if (ycbcr && (bits != 8 || spp != 3)) fail("TIFF YCbCr of this layout is not supported");
     // The compressed bytes of one segment, decoded into `need` bytes in the
     // host's (little-endian) byte order, as libtiff hands them on.
-    Jpeg tables(Bytes{nullptr, 0});
+    Jpeg tables(Bytes{nullptr, 0}, true);
     if (comp == 7 && d.has(347)) {
       const Field& f = d.tags.at(347);
-      Jpeg t(Bytes{in.p + f.off, size_t(f.count) * size_t(kTypeSize[f.type])});
+      Jpeg t(Bytes{in.p + f.off, size_t(f.count) * size_t(kTypeSize[f.type])}, true);
       t.read_stream(true);
       tables.take_tables(t);
     }

@@ -282,10 +282,12 @@ def _grey(pixels: np.ndarray) -> np.ndarray:
 def load_texture_file(path: str, grayscale: bool = False) -> np.ndarray:
     """Decode an image file to float32 [0,1] (H, W, C), vertically flipped
     to match the reference's stbi_set_flip_vertically_on_load usage
-    (file.cppm:276-291; grayscale R8 vs RGBA8 modes).  Read: JPEG, PNG,
-    TGA, BMP, GIF (its first frame), PNM (P1-P6, Pf), PSD (its composite
-    image), TIFF (its first image) and WebP (an animation's first frame),
-    as utils/image_decode.py lists them; the rest raise ValueError.  As in
+    (file.cppm:276-291; grayscale R8 vs RGBA8 modes).  Read: JPEG (Huffman,
+    arithmetic-coded and lossless; incomplete progressive files and corrupt
+    data as libjpeg decodes them for Pillow), PNG, TGA, BMP, GIF (its first
+    frame), PNM (P1-P6, Pf), PSD (its composite image), TIFF (its first
+    image) and WebP (an animation's first frame), as utils/image_decode.py
+    lists them; the rest raise ValueError.  As in
     the JAX package, RGB and RGBA files keep their
     channels and any other file loads as RGBA (palettes expanded, grey with
     alpha 1 or its own) unless grayscale is set.  Every texel is divided

@@ -15,9 +15,12 @@ VP8L or VP8X chunk first; TGA by a valid header when nothing else
 matches), and returns uint8 (H, W, C) pixels with the Pillow
 mode the JAX package would see.  C is 1 (grey), 2 (grey + alpha), 3
 (RGB) or 4 (RGBA); palette and CMYK images come back expanded to RGBA.
-Read: JPEG (baseline and progressive Huffman, 8-bit, 1, 3 or 4
-components: CMYK and YCCK by the Adobe marker; libjpeg-turbo's SIMD
-ISLOW IDCT, whose 16-bit lanes wrap on corrupt coefficients), PNG (every colour type,
+Read: JPEG (8-bit, 1, 3 or 4 components: CMYK and YCCK by the Adobe
+marker; baseline and progressive Huffman, sequential and progressive
+arithmetic coding, lossless; libjpeg-turbo's SIMD ISLOW IDCT, whose 16-bit
+lanes wrap on corrupt coefficients; the block smoothing of an incomplete
+progressive file; libjpeg's recovery from corrupt data, as Pillow returns
+it), PNG (every colour type,
 depth and filter, Adam7), TGA (types 1, 2, 3, 9, 10, 11 at 1, 8, 16, 24,
 32 bits; 16-, 24-, 32-bit colour maps), BMP (1/4/8-bit palette, RLE8 and
 RLE4, 16, 24 and 32 bits, BI_RGB and BI_BITFIELDS), GIF (the first
@@ -41,10 +44,11 @@ convert clips them.  ``decode_float_samples(data)`` gives a float TIFF
 
 Malformed input and formats not ported (Lab and 16-bit PSD, Lab TIFF,
 TIFF compressed by CCITT, old-style JPEG, ThunderScan, SGILog, LZMA,
-ZSTD or WebP, 12-bit, arithmetic-coded, lossless and hierarchical JPEG,
-a JPEG height in a DNL marker, an incomplete progressive JPEG, a corrupt
-JPEG scan libjpeg would decode on with a warning) raise ``ValueError``
-naming the cause; nothing falls back to another decoder.
+ZSTD or WebP; and, as Pillow refuses them, 12-bit, hierarchical and
+arithmetic-coded lossless JPEG, a JPEG height in a DNL marker, a JPEG cut
+inside a scan, an arithmetic-coded scan past Pillow's first 64 KiB read)
+raise ``ValueError`` naming the cause; nothing falls back to another
+decoder.  libjpeg's warnings stay silent, as in Pillow.
 
 The library is built at first use with ``$CXX`` (default g++) into the
 kernels' build directory (``kernels.BUILD_DIR``), under a name that hashes

@@ -42,7 +42,8 @@ FIXTURE_NAMES = ("prog420_odd.jpg", "base422_rst.jpg", "grey.jpg", "rle.tga", "p
                  "packbits_rgba.tif", "bigtiff_planar.tif", "ycbcr22_lzw.tif", "ycck.jpg", "cmyk.jpg",
                  "corrupt_ycck.jpg", "corrupt_cmyk.jpg", "corrupt_base422.jpg", "corrupt_prog420.jpg",
                  "leaf_alpha.webp", "ground_lossless.webp", "smooth1024_alpha.webp", "smooth1024.webp",
-                 "ramp1024_lossless.webp")
+                 "ramp1024_lossless.webp", "arith420_rst.jpg", "arith_prog.jpg", "lossless_grey.jpg",
+                 "prog420_cut.jpg", "prog420_dc.jpg", "corrupt_recovered.jpg", "smooth1024_arith.jpg")
 
 # Corrupt JPEGs: a fixture with bytes replaced ((offset, byte), ...), whose
 # dequantized coefficients overflow libjpeg-turbo's 16-bit SIMD IDCT lanes
@@ -126,6 +127,50 @@ def _segment(code: int, body: bytes) -> bytes:
     return bytes([0xFF, code]) + struct.pack(">H", len(body) + 2) + body
 
 
+def _categories(v):
+    """JPEG magnitude categories of ints and their extra bits."""
+    v = np.asarray(v, np.int64)
+    cat = np.ceil(np.log2(np.abs(v) + 1)).astype(np.int64)
+    return cat, np.where(v >= 0, v, v + (1 << cat) - 1)
+
+
+def _block_codes(comp, zz, n) -> bytes:
+    """encode_jpeg's entropy-coded segment of zigzag blocks (in order, of
+    components `comp`): 4-bit DC categories, 8-bit AC symbols (ZRL, EOB),
+    DC predictors from 0 per component."""
+    nb = len(zz)
+    dc = zz[:, 0].astype(np.int64)
+    prev = np.zeros(nb, np.int64)
+    for c in range(n):
+        idx = np.flatnonzero(comp == c)
+        prev[idx[1:]] = dc[idx[:-1]]
+    dcat, dbits = _categories(dc - prev)
+    b_nz, k_nz = np.nonzero(zz[:, 1:])
+    k_nz = k_nz + 1
+    first = np.r_[True, b_nz[1:] != b_nz[:-1]] if len(b_nz) else np.zeros(0, bool)
+    run = k_nz - np.where(first, 0, np.r_[0, k_nz[:-1]]) - 1
+    acat, abits = _categories(zz[b_nz, k_nz])
+    assert (acat <= 10).all(), "a coefficient past the AC table's 10-bit categories"
+    table = np.full(256, -1, np.int64)
+    for i, sy in enumerate(_AC_SYMBOLS):
+        table[sy] = i
+    last = np.zeros(nb, np.int64)
+    np.maximum.at(last, b_nz, k_nz)                      # the last nonzero AC position per block
+    # Codes as (block, order key, value, length): DC first, then per
+    # nonzero its ZRLs and its symbol, then EOB when the block ends early.
+    zrl = run // 16
+    z_blocks = np.repeat(b_nz, zrl)
+    z_keys = np.repeat(k_nz * 2, zrl)
+    keys = np.concatenate([np.full(nb, -1), z_keys, k_nz * 2 + 1, np.full(nb, 200)])
+    blocks = np.concatenate([np.arange(nb), z_blocks, b_nz, np.arange(nb)])
+    values = np.concatenate([(dcat << dcat) | dbits, np.full(len(z_blocks), table[0xF0]),
+                             (table[((run % 16) << 4) | acat] << acat) | abits, np.zeros(nb, np.int64)])
+    lengths = np.concatenate([4 + dcat, np.full(len(z_blocks), 8), 8 + acat, np.where(last < 63, 8, 0)])
+    order = np.lexsort((keys, blocks))
+    keep = lengths[order] > 0
+    return _pack_codes(values[order][keep], lengths[order][keep])
+
+
 def encode_jpeg(planes, factors, q: int = 4, restart: int = 0, adobe: int | None = None,
                 jfif: bool = True, ids=None) -> bytes:
     """A baseline JPEG of full-size uint8 component planes sampled at
@@ -144,69 +189,25 @@ def encode_jpeg(planes, factors, q: int = 4, restart: int = 0, adobe: int | None
         sy, sx = mv // v, mh // h
         small = full.reshape(full.shape[0] // sy, sy, full.shape[1] // sx, sx).mean(axis=(1, 3))
         blocks = small.reshape(small.shape[0] // 8, 8, small.shape[1] // 8, 8).transpose(0, 2, 1, 3)
-        coefs = np.rint(np.einsum("ux,abxy,vy->abuv", _DCT, blocks - 128, _DCT) / q).astype(int)
-        comps.append(coefs.reshape(coefs.shape[0], coefs.shape[1], 64)[:, :, _NATURAL].tolist())
-    out = bytearray()
-    acc = [0, 0]                      # bits, count
-
-    def put(value, nbits):
-        acc[0] = (acc[0] << nbits) | (value & ((1 << nbits) - 1))
-        acc[1] += nbits
-        while acc[1] >= 8:
-            b = (acc[0] >> (acc[1] - 8)) & 0xFF
-            acc[1] -= 8
-            out.append(b)
-            if b == 0xFF:
-                out.append(0)
-        acc[0] &= (1 << acc[1]) - 1
-
-    def flush():
-        if acc[1]:
-            put((1 << (8 - acc[1])) - 1, 8 - acc[1])
-
-    def category(v):
-        s = int(abs(v)).bit_length()
-        return s, (v if v >= 0 else v + (1 << s) - 1)
-
-    pred = [0] * n
-
-    def block(ci, zz):
-        s, bits = category(zz[0] - pred[ci])
-        pred[ci] = zz[0]
-        put(s, 4)
-        put(bits, s)
-        run = 0
-        last = max([k for k in range(1, 64) if zz[k]] or [0])
-        for k in range(1, last + 1):
-            if zz[k] == 0:
-                run += 1
-                continue
-            while run > 15:
-                put(_AC_SYMBOLS.index(0xF0), 8)
-                run -= 16
-            s, bits = category(zz[k])
-            put(_AC_SYMBOLS.index((run << 4) | s), 8)
-            put(bits, s)
-            run = 0
-        if last < 63:
-            put(0, 8)                 # EOB
-
+        coefs = np.rint(np.einsum("ux,abxy,vy->abuv", _DCT, blocks - 128, _DCT, optimize=True) / q).astype(int)
+        comps.append(coefs.reshape(coefs.shape[0], coefs.shape[1], 64)[:, :, _NATURAL])
     if n == 1:
         (h, v), = factors
         bw, bh = -(-(-(-wid * h // mh)) // 8), -(-(-(-hgt * v // mv)) // 8)
-        units = [[(0, comps[0][by][bx])] for by in range(bh) for bx in range(bw)]
+        units = [[(0, by, bx)] for by in range(bh) for bx in range(bw)]
     else:
-        units = [[(ci, comps[ci][my * v + y][mx * h + x]) for ci, (h, v) in enumerate(factors)
+        units = [[(ci, my * v + y, mx * h + x) for ci, (h, v) in enumerate(factors)
                   for y in range(v) for x in range(h)]
                  for my in range(mcuy) for mx in range(mcux)]
-    for i, unit in enumerate(units):
-        if restart and i and i % restart == 0:
-            flush()
-            out += bytes([0xFF, 0xD0 + (i // restart - 1) % 8])
-            pred = [0] * n
-        for ci, zz in unit:
-            block(ci, zz)
-    flush()
+    out = bytearray()
+    step = restart or len(units)
+    for k, u0 in enumerate(range(0, len(units), step)):
+        if k:
+            out += bytes([0xFF, 0xD0 + (k - 1) % 8])
+        seg = [blk for unit in units[u0:u0 + step] for blk in unit]
+        comp = np.array([c for c, _, _ in seg])
+        zz = np.stack([np.asarray(comps[c][by][bx]) for c, by, bx in seg])
+        out += _block_codes(comp, zz, n)
     head = b"\xff\xd8"
     if adobe is not None:
         head += _segment(0xEE, b"Adobe\x00\x64\x00\x00\x00\x00" + bytes([adobe]))
@@ -279,6 +280,391 @@ def encode_jpeg_blocks(blocks, w: int, h: int, quant) -> bytes:
             + _segment(0xC4, b"\x00" + bytes([0, 0, 0, 0, 16] + [0] * 11) + bytes(dc_symbols))
             + _segment(0xC4, b"\x10" + bytes([0] * 7 + [len(ac_symbols)] + [0] * 8) + bytes(ac_symbols))
             + _segment(0xDA, b"\x01\x01\x00\x00\x3f\x00") + bytes(out) + b"\xff\xd9")
+
+
+# T.81 Table D.2, the QM coder's probability estimates: (Qe, next index
+# after an LPS, after an MPS, switch MPS).  Entry 113 is libjpeg's fixed
+# 0.5 estimate (T.851), used for signs and DC refinement bits.
+QM_TABLE = (
+    (0x5a1d, 1, 1, 1), (0x2586, 14, 2, 0), (0x1114, 16, 3, 0), (0x080b, 18, 4, 0),
+    (0x03d8, 20, 5, 0), (0x01da, 23, 6, 0), (0x00e5, 25, 7, 0), (0x006f, 28, 8, 0),
+    (0x0036, 30, 9, 0), (0x001a, 33, 10, 0), (0x000d, 35, 11, 0), (0x0006, 9, 12, 0),
+    (0x0003, 10, 13, 0), (0x0001, 12, 13, 0), (0x5a7f, 15, 15, 1), (0x3f25, 36, 16, 0),
+    (0x2cf2, 38, 17, 0), (0x207c, 39, 18, 0), (0x17b9, 40, 19, 0), (0x1182, 42, 20, 0),
+    (0x0cef, 43, 21, 0), (0x09a1, 45, 22, 0), (0x072f, 46, 23, 0), (0x055c, 48, 24, 0),
+    (0x0406, 49, 25, 0), (0x0303, 51, 26, 0), (0x0240, 52, 27, 0), (0x01b1, 54, 28, 0),
+    (0x0144, 56, 29, 0), (0x00f5, 57, 30, 0), (0x00b7, 59, 31, 0), (0x008a, 60, 32, 0),
+    (0x0068, 62, 33, 0), (0x004e, 63, 34, 0), (0x003b, 32, 35, 0), (0x002c, 33, 9, 0),
+    (0x5ae1, 37, 37, 1), (0x484c, 64, 38, 0), (0x3a0d, 65, 39, 0), (0x2ef1, 67, 40, 0),
+    (0x261f, 68, 41, 0), (0x1f33, 69, 42, 0), (0x19a8, 70, 43, 0), (0x1518, 72, 44, 0),
+    (0x1177, 73, 45, 0), (0x0e74, 74, 46, 0), (0x0bfb, 75, 47, 0), (0x09f8, 77, 48, 0),
+    (0x0861, 78, 49, 0), (0x0706, 79, 50, 0), (0x05cd, 48, 51, 0), (0x04de, 50, 52, 0),
+    (0x040f, 50, 53, 0), (0x0363, 51, 54, 0), (0x02d4, 52, 55, 0), (0x025c, 53, 56, 0),
+    (0x01f8, 54, 57, 0), (0x01a4, 55, 58, 0), (0x0160, 56, 59, 0), (0x0125, 57, 60, 0),
+    (0x00f6, 58, 61, 0), (0x00cb, 59, 62, 0), (0x00ab, 61, 63, 0), (0x008f, 61, 32, 0),
+    (0x5b12, 65, 65, 1), (0x4d04, 80, 66, 0), (0x412c, 81, 67, 0), (0x37d8, 82, 68, 0),
+    (0x2fe8, 83, 69, 0), (0x293c, 84, 70, 0), (0x2379, 86, 71, 0), (0x1edf, 87, 72, 0),
+    (0x1aa9, 87, 73, 0), (0x174e, 72, 74, 0), (0x1424, 72, 75, 0), (0x119c, 74, 76, 0),
+    (0x0f6b, 74, 77, 0), (0x0d51, 75, 78, 0), (0x0bb6, 77, 79, 0), (0x0a40, 77, 48, 0),
+    (0x5832, 80, 81, 1), (0x4d1c, 88, 82, 0), (0x438e, 89, 83, 0), (0x3bdd, 90, 84, 0),
+    (0x34ee, 91, 85, 0), (0x2eae, 92, 86, 0), (0x299a, 93, 87, 0), (0x2516, 86, 71, 0),
+    (0x5570, 88, 89, 1), (0x4ca9, 95, 90, 0), (0x44d9, 96, 91, 0), (0x3e22, 97, 92, 0),
+    (0x3824, 99, 93, 0), (0x32b4, 99, 94, 0), (0x2e17, 93, 86, 0), (0x56a8, 95, 96, 1),
+    (0x4f46, 101, 97, 0), (0x47e5, 102, 98, 0), (0x41cf, 103, 99, 0), (0x3c3d, 104, 100, 0),
+    (0x375e, 99, 93, 0), (0x5231, 105, 102, 0), (0x4c0f, 106, 103, 0), (0x4639, 107, 104, 0),
+    (0x415e, 103, 99, 0), (0x5627, 105, 106, 1), (0x50e7, 108, 107, 0), (0x4b85, 109, 103, 0),
+    (0x5597, 110, 109, 0), (0x504f, 111, 107, 0), (0x5a10, 110, 111, 1), (0x5522, 112, 109, 0),
+    (0x59eb, 112, 111, 1), (0x5a1d, 113, 113, 0))
+
+
+class QMEncoder:
+    """The QM arithmetic coder of T.81 Annex D as libjpeg's jcarith.c runs
+    it: bytes with 0xFF stuffed, carries resolved over stacked 0xFF bytes,
+    and its termination."""
+
+    def __init__(self):
+        self.out = bytearray()
+        self.reset()
+
+    def reset(self):
+        self.c, self.a, self.sc, self.zc, self.ct, self.buffer = 0, 0x10000, 0, 0, 11, -1
+
+    def _byte(self, b):
+        self.out.append(b)
+        if b == 0xFF:
+            self.out.append(0)
+
+    def _zeros(self):
+        self.out += bytes(self.zc)
+        self.zc = 0
+
+    def _stacked(self):
+        if self.buffer == 0:
+            self.zc += 1
+        elif self.buffer >= 0:
+            self._zeros()
+            self._byte(self.buffer)
+        if self.sc:
+            self._zeros()
+            self.out += b"\xff\x00" * self.sc
+            self.sc = 0
+
+    def _carry(self):
+        if self.buffer >= 0:
+            self._zeros()
+            self._byte(self.buffer + 1)
+        self.zc += self.sc
+        self.sc = 0
+
+    def encode(self, st, i, val):
+        """Codes bit `val` with the statistics bin st[i] (updated)."""
+        sv = st[i]
+        qe, nlps, nmps, switch = QM_TABLE[sv & 0x7F]
+        self.a -= qe
+        if val != sv >> 7:
+            if self.a >= qe:
+                self.c += self.a
+                self.a = qe
+            st[i] = (sv & 0x80) ^ (switch << 7 | nlps)
+        else:
+            if self.a >= 0x8000:
+                return
+            if self.a < qe:
+                self.c += self.a
+                self.a = qe
+            st[i] = (sv & 0x80) ^ nmps
+        while True:
+            self.a <<= 1
+            self.c <<= 1
+            self.ct -= 1
+            if self.ct == 0:
+                temp = self.c >> 19
+                if temp > 0xFF:
+                    self._carry()
+                    self.buffer = temp & 0xFF
+                elif temp == 0xFF:
+                    self.sc += 1
+                else:
+                    self._stacked()
+                    self.buffer = temp & 0xFF
+                self.c &= 0x7FFFF
+                self.ct += 8
+            if self.a >= 0x8000:
+                return
+
+    def finish(self):
+        temp = (self.a - 1 + self.c) & 0xFFFF0000
+        self.c = temp + 0x8000 if temp < self.c else temp
+        self.c <<= self.ct
+        if self.c & 0xF8000000:
+            self._carry()
+        else:
+            self._stacked()
+        if self.c & 0x7FFF800:
+            self._zeros()
+            self._byte((self.c >> 19) & 0xFF)
+            if self.c & 0x7F800:
+                self._byte((self.c >> 11) & 0xFF)
+        self.reset()
+
+
+def jpeg_blocks(planes, factors, q):
+    """Quantized DCT blocks of full-size uint8 planes sampled at `factors`,
+    as encode_jpeg makes them: per component an int array (block rows,
+    block columns, 64) in zigzag order, whole MCUs (edge-padded)."""
+    hgt, wid = planes[0].shape
+    mh, mv = max(f[0] for f in factors), max(f[1] for f in factors)
+    mcux, mcuy = -(-wid // (8 * mh)), -(-hgt // (8 * mv))
+    comps = []
+    for p, (h, v) in zip(planes, factors):
+        full = np.pad(p.astype(np.float64), ((0, mcuy * mv * 8 - hgt), (0, mcux * mh * 8 - wid)),
+                      mode="edge")
+        sy, sx = mv // v, mh // h
+        small = full.reshape(full.shape[0] // sy, sy, full.shape[1] // sx, sx).mean(axis=(1, 3))
+        blocks = small.reshape(small.shape[0] // 8, 8, small.shape[1] // 8, 8).transpose(0, 2, 1, 3)
+        coefs = np.rint(np.einsum("ux,abxy,vy->abuv", _DCT, blocks - 128, _DCT) / q).astype(int)
+        comps.append(coefs.reshape(coefs.shape[0], coefs.shape[1], 64)[:, :, _NATURAL])
+    return comps
+
+
+# libjpeg's jpeg_simple_progression for three components (with one: its
+# first, fourth, fifth and eighth scans, on component 0), as
+# (components, Ss, Se, Ah, Al).
+PROGRESSION3 = (((0, 1, 2), 0, 0, 0, 1), ((0,), 1, 5, 0, 2), ((2,), 1, 63, 0, 1), ((1,), 1, 63, 0, 1),
+                ((0,), 6, 63, 0, 2), ((0,), 1, 63, 2, 1), ((0, 1, 2), 0, 0, 1, 0), ((2,), 1, 63, 1, 0),
+                ((1,), 1, 63, 1, 0), ((0,), 1, 63, 1, 0))
+PROGRESSION1 = (((0,), 0, 0, 0, 1), ((0,), 1, 5, 0, 2), ((0,), 6, 63, 0, 2), ((0,), 1, 63, 2, 1),
+                ((0,), 0, 0, 1, 0), ((0,), 1, 63, 1, 0))
+
+
+def _jpeg_header(w, h, factors, quant, sof, ids, adobe, jfif, precision=8):
+    head = b"\xff\xd8"
+    if adobe is not None:
+        head += _segment(0xEE, b"Adobe\x00\x64\x00\x00\x00\x00" + bytes([adobe]))
+    elif jfif:
+        head += _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    if quant is not None:
+        head += _segment(0xDB, b"\x00" + bytes(int(v) for v in quant))
+    return head + _segment(sof, struct.pack(">BHHB", precision, h, w, len(factors)) + b"".join(
+        bytes([i, (fh << 4) | fv, 0]) for i, (fh, fv) in zip(ids, factors)))
+
+
+def _scan_units(blocks, factors, sel, w, h):
+    """The (component, block) lists of a scan's MCUs, in order: one block
+    an MCU (the component's real blocks) for one component, whole MCUs for
+    several."""
+    mh, mv = max(f[0] for f in factors), max(f[1] for f in factors)
+    if len(sel) == 1:
+        (c,) = sel
+        fh, fv = factors[c]
+        bw, bh = -(-(-(-w * fh // mh)) // 8), -(-(-(-h * fv // mv)) // 8)
+        return [[(c, blocks[c][by, bx])] for by in range(bh) for bx in range(bw)]
+    mcux, mcuy = -(-w // (8 * mh)), -(-h // (8 * mv))
+    return [[(c, blocks[c][my * factors[c][1] + y, mx * factors[c][0] + x]) for c in sel
+             for y in range(factors[c][1]) for x in range(factors[c][0])]
+            for my in range(mcuy) for mx in range(mcux)]
+
+
+def encode_arith_jpeg(blocks, w: int, h: int, factors, quant, *, progression=None, restart: int = 0,
+                      dac=(), ids=None, adobe: int | None = None, jfif: bool = True,
+                      sof: int | None = None) -> bytes:
+    """An arithmetic-coded JPEG (SOF9, or SOF10 with `progression`, a
+    list of (components, Ss, Se, Ah, Al) scans) of quantized blocks
+    (jpeg_blocks' layout), as libjpeg's jcarith.c codes them: DC
+    conditioning (L, U) and AC K from `dac` ((Tc << 4 | Tb, value) pairs
+    of a DAC segment; default 0, 1 and 5), table 0 for every component,
+    statistics reset at each of the restarts every `restart` MCUs."""
+    n = len(blocks)
+    ids = list(ids or range(1, n + 1))
+    dc_l, dc_u, ac_k = 0, 1, 5
+    for index, value in dac:
+        if index == 0:
+            dc_l, dc_u = value & 15, value >> 4
+        elif index == 16:
+            ac_k = value
+    sof = sof or (0xCA if progression else 0xC9)
+    out = bytearray(_jpeg_header(w, h, factors, quant, sof, ids, adobe, jfif))
+    if dac:
+        out += _segment(0xCC, b"".join(bytes(d) for d in dac))
+    if restart:
+        out += _segment(0xDD, struct.pack(">H", restart))
+    scans = progression or ((tuple(range(n)), 0, 63, 0, 0),)
+    for sel, ss, se, ah, al in scans:
+        out += _segment(0xDA, bytes([len(sel)]) + b"".join(bytes([ids[c], 0]) for c in sel)
+                        + bytes([ss, se, ah << 4 | al]))
+        qm = QMEncoder()
+        fixed = bytearray([113])
+        state = {}
+
+        def reset():
+            state.update(dc=bytearray(64), ac=bytearray(256), pred=[0] * n, ctx=[0] * n)
+
+        def magnitude(st, base, v, k):
+            m = 0
+            v -= 1
+            if v:
+                qm.encode(st, base, 1)
+                m, v2 = 1, v >> 1
+                if k is None:                                  # DC
+                    base = 20
+                    while v2:
+                        qm.encode(st, base, 1)
+                        m, v2, base = m << 1, v2 >> 1, base + 1
+                elif v2:
+                    qm.encode(st, base, 1)
+                    m, v2 = m << 1, v2 >> 1
+                    base = 189 if k <= ac_k else 217
+                    while v2:
+                        qm.encode(st, base, 1)
+                        m, v2, base = m << 1, v2 >> 1, base + 1
+            qm.encode(st, base, 0)
+            base += 14
+            m2 = m
+            while m2 >> 1:
+                m2 >>= 1
+                qm.encode(st, base, 1 if m2 & v else 0)
+            return m
+
+        def dc(c, value):
+            st, s0 = state["dc"], state["ctx"][c]
+            v = value - state["pred"][c]
+            if v == 0:
+                qm.encode(st, s0, 0)
+                state["ctx"][c] = 0
+                return
+            state["pred"][c] = value
+            qm.encode(st, s0, 1)
+            qm.encode(st, s0 + 1, int(v < 0))
+            state["ctx"][c] = 4 if v > 0 else 8
+            m = magnitude(st, s0 + 2 + int(v < 0), abs(v), None)
+            if m < (1 << dc_l) >> 1:
+                state["ctx"][c] = 0
+            elif m > (1 << dc_u) >> 1:
+                state["ctx"][c] += 8
+
+        def ac(zz, lo, hi, shift):
+            st = state["ac"]
+            vals = [(-((-int(x)) >> shift) if x < 0 else int(x) >> shift) for x in zz]
+            ke = max([k for k in range(lo, hi + 1) if vals[k]] or [lo - 1])
+            k = lo
+            while k <= ke:
+                base = 3 * (k - 1)
+                qm.encode(st, base, 0)
+                while vals[k] == 0:
+                    qm.encode(st, base + 1, 0)
+                    base += 3
+                    k += 1
+                qm.encode(st, base + 1, 1)
+                qm.encode(fixed, 0, int(vals[k] < 0))
+                magnitude(st, base + 2, abs(vals[k]), k)
+                k += 1
+            if k <= hi:
+                qm.encode(st, 3 * (k - 1), 1)
+
+        def ac_refine(zz, lo, hi, ah_, al_):
+            st = state["ac"]
+            mag = [abs(int(x)) for x in zz]
+            ke = max([k for k in range(1, hi + 1) if mag[k] >> al_] or [0])
+            kex = max([k for k in range(1, ke + 1) if mag[k] >> ah_] or [0])
+            k = lo
+            while k <= ke:
+                base = 3 * (k - 1)
+                if k > kex:
+                    qm.encode(st, base, 0)
+                while True:
+                    v = mag[k] >> al_
+                    if v:
+                        if v >> 1:
+                            qm.encode(st, base + 2, v & 1)
+                        else:
+                            qm.encode(st, base + 1, 1)
+                            qm.encode(fixed, 0, int(zz[k] < 0))
+                        break
+                    qm.encode(st, base + 1, 0)
+                    base += 3
+                    k += 1
+                k += 1
+            if k <= hi:
+                qm.encode(st, 3 * (k - 1), 1)
+
+        reset()
+        for i, unit in enumerate(_scan_units(blocks, factors, sel, w, h)):
+            if restart and i and i % restart == 0:
+                qm.finish()
+                qm.out += bytes([0xFF, 0xD0 + (i // restart - 1) % 8])
+                reset()
+            for c, zz in unit:
+                if not progression:
+                    dc(c, int(zz[0]))
+                    ac(zz, 1, 63, 0)
+                elif ss == 0 and ah == 0:
+                    dc(c, int(zz[0]) >> al)
+                elif ss == 0:
+                    qm.encode(fixed, 0, (int(zz[0]) >> al) & 1)
+                elif ah == 0:
+                    ac(zz, ss, se, al)
+                else:
+                    ac_refine(zz, ss, se, ah, al)
+        qm.finish()
+        out += qm.out
+    return bytes(out) + b"\xff\xd9"
+
+
+def _pack_codes(values, lengths) -> bytes:
+    """MSB-first bit packing of codes (`values` each `lengths` bits, at most
+    24), padded with 1 bits to a byte, 0xFF bytes stuffed with 0x00."""
+    values, lengths = np.asarray(values, np.int64), np.asarray(lengths, np.int64)
+    be = np.stack([(values >> 16) & 255, (values >> 8) & 255, values & 255], 1).astype(np.uint8)
+    stream = np.unpackbits(be, axis=1)[np.arange(24)[None, :] >= 24 - lengths[:, None]]
+    stream = np.concatenate([stream, np.ones(-len(stream) % 8, np.uint8)])
+    raw = np.packbits(stream)
+    return np.insert(raw, np.flatnonzero(raw == 0xFF) + 1, 0).tobytes()
+
+
+def encode_arith_planes(planes, factors, q: int = 4, **kw) -> bytes:
+    """encode_arith_jpeg of jpeg_blocks(planes, factors, q), a flat
+    quantizer `q`."""
+    hgt, wid = planes[0].shape
+    return encode_arith_jpeg(jpeg_blocks(planes, factors, q), wid, hgt, factors, [q] * 64, **kw)
+
+
+def encode_lossless_jpeg(planes, predictor: int = 1, pt: int = 0, restart_rows: int = 0, ids=None,
+                         adobe: int | None = None, jfif: bool = False, sof: int = 0xC3) -> bytes:
+    """A lossless JPEG (SOF3, Huffman, 8-bit) of full-size uint8 planes, one
+    interleaved scan: predictor 1-7, point transform `pt`, a restart every
+    `restart_rows` rows (the first row after each predicted from
+    2^(7 - pt) and the left neighbour, as after the start); one table of
+    5-bit codes for the difference categories 0-16."""
+    n = len(planes)
+    hgt, wid = planes[0].shape
+    ids = list(ids or range(1, n + 1))
+    x = np.stack([p.astype(np.int64) >> pt for p in planes])          # (n, h, w)
+    ra = np.concatenate([np.zeros((n, hgt, 1), np.int64), x[:, :, :-1]], 2)
+    rb = np.concatenate([np.zeros((n, 1, wid), np.int64), x[:, :-1]], 1)
+    rc = np.concatenate([np.zeros((n, hgt, 1), np.int64), rb[:, :, :-1]], 2)
+    pred = (lambda: ra, lambda: rb, lambda: rc, lambda: ra + rb - rc, lambda: ra + ((rb - rc) >> 1),
+            lambda: rb + ((ra - rc) >> 1), lambda: (ra + rb) >> 1)[predictor - 1]().copy()
+    first = np.arange(hgt) % (restart_rows or hgt) == 0             # rows predicted as the first
+    pred[:, :, 0] = rb[:, :, 0]
+    pred[:, first] = ra[:, first]
+    pred[:, first, 0] = 1 << (7 - pt)
+    d = (x - pred).transpose(1, 2, 0)                                # MCU order: row, column, component
+    cat = np.ceil(np.log2(np.abs(d) + 1)).astype(np.int64)
+    extra = np.where(d >= 0, d, d + (1 << cat) - 1)
+    codes, lens = (cat << cat) | extra, 5 + cat
+    out = bytearray()
+    step = restart_rows or hgt
+    for k, r0 in enumerate(range(0, hgt, step)):
+        if k:
+            out += bytes([0xFF, 0xD0 + (k - 1) % 8])
+        out += _pack_codes(codes[r0:r0 + step].reshape(-1), lens[r0:r0 + step].reshape(-1))
+    head = _jpeg_header(wid, hgt, [(1, 1)] * n, None, sof, ids, adobe, jfif)
+    head += _segment(0xC4, b"\x00" + bytes([0, 0, 0, 0, 17] + [0] * 11) + bytes(range(17)))
+    if restart_rows:
+        head += _segment(0xDD, struct.pack(">H", restart_rows * wid))
+    head += _segment(0xDA, bytes([n]) + b"".join(bytes([i, 0]) for i in ids)
+                     + bytes([predictor, 0, pt]))
+    return head + bytes(out) + b"\xff\xd9"
 
 
 def make_tga(pix, itype: int, depth: int, flags: int = 0, cmap=None, cmap_start: int = 0,
@@ -693,7 +1079,7 @@ def make_tiff(samples, bits, photometric: int, *, order: str = "<", header: str 
               compression: int = 1, predictor=None, rows_per_strip=None, tile=None,
               colormap=None, subsampling=None, jpeg_q: int = 4, jpeg_tables: bool = True,
               tags=None, omit=(), packbits_rng=None, ifd_first: bool = False,
-              seg_data=None) -> bytes:
+              seg_data=None, jpeg=None) -> bytes:
     """TIFF bytes of (h, w[, n]) samples: `bits` per sample (an int, or a
     tuple for the tag), in byte order `order` ("<" II, ">" MM); `header`
     "tiff", "bigtiff" or "swapped" (the magic in the other order, which
@@ -701,7 +1087,8 @@ def make_tiff(samples, bits, photometric: int, *, order: str = "<", header: str 
     `tile` (w, h) tiles (edge tiles padded); `planar` 2 writes a segment
     per sample plane; compression 1 (none), 32773 (PackBits), 5 (LZW), 8
     or 32946 (Deflate) with `predictor` 2 or 3, or 7 (JPEG: each segment a
-    JPEG of `encode_jpeg`, its tables in JPEGTables unless `jpeg_tables`
+    JPEG of `encode_jpeg`, or of `jpeg` (planes, factors, q), its tables
+    (DQT and DHT) in JPEGTables unless `jpeg_tables`
     is false; YCbCr with `subsampling` (h, v) samples luma at that rate
     and chroma once a block).  Without JPEG, YCbCr data is written in
     libtiff's blocks of h*v luma samples, Cb, Cr.  `fill_order` 2 reverses
@@ -735,7 +1122,7 @@ def make_tiff(samples, bits, photometric: int, *, order: str = "<", header: str 
             fac = [(1, 1)] * sn
             if photometric == 6 and subsampling and planar == 1:
                 fac[0] = tuple(subsampling)
-            data = encode_jpeg(comps, fac, q=jpeg_q, jfif=False)
+            data = (jpeg or (lambda c, f, q: encode_jpeg(c, f, q=q, jfif=False)))(comps, fac, jpeg_q)
             if jpeg_tables:
                 parts, pos, kept = [], 2, [b"\xff\xd8"]
                 while data[pos + 1] != 0xDA:
@@ -1125,6 +1512,45 @@ def write_webp_fixtures(out: Path) -> None:
     (out / "ramp1024_lossless.webp").write_bytes(pillow_webp(ramp, lossless=True))
 
 
+def smooth1024() -> np.ndarray:
+    """smooth1024.jpg's 1024^2 RGB image."""
+    y, x = np.mgrid[0:1024, 0:1024]
+    return np.stack([128 + 100 * np.sin(x / 97 + y / 131), 128 + 100 * np.cos(x / 151 - y / 83),
+                     128 + 90 * np.sin((x + y) / 211)], -1).astype(np.uint8)
+
+
+def write_jpeg_variant_fixtures(out: Path) -> None:
+    """JPEGs Pillow reads but writes none of: arithmetic-coded (sequential
+    4:2:0 with restarts and DAC conditioning; progressive), lossless
+    (predictor 6, restarts), incomplete progressive (prog420_odd.jpg
+    without its last scan; with its DC-only first scan alone) and corrupt
+    (grey.jpg with a run past coefficient 63, libjpeg's recovery);
+    smooth1024_arith.jpg is phase 38's arithmetic decode timing, under
+    the 64 KiB that Pillow hands its decoder at once."""
+    rng = np.random.default_rng(19)
+    img = smooth_image(rng, 45, 61, 3)
+    planes = [img[..., k] for k in range(3)]
+    fac = [(2, 2), (1, 1), (1, 1)]
+    (out / "arith420_rst.jpg").write_bytes(encode_arith_jpeg(
+        jpeg_blocks(planes, fac, 4), 61, 45, fac, [4] * 64, restart=3, dac=((0, 0x31), (16, 3))))
+    (out / "arith_prog.jpg").write_bytes(encode_arith_jpeg(
+        jpeg_blocks(planes, [(1, 1)] * 3, 3), 61, 45, [(1, 1)] * 3, [3] * 64, progression=PROGRESSION3,
+        restart=4))
+    (out / "lossless_grey.jpg").write_bytes(encode_lossless_jpeg([smooth_image(rng, 37, 50, 1)[..., 0]], 6,
+                                                                 restart_rows=4))
+    prog = (out / "prog420_odd.jpg").read_bytes()
+    (out / "prog420_cut.jpg").write_bytes(prog[:prog.rindex(b"\xff\xda")] + b"\xff\xd9")
+    (out / "prog420_dc.jpg").write_bytes(prog[:prog.index(b"\xff\xda", prog.index(b"\xff\xda") + 2)]
+                                         + b"\xff\xd9")
+    grey = bytearray((out / "grey.jpg").read_bytes())
+    grey[383] = 0
+    (out / "corrupt_recovered.jpg").write_bytes(bytes(grey))
+    big = smooth1024()
+    fac = [(2, 2), (1, 1), (1, 1)]
+    (out / "smooth1024_arith.jpg").write_bytes(encode_arith_jpeg(
+        jpeg_blocks([big[..., k] for k in range(3)], fac, 4), 1024, 1024, fac, [4] * 64))
+
+
 def write_fixtures(out: Path = FIXTURES) -> dict:
     """Write the committed fixtures and expected.json; returns the digests."""
     from PIL import Image
@@ -1147,13 +1573,11 @@ def write_fixtures(out: Path = FIXTURES) -> dict:
     leaf = np.where(disc[..., None], [225, 235, 215, 255], [12, 20, 8, 96]).astype(np.uint8)
     Image.fromarray(leaf, "RGBA").save(out / "rle.tga", compression="tga_rle")
     Image.fromarray(smooth_image(rng, 17, 33, 3)).save(out / "rgb24.bmp")
-    y, x = np.mgrid[0:1024, 0:1024]
-    big = np.stack([128 + 100 * np.sin(x / 97 + y / 131), 128 + 100 * np.cos(x / 151 - y / 83),
-                    128 + 90 * np.sin((x + y) / 211)], -1).astype(np.uint8)
-    Image.fromarray(big).save(out / "smooth1024.jpg", quality=90)
+    Image.fromarray(smooth1024()).save(out / "smooth1024.jpg", quality=90)
     write_new_format_fixtures(out)
     write_tiff_fixtures(out)
     write_webp_fixtures(out)
+    write_jpeg_variant_fixtures(out)
     digests = {name: {str(g).lower(): pixels_digest(load_texture_file(str(out / name), g))
                       for g in (False, True)} for name in FIXTURE_NAMES}
     (out / "expected.json").write_text(json.dumps({

@@ -83,7 +83,7 @@ def test_denoise_and_combine_matches_jax(iterations, phis):
     """The frame's denoise at the config's phis, including more iterations
     than the JAX pair kernel takes (the port runs its pair path at any
     count; JAX runs its per-image stencil)."""
-    s, u, n, p = _data(29, 40, seed=5)
+    s, u, n, p = _data(37, 52, seed=5)      # the shape above: JAX's eager ops are compiled already
     a = np.random.default_rng(6).uniform(0, 1, s.shape).astype(np.float32)
     kw = dict(denoise_iterations=iterations, denoise_c_phi=phis[0],
               denoise_n_phi=phis[1], denoise_p_phi=phis[2])
