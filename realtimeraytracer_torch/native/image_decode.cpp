@@ -1,6 +1,7 @@
 // Texture image decoders of the port: JPEG, PNG reconstruction, TGA, BMP,
-// GIF, PNM, PSD, TIFF; and WebP, from webp_decode.cpp (the second source
-// of this library).
+// GIF, PNM, PSD, TIFF; WebP, from webp_decode.cpp, and TIFF's CCITT and
+// ZSTD, from fax_decode.cpp and zstd_decode.cpp (the library's other
+// sources).
 //
 // The JAX package reads texture files with Pillow (Image.open, then
 // convert("RGBA") or convert("L")); the reference C++ with stb_image.  This
@@ -33,20 +34,23 @@
 //         the transparent index, a frame offset inside the screen.
 //   PNM   P1-P6 (ASCII and binary, any maxval) and Pf.
 //   PSD   the composite image: raw or PackBits; bitmap, grey, indexed, RGB,
-//         RGBA, CMYK.
+//         RGBA, CMYK, Lab (littleCMS's Lab -> sRGB, as Pillow's ImageCms).
 //   WebP  (webp_decode.cpp) lossy and lossless, as Pillow reads it.
-//   TIFF  the first directory, as Pillow reads it: its mode table
-//         (TiffImagePlugin.OPEN_INFO); uncompressed files through Pillow's
-//         own unpackers (a planar file by each band's letter), compressed
-//         ones as libtiff decodes them (PackBits, LZW, Deflate inflated by
-//         the caller, JPEG through the decoder above; predictors 2 and 3;
-//         host-order samples) and Pillow unpacks them; YCbCr without JPEG
-//         through libtiff's TIFFRGBAImage (its float-built tables, its
-//         block walk); Orientation as Pillow 12's load applies it.
+//   TIFF  the first directory, as Pillow reads it (its mode table,
+//         TiffImagePlugin.OPEN_INFO) and, for a compressed file, again as
+//         libtiff reads it (its per-tag rules); uncompressed files through
+//         Pillow's own unpackers (a planar file by each band's letter),
+//         compressed ones as libtiff decodes them (PackBits, LZW, Deflate
+//         and LZMA through the caller, JPEG through the decoder above,
+//         CCITT RLE/RLEW/T.4/T.6 and ZSTD through the other sources,
+//         ThunderScan; predictors 2 and 3; host-order samples) and Pillow
+//         unpacks them; YCbCr without JPEG through libtiff's TIFFRGBAImage
+//         (its float-built tables, its block walk); Lab as PSD's; 12-bit
+//         grey ("I;12"); Orientation as Pillow 12's load applies it.
 //
 // Pixels come back as uint8 (H, W, C): C = 1 grey, 2 grey + alpha, 3 RGB,
-// 4 RGBA (palette and CMYK images are expanded to RGBA); a float TIFF also
-// keeps its float32 samples.  Anything malformed or not ported (where
+// 4 RGBA (palette, CMYK and Lab images are expanded to RGBA); a float TIFF
+// also keeps its float32 samples.  Anything malformed or not ported (where
 // Pillow raises: 12-bit, hierarchical and arithmetic-coded lossless JPEG,
 // a JPEG height in a DNL marker) throws, and the C entry points turn that
 // into an error message: every read of the input is bounds-checked.
@@ -54,9 +58,11 @@
 // Build: c++ -O2 -fPIC -std=c++17 -shared (no -march=native: the decode is
 // integer arithmetic, and the same bytes must come out on every host; the
 // only floating point, PNM's maxval scaling, PFM's and TIFF's float
-// comparisons and libtiff's YCbCr table init (float operations in
-// libtiff's order, no contraction under -std=c++17), is correctly rounded
-// IEEE arithmetic or exact, the same everywhere).
+// comparisons, libtiff's YCbCr table init and littleCMS's Lab nodes (float
+// and double operations in those libraries' order, no contraction under
+// -std=c++17), is correctly rounded IEEE arithmetic or exact, the same
+// everywhere, but for the Lab nodes' pow, which is libm's: the card
+// machine's digests of the Lab fixtures check it).
 
 #include <algorithm>
 #include <cctype>
@@ -65,6 +71,7 @@
 #include <cstdlib>
 #include <cstring>
 #include <map>
+#include <set>
 #include <stdexcept>
 #include <string>
 #include <vector>
@@ -72,6 +79,13 @@
 namespace webp {  // webp_decode.cpp
 void decode(const uint8_t* data, size_t n, int64_t max_pixels, int64_t& width, int64_t& height,
             bool& alpha, std::vector<uint8_t>& rgba);
+}
+namespace fax {  // fax_decode.cpp
+void decode(const uint8_t* data, size_t n, int compression, int64_t options, int64_t width, int64_t rows,
+            size_t row_bytes, size_t offset, bool tile, bool& no_eol, std::vector<uint8_t>& out);
+}
+namespace zstd {  // zstd_decode.cpp
+std::vector<uint8_t> decode(const uint8_t* data, size_t n, size_t need);
 }
 
 namespace {
@@ -148,6 +162,182 @@ void cmyk_to_rgba(int c, int m, int y, int k, uint8_t* o) {
   }
   o[3] = 255;
 }
+
+// ------------------------------------------------------------ Lab -> sRGB --
+//
+// Pillow converts "LAB" to "RGB"/"RGBA" through ImageCms: littleCMS's
+// transform from its built-in D50 Lab v4 profile to its built-in sRGB
+// profile, perceptual intent, 8-bit Lab in (a and b offset by 128), 8-bit
+// RGB out.  littleCMS optimizes that transform into a 33^3 grid of 16-bit
+// nodes, each the unoptimized pipeline (Lab -> XYZ -> the inverse of
+// sRGB's colorant matrix -> its inverse tone curve) evaluated in float at
+// the node, and interpolates it tetrahedrally in 16.16 fixed point.  The
+// nodes are computed here as cmslut.c, cmsmtrx.c, cmswtpnt.c, cmspcs.c and
+// cmsgamma.c compute them (double arithmetic, float32 between stages).
+namespace lab {
+
+struct Mat3 { double v[3][3]; };
+
+Mat3 inverse(const Mat3& a) {  // _cmsMAT3inverse (of the fixed, regular matrices here)
+  const double c0 = a.v[1][1] * a.v[2][2] - a.v[1][2] * a.v[2][1];
+  const double c1 = -a.v[1][0] * a.v[2][2] + a.v[1][2] * a.v[2][0];
+  const double c2 = a.v[1][0] * a.v[2][1] - a.v[1][1] * a.v[2][0];
+  const double det = a.v[0][0] * c0 + a.v[0][1] * c1 + a.v[0][2] * c2;
+  Mat3 b;
+  b.v[0][0] = c0 / det;
+  b.v[0][1] = (a.v[0][2] * a.v[2][1] - a.v[0][1] * a.v[2][2]) / det;
+  b.v[0][2] = (a.v[0][1] * a.v[1][2] - a.v[0][2] * a.v[1][1]) / det;
+  b.v[1][0] = c1 / det;
+  b.v[1][1] = (a.v[0][0] * a.v[2][2] - a.v[0][2] * a.v[2][0]) / det;
+  b.v[1][2] = (a.v[0][2] * a.v[1][0] - a.v[0][0] * a.v[1][2]) / det;
+  b.v[2][0] = c2 / det;
+  b.v[2][1] = (a.v[0][1] * a.v[2][0] - a.v[0][0] * a.v[2][1]) / det;
+  b.v[2][2] = (a.v[0][0] * a.v[1][1] - a.v[0][1] * a.v[1][0]) / det;
+  return b;
+}
+
+void eval(const Mat3& a, const double v[3], double r[3]) {  // _cmsMAT3eval
+  for (int i = 0; i < 3; ++i) r[i] = a.v[i][0] * v[0] + a.v[i][1] * v[1] + a.v[i][2] * v[2];
+}
+
+Mat3 per(const Mat3& a, const Mat3& b) {  // _cmsMAT3per
+  Mat3 r;
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) r.v[i][j] = a.v[i][0] * b.v[0][j] + a.v[i][1] * b.v[1][j] + a.v[i][2] * b.v[2][j];
+  return r;
+}
+
+constexpr double kD50[3] = {0.9642, 1.0, 0.8249};
+
+// The Bradford adaptation from `from` (XYZ) to D50 (ComputeChromaticAdaptation).
+Mat3 bradford(const double from[3]) {
+  const Mat3 chad = {{{0.8951, 0.2664, -0.1614}, {-0.7502, 1.7135, 0.0367}, {0.0389, -0.0685, 1.0296}}};
+  const Mat3 chad_inv = inverse(chad);
+  double src[3], dst[3];
+  eval(chad, from, src);
+  eval(chad, kD50, dst);
+  Mat3 cone = {{{dst[0] / src[0], 0, 0}, {0, dst[1] / src[1], 0}, {0, 0, dst[2] / src[2]}}};
+  return per(chad_inv, per(cone, chad));
+}
+
+// cmsCreate_sRGBProfile's colorant matrix (_cmsBuildRGB2XYZtransferMatrix,
+// _cmsAdaptMatrixToD50) and the inverse BuildRGBOutputMatrixShaper takes.
+Mat3 srgb_output_matrix() {
+  const double xn = 0.3127, yn = 0.3290;
+  const double p[3][2] = {{0.6400, 0.3300}, {0.3000, 0.6000}, {0.1500, 0.0600}};
+  const Mat3 prim = {{{p[0][0], p[1][0], p[2][0]}, {p[0][1], p[1][1], p[2][1]},
+                      {1 - p[0][0] - p[0][1], 1 - p[1][0] - p[1][1], 1 - p[2][0] - p[2][1]}}};
+  const Mat3 inv_prim = inverse(prim);
+  const double white[3] = {xn / yn, 1.0, (1.0 - xn - yn) / yn};
+  double coef[3];
+  eval(inv_prim, white, coef);
+  Mat3 r;
+  for (int j = 0; j < 3; ++j) {
+    r.v[0][j] = coef[j] * p[j][0];
+    r.v[1][j] = coef[j] * p[j][1];
+    r.v[2][j] = coef[j] * (1.0 - p[j][0] - p[j][1]);
+  }
+  const double dn[3] = {(xn / yn) * 1.0, 1.0, ((1 - xn - yn) / yn) * 1.0};  // cmsxyY2XYZ
+  Mat3 out = inverse(per(bradford(dn), r));
+  const double adj = 1.0 + 32767.0 / 32768.0;  // MAX_ENCODEABLE_XYZ
+  for (auto& row : out.v)
+    for (double& x : row) x *= adj;
+  return out;
+}
+
+// _cmsQuickSaturateWord: round half up through the 16.16 magic-number floor.
+uint16_t saturate_word(double d) {
+  d += 0.5;
+  if (d <= 0) return 0;
+  if (d >= 65535.0) return 0xFFFF;
+  d -= 32767.0;  // _cmsQuickFloorWord
+  const double t = d + 68719476736.0 * 1.5;
+  uint64_t bits;
+  std::memcpy(&bits, &t, 8);
+  return uint16_t(int32_t(uint32_t(bits)) >> 16) + 32767;
+}
+
+// The 33^3 x 3 nodes, Lab (L slowest) at _cmsQuantizeVal(i, 33).
+const std::vector<uint16_t>& clut() {
+  static const std::vector<uint16_t> nodes = [] {
+    const Mat3 m = srgb_output_matrix();
+    const double g = 2.4, a = 1. / 1.055, b = 0.055 / 1.055, c = 1. / 12.92, d = 0.04045;
+    const double disc = std::pow(a * d + b, g);  // the inverse sRGB curve, parametric type -4
+    auto f_1 = [](double t) { return t <= 24.0 / 116.0 ? (108.0 / 841.0) * (t - 16.0 / 116.0) : t * t * t; };
+    uint16_t q[33];
+    for (int i = 0; i < 33; ++i) q[i] = saturate_word(double(i) * 65535. / 32.);
+    std::vector<uint16_t> t(size_t(33 * 33 * 33 * 3));
+    size_t k = 0;
+    for (int i0 = 0; i0 < 33; ++i0)
+      for (int i1 = 0; i1 < 33; ++i1)
+        for (int i2 = 0; i2 < 33; ++i2) {
+          const float in[3] = {float(q[i0]) / 65535.0f, float(q[i1]) / 65535.0f, float(q[i2]) / 65535.0f};
+          const double L = in[0] * 100.0, A = in[1] * 255.0 - 128.0, B = in[2] * 255.0 - 128.0;
+          const double y = (L + 16.0) / 116.0, x = y + 0.002 * A, z = y - 0.005 * B;
+          const double adj = 1.0 + 32767.0 / 32768.0;
+          const float xyz[3] = {float(f_1(x) * kD50[0] / adj), float(f_1(y) * kD50[1] / adj),
+                                float(f_1(z) * kD50[2] / adj)};
+          for (int ch = 0; ch < 3; ++ch) {
+            double tmp = 0;
+            for (int j = 0; j < 3; ++j) tmp += double(xyz[j]) * m.v[ch][j];
+            const double r = double(float(tmp));
+            const double v = r >= disc ? (std::pow(r, 1.0 / g) - b) / a : r / c;
+            t[k++] = saturate_word(double(float(v)) * 65535.0);
+          }
+        }
+    return t;
+  }();
+  return nodes;
+}
+
+// One pixel (L, a + 128, b + 128) to 8-bit RGB: TetrahedralInterp16 over
+// the nodes, then FROM_16_TO_8.
+void to_rgb(int L, int A, int B, uint8_t* o) {
+  const uint16_t* lut = clut().data();
+  const int in[3] = {L * 257, A * 257, B * 257};
+  int32_t f[3], r[3];
+  uint32_t base[3], step[3];
+  const uint32_t opta[3] = {3 * 33 * 33, 3 * 33, 3};
+  for (int i = 0; i < 3; ++i) {
+    const int32_t v = in[i] * 32;  // _cmsToFixedDomain
+    f[i] = v + ((v + 0x7FFF) / 0xFFFF);
+    r[i] = f[i] & 0xFFFF;
+    base[i] = opta[i] * uint32_t(f[i] >> 16);
+    step[i] = in[i] == 0xFFFF ? 0 : opta[i];
+  }
+  const int32_t rx = r[0], ry = r[1], rz = r[2];
+  uint32_t X1 = step[0], Y1 = step[1], Z1 = step[2];
+  const uint16_t* t = lut + base[0] + base[1] + base[2];
+  // The tetrahedron of (rx, ry, rz) and its three edges' corners.
+  int order;
+  if (rx >= ry) order = ry >= rz ? 0 : rz >= rx ? 1 : 2;
+  else order = rx >= rz ? 3 : ry >= rz ? 4 : 5;
+  switch (order) {
+    case 0: Y1 += X1, Z1 += Y1; break;
+    case 1: X1 += Z1, Y1 += X1; break;
+    case 2: Z1 += X1, Y1 += Z1; break;
+    case 3: X1 += Y1, Z1 += X1; break;
+    case 4: Z1 += Y1, X1 += Z1; break;
+    default: Y1 += Z1, X1 += Y1; break;
+  }
+  for (int ch = 0; ch < 3; ++ch, ++t) {
+    int64_t c1 = t[X1], c2 = t[Y1], c3 = t[Z1];
+    const int64_t c0 = t[0];
+    switch (order) {
+      case 0: c3 -= c2, c2 -= c1, c1 -= c0; break;
+      case 1: c2 -= c1, c1 -= c3, c3 -= c0; break;
+      case 2: c2 -= c3, c3 -= c1, c1 -= c0; break;
+      case 3: c3 -= c1, c1 -= c2, c2 -= c0; break;
+      case 4: c1 -= c3, c3 -= c2, c2 -= c0; break;
+      default: c1 -= c2, c2 -= c3, c3 -= c0; break;
+    }
+    const int64_t rest = c1 * rx + c2 * ry + c3 * rz + 0x8001;  // fits 32 bits, as littleCMS wraps
+    const uint32_t w = uint16_t(c0 + ((rest + (rest >> 16)) >> 16));
+    o[ch] = uint8_t((w * 65281u + 8388608u) >> 24);
+  }
+}
+
+}  // namespace lab
 
 // ---------------------------------------------------------------- JPEG ----
 
@@ -2467,7 +2657,9 @@ Image pnm_decode(Bytes in) {
 // grey, duotone, multichannel -> "L" (the first channel), indexed -> "P"
 // (a 768-byte planar colour table, else all black), RGB -> "RGB" ("RGBA"
 // with exactly four channels), CMYK -> "CMYK" (stored inverted), returned
-// as convert("RGBA") makes it.  16-bit, Lab, missing channels and other
+// as convert("RGBA") makes it, Lab -> "LAB" (a and b stored offset by
+// 128; convert("RGBA") through littleCMS, alpha 0: the band unpackers leave
+// Pillow's fourth byte as allocated).  16-bit, missing channels and other
 // compressions raise.
 Image psd(Bytes in) {
   if (in.n < 26 || std::memcmp(in.p, "8BPS", 4) || in.be16(4, "PSD") != 1) fail("not a PSD file");
@@ -2482,7 +2674,7 @@ Image psd(Bytes in) {
     case 2: mode = "P", need = 1; break;
     case 3: mode = "RGB", need = 3; break;
     case 4: mode = "CMYK", need = 4; break;
-    case 9: fail("PSD in Lab colour is not supported");
+    case 9: mode = "LAB", need = 3; break;
     default:
       fail("PSD of colour mode " + std::to_string(cmode) + " at " + std::to_string(depth) + " bits is not supported");
   }
@@ -2566,9 +2758,9 @@ Image psd(Bytes in) {
       for (int64_t y = 0; y < h; ++y) off += in.be16(counts + 2 * size_t(c * h + y), "PSD");
     }
   }
-  const bool cmyk = !std::strcmp(mode, "CMYK"), paletted = !std::strcmp(mode, "P");
+  const bool cmyk = !std::strcmp(mode, "CMYK"), paletted = !std::strcmp(mode, "P"), lab = !std::strcmp(mode, "LAB");
   Image img;
-  img.alloc(w, h, paletted || cmyk ? 4 : need, mode);
+  img.alloc(w, h, paletted || cmyk || lab ? 4 : need, mode);
   for (int64_t y = 0; y < h; ++y)
     for (int64_t x = 0; x < w; ++x) {
       uint8_t* o = img.at(y, x);
@@ -2579,6 +2771,8 @@ Image psd(Bytes in) {
         std::memcpy(o, pal.e[planes[0][i]], 4);
       } else if (cmyk) {  // stored inverted
         cmyk_to_rgba(255 - planes[0][i], 255 - planes[1][i], 255 - planes[2][i], 255 - planes[3][i], o);
+      } else if (lab) {  // each channel into its band: the fourth byte, alpha, stays 0
+        lab::to_rgb(planes[0][i], planes[1][i], planes[2][i], o);
       } else {
         for (int k = 0; k < need; ++k) o[k] = planes[size_t(k)][i];
       }
@@ -2588,10 +2782,12 @@ Image psd(Bytes in) {
 
 // ---------------------------------------------------------------- TIFF ----
 
-// Deflate is inflated by the caller's zlib (this library links nothing):
-// inflate(src, n, dst, cap) writes at most cap bytes and returns how many,
-// or -1 if the stream is corrupt.
-using InflateFn = int64_t (*)(const uint8_t*, int64_t, uint8_t*, int64_t);
+// Deflate and LZMA are decompressed by the caller's zlib and lzma (this
+// library links nothing): decompress(codec, src, n, dst, cap), codec 0 a
+// zlib stream, 1 an .xz stream, writes at most cap bytes and returns how
+// many, or -1 if the stream is corrupt.
+using CodecFn = int64_t (*)(int32_t, const uint8_t*, int64_t, uint8_t*, int64_t);
+
 
 namespace tiff {
 
@@ -2738,10 +2934,13 @@ uint8_t rev8(uint8_t b) {
   return uint8_t((b & 0xAA) >> 1 | (b & 0x55) << 1);
 }
 
+// Pillow's bands of a mode, as this library holds them: "LAB" keeps its
+// fourth byte (255 where unpackLAB wrote the pixel, else 0), which
+// convert("RGBA") copies to alpha.
 int bands_of(const std::string& mode) {
   if (mode == "LA" || mode == "PA") return 2;
-  if (mode == "RGB" || mode == "LAB") return 3;
-  if (mode == "RGBA" || mode == "CMYK") return 4;
+  if (mode == "RGB") return 3;
+  if (mode == "RGBA" || mode == "CMYK" || mode == "LAB") return 4;
   return 1;
 }
 
@@ -2750,7 +2949,8 @@ int bands_of(const std::string& mode) {
 int raw_bits(const std::string& mode, const std::string& raw) {
   if (raw.size() == 1) {  // a band of a planar image
     const size_t b = mode == "1" || mode == "L" || mode == "P" || mode == "I" || mode == "F" ? mode.find(raw[0])
-                     : mode == "RGB" || mode == "RGBA" || mode == "CMYK" ? mode.find(raw[0]) : std::string::npos;
+                     : mode == "RGB" || mode == "RGBA" || mode == "CMYK" || mode == "LAB" ? mode.find(raw[0])
+                                                                                          : std::string::npos;
     if (b == std::string::npos) return 0;
     return mode == "1" ? 1 : mode == "I" || mode == "F" ? 32 : 8;
   }
@@ -2759,7 +2959,7 @@ int raw_bits(const std::string& mode, const std::string& raw) {
       {"L", "L;2", 2}, {"L", "L;2I", 2}, {"L", "L;2R", 2}, {"L", "L;2IR", 2},
       {"L", "L;4", 4}, {"L", "L;4I", 4}, {"L", "L;4R", 4}, {"L", "L;4IR", 4},
       {"L", "L;I", 8}, {"L", "L;R", 8},
-      {"I;16", "I;16", 16}, {"I;16", "I;16N", 16}, {"I;16", "I;16R", 16}, {"I;16B", "I;16B", 16},
+      {"I;16", "I;16", 16}, {"I;16", "I;12", 12}, {"I;16", "I;16N", 16}, {"I;16", "I;16R", 16}, {"I;16B", "I;16B", 16},
       {"I;16B", "I;16N", 16},
       {"I", "I;16S", 16}, {"I", "I;16BS", 16}, {"I", "I;32N", 32}, {"I", "I;32S", 32}, {"I", "I;32BS", 32},
       {"F", "F;32F", 32}, {"F", "F;32BF", 32},
@@ -2834,8 +3034,10 @@ void unpack(const std::string& mode, const std::string& raw, const uint8_t* in, 
   } else if (mode == "I;16" || mode == "I;16B") {
     for (int64_t i = 0; i < n; ++i) {
       const size_t o = size_t(2 * i);
-      out[i] = raw == "I;16B" ? be16(o) : raw == "I;16R" ? uint32_t(rev8(in[o])) | uint32_t(rev8(in[o + 1])) << 8
-                                                           : le16(o);
+      out[i] = raw == "I;12" ? uint32_t(in[3 * i / 2]) << 8 | in[3 * i / 2 + 1]  // unpackI12_I16
+             : raw == "I;16B" ? be16(o) : raw == "I;16R" ? uint32_t(rev8(in[o])) | uint32_t(rev8(in[o + 1])) << 8
+                                                         : le16(o);
+      if (raw == "I;12") out[i] = i & 1 ? out[i] & 0xFFF : out[i] >> 4;
     }
   } else if (mode == "I") {
     for (int64_t i = 0; i < n; ++i) {
@@ -2848,13 +3050,14 @@ void unpack(const std::string& mode, const std::string& raw, const uint8_t* in, 
   } else {  // RGB, RGBA, CMYK, LAB: bytes or the high bytes of 16-bit samples
     const bool wide = raw.find(";16") != std::string::npos;
     const bool big = wide && raw.back() == 'B';
-    const int step = raw_bits(mode, raw) / 8, take = bands_of(mode);
-    const bool premultiplied = raw.compare(0, 4, "RGBa") == 0;
+    const bool premultiplied = raw.compare(0, 4, "RGBa") == 0, lab = raw == "LAB";
+    const int step = raw_bits(mode, raw) / 8, stride = bands_of(mode), take = lab ? 3 : stride;
     for (int64_t i = 0; i < n; ++i) {
       const uint8_t* p = in + size_t(i) * size_t(step);
-      uint32_t* o = out + size_t(i) * size_t(take);
+      uint32_t* o = out + size_t(i) * size_t(stride);
       for (int k = 0; k < take; ++k) o[k] = wide ? p[2 * k + (big ? 0 : 1)] : rev ? rev8(p[k]) : p[k];
       if (premultiplied) unpremultiply(o);
+      if (lab) o[1] ^= 128, o[2] ^= 128, o[3] = 255;  // unpackLAB: a and b stored signed
     }
   }
 }
@@ -2863,21 +3066,33 @@ struct Field {
   int type = 0;
   uint64_t count = 0;
   size_t off = 0;
+  uint64_t slot_value = 0;  // the entry's offset word, for values outside it
+  bool outside = false;     // values past the end of the file (libtiff's view only)
 };
 
 constexpr int kTypeSize[17] = {0, 1, 1, 2, 4, 8, 1, 1, 2, 4, 8, 4, 8, 4, 0, 0, 8};  // Pillow's types
+// The tags TIFFReadDirectory reads with no recovery: a value it cannot read
+// fails the directory (any other tag it ignores with a warning).
+const std::set<int> kFirstRead = {256, 257, 258, 259, 277, 278, 280, 281, 284, 322, 323, 338, 339};
+// The tags Pillow only compares (in its mode table, or with == / in):
+// a float or rational value of them works as the integer it equals.
+const std::set<int> kCompared = {258, 262, 266, 274, 284, 338, 339};
 
-// The first image file directory, read as Pillow's ImageFileDirectory_v2
-// reads it: a tag of a type it does not know or without values is left
-// out; reading stops (keeping the tags before) at a truncated entry or at
-// values outside the file; a later tag of the same number replaces an
-// earlier.  `clean` is false if anything was left out or cut short: the
-// libtiff path, which reads the directory again with its own checks,
-// refuses such a file.
+// The first image file directory, read twice as Pillow reads it.
+// `tags` is Pillow's ImageFileDirectory_v2: a tag of a type it does not
+// know or without values is left out; reading stops (keeping the tags
+// before) at a truncated entry or at values outside the file; a later tag
+// of the same number replaces an earlier.  `lt` is libtiff's
+// TIFFReadDirectory, which the libtiff decoder runs on the same bytes: every
+// entry, the first of a tag kept, values outside the file marked (the
+// lt_* readers apply libtiff's rule for each tag).  `clean` is false if
+// Pillow left a tag out or the directory is cut short: libtiff refuses
+// such a file.
 struct Dir {
   Bytes in;
   bool mm = false, big = false, libtiff_header = false, clean = true;
-  std::map<int, Field> tags;
+  std::map<int, Field> tags, lt;
+  std::vector<Field> entries;  // every entry, in the file's order
 
   uint64_t u(size_t o, int k) const {
     in.need(o, size_t(k), "TIFF file");
@@ -2894,14 +3109,51 @@ struct Dir {
       case 8: return int64_t(int16_t(u(f.off + 2 * i, 2)));
       case 4: case 13: return int64_t(u(f.off + 4 * i, 4));
       case 9: return int64_t(int32_t(u(f.off + 4 * i, 4)));
-      case 16: return int64_t(u(f.off + 8 * i, 8));
+      case 16: case 17: case 18: return int64_t(u(f.off + 8 * i, 8));  // LONG8, SLONG8, IFD8 (libtiff's)
       default: fail(std::string("TIFF tag ") + name + " does not hold integers");
     }
   }
-  bool scalar(int tag, int64_t& v, const char* name) const {
+  // A RATIONAL, FLOAT or DOUBLE value Pillow compares to integers (a mode
+  // key, Orientation, PlanarConfiguration) equals the integer it holds.
+  int64_t whole(const Field& f, uint64_t i, const char* name) const {
+    if (f.type != 5 && f.type != 10 && f.type != 11 && f.type != 12) return at(f, i, name);
+    double x;
+    if (f.type == 11) {
+      const uint32_t b = uint32_t(u(f.off + 4 * i, 4));
+      float v;
+      std::memcpy(&v, &b, 4);
+      x = v;
+    } else if (f.type == 12) {
+      const uint64_t b = u(f.off + 8 * i, 8);
+      std::memcpy(&x, &b, 8);
+    } else {
+      const int64_t num = f.type == 5 ? int64_t(u(f.off + 8 * i, 4)) : int64_t(int32_t(u(f.off + 8 * i, 4)));
+      const int64_t den = f.type == 5 ? int64_t(u(f.off + 8 * i + 4, 4)) : int64_t(int32_t(u(f.off + 8 * i + 4, 4)));
+      if (den == 0 || num % den) fail(std::string("TIFF tag ") + name + " holds no whole number");
+      return num / den;
+    }
+    if (!(std::fabs(x) < 9e15) || x != std::floor(x)) fail(std::string("TIFF tag ") + name + " holds no whole number");
+    return int64_t(x);
+  }
+  // Pillow's value of a tag it reads as numbers.  It loads BYTE values as
+  // bytes (a list of offsets or colours reads the same) and UNDEFINED ones
+  // as a tuple holding the bytes: a number it compares matches neither
+  // (Orientation and PlanarConfiguration then act as if absent), and any
+  // other use fails Pillow's checks.
+  const Field* pillow_field(int tag, const char* name) const {
     auto it = tags.find(tag);
-    if (it == tags.end()) return false;
-    v = at(it->second, 0, name);
+    if (it == tags.end()) return nullptr;
+    const int t = it->second.type;  // UNDEFINED: a tuple holding the bytes
+    if ((t == 1 && tag != 273 && tag != 324 && tag != 320) || t == 7) {
+      if (tag == 274 || tag == 284) return nullptr;
+      fail(std::string("TIFF tag ") + name + " holds bytes, which Pillow reads as no number");
+    }
+    return &it->second;
+  }
+  bool scalar(int tag, int64_t& v, const char* name) const {
+    const Field* f = pillow_field(tag, name);
+    if (!f) return false;
+    v = kCompared.count(tag) ? whole(*f, 0, name) : at(*f, 0, name);
     return true;
   }
   int64_t get(int tag, int64_t dflt, const char* name) const {
@@ -2909,17 +3161,88 @@ struct Dir {
     scalar(tag, v, name);
     return v;
   }
-  std::vector<int64_t> ints(int tag, std::vector<int64_t> dflt, const char* name) const {
-    auto it = tags.find(tag);
-    if (it == tags.end()) return dflt;
-    std::vector<int64_t> v(size_t(it->second.count));
-    for (uint64_t i = 0; i < it->second.count; ++i) v[size_t(i)] = at(it->second, i, name);
+  static std::vector<int64_t> values(const Dir& d, const Field& f, uint64_t count, const char* name) {
+    std::vector<int64_t> v(static_cast<size_t>(count));
+    for (uint64_t i = 0; i < count; ++i) v[size_t(i)] = d.at(f, i, name);
     return v;
   }
+  std::vector<int64_t> ints(int tag, std::vector<int64_t> dflt, const char* name) const {
+    const Field* f = pillow_field(tag, name);
+    if (!f) return dflt;
+    if (!kCompared.count(tag)) return values(*this, *f, f->count, name);
+    std::vector<int64_t> v(static_cast<size_t>(f->count));
+    for (uint64_t i = 0; i < f->count; ++i) v[size_t(i)] = whole(*f, i, name);
+    return v;
+  }
+  // libtiff's field: absent where its values lie outside the file (the tag
+  // ignored with a warning) or, for the fixed-count tags `count` names,
+  // where it has another count.
+  const Field* lt_field(int tag, uint64_t count = 0) const {
+    auto it = lt.find(tag);
+    if (it == lt.end() || it->second.outside || it->second.count == 0 || (count && it->second.count != count))
+      return nullptr;
+    const int t = it->second.type;  // libtiff ignores an integer tag of another type
+    if (count == 1 && !(t == 1 || t == 3 || t == 4 || t == 6 || t == 8 || t == 9 || t == 16)) return nullptr;
+    return &it->second;
+  }
+  bool lt_has(int tag) const { return lt_field(tag) != nullptr; }
+  // A one-value tag; a value out of its type's range (SHORT, or LONG for
+  // T4/T6Options and the first-read tags) is ignored as libtiff ignores it
+  // (a first-read tag's fails the directory).
+  int64_t lt_get(int tag, int64_t dflt, const char* name) const {
+    const Field* f = lt_field(tag, 1);
+    if (!f) return dflt;
+    const int64_t v = at(*f, 0, name);
+    const int64_t top = tag == 292 || tag == 293 || kFirstRead.count(tag) ? int64_t(0xFFFFFFFF) : 0xFFFF;
+    if ((v < 0 || v > top) && kFirstRead.count(tag)) fail(std::string("TIFF ") + name + " out of range: libtiff refuses it");
+    return v < 0 || v > top ? dflt : v;
+  }
+  std::vector<int64_t> lt_ints(int tag, std::vector<int64_t> dflt, const char* name, uint64_t count = 0) const {
+    const Field* f = lt_field(tag, count);
+    return f ? values(*this, *f, f->count, name) : dflt;
+  }
+  // TIFFFetchStripThing: the first `n` offsets or byte counts (the rest of
+  // a longer list unread, so it may run past the file), zeros after a
+  // shorter one; a list of them outside the file fails the directory.
+  std::vector<int64_t> lt_strile(int tag, size_t n, const char* name) const {
+    auto it = lt.find(tag);
+    if (it == lt.end()) return {};
+    Field f = it->second;
+    const int t = f.type;
+    if (t != 1 && t != 3 && t != 4 && t != 6 && t != 8 && t != 9 && t != 16 && t != 17 && t != 18)
+      fail(std::string("TIFF ") + name + " of type " + std::to_string(t) + ": libtiff refuses it");
+    const uint64_t k = std::min<uint64_t>(f.count, n);
+    const uint64_t bytes = k * uint64_t(t > 16 ? 8 : kTypeSize[t]);
+    if (f.outside) {  // only the values read must lie in the file
+      if (f.slot_value > in.n || bytes > in.n - f.slot_value)
+        fail(std::string("TIFF ") + name + " lie outside the file: libtiff refuses it");
+      f.off = size_t(f.slot_value);
+    }
+    std::vector<int64_t> v = values(*this, f, k, name);
+    v.resize(std::max<size_t>(v.size(), n), 0);
+    return v;
+  }
+  // EstimateStripByteCounts for a compressed file: the bytes after the
+  // header, the directory and its values (split over the planes), the last
+  // strip cut at the file's end; -1 where libtiff fails.
+  int64_t estimated_strip_bytes(int64_t planes) const {
+    static const int kWidth[19] = {0, 1, 1, 2, 4, 8, 1, 1, 2, 4, 8, 4, 8, 4, 0, 0, 8, 8, 8};  // TIFFDataWidth
+    uint64_t space = big ? 16 + 8 + 20 * entries.size() + 8 : 8 + 2 + 12 * entries.size() + 4;
+    for (const Field& e : entries) {
+      const int w = e.type >= 0 && e.type < 19 ? kWidth[e.type] : 0;
+      if (w == 0 || e.count > UINT64_MAX / uint64_t(w)) return -1;
+      const uint64_t size = uint64_t(w) * e.count;
+      if (size > (big ? 8u : 4u)) {
+        if (space > UINT64_MAX - size) return -1;
+        space += size;
+      }
+    }
+    space = in.n < space ? in.n : in.n - space;
+    return int64_t(space / uint64_t(planes));
+  }
   // libtiff's float of a RATIONAL, FLOAT or integer value.
-  float real(int tag, uint64_t i) const {
-    const Field& f = tags.at(tag);
-    if (i >= f.count) fail("TIFF tag " + std::to_string(tag) + " has too few values");
+  float real(const Field& f, uint64_t i) const {
+    if (i >= f.count) fail("TIFF tag has too few values");
     switch (f.type) {
       case 5: return float(double(u(f.off + 8 * i, 4)) / double(u(f.off + 8 * i + 4, 4)));
       case 10: return float(double(int32_t(u(f.off + 8 * i, 4))) / double(int32_t(u(f.off + 8 * i + 4, 4))));
@@ -2944,56 +3267,136 @@ struct Dir {
     if (pos > in.n || in.n - pos < (big ? 8u : 2u)) fail("TIFF without dimensions");
     const uint64_t n = big ? u(pos, 8) : u(pos, 2);
     pos += big ? 8 : 2;
+    bool pillow = true;  // Pillow still reading
     for (uint64_t i = 0; i < n; ++i, pos += esz) {
       if (pos > in.n || in.n - pos < esz) {
-        clean = false;  // _ensure_read fails: the directory ends here
+        clean = false;  // _ensure_read fails: the directory ends here (libtiff cannot read it)
         break;
       }
       Field f;
       const int tag = int(u(pos, 2));
       f.type = int(u(pos + 2, 2));
       f.count = big ? u(pos + 4, 8) : u(pos + 4, 4);
+      entries.push_back(f);
       const size_t val = pos + (big ? 12 : 8);
       if (f.type < 1 || f.type > 16 || kTypeSize[f.type] == 0) {
-        clean = false;
+        // Pillow skips the entry; libtiff ignores it too, unless it reads
+        // the tag before anything else (then its directory read fails) or
+        // it is a strip list of SLONG8 or IFD8 values, which libtiff reads.
+        if (kFirstRead.count(tag)) clean = false;
+        if ((f.type == 17 || f.type == 18) && (tag == 273 || tag == 279 || tag == 324 || tag == 325) &&
+            !lt.count(tag)) {
+          const uint64_t size = f.count > in.n ? in.n + 1 : f.count * 8;
+          if (size > slot) {
+            f.slot_value = u(val, int(slot));
+            if (f.slot_value > in.n || size > in.n - f.slot_value) f.outside = true;
+            else f.off = size_t(f.slot_value);
+          } else {
+            f.off = val;
+          }
+          lt[tag] = f;
+        }
         continue;
       }
       const uint64_t size = f.count > in.n ? in.n + 1 : f.count * uint64_t(kTypeSize[f.type]);
       if (size > slot) {
-        const uint64_t off = u(val, int(slot));
-        if (off > in.n || size > in.n - off) {
-          clean = false;  // _safe_read raises: the directory ends here
-          break;
-        }
-        f.off = size_t(off);
+        f.slot_value = u(val, int(slot));
+        if (f.slot_value > in.n || size > in.n - f.slot_value) f.outside = true;
+        else f.off = size_t(f.slot_value);
       } else {
         f.off = val;
       }
+      if (!lt.count(tag)) lt[tag] = f;
+      if (f.outside) pillow = false;  // _safe_read raises: Pillow's directory ends here
+      if (!pillow) continue;
       // libtiff reads these as one value each and refuses another count.
       if (f.count != 1 && (tag == 256 || tag == 257 || tag == 277 || tag == 278 || tag == 284 || tag == 322 ||
                            tag == 323))
         clean = false;
       if (f.count) tags[tag] = f;
     }
-    if (pos > in.n || in.n - pos < slot) clean = false;  // no next-directory pointer
+    // libtiff's directory read fails where one of these lies outside the
+    // file, holds no integers, or no value; the per-sample ones take one
+    // value, or one a sample, all equal.
+    int64_t spp = 1;
+    if (lt.count(277) && lt.at(277).count == 1 && !lt.at(277).outside) spp = at(lt.at(277), 0, "SamplesPerPixel");
+    for (int tag : kFirstRead) {
+      auto it = lt.find(tag);
+      if (it == lt.end()) continue;
+      const Field& f = it->second;
+      const int t = f.type;
+      if (f.outside || (f.count == 0 && tag != 338) || !(t == 1 || t == 3 || t == 4 || t == 6 || t == 8 || t == 9 || t == 16)) {
+        clean = false;
+      } else if (f.count != 1 && (tag == 258 || tag == 259 || tag == 280 || tag == 281 || tag == 339)) {
+        if (spp < 1 || f.count < uint64_t(spp)) clean = false;
+        else
+          for (int64_t i = 1; i < spp; ++i)
+            if (at(f, uint64_t(i), "a per-sample tag") != at(f, 0, "a per-sample tag")) clean = false;
+      }
+    }
   }
 };
 
+// The codecs Pillow knows by name that the port does not decode: old-style
+// JPEG is left to port; this libtiff has no WebP codec, and its SGILog
+// codec reads only the LogL/LogLuv photometrics, which Pillow has no mode
+// for, so Pillow raises on both.
 const char* compression_name(int64_t c) {
   switch (c) {
-    case 2: return "CCITT RLE (2)";
-    case 3: return "CCITT Group 3 fax (3)";
-    case 4: return "CCITT Group 4 fax (4)";
     case 6: return "old-style JPEG (6)";
-    case 32771: return "raw 16-bit padded (32771)";
-    case 32809: return "ThunderScan (32809)";
     case 34676: return "SGILog (34676)";
     case 34677: return "SGILog24 (34677)";
-    case 34925: return "LZMA (34925)";
-    case 50000: return "ZSTD (50000)";
     case 50001: return "WebP (50001)";
     default: return nullptr;
   }
+}
+
+// libtiff's ThunderDecode (tif_thunder.c) of one row: 4-bit samples from
+// runs of the last value, 2- and 3-bit deltas and raw values; the row must
+// come out exactly `width` samples long.  A run that ends the row writes
+// nothing (libtiff's bound check), so its bytes stay as the buffer held
+// them (zeros here).
+void thunder_row(Bytes src, size_t& pos, uint8_t* op, int64_t width) {
+  static const int two[4] = {0, 1, 0, -1}, three[8] = {0, 1, 2, 3, 0, -3, -2, -1};
+  unsigned last = 0;
+  int64_t npx = 0;
+  auto set = [&](int v) {
+    last = unsigned(v) & 0xF;
+    if (npx < width) {
+      if (npx++ & 1) *op++ |= uint8_t(last);
+      else op[0] = uint8_t(last << 4);
+    }
+  };
+  while (pos < src.n && npx < width) {
+    int n = src.p[pos++];
+    switch (n & 0xC0) {
+      case 0x00:  // a run of n & 63 (the code's high bits are 0)
+        if (npx & 1) {
+          op[0] |= uint8_t(last);
+          last = *op++;
+          ++npx, --n;
+        } else {
+          last |= last << 4;
+        }
+        npx += n;
+        if (npx < width)
+          for (; n > 0; n -= 2) *op++ = uint8_t(last);
+        if (n == -1) *--op &= 0xF0;
+        last &= 0xF;
+        break;
+      case 0x40:
+        for (int sh = 4; sh >= 0; sh -= 2)
+          if (((n >> sh) & 3) != 2) set(int(last) + two[(n >> sh) & 3]);
+        break;
+      case 0x80:
+        for (int sh = 3; sh >= 0; sh -= 3)
+          if (((n >> sh) & 7) != 4) set(int(last) + three[(n >> sh) & 7]);
+        break;
+      default:
+        set(n);
+    }
+  }
+  if (npx != width) fail(std::string(npx < width ? "not enough" : "too much") + " ThunderScan data in a TIFF row");
 }
 
 // libtiff's PackBitsDecode of one segment into `need` bytes.
@@ -3194,13 +3597,14 @@ std::vector<uint8_t> jpeg_segment(Bytes seg, Jpeg& tables, Jpeg::Colour colour, 
   return px;
 }
 
-Image decode(Bytes in, InflateFn inflate) {
+Image decode(Bytes in, CodecFn decompress) {
   Dir d(in);
   if (d.has(0xBC01)) fail("Windows Media Photo in a TIFF is not supported");
   int64_t w = 0, h = 0;
   if (!d.scalar(256, w, "ImageWidth") || !d.scalar(257, h, "ImageLength")) fail("TIFF without dimensions");
   const int64_t comp = d.get(259, 1, "Compression");
-  if (comp != 1 && comp != 5 && comp != 7 && comp != 8 && comp != 32773 && comp != 32946) {
+  static const int64_t kCodecs[] = {1, 2, 3, 4, 5, 7, 8, 32771, 32773, 32809, 32946, 34925, 50000};
+  if (std::find(std::begin(kCodecs), std::end(kCodecs), comp) == std::end(kCodecs)) {
     const char* name = compression_name(comp);
     fail(name ? std::string("TIFF compression ") + name + " is not supported"
               : "TIFF compression " + std::to_string(comp) + " does not exist");
@@ -3226,14 +3630,12 @@ Image decode(Bytes in, InflateFn inflate) {
   if (libtiff && fill == 2) key = find_mode(d.mm, photo, fmt, 1, bps, extra);
   const std::string mode = key->mode;
   std::string raw = key->raw;
-  if (mode == "LAB") fail("TIFF in Lab colour is not supported");
   if (libtiff) {  // libtiff hands on host-order (little-endian) 16-bit samples
     auto ends = [&](const char* t) { return raw.size() >= 4 && raw.compare(raw.size() - 4, 4, t) == 0; };
     if (photo == 6 && comp == 7 && planar == 1) raw = "RGB";
     else if (raw == "I;16") raw = "I;16N";
     else if (ends(";16B") || ends(";16L")) raw = raw.substr(0, raw.size() - 1) + "N";
   }
-  if (key->raw == std::string("I;12")) fail("12-bit TIFF is not supported");
   const int64_t orientation = d.get(274, 1, "Orientation");
   check_size(w, h);
   Raster r;
@@ -3336,59 +3738,96 @@ Image decode(Bytes in, InflateFn inflate) {
     for (int64_t b : bps)
       if (b != bps[0]) fail("TIFF with different bits per sample is not supported");
     const int bits = int(bps[0]);
-    const bool tiled = d.has(322);
+    if (d.lt_get(256, w, "ImageWidth") != w || d.lt_get(257, h, "ImageLength") != h)
+      fail("TIFF of another size to libtiff than to Pillow (Pillow: decoder error -2)");
+    // From here on the layout is libtiff's reading of the directory: its
+    // PlanarConfiguration too, which Pillow's decoder asks libtiff for.
+    const int64_t planar = d.lt_get(284, 1, "PlanarConfiguration");  // shadows Pillow's
+    if (planar != 1 && planar != 2) fail("TIFF planar configuration " + std::to_string(planar) + ": libtiff refuses it");
+    const bool tiled = d.lt_has(322);
     int64_t tw = w, th = h;
     // libtiff reads these three tags as 32-bit values; Pillow takes a tile
     // of at most INT_MAX - 1 bytes, each side at most INT_MAX.
     constexpr int64_t kIntMax = 2147483647;
     if (tiled) {
-      if (!d.scalar(322, tw, "TileWidth") || !d.scalar(323, th, "TileLength") || tw <= 0 || th <= 0 ||
-          tw > kIntMax || th > kIntMax)
-        fail("TIFF with invalid tile dimensions");
+      if (!d.lt_has(323)) fail("TIFF with invalid tile dimensions");
+      tw = d.lt_get(322, 0, "TileWidth"), th = d.lt_get(323, 0, "TileLength");
+      if (tw <= 0 || th <= 0 || tw > kIntMax || th > kIntMax) fail("TIFF with invalid tile dimensions");
       if ((tw * int64_t(spp) * bits + 7) / 8 > (kIntMax - 1) / th) fail("TIFF tile of more than 2^31 bytes");
     } else {
-      th = d.get(278, int64_t(0xFFFFFFFF), "RowsPerStrip");
+      th = d.lt_get(278, h, "RowsPerStrip");
       if (th <= 0 || th > int64_t(0xFFFFFFFF)) fail("TIFF with invalid rows per strip");
-      th = std::min(th, h);
     }
+    const int64_t rows_per_strip = th;  // as Pillow's decoder gets it from libtiff
+    if (!tiled) th = std::min(th, h);
     const int64_t across = (w + tw - 1) / tw, down = (h + th - 1) / th;
     const int planes = planar == 2 ? int(spp) : 1;  // segments a pixel row spans
-    const std::vector<int64_t> offsets = d.ints(tiled ? 324 : 273, {}, "StripOffsets");
-    const std::vector<int64_t> counts = d.ints(tiled ? 325 : 279, {}, "StripByteCounts");
+    if (photo != 6) {
+      // Pillow's size checks of libtiff's segment against its rawmode's:
+      // a tile by TileLength * bits / planes bytes times TileWidth (sic),
+      // a strip by its rows times the image row's bytes (Pillow takes
+      // RowsPerStrip as an int, cut to the image's height).
+      const int64_t pbits = raw_bits(mode, raw), seg_spp = planar == 2 ? 1 : d.lt_get(277, 1, "SamplesPerPixel");
+      const int64_t lt_row = (tw * bits * seg_spp + 7) / 8;
+      if (tiled && th * lt_row > (th * pbits / planes + 7) / 8 * tw)
+        fail("TIFF tile larger than Pillow's reading of it (Pillow: decoder error -2)");
+      const int64_t pillow_rows = rows_per_strip > kIntMax ? -1 : std::min(rows_per_strip, h);
+      if (!tiled && th * lt_row > pillow_rows * ((w * pbits / planes + 7) / 8))
+        fail("TIFF strip larger than Pillow's reading of it (Pillow: decoder error -9)");
+    }
     const size_t nseg = size_t(across * down * planes);
-    if (offsets.size() < nseg || counts.size() < nseg)
-      fail("TIFF lists too few strips or tiles, or no byte counts");
-    const int64_t predictor = comp == 5 || comp == 8 || comp == 32946 ? d.get(317, 1, "Predictor") : 1;
+    const std::vector<int64_t> offsets = d.lt_strile(tiled ? 324 : 273, nseg, "StripOffsets");
+    std::vector<int64_t> counts = d.lt_strile(tiled ? 325 : 279, nseg, "StripByteCounts");
+    if (offsets.size() < nseg) fail("TIFF lists no strips or tiles");
+    // TIFFReadDirectory estimates missing byte counts (one strip, or one a
+    // plane), or a single strip's count of 0.
+    const bool missing = counts.empty();
+    if (missing && (planar == 2 ? int64_t(nseg) != spp : nseg > 1)) fail("TIFF without StripByteCounts");
+    if (missing || (!tiled && nseg == 1 && counts[0] == 0 && offsets[0] != 0)) {
+      const int64_t space = d.estimated_strip_bytes(planar == 2 ? spp : 1);
+      if (space < 0) fail("TIFF strip byte counts cannot be estimated");
+      counts.assign(nseg, space);
+      const uint64_t last = uint64_t(offsets.back());
+      if (last > uint64_t(INT64_MAX) - uint64_t(space)) fail("TIFF strip byte counts cannot be estimated");
+      if (last + uint64_t(space) > in.n) counts.back() = last >= in.n ? 0 : int64_t(in.n - last);
+    }
+    const bool predicted = comp == 5 || comp == 8 || comp == 32946 || comp == 34925 || comp == 50000;
+    const int64_t predictor = predicted ? d.lt_get(317, 1, "Predictor") : 1;
     if (predictor < 1 || predictor > 3) fail("TIFF predictor " + std::to_string(predictor) + " does not exist");
     if (predictor == 2 && bits != 8 && bits != 16 && bits != 32)
       fail("TIFF horizontal predictor with " + std::to_string(bits) + "-bit samples is not supported");
     if (predictor == 3 && (fmt[0] != 3 || bits != 32))
       fail("TIFF floating-point predictor needs 32-bit float samples");
     const bool ycbcr = photo == 6;
+    if (ycbcr && d.lt_get(262, -1, "PhotometricInterpretation") != 6)
+      fail("TIFF YCbCr to Pillow, not to libtiff (Pillow: decoder error -2)");
     if (ycbcr && (bits != 8 || spp != 3)) fail("TIFF YCbCr of this layout is not supported");
     // The compressed bytes of one segment, decoded into `need` bytes in the
     // host's (little-endian) byte order, as libtiff hands them on.
     Jpeg tables(Bytes{nullptr, 0}, true);
-    if (comp == 7 && d.has(347)) {
-      const Field& f = d.tags.at(347);
+    if (comp == 7 && d.lt_has(347)) {
+      const Field& f = *d.lt_field(347);
       Jpeg t(Bytes{in.p + f.off, size_t(f.count) * size_t(kTypeSize[f.type])}, true);
       t.read_stream(true);
       tables.take_tables(t);
     }
     int64_t h0 = 1, v0 = 1;
     if (ycbcr && comp == 7) {
-      const std::vector<int64_t> sub = d.ints(530, {-1, -1}, "YCbCrSubsampling");
-      if (sub.size() < 2) fail("TIFF YCbCrSubsampling needs two values");
+      const std::vector<int64_t> sub = d.lt_ints(530, {-1, -1}, "YCbCrSubsampling", 2);
       h0 = sub[0], v0 = sub[1];
     }
+    const int64_t lt_fill = d.lt_get(266, 1, "FillOrder");
+    std::vector<uint8_t> fax_buffer;  // Pillow's strip or tile buffer: rows a fax tile leaves keep its bytes
+    bool fax_no_eol = false;          // libtiff's T.4 decoder has given up looking for EOLs
     auto segment = [&](size_t index, size_t need, int64_t cols, int64_t rows, int64_t row_bytes, int seg_spp,
                        bool last_strip) {
       const int64_t off = offsets[index], cnt = counts[index];
       if (off < 0 || cnt < 0 || size_t(off) > in.n || size_t(cnt) > in.n - size_t(off))
         fail("truncated TIFF: a strip or tile lies outside the file");
+      if (cnt == 0) fail("TIFF strip or tile of 0 bytes (libtiff: invalid strip byte count)");
       Bytes src{in.p + off, size_t(cnt)};
       std::vector<uint8_t> flipped;
-      if (fill == 2) {
+      if (lt_fill == 2) {  // libtiff's FillOrder (1 for any value but 1 or 2)
         flipped.assign(src.p, src.p + src.n);
         for (uint8_t& b : flipped) b = rev8(b);
         src.p = flipped.data();
@@ -3404,11 +3843,28 @@ Image decode(Bytes in, InflateFn inflate) {
         out = unpackbits(src, need);
       } else if (comp == 5) {
         out = unlzw(src, need);
+      } else if (comp == 32809) {  // ThunderDecodeRow: whole rows of a strip
+        if (tiled) fail("ThunderScan TIFF tiles are not supported (libtiff decodes none)");
+        if (bits != 4) fail("ThunderScan TIFF needs 4-bit samples");
+        out.assign(need, 0);
+        size_t pos = 0;
+        for (size_t row = 0; row < need; row += size_t(row_bytes)) thunder_row(src, pos, out.data() + row, w);
+      } else if (comp == 2 || comp == 3 || comp == 4 || comp == 32771) {
+        if (bits != 1) fail("CCITT TIFF needs 1-bit samples");
+        if (d.lt_get(277, 1, "SamplesPerPixel") != 1 && d.lt_get(284, 1, "PlanarConfiguration") != 2)
+          fail("CCITT TIFF of more than one sample a pixel (libtiff: Samples/pixel shall be 1)");
+        const int64_t options = comp == 3 ? d.lt_get(292, 0, "T4Options") : comp == 4 ? d.lt_get(293, 0, "T6Options") : 0;
+        fax::decode(src.p, src.n, int(comp), options, cols, rows, size_t(row_bytes), size_t(off), tiled, fax_no_eol,
+                    fax_buffer);
+        out = fax_buffer;
+      } else if (comp == 50000) {
+        out = zstd::decode(src.p, src.n, need);
       } else {
+        const bool xz = comp == 34925;
         out.resize(need);
-        const int64_t got = inflate(src.p, int64_t(src.n), out.data(), int64_t(need));
-        if (got < 0) fail("TIFF Deflate data does not inflate");
-        if (size_t(got) < need) fail("not enough Deflate data in a TIFF strip or tile");
+        const int64_t got = decompress(xz ? 1 : 0, src.p, int64_t(src.n), out.data(), int64_t(need));
+        if (got < 0) fail(xz ? "TIFF LZMA data does not decompress" : "TIFF Deflate data does not inflate");
+        if (size_t(got) < need) fail(std::string("not enough ") + (xz ? "LZMA" : "Deflate") + " data in a TIFF strip or tile");
       }
       const int stride = planar == 2 ? 1 : int(spp);
       if (predictor != 1 && (out.size() % size_t(row_bytes) || (predictor == 3 && row_bytes % (4 * stride))))
@@ -3441,15 +3897,14 @@ Image decode(Bytes in, InflateFn inflate) {
     if (ycbcr && comp != 7) {
       // Pillow's _decodeAsRGBA: libtiff's TIFFRGBAImage, a block of hs x vs
       // luma samples, then Cb and Cr, for each block of pixels.
-      const std::vector<int64_t> sub = d.ints(530, {2, 2}, "YCbCrSubsampling");
-      if (sub.size() < 2) fail("TIFF YCbCrSubsampling needs two values");
+      const std::vector<int64_t> sub = d.lt_ints(530, {2, 2}, "YCbCrSubsampling", 2);
       const int64_t hs = sub[0], vs = sub[1];
       const int64_t code = hs << 4 | vs;
       if (code != 0x44 && code != 0x42 && code != 0x41 && code != 0x22 && code != 0x21 && code != 0x12 && code != 0x11)
         fail("TIFF YCbCr subsampling " + std::to_string(hs) + "x" + std::to_string(vs) + " is not supported");
       float luma[3] = {0.299f, 0.587f, 0.114f}, rbw[6] = {0, 255, 128, 255, 128, 255};
-      if (d.has(529)) for (int i = 0; i < 3; ++i) luma[i] = d.real(529, uint64_t(i));
-      if (d.has(532)) for (int i = 0; i < 6; ++i) rbw[i] = d.real(532, uint64_t(i));
+      if (const Field* f = d.lt_field(529, 3)) for (int i = 0; i < 3; ++i) luma[i] = d.real(*f, uint64_t(i));
+      if (const Field* f = d.lt_field(532, 6)) for (int i = 0; i < 6; ++i) rbw[i] = d.real(*f, uint64_t(i));
       if (std::isnan(luma[0]) || std::isnan(luma[1]) || std::isnan(luma[2]) || std::fabs(luma[1]) < 1e-10)
         fail("TIFF YCbCrCoefficients are invalid");
       for (float f : rbw)
@@ -3507,7 +3962,8 @@ Image decode(Bytes in, InflateFn inflate) {
       // rawmode (planar: each plane into its band).
       const int seg_spp = comp == 7 && ycbcr ? 3 : planar == 2 ? 1 : int(spp);
       const int out_bits = comp == 7 ? 8 : bits;
-      if (planar == 2 && r.bands != spp) fail("planar TIFF of " + std::to_string(spp) + " samples in mode " + mode);
+      if (planar == 2 && (mode == "LAB" ? 3 : r.bands) != spp)
+        fail("planar TIFF of " + std::to_string(spp) + " samples in mode " + mode);
       for (int p = 0; p < planes; ++p)
         for (int64_t ty = 0; ty < down; ++ty)
           for (int64_t tx = 0; tx < across; ++tx) {
@@ -3535,7 +3991,8 @@ Image decode(Bytes in, InflateFn inflate) {
       // Pillow's planar RGBA treats alpha as associated unless libtiff reads
       // ExtraSamples as unassociated (2, or Corel's 999, which libtiff
       // patches to 2).
-      if (planar == 2 && mode == "RGBA" && !(extra.size() == 1 && (extra[0] == 2 || extra[0] == 999)))
+      const std::vector<int64_t> lt_extra = d.lt_ints(338, {}, "ExtraSamples");
+      if (planar == 2 && mode == "RGBA" && !(lt_extra.size() == 1 && (lt_extra[0] == 2 || lt_extra[0] == 999)))
         for (size_t i = 0; i < r.v.size(); i += 4) unpremultiply(r.v.data() + i);
     }
   }
@@ -3566,13 +4023,15 @@ Image decode(Bytes in, InflateFn inflate) {
     for (size_t i = 0; i < n; ++i)
       for (int k = 0; k < 3; ++k) pal.e[i][k] = uint8_t((cm[size_t(k) * (cm.size() / 3) + i] & 0xFFFF) / 256);
   }
-  enum { kBytes, kPalette, kPaletteAlpha, kCmyk, kHigh16, kInt, kFloat } kind =
-      mode == "P" ? kPalette : mode == "PA" ? kPaletteAlpha : mode == "CMYK" ? kCmyk
+  enum { kBytes, kPalette, kPaletteAlpha, kCmyk, kLab, kHigh16, kInt, kFloat } kind =
+      mode == "P" ? kPalette : mode == "PA" ? kPaletteAlpha : mode == "CMYK" ? kCmyk : mode == "LAB" ? kLab
       : mode == "I;16" || mode == "I;16B" || (mode == "I" && bps[0] == 16) ? kHigh16
       : mode == "I" ? kInt : mode == "F" ? kFloat : kBytes;
-  const bool signed16 = mode == "I";
+  const bool signed16 = mode == "I", twelve = key->raw == std::string("I;12");
   Image img;
-  img.alloc(r.w, r.h, kind == kPalette || kind == kPaletteAlpha || kind == kCmyk ? 4 : r.bands, mode.c_str());
+  img.alloc(r.w, r.h, kind == kPalette || kind == kPaletteAlpha || kind == kCmyk || kind == kLab ? 4 : r.bands,
+            mode.c_str());
+
   if (kind == kFloat) img.fl = std::move(samples), img.fw = stored_w, img.fh = stored_h;
   const size_t npx = size_t(r.w) * size_t(r.h);
   const uint32_t* s = r.v.data();
@@ -3582,9 +4041,10 @@ Image decode(Bytes in, InflateFn inflate) {
       case kPalette: std::memcpy(o, pal.e[s[0] & 255], 4); break;
       case kPaletteAlpha: std::memcpy(o, pal.e[s[0] & 255], 4), o[3] = uint8_t(s[1]); break;
       case kCmyk: cmyk_to_rgba(int(s[0]), int(s[1]), int(s[2]), int(s[3]), o); break;
+      case kLab: lab::to_rgb(int(s[0]), int(s[1]), int(s[2]), o), o[3] = uint8_t(s[3]); break;
       case kHigh16: {  // stb_image's 16-to-8-bit rule (a negative signed sample: 0)
         const int32_t v = signed16 ? int32_t(s[0]) : int32_t(s[0] & 0xFFFF);
-        o[0] = uint8_t(v < 0 ? 0 : v >> 8);
+        o[0] = uint8_t(v < 0 ? 0 : v >> (twelve ? 4 : 8));  // a 12-bit sample: its top 8 bits too
         break;
       }
       case kInt: {  // convert("L")'s clip
@@ -3658,10 +4118,10 @@ void* imgd_decode(const uint8_t* data, int64_t n, int32_t format, char* err, int
   return nullptr;
 }
 
-// A TIFF, its Deflate strips and tiles inflated by `inflate`.
-void* imgd_tiff(const uint8_t* data, int64_t n, InflateFn inflate, char* err, int64_t errlen) {
+// A TIFF, its Deflate and LZMA strips and tiles decompressed by `decompress`.
+void* imgd_tiff(const uint8_t* data, int64_t n, CodecFn decompress, char* err, int64_t errlen) {
   try {
-    return finish(tiff::decode(Bytes{data, size_t(n < 0 ? 0 : n)}, inflate));
+    return finish(tiff::decode(Bytes{data, size_t(n < 0 ? 0 : n)}, decompress));
   } catch (const std::exception& e) {
     write_error(err, errlen, e.what());
   }

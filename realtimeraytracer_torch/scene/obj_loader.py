@@ -24,7 +24,6 @@ import numpy as np
 from realtimeraytracer_torch.scene.geometry import TriangleMesh, compute_vertex_normals
 from realtimeraytracer_torch.scene.materials import Material
 from realtimeraytracer_torch.utils.image_decode import decode_float_samples, decode_image
-from realtimeraytracer_torch.utils.image_io import read_image
 
 log = logging.getLogger(__name__)
 
@@ -290,12 +289,17 @@ def load_texture_file(path: str, grayscale: bool = False) -> np.ndarray:
     lists them; the rest raise ValueError.  As in
     the JAX package, RGB and RGBA files keep their
     channels and any other file loads as RGBA (palettes expanded, grey with
-    alpha 1 or its own) unless grayscale is set.  Every texel is divided
+    alpha 1 or its own, Lab through littleCMS's sRGB conversion) unless
+    grayscale is set; a Lab file read as grey raises ValueError, as
+    Pillow's convert("L") does.  Every texel is divided
     by 255, as stbi_load's 8-bit images are read (the JAX package divides
     only when some texel exceeds 1.5, so a file of 0/1 texels reads 0/1
     there)."""
-    px = read_image(path)
+    with open(path, "rb") as f:
+        px, mode = decode_image(f.read())
     if grayscale:
+        if mode == "LAB":    # Pillow's convert("L") has no Lab conversion
+            raise ValueError(f"{path}: a Lab image does not convert to grey")
         px = _grey(px)
     elif px.shape[2] <= 2:
         alpha = px[..., 1:] if px.shape[2] == 2 else np.full(px.shape[:2] + (1,), 255, np.uint8)

@@ -5,8 +5,9 @@ No JAX counterpart: the JAX package opens texture files with Pillow
 skies with imageio; the reference C++ with stb_image (file.cppm:276-291).
 The GPU machine has neither Pillow nor imageio, and a Huffman decode in
 Python would take seconds a megapixel, so the port decodes in C++:
-``realtimeraytracer_torch/native/image_decode.cpp`` and, for WebP,
-``native/webp_decode.cpp``, one library bound here with ctypes.
+``realtimeraytracer_torch/native/image_decode.cpp`` and, for WebP, TIFF's
+CCITT and TIFF's ZSTD, ``native/webp_decode.cpp``, ``fax_decode.cpp`` and
+``zstd_decode.cpp``, one library bound here with ctypes.
 
 ``decode_image(data)`` identifies a file by its content, as ``Image.open``
 does (the PNG signature, JPEG's SOI, ``BM``, ``GIF87a``/``GIF89a``, a PNM
@@ -25,36 +26,47 @@ depth and filter, Adam7), TGA (types 1, 2, 3, 9, 10, 11 at 1, 8, 16, 24,
 32 bits; 16-, 24-, 32-bit colour maps), BMP (1/4/8-bit palette, RLE8 and
 RLE4, 16, 24 and 32 bits, BI_RGB and BI_BITFIELDS), GIF (the first
 frame), PNM (P1-P6, any maxval; Pf), PSD (the composite image: raw or
-PackBits; bitmap, grey, indexed, RGB, RGBA, CMYK), TIFF (the first image:
+PackBits; bitmap, grey, indexed, RGB, RGBA, CMYK, Lab), TIFF (the first
+image, its directory read as Pillow reads it and again as libtiff does:
 classic, BigTIFF and the "invalid" byte-order prefixes; strips and tiles,
-planar or not, FillOrder 2; uncompressed, PackBits, LZW, Deflate and
-JPEG with predictors 2 and 3; every entry of Pillow's mode table that its
-convert accepts, YCbCr through libtiff's RGBA rules; Orientation applied
-as Pillow 12 applies it), WebP (as Pillow opens it through libwebp's
+planar or not, FillOrder 2; uncompressed, PackBits, LZW, Deflate, JPEG,
+CCITT RLE, RLEW, Group 3 (1-D and 2-D) and Group 4, ThunderScan, LZMA
+and ZSTD, with predictors 2 and 3, libtiff's recovery from bad CCITT data
+included; every entry of Pillow's mode table that its convert accepts,
+YCbCr through libtiff's RGBA rules, Lab through littleCMS's Lab -> sRGB
+transform as Pillow's ImageCms runs it; Orientation applied as Pillow 12
+applies it), WebP (as Pillow opens it through libwebp's
 animation decoder: lossy VP8 key frames with their ALPH alpha, lossless
 VP8L, the simple and the VP8X container, an animation's first frame on
 its zeroed canvas; "RGBA" where libwebp's features report alpha, else
 "RGB").  For PNG and TIFF's Deflate, this module
-inflates with ``zlib`` (the library calls ``_inflate`` back for each
-strip or tile); the library does the rest.  Two values differ from
-Pillow's, as stb_image (the reference's decoder) has them: 16-bit grey
-PNG, PGM and TIFF samples come back as their high byte, where Pillow's
-convert clips them.  ``decode_float_samples(data)`` gives a float TIFF
+inflates with ``zlib``, and TIFF's LZMA it decodes with liblzma (the
+library under Python's ``lzma``, driven as libtiff drives it): the
+library calls ``_decompress`` back for each strip or tile; the library
+does the rest.  Values that differ from Pillow's, as stb_image (the
+reference's decoder) has them: 16-bit grey PNG, PGM and TIFF samples come
+back as their high byte, 12-bit grey TIFF samples as their top 8 bits,
+where Pillow's convert clips them.  A Lab image comes back as "LAB",
+converted to RGBA; ``obj_loader.load_texture_file`` refuses it as grey,
+as Pillow's convert("L") does.  ``decode_float_samples(data)`` gives a float TIFF
 (mode F) or a PFM as its float32 samples, as a sky's linear radiance.
 
-Malformed input and formats not ported (Lab and 16-bit PSD, Lab TIFF,
-TIFF compressed by CCITT, old-style JPEG, ThunderScan, SGILog, LZMA,
-ZSTD or WebP; and, as Pillow refuses them, 12-bit, hierarchical and
-arithmetic-coded lossless JPEG, a JPEG height in a DNL marker, a JPEG cut
-inside a scan, an arithmetic-coded scan past Pillow's first 64 KiB read)
-raise ``ValueError`` naming the cause; nothing falls back to another
-decoder.  libjpeg's warnings stay silent, as in Pillow.
+Malformed input and formats not ported (16-bit PSD, TIFF compressed by
+old-style JPEG; and, as Pillow refuses them, TIFF compressed by SGILog or
+WebP, TIFF photometrics 9 and 10, 12-bit, hierarchical and arithmetic-
+coded lossless JPEG, a JPEG height in a DNL marker, a JPEG cut inside a
+scan, an arithmetic-coded scan past Pillow's first 64 KiB read) raise
+``ValueError`` naming the cause; nothing falls back to another decoder.
+libjpeg's and libtiff's warnings stay silent, as in Pillow.
 
 The library is built at first use with ``$CXX`` (default g++) into the
 kernels' build directory (``kernels.BUILD_DIR``), under a name that hashes
-both sources, the flags and the compiler's ``--version``; a file lock keeps
-concurrent processes to one build.  No ``-march=native``: the decode is
-integer arithmetic and gives the same bytes on every host.  Without a
+the four sources, the flags and the compiler's ``--version``; a file lock
+keeps concurrent processes to one build.  Loading it also loads liblzma;
+without it the call raises.  No ``-march=native``: the decode is
+integer arithmetic, but for the Lab nodes (double arithmetic and libm's
+``pow``, as littleCMS computes them), and gives the same bytes on every
+host.  Without a
 compiler, or if the build or the load fails, the call raises.
 """
 
@@ -62,8 +74,10 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import ctypes.util
 import fcntl
 import hashlib
+import lzma  # noqa: F401 - loads liblzma, which _unxz drives
 import os
 import struct
 import subprocess
@@ -79,7 +93,7 @@ from realtimeraytracer_torch.utils.native import _compiler
 from realtimeraytracer_torch.utils.png import SIGNATURE as PNG_SIGNATURE
 
 SOURCES = tuple(Path(__file__).resolve().parents[1] / "native" / name
-                for name in ("image_decode.cpp", "webp_decode.cpp"))
+                for name in ("image_decode.cpp", "webp_decode.cpp", "fax_decode.cpp", "zstd_decode.cpp"))
 CXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-Wall", "-shared")
 # Pillow's Image.open raises DecompressionBombError above twice MAX_IMAGE_PIXELS.
 MAX_PIXELS = 2 * 89478485
@@ -93,23 +107,80 @@ TIFF_PREFIXES = (b"MM\0*", b"II*\0", b"MM*\0", b"II\0*", b"MM\0+", b"II+\0")
 _lock = threading.Lock()
 _lib = None
 
-_INFLATE = ctypes.CFUNCTYPE(ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64)
+_DECOMPRESS = ctypes.CFUNCTYPE(ctypes.c_int64, ctypes.c_int32, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                               ctypes.c_int64)
 
 
-@_INFLATE
-def _inflate(src, n, dst, cap):
-    """The library's Deflate callback (TIFF compression 8 and 32946): at
-    most `cap` bytes of the zlib stream's output into `dst`; -1 if the
-    stream is corrupt.  libtiff stops where the strip is full, so does
-    this."""
+@_DECOMPRESS
+def _decompress(codec, src, n, dst, cap):
+    """The library's callback for TIFF's Deflate (compression 8 and 32946,
+    codec 0: a zlib stream, inflated by zlib) and LZMA (34925, codec 1: an
+    .xz stream, decoded by liblzma as libtiff drives it: no memory limit,
+    one stream, its check verified, the output before an error kept): at most `cap` bytes of the output into
+    `dst`; -1 if the stream is corrupt.  libtiff stops where the strip is
+    full, so does this."""
     if cap <= 0:
         return 0
+    if codec == 1:
+        return _unxz(src, n, dst, cap)
     try:
         out = zlib.decompressobj().decompress(ctypes.string_at(src, n), cap)
     except zlib.error:
         return -1
     ctypes.memmove(dst, out, len(out))
     return len(out)
+
+
+class _LzmaStream(ctypes.Structure):
+    """liblzma's lzma_stream (lzma/base.h, 5.x)."""
+    _fields_ = [("next_in", ctypes.c_void_p), ("avail_in", ctypes.c_size_t), ("total_in", ctypes.c_uint64),
+                ("next_out", ctypes.c_void_p), ("avail_out", ctypes.c_size_t), ("total_out", ctypes.c_uint64),
+                ("allocator", ctypes.c_void_p), ("internal", ctypes.c_void_p),
+                ("reserved", ctypes.c_void_p * 4), ("reserved_int", ctypes.c_uint64 * 2),
+                ("reserved_size", ctypes.c_size_t * 2), ("reserved_enum", ctypes.c_int * 2)]
+
+
+_liblzma = None
+
+
+def _lzma_library() -> ctypes.CDLL:
+    """liblzma, the library under Python's lzma module (loaded with it);
+    raises if there is none."""
+    global _liblzma
+    if _liblzma is None:
+        for name in ("liblzma.so.5", ctypes.util.find_library("lzma")):
+            try:
+                lib = ctypes.CDLL(name)
+                break
+            except (OSError, TypeError):
+                continue
+        else:
+            raise RuntimeError("no liblzma (the library of Python's lzma module) to decode LZMA TIFF data")
+        lib.lzma_stream_decoder.argtypes = [ctypes.POINTER(_LzmaStream), ctypes.c_uint64, ctypes.c_uint32]
+        lib.lzma_code.argtypes = [ctypes.POINTER(_LzmaStream), ctypes.c_int]
+        lib.lzma_end.argtypes = [ctypes.POINTER(_LzmaStream)]
+        _liblzma = lib
+    return _liblzma
+
+
+def _unxz(src, n: int, dst, cap: int) -> int:
+    """libtiff's LZMADecode of one strip or tile: an .xz stream decoder with
+    no memory limit, run until `cap` bytes are out, the stream ends or
+    liblzma reports an error; what liblzma wrote before an error stands
+    (Python's lzma drops it, so liblzma is driven here directly)."""
+    lib = _lzma_library()
+    stream = _LzmaStream()
+    if lib.lzma_stream_decoder(ctypes.byref(stream), ctypes.c_uint64(-1).value, 0) != 0:
+        raise RuntimeError("lzma_stream_decoder failed")
+    try:
+        stream.next_in, stream.avail_in = src, n
+        stream.next_out, stream.avail_out = dst, cap
+        while stream.avail_out > 0:
+            if lib.lzma_code(ctypes.byref(stream), 0) != 0:     # LZMA_OK; LZMA_STREAM_END or an error ends it
+                break
+        return cap - stream.avail_out
+    finally:
+        lib.lzma_end(ctypes.byref(stream))
 
 
 def library_path(cxx: list[str]) -> Path:
@@ -155,6 +226,7 @@ def load_library() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
+        _lzma_library()
         cxx = _compiler()
         if cxx is None:
             raise RuntimeError(f"no C++ compiler ({os.environ.get('CXX') or 'g++'}) to build the "
@@ -169,7 +241,7 @@ def load_library() -> ctypes.CDLL:
         lib.imgd_decode.restype = c.c_void_p
         lib.imgd_decode.argtypes = [c.c_char_p, c.c_int64, c.c_int32, *err]
         lib.imgd_tiff.restype = c.c_void_p
-        lib.imgd_tiff.argtypes = [c.c_char_p, c.c_int64, _INFLATE, *err]
+        lib.imgd_tiff.argtypes = [c.c_char_p, c.c_int64, _DECOMPRESS, *err]
         lib.imgd_png.restype = c.c_void_p
         lib.imgd_png.argtypes = [c.c_char_p, c.c_int64, c.c_int64, c.c_int64, c.c_int32, c.c_int32,
                                  c.c_int32, c.c_char_p, c.c_int64, c.c_char_p, c.c_int64, *err]
@@ -298,7 +370,7 @@ def decode_image(data: bytes) -> tuple[np.ndarray, str]:
     if kind == "PNG":
         return _decode_png(lib, data)
     if kind == "TIFF":
-        return _collect(lib, lib.imgd_tiff, data, len(data), _inflate)
+        return _collect(lib, lib.imgd_tiff, data, len(data), _decompress)
     return _collect(lib, lib.imgd_decode, data, len(data), _CODES[kind])
 
 
@@ -313,7 +385,7 @@ def decode_float_samples(data: bytes) -> np.ndarray | None:
     if kind not in ("TIFF", "PNM"):
         return None
     lib = load_library()
-    call = (lib.imgd_tiff, data, len(data), _inflate) if kind == "TIFF" else \
+    call = (lib.imgd_tiff, data, len(data), _decompress) if kind == "TIFF" else \
         (lib.imgd_decode, data, len(data), _CODES[kind])
     with _result(lib, *call) as handle:
         h, w = ctypes.c_int64(), ctypes.c_int64()

@@ -5,11 +5,12 @@ no JPEG sampled 4:4:0 or 4:1:1, no PSD, no RLE or 16-bit BMP, no 16-bit
 TGA, no PNM with comments or an odd maxval, and no GIF with a local
 colour table, an offset frame or an unusual LZW stream, no tiled, planar,
 predicted, BigTIFF, bit-reversed or subsampled YCbCr TIFF, no TIFF of
-associated alpha or 2-bit grey, and no YCCK JPEG, so ``make_png``,
-``encode_jpeg``, ``make_bmp`` (with ``encode_bmp_rle``), ``make_tga``,
-``encode_gif`` (with ``lzw_encode``), ``encode_pnm``, ``encode_psd`` and
-``make_tiff`` (with ``tiff_lzw``) write them here from NumPy; Pillow then
-decodes them as the oracle.
+associated alpha, 2-bit or 12-bit grey, Lab or ThunderScan, and no YCCK
+JPEG, so ``make_png``, ``encode_jpeg``, ``make_bmp`` (with
+``encode_bmp_rle``), ``make_tga``, ``encode_gif`` (with ``lzw_encode``),
+``encode_pnm``, ``encode_psd`` and ``make_tiff`` (with ``tiff_lzw`` and
+``encode_thunderscan``; CCITT segments through ``pillow_ccitt``) write them
+here from NumPy; Pillow then decodes them as the oracle.
 
 ``python tests/_torch_image_helpers.py`` rewrites ``tests/data/images/``:
 the fixtures (written with Pillow and ``make_png`` from seeded NumPy
@@ -21,7 +22,9 @@ both values of ``grayscale``.  It needs Pillow and the JAX package.
 from __future__ import annotations
 
 import ctypes
+import functools
 import json
+import lzma
 import os
 import struct
 import sys
@@ -43,7 +46,10 @@ FIXTURE_NAMES = ("prog420_odd.jpg", "base422_rst.jpg", "grey.jpg", "rle.tga", "p
                  "corrupt_ycck.jpg", "corrupt_cmyk.jpg", "corrupt_base422.jpg", "corrupt_prog420.jpg",
                  "leaf_alpha.webp", "ground_lossless.webp", "smooth1024_alpha.webp", "smooth1024.webp",
                  "ramp1024_lossless.webp", "arith420_rst.jpg", "arith_prog.jpg", "lossless_grey.jpg",
-                 "prog420_cut.jpg", "prog420_dc.jpg", "corrupt_recovered.jpg", "smooth1024_arith.jpg")
+                 "prog420_cut.jpg", "prog420_dc.jpg", "corrupt_recovered.jpg", "smooth1024_arith.jpg",
+                 "g4_discs.tif", "lab_leaf.tif", "zstd_gloss.tif", "lzma_metal.tif", "lab.psd", "thunder.tif",
+                 "rlew_badcodes.tif", "g3_2d_fill2.tif", "g4_1024.tif", "zstd_1024.tif", "lzma_1024.tif",
+                 "lab_1024.tif", "thunder_1024.tif")
 
 # Corrupt JPEGs: a fixture with bytes replaced ((offset, byte), ...), whose
 # dequantized coefficients overflow libjpeg-turbo's 16-bit SIMD IDCT lanes
@@ -932,6 +938,18 @@ def encode_pnm(samples, magic: bytes, maxval: int = 255, comments: bool = False,
 def packbits(row: bytes, rng=None) -> bytes:
     """PackBits of one row: runs of 2+ equal bytes, literals, and (with
     `rng`) now and then a no-op byte 0x80."""
+    if rng is None:
+        return _packbits_plain(row)
+    return _packbits(row, rng)
+
+
+@functools.lru_cache(maxsize=4096)
+def _packbits_plain(row: bytes) -> bytes:
+    """packbits without no-ops, once for each distinct row."""
+    return _packbits(row, None)
+
+
+def _packbits(row: bytes, rng) -> bytes:
     out, i = bytearray(), 0
     while i < len(row):
         if rng is not None and rng.random() < 0.05:
@@ -1035,12 +1053,12 @@ _TIFF_SIZE = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8, 11: 4
 
 def _tiff_pack(samples: np.ndarray, bits: int, order: str, fmt: int) -> bytes:
     """(rows, n) samples of one segment row by row: each row packed most
-    significant bit first below 8 bits and padded to a byte, else in the
-    file's byte order (`fmt` 3: float16 or float32)."""
+    significant bit first below 8 bits and at 12 bits and padded to a
+    byte, else in the file's byte order (`fmt` 3: float16 or float32)."""
     rows = []
     for row in samples:
-        if bits < 8:
-            b = np.unpackbits(row.astype(np.uint8)[:, None], axis=1)[:, 8 - bits:]
+        if bits < 8 or bits == 12:
+            b = np.unpackbits(row.astype(">u2").view(np.uint8).reshape(-1, 2), axis=1)[:, 16 - bits:]
             rows.append(np.packbits(b.reshape(-1)).tobytes())
         else:
             dt = {8: "u1", 16: "u2", 32: "u4"}[bits] if fmt != 3 else {16: "f2", 32: "f4"}[bits]
@@ -1074,19 +1092,97 @@ def tiff_reverse_bits(data: bytes) -> bytes:
     return np.packbits(np.unpackbits(a[:, None], axis=1)[:, ::-1].reshape(-1)).tobytes()
 
 
+def encode_thunderscan(samples, rng) -> bytes:
+    """ThunderScan data (TIFF compression 32809) of (h, w) 4-bit samples,
+    row by row as libtiff's tif_thunder.c decodes them (each row starts from
+    the value 0): runs of the last value (never one that ends its row:
+    libtiff then writes nothing), three 2-bit deltas (or skips), two 3-bit
+    deltas (or skips) and raw values, chosen by `rng` among those that fit."""
+    two, three = {0: 0, 1: 1, 15: 3}, {0: 0, 1: 1, 2: 2, 3: 3, 13: 5, 14: 6, 15: 7}
+    out = bytearray()
+    for row in np.asarray(samples, np.int64).reshape(len(samples), -1):
+        last, i, w = 0, 0, len(row)
+        while i < w:
+            options = ["raw"]
+            run = 0
+            while i + run < w - 1 and run < 63 and row[i + run] == last:
+                run += 1
+            if run:
+                options.append("run")
+            d = [(int(row[j]) - last) % 16 for j in range(i, min(i + 3, w))]
+            if d[0] in three:
+                options.append("3bit")
+            if d[0] in two:
+                options.append("2bit")
+            kind = options[int(rng.integers(len(options)))]
+            if kind == "raw":
+                out.append(0xC0 | int(row[i]))
+                last, i = int(row[i]), i + 1
+            elif kind == "run":
+                out.append(int(rng.integers(1, run + 1)) if run > 1 else 1)
+                i += out[-1]
+            elif kind == "3bit":
+                codes, v = [], last
+                for j in range(i, min(i + 2, w)):
+                    dj = (int(row[j]) - v) % 16
+                    if dj not in three:
+                        break
+                    codes.append(three[dj])
+                    v = int(row[j])
+                codes += [4] * (2 - len(codes))           # skip codes
+                out.append(0x80 | codes[0] << 3 | codes[1])
+                i += sum(c != 4 for c in codes)
+                last = v
+            else:
+                codes, v = [], last
+                for j in range(i, min(i + 3, w)):
+                    dj = (int(row[j]) - v) % 16
+                    if dj not in two:
+                        break
+                    codes.append(two[dj])
+                    v = int(row[j])
+                codes += [2] * (3 - len(codes))
+                out.append(0x40 | codes[0] << 4 | codes[1] << 2 | codes[2])
+                i += sum(c != 2 for c in codes)
+                last = v
+    return bytes(out)
+
+
+CCITT_NAMES = {2: "tiff_ccitt", 3: "group3", 4: "group4", 32771: "tiff_raw_16"}
+
+
+def pillow_ccitt(bits, compression: int, t4_options: int = 0) -> bytes:
+    """The CCITT data of (h, w) 0/1 samples as libtiff writes it through
+    Pillow: one strip, 1 bits stored as 1 (tests only: needs Pillow)."""
+    import io
+
+    from PIL import Image
+
+    b = np.asarray(bits, bool)
+    buf = io.BytesIO()
+    info = {278: b.shape[0], **({292: t4_options} if compression == 3 else {})}
+    Image.fromarray(b).save(buf, "TIFF", compression=CCITT_NAMES[compression], tiffinfo=info)
+    im = Image.open(buf)
+    (off,), (cnt,) = im.tag_v2[273], im.tag_v2[279]
+    return buf.getvalue()[off:off + cnt]
+
+
 def make_tiff(samples, bits, photometric: int, *, order: str = "<", header: str = "tiff",
               sample_format=None, extra=None, planar: int = 1, fill_order=None,
               compression: int = 1, predictor=None, rows_per_strip=None, tile=None,
               colormap=None, subsampling=None, jpeg_q: int = 4, jpeg_tables: bool = True,
               tags=None, omit=(), packbits_rng=None, ifd_first: bool = False,
-              seg_data=None, jpeg=None) -> bytes:
+              seg_data=None, jpeg=None, codec_rng=None, zstd_level: int = 3, t4_options: int = 0) -> bytes:
     """TIFF bytes of (h, w[, n]) samples: `bits` per sample (an int, or a
     tuple for the tag), in byte order `order` ("<" II, ">" MM); `header`
     "tiff", "bigtiff" or "swapped" (the magic in the other order, which
     Pillow accepts as an "invalid" prefix); strips of `rows_per_strip` or
     `tile` (w, h) tiles (edge tiles padded); `planar` 2 writes a segment
     per sample plane; compression 1 (none), 32773 (PackBits), 5 (LZW), 8
-    or 32946 (Deflate) with `predictor` 2 or 3, or 7 (JPEG: each segment a
+    or 32946 (Deflate), 34925 (LZMA, an .xz stream) or 50000 (ZSTD, a
+    frame of `zstd_level`: needs the zstandard package) with `predictor` 2 or
+    3, 32809 (ThunderScan of `codec_rng`'s codes), 2, 3 (`t4_options`), 4
+    and 32771 (CCITT, each segment written by Pillow), or 7 (JPEG: each segment a
     JPEG of `encode_jpeg`, or of `jpeg` (planes, factors, q), its tables
     (DQT and DHT) in JPEGTables unless `jpeg_tables`
     is false; YCbCr with `subsampling` (h, v) samples luma at that rate
@@ -1148,6 +1244,10 @@ def make_tiff(samples, bits, photometric: int, *, order: str = "<", header: str 
                 raw = b"".join(_fp_predict(r.astype("<f4").tobytes(), sn) for r in flat)
             else:
                 raw = _tiff_pack(flat, b0, order, fmt)
+        if compression in CCITT_NAMES:
+            return pillow_ccitt(seg[..., 0], compression, t4_options)
+        if compression == 32809:
+            return encode_thunderscan(seg[..., 0], codec_rng)
         if compression == 32773:
             rb = len(raw) // sh
             return b"".join(packbits(raw[i:i + rb], packbits_rng) for i in range(0, len(raw), rb))
@@ -1155,6 +1255,12 @@ def make_tiff(samples, bits, photometric: int, *, order: str = "<", header: str 
             return tiff_lzw(raw)
         if compression in (8, 32946):
             return zlib.compress(raw)
+        if compression == 34925:
+            return lzma.compress(raw, format=lzma.FORMAT_XZ)
+        if compression == 50000:
+            import zstandard
+
+            return zstandard.ZstdCompressor(level=zstd_level).compress(raw)
         return raw
 
     segments, done = [], {}           # equal segments are encoded once
@@ -1164,7 +1270,7 @@ def make_tiff(samples, bits, photometric: int, *, order: str = "<", header: str 
             if tile:
                 seg = np.pad(seg, ((0, th - seg.shape[0]), (0, tw - seg.shape[1]), (0, 0)), mode="edge")
             key = (seg.shape, seg.dtype.str, seg.tobytes())
-            if key not in done or packbits_rng is not None:
+            if key not in done or packbits_rng is not None or codec_rng is not None:
                 done[key] = encode(seg)
             segments.append(done[key])
     if fill_order == 2:
@@ -1190,6 +1296,8 @@ def make_tiff(samples, bits, photometric: int, *, order: str = "<", header: str 
         entries[530] = (3, list(subsampling))
     if tables and compression == 7:
         entries[347] = (7, list(tables))
+    if compression == 3 and t4_options:
+        entries[292] = (4, [t4_options])
     lens = [len(d) for d in segments]
     off_type = 16 if big else 4
     if tile:
@@ -1551,6 +1659,58 @@ def write_jpeg_variant_fixtures(out: Path) -> None:
         jpeg_blocks([big[..., k] for k in range(3)], fac, 4), 1024, 1024, fac, [4] * 64))
 
 
+def lab_of(rgb) -> np.ndarray:
+    """Pillow's Lab (ImageCms, L and a, b offset by 128) of uint8 RGB
+    pixels (tests only: needs Pillow)."""
+    from PIL import Image
+
+    return np.asarray(Image.fromarray(np.asarray(rgb, np.uint8)).convert("LAB"))
+
+
+def repeated1024(tile) -> np.ndarray:
+    """A 1024^2 image of a 64^2 tile repeated: the codecs' timing fixtures
+    compress to a few KiB."""
+    return np.tile(np.asarray(tile), (16, 16) + (1,) * (np.ndim(tile) - 2))
+
+
+def write_tiff_codec_fixtures(out: Path) -> None:
+    """The CCITT, Lab, ZSTD, LZMA and ThunderScan fixtures: the G4 cut-out,
+    the Lab colour map, the ZSTD specular and the LZMA metallic map stand in
+    for textured_obj's leaf opacity, leaf colour, ground specular and pillar
+    metallic maps (chip_smoke phase 38); the 1024^2 files are phase 38's
+    decode timings (the card machine has no Pillow or zstandard to write
+    them)."""
+    rng = np.random.default_rng(20)
+    yy, xx = np.mgrid[0:64, 0:64]
+    checker = (xx // 8 + yy // 8) % 2
+    disc = disc_pattern(64)
+    (out / "g4_discs.tif").write_bytes(make_tiff(disc.astype(int), 1, 1, compression=4, rows_per_strip=16))
+    leaf = np.stack([26 + 20 * checker, 115 + 64 * checker, np.full((64, 64), 20)], -1) + rng.integers(0, 6, (64, 64, 1))
+    lab = lab_of(leaf) ^ np.array([0, 128, 128], np.uint8)        # a* and b* stored signed
+    (out / "lab_leaf.tif").write_bytes(make_tiff(lab, 8, 8, compression=5, rows_per_strip=16))
+    gloss = np.clip(xx * 255 // 63, 13, 242)
+    (out / "zstd_gloss.tif").write_bytes(make_tiff(gloss, 8, 1, compression=50000, tile=(32, 32), zstd_level=19))
+    metal = np.clip(yy * 255 // 63, 0, 255)
+    (out / "lzma_metal.tif").write_bytes(make_tiff(metal, 8, 1, compression=34925, predictor=2, rows_per_strip=24))
+    (out / "lab.psd").write_bytes(encode_psd([lab_of(smooth_image(rng, 15, 20, 3))[..., k] for k in range(3)], 9,
+                                             compression=1, rng=rng))
+    grey4 = rng.integers(0, 16, (21, 34))
+    grey4[:, 8:20] = grey4[:, 8:9]
+    (out / "thunder.tif").write_bytes(make_tiff(grey4, 4, 0, compression=32809, codec_rng=rng, rows_per_strip=8))
+    cut = (smooth_image(rng, 17, 40, 1)[..., 0] > 128).astype(int)
+    (out / "rlew_badcodes.tif").write_bytes(make_tiff(cut, 1, 0, compression=32771, tile=(16, 16)))
+    (out / "g3_2d_fill2.tif").write_bytes(make_tiff(cut, 1, 1, compression=3, t4_options=5, fill_order=2,
+                                                    rows_per_strip=6))
+    big_leaf = repeated1024(leaf)
+    (out / "g4_1024.tif").write_bytes(make_tiff(repeated1024(disc).astype(int), 1, 1, compression=4,
+                                                rows_per_strip=128))
+    (out / "zstd_1024.tif").write_bytes(make_tiff(big_leaf, 8, 2, compression=50000, rows_per_strip=64))
+    (out / "lzma_1024.tif").write_bytes(make_tiff(big_leaf, 8, 2, compression=34925, rows_per_strip=64))
+    (out / "lab_1024.tif").write_bytes(make_tiff(repeated1024(lab), 8, 8, compression=8, rows_per_strip=64))
+    (out / "thunder_1024.tif").write_bytes(make_tiff(repeated1024((xx // 16 + yy // 8) % 16), 4, 1,
+                                                     compression=32809, codec_rng=rng, rows_per_strip=128))
+
+
 def write_fixtures(out: Path = FIXTURES) -> dict:
     """Write the committed fixtures and expected.json; returns the digests."""
     from PIL import Image
@@ -1578,11 +1738,18 @@ def write_fixtures(out: Path = FIXTURES) -> dict:
     write_tiff_fixtures(out)
     write_webp_fixtures(out)
     write_jpeg_variant_fixtures(out)
-    digests = {name: {str(g).lower(): pixels_digest(load_texture_file(str(out / name), g))
-                      for g in (False, True)} for name in FIXTURE_NAMES}
+    write_tiff_codec_fixtures(out)
+
+    def digest(name, g):   # None where the JAX package raises (a Lab file read as grey)
+        try:
+            return pixels_digest(load_texture_file(str(out / name), g))
+        except ValueError:
+            return None
+
+    digests = {name: {str(g).lower(): digest(name, g) for g in (False, True)} for name in FIXTURE_NAMES}
     (out / "expected.json").write_text(json.dumps({
         "what": "sha256 of the JAX package's load_texture_file(path, grayscale): "
-                "realtimeraytracer_torch.utils.image_decode.pixels_digest",
+                "realtimeraytracer_torch.utils.image_decode.pixels_digest; null where it raises",
         "digests": digests}, indent=1) + "\n")
     return digests
 
@@ -1590,4 +1757,4 @@ def write_fixtures(out: Path = FIXTURES) -> dict:
 if __name__ == "__main__":
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     for name, d in write_fixtures().items():
-        print(name, (FIXTURES / name).stat().st_size, d["false"][:12], d["true"][:12])
+        print(name, (FIXTURES / name).stat().st_size, *(str(v)[:12] for v in d.values()))

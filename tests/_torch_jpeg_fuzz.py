@@ -47,14 +47,14 @@ DRIVER = r"""
 #include <vector>
 #include <zlib.h>
 extern "C" {
-typedef int64_t (*inflate_fn)(const uint8_t*, int64_t, uint8_t*, int64_t);
+typedef int64_t (*codec_fn)(int32_t, const uint8_t*, int64_t, uint8_t*, int64_t);
 void* imgd_decode(const uint8_t*, int64_t, int32_t, char*, int64_t);
-void* imgd_tiff(const uint8_t*, int64_t, inflate_fn, char*, int64_t);
+void* imgd_tiff(const uint8_t*, int64_t, codec_fn, char*, int64_t);
 void imgd_free(void*);
 }
-static int64_t inflate_cb(const uint8_t* src, int64_t n, uint8_t* dst, int64_t cap) {
-  uLongf out = uLongf(cap);
-  return uncompress(dst, &out, src, uLong(n)) == Z_OK ? int64_t(out) : -1;
+static int64_t inflate_cb(int32_t codec, const uint8_t* src, int64_t n, uint8_t* dst, int64_t cap) {
+  uLongf out = uLongf(cap);  // zlib only (codec 0): no LZMA here
+  return codec == 0 && uncompress(dst, &out, src, uLong(n)) == Z_OK ? int64_t(out) : -1;
 }
 int main(int argc, char** argv) {
   int ok = 0;

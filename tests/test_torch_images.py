@@ -41,8 +41,9 @@ from _torch_image_helpers import (CORRUPT_JPEGS, FIXTURE_NAMES, FIXTURES, PROGRE
                                   PROGRESSION3, alph_chunk, anim_chunk, anmf_chunk, disc_pattern,
                                   encode_arith_planes, encode_bmp_rle, encode_gif, encode_jpeg,
                                   encode_jpeg_blocks, encode_lossless_jpeg, encode_pnm, encode_psd,
-                                  encode_webp, make_bmp, make_png, make_tga, make_tiff, pillow_webp,
-                                  riff_webp, smooth_image, vp8x_chunk, webp_chunk, webp_chunks)
+                                  encode_thunderscan, encode_webp, make_bmp, make_png, make_tga, make_tiff,
+                                  pillow_ccitt, pillow_webp, riff_webp, smooth_image, vp8x_chunk, webp_chunk,
+                                  webp_chunks, CCITT_NAMES)
 from realtimeraytracer_torch.ops import bvh as tbvh  # noqa: E402
 from realtimeraytracer_torch.ops import camera_rays as tcam  # noqa: E402
 from realtimeraytracer_torch.ops import vecmath as tvm  # noqa: E402
@@ -784,26 +785,19 @@ def test_truncated_and_corrupt_files_raise(tmp_path, name):
 
 
 def test_refused_formats_and_features_raise(tmp_path):
-    """Formats and features not ported raise ValueError naming them: the
-    TIFF codecs left out (CCITT, old-style JPEG, ThunderScan, SGILog,
-    LZMA, ZSTD, WebP) and Lab TIFF, a two-component JPEG, 12-bit and
-    hierarchical JPEG (which Pillow refuses too), Lab PSD."""
-    img = Image.fromarray(smooth_image(np.random.default_rng(0), 16, 16, 3))
-    for mode, compression, words in (("1", "group4", "CCITT Group 4"), ("1", "group3", "CCITT Group 3"),
-                                     ("1", "tiff_ccitt", "CCITT RLE"), ("RGB", "lzma", "LZMA"),
-                                     ("RGB", "zstd", "ZSTD")):
-        buf = io.BytesIO()
-        img.convert(mode).save(buf, format="TIFF", compression=compression)
-        with pytest.raises(ValueError, match=words):
-            image_decode.decode_image(buf.getvalue())
+    """Formats and features not ported raise ValueError naming them:
+    old-style JPEG in a TIFF, the TIFF codecs Pillow raises on too (SGILog,
+    WebP) and unknown codes, the Lab photometrics 9 and 10 (no Pillow
+    mode), a two-component JPEG, 12-bit and hierarchical JPEG (which Pillow
+    refuses too)."""
     # Pillow's WebP-in-TIFF writer crashes: these codes are written by hand.
-    for code, words in ((6, "old-style JPEG"), (32809, "ThunderScan"), (34676, "SGILog"), (50001, "WebP"),
-                        (12345, "compression 12345")):
+    for code, words in ((6, "old-style JPEG"), (34676, "SGILog"), (50001, "WebP"), (12345, "compression 12345")):
         with pytest.raises(ValueError, match=words):
             image_decode.decode_image(make_tiff(np.zeros((4, 4, 3), int), 8, 2, compression=1,
                                                 tags=[(259, 3, [code])]))
-    with pytest.raises(ValueError, match="Lab"):
-        image_decode.decode_image(make_tiff(np.zeros((4, 4, 3), int), 8, 8))
+    for photo in (9, 10):
+        with pytest.raises(ValueError, match="no Pillow mode"):
+            image_decode.decode_image(make_tiff(np.zeros((4, 4, 3), int), 8, photo))
     two = encode_jpeg([np.zeros((8, 8), np.uint8)] * 2, [(1, 1)] * 2)
     with pytest.raises(ValueError, match="2 components"):
         image_decode.decode_image(two)
@@ -813,9 +807,6 @@ def test_refused_formats_and_features_raise(tmp_path):
         bad = base[:sof] + marker + base[sof + 2:sof + 4] + bytes([precision]) + base[sof + 5:]
         with pytest.raises(ValueError, match=words):
             image_decode.decode_image(bad)
-    lab = encode_psd([np.zeros((2, 3), np.uint8)] * 3, 9)
-    with pytest.raises(ValueError, match="Lab"):
-        image_decode.decode_image(lab)
     with pytest.raises(ValueError, match="not an image"):
         image_decode.decode_image(b"plain text, not an image")
 
@@ -1140,7 +1131,7 @@ def test_tiff_directory_faults_raise_as_jax(tmp_path):
             with pytest.raises(ValueError):
                 jol.load_texture_file(str(p), grayscale=True)
             with pytest.raises(ValueError, match="Lab"):
-                image_decode.decode_image(data)
+                tol.load_texture_file(str(p), grayscale=True)
             continue
         _both_raise(tmp_path, f"{name}-2.tif", data)
     for comp in (1, 32773, 5, 8, 7):
@@ -1237,6 +1228,235 @@ def test_16bit_tiff_grey_diverges_from_jax_as_stb(tmp_path):
         assert image_decode.decode_image(p.read_bytes())[1] == Image.open(p).mode
 
 
+# --------------------------- CCITT, ThunderScan, LZMA, ZSTD, Lab, 12-bit ----
+
+CCITT_CASES = {"rle": (2, 0), "rlew": (32771, 0), "g3-1d": (3, 0), "g3-2d": (3, 1), "g3-2d-fill": (3, 5),
+               "g4": (4, 0)}
+
+
+@pytest.mark.parametrize("case", sorted(CCITT_CASES))
+def test_ccitt_tiff_matches_jax(tmp_path, case):
+    """CCITT TIFFs (each strip or tile written by libtiff through Pillow) in
+    strips, tiles, both photometrics, FillOrder 2, both byte orders and
+    Orientation 5 and 8, bit-equal to JAX's: libtiff's recovery from bad code words included
+    (RLEW rows word-aligned by the address, so a strip at an odd offset
+    reads misaligned; a tile stands whatever ends its data, as libtiff's
+    tile read takes the decoder's -1 as success), a T.4 strip cut short
+    (libtiff then reads it again without EOLs, in this strip and the later
+    ones)."""
+    comp, t4 = CCITT_CASES[case]
+    rng = np.random.default_rng(sorted(CCITT_CASES).index(case))
+    bits = (smooth_image(rng, 21, 37, 1)[..., 0] > 120).astype(int)
+    for photo in (0, 1):
+        for kw in ({}, {"rows_per_strip": 8}, {"tile": (16, 16)}, {"fill_order": 2, "order": ">"},
+                   {"tags": [(274, 3, [5 + photo * 3])]}):
+            data = make_tiff(bits, 1, photo, compression=comp, t4_options=t4, **kw)
+            _tiff_same_as_jax(tmp_path, f"{photo}{len(kw)}.tif", data)
+    # Strips cut short: T.4 reads on without EOLs (every row decoded, or a
+    # second end raises); RLE raises.  (A T.6 strip, or any tile, cut short
+    # leaves its last rows as Pillow's buffer held them: undefined, so not
+    # compared.)
+    seg = pillow_ccitt(bits, comp, t4)
+    for cut in (len(seg) - 1, len(seg) * 2 // 3, len(seg) // 3):
+        for kw in ({},) if comp != 4 else ():
+            _same_or_both_raise(tmp_path, f"cut{cut}{len(kw)}.tif",
+                                make_tiff(bits, 1, 0, compression=comp, t4_options=t4, seg_data=[seg[:cut]], **kw))
+    buf = io.BytesIO()
+    Image.fromarray(bits.astype(bool)).save(buf, "TIFF", compression=CCITT_NAMES[comp],
+                                            tiffinfo={292: t4} if comp == 3 else {})
+    _same_or_both_raise(tmp_path, "pillow.tif", buf.getvalue())
+
+
+def test_thunderscan_tiff_matches_jax(tmp_path):
+    """ThunderScan (32809) strips of 4-bit grey from the hand encoder (runs,
+    2- and 3-bit deltas, raw values), both photometrics, FillOrder 2, both
+    byte orders, odd widths: bit-equal to JAX's; tiles (which libtiff does
+    not decode) and a strip one code short raise on both sides."""
+    rng = np.random.default_rng(32809)
+    for h, w in ((9, 13), (1, 1), (17, 40)):
+        s = rng.integers(0, 16, (h, w))
+        s[:, w // 3:] = s[:, w // 3:w // 3 + 1]
+        for photo in (0, 1):
+            for kw in ({}, {"rows_per_strip": 4, "fill_order": 2}, {"order": ">"}):
+                data = make_tiff(s, 4, photo, compression=32809, codec_rng=rng, **kw)
+                _tiff_same_as_jax(tmp_path, f"t{h}{photo}{len(kw)}.tif", data)
+    s = rng.integers(0, 16, (9, 13))
+    _both_raise(tmp_path, "tiles.tif", make_tiff(s, 4, 1, compression=32809, codec_rng=rng, tile=(16, 16)),
+                "ThunderScan TIFF tiles")
+    seg = encode_thunderscan(s, rng)
+    _both_raise(tmp_path, "short.tif", make_tiff(s, 4, 1, compression=32809, codec_rng=rng, seg_data=[seg[:-1]]),
+                "ThunderScan")
+
+
+@pytest.mark.parametrize("comp", [34925, 50000])
+def test_lzma_and_zstd_tiff_match_jax(tmp_path, comp):
+    """LZMA (34925, .xz streams driven through liblzma as libtiff drives it)
+    and ZSTD (50000, the port's RFC 8878 decoder; zstandard writes every
+    block, literal and table mode between levels -5 and 22) in strips,
+    tiles, planes, with the horizontal predictor, in both byte orders,
+    turned by Orientation, grey and palette: bit-equal to JAX's.  Corrupt streams as libtiff reads
+    them: the output liblzma wrote before an error stands; libzstd checks a
+    whole frame in one pass (its checksum included) when the strip holds it
+    all, and stops at the block that fills the strip otherwise."""
+    rng = np.random.default_rng(comp)
+    rgb = smooth_image(rng, 19, 23, 3)
+    layouts = [{}, {"rows_per_strip": 4}, {"tile": (16, 16)}, {"planar": 2}, {"predictor": 2}, {"order": ">"},
+               {"tags": [(274, 3, [6])]}]
+    if comp == 50000:
+        layouts += [{"zstd_level": lvl} for lvl in (-5, 1, 9, 22)]
+    for kw in layouts:
+        _tiff_same_as_jax(tmp_path, f"{len(kw)}.tif", make_tiff(rgb, 8, 2, compression=comp, **kw))
+    _tiff_same_as_jax(tmp_path, "grey.tif", make_tiff(rgb[..., 0], 8, 1, compression=comp, order=">"))
+    _tiff_same_as_jax(tmp_path, "p.tif", make_tiff(rng.integers(0, 16, (7, 9)), 4, 3, compression=comp,
+                                                   colormap=rng.integers(0, 65536, (16, 3))))
+    raw = rgb.tobytes()
+    if comp == 34925:
+        import lzma
+        good = lzma.compress(raw, format=lzma.FORMAT_XZ)
+        streams = [good[:-30] + bytes([good[-30] ^ 0x40]) + good[-29:], good[:len(good) // 2],
+                   good[:40] + bytes([good[40] ^ 0xFF]) + good[41:]]
+    else:
+        import zstandard
+        good = zstandard.ZstdCompressor(level=3, write_checksum=True).compress(raw)
+        streams = [good[:-1] + bytes([good[-1] ^ 1]), good[:-2], good + b"more", good[:len(good) // 2],
+                   good[:30] + bytes([good[30] ^ 0x5A]) + good[31:]]
+    for k, stream in enumerate(streams):
+        _same_or_both_raise(tmp_path, f"bad{k}.tif", make_tiff(rgb, 8, 2, compression=comp, seg_data=[stream]))
+
+
+def test_lab_tiff_and_psd_match_jax(tmp_path):
+    """Lab: TIFF photometric 8 (a* and b* stored signed; raw, LZW and ZSTD,
+    planar, both byte orders) and PSD mode 9 (raw and PackBits), read as JAX
+    reads them: convert("RGBA") through littleCMS's Lab -> sRGB transform
+    (alpha 255 from unpackLAB, 0 where band unpackers fill the pixels);
+    convert("L") raises on both sides.  The port's conversion against
+    Pillow's on 65,536 Lab values (the corners of the 33^3 grid and random
+    ones; tests/_torch_tiff_fuzz.py --lab-table holds all 2^24)."""
+    rng = np.random.default_rng(8)
+    s = rng.integers(0, 256, (9, 13, 3))
+    for comp in (1, 5, 50000):
+        for kw in ({}, {"planar": 2}, {"order": ">", "rows_per_strip": 4}):
+            p = tmp_path / f"lab{comp}{len(kw)}.tif"
+            p.write_bytes(make_tiff(s, 8, 8, compression=comp, **kw))
+            _same_as_jax_rgba_only(p)
+    for compression in (0, 1):
+        p = tmp_path / f"lab{compression}.psd"
+        p.write_bytes(encode_psd([s[..., k].astype(np.uint8) for k in range(3)], 9, compression=compression, rng=rng))
+        _same_as_jax_rgba_only(p)
+    corners = np.array([0, 8, 255, 247, 128, 127, 120, 136], np.int64)
+    grid = np.stack(np.meshgrid(corners, corners, corners, indexing="ij"), -1).reshape(-1, 3)
+    values = np.concatenate([grid, rng.integers(0, 256, (65536 - len(grid), 3))]).reshape(256, 256, 3)
+    p = tmp_path / "table.tif"
+    p.write_bytes(make_tiff(values, 8, 8))
+    _same_as_jax_rgba_only(p)
+
+
+def _same_as_jax_rgba_only(path):
+    """A Lab file: bit-equal to JAX's with grayscale=False, ValueError on
+    both sides with grayscale=True; the decoder reports "LAB"."""
+    assert np.array_equal(tol.load_texture_file(str(path)), _jax_c1(path, False))
+    for package in (jol, tol):
+        with pytest.raises(ValueError):
+            package.load_texture_file(str(path), True)
+    assert image_decode.decode_image(path.read_bytes())[1] == "LAB"
+
+
+def test_12bit_tiff_grey_diverges_from_jax_as_stb(tmp_path):
+    """Pillow opens 12-bit grey TIFF (little-endian only) as "I;16" holding
+    the samples 0-4095, and the JAX package's convert clips them to 255;
+    the port applies the 16-bit rule (stb_image's: a sample's top 8 bits),
+    so a 12-bit sample reads as its high 8 bits, v >> 4 (ROADMAP, "Faults
+    of the reference").  Raw and compressed, strips and tiles; big-endian
+    12-bit has no Pillow mode and raises on both sides."""
+    samples = np.array([[4095, 3000, 2048, 255, 16, 15, 0]], np.int64)
+    for comp, kw in ((1, {}), (5, {"tile": (16, 16)}), (50000, {}), (32773, {"rows_per_strip": 1})):
+        p = tmp_path / f"i12-{comp}.tif"
+        p.write_bytes(make_tiff(samples, 12, 1, compression=comp, **kw))
+        assert Image.open(p).mode == "I;16" and image_decode.decode_image(p.read_bytes())[1] == "I;16"
+        want_jax = np.clip(samples[0], 0, 255).astype(np.float32) / 255
+        want = (samples[0] >> 4).astype(np.float32) / 255
+        for grayscale in (False, True):
+            assert np.array_equal(jol.load_texture_file(str(p), grayscale)[0, :, 0], want_jax), comp
+            assert np.array_equal(tol.load_texture_file(str(p), grayscale)[0, :, 0], want), comp
+    _both_raise(tmp_path, "i12be.tif", make_tiff(samples, 12, 1, order=">"), "no Pillow mode")
+
+
+def test_sgilog_and_webp_tiff_raise_on_both_sides(tmp_path):
+    """Refused by both sides, so no decoder: SGILog (34676, 34677), whose
+    libtiff codec reads only the LogL/LogLuv photometrics that Pillow's
+    mode table lacks, and WebP in a TIFF (50001), a codec this libtiff is
+    built without; the port names each in its ValueError."""
+    rng = np.random.default_rng(34676)
+    for code, photo, words in ((34676, 1, "SGILog"), (34677, 2, "SGILog24"), (34676, 32844, "SGILog"),
+                               (34677, 32845, "SGILog24"), (50001, 2, "WebP")):
+        s = rng.integers(0, 256, (6, 7, 3 if photo != 1 else 1))
+        _both_raise(tmp_path, f"{code}-{photo}.tif", make_tiff(s, 8, photo, compression=1, tags=[(259, 3, [code])]),
+                    words)
+
+
+def test_tiff_directories_libtiff_reads_match_jax(tmp_path):
+    """Directory entries Pillow and libtiff read differently, found by
+    tests/_torch_tiff_fuzz.py: a type neither knows (Pillow skips the
+    entry, libtiff ignores the tag unless it reads it first), Predictor or
+    T4Options with two values (libtiff ignores them), a BYTE or FLOAT
+    photometric (Pillow: bytes, or a float equal to an integer), an
+    UNDEFINED strip offset, FillOrder past the file (libtiff reverses the
+    bits, Pillow's mode ignores it), no next-directory pointer,
+    RowsPerStrip at and past 2^31 (Pillow takes it as an int):
+    bit-equal where Pillow reads the file, ValueError where it raises."""
+    rng = np.random.default_rng(292)
+    rgb = smooth_image(rng, 9, 13, 3)
+    bits = (smooth_image(rng, 21, 37, 1)[..., 0] > 120).astype(int)
+    lz = make_tiff(rgb, 8, 2, compression=50000, predictor=2, rows_per_strip=4)
+    g3 = make_tiff(bits, 1, 0, compression=3, t4_options=1, fill_order=2, rows_per_strip=8)
+    cases = {
+        "type99-fill": _retag(g3, 266, typ=99), "type99-predictor": _retag(lz, 317, typ=99),
+        "type99-width": _retag(lz, 256, typ=99), "predictor-count2": _retag(lz, 317, count=2),
+        "t4-count3": _retag(g3, 292, count=3), "photo-byte": _retag(g3, 262, typ=1),
+        "photo-float": _retag(g3, 262, typ=11, value=struct.pack("<f", 0.0)),
+        "photo-rational": _retag(lz, 262, typ=5, count=1), "offsets-undefined": _retag(
+            make_tiff(rgb, 8, 2), 273, typ=7), "fill-past": _retag(g3, 266, count=1 << 20),
+        "no-next-ifd": make_tiff(rgb[..., 0], 8, 1, compression=5)[:-4],
+        "rows-2^31-1": _retag(g3, 278, value=struct.pack("<I", 2 ** 31 - 1)),   # Pillow's int: cut to 21
+        "rows-2^31": _retag(g3, 278, value=struct.pack("<I", 2 ** 31)),         # negative to Pillow
+    }
+    for name, data in cases.items():
+        _same_or_both_raise(tmp_path, f"{name}.tif", data)
+
+
+def test_corrupt_ycbcr_tiff_strip_diverges_from_jax(tmp_path):
+    """A subsampled YCbCr TIFF without JPEG whose last strip's LZW data is
+    corrupt (ycbcr22_lzw.tif, byte 862 set to 255): Pillow reads it through
+    libtiff's TIFFRGBAImage with stoponerr 0, which converts the failed
+    strip from what its buffer holds, so JAX returns an image; the port
+    raises (ROADMAP queue C, open; found by tests/_torch_tiff_fuzz.py)."""
+    p = tmp_path / "ycbcr.tif"
+    p.write_bytes(_edit(_fixture("ycbcr22_lzw.tif"), (862, 255)))
+    for grayscale in (False, True):
+        jax = jol.load_texture_file(str(p), grayscale)
+        assert jax.shape[:2] == (19, 27) and np.isfinite(jax).all()
+        with pytest.raises(ValueError, match="LZW"):
+            tol.load_texture_file(str(p), grayscale)
+
+
+def _retag(data, tag, typ=None, count=None, value=None):
+    """A little-endian TIFF with entry `tag`'s type, count or value field
+    replaced."""
+    ifd = struct.unpack("<I", data[4:8])[0]
+    b = bytearray(data)
+    for i in range(struct.unpack("<H", data[ifd:ifd + 2])[0]):
+        at = ifd + 2 + 12 * i
+        if struct.unpack("<H", data[at:at + 2])[0] == tag:
+            if typ is not None:
+                b[at + 2:at + 4] = struct.pack("<H", typ)
+            if count is not None:
+                b[at + 4:at + 8] = struct.pack("<I", count)
+            if value is not None:
+                b[at + 8:at + 12] = value
+            return bytes(b)
+    raise KeyError(tag)
+
+
 # ------------------------------------------------------- corrupt JPEG ----
 
 @pytest.mark.parametrize("name", sorted(CORRUPT_JPEGS))
@@ -1312,19 +1532,37 @@ def _edit(data, *edits, delete=None):
     return bytes(b)
 
 
-def test_tiff_count_past_the_file_diverges_from_jax(tmp_path):
+def test_tiff_count_past_the_file_matches_jax(tmp_path):
     """A TIFF directory entry whose count runs its data past the end of the
-    file (jpeg_ycbcr.tif's TileOffsets, 4 -> 260 values): libtiff trims or
-    skips the tag and Pillow decodes the image; the port refuses the
-    directory (ROADMAP queue C, open; found by the JPEG fuzz of
-    tests/_torch_jpeg_fuzz.py)."""
+    file: Pillow's own directory stops there, and libtiff, which decodes,
+    reads the first strip offsets and byte counts it needs (zeros after a
+    short list, 0 counts estimated as libtiff does), ignores other such tags
+    (YCbCrSubsampling then comes from the JPEG stream) and fails only on its
+    first-read tags.  jpeg_ycbcr.tif's TileOffsets, 4 -> 260 values (found by
+    the JPEG fuzz; ROADMAP queue C, repaired), its YCbCrSubsampling, and
+    the finds of tests/_torch_tiff_fuzz.py: bit-equal or both raise."""
+    jpeg = _fixture("jpeg_ycbcr.tif")
     p = tmp_path / "count.tif"
-    p.write_bytes(_edit(_fixture("jpeg_ycbcr.tif"), (1107, 1)))
+    p.write_bytes(_edit(jpeg, (1107, 1)))
     for grayscale in (False, True):
         jax = jol.load_texture_file(str(p), grayscale)
         assert jax.shape[:2] == (64, 64) and np.isfinite(jax).all()
-        with pytest.raises(ValueError, match="malformed TIFF directory"):
-            tol.load_texture_file(str(p), grayscale)
+    _same_as_jax(p)
+    ifd = struct.unpack("<I", jpeg[4:8])[0]
+    entries = {struct.unpack("<H", jpeg[ifd + 2 + 12 * i:ifd + 4 + 12 * i])[0]: ifd + 2 + 12 * i
+               for i in range(struct.unpack("<H", jpeg[ifd:ifd + 2])[0])}
+    rng = np.random.default_rng(20)
+    g4 = make_tiff(disc_pattern(32).astype(int), 1, 1, compression=4, rows_per_strip=8)
+    lz = make_tiff(smooth_image(rng, 9, 13, 3), 8, 2, compression=34925, rows_per_strip=9)
+    for name, data in (
+            ("subsampling", _edit(jpeg, *((entries[530] + 4 + k, b) for k, b in enumerate((0, 1, 0, 0)))))
+            ,                                              # YCbCrSubsampling: 256 values, past the file
+            ("tile-counts", _edit(jpeg, (entries[325] + 5, 9))),       # TileByteCounts past the file
+            ("strips-short", _edit(g4, (g4.index(struct.pack("<HHI", 273, 4, 4)) + 4, 2))),
+            ("counts-zero", _edit(lz, (lz.index(struct.pack("<HHI", 279, 4, 1)) + 8, 0))),
+            ("counts-none", _edit(lz, (lz.index(struct.pack("<HHI", 279, 4, 1)) + 4, 0))),
+            ("bps-past", _edit(lz, (lz.index(struct.pack("<HHI", 258, 3, 3)) + 5, 1)))):
+        _same_or_both_raise(tmp_path, f"{name}.tif", data)
 
 
 def _recovery_cases():
@@ -1846,6 +2084,12 @@ def test_committed_fixtures_match_expected_json():
         for grayscale in (False, True):
             want = digests[str(grayscale).lower()]
             path = str(FIXTURES / name)
+            if want is None:            # a Lab file read as grey: both raise
+                with pytest.raises(ValueError):
+                    jol.load_texture_file(path, grayscale)
+                with pytest.raises(ValueError):
+                    tol.load_texture_file(path, grayscale)
+                continue
             assert image_decode.pixels_digest(jol.load_texture_file(path, grayscale)) == want
             assert image_decode.pixels_digest(tol.load_texture_file(path, grayscale)) == want
     assert b"\xff\xc2" in _fixture("prog420_odd.jpg") and b"\xff\xd0" in _fixture("base422_rst.jpg")

@@ -447,9 +447,9 @@ def test_port_needs_no_pillow():
     """With Pillow and imageio made unimportable, every module of the port
     imports, textured_obj writes and loads its PNGs and compiles, and
     load_texture_file reads a committed JPEG, the TGA, GIF, PSD, TIFF
-    (LZW, Deflate, JPEG), YCCK JPEG and WebP (lossy with alpha, lossless)
-    fixtures (tests/data/images) through the native decoder; nothing
-    imported PIL.
+    (LZW, Deflate, JPEG, CCITT Group 4, ZSTD, LZMA, Lab), YCCK JPEG and WebP
+    (lossy with alpha, lossless) fixtures (tests/data/images) through the
+    native decoder; nothing imported PIL.
     No source file of the port, nor chip_smoke.py, imports jax, PIL or
     imageio."""
     code = textwrap.dedent("""
@@ -470,7 +470,9 @@ def test_port_needs_no_pillow():
                             ("frame.gif", (64, 64, 4)), ("leaf.psd", (64, 64, 3)),
                             ("lzw_pred_rgb.tif", (64, 64, 3)), ("deflate_tiles_grey.tif", (50, 37, 4)),
                             ("jpeg_ycbcr.tif", (64, 64, 3)), ("ycck.jpg", (21, 35, 4)),
-                            ("leaf_alpha.webp", (64, 64, 4)), ("ground_lossless.webp", (64, 64, 3))):
+                            ("leaf_alpha.webp", (64, 64, 4)), ("ground_lossless.webp", (64, 64, 3)),
+                            ("g4_discs.tif", (64, 64, 4)), ("zstd_gloss.tif", (64, 64, 4)),
+                            ("lzma_metal.tif", (64, 64, 4)), ("lab_leaf.tif", (64, 64, 4))):
             tex = load_texture_file("tests/data/images/" + name)
             assert tex.shape == shape and 0.0 <= tex.min() and tex.max() <= 1.0, name
         assert not any(k.split(".")[0] in ("PIL", "imageio") for k in sys.modules)
