@@ -214,12 +214,16 @@ Phases, each of which ends the run with a non-zero exit on failure:
      realtimeraytracer_torch/native/image_decode.cpp built with the host's
      C++ compiler): every fixture of tests/data/images decoded through
      load_texture_file, both grayscale values, its digest equal to
-     expected.json (the JAX package's output); textured_obj's OBJ with
+     expected.json (the JAX package's output; in the child process
+     below); textured_obj's OBJ with
      its ground and leaf maps replaced by the JPEG and TGA fixtures, and
      again by PNGs of the same decoded pixels, then by the GIF, PSD, PGM
      and RLE8 BMP fixtures, the TIFF fixtures, the WebP fixtures, and the
      arithmetic-coded, lossless, incomplete progressive and corrupt JPEG
-     fixtures, each with their PNG twins: each pair of 1080p frames at the
+     fixtures, the G4/Lab/ZSTD/LZMA TIFF fixtures, and the old-style
+     JPEG and LZW TIFF, ICO and ICNS fixtures with a float RGB TIFF sky
+     through load_hdr (its twin: the sky's array handed to the scene),
+     each with their PNG twins: each pair of 1080p frames at the
      reference defaults through rt.render hash-equal, with their masked
      v9/v8 and B5 launches only; the C1 frame, the leaf opacity map a PGM
      of 0/1 texels (0 and 1/255, as stbi_load reads them), hash-equal to
@@ -229,9 +233,10 @@ Phases, each of which ends the run with a non-zero exit on failure:
      png.decode_png (about a minute a decode on the whole image, so the
      crop), a 1024^2 GIF, 16-bit PGM, PackBits PSD, RLE8 and 5-6-5 BMP,
      16-bit RLE TGA, LZW, Deflate and JPEG TIFF, CMYK and YCCK JPEG and
-     lossless JPEG, written on the host by the tests' encoders
-     (tests/_torch_image_helpers.py), and the 1024^2 WebP and
-     arithmetic-coded JPEG fixtures.
+     lossless JPEG, old-style JPEG (both layouts) and LZW TIFF, ICO (PNG
+     and BMP members), DIB and a 128^2 ICNS it32, written on the host by
+     the tests' encoders (tests/_torch_image_helpers.py), and the 1024^2
+     WebP, arithmetic-coded JPEG and TIFF codec fixtures.
 Each main-path run (5, 8, 9, 14, 18, 22, 24, 26, 27, 28, 30, each step of
 31 and 32, 33, 34, 35, 36, 37, 38) and the probe's timed run (23) are driven with every kernel's
 launch count set to 0 just before and read just after.  The line before the last is a
@@ -893,8 +898,29 @@ def phase38_host_decodes() -> dict:
     _sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
     import _torch_image_helpers as enc      # the tests' hand encoders (NumPy only)
 
+    from realtimeraytracer_torch.scene.obj_loader import load_texture_file
+
     fx = Path(__file__).resolve().parent / "tests" / "data" / "images"
     try:
+        # Every committed fixture through load_texture_file, both grayscale
+        # values, against expected.json (the JAX package's digests; null
+        # where it raises, and the port must raise too).
+        t_dig = time.perf_counter()
+        expected = json.loads((fx / "expected.json").read_text())["digests"]
+        for name, digests in expected.items():
+            for grayscale in (False, True):
+                want = digests[str(grayscale).lower()]
+                if want is None:
+                    try:
+                        load_texture_file(str(fx / name), grayscale)
+                    except ValueError:
+                        continue
+                    raise SmokeFailure(f"[38] {name}, grayscale={grayscale}: decoded, where the JAX package raises")
+                got = image_decode.pixels_digest(load_texture_file(str(fx / name), grayscale))
+                require(got == want, f"[38] {name}, grayscale={grayscale}: digest {got[:16]}, "
+                                     f"expected.json {want[:16]}")
+        t_dig = time.perf_counter() - t_dig
+
         def med3(fn, n=3):
             times = []
             for _ in range(n):
@@ -1006,6 +1032,41 @@ def phase38_host_decodes() -> dict:
         require(np.array_equal(image_decode.decode_image(new_files["webp_lossless_1024"][0])[0],
                                np.stack([(x1k + y1k) & 255, (2 * x1k) & 255, (3 * y1k) & 255], -1)),
                 "[38] the 1024^2 lossless WebP decodes wrong")
+        # Old-style JPEG (one stream, both layouts: 4:2:0, a restart interval a
+        # 256-row strip), old-style LZW (equal strips encoded once), ICO with a
+        # PNG and with a 32-bit BMP member, a DIB, all 1024^2, and an ICNS it32
+        # with its mask (128^2, the member's only size).
+        t_enc_a12 = time.perf_counter()
+        ycc = [smooth[..., k] for k in range(3)]
+        js = enc.encode_jpeg(ycc, [(2, 2), (1, 1), (1, 1)], q=4, restart=64 * 16)
+        rgba1k = np.concatenate([repeated, (repeated[..., :1] // 2 + 64)], -1)
+        icns_px = rgba1k[:128, :128]
+        new_files.update({
+            "tiff_ojpeg_interchange_1024": (enc.make_ojpeg_tiff(ycc, [(2, 2), (1, 1), (1, 1)], rows_per_strip=256,
+                                                                 jpeg=js), "RGB"),
+            "tiff_ojpeg_tables_1024": (enc.make_ojpeg_tiff(ycc, [(2, 2), (1, 1), (1, 1)], layout="tables",
+                                                            rows_per_strip=256, jpeg=js), "RGB"),
+            "tiff_lzw_old_1024": (enc.make_tiff(repeated, 8, 2, compression=5, lzw_compat=True, rows_per_strip=256),
+                                  "RGB"),
+            "ico_png_1024": (enc.make_icon([(0, 0, 0, 1, 32, png.encode_png(rgba1k))]), "RGBA"),
+            "ico_bmp32_1024": (enc.make_icon([(0, 0, 0, 1, 32, enc.icon_dib(rgba1k[..., [2, 1, 0, 3]], 32))]),
+                               "RGBA"),
+            "dib_1024": (enc.make_bmp(repeated[..., ::-1], 24)[14:], "RGB"),
+            "icns_it32_128": (enc.make_icns([(b"it32", b"\0\0\0\0" + enc.icns_rgb(icns_px[..., :3])),
+                                             (b"t8mk", icns_px[..., 3].tobytes())]), "RGBA"),
+        })
+        t_enc += time.perf_counter() - t_enc_a12
+        a12 = {k: image_decode.decode_image(new_files[k][0]) for k in
+               ("tiff_ojpeg_interchange_1024", "tiff_ojpeg_tables_1024", "tiff_lzw_old_1024", "ico_png_1024",
+                "ico_bmp32_1024", "dib_1024", "icns_it32_128")}
+        for key, (px, got_mode) in a12.items():
+            side = 128 if key.startswith("icns") else 1024
+            require(px.shape[:2] == (side, side) and got_mode == new_files[key][1], f"[38] {key}: {px.shape} {got_mode}")
+        require(np.array_equal(a12["tiff_ojpeg_interchange_1024"][0], a12["tiff_ojpeg_tables_1024"][0]),
+                "[38] the old-style JPEG layouts of one stream decode differently")
+        for key, want in (("tiff_lzw_old_1024", repeated), ("ico_png_1024", rgba1k), ("ico_bmp32_1024", rgba1k),
+                          ("dib_1024", repeated), ("icns_it32_128", icns_px)):
+            require(np.array_equal(a12[key][0], want), f"[38] the {key} file decodes wrong")
         times = {"jpeg_1024_native": med3(lambda: image_decode.decode_image(jpeg)),
                  "png_paeth_2048_native": med3(lambda: image_decode.decode_image(paeth)),
                  "png_paeth_256_native": med3(lambda: image_decode.decode_image(crop)),
@@ -1017,6 +1078,7 @@ def phase38_host_decodes() -> dict:
                         "png_paeth_128": len(crop128),
                         **{k: len(v[0]) for k, v in new_files.items()}}
         res["encode_s"] = t_enc
+        res["fixture_digests"] = {"files": len(expected), "s": t_dig}
         return res
     except SmokeFailure as e:
         return {"error": str(e)}
@@ -1029,13 +1091,16 @@ def image_decoders(*, rt, torch, card: str, W: int, H: int, zero_counts, read_co
     files, by WebP files (lossy with alpha, lossless) and by arithmetic-
     coded, lossless, incomplete progressive and corrupt JPEGs, and by a
     CCITT G4 cut-out, a Lab colour, a ZSTD specular and an LZMA metallic
-    TIFF map, each against the same frame textured by PNGs of their
-    pixels; the C1 frame (a 0/1 opacity map against an all-zero one); host
-    decode times."""
+    TIFF map, and by an old-style JPEG colour, an old-style LZW specular,
+    an ICO cut-out and an ICNS metallic map under a float RGB TIFF sky,
+    each against the same frame textured by PNGs of their pixels (under
+    the sky's array); the C1 frame (a 0/1 opacity map against an all-zero
+    one); the fixture digests and host decode times in a child process."""
     import hashlib
 
     from realtimeraytracer_torch import scenes
-    from realtimeraytracer_torch.scene.obj_loader import load_obj_scene, load_texture_file
+    from realtimeraytracer_torch.scene.obj_loader import load_hdr, load_obj_scene
+    from realtimeraytracer_torch.scenes import make_sky_gradient
     from realtimeraytracer_torch.scene.scene import Scene
     from realtimeraytracer_torch.utils import image_decode, png
 
@@ -1050,22 +1115,6 @@ def image_decoders(*, rt, torch, card: str, W: int, H: int, zero_counts, read_co
                              stdout=subprocess.PIPE, text=True, cwd=str(Path(__file__).resolve().parent))
     try:
         fx = Path(__file__).resolve().parent / "tests" / "data" / "images"
-        expected = json.loads((fx / "expected.json").read_text())["digests"]
-        for name, digests in expected.items():
-            for grayscale in (False, True):
-                want = digests[str(grayscale).lower()]
-                if want is None:        # the JAX package raises (a Lab file read as grey): so must the port
-                    try:
-                        load_texture_file(str(fx / name), grayscale)
-                    except ValueError:
-                        continue
-                    raise SmokeFailure(f"[38] {name}, grayscale={grayscale}: decoded, where the JAX package raises")
-                got = image_decode.pixels_digest(load_texture_file(str(fx / name), grayscale))
-                require(got == want, f"[38] {name}, grayscale={grayscale}: digest {got[:16]}, "
-                                     f"expected.json {want[:16]}")
-        say(f"[38] {len(expected)} fixtures decoded on the host with both grayscale values: every "
-            f"digest equal to expected.json's")
-
         # textured_obj's maps that the fixtures replace (its MTL names them).
         roles = {"ground_kd.png": "prog420_odd.jpg", "ground_ks.png": "grey.jpg",
                  "leaf_kd.png": "base422_rst.jpg", "leaf_d.png": "rle.tga"}
@@ -1081,13 +1130,17 @@ def image_decoders(*, rt, torch, card: str, W: int, H: int, zero_counts, read_co
         # CCITT Group 4 cut-out, Lab colour, ZSTD specular, LZMA metallic.
         codec_roles = {"leaf_d.png": "g4_discs.tif", "leaf_kd.png": "lab_leaf.tif", "ground_ks.png": "zstd_gloss.tif",
                        "pillar_pm.png": "lzma_metal.tif"}
+        # Old-style JPEG colour, old-style LZW specular, an ICO's bitmap as
+        # the cut-out, an ICNS (it32 and mask) metallic map.
+        a12_roles = {"ground_kd.png": "ojpeg_ground.tif", "ground_ks.png": "lzw_old_gloss.tif",
+                     "leaf_d.png": "icon_leaf.ico", "pillar_pm.png": "icns_metal.icns"}
         disc = enc.disc_pattern(64)
         cfg = rt.RenderConfig(width=W, height=H, primary_rays=4, shadow_rays=3, denoise_iterations=4)
         frames = {}
         with tempfile.TemporaryDirectory(prefix="rtrt_images_") as d:
             base = scenes.textured_obj(str(Path(d) / "png"))
 
-            def variant(tag, files):
+            def variant(tag, files, hdri=None):
                 vd = Path(d) / tag.replace("/", "_").replace(" ", "_")
                 vd.mkdir()
                 mtl = (Path(d) / "png" / "scene.mtl").read_text()
@@ -1097,7 +1150,7 @@ def image_decoders(*, rt, torch, card: str, W: int, H: int, zero_counts, read_co
                     (vd / fname).write_bytes(data)
                     mtl = mtl.replace(map_name, fname)
                 (vd / "scene.mtl").write_text(mtl)
-                sc = Scene(camera=base.camera, hdri=base.hdri, env_color=base.env_color,
+                sc = Scene(camera=base.camera, hdri=base.hdri if hdri is None else hdri, env_color=base.env_color,
                            area_lights=list(base.area_lights), sun=base.sun)
                 load_obj_scene(sc, str(vd / "scene.obj"))
                 require(len(sc.textures) == 5, f"[38] {tag}: {len(sc.textures)} textures loaded")
@@ -1113,6 +1166,18 @@ def image_decoders(*, rt, torch, card: str, W: int, H: int, zero_counts, read_co
             webp_bytes = {m: (f, (fx / f).read_bytes()) for m, f in webp_roles.items()}
             jpeg_bytes = {m: (f, (fx / f).read_bytes()) for m, f in jpeg_roles.items()}
             codec_bytes = {m: (f, (fx / f).read_bytes()) for m, f in codec_roles.items()}
+            a12_bytes = {m: (f, (fx / f).read_bytes()) for m, f in a12_roles.items()}
+            # The sky as a float RGB TIFF (LZW, predictor 3) through load_hdr,
+            # against the same samples handed to the scene.
+            sky = make_sky_gradient(64, 128)
+            sky_tif = Path(d) / "sky_rgb.tif"
+            sky_tif.write_bytes(enc.make_tiff(sky, 32, 2, sample_format=3, compression=5, predictor=3,
+                                              rows_per_strip=16))
+            require(np.array_equal(load_hdr(str(sky_tif), tone_encode=False), sky[::-1]),
+                    "[38] the float RGB TIFF sky reads other samples than were written")
+            sky_tiff = load_hdr(str(sky_tif))
+            sky_direct = np.ascontiguousarray((np.clip(sky[::-1], 0.0, 1.0) ** (1.0 / 2.2)).astype(np.float32))
+            require(np.array_equal(sky_tiff, sky_direct), "[38] load_hdr's encoded float TIFF sky differs from the array's")
             scenes38 = {
                 "JPEG/TGA maps": variant("fixtures", old_bytes),
                 "PNG maps": variant("repng", twins(old_bytes)),
@@ -1126,6 +1191,8 @@ def image_decoders(*, rt, torch, card: str, W: int, H: int, zero_counts, read_co
                 "the rarer JPEGs' PNG maps": variant("jpeg_variants_png", twins(jpeg_bytes)),
                 "G4/Lab/ZSTD/LZMA TIFF maps": variant("tiff_codecs", codec_bytes),
                 "the G4/Lab/ZSTD/LZMA TIFFs' PNG maps": variant("tiff_codecs_png", twins(codec_bytes)),
+                "old-style JPEG/LZW TIFF, ICO, ICNS maps, float TIFF sky": variant("a12", a12_bytes, sky_tiff),
+                "their PNG maps, the sky's array": variant("a12_png", twins(a12_bytes), sky_direct),
                 # C1: 0/1 texels read 0 and 1/255 (stbi_load), below alpha_threshold
                 # like 0; the JAX package's rule kept them 0 and 1.0, opaque leaves.
                 "C1 0/1 opacity PGM": variant("c1", {"leaf_d.png": (
@@ -1161,6 +1228,9 @@ def image_decoders(*, rt, torch, card: str, W: int, H: int, zero_counts, read_co
                             "arithmetic, lossless, incomplete progressive, corrupt JPEG"),
                            ("G4/Lab/ZSTD/LZMA TIFF maps", "the G4/Lab/ZSTD/LZMA TIFFs' PNG maps",
                             "CCITT G4 cut-out, Lab colour, ZSTD specular, LZMA metallic TIFF"),
+                           ("old-style JPEG/LZW TIFF, ICO, ICNS maps, float TIFF sky", "their PNG maps, the sky's array",
+                            "old-style JPEG colour, old-style LZW specular, ICO cut-out, ICNS metallic, float RGB "
+                            "TIFF sky"),
                            ("C1 0/1 opacity PGM", "all-zero opacity PGM", "C1 (0/1 opacity)")):
             ha, hb = frames[a]["sha256"], frames[b]["sha256"]
             require(ha == hb, f"[38] the {what} frame differs from its twin: {ha[:16]} against {hb[:16]}")
@@ -1170,6 +1240,8 @@ def image_decoders(*, rt, torch, card: str, W: int, H: int, zero_counts, read_co
             f"the GIF/PSD/PGM/RLE-BMP-textured frame, the TIFF-textured frame, the WebP-textured frame and "
             f"the frame textured by arithmetic-coded, lossless, incomplete progressive and corrupt JPEGs "
             f"and the frame with a G4 cut-out, a Lab colour, a ZSTD specular and an LZMA metallic TIFF map "
+            f"and the frame with an old-style JPEG colour, an old-style LZW specular, an ICO cut-out, an ICNS "
+            f"metallic map and a float RGB TIFF sky (load_hdr) "
             f"are each hash-equal to the "
             f"frame with PNG maps of the same pixels; the C1 frame (0/1 opacity PGM) is hash-equal to the "
             f"all-zero one; "
@@ -1179,6 +1251,8 @@ def image_decoders(*, rt, torch, card: str, W: int, H: int, zero_counts, read_co
         require(child.returncode == 0, f"[38] the host decode process failed (rc {child.returncode})")
         res = json.loads(out.strip().splitlines()[-1])
         require("error" not in res, str(res.get("error")))
+        say(f"[38] {res['fixture_digests']['files']} fixtures decoded on the host (in the child) with both "
+            f"grayscale values: every digest equal to expected.json's")
         say(f"[38] host decode ms, median of 3 (one run of the Python PNG decoder; host side, the card machine's "
             f"CPU; {card}): " + json.dumps(res))
         say(f"[38] phase 38 took {time.perf_counter() - t38:.1f} s")

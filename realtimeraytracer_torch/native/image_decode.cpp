@@ -1,5 +1,6 @@
-// Texture image decoders of the port: JPEG, PNG reconstruction, TGA, BMP,
-// GIF, PNM, PSD, TIFF; WebP, from webp_decode.cpp, and TIFF's CCITT and
+// Texture image decoders of the port: JPEG, PNG reconstruction, TGA, BMP
+// (DIB and the bitmaps of ICO and CUR), ICNS's RLE members, GIF, PNM, PSD,
+// TIFF; WebP, from webp_decode.cpp, and TIFF's CCITT and
 // ZSTD, from fax_decode.cpp and zstd_decode.cpp (the library's other
 // sources).
 //
@@ -29,7 +30,12 @@
 //   TGA   types 1, 2, 3, 9, 10, 11 at 1 (grey), 8, 16, 24 and 32 bits,
 //         16-, 24- and 32-bit colour maps, the origin bits.
 //   BMP   1/4/8-bit palette (RLE8 and RLE4 too), 16-bit (5-5-5 and 5-6-5),
-//         24- and 32-bit, BI_RGB and BI_BITFIELDS, bottom-up and top-down.
+//         24- and 32-bit, BI_RGB and BI_BITFIELDS, bottom-up and top-down;
+//         a DIB without the file header; an ICO's bitmap (half height, the
+//         AND mask or 32-bit alpha) and a CUR's (IcoImagePlugin,
+//         CurImagePlugin).
+//   ICNS  an RGB member, raw or Apple's RLE, with its mask (the container
+//         is parsed by the caller).
 //   GIF   the first frame: LZW, interlace, local and global colour tables,
 //         the transparent index, a frame offset inside the screen.
 //   PNM   P1-P6 (ASCII and binary, any maxval) and Pf.
@@ -43,14 +49,18 @@
 //         compressed ones as libtiff decodes them (PackBits, LZW, Deflate
 //         and LZMA through the caller, JPEG through the decoder above,
 //         CCITT RLE/RLEW/T.4/T.6 and ZSTD through the other sources,
-//         ThunderScan; predictors 2 and 3; host-order samples) and Pillow
-//         unpacks them; YCbCr without JPEG through libtiff's TIFFRGBAImage
-//         (its float-built tables, its block walk); Lab as PSD's; 12-bit
-//         grey ("I;12"); Orientation as Pillow 12's load applies it.
+//         ThunderScan, old-style LZW (LZWDecodeCompat), old-style JPEG (the
+//         stream tif_ojpeg.c writes for libjpeg); predictors 2 and 3;
+//         host-order samples) and Pillow unpacks them; YCbCr without JPEG
+//         through libtiff's TIFFRGBAImage (its float-built tables, its
+//         block walk, a corrupt strip as stoponerr 0 leaves it); Lab as
+//         PSD's; 12-bit grey ("I;12"); Orientation as Pillow 12's load
+//         applies it.  A float TIFF sky read apart, as imageio's tifffile
+//         reads it (float_sky).
 //
 // Pixels come back as uint8 (H, W, C): C = 1 grey, 2 grey + alpha, 3 RGB,
-// 4 RGBA (palette, CMYK and Lab images are expanded to RGBA); a float TIFF
-// also keeps its float32 samples.  Anything malformed or not ported (where
+// 4 RGBA (palette, CMYK and Lab images are expanded to RGBA); a PFM also
+// keeps its float32 samples.  Anything malformed or not ported (where
 // Pillow raises: 12-bit, hierarchical and arithmetic-coded lossless JPEG,
 // a JPEG height in a DNL marker) throws, and the C entry points turn that
 // into an error message: every read of the input is bounds-checked.
@@ -71,6 +81,7 @@
 #include <cstdlib>
 #include <cstring>
 #include <map>
+#include <memory>
 #include <set>
 #include <stdexcept>
 #include <string>
@@ -110,8 +121,8 @@ struct Image {
   int64_t w = 0, h = 0, c = 0;
   std::string mode;
   std::vector<uint8_t> px;
-  std::vector<float> fl;  // TIFF F or PFM: the float samples, fh x fw (px holds convert's bytes)
-  int64_t fw = 0, fh = 0;
+  std::vector<float> fl;  // a float TIFF's or a PFM's samples, fh x fw x fc (px holds convert's bytes, if any)
+  int64_t fw = 0, fh = 0, fc = 1;
 
   void alloc(int64_t w_, int64_t h_, int64_t c_, const char* mode_) {
     check_size(w_, h_);
@@ -485,10 +496,18 @@ struct Source {
   size_t n;
   bool eoi_past_end = false;
   size_t limit = SIZE_MAX;
+  int64_t row = -1;                    // the iMCU row a sequential scan is decoding
+  // libtiff's old-style JPEG source fails where libjpeg reads past its
+  // data or meets another marker than the restart it expects (its
+  // resync_to_restart raises): the first iMCU row that did either.
+  mutable int64_t failed_row = -1;
   int byte(size_t i) const {
     if (i >= limit) fail("arithmetic-coded JPEG data past a 64 KiB read (Pillow's decoder cannot suspend it)");
     if (i < n) return d[i];
-    if (eoi_past_end) return (i - n) & 1 ? 0xD9 : 0xFF;
+    if (eoi_past_end) {
+      if (failed_row < 0) failed_row = row;
+      return (i - n) & 1 ? 0xD9 : 0xFF;
+    }
     throw Truncated{};
   }
 };
@@ -512,6 +531,7 @@ int next_marker(const Source& src, size_t& pos) {
 // one of the two before), or discarded (any other restart).
 void read_restart_marker(const Source& src, size_t& pos, int& marker, int& next_rst) {
   if (marker == 0) marker = next_marker(src, pos);
+  if (marker != 0xD0 + next_rst && src.failed_row < 0) src.failed_row = src.row;
   if (marker == 0xD0 + next_rst) {
     marker = 0;
   } else {
@@ -944,6 +964,7 @@ struct Jpeg {
     int eobrun = 0;
     for (int64_t m = 0; m < total; ++m) {
       const int row = blocks_of(m);
+      src.row = row;
       if (!br.insufficient) last_good_row = row;
       if (restart_interval) {
         if (restarts_to_go == 0) {
@@ -972,6 +993,7 @@ struct Jpeg {
         }
       }
     }
+    src.row = -1;
     p = br.pos;
     return br.marker;
   }
@@ -1434,25 +1456,32 @@ struct Jpeg {
   // above the first and below the last real row repeat it).  A lossless
   // file's samples are upsampled by replication (libjpeg's fancy
   // upsampling needs a DCT scaling above 1).
-  std::vector<uint8_t> full_plane(int ci) {
+  // A component's samples before upsampling: its blocks (lossless: its
+  // samples) decoded, `pw` a row; what jpeg_read_raw_data hands on.
+  std::vector<uint8_t> block_plane(int ci, size_t& pw) {
     Component& c = comps[size_t(ci)];
-    size_t pw;
     std::vector<uint8_t> plane;
     if (lossless) {
       pw = size_t(c.bw_pad);
-      plane = c.lossless;
-    } else {
-      pw = size_t(c.bw) * 8;
-      plane.assign(pw * size_t(c.bh) * 8, 0);
-      for (int by = 0; by < c.bh; ++by) {
-        uint8_t* rowp = plane.data() + size_t(by) * 8 * pw;
-        if (smooth) {
-          smooth_row(ci, by, rowp, pw);
-          continue;
-        }
-        for (int bx = 0; bx < c.bw; ++bx) idct_islow(c.block(bx, by), c.q, rowp + size_t(bx) * 8, pw);
-      }
+      return c.lossless;
     }
+    pw = size_t(c.bw) * 8;
+    plane.assign(pw * size_t(c.bh) * 8, 0);
+    for (int by = 0; by < c.bh; ++by) {
+      uint8_t* rowp = plane.data() + size_t(by) * 8 * pw;
+      if (smooth) {
+        smooth_row(ci, by, rowp, pw);
+        continue;
+      }
+      for (int bx = 0; bx < c.bw; ++bx) idct_islow(c.block(bx, by), c.q, rowp + size_t(bx) * 8, pw);
+    }
+    return plane;
+  }
+
+  std::vector<uint8_t> full_plane(int ci) {
+    Component& c = comps[size_t(ci)];
+    size_t pw;
+    const std::vector<uint8_t> plane = block_plane(ci, pw);
     if (maxh % c.h || maxv % c.v) fail("JPEG with fractional sampling ratios is not supported");
     const int he = maxh / c.h, ve = maxv / c.v, dw = c.dw, dh = c.dh;
     std::vector<uint8_t> out(size_t(width) * height);
@@ -2000,38 +2029,44 @@ std::vector<uint8_t> bmp_rle(Bytes in, size_t pos, int64_t w, int64_t h, bool rl
 // BI_BITFIELDS 5-6-5 -> "BGR;16" (6 bits scaled by 255/63) and 5-5-5;
 // 24-bit -> "RGB"; 32-bit BI_RGB -> "RGB" (the fourth byte ignored);
 // 32-bit BI_BITFIELDS -> the masks Pillow knows, "RGBA" where one is alpha.
-Image bmp(Bytes in) {
-  if (in.n < 18 || in.p[0] != 'B' || in.p[1] != 'M') fail("not a BMP file");
-  size_t offset = in.le32(10, "BMP header");
-  const uint32_t hs = in.le32(14, "BMP header");
+// A device-independent bitmap as Pillow's BmpImageFile._bitmap reads it:
+// its header at `at` (12, 40, 52, 56, 64, 108 or 124 bytes), its pixels at
+// `offset` (0: right after the header, its masks and its palette, as a
+// DIB's are); `halve` keeps the first half of its rows (an icon's or a
+// cursor's colour image, which Pillow reads at half the header's height);
+// `raw_alpha` reads 32-bit BI_RGB pixels as BGRA (a cursor's bitmap at
+// byte 22).  `pixels_at`, if given, receives where the pixels start.
+Image bitmap(Bytes in, size_t at, size_t offset, bool halve, bool raw_alpha, size_t* pixels_at = nullptr) {
+  const uint32_t hs = in.le32(at, "BMP header");
   int64_t w, h;
   int bits, compression = 0, pad;
   uint32_t colors = 0, masks[4] = {0, 0, 0, 0};
   bool top_down = false;
-  in.need(14, hs, "BMP header");
-  size_t p = 14 + hs;  // the palette, or the masks of a 40-byte header
+  in.need(at, hs, "BMP header");
+  size_t p = at + hs;  // the palette, or the masks of a 40-byte header
   if (hs == 12) {
-    w = in.le16(18, "BMP"), h = in.le16(20, "BMP"), bits = int(in.le16(24, "BMP")), pad = 3;
+    w = in.le16(at + 4, "BMP"), h = in.le16(at + 6, "BMP"), bits = int(in.le16(at + 10, "BMP")), pad = 3;
   } else if (hs == 40 || hs == 52 || hs == 56 || hs == 64 || hs == 108 || hs == 124) {
-    top_down = in.p[25] == 0xFF;
-    w = in.le32(18, "BMP");
-    const uint32_t hr = in.le32(22, "BMP");
+    top_down = in.p[at + 11] == 0xFF;
+    w = in.le32(at + 4, "BMP");
+    const uint32_t hr = in.le32(at + 8, "BMP");
     h = top_down ? int64_t(0x100000000) - hr : int64_t(hr);
-    bits = int(in.le16(28, "BMP"));
-    compression = int(in.le32(30, "BMP"));
-    colors = in.le32(46, "BMP");
+    bits = int(in.le16(at + 14, "BMP"));
+    compression = int(in.le32(at + 16, "BMP"));
+    colors = in.le32(at + 32, "BMP");
     pad = 4;
     if (compression == 3) {
       if (hs - 4 >= 48) {
-        for (int k = 0; k < (hs - 4 >= 52 ? 4 : 3); ++k) masks[k] = in.le32(54 + 4 * size_t(k), "BMP");
+        for (int k = 0; k < (hs - 4 >= 52 ? 4 : 3); ++k) masks[k] = in.le32(at + 40 + 4 * size_t(k), "BMP");
       } else {  // a 40-byte header: three masks follow it
-        for (int k = 0; k < 3; ++k) masks[k] = in.le32(14 + hs + 4 * size_t(k), "BMP bitfields");
+        for (int k = 0; k < 3; ++k) masks[k] = in.le32(at + hs + 4 * size_t(k), "BMP bitfields");
         p += 12;
       }
     }
   } else {
     fail("unsupported BMP header size " + std::to_string(hs));
   }
+  if (halve) h /= 2;
   if (colors == 0) colors = bits < 32 ? uint32_t(1) << bits : 0;
   if (offset == 14 + hs && bits <= 8) offset += 4 * size_t(colors);
   if (bits != 1 && bits != 4 && bits != 8 && bits != 16 && bits != 24 && bits != 32)
@@ -2042,7 +2077,7 @@ Image bmp(Bytes in) {
   if (rle && bits > 8) fail("RLE-compressed BMP of " + std::to_string(bits) + " bits does not exist");
   // Channel byte offsets in a stored pixel (BGR order by default), -1: none;
   // a 16-bit pixel: 5 (5-5-5) or 6 (5-6-5), the width of its green field.
-  int ch[4] = {2, 1, 0, -1}, green16 = 5;
+  int ch[4] = {2, 1, 0, raw_alpha && bits == 32 && compression == 0 ? 3 : -1}, green16 = 5;
   if (compression == 3) {
     struct Layout { uint32_t m[4]; int ch[4]; };
     static const Layout l32[] = {
@@ -2087,6 +2122,7 @@ Image bmp(Bytes in) {
     p += avail;
   }
   if (offset == 0) offset = p;  // Pillow: the file position after the palette
+  if (pixels_at) *pixels_at = offset;
   if (w <= 0 || h <= 0) fail("BMP has bad dimensions");
   const bool one = grey && colors == 2;  // mode "1"
   const char* mode = grey ? (one ? "1" : "L") : bits <= 8 ? "P" : ch[3] >= 0 ? "RGBA" : "RGB";
@@ -2141,6 +2177,90 @@ Image bmp(Bytes in) {
         for (int k = 0; k < channels; ++k) o[k] = s[ch[k]];
       }
     }
+  }
+  return img;
+}
+
+Image bmp(Bytes in) {
+  if (in.n < 18 || in.p[0] != 'B' || in.p[1] != 'M') fail("not a BMP file");
+  return bitmap(in, 14, in.le32(10, "BMP header"), false, false);
+}
+
+// An icon's bitmap image (IcoImagePlugin.IcoFile.frame): the DIB at `at`
+// read at half its height, as RGBA, its alpha from the directory entry's
+// view: a 32-bit entry's from every fourth byte of the pixels (bottom-up,
+// unpadded), any other's from the AND mask that ends the entry's `size`
+// bytes (1 bit a pixel, rows padded to 32 bits, bottom-up; a set bit is
+// transparent).
+Image icon_bitmap(Bytes in, size_t at, uint64_t size, int entry_bits) {
+  size_t data = 0;
+  Image dib = bitmap(in, at, 0, true, false, &data);
+  const int64_t w = dib.w, h = dib.h;
+  Image img;
+  img.alloc(w, h, 4, "RGBA");
+  for (int64_t i = 0; i < w * h; ++i) {
+    const uint8_t* s = dib.px.data() + size_t(i) * size_t(dib.c);
+    uint8_t* o = img.px.data() + 4 * size_t(i);
+    if (dib.c == 1) o[0] = o[1] = o[2] = s[0];
+    else std::memcpy(o, s, 3);
+  }
+  if (entry_bits == 32) {
+    if (data > in.n || size_t(w * h * 4) > in.n - data) fail("truncated icon: its alpha bytes run past the file");
+    for (int64_t y = 0; y < h; ++y)
+      for (int64_t x = 0; x < w; ++x) img.at(h - 1 - y, x)[3] = in.p[data + size_t((y * w + x) * 4 + 3)];
+    return img;
+  }
+  const int64_t row = (w + 31) / 32 * 4, total = row * h;
+  if (int64_t(at) + int64_t(size) < total || uint64_t(at) + size > in.n) fail("truncated icon: its AND mask runs past the file");
+  const size_t mask = size_t(at + size - uint64_t(total));
+  for (int64_t y = 0; y < h; ++y)
+    for (int64_t x = 0; x < w; ++x)
+      img.at(h - 1 - y, x)[3] = (in.p[mask + size_t(y * row + x / 8)] >> (7 - x % 8) & 1) ? 0 : 255;
+  return img;
+}
+
+// Apple's icon RLE of one `side` x `side` channel (IcnsImagePlugin
+// read_32): a byte n < 128 copies n + 1 bytes, n >= 128 repeats the next
+// byte n - 125 times; the channel must come out exact.
+void icns_channel(Bytes in, size_t& p, int64_t side, uint8_t* out, int step) {
+  int64_t left = side * side;
+  uint8_t* o = out;
+  while (left > 0) {
+    if (p >= in.n) break;
+    const int n = in.p[p++];
+    const int64_t k = n & 0x80 ? n - 125 : n + 1;
+    if (n & 0x80) {
+      if (p >= in.n) fail("ICNS run past the end of the file");
+      const uint8_t v = in.p[p++];
+      for (int64_t i = 0; i < std::min(k, left); ++i, o += step) *o = v;
+    } else {
+      if (size_t(k) > in.n - p) fail("ICNS literal past the end of the file");
+      for (int64_t i = 0; i < std::min(k, left); ++i, o += step) *o = in.p[p + size_t(i)];
+      p += size_t(k);
+    }
+    left -= k;
+  }
+  if (left != 0) fail("ICNS channel of the wrong length (Pillow: error reading channel)");
+}
+
+// An ICNS RGB member (is32, il32, ih32, it32 after its four zero bytes)
+// at `start`, `length` bytes: uncompressed where it holds exactly 3 bytes a
+// pixel, else three RLE channels; with its mask member's bytes at `mask`
+// (or none, -1) as alpha.
+Image icns_rgb(Bytes in, size_t start, size_t length, int64_t side, int64_t mask) {
+  Image img;
+  img.alloc(side, side, mask >= 0 ? 4 : 3, mask >= 0 ? "RGBA" : "RGB");
+  const size_t npx = size_t(side * side);
+  if (length == npx * 3) {
+    in.need(start, length, "ICNS member");
+    for (size_t i = 0; i < npx; ++i) std::memcpy(img.px.data() + i * size_t(img.c), in.p + start + 3 * i, 3);
+  } else {
+    size_t p = start;
+    for (int b = 0; b < 3; ++b) icns_channel(in, p, side, img.px.data() + b, int(img.c));
+  }
+  if (mask >= 0) {
+    in.need(size_t(mask), npx, "ICNS mask");
+    for (size_t i = 0; i < npx; ++i) img.px[4 * i + 3] = in.p[size_t(mask) + i];
   }
   return img;
 }
@@ -3182,7 +3302,7 @@ struct Dir {
     if (it == lt.end() || it->second.outside || it->second.count == 0 || (count && it->second.count != count))
       return nullptr;
     const int t = it->second.type;  // libtiff ignores an integer tag of another type
-    if (count == 1 && !(t == 1 || t == 3 || t == 4 || t == 6 || t == 8 || t == 9 || t == 16)) return nullptr;
+    if (count == 1 && !(t == 1 || t == 3 || t == 4 || t == 6 || t == 8 || t == 9 || t == 16 || t == 17)) return nullptr;
     return &it->second;
   }
   bool lt_has(int tag) const { return lt_field(tag) != nullptr; }
@@ -3200,6 +3320,15 @@ struct Dir {
   std::vector<int64_t> lt_ints(int tag, std::vector<int64_t> dflt, const char* name, uint64_t count = 0) const {
     const Field* f = lt_field(tag, count);
     return f ? values(*this, *f, f->count, name) : dflt;
+  }
+  // An array libtiff reads as integers (TIFFReadDirEntry{Short,Long8}Array):
+  // a value of another type (ASCII, UNDEFINED, a rational or float, IFD)
+  // makes it ignore the tag.
+  std::vector<int64_t> lt_integers(int tag, std::vector<int64_t> dflt, const char* name, uint64_t count = 0) const {
+    const Field* f = lt_field(tag, count);
+    const int t = f ? f->type : 0;
+    if (!(t == 1 || t == 3 || t == 4 || t == 6 || t == 8 || t == 9 || t == 16 || t == 17)) return dflt;
+    return values(*this, *f, f->count, name);
   }
   // TIFFFetchStripThing: the first `n` offsets or byte counts (the rest of
   // a longer list unread, so it may run past the file), zeros after a
@@ -3281,11 +3410,14 @@ struct Dir {
       const size_t val = pos + (big ? 12 : 8);
       if (f.type < 1 || f.type > 16 || kTypeSize[f.type] == 0) {
         // Pillow skips the entry; libtiff ignores it too, unless it reads
-        // the tag before anything else (then its directory read fails) or
-        // it is a strip list of SLONG8 or IFD8 values, which libtiff reads.
-        if (kFirstRead.count(tag)) clean = false;
-        if ((f.type == 17 || f.type == 18) && (tag == 273 || tag == 279 || tag == 324 || tag == 325) &&
-            !lt.count(tag)) {
+        // the tag before anything else (then its directory read fails), or
+        // it holds a BigTIFF's SLONG8 values (which libtiff reads as
+        // integers), or it is a BigTIFF's strip list of IFD8 values, which
+        // libtiff reads (a classic TIFF's of these types fails the read).
+        const bool strip_list = tag == 273 || tag == 279 || tag == 324 || tag == 325;
+        const bool lt_reads = big && (f.type == 17 || (f.type == 18 && strip_list));
+        if ((kFirstRead.count(tag) || (strip_list && (f.type == 17 || f.type == 18))) && !lt_reads) clean = false;
+        if (lt_reads && !lt.count(tag)) {
           const uint64_t size = f.count > in.n ? in.n + 1 : f.count * 8;
           if (size > slot) {
             f.slot_value = u(val, int(slot));
@@ -3325,7 +3457,8 @@ struct Dir {
       if (it == lt.end()) continue;
       const Field& f = it->second;
       const int t = f.type;
-      if (f.outside || (f.count == 0 && tag != 338) || !(t == 1 || t == 3 || t == 4 || t == 6 || t == 8 || t == 9 || t == 16)) {
+      if (f.outside || (f.count == 0 && tag != 338) ||
+          !(t == 1 || t == 3 || t == 4 || t == 6 || t == 8 || t == 9 || t == 16 || t == 17)) {
         clean = false;
       } else if (f.count != 1 && (tag == 258 || tag == 259 || tag == 280 || tag == 281 || tag == 339)) {
         if (spp < 1 || f.count < uint64_t(spp)) clean = false;
@@ -3337,13 +3470,12 @@ struct Dir {
   }
 };
 
-// The codecs Pillow knows by name that the port does not decode: old-style
-// JPEG is left to port; this libtiff has no WebP codec, and its SGILog
-// codec reads only the LogL/LogLuv photometrics, which Pillow has no mode
-// for, so Pillow raises on both.
+// The codecs Pillow knows by name that the port does not decode: this
+// libtiff has no WebP codec, and its SGILog codec reads only the
+// LogL/LogLuv photometrics, which Pillow has no mode for, so Pillow raises
+// on both.
 const char* compression_name(int64_t c) {
   switch (c) {
-    case 6: return "old-style JPEG (6)";
     case 34676: return "SGILog (34676)";
     case 34677: return "SGILog24 (34677)";
     case 50001: return "WebP (50001)";
@@ -3399,6 +3531,20 @@ void thunder_row(Bytes src, size_t& pos, uint8_t* op, int64_t width) {
   if (npx != width) fail(std::string(npx < width ? "not enough" : "too much") + " ThunderScan data in a TIFF row");
 }
 
+// A segment whose codec failed part way, as libtiff leaves its buffer:
+// `out` holds the bytes decoded before the error and zeros after, and
+// `written` says how far the codec wrote (libtiff's LZW, PackBits, Deflate
+// and LZMA decoders zero the rest themselves; the old-style LZW decoder
+// leaves it as the buffer held it).  Pillow's YCbCr reader goes on with
+// such a segment (TIFFRGBAImage with stoponerr 0); every other reader
+// raises.
+struct PartialSegment : DecodeError {
+  std::vector<uint8_t> out;
+  size_t written;
+  PartialSegment(const std::string& msg, std::vector<uint8_t> o, size_t w)
+      : DecodeError(msg), out(std::move(o)), written(w) {}
+};
+
 // libtiff's PackBitsDecode of one segment into `need` bytes.
 std::vector<uint8_t> unpackbits(Bytes src, size_t need) {
   std::vector<uint8_t> out(need);
@@ -3423,15 +3569,19 @@ std::vector<uint8_t> unpackbits(Bytes src, size_t need) {
       op += k, occ -= k, ip += k, cc -= k;
     }
   }
-  if (occ > 0) fail("not enough PackBits data in a TIFF strip or tile");
+  if (occ > 0) throw PartialSegment("not enough PackBits data in a TIFF strip or tile", std::move(out), need);
   return out;
 }
 
-// libtiff's LZWDecode (codes most significant bit first, 9 to 12 bits,
-// each width one code early) of one segment into `need` bytes.
-std::vector<uint8_t> unlzw(Bytes src, size_t need) {
-  if (src.n >= 2 && src.p[0] == 0 && (src.p[1] & 1))
-    fail("old-style (LSB-first) TIFF LZW is not supported");
+// libtiff's LZW decoders (tif_lzw.c) of one segment into `need` bytes:
+// LZWDecode (codes most significant bit first, 9 to 12 bits, each width
+// one code early) or, with `compat`, LZWDecodeCompat, the old-style codes
+// (least significant bit first, each width at the code after, as
+// LZW_COMPAT builds decode them).  A segment that does not end in EOI
+// stops where its bits do; a string longer than the room left is cut.
+// On an error the new-style decoder zeros the rest of the segment; the
+// old-style one leaves it as it was.
+std::vector<uint8_t> unlzw(Bytes src, size_t need, bool compat) {
   struct Code { int next; uint16_t length; uint8_t value, first; };
   constexpr int kClear = 256, kEoi = 257, kFirst = 258, kSize = 4095 + 1024;
   std::vector<Code> tab(kSize);
@@ -3439,11 +3589,19 @@ std::vector<uint8_t> unlzw(Bytes src, size_t need) {
   std::vector<uint8_t> out(need);
   size_t op = 0, bitpos = 0;
   const size_t nbits_total = src.n * 8;
-  int nbits = 9, free_ent = kFirst, maxcode = 510, old = -1;
+  const int grow = compat ? 1 : 2;  // a width's last code: (1 << nbits) - grow
+  int nbits = 9, free_ent = kFirst, maxcode = (1 << 9) - grow, old = -1;
+  auto error = [&](const char* msg) {
+    throw PartialSegment(msg, std::move(out), compat ? op : need);
+  };
   auto next_code = [&]() -> int {
-    if (nbits_total - std::min(bitpos, nbits_total) < size_t(nbits)) return kEoi;  // no EOI: stop
+    if (nbits_total - std::min(bitpos, nbits_total) < size_t(nbits)) return -1;  // out of bits
     int v = 0;
-    for (int k = 0; k < nbits; ++k, ++bitpos) v = v << 1 | (src.p[bitpos >> 3] >> (7 - (bitpos & 7)) & 1);
+    if (compat) {
+      for (int k = 0; k < nbits; ++k, ++bitpos) v |= (src.p[bitpos >> 3] >> (bitpos & 7) & 1) << k;
+    } else {
+      for (int k = 0; k < nbits; ++k, ++bitpos) v = v << 1 | (src.p[bitpos >> 3] >> (7 - (bitpos & 7)) & 1);
+    }
     return v;
   };
   auto emit = [&](int code) {  // the string of `code`, cut at the end of the segment
@@ -3459,21 +3617,24 @@ std::vector<uint8_t> unlzw(Bytes src, size_t need) {
   };
   while (op < need) {
     int code = next_code();
-    if (code == kEoi) break;
+    if (code < 0 && !compat) error("TIFF LZW strip or tile not terminated with EOI");
+    if (code < 0 || code == kEoi) break;
     if (code == kClear) {
       do {
         for (int i = kFirst; i < kSize; ++i) tab[size_t(i)].length = 0;
-        free_ent = kFirst, nbits = 9, maxcode = 510;
+        free_ent = kFirst, nbits = 9, maxcode = (1 << 9) - grow;
         code = next_code();
+        if (code < 0 && !compat) error("TIFF LZW strip or tile not terminated with EOI");
       } while (code == kClear);
-      if (code == kEoi) break;
-      if (code > kClear) fail("corrupt TIFF LZW data: bad first code");
+      if (code < 0 || code == kEoi) break;
+      if (code > kClear) error("corrupt TIFF LZW data: bad first code");
       out[op++] = uint8_t(code);
       old = code;
       continue;
     }
-    if (old < 0) fail("corrupt TIFF LZW data: no clear code first");
-    if (free_ent >= kSize) fail("corrupt TIFF LZW data: table overflow");
+    if (old < 0) error("corrupt TIFF LZW data: no clear code first");
+    if (free_ent >= kSize) error("corrupt TIFF LZW data: table overflow");
+    if (!compat && code > free_ent) error("corrupt TIFF LZW data: a code not yet defined");
     Code& e = tab[size_t(free_ent)];
     e.next = old;
     e.first = tab[size_t(old)].first;
@@ -3481,14 +3642,71 @@ std::vector<uint8_t> unlzw(Bytes src, size_t need) {
     e.value = code < free_ent ? tab[size_t(code)].first : e.first;
     if (++free_ent > maxcode) {
       nbits = std::min(nbits + 1, 12);
-      maxcode = (1 << nbits) - 2;
+      maxcode = (1 << nbits) - grow;
     }
     old = code;
-    if (tab[size_t(code)].length == 0) fail("corrupt TIFF LZW data: a code not yet defined");
+    if (tab[size_t(code)].length == 0) error("corrupt TIFF LZW data: a code not yet defined");
     emit(code);
   }
-  if (op < need) fail("not enough LZW data in a TIFF strip or tile");
+  if (op < need) error("not enough LZW data in a TIFF strip or tile");
   return out;
+}
+
+// The codecs a float TIFF uses, as libtiff runs them on one segment:
+// none (the stored bytes, cut or zero-padded to `need`), LZW (its style
+// fixed by the file's first segment, `lzw_style`), PackBits, ZSTD, and
+// Deflate and LZMA through `decompress`.
+std::vector<uint8_t> plain_codec(int64_t comp, Bytes src, size_t need, CodecFn decompress, int& lzw_style) {
+  if (comp == 1) {
+    std::vector<uint8_t> out(src.p, src.p + std::min(src.n, need));
+    if (out.size() < need) fail("not enough data in an uncompressed TIFF strip or tile");
+    return out;
+  }
+  if (comp == 32773) return unpackbits(src, need);
+  if (comp == 5) {
+    if (!lzw_style) lzw_style = src.n >= 2 && src.p[0] == 0 && (src.p[1] & 1) ? 2 : 1;
+    return unlzw(src, need, lzw_style == 2);
+  }
+  if (comp == 50000) return zstd::decode(src.p, src.n, need);
+  if (comp != 8 && comp != 32946 && comp != 34925) fail("TIFF compression " + std::to_string(comp) + " is not supported here");
+  const bool xz = comp == 34925;
+  std::vector<uint8_t> out(need);
+  const int64_t got = decompress(xz ? 1 : 0, src.p, int64_t(src.n), out.data(), int64_t(need));
+  if (got < 0) fail(xz ? "TIFF LZMA data does not decompress" : "TIFF Deflate data does not inflate");
+  if (size_t(got) < need) fail(std::string("not enough ") + (xz ? "LZMA" : "Deflate") + " data in a TIFF strip or tile");
+  return out;
+}
+
+// A decoded segment's rows of `row_bytes` into host (little-endian) order
+// as libtiff leaves them: the floating-point predictor's fpAcc (byte
+// planes, most significant first, each differenced across the row), else
+// 16-, 32- and 64-bit samples swabbed from a big-endian file and the
+// horizontal predictor's horAcc8/16/32/64; `stride` samples a pixel.
+void undo_predictor(std::vector<uint8_t>& out, int64_t row_bytes, int64_t predictor, int bits, int stride, bool mm) {
+  const int k = bits / 8;
+  if (predictor != 1 && (out.size() % size_t(row_bytes) || (predictor == 3 && row_bytes % (k * stride))))
+    fail("TIFF predictor rows do not divide the strip or tile");
+  for (size_t row = 0; row + size_t(row_bytes) <= out.size(); row += size_t(row_bytes)) {
+    uint8_t* p = out.data() + row;
+    if (predictor == 3) {  // tif_predict.c fpAcc
+      for (int64_t i = stride; i < row_bytes; ++i) p[i] = uint8_t(p[i] + p[i - stride]);
+      const std::vector<uint8_t> tmp(p, p + row_bytes);
+      const int64_t wc = row_bytes / k;
+      for (int64_t i = 0; i < wc; ++i)
+        for (int b = 0; b < k; ++b) p[k * i + b] = tmp[size_t((k - 1 - b) * wc + i)];
+      continue;
+    }
+    if (mm && (bits == 16 || bits == 32 || bits == 64))  // libtiff swabs to host order
+      for (int64_t i = 0; i + k <= row_bytes; i += k) std::reverse(p + i, p + i + k);
+    if (predictor == 2) {  // horAcc8/16/32/64
+      for (int64_t i = stride; i < row_bytes / k; ++i) {
+        uint64_t a = 0, b = 0;
+        for (int j = 0; j < k; ++j) a |= uint64_t(p[i * k + j]) << (8 * j), b |= uint64_t(p[(i - stride) * k + j]) << (8 * j);
+        a += b;
+        for (int j = 0; j < k; ++j) p[i * k + j] = uint8_t(a >> (8 * j));
+      }
+    }
+  }
 }
 
 // libtiff's TIFFYCbCrToRGBInit tables and TIFFYCbCrtoRGB (tif_color.c), in
@@ -3573,6 +3791,356 @@ const OpenInfo* find_mode(bool mm, int64_t photo, const std::vector<int64_t>& fm
   return nullptr;
 }
 
+// Old-style JPEG (compression 6) as libtiff's tif_ojpeg.c hands it on.
+// libtiff reads one run of bytes: the JPEGInterchangeFormat stream (513,
+// 514; an offset past the file is ignored, a length of 0 or past the file
+// cut at its end), then each strip in turn (an offset past the file gives
+// nothing, a byte count of 0 or past the file runs to its end).  From the
+// start of that run it reads markers up to SOS (or up to the first byte
+// that is no marker): SOI, APPn and COM skipped, DRI, DQT and DHT kept,
+// SOF0/1/3 checked against the directory.  Without an SOF it builds the
+// tables from JPEGQTables, JPEGDCTables and JPEGACTables (519-521, one
+// offset a sample, tables 0-2), component ids 0, 1, 2, and a frame of the
+// strip's width and the strips' height.  libjpeg then reads a stream libtiff
+// writes: SOI, the tables, DRI (the stream's, else one restart interval a
+// strip when there are several strips, else JPEGRestartInterval), SOF,
+// SOS, the rest of the run with an RST after each strip's bytes but the
+// last, and EOI.  Before that, for three samples in YCbCr, libtiff takes
+// the subsampling from the stream's SOF over YCbCrSubsampling's (default
+// 2, 2), and lets libjpeg upsample (JCS_UNKNOWN: no colour conversion)
+// where the SOF states sampling TIFF cannot (and then fails, as its
+// frame's largest factors are not 1 x 1); else it reads the raw,
+// subsampled planes (jpeg_read_raw_data) in libtiff's YCbCr blocks, which
+// TIFFRGBAImage converts as any YCbCr TIFF's.  One sample is read as it
+// is.
+struct OldJpeg {
+  int64_t hs = 1, vs = 1;    // the subsampling libtiff reports
+  bool forced = false;       // sampling that libtiff would have libjpeg upsample
+  int spp = 1;
+  int64_t failed_from = INT64_MAX;  // the first luma row of the strips libjpeg fails on
+  int64_t last_start = 0;           // the last strip's first row
+  std::vector<uint8_t> planes[3];
+  size_t pw[3] = {0, 0, 0};
+
+  struct Run {  // OJPEGReadBufferFill's source: parts in order
+    std::vector<Bytes> parts;
+    std::vector<int64_t> strip;  // each part's strip, -1 for the interchange stream
+    size_t part = 0, pos = 0;
+    bool settle() {
+      while (part < parts.size() && pos >= parts[part].n) ++part, pos = 0;
+      return part < parts.size();
+    }
+    bool peek(uint8_t& b) {
+      if (!settle()) return false;
+      b = parts[part].p[pos];
+      return true;
+    }
+    bool byte(uint8_t& b) {
+      if (!peek(b)) return false;
+      ++pos;
+      return true;
+    }
+    bool word(uint16_t& v) {
+      uint8_t a, b;
+      if (!byte(a) || !byte(b)) return false;
+      v = uint16_t(a << 8 | b);
+      return true;
+    }
+    bool block(uint8_t* o, size_t n) {
+      for (size_t i = 0; i < n; ++i)
+        if (!byte(o[i])) return false;
+      return true;
+    }
+    void skip(size_t n) {  // OJPEGReadSkip: never past the part it is in
+      if (part < parts.size()) pos += std::min(n, parts[part].n - std::min(pos, parts[part].n));
+    }
+  };
+
+  // A strip or tile is `strip_w` x `strip_h` (RowsPerStrip as libtiff reads
+  // it); tiles are read as strips of the tile's width, one under another.
+  OldJpeg(const Dir& d, Bytes in, int64_t w, int64_t h, int64_t spp_, bool ycbcr, int64_t strip_w, int64_t strip_h,
+          bool tiled, const std::vector<int64_t>& offsets, const std::vector<int64_t>& counts) {
+    spp = int(spp_);
+    if (spp != 1 && spp != 3) fail("old-style JPEG TIFF with " + std::to_string(spp) + " samples (libtiff: not supported)");
+    const int64_t total_h = tiled ? (h + strip_h - 1) / strip_h * strip_h : h;
+    last_start = (std::min(strip_h, h) > 0 ? (h - 1) / std::min(strip_h, h) : 0) * std::min(strip_h, h);
+    // YCbCrSubsampling as OJPEG reads the tag (default 2, 2).
+    const std::vector<int64_t> tag = d.lt_integers(530, {2, 2}, "YCbCrSubsampling", 2);
+    hs = spp == 3 && ycbcr ? tag[0] : 1, vs = spp == 3 && ycbcr ? tag[1] : 1;
+    Run run;
+    const uint64_t size = in.n;
+    if (const Field* f = d.lt_field(513, 1)) {
+      const uint64_t at = uint64_t(d.at(*f, 0, "JPEGInterchangeFormat"));
+      if (at != 0 && at < size) {
+        uint64_t len = 0;
+        if (const Field* g = d.lt_field(514, 1)) len = uint64_t(d.at(*g, 0, "JPEGInterchangeFormatLength"));
+        if (len == 0 || len > size - at) len = size - at;
+        run.parts.push_back(Bytes{in.p + at, size_t(len)});
+        run.strip.push_back(-1);
+      }
+    }
+    for (size_t i = 0; i < offsets.size(); ++i) {
+      const uint64_t at = uint64_t(offsets[i]);
+      uint64_t len = uint64_t(counts[i]);
+      if (at == 0 || at >= size) len = 0;
+      else if (len == 0 || len > size - at) len = size - at;
+      run.parts.push_back(Bytes{in.p + std::min<uint64_t>(at, size), size_t(len)});
+      run.strip.push_back(int64_t(i));
+    }
+    // OJPEGSubsamplingCorrect: the SOF's sampling, read ahead.
+    if (spp == 3 && ycbcr) {
+      Run ahead = run;
+      sampling_from_sof(ahead);
+      // libjpeg's maximum sampling factors must then be 1 x 1, and are not.
+      if (forced) fail("old-style JPEG in a TIFF with sampling factors TIFF cannot state (libtiff refuses it)");
+    }
+    // OJPEGReadHeaderInfo.
+    const bool several = strip_h < h;
+    uint16_t restart = uint16_t(d.lt_get(515, 0, "JPEGRestartInterval"));
+    if (several) {
+      if ((hs != 1 && hs != 2 && hs != 4) || (vs != 1 && vs != 2 && vs != 4))
+        fail("old-style JPEG TIFF with invalid subsampling values (libtiff refuses it)");
+      if (strip_h % (vs * 8)) fail("old-style JPEG TIFF strips of a height that holds no whole MCUs (libtiff refuses it)");
+      restart = uint16_t((strip_w + hs * 8 - 1) / (hs * 8) * (strip_h / (vs * 8)));
+    }
+    // OJPEGReadHeaderInfoSec.
+    std::vector<uint8_t> qt[4], dc[4], ac[4];
+    bool have_sof = false;
+    int sof_marker = 0xC0;
+    uint16_t sof_x = 0, sof_y = 0;
+    uint8_t sof_c[3] = {0, 1, 2}, sof_hv[3] = {uint8_t(hs << 4 | vs), 17, 17}, sof_tq[3] = {0, 0, 0};
+    uint8_t sos_cs[3] = {0, 1, 2}, sos_tda[3] = {0, 0, 0};
+    auto corrupt = [](const char* what) { fail(std::string("corrupt old-style JPEG in a TIFF: ") + what); };
+    for (;;) {
+      uint8_t m;
+      if (!run.peek(m)) corrupt("no image data");
+      if (m != 255) break;
+      run.byte(m);
+      do {
+        if (!run.byte(m)) corrupt("no image data");
+      } while (m == 255);
+      uint16_t n;
+      if (m == 0xD8) continue;
+      if (m == 0xFE || (m >= 0xE0 && m <= 0xEF)) {
+        if (!run.word(n) || n < 2) corrupt("bad marker segment");
+        run.skip(n - 2u);
+      } else if (m == 0xDD) {
+        if (!run.word(n) || n != 4 || !run.word(restart)) corrupt("bad DRI marker");
+      } else if (m == 0xDB) {
+        if (!run.word(n) || n <= 2) corrupt("bad DQT marker");
+        for (int left = n - 2; left > 0; left -= 65) {
+          uint8_t t[65];
+          if (left < 65 || !run.block(t, 65) || (t[0] & 15) > 3) corrupt("bad DQT marker");
+          qt[t[0] & 15].assign({0xFF, 0xDB, 0, 67});
+          qt[t[0] & 15].insert(qt[t[0] & 15].end(), t, t + 65);
+        }
+      } else if (m == 0xC4) {
+        if (!run.word(n) || n <= 2) corrupt("bad DHT marker");
+        std::vector<uint8_t> seg = {0xFF, 0xC4, uint8_t(n >> 8), uint8_t(n)};
+        seg.resize(size_t(n) + 2);
+        if (!run.block(seg.data() + 4, size_t(n) - 2)) corrupt("bad DHT marker");
+        const int o = seg[4];
+        if ((o & 0xF0) != 0 && (o & 0xF0) != 16) corrupt("bad DHT marker");
+        if ((o & 15) > 3) corrupt("bad DHT marker");
+        ((o & 0xF0) ? ac : dc)[o & 15] = std::move(seg);
+      } else if (m == 0xC0 || m == 0xC1 || m == 0xC3) {
+        if (have_sof) corrupt("two frames");
+        sof_marker = m;
+        uint8_t p, nf;
+        if (!run.word(n) || n < 11 || (n - 8) % 3) corrupt("bad SOF marker");
+        if ((n - 8) / 3 != spp) fail("old-style JPEG in a TIFF of another number of samples than the TIFF (libtiff refuses it)");
+        if (!run.byte(p)) corrupt("bad SOF marker");
+        if (p != 8) fail("old-style JPEG in a TIFF of " + std::to_string(p) + "-bit samples (libtiff refuses it)");
+        if (!run.word(sof_y) || !run.word(sof_x)) corrupt("bad SOF marker");
+        if (sof_y < total_h && sof_y < h) fail("old-style JPEG in a TIFF with a frame shorter than the image (libtiff refuses it)");
+        if ((sof_x < w && sof_x < strip_w) || sof_x > strip_w)
+          fail("old-style JPEG in a TIFF with a frame of another width than the image (libtiff refuses it)");
+        if (!run.byte(nf) || nf != spp) corrupt("bad SOF marker");
+        for (int q = 0; q < spp; ++q) {
+          uint8_t hv;
+          if (!run.byte(sof_c[q]) || !run.byte(hv) || !run.byte(sof_tq[q])) corrupt("bad SOF marker");
+          sof_hv[q] = hv;
+          if (!forced && hv != (q == 0 ? uint8_t(hs << 4 | vs) : 17))
+            fail("old-style JPEG in a TIFF with unexpected subsampling values (libtiff refuses it)");
+        }
+        have_sof = true;
+      } else if (m == 0xDA) {
+        if (!have_sof) corrupt("SOS before SOF");
+        uint8_t ns;
+        if (!run.word(n) || n != 6 + spp * 2 || !run.byte(ns) || ns != spp) corrupt("bad SOS marker");
+        for (int q = 0; q < spp; ++q)
+          if (!run.byte(sos_cs[q]) || !run.byte(sos_tda[q])) corrupt("bad SOS marker");
+        run.skip(3);
+        break;
+      } else {
+        fail("old-style JPEG in a TIFF with marker " + std::to_string(m) + " (libtiff: unknown marker type)");
+      }
+    }
+    if (!have_sof) {  // OJPEGReadHeaderInfoSecTables{Q,Dc,Ac}Table
+      sof_x = uint16_t(strip_w), sof_y = uint16_t(total_h);
+      auto offsets_of = [&](int t, const char* name) {
+        const std::vector<int64_t> v = d.lt_integers(t, {}, name);
+        if (v.empty() || v[0] == 0 || v.size() > 3) fail(std::string("old-style JPEG TIFF without usable ") + name + " (libtiff: missing JPEG tables)");
+        std::vector<uint64_t> o(3, 0);
+        for (size_t i = 0; i < v.size(); ++i) o[i] = uint64_t(v[i]);
+        return o;
+      };
+      auto read_at = [&](uint64_t at, size_t n, std::vector<uint8_t>& o) {
+        if (at > size || n > size - at) fail("old-style JPEG TIFF tables past the end of the file");
+        o.insert(o.end(), in.p + at, in.p + at + n);
+      };
+      for (int kind = 0; kind < 3; ++kind) {
+        const char* name = kind == 0 ? "JPEGQTables" : kind == 1 ? "JPEGDCTables" : "JPEGACTables";
+        const std::vector<uint64_t> off = offsets_of(519 + kind, name);
+        for (int m = 0; m < spp; ++m) {
+          if (off[size_t(m)] != 0 && (m == 0 || off[size_t(m)] != off[size_t(m) - 1])) {
+            for (int k = 0; k < m - 1; ++k)
+              if (off[size_t(m)] == off[size_t(k)]) fail(std::string("corrupt ") + name + " tag value (libtiff refuses it)");
+            std::vector<uint8_t> seg;
+            if (kind == 0) {
+              seg = {0xFF, 0xDB, 0, 67, uint8_t(m)};
+              read_at(off[size_t(m)], 64, seg);
+              qt[m] = std::move(seg);
+              sof_tq[m] = uint8_t(m);
+            } else {
+              std::vector<uint8_t> counts16;
+              read_at(off[size_t(m)], 16, counts16);
+              size_t q = 0;
+              for (uint8_t c : counts16) q += c;
+              seg = {0xFF, 0xC4, uint8_t((19 + q) >> 8), uint8_t(19 + q), uint8_t(kind == 1 ? m : 16 | m)};
+              seg.insert(seg.end(), counts16.begin(), counts16.end());
+              read_at(off[size_t(m)] + 16, q, seg);
+              (kind == 1 ? dc : ac)[m] = std::move(seg);
+              sos_tda[m] = kind == 1 ? uint8_t(m << 4) : uint8_t(sos_tda[m] | m);
+            }
+          } else if (m > 0) {
+            if (kind == 0) sof_tq[m] = sof_tq[m - 1];
+            else sos_tda[m] = kind == 1 ? sos_tda[m - 1] : uint8_t((sos_tda[m] & 0xF0) | (sos_tda[m - 1] & 15));
+          }
+        }
+      }
+    }
+    // The stream libtiff writes for libjpeg (OJPEGWriteStream).
+    std::vector<uint8_t> s = {0xFF, 0xD8};
+    for (auto* t : {qt, dc, ac})
+      for (int i = 0; i < 4; ++i) s.insert(s.end(), t[i].begin(), t[i].end());
+    if (restart) s.insert(s.end(), {0xFF, 0xDD, 0, 4, uint8_t(restart >> 8), uint8_t(restart)});
+    s.insert(s.end(), {0xFF, uint8_t(sof_marker), 0, uint8_t(8 + spp * 3), 8, uint8_t(sof_y >> 8), uint8_t(sof_y),
+                       uint8_t(sof_x >> 8), uint8_t(sof_x), uint8_t(spp)});
+    for (int q = 0; q < spp; ++q) s.insert(s.end(), {sof_c[q], sof_hv[q], sof_tq[q]});
+    s.insert(s.end(), {0xFF, 0xDA, 0, uint8_t(6 + spp * 2), uint8_t(spp)});
+    for (int q = 0; q < spp; ++q) s.insert(s.end(), {sos_cs[q], sos_tda[q]});
+    s.insert(s.end(), {0, 63, 0});
+    int rst = 0;
+    bool ended = false;  // EOI written (after the last strip's bytes): else the run ran dry
+    for (size_t k = run.part; k < run.parts.size(); ++k) {
+      const size_t from = k == run.part ? std::min(run.pos, run.parts[k].n) : 0;
+      if (from >= run.parts[k].n) continue;
+      s.insert(s.end(), run.parts[k].p + from, run.parts[k].p + run.parts[k].n);
+      if (run.strip[k] < 0) continue;
+      ended = size_t(run.strip[k]) + 1 >= offsets.size();
+      if (!ended) {
+        s.insert(s.end(), {0xFF, uint8_t(0xD0 + rst)});
+        rst = (rst + 1) & 7;
+      }
+    }
+    // libtiff writes EOI once the last strip's bytes are out; where no
+    // later strip has any (after an RST, or after the header), libjpeg's
+    // next read fails ("Premature end of JPEG data").
+    if (ended) s.insert(s.end(), {0xFF, 0xD9});
+    if (sof_marker == 0xC3) fail("lossless old-style JPEG in a TIFF is not supported");
+    // OJPEGWriteHeaderInfo: libjpeg's frame must be the strip's width, its
+    // largest sampling factors the subsampling.
+    if (sof_x != strip_w) fail("old-style JPEG in a TIFF with a frame of another width than its strips (libtiff refuses it)");
+    if (spp == 1 && sof_hv[0] != 0x11) fail("grey old-style JPEG in a TIFF with sampling factors (libtiff refuses it)");
+    Jpeg j(Bytes{s.data(), s.size()}, true);
+    j.read_stream(false);
+    // The strips from the one whose decode needed bytes past the run, or
+    // met a marker other than its restart, fail.
+    if (j.src.failed_row >= 0) failed_from = j.src.failed_row * 8 * (spp == 3 ? vs : 1);
+    if (spp == 3) {
+      for (int c = 0; c < 3; ++c) planes[c] = j.block_plane(c, pw[c]);
+    } else {
+      planes[0] = j.full_plane(0), pw[0] = size_t(j.width);
+    }
+  }
+
+  // The SOF's sampling as OJPEGSubsamplingCorrect reads it ahead: the
+  // first component's factors unless TIFF cannot state them, or another
+  // component's are not 1 x 1 (then libjpeg upsamples).  A stream it
+  // cannot read leaves the tag's.
+  void sampling_from_sof(Run& r) {
+    for (;;) {
+      uint8_t m;
+      if (!r.peek(m) || m != 255) return;
+      r.byte(m);
+      do {
+        if (!r.byte(m)) return;
+      } while (m == 255);
+      uint16_t n;
+      if (m == 0xD8) continue;
+      if (m == 0xDD) {
+        uint16_t v;
+        if (!r.word(n) || n != 4 || !r.word(v)) return;
+      } else if (m == 0xFE || (m >= 0xE0 && m <= 0xEF) || m == 0xDB || m == 0xC4) {
+        if (!r.word(n) || n <= (m == 0xDB || m == 0xC4 ? 2 : 1)) return;
+        r.skip(n - 2u);
+      } else if (m == 0xC0 || m == 0xC1 || m == 0xC3) {
+        uint8_t p, nf, c, hv, tq;
+        if (!r.word(n) || n < 11 || (n - 8) % 3 || !r.byte(p) || p != 8) return;
+        r.skip(4);
+        if (!r.byte(nf) || nf != (n - 8) / 3) return;
+        for (int q = 0; q < nf; ++q) {
+          if (!r.byte(c) || !r.byte(hv)) return;
+          if (q == 0) {
+            hs = hv >> 4, vs = hv & 15;
+            if ((hs != 1 && hs != 2 && hs != 4) || (vs != 1 && vs != 2 && vs != 4)) forced = true;
+          } else if (hv != 17) {
+            forced = true;
+          }
+          if (!r.byte(tq)) return;
+        }
+        return;
+      } else {
+        return;
+      }
+    }
+  }
+
+  // A strip's bytes as libtiff hands them on: luma rows [y0, y0 + rows) as
+  // YCbCr blocks, or as grey rows; `need` bytes.
+  std::vector<uint8_t> strip(int64_t y0, int64_t rows, int64_t w, size_t need) const {
+    if (y0 + rows > failed_from) {
+      // The failed strip: TIFFRGBAImage keeps its zeroed buffer, where it is
+      // the last; the next strip's skip over it fails before any buffer,
+      // which ends Pillow's image, as its plain strip reader ends at once.
+      if (failed_from < last_start) fail("corrupt old-style JPEG data in a TIFF (libjpeg: premature end or a restart missing)");
+      throw PartialSegment("corrupt old-style JPEG data in a TIFF's last strip", std::vector<uint8_t>(need, 0), need);
+    }
+    std::vector<uint8_t> out;
+    out.reserve(need);
+    auto at = [&](int c, int64_t y, int64_t x) -> uint8_t {
+      const size_t i = size_t(y) * pw[c] + size_t(x);
+      return i < planes[c].size() ? planes[c][i] : 0;
+    };
+    if (spp == 1) {
+      for (int64_t y = y0; y < y0 + rows; ++y)
+        for (int64_t x = 0; x < w; ++x) out.push_back(at(0, y, x));
+    } else {
+      const int64_t bw = (w + hs - 1) / hs;
+      for (int64_t by = y0 / vs; by < (y0 + rows + vs - 1) / vs; ++by)
+        for (int64_t bx = 0; bx < bw; ++bx) {
+          for (int64_t j = 0; j < vs; ++j)
+            for (int64_t i = 0; i < hs; ++i) out.push_back(at(0, by * vs + j, bx * hs + i));
+          out.push_back(at(1, by, bx));
+          out.push_back(at(2, by, bx));
+        }
+    }
+    out.resize(need, 0);
+    return out;
+  }
+};
+
 // One JPEG strip or tile (compression 7) as libtiff's JPEG codec gives it:
 // interleaved 8-bit samples, `rows` x `cols` of them.  Its first
 // component must be sampled (h0, v0) (-1: the first stream's, which
@@ -3603,20 +4171,22 @@ Image decode(Bytes in, CodecFn decompress) {
   int64_t w = 0, h = 0;
   if (!d.scalar(256, w, "ImageWidth") || !d.scalar(257, h, "ImageLength")) fail("TIFF without dimensions");
   const int64_t comp = d.get(259, 1, "Compression");
-  static const int64_t kCodecs[] = {1, 2, 3, 4, 5, 7, 8, 32771, 32773, 32809, 32946, 34925, 50000};
+  static const int64_t kCodecs[] = {1, 2, 3, 4, 5, 6, 7, 8, 32771, 32773, 32809, 32946, 34925, 50000};
   if (std::find(std::begin(kCodecs), std::end(kCodecs), comp) == std::end(kCodecs)) {
     const char* name = compression_name(comp);
     fail(name ? std::string("TIFF compression ") + name + " is not supported"
               : "TIFF compression " + std::to_string(comp) + " does not exist");
   }
-  const int64_t photo = d.get(262, 0, "PhotometricInterpretation");
+  // Pillow takes every old-style JPEG for YCbCr, of 3 samples unless it
+  // says otherwise.
+  const int64_t photo = comp == 6 ? 6 : d.get(262, 0, "PhotometricInterpretation");
   const int64_t fill = d.get(266, 1, "FillOrder");
   const int64_t planar = d.get(284, 1, "PlanarConfiguration");
   std::vector<int64_t> fmt = d.ints(339, {1}, "SampleFormat");
   if (fmt.size() > 1 && std::all_of(fmt.begin(), fmt.end(), [](int64_t v) { return v == 1; })) fmt = {1};
   std::vector<int64_t> bps = d.ints(258, {1}, "BitsPerSample");
   const std::vector<int64_t> extra = d.ints(338, {}, "ExtraSamples");
-  const int64_t spp = d.get(277, 1, "SamplesPerPixel");
+  const int64_t spp = d.get(277, comp == 6 ? 3 : 1, "SamplesPerPixel");
   if (spp > 6) fail("TIFF with " + std::to_string(spp) + " samples per pixel is not supported");
   if (spp < int64_t(bps.size())) bps.resize(size_t(std::max<int64_t>(spp, 0)));
   else if (spp > int64_t(bps.size()) && bps.size() == 1) bps.assign(size_t(spp), bps[0]);
@@ -3796,12 +4366,27 @@ Image decode(Bytes in, CodecFn decompress) {
     if (predictor < 1 || predictor > 3) fail("TIFF predictor " + std::to_string(predictor) + " does not exist");
     if (predictor == 2 && bits != 8 && bits != 16 && bits != 32)
       fail("TIFF horizontal predictor with " + std::to_string(bits) + "-bit samples is not supported");
-    if (predictor == 3 && (fmt[0] != 3 || bits != 32))
-      fail("TIFF floating-point predictor needs 32-bit float samples");
-    const bool ycbcr = photo == 6;
-    if (ycbcr && d.lt_get(262, -1, "PhotometricInterpretation") != 6)
+    if (predictor == 3 && (fmt[0] != 3 || (bits != 16 && bits != 32 && bits != 64)))
+      fail("TIFF floating-point predictor needs 16-, 32- or 64-bit float samples");
+    // TIFFRGBAImage reads YCbCr by libtiff's SamplesPerPixel; Pillow then
+    // unpacks its RGBA rows by the rawmode of its own reading.
+    const int64_t lt_spp = d.lt_get(277, 1, "SamplesPerPixel");
+    // libtiff reads an old-style JPEG's RGB (or missing) photometric as
+    // YCbCr, and its grey as grey.
+    int64_t lt_photo = d.lt_get(262, -1, "PhotometricInterpretation");
+    if (comp == 6 && (lt_photo == 2 || lt_photo == -1)) lt_photo = 6;
+    const bool ycbcr = photo == 6 && (comp != 6 || lt_photo == 6);
+    if (comp == 6 && !(lt_spp == 3 ? lt_photo == 6 : lt_spp == 1 && spp == 1 && lt_photo != 6))
+      fail("old-style JPEG TIFF of " + std::to_string(lt_spp) + " samples, photometric " + std::to_string(lt_photo) +
+           " is not supported");
+    // libtiff reads an old-style JPEG's tiles as strips of the tile's
+    // width: with more than one tile across, the tiles past the frame's
+    // height repeat its last rows (ROADMAP queue C), which the port does not.
+    if (comp == 6 && (planar != 1 || (tiled && tw < w)))
+      fail("old-style JPEG in TIFF planes or in more than one column of tiles is not supported");
+    if (ycbcr && lt_photo != 6)
       fail("TIFF YCbCr to Pillow, not to libtiff (Pillow: decoder error -2)");
-    if (ycbcr && (bits != 8 || spp != 3)) fail("TIFF YCbCr of this layout is not supported");
+    if (ycbcr && (bits != 8 || (comp == 7 ? spp : lt_spp) != 3)) fail("TIFF YCbCr of this layout is not supported");
     // The compressed bytes of one segment, decoded into `need` bytes in the
     // host's (little-endian) byte order, as libtiff hands them on.
     Jpeg tables(Bytes{nullptr, 0}, true);
@@ -3813,14 +4398,21 @@ Image decode(Bytes in, CodecFn decompress) {
     }
     int64_t h0 = 1, v0 = 1;
     if (ycbcr && comp == 7) {
-      const std::vector<int64_t> sub = d.lt_ints(530, {-1, -1}, "YCbCrSubsampling", 2);
+      const std::vector<int64_t> sub = d.lt_integers(530, {-1, -1}, "YCbCrSubsampling", 2);
       h0 = sub[0], v0 = sub[1];
     }
     const int64_t lt_fill = d.lt_get(266, 1, "FillOrder");
+    std::unique_ptr<OldJpeg> old_jpeg;
+    if (comp == 6) old_jpeg.reset(new OldJpeg(d, in, w, h, lt_spp, ycbcr, tw, rows_per_strip, tiled, offsets, counts));
     std::vector<uint8_t> fax_buffer;  // Pillow's strip or tile buffer: rows a fax tile leaves keep its bytes
     bool fax_no_eol = false;          // libtiff's T.4 decoder has given up looking for EOLs
+    // libtiff's LZW codec picks its decoder by the first segment it decodes
+    // (old-style if it starts 00 and a byte with bit 0 set) and keeps it
+    // for the file: 0 until then, 1 new-style, 2 old-style.
+    int lzw_style = 0;
     auto segment = [&](size_t index, size_t need, int64_t cols, int64_t rows, int64_t row_bytes, int seg_spp,
                        bool last_strip) {
+      if (old_jpeg) return old_jpeg->strip(int64_t(index) * th, rows, cols, need);
       const int64_t off = offsets[index], cnt = counts[index];
       if (off < 0 || cnt < 0 || size_t(off) > in.n || size_t(cnt) > in.n - size_t(off))
         fail("truncated TIFF: a strip or tile lies outside the file");
@@ -3839,11 +4431,7 @@ Image decode(Bytes in, CodecFn decompress) {
         return jpeg_segment(src, tables, ycbcr && seg_spp == 3 ? Jpeg::Colour::YCbCr : Jpeg::Colour::None, cols,
                             rows, last_strip, seg_spp, seg_spp == 3 ? h0 : one, seg_spp == 3 ? v0 : one);
       }
-      if (comp == 32773) {
-        out = unpackbits(src, need);
-      } else if (comp == 5) {
-        out = unlzw(src, need);
-      } else if (comp == 32809) {  // ThunderDecodeRow: whole rows of a strip
+      if (comp == 32809) {  // ThunderDecodeRow: whole rows of a strip
         if (tiled) fail("ThunderScan TIFF tiles are not supported (libtiff decodes none)");
         if (bits != 4) fail("ThunderScan TIFF needs 4-bit samples");
         out.assign(need, 0);
@@ -3857,47 +4445,18 @@ Image decode(Bytes in, CodecFn decompress) {
         fax::decode(src.p, src.n, int(comp), options, cols, rows, size_t(row_bytes), size_t(off), tiled, fax_no_eol,
                     fax_buffer);
         out = fax_buffer;
-      } else if (comp == 50000) {
-        out = zstd::decode(src.p, src.n, need);
       } else {
-        const bool xz = comp == 34925;
-        out.resize(need);
-        const int64_t got = decompress(xz ? 1 : 0, src.p, int64_t(src.n), out.data(), int64_t(need));
-        if (got < 0) fail(xz ? "TIFF LZMA data does not decompress" : "TIFF Deflate data does not inflate");
-        if (size_t(got) < need) fail(std::string("not enough ") + (xz ? "LZMA" : "Deflate") + " data in a TIFF strip or tile");
+        out = plain_codec(comp, src, need, decompress, lzw_style);
       }
-      const int stride = planar == 2 ? 1 : int(spp);
-      if (predictor != 1 && (out.size() % size_t(row_bytes) || (predictor == 3 && row_bytes % (4 * stride))))
-        fail("TIFF predictor rows do not divide the strip or tile");
-      for (size_t row = 0; row + size_t(row_bytes) <= out.size(); row += size_t(row_bytes)) {
-        uint8_t* p = out.data() + row;
-        if (predictor == 3) {  // tif_predict.c fpAcc
-          for (int64_t i = stride; i < row_bytes; ++i) p[i] = uint8_t(p[i] + p[i - stride]);
-          const std::vector<uint8_t> tmp(p, p + row_bytes);
-          const int64_t wc = row_bytes / 4;
-          for (int64_t i = 0; i < wc; ++i)
-            for (int b = 0; b < 4; ++b) p[4 * i + b] = tmp[size_t((3 - b) * wc + i)];
-          continue;
-        }
-        if (d.mm && (bits == 16 || bits == 32))  // libtiff swabs to host order
-          for (int64_t i = 0; i + bits / 8 <= row_bytes; i += bits / 8) std::reverse(p + i, p + i + bits / 8);
-        if (predictor == 2) {  // horAcc8/16/32
-          const int k = bits / 8;
-          for (int64_t i = stride; i < row_bytes / k; ++i) {
-            uint64_t a = 0, b = 0;
-            for (int j = 0; j < k; ++j) a |= uint64_t(p[i * k + j]) << (8 * j), b |= uint64_t(p[(i - stride) * k + j]) << (8 * j);
-            a += b;
-            for (int j = 0; j < k; ++j) p[i * k + j] = uint8_t(a >> (8 * j));
-          }
-        }
-      }
+      undo_predictor(out, row_bytes, predictor, bits, planar == 2 ? 1 : int(spp), d.mm);
       return out;
     };
 
     if (ycbcr && comp != 7) {
       // Pillow's _decodeAsRGBA: libtiff's TIFFRGBAImage, a block of hs x vs
       // luma samples, then Cb and Cr, for each block of pixels.
-      const std::vector<int64_t> sub = d.lt_ints(530, {2, 2}, "YCbCrSubsampling", 2);
+      const std::vector<int64_t> sub = old_jpeg ? std::vector<int64_t>{old_jpeg->hs, old_jpeg->vs}
+                                                : d.lt_integers(530, {2, 2}, "YCbCrSubsampling", 2);
       const int64_t hs = sub[0], vs = sub[1];
       const int64_t code = hs << 4 | vs;
       if (code != 0x44 && code != 0x42 && code != 0x41 && code != 0x22 && code != 0x21 && code != 0x12 && code != 0x11)
@@ -3910,6 +4469,12 @@ Image decode(Bytes in, CodecFn decompress) {
       for (float f : rbw)
         if (!(f > -2147483647.0f + 128 && f < 2147483647.0f - 128)) fail("TIFF ReferenceBlackWhite is invalid");
       const YCbCr conv(luma, rbw);
+      std::vector<uint8_t> rgba(size_t(w) * size_t(h) * 4, 255);  // TIFFRGBAImage's raster, rows top down
+      auto put = [&](int64_t y, int64_t x, int Y, int Cb, int Cr) {
+        uint32_t c[3];
+        conv.rgb(Y, Cb, Cr, c);
+        for (int k = 0; k < 3; ++k) rgba[(size_t(y) * size_t(w) + size_t(x)) * 4 + size_t(k)] = uint8_t(c[k]);
+      };
       const int64_t unit = hs * vs + 2;
       if (planar == 2) {  // putseparate8bitYCbCr11tile, libtiff's only planar case
         if (code != 0x11) fail("planar TIFF YCbCr subsampled " + std::to_string(hs) + "x" + std::to_string(vs) +
@@ -3924,20 +4489,39 @@ Image decode(Bytes in, CodecFn decompress) {
             for (int64_t yy = 0; yy < std::min(rows, h - ty * th); ++yy)
               for (int64_t xx = 0; xx < std::min(cols, w - tx * tw); ++xx) {
                 const size_t i = size_t(yy * cols + xx);
-                conv.rgb(pl[0][i], pl[1][i], pl[2][i], r.at(ty * th + yy, tx * tw + xx));
+                put(ty * th + yy, tx * tw + xx, pl[0][i], pl[1][i], pl[2][i]);
               }
           }
       }
-      for (int64_t ty = 0; ty < (planar == 2 ? 0 : down); ++ty)
+      for (int64_t ty = 0; ty < (planar == 2 ? 0 : down); ++ty) {
+        std::vector<uint8_t> prior;  // gtTileContig's buffer: the tile row's last tile
         for (int64_t tx = 0; tx < across; ++tx) {
           const int64_t cols = tiled ? tw : w, rows = tiled ? th : std::min(th, h - ty * th);
           const int64_t bw = (cols + hs - 1) / hs;
           const int64_t scanline = bw * unit / vs;
           const int64_t blocks = (rows + vs - 1) / vs * bw * unit;  // what the put functions read
           // gtStripContig decodes whole block rows of (rounded-down)
-          // scanlines into a zeroed buffer; gtTileContig whole tiles.
+          // scanlines into a new zeroed buffer each strip (each of Pillow's
+          // TIFFRGBAImageGet calls); gtTileContig whole tiles, into one
+          // buffer for a row of tiles.  With stoponerr 0 a segment whose
+          // codec fails keeps what libtiff left in the buffer, and a tile
+          // after the row's first that cannot be read leaves zeros; only a
+          // first segment that cannot be read ends the image.
           const int64_t need = tiled ? blocks : std::min(blocks, (rows + vs - 1) / vs * vs * scanline);
-          std::vector<uint8_t> seg = segment(size_t(ty * across + tx), size_t(need), cols, rows, scanline, 3, false);
+          const size_t index = size_t(ty * across + tx);
+          std::vector<uint8_t> seg;
+          try {
+            seg = segment(index, size_t(need), cols, rows, scanline, 3, false);
+          } catch (PartialSegment& e) {
+            seg = std::move(e.out);
+            for (size_t i = e.written; i < std::min(seg.size(), prior.size()); ++i) seg[i] = prior[i];
+          } catch (DecodeError&) {
+            const int64_t off = offsets[index], cnt = counts[index];
+            const bool unread = off < 0 || cnt <= 0 || size_t(off) > in.n || size_t(cnt) > in.n - size_t(off);
+            if (!tiled || tx == 0 || !unread) throw;
+            seg.assign(size_t(need), 0);
+          }
+          if (tiled) prior = seg;
           seg.resize(size_t(blocks), 0);
           // The putcontig8bitYCbCr*tile walk: blocks across the pixels kept,
           // then `fromskew` past the tile's right edge, which the 4x4
@@ -3951,12 +4535,15 @@ Image decode(Bytes in, CodecFn decompress) {
               const uint8_t* blk = seg.data() + pp;
               for (int64_t yy = by; yy < std::min(by + vs, nrow); ++yy)
                 for (int64_t xx = bx; xx < std::min(bx + hs, npix); ++xx)
-                  conv.rgb(blk[(yy - by) * hs + xx - bx], blk[hs * vs], blk[hs * vs + 1],
-                           r.at(ty * th + yy, tx * tw + xx));
+                  put(ty * th + yy, tx * tw + xx, blk[(yy - by) * hs + xx - bx], blk[hs * vs], blk[hs * vs + 1]);
             }
             pp += size_t(skip);
           }
         }
+      }
+      // Pillow's shuffle of each RGBA row by its rawmode (RGBX for its
+      // YCbCr mode; a rawmode of fewer bytes reads the row's first bytes).
+      for (int64_t y = 0; y < h; ++y) unpack(mode, raw, rgba.data() + size_t(y) * size_t(w) * 4, w, r.at(y, 0), r.bands);
     } else {
       // Pillow's _decodeStrip / _decodeTile: each row unpacked by the
       // rawmode (planar: each plane into its band).
@@ -3997,22 +4584,6 @@ Image decode(Bytes in, CodecFn decompress) {
     }
   }
 
-  // Mode F's samples as a sky's reader, imageio's bundled tifffile, gives
-  // them: as stored (no Orientation), in the file's true byte order where
-  // Pillow's rawmode reads a big-endian file's samples byte-swapped (the
-  // libtiff path's host-order samples read as "F;32BF", or a planar raw
-  // file read by the band rawmode "F").
-  std::vector<float> samples;
-  if (mode == "F") {
-    const bool swapped = d.mm && (libtiff ? raw == "F;32BF" : planar == 2);
-    samples.resize(r.v.size());
-    for (size_t i = 0; i < r.v.size(); ++i) {
-      uint32_t b = r.v[i];
-      if (swapped) b = b >> 24 | (b >> 8 & 0xFF00) | (b << 8 & 0xFF0000) | b << 24;
-      std::memcpy(&samples[i], &b, 4);
-    }
-  }
-  const int64_t stored_w = r.w, stored_h = r.h;
   r = transpose(r, orientation);
   // Pillow's convert("RGBA") / ("L") input, in this library's channels.
   Palette pal;
@@ -4032,7 +4603,6 @@ Image decode(Bytes in, CodecFn decompress) {
   img.alloc(r.w, r.h, kind == kPalette || kind == kPaletteAlpha || kind == kCmyk || kind == kLab ? 4 : r.bands,
             mode.c_str());
 
-  if (kind == kFloat) img.fl = std::move(samples), img.fw = stored_w, img.fh = stored_h;
   const size_t npx = size_t(r.w) * size_t(r.h);
   const uint32_t* s = r.v.data();
   uint8_t* o = img.px.data();
@@ -4062,6 +4632,98 @@ Image decode(Bytes in, CodecFn decompress) {
         for (int k = 0; k < r.bands; ++k) o[k] = uint8_t(s[k]);
     }
   }
+  return img;
+}
+
+// IEEE half to float, exactly.
+float half_to_float(uint16_t x) {
+  const uint32_t sign = uint32_t(x >> 15) << 31, e = (x >> 10) & 31, m = x & 1023;
+  uint32_t bits;
+  if (e == 31) {
+    bits = sign | 0x7F800000u | m << 13;
+  } else if (e != 0) {
+    bits = sign | (e + 112) << 23 | m << 13;
+  } else {
+    float f = std::ldexp(float(m), -24);
+    return sign ? -f : f;
+  }
+  float f;
+  std::memcpy(&f, &bits, 4);
+  return f;
+}
+
+// A float TIFF (SampleFormat 3; 16-, 32- or 64-bit samples; 1, 3 or 4 a
+// pixel) as a sky's reader, imageio's bundled tifffile, gives it: every
+// sample as stored, in the file's true byte order, no Orientation; strips
+// or tiles, one plane or one a sample (tifffile hands those on as (C, H,
+// W), which the port does not follow: ROADMAP queue C); uncompressed,
+// LZW, PackBits, Deflate, LZMA or ZSTD, with predictors 2 and 3.  As
+// float32 (H, W, C) in `fl`; an image without samples for a TIFF of
+// another sample format.
+Image float_sky(Bytes in, CodecFn decompress) {
+  Dir d(in);
+  Image img;
+  int64_t w = 0, h = 0;
+  if (!d.scalar(256, w, "ImageWidth") || !d.scalar(257, h, "ImageLength")) fail("TIFF without dimensions");
+  if (d.ints(339, {1}, "SampleFormat")[0] != 3) return img;
+  const std::vector<int64_t> bps = d.ints(258, {1}, "BitsPerSample");
+  const int64_t spp = d.get(277, 1, "SamplesPerPixel"), planar = d.get(284, 1, "PlanarConfiguration");
+  const int bits = int(bps[0]);
+  for (int64_t b : bps)
+    if (b != bits) fail("float TIFF with different bits per sample is not supported");
+  if (bits != 16 && bits != 32 && bits != 64) fail("float TIFF of " + std::to_string(bits) + "-bit samples is not supported");
+  if (spp != 1 && spp != 3 && spp != 4) fail("float TIFF sky of " + std::to_string(spp) + " samples is not supported");
+  if (planar != 1 && planar != 2) fail("TIFF planar configuration " + std::to_string(planar) + " does not exist");
+  check_size(w, h);
+  const int64_t comp = d.get(259, 1, "Compression");
+  const int64_t predictor = comp == 1 ? 1 : d.get(317, 1, "Predictor");
+  if (predictor < 1 || predictor > 3) fail("TIFF predictor " + std::to_string(predictor) + " does not exist");
+  const bool tiled = d.has(322);
+  int64_t tw = w, th = h;
+  if (tiled) {
+    if (!d.scalar(322, tw, "TileWidth") || !d.scalar(323, th, "TileLength") || tw <= 0 || th <= 0)
+      fail("TIFF with invalid tile dimensions");
+  } else {
+    th = std::min(d.get(278, h, "RowsPerStrip"), h);
+    if (th <= 0) fail("TIFF with invalid rows per strip");
+  }
+  const std::vector<int64_t> offsets = d.ints(tiled ? 324 : 273, {}, "StripOffsets");
+  const std::vector<int64_t> counts = d.ints(tiled ? 325 : 279, {}, "StripByteCounts");
+  const int64_t across = (w + tw - 1) / tw, down = (h + th - 1) / th, planes = planar == 2 ? spp : 1;
+  const int64_t seg_spp = planar == 2 ? 1 : spp, k = bits / 8;
+  if (int64_t(offsets.size()) < across * down * planes || counts.size() < offsets.size())
+    fail("TIFF lists too few strips or tiles");
+  img.fw = w, img.fh = h, img.fc = spp;
+  img.fl.assign(size_t(w) * size_t(h) * size_t(spp), 0.0f);
+  int lzw_style = 0;
+  for (int64_t p = 0; p < planes; ++p)
+    for (int64_t ty = 0; ty < down; ++ty)
+      for (int64_t tx = 0; tx < across; ++tx) {
+        const size_t index = size_t(p * across * down + ty * across + tx);
+        const int64_t off = offsets[index], cnt = counts[index];
+        if (off < 0 || cnt < 0 || size_t(off) > in.n || size_t(cnt) > in.n - size_t(off))
+          fail("truncated TIFF: a strip or tile lies outside the file");
+        const int64_t rows = tiled ? th : std::min(th, h - ty * th), row_bytes = tw * seg_spp * k;
+        std::vector<uint8_t> out =
+            plain_codec(comp, Bytes{in.p + off, size_t(cnt)}, size_t(rows * row_bytes), decompress, lzw_style);
+        undo_predictor(out, row_bytes, predictor, bits, int(seg_spp), d.mm);
+        for (int64_t y = 0; y < rows && ty * th + y < h; ++y)
+          for (int64_t x = 0; x < tw && tx * tw + x < w; ++x)
+            for (int64_t c = 0; c < seg_spp; ++c) {
+              const uint8_t* s = out.data() + size_t(y * row_bytes + (x * seg_spp + c) * k);
+              float v;
+              if (k == 2) {
+                v = half_to_float(uint16_t(s[0] | s[1] << 8));
+              } else if (k == 4) {
+                std::memcpy(&v, s, 4);
+              } else {
+                double dv;
+                std::memcpy(&dv, s, 8);
+                v = float(dv);
+              }
+              img.fl[size_t(((ty * th + y) * w + tx * tw + x) * spp + (planar == 2 ? p : c))] = v;
+            }
+      }
   return img;
 }
 
@@ -4097,7 +4759,7 @@ void write_error(char* err, int64_t errlen, const char* msg) {
 
 extern "C" {
 
-// format: 1 JPEG, 2 BMP, 3 TGA, 4 GIF, 5 PNM, 6 PSD, 7 WebP.  Returns a handle, or
+// format: 1 JPEG, 2 BMP, 3 TGA, 4 GIF, 5 PNM, 6 PSD, 7 WebP, 8 DIB.  Returns a handle, or
 // NULL with the reason in err.
 void* imgd_decode(const uint8_t* data, int64_t n, int32_t format, char* err, int64_t errlen) {
   try {
@@ -4110,6 +4772,7 @@ void* imgd_decode(const uint8_t* data, int64_t n, int32_t format, char* err, int
       case 5: return finish(pnm_decode(in));
       case 6: return finish(psd(in));
       case 7: return finish(webp_image(in));
+      case 8: return finish(bitmap(in, 0, 0, false, false));  // DIB
       default: fail("unknown image format code " + std::to_string(format));
     }
   } catch (const std::exception& e) {
@@ -4122,6 +4785,36 @@ void* imgd_decode(const uint8_t* data, int64_t n, int32_t format, char* err, int
 void* imgd_tiff(const uint8_t* data, int64_t n, CodecFn decompress, char* err, int64_t errlen) {
   try {
     return finish(tiff::decode(Bytes{data, size_t(n < 0 ? 0 : n)}, decompress));
+  } catch (const std::exception& e) {
+    write_error(err, errlen, e.what());
+  }
+  return nullptr;
+}
+
+// An icon's or a cursor's bitmap image: kind 0, an ICO entry's (its DIB at
+// `at`, its directory `size` and `bits`, icon_bitmap); kind 1, a CUR
+// entry's (Pillow reads the DIB at half height, raw alpha if it starts at
+// byte 22); kind 2, an ICNS RGB member at `at`, `size` bytes, of side
+// `bits`, with its mask at `mask` (-1: none).
+void* imgd_icon(const uint8_t* data, int64_t n, int32_t kind, int64_t at, int64_t size, int64_t bits, int64_t mask,
+                char* err, int64_t errlen) {
+  try {
+    Bytes in{data, size_t(n < 0 ? 0 : n)};
+    if (at < 0 || size < 0 || uint64_t(at) > in.n) fail("icon member outside the file");
+    if (kind == 0) return finish(icon_bitmap(in, size_t(at), uint64_t(size), int(bits)));
+    if (kind == 1) return finish(bitmap(in, size_t(at), 0, true, at == 22));
+    return finish(icns_rgb(in, size_t(at), size_t(size), bits, mask));
+  } catch (const std::exception& e) {
+    write_error(err, errlen, e.what());
+  }
+  return nullptr;
+}
+
+// A float TIFF's samples as a sky reads them (tiff::float_sky); a handle
+// whose imgd_floats is NULL for a TIFF of other samples.
+void* imgd_tiff_floats(const uint8_t* data, int64_t n, CodecFn decompress, char* err, int64_t errlen) {
+  try {
+    return finish(tiff::float_sky(Bytes{data, size_t(n < 0 ? 0 : n)}, decompress));
   } catch (const std::exception& e) {
     write_error(err, errlen, e.what());
   }
@@ -4147,12 +4840,12 @@ int64_t imgd_height(void* r) { return static_cast<Image*>(r)->h; }
 int64_t imgd_channels(void* r) { return static_cast<Image*>(r)->c; }
 const char* imgd_mode(void* r) { return static_cast<Image*>(r)->mode.c_str(); }
 const uint8_t* imgd_pixels(void* r) { return static_cast<Image*>(r)->px.data(); }
-// A TIFF of mode F or a PFM: its float32 samples (h x w, written to *h
-// and *w; top row first, no Orientation applied); NULL for any other
-// image.
-const float* imgd_floats(void* r, int64_t* h, int64_t* w) {
+// A float TIFF's (imgd_tiff_floats) or a PFM's float32 samples (h x w x
+// c, written to *h, *w and *c; top row first, no Orientation applied);
+// NULL for any other image.
+const float* imgd_floats(void* r, int64_t* h, int64_t* w, int64_t* c) {
   const Image* img = static_cast<Image*>(r);
-  *h = img->fh, *w = img->fw;
+  *h = img->fh, *w = img->fw, *c = img->fc;
   return img->fl.empty() ? nullptr : img->fl.data();
 }
 void imgd_free(void* r) { delete static_cast<Image*>(r); }

@@ -23,7 +23,7 @@ import numpy as np
 
 from realtimeraytracer_torch.scene.geometry import TriangleMesh, compute_vertex_normals
 from realtimeraytracer_torch.scene.materials import Material
-from realtimeraytracer_torch.utils.image_decode import decode_float_samples, decode_image
+from realtimeraytracer_torch.utils.image_decode import decode_float_samples, decode_image, sniff
 
 log = logging.getLogger(__name__)
 
@@ -278,15 +278,32 @@ def _grey(pixels: np.ndarray) -> np.ndarray:
             >> 16).astype(np.uint8)
 
 
+def _icns_array(path: str, px: np.ndarray, mode: str) -> np.ndarray:
+    """An ICNS image as the JAX package's ``np.asarray(Image.open(path))``
+    gives it: Pillow reports "RGBA" until it loads the member, so no
+    convert runs, and its ``tobytes`` packs the loaded member with the
+    rawmode "RGBA" but shapes the array by the member's own mode.  An
+    RGBA member comes out as it is; an RGB one as its RGBX bytes (X 255)
+    cut into three a pixel, shifted along the rows; any other mode has no
+    RGBA packer, and Pillow raises."""
+    if mode == "RGBA":
+        return px
+    if mode != "RGB":
+        raise ValueError(f"{path}: an ICNS member in mode {mode} does not pack as RGBA (Pillow raises too)")
+    h, w = px.shape[:2]
+    rgbx = np.concatenate([px, np.full((h, w, 1), 255, np.uint8)], axis=2)
+    return rgbx.reshape(-1)[:h * w * 3].reshape(h, w, 3)
+
+
 def load_texture_file(path: str, grayscale: bool = False) -> np.ndarray:
     """Decode an image file to float32 [0,1] (H, W, C), vertically flipped
     to match the reference's stbi_set_flip_vertically_on_load usage
     (file.cppm:276-291; grayscale R8 vs RGBA8 modes).  Read: JPEG (Huffman,
     arithmetic-coded and lossless; incomplete progressive files and corrupt
-    data as libjpeg decodes them for Pillow), PNG, TGA, BMP, GIF (its first
-    frame), PNM (P1-P6, Pf), PSD (its composite image), TIFF (its first
-    image) and WebP (an animation's first frame), as utils/image_decode.py
-    lists them; the rest raise ValueError.  As in
+    data as libjpeg decodes them for Pillow), PNG, TGA, BMP, DIB, ICO,
+    CUR, ICNS, GIF (its first frame), PNM (P1-P6, Pf), PSD (its composite
+    image), TIFF (its first image) and WebP (an animation's first frame),
+    as utils/image_decode.py lists them; the rest raise ValueError.  As in
     the JAX package, RGB and RGBA files keep their
     channels and any other file loads as RGBA (palettes expanded, grey with
     alpha 1 or its own, Lab through littleCMS's sRGB conversion) unless
@@ -296,11 +313,14 @@ def load_texture_file(path: str, grayscale: bool = False) -> np.ndarray:
     only when some texel exceeds 1.5, so a file of 0/1 texels reads 0/1
     there)."""
     with open(path, "rb") as f:
-        px, mode = decode_image(f.read())
+        data = f.read()
+    px, mode = decode_image(data)
     if grayscale:
         if mode == "LAB":    # Pillow's convert("L") has no Lab conversion
             raise ValueError(f"{path}: a Lab image does not convert to grey")
         px = _grey(px)
+    elif sniff(data) == "ICNS":
+        px = _icns_array(path, px, mode)
     elif px.shape[2] <= 2:
         alpha = px[..., 1:] if px.shape[2] == 2 else np.full(px.shape[:2] + (1,), 255, np.uint8)
         px = np.concatenate([np.repeat(px[..., :1], 3, axis=2), alpha], axis=2)
@@ -401,13 +421,12 @@ def load_hdr(path: str, tone_encode: bool = True) -> np.ndarray:
     is clamped and encoded with pow(1/2.2) as the reference's 8-bit sky path
     does (application.cppm:250), and the miss shader re-linearizes it.
 
-    A float TIFF (mode F, grey) or a PFM holds linear radiance, as a .hdr
-    file does: its samples, repeated to three channels, take the .hdr
-    branch's clamp and encoding, as the JAX package's imageio path gives
-    a TIFF's (a PFM's it rounds to bytes, ROADMAP, "Faults of the
-    reference").  A float TIFF of more channels or of 16-bit samples
-    raises, as the texture path does: Pillow's TIFF table has no mode
-    for it.
+    A float TIFF (16-, 32- or 64-bit samples; grey, RGB or RGBA) or a
+    PFM holds linear radiance, as a .hdr file does: its channels 0-2 (a
+    grey one repeated to three) take the .hdr branch's clamp and
+    encoding, as the JAX package's imageio path gives a TIFF's (a PFM's
+    it rounds to bytes; a planar TIFF's it takes as (C, H, W); a ZSTD
+    one it cannot read: ROADMAP, "Faults of the reference").
 
     Any other file (JPEG, PNG, TGA, BMP, GIF, PNM, PSD, TIFF, WebP through
     utils/image_decode.py; grey repeated to three channels, alpha dropped)
@@ -424,7 +443,8 @@ def load_hdr(path: str, tone_encode: bool = True) -> np.ndarray:
         rgb = decode_radiance_hdr(data)
     else:
         rgb = decode_float_samples(data)
-        rgb = None if rgb is None else np.repeat(rgb, 3, axis=2)
+        if rgb is not None:
+            rgb = np.repeat(rgb, 3, axis=2) if rgb.shape[2] == 1 else rgb[..., :3]
     if rgb is not None:
         rgb = rgb[::-1]  # flip: row 0 = bottom, so v=1-acos(y)/pi maps up to sky
         if tone_encode:

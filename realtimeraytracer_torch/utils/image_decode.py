@@ -10,10 +10,8 @@ CCITT and TIFF's ZSTD, ``native/webp_decode.cpp``, ``fax_decode.cpp`` and
 ``zstd_decode.cpp``, one library bound here with ctypes.
 
 ``decode_image(data)`` identifies a file by its content, as ``Image.open``
-does (the PNG signature, JPEG's SOI, ``BM``, ``GIF87a``/``GIF89a``, a PNM
-magic, ``8BPS``, Pillow's six TIFF prefixes, ``RIFF....WEBP`` with a VP8,
-VP8L or VP8X chunk first; TGA by a valid header when nothing else
-matches), and returns uint8 (H, W, C) pixels with the Pillow
+does (``sniff``: Pillow's 43 openers in its order, each with its test of
+the first bytes), and returns uint8 (H, W, C) pixels with the Pillow
 mode the JAX package would see.  C is 1 (grey), 2 (grey + alpha), 3
 (RGB) or 4 (RGBA); palette and CMYK images come back expanded to RGBA.
 Read: JPEG (8-bit, 1, 3 or 4 components: CMYK and YCCK by the Adobe
@@ -39,7 +37,9 @@ applies it), WebP (as Pillow opens it through libwebp's
 animation decoder: lossy VP8 key frames with their ALPH alpha, lossless
 VP8L, the simple and the VP8X container, an animation's first frame on
 its zeroed canvas; "RGBA" where libwebp's features report alpha, else
-"RGB").  For PNG and TIFF's Deflate, this module
+"RGB"), ICO, CUR and DIB (BMP members through the library's bitmap
+reader, PNG members through the PNG path), ICNS (Apple's RLE and PNG
+members); TIFF's old-style LZW and old-style JPEG.  For PNG and TIFF's Deflate, this module
 inflates with ``zlib``, and TIFF's LZMA it decodes with liblzma (the
 library under Python's ``lzma``, driven as libtiff drives it): the
 library calls ``_decompress`` back for each strip or tile; the library
@@ -49,10 +49,12 @@ back as their high byte, 12-bit grey TIFF samples as their top 8 bits,
 where Pillow's convert clips them.  A Lab image comes back as "LAB",
 converted to RGBA; ``obj_loader.load_texture_file`` refuses it as grey,
 as Pillow's convert("L") does.  ``decode_float_samples(data)`` gives a float TIFF
-(mode F) or a PFM as its float32 samples, as a sky's linear radiance.
+(16-, 32- or 64-bit; 1, 3 or 4 channels) or a PFM as its float32 samples,
+as a sky's linear radiance.
 
-Malformed input and formats not ported (16-bit PSD, TIFF compressed by
-old-style JPEG; and, as Pillow refuses them, TIFF compressed by SGILog or
+Malformed input and formats not ported (16-bit PSD, the openers of
+ROADMAP's A12 still to port; and, as Pillow refuses them or cannot load
+them here, EPS, WMF, the BUFR/GRIB/HDF5 stubs, MPEG, TIFF compressed by SGILog or
 WebP, TIFF photometrics 9 and 10, 12-bit, hierarchical and arithmetic-
 coded lossless JPEG, a JPEG height in a DNL marker, a JPEG cut inside a
 scan, an arithmetic-coded scan past Pillow's first 64 KiB read) raise
@@ -78,7 +80,9 @@ import ctypes.util
 import fcntl
 import hashlib
 import lzma  # noqa: F401 - loads liblzma, which _unxz drives
+import math
 import os
+import re
 import struct
 import subprocess
 import threading
@@ -99,7 +103,7 @@ CXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-Wall", "-shared")
 MAX_PIXELS = 2 * 89478485
 
 # The library's format codes (imgd_decode).
-_CODES = {"JPEG": 1, "BMP": 2, "TGA": 3, "GIF": 4, "PNM": 5, "PSD": 6, "WEBP": 7}
+_CODES = {"JPEG": 1, "BMP": 2, "TGA": 3, "GIF": 4, "PNM": 5, "PSD": 6, "WEBP": 7, "DIB": 8}
 # Pillow's TiffImagePlugin.PREFIXES: both byte orders, the "invalid" ones
 # (magic in the other order) and BigTIFF.
 TIFF_PREFIXES = (b"MM\0*", b"II*\0", b"MM*\0", b"II\0*", b"MM\0+", b"II+\0")
@@ -240,8 +244,11 @@ def load_library() -> ctypes.CDLL:
         err = [c.c_char_p, c.c_int64]
         lib.imgd_decode.restype = c.c_void_p
         lib.imgd_decode.argtypes = [c.c_char_p, c.c_int64, c.c_int32, *err]
-        lib.imgd_tiff.restype = c.c_void_p
-        lib.imgd_tiff.argtypes = [c.c_char_p, c.c_int64, _DECOMPRESS, *err]
+        for name in ("imgd_tiff", "imgd_tiff_floats"):
+            getattr(lib, name).restype = c.c_void_p
+            getattr(lib, name).argtypes = [c.c_char_p, c.c_int64, _DECOMPRESS, *err]
+        lib.imgd_icon.restype = c.c_void_p
+        lib.imgd_icon.argtypes = [c.c_char_p, c.c_int64, c.c_int32, c.c_int64, c.c_int64, c.c_int64, c.c_int64, *err]
         lib.imgd_png.restype = c.c_void_p
         lib.imgd_png.argtypes = [c.c_char_p, c.c_int64, c.c_int64, c.c_int64, c.c_int32, c.c_int32,
                                  c.c_int32, c.c_char_p, c.c_int64, c.c_char_p, c.c_int64, *err]
@@ -253,7 +260,7 @@ def load_library() -> ctypes.CDLL:
         lib.imgd_pixels.restype = c.POINTER(c.c_uint8)
         lib.imgd_pixels.argtypes = [c.c_void_p]
         lib.imgd_floats.restype = c.POINTER(c.c_float)
-        lib.imgd_floats.argtypes = [c.c_void_p, c.POINTER(c.c_int64), c.POINTER(c.c_int64)]
+        lib.imgd_floats.argtypes = [c.c_void_p, *[c.POINTER(c.c_int64)] * 3]
         lib.imgd_free.argtypes = [c.c_void_p]
         _lib = lib
         return lib
@@ -281,7 +288,9 @@ def _collect(lib, call, *args) -> tuple[np.ndarray, str]:
         return pixels.reshape(h, w, c).copy(), lib.imgd_mode(handle).decode()
 
 
-def _decode_png(lib, data: bytes) -> tuple[np.ndarray, str]:
+def _decode_png(lib, data: bytes, keep_trns: bool = True) -> tuple[np.ndarray, str]:
+    """A PNG through zlib and the library; `keep_trns` false ignores its
+    tRNS chunk (an icon's member, whose transparency Pillow drops)."""
     pos, header, plte, trns, idat = len(PNG_SIGNATURE), None, b"", b"", []
     while True:
         if pos + 8 > len(data):
@@ -302,7 +311,7 @@ def _decode_png(lib, data: bytes) -> tuple[np.ndarray, str]:
             header = struct.unpack(">IIBBBBB", body)
         elif kind == b"PLTE":
             plte = body
-        elif kind == b"tRNS":
+        elif kind == b"tRNS" and keep_trns:
             trns = body
         elif kind == b"IDAT":
             idat.append(body)
@@ -337,29 +346,279 @@ def _is_tga(head: bytes) -> bool:
             and head[2] in (1, 2, 3, 9, 10, 11))
 
 
+_IM_TAGS = (b"Comment", b"Date", b"Digitalization equipment", b"File size (no of images)", b"Lut", b"Name",
+            b"Scale (x,y)", b"Image size (x*y)", b"Image type")
+
+
+def _is_im(data: bytes) -> bool:
+    """ImImagePlugin._open's first checks, as far as a file's first line:
+    a line feed in the first 100 bytes, and a first line of at most 100
+    bytes that reads "Key: value" with one of its keys."""
+    if b"\n" not in data[:100] or data[:1] in (b"", b"\0", b"\x1a"):
+        return False
+    line = data.lstrip(b"\r").split(b"\n", 1)[0]
+    m = re.match(rb"^([A-Za-z][^:]*):[ \t]*(.*)[ \t]*$", line.removesuffix(b"\r"))
+    return len(line) < 100 and m is not None and m.group(1) in _IM_TAGS
+
+
+def _is_spider(data: bytes) -> bool:
+    """SpiderImagePlugin's isSpiderHeader, big- or little-endian."""
+    if len(data) < 108:
+        return False
+    for order in ">", "<":
+        h = (99.0,) + struct.unpack(order + "27f", data[:108])
+        try:
+            if any(h[i] != int(h[i]) for i in (1, 2, 5, 12, 13, 22, 23)):
+                continue
+        except (ValueError, OverflowError):
+            continue
+        if int(h[5]) in (1, 3, -11, -12, -21, -22) and int(h[22]) == int(h[13]) * int(h[23]):
+            return True
+    return False
+
+
+def _icon_opens(data: bytes, magic: bytes) -> bool:
+    """An ICO's or a CUR's directory as its plugin's _open reads it: a
+    directory short of its entries, or of none, raises IndexError,
+    struct.error or TypeError there, and Image.open goes on to the next
+    opener."""
+    if not data.startswith(magic) or len(data) < 6:
+        return False
+    count = struct.unpack("<H", data[4:6])[0]
+    return count > 0 and len(data) >= 6 + 16 * count
+
+
+def _icns_opens(data: bytes) -> bool:
+    """IcnsFile's walk of the blocks: a short block header (struct.error)
+    or one of no size (SyntaxError), or no member of a known size
+    (SyntaxError), sends Image.open on."""
+    if not data.startswith(b"icns") or len(data) < 8:
+        return False
+    i, filesize, sigs = 8, struct.unpack(">I", data[4:8])[0], set()
+    while i < filesize:
+        if i < 0 or i + 8 > len(data):
+            return False
+        sig, blocksize = struct.unpack(">4sI", data[i:i + 8])
+        if blocksize <= 0:
+            return False
+        sigs.add(sig)
+        i += blocksize
+    return any(s in sigs for members in _ICNS_SIZES.values() for s in members)
+
+
+def _is_gbr(data: bytes) -> bool:
+    """GbrImagePlugin's accept and _open checks (big-endian header of at
+    least 20 bytes, version 1 or 2, a size, depth 1 or 4, version 2's
+    "GIMP" magic)."""
+    if len(data) < 20:
+        return False
+    size, version, w, h, depth = struct.unpack(">5I", data[:20])
+    return (size >= 20 and version in (1, 2) and 0 < w < 1 << 31 and 0 < h < 1 << 31 and depth in (1, 4)
+            and (version == 1 or data[20:24] == b"GIMP"))
+
+
+def _is_wmf(data: bytes) -> bool:
+    """WmfImagePlugin's accept and _open checks: a placeable metafile with
+    the standard header after it, or an enhanced one."""
+    if data.startswith(b"\xd7\xcd\xc6\x9a\x00\x00"):
+        return data[22:26] == b"\x01\x00\t\x00"
+    return data.startswith(b"\x01\x00\x00\x00") and data[40:44] == b" EMF"
+
+
+def _i32(b: bytes, order: str = "<") -> int:
+    return struct.unpack(order + "I", b[:4])[0] if len(b) >= 4 else -1
+
+
+# Pillow's openers in the order Image.open tries them (Image.ID after
+# preinit() and then init()), each with its test of the file's first bytes
+# (the plugin's _accept of 16 bytes; for the openers without one, the
+# checks their _open makes before it raises SyntaxError, which sends
+# Image.open on to the next).  Image.open takes the first that accepts.
+_OPENERS = (
+    ("BMP", lambda d: d.startswith(b"BM")),
+    ("DIB", lambda d: _i32(d) in (12, 40, 52, 56, 64, 108, 124)),
+    ("GIF", lambda d: d[:6] in (b"GIF87a", b"GIF89a")),
+    ("JPEG", lambda d: d.startswith(b"\xff\xd8\xff")),
+    ("PNM", lambda d: d[:1] == b"P" and len(d) >= 2 and d[1] in b"0123456fy"),
+    ("PNG", lambda d: d.startswith(PNG_SIGNATURE)),
+    ("AVIF", lambda d: d[4:8] == b"ftyp" and d[8:12] in (b"avif", b"avis", b"mif1", b"msf1")),
+    ("BLP", lambda d: d.startswith((b"BLP1", b"BLP2"))),
+    ("BUFR", lambda d: d.startswith((b"BUFR", b"ZCZC"))),
+    ("CUR", lambda d: _icon_opens(d, b"\0\0\2\0")),
+    ("PCX", lambda d: len(d) >= 2 and d[0] == 10 and d[1] in (0, 2, 3, 5)),
+    ("DCX", lambda d: _i32(d) == 0x3ADE68B1),
+    ("DDS", lambda d: d.startswith(b"DDS ")),
+    ("EPS", lambda d: d.startswith(b"%!PS") or _i32(d) == 0xC6D3D0C5),
+    ("FITS", lambda d: d.startswith(b"SIMPLE")),
+    ("FLI", lambda d: len(d) >= 16 and struct.unpack("<H", d[4:6])[0] in (0xAF11, 0xAF12)
+     and struct.unpack("<H", d[14:16])[0] in (0, 3)),
+    ("FTEX", lambda d: d.startswith(b"FTEX")),
+    ("GBR", _is_gbr),
+    ("GRIB", lambda d: len(d) >= 8 and d.startswith(b"GRIB") and d[7] == 1),
+    ("HDF5", lambda d: d.startswith(b"\x89HDF\r\n\x1a\n")),
+    ("JPEG2000", lambda d: d.startswith((b"\xff\x4f\xff\x51", b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"))),
+    ("ICNS", _icns_opens),
+    ("ICO", lambda d: _icon_opens(d, b"\0\0\1\0")),
+    ("IM", _is_im),
+    ("IMT", lambda d: b"\n" in d[:100] and d.startswith((b"width ", b"height ", b"pixel "))),
+    ("IPTC", lambda d: len(d) >= 5 and d[0] == 0x1C and d[1] in (1, 2, 3, 4, 5, 6, 7, 8, 9, 240)),
+    ("MCIDAS", lambda d: d.startswith(b"\0\0\0\0\0\0\0\4")),
+    ("MPEG", lambda d: d.startswith(b"\0\0\1\xb3")),
+    ("TIFF", lambda d: d.startswith(TIFF_PREFIXES)),
+    ("MSP", lambda d: d.startswith((b"DanM", b"LinS"))),
+    ("PCD", lambda d: d[2048:2052] == b"PCD_"),
+    ("PIXAR", lambda d: d.startswith(b"\200\350\000\000")),
+    ("PSD", lambda d: d.startswith(b"8BPS")),
+    ("QOI", lambda d: d.startswith(b"qoif")),
+    ("SGI", lambda d: len(d) >= 2 and struct.unpack(">H", d[:2])[0] == 474),
+    ("SPIDER", _is_spider),
+    ("SUN", lambda d: _i32(d, ">") == 0x59A66A95),
+    ("TGA", _is_tga),
+    ("WEBP", lambda d: d[:4] == b"RIFF" and d[8:12] == b"WEBP" and d[12:16] in (b"VP8 ", b"VP8L", b"VP8X")),
+    ("WMF", _is_wmf),
+    ("XBM", lambda d: d[:16].lstrip().startswith(b"#define")),
+    ("XPM", lambda d: d.startswith(b"/* XPM */")),
+    ("XVTHUMB", lambda d: d.startswith(b"P7 332")),
+)
+READ = ("BMP", "DIB", "GIF", "JPEG", "PNM", "PNG", "CUR", "ICNS", "ICO", "TIFF", "PSD", "TGA", "WEBP")
+# Openers Pillow finds but cannot load here either (ROADMAP, the opener
+# table): the port names the cause.
+_BOTH_RAISE = {
+    "EPS": "EPS needs Ghostscript to render",
+    "WMF": "WMF/EMF renders only on Windows",
+    "BUFR": "BUFR is a stub format without a handler",
+    "GRIB": "GRIB is a stub format without a handler",
+    "HDF5": "HDF5 is a stub format without a handler",
+    "MPEG": "MPEG is only identified, not decoded",
+}
+
+
 def sniff(data: bytes) -> str:
-    """The format of image bytes, by their content: "PNG", "JPEG", "BMP",
-    "GIF", "PNM", "PSD", "TIFF", "WEBP", "TGA"; raises ValueError for a
-    format not ported or not an image."""
-    if data.startswith(PNG_SIGNATURE):
-        return "PNG"
-    if data.startswith(b"\xff\xd8\xff"):
-        return "JPEG"
-    if data.startswith(b"BM"):
-        return "BMP"
-    if data.startswith((b"GIF87a", b"GIF89a")):
-        return "GIF"
-    if len(data) >= 2 and data[:1] == b"P" and data[1:2] in b"0123456fy":   # PpmImagePlugin._accept
-        return "PNM"
-    if data.startswith(b"8BPS"):
-        return "PSD"
-    if data.startswith(TIFF_PREFIXES):
-        return "TIFF"
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP" and data[12:16] in (b"VP8 ", b"VP8L", b"VP8X"):
-        return "WEBP"                                                    # WebPImagePlugin._accept
-    if _is_tga(data):
-        return "TGA"
-    raise ValueError("not an image file this port reads (PNG, JPEG, BMP, GIF, PNM, PSD, TIFF, WebP, TGA)")
+    """The format of image bytes as Pillow's Image.open finds it: the first
+    of its openers, in its order, whose test accepts them (so bytes two
+    openers accept go to the earlier, as in Pillow; TGA, which has no
+    test, is tried after all but five).  Returns one of ``READ`` ("PNM"
+    for Pillow's PPM); raises ValueError for a format not ported, one
+    that Pillow cannot load either, or no image."""
+    head = data[:16]
+    for name, accepts in _OPENERS:
+        if accepts(data if name in ("TGA", "IM", "IMT", "PCD", "SPIDER", "CUR", "ICNS", "ICO", "GBR", "WMF")
+                   else head):
+            if name in READ:
+                return name
+            if name in _BOTH_RAISE:
+                raise ValueError(f"{_BOTH_RAISE[name]} (Pillow raises too)")
+            raise ValueError(f"{name} image: not a format this port reads yet (ROADMAP A12)")
+    raise ValueError("not an image file this port reads (" + ", ".join(READ) + ")")
+
+
+def _u(fmt: str, data: bytes, at: int) -> tuple:
+    """struct.unpack at `at`; ValueError where the file ends first."""
+    size = struct.calcsize(fmt)
+    if at < 0 or at + size > len(data):
+        raise ValueError("truncated icon file")
+    return struct.unpack(fmt, data[at:at + size])
+
+
+def _decode_ico(lib, data: bytes) -> tuple[np.ndarray, str]:
+    """IcoImagePlugin: the entry of the largest area, of those the lowest
+    colour depth (bits, else log2 of the colour count, else 256), the
+    first in the file of equals; a PNG member as a PNG without its tRNS
+    (Pillow keeps the member's pixels and palette, not its info), any
+    other through the library's icon_bitmap (RGBA)."""
+    entries = []
+    for i in range(_u("<H", data, 4)[0]):
+        w, h, colours, _, _, bits, size, offset = _u("<BBBBHHII", data, 6 + 16 * i)
+        depth = bits or (colours != 0 and math.ceil(math.log(colours, 2))) or 256
+        entries.append(((w or 256) * (h or 256), depth, size, offset, bits))
+    if not entries:
+        raise ValueError("ICO file without images")
+    entries.sort(key=lambda e: e[1])
+    entries.sort(key=lambda e: e[0], reverse=True)
+    _, _, size, offset, bits = entries[0]
+    if data[offset:offset + 8] == PNG_SIGNATURE:
+        return _decode_png(lib, data[offset:], keep_trns=False)
+    return _collect(lib, lib.imgd_icon, data, len(data), 0, offset, size, bits, -1)
+
+
+def _decode_cur(lib, data: bytes) -> tuple[np.ndarray, str]:
+    """CurImagePlugin: the first entry unless a later one is wider and
+    taller; its DIB at half height (an offset of 0 means right after the
+    directory, where Pillow's file then stands)."""
+    count = _u("<H", data, 4)[0]
+    best = None
+    for i in range(count):
+        w, h = _u("<BB", data, 6 + 16 * i)
+        if best is None or (w > best[0] and h > best[1]):
+            best = (w, h, _u("<I", data, 6 + 16 * i + 12)[0])
+    if best is None:
+        raise ValueError("CUR file without cursors")
+    return _collect(lib, lib.imgd_icon, data, len(data), 1, best[2] or 6 + 16 * count, 0, 0, -1)
+
+
+# IcnsImagePlugin.IcnsFile.SIZES: (width, height, scale) -> its members, in
+# the order Pillow reads them.
+_ICNS_SIZES = {
+    (512, 512, 2): (b"ic10",), (512, 512, 1): (b"ic09",), (256, 256, 2): (b"ic14",),
+    (256, 256, 1): (b"ic08",), (128, 128, 2): (b"ic13",), (128, 128, 1): (b"ic07", b"it32", b"t8mk"),
+    (64, 64, 1): (b"icp6",), (32, 32, 2): (b"ic12",), (48, 48, 1): (b"ih32", b"h8mk"),
+    (32, 32, 1): (b"icp5", b"il32", b"l8mk"), (16, 16, 2): (b"ic11",), (16, 16, 1): (b"icp4", b"is32", b"s8mk"),
+}
+
+
+def _decode_icns(lib, data: bytes) -> tuple[np.ndarray, str]:
+    """IcnsImagePlugin: the largest (width, height, scale) any member
+    holds; every member of that size read in Pillow's order (PNG, JPEG
+    2000, Apple's RLE RGB, its mask); the PNG (without its tRNS, as
+    Pillow drops the member's info) if there is one, else the RGB with the
+    mask as alpha.  The member's own mode: Pillow reports "RGBA" at open,
+    which ``obj_loader.load_texture_file`` accounts for."""
+    blocks, i = {}, 8
+    filesize = _u(">I", data, 4)[0]
+    while i < filesize:
+        sig, blocksize = _u(">4sI", data, i)
+        if blocksize <= 0:
+            raise ValueError("invalid ICNS block header")
+        blocks[sig] = (i + 8, blocksize - 8)
+        i += blocksize
+    sizes = [size for size, sigs in _ICNS_SIZES.items() if any(s in blocks for s in sigs)]
+    if not sizes:
+        raise ValueError("ICNS file without 32-bit icon resources")
+    size = max(sizes)
+    side = size[0] * size[2]
+    found = {}
+    for sig in _ICNS_SIZES[size]:
+        if sig not in blocks:
+            continue
+        start, length = blocks[sig]
+        if sig.endswith(b"mk"):
+            if start + side * side > len(data):
+                raise ValueError("truncated ICNS mask")
+            found["A"] = start
+        elif sig in (b"it32", b"ih32", b"il32", b"is32"):
+            if sig == b"it32":
+                if data[start:start + 4] != b"\0\0\0\0":
+                    raise ValueError("ICNS it32 member without its zero signature")
+                start, length = start + 4, length - 4
+            found["RGB"] = (start, length)
+        elif data[start:start + 8] == PNG_SIGNATURE:
+            found["RGBA"] = _decode_png(lib, data[start:], keep_trns=False)
+        elif data[start:start + 4] == b"\xff\x4f\xff\x51" or data[start:start + 4] == b"\x0d\x0a\x87\x0a" or \
+                data[start:start + 12] == b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a":
+            raise ValueError("ICNS member in JPEG 2000, which the port does not read yet (ROADMAP A12)")
+        else:
+            raise ValueError("unsupported ICNS member format")
+        if "RGB" in found and sig in (b"it32", b"ih32", b"il32", b"is32"):  # read_32 runs, and may fail
+            found["RGB"] = _collect(lib, lib.imgd_icon, data, len(data), 2, start, length, side, -1)
+    if "RGBA" in found:
+        return found["RGBA"]
+    if "RGB" not in found:
+        raise ValueError("ICNS icon without an RGB member")
+    px = found["RGB"][0]
+    if "A" not in found:
+        return px, "RGB"
+    alpha = np.frombuffer(data, np.uint8, side * side, found["A"]).reshape(side, side, 1)
+    return np.concatenate([px, alpha], axis=2), "RGBA"
 
 
 def decode_image(data: bytes) -> tuple[np.ndarray, str]:
@@ -371,28 +630,32 @@ def decode_image(data: bytes) -> tuple[np.ndarray, str]:
         return _decode_png(lib, data)
     if kind == "TIFF":
         return _collect(lib, lib.imgd_tiff, data, len(data), _decompress)
+    if kind in ("ICO", "CUR", "ICNS"):
+        return {"ICO": _decode_ico, "CUR": _decode_cur, "ICNS": _decode_icns}[kind](lib, data)
     return _collect(lib, lib.imgd_decode, data, len(data), _CODES[kind])
 
 
 def decode_float_samples(data: bytes) -> np.ndarray | None:
-    """The float32 (H, W, 1) samples of a float TIFF (grey, mode F) or a
-    PFM, top row first: the linear radiance a sky holds, as the JAX
-    package's imageio reads a TIFF (its bundled tifffile: as stored, no
-    Orientation applied).  None for any other image, which
-    ``decode_image`` reads."""
+    """The float32 (H, W, C) samples of a float TIFF (SampleFormat 3:
+    16-, 32- or 64-bit samples, C 1, 3 or 4; strips or tiles, one plane
+    or one a sample) or of a PFM (C 1), top row first: the linear
+    radiance a sky holds, as the JAX package's imageio reads a TIFF (its
+    bundled tifffile: as stored, no Orientation applied, cast to
+    float32).  None for any other image, which ``decode_image`` reads."""
     data = bytes(data)
     kind = sniff(data)
     if kind not in ("TIFF", "PNM"):
         return None
     lib = load_library()
-    call = (lib.imgd_tiff, data, len(data), _decompress) if kind == "TIFF" else \
+    call = (lib.imgd_tiff_floats, data, len(data), _decompress) if kind == "TIFF" else \
         (lib.imgd_decode, data, len(data), _CODES[kind])
     with _result(lib, *call) as handle:
-        h, w = ctypes.c_int64(), ctypes.c_int64()
-        floats = lib.imgd_floats(handle, ctypes.byref(h), ctypes.byref(w))
+        h, w, c = ctypes.c_int64(), ctypes.c_int64(), ctypes.c_int64()
+        floats = lib.imgd_floats(handle, ctypes.byref(h), ctypes.byref(w), ctypes.byref(c))
         if not floats:
             return None
-        return np.ctypeslib.as_array(floats, shape=(h.value * w.value,)).reshape(h.value, w.value, 1).copy()
+        n = h.value * w.value * c.value
+        return np.ctypeslib.as_array(floats, shape=(n,)).reshape(h.value, w.value, c.value).copy()
 
 
 def pixels_digest(arr: np.ndarray) -> str:

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import io
 import json
 import lzma
 import os
@@ -49,7 +50,8 @@ FIXTURE_NAMES = ("prog420_odd.jpg", "base422_rst.jpg", "grey.jpg", "rle.tga", "p
                  "prog420_cut.jpg", "prog420_dc.jpg", "corrupt_recovered.jpg", "smooth1024_arith.jpg",
                  "g4_discs.tif", "lab_leaf.tif", "zstd_gloss.tif", "lzma_metal.tif", "lab.psd", "thunder.tif",
                  "rlew_badcodes.tif", "g3_2d_fill2.tif", "g4_1024.tif", "zstd_1024.tif", "lzma_1024.tif",
-                 "lab_1024.tif", "thunder_1024.tif")
+                 "lab_1024.tif", "thunder_1024.tif", "ojpeg_ground.tif", "ojpeg_tables_grey.tif",
+                 "lzw_old_gloss.tif", "icon_leaf.ico", "icon_png.ico", "cursor.cur", "bitmap.dib", "icns_metal.icns")
 
 # Corrupt JPEGs: a fixture with bytes replaced ((offset, byte), ...), whose
 # dequantized coefficients overflow libjpeg-turbo's 16-bit SIMD IDCT lanes
@@ -741,6 +743,74 @@ def make_bmp(pix, bits: int, hs: int = 40, top_down: bool = False, palette=None,
     return b"BM" + struct.pack("<IHHI", off + len(data), 0, 0, off) + dib + pal + data
 
 
+def icon_dib(pix, bits: int, and_mask=None, palette=None, hs: int = 40) -> bytes:
+    """An icon's or a cursor's bitmap member: `make_bmp`'s DIB without its
+    14-byte file header, its height doubled, then the AND mask ((h, w)
+    0/1, 1 transparent; 1 bit a pixel, rows padded to 32 bits, bottom
+    row first; none set by default)."""
+    h, w = np.asarray(pix).shape[:2]
+    dib = bytearray(make_bmp(pix, bits, hs=hs, palette=palette)[14:])
+    if hs == 12:
+        dib[6:8] = struct.pack("<H", 2 * h)
+    else:
+        dib[8:12] = struct.pack("<i", 2 * h)
+    mask = np.zeros((h, w), np.uint8) if and_mask is None else np.asarray(and_mask, np.uint8)
+    row = (w + 31) // 32 * 4
+    return bytes(dib) + b"".join(np.packbits(r).tobytes().ljust(row, b"\0") for r in mask[::-1])
+
+
+def make_icon(members, kind: int = 1) -> bytes:
+    """ICO (`kind` 1) or CUR (2) bytes of (w, h, colours, planes, bits,
+    blob) entries, the blobs after the directory in order (w and h as
+    stored, 0 for 256; a cursor's planes and bits are its hotspot)."""
+    head = struct.pack("<HHH", 0, kind, len(members))
+    offset, entries, blobs = 6 + 16 * len(members), b"", b""
+    for w, h, colours, planes, bits, blob in members:
+        entries += struct.pack("<BBBBHHII", w & 255, h & 255, colours, 0, planes, bits, len(blob), offset)
+        offset += len(blob)
+        blobs += blob
+    return head + entries + blobs
+
+
+def icns_rle(channel: bytes) -> bytes:
+    """Apple's icon RLE of one channel, as IcnsImagePlugin.read_32 reads
+    it: a run of 3-130 equal bytes as 125 + n and the byte, the rest in
+    literals of 1-128 bytes as n - 1 and the bytes."""
+    out, lit, i = bytearray(), bytearray(), 0
+    while i < len(channel):
+        j = i
+        while j < len(channel) and j - i < 130 and channel[j] == channel[i]:
+            j += 1
+        if j - i >= 3:
+            for k in range(0, len(lit), 128):
+                out += bytes([len(lit[k:k + 128]) - 1]) + lit[k:k + 128]
+            lit = bytearray()
+            out += bytes([125 + j - i, channel[i]])
+            i = j
+        else:
+            lit.append(channel[i])
+            i += 1
+    for k in range(0, len(lit), 128):
+        out += bytes([len(lit[k:k + 128]) - 1]) + lit[k:k + 128]
+    return bytes(out)
+
+
+def icns_rgb(pix, rle: bool = True) -> bytes:
+    """An ICNS RGB member's body of (side, side, 3) pixels: three RLE
+    channels, or the raw RGB bytes."""
+    pix = np.asarray(pix, np.uint8)
+    if not rle:
+        return pix.tobytes()
+    return b"".join(icns_rle(pix[..., k].tobytes()) for k in range(3))
+
+
+def make_icns(blocks) -> bytes:
+    """ICNS bytes of (4-byte type, body) blocks in order (an it32 body
+    starts with its four zero bytes)."""
+    body = b"".join(sig + struct.pack(">I", len(b) + 8) + b for sig, b in blocks)
+    return b"icns" + struct.pack(">I", len(body) + 8) + body
+
+
 def encode_bmp_rle(idx, rle4: bool, rng, delta: bool = False, odd_runs: bool = False,
                    max_run: int = 8) -> bytes:
     """BMP RLE8/RLE4 data of (h, w) palette indexes, bottom row first:
@@ -1046,6 +1116,65 @@ def tiff_lzw(data: bytes) -> bytes:
     return bytes(out)
 
 
+def encode_lzw_compat(data: bytes, clear_every: int = 0, eoi: bool = True) -> bytes:
+    """Old-style TIFF LZW of `data`, as libtiff's LZW_COMPAT decoder
+    (LZWDecodeCompat) reads it: codes packed least significant bit first,
+    9 to 12 bits wide, each width one code later than the new style's
+    (`tiff_lzw`); a clear code first, another after every `clear_every`
+    codes (0: only when the table fills), the end code last unless `eoi`
+    is false."""
+    out = bytearray()
+    acc = nacc = 0
+    bits, free, since = 9, 258, 0
+    table = {}                       # (prefix code << 8 | byte) -> code
+
+    def put(code):
+        nonlocal acc, nacc
+        acc |= code << nacc
+        nacc += bits
+        while nacc >= 8:
+            out.append(acc & 255)
+            acc >>= 8
+            nacc -= 8
+
+    def added():                     # the entry the decoder adds for the code just put
+        nonlocal bits, free, since
+        free += 1
+        since += 1
+        if free > (1 << bits):
+            bits = min(bits + 1, 12)
+        if free == 4094 or (clear_every and since == clear_every):
+            put(256)                 # at the width the decoder has reached
+            table.clear()
+            bits, free, since = 9, 258, 0
+            return True
+        return False
+
+    put(256)
+    w = -1
+    for c in data:
+        if w < 0:
+            w = c
+            continue
+        key = w << 8 | c
+        code = table.get(key)
+        if code is not None:
+            w = code
+            continue
+        put(w)
+        if not added():
+            table[key] = free - 1
+        w = c
+    if w >= 0:
+        put(w)
+        added()
+    if eoi:
+        put(257)
+    if nacc:
+        out.append(acc & 255)
+    return bytes(out)
+
+
 _TIFF_FMT = {1: "B", 2: "B", 3: "H", 4: "I", 5: "I", 6: "b", 7: "B", 8: "h", 9: "i", 10: "i",
              11: "f", 12: "d", 16: "Q", 17: "q"}
 _TIFF_SIZE = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8, 11: 4, 12: 8, 16: 8, 17: 8}
@@ -1054,14 +1183,15 @@ _TIFF_SIZE = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8, 11: 4
 def _tiff_pack(samples: np.ndarray, bits: int, order: str, fmt: int) -> bytes:
     """(rows, n) samples of one segment row by row: each row packed most
     significant bit first below 8 bits and at 12 bits and padded to a
-    byte, else in the file's byte order (`fmt` 3: float16 or float32)."""
+    byte, else in the file's byte order (`fmt` 3: float16, float32 or
+    float64)."""
     rows = []
     for row in samples:
         if bits < 8 or bits == 12:
             b = np.unpackbits(row.astype(">u2").view(np.uint8).reshape(-1, 2), axis=1)[:, 16 - bits:]
             rows.append(np.packbits(b.reshape(-1)).tobytes())
         else:
-            dt = {8: "u1", 16: "u2", 32: "u4"}[bits] if fmt != 3 else {16: "f2", 32: "f4"}[bits]
+            dt = {8: "u1", 16: "u2", 32: "u4"}[bits] if fmt != 3 else {16: "f2", 32: "f4", 64: "f8"}[bits]
             if fmt == 2:
                 dt = dt.replace("u", "i")
             rows.append(row.astype(order + dt).tobytes())
@@ -1076,11 +1206,11 @@ def _hor_diff(rows: np.ndarray, bits: int, spp: int) -> np.ndarray:
     return d & ((1 << bits) - 1)
 
 
-def _fp_predict(row_bytes: bytes, spp: int) -> bytes:
-    """libtiff's fpDiff on one row of float32 samples in native order:
-    byte planes, most significant first, then bytewise differencing."""
-    v = np.frombuffer(row_bytes, "<u4")
-    planes = np.stack([(v >> s) & 255 for s in (24, 16, 8, 0)]).astype(np.uint8).reshape(-1)
+def _fp_predict(row_bytes: bytes, spp: int, size: int = 4) -> bytes:
+    """libtiff's fpDiff on one row of `size`-byte float samples in native
+    (little-endian) order: byte planes, most significant first, then
+    bytewise differencing."""
+    planes = np.frombuffer(row_bytes, np.uint8).reshape(-1, size)[:, ::-1].T.reshape(-1)
     d = planes.astype(np.int16)
     d[spp:] = d[spp:] - planes[:-spp].astype(np.int16)
     return (d & 255).astype(np.uint8).tobytes()
@@ -1172,14 +1302,16 @@ def make_tiff(samples, bits, photometric: int, *, order: str = "<", header: str 
               compression: int = 1, predictor=None, rows_per_strip=None, tile=None,
               colormap=None, subsampling=None, jpeg_q: int = 4, jpeg_tables: bool = True,
               tags=None, omit=(), packbits_rng=None, ifd_first: bool = False,
-              seg_data=None, jpeg=None, codec_rng=None, zstd_level: int = 3, t4_options: int = 0) -> bytes:
+              seg_data=None, jpeg=None, codec_rng=None, zstd_level: int = 3, t4_options: int = 0,
+              lzw_compat: bool = False, data_last: bool = False, seg_at=None) -> bytes:
     """TIFF bytes of (h, w[, n]) samples: `bits` per sample (an int, or a
     tuple for the tag), in byte order `order` ("<" II, ">" MM); `header`
     "tiff", "bigtiff" or "swapped" (the magic in the other order, which
     Pillow accepts as an "invalid" prefix); strips of `rows_per_strip` or
     `tile` (w, h) tiles (edge tiles padded); `planar` 2 writes a segment
     per sample plane; compression 1 (none), 32773 (PackBits), 5 (LZW), 8
-    or 32946 (Deflate), 34925 (LZMA, an .xz stream) or 50000 (ZSTD, a
+    or 32946 (Deflate), 5 with `lzw_compat` (old-style LZW,
+    `encode_lzw_compat`), 34925 (LZMA, an .xz stream) or 50000 (ZSTD, a
     frame of `zstd_level`: needs the zstandard package) with `predictor` 2 or
     3, 32809 (ThunderScan of `codec_rng`'s codes), 2, 3 (`t4_options`), 4
     and 32771 (CCITT, each segment written by Pillow), or 7 (JPEG: each segment a
@@ -1191,9 +1323,11 @@ def make_tiff(samples, bits, photometric: int, *, order: str = "<", header: str 
     the bits of every stored byte.  `sample_format`, `extra` and
     `colormap` ((2^bits, 3) 16-bit entries) fill their tags; `jpeg_q` is
     the JPEG quantizer, `packbits_rng` adds PackBits no-ops; `ifd_first`
-    puts the directory before the data.  `tags` adds or replaces (tag,
+    puts the directory before the data, `data_last` the directory and
+    its values.  `tags` adds or replaces (tag,
     type, values) entries; `omit` drops tags by number; `seg_data`
-    replaces the stored segments."""
+    replaces the stored segments, and `seg_at` their offsets (relative to
+    the first segment's: the strips may then point into one blob)."""
     s = np.asarray(samples)
     if s.ndim == 2:
         s = s[..., None]
@@ -1241,7 +1375,7 @@ def make_tiff(samples, bits, photometric: int, *, order: str = "<", header: str 
             if predictor == 2:
                 flat = _hor_diff(flat, b0, sn)
             if predictor == 3:
-                raw = b"".join(_fp_predict(r.astype("<f4").tobytes(), sn) for r in flat)
+                raw = b"".join(_fp_predict(r.astype(f"<f{b0 // 8}").tobytes(), sn, b0 // 8) for r in flat)
             else:
                 raw = _tiff_pack(flat, b0, order, fmt)
         if compression in CCITT_NAMES:
@@ -1252,7 +1386,7 @@ def make_tiff(samples, bits, photometric: int, *, order: str = "<", header: str 
             rb = len(raw) // sh
             return b"".join(packbits(raw[i:i + rb], packbits_rng) for i in range(0, len(raw), rb))
         if compression == 5:
-            return tiff_lzw(raw)
+            return encode_lzw_compat(raw) if lzw_compat else tiff_lzw(raw)
         if compression in (8, 32946):
             return zlib.compress(raw)
         if compression == 34925:
@@ -1315,17 +1449,25 @@ def make_tiff(samples, bits, photometric: int, *, order: str = "<", header: str 
     data_blob = b"".join(segments)
     nent = len(entries)
     ifd_len = (8 + 20 * nent + 8) if big else (2 + 12 * nent + 4)
+    ifd_first = ifd_first or data_last
+    ext_len = 0
+    if data_last:                    # the values the directory points at, before the data
+        for typ, vals in entries.values():
+            size = _TIFF_SIZE[typ] * len(vals)
+            ext_len += size + (size & 1) if size > (8 if big else 4) else 0
     ifd_off = hdr_len if ifd_first else hdr_len + len(data_blob) + (len(data_blob) & 1)
-    data_off = hdr_len + ifd_len if ifd_first else hdr_len
+    data_off = hdr_len + ifd_len + ext_len if ifd_first else hdr_len
     seg_offs, pos = [], data_off
     for d in segments:
         seg_offs.append(pos)
         pos += len(d)
+    if seg_at is not None:
+        seg_offs = [data_off + a for a in seg_at]
     offkey = 324 if tile else 273
     if offkey in entries:
         entries[offkey] = (entries[offkey][0], seg_offs)
     slot = 8 if big else 4
-    extra_off = (ifd_off + ifd_len) if not ifd_first else data_off + len(data_blob)
+    extra_off = (ifd_off + ifd_len) if not ifd_first or data_last else data_off + len(data_blob)
     ext = bytearray()
     body = bytearray()
     for tag in sorted(entries):
@@ -1349,9 +1491,109 @@ def make_tiff(samples, bits, photometric: int, *, order: str = "<", header: str 
     else:
         magic = struct.pack(order + "H", 42)
         head = bo + (magic[::-1] if header == "swapped" else magic) + struct.pack(order + "I", ifd_off)
+    if data_last:
+        return bytes(head + ifd + ext + data_blob)
     if ifd_first:
         return bytes(head + ifd + data_blob + ext)
     return bytes(head + data_blob + (b"\0" if len(data_blob) & 1 else b"") + ifd + ext)
+
+
+def _jpeg_markers(js: bytes):
+    """The (code, start, end) of a JPEG's marker segments up to its SOS,
+    and the offset its scan data starts at."""
+    pos, out = 2, []
+    while True:
+        code = js[pos + 1]
+        end = pos + 2 + struct.unpack(">H", js[pos + 2:pos + 4])[0]
+        out.append((code, pos, end))
+        pos = end
+        if code == 0xDA:
+            return out, pos
+
+
+def jpeg_scan_parts(js: bytes) -> list[bytes]:
+    """A JPEG's entropy-coded data split at its RST markers (EOI dropped)."""
+    data = js[_jpeg_markers(js)[1]:js.rindex(b"\xff\xd9")]
+    parts, last, i = [], 0, 0
+    while i < len(data) - 1:
+        if data[i] == 0xFF and 0xD0 <= data[i + 1] <= 0xD7:
+            parts.append(data[last:i])
+            last = i = i + 2
+        else:
+            i += 1
+    return parts + [data[last:]]
+
+
+def make_ojpeg_tiff(planes, factors, *, layout: str = "interchange", photometric: int = 6, rows_per_strip=None,
+                    tile=None, q: int = 4, restart: int = 0, subsampling_tag: bool = True, header_only: bool = False,
+                    tags=(), jpeg: bytes | None = None) -> bytes:
+    """An old-style JPEG TIFF (compression 6) of `encode_jpeg`'s stream of
+    `planes` sampled at `factors` (or of the given `jpeg`), laid out as
+    libtiff's tif_ojpeg.c reads it: `layout` "interchange" puts the whole
+    stream in the file with JPEGInterchangeFormat (513, 514) pointing at
+    it and the strips pointing into its scan data (split at its restart
+    markers; `header_only` cuts 514 to the markers before the scan data,
+    which the strips then hold alone); "tables" keeps only each strip's
+    bare scan data and points JPEGQTables, JPEGDCTables and JPEGACTables
+    (519-521, one offset a sample) at the raw tables after the directory.
+    Several strips (`rows_per_strip`, or `tile` (w, h) tiles in one
+    column) take one restart interval each, as libtiff expects; `restart`
+    sets it for a single strip (JPEGRestartInterval in the table layout).
+    YCbCrSubsampling is the first factor pair unless `subsampling_tag` is
+    false; `tags` add or replace entries."""
+    h, w = planes[0].shape
+    n = len(planes)
+    hs, vs = factors[0] if n == 3 else (1, 1)
+    if tile:
+        tw, th = tile
+        seg_rows = th
+    else:
+        tw, th = w, rows_per_strip or h
+        seg_rows = th
+    nseg = -(-h // seg_rows)
+    if nseg > 1:
+        restart = -(-tw // (hs * 8)) * (seg_rows // (vs * 8))
+    if tile:                          # libtiff reads the tiles as strips of the tile's width, in order
+        pad = [np.pad(p, ((0, -h % th), (0, -w % tw)), mode="edge") for p in planes]
+        planes = [np.concatenate([p[y:y + th, x:x + tw] for y in range(0, h, th) for x in range(0, w, tw)])
+                  for p in pad]
+    js = jpeg or encode_jpeg(planes, factors, q=q, restart=restart)
+    markers, sos_end = _jpeg_markers(js)
+    samples = np.zeros((h, w, n), np.uint8)
+    extra = [(277, 3, [n])] + ([(530, 3, [hs, vs])] if n == 3 and subsampling_tag else [])
+    layout_kw = dict(tile=tile) if tile else dict(rows_per_strip=rows_per_strip or h)
+    if layout == "interchange":
+        parts = jpeg_scan_parts(js) if nseg > 1 or header_only else [js]
+
+        at, o = [], sos_end                  # the strips point at the scan data inside the stream
+        for part in parts:
+            at.append(o)
+            o += len(part) + 2
+
+        def build(off):
+            t = [(513, 4, [off]), (514, 4, [sos_end if header_only else len(js)])] + extra
+            if nseg > 1 or header_only:
+                t.append((325 if tile else 279, 4, [len(part) for part in parts]))
+            return make_tiff(samples, 8, photometric, compression=6, seg_data=[js], data_last=True,
+                             seg_at=at if nseg > 1 or header_only else None, tags=t + list(tags), **layout_kw)
+
+        first = build(0)
+        return build(len(first) - len(js))
+    dqt = next(js[s + 4:e] for c, s, e in markers if c == 0xDB)
+    dhts = [js[s + 4:e] for c, s, e in markers if c == 0xC4]
+    dc = next(x[1:] for x in dhts if x[0] == 0x00)
+    ac = next(x[1:] for x in dhts if x[0] == 0x10)
+    parts = jpeg_scan_parts(js) if nseg > 1 else [js[sos_end:js.rindex(b"\xff\xd9")]]
+    blob = dqt[1:] + dc + ac
+
+    def build(base):
+        t = [(512, 3, [1]), (519, 4, [base] * n), (520, 4, [base + 64] * n),
+             (521, 4, [base + 64 + len(dc)] * n)] + extra
+        if restart and nseg == 1:
+            t.append((515, 3, [restart]))
+        return make_tiff(samples, 8, photometric, compression=6, seg_data=parts, tags=t + list(tags), **layout_kw)
+
+    return build(len(build(0))) + blob
 
 
 # ---------------------------------------------------------------- WebP ----
@@ -1711,6 +1953,49 @@ def write_tiff_codec_fixtures(out: Path) -> None:
                                                      compression=32809, codec_rng=rng, rows_per_strip=128))
 
 
+def write_container_fixtures(out: Path) -> None:
+    """The old-style JPEG and LZW TIFFs and the icon containers: the
+    old-style JPEG ground colour, the old-style LZW specular, the ICO's
+    bitmap (whose colour is the cut-out) and the ICNS metallic map stand in
+    for textured_obj's ground colour, ground specular, leaf opacity and
+    pillar metallic maps (chip_smoke phase 38); the others hold a layout
+    each (the table layout, a PNG member, a cursor, a bare DIB)."""
+    from PIL import Image
+
+    from realtimeraytracer_torch.utils.png import encode_png
+
+    rng = np.random.default_rng(21)
+    yy, xx = np.mgrid[0:64, 0:64]
+    checker = (xx // 8 + yy // 8) % 2
+    ground = np.stack([64 + 140 * checker, 56 + 102 * checker, 51 + 64 * checker], -1) + rng.integers(0, 9, (64, 64, 3))
+    (out / "ojpeg_ground.tif").write_bytes(make_ojpeg_tiff([ground[..., k] for k in range(3)],
+                                                           [(2, 2), (1, 1), (1, 1)], rows_per_strip=16))
+    (out / "ojpeg_tables_grey.tif").write_bytes(make_ojpeg_tiff([smooth_image(rng, 27, 41, 1)[..., 0]], [(1, 1)],
+                                                                layout="tables", photometric=1, rows_per_strip=8))
+    gloss = np.clip(xx * 255 // 63, 13, 242)
+    (out / "lzw_old_gloss.tif").write_bytes(make_tiff(gloss, 8, 1, compression=5, lzw_compat=True, predictor=2,
+                                                      rows_per_strip=16))
+    disc = disc_pattern(64)
+    pal = np.array([[20, 30, 10], [230, 240, 220]] + [[0, 0, 0]] * 14)
+    mask = 1 - disc.astype(np.uint8)
+    leaf = icon_dib(disc.astype(int), 4, mask, pal)
+    small = icon_dib(disc[::2, ::2].astype(int), 4, mask[::2, ::2], pal)
+    (out / "icon_leaf.ico").write_bytes(make_icon([(32, 32, 16, 1, 4, small), (64, 64, 16, 1, 4, leaf)]))
+    b = io.BytesIO()
+    Image.fromarray(smooth_image(rng, 24, 24, 4)).save(b, "ICO", sizes=[(16, 16), (24, 24)])
+    (out / "icon_png.ico").write_bytes(b.getvalue())
+    (out / "cursor.cur").write_bytes(make_icon([(16, 16, 0, 3, 4, icon_dib(smooth_image(rng, 16, 16, 3), 24)),
+                                                (32, 32, 0, 5, 5, icon_dib(smooth_image(rng, 32, 32, 3), 24))], kind=2))
+    b = io.BytesIO()
+    Image.fromarray(smooth_image(rng, 19, 26, 3)).quantize(32).save(b, "DIB")
+    (out / "bitmap.dib").write_bytes(b.getvalue())
+    metal = np.repeat(np.clip(np.mgrid[0:128, 0:128][0] * 2, 0, 255)[..., None], 3, -1).astype(np.uint8)
+    metal[:, 60:68] = 200
+    (out / "icns_metal.icns").write_bytes(make_icns([
+        (b"is32", icns_rgb(metal[::8, ::8])), (b"it32", b"\0\0\0\0" + icns_rgb(metal)),
+        (b"t8mk", np.full(128 * 128, 255, np.uint8).tobytes()), (b"ic11", encode_png(metal[::4, ::4]))]))
+
+
 def write_fixtures(out: Path = FIXTURES) -> dict:
     """Write the committed fixtures and expected.json; returns the digests."""
     from PIL import Image
@@ -1739,6 +2024,7 @@ def write_fixtures(out: Path = FIXTURES) -> dict:
     write_webp_fixtures(out)
     write_jpeg_variant_fixtures(out)
     write_tiff_codec_fixtures(out)
+    write_container_fixtures(out)
 
     def digest(name, g):   # None where the JAX package raises (a Lab file read as grey)
         try:

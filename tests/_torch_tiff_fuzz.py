@@ -3,8 +3,11 @@
 ``python tests/_torch_tiff_fuzz.py [--files N] [--seed S] [--lab-table]``
 mutates seed TIFFs (CCITT RLE, RLEW, Group 3 1-D and 2-D, Group 4 in
 strips and tiles, both photometrics and FillOrder 2; ThunderScan; LZMA and
-ZSTD at several levels, planes, tiles and predictors; Lab; and the
-committed LZW, Deflate, PackBits, JPEG and BigTIFF fixtures), drawn with
+ZSTD at several levels, planes, tiles and predictors; Lab; old-style LZW
+in strips, tiles, planes and YCbCr blocks, with predictor 2; old-style
+JPEG in both layouts, grey and YCbCr 1x1, 2x1, 2x2, in one strip,
+several or a column of tiles; and the committed LZW, Deflate, PackBits,
+JPEG, BigTIFF and old-style fixtures), drawn with
 ``random.Random(S)`` (``--keep DIR`` writes the mismatching files to DIR): a directory entry's count, value or offset, or type
 changed (40% of the files), 1-4 bytes of a strip or tile set to random
 values (40%), or the file cut (20%); each mismatch is printed with its
@@ -35,7 +38,7 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-from _torch_image_helpers import FIXTURES, make_tiff, smooth_image  # noqa: E402
+from _torch_image_helpers import FIXTURES, make_ojpeg_tiff, make_tiff, smooth_image  # noqa: E402
 
 from realtimeraytracer_torch.scene import obj_loader as tol  # noqa: E402
 
@@ -64,6 +67,23 @@ def seeds() -> list[tuple[str, bytes]]:
         out.append((f"c{comp}-grey.tif", make_tiff(rgb[..., 0], 8, 1, compression=comp, order=">")))
     for comp in (1, 5):
         out.append((f"lab{comp}.tif", make_tiff(rgb, 8, 8, compression=comp, rows_per_strip=9)))
+    for kw in ({}, {"rows_per_strip": 8}, {"tile": (16, 16)}, {"planar": 2}, {"predictor": 2}):
+        out.append((f"lzw-compat-{sorted(kw)}.tif", make_tiff(rgb, 8, 2, compression=5, lzw_compat=True, **kw)))
+    out.append(("lzw-compat-grey.tif", make_tiff(rgb[..., 0], 8, 1, compression=5, lzw_compat=True, order=">")))
+    out.append(("lzw-compat-ycbcr.tif", make_tiff(rgb, 8, 6, compression=5, lzw_compat=True, subsampling=(2, 2),
+                                                   rows_per_strip=6)))
+    planes = [smooth_image(rng, 32, 40, 1)[..., 0] for _ in range(3)]
+    for layout in ("interchange", "tables"):
+        for fac in ((1, 1), (2, 1), (2, 2)):
+            f = [fac, (1, 1), (1, 1)]
+            out.append((f"ojpeg-{layout}-{fac}.tif", make_ojpeg_tiff(planes, f, layout=layout)))
+            out.append((f"ojpeg-{layout}-{fac}-strips.tif", make_ojpeg_tiff(planes, f, layout=layout,
+                                                                            rows_per_strip=16)))
+        out.append((f"ojpeg-{layout}-tiles.tif", make_ojpeg_tiff(planes, [(2, 2), (1, 1), (1, 1)], layout=layout,
+                                                                tile=(48, 16))))
+        out.append((f"ojpeg-{layout}-grey.tif", make_ojpeg_tiff(planes[:1], [(1, 1)], layout=layout, photometric=1,
+                                                               rows_per_strip=8)))
+    out.append(("ojpeg-header-only.tif", make_ojpeg_tiff(planes, [(2, 2), (1, 1), (1, 1)], header_only=True)))
     return out
 
 

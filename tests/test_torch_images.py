@@ -24,6 +24,7 @@ libjpeg-turbo's ISLOW IDCT, fancy upsampling and colour tables, and
 Pillow's modes); the helpers rtol 1e-6.  No JAX render runs here.
 """
 
+import functools
 import io
 import json
 import os
@@ -43,7 +44,8 @@ from _torch_image_helpers import (CORRUPT_JPEGS, FIXTURE_NAMES, FIXTURES, PROGRE
                                   encode_jpeg_blocks, encode_lossless_jpeg, encode_pnm, encode_psd,
                                   encode_thunderscan, encode_webp, make_bmp, make_png, make_tga, make_tiff,
                                   pillow_ccitt, pillow_webp, riff_webp, smooth_image, vp8x_chunk, webp_chunk,
-                                  webp_chunks, CCITT_NAMES)
+                                  webp_chunks, CCITT_NAMES, encode_lzw_compat, tiff_lzw, make_ojpeg_tiff,
+                                  icon_dib, make_icon, icns_rgb, make_icns)
 from realtimeraytracer_torch.ops import bvh as tbvh  # noqa: E402
 from realtimeraytracer_torch.ops import camera_rays as tcam  # noqa: E402
 from realtimeraytracer_torch.ops import vecmath as tvm  # noqa: E402
@@ -785,13 +787,12 @@ def test_truncated_and_corrupt_files_raise(tmp_path, name):
 
 
 def test_refused_formats_and_features_raise(tmp_path):
-    """Formats and features not ported raise ValueError naming them:
-    old-style JPEG in a TIFF, the TIFF codecs Pillow raises on too (SGILog,
-    WebP) and unknown codes, the Lab photometrics 9 and 10 (no Pillow
-    mode), a two-component JPEG, 12-bit and hierarchical JPEG (which Pillow
-    refuses too)."""
+    """Formats and features not ported raise ValueError naming them: the
+    TIFF codecs Pillow raises on too (SGILog, WebP) and unknown codes, the
+    Lab photometrics 9 and 10 (no Pillow mode), a two-component JPEG,
+    12-bit and hierarchical JPEG (which Pillow refuses too)."""
     # Pillow's WebP-in-TIFF writer crashes: these codes are written by hand.
-    for code, words in ((6, "old-style JPEG"), (34676, "SGILog"), (50001, "WebP"), (12345, "compression 12345")):
+    for code, words in ((34676, "SGILog"), (50001, "WebP"), (12345, "compression 12345")):
         with pytest.raises(ValueError, match=words):
             image_decode.decode_image(make_tiff(np.zeros((4, 4, 3), int), 8, 2, compression=1,
                                                 tags=[(259, 3, [code])]))
@@ -1424,19 +1425,300 @@ def test_tiff_directories_libtiff_reads_match_jax(tmp_path):
         _same_or_both_raise(tmp_path, f"{name}.tif", data)
 
 
-def test_corrupt_ycbcr_tiff_strip_diverges_from_jax(tmp_path):
-    """A subsampled YCbCr TIFF without JPEG whose last strip's LZW data is
-    corrupt (ycbcr22_lzw.tif, byte 862 set to 255): Pillow reads it through
-    libtiff's TIFFRGBAImage with stoponerr 0, which converts the failed
-    strip from what its buffer holds, so JAX returns an image; the port
-    raises (ROADMAP queue C, open; found by tests/_torch_tiff_fuzz.py)."""
-    p = tmp_path / "ycbcr.tif"
-    p.write_bytes(_edit(_fixture("ycbcr22_lzw.tif"), (862, 255)))
-    for grayscale in (False, True):
-        jax = jol.load_texture_file(str(p), grayscale)
-        assert jax.shape[:2] == (19, 27) and np.isfinite(jax).all()
-        with pytest.raises(ValueError, match="LZW"):
-            tol.load_texture_file(str(p), grayscale)
+@functools.lru_cache(maxsize=None)     # one build for all its cases
+def _corrupt_ycbcr_cases():
+    base = _fixture("ycbcr22_lzw.tif")                  # LZW strips of 6 rows at 8, 290, 574 and 859
+    segs = [base[o:o + n] for o, n in ((8, 282), (290, 284), (574, 285), (859, 81))]
+    rgb = smooth_image(np.random.default_rng(1427), 19, 27, 3)
+    kw = dict(compression=5, subsampling=(2, 2), data_last=True)
+    strips = make_tiff(rgb, 8, 6, rows_per_strip=6, **kw)
+    tiles = make_tiff(rgb, 8, 6, tile=(16, 16), **kw)
+    t1, t3 = (Image.open(io.BytesIO(tiles)).tag_v2[324][k] for k in (1, 3))
+    return {"last-strip": _edit(base, (862, 255)), "first-strip": _edit(base, (40, 255)),
+            "middle-strip": _edit(base, (400, 255), (401, 0)),
+            "stream-cut": make_tiff(rgb, 8, 6, rows_per_strip=6, seg_data=[segs[0], segs[1][:140], *segs[2:]], **kw),
+            "cut-file": strips[:len(strips) - 40],
+            "second-tile": _edit(tiles, (t1 + 60, 255)), "last-tile": _edit(tiles, (t3 + 20, 0), (t3 + 21, 255))}
+
+
+@pytest.mark.parametrize("case", ["cut-file", "first-strip", "last-strip", "last-tile", "middle-strip",
+                                  "second-tile", "stream-cut"])
+def test_corrupt_ycbcr_tiff_strip_matches_jax(tmp_path, case):
+    """Subsampled YCbCr TIFFs without JPEG whose LZW data is corrupt (the
+    fixture ycbcr22_lzw.tif with bytes set in its first, middle or last
+    strip; a file cut inside its last strip; a tiled file with bytes set
+    in a later tile): Pillow reads them through libtiff's TIFFRGBAImage
+    with stoponerr 0, which converts a failed strip or tile from what its
+    buffer holds: the bytes decoded before the error and zeros after
+    (LZWDecode zeros the rest; a strip's buffer is new and zeroed each
+    TIFFRGBAImageGet); a strip it cannot read ends the image.  Found by
+    tests/_torch_tiff_fuzz.py (ROADMAP queue C, repaired)."""
+    _same_or_both_raise(tmp_path, f"{case}.tif", _corrupt_ycbcr_cases()[case])
+
+
+@functools.lru_cache(maxsize=None)     # one build for all its cases
+def _old_lzw_cases():
+    rng = np.random.default_rng(3432)
+    rgb = smooth_image(rng, 37, 53, 3)
+    grey = rgb[..., 0]
+    noise = rng.integers(0, 256, (120, 90, 3))         # codes cross the 9->10->11->12 bit steps
+    raw = grey.astype(np.uint8).tobytes()
+    strips = [grey[i:i + 10].astype(np.uint8).tobytes() for i in range(0, 37, 10)]
+    kw = dict(compression=5, lzw_compat=True)
+    cases = {"grey": make_tiff(grey, 8, 1, order=">", **kw),
+             "rgb-strips": make_tiff(rgb, 8, 2, rows_per_strip=7, **kw),
+             "rgb-predictor": make_tiff(rgb, 8, 2, predictor=2, rows_per_strip=9, **kw),
+             "grey-tiles": make_tiff(grey, 8, 1, tile=(16, 16), **kw),
+             "rgb-planar": make_tiff(rgb, 8, 2, planar=2, rows_per_strip=16, **kw),
+             "ycbcr-blocks": make_tiff(rgb, 8, 6, subsampling=(2, 2), rows_per_strip=6, **kw),
+             "noise-12bit": make_tiff(noise, 8, 2, rows_per_strip=60, **kw)}
+    for name, blob in (("no-eoi", encode_lzw_compat(raw, eoi=False)), ("clear-midway", encode_lzw_compat(raw, 300)),
+                       ("cut-strip", encode_lzw_compat(raw)[:700])):
+        cases[name] = make_tiff(grey, 8, 1, compression=5, seg_data=[blob])
+    # libtiff keeps the decoder of the first strip it decodes for the file.
+    cases["old-then-new"] = make_tiff(grey, 8, 1, compression=5, rows_per_strip=10,
+                                      seg_data=[encode_lzw_compat(strips[0])] + [tiff_lzw(x) for x in strips[1:]])
+    return cases
+
+
+@pytest.mark.parametrize("case", ["clear-midway", "cut-strip", "grey", "grey-tiles", "no-eoi", "noise-12bit",
+                                  "old-then-new", "rgb-planar", "rgb-predictor", "rgb-strips", "ycbcr-blocks"])
+def test_old_style_lzw_tiff_matches_jax(tmp_path, case):
+    """Old-style (LSB-first) TIFF LZW, which Pillow cannot write
+    (`encode_lzw_compat`): grey and RGB, predictor 2, strips, tiles,
+    planes, YCbCr blocks, codes of every width, a clear code midway, a
+    strip without EOI, a cut strip (raises on both sides), and a file whose
+    later strips are new-style (libtiff keeps the first strip's decoder:
+    both raise)."""
+    _same_or_both_raise(tmp_path, f"{case}.tif", _old_lzw_cases()[case])
+
+
+@functools.lru_cache(maxsize=None)     # one build for all its cases
+def _old_jpeg_cases():
+    rng = np.random.default_rng(3346)
+    planes = [smooth_image(rng, 48, 40, 1)[..., 0] for _ in range(3)]
+    cases = {}
+    for layout in ("interchange", "tables"):
+        for fac in ((1, 1), (2, 1), (2, 2)):
+            f = [fac, (1, 1), (1, 1)]
+            tag = f"{layout}-{fac[0]}x{fac[1]}"
+            cases[tag] = make_ojpeg_tiff(planes, f, layout=layout)
+            cases[tag + "-strips"] = make_ojpeg_tiff(planes, f, layout=layout, rows_per_strip=16)
+        f22 = [(2, 2), (1, 1), (1, 1)]
+        cases[f"{layout}-restarts"] = make_ojpeg_tiff(planes, f22, layout=layout, restart=2)
+        cases[f"{layout}-tiles"] = make_ojpeg_tiff([np.pad(x, ((0, 0), (0, 8)), mode="edge") for x in planes], f22,
+                                                   layout=layout, tile=(48, 16))
+        cases[f"{layout}-grey"] = make_ojpeg_tiff(planes[:1], [(1, 1)], layout=layout, photometric=1,
+                                                  rows_per_strip=8)
+        cases[f"{layout}-rgb-photometric"] = make_ojpeg_tiff(planes, f22, layout=layout, photometric=2)
+        # The stream's sampling wins over YCbCrSubsampling's (absent: 2, 2);
+        # without a stream (tables) the tag's, or its default, holds.
+        cases[f"{layout}-no-subsampling-tag"] = make_ojpeg_tiff(planes, [(1, 1)] * 3, layout=layout,
+                                                                subsampling_tag=False)
+        cases[f"{layout}-wrong-subsampling-tag"] = make_ojpeg_tiff(planes, [(2, 1), (1, 1), (1, 1)], layout=layout,
+                                                                   tags=[(530, 3, [2, 2])])
+        cases[f"{layout}-chroma-wider"] = make_ojpeg_tiff(planes, [(1, 1), (2, 2), (1, 1)], layout=layout)
+    cases["interchange-header-only"] = make_ojpeg_tiff(planes, [(2, 2), (1, 1), (1, 1)], header_only=True)
+    for (hh, ww), name in (((56, 40), "taller"), ((48, 48), "wider"), ((40, 40), "shorter")):
+        other = [smooth_image(rng, hh, ww, 1)[..., 0] for _ in range(3)]
+        js = encode_jpeg(other, [(2, 2), (1, 1), (1, 1)], q=4)
+        cases[f"interchange-frame-{name}"] = make_ojpeg_tiff(planes, [(2, 2), (1, 1), (1, 1)], jpeg=js)
+    return cases
+
+
+OLD_JPEG_CASES = ["interchange-1x1", "interchange-1x1-strips", "interchange-2x1", "interchange-2x1-strips",
+                  "interchange-2x2", "interchange-2x2-strips", "interchange-chroma-wider", "interchange-frame-shorter",
+                  "interchange-frame-taller", "interchange-frame-wider", "interchange-grey",
+                  "interchange-header-only", "interchange-no-subsampling-tag", "interchange-restarts",
+                  "interchange-rgb-photometric", "interchange-tiles", "interchange-wrong-subsampling-tag",
+                  "tables-1x1", "tables-1x1-strips", "tables-2x1", "tables-2x1-strips", "tables-2x2",
+                  "tables-2x2-strips", "tables-chroma-wider", "tables-grey", "tables-no-subsampling-tag",
+                  "tables-restarts", "tables-rgb-photometric", "tables-tiles", "tables-wrong-subsampling-tag"]
+
+
+@pytest.mark.parametrize("case", OLD_JPEG_CASES)
+def test_old_style_jpeg_tiff_matches_jax(tmp_path, case):
+    """Old-style JPEG (compression 6) as libtiff's tif_ojpeg.c reads it,
+    from `make_ojpeg_tiff`: the interchange layout (a JFIF stream at
+    JPEGInterchangeFormat, the strips pointing into its scan data, or
+    holding it after a header-only stream) and the table layout (bare scan
+    data, tables at JPEGQTables/DCTables/ACTables); grey, YCbCr 1x1, 2x1
+    and 2x2 (raw planes through TIFFRGBAImage), restarts, several strips,
+    a column of tiles, photometric RGB (read as YCbCr); the rules libtiff
+    and Pillow hold it to: the stream's sampling over YCbCrSubsampling,
+    a frame of the strips' width and at least the image's height, chroma
+    sampled 1x1 (both raise otherwise)."""
+    _same_or_both_raise(tmp_path, f"{case}.tif", _old_jpeg_cases()[case])
+
+
+def test_old_style_jpeg_tile_columns_diverge_from_jax(tmp_path):
+    """Old-style JPEG tiles in more than one column: libtiff reads them as
+    one stream of tile-wide strips whose frame holds only a column's
+    height, so the tiles past it repeat the last decoded rows; Pillow
+    returns that image, and the port raises (ROADMAP queue C)."""
+    rng = np.random.default_rng(1022)
+    planes = [smooth_image(rng, 32, 32, 1)[..., 0] for _ in range(3)]
+    p = tmp_path / "columns.tif"
+    p.write_bytes(make_ojpeg_tiff(planes, [(2, 2), (1, 1), (1, 1)], layout="tables", tile=(16, 16)))
+    assert jol.load_texture_file(str(p), False).shape == (32, 32, 3)
+    with pytest.raises(ValueError, match="more than one column of tiles"):
+        tol.load_texture_file(str(p), False)
+
+
+@functools.lru_cache(maxsize=None)     # one build for all its cases
+def _icon_cases():
+    rng = np.random.default_rng(392)
+    rgba = smooth_image(rng, 32, 32, 4)
+    mask = (disc_pattern(32) == 0).astype(np.uint8)
+    cases = {}
+    for fmt, modes in (("png", ("RGBA", "RGB", "P", "L")), ("bmp", ("RGBA", "RGB", "P", "1"))):
+        for mode in modes:
+            b = io.BytesIO()
+            Image.fromarray(rgba).convert(mode).save(b, "ICO", sizes=[(16, 16), (32, 32)], bitmap_format=fmt)
+            cases[f"ico-pillow-{fmt}-{mode}"] = b.getvalue()
+    for bits in (1, 4, 8, 24, 32):
+        pal = rng.integers(0, 256, (1 << bits, 3)) if bits <= 8 else None
+        pix = rng.integers(0, 1 << bits, (32, 32)) if bits <= 8 else rng.integers(0, 256, (32, 32, bits // 8))
+        blob, small = icon_dib(pix, bits, mask, pal), icon_dib(pix[:16, :16], bits, mask[:16, :16], pal)
+        cases[f"ico-bmp{bits}"] = make_icon([(16, 16, 0, 1, bits, small), (32, 32, 0, 1, bits, blob)])
+        # A cursor takes its first entry unless a later one is wider and taller;
+        # a 32-bit bitmap at byte 22 (one entry) keeps its alpha.
+        cases[f"cur-bmp{bits}"] = make_icon([(32, 32, 0, 5, 7, blob)], kind=2)
+        cases[f"cur2-bmp{bits}"] = make_icon([(16, 16, 0, 5, 7, small), (32, 32, 0, 1, 1, blob)], kind=2)
+    # Of equal areas the lowest colour depth (4 < 24), whatever the order.
+    p16, pal16 = rng.integers(0, 16, (16, 16)), rng.integers(0, 256, (16, 3))
+    a, b24 = icon_dib(p16, 4, None, pal16), icon_dib(rng.integers(0, 256, (16, 16, 3)), 24)
+    cases["ico-depth-order"] = make_icon([(16, 16, 0, 1, 24, b24), (16, 16, 16, 1, 0, a)])
+    for mode in ("RGB", "P", "L", "1"):
+        b = io.BytesIO()
+        Image.fromarray(rgba).convert(mode).save(b, "DIB")
+        cases[f"dib-{mode}"] = b.getvalue()
+    cases["dib-core-header"] = make_bmp(rng.integers(0, 16, (9, 13)), 4, hs=12, palette=pal16)[14:]
+    for side, rgb_sig, mask_sig in ((16, b"is32", b"s8mk"), (32, b"il32", b"l8mk"), (48, b"ih32", b"h8mk"),
+                                    (128, b"it32", b"t8mk")):
+        px = smooth_image(rng, side, side, 4)
+        px[:side // 3, :, :3] = 7                          # runs
+        body = icns_rgb(px[..., :3])
+        cases[f"icns-{rgb_sig.decode()}"] = make_icns([(rgb_sig, b"\0\0\0\0" * (side == 128) + body),
+                                                      (mask_sig, px[..., 3].tobytes())])
+    for mode in ("RGBA", "RGB"):
+        b = io.BytesIO()
+        Image.fromarray(smooth_image(rng, 32, 32, 4)).convert(mode).save(b, "PNG")
+        cases[f"icns-png-{mode}"] = make_icns([(b"is32", icns_rgb(smooth_image(rng, 16, 16, 3))),
+                                              (b"ic11", b.getvalue())])
+    cases["icns-raw-rgb"] = make_icns([(b"is32", icns_rgb(smooth_image(rng, 16, 16, 3), rle=False))])
+    return cases
+
+
+ICON_CASES = ["cur-bmp1", "cur-bmp24", "cur-bmp32", "cur-bmp4", "cur-bmp8", "cur2-bmp1", "cur2-bmp24", "cur2-bmp32",
+              "cur2-bmp4", "cur2-bmp8", "dib-1", "dib-L", "dib-P", "dib-RGB", "dib-core-header", "icns-ih32",
+              "icns-il32", "icns-is32", "icns-it32", "icns-png-RGB", "icns-png-RGBA", "icns-raw-rgb", "ico-bmp1",
+              "ico-bmp24", "ico-bmp32", "ico-bmp4", "ico-bmp8", "ico-depth-order", "ico-pillow-bmp-1",
+              "ico-pillow-bmp-P", "ico-pillow-bmp-RGB", "ico-pillow-bmp-RGBA", "ico-pillow-png-L",
+              "ico-pillow-png-P", "ico-pillow-png-RGB", "ico-pillow-png-RGBA"]
+
+
+@pytest.mark.parametrize("case", ICON_CASES)
+def test_icon_formats_match_jax(tmp_path, case):
+    """ICO (Pillow's, with PNG and BMP members; BMP members of 1, 4, 8, 24
+    and 32 bits with their AND masks or, at 32 bits, their own alpha; the
+    entry Pillow ranks first), CUR (`make_icon`: the first entry unless a
+    later one is wider and taller), DIB (Pillow's, and a 12-byte header),
+    ICNS (`make_icns`: Apple's RLE members is32/il32/ih32/it32 with their
+    masks, raw RGB, PNG members, the largest size; Pillow hands the member
+    on packed as RGBA but shaped by its own mode): bit-equal to JAX for
+    both grayscale values, and the decoder reports the mode Pillow has
+    once the image is loaded."""
+    data = _icon_cases()[case]
+    p = tmp_path / f"icon.{case.split('-')[0].rstrip('2')}"
+    p.write_bytes(data)
+    img = Image.open(p)
+    img.load()
+    _same_as_jax(p, mode=img.mode)
+    assert image_decode.sniff(data) == Image.open(p).format
+
+
+def test_icns_rgb_without_mask_matches_jax_where_defined(tmp_path):
+    """An ICNS RLE member without its mask: Pillow builds the RGB image on
+    memory it never clears, then packs it as RGBA, so every fourth byte of
+    JAX's array is that memory (undefined: not compared, as ROADMAP's
+    decisions say); the port holds 255 there.  Raw members: Pillow's
+    unpacker writes 255, so all are compared (test_icon_formats_match_jax)."""
+    rng = np.random.default_rng(393)
+    px = smooth_image(rng, 16, 16, 3)
+    p = tmp_path / "rle.icns"
+    p.write_bytes(make_icns([(b"is32", icns_rgb(px))]))
+    got, want = tol.load_texture_file(str(p), False), _jax_c1(p, False)
+    defined = (np.arange(16 * 16 * 3) % 4 != 3).reshape(16, 16, 3)[::-1]
+    assert got.shape == want.shape == (16, 16, 3) and np.array_equal(got[defined], want[defined])
+    assert np.array_equal(tol.load_texture_file(str(p), True), _jax_c1(p, True))
+
+
+def test_icns_members_pillow_cannot_pack_raise_and_jpeg2000_diverges(tmp_path):
+    """An ICNS PNG member in mode L or LA: Pillow has no RGBA packer for
+    it, so JAX's colour load raises, and so does the port's; its grey load
+    works on both sides.  A JPEG 2000 member: Pillow decodes it with
+    OpenJPEG; the port raises ValueError naming JPEG 2000 (ROADMAP queue
+    C, until A12's group 4)."""
+    rng = np.random.default_rng(394)
+    for mode in ("L", "LA"):
+        b = io.BytesIO()
+        Image.fromarray(smooth_image(rng, 16, 16, 4)).convert(mode).save(b, "PNG")
+        p = tmp_path / f"{mode}.icns"
+        p.write_bytes(make_icns([(b"ic11", b.getvalue())]))
+        with pytest.raises(ValueError):
+            jol.load_texture_file(str(p), False)
+        with pytest.raises(ValueError, match="does not pack"):
+            tol.load_texture_file(str(p), False)
+        assert np.array_equal(tol.load_texture_file(str(p), True), _jax_c1(p, True))
+    b = io.BytesIO()
+    Image.fromarray(smooth_image(rng, 16, 16, 4)).save(b, "JPEG2000")
+    p = tmp_path / "j2k.icns"
+    p.write_bytes(make_icns([(b"ic11", b.getvalue())]))
+    assert jol.load_texture_file(str(p), False).shape == (16, 16, 4)
+    with pytest.raises(ValueError, match="JPEG 2000"):
+        tol.load_texture_file(str(p), False)
+
+
+def test_sniff_takes_pillows_first_opener(tmp_path):
+    """Bytes two openers accept go to the one Image.open tries first: an
+    ICO whose header is also a valid TGA header (ICO comes before TGA,
+    which has no test of its own) opens as ICO in both; a TGA whose first
+    bytes look like a cursor with no entries falls through CUR to TGA."""
+    rng = np.random.default_rng(395)
+    pix = rng.integers(0, 256, (8, 8, 4))
+    blob = icon_dib(pix, 32)
+    ico = bytearray(make_icon([(8, 8, 0, 1, 32, blob)]))
+    ico[6 + 8:6 + 12] = struct.pack("<I", len(blob) | 0x10000)   # the size field: TGA's height and depth 1
+    p = tmp_path / "both.ico"
+    p.write_bytes(bytes(ico))
+    head = bytes(ico[:18])
+    assert image_decode._is_tga(head) and Image.open(p).format == "ICO" == image_decode.sniff(bytes(ico))
+    _same_as_jax(p)
+    tga = make_tga(rng.integers(0, 256, (5, 6, 3)), 2, 24)
+    assert tga.startswith(b"\0\0\2\0") and image_decode.sniff(tga) == "TGA" == Image.open(io.BytesIO(tga)).format
+
+
+BOTH_RAISE = {
+    "EPS": b"%!PS-Adobe-3.0 EPSF-3.0\n%%BoundingBox: 0 0 8 8\n%%EndComments\nshowpage\n",
+    "WMF": b"\xd7\xcd\xc6\x9a\x00\x00" + struct.pack("<hhhhH", 0, 0, 8, 8, 96) + bytes(6) + b"\x01\x00\t\x00" + bytes(40),
+    "BUFR": b"BUFR" + bytes(60), "GRIB": b"GRIB\0\0\0\x01" + bytes(60), "HDF5": b"\x89HDF\r\n\x1a\n" + bytes(60),
+    "MPEG": b"\x00\x00\x01\xb3" + bytes([0x10, 0x00, 0x80, 0x13]) + bytes(60),
+}
+
+
+@pytest.mark.parametrize("fmt", sorted(BOTH_RAISE))
+def test_openers_pillow_cannot_load_raise_on_both_sides(tmp_path, fmt):
+    """Openers of Pillow's table that find a file but cannot load it in
+    this environment (ROADMAP, the opener table): EPS without Ghostscript, WMF
+    off Windows, the BUFR, GRIB and HDF5 stubs without a handler, MPEG
+    (identified only).  Pillow opens each as its format and JAX's load
+    raises; the port raises ValueError naming the cause."""
+    p = tmp_path / f"file.{fmt.lower()}"
+    p.write_bytes(BOTH_RAISE[fmt])
+    assert Image.open(p).format == fmt
+    words = {"EPS": "Ghostscript", "WMF": "Windows", "MPEG": "identified"}.get(fmt, "stub")
+    _both_raise(tmp_path, p.name, BOTH_RAISE[fmt], words)
 
 
 def _retag(data, tag, typ=None, count=None, value=None):

@@ -250,34 +250,80 @@ def test_pfm_sky_diverges_from_jax(tmp_path):
         np.testing.assert_array_equal(got, want.astype(np.float32))
 
 
-@pytest.mark.parametrize("case", ["rgb-float", "half-float", "orientation"])
+@pytest.mark.parametrize("case", ["orientation"])
 def test_tiff_sky_layouts_diverge_from_jax(tmp_path, case):
     """Where JAX's imageio (its bundled tifffile) and Pillow part on a TIFF
-    sky (ROADMAP A11 and "Faults of the reference"): a float TIFF of three
-    channels or of 16-bit samples loads in JAX, and the port raises, as
-    its texture path and Pillow do (no mode in Pillow's table); an 8-bit
-    sky with an Orientation comes as stored in JAX and turned as Pillow
-    turns it in the port."""
+    sky (ROADMAP "Faults of the reference"): an 8-bit sky with an
+    Orientation comes as stored in JAX and turned as Pillow turns it in
+    the port."""
     rng = np.random.default_rng(33)
     p = tmp_path / f"{case}.tif"
-    if case == "orientation":
-        g = rng.integers(0, 256, (3, 5, 3), dtype=np.uint8)
-        p.write_bytes(make_tiff(g, 8, 2, tags=[(274, 3, [6])]))
-        assert np.array_equal(jax_obj.load_hdr(str(p), tone_encode=False), g[::-1].astype(np.float32))
-        turned = np.asarray(Image.open(p), np.float32)
-        assert turned.shape == (5, 3, 3) and np.array_equal(turned, np.rot90(g, -1))
-        assert np.array_equal(obj_loader.load_hdr(str(p)), turned[::-1] / 255)
-        return
-    f = (rng.random((3, 5, 3)) * 2).astype(np.float32) if case == "rgb-float" else \
-        (rng.random((3, 5)) * 2).astype(np.float16)
-    p.write_bytes(make_tiff(f, 32 if case == "rgb-float" else 16, 2 if case == "rgb-float" else 1,
-                            sample_format=3))
-    want = f if f.ndim == 3 else np.repeat(f[..., None], 3, -1)
-    assert np.array_equal(jax_obj.load_hdr(str(p), tone_encode=False), want[::-1].astype(np.float32))
-    with pytest.raises(ValueError, match="no Pillow mode"):
-        obj_loader.load_hdr(str(p))
-    with pytest.raises(Exception):   # noqa: B017 - whatever Pillow raises
-        jax_obj.load_texture_file(str(p), False)
+    g = rng.integers(0, 256, (3, 5, 3), dtype=np.uint8)
+    p.write_bytes(make_tiff(g, 8, 2, tags=[(274, 3, [6])]))
+    assert np.array_equal(jax_obj.load_hdr(str(p), tone_encode=False), g[::-1].astype(np.float32))
+    turned = np.asarray(Image.open(p), np.float32)
+    assert turned.shape == (5, 3, 3) and np.array_equal(turned, np.rot90(g, -1))
+    assert np.array_equal(obj_loader.load_hdr(str(p)), turned[::-1] / 255)
+
+
+def _float_sky(case, rng):
+    """(samples as written, TIFF bytes) of a float sky layout case."""
+    dtype = {"half": np.float16, "double": np.float64}.get(case.split("-")[0], np.float32)
+    n = 1 if "grey" in case else 4 if "rgba" in case else 3
+    f = (rng.random((5, 7, n)) * 2.5 - 0.25).astype(dtype)
+    comp = {"lzw": 5, "deflate": 8, "lzma": 34925, "packbits": 32773, "zstd": 50000}.get(case.split("-")[-1], 1)
+    kw = dict(predictor=3) if "pred3" in case else {}
+    kw.update(planar=2) if "planar" in case else None
+    kw.update(tile=(16, 16)) if "tiles" in case else kw.update(rows_per_strip=3)
+    data = make_tiff(f, f.dtype.itemsize * 8, 2 if n > 1 else 1, sample_format=3, compression=comp,
+                     order=">" if "big" in case else "<", extra=[2] if n == 4 else None, **kw)
+    return f, data
+
+
+FLOAT_SKIES = ["double-grey-lzw", "double-pred3-deflate", "float-big-lzw", "float-rgb-raw", "float-rgba-deflate",
+               "float-tiles-lzma", "half-grey-raw", "half-pred3-lzw", "half-rgb-packbits", "half-rgba-lzma"]
+
+
+@pytest.mark.parametrize("case", FLOAT_SKIES)
+def test_float_tiff_sky_layouts_match_jax(tmp_path, case):
+    """A float TIFF sky of 1, 3 or 4 channels and 16-, 32- or 64-bit
+    samples (raw, LZW, PackBits, Deflate, LZMA; predictor 3 on 16- and
+    64-bit samples; big-endian; strips or tiles): the port's load_hdr
+    equals JAX's (imageio's bundled tifffile: as stored, channels 0-2, cast
+    to float32), both encoded and as linear radiance; as a texture, both
+    raise (Pillow's table has no mode for it)."""
+    f, data = _float_sky(case, np.random.default_rng(FLOAT_SKIES.index(case)))
+    p = tmp_path / f"{case}.tif"
+    p.write_bytes(data)
+    want = f if f.shape[2] > 1 else np.repeat(f, 3, -1)
+    assert np.array_equal(jax_obj.load_hdr(str(p), tone_encode=False), want[::-1, :, :3].astype(np.float32))
+    for tone in (True, False):
+        got, jax_sky = obj_loader.load_hdr(str(p), tone_encode=tone), jax_obj.load_hdr(str(p), tone_encode=tone)
+        assert got.dtype == np.float32 and np.array_equal(got, jax_sky), (case, tone)
+    for grayscale in (False, True):
+        with pytest.raises(Exception):   # noqa: B017 - whatever Pillow raises
+            jax_obj.load_texture_file(str(p), grayscale)
+        with pytest.raises(ValueError):
+            obj_loader.load_texture_file(str(p), grayscale)
+
+
+@pytest.mark.parametrize("case", ["float-planar-lzw", "float-tiles-pred3-deflate", "float-zstd"])
+def test_float_tiff_sky_diverges_from_jax(tmp_path, case):
+    """Float TIFF skies JAX's imageio reads otherwise (ROADMAP "Faults of
+    the reference"): its bundled tifffile (2018) hands a planar file on as
+    (C, H, W), of which JAX takes the first three columns, raises on
+    predictor 3 in tiles, and has no ZSTD codec; the port reads each as
+    stored, (H, W, C)."""
+    f, data = _float_sky(case, np.random.default_rng(400))
+    p = tmp_path / f"{case}.tif"
+    p.write_bytes(data)
+    want = f[::-1].astype(np.float32)
+    assert np.array_equal(obj_loader.load_hdr(str(p), tone_encode=False), want)
+    if case == "float-planar-lzw":
+        assert np.array_equal(jax_obj.load_hdr(str(p), tone_encode=False), f.transpose(2, 0, 1)[::-1, :, :3])
+    else:
+        with pytest.raises(Exception):   # noqa: B017 - whatever imageio raises
+            jax_obj.load_hdr(str(p), tone_encode=False)
 
 
 def test_obj_mtl_loader_matches_jax(fixtures):
@@ -447,9 +493,10 @@ def test_port_needs_no_pillow():
     """With Pillow and imageio made unimportable, every module of the port
     imports, textured_obj writes and loads its PNGs and compiles, and
     load_texture_file reads a committed JPEG, the TGA, GIF, PSD, TIFF
-    (LZW, Deflate, JPEG, CCITT Group 4, ZSTD, LZMA, Lab), YCCK JPEG and WebP
-    (lossy with alpha, lossless) fixtures (tests/data/images) through the
-    native decoder; nothing imported PIL.
+    (LZW, Deflate, JPEG, CCITT Group 4, ZSTD, LZMA, Lab, old-style JPEG and
+    LZW), YCCK JPEG, WebP (lossy with alpha, lossless), ICO, CUR, DIB and
+    ICNS fixtures (tests/data/images) through the native decoder, and a
+    float RGB TIFF sky; nothing imported PIL.
     No source file of the port, nor chip_smoke.py, imports jax, PIL or
     imageio."""
     code = textwrap.dedent("""
@@ -472,9 +519,23 @@ def test_port_needs_no_pillow():
                             ("jpeg_ycbcr.tif", (64, 64, 3)), ("ycck.jpg", (21, 35, 4)),
                             ("leaf_alpha.webp", (64, 64, 4)), ("ground_lossless.webp", (64, 64, 3)),
                             ("g4_discs.tif", (64, 64, 4)), ("zstd_gloss.tif", (64, 64, 4)),
-                            ("lzma_metal.tif", (64, 64, 4)), ("lab_leaf.tif", (64, 64, 4))):
+                            ("lzma_metal.tif", (64, 64, 4)), ("lab_leaf.tif", (64, 64, 4)),
+                            ("ojpeg_ground.tif", (64, 64, 3)), ("lzw_old_gloss.tif", (64, 64, 4)),
+                            ("icon_leaf.ico", (64, 64, 4)), ("cursor.cur", (32, 32, 3)),
+                            ("bitmap.dib", (19, 26, 4)), ("icns_metal.icns", (128, 128, 4))):
             tex = load_texture_file("tests/data/images/" + name)
             assert tex.shape == shape and 0.0 <= tex.min() and tex.max() <= 1.0, name
+        import os, tempfile
+        import numpy as np
+        sys.path.insert(0, "tests")
+        from _torch_image_helpers import make_tiff
+        from realtimeraytracer_torch.scene.obj_loader import load_hdr
+        sky = np.linspace(0, 3, 2 * 3 * 3, dtype=np.float32).reshape(2, 3, 3)
+        fd, path = tempfile.mkstemp(suffix=".tif")
+        os.write(fd, make_tiff(sky, 32, 2, sample_format=3, compression=5))
+        os.close(fd)
+        assert np.array_equal(load_hdr(path, tone_encode=False), sky[::-1])
+        os.unlink(path)
         assert not any(k.split(".")[0] in ("PIL", "imageio") for k in sys.modules)
         assert not any(k == "jax" or k.startswith("realtimeraytracer_tpu") for k in sys.modules)
         print("ok")
