@@ -11,7 +11,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
      source, all started together, and beside them the native host library
      (native/*.cpp with $CXX or g++ and native/Makefile's flags), which
      builds the BVH of every scene compiled from phase 3 on (binned SAH),
-     and the image decoder library that phase 38 reads textures with;
+     and the image decoder library (native/image_decode.cpp and the other
+     decoder sources) that phase 38 reads textures with;
   3. the v7 traversal kernel, which runs its cull in-kernel, against its
      twin (the plain-torch cull, then the plain trace) on the 100k-triangle
      scene: closest primaries (common origin), shadow segments and sun
@@ -223,7 +224,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
      fixtures, the G4/Lab/ZSTD/LZMA TIFF fixtures, and the old-style
      JPEG and LZW TIFF, ICO and ICNS fixtures with a float RGB TIFF sky
      through load_hdr (its twin: the sky's array handed to the scene),
-     each with their PNG twins: each pair of 1080p frames at the
+     and the PCX, RLE SGI, QOI, XBM and FITS fixtures (A12's plain
+     raster formats, native/raster_decode.cpp), each with their PNG twins: each pair of 1080p frames at the
      reference defaults through rt.render hash-equal, with their masked
      v9/v8 and B5 launches only; the C1 frame, the leaf opacity map a PGM
      of 0/1 texels (0 and 1/255, as stbi_load reads them), hash-equal to
@@ -234,9 +236,13 @@ Phases, each of which ends the run with a non-zero exit on failure:
      crop), a 1024^2 GIF, 16-bit PGM, PackBits PSD, RLE8 and 5-6-5 BMP,
      16-bit RLE TGA, LZW, Deflate and JPEG TIFF, CMYK and YCCK JPEG and
      lossless JPEG, old-style JPEG (both layouts) and LZW TIFF, ICO (PNG
-     and BMP members), DIB and a 128^2 ICNS it32, written on the host by
-     the tests' encoders (tests/_torch_image_helpers.py), and the 1024^2
-     WebP, arithmetic-coded JPEG and TIFF codec fixtures.
+     and BMP members), DIB and a 128^2 ICNS it32, and of the plain raster
+     formats (PCX, DCX, QOI, RLE SGI, RLE Sun raster, MSP, XBM, XPM, IM,
+     SPIDER, FITS raw and GZIP_1, FLC, GBR, IM Tools, IPTC, McIdas, PIXAR,
+     XV thumbnail, and Photo CD's 768 x 512 base image), each checked
+     against its source, written on the host by the tests' encoders
+     (tests/_torch_image_helpers.py), and the 1024^2 WebP,
+     arithmetic-coded JPEG and TIFF codec fixtures.
 Each main-path run (5, 8, 9, 14, 18, 22, 24, 26, 27, 28, 30, each step of
 31 and 32, 33, 34, 35, 36, 37, 38) and the probe's timed run (23) are driven with every kernel's
 launch count set to 0 just before and read just after.  The line before the last is a
@@ -678,10 +684,11 @@ def wide_and_config3(*, rt, torch, dev, card: str, W: int, H: int, scene, gpu, f
         return {"rays": int(got.numel()), "occluded": int(want.sum()),
                 "apart_borderline": int(apart.numel())}
 
-    def timed_trace(fn, counter, reps=2):
+    def timed_trace(fn, counter, reps=1):
         """(result, stats, first-call ms, host reads of that call (counted
         on `counter`), peak GiB above what was held, median ms of reps
-        calls after it, None for none) of a wide or lane trace fn()."""
+        calls after it (one by default, which keeps the run inside its
+        time), None for none) of a wide or lane trace fn()."""
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
@@ -1067,6 +1074,61 @@ def phase38_host_decodes() -> dict:
         for key, want in (("tiff_lzw_old_1024", repeated), ("ico_png_1024", rgba1k), ("ico_bmp32_1024", rgba1k),
                           ("dib_1024", repeated), ("icns_it32_128", icns_px)):
             require(np.array_equal(a12[key][0], want), f"[38] the {key} file decodes wrong")
+        # A12's group 2, the plain raster openers, 1024^2 (Photo CD: its
+        # 768 x 512 base image), each written by the tests' NumPy encoders and
+        # checked against its source.
+        t_enc_raster = time.perf_counter()
+        grey1k = repeated[..., 1]
+        bits1k = tiled_disc.astype(np.uint8)
+        pal16 = pal.astype(np.uint8)
+        planes1k = np.concatenate([repeated[..., k] for k in range(3)], axis=1)
+        pcx1k = enc.encode_pcx(planes1k, 1024, 1024, 8, 3)
+        floats1k = (grey1k.astype(np.float32) + 0.25) * np.where(blocks % 5 == 0, -1, 1)
+        luma = repeated[:512, :768, 0]
+        c1, c2 = repeated[:256, :384, 1], repeated[:256, :384, 2]
+        fli_pal = rng.integers(0, 256, (256, 3))
+        raster_files = {
+            "pcx_rgb_1024": (pcx1k, "RGB", repeated),
+            "dcx_1024": (enc.make_dcx([pcx1k]), "RGB", repeated),
+            "qoi_rgba_1024": (enc.encode_qoi(rgba1k), "RGBA", rgba1k),
+            "sgi_rle_1024": (enc.encode_sgi(repeated.transpose(2, 0, 1), rle=True), "RGB", repeated),
+            "sun_rle_1024": (enc.encode_sun(repeated[..., ::-1].reshape(1024, -1), 1024, 1024, 24, rle=True), "RGB",
+                             repeated),
+            "msp_1024": (enc.encode_msp(bits1k), "1", bits1k[..., None] * 255),
+            "xbm_1024": (enc.encode_xbm(bits1k), "1", bits1k[..., None] * 255),
+            "xpm_1024": (enc.encode_xpm(blocks, pal16), "P", pal16[blocks]),
+            "im_rgb_1024": (enc.encode_im("RGB image", 1024, 1024, np.concatenate(
+                [repeated[::-1, :, k] for k in range(3)], axis=1).tobytes()), "RGB", repeated),
+            "spider_1024": (enc.encode_spider(floats1k), "F", np.clip(floats1k, 0, 255).astype(np.uint8)[..., None]),
+            "fits_8_1024": (enc.encode_fits(grey1k, 8), "L", grey1k[..., None]),
+            "fits_gzip_1024": (enc.encode_fits(grey1k, 8, gzip_tiles=True), "L", grey1k[..., None]),
+            "fli_brun_1024": (enc.encode_fli(1024, 1024, [enc.fli_colour([(0, fli_pal)]), enc.fli_brun(blocks)]), "P",
+                              fli_pal.astype(np.uint8)[blocks]),
+            "gbr_rgba_1024": (enc.encode_gbr(rgba1k), "RGBA", rgba1k),
+            "imt_1024": (enc.encode_imt(grey1k), "L", grey1k[..., None]),
+            "iptc_raw_1024": (enc.encode_iptc(grey1k.tobytes(), 1024, 1024), "L", grey1k[..., None]),
+            "mcidas_1024": (enc.encode_mcidas(grey1k, 1, prefix=4), "L", grey1k[..., None]),
+            "pcd_768x512": (enc.encode_pcd(luma, c1, c2), "RGB", None),
+            "pixar_1024": (enc.encode_pixar(repeated), "RGB", repeated),
+            "xvthumb_1024": (enc.encode_xvthumb(grey1k), "P", None),
+        }
+        t_enc += time.perf_counter() - t_enc_raster
+        # Photo CD's and the 3-3-2 palette's pixels, as Pillow computes them.
+        cy = np.trunc(1.3584 * luma.astype(np.float64) + 0.5).astype(int)
+        cb = np.repeat(np.repeat(c1.astype(np.float64) - 156, 2, 0), 2, 1)
+        cr = np.repeat(np.repeat(c2.astype(np.float64) - 137, 2, 0), 2, 1)
+        rnd = lambda v: np.trunc(v + 0.5).astype(int)      # noqa: E731 - (int)(x + 0.5), as the tables are built
+        raster_files["pcd_768x512"] = raster_files["pcd_768x512"][:2] + (np.clip(np.stack(
+            [cy + rnd(1.8215 * cr), cy + rnd(-0.194 * 2.2179 * cb) + rnd(-0.509 * 1.8215 * cr),
+             cy + rnd(2.2179 * cb)], -1), 0, 255).astype(np.uint8),)
+        xv = np.array([((v >> 5) * 255 // 7, ((v >> 2) & 7) * 255 // 7, (v & 3) * 255 // 3) for v in range(256)],
+                      np.uint8)
+        raster_files["xvthumb_1024"] = raster_files["xvthumb_1024"][:2] + (xv[grey1k],)
+        for key, (data, mode, want) in raster_files.items():
+            px, got_mode = image_decode.decode_image(data)
+            require(got_mode == mode, f"[38] {key}: mode {got_mode}, expected {mode}")
+            require(np.array_equal(px[..., :want.shape[2]], want), f"[38] the {key} file decodes wrong")
+            new_files[key] = (data, mode)
         times = {"jpeg_1024_native": med3(lambda: image_decode.decode_image(jpeg)),
                  "png_paeth_2048_native": med3(lambda: image_decode.decode_image(paeth)),
                  "png_paeth_256_native": med3(lambda: image_decode.decode_image(crop)),
@@ -1093,8 +1155,9 @@ def image_decoders(*, rt, torch, card: str, W: int, H: int, zero_counts, read_co
     CCITT G4 cut-out, a Lab colour, a ZSTD specular and an LZMA metallic
     TIFF map, and by an old-style JPEG colour, an old-style LZW specular,
     an ICO cut-out and an ICNS metallic map under a float RGB TIFF sky,
-    each against the same frame textured by PNGs of their pixels (under
-    the sky's array); the C1 frame (a 0/1 opacity map against an all-zero
+    and by a PCX colour, an RLE SGI specular, a QOI leaf colour, an XBM
+    cut-out and a FITS metallic map, each against the same frame textured
+    by PNGs of their pixels (under the sky's array); the C1 frame (a 0/1 opacity map against an all-zero
     one); the fixture digests and host decode times in a child process."""
     import hashlib
 
@@ -1134,6 +1197,10 @@ def image_decoders(*, rt, torch, card: str, W: int, H: int, zero_counts, read_co
         # the cut-out, an ICNS (it32 and mask) metallic map.
         a12_roles = {"ground_kd.png": "ojpeg_ground.tif", "ground_ks.png": "lzw_old_gloss.tif",
                      "leaf_d.png": "icon_leaf.ico", "pillar_pm.png": "icns_metal.icns"}
+        # A12's plain raster formats: a PCX colour, an RLE SGI specular, a QOI
+        # leaf colour, an XBM cut-out and a FITS metallic map.
+        raster_roles = {"ground_kd.png": "pcx_ground.pcx", "ground_ks.png": "sgi_gloss.sgi",
+                        "leaf_kd.png": "qoi_leaf.qoi", "leaf_d.png": "xbm_leaf.xbm", "pillar_pm.png": "fits_metal.fits"}
         disc = enc.disc_pattern(64)
         cfg = rt.RenderConfig(width=W, height=H, primary_rays=4, shadow_rays=3, denoise_iterations=4)
         frames = {}
@@ -1167,6 +1234,7 @@ def image_decoders(*, rt, torch, card: str, W: int, H: int, zero_counts, read_co
             jpeg_bytes = {m: (f, (fx / f).read_bytes()) for m, f in jpeg_roles.items()}
             codec_bytes = {m: (f, (fx / f).read_bytes()) for m, f in codec_roles.items()}
             a12_bytes = {m: (f, (fx / f).read_bytes()) for m, f in a12_roles.items()}
+            raster_bytes = {m: (f, (fx / f).read_bytes()) for m, f in raster_roles.items()}
             # The sky as a float RGB TIFF (LZW, predictor 3) through load_hdr,
             # against the same samples handed to the scene.
             sky = make_sky_gradient(64, 128)
@@ -1193,6 +1261,8 @@ def image_decoders(*, rt, torch, card: str, W: int, H: int, zero_counts, read_co
                 "the G4/Lab/ZSTD/LZMA TIFFs' PNG maps": variant("tiff_codecs_png", twins(codec_bytes)),
                 "old-style JPEG/LZW TIFF, ICO, ICNS maps, float TIFF sky": variant("a12", a12_bytes, sky_tiff),
                 "their PNG maps, the sky's array": variant("a12_png", twins(a12_bytes), sky_direct),
+                "PCX/SGI/QOI/XBM/FITS maps": variant("raster", raster_bytes),
+                "the raster maps' PNG twins": variant("raster_png", twins(raster_bytes)),
                 # C1: 0/1 texels read 0 and 1/255 (stbi_load), below alpha_threshold
                 # like 0; the JAX package's rule kept them 0 and 1.0, opaque leaves.
                 "C1 0/1 opacity PGM": variant("c1", {"leaf_d.png": (
@@ -1231,6 +1301,8 @@ def image_decoders(*, rt, torch, card: str, W: int, H: int, zero_counts, read_co
                            ("old-style JPEG/LZW TIFF, ICO, ICNS maps, float TIFF sky", "their PNG maps, the sky's array",
                             "old-style JPEG colour, old-style LZW specular, ICO cut-out, ICNS metallic, float RGB "
                             "TIFF sky"),
+                           ("PCX/SGI/QOI/XBM/FITS maps", "the raster maps' PNG twins",
+                            "PCX colour, SGI specular, QOI leaf colour, XBM cut-out, FITS metallic"),
                            ("C1 0/1 opacity PGM", "all-zero opacity PGM", "C1 (0/1 opacity)")):
             ha, hb = frames[a]["sha256"], frames[b]["sha256"]
             require(ha == hb, f"[38] the {what} frame differs from its twin: {ha[:16]} against {hb[:16]}")
@@ -1242,7 +1314,8 @@ def image_decoders(*, rt, torch, card: str, W: int, H: int, zero_counts, read_co
             f"and the frame with a G4 cut-out, a Lab colour, a ZSTD specular and an LZMA metallic TIFF map "
             f"and the frame with an old-style JPEG colour, an old-style LZW specular, an ICO cut-out, an ICNS "
             f"metallic map and a float RGB TIFF sky (load_hdr) "
-            f"are each hash-equal to the "
+            f"and the frame with a PCX colour, an SGI specular, a QOI leaf colour, an XBM cut-out and a FITS "
+            f"metallic map are each hash-equal to the "
             f"frame with PNG maps of the same pixels; the C1 frame (0/1 opacity PGM) is hash-equal to the "
             f"all-zero one; "
             + json.dumps(frames))

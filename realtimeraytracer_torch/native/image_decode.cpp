@@ -1,8 +1,8 @@
 // Texture image decoders of the port: JPEG, PNG reconstruction, TGA, BMP
 // (DIB and the bitmaps of ICO and CUR), ICNS's RLE members, GIF, PNM, PSD,
-// TIFF; WebP, from webp_decode.cpp, and TIFF's CCITT and
-// ZSTD, from fax_decode.cpp and zstd_decode.cpp (the library's other
-// sources).
+// TIFF; WebP, TIFF's CCITT and ZSTD, and the plain raster formats are in
+// webp_decode.cpp, fax_decode.cpp, zstd_decode.cpp and raster_decode.cpp
+// (the library's other sources).
 //
 // The JAX package reads texture files with Pillow (Image.open, then
 // convert("RGBA") or convert("L")); the reference C++ with stb_image.  This
@@ -3212,6 +3212,7 @@ struct Dir {
   Bytes in;
   bool mm = false, big = false, libtiff_header = false, clean = true;
   std::map<int, Field> tags, lt;
+  std::map<int, Field> lt_strips;  // libtiff's offsets (0) and byte counts (1): strips' or tiles'
   std::vector<Field> entries;  // every entry, in the file's order
 
   uint64_t u(size_t o, int k) const {
@@ -3334,8 +3335,10 @@ struct Dir {
   // a longer list unread, so it may run past the file), zeros after a
   // shorter one; a list of them outside the file fails the directory.
   std::vector<int64_t> lt_strile(int tag, size_t n, const char* name) const {
-    auto it = lt.find(tag);
-    if (it == lt.end()) return {};
+    // libtiff keeps StripOffsets and TileOffsets (and the two byte counts)
+    // in one field, the one the directory lists last.
+    auto it = lt_strips.find(tag == 273 || tag == 324 ? 0 : 1);
+    if (it == lt_strips.end()) return {};
     Field f = it->second;
     const int t = f.type;
     if (t != 1 && t != 3 && t != 4 && t != 6 && t != 8 && t != 9 && t != 16 && t != 17 && t != 18)
@@ -3427,6 +3430,7 @@ struct Dir {
             f.off = val;
           }
           lt[tag] = f;
+          if (strip_list) lt_strips[tag == 273 || tag == 324 ? 0 : 1] = f;
         }
         continue;
       }
@@ -3438,7 +3442,11 @@ struct Dir {
       } else {
         f.off = val;
       }
-      if (!lt.count(tag)) lt[tag] = f;
+      if (!lt.count(tag)) {
+        lt[tag] = f;
+        if (tag == 273 || tag == 324) lt_strips[0] = f;
+        if (tag == 279 || tag == 325) lt_strips[1] = f;
+      }
       if (f.outside) pillow = false;  // _safe_read raises: Pillow's directory ends here
       if (!pillow) continue;
       // libtiff reads these as one value each and refuses another count.
@@ -3819,6 +3827,7 @@ struct OldJpeg {
   int spp = 1;
   int64_t failed_from = INT64_MAX;  // the first luma row of the strips libjpeg fails on
   int64_t last_start = 0;           // the last strip's first row
+  int64_t tile_h = 0;               // a tile's height, for tiles read past the frame
   std::vector<uint8_t> planes[3];
   size_t pw[3] = {0, 0, 0};
 
@@ -3863,7 +3872,9 @@ struct OldJpeg {
     spp = int(spp_);
     if (spp != 1 && spp != 3) fail("old-style JPEG TIFF with " + std::to_string(spp) + " samples (libtiff: not supported)");
     const int64_t total_h = tiled ? (h + strip_h - 1) / strip_h * strip_h : h;
-    last_start = (std::min(strip_h, h) > 0 ? (h - 1) / std::min(strip_h, h) : 0) * std::min(strip_h, h);
+    last_start = tiled ? int64_t(offsets.size() - 1) * strip_h
+                       : (std::min(strip_h, h) > 0 ? (h - 1) / std::min(strip_h, h) : 0) * std::min(strip_h, h);
+    tile_h = tiled ? strip_h : 0;
     // YCbCrSubsampling as OJPEG reads the tag (default 2, 2).
     const std::vector<int64_t> tag = d.lt_integers(530, {2, 2}, "YCbCrSubsampling", 2);
     hs = spp == 3 && ycbcr ? tag[0] : 1, vs = spp == 3 && ycbcr ? tag[1] : 1;
@@ -4119,7 +4130,15 @@ struct OldJpeg {
     }
     std::vector<uint8_t> out;
     out.reserve(need);
+    // Tiles in several columns are strips of one stream whose frame holds
+    // a column: past its rows, libjpeg reads nothing, and libtiff hands on
+    // the last iMCU row it decoded again (raw YCbCr) or leaves the tile
+    // buffer's rows as the last tile left them (grey).
+    const int64_t mcu = spp == 3 ? 8 * vs : 8;
     auto at = [&](int c, int64_t y, int64_t x) -> uint8_t {
+      const int64_t rows = pw[c] ? int64_t(planes[c].size() / pw[c]) : 0, unit = c == 0 ? mcu : 8;
+      if (spp == 3 && y >= rows && rows >= unit) y = rows - unit + y % unit;
+      while (spp == 1 && tile_h > 0 && y >= rows && y >= tile_h) y -= tile_h;
       const size_t i = size_t(y) * pw[c] + size_t(x);
       return i < planes[c].size() ? planes[c][i] : 0;
     };
@@ -4157,12 +4176,23 @@ std::vector<uint8_t> jpeg_segment(Bytes seg, Jpeg& tables, Jpeg::Colour colour, 
   if (j.comps[0].h != h0 || j.comps[0].v != v0) fail("TIFF JPEG segment has improper sampling factors");
   for (size_t i = 1; i < j.comps.size(); ++i)
     if (j.comps[i].h != 1 || j.comps[i].v != 1) fail("TIFF JPEG segment has improper sampling factors");
-  if (j.width != cols || (j.height != rows && !(last_strip && j.height > rows)))
+  // JPEGPreDecode: a smaller stream only warns (its rows go to the start of
+  // the segment's rows, the rest left as the buffer was: zeros here,
+  // undefined in Pillow); a larger one fails but for a last strip of the
+  // image's width, which is cut.
+  if ((j.width > cols || j.height > rows) && !(j.width == cols && j.height > rows && last_strip))
     fail("TIFF JPEG strip or tile of " + std::to_string(j.width) + "x" + std::to_string(j.height) +
          ", expected " + std::to_string(cols) + "x" + std::to_string(rows));
   std::vector<uint8_t> px = j.samples(colour);
-  px.resize(size_t(cols) * size_t(rows) * size_t(spp));
-  return px;
+  if (j.width == cols) {
+    px.resize(size_t(cols) * size_t(rows) * size_t(spp));
+    return px;
+  }
+  std::vector<uint8_t> out(size_t(cols) * size_t(rows) * size_t(spp), 0);
+  const size_t line = size_t(j.width) * size_t(spp);
+  for (int64_t y = 0; y < std::min<int64_t>(rows, j.height); ++y)
+    std::memcpy(&out[size_t(y) * size_t(cols) * size_t(spp)], &px[size_t(y) * line], line);
+  return out;
 }
 
 Image decode(Bytes in, CodecFn decompress) {
@@ -4314,13 +4344,13 @@ Image decode(Bytes in, CodecFn decompress) {
     // PlanarConfiguration too, which Pillow's decoder asks libtiff for.
     const int64_t planar = d.lt_get(284, 1, "PlanarConfiguration");  // shadows Pillow's
     if (planar != 1 && planar != 2) fail("TIFF planar configuration " + std::to_string(planar) + ": libtiff refuses it");
-    const bool tiled = d.lt_has(322);
+    const bool tiled = d.lt_has(322) || d.lt_has(323);  // one field in libtiff: either makes the file tiled
     int64_t tw = w, th = h;
     // libtiff reads these three tags as 32-bit values; Pillow takes a tile
     // of at most INT_MAX - 1 bytes, each side at most INT_MAX.
     constexpr int64_t kIntMax = 2147483647;
     if (tiled) {
-      if (!d.lt_has(323)) fail("TIFF with invalid tile dimensions");
+      if (!d.lt_has(322) || !d.lt_has(323)) fail("TIFF with invalid tile dimensions (libtiff: zero number of tiles)");
       tw = d.lt_get(322, 0, "TileWidth"), th = d.lt_get(323, 0, "TileLength");
       if (tw <= 0 || th <= 0 || tw > kIntMax || th > kIntMax) fail("TIFF with invalid tile dimensions");
       if ((tw * int64_t(spp) * bits + 7) / 8 > (kIntMax - 1) / th) fail("TIFF tile of more than 2^31 bytes");
@@ -4376,14 +4406,16 @@ Image decode(Bytes in, CodecFn decompress) {
     int64_t lt_photo = d.lt_get(262, -1, "PhotometricInterpretation");
     if (comp == 6 && (lt_photo == 2 || lt_photo == -1)) lt_photo = 6;
     const bool ycbcr = photo == 6 && (comp != 6 || lt_photo == 6);
-    if (comp == 6 && !(lt_spp == 3 ? lt_photo == 6 : lt_spp == 1 && spp == 1 && lt_photo != 6))
+    // Three samples of another photometric come as raw 1x1 YCbCr blocks,
+    // which Pillow unpacks by its rawmode for YCbCr (RGBX) a tile row apart
+    // (the last row's last pixels past the tile: undefined there, zeros
+    // here); in strips Pillow fails.
+    if (comp == 6 && !(lt_spp == 3 ? lt_photo == 6 || tiled : lt_spp == 1 && spp == 1 && lt_photo != 6))
       fail("old-style JPEG TIFF of " + std::to_string(lt_spp) + " samples, photometric " + std::to_string(lt_photo) +
            " is not supported");
     // libtiff reads an old-style JPEG's tiles as strips of the tile's
-    // width: with more than one tile across, the tiles past the frame's
-    // height repeat its last rows (ROADMAP queue C), which the port does not.
-    if (comp == 6 && (planar != 1 || (tiled && tw < w)))
-      fail("old-style JPEG in TIFF planes or in more than one column of tiles is not supported");
+    // width, one under another (OldJpeg::strip).
+    if (comp == 6 && planar != 1) fail("old-style JPEG in TIFF planes is not supported");
     if (ycbcr && lt_photo != 6)
       fail("TIFF YCbCr to Pillow, not to libtiff (Pillow: decoder error -2)");
     if (ycbcr && (bits != 8 || (comp == 7 ? spp : lt_spp) != 3)) fail("TIFF YCbCr of this layout is not supported");
@@ -4557,8 +4589,11 @@ Image decode(Bytes in, CodecFn decompress) {
             const int64_t rows = tiled ? th : std::min(th, h - ty * th);
             const int64_t row_bytes = (tw * seg_spp * out_bits + 7) / 8;
             const size_t index = size_t(p) * size_t(across * down) + size_t(ty * across + tx);
-            const std::vector<uint8_t> seg = segment(index, size_t(rows * row_bytes), tw, rows, row_bytes, seg_spp,
-                                                     !tiled && ty == down - 1);
+            std::vector<uint8_t> seg = segment(index, size_t(rows * row_bytes), tw, rows, row_bytes, seg_spp,
+                                               !tiled && ty == down - 1);
+            // A rawmode wider than the stored row reads on into the next.
+            const size_t reach = size_t((rows - 1) * row_bytes + (raw_bits(mode, raw) * tw + 7) / 8);
+            if (planar == 1 && seg.size() < reach) seg.resize(reach, 0);
             for (int64_t yy = 0; yy < rows && ty * th + yy < h; ++yy) {
               const int64_t cols = std::min(tw, w - tx * tw);
               const uint8_t* src = seg.data() + size_t(yy * row_bytes);

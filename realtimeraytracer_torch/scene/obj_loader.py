@@ -8,8 +8,9 @@ with ``allow_native=False`` or without a C++ compiler), ``_dedup_shape``,
 ``load_obj``, ``load_obj_mtl``, ``load_texture_file``, ``decode_radiance_hdr``,
 ``encode_radiance_hdr``, ``load_hdr`` and ``load_obj_scene``, with the same
 results.  Texture files and 8-bit skies are read by the port's native
-decoder (utils/image_decode.py: JPEG, PNG, TGA, BMP, GIF, PNM, PSD) instead
-of Pillow and imageio, with Pillow's modes and grey conversion reproduced
+decoder (utils/image_decode.py: JPEG, PNG, TGA, BMP, GIF, PNM, PSD, TIFF,
+WebP, the icon formats and Pillow's plain raster openers) instead of
+Pillow and imageio, with Pillow's modes and grey conversion reproduced
 bit for bit; every 8-bit texel is divided by 255, as stbi_load reads it.
 """
 
@@ -302,20 +303,28 @@ def load_texture_file(path: str, grayscale: bool = False) -> np.ndarray:
     arithmetic-coded and lossless; incomplete progressive files and corrupt
     data as libjpeg decodes them for Pillow), PNG, TGA, BMP, DIB, ICO,
     CUR, ICNS, GIF (its first frame), PNM (P1-P6, Pf), PSD (its composite
-    image), TIFF (its first image) and WebP (an animation's first frame),
-    as utils/image_decode.py lists them; the rest raise ValueError.  As in
-    the JAX package, RGB and RGBA files keep their
-    channels and any other file loads as RGBA (palettes expanded, grey with
-    alpha 1 or its own, Lab through littleCMS's sRGB conversion) unless
-    grayscale is set; a Lab file read as grey raises ValueError, as
-    Pillow's convert("L") does.  Every texel is divided
+    image), TIFF (its first image), WebP (an animation's first frame),
+    PCX, DCX, QOI, SGI, Sun raster, MSP, XBM, XPM, IM, SPIDER, FITS,
+    FLI/FLC (the first frame), GBR, IM Tools, IPTC, McIdas, Photo CD (its
+    base image), PIXAR and XV thumbnails, as utils/image_decode.py lists
+    them; the rest (DDS, BLP, FTEX, JPEG 2000, AVIF, and what Pillow cannot
+    load either) raise ValueError.  As in the JAX package, RGB and RGBA
+    files keep their channels and any other file loads as RGBA (palettes
+    expanded, grey with alpha 1 or its own, Lab through littleCMS's sRGB
+    conversion, YCbCr through Pillow's tables) unless grayscale is set (a
+    YCbCr file's grey is its Y band); a Lab file read as grey raises
+    ValueError, as Pillow's convert("L") does.  Integer and float samples
+    clip as Pillow's convert does; 16-bit grey keeps its high byte, as
+    stb_image does.  Every texel is divided
     by 255, as stbi_load's 8-bit images are read (the JAX package divides
     only when some texel exceeds 1.5, so a file of 0/1 texels reads 0/1
     there)."""
     with open(path, "rb") as f:
         data = f.read()
     px, mode = decode_image(data)
-    if grayscale:
+    if mode == "YCbCr":  # convert("L") keeps the Y band (the decoder's fourth channel), convert("RGBA") converts
+        px = px[..., 3] if grayscale else np.concatenate([px[..., :3], np.full(px.shape[:2] + (1,), 255, np.uint8)], 2)
+    elif grayscale:
         if mode == "LAB":    # Pillow's convert("L") has no Lab conversion
             raise ValueError(f"{path}: a Lab image does not convert to grey")
         px = _grey(px)
@@ -421,15 +430,17 @@ def load_hdr(path: str, tone_encode: bool = True) -> np.ndarray:
     is clamped and encoded with pow(1/2.2) as the reference's 8-bit sky path
     does (application.cppm:250), and the miss shader re-linearizes it.
 
-    A float TIFF (16-, 32- or 64-bit samples; grey, RGB or RGBA) or a
-    PFM holds linear radiance, as a .hdr file does: its channels 0-2 (a
-    grey one repeated to three) take the .hdr branch's clamp and
-    encoding, as the JAX package's imageio path gives a TIFF's (a PFM's
-    it rounds to bytes; a planar TIFF's it takes as (C, H, W); a ZSTD
-    one it cannot read: ROADMAP, "Faults of the reference").
+    A float TIFF (16-, 32- or 64-bit samples; grey, RGB or RGBA), a PFM,
+    an IM "F" image or a float FITS holds linear radiance, as a .hdr file
+    does: its channels 0-2 (a grey one repeated to three) take the .hdr
+    branch's clamp and encoding, as the JAX package's imageio path gives a
+    TIFF's and an IM's (a PFM's it rounds to bytes; a planar TIFF's it
+    takes as (C, H, W); a ZSTD one it cannot read; a FITS's it reads
+    byte-swapped, as Pillow does: ROADMAP, "Faults of the reference").  A
+    SPIDER sky raises ValueError, as imageio cannot read one either.
 
-    Any other file (JPEG, PNG, TGA, BMP, GIF, PNM, PSD, TIFF, WebP through
-    utils/image_decode.py; grey repeated to three channels, alpha dropped)
+    Any other file (every format utils/image_decode.py reads; grey
+    repeated to three channels, alpha dropped)
     holds 8-bit encoded texels, as ``stbi_load`` gives them to the
     reference (a 16- or 32-bit TIFF the texture path's bytes): with
     tone_encode they come back as texel / 255, the encoded sky; without,
@@ -442,6 +453,8 @@ def load_hdr(path: str, tone_encode: bool = True) -> np.ndarray:
     if path.lower().endswith(".hdr"):
         rgb = decode_radiance_hdr(data)
     else:
+        if sniff(data) == "SPIDER":  # imageio's Pillow plugin seeks past the first frame and fails
+            raise ValueError(f"{path}: a SPIDER sky, which the JAX package's imageio cannot read either")
         rgb = decode_float_samples(data)
         if rgb is not None:
             rgb = np.repeat(rgb, 3, axis=2) if rgb.shape[2] == 1 else rgb[..., :3]

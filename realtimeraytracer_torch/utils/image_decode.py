@@ -6,8 +6,9 @@ skies with imageio; the reference C++ with stb_image (file.cppm:276-291).
 The GPU machine has neither Pillow nor imageio, and a Huffman decode in
 Python would take seconds a megapixel, so the port decodes in C++:
 ``realtimeraytracer_torch/native/image_decode.cpp`` and, for WebP, TIFF's
-CCITT and TIFF's ZSTD, ``native/webp_decode.cpp``, ``fax_decode.cpp`` and
-``zstd_decode.cpp``, one library bound here with ctypes.
+CCITT, TIFF's ZSTD and the plain raster formats, ``native/webp_decode.cpp``,
+``fax_decode.cpp``, ``zstd_decode.cpp`` and ``raster_decode.cpp``, one
+library bound here with ctypes.
 
 ``decode_image(data)`` identifies a file by its content, as ``Image.open``
 does (``sniff``: Pillow's 43 openers in its order, each with its test of
@@ -39,37 +40,54 @@ VP8L, the simple and the VP8X container, an animation's first frame on
 its zeroed canvas; "RGBA" where libwebp's features report alpha, else
 "RGB"), ICO, CUR and DIB (BMP members through the library's bitmap
 reader, PNG members through the PNG path), ICNS (Apple's RLE and PNG
-members); TIFF's old-style LZW and old-style JPEG.  For PNG and TIFF's Deflate, this module
-inflates with ``zlib``, and TIFF's LZMA it decodes with liblzma (the
-library under Python's ``lzma``, driven as libtiff drives it): the
-library calls ``_decompress`` back for each strip or tile; the library
-does the rest.  Values that differ from Pillow's, as stb_image (the
-reference's decoder) has them: 16-bit grey PNG, PGM and TIFF samples come
-back as their high byte, 12-bit grey TIFF samples as their top 8 bits,
-where Pillow's convert clips them.  A Lab image comes back as "LAB",
-converted to RGBA; ``obj_loader.load_texture_file`` refuses it as grey,
-as Pillow's convert("L") does.  ``decode_float_samples(data)`` gives a float TIFF
-(16-, 32- or 64-bit; 1, 3 or 4 channels) or a PFM as its float32 samples,
-as a sky's linear radiance.
+members); TIFF's old-style LZW and old-style JPEG (tiles in any number of
+columns, as libtiff reads them).  The plain raster openers, each header
+read here as its Pillow plugin reads it (``_X_open``, with the errors that
+send ``Image.open`` on to the next opener) and its pixels in
+``raster_decode.cpp``: PCX (1-bit, 2 and 4 bit planes, 8-bit grey or
+palette, 24-bit planes) and DCX (its first page), QOI, SGI (raw and RLE,
+8 and 16 bits), Sun raster (1, 4, 8, 24, 32 bits, raw and RLE, colour
+maps), MSP (versions 1 and 2), XBM, XPM (up to 256 colours "P", more
+"RGB"), IM (every type of Pillow's table that it loads: Luts, planar
+RGB, bit depths, signed and float types, YCbCr), SPIDER, FITS (BITPIX 8,
+16, 32, -32, -64; GZIP_1 tiles), FLI/FLC (the first frame), GBR, IM Tools,
+IPTC (raw or JPEG data, through this module again), McIdas, Photo CD (the
+768 x 512 base image), PIXAR and XV thumbnails.  For PNG, TIFF's Deflate
+and FITS's GZIP_1 this module inflates with ``zlib`` (``gzip``), and
+TIFF's LZMA it decodes with liblzma (the library under Python's ``lzma``,
+driven as libtiff drives it): the library calls ``_decompress`` back for
+each strip or tile; the library does the rest.  Values that differ from
+Pillow's, as stb_image (the reference's decoder) has them: 16-bit grey
+PNG, PGM, TIFF, FITS, McIdas and IM samples come back as their high byte
+(of the value Pillow reads), 12-bit grey TIFF samples as their top 8 bits,
+where Pillow's convert clips them; 32-bit integer and float samples clip
+as convert does.  A Lab image comes back as "LAB", converted to RGBA;
+``obj_loader.load_texture_file`` refuses it as grey, as Pillow's
+convert("L") does; a YCbCr IM comes back converted, its Y band fourth.
+``decode_float_samples(data)`` gives a float TIFF (16-, 32- or 64-bit;
+1, 3 or 4 channels), a PFM, an IM "F" image or a float FITS as its
+float32 samples, as a sky's linear radiance.
 
 Malformed input and formats not ported (16-bit PSD, the openers of
-ROADMAP's A12 still to port; and, as Pillow refuses them or cannot load
-them here, EPS, WMF, the BUFR/GRIB/HDF5 stubs, MPEG, TIFF compressed by SGILog or
-WebP, TIFF photometrics 9 and 10, 12-bit, hierarchical and arithmetic-
-coded lossless JPEG, a JPEG height in a DNL marker, a JPEG cut inside a
-scan, an arithmetic-coded scan past Pillow's first 64 KiB read) raise
-``ValueError`` naming the cause; nothing falls back to another decoder.
-libjpeg's and libtiff's warnings stay silent, as in Pillow.
+ROADMAP's A12 still to port: DDS, BLP, FTEX, JPEG 2000, AVIF; and, as
+Pillow refuses them or cannot load them here, EPS, WMF, the BUFR/GRIB/HDF5
+stubs, MPEG, TIFF compressed by SGILog or WebP, TIFF photometrics 9 and
+10, 12-bit, hierarchical and arithmetic-coded lossless JPEG, a JPEG
+height in a DNL marker, a JPEG cut inside a scan, an arithmetic-coded scan
+past Pillow's first 64 KiB read, every raster file its plugin or decoder
+refuses) raise ``ValueError`` naming the cause; nothing falls back to
+another decoder.  libjpeg's and libtiff's warnings stay silent, as in
+Pillow.
 
 The library is built at first use with ``$CXX`` (default g++) into the
 kernels' build directory (``kernels.BUILD_DIR``), under a name that hashes
-the four sources, the flags and the compiler's ``--version``; a file lock
+the five sources, the flags and the compiler's ``--version``; a file lock
 keeps concurrent processes to one build.  Loading it also loads liblzma;
 without it the call raises.  No ``-march=native``: the decode is
 integer arithmetic, but for the Lab nodes (double arithmetic and libm's
-``pow``, as littleCMS computes them), and gives the same bytes on every
-host.  Without a
-compiler, or if the build or the load fails, the call raises.
+``pow``, as littleCMS computes them) and the YCC tables, and gives the
+same bytes on every host.  Without a compiler, or if the build or the
+load fails, the call raises.
 """
 
 from __future__ import annotations
@@ -78,6 +96,8 @@ import contextlib
 import ctypes
 import ctypes.util
 import fcntl
+import functools
+import gzip
 import hashlib
 import lzma  # noqa: F401 - loads liblzma, which _unxz drives
 import math
@@ -88,6 +108,7 @@ import subprocess
 import threading
 import zlib
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 
@@ -97,7 +118,8 @@ from realtimeraytracer_torch.utils.native import _compiler
 from realtimeraytracer_torch.utils.png import SIGNATURE as PNG_SIGNATURE
 
 SOURCES = tuple(Path(__file__).resolve().parents[1] / "native" / name
-                for name in ("image_decode.cpp", "webp_decode.cpp", "fax_decode.cpp", "zstd_decode.cpp"))
+                for name in ("image_decode.cpp", "webp_decode.cpp", "fax_decode.cpp", "zstd_decode.cpp",
+                             "raster_decode.cpp"))
 CXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-Wall", "-shared")
 # Pillow's Image.open raises DecompressionBombError above twice MAX_IMAGE_PIXELS.
 MAX_PIXELS = 2 * 89478485
@@ -262,14 +284,28 @@ def load_library() -> ctypes.CDLL:
         lib.imgd_floats.restype = c.POINTER(c.c_float)
         lib.imgd_floats.argtypes = [c.c_void_p, *[c.POINTER(c.c_int64)] * 3]
         lib.imgd_free.argtypes = [c.c_void_p]
+        lib.imgr_decode.restype = c.c_void_p
+        lib.imgr_decode.argtypes = [c.c_char_p, c.c_int64, c.c_int32, c.c_char_p, c.c_char_p, c.c_int64, c.c_int64,
+                                    c.c_int64, c.POINTER(c.c_int64), c.c_int64, c.c_char_p, c.c_int64, c.c_char_p,
+                                    c.c_int64, *err]
+        for name in ("imgr_width", "imgr_height", "imgr_channels"):
+            getattr(lib, name).restype = c.c_int64
+            getattr(lib, name).argtypes = [c.c_void_p]
+        lib.imgr_mode.restype = c.c_char_p
+        lib.imgr_mode.argtypes = [c.c_void_p]
+        lib.imgr_pixels.restype = c.POINTER(c.c_uint8)
+        lib.imgr_pixels.argtypes = [c.c_void_p]
+        lib.imgr_floats.restype = c.POINTER(c.c_float)
+        lib.imgr_floats.argtypes = [c.c_void_p]
+        lib.imgr_free.argtypes = [c.c_void_p]
         _lib = lib
         return lib
 
 
 @contextlib.contextmanager
-def _result(lib, call, *args):
+def _result(lib, call, *args, free=None):
     """The handle of a decoder entry point's result (or its error raised),
-    freed on exit."""
+    freed on exit (by `free`, default imgd_free)."""
     err = ctypes.create_string_buffer(512)
     handle = call(*args, err, len(err))
     if not handle:
@@ -277,7 +313,7 @@ def _result(lib, call, *args):
     try:
         yield handle
     finally:
-        lib.imgd_free(handle)
+        (free or lib.imgd_free)(handle)
 
 
 def _collect(lib, call, *args) -> tuple[np.ndarray, str]:
@@ -346,37 +382,6 @@ def _is_tga(head: bytes) -> bool:
             and head[2] in (1, 2, 3, 9, 10, 11))
 
 
-_IM_TAGS = (b"Comment", b"Date", b"Digitalization equipment", b"File size (no of images)", b"Lut", b"Name",
-            b"Scale (x,y)", b"Image size (x*y)", b"Image type")
-
-
-def _is_im(data: bytes) -> bool:
-    """ImImagePlugin._open's first checks, as far as a file's first line:
-    a line feed in the first 100 bytes, and a first line of at most 100
-    bytes that reads "Key: value" with one of its keys."""
-    if b"\n" not in data[:100] or data[:1] in (b"", b"\0", b"\x1a"):
-        return False
-    line = data.lstrip(b"\r").split(b"\n", 1)[0]
-    m = re.match(rb"^([A-Za-z][^:]*):[ \t]*(.*)[ \t]*$", line.removesuffix(b"\r"))
-    return len(line) < 100 and m is not None and m.group(1) in _IM_TAGS
-
-
-def _is_spider(data: bytes) -> bool:
-    """SpiderImagePlugin's isSpiderHeader, big- or little-endian."""
-    if len(data) < 108:
-        return False
-    for order in ">", "<":
-        h = (99.0,) + struct.unpack(order + "27f", data[:108])
-        try:
-            if any(h[i] != int(h[i]) for i in (1, 2, 5, 12, 13, 22, 23)):
-                continue
-        except (ValueError, OverflowError):
-            continue
-        if int(h[5]) in (1, 3, -11, -12, -21, -22) and int(h[22]) == int(h[13]) * int(h[23]):
-            return True
-    return False
-
-
 def _icon_opens(data: bytes, magic: bytes) -> bool:
     """An ICO's or a CUR's directory as its plugin's _open reads it: a
     directory short of its entries, or of none, raises IndexError,
@@ -406,17 +411,6 @@ def _icns_opens(data: bytes) -> bool:
     return any(s in sigs for members in _ICNS_SIZES.values() for s in members)
 
 
-def _is_gbr(data: bytes) -> bool:
-    """GbrImagePlugin's accept and _open checks (big-endian header of at
-    least 20 bytes, version 1 or 2, a size, depth 1 or 4, version 2's
-    "GIMP" magic)."""
-    if len(data) < 20:
-        return False
-    size, version, w, h, depth = struct.unpack(">5I", data[:20])
-    return (size >= 20 and version in (1, 2) and 0 < w < 1 << 31 and 0 < h < 1 << 31 and depth in (1, 4)
-            and (version == 1 or data[20:24] == b"GIMP"))
-
-
 def _is_wmf(data: bytes) -> bool:
     """WmfImagePlugin's accept and _open checks: a placeable metafile with
     the standard header after it, or an enhanced one."""
@@ -430,10 +424,12 @@ def _i32(b: bytes, order: str = "<") -> int:
 
 
 # Pillow's openers in the order Image.open tries them (Image.ID after
-# preinit() and then init()), each with its test of the file's first bytes
-# (the plugin's _accept of 16 bytes; for the openers without one, the
-# checks their _open makes before it raises SyntaxError, which sends
-# Image.open on to the next).  Image.open takes the first that accepts.
+# preinit() and then init()), each with its test of the file (the plugin's
+# _accept of 16 bytes; then, where the port models it, the checks its _open
+# makes before it raises SyntaxError, or one of the errors Image.open
+# counts as such, which send Image.open on to the next; `_opens` for the
+# openers whose _open the port reads in full).  Image.open takes the first
+# that accepts.
 _OPENERS = (
     ("BMP", lambda d: d.startswith(b"BM")),
     ("DIB", lambda d: _i32(d) in (12, 40, 52, 56, 64, 108, 124)),
@@ -445,42 +441,45 @@ _OPENERS = (
     ("BLP", lambda d: d.startswith((b"BLP1", b"BLP2"))),
     ("BUFR", lambda d: d.startswith((b"BUFR", b"ZCZC"))),
     ("CUR", lambda d: _icon_opens(d, b"\0\0\2\0")),
-    ("PCX", lambda d: len(d) >= 2 and d[0] == 10 and d[1] in (0, 2, 3, 5)),
-    ("DCX", lambda d: _i32(d) == 0x3ADE68B1),
+    ("PCX", lambda d: _opens(_pcx_open, d)),
+    ("DCX", lambda d: _opens(_dcx_open, d)),
     ("DDS", lambda d: d.startswith(b"DDS ")),
     ("EPS", lambda d: d.startswith(b"%!PS") or _i32(d) == 0xC6D3D0C5),
-    ("FITS", lambda d: d.startswith(b"SIMPLE")),
-    ("FLI", lambda d: len(d) >= 16 and struct.unpack("<H", d[4:6])[0] in (0xAF11, 0xAF12)
-     and struct.unpack("<H", d[14:16])[0] in (0, 3)),
+    ("FITS", lambda d: _opens(_fits_open, d)),
+    ("FLI", lambda d: _opens(_fli_open, d)),
     ("FTEX", lambda d: d.startswith(b"FTEX")),
-    ("GBR", _is_gbr),
+    ("GBR", lambda d: _opens(_gbr_open, d)),
     ("GRIB", lambda d: len(d) >= 8 and d.startswith(b"GRIB") and d[7] == 1),
     ("HDF5", lambda d: d.startswith(b"\x89HDF\r\n\x1a\n")),
     ("JPEG2000", lambda d: d.startswith((b"\xff\x4f\xff\x51", b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"))),
     ("ICNS", _icns_opens),
     ("ICO", lambda d: _icon_opens(d, b"\0\0\1\0")),
-    ("IM", _is_im),
-    ("IMT", lambda d: b"\n" in d[:100] and d.startswith((b"width ", b"height ", b"pixel "))),
-    ("IPTC", lambda d: len(d) >= 5 and d[0] == 0x1C and d[1] in (1, 2, 3, 4, 5, 6, 7, 8, 9, 240)),
-    ("MCIDAS", lambda d: d.startswith(b"\0\0\0\0\0\0\0\4")),
+    ("IM", lambda d: _opens(_im_open, d)),
+    ("IMT", lambda d: _opens(_imt_open, d)),
+    ("IPTC", lambda d: _opens(_iptc_open, d)),
+    ("MCIDAS", lambda d: _opens(_mcidas_open, d)),
     ("MPEG", lambda d: d.startswith(b"\0\0\1\xb3")),
     ("TIFF", lambda d: d.startswith(TIFF_PREFIXES)),
-    ("MSP", lambda d: d.startswith((b"DanM", b"LinS"))),
-    ("PCD", lambda d: d[2048:2052] == b"PCD_"),
-    ("PIXAR", lambda d: d.startswith(b"\200\350\000\000")),
+    ("MSP", lambda d: _opens(_msp_open, d)),
+    ("PCD", lambda d: _opens(_pcd_open, d)),
+    ("PIXAR", lambda d: _opens(_pixar_open, d)),
     ("PSD", lambda d: d.startswith(b"8BPS")),
-    ("QOI", lambda d: d.startswith(b"qoif")),
-    ("SGI", lambda d: len(d) >= 2 and struct.unpack(">H", d[:2])[0] == 474),
-    ("SPIDER", _is_spider),
-    ("SUN", lambda d: _i32(d, ">") == 0x59A66A95),
+    ("QOI", lambda d: _opens(_qoi_open, d)),
+    ("SGI", lambda d: _opens(_sgi_open, d)),
+    ("SPIDER", lambda d: _opens(_spider_open, d)),
+    ("SUN", lambda d: _opens(_sun_open, d)),
     ("TGA", _is_tga),
     ("WEBP", lambda d: d[:4] == b"RIFF" and d[8:12] == b"WEBP" and d[12:16] in (b"VP8 ", b"VP8L", b"VP8X")),
     ("WMF", _is_wmf),
-    ("XBM", lambda d: d[:16].lstrip().startswith(b"#define")),
-    ("XPM", lambda d: d.startswith(b"/* XPM */")),
-    ("XVTHUMB", lambda d: d.startswith(b"P7 332")),
+    ("XBM", lambda d: _opens(_xbm_open, d)),
+    ("XPM", lambda d: _opens(_xpm_open, d)),
+    ("XVTHUMB", lambda d: _opens(_xvthumb_open, d)),
 )
-READ = ("BMP", "DIB", "GIF", "JPEG", "PNM", "PNG", "CUR", "ICNS", "ICO", "TIFF", "PSD", "TGA", "WEBP")
+# The plain raster openers (native/raster_decode.cpp, their headers read
+# here): each maps the file to the tile Pillow's plugin builds.
+_RASTER = ("PCX", "DCX", "FITS", "FLI", "GBR", "IM", "IMT", "MCIDAS", "MSP", "PCD", "PIXAR", "QOI", "SGI", "SPIDER",
+           "SUN", "XBM", "XPM", "XVTHUMB")
+READ = ("BMP", "DIB", "GIF", "JPEG", "PNM", "PNG", "CUR", "ICNS", "ICO", "TIFF", "PSD", "TGA", "WEBP", "IPTC") + _RASTER
 # Openers Pillow finds but cannot load here either (ROADMAP, the opener
 # table): the port names the cause.
 _BOTH_RAISE = {
@@ -500,10 +499,8 @@ def sniff(data: bytes) -> str:
     test, is tried after all but five).  Returns one of ``READ`` ("PNM"
     for Pillow's PPM); raises ValueError for a format not ported, one
     that Pillow cannot load either, or no image."""
-    head = data[:16]
     for name, accepts in _OPENERS:
-        if accepts(data if name in ("TGA", "IM", "IMT", "PCD", "SPIDER", "CUR", "ICNS", "ICO", "GBR", "WMF")
-                   else head):
+        if accepts(data):
             if name in READ:
                 return name
             if name in _BOTH_RAISE:
@@ -621,6 +618,866 @@ def _decode_icns(lib, data: bytes) -> tuple[np.ndarray, str]:
     return np.concatenate([px, alpha], axis=2), "RGBA"
 
 
+# ----------------------------------------------------- plain raster formats
+#
+# Each `_X_open(data)` reads a file's header as Pillow's plugin does and
+# returns the tile it would build (`_Tile`), None where its _open raises
+# SyntaxError or one of the errors Image.open treats so (IndexError,
+# TypeError, KeyError, EOFError, struct.error), or leaves the image without
+# a mode or of no size: Image.open then goes on to the next opener.  Where
+# Pillow raises anything else (OSError, ValueError: Image.open stops there)
+# it raises ValueError.
+
+
+# raster_decode.cpp's decoders (imgr_decode), and two tiles read here:
+# a FITS's GZIP_1 heap (inflated, then raw) and no tile at all (Pillow's
+# load raises).
+RAW, PCX, SGI_RLE, SUN_RLE, MSP, XBM, QOI, BIT, XPM, FLI, PCD = range(11)
+NO_DATA, FITS_GZIP = -1, -2
+
+
+class _Tile(NamedTuple):
+    """A tile as Pillow's plugin builds it: a decoder, Pillow's mode and
+    rawmode, the data's offset, the size, the decoder's arguments, the
+    palette (1024 RGBA bytes) and its other input."""
+    decoder: int
+    mode: str
+    rawmode: str
+    offset: int
+    w: int
+    h: int
+    args: tuple = ()
+    pal: bytes = b""
+    aux: bytes = b""
+
+
+def _opens(open_fn, data: bytes) -> bool:
+    """Whether Image.open stops at this opener: its _open builds a tile,
+    or raises what Image.open does not go on from."""
+    try:
+        return open_fn(data) is not None
+    except ValueError:
+        return True
+
+
+def _sized(tile: _Tile | None) -> _Tile | None:
+    """ImageFile's check after _open: a mode and a size of at least 1x1."""
+    if tile is None or not tile.mode or tile.w <= 0 or tile.h <= 0:
+        return None
+    return tile
+
+
+def _palette(rgb: bytes, alphas: bytes = b"") -> bytes:
+    """Pillow's palette of an image given `rgb` (3 bytes an entry, at most
+    256): opaque black past its entries; `alphas` put on the first entries
+    (putpalettealphas)."""
+    pal = bytearray(b"\0\0\0\xff" * 256)
+    for i in range(min(len(rgb) // 3, 256)):
+        pal[4 * i:4 * i + 3] = rgb[3 * i:3 * i + 3]
+    for i, a in enumerate(alphas[:256]):
+        pal[4 * i + 3] = a
+    return bytes(pal)
+
+
+def _planar_palette(data: bytes) -> bytes:
+    """A palette of rawmode "RGB;L" (n reds, n greens, n blues) as RGB."""
+    n = len(data) // 3
+    return bytes(b for i in range(n) for b in (data[i], data[n + i], data[2 * n + i]))
+
+
+def _pcx_open(data: bytes, at: int = 0) -> _Tile | None:
+    """PcxImagePlugin: a 128-byte header at `at` (a DCX page's offset); the
+    palette of an 8-bit file the 769 bytes at the file's end."""
+    s = data[at:at + 68]
+    if len(s) < 68 or s[0] != 10 or s[1] not in (0, 2, 3, 5):
+        return None
+    x0, y0, x1, y1 = struct.unpack("<4H", s[4:12])
+    if x1 + 1 <= x0 or y1 + 1 <= y0:
+        return None
+    version, bits, planes, provided = s[1], s[3], s[65], struct.unpack("<H", s[66:68])[0]
+    pal = b""
+    if bits == 1 and planes == 1:
+        mode = rawmode = "1"
+    elif bits == 1 and planes in (2, 4):
+        mode, rawmode, pal = "P", f"P;{planes}L", _palette(s[16:64])
+    elif version == 5 and bits == 8 and planes == 1:
+        if len(data) < 769:
+            raise ValueError("PCX file shorter than its palette (Pillow: invalid seek)")
+        mode = rawmode = "L"
+        tail = data[-769:]
+        if tail[0] == 12 and any(tail[3 * i + 1:3 * i + 4] != bytes([i]) * 3 for i in range(256)):
+            mode = rawmode = "P"
+            pal = _palette(tail[1:])
+    elif version == 5 and bits == 8 and planes == 3:
+        mode, rawmode = "RGB", "RGB;L"
+    else:
+        raise ValueError("unknown PCX mode (Pillow raises too)")
+    w, h = x1 + 1 - x0, y1 + 1 - y0
+    stride = (w * bits + 7) // 8
+    if provided != stride:
+        stride += stride % 2
+    return _Tile(PCX, mode, rawmode, at + 128, w, h, (planes * stride,), pal)
+
+
+def _dcx_open(data: bytes) -> _Tile | None:
+    """DcxImagePlugin: the page table (up to 1024 offsets, ended by 0), the
+    first page read as a PCX at its offset."""
+    if _i32(data) != 0x3ADE68B1:
+        return None
+    offsets = []
+    for i in range(1024):
+        if 8 + 4 * i > len(data):
+            return None
+        off = _i32(data[4 + 4 * i:])
+        if not off:
+            break
+        offsets.append(off)
+    return _pcx_open(data, offsets[0]) if offsets else None
+
+
+def _qoi_open(data: bytes) -> _Tile | None:
+    """QoiImagePlugin: "qoif", big-endian size, channels (3: RGB, anything
+    else RGBA), colour space; the ops from byte 14."""
+    if not data.startswith(b"qoif") or len(data) < 13:
+        return None
+    w, h = struct.unpack(">II", data[4:12])
+    return _sized(_Tile(QOI, "RGB" if data[12] == 3 else "RGBA", "", 14, w, h))
+
+
+_SGI_MODES = {(1, 1, 1): "L", (1, 2, 1): "L", (2, 1, 1): "L;16B", (2, 2, 1): "L;16B", (1, 3, 3): "RGB",
+              (2, 3, 3): "RGB;16B", (1, 3, 4): "RGBA", (2, 3, 4): "RGBA;16B"}
+
+
+def _sgi_open(data: bytes) -> _Tile | None:
+    """SgiImagePlugin: raw (one plane a band, bottom up; 16-bit samples read
+    for their high byte) or RLE; an unknown mode raises ValueError in
+    Pillow, an unknown compression leaves no tile (its load raises)."""
+    if len(data) < 12 or struct.unpack(">H", data[:2])[0] != 474:
+        return None
+    compression, bpc = data[2], data[3]
+    dimension, w, h, z = struct.unpack(">4H", data[4:12])
+    rawmode = _SGI_MODES.get((bpc, dimension, z))
+    if rawmode is None:
+        raise ValueError("Unsupported SGI image mode (Pillow raises too)")
+    mode = rawmode.split(";")[0]
+    if compression == 1:
+        return _sized(_Tile(SGI_RLE, mode, rawmode, 512, w, h, (bpc,)))
+    if compression != 0:
+        return _sized(_Tile(NO_DATA, mode, "", 0, w, h))
+    layers = ",".join(["L;16B"] * len(mode)) if bpc == 2 else ",".join(mode)
+    return _sized(_Tile(RAW, mode, layers, 512, w, h, (0, -1, w * h * bpc)))
+
+
+def _sun_open(data: bytes) -> _Tile | None:
+    """SunImagePlugin: depth 1, 4, 8, 24 or 32; a planar colour map of at
+    most 1024 bytes makes an 8- or 4-bit file "P"; raw rows padded to 16
+    bits, or RLE (type 2)."""
+    if len(data) < 32 or _i32(data, ">") != 0x59A66A95:
+        return None
+    w, h, depth, _, file_type, palette_type, palette_length = struct.unpack(">7I", data[4:32])
+    modes = {1: ("1", "1;I"), 4: ("L", "L;4"), 8: ("L", "L"),
+             24: ("RGB", "RGB" if file_type == 3 else "BGR"), 32: ("RGB", "RGBX" if file_type == 3 else "BGRX")}
+    if depth not in modes:
+        return None
+    mode, rawmode = modes[depth]
+    offset, pal = 32, b""
+    if palette_length:
+        if palette_length > 1024 or palette_type != 1:
+            return None
+        offset += palette_length
+        if mode != "L":
+            raise ValueError(f"Sun raster of mode {mode} with a colour map (Pillow: wrong mode for a palette)")
+        mode, rawmode = "P", rawmode.replace("L", "P")
+        pal = _palette(_planar_palette(data[32:32 + palette_length]))
+    if file_type in (0, 1, 3, 4, 5):
+        return _sized(_Tile(RAW, mode, rawmode, offset, w, h, (((w * depth + 15) // 16) * 2, 1), pal))
+    if file_type == 2:
+        return _sized(_Tile(SUN_RLE, mode, rawmode, offset, w, h, (), pal))
+    return None
+
+
+def _msp_open(data: bytes) -> _Tile | None:
+    """MspImagePlugin: a 32-byte header whose 16-bit words XOR to 0;
+    version 1 ("DanM") raw 1-bit, version 2 ("LinS") row-map RLE."""
+    if len(data) < 32 or not data.startswith((b"DanM", b"LinS")):
+        return None
+    words = struct.unpack("<16H", data[:32])
+    if functools.reduce(lambda a, b: a ^ b, words) != 0:
+        return None
+    if data.startswith(b"DanM"):
+        return _sized(_Tile(RAW, "1", "1", 32, words[2], words[3], (0, 1)))
+    return _sized(_Tile(MSP, "1", "", 32, words[2], words[3]))
+
+
+_XBM_HEAD = re.compile(
+    rb"\s*#define[ \t]+.*_width[ \t]+(?P<width>[0-9]+)[\r\n]+"
+    rb"#define[ \t]+.*_height[ \t]+(?P<height>[0-9]+)[\r\n]+"
+    rb"(?P<hotspot>"
+    rb"#define[ \t]+[^_]*_x_hot[ \t]+(?P<xhot>[0-9]+)[\r\n]+"
+    rb"#define[ \t]+[^_]*_y_hot[ \t]+(?P<yhot>[0-9]+)[\r\n]+"
+    rb")?"
+    rb"[\000-\377]*_bits\[]"
+)
+
+
+def _xbm_open(data: bytes) -> _Tile | None:
+    """XbmImagePlugin: its header expression over the first 512 bytes (the
+    data after the last "_bits[]" there)."""
+    if not data[:16].lstrip().startswith(b"#define"):
+        return None
+    m = _XBM_HEAD.match(data[:512])
+    return _sized(_Tile(XBM, "1", "", m.end(), int(m.group("width")), int(m.group("height")))) if m else None
+
+
+class _Lines:
+    """A file read by lines, as a binary file's readline reads it."""
+
+    def __init__(self, data: bytes, pos: int):
+        self.data, self.pos = data, pos
+
+    def readline(self) -> bytes:
+        end = self.data.find(b"\n", self.pos)
+        end = len(self.data) if end < 0 else end + 1
+        line, self.pos = self.data[self.pos:end], end
+        return line
+
+
+_XPM_HEAD = re.compile(b'"([0-9]*) ([0-9]*) ([0-9]*) ([0-9]*)')
+
+
+def _xpm_open(data: bytes) -> _Tile | None:
+    """XpmImagePlugin and its decoder: the values line, the colour table
+    (`c #rrggbb` keys; a `None` colour is the transparency, which
+    convert("RGBA") puts as the alphas of the first palette entries, one
+    a byte of its key), "P" for at most 256 colours, else "RGB"; the pixel
+    keys of the quoted text of the lines after it, up to the image's
+    count, in the library."""
+    if not data.startswith(b"/* XPM */"):
+        return None
+    f = _Lines(data, 9)
+    while True:
+        line = f.readline()
+        if not line:
+            return None
+        m = _XPM_HEAD.match(line)
+        if m:
+            break
+    try:
+        w, h, ncolours, bpp = (int(g) for g in m.groups())
+    except ValueError as e:
+        raise ValueError(f"XPM values line: {e} (Pillow raises too)") from e
+    palette, transparency = {}, b""
+    for _ in range(ncolours):
+        line = f.readline().rstrip()
+        c, words = line[1:bpp + 1], line[bpp + 1:-2].split()
+        for i in range(0, len(words), 2):
+            if words[i] == b"c":
+                if i + 1 >= len(words):
+                    return None
+                rgb = words[i + 1]
+                if rgb == b"None":
+                    transparency = c
+                elif rgb.startswith(b"#"):
+                    try:
+                        v = int(rgb[1:], 16)
+                    except ValueError as e:
+                        raise ValueError(f"XPM colour {rgb!r} (Pillow raises too)") from e
+                    palette[c] = bytes(((v >> 16) & 255, (v >> 8) & 255, v & 255))
+                else:
+                    raise ValueError("cannot read this XPM file: a colour that is not #rrggbb (Pillow raises too)")
+                break
+        else:
+            raise ValueError("cannot read this XPM file: a colour without its c key (Pillow raises too)")
+    if w <= 0 or h <= 0:
+        return None
+    keys = list(palette)
+    mode = "RGB" if ncolours > 256 else "P"
+    # XpmDecoder: lines until the image has its keys, "/* pixels */" once
+    # skipped, each line's text between its first and last quote.
+    texts, count, header = [], 0, False
+    while count < w * h:
+        line = f.readline()
+        if not line:
+            break
+        if line.rstrip() == b"/* pixels */" and not header:
+            header = True
+            continue
+        text = b'"'.join(line.split(b'"')[1:-1])
+        if bpp == 0:
+            raise ValueError("XPM of 0 characters a pixel (Pillow raises too)")
+        texts.append(text)
+        count += -(-len(text) // bpp) if bpp > 0 else 0
+    pal = b"".join(palette.values()) if mode == "RGB" else _palette(b"".join(palette.values()), transparency)
+    args = (bpp, len(keys), len(texts), *map(len, keys), *map(len, texts))
+    return _Tile(XPM, mode, "", 0, w, h, args, pal, b"".join(keys) + b"".join(texts))
+
+
+_IM_SPLIT = re.compile(rb"^([A-Za-z][^:]*):[ \t]*(.*)[ \t]*$")
+_IM_TAGS = ("Comment", "Date", "Digitalization equipment", "File size (no of images)", "Lut", "Name", "Scale (x,y)",
+            "Image size (x*y)", "Image type")
+# ImImagePlugin.OPEN: "Image type" -> (mode, rawmode).
+_IM_OPEN = {
+    "0 1 image": ("1", "1"), "L 1 image": ("1", "1"), "Greyscale image": ("L", "L"), "Grayscale image": ("L", "L"),
+    "RGB image": ("RGB", "RGB;L"), "RLB image": ("RGB", "RLB"), "RYB image": ("RGB", "RLB"), "B1 image": ("1", "1"),
+    "B2 image": ("P", "P;2"), "B4 image": ("P", "P;4"), "X 24 image": ("RGB", "RGB"), "L 32 S image": ("I", "I;32"),
+    "L 32 F image": ("F", "F;32"), "RGB3 image": ("RGB", "RGB;T"), "RYB3 image": ("RGB", "RYB;T"),
+    "LA image": ("LA", "LA;L"), "PA image": ("LA", "PA;L"), "RGBA image": ("RGBA", "RGBA;L"),
+    "RGBX image": ("RGB", "RGBX;L"), "CMYK image": ("CMYK", "CMYK;L"), "YCC image": ("YCbCr", "YCbCr;L"),
+}
+_IM_OPEN.update({f"L{sep}{i} image": ("F", f"F;{i}") for i in ("8", "8S", "16", "16S", "32", "32F") for sep in " *"})
+_IM_OPEN.update({f"L{sep}{i} image": (f"I;{i}", f"I;{i}") for i in ("16", "16L", "16B") for sep in " *"})
+_IM_OPEN.update({"L 32S image": ("I", "I;32S"), "L*32S image": ("I", "I;32S")})
+_IM_OPEN.update({f"L*{i} image": ("F", f"F;{i}") for i in range(2, 33)})
+
+
+def _im_number(s: str):
+    try:
+        return int(s)
+    except ValueError:
+        try:
+            return float(s)
+        except ValueError as e:
+            raise ValueError(f"IM header value {s!r} (Pillow raises too)") from e
+
+
+def _im_open(data: bytes) -> _Tile | None:
+    """ImImagePlugin: "Key: value" lines up to a NUL or ^Z, then ^Z; a Lut
+    (768 bytes, planar) makes a colour-mapped L or P file "P" (LA: "PA"),
+    a grey one is ignored; raw data from the bottom up in the mode's
+    rawmode (the RGB3 layouts one plane a band; an "L*n" type of other
+    than 8, 16 or 32 bits through the bit decoder)."""
+    if b"\n" not in data[:100]:
+        return None
+    info = {"Image type": "L", "Image size (x*y)": (512, 512)}
+    rawmode, pos, n = "L", 0, 0
+    while True:
+        s = data[pos:pos + 1]
+        pos += len(s)
+        if s == b"\r":
+            continue
+        if not s or s == b"\0" or s == b"\x1a":
+            break
+        end = data.find(b"\n", pos)
+        end = len(data) if end < 0 else end + 1
+        s, pos = s + data[pos:end], end
+        if len(s) > 100:
+            return None
+        s = s[:-2] if s.endswith(b"\r\n") else s[:-1] if s.endswith(b"\n") else s
+        m = _IM_SPLIT.match(s)
+        if not m:
+            return None
+        k, v = (g.decode("latin-1", "replace") for g in m.group(1, 2))
+        if k in ("File size (no of images)", "Scale (x,y)", "Image size (x*y)"):
+            v = tuple(map(_im_number, v.replace("*", ",").split(",")))
+            v = v[0] if len(v) == 1 else v
+        elif k == "Image type" and v in _IM_OPEN:
+            v, rawmode = _IM_OPEN[v]
+        info[k] = v
+        n += k in _IM_TAGS
+    if not n:
+        return None
+    size, mode = info["Image size (x*y)"], info["Image type"]
+    while s and not s.startswith(b"\x1a"):
+        s = data[pos:pos + 1]
+        pos += len(s)
+    if not s:
+        return None
+    pal = b""
+    if "Lut" in info:
+        lut = data[pos:pos + 768]
+        pos += len(lut)
+        if len(lut) < 768:
+            return None
+        grey = all(lut[i] == lut[i + 256] == lut[i + 512] for i in range(256))
+        if mode in ("L", "LA", "P", "PA") and not grey:
+            mode, rawmode = ("P", "P") if mode in ("L", "P") else ("PA", "PA;L")
+            pal = _palette(_planar_palette(lut))
+    if not isinstance(size, tuple) or not mode or size[0] <= 0 or size[1] <= 0:
+        return None
+    if len(size) != 2 or not all(isinstance(x, int) for x in size):
+        raise ValueError(f"IM image size {size} (Pillow raises too)")
+    if mode == "P" and not pal:
+        pal = _palette(b"")
+    w, h = size
+    if rawmode.startswith("F;") and rawmode[2:].isdigit() and int(rawmode[2:]) not in (8, 16, 32):
+        return _Tile(BIT, mode, "", pos, w, h, (int(rawmode[2:]),))
+    if rawmode in ("RGB;T", "RYB;T"):
+        return _Tile(RAW, mode, "G,R,B", pos, w, h, (0, -1, w * h))
+    return _Tile(RAW, mode, rawmode, pos, w, h, (0, -1), pal)
+
+
+def _spider_header(t: tuple) -> int:
+    """SpiderImagePlugin.isSpiderHeader: the header's length, 0 if not."""
+    h = (99,) + t
+    try:
+        if any(h[i] != int(h[i]) for i in (1, 2, 5, 12, 13, 22, 23)):
+            return 0
+    except (ValueError, OverflowError):
+        return 0
+    if int(h[5]) not in (1, 3, -11, -12, -21, -22) or int(h[22]) != int(h[13]) * int(h[23]):
+        return 0
+    return int(h[22])
+
+
+def _spider_open(data: bytes) -> _Tile | None:
+    """SpiderImagePlugin: 27 float32 header values, big-endian tried
+    first; a 2D image (iform 1) of float32 samples after the header (a
+    stack's first image after two)."""
+    if len(data) < 108:
+        return None
+    for order in ">", "<":
+        t = struct.unpack(order + "27f", data[:108])
+        hdrlen = _spider_header(t)
+        if hdrlen:
+            break
+    else:
+        return None
+    h = (99,) + t
+    if int(h[5]) != 1:
+        return None
+    try:
+        istack, imgnumber = int(h[24]), int(h[27])
+        if istack > 0 and imgnumber == 0:
+            int(h[26])
+    except (ValueError, OverflowError) as e:
+        raise ValueError(f"SPIDER header value: {e} (Pillow raises too)") from e
+    if istack == 0 and imgnumber == 0:
+        offset = hdrlen
+    elif istack > 0 and imgnumber == 0:
+        offset = hdrlen * 2
+    elif istack == 0 and imgnumber > 0:
+        raise ValueError("SPIDER image inside a stack, opened alone (Pillow raises AttributeError)")
+    else:
+        return None
+    return _sized(_Tile(RAW, "F", "F;32BF" if order == ">" else "F;32F", offset, int(h[12]), int(h[2]), (0, 1)))
+
+
+def _fits_open(data: bytes) -> _Tile | None:
+    """FitsImagePlugin: 80-byte cards in 2880-byte units; the first unit
+    whose NAXIS gives a size (or a GZIP_1 tile-compressed BINTABLE's
+    ZNAXIS) is the image: BITPIX 8 "L", 16 "I;16", 32 "I", -32 and -64
+    "F", each read raw in that mode's own rawmode (so big-endian samples
+    come out byte-swapped, and -64 as float32 halves) from the bottom up."""
+    pos, headers, in_progress, found = 0, {}, False, None
+
+    def integer(key):
+        try:
+            return int(headers[key])
+        except ValueError as e:
+            raise ValueError(f"FITS card {key!r}: {e} (Pillow raises too)") from e
+
+    def size_of(prefix):
+        naxis = integer(prefix + b"NAXIS")
+        if naxis == 0:
+            return None
+        return (1, integer(prefix + b"NAXIS1")) if naxis == 1 else (integer(prefix + b"NAXIS1"),
+                                                                    integer(prefix + b"NAXIS2"))
+
+    def parse():
+        prefix, gz, offset = b"", False, 0
+        if headers.get(b"XTENSION") == b"'BINTABLE'" and headers.get(b"ZIMAGE") == b"T" and \
+                headers[b"ZCMPTYPE"] == b"'GZIP_1  '":
+            plain = size_of(b"") or (0, 0)
+            offset = plain[0] * plain[1] * (integer(b"BITPIX") // 8)
+            prefix, gz = b"Z", True
+        size = size_of(prefix)
+        if not size:
+            return None
+        bits = integer(prefix + b"BITPIX")
+        return gz, offset, size, bits, {8: "L", 16: "I;16", 32: "I", -32: "F", -64: "F"}.get(bits, "")
+
+    try:
+        while True:
+            header = data[pos:pos + 80]
+            pos += len(header)
+            if not header:
+                raise ValueError("Truncated FITS file (Pillow raises too)")
+            keyword = header[:8].strip()
+            if keyword in (b"SIMPLE", b"XTENSION"):
+                in_progress = True
+            elif headers and not in_progress:
+                break
+            elif keyword == b"END":
+                pos = math.ceil(pos / 2880) * 2880
+                if not found:
+                    found = parse()
+                in_progress = False
+                continue
+            if found:
+                continue
+            value = header[8:].split(b"/")[0].strip()
+            if value.startswith(b"="):
+                value = value[1:].strip()
+            if not headers and (not keyword.startswith(b"SIMPLE") or value != b"T"):
+                return None
+            headers[keyword] = value
+    except KeyError:
+        return None
+    if not found:
+        raise ValueError("FITS file without image data (Pillow raises too)")
+    gz, offset, (w, h), bits, mode = found
+    return _sized(_Tile(FITS_GZIP if gz else RAW, mode, mode, offset + pos - 80, w, h, (bits,) if gz else (0, -1, 0, bits)))
+
+
+def _fits_gzip(data: bytes, tile: _Tile) -> _Tile:
+    """FitsGzipDecoder: the heap inflated as one gzip stream, each pixel
+    the last min(BITPIX / 8, 4) bytes of a 4-byte word, rows bottom up,
+    read raw in the mode's rawmode."""
+    (bits,) = tile.args
+    try:
+        value = gzip.decompress(data[tile.offset:])
+    except (OSError, EOFError, zlib.error) as e:
+        raise ValueError(f"FITS GZIP_1 data does not inflate: {e} (Pillow raises too)") from e
+    nb = min(bits // 8, 4)
+    w, h = tile.w, tile.h
+    if nb <= 0 or len(value) < 4 * w * h:
+        raise ValueError("not enough image data (FITS GZIP_1; Pillow raises too)")
+    words = np.frombuffer(value, np.uint8, 4 * w * h).reshape(h, w, 4)[::-1, :, 4 - nb:]
+    return _Tile(RAW, tile.mode, tile.mode, 0, w, h, (0, 1), aux=np.ascontiguousarray(words).tobytes())
+
+
+def _gbr_open(data: bytes) -> _Tile | None:
+    """GbrImagePlugin: a big-endian header (size, version 1 or 2, width,
+    height, depth 1 "L" or 4 "RGBA"; version 2's "GIMP" and spacing), the
+    comment, then the raw pixels."""
+    if len(data) < 8:
+        return None
+    size, version = struct.unpack(">II", data[:8])
+    if size < 20 or version not in (1, 2) or len(data) < 20:
+        return None
+    w, h, depth = struct.unpack(">3I", data[8:20])
+    if w == 0 or h == 0 or depth not in (1, 4):
+        return None
+    if version == 2:
+        if data[20:24] != b"GIMP" or len(data) < 28:
+            return None
+        comment = size - 28
+        pos = 28
+    else:
+        comment, pos = size - 20, 20
+    pos = len(data) if comment < 0 else min(len(data), pos + comment)
+    return _Tile(RAW, "L" if depth == 1 else "RGBA", "L" if depth == 1 else "RGBA", pos, w, h, (0, 1))
+
+
+_IMT_FIELD = re.compile(rb"([a-z]*) ([^ \r\n]*)")
+
+
+def _imt_open(data: bytes) -> _Tile | None:
+    """ImtImagePlugin: "key value" lines ("width", "height", "pixel n8"),
+    ended by a form feed; "L" raw after it (no form feed: no tile, and
+    Pillow's load raises)."""
+    buffer, pos = data[:100], min(len(data), 100)
+    if b"\n" not in buffer:
+        return None
+    w = h = 0
+    mode, offset = "", None
+    while True:
+        if buffer:
+            s, buffer = buffer[:1], buffer[1:]
+        else:
+            s = data[pos:pos + 1]
+            pos += len(s)
+        if not s:
+            break
+        if s == b"\x0c":
+            offset = pos - len(buffer)
+            break
+        if b"\n" not in buffer:
+            more = data[pos:pos + 100]
+            buffer, pos = buffer + more, pos + len(more)
+        lines = buffer.split(b"\n")
+        s += lines.pop(0)
+        buffer = b"\n".join(lines)
+        if len(s) == 1 or len(s) > 100:
+            break
+        if s[0] == ord(b"*"):
+            continue
+        m = _IMT_FIELD.match(s)
+        if not m:
+            break
+        k, v = m.group(1, 2)
+        try:
+            if k == b"width":
+                w = int(v)
+            elif k == b"height":
+                h = int(v)
+        except ValueError as e:
+            raise ValueError(f"IM Tools header value {v!r} (Pillow raises too)") from e
+        if k == b"pixel" and v == b"n8":
+            mode = "L"
+    return _sized(_Tile(RAW if offset is not None else NO_DATA, mode, "L", offset or 0, w, h, (0, 1)))
+
+
+def _mcidas_open(data: bytes) -> _Tile | None:
+    """McIdasImagePlugin: a 256-byte area directory of big-endian words;
+    "L", "I;16B" or "I" (rawmode "I;32B") raw, rows `stride` apart."""
+    s = data[:256]
+    if not s.startswith(b"\0\0\0\0\0\0\0\4") or len(s) != 256:
+        return None
+    w = (0, *struct.unpack("!64i", s))
+    modes = {1: ("L", "L"), 2: ("I;16B", "I;16B"), 4: ("I", "I;32B")}
+    if w[11] not in modes:
+        return None
+    mode, rawmode = modes[w[11]]
+    stride = w[15] + w[10] * w[11] * w[14]
+    return _sized(_Tile(RAW, mode, rawmode, w[34] + w[15], w[10], w[9], (stride, 1)))
+
+
+def _pixar_open(data: bytes) -> _Tile | None:
+    """PixarImagePlugin: "RGB" raw at 1024 for channel/depth (14, 2); any
+    other pair has no mode in Pillow."""
+    if not data.startswith(b"\200\350\000\000") or len(data) < 428:
+        return None
+    h, w = struct.unpack("<HH", data[416:420])
+    mode = "RGB" if struct.unpack("<HH", data[424:428]) == (14, 2) else ""
+    return _sized(_Tile(RAW, mode, "RGB", 1024, w, h, (0, 1)))
+
+
+# XVThumbImagePlugin.PALETTE: 3-3-2 bits of red, green and blue.
+_XV_PALETTE = bytes(v for r in range(8) for g in range(8) for b in range(4)
+                    for v in ((r * 255) // 7, (g * 255) // 7, (b * 255) // 3))
+
+
+def _xvthumb_open(data: bytes) -> _Tile | None:
+    """XVThumbImagePlugin: "P7 332", comment lines, "width height ...",
+    then "P" raw through the 3-3-2 palette."""
+    if not data.startswith(b"P7 332"):
+        return None
+    f = _Lines(data, 6)
+    f.readline()
+    while True:
+        s = f.readline()
+        if not s:
+            return None
+        if s[0] != 35:
+            break
+    try:
+        w, h = (int(x) for x in s.strip().split(maxsplit=2)[:2])
+    except ValueError as e:
+        raise ValueError(f"XV thumbnail size line {s!r} (Pillow raises too)") from e
+    return _sized(_Tile(RAW, "P", "P", f.pos, w, h, (0, 1), _palette(_XV_PALETTE)))
+
+
+def _fli_open(data: bytes) -> _Tile | None:
+    """FliImagePlugin: the 128-byte header (its zero fields checked), the
+    palette of the first frame's first COLOR chunk (256-level, or 64-level
+    shifted by 2 and wrapped to a byte; a grey ramp where none), the first
+    frame's chunks from byte 128 (raster_decode.cpp)."""
+    s = data[:128]
+    if not (len(s) >= 16 and struct.unpack("<H", s[4:6])[0] in (0xAF11, 0xAF12)
+            and struct.unpack("<H", s[14:16])[0] in (0, 3)):
+        return None
+    if s[20:22] != b"\0\0" or s[42:80] != bytes(38) or s[88:] != bytes(40):
+        return None
+    w, h = struct.unpack("<HH", s[8:12])
+    palette = [(a, a, a) for a in range(256)]
+    pos = 128
+
+    def read(k):
+        nonlocal pos
+        if pos < 0:
+            raise ValueError("FLI chunk before the file's start (Pillow: invalid seek)")
+        out = data[pos:pos + max(k, 0)]
+        pos += len(out)
+        return out
+
+    try:
+        s = read(16)
+        if struct.unpack_from("<H", s, 4)[0] == 0xF100:
+            pos = 128 + struct.unpack_from("<i", s)[0]
+            s = read(16)
+        if struct.unpack_from("<H", s, 4)[0] == 0xF1FA:
+            size = None
+            for _ in range(struct.unpack_from("<H", s, 6)[0]):
+                if size is not None:
+                    pos += size - 6
+                s = read(6)
+                kind = struct.unpack_from("<H", s, 4)[0]
+                if kind in (4, 11):
+                    shift, i = 2 if kind == 11 else 0, 0
+                    for _ in range(struct.unpack("<H", read(2))[0]):
+                        e = read(2)
+                        i, k = i + e[0], e[1] or 256
+                        rgb = read(3 * k)
+                        for j in range(0, len(rgb), 3):
+                            palette[i] = tuple((v << shift) & 255 for v in (rgb[j], rgb[j + 1], rgb[j + 2]))
+                            i += 1
+                    break
+                size = struct.unpack_from("<i", s)[0]
+                if not size:
+                    break
+        if len(data) < 132:         # the first frame's size (Pillow: EOFError or struct.error)
+            return None
+    except (struct.error, IndexError):
+        return None
+    return _sized(_Tile(FLI, "P", "", 128, w, h, (), _palette(bytes(v for e in palette for v in e))))
+
+
+def _pcd_open(data: bytes) -> _Tile | None:
+    """PcdImagePlugin: "PCD_" at 2048, the orientation in byte 3586; the
+    768 x 512 base image from 96 * 2048 (raster_decode.cpp), turned 90
+    (orientation 1) or 270 degrees (3) counter-clockwise after."""
+    s = data[2048:2048 + 1539]
+    if not s.startswith(b"PCD_") or len(s) < 1539:
+        return None
+    return _Tile(PCD, "RGB", "", 96 * 2048, 768, 512, (s[1538] & 3,))
+
+
+# IptcImagePlugin.COMPRESSION
+_IPTC_COMPRESSION = {1: "raw", 5: "jpeg"}
+
+
+def _iptc_field(data: bytes, pos: int):
+    """IptcImageFile.field at `pos`: ((record, dataset), size, next pos),
+    (None, 0, pos) at the end; None where Pillow's opener goes on."""
+    s = data[pos:pos + 5]
+    pos += len(s)
+    if not s.strip(b"\0"):
+        return None, 0, pos
+    if len(s) < 4 or s[0] != 0x1C or s[1] not in (1, 2, 3, 4, 5, 6, 7, 8, 9, 240):
+        return None
+    size = s[3]
+    if size > 132:
+        raise ValueError("illegal field length in IPTC/NAA file (Pillow raises too)")
+    if size == 128:
+        size = 0
+    elif size > 128:
+        ext = data[pos:pos + size - 128]
+        pos += len(ext)
+        size = struct.unpack(">I", (b"\0\0\0\0" + ext)[-4:])[0]
+    elif len(s) < 5:
+        return None
+    else:
+        size = struct.unpack(">H", s[3:5])[0]
+    return (s[1], s[2]), size, pos
+
+
+def _iptc_open(data: bytes):
+    """IptcImagePlugin: dataset records up to the first image record (8,
+    10); the mode from (3, 60) (1 layer "L"; 3 "RGB", 4 "CMYK", one band
+    of them, (3, 65), filled), the size from (3, 20) and (3, 30), the
+    compression from (3, 120): (tag, offset, mode, band, compression, w,
+    h), None where Pillow's opener goes on."""
+    info, pos = {}, 0
+    while True:
+        offset = pos
+        field = _iptc_field(data, pos)
+        if field is None:
+            return None
+        tag, size, pos = field
+        if not tag or tag == (8, 10):
+            break
+        value = data[pos:pos + size] if size else None
+        pos += len(value or b"")
+        info[tag] = [info[tag], value] if tag in info and not isinstance(info[tag], list) else \
+            info[tag] + [value] if tag in info else value
+
+    def integer(key):
+        v = info[key]
+        return struct.unpack(">I", (b"\0\0\0\0" + v)[-4:])[0]
+
+    try:
+        layers, component = info[(3, 60)][0], info[(3, 60)][1]
+        mode, band = "", None
+        if layers == 1 and not component:
+            mode = "L"
+        else:
+            if layers == 3 and component:
+                mode = "RGB"
+            elif layers == 4 and component:
+                mode = "CMYK"
+            band = info[(3, 65)][0] - 1 if (3, 65) in info else 0
+        w, h = integer((3, 20)), integer((3, 30))
+    except (KeyError, IndexError, TypeError):
+        return None
+    try:
+        compression = _IPTC_COMPRESSION[integer((3, 120))]
+    except (KeyError, TypeError) as e:
+        if isinstance(e, TypeError):
+            return None
+        raise ValueError("Unknown IPTC image compression (Pillow raises too)") from e
+    if not mode or w <= 0 or h <= 0:
+        return None
+    return tag, offset, mode, band, compression, w, h
+
+
+def _decode_iptc(lib, data: bytes) -> tuple[np.ndarray, str]:
+    """IptcImageFile.load: the image records' data joined (after a P5
+    header of the size for raw data) and read as an image of its own; one
+    layer of a colour image into its band, the others 0."""
+    opened = _iptc_open(data)
+    if opened is None:
+        raise ValueError("IPTC file that Pillow's opener does not take")
+    tag, pos, mode, band, compression, w, h = opened
+    if tag != (8, 10):
+        raise ValueError("IPTC file without image data (Pillow: cannot load this image)")
+    parts = [b"P5\n%d %d\n255\n" % (w, h)] if compression == "raw" else []
+    while True:
+        field = _iptc_field(data, pos)
+        if field is None:
+            raise ValueError("invalid IPTC/NAA file (Pillow raises too)")
+        tag, size, pos = field
+        if tag != (8, 10):
+            break
+        parts.append(data[pos:pos + size])
+        pos += len(parts[-1])
+    px, inner = decode_image(b"".join(parts))   # Pillow keeps this image, of its own size
+    if band is None:
+        if inner != "L":
+            raise ValueError(f"IPTC grey image holding a {inner} image (not read: ROADMAP queue C)")
+        return px, "L"
+    if inner != "L":
+        raise ValueError("IPTC image layer that is not grey (Pillow: images do not match)")
+    if not -len(mode) <= band < len(mode):
+        raise ValueError(f"IPTC image layer {band} of a {mode} image (Pillow raises too)")
+    if mode == "RGB" and px.shape[:2] != (h, w):
+        # Pillow shapes the unconverted RGB image by the records' size.
+        raise ValueError("IPTC RGB layer of another size than its records (not read: ROADMAP queue C)")
+    planes = [np.zeros(px.shape[:2], np.uint8) for _ in mode]
+    planes[band] = px[..., 0]
+    inter = np.ascontiguousarray(np.stack(planes, -1))
+    return _raster_tile(lib, _Tile(RAW, mode, mode, 0, inter.shape[1], inter.shape[0], (0, 1), aux=inter.tobytes()))
+
+
+_RASTER_OPEN = {"PCX": _pcx_open, "DCX": _dcx_open, "FITS": _fits_open, "FLI": _fli_open, "GBR": _gbr_open,
+                "IM": _im_open, "IMT": _imt_open, "MCIDAS": _mcidas_open, "MSP": _msp_open, "PCD": _pcd_open,
+                "PIXAR": _pixar_open, "QOI": _qoi_open, "SGI": _sgi_open, "SPIDER": _spider_open, "SUN": _sun_open,
+                "XBM": _xbm_open, "XPM": _xpm_open, "XVTHUMB": _xvthumb_open}
+
+
+def _raster(lib, kind: str, data: bytes, floats: bool = False):
+    """A plain raster file through the library: (pixels, mode), or with
+    `floats` an "F" image's float32 (H, W) samples (None for any other)."""
+    tile = _RASTER_OPEN[kind](data)
+    if tile is None:
+        raise ValueError(f"{kind} header that Pillow's opener does not take")
+    if tile.decoder == NO_DATA:
+        raise ValueError(f"{kind} image without image data (Pillow: cannot load this image)")
+    if tile.decoder == FITS_GZIP:
+        tile = _fits_gzip(data, tile)
+    out = _raster_tile(lib, tile, data, floats)
+    if tile.decoder == PCD and tile.args[0] in (1, 3):    # Image.rotate(90 or 270, expand=True): a transpose
+        out = np.ascontiguousarray(np.rot90(out[0], 1 if tile.args[0] == 1 else -1)), out[1]
+    return out
+
+
+def _raster_tile(lib, tile: _Tile, data: bytes = b"", floats: bool = False):
+    """A tile through the library (a raw tile with `aux` reads that, not
+    `data`): (pixels, mode), or with `floats` an "F" image's samples."""
+    decoder, mode, rawmode, offset, w, h, args, pal, aux = tile
+    src = aux if decoder == RAW and aux else data
+    arr = (ctypes.c_int64 * max(1, len(args)))(*args)
+    call = (lib.imgr_decode, src, len(src), decoder, mode.encode(), rawmode.encode(), offset, w, h, arr, len(args),
+            pal, len(pal), aux, len(aux))
+    with _result(lib, *call, free=lib.imgr_free) as handle:
+        if floats:
+            fl = lib.imgr_floats(handle)
+            return np.ctypeslib.as_array(fl, shape=(h * w,)).reshape(h, w, 1).copy() if fl else None
+        h, w, c = lib.imgr_height(handle), lib.imgr_width(handle), lib.imgr_channels(handle)
+        pixels = np.ctypeslib.as_array(lib.imgr_pixels(handle), shape=(h * w * c,))
+        return pixels.reshape(h, w, c).copy(), lib.imgr_mode(handle).decode()
+
+
 def decode_image(data: bytes) -> tuple[np.ndarray, str]:
     """(uint8 (H, W, C) pixels, Pillow mode) of image file bytes."""
     data = bytes(data)
@@ -632,18 +1489,36 @@ def decode_image(data: bytes) -> tuple[np.ndarray, str]:
         return _collect(lib, lib.imgd_tiff, data, len(data), _decompress)
     if kind in ("ICO", "CUR", "ICNS"):
         return {"ICO": _decode_ico, "CUR": _decode_cur, "ICNS": _decode_icns}[kind](lib, data)
+    if kind == "IPTC":
+        return _decode_iptc(lib, data)
+    if kind in _RASTER:
+        return _raster(lib, kind, data)
     return _collect(lib, lib.imgd_decode, data, len(data), _CODES[kind])
 
 
 def decode_float_samples(data: bytes) -> np.ndarray | None:
     """The float32 (H, W, C) samples of a float TIFF (SampleFormat 3:
     16-, 32- or 64-bit samples, C 1, 3 or 4; strips or tiles, one plane
-    or one a sample) or of a PFM (C 1), top row first: the linear
-    radiance a sky holds, as the JAX package's imageio reads a TIFF (its
-    bundled tifffile: as stored, no Orientation applied, cast to
-    float32).  None for any other image, which ``decode_image`` reads."""
+    or one a sample), of a PFM, of an IM "F" image or of a float FITS
+    (BITPIX -32 or -64, its big-endian samples as stored, where Pillow
+    reads them byte-swapped) (C 1), top row first: the linear radiance a
+    sky holds, as the JAX package's imageio reads a TIFF (its bundled
+    tifffile: as stored, no Orientation applied, cast to float32).  None
+    for any other image, which ``decode_image`` reads."""
     data = bytes(data)
     kind = sniff(data)
+    if kind == "FITS":
+        tile = _fits_open(data)
+        if tile is None or tile.mode != "F" or tile.decoder != RAW:
+            return None
+        offset, w, h = tile.offset, tile.w, tile.h
+        dt = ">f8" if tile.args[3] == -64 else ">f4"
+        need = w * h * np.dtype(dt).itemsize
+        if offset + need > len(data):
+            raise ValueError("image file is truncated (FITS data)")
+        return np.frombuffer(data, dt, w * h, offset).reshape(h, w, 1)[::-1].astype(np.float32)
+    if kind == "IM":
+        return _raster(load_library(), kind, data, floats=True)
     if kind not in ("TIFF", "PNM"):
         return None
     lib = load_library()

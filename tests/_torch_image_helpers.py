@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import gzip
 import io
 import json
 import lzma
@@ -51,7 +52,9 @@ FIXTURE_NAMES = ("prog420_odd.jpg", "base422_rst.jpg", "grey.jpg", "rle.tga", "p
                  "g4_discs.tif", "lab_leaf.tif", "zstd_gloss.tif", "lzma_metal.tif", "lab.psd", "thunder.tif",
                  "rlew_badcodes.tif", "g3_2d_fill2.tif", "g4_1024.tif", "zstd_1024.tif", "lzma_1024.tif",
                  "lab_1024.tif", "thunder_1024.tif", "ojpeg_ground.tif", "ojpeg_tables_grey.tif",
-                 "lzw_old_gloss.tif", "icon_leaf.ico", "icon_png.ico", "cursor.cur", "bitmap.dib", "icns_metal.icns")
+                 "lzw_old_gloss.tif", "icon_leaf.ico", "icon_png.ico", "cursor.cur", "bitmap.dib", "icns_metal.icns",
+                 "pcx_ground.pcx", "sgi_gloss.sgi", "qoi_leaf.qoi", "xbm_leaf.xbm", "fits_metal.fits",
+                 "sun_rle.ras", "xpm_leaf.xpm", "im_lut.im", "msp_rows.msp", "fli_brun.flc")
 
 # Corrupt JPEGs: a fixture with bytes replaced ((offset, byte), ...), whose
 # dequantized coefficients overflow libjpeg-turbo's 16-bit SIMD IDCT lanes
@@ -2025,6 +2028,7 @@ def write_fixtures(out: Path = FIXTURES) -> dict:
     write_jpeg_variant_fixtures(out)
     write_tiff_codec_fixtures(out)
     write_container_fixtures(out)
+    write_raster_fixtures(out)
 
     def digest(name, g):   # None where the JAX package raises (a Lab file read as grey)
         try:
@@ -2044,3 +2048,468 @@ if __name__ == "__main__":
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     for name, d in write_fixtures().items():
         print(name, (FIXTURES / name).stat().st_size, *(str(v)[:12] for v in d.values()))
+
+
+# ------------------------------------------------- plain raster formats ----
+#
+# Pillow writes PCX (1, L, P, RGB), QOI, raw SGI, MSP version 1, XBM, IM
+# and SPIDER, but no PCX of bit planes or odd strides, no DCX, no RLE or
+# 16-bit SGI, no Sun raster, MSP version 2, XPM, FITS, GBR, IM Tools,
+# McIdas, PIXAR or XV thumbnail; and the card machine has no Pillow.  These
+# write each from NumPy, as Pillow's plugin reads it.
+
+def _runs(rows, cap: int):
+    """(values, lengths) of the runs of equal bytes in each row of `rows`
+    (runs never cross a row), each at most `cap` long."""
+    rows = np.ascontiguousarray(rows, np.uint8)
+    flat = rows.reshape(-1)
+    start = np.ones(flat.size, bool)
+    start[1:] = flat[1:] != flat[:-1]
+    start[::rows.shape[-1]] = True
+    idx = np.flatnonzero(start)
+    lens = np.diff(np.append(idx, flat.size))
+    n = -(-lens // cap)
+    pieces = np.full(int(n.sum()), cap, np.int64)
+    pieces[np.cumsum(n) - 1] = lens - (n - 1) * cap
+    return np.repeat(flat[idx], n), pieces
+
+
+def _emit(codes) -> bytes:
+    """Concatenate per-run byte codes: `codes` a list of (mask, columns)
+    where columns are arrays over the runs, written where mask holds."""
+    n = len(codes[0][0])
+    width = np.zeros(n, np.int64)
+    for mask, cols in codes:
+        width[mask] = len(cols)
+    pos = np.cumsum(width) - width
+    out = np.zeros(int(width.sum()), np.uint8)
+    for mask, cols in codes:
+        for k, col in enumerate(cols):
+            out[pos[mask] + k] = np.broadcast_to(col, mask.shape)[mask]
+    return out.tobytes()
+
+
+def pcx_rle(lines) -> bytes:
+    """PCX's run-length code of whole lines: runs of 2-63 (and single bytes
+    of 0xC0 or more) as 0xC0 | n, value; other bytes literal."""
+    v, n = _runs(lines, 63)
+    two = (n > 1) | (v >= 0xC0)
+    return _emit([(two, [0xC0 | n, v]), (~two, [v])])
+
+
+def encode_pcx(lines, w: int, h: int, bits: int, planes: int, *, version: int = 5, stride: int | None = None,
+               palette16: bytes = b"", palette: bytes | None = None, rle: bool = True) -> bytes:
+    """A PCX of `lines` ((h, planes * stride) bytes, packed as the file
+    holds them: a plane after the other in each line), header stride
+    `stride` (default the line's bytes / planes), the 16-colour header
+    palette and, for 8-bit files, a 769-byte palette at the end."""
+    lines = np.asarray(lines, np.uint8).reshape(h, -1)
+    stride = stride if stride is not None else lines.shape[1] // planes
+    head = struct.pack("<BBBBHHHHHH", 10, version, 1 if rle else 0, bits, 0, 0, w - 1, h - 1, 72, 72)
+    head += palette16.ljust(48, b"\0")[:48] + bytes([0, planes]) + struct.pack("<HH", stride, 1)
+    body = pcx_rle(lines) if rle else lines.tobytes()
+    return head.ljust(128, b"\0") + body + (b"\x0c" + palette.ljust(768, b"\0") if palette is not None else b"")
+
+
+def make_dcx(pages) -> bytes:
+    """A DCX: its magic, the page offsets ended by 0, then the pages."""
+    at = 4 + 4 * (len(pages) + 1)
+    offsets = []
+    for page in pages:
+        offsets.append(at)
+        at += len(page)
+    return struct.pack(f"<{len(pages) + 2}I", 0x3ADE68B1, *offsets, 0) + b"".join(pages)
+
+
+def encode_qoi(pixels) -> bytes:
+    """A QOI of (H, W, 3 or 4) uint8 pixels through its run, diff, luma,
+    RGB and RGBA ops (no index op)."""
+    pixels = np.asarray(pixels, np.uint8)
+    h, w, c = pixels.shape
+    px = np.concatenate([pixels, np.full((h, w, 1), 255, np.uint8)], 2) if c == 3 else pixels
+    px = px.reshape(-1, 4).astype(np.int64)
+    prev = np.concatenate([[[0, 0, 0, 255]], px[:-1]])
+    same = (px == prev).all(1)
+    # runs: consecutive pixels equal to their predecessor, at most 62 an op
+    start = same & ~np.concatenate([[False], same[:-1]])
+    rid = np.cumsum(start) * same
+    pos_in_run = np.zeros(len(px), np.int64)
+    if same.any():
+        first = np.flatnonzero(start)
+        pos_in_run[same] = np.arange(len(px))[same] - first[rid[same] - 1]
+    run_len = np.zeros(len(px), np.int64)
+    if same.any():
+        ends = np.flatnonzero(same & ~np.concatenate([same[1:], [False]]))
+        lengths = ends - np.flatnonzero(start) + 1
+        run_len[same] = lengths[rid[same] - 1] - pos_in_run[same]
+    head = same & (pos_in_run % 62 == 0)
+    d = (px - prev + 128) % 256 - 128
+    dr, dg, db = d[:, 0], d[:, 1], d[:, 2]
+    a_same = px[:, 3] == prev[:, 3]
+    diff = ~same & a_same & (np.abs(d[:, :3] + 0.5) <= 2).all(1)
+    luma = ~same & a_same & ~diff & (dg >= -32) & (dg <= 31) & (dr - dg >= -8) & (dr - dg <= 7) & \
+        (db - dg >= -8) & (db - dg <= 7)
+    rgb = ~same & a_same & ~diff & ~luma
+    rgba = ~same & ~a_same
+    zero = np.zeros(len(px), np.int64)
+    body = _emit([(head, [0xC0 | (np.minimum(run_len, 62) - 1)]), (same & ~head, []),
+                  (diff, [0x40 | (dr + 2) << 4 | (dg + 2) << 2 | (db + 2)]),
+                  (luma, [0x80 | (dg + 32), (dr - dg + 8) << 4 | (db - dg + 8)]),
+                  (rgb, [zero + 0xFE, px[:, 0], px[:, 1], px[:, 2]]),
+                  (rgba, [zero + 0xFF, px[:, 0], px[:, 1], px[:, 2], px[:, 3]])])
+    return b"qoif" + struct.pack(">IIBB", w, h, c, 0) + body + b"\0" * 7 + b"\1"
+
+
+def encode_sgi(planes, bpc: int = 1, rle: bool = False, copy: bool = False) -> bytes:
+    """An SGI of (Z, H, W) samples (Z 1, 3 or 4; 16-bit samples if bpc is
+    2): raw planes, or RLE rows (repeat runs, and with `copy` copy runs of
+    short runs too), rows bottom up."""
+    planes = np.asarray(planes)
+    z, h, w = planes.shape
+    dim = 3 if z > 1 else (1 if h == 1 else 2)
+    head = struct.pack(">hBBHHHHii4s80si", 474, int(rle), bpc, dim, w, h, z, 0, 255 if bpc == 1 else 65535,
+                       b"", b"raster", 0).ljust(512, b"\0")
+    rows = planes[:, ::-1]
+    if not rle:
+        return head + (rows.astype(">u2") if bpc == 2 else rows.astype(np.uint8)).tobytes()
+    starts, lengths, body = [], [], bytearray()
+    for ch in range(z):
+        for y in range(h):
+            row = rows[ch, y]
+            out = []
+            v, n = _runs(row.reshape(1, -1), 127)
+            i, vals = 0, list(zip(v.tolist(), n.tolist()))
+            while i < len(vals):
+                if copy and vals[i][1] == 1:
+                    j = i
+                    while j < len(vals) and vals[j][1] == 1 and j - i < 127:
+                        j += 1
+                    out.append((0x80 | (j - i), [x for x, _ in vals[i:j]]))
+                    i = j
+                else:
+                    out.append((vals[i][1], [vals[i][0]]))
+                    i += 1
+            chunk = bytearray()
+            for ctrl, samples in out:
+                chunk += struct.pack(">H", ctrl) if bpc == 2 else bytes([ctrl])
+                chunk += np.asarray(samples, ">u2" if bpc == 2 else np.uint8).tobytes()
+            chunk += b"\0" * bpc
+            starts.append(512 + 8 * z * h + len(body))
+            lengths.append(len(chunk))
+            body += chunk
+    return head + struct.pack(f">{z * h}I", *starts) + struct.pack(f">{z * h}I", *lengths) + bytes(body)
+
+
+def encode_sun(lines, w: int, h: int, depth: int, *, rle: bool = False, file_type: int | None = None,
+               colormap: bytes = b"") -> bytes:
+    """A Sun raster of `lines` ((H, row bytes), packed as Pillow's rawmode
+    for the depth reads them: raw rows padded to 16 bits, RLE rows not),
+    with a planar colour map; RLE type 2 (0x80 escapes), else `file_type`
+    (1, or 3 for RGB order)."""
+    lines = np.asarray(lines, np.uint8)
+    if rle:
+        v, n = _runs(lines.reshape(1, -1), 256)
+        one, esc = (n == 1) & (v != 0x80), (n == 1) & (v == 0x80)
+        body = _emit([(one, [v]), (esc, [0x80 + 0 * v, 0 * v]), (n > 1, [0x80 + 0 * v, n - 1, v])])
+    else:
+        pad = (w * depth + 15) // 16 * 2 - lines.shape[1]
+        body = np.pad(lines, ((0, 0), (0, pad))).tobytes()
+    t = 2 if rle else (file_type if file_type is not None else 1)
+    return struct.pack(">8I", 0x59A66A95, w, h, depth, len(body), t, 1 if colormap else 0, len(colormap)) + \
+        colormap + body
+
+
+def encode_msp(bits, version: int = 2) -> bytes:
+    """An MSP of a (H, W) 0/1 array (1 white): version 1 raw, version 2 a
+    row map and runs (0, count, value) of each row's bytes; an all-white
+    row as a row of no bytes."""
+    bits = np.asarray(bits, np.uint8)
+    h, w = bits.shape
+    packed = np.packbits(bits, axis=1)
+    words = [0x6144 if version == 1 else 0x694C, 0x4D6E if version == 1 else 0x536E, w, h, 1, 1, 1, 1, w, h,
+             0, 0, 0, 0, 0, 0]
+    words[12] = functools.reduce(lambda a, b: a ^ b, words)
+    head = struct.pack("<16H", *words)
+    if version == 1:
+        return head + packed.tobytes()
+    rows = []
+    for y in range(h):
+        if (packed[y] == 255).all() and (bits[y] == 1).all():
+            rows.append(b"")
+            continue
+        v, n = _runs(packed[y].reshape(1, -1), 255)
+        rows.append(_emit([(np.ones(len(v), bool), [0 * v, n, v])]))
+    return head + struct.pack(f"<{h}H", *map(len, rows)) + b"".join(rows)
+
+
+def encode_xpm(indices, colours, bpp: int = 1, none_key: bytes | None = None, per_line: int | None = None) -> bytes:
+    """An XPM of (H, W) indices into `colours` ((N, 3) uint8), keys of
+    `bpp` characters; `none_key` adds a colour "None" with that key;
+    `per_line` pixels a quoted line (default a row)."""
+    indices = np.asarray(indices)
+    h, w = indices.shape
+    alphabet = np.frombuffer(b"abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789"
+                             b".+@#$%&*=-;>,')!~^/(_:<[]{}|", np.uint8)
+    n = len(colours)
+    codes = np.stack([alphabet[(np.arange(n) // len(alphabet) ** k) % len(alphabet)] for k in range(bpp)], 1)
+    keys = [bytes(k) for k in codes]
+    lines = [b"/* XPM */", b"static char *image[] = {", b"/* columns rows colors chars-per-pixel */",
+             f'"{w} {h} {n + (none_key is not None)} {bpp}",'.encode()]
+    if none_key is not None:
+        lines.append(b'"' + none_key + b" c None\",")
+    lines += [b'"' + k + b" c #%02x%02x%02x\"," % tuple(int(x) for x in c) for k, c in zip(keys, colours)]
+    lines.append(b"/* pixels */")
+    text = codes[indices.reshape(-1)].reshape(-1)
+    step = (per_line or w) * bpp
+    flat = text.tobytes()
+    lines += [b'"' + flat[i:i + step] + b'",' for i in range(0, len(flat), step)]
+    return b"\n".join(lines) + b"\n};\n"
+
+
+def _fits_cards(cards) -> bytes:
+    text = b"".join(f"{k:<8}= {v:>20}".ljust(80).encode() if v is not None else k.ljust(80).encode()
+                    for k, v in cards) + b"END".ljust(80)
+    return text.ljust(-(-len(text) // 2880) * 2880, b" ")
+
+
+def encode_fits(arr, bitpix: int, *, gzip_tiles: bool = False) -> bytes:
+    """A FITS of (H, W) samples (rows bottom up) at BITPIX 8, 16, 32, -32
+    or -64, big-endian; with `gzip_tiles` a GZIP_1 tile-compressed
+    BINTABLE after an empty primary unit, one 4-byte word a pixel as
+    Pillow's reader takes them."""
+    arr = np.asarray(arr)
+    h, w = arr.shape
+    dt = {8: ">u1", 16: ">i2", 32: ">i4", -32: ">f4", -64: ">f8"}[bitpix]
+    if not gzip_tiles:
+        data = arr[::-1].astype(dt).tobytes()
+        head = _fits_cards([("SIMPLE", "T"), ("BITPIX", bitpix), ("NAXIS", 2), ("NAXIS1", w), ("NAXIS2", h)])
+        return head + data.ljust(-(-len(data) // 2880) * 2880, b"\0")
+    heap = gzip.compress(arr[::-1].astype(">i4").tobytes(), mtime=0)
+    primary = _fits_cards([("SIMPLE", "T"), ("BITPIX", 8), ("NAXIS", 0)])
+    ext = _fits_cards([("XTENSION", "'BINTABLE'"), ("BITPIX", 8), ("NAXIS", 2), ("NAXIS1", 8), ("NAXIS2", 1),
+                       ("ZIMAGE", "T"), ("ZCMPTYPE", "'GZIP_1  '"), ("ZBITPIX", bitpix), ("ZNAXIS", 2),
+                       ("ZNAXIS1", w), ("ZNAXIS2", h)])
+    data = struct.pack(">II", len(heap), 0) + heap
+    return primary + ext + data.ljust(-(-len(data) // 2880) * 2880, b"\0")
+
+
+def encode_im(image_type: str, w: int, h: int, data: bytes, lut: bytes | None = None, lines=()) -> bytes:
+    """An IM (IFUNC) file: key lines, NULs to byte 511, ^Z, the Lut (768
+    bytes, planar) if given, then `data` (rows bottom up, as the caller
+    packs them)."""
+    head = f"Image type: {image_type}\r\nImage size (x*y): {w}*{h}\r\n".encode() + b"".join(
+        x.encode() + b"\r\n" for x in lines) + (b"Lut: 1\r\n" if lut is not None else b"")
+    return head.ljust(511, b"\0") + b"\x1a" + (lut or b"") + data
+
+
+def encode_spider(arr, big: bool = True) -> bytes:
+    """A SPIDER 2D image (iform 1) of (H, W) float32 samples."""
+    h, w = np.asarray(arr).shape
+    lenbyt = 4 * w
+    labrec = -(-1024 // lenbyt)
+    head = np.zeros(labrec * w, np.float32)
+    for i, v in ((1, 1), (2, h), (5, 1), (12, w), (13, labrec), (22, labrec * lenbyt), (23, lenbyt), (26, 1)):
+        head[i - 1] = v
+    dt = ">f4" if big else "<f4"
+    return head.astype(dt).tobytes() + np.asarray(arr, np.float32).astype(dt).tobytes()
+
+
+def encode_gbr(pixels, version: int = 2, name: bytes = b"brush") -> bytes:
+    """A GIMP brush of (H, W) grey or (H, W, 4) RGBA bytes."""
+    pixels = np.asarray(pixels, np.uint8)
+    h, w = pixels.shape[:2]
+    depth = 1 if pixels.ndim == 2 else 4
+    size = (28 if version == 2 else 20) + len(name) + 1
+    head = struct.pack(">5I", size, version, w, h, depth) + (b"GIMP" + struct.pack(">I", 10) if version == 2 else b"")
+    return head + name + b"\0" + pixels.tobytes()
+
+
+def encode_imt(grey) -> bytes:
+    """An IM Tools file of (H, W) bytes."""
+    h, w = np.asarray(grey).shape
+    return f"width {w}\nheight {h}\npixel n8\n".encode() + b"\x0c" + np.asarray(grey, np.uint8).tobytes()
+
+
+def encode_mcidas(samples, nbytes: int, prefix: int = 0) -> bytes:
+    """A McIdas area file of (H, W) samples of `nbytes` (1, 2 or 4) bytes,
+    big-endian, `prefix` bytes before each line."""
+    samples = np.asarray(samples)
+    h, w = samples.shape
+    words = np.zeros(65, ">i4")
+    words[2], words[9], words[10], words[11], words[14], words[15], words[34] = 4, h, w, nbytes, 1, prefix, 256
+    rows = samples.astype({1: ">u1", 2: ">u2", 4: ">i4"}[nbytes]).view(np.uint8).reshape(h, -1)
+    return words[1:].tobytes() + np.pad(rows, ((0, 0), (prefix, 0))).tobytes()
+
+
+def encode_pixar(rgb, channels: int = 14, depth: int = 2) -> bytes:
+    """A PIXAR raster of (H, W, 3) bytes after its 1024-byte header."""
+    h, w = np.asarray(rgb).shape[:2]
+    head = bytearray(1024)
+    head[:4] = b"\200\350\000\000"
+    head[416:420] = struct.pack("<HH", h, w)
+    head[424:428] = struct.pack("<HH", channels, depth)
+    return bytes(head) + np.asarray(rgb, np.uint8).tobytes()
+
+
+def encode_xvthumb(indices, comments=(b"#XVVERSION:Version 2.28",)) -> bytes:
+    """An XV thumbnail of (H, W) 3-3-2 palette indices."""
+    h, w = np.asarray(indices).shape
+    return b"P7 332\n" + b"".join(c + b"\n" for c in comments) + b"#END_OF_COMMENTS\n" + \
+        f"{w} {h} 255\n".encode() + np.asarray(indices, np.uint8).tobytes()
+
+
+def fli_chunk(kind: int, body: bytes) -> bytes:
+    """One FLI sub-chunk: its size, type, then `body`."""
+    return struct.pack("<IH", 6 + len(body), kind) + body
+
+
+def fli_colour(entries, six_bit: bool = False) -> bytes:
+    """A COLOR_256 (or 64-level COLOR) chunk of (skip, (N, 3) colours)
+    packets; 256 colours are written with a count of 0."""
+    body = struct.pack("<H", len(entries))
+    for skip, colours in entries:
+        c = np.asarray(colours, np.uint8)
+        body += bytes([skip, len(c) & 255]) + c.tobytes()
+    return fli_chunk(11 if six_bit else 4, body)
+
+
+def fli_brun(pixels, literal: int = 0) -> bytes:
+    """A BRUN chunk of (H, W) bytes: per line a packet count, `literal`
+    bytes as a literal packet, then runs of up to 127."""
+    pixels = np.asarray(pixels, np.uint8)
+    lines = []
+    for row in pixels:
+        out = bytearray(b"\0")
+        if literal:
+            out += bytes([256 - literal]) + row[:literal].tobytes()
+        v, n = _runs(row[literal:].reshape(1, -1), 127)
+        out += _emit([(np.ones(len(v), bool), [n, v])])
+        lines.append(bytes(out))
+    return fli_chunk(15, b"".join(lines))
+
+
+def fli_lc(pixels, y0: int) -> bytes:
+    """An LC (byte delta) chunk setting lines y0.. of (H, W) bytes: per
+    line a literal packet after a skip of 1 and a run of the rest."""
+    pixels = np.asarray(pixels, np.uint8)
+    body = struct.pack("<HH", y0, len(pixels))
+    for row in pixels:
+        half = (len(row) - 1) // 2
+        body += bytes([2, 1, half]) + row[1:1 + half].tobytes() + bytes([0, 256 - (len(row) - 1 - half), row[-1]])
+    return fli_chunk(12, body)
+
+
+def fli_ss2(pixels, skip_first: int = 0) -> bytes:
+    """An SS2 (word delta) chunk of (H, W) bytes, W even: `skip_first`
+    lines skipped by a flag word, then each line as a run of its first word
+    and a literal of the rest."""
+    pixels = np.asarray(pixels, np.uint8)
+    h, w = pixels.shape
+    body = struct.pack("<H", h - skip_first)
+    for y in range(skip_first, h):
+        row = pixels[y]
+        flag = struct.pack("<H", 65536 - skip_first) if y == skip_first and skip_first else b""
+        words = w // 2
+        body += flag + struct.pack("<H", 2) + bytes([0, 255]) + row[:2].tobytes() + \
+            bytes([0, words - 1]) + row[2:].tobytes()
+    return fli_chunk(7, body)
+
+
+def encode_fli(w: int, h: int, chunks, magic: int = 0xAF12, prefix: bytes = b"") -> bytes:
+    """A FLI/FLC of one frame of `chunks` (after a prefix chunk if given)."""
+    frame = b"".join(chunks)
+    frame = struct.pack("<IHH8x", 16 + len(frame), 0xF1FA, len(chunks)) + frame
+    head = bytearray(128)
+    head[4:16] = struct.pack("<HHHHHH", magic, 1, w, h, 8, 3)
+    body = (struct.pack("<IH", 6 + len(prefix), 0xF100) + prefix if prefix else b"") + frame
+    head[0:4] = struct.pack("<I", 128 + len(body))
+    return bytes(head) + body
+
+
+def iptc_record(record: int, dataset: int, value: bytes) -> bytes:
+    """An IPTC dataset: 0x1C, its numbers, a 15-bit or extended length."""
+    if len(value) < 0x8000:
+        return bytes([0x1C, record, dataset]) + struct.pack(">H", len(value)) + value
+    return bytes([0x1C, record, dataset, 0x84]) + struct.pack(">I", len(value)) + value
+
+
+def encode_iptc(data: bytes, w: int, h: int, layers: int = 1, component: int = 0, compression: int = 1,
+                band: int | None = None, chunk: int = 30000) -> bytes:
+    """An IPTC/NAA image: its (3, x) records, then `data` (raw bytes, or a
+    JPEG for compression 5) in (8, 10) records of `chunk` bytes."""
+    out = iptc_record(2, 0, b"\0\4") + iptc_record(3, 60, bytes([layers, component]))
+    out += iptc_record(3, 20, struct.pack(">I", w)) + iptc_record(3, 30, struct.pack(">I", h))
+    out += iptc_record(3, 120, bytes([compression]))
+    if band is not None:
+        out += iptc_record(3, 65, bytes([band + 1]))
+    return out + b"".join(iptc_record(8, 10, data[i:i + chunk]) for i in range(0, len(data), chunk))
+
+
+def encode_pcd(luma, c1, c2, orientation: int = 0) -> bytes:
+    """A Photo CD image pack as Pillow reads it: "PCD_" at 2048, the
+    orientation at 3586, the 768 x 512 base image at 96 * 2048: per two
+    rows of (512, 768) `luma`, a row of (256, 384) `c1` and of `c2`."""
+    head = bytearray(96 * 2048)
+    head[2048:2052] = b"PCD_"
+    head[2048 + 1538] = orientation
+    y = np.asarray(luma, np.uint8).reshape(256, 2 * 768)
+    body = np.concatenate([y, np.asarray(c1, np.uint8), np.asarray(c2, np.uint8)], axis=1)
+    return bytes(head) + body.tobytes()
+
+
+def encode_xbm(bits, name: str = "image") -> bytes:
+    """An XBM of a (H, W) 0/1 array (1 black), bytes least significant
+    bit first."""
+    bits = np.asarray(bits, np.uint8)
+    h, w = bits.shape
+    packed = np.packbits(bits, axis=1, bitorder="little").reshape(-1)
+    hexes = np.frombuffer(b"".join(b"0x%02x," % v for v in range(256)), np.uint8).reshape(256, 5)
+    body = hexes[packed]
+    text = np.concatenate([body, np.full((len(packed), 1), ord(" "), np.uint8)], 1).tobytes()
+    return (f"#define {name}_width {w}\n#define {name}_height {h}\nstatic char {name}_bits[] = {{\n".encode() +
+            text + b"\n};\n")
+
+
+def raster_maps():
+    """The 64 x 64 maps the raster fixtures hold (textured_obj's ground
+    colour, ground specular, leaf colour, leaf cut-out and pillar metallic
+    stand-ins), from a fixed seed."""
+    rng = np.random.default_rng(22)
+    yy, xx = np.mgrid[0:64, 0:64]
+    checker = (xx // 8 + yy // 8) % 2
+    ground = (np.stack([70 + 130 * checker, 60 + 100 * checker, 50 + 70 * checker], -1)
+              + (rng.integers(0, 7, (64, 64, 3)) * (yy % 9 == 0)[..., None])).astype(np.uint8)
+    gloss = np.clip(yy * 4 + xx // 4, 11, 250).astype(np.uint8)
+    gloss[20:28] = 90                                  # runs for the RLE
+    leaf = np.stack([40 + xx, 140 + yy // 2, 60 + (xx // 16) * 20, np.full((64, 64), 255)], -1).astype(np.uint8)
+    leaf[24:40, 24:40] = (200, 220, 90, 255)                 # runs and index ops
+    cut = (disc_pattern(64) != 0).astype(np.uint8)
+    metal = np.clip(np.mgrid[0:48, 0:48][1] * 5, 0, 255).astype(np.uint8)
+    metal[:, 20:28] = 210
+    return ground, gloss, leaf, cut, metal
+
+
+def write_raster_fixtures(out: Path) -> None:
+    """The plain raster formats, each written by the encoders above: the
+    PCX ground colour, the RLE SGI specular, the QOI leaf colour, the XBM
+    cut-out (a bit set where the leaf is cut away) and the FITS metallic
+    map stand in for textured_obj's maps (chip_smoke phase 38); the others
+    hold a layout each (Sun RLE with a colour map, XPM, an IM with a
+    colour Lut, MSP version 2 rows, an FLC BRUN frame)."""
+    ground, gloss, leaf, cut, metal = raster_maps()
+    lines = np.concatenate([ground[..., k] for k in range(3)], axis=1)
+    (out / "pcx_ground.pcx").write_bytes(encode_pcx(lines, 64, 64, 8, 3))
+    (out / "sgi_gloss.sgi").write_bytes(encode_sgi(gloss[None], rle=True, copy=True))
+    (out / "qoi_leaf.qoi").write_bytes(encode_qoi(leaf))
+    (out / "xbm_leaf.xbm").write_bytes(encode_xbm(1 - cut, "leaf"))
+    (out / "fits_metal.fits").write_bytes(encode_fits(metal, 8))
+    rng = np.random.default_rng(221)
+    idx = (ground[..., 0] // 40).astype(np.uint8)
+    cmap = rng.integers(0, 256, 3 * 8, np.uint8).tobytes()
+    (out / "sun_rle.ras").write_bytes(encode_sun(idx, 64, 64, 8, rle=True, colormap=cmap))
+    (out / "xpm_leaf.xpm").write_bytes(encode_xpm(idx, rng.integers(0, 256, (8, 3))))
+    lut = rng.integers(0, 256, 768, np.uint8).tobytes()
+    (out / "im_lut.im").write_bytes(encode_im("Greyscale image", 64, 64, idx[::-1].tobytes(), lut))
+    (out / "msp_rows.msp").write_bytes(encode_msp(1 - cut))
+    pal = rng.integers(0, 256, (256, 3))
+    (out / "fli_brun.flc").write_bytes(encode_fli(64, 64, [fli_colour([(0, pal)]), fli_brun(gloss, literal=3)]))

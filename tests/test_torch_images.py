@@ -1551,18 +1551,28 @@ def test_old_style_jpeg_tiff_matches_jax(tmp_path, case):
     _same_or_both_raise(tmp_path, f"{case}.tif", _old_jpeg_cases()[case])
 
 
-def test_old_style_jpeg_tile_columns_diverge_from_jax(tmp_path):
-    """Old-style JPEG tiles in more than one column: libtiff reads them as
-    one stream of tile-wide strips whose frame holds only a column's
-    height, so the tiles past it repeat the last decoded rows; Pillow
-    returns that image, and the port raises (ROADMAP queue C)."""
+def test_old_style_jpeg_tile_columns_matches_jax(tmp_path):
+    """Old-style JPEG tiles in more than one column (two and three
+    columns, a partial last column; YCbCr 2x2 in the table and the
+    interchange layouts, and grey): libtiff reads them as one stream of
+    tile-wide strips whose frame (in the table layout) holds only a
+    column's height, so past it libjpeg reads nothing and the tiles repeat
+    the last decoded iMCU row (raw YCbCr) or keep the last tile's rows
+    (grey); Pillow returns that image, and so does the port (ROADMAP
+    queue C, repaired)."""
     rng = np.random.default_rng(1022)
-    planes = [smooth_image(rng, 32, 32, 1)[..., 0] for _ in range(3)]
-    p = tmp_path / "columns.tif"
-    p.write_bytes(make_ojpeg_tiff(planes, [(2, 2), (1, 1), (1, 1)], layout="tables", tile=(16, 16)))
-    assert jol.load_texture_file(str(p), False).shape == (32, 32, 3)
-    with pytest.raises(ValueError, match="more than one column of tiles"):
-        tol.load_texture_file(str(p), False)
+    planes = [smooth_image(rng, 32, 48, 1)[..., 0] for _ in range(3)]
+    f22 = [(2, 2), (1, 1), (1, 1)]
+    files = {"columns": make_ojpeg_tiff([x[:, :32] for x in planes], f22, layout="tables", tile=(16, 16)),
+             "three-columns": make_ojpeg_tiff(planes, f22, layout="tables", tile=(16, 16)),
+             "partial-column": make_ojpeg_tiff([x[:, :40] for x in planes], f22, layout="tables", tile=(16, 16)),
+             "tall-tiles": make_ojpeg_tiff(planes, f22, layout="tables", tile=(16, 32)),
+             "interchange": make_ojpeg_tiff(planes, f22, tile=(16, 16)),
+             "grey": make_ojpeg_tiff(planes[:1], [(1, 1)], layout="tables", photometric=1, tile=(16, 16))}
+    for name, data in files.items():
+        p = tmp_path / f"{name}.tif"
+        p.write_bytes(data)
+        _same_as_jax(p)
 
 
 @functools.lru_cache(maxsize=None)     # one build for all its cases
@@ -1684,7 +1694,8 @@ def test_sniff_takes_pillows_first_opener(tmp_path):
     """Bytes two openers accept go to the one Image.open tries first: an
     ICO whose header is also a valid TGA header (ICO comes before TGA,
     which has no test of its own) opens as ICO in both; a TGA whose first
-    bytes look like a cursor with no entries falls through CUR to TGA."""
+    bytes look like a cursor with no entries falls through CUR to TGA; a
+    TGA whose first bytes read as a PCX header stops at PCX."""
     rng = np.random.default_rng(395)
     pix = rng.integers(0, 256, (8, 8, 4))
     blob = icon_dib(pix, 32)
@@ -1697,6 +1708,15 @@ def test_sniff_takes_pillows_first_opener(tmp_path):
     _same_as_jax(p)
     tga = make_tga(rng.integers(0, 256, (5, 6, 3)), 2, 24)
     assert tga.startswith(b"\0\0\2\0") and image_decode.sniff(tga) == "TGA" == Image.open(io.BytesIO(tga)).format
+    # A TGA with a 10-byte ID and no colour map starts 0x0A 0x00: PCX (the
+    # 11th opener) takes it before TGA (the 38th), finds no PCX mode and
+    # raises OSError, which ends Image.open; the port raises too.
+    tga = make_tga(rng.integers(0, 256, (5, 6, 3)), 2, 24, idfield=b"0123456789")
+    assert tga[:2] == b"\x0a\x00" and image_decode._is_tga(tga) and image_decode.sniff(tga) == "PCX"
+    with pytest.raises(OSError, match="PCX"):
+        Image.open(io.BytesIO(tga))
+    with pytest.raises(ValueError, match="PCX mode"):
+        image_decode.decode_image(tga)
 
 
 BOTH_RAISE = {

@@ -494,9 +494,11 @@ def test_port_needs_no_pillow():
     imports, textured_obj writes and loads its PNGs and compiles, and
     load_texture_file reads a committed JPEG, the TGA, GIF, PSD, TIFF
     (LZW, Deflate, JPEG, CCITT Group 4, ZSTD, LZMA, Lab, old-style JPEG and
-    LZW), YCCK JPEG, WebP (lossy with alpha, lossless), ICO, CUR, DIB and
-    ICNS fixtures (tests/data/images) through the native decoder, and a
-    float RGB TIFF sky; nothing imported PIL.
+    LZW), YCCK JPEG, WebP (lossy with alpha, lossless), ICO, CUR, DIB,
+    ICNS, PCX, SGI, QOI, XBM, FITS, Sun raster, XPM, IM, MSP and FLC
+    fixtures (tests/data/images) through the native decoder (raster_decode.cpp
+    among its sources), a float RGB TIFF and a float FITS sky, and QOI and
+    Photo CD files the tests' NumPy encoders write; nothing imported PIL.
     No source file of the port, nor chip_smoke.py, imports jax, PIL or
     imageio."""
     code = textwrap.dedent("""
@@ -522,13 +524,18 @@ def test_port_needs_no_pillow():
                             ("lzma_metal.tif", (64, 64, 4)), ("lab_leaf.tif", (64, 64, 4)),
                             ("ojpeg_ground.tif", (64, 64, 3)), ("lzw_old_gloss.tif", (64, 64, 4)),
                             ("icon_leaf.ico", (64, 64, 4)), ("cursor.cur", (32, 32, 3)),
-                            ("bitmap.dib", (19, 26, 4)), ("icns_metal.icns", (128, 128, 4))):
+                            ("bitmap.dib", (19, 26, 4)), ("icns_metal.icns", (128, 128, 4)),
+                            ("pcx_ground.pcx", (64, 64, 3)), ("sgi_gloss.sgi", (64, 64, 4)),
+                            ("qoi_leaf.qoi", (64, 64, 4)), ("xbm_leaf.xbm", (64, 64, 4)),
+                            ("fits_metal.fits", (48, 48, 4)), ("sun_rle.ras", (64, 64, 4)),
+                            ("xpm_leaf.xpm", (64, 64, 4)), ("im_lut.im", (64, 64, 4)),
+                            ("msp_rows.msp", (64, 64, 4)), ("fli_brun.flc", (64, 64, 4))):
             tex = load_texture_file("tests/data/images/" + name)
             assert tex.shape == shape and 0.0 <= tex.min() and tex.max() <= 1.0, name
         import os, tempfile
         import numpy as np
         sys.path.insert(0, "tests")
-        from _torch_image_helpers import make_tiff
+        from _torch_image_helpers import encode_fits, encode_pcd, encode_qoi, make_tiff
         from realtimeraytracer_torch.scene.obj_loader import load_hdr
         sky = np.linspace(0, 3, 2 * 3 * 3, dtype=np.float32).reshape(2, 3, 3)
         fd, path = tempfile.mkstemp(suffix=".tif")
@@ -536,6 +543,16 @@ def test_port_needs_no_pillow():
         os.close(fd)
         assert np.array_equal(load_hdr(path, tone_encode=False), sky[::-1])
         os.unlink(path)
+        fd, path = tempfile.mkstemp(suffix=".fits")
+        os.write(fd, encode_fits(sky[..., 0], -32))
+        os.close(fd)
+        assert np.array_equal(load_hdr(path, tone_encode=False), np.repeat(sky[::-1, :, :1], 3, 2))
+        os.unlink(path)
+        from realtimeraytracer_torch.utils.image_decode import decode_image
+        rgba = (np.arange(5 * 7 * 4) % 251).astype(np.uint8).reshape(5, 7, 4)
+        assert np.array_equal(decode_image(encode_qoi(rgba))[0], rgba)
+        grey = np.zeros((512, 768), np.uint8)
+        assert decode_image(encode_pcd(grey, grey[::2, ::2], grey[::2, ::2], 1))[0].shape == (768, 512, 3)
         assert not any(k.split(".")[0] in ("PIL", "imageio") for k in sys.modules)
         assert not any(k == "jax" or k.startswith("realtimeraytracer_tpu") for k in sys.modules)
         print("ok")
