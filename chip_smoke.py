@@ -1129,6 +1129,37 @@ def phase38_host_decodes() -> dict:
             require(got_mode == mode, f"[38] {key}: mode {got_mode}, expected {mode}")
             require(np.array_equal(px[..., :want.shape[2]], want), f"[38] the {key} file decodes wrong")
             new_files[key] = (data, mode)
+        # A12's group 3, 1024^2: DDS (BC1, BC3, BC4, BC5, BC6H, BC7, 32-bit
+        # channel masks, a palette), BLP (BLP1 palette, BLP2 DXT1 and DXT5) and
+        # FTEX DXT1 files, each a committed fixture's blocks (or pixels,
+        # indices) tiled 16 x 16 and checked against the fixture's decode tiled
+        # (blocks decode alone); a BLP1 wrapping smooth1024.jpg against the
+        # JPEG's decode with R and B swapped.
+        t_enc_tex = time.perf_counter()
+        texture_tiles = {"dds_bc1_1024": ("dds_dxt1.dds", (4, 4, 8)), "dds_bc3_1024": ("dds_dxt5.dds", (4, 4, 16)),
+                         "dds_bc4_1024": ("bc4_gloss.dds", (4, 4, 8)), "dds_bc5_1024": ("dds_bc5.dds", (4, 4, 16)),
+                         "dds_bc6h_1024": ("dds_bc6h.dds", (4, 4, 16)), "dds_bc7_1024": ("bc7_ground.dds", (4, 4, 16)),
+                         "dds_masked_rgba_1024": ("dds_rgba_masked.dds", (1, 1, 4)),
+                         "dds_palette_1024": ("dds_palette.dds", (1, 1, 1)),
+                         "blp1_palette_1024": ("blp1_palette.blp", (1, 1, 1)),
+                         "blp2_dxt1_1024": ("blp2_dxt1.blp", (4, 4, 8)),
+                         "blp2_dxt5_1024": ("blp2_dxt5_leaf.blp", (4, 4, 16)),
+                         "ftex_dxt1_1024": ("ftex_dxt1_leaf.ftc", (4, 4, 8))}
+        tiled = {k: (enc.tile_texture((fx / name).read_bytes(), 16, unit), name) for k, (name, unit) in
+                 texture_tiles.items()}
+        blp_jpeg = enc.make_blp1(1024, 1024, jpeg=jpeg)
+        t_enc += time.perf_counter() - t_enc_tex
+        for key, (data, name) in tiled.items():
+            ref, ref_mode = image_decode.decode_image((fx / name).read_bytes())
+            px, got_mode = image_decode.decode_image(data)
+            require(got_mode == ref_mode and px.shape[:2] == (ref.shape[0] * 16, ref.shape[1] * 16),
+                    f"[38] {key}: {px.shape} {got_mode}")
+            require(np.array_equal(px, np.tile(ref, (16, 16, 1))), f"[38] the {key} file decodes wrong")
+            new_files[key] = (data, got_mode)
+        px, got_mode = image_decode.decode_image(blp_jpeg)
+        require(got_mode == "RGB" and np.array_equal(px, image_decode.decode_image(jpeg)[0][..., ::-1]),
+                "[38] the 1024^2 BLP1 JPEG decodes wrong")
+        new_files["blp1_jpeg_1024"] = (blp_jpeg, "RGB")
         times = {"jpeg_1024_native": med3(lambda: image_decode.decode_image(jpeg)),
                  "png_paeth_2048_native": med3(lambda: image_decode.decode_image(paeth)),
                  "png_paeth_256_native": med3(lambda: image_decode.decode_image(crop)),
@@ -1156,7 +1187,9 @@ def image_decoders(*, rt, torch, card: str, W: int, H: int, zero_counts, read_co
     TIFF map, and by an old-style JPEG colour, an old-style LZW specular,
     an ICO cut-out and an ICNS metallic map under a float RGB TIFF sky,
     and by a PCX colour, an RLE SGI specular, a QOI leaf colour, an XBM
-    cut-out and a FITS metallic map, each against the same frame textured
+    cut-out and a FITS metallic map, and by a BC7 DDS colour, a BC4 DDS
+    specular, a BLP2 DXT5 leaf colour, an FTEX DXT1 cut-out and a BLP1 JPEG
+    metallic map, each against the same frame textured
     by PNGs of their pixels (under the sky's array); the C1 frame (a 0/1 opacity map against an all-zero
     one); the fixture digests and host decode times in a child process."""
     import hashlib
@@ -1201,6 +1234,12 @@ def image_decoders(*, rt, torch, card: str, W: int, H: int, zero_counts, read_co
         # leaf colour, an XBM cut-out and a FITS metallic map.
         raster_roles = {"ground_kd.png": "pcx_ground.pcx", "ground_ks.png": "sgi_gloss.sgi",
                         "leaf_kd.png": "qoi_leaf.qoi", "leaf_d.png": "xbm_leaf.xbm", "pillar_pm.png": "fits_metal.fits"}
+        # A12's GPU texture containers: a BC7 DDS colour, a BC4 DDS specular, a
+        # BLP2 DXT5 leaf colour, an FTEX DXT1 cut-out and a BLP1 JPEG metallic
+        # map.
+        texture_roles = {"ground_kd.png": "bc7_ground.dds", "ground_ks.png": "bc4_gloss.dds",
+                         "leaf_kd.png": "blp2_dxt5_leaf.blp", "leaf_d.png": "ftex_dxt1_leaf.ftc",
+                         "pillar_pm.png": "blp1_jpeg_metal.blp"}
         disc = enc.disc_pattern(64)
         cfg = rt.RenderConfig(width=W, height=H, primary_rays=4, shadow_rays=3, denoise_iterations=4)
         frames = {}
@@ -1235,6 +1274,7 @@ def image_decoders(*, rt, torch, card: str, W: int, H: int, zero_counts, read_co
             codec_bytes = {m: (f, (fx / f).read_bytes()) for m, f in codec_roles.items()}
             a12_bytes = {m: (f, (fx / f).read_bytes()) for m, f in a12_roles.items()}
             raster_bytes = {m: (f, (fx / f).read_bytes()) for m, f in raster_roles.items()}
+            texture_bytes = {m: (f, (fx / f).read_bytes()) for m, f in texture_roles.items()}
             # The sky as a float RGB TIFF (LZW, predictor 3) through load_hdr,
             # against the same samples handed to the scene.
             sky = make_sky_gradient(64, 128)
@@ -1263,6 +1303,8 @@ def image_decoders(*, rt, torch, card: str, W: int, H: int, zero_counts, read_co
                 "their PNG maps, the sky's array": variant("a12_png", twins(a12_bytes), sky_direct),
                 "PCX/SGI/QOI/XBM/FITS maps": variant("raster", raster_bytes),
                 "the raster maps' PNG twins": variant("raster_png", twins(raster_bytes)),
+                "DDS/BLP/FTEX maps": variant("textures", texture_bytes),
+                "the texture maps' PNG twins": variant("textures_png", twins(texture_bytes)),
                 # C1: 0/1 texels read 0 and 1/255 (stbi_load), below alpha_threshold
                 # like 0; the JAX package's rule kept them 0 and 1.0, opaque leaves.
                 "C1 0/1 opacity PGM": variant("c1", {"leaf_d.png": (
@@ -1303,6 +1345,9 @@ def image_decoders(*, rt, torch, card: str, W: int, H: int, zero_counts, read_co
                             "TIFF sky"),
                            ("PCX/SGI/QOI/XBM/FITS maps", "the raster maps' PNG twins",
                             "PCX colour, SGI specular, QOI leaf colour, XBM cut-out, FITS metallic"),
+                           ("DDS/BLP/FTEX maps", "the texture maps' PNG twins",
+                            "BC7 DDS colour, BC4 DDS specular, BLP2 DXT5 leaf colour, FTEX DXT1 cut-out, BLP1 JPEG "
+                            "metallic"),
                            ("C1 0/1 opacity PGM", "all-zero opacity PGM", "C1 (0/1 opacity)")):
             ha, hb = frames[a]["sha256"], frames[b]["sha256"]
             require(ha == hb, f"[38] the {what} frame differs from its twin: {ha[:16]} against {hb[:16]}")
@@ -1315,7 +1360,8 @@ def image_decoders(*, rt, torch, card: str, W: int, H: int, zero_counts, read_co
             f"and the frame with an old-style JPEG colour, an old-style LZW specular, an ICO cut-out, an ICNS "
             f"metallic map and a float RGB TIFF sky (load_hdr) "
             f"and the frame with a PCX colour, an SGI specular, a QOI leaf colour, an XBM cut-out and a FITS "
-            f"metallic map are each hash-equal to the "
+            f"metallic map and the frame with a BC7 DDS colour, a BC4 DDS specular, a BLP2 DXT5 leaf colour, an FTEX "
+            f"DXT1 cut-out and a BLP1 JPEG metallic map are each hash-equal to the "
             f"frame with PNG maps of the same pixels; the C1 frame (0/1 opacity PGM) is hash-equal to the "
             f"all-zero one; "
             + json.dumps(frames))

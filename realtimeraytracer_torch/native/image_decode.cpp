@@ -1688,11 +1688,18 @@ struct Jpeg {
     return out;
   }
 
-  Image decode() {
+  // How decode() hands over four components: converted to RGBA as
+  // Pillow's convert does (Pillow's own reading), the same from samples
+  // read as CMYK whatever the Adobe transform says (BlpImagePlugin's
+  // jpegmode "CMYK": a YCCK file's Y, Cb, Cr kept), or as the "CMYK" bytes
+  // Pillow stores (inverted, not converted).
+  enum class Four { Rgba, ForcedCmyk, Stored };
+
+  Image decode(Four four = Four::Rgba) {
     read_stream(false);
     const int nc = int(comps.size());
     if (nc == 2) fail("JPEG with 2 components is not supported");
-    std::vector<uint8_t> px = samples(Colour::FromMarkers);
+    std::vector<uint8_t> px = samples(nc == 4 && four == Four::ForcedCmyk ? Colour::None : Colour::FromMarkers);
     Image img;
     if (nc != 4) {
       img.alloc(width, height, nc, nc == 1 ? "L" : "RGB");
@@ -1702,8 +1709,12 @@ struct Jpeg {
     // Pillow reads every CMYK JPEG with rawmode "CMYK;I" (Adobe's inverted
     // samples), then convert("RGBA").
     img.alloc(width, height, 4, "CMYK");
-    for (size_t i = 0; i < img.px.size(); i += 4)
-      cmyk_to_rgba(255 - px[i], 255 - px[i + 1], 255 - px[i + 2], 255 - px[i + 3], img.px.data() + i);
+    for (size_t i = 0; i < img.px.size(); i += 4) {
+      if (four == Four::Stored)
+        for (int k = 0; k < 4; ++k) img.px[i + size_t(k)] = uint8_t(255 - px[i + size_t(k)]);
+      else
+        cmyk_to_rgba(255 - px[i], 255 - px[i + 1], 255 - px[i + 2], 255 - px[i + 3], img.px.data() + i);
+    }
     return img;
   }
 };
@@ -4794,8 +4805,10 @@ void write_error(char* err, int64_t errlen, const char* msg) {
 
 extern "C" {
 
-// format: 1 JPEG, 2 BMP, 3 TGA, 4 GIF, 5 PNM, 6 PSD, 7 WebP, 8 DIB.  Returns a handle, or
-// NULL with the reason in err.
+// format: 1 JPEG, 2 BMP, 3 TGA, 4 GIF, 5 PNM, 6 PSD, 7 WebP, 8 DIB; 9 a JPEG as BLP
+// reads it (four components taken for CMYK), 10 a JPEG whose CMYK comes
+// back as Pillow stores it.  Returns a handle, or NULL with the reason in
+// err.
 void* imgd_decode(const uint8_t* data, int64_t n, int32_t format, char* err, int64_t errlen) {
   try {
     Bytes in{data, size_t(n < 0 ? 0 : n)};
@@ -4808,6 +4821,8 @@ void* imgd_decode(const uint8_t* data, int64_t n, int32_t format, char* err, int
       case 6: return finish(psd(in));
       case 7: return finish(webp_image(in));
       case 8: return finish(bitmap(in, 0, 0, false, false));  // DIB
+      case 9: return finish(Jpeg(in).decode(Jpeg::Four::ForcedCmyk));
+      case 10: return finish(Jpeg(in).decode(Jpeg::Four::Stored));
       default: fail("unknown image format code " + std::to_string(format));
     }
   } catch (const std::exception& e) {

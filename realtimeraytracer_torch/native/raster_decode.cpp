@@ -87,7 +87,7 @@ int raw_bits(const std::string& mode, const std::string& raw) {
   }
   static const struct { const char *mode, *raw; int bits; } kRaw[] = {
       {"1", "1", 1}, {"1", "1;I", 1}, {"1", "1;R", 1}, {"L", "L;4", 4}, {"L", "L;16B", 16},
-      {"P", "P;2", 2}, {"P", "P;4", 4}, {"P", "P;2L", 2}, {"P", "P;4L", 4}, {"LA", "LA;L", 16}, {"PA", "PA;L", 16},
+      {"P", "P;2", 2}, {"P", "P;4", 4}, {"P", "P;2L", 2}, {"P", "P;4L", 4}, {"LA", "LA", 16}, {"LA", "LA;L", 16}, {"PA", "PA;L", 16},
       {"RGB", "BGR", 24}, {"RGB", "RGBX", 32}, {"RGB", "BGRX", 32}, {"RGB", "RGB;L", 24}, {"RGB", "RGBX;L", 32},
       {"RGB", "RGB;16B", 48}, {"RGBA", "RGBA", 32}, {"RGBA", "RGBA;L", 32}, {"RGBA", "RGBA;16B", 64},
       {"CMYK", "CMYK", 32}, {"CMYK", "CMYK;L", 32}, {"YCbCr", "YCbCr;L", 24},

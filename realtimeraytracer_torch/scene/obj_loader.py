@@ -24,6 +24,7 @@ import numpy as np
 
 from realtimeraytracer_torch.scene.geometry import TriangleMesh, compute_vertex_normals
 from realtimeraytracer_torch.scene.materials import Material
+from realtimeraytracer_torch.utils import image_decode
 from realtimeraytracer_torch.utils.image_decode import decode_float_samples, decode_image, sniff
 
 log = logging.getLogger(__name__)
@@ -296,6 +297,52 @@ def _icns_array(path: str, px: np.ndarray, mode: str) -> np.ndarray:
     return rgbx.reshape(-1)[:h * w * 3].reshape(h, w, 3)
 
 
+def _rgba(px: np.ndarray) -> np.ndarray:
+    """(H, W, C) uint8 grey (C = 1), grey and alpha (2), RGB (3) or RGBA
+    (4) as Pillow's convert("RGBA") gives it: grey repeated, alpha 255
+    where there is none."""
+    if px.shape[2] == 4:
+        return px
+    alpha = px[..., 1:] if px.shape[2] == 2 else np.full(px.shape[:2] + (1,), 255, np.uint8)
+    return np.concatenate([px if px.shape[2] == 3 else np.repeat(px[..., :1], 3, axis=2), alpha], axis=2)
+
+
+def _iptc_array(data: bytes, grayscale: bool) -> np.ndarray:
+    """An IPTC image as the JAX package's ``np.asarray`` of its converted
+    image gives it.  Pillow labels the image by the records (mode, size)
+    but holds the one its data decodes to (``image_decode.iptc_image``):
+    - records of one grey layer ("L"): convert("L") copies the held image,
+      so a colour one keeps its channels (CMYK its stored bytes), and
+      convert("RGBA") converts it by its own mode;
+    - a layer of an RGB image: unconverted, the held RGB bytes (at the
+      data's size) shaped by the records' size (zeros past them, where
+      Pillow reads past its buffer); convert("L") converts it at the
+      data's own size;
+    - a layer of a CMYK image: both converts at the data's size."""
+    held = image_decode.iptc_image(data)
+    px = held.px
+    if held.mode == "L":
+        if held.inner == "CMYK" and grayscale:
+            px = image_decode.iptc_image(data, stored_cmyk=True).px
+            if px.shape[2] != 4:
+                raise ValueError("IPTC grey records over a CMYK image that is not a JPEG (not read)")
+            return px
+        if held.inner not in ("1", "L", "LA", "RGB", "RGBA", "CMYK", "P"):
+            raise ValueError(f"IPTC grey records over a {held.inner} image (not read)")
+        if grayscale:
+            if held.inner == "P":        # the copy's indices, which the decode does not keep
+                raise ValueError("IPTC grey records over a palette image read as grey (not read)")
+            return px[..., 0] // 255 if held.inner == "1" else px if px.shape[2] > 1 else px[..., 0]
+        return _rgba(px)
+    if grayscale:
+        return _grey(px)
+    if held.mode != "RGB":
+        return px
+    need = held.w * held.h * 3
+    flat = px.reshape(-1)[:need]
+    return np.concatenate([flat, np.zeros(need - flat.size, np.uint8)]).reshape(held.h, held.w, 3)
+
+
 def load_texture_file(path: str, grayscale: bool = False) -> np.ndarray:
     """Decode an image file to float32 [0,1] (H, W, C), vertically flipped
     to match the reference's stbi_set_flip_vertically_on_load usage
@@ -305,10 +352,11 @@ def load_texture_file(path: str, grayscale: bool = False) -> np.ndarray:
     CUR, ICNS, GIF (its first frame), PNM (P1-P6, Pf), PSD (its composite
     image), TIFF (its first image), WebP (an animation's first frame),
     PCX, DCX, QOI, SGI, Sun raster, MSP, XBM, XPM, IM, SPIDER, FITS,
-    FLI/FLC (the first frame), GBR, IM Tools, IPTC, McIdas, Photo CD (its
-    base image), PIXAR and XV thumbnails, as utils/image_decode.py lists
-    them; the rest (DDS, BLP, FTEX, JPEG 2000, AVIF, and what Pillow cannot
-    load either) raise ValueError.  As in the JAX package, RGB and RGBA
+    FLI/FLC (the first frame), GBR, IM Tools, IPTC (as Pillow mislabels
+    some: ``_iptc_array``), McIdas, Photo CD (its base image), PIXAR and XV
+    thumbnails, DDS (masked RGB(A), L, LA, P, BC1-BC7), FTEX and BLP, as
+    utils/image_decode.py lists them; the rest (JPEG 2000, AVIF, and what
+    Pillow cannot load either) raise ValueError.  As in the JAX package, RGB and RGBA
     files keep their channels and any other file loads as RGBA (palettes
     expanded, grey with alpha 1 or its own, Lab through littleCMS's sRGB
     conversion, YCbCr through Pillow's tables) unless grayscale is set (a
@@ -321,18 +369,21 @@ def load_texture_file(path: str, grayscale: bool = False) -> np.ndarray:
     there)."""
     with open(path, "rb") as f:
         data = f.read()
-    px, mode = decode_image(data)
-    if mode == "YCbCr":  # convert("L") keeps the Y band (the decoder's fourth channel), convert("RGBA") converts
-        px = px[..., 3] if grayscale else np.concatenate([px[..., :3], np.full(px.shape[:2] + (1,), 255, np.uint8)], 2)
-    elif grayscale:
-        if mode == "LAB":    # Pillow's convert("L") has no Lab conversion
-            raise ValueError(f"{path}: a Lab image does not convert to grey")
-        px = _grey(px)
-    elif sniff(data) == "ICNS":
-        px = _icns_array(path, px, mode)
-    elif px.shape[2] <= 2:
-        alpha = px[..., 1:] if px.shape[2] == 2 else np.full(px.shape[:2] + (1,), 255, np.uint8)
-        px = np.concatenate([np.repeat(px[..., :1], 3, axis=2), alpha], axis=2)
+    kind = sniff(data)
+    if kind == "IPTC":
+        px = _iptc_array(data, grayscale)
+    else:
+        px, mode = decode_image(data)
+        if mode == "YCbCr":  # convert("L") keeps the Y band (the decoder's fourth channel), convert("RGBA") converts
+            px = px[..., 3] if grayscale else _rgba(px[..., :3])
+        elif grayscale:
+            if mode == "LAB":    # Pillow's convert("L") has no Lab conversion
+                raise ValueError(f"{path}: a Lab image does not convert to grey")
+            px = _grey(px)
+        elif kind == "ICNS":
+            px = _icns_array(path, px, mode)
+        elif px.shape[2] <= 2:
+            px = _rgba(px)
     arr = px.astype(np.float32) / 255.0
     arr = arr[::-1]  # vertical flip
     if arr.ndim == 2:

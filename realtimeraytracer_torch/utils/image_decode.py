@@ -6,9 +6,10 @@ skies with imageio; the reference C++ with stb_image (file.cppm:276-291).
 The GPU machine has neither Pillow nor imageio, and a Huffman decode in
 Python would take seconds a megapixel, so the port decodes in C++:
 ``realtimeraytracer_torch/native/image_decode.cpp`` and, for WebP, TIFF's
-CCITT, TIFF's ZSTD and the plain raster formats, ``native/webp_decode.cpp``,
-``fax_decode.cpp``, ``zstd_decode.cpp`` and ``raster_decode.cpp``, one
-library bound here with ctypes.
+CCITT, TIFF's ZSTD, the plain raster formats and the GPU textures' blocks,
+``native/webp_decode.cpp``, ``fax_decode.cpp``, ``zstd_decode.cpp``,
+``raster_decode.cpp`` and ``bcn_decode.cpp``, one library bound here with
+ctypes.
 
 ``decode_image(data)`` identifies a file by its content, as ``Image.open``
 does (``sniff``: Pillow's 43 openers in its order, each with its test of
@@ -52,7 +53,15 @@ maps), MSP (versions 1 and 2), XBM, XPM (up to 256 colours "P", more
 RGB, bit depths, signed and float types, YCbCr), SPIDER, FITS (BITPIX 8,
 16, 32, -32, -64; GZIP_1 tiles), FLI/FLC (the first frame), GBR, IM Tools,
 IPTC (raw or JPEG data, through this module again), McIdas, Photo CD (the
-768 x 512 base image), PIXAR and XV thumbnails.  For PNG, TIFF's Deflate
+768 x 512 base image), PIXAR and XV thumbnails.  The GPU texture
+containers, their headers read here (``_dds_open``, ``_blp_open``,
+``_ftex_open``) and their blocks in ``bcn_decode.cpp``: DDS (masked 8- to
+32-bit RGB(A), L, LA, P, R8G8B8A8, and BC1-BC7 through Pillow's "bcn"
+decoder: DXT1/3/5, BC4, BC5 unsigned and signed, BC6H UF16 and SF16 as
+Pillow's bytes, BC7; the top mip level of the first surface), FTEX (DXT1,
+raw RGB) and BLP (BLP1 JPEG, read as BGR, and palette; BLP2 palette and
+DXT1/3/5 through BlpImagePlugin's own Python DXT decoder, which rounds
+otherwise).  For PNG, TIFF's Deflate
 and FITS's GZIP_1 this module inflates with ``zlib`` (``gzip``), and
 TIFF's LZMA it decodes with liblzma (the library under Python's ``lzma``,
 driven as libtiff drives it): the library calls ``_decompress`` back for
@@ -69,7 +78,7 @@ convert("L") does; a YCbCr IM comes back converted, its Y band fourth.
 float32 samples, as a sky's linear radiance.
 
 Malformed input and formats not ported (16-bit PSD, the openers of
-ROADMAP's A12 still to port: DDS, BLP, FTEX, JPEG 2000, AVIF; and, as
+ROADMAP's A12 still to port: JPEG 2000 and AVIF; and, as
 Pillow refuses them or cannot load them here, EPS, WMF, the BUFR/GRIB/HDF5
 stubs, MPEG, TIFF compressed by SGILog or WebP, TIFF photometrics 9 and
 10, 12-bit, hierarchical and arithmetic-coded lossless JPEG, a JPEG
@@ -81,12 +90,13 @@ Pillow.
 
 The library is built at first use with ``$CXX`` (default g++) into the
 kernels' build directory (``kernels.BUILD_DIR``), under a name that hashes
-the five sources, the flags and the compiler's ``--version``; a file lock
+the six sources, the flags and the compiler's ``--version``; a file lock
 keeps concurrent processes to one build.  Loading it also loads liblzma;
 without it the call raises.  No ``-march=native``: the decode is
 integer arithmetic, but for the Lab nodes (double arithmetic and libm's
-``pow``, as littleCMS computes them) and the YCC tables, and gives the
-same bytes on every host.  Without a compiler, or if the build or the
+``pow``, as littleCMS computes them), the YCC tables, DDS's channel masks
+(double, as Pillow's Python) and BC6H's halves (float, as Pillow's C), and
+gives the same bytes on every host.  Without a compiler, or if the build or the
 load fails, the call raises.
 """
 
@@ -119,13 +129,16 @@ from realtimeraytracer_torch.utils.png import SIGNATURE as PNG_SIGNATURE
 
 SOURCES = tuple(Path(__file__).resolve().parents[1] / "native" / name
                 for name in ("image_decode.cpp", "webp_decode.cpp", "fax_decode.cpp", "zstd_decode.cpp",
-                             "raster_decode.cpp"))
+                             "raster_decode.cpp", "bcn_decode.cpp"))
 CXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-Wall", "-shared")
 # Pillow's Image.open raises DecompressionBombError above twice MAX_IMAGE_PIXELS.
 MAX_PIXELS = 2 * 89478485
 
-# The library's format codes (imgd_decode).
+# The library's format codes (imgd_decode): 9 and 10 are JPEG read as BLP
+# reads it (four components taken for CMYK) and with its CMYK as Pillow
+# stores it (inverted, not converted).
 _CODES = {"JPEG": 1, "BMP": 2, "TGA": 3, "GIF": 4, "PNM": 5, "PSD": 6, "WEBP": 7, "DIB": 8}
+JPEG_AS_BLP, JPEG_CMYK_STORED = 9, 10
 # Pillow's TiffImagePlugin.PREFIXES: both byte orders, the "invalid" ones
 # (magic in the other order) and BigTIFF.
 TIFF_PREFIXES = (b"MM\0*", b"II*\0", b"MM*\0", b"II\0*", b"MM\0+", b"II+\0")
@@ -298,6 +311,13 @@ def load_library() -> ctypes.CDLL:
         lib.imgr_floats.restype = c.POINTER(c.c_float)
         lib.imgr_floats.argtypes = [c.c_void_p]
         lib.imgr_free.argtypes = [c.c_void_p]
+        for name, extra in (("imgb_bcn", [c.c_int32, c.c_int32]), ("imgb_blp_dxt", [c.c_int32, c.c_int32])):
+            getattr(lib, name).restype = c.c_int
+            getattr(lib, name).argtypes = [c.c_char_p, c.c_int64, c.c_int64, *extra, c.c_int64, c.c_int64,
+                                           c.c_void_p, *err]
+        lib.imgb_masked.restype = None
+        lib.imgb_masked.argtypes = [c.c_char_p, c.c_int64, c.c_int64, c.c_int64, c.POINTER(c.c_uint32), c.c_int32,
+                                    c.c_int64, c.c_int64, c.c_void_p]
         _lib = lib
         return lib
 
@@ -438,16 +458,16 @@ _OPENERS = (
     ("PNM", lambda d: d[:1] == b"P" and len(d) >= 2 and d[1] in b"0123456fy"),
     ("PNG", lambda d: d.startswith(PNG_SIGNATURE)),
     ("AVIF", lambda d: d[4:8] == b"ftyp" and d[8:12] in (b"avif", b"avis", b"mif1", b"msf1")),
-    ("BLP", lambda d: d.startswith((b"BLP1", b"BLP2"))),
+    ("BLP", lambda d: _opens(_blp_open, d)),
     ("BUFR", lambda d: d.startswith((b"BUFR", b"ZCZC"))),
     ("CUR", lambda d: _icon_opens(d, b"\0\0\2\0")),
     ("PCX", lambda d: _opens(_pcx_open, d)),
     ("DCX", lambda d: _opens(_dcx_open, d)),
-    ("DDS", lambda d: d.startswith(b"DDS ")),
+    ("DDS", lambda d: _opens(_dds_open, d)),
     ("EPS", lambda d: d.startswith(b"%!PS") or _i32(d) == 0xC6D3D0C5),
     ("FITS", lambda d: _opens(_fits_open, d)),
     ("FLI", lambda d: _opens(_fli_open, d)),
-    ("FTEX", lambda d: d.startswith(b"FTEX")),
+    ("FTEX", lambda d: _opens(_ftex_open, d)),
     ("GBR", lambda d: _opens(_gbr_open, d)),
     ("GRIB", lambda d: len(d) >= 8 and d.startswith(b"GRIB") and d[7] == 1),
     ("HDF5", lambda d: d.startswith(b"\x89HDF\r\n\x1a\n")),
@@ -479,7 +499,8 @@ _OPENERS = (
 # here): each maps the file to the tile Pillow's plugin builds.
 _RASTER = ("PCX", "DCX", "FITS", "FLI", "GBR", "IM", "IMT", "MCIDAS", "MSP", "PCD", "PIXAR", "QOI", "SGI", "SPIDER",
            "SUN", "XBM", "XPM", "XVTHUMB")
-READ = ("BMP", "DIB", "GIF", "JPEG", "PNM", "PNG", "CUR", "ICNS", "ICO", "TIFF", "PSD", "TGA", "WEBP", "IPTC") + _RASTER
+READ = ("BMP", "DIB", "GIF", "JPEG", "PNM", "PNG", "CUR", "ICNS", "ICO", "TIFF", "PSD", "TGA", "WEBP", "IPTC", "BLP",
+        "DDS", "FTEX") + _RASTER
 # Openers Pillow finds but cannot load here either (ROADMAP, the opener
 # table): the port names the cause.
 _BOTH_RAISE = {
@@ -1401,10 +1422,26 @@ def _iptc_open(data: bytes):
     return tag, offset, mode, band, compression, w, h
 
 
-def _decode_iptc(lib, data: bytes) -> tuple[np.ndarray, str]:
+class IptcImage(NamedTuple):
+    """An IPTC file as Pillow holds it: the mode and size of its records,
+    and the image its data decodes to (a layer merged into its band, the
+    other bands 0) with that image's pixels (as ``decode_image`` gives
+    them) and mode, at the data's own size."""
+    mode: str
+    w: int
+    h: int
+    px: np.ndarray
+    inner: str
+
+
+def iptc_image(data: bytes, stored_cmyk: bool = False) -> IptcImage:
     """IptcImageFile.load: the image records' data joined (after a P5
-    header of the size for raw data) and read as an image of its own; one
-    layer of a colour image into its band, the others 0."""
+    header of the records' size for raw data) and opened as an image of
+    its own, which Pillow keeps under the records' mode and size; a layer
+    of a colour image merged into its band (Image.merge: the layer must be
+    grey).  `stored_cmyk`: a CMYK JPEG's pixels as Pillow stores them
+    (inverted, not converted to RGBA)."""
+    lib = load_library()
     opened = _iptc_open(data)
     if opened is None:
         raise ValueError("IPTC file that Pillow's opener does not take")
@@ -1421,28 +1458,306 @@ def _decode_iptc(lib, data: bytes) -> tuple[np.ndarray, str]:
             break
         parts.append(data[pos:pos + size])
         pos += len(parts[-1])
-    px, inner = decode_image(b"".join(parts))   # Pillow keeps this image, of its own size
+    stream = b"".join(parts)
+    if stored_cmyk and sniff(stream) == "JPEG":
+        px, inner = _collect(lib, lib.imgd_decode, stream, len(stream), JPEG_CMYK_STORED)
+    else:
+        px, inner = decode_image(stream)
     if band is None:
-        if inner != "L":
-            raise ValueError(f"IPTC grey image holding a {inner} image (not read: ROADMAP queue C)")
-        return px, "L"
+        return IptcImage("L", w, h, px, inner)
     if inner != "L":
         raise ValueError("IPTC image layer that is not grey (Pillow: images do not match)")
     if not -len(mode) <= band < len(mode):
         raise ValueError(f"IPTC image layer {band} of a {mode} image (Pillow raises too)")
-    if mode == "RGB" and px.shape[:2] != (h, w):
-        # Pillow shapes the unconverted RGB image by the records' size.
-        raise ValueError("IPTC RGB layer of another size than its records (not read: ROADMAP queue C)")
     planes = [np.zeros(px.shape[:2], np.uint8) for _ in mode]
     planes[band] = px[..., 0]
     inter = np.ascontiguousarray(np.stack(planes, -1))
-    return _raster_tile(lib, _Tile(RAW, mode, mode, 0, inter.shape[1], inter.shape[0], (0, 1), aux=inter.tobytes()))
+    merged, merged_mode = _raster_tile(lib, _Tile(RAW, mode, mode, 0, inter.shape[1], inter.shape[0], (0, 1),
+                                                  aux=inter.tobytes()))
+    return IptcImage(mode, w, h, merged, merged_mode)
+
+
+def _decode_iptc(data: bytes) -> tuple[np.ndarray, str]:
+    """The image an IPTC file holds, under its records' mode (which may
+    not be that image's: ``obj_loader.load_texture_file`` converts it as
+    Pillow does)."""
+    held = iptc_image(data)
+    return held.px, held.mode
 
 
 _RASTER_OPEN = {"PCX": _pcx_open, "DCX": _dcx_open, "FITS": _fits_open, "FLI": _fli_open, "GBR": _gbr_open,
                 "IM": _im_open, "IMT": _imt_open, "MCIDAS": _mcidas_open, "MSP": _msp_open, "PCD": _pcd_open,
                 "PIXAR": _pixar_open, "QOI": _qoi_open, "SGI": _sgi_open, "SPIDER": _spider_open, "SUN": _sun_open,
                 "XBM": _xbm_open, "XPM": _xpm_open, "XVTHUMB": _xvthumb_open}
+
+
+
+# --------------------------------------------------- GPU texture containers
+#
+# DdsImagePlugin, FtexImagePlugin and BlpImagePlugin: each `_X_open(data)`
+# reads the header as the plugin's _open does, None where Image.open goes
+# on to the next opener (a short header: struct.error; no size: the
+# ImageFile check) and ValueError where it stops (OSError,
+# NotImplementedError, AssertionError, ValueError there).  The pixels come
+# from bcn_decode.cpp (blocks, DDS's channel masks, BLP's own DXT) or from
+# raster_decode.cpp's raw tiles.
+
+_DDPF_ALPHAPIXELS, _DDPF_FOURCC, _DDPF_PALETTEINDEXED8, _DDPF_RGB, _DDPF_LUMINANCE = 0x1, 0x4, 0x20, 0x40, 0x20000
+# FourCC -> (mode, the bcn decoder's format, signed).
+_DDS_FOURCC = {b"DXT1": ("RGBA", 1, 0), b"DXT3": ("RGBA", 2, 0), b"DXT5": ("RGBA", 3, 0), b"BC4U": ("L", 4, 0),
+               b"ATI1": ("L", 4, 0), b"BC5S": ("RGB", 5, 1), b"BC5U": ("RGB", 5, 0), b"ATI2": ("RGB", 5, 0)}
+# The DX10 header's DXGI format -> the same (0: raw RGBA); the sRGB ones
+# only set Pillow's info["gamma"].
+_DXGI = {70: ("RGBA", 1, 0), 71: ("RGBA", 1, 0), 73: ("RGBA", 2, 0), 74: ("RGBA", 2, 0), 76: ("RGBA", 3, 0),
+         77: ("RGBA", 3, 0), 79: ("L", 4, 0), 80: ("L", 4, 0), 82: ("RGB", 5, 0), 83: ("RGB", 5, 0),
+         84: ("RGB", 5, 1), 95: ("RGB", 6, 0), 96: ("RGB", 6, 1), 97: ("RGBA", 7, 0), 98: ("RGBA", 7, 0),
+         99: ("RGBA", 7, 0), 27: ("RGBA", 0, 0), 28: ("RGBA", 0, 0), 29: ("RGBA", 0, 0)}
+
+
+class _Texture(NamedTuple):
+    """What a texture container's _open leaves: Pillow's mode and size,
+    the decoder ("bcn", "masked", "raw", "blp1", "blp2") and its
+    arguments, and the data's offset."""
+    decoder: str
+    mode: str
+    w: int
+    h: int
+    offset: int
+    args: tuple = ()
+
+
+def _texture_sized(t: _Texture) -> _Texture | None:
+    """ImageFile's check after _open (a size of at least 1x1), then
+    Image.open's decompression-bomb check, which stops it."""
+    if t.w <= 0 or t.h <= 0:
+        return None
+    if t.w * t.h > MAX_PIXELS:
+        raise ValueError(f"{t.w}x{t.h} image exceeds {MAX_PIXELS} pixels (Pillow: DecompressionBombError)")
+    return t
+
+
+def _dds_open(data: bytes) -> _Texture | None:
+    """DdsImageFile._open: the 124-byte header (another size, or fewer
+    bytes, raise OSError), then by pixel-format flags RGB (masks; "RGBA"
+    with ALPHAPIXELS), LUMINANCE ("L" at 8 bits, "LA" at 16 with alpha),
+    PALETTEINDEXED8 ("P", a 1024-byte RGBA palette after the header) or
+    FOURCC (the BCn codes; DX10's extension of 20 bytes, its DXGI
+    format); anything else raises NotImplementedError.  Mips, cubes and
+    arrays are ignored: the first surface's top level is read."""
+    if not data.startswith(b"DDS ") or len(data) < 8:
+        return None
+    (size,) = struct.unpack("<I", data[4:8])
+    if size != 124:
+        raise ValueError(f"Unsupported DDS header size {size} (Pillow raises too)")
+    if len(data) < 128:
+        raise ValueError(f"Incomplete DDS header: {len(data) - 8} bytes (Pillow raises too)")
+    h, w = struct.unpack("<II", data[12:20])
+    pfflags, fourcc, bitcount = struct.unpack("<I4sI", data[80:92])
+    if pfflags & _DDPF_RGB:
+        n = 4 if pfflags & _DDPF_ALPHAPIXELS else 3
+        masks = struct.unpack(f"<{n}I", data[92:92 + 4 * n])
+        return _texture_sized(_Texture("masked", "RGBA" if n == 4 else "RGB", w, h, 128, (bitcount, masks)))
+    if pfflags & _DDPF_LUMINANCE:
+        if bitcount == 8:
+            mode = "L"
+        elif bitcount == 16 and pfflags & _DDPF_ALPHAPIXELS:
+            mode = "LA"
+        else:
+            raise ValueError(f"Unsupported DDS luminance bitcount {bitcount} for flags {pfflags} (Pillow raises too)")
+        return _texture_sized(_Texture("raw", mode, w, h, 128))
+    if pfflags & _DDPF_PALETTEINDEXED8:
+        return _texture_sized(_Texture("raw", "P", w, h, 128 + 1024, (data[128:128 + 1024],)))
+    if not pfflags & _DDPF_FOURCC:
+        raise ValueError(f"Unknown DDS pixel format flags {pfflags} (Pillow: NotImplementedError)")
+    if fourcc == b"DX10":
+        if len(data) < 132:
+            return None                   # struct.error: Image.open goes on
+        (dxgi,) = struct.unpack("<I", data[128:132])
+        if dxgi not in _DXGI:
+            raise ValueError(f"Unimplemented DDS DXGI format {dxgi} (Pillow: NotImplementedError)")
+        mode, n, sign = _DXGI[dxgi]
+        if not n:
+            return _texture_sized(_Texture("raw", mode, w, h, 148))
+        return _texture_sized(_Texture("bcn", mode, w, h, 148, (n, sign)))
+    if fourcc not in _DDS_FOURCC:
+        raise ValueError(f"Unimplemented DDS pixel format {fourcc!r} (Pillow: NotImplementedError)")
+    mode, n, sign = _DDS_FOURCC[fourcc]
+    return _texture_sized(_Texture("bcn", mode, w, h, 128, (n, sign)))
+
+
+def _ftex_open(data: bytes) -> _Texture | None:
+    """FtexImageFile._open: version, size, mipmap and format counts (a
+    format count other than 1 fails its assert), the format and its
+    offset, the top mipmap's size there and its bytes (-1: the rest of the
+    file; any other negative size raises): DXT1 "RGBA" through the bcn decoder, or raw
+    "RGB"; any other format raises ValueError."""
+    if not data.startswith(b"FTEX") or len(data) < 24:
+        return None
+    w, h, _, format_count = struct.unpack("<4i", data[8:24])
+    if format_count != 1:
+        raise ValueError(f"FTEX file of {format_count} formats (Pillow: AssertionError)")
+    if len(data) < 32:
+        return None
+    fmt, where = struct.unpack("<2i", data[24:32])
+    if where < 0:
+        raise ValueError("FTEX format offset before the file's start (Pillow: invalid seek)")
+    if where + 4 > len(data):
+        return None
+    (size,) = struct.unpack("<i", data[where:where + 4])
+    if size < -1:
+        raise ValueError(f"FTEX mipmap size {size} (Pillow: read length must be non-negative or -1)")
+    end = len(data) if size == -1 else where + 4 + size
+    if fmt not in (0, 1):
+        raise ValueError(f"Invalid FTEX texture compression format {fmt} (Pillow raises too)")
+    return _texture_sized(_Texture("bcn" if fmt == 0 else "raw", "RGBA" if fmt == 0 else "RGB", w, h, where + 4,
+                                   (1, 0, end) if fmt == 0 else (end,)))
+
+
+def _blp_open(data: bytes) -> _Texture | None:
+    """BlpImageFile._open: BLP1 (compression, alpha, size, encoding) or
+    BLP2 (compression, encoding, alpha, alpha encoding, size); "RGBA"
+    where the alpha field is set, else "RGB".  Its decoder then reads the
+    16 mip offsets and lengths."""
+    if data.startswith(b"BLP1") and len(data) >= 24:
+        compression, alpha, w, h, encoding = struct.unpack("<iIIIi", data[4:24])
+        return _texture_sized(_Texture("blp1", "RGBA" if alpha else "RGB", w, h, 28, (compression, encoding)))
+    if data.startswith(b"BLP2") and len(data) >= 20:
+        compression, encoding, alpha, alpha_encoding = struct.unpack("<ibbb", data[4:11])
+        w, h = struct.unpack("<II", data[12:20])
+        return _texture_sized(_Texture("blp2", "RGBA" if alpha else "RGB", w, h, 20,
+                                       (compression, encoding, alpha_encoding)))
+    return None
+
+
+def _bcn(lib, data: bytes, offset: int, n: int, sign: int, w: int, h: int, end: int | None = None) -> np.ndarray:
+    """Pillow's bcn decoder of format `n` over data[offset:end]."""
+    out = np.empty((h, w, 1 if n == 4 else 3 if n in (5, 6) else 4), np.uint8)
+    src = data if end is None else data[:end]
+    err = ctypes.create_string_buffer(512)
+    if lib.imgb_bcn(src, len(src), offset, n, sign, w, h, out.ctypes.data, err, len(err)):
+        raise ValueError(err.value.decode(errors="replace"))
+    return out
+
+
+def _raw_pixels(lib, mode: str, data: bytes, offset: int, w: int, h: int, pal: bytes = b"") -> tuple[np.ndarray, str]:
+    """A raw tile in the mode's own rawmode, through raster_decode.cpp
+    (short data raises, as Pillow's "image file is truncated")."""
+    return _raster_tile(lib, _Tile(RAW, mode, mode, offset, w, h, (0, 1), pal), data)
+
+
+def _decode_dds(lib, data: bytes) -> tuple[np.ndarray, str]:
+    t = _dds_open(data)
+    if t is None:
+        raise ValueError("DDS header that Pillow's opener does not take")
+    if t.decoder == "bcn":
+        return _bcn(lib, data, t.offset, *t.args, t.w, t.h), t.mode
+    if t.decoder == "masked":
+        bitcount, masks = t.args
+        out = np.empty((t.h, t.w, len(masks)), np.uint8)
+        lib.imgb_masked(data, len(data), t.offset, bitcount // 8, (ctypes.c_uint32 * 4)(*masks), len(masks), t.w, t.h,
+                        out.ctypes.data)
+        return out, t.mode
+    pal = t.args[0] + bytes(1024 - len(t.args[0])) if t.mode == "P" else b""
+    return _raw_pixels(lib, t.mode, data, t.offset, t.w, t.h, pal)
+
+
+def _decode_ftex(lib, data: bytes) -> tuple[np.ndarray, str]:
+    t = _ftex_open(data)
+    if t is None:
+        raise ValueError("FTEX header that Pillow's opener does not take")
+    if t.decoder == "bcn":
+        n, sign, end = t.args
+        return _bcn(lib, data, t.offset, n, sign, t.w, t.h, end), t.mode
+    return _raw_pixels(lib, "RGB", data[:t.args[0]], t.offset, t.w, t.h)
+
+
+def _need(data: bytes, at: int, n: int) -> bytes:
+    """ImageFile._safe_read: `n` bytes at `at` or OSError ("Truncated File
+    Read"), raised as ValueError."""
+    if n <= 0:
+        return b""
+    if at + n > len(data):
+        raise ValueError("Truncated File Read (BLP; Pillow raises too)")
+    return data[at:at + n]
+
+
+def _as_raw(stream, mode: str, w: int, h: int, rawmode: str = "") -> np.ndarray:
+    """PyDecoder.set_as_raw: the bytes (or a contiguous uint8 array's)
+    read as a w x h image of `mode` in `rawmode` ("BGR": 3 bytes a pixel
+    swapped, alpha 255; default the mode's own), extra bytes ignored."""
+    flat = np.frombuffer(stream, np.uint8)
+    c = 3 if rawmode == "BGR" else len(mode)
+    if flat.size < w * h * c:
+        raise ValueError("not enough image data (BLP; Pillow raises too)")
+    px = flat[:w * h * c].reshape(h, w, c)
+    if rawmode == "BGR":
+        px = px[..., ::-1]
+        if mode == "RGBA":
+            px = np.concatenate([px, np.full((h, w, 1), 255, np.uint8)], axis=2)
+    return np.ascontiguousarray(px)
+
+
+def _blp_bgra(palette: np.ndarray, indices: bytes, mode: str, w: int, h: int) -> np.ndarray:
+    """_BLPBaseDecoder._read_bgra then set_as_raw: each index's palette
+    entry (B, G, R, A in the file) as R, G, B (and its A for "RGBA")."""
+    rgba = palette[np.frombuffer(indices, np.uint8)][:, [2, 1, 0, 3]]
+    return _as_raw(np.ascontiguousarray(rgba[:, :len(mode)]), mode, w, h)
+
+
+def _decode_blp(lib, data: bytes) -> tuple[np.ndarray, str]:
+    """BLP1Decoder and BLP2Decoder: the mip offsets and lengths, then BLP1's
+    JPEG (its shared header joined to mip 0 after a skip to its offset, read
+    as libjpeg reads CMYK for this plugin, converted to RGB and read back
+    as "BGR") or palette (encodings 4 and 5: the indices right after the
+    palette), BLP2's palette (read whatever the encoding) then at mip 0's
+    offset its indices or its DXT1/3/5 blocks (BlpImagePlugin's Python
+    decoder)."""
+    t = _blp_open(data)
+    if t is None:
+        raise ValueError("BLP header that Pillow's opener does not take")
+    w, h, mode = t.w, t.h, t.mode
+    offsets = struct.unpack("<16I", _need(data, t.offset, 64))
+    lengths = struct.unpack("<16I", _need(data, t.offset + 64, 64))
+    pos = t.offset + 128
+    if t.decoder == "blp1":
+        compression, encoding = t.args
+        if compression == 0:
+            (size,) = struct.unpack("<I", _need(data, pos, 4))
+            header = _need(data, pos + 4, size)
+            pos += 4 + size
+            _need(data, pos, offsets[0] - pos)      # "What IS this?": a skip to mip 0, none if it lies before
+            pos = max(pos, offsets[0])
+            stream = header + _need(data, pos, lengths[0])
+            if not stream.startswith(b"\xff\xd8\xff"):
+                raise ValueError("BLP1 JPEG data is not a JPEG file (Pillow raises too)")
+            px, inner = _collect(lib, lib.imgd_decode, stream, len(stream), JPEG_AS_BLP)
+            rgb = np.repeat(px, 3, axis=2) if inner == "L" else px[..., :3]
+            return _as_raw(np.ascontiguousarray(rgb), mode, w, h, "BGR"), mode
+        if compression == 1 and encoding in (4, 5):
+            palette = np.frombuffer(_need(data, pos, 1024), np.uint8).reshape(256, 4)
+            return _blp_bgra(palette, _need(data, pos + 1024, lengths[0]), mode, w, h), mode
+        raise ValueError(f"Unsupported BLP1 compression {compression} / encoding {encoding} (Pillow raises too)")
+    compression, encoding, alpha_encoding = t.args
+    palette = np.frombuffer(_need(data, pos, 1024), np.uint8).reshape(256, 4)
+    if compression != 1:
+        raise ValueError(f"Unknown BLP compression {compression} (Pillow raises too)")
+    if encoding == 1:
+        return _blp_bgra(palette, _need(data, offsets[0], lengths[0]), mode, w, h), mode
+    if encoding != 2:
+        raise ValueError(f"Unknown BLP encoding {encoding} (Pillow raises too)")
+    kind = {0: 1, 1: 2, 7: 3}.get(alpha_encoding)
+    if kind is None:
+        raise ValueError(f"Unsupported BLP alpha encoding {alpha_encoding} (Pillow raises too)")
+    bw, bh = (w + 3) // 4, (h + 3) // 4
+    c = 3 if kind == 1 and mode == "RGB" else 4
+    out = np.empty((4 * bh, 4 * bw, c), np.uint8)
+    err = ctypes.create_string_buffer(512)
+    if lib.imgb_blp_dxt(data, len(data), offsets[0], kind, mode == "RGBA", w, h, out.ctypes.data, err, len(err)):
+        raise ValueError(err.value.decode(errors="replace"))
+    return _as_raw(out, mode, w, h), mode
+
+
+_TEXTURES = {"DDS": _decode_dds, "FTEX": _decode_ftex, "BLP": _decode_blp}
 
 
 def _raster(lib, kind: str, data: bytes, floats: bool = False):
@@ -1490,7 +1805,9 @@ def decode_image(data: bytes) -> tuple[np.ndarray, str]:
     if kind in ("ICO", "CUR", "ICNS"):
         return {"ICO": _decode_ico, "CUR": _decode_cur, "ICNS": _decode_icns}[kind](lib, data)
     if kind == "IPTC":
-        return _decode_iptc(lib, data)
+        return _decode_iptc(data)
+    if kind in _TEXTURES:
+        return _TEXTURES[kind](lib, data)
     if kind in _RASTER:
         return _raster(lib, kind, data)
     return _collect(lib, lib.imgd_decode, data, len(data), _CODES[kind])

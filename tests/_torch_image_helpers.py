@@ -54,7 +54,10 @@ FIXTURE_NAMES = ("prog420_odd.jpg", "base422_rst.jpg", "grey.jpg", "rle.tga", "p
                  "lab_1024.tif", "thunder_1024.tif", "ojpeg_ground.tif", "ojpeg_tables_grey.tif",
                  "lzw_old_gloss.tif", "icon_leaf.ico", "icon_png.ico", "cursor.cur", "bitmap.dib", "icns_metal.icns",
                  "pcx_ground.pcx", "sgi_gloss.sgi", "qoi_leaf.qoi", "xbm_leaf.xbm", "fits_metal.fits",
-                 "sun_rle.ras", "xpm_leaf.xpm", "im_lut.im", "msp_rows.msp", "fli_brun.flc")
+                 "sun_rle.ras", "xpm_leaf.xpm", "im_lut.im", "msp_rows.msp", "fli_brun.flc",
+                 "bc7_ground.dds", "bc4_gloss.dds", "blp2_dxt5_leaf.blp", "ftex_dxt1_leaf.ftc", "blp1_jpeg_metal.blp",
+                 "dds_dxt1.dds", "dds_dxt5.dds", "dds_bc5.dds", "dds_bc6h.dds", "dds_rgba_masked.dds",
+                 "dds_palette.dds", "blp1_palette.blp", "blp2_dxt1.blp")
 
 # Corrupt JPEGs: a fixture with bytes replaced ((offset, byte), ...), whose
 # dequantized coefficients overflow libjpeg-turbo's 16-bit SIMD IDCT lanes
@@ -2029,6 +2032,7 @@ def write_fixtures(out: Path = FIXTURES) -> dict:
     write_tiff_codec_fixtures(out)
     write_container_fixtures(out)
     write_raster_fixtures(out)
+    write_texture_fixtures(out)
 
     def digest(name, g):   # None where the JAX package raises (a Lab file read as grey)
         try:
@@ -2042,12 +2046,6 @@ def write_fixtures(out: Path = FIXTURES) -> dict:
                 "realtimeraytracer_torch.utils.image_decode.pixels_digest; null where it raises",
         "digests": digests}, indent=1) + "\n")
     return digests
-
-
-if __name__ == "__main__":
-    os.environ.setdefault("JAX_PLATFORMS", "cpu")
-    for name, d in write_fixtures().items():
-        print(name, (FIXTURES / name).stat().st_size, *(str(v)[:12] for v in d.values()))
 
 
 # ------------------------------------------------- plain raster formats ----
@@ -2513,3 +2511,259 @@ def write_raster_fixtures(out: Path) -> None:
     (out / "msp_rows.msp").write_bytes(encode_msp(1 - cut))
     pal = rng.integers(0, 256, (256, 3))
     (out / "fli_brun.flc").write_bytes(encode_fli(64, 64, [fli_colour([(0, pal)]), fli_brun(gloss, literal=3)]))
+
+
+# ----------------------------------------------- GPU texture containers ----
+#
+# Pillow writes DDS (DXT1, DXT3, DXT5, BC2, BC3, BC5 and raw RGB(A), L, LA)
+# and BLP (palette, BLP1 and BLP2), but no DDS of BC4, BC6H, BC7, channel
+# masks, a palette or DX10's R8G8B8A8, no BLP JPEG or DXT and no FTEX; and
+# the card machine has no Pillow.  These write each from NumPy as Pillow's
+# plugin reads it, with small block encoders (BC4, BC7 mode 6, BLP's DXT)
+# for the fixtures.
+
+DDPF_ALPHAPIXELS, DDPF_FOURCC, DDPF_PALETTEINDEXED8, DDPF_RGB, DDPF_LUMINANCE = 0x1, 0x4, 0x20, 0x40, 0x20000
+
+
+def make_dds(w: int, h: int, payload: bytes, *, fourcc: bytes | None = None, dxgi: int | None = None,
+             pfflags: int | None = None, bitcount: int = 0, masks=(0, 0, 0, 0), mips: int = 0,
+             header_size: int = 124, palette: bytes = b"") -> bytes:
+    """A DDS: magic, the 124-byte header (`header_size` written in its
+    size field), DX10's 20-byte extension where `dxgi` is given (its
+    FourCC "DX10"), a P file's 1024-byte RGBA `palette`, then `payload`
+    (every mip level of the first surface where the caller gives them)."""
+    if dxgi is not None:
+        fourcc = b"DX10"
+    if pfflags is None:
+        pfflags = DDPF_FOURCC if fourcc else 0
+    flags = 0x1007 | (0x20000 if mips else 0)
+    head = struct.pack("<7I", header_size, flags, h, w, 0, 0, mips) + bytes(44)
+    head += struct.pack("<2I", 32, pfflags) + (fourcc or bytes(4)) + struct.pack("<5I", bitcount, *masks)
+    head += struct.pack("<5I", 0x1000 | (0x400000 if mips else 0), 0, 0, 0, 0)
+    out = b"DDS " + head
+    if dxgi is not None:
+        out += struct.pack("<5I", dxgi, 3, 0, 1, 0)
+    return out + palette + payload
+
+
+def _blocks(img: np.ndarray) -> np.ndarray:
+    """(H, W[, C]) pixels as (H/4 * W/4, 16[, C]) blocks, row-major, edges
+    repeated to whole blocks."""
+    h, w = img.shape[:2]
+    img = np.pad(img, [(0, -h % 4), (0, -w % 4)] + [(0, 0)] * (img.ndim - 2), mode="edge")
+    bh, bw = img.shape[0] // 4, img.shape[1] // 4
+    b = img.reshape(bh, 4, bw, 4, *img.shape[2:]).swapaxes(1, 2)
+    return b.reshape(bh * bw, 16, *img.shape[2:])
+
+
+def _pack_bits(fields) -> np.ndarray:
+    """(n, bytes) rows of little-endian bit fields: `fields` (values (n,),
+    width) in order, least significant bit first."""
+    cols = []
+    for values, width in fields:
+        v = np.asarray(values, np.int64)
+        cols.append(((v[:, None] >> np.arange(width)) & 1).astype(np.uint8))
+    return np.packbits(np.concatenate(cols, axis=1), axis=1, bitorder="little")
+
+
+def _bc4_indices(vals: np.ndarray, a0: np.ndarray, a1: np.ndarray) -> np.ndarray:
+    """Nearest of BC4's eight levels (a0 > a1) for (n, 16) samples."""
+    k = np.arange(1, 7)
+    levels = np.concatenate([a0[:, None], a1[:, None], ((7 - k) * a0[:, None] + k * a1[:, None]) // 7], axis=1)
+    return np.abs(vals[:, :, None].astype(int) - levels[:, None, :]).argmin(-1)
+
+
+def encode_bc4(grey) -> bytes:
+    """BC4 blocks of (H, W) uint8: the block's maximum and minimum as a0 >
+    a1 (eight levels), each sample its nearest level (a flat block: all
+    index 0)."""
+    b = _blocks(np.asarray(grey, np.uint8)).astype(int)
+    a0, a1 = b.max(1), b.min(1)
+    a1 = np.where(a0 == a1, np.maximum(a0 - 1, 0), a1)
+    a0 = np.where(a0 == a1, a1 + 1, a0)
+    idx = _bc4_indices(b, a0, a1)
+    return _pack_bits([(a0, 8), (a1, 8)] + [(idx[:, i], 3) for i in range(16)]).tobytes()
+
+
+def encode_bc7_mode6(rgba) -> bytes:
+    """BC7 mode-6 blocks of (H, W, 4) uint8: endpoints the block's channel
+    minima (p-bit 0) and maxima (p-bit 1), each pixel the nearest of the 16
+    blends; endpoints swapped where pixel 0's index needs its top bit."""
+    b = _blocks(np.asarray(rgba, np.uint8)).astype(int)
+    e0, e1 = b.min(1) & ~1, b.max(1) | 1
+    w = np.array([0, 4, 9, 13, 17, 21, 26, 30, 34, 38, 43, 47, 51, 55, 60, 64])
+    pal = ((64 - w)[None, :, None] * e0[:, None, :] + w[None, :, None] * e1[:, None, :] + 32) >> 6
+    idx = ((b[:, :, None, :] - pal[:, None, :, :]) ** 2).sum(-1).argmin(-1)
+    swap = idx[:, 0] >= 8
+    e0, e1 = np.where(swap[:, None], e1, e0), np.where(swap[:, None], e0, e1)
+    idx = np.where(swap[:, None], 15 - idx, idx)
+    fields = [(np.full(len(b), 64), 7)]
+    for ch in range(4):
+        fields += [(e0[:, ch] >> 1, 7), (e1[:, ch] >> 1, 7)]
+    fields += [(e0[:, 0] & 1, 1), (e1[:, 0] & 1, 1), (idx[:, 0], 3)] + [(idx[:, i], 4) for i in range(1, 16)]
+    return _pack_bits(fields).tobytes()
+
+
+def _rgb565(rgb: np.ndarray) -> np.ndarray:
+    rgb = rgb.astype(int)
+    return (rgb[..., 0] >> 3) << 11 | (rgb[..., 1] >> 2) << 5 | rgb[..., 2] >> 3
+
+
+def encode_blp_dxt(rgba, kind: int) -> bytes:
+    """BLP2 DXT blocks of (H, W, 4) uint8 (`kind` 1 DXT1, 2 DXT3, 3 DXT5):
+    colour endpoints the brightest and darkest pixel in 5:6:5, each pixel
+    the nearest of the four colours BlpImagePlugin blends (its own
+    rounding); DXT3's alpha 4 bits, DXT5's as BC4 (DXT1: opaque)."""
+    b = _blocks(np.asarray(rgba, np.uint8)).astype(int)
+    luma = b[..., :3].sum(-1)
+    n = np.arange(len(b))
+    c0, c1 = _rgb565(b[n, luma.argmax(1), :3]), _rgb565(b[n, luma.argmin(1), :3])
+    c0, c1 = np.maximum(c0, c1), np.minimum(c0, c1)
+    c0 = np.where(c0 == c1, np.minimum(c0 + 1, 0xFFFF), c0)
+    c1 = np.where(c0 == c1, c1 - 1, c1)
+
+    def unpack(c):
+        return np.stack([((c >> 11) & 31) << 3, ((c >> 5) & 63) << 2, (c & 31) << 3], -1)
+
+    p0, p1 = unpack(c0), unpack(c1)
+    pal = np.stack([p0, p1, (2 * p0 + p1) // 3, (2 * p1 + p0) // 3], 1)
+    idx = ((b[:, :, None, :3] - pal[:, None, :, :]) ** 2).sum(-1).argmin(-1)
+    colour = [(c0, 16), (c1, 16)] + [(idx[:, i], 2) for i in range(16)]
+    if kind == 1:
+        return _pack_bits(colour).tobytes()
+    if kind == 2:
+        return _pack_bits([(b[:, i, 3] >> 4, 4) for i in range(16)] + colour).tobytes()
+    a0, a1 = b[..., 3].max(1), b[..., 3].min(1)
+    a1 = np.where(a0 == a1, np.maximum(a0 - 1, 0), a1)
+    a0 = np.where(a0 == a1, a1 + 1, a0)
+    aidx = _bc4_indices(b[..., 3], a0, a1)
+    return _pack_bits([(a0, 8), (a1, 8)] + [(aidx[:, i], 3) for i in range(16)] + colour).tobytes()
+
+
+def make_blp2(w: int, h: int, payload: bytes, *, encoding: int = 2, alpha: int = 8, alpha_encoding: int = 7,
+              palette: bytes = bytes(1024), compression: int = 1, length: int | None = None) -> bytes:
+    """A BLP2: its 20-byte header, the 16 mip offsets and lengths (mip 0:
+    `payload`, right after the 1024-byte BGRA `palette`), the palette and
+    the payload."""
+    head = b"BLP2" + struct.pack("<ibbbbII", compression, encoding, alpha, alpha_encoding, 1, w, h)
+    start = 20 + 128 + 1024
+    return (head + struct.pack("<16I", start, *([0] * 15)) +
+            struct.pack("<16I", len(payload) if length is None else length, *([0] * 15)) + palette + payload)
+
+
+def make_blp1(w: int, h: int, *, jpeg: bytes | None = None, split: int = 0, gap: bytes = b"", indices=None,
+              palette: bytes = bytes(1024), alpha: int = 0, encoding: int = 5, compression: int | None = None) -> bytes:
+    """A BLP1: its 28-byte header, the 16 mip offsets and lengths, then a
+    JPEG (the first `split` bytes (default: up to its first SOS) as the
+    shared header, `gap` bytes, the rest as mip 0) or a 1024-byte BGRA
+    `palette` and the (H, W) `indices` (encoding 4 or 5)."""
+    if compression is None:
+        compression = 0 if jpeg is not None else 1
+    head = b"BLP1" + struct.pack("<iIIIii", compression, alpha, w, h, encoding, 0)
+    if jpeg is not None:
+        split = split or jpeg.index(b"\xff\xda")
+        shared, body = jpeg[:split], jpeg[split:]
+        start = 28 + 128 + 4 + len(shared) + len(gap)
+        tail = struct.pack("<I", len(shared)) + shared + gap + body
+    else:
+        body = np.asarray(indices, np.uint8).tobytes()
+        start = 28 + 128 + 1024
+        tail = palette + body
+    return head + struct.pack("<16I", start, *([0] * 15)) + struct.pack("<16I", len(body), *([0] * 15)) + tail
+
+
+def make_ftex(w: int, h: int, payload: bytes, fmt: int = 0, format_count: int = 1, size: int | None = None) -> bytes:
+    """An FTEX: version, size, one mipmap, `format_count`, then one format
+    entry (`fmt` 0 DXT1, 1 raw RGB; its data right after) and the top
+    mipmap's size and bytes."""
+    head = b"FTEX" + struct.pack("<i2i2i2i", 0x4E20, w, h, 1, format_count, fmt, 32)
+    return head + struct.pack("<i", len(payload) if size is None else size) + payload
+
+
+def _texture_payload(data: bytes):
+    """(kind, payload offset, w, h) of a DDS, a BLP2 or a palette BLP1
+    (Pillow's too) or an FTEX that the writers above made: the BCn or pixel
+    payload follows the header; `tile_texture` repeats it."""
+    if data.startswith(b"DDS "):
+        h, w = struct.unpack("<II", data[12:20])
+        off = 148 if data[84:88] == b"DX10" else 128 + (1024 if struct.unpack("<I", data[80:84])[0] & 0x20 else 0)
+        return "DDS", off, w, h
+    if data.startswith(b"BLP2"):
+        return "BLP2", 20 + 128 + 1024, *struct.unpack("<II", data[12:20])
+    if data.startswith(b"BLP1") and struct.unpack("<i", data[4:8])[0] == 1:
+        return "BLP1", 28 + 128 + 1024, *struct.unpack("<II", data[12:20])
+    if data.startswith(b"FTEX"):
+        return "FTEX", 36, *struct.unpack("<2i", data[8:16])
+    raise ValueError("not a texture these writers made")
+
+
+def tile_texture(data: bytes, reps: int, unit: tuple[int, int, int]) -> bytes:
+    """The texture `data` repeated `reps` x `reps` times: its payload cut
+    into (rows, columns, bytes) units (`unit`: 4 x 4 blocks of B bytes, or
+    1 x 1 pixels of B bytes), the grid tiled; sizes and lengths rewritten."""
+    kind, off, w, h = _texture_payload(data)
+    uh, uw, ub = unit
+    gh, gw = -(-h // uh), -(-w // uw)
+    grid = np.frombuffer(data, np.uint8, gh * gw * ub, off).reshape(gh, gw, ub)
+    payload = np.tile(grid, (reps, reps, 1)).tobytes()
+    W, H = w * reps, h * reps
+    head = bytearray(data[:off])
+    if kind == "DDS":
+        struct.pack_into("<II", head, 12, H, W)
+    elif kind in ("BLP1", "BLP2"):
+        struct.pack_into("<II", head, 12, W, H)
+        struct.pack_into("<I", head, (28 if kind == "BLP1" else 20) + 64, len(payload))
+    else:
+        struct.pack_into("<2i", head, 8, W, H)
+        struct.pack_into("<i", head, 32, len(payload))
+    return bytes(head) + payload
+
+
+def write_texture_fixtures(out: Path) -> None:
+    """The DDS, BLP and FTEX fixtures: the BC7 ground colour, the BC4
+    specular, the BLP2 DXT5 leaf colour, the FTEX DXT1 cut-out (white where
+    the leaf stays) and the BLP1 JPEG metallic map stand in for
+    textured_obj's maps (chip_smoke phase 38); the others hold a format
+    each (Pillow's DXT1, DXT5 and BC5, random BC6H blocks, 32-bit masks, a
+    palette, BLP1's palette, BLP2's DXT1), and with the first five are the
+    blocks chip_smoke tiles to 1024^2."""
+    from PIL import Image
+
+    ground, gloss, leaf, cut, metal = raster_maps()
+    leaf[..., 3] = np.clip(140 + np.arange(64) * 2, 0, 255)[None, :]       # an alpha ramp for DXT5
+    rgba = np.concatenate([ground, np.full((64, 64, 1), 255, np.uint8)], -1)
+    (out / "bc7_ground.dds").write_bytes(make_dds(64, 64, encode_bc7_mode6(rgba), dxgi=98))
+    (out / "bc4_gloss.dds").write_bytes(make_dds(64, 64, encode_bc4(gloss), fourcc=b"BC4U"))
+    (out / "blp2_dxt5_leaf.blp").write_bytes(make_blp2(64, 64, encode_blp_dxt(leaf, 3)))
+    dxt1 = _pack_bits([(np.full(256, 0xFFFF), 16), (np.zeros(256), 16)] +
+                      [(1 - _blocks(cut)[:, i], 2) for i in range(16)])
+    (out / "ftex_dxt1_leaf.ftc").write_bytes(make_ftex(64, 64, dxt1.tobytes()))
+    js = encode_jpeg([metal, np.full_like(metal, 112), np.full_like(metal, 150)], [(1, 1)] * 3, q=2)  # Y, Cb, Cr
+    (out / "blp1_jpeg_metal.blp").write_bytes(make_blp1(48, 48, jpeg=js, gap=b"pad!"))
+    rng = np.random.default_rng(23)
+    smooth = smooth_image(rng, 64, 64, 4)
+    for name, fmt, mode in (("dds_dxt1.dds", "DXT1", "RGBA"), ("dds_dxt5.dds", "DXT5", "RGBA"),
+                            ("dds_bc5.dds", "BC5", "RGB")):
+        b = io.BytesIO()
+        Image.fromarray(smooth).convert(mode).save(b, "DDS", pixel_format=fmt)
+        (out / name).write_bytes(b.getvalue())
+    blocks = rng.integers(0, 256, (256, 16), np.uint8)
+    blocks[:, 0] = (blocks[:, 0] & 0xE0) | rng.choice([0, 1, 2, 6, 10, 14, 18, 22, 26, 30, 3, 7, 11, 15], 256)
+    (out / "dds_bc6h.dds").write_bytes(make_dds(64, 64, blocks.tobytes(), dxgi=95))
+    (out / "dds_rgba_masked.dds").write_bytes(make_dds(
+        64, 64, smooth[..., [2, 1, 0, 3]].tobytes(), pfflags=DDPF_RGB | DDPF_ALPHAPIXELS, bitcount=32,
+        masks=(0xFF0000, 0xFF00, 0xFF, 0xFF000000)))
+    pal = rng.integers(0, 256, (256, 4), np.uint8)
+    idx = (smooth[..., 0] // 8).astype(np.uint8)
+    (out / "dds_palette.dds").write_bytes(make_dds(64, 64, idx.tobytes(), pfflags=DDPF_PALETTEINDEXED8, bitcount=8,
+                                                   palette=pal.tobytes()))
+    b = io.BytesIO()
+    Image.fromarray(smooth[..., :3]).quantize(64).save(b, "BLP", blp_version="BLP1")
+    (out / "blp1_palette.blp").write_bytes(b.getvalue())
+    (out / "blp2_dxt1.blp").write_bytes(make_blp2(64, 64, encode_blp_dxt(smooth, 1), alpha=0, alpha_encoding=0))
+
+
+if __name__ == "__main__":
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    for name, d in write_fixtures().items():
+        print(name, (FIXTURES / name).stat().st_size, *(str(v)[:12] for v in d.values()))

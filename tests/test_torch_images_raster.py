@@ -16,10 +16,12 @@ FLI chunks, IPTC records, Photo CD orientations, GBR, IM Tools, McIdas,
 PIXAR, XV thumbnails).  Files Pillow refuses raise ValueError in the
 port.  The logged divergences: 16-bit grey samples read as their high
 byte (FITS 16, McIdas "I;16B", IM "I;16*"), a float FITS sky read as its
-true samples, IPTC layers Pillow mislabels.  Also the TIFF repairs of
+true samples.  IPTC layers Pillow mislabels read as Pillow reads them
+(queue C, repaired).  Also the TIFF repairs of
 ROADMAP's queue C found by tests/_torch_tiff_fuzz.py (old-style JPEG of a
 grey photometric in tiles, a JPEG tile narrower than TileWidth, offsets
-under the other tag), and the formats still to port raising.
+under the other tag), and the formats still to port (JPEG 2000, AVIF)
+raising.
 
 Tolerance: none; every case is bit-equal, but for the pixels Pillow
 leaves undefined (ROADMAP's "not compared" rule), masked where stated.
@@ -519,17 +521,13 @@ def test_raster_skies(tmp_path):
     assert np.array_equal(jol.load_hdr(str(p), tone_encode=False), np.repeat(swapped[:, :, None], 3, 2))
 
 
-@pytest.mark.parametrize("fmt", ["AVIF", "BLP", "DDS", "FTEX", "JPEG2000"])
+@pytest.mark.parametrize("fmt", ["AVIF", "JPEG2000"])
 def test_formats_still_to_port_raise_naming_them(tmp_path, fmt):
-    """A12's groups 3 (DDS and the DXT members of BLP and FTEX) and 4 (JPEG
-    2000, AVIF): Pillow reads them (the files here are Pillow's, and an
-    FTEX header), the port raises ValueError naming the format."""
-    if fmt == "FTEX":
-        data = b"FTEX" + struct.pack("<7I", 0x4E20, 4, 4, 1, 1, 1, 0) + bytes(64)
-    else:
-        im = Image.fromarray(smooth_image(np.random.default_rng(2207), 8, 8, 3))
-        data = _pillow(fmt, im.convert("P") if fmt == "BLP" else im)
-        assert Image.open(io.BytesIO(data)).format == fmt
+    """A12's group 4 (JPEG 2000, AVIF): Pillow reads them (the files here
+    are Pillow's), the port raises ValueError naming the format."""
+    im = Image.fromarray(smooth_image(np.random.default_rng(2207), 8, 8, 3))
+    data = _pillow(fmt, im)
+    assert Image.open(io.BytesIO(data)).format == fmt
     with pytest.raises(ValueError, match=f"{fmt} image: not a format this port reads yet"):
         image_decode.decode_image(data)
 
@@ -547,23 +545,36 @@ def test_iptc_data_of_another_size_matches_jax(tmp_path):
         _same_as_jax(p)
 
 
-def test_iptc_layers_pillow_mislabels_diverge_from_jax(tmp_path):
-    """IPTC files that Pillow reads with the wrong shape or mode (ROADMAP
-    queue C; the port raises): records of one grey layer over colour JPEG
-    data (Pillow keeps the colour image under the mode "L", so JAX's
-    convert("L") hands on its three channels), and an RGB layer whose data
-    has another size than the records (Pillow shapes the unconverted RGB
-    image by the records' size, and converts it to grey by its own)."""
+def test_iptc_layers_pillow_mislabels_match_jax(tmp_path):
+    """IPTC files that Pillow labels by their records but holds another
+    image (ROADMAP queue C, repaired): records of one grey layer over
+    colour JPEG data, RGB and CMYK (Pillow keeps the colour image under the
+    mode "L": convert("L") copies it, so JAX's grey load hands on its three
+    channels, or a CMYK's four stored bytes, and convert("RGBA") converts
+    it by its own mode) and over a grey JPEG of another size; a layer of an
+    RGB image, each band, whose data has another size than the records
+    (the unconverted image's RGB bytes, at the data's size, shaped by the
+    records' size: narrower, or narrower and taller; convert("L") at the
+    data's own size); a layer of a CMYK image of another size."""
     rng = np.random.default_rng(2209)
     rgb, g = smooth_image(rng, 6, 8, 3), smooth_image(rng, 6, 20, 1)[..., 0]
+    colour = encode_jpeg([rgb[..., k] for k in range(3)], [(1, 1)] * 3, q=3)
+    cmyk = encode_jpeg([rgb[..., k] for k in (0, 1, 2, 0)], [(1, 1)] * 4, q=3, adobe=0)
+    grey = encode_jpeg([g], [(1, 1)], q=3)
+    files = {"colour_in_grey": encode_iptc(colour, 8, 6, compression=5),
+             "cmyk_in_grey": encode_iptc(cmyk, 8, 6, compression=5),
+             "grey_other_size": encode_iptc(grey, 11, 6, compression=5),
+             "cmyk_layer_other_size": encode_iptc(grey, 11, 6, 4, 1, compression=5, band=3)}
+    for band in range(3):
+        files[f"rgb_band{band}_narrower"] = encode_iptc(grey, 11, 6, 3, 1, compression=5, band=band)
+    files["rgb_taller"] = encode_iptc(grey, 11, 8, 3, 1, compression=5, band=1)
+    for name, data in files.items():
+        p = tmp_path / f"iptc_{name}.iim"
+        p.write_bytes(data)
+        _same_as_jax(p)
     p = tmp_path / "iptc_colour_in_grey.iim"
-    p.write_bytes(encode_iptc(encode_jpeg([rgb[..., k] for k in range(3)], [(1, 1)] * 3, q=3), 8, 6, compression=5))
-    assert jol.load_texture_file(str(p), True).shape == (6, 8, 3)
-    with pytest.raises(ValueError, match="IPTC grey image holding a RGB image"):
-        tol.load_texture_file(str(p), True)
-    p = tmp_path / "iptc_rgb_other_size.iim"
-    p.write_bytes(encode_iptc(encode_jpeg([g], [(1, 1)], q=3), 11, 6, 3, 1, compression=5, band=2))
-    assert jol.load_texture_file(str(p), False).shape == (6, 11, 3)
-    assert jol.load_texture_file(str(p), True).shape == (6, 20, 1)
-    with pytest.raises(ValueError, match="IPTC RGB layer of another size"):
-        tol.load_texture_file(str(p), False)
+    assert tol.load_texture_file(str(p), True).shape == (6, 8, 3)
+    assert tol.load_texture_file(str(tmp_path / "iptc_cmyk_in_grey.iim"), True).shape == (6, 8, 4)
+    p = tmp_path / "iptc_rgb_band2_narrower.iim"
+    assert tol.load_texture_file(str(p), False).shape == (6, 11, 3)
+    assert tol.load_texture_file(str(p), True).shape == (6, 20, 1)

@@ -495,9 +495,10 @@ def test_port_needs_no_pillow():
     load_texture_file reads a committed JPEG, the TGA, GIF, PSD, TIFF
     (LZW, Deflate, JPEG, CCITT Group 4, ZSTD, LZMA, Lab, old-style JPEG and
     LZW), YCCK JPEG, WebP (lossy with alpha, lossless), ICO, CUR, DIB,
-    ICNS, PCX, SGI, QOI, XBM, FITS, Sun raster, XPM, IM, MSP and FLC
-    fixtures (tests/data/images) through the native decoder (raster_decode.cpp
-    among its sources), a float RGB TIFF and a float FITS sky, and QOI and
+    ICNS, PCX, SGI, QOI, XBM, FITS, Sun raster, XPM, IM, MSP, FLC, BC7,
+    BC4 and BC6H DDS, BLP2 DXT5, FTEX DXT1 and BLP1 JPEG fixtures
+    (tests/data/images) through the native decoder (raster_decode.cpp and
+    bcn_decode.cpp among its sources), a float RGB TIFF and a float FITS sky, and QOI and
     Photo CD files the tests' NumPy encoders write; nothing imported PIL.
     No source file of the port, nor chip_smoke.py, imports jax, PIL or
     imageio."""
@@ -529,7 +530,10 @@ def test_port_needs_no_pillow():
                             ("qoi_leaf.qoi", (64, 64, 4)), ("xbm_leaf.xbm", (64, 64, 4)),
                             ("fits_metal.fits", (48, 48, 4)), ("sun_rle.ras", (64, 64, 4)),
                             ("xpm_leaf.xpm", (64, 64, 4)), ("im_lut.im", (64, 64, 4)),
-                            ("msp_rows.msp", (64, 64, 4)), ("fli_brun.flc", (64, 64, 4))):
+                            ("msp_rows.msp", (64, 64, 4)), ("fli_brun.flc", (64, 64, 4)),
+                            ("bc7_ground.dds", (64, 64, 4)), ("bc4_gloss.dds", (64, 64, 4)),
+                            ("dds_bc6h.dds", (64, 64, 3)), ("blp2_dxt5_leaf.blp", (64, 64, 4)),
+                            ("ftex_dxt1_leaf.ftc", (64, 64, 4)), ("blp1_jpeg_metal.blp", (48, 48, 3))):
             tex = load_texture_file("tests/data/images/" + name)
             assert tex.shape == shape and 0.0 <= tex.min() and tex.max() <= 1.0, name
         import os, tempfile
